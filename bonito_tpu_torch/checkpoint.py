@@ -6,6 +6,13 @@ bonito_tpu keys are the port's ``state_dict`` keys (``encoder.4.w_hh``,
 ``encoder.0.norm.mean``, ...). One layout differs: a conv weight is
 [W, I, O] in bonito_tpu and [O, I, W] here. Param-less layers (Permute,
 Clamp) have no entry. Importing upstream ``weights_N.tar`` waits.
+
+Checkpoints on disk hold the float tree only: quantisation happens at
+load (``util.load_model``), as in bonito_tpu. ``params_from_jax`` also
+takes an already-quantised bonito_tpu tree (``w_hh_q``/``scales``/
+``w_ih_q``/``ih_scales`` in place of an LSTM's ``w_hh``/``w_ih``, and
+``w_q``/``w_s`` beside a CRF head's ``w``) and puts the model's layers
+into that form.
 """
 
 import numpy as np
@@ -43,6 +50,7 @@ def params_from_jax(model, tree):
     flat = _flatten(tree) if any(isinstance(v, dict) for v in tree.values()) \
         else {k: np.asarray(v) for k, v in tree.items()}
     conv_w = _conv_weight_keys(model)
+    _adopt_quantized_form(model, flat)
     state = model.state_dict()
     missing = sorted(set(state) - set(flat))
     unexpected = sorted(set(flat) - set(state))
@@ -61,9 +69,29 @@ def params_from_jax(model, tree):
     return model
 
 
+def _adopt_quantized_form(model, flat):
+    """Quantise in place the layers that ``flat`` holds in int8 form and
+    the model does not yet."""
+    for name, m in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if (isinstance(m, nn.LSTM) and not m.quantized
+                and prefix + "w_hh_q" in flat):
+            m.set_quantized(*(flat[prefix + k] for k in (
+                "w_hh_q", "scales", "w_ih_q", "ih_scales")))
+        elif (isinstance(m, nn.LinearCRFEncoder) and m.w_q is None
+                and prefix + "w_q" in flat):
+            m.set_quantized_head(flat[prefix + "w_q"], flat[prefix + "w_s"])
+
+
 def save_params(path, model):
     """``weights_{N}.npz`` in bonito_tpu's key format (f32): the inverse of
-    ``params_from_jax``."""
+    ``params_from_jax``. Float models only: a quantised model no longer
+    holds the weights a checkpoint stores."""
+    quantized = [name for name, m in model.named_modules()
+                 if isinstance(m, nn.LSTM) and m.quantized]
+    if quantized:
+        raise ValueError(f"layers {quantized} are quantised; save the float "
+                         f"model, quantisation happens at load")
     conv_w = _conv_weight_keys(model)
     flat = {}
     for key, value in model.state_dict().items():

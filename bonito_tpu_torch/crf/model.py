@@ -11,6 +11,7 @@ import torch
 from bonito_tpu_torch import nn
 from bonito_tpu_torch.crf.seqdist import CTC_CRF
 from bonito_tpu_torch.ops.decode import tcn_permutation
+from bonito_tpu_torch.ops.lstm import INT8_ROUTES
 
 
 class SeqdistModel(torch.nn.Module):
@@ -42,10 +43,31 @@ class SeqdistModel(torch.nn.Module):
         self.compute_dtype = torch.bfloat16
         return self
 
-    def quantize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "quantize=true (the int8 LSTM and head, bonito_tpu's default hac "
-            "route) is the int8 slice of the port; load with quantize=False")
+    def quantize(self, route=None):
+        """int8-quantise every layer that has ``quantize_params`` (the
+        LSTM cells) from the weights as they stand, then mark the chains:
+        a quantised LSTM that feeds another emits its hidden state as
+        int8 ``round(h * 127)`` — what its own recurrence and the
+        consumer's projection both quantise to — and one that feeds the
+        CRF head does too, with the head's weights going int8 as well
+        (the static 1/127 step is exact only for a bounded LSTM h, which
+        is why the head is quantised here, by structure, and not by the
+        walk). Layout glue (Permute) between producer and consumer does
+        not break a chain. ``route`` names the int8 LSTM route of every
+        layer (``ops.lstm.INT8_ROUTES``; None: each layer's shape gate).
+
+        bonito_tpu's ``quantize`` also takes calibrated activation scales
+        (``amax``) for the transformer family's projections; that part
+        waits for the sup slice."""
+        if route is not None and route not in INT8_ROUTES:
+            raise ValueError(f"route {route!r}: expected None or one of "
+                             f"{INT8_ROUTES}")
+        for layer in self.encoder.modules():
+            if hasattr(layer, "quantize_params"):
+                layer.quantize_params()
+                layer.int8_route = route
+        _mark_chains(self.encoder)
+        return self
 
     def forward(self, x):
         """x [N, T, 1] signal chunks -> scores [N, T/stride, n_score]."""
@@ -86,14 +108,31 @@ class SeqdistModel(torch.nn.Module):
         h = x
         for _, layer in items:
             h = layer(h)
-        perm = self._tcn_perm(h.device)
-        moves = crf.head(h, crf.w[:, perm],
-                         None if crf.b is None else crf.b[perm])
+        moves = crf.head(h, self._tcn_perm(h.device), self.compute_dtype)
         blank = float(crf.blank_score)
         if clamp is not None:
             moves = clamp[1](moves)
             blank = float(np.clip(blank, clamp[1].min, clamp[1].max))
         return moves.permute(1, 2, 0), blank
+
+
+GLUE = (nn.Permute,)  # value-preserving layers an int8 h passes through
+
+
+def _mark_chains(layer):
+    items = list(layer.children())
+    for i, a in enumerate(items):
+        if not (isinstance(a, nn.LSTM) and a.quantized):
+            continue
+        consumer = next((s for s in items[i + 1:] if not isinstance(s, GLUE)),
+                        None)
+        if isinstance(consumer, nn.LSTM) and consumer.quantized:
+            a.int8_out = True
+        elif isinstance(consumer, nn.LinearCRFEncoder):
+            consumer.quantize_head_params()
+            a.int8_out = True
+    for sub in items:
+        _mark_chains(sub)
 
 
 class Model(SeqdistModel):

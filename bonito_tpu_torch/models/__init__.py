@@ -28,7 +28,8 @@ def lstm_crf_config(
     quantize=True,
 ):
     """LSTM-CRF family (schema of dna_r10.4.1@v4.3.toml). ``quantize`` is
-    the config's own default; this port runs ``quantize=false`` only."""
+    the shipped configs' default, true: ``util.load_model(...,
+    quantize=None)`` then runs the int8 LSTM chain and the int8 CRF head."""
     if standardisation is None and scaling_strategy == "pa":
         standardisation = {"standardise": 1, "mean": 90.0, "stdev": 23.0}
     sublayers = [

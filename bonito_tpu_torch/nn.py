@@ -11,8 +11,12 @@ bonito_tpu's (and upstream bonito's) ``config.toml`` files name.
   converter in ``checkpoint.py`` transposes it).
 - Inference only: BatchNorm uses its running statistics.
 
-Stack, NamedSerial, LinearUpsample, Reverse and the int8 parameter forms
-wait for the slices that run them.
+- ``LSTM.quantize_params`` and ``LinearCRFEncoder.quantize_head_params``
+  give the int8 forms of bonito_tpu's quantised parameter tree (the same
+  names and shapes), as buffers: ``to_bf16`` casts parameters only.
+
+Stack, NamedSerial, LinearUpsample and Reverse wait for the slices that
+run them.
 """
 
 import math
@@ -21,7 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from bonito_tpu_torch.ops.lstm import lstm
+from bonito_tpu_torch.ops import int8
+from bonito_tpu_torch.ops.lstm import lstm, lstm_int8
 
 layers = {}
 
@@ -267,7 +272,14 @@ class LSTM(Layer):
     """Unidirectional LSTM over [N, T, C]; torch gate order (i, f, g, o),
     ``w_ih`` [C, 4H], ``w_hh`` [H, 4H], ``b`` [4H] as in bonito_tpu. The
     input projection is one matmul; the recurrence runs in ``ops.lstm``
-    (kernel A on the card). ``reverse`` walks time backwards."""
+    (kernel A on the card). ``reverse`` walks time backwards.
+
+    After ``quantize_params`` the layer holds bonito_tpu's quantised form
+    instead — ``w_hh_q``/``w_ih_q`` int8 with ``scales``/``ih_scales``
+    [1, 4H] f32, and ``b`` in f32, all buffers — and runs
+    ``ops.lstm.lstm_int8`` on ``int8_route`` (None: the shape gate's
+    choice). ``int8_out`` makes the fused route emit ``round(h * 127)``
+    int8 for a quantised consumer."""
 
     def __init__(self, size, insize, bias=True, reverse=False):
         super().__init__()
@@ -277,13 +289,63 @@ class LSTM(Layer):
         self.w_ih = torch.nn.Parameter(torch.zeros(insize, 4 * size))
         self.w_hh = torch.nn.Parameter(torch.zeros(size, 4 * size))
         self.b = torch.nn.Parameter(torch.zeros(4 * size)) if bias else None
+        self.int8_out = False
+        self.int8_route = None
 
     @property
     def bias(self):
         return self.b is not None
 
+    @property
+    def quantized(self):
+        return self.w_hh is None
+
     def forward(self, x):
+        if self.quantized:
+            return lstm_int8(x, None, self.w_hh_q, self.scales, self.b,
+                             reverse=self.reverse, w_ih_q=self.w_ih_q,
+                             ih_scales=self.ih_scales,
+                             out_int8=self.int8_out, route=self.int8_route)
         return lstm(x, self.w_ih, self.w_hh, self.b, reverse=self.reverse)
+
+    def set_quantized(self, w_hh_q, scales, w_ih_q, ih_scales):
+        """Replace the float weights by their int8 form (numpy arrays or
+        tensors of bonito_tpu's shapes); ``b`` becomes an f32 buffer, the
+        type the int8 kernels read it in."""
+        if self.quantized:
+            raise ValueError("the layer is quantised already")
+        device = self.w_hh.device
+        H, C = self.size, self.insize
+        for name, value, dtype, shape in (
+                ("w_hh_q", w_hh_q, torch.int8, (H, 4 * H)),
+                ("scales", scales, torch.float32, (1, 4 * H)),
+                ("w_ih_q", w_ih_q, torch.int8, (C, 4 * H)),
+                ("ih_scales", ih_scales, torch.float32, (1, 4 * H))):
+            value = torch.tensor(np.asarray(value)).to(device=device,
+                                                       dtype=dtype)
+            if tuple(value.shape) != shape:
+                raise ValueError(f"{name}: shape {tuple(value.shape)}, "
+                                 f"expected {shape}")
+            self.register_buffer(name, value)
+        self.w_ih = self.w_hh = None
+        if isinstance(self.b, torch.nn.Parameter):
+            b = self.b.detach().float()
+            del self.b
+            self.register_buffer("b", b)
+
+    def quantize_params(self):
+        """Full-cell int8 quantisation of the weights as they stand (so
+        after a bf16 cast, of the bf16-rounded values): w_hh per column
+        with the static 1/127 step of h folded in, w_ih per column against
+        a dynamic per-tensor activation step. Nothing to do when already
+        quantised."""
+        if self.quantized:
+            return
+        w_hh_q, scales = int8.quantize_whh(
+            self.w_hh.detach().float().cpu().numpy())
+        w_ih_q, ih_scales = int8.quantize_cols(
+            self.w_ih.detach().float().cpu().numpy())
+        self.set_quantized(w_hh_q, scales, w_ih_q, ih_scales)
 
     def to_dict(self):
         return {"size": self.size, "insize": self.insize, "bias": self.bias,
@@ -308,7 +370,15 @@ class LinearCRFEncoder(Layer):
     """Projects features to CRF transition scores [N, T, n_score]. With a
     fixed ``blank_score`` only the n_base**(state_len+1) move scores are
     learned (``w`` [H, out_size]); ``forward`` expands the blank (stay)
-    column in front of each state's n_base move columns."""
+    column in front of each state's n_base move columns.
+
+    ``quantize_head_params`` adds int8 weights ``w_q`` [H, out_size] with
+    ``w_s`` [1, out_size] beside the float ``w``; the projection then runs
+    as an int8 product against an input in steps of 1/127 — exact only
+    for a bounded LSTM h, so ``SeqdistModel.quantize`` calls it for
+    LSTM -> head pairs only."""
+
+    SLAB_ROWS = 1 << 15  # rows of [N*T, H] per int8 product (see project)
 
     def __init__(self, insize, n_base, state_len, bias=True, scale=None,
                  activation=None, blank_score=None, expand_blanks=True,
@@ -327,16 +397,72 @@ class LinearCRFEncoder(Layer):
             else (n_base + 1) * n_base ** state_len)
         self.w = torch.nn.Parameter(torch.zeros(insize, self.out_size))
         self.b = torch.nn.Parameter(torch.zeros(self.out_size)) if bias else None
+        self.register_buffer("w_q", None)
+        self.register_buffer("w_s", None)
 
     @property
     def bias(self):
         return self.b is not None
 
-    def head(self, x, w, b):
+    def set_quantized_head(self, w_q, w_s):
+        device = self.w.device
+        self.w_q = torch.tensor(np.asarray(w_q)).to(device=device,
+                                                    dtype=torch.int8)
+        self.w_s = torch.tensor(np.asarray(w_s)).to(device=device,
+                                                    dtype=torch.float32)
+        if (tuple(self.w_q.shape) != tuple(self.w.shape)
+                or tuple(self.w_s.shape) != (1, self.out_size)):
+            raise ValueError(f"w_q {tuple(self.w_q.shape)} / w_s "
+                             f"{tuple(self.w_s.shape)} do not fit w "
+                             f"{tuple(self.w.shape)}")
+
+    def quantize_head_params(self):
+        """Per-output-column int8 weights from ``w`` as it stands, kept
+        beside it. Nothing to do when already quantised."""
+        if self.w_q is None:
+            self.set_quantized_head(*int8.quantize_cols(
+                self.w.detach().float().cpu().numpy()))
+
+    def project(self, x, perm=None, out_dtype=None):
+        """The head matmul (+ bias) over x [N, T, H], with the weight
+        columns taken in the order ``perm`` when given. ``x`` may be a
+        chained int8 h (steps of 1/127) or float. A float input through
+        float weights keeps its dtype; an int8 input or int8 weights give
+        ``out_dtype`` (default: bf16 for an int8 input, else the input's).
+
+        Quantised, it is an int8 product with int32 accumulation, rescaled
+        in f32. At hac widths the int32 result of a whole batch would be
+        2.6 GB and its f32 rescale as much again, so the product runs over
+        slabs of SLAB_ROWS rows and writes each into the result."""
+        if out_dtype is None:
+            out_dtype = torch.bfloat16 if x.dtype == torch.int8 else x.dtype
+        cols = slice(None) if perm is None else perm
+        b = None if self.b is None else self.b[cols]
+        if self.w_q is None:
+            if x.dtype == torch.int8:
+                x = int8.dequantize_h(x, out_dtype)
+            scores = torch.matmul(x, self.w[:, cols].to(x.dtype))
+            if b is not None:
+                scores = scores + b.to(x.dtype)
+            return scores
+        N, T, H = x.shape
+        x_q = (x if x.dtype == torch.int8 else int8.quantize_h(x)).reshape(
+            N * T, H)
+        w_q = self.w_q[:, cols].contiguous()
+        rescale = self.w_s.reshape(-1)[cols] / 127.0
+        scores = torch.empty(N * T, w_q.shape[1], dtype=out_dtype,
+                             device=x.device)
+        for r in range(0, N * T, self.SLAB_ROWS):
+            # int32 * f32 promotes to f32 in one pass
+            part = int8.int_matmul(x_q[r:r + self.SLAB_ROWS], w_q) * rescale
+            if b is not None:
+                part.add_(b.float())
+            scores[r:r + self.SLAB_ROWS] = part
+        return scores.reshape(N, T, -1)
+
+    def head(self, x, perm=None, out_dtype=None):
         """The projection with the activation and scale (no blanks)."""
-        scores = torch.matmul(x, w.to(x.dtype))
-        if b is not None:
-            scores = scores + b.to(x.dtype)
+        scores = self.project(x, perm, out_dtype)
         if self.activation is not None:
             scores = self.activation(scores)
         if self.scale is not None:
@@ -344,7 +470,7 @@ class LinearCRFEncoder(Layer):
         return scores
 
     def forward(self, x):
-        scores = self.head(x, self.w, self.b)
+        scores = self.head(x)
         if self.blank_score is not None:
             N, T, C = scores.shape
             scores = scores.reshape(N, T, C // self.n_base, self.n_base)

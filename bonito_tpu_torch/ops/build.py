@@ -35,6 +35,11 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # xw, w_hh, out, hbuf, cbuf, T, N, Np, H, reverse, stream
     "lstm_recurrence_bf16": [P, P, P, P, P, I, I, I, I, I, P],
+    # x_q, w_ih_q^T, w_hh_q^T, ih_scales, scales, b, out, out_int8, hbuf,
+    # cbuf, T, N, Np, C, H, reverse, stream
+    "lstm_int8_fused": [P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, P],
+    # xw, w_hh_q^T, scales, out, hbuf, cbuf, T, N, Np, H, reverse, stream
+    "lstm_int8_recurrence": [P, P, P, P, P, P, I, I, I, I, I, P],
     # moves, move_in, choices, c, logz, end_state, N, T, S, p_stay,
     # blank, stream
     "decode_tcn_fwd_bf16": [P, P, P, P, P, P, I, I, I, F, F, P],

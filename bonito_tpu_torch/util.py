@@ -202,11 +202,14 @@ def set_config_defaults(config, chunksize=None, batchsize=None, overlap=None,
 
 def load_model(dirname, weights=None, half=True, chunksize=None,
                batchsize=None, overlap=None, quantize=False, fuse_bn=False,
-               device=None):
+               device=None, route=None):
     """Load a model (config + weights) off disk onto ``device`` (the card
     unless ``device="cpu"``). Chunksize is rounded down to a stride
     multiple and overlap to an even stride multiple so stitching stays
-    exact."""
+    exact. ``quantize=None`` takes the config's own ``basecaller.quantize``
+    (true in every shipped LSTM-CRF config); a quantised model runs the
+    int8 LSTM route ``route`` (``ops.lstm.INT8_ROUTES``; None: each
+    layer's shape gate decides)."""
     from bonito_tpu_torch import resolve_device
     from bonito_tpu_torch.config import load_config
 
@@ -222,10 +225,11 @@ def load_model(dirname, weights=None, half=True, chunksize=None,
     config = load_config(dirname / "config.toml")
     config = set_config_defaults(config, chunksize, batchsize, overlap, quantize)
     return _load_model(weights_path, config, half=half, fuse_bn=fuse_bn,
-                       device=device)
+                       device=device, route=route)
 
 
-def _load_model(weights_path, config, half=True, fuse_bn=False, device=None):
+def _load_model(weights_path, config, half=True, fuse_bn=False, device=None,
+                route=None):
     from bonito_tpu_torch import nn, resolve_device
     from bonito_tpu_torch.checkpoint import load_params, params_from_jax
 
@@ -241,9 +245,10 @@ def _load_model(weights_path, config, half=True, fuse_bn=False, device=None):
     if fuse_bn:
         # fold in f64/f32 before any bf16 cast
         nn.fuse_bn(model.encoder)
-    if config["basecaller"].get("quantize"):
-        model.quantize()
-    model.to(device)
     if half:
         model.to_bf16()
-    return model
+    if config["basecaller"].get("quantize"):
+        # after the cast, as in bonito_tpu: the int8 weights are those of
+        # the bf16-rounded values
+        model.quantize(route=route)
+    return model.to(device)

@@ -11,15 +11,23 @@ PyTorch built for CUDA. In order, it:
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory and spills;
  3. holds each kernel against its plain PyTorch version on the card at
-    hac widths (N=96, T=1666, H=1024, S=1024) in bf16;
- 4. writes a full-width hac model directory (lstm_crf_config with
-    quantize=false, random weights from a seed, the CRF weight scaled up
-    so that the output mixes stays and moves)
-    with the port's own code;
- 5. basecalls 144 synthetic reads through ``load_model`` +
-    ``basecall`` on the card (batch 96, chunk 9996) and checks the output;
- 6. checks that the run launched every kernel, from their launch counts;
- 7. prints samples/s and peak memory beside the card's name and power;
+    hac widths (N=96, T=1666, C=H=1024, S=1024): A, B, C in bf16, the int8
+    LSTM kernels D (both outputs) and E, every one in both directions;
+ 4. writes two full-width hac model directories with the port's own code
+    (random weights from a seed, the CRF weight scaled up so that the
+    output mixes stays and moves): one whose config says quantize=false,
+    one with the config's own default, quantize=true;
+ 5. basecalls synthetic reads through ``load_model`` + ``basecall`` on
+    the card (batch 96, chunk 9996) on three paths and checks the output
+    of each: bf16 (quantize=false; kernels A, B, C; 48 reads), int8 fused
+    (the default directory loaded with quantize=None; D, B, C; 144 reads)
+    and int8 two-stage (the same with route="two_stage"; E, B, C; 20
+    reads); then holds one batch's move scores on the int8 path against
+    the same path with D's plain version in the kernel's place;
+ 6. checks from the launch counts, set to 0 before each path and read
+    after it, that each path launched its kernels and no other LSTM kernel;
+ 7. prints samples/s, the device step and peak memory of the bf16 and
+    int8 paths beside the card's name and power;
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function, and prints one ``kernels`` JSON line.
 
@@ -41,6 +49,7 @@ from pathlib import Path
 import numpy as np
 
 H100_BF16_OPS = 989e12    # dense bf16 tensor-core FLOP/s (data sheet, SXM)
+H100_INT8_OPS = 1979e12   # dense int8 tensor-core OP/s (data sheet, SXM)
 H100_F32_OPS = 67e12      # f32 FLOP/s outside the tensor cores
 H100_BYTES = 3.35e12      # HBM3 bytes/s
 SEED = 1
@@ -50,6 +59,7 @@ SEED = 1
 N, T, H, STATE_LEN = 96, 1666, 1024, 5
 S = 4 ** STATE_LEN
 LSTM_ATOL, LSTM_MEAN_TOL = 1.6e-2, 1e-4  # see check_lstm
+INT8_MAX_STEPS, INT8_MEAN_STEPS = 1, 0.001  # see check_lstm_int8
 # A random hac model's moves carry a large per-column offset, so over a
 # 1666-frame chunk its Viterbi path settles either on staying or on one
 # periodic cycle of moves. With the weights of seed 1 the CRF weight x 5
@@ -101,18 +111,24 @@ def ptxas_summary(report):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            base = re.search(r"(lstm_step_bf16|decode_tcn_(?:fwd|bwd))", m.group(1))
+            base = re.search(r"(lstm_step_bf16|lstm_int8_step|"
+                             r"decode_tcn_(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
             if "decode" in name:
                 name = f"{name}<{tmpl}>"
+            flags = re.search(r"lstm_int8_stepILi(\d+)ELb(\d)ELb(\d)E",
+                              m.group(1))
+            if flags:
+                name = (f"{name}<rows={flags.group(1)}, fused="
+                        f"{flags.group(2)}, out_int8={flags.group(3)}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills = f"spills {m.group(1)}/{m.group(2)} B"
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
-            rows.append(f"  {name}: {m.group(1)} registers, {m.group(2)} B "
-                        f"static smem, {spills}")
+            rows.append(f"  {name}: {m.group(1)} registers, {m.group(2) or 0} "
+                        f"B static smem, {spills}")
             name = None
     return rows
 
@@ -143,6 +159,58 @@ def check_lstm(torch, lstm_cuda, dev):
                 f"mean {mean}")
         errs.append(err)
     return xw, w_hh, max(errs)
+
+
+def check_lstm_int8(torch, int8, lstm_int8_cuda, dev):
+    """Kernels D and E against their plain versions, both directions, D
+    with int8 and with bf16 output. Kernel and plain version do the same
+    exact integer sums and the same f32 operations in the same order;
+    only expf/tanhf can differ in the last bit and move an h across a
+    half step. Differences are counted in int8 steps of 1/127: at most
+    INT8_MAX_STEPS, INT8_MEAN_STEPS on the mean (none was seen: every run
+    so far gave equal outputs)."""
+    g = torch.Generator().manual_seed(SEED + 2)
+    x_q = torch.randint(-127, 128, (T, N, H), generator=g,
+                        dtype=torch.int8).to(dev)
+    w_ih_q, ih_scales = int8.quantize_cols(
+        (torch.randn(H, 4 * H, generator=g) / math.sqrt(H)).numpy())
+    w_hh_q, scales = int8.quantize_whh(
+        (torch.randn(H, 4 * H, generator=g) / math.sqrt(H)).numpy())
+    w_ih_q, w_hh_q = (torch.from_numpy(w).to(dev) for w in (w_ih_q, w_hh_q))
+    ih_scales = torch.from_numpy(ih_scales).to(dev) * int8.H_STEP
+    scales = torch.from_numpy(scales).to(dev)
+    b = (0.5 * torch.randn(4 * H, generator=g)).to(dev)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(dev, torch.bfloat16)
+    d_args = (x_q, w_ih_q, w_hh_q, ih_scales, scales, b)
+    e_args = (xw, w_hh_q, scales)
+    cases = [("D", lstm_int8_cuda.lstm_int8_fused,
+              lstm_int8_cuda.lstm_int8_fused_plain, d_args,
+              dict(reverse=r, out_int8=o))
+             for r in (False, True) for o in (True, False)]
+    cases += [("E", lstm_int8_cuda.lstm_int8_recurrence,
+               lstm_int8_cuda.lstm_int8_recurrence_plain, e_args,
+               dict(reverse=r)) for r in (False, True)]
+    errs = {"D": 0.0, "E": 0.0}
+    for name, kernel, plain, args, kw in cases:
+        out = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        ref = plain(*args, **kw)
+        require(out.dtype == ref.dtype, f"kernel {name}: dtype {out.dtype}")
+        unit = 1.0 if out.dtype == torch.int8 else 127.0
+        steps = (out.float() - ref.float()).abs() * unit
+        worst, mean = steps.max().item(), steps.mean().item()
+        spread = out.float().std().item() / (127.0 / unit)
+        log(f"  kernel {name} {kw}: max |h - plain| {worst:.3g} int8 steps, "
+            f"mean {mean:.3g} (tolerance {INT8_MAX_STEPS} / "
+            f"{INT8_MEAN_STEPS}); std of h {spread:.3f}")
+        # bf16 output: a bf16 step of h is up to half an int8 step
+        limit = INT8_MAX_STEPS + (0 if out.dtype == torch.int8 else 0.5)
+        require(spread > 0.05, f"kernel {name}: h does not vary")
+        require(worst <= limit and mean <= INT8_MEAN_STEPS,
+                f"kernel {name} disagrees with its plain version: max "
+                f"{worst}, mean {mean} int8 steps")
+        errs[name] = max(errs[name], worst / 127.0)
+    return d_args, e_args, errs
 
 
 def check_decode(torch, decode_cuda, dev):
@@ -183,6 +251,64 @@ class Read:
         self.signal = signal
 
 
+def run_path(torch, name, model, reads, counters, basecall, chunk):
+    """Basecall ``reads`` through ``basecall`` with every launch count set
+    to 0 just before and read just after; check what came back."""
+    bc = model.config["basecaller"]
+    chunksize, overlap, batchsize = bc["chunksize"], bc["overlap"], bc["batchsize"]
+    require((chunksize, batchsize) == (9996, 96), f"unexpected {bc}")
+    n_chunks = sum(chunk(r.signal, chunksize, overlap).shape[0] for r in reads)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = {r.read_id: res for r, res in basecall(
+        model, iter(reads), chunksize=chunksize, overlap=overlap,
+        batchsize=batchsize)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(results.keys() == {r.read_id for r in reads},
+            f"{name}: not every read came back")
+    total_bases = 0
+    for read in reads:
+        res = results[read.read_id]
+        seq, qs, mv = res["sequence"], res["qstring"], res["moves"]
+        require(len(seq) == int(mv.sum()) == len(qs),
+                f"{name} {read.read_id}: sequence/moves/qstring lengths differ")
+        require(len(mv) == len(read.signal) // model.stride
+                or len(read.signal) >= chunksize,
+                f"{name} {read.read_id}: short read frames")
+        total_bases += len(seq)
+    frac = total_bases / sum(len(r["moves"]) for r in results.values())
+    letters = set("".join(r["sequence"] for r in results.values()))
+    samples = int(sum(len(r.signal) for r in reads))
+    log(f"  {name}: {len(reads)} reads, {n_chunks} chunks, {total_bases} "
+        f"bases, {frac:.3f} of frames emit, letters {sorted(letters)}; "
+        f"{samples / wall:.6g} samples/s over {wall:.3f} s, peak memory "
+        f"{peak:.3f} GiB ({held:.3f} GiB of it held before the path: the "
+        f"three models and the checks' tensors); launches {launches}")
+    require(0.01 < frac < 1 and letters == set("ACGT"),
+            f"{name}: degenerate output")
+    return {"launches": launches, "batches": launches["B"], "wall": wall,
+            "samples": samples, "peak": peak, "held": held}
+
+
+def device_step(np, model, reads, make_compute_fn, chunk):
+    """One prepared batch and the time of its device step (upload,
+    forward, decode, fetch)."""
+    bc = model.config["basecaller"]
+    compute = make_compute_fn(model, bc["batchsize"], bc["chunksize"])
+    prepared = compute.prepare(np.concatenate(
+        [chunk(r.signal, bc["chunksize"], bc["overlap"])
+         for r in reads[2:20]])[:bc["batchsize"]])
+    ms = cuda_ms(lambda: compute.fetch(compute.dispatch(prepared)), reps=3)
+    return prepared, ms
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -193,7 +319,9 @@ def main():
     from bonito_tpu_torch.crf.basecall import basecall, make_compute_fn
     from bonito_tpu_torch.crf.model import Model
     from bonito_tpu_torch.models import lstm_crf_config
-    from bonito_tpu_torch.ops import build, decode_cuda, lstm_cuda
+    from bonito_tpu_torch.ops import (build, decode_cuda, int8, lstm_cuda,
+                                      lstm_int8_cuda)
+    from bonito_tpu_torch.ops import lstm as ops_lstm
     from bonito_tpu_torch.util import chunk, load_model
 
     dev = torch.device("cuda")
@@ -211,83 +339,110 @@ def main():
     for row in ptxas_summary(build.ptxas_report):
         log(row)
 
-    log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, H={H}, S={S}), bf16")
+    log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
+    d_args, e_args, err_int8 = check_lstm_int8(torch, int8, lstm_int8_cuda, dev)
     moves, blank, fwd, err_b, err_c = check_decode(torch, decode_cuda, dev)
 
-    log("[4] hac model directory from the port's own code")
-    model_dir = build.BUILD / "chip_smoke_hac"
-    if model_dir.exists():
-        shutil.rmtree(model_dir)
-    model_dir.mkdir(parents=True)
-    cfg = lstm_crf_config(quantize=False)
-    model = Model(cfg).init(SEED)
-    _, (_, crf), _ = model.decode_head()
-    with torch.no_grad():
-        crf.w.mul_(CRF_SCALE)
-    save_config(cfg, model_dir / "config.toml")
-    checkpoint.save_params(model_dir / "weights_1.npz", model)
-    del model
+    log("[4] hac model directories from the port's own code")
+    dirs = {}
+    for name, quantize in (("bf16", False), ("int8", True)):
+        model_dir = build.BUILD / f"chip_smoke_hac_{name}"
+        if model_dir.exists():
+            shutil.rmtree(model_dir)
+        model_dir.mkdir(parents=True)
+        cfg = lstm_crf_config(quantize=quantize)
+        model = Model(cfg).init(SEED)
+        _, (_, crf), _ = model.decode_head()
+        with torch.no_grad():
+            crf.w.mul_(CRF_SCALE)
+        save_config(cfg, model_dir / "config.toml")
+        checkpoint.save_params(model_dir / "weights_1.npz", model)
+        dirs[name] = model_dir
+        del model
+    require(lstm_crf_config()["basecaller"]["quantize"] is True,
+            "the config's default is no longer quantize=true")
 
-    log("[5] load_model + basecall on the card")
-    model = load_model(model_dir, half=True, fuse_bn=True, device="cuda")
-    bc = model.config["basecaller"]
-    chunksize, overlap, batchsize = bc["chunksize"], bc["overlap"], bc["batchsize"]
-    require((chunksize, batchsize) == (9996, 96), f"unexpected {bc}")
+    log("[5] load_model + basecall on the card, three paths")
     rng = np.random.default_rng(SEED)
     lengths = np.concatenate([[3000, 9000], rng.integers(20000, 110000, 142)])
     reads = [Read(f"read{i}", rng.normal(size=int(n)).astype(np.float32))
              for i, n in enumerate(lengths)]
-    n_chunks = sum(chunk(r.signal, chunksize, overlap).shape[0] for r in reads)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counters = (lstm_cuda.lstm_recurrence, decode_cuda.tcn_forward,
-                decode_cuda.tcn_backward)
-    for fn in counters:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    results = {r.read_id: res for r, res in basecall(
-        model, iter(reads), chunksize=chunksize, overlap=overlap,
-        batchsize=batchsize)}
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    require(results.keys() == {r.read_id for r in reads},
-            "not every read came back")
-    total_bases = 0
-    for read in reads:
-        res = results[read.read_id]
-        seq, qs, mv = res["sequence"], res["qstring"], res["moves"]
-        require(len(seq) == int(mv.sum()) == len(qs),
-                f"{read.read_id}: sequence/moves/qstring lengths differ")
-        require(len(mv) == len(read.signal) // model.stride
-                or len(read.signal) >= chunksize,
-                f"{read.read_id}: short read frames")
-        total_bases += len(seq)
-    frac = total_bases / sum(len(r["moves"]) for r in results.values())
-    letters = set("".join(r["sequence"] for r in results.values()))
-    log(f"  {len(reads)} reads, {n_chunks} chunks, {total_bases} bases, "
-        f"{frac:.3f} of frames emit, letters {sorted(letters)}")
-    require(0.01 < frac < 1 and letters == set("ACGT"), "degenerate output")
+    counters = {"A": lstm_cuda.lstm_recurrence,
+                "B": decode_cuda.tcn_forward, "C": decode_cuda.tcn_backward,
+                "D": lstm_int8_cuda.lstm_int8_fused,
+                "E": lstm_int8_cuda.lstm_int8_recurrence}
+    models = {
+        "bf16": load_model(dirs["bf16"], half=True, fuse_bn=True,
+                           quantize=None, device="cuda"),
+        "int8": load_model(dirs["int8"], half=True, fuse_bn=True,
+                           quantize=None, device="cuda"),
+        "two_stage": load_model(dirs["int8"], half=True, fuse_bn=True,
+                                quantize=None, device="cuda",
+                                route="two_stage"),
+    }
+    lstms = [m for m in models["int8"].encoder.modules()
+             if hasattr(m, "quantize_params")]
+    require(len(lstms) == 5 and all(
+        m.quantized and m.int8_out and m.w_hh_q.dtype == torch.int8
+        for m in lstms), "the default directory did not load quantised")
+    require(not any(m.quantized for m in models["bf16"].encoder.modules()
+                    if hasattr(m, "quantize_params")),
+            "quantize=false in the config was not honoured")
+    n_reads = {"bf16": 48, "int8": 144, "two_stage": 20}
+    runs = {name: run_path(torch, name, models[name], reads[:n_reads[name]],
+                           counters, basecall, chunk) for name in models}
 
-    n_batches = launches["tcn_forward"]
-    log(f"[6] launches on the main path: {launches}, over {n_batches} "
-        f"batches: per batch " + ", ".join(
-            f"{k} {v / max(n_batches, 1):g}" for k, v in launches.items()))
-    for name, n in launches.items():
-        require(n > 0, f"{name} never launched on the main path")
+    # one batch's move scores: kernel D's chain against its plain version's
+    prepared, step_int8 = device_step(np, models["int8"], reads,
+                                      make_compute_fn, chunk)
+    _, step_bf16 = device_step(np, models["bf16"], reads, make_compute_fn,
+                               chunk)
+    _, x_wire, sig_scale = prepared
+    with torch.inference_mode():
+        xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+              * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+        mv_kernel, _ = models["int8"].forward_tcn(xc[..., None])
+        ops_lstm.lstm_int8_fused = lstm_int8_cuda.lstm_int8_fused_plain
+        try:
+            mv_plain, _ = models["int8"].forward_tcn(xc[..., None])
+        finally:
+            ops_lstm.lstm_int8_fused = lstm_int8_cuda.lstm_int8_fused
+        diff = (mv_kernel.float() - mv_plain.float()).abs()
+        worst, mean = diff.max().item(), diff.mean().item()
+    log(f"  int8 path, one batch's moves {tuple(mv_kernel.shape)} through "
+        f"kernel D vs its plain version: max |diff| {worst:.3g}, mean "
+        f"{mean:.3g} (tolerance 0.5 / 1e-3); all finite: "
+        f"{torch.isfinite(mv_kernel.float()).all().item()}")
+    require(torch.isfinite(mv_kernel.float()).all().item(),
+            "int8 path: non-finite move scores")
+    require(worst <= 0.5 and mean <= 1e-3,
+            "int8 path: the kernels' moves disagree with the plain versions'")
+    del mv_kernel, mv_plain, diff
 
-    samples = int(sum(lengths))
-    log(f"[7] {samples / wall:.6g} samples/s over {wall:.3f} s "
-        f"({samples} samples, {n_batches} batches of {batchsize}), "
-        f"peak memory {peak:.3f} GiB, on {card}")
-    compute = make_compute_fn(model, batchsize, chunksize)
-    prepared = compute.prepare(np.concatenate(
-        [chunk(r.signal, chunksize, overlap) for r in reads[2:20]])[:batchsize])
-    step = cuda_ms(lambda: compute.fetch(compute.dispatch(prepared)), reps=3)
-    log(f"  device step (upload, forward, decode, fetch) {step:.4g} ms per "
-        f"batch = {batchsize * chunksize / step * 1e3:.6g} samples/s")
+    log("[6] launches on each path (counts set to 0 before it, read after)")
+    own = {"bf16": "A", "int8": "D", "two_stage": "E"}
+    for name, run in runs.items():
+        per_batch = {k: v / run["batches"] for k, v in run["launches"].items()}
+        log(f"  {name}: {run['batches']} batches, per batch {per_batch}")
+        for k, n in run["launches"].items():
+            if k in ("B", "C") or k == own[name]:
+                require(n > 0, f"kernel {k} never launched on the {name} path")
+            else:
+                require(n == 0, f"kernel {k} launched on the {name} path")
+        require(per_batch[own[name]] == 5 and per_batch["C"] == 1,
+                f"{name}: expected 5 LSTM and 1 + 1 decode launches per batch")
+
+    log(f"[7] on {card}:")
+    for name, step in (("bf16", step_bf16), ("int8", step_int8)):
+        run = runs[name]
+        log(f"  {name}: {run['samples'] / run['wall']:.6g} samples/s over "
+            f"{run['wall']:.3f} s ({run['samples']} samples, "
+            f"{run['batches']} batches of 96), peak memory "
+            f"{run['peak']:.3f} GiB, {run['peak'] - run['held']:.3f} GiB "
+            f"above what was held before the path; device step (upload, forward, decode, "
+            f"fetch) {step:.4g} ms per batch = "
+            f"{96 * 9996 / step * 1e3:.6g} samples/s")
 
     log("[8] kernel times at hac shapes (CUDA events)")
     x_lstm = torch.randn(T, N, H, device=dev, dtype=torch.bfloat16)
@@ -304,6 +459,38 @@ def main():
         f"one cuDNN torch.nn.LSTM layer {lib_a:.4g} ms")
     bytes_a = T * N * 4 * H * 2 + H * 4 * H * 2 + T * N * H * 2
     bound_a = bound(bytes_a, 2 * N * H * 4 * H * T, H100_BF16_OPS)
+
+    ms_d = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_fused(
+        *d_args, out_int8=True), reps=3)
+    plain_d = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_fused_plain(
+        *d_args, out_int8=True), reps=1, warmup=0)
+    ms_e = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_recurrence(*e_args),
+                   reps=3)
+    plain_e = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_recurrence_plain(
+        *e_args), reps=1, warmup=0)
+    # D: int8 x in, both int8 weights, three f32 rows, int8 h out
+    bound_d = bound(T * N * H + 2 * H * 4 * H + 3 * 4 * H * 4 + T * N * H,
+                    2 * N * T * (H + H) * 4 * H, H100_INT8_OPS)
+    # E: bf16 xw in, int8 W_hh, one f32 row, bf16 h out
+    bound_e = bound(T * N * 4 * H * 2 + H * 4 * H + 4 * H * 4 + T * N * H * 2,
+                    2 * N * T * H * 4 * H, H100_INT8_OPS)
+    lstm0 = lstms[0]
+    project = cuda_ms(lambda: int8.project_int8(
+        x_lstm, lstm0.w_ih_q, lstm0.ih_scales, lstm0.b, torch.bfloat16),
+        reps=3)
+    quantise = cuda_ms(lambda: int8.quantize_dynamic(x_lstm), reps=3)
+    _, (_, crf), _ = models["int8"].decode_head()
+    perm = models["int8"]._tcn_perm(dev)
+    h_q = d_args[0].transpose(0, 1)
+    head_int8 = cuda_ms(lambda: crf.project(h_q, perm, torch.bfloat16), reps=3)
+    _, (_, crf_bf16), _ = models["bf16"].decode_head()
+    head_bf16 = cuda_ms(lambda: crf_bf16.project(x_lstm.transpose(0, 1), perm),
+                        reps=3)
+    log(f"  int8 path outside the kernels: layer 0's dynamic quantise "
+        f"{quantise:.4g} ms; int8 head in slabs of {crf.SLAB_ROWS} rows "
+        f"(torch._int_mm + f32 rescale) {head_int8:.4g} ms vs the bf16 head "
+        f"matmul {head_bf16:.4g} ms; two-stage project_int8 (quantise, "
+        f"torch._int_mm, rescale) {project:.4g} ms per layer")
 
     ms_b = cuda_ms(lambda: decode_cuda.tcn_forward(moves, blank), reps=3)
     plain_b = cuda_ms(lambda: decode_cuda.tcn_forward_plain(moves, blank),
@@ -322,31 +509,42 @@ def main():
     bound_c = bound(move_bytes + N * T * R * 4 + N * T * 5 + N * 8 + 3 * N * T,
                     20 * N * T * S, H100_F32_OPS)
 
-    n_lstm = launches["lstm_recurrence"] // n_batches
-    kernels_ms = n_lstm * ms_a + ms_b + ms_c
-    log(f"  per batch: {n_lstm} x A {n_lstm * ms_a:.4g} ms + B {ms_b:.4g} ms "
-        f"+ C {ms_c:.4g} ms = {kernels_ms:.4g} ms of the {step:.4g} ms device "
-        f"step; the rest (convs, projections, head, wire) "
-        f"{step - kernels_ms:.4g} ms")
+    for name, ms_lstm, step in (("bf16", ms_a, step_bf16),
+                                ("int8", ms_d, step_int8)):
+        kernels_ms = 5 * ms_lstm + ms_b + ms_c
+        log(f"  {name} path per batch: 5 x {own[name]} {5 * ms_lstm:.4g} ms + "
+            f"B {ms_b:.4g} ms + C {ms_c:.4g} ms = {kernels_ms:.4g} ms of the "
+            f"{step:.4g} ms device step; the rest {step - kernels_ms:.4g} ms")
+    src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
+    # launches: the count on the path that is the kernel's own (A: bf16,
+    # D, B, C: int8 fused, E: int8 two-stage); by_path has every path's
     entries = [
-        ("lstm_recurrence", "bonito_tpu_torch/csrc/lstm.cu",
-         "bonito_tpu/ops/lstm_pallas.py:54", launches["lstm_recurrence"],
-         err_a, ms_a, plain_a, bound_a, lib_a),
-        ("decode_tcn_fwd", "bonito_tpu_torch/csrc/decode_tcn.cu",
-         "bonito_tpu/ops/decode_pallas.py:183", launches["tcn_forward"],
-         err_b, ms_b, plain_b, bound_b, None),
-        ("decode_tcn_bwd", "bonito_tpu_torch/csrc/decode_tcn.cu",
-         "bonito_tpu/ops/decode_pallas.py:246", launches["tcn_backward"],
-         err_c, ms_c, plain_c, bound_c, None),
+        ("lstm_recurrence", "A", "bf16", "bonito_tpu_torch/csrc/lstm.cu",
+         "bonito_tpu/ops/lstm_pallas.py:54", err_a, ms_a, plain_a, bound_a,
+         lib_a),
+        ("decode_tcn_fwd", "B", "int8", "bonito_tpu_torch/csrc/decode_tcn.cu",
+         "bonito_tpu/ops/decode_pallas.py:183", err_b, ms_b, plain_b, bound_b,
+         None),
+        ("decode_tcn_bwd", "C", "int8", "bonito_tpu_torch/csrc/decode_tcn.cu",
+         "bonito_tpu/ops/decode_pallas.py:246", err_c, ms_c, plain_c, bound_c,
+         None),
+        ("lstm_int8_fused", "D", "int8", src_int8,
+         "bonito_tpu/ops/lstm_pallas.py:478", err_int8["D"], ms_d, plain_d,
+         bound_d, None),
+        ("lstm_int8_recurrence", "E", "two_stage", src_int8,
+         "bonito_tpu/ops/lstm_pallas.py:355", err_int8["E"], ms_e, plain_e,
+         bound_e, None),
     ]
     kernels = []
-    for name, src, rep, n, err, ms, plain, (bms, by), lib in entries:
+    for name, key, path, src, rep, err, ms, plain, (bms, by), lib in entries:
+        n = runs[path]["launches"][key]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib})
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "by_path": {p: r["launches"][key] for p, r in runs.items()}})
         log(f"  {name}: {ms:.4g} ms (plain {plain:.4g} ms, bound {bms:.4g} ms "
-            f"by {by}), {n} launches on the main path")
+            f"by {by}), {n} launches on the {path} path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,12 @@
 """
 Where one hac device step of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_hac_step.py
+    python3 scripts/profile_hac_step.py [int8]
 
 from the root of a checkout, on a machine with a CUDA card. Builds a
 random full-width hac model (as chip_smoke.py does, without the trip
-through a model directory), runs one warm-up batch of 96 x 9996 samples
+through a model directory) — the bf16 model, or with ``int8`` the
+quantised one on its default route (kernel D chain, int8 head) —, runs one warm-up batch of 96 x 9996 samples
 through ``make_compute_fn``, then traces two more with ``torch.profiler``
 and prints, for the traced window: its wall time, the device time by
 kernel name (count, total, mean), the device busy share (sum of kernel
@@ -45,9 +46,15 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    model = Model(lstm_crf_config(quantize=False)).init(1)
+    if sys.argv[1:] not in ([], ["int8"]):
+        raise SystemExit(__doc__)
+    quantize = sys.argv[1:] == ["int8"]
+    model = Model(lstm_crf_config(quantize=quantize)).init(1)
     nn.fuse_bn(model.encoder)
-    model.to("cuda").to_bf16()
+    model.to_bf16()
+    if quantize:
+        model.quantize()
+    model.to("cuda")
     compute = make_compute_fn(model, BATCH, CHUNK)
     signal = np.random.default_rng(1).normal(size=(BATCH, CHUNK))
     prepared = compute.prepare(signal.astype(np.float32))
@@ -67,7 +74,7 @@ def main():
             if device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    print(f"card: {card}")
+    print(f"card: {card}; model: hac, {'int8' if quantize else 'bf16'}")
     print(f"{STEPS} device steps traced: wall {wall_us / 1e3:.4g} ms, "
           f"{wall_us / 1e3 / STEPS:.4g} ms per step")
     print(f"{'device time by kernel':<60} {'count':>7} {'total ms':>10} "

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from bonito_tpu_torch.ops import decode_cuda, lstm_cuda
+from bonito_tpu_torch.ops import decode_cuda, int8, lstm_cuda, lstm_int8_cuda
+from bonito_tpu_torch.ops.lstm import lstm_int8
 
 pytestmark = pytest.mark.gpu
 
@@ -77,3 +78,96 @@ def test_decode_launch_counts(cuda):
     assert decode_cuda.tcn_forward.launches == b + 1
     assert decode_cuda.tcn_backward.launches == c + 1
     np.testing.assert_array_equal(fwd[4].cpu().numpy(), [0, 0])
+
+
+def _int8_layer(cuda, seed, N, T, C, H):
+    g = torch.Generator().manual_seed(seed)
+    x_q = torch.randint(-127, 128, (T, N, C), generator=g, dtype=torch.int8)
+    w_ih_q, ih_scales = int8.quantize_cols(
+        (torch.randn(C, 4 * H, generator=g) / C ** 0.5).numpy())
+    w_hh_q, scales = int8.quantize_whh(
+        (torch.randn(H, 4 * H, generator=g) / H ** 0.5).numpy())
+    b = 0.5 * torch.randn(4 * H, generator=g)
+    to = lambda a: torch.as_tensor(a).to(cuda)
+    return (to(x_q), to(w_ih_q), to(w_hh_q), to(ih_scales) / 127.0,
+            to(scales), to(b))
+
+
+@pytest.mark.parametrize("out_int8", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,C,H", [(8, 9, 16, 16), (40, 17, 48, 64),
+                                     (96, 5, 128, 128), (8, 3, 272, 528),
+                                     (48, 3, 1040, 528)])
+def test_int8_fused_kernel_matches_plain(cuda, N, T, C, H, reverse, out_int8):
+    """Kernel D: the same integer sums and the same f32 operations as the
+    plain version; only expf/tanhf differ in the last bit, which can move
+    an h across a half step: one int8 step, on under 1% of the entries.
+    The shapes take the 32-row tile (N 8, 40) and the 48-row one (96, 48),
+    k-ranges of less than one staged chunk and of several with a tail."""
+    args = _int8_layer(cuda, N + T + H, N, T, C, H)
+    before = lstm_int8_cuda.lstm_int8_fused.launches
+    out = lstm_int8_cuda.lstm_int8_fused(*args, reverse=reverse,
+                                         out_int8=out_int8)
+    torch.cuda.synchronize()
+    assert lstm_int8_cuda.lstm_int8_fused.launches == before + 1
+    ref = lstm_int8_cuda.lstm_int8_fused_plain(*args, reverse=reverse,
+                                               out_int8=out_int8)
+    assert out.dtype == ref.dtype == (torch.int8 if out_int8
+                                      else torch.bfloat16)
+    diff = (out.float() - ref.float()).abs()
+    if out_int8:
+        assert diff.max().item() <= 1 and (diff == 0).float().mean() >= 0.99
+    else:
+        assert diff.max().item() <= 1 / 127 + 2 ** -8
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,H", [(8, 9, 16), (40, 17, 64), (96, 5, 128),
+                                   (8, 3, 528), (48, 3, 1040)])
+def test_int8_recurrence_kernel_matches_plain(cuda, N, T, H, reverse):
+    _, _, w_hh_q, _, scales, _ = _int8_layer(cuda, N + T + H, N, T, H, H)
+    g = torch.Generator().manual_seed(N)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(cuda, torch.bfloat16)
+    before = lstm_int8_cuda.lstm_int8_recurrence.launches
+    out = lstm_int8_cuda.lstm_int8_recurrence(xw, w_hh_q, scales,
+                                              reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_int8_cuda.lstm_int8_recurrence.launches == before + 1
+    ref = lstm_int8_cuda.lstm_int8_recurrence_plain(xw, w_hh_q, scales,
+                                                    reverse=reverse)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=1 / 127 + 2 ** -8)
+
+
+def test_int8_kernels_reject_what_they_do_not_take(cuda):
+    x_q, w_ih_q, w_hh_q, ihsc, scales, b = _int8_layer(cuda, 1, 8, 3, 16, 16)
+    with pytest.raises(TypeError, match="int8"):
+        lstm_int8_cuda.lstm_int8_fused(x_q.float(), w_ih_q, w_hh_q, ihsc,
+                                       scales, b)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        lstm_int8_cuda.lstm_int8_fused(x_q[..., :8].contiguous(), w_ih_q[:8],
+                                       w_hh_q, ihsc, scales, b)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lstm_int8_cuda.lstm_int8_fused(x_q, w_ih_q.cpu(), w_hh_q, ihsc,
+                                       scales, b)
+    with pytest.raises(TypeError, match="bf16"):
+        lstm_int8_cuda.lstm_int8_recurrence(
+            torch.zeros(3, 8, 64, device=cuda), w_hh_q, scales)
+
+
+@pytest.mark.parametrize("route", ["fused", "two_stage", "dequant"])
+def test_lstm_int8_routes_agree_on_the_card(cuda, route):
+    """Each route of the dispatcher through its kernel (D; project_int8 +
+    E; the dequantised weights through A) against the fused route's plain
+    version: they quantise alike, so they stay within a few int8 steps."""
+    N, T, H = 32, 12, 64
+    x_q, w_ih_q, w_hh_q, ihsc, scales, b = _int8_layer(cuda, 3, N, T, H, H)
+    x = (x_q.float() / 127).to(torch.bfloat16).transpose(0, 1)
+    ih_scales = ihsc * 127.0
+    out = lstm_int8(x, None, w_hh_q, scales, b, w_ih_q=w_ih_q,
+                    ih_scales=ih_scales, route=route)
+    ref = lstm_int8(x.cpu(), None, w_hh_q.cpu(), scales.cpu(), b.cpu(),
+                    w_ih_q=w_ih_q.cpu(), ih_scales=ih_scales.cpu(),
+                    route="fused")
+    assert out.dtype == torch.bfloat16 and out.shape == (N, T, H)
+    assert (out.float().cpu() - ref.float()).abs().max().item() <= 0.06

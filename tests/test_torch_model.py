@@ -184,8 +184,39 @@ def test_load_model_on_cpu(tmp_path):
         _close(m(torch.from_numpy(x)), jm.forward(jnp.asarray(x)))
     cfg["basecaller"]["quantize"] = True  # the shipped configs' default
     jconfig.save_config(cfg, tmp_path / "config.toml")
-    with pytest.raises(NotImplementedError, match="int8"):
-        load_model(tmp_path, quantize=None, device="cpu")
+    q = load_model(tmp_path, half=False, quantize=None, device="cpu")
+    lstms = [l for l in q.encoder.modules() if isinstance(l, nn.LSTM)]
+    assert len(lstms) == 3 and all(l.quantized and l.int8_out for l in lstms)
+    assert all(l.w_hh_q.dtype == l.w_ih_q.dtype == torch.int8 for l in lstms)
+    assert q.decode_head()[1][1].w_q.dtype == torch.int8
+    with torch.no_grad():  # H=32 takes the dequantised small-H route
+        out = q(torch.from_numpy(x))
+    assert out.shape == (2, 100, 64 * 5)
+    assert (out - m(torch.from_numpy(x))).abs().max() < 0.5
+
+
+def test_load_model_quantises_the_shipped_hac_geometry(tmp_path):
+    """quantize=None on a full-width hac directory (the config's default is
+    quantize=true): five LSTMs with int8 weights, all chained int8 (four
+    feed an LSTM, the last the head), and an int8 head beside the float."""
+    from bonito_tpu_torch.config import save_config
+    from bonito_tpu_torch.models import lstm_crf_config
+    cfg = lstm_crf_config()
+    assert cfg["basecaller"]["quantize"] is True
+    save_config(cfg, tmp_path / "config.toml")
+    checkpoint.save_params(tmp_path / "weights_1.npz", Model(cfg).init(3))
+    m = load_model(tmp_path, quantize=None, device="cpu")
+    lstms = [l for l in m.encoder.modules() if isinstance(l, nn.LSTM)]
+    assert [l.int8_out for l in lstms] == [True] * 5
+    for l in lstms:
+        assert l.quantized and l.int8_route is None
+        assert l.w_hh_q.dtype == l.w_ih_q.dtype == torch.int8
+        assert l.w_hh_q.shape == l.w_ih_q.shape == (1024, 4096)
+        assert l.scales.dtype == l.ih_scales.dtype == l.b.dtype == torch.float32
+    head = m.decode_head()[1][1]
+    assert head.w_q.dtype == torch.int8 and head.w_q.shape == (1024, 4096)
+    assert head.w_s.shape == (1, 4096) and head.w.dtype == torch.bfloat16
+    assert m.compute_dtype == torch.bfloat16
 
 
 def test_hac_full_width_golden():
