@@ -3,7 +3,7 @@ CRF basecalling pipeline. A lazy generator chain, each stage behind a
 bounded-queue thread:
 
     reads -> chunk -> batchify -> prepare (host int8 wire)
-          -> device (forward_tcn + decode, one batch in flight ahead)
+          -> device (encoder + decode, one batch in flight ahead)
           -> unbatchify -> stitch -> fmt
 
 The device step always runs at the fixed shape [batchsize, chunksize]; a
@@ -13,7 +13,8 @@ ragged last batch is padded with zero rows of scale 1.
 import numpy as np
 import torch
 
-from bonito_tpu_torch.ops.decode import to_str, viterbi_decode_tcn
+from bonito_tpu_torch.ops.decode import (
+    to_str, use_fused_head, viterbi_decode_head, viterbi_decode_tcn)
 from bonito_tpu_torch.pipeline import device_stage, thread_iter
 from bonito_tpu_torch.profiling import instrument
 from bonito_tpu_torch.util import batchify, chunk, stitch, unbatchify
@@ -30,8 +31,11 @@ def stitch_results(results, length, size, overlap, stride, reverse=False):
     return stitch(results, size, overlap, length, stride, reverse=reverse)
 
 
+HEAD_ROUTES = ("fused", "tcn")
+
+
 def make_compute_fn(model, batchsize, chunksize, reverse=False,
-                    decoder="viterbi"):
+                    decoder="viterbi", head_route=None):
     """The device step: signal batch [n <= batchsize, chunksize] -> decoded
     per-frame arrays, as ``compute(batch)`` and in its three parts:
 
@@ -42,6 +46,13 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
       and decode on the device; returns a handle without waiting;
     - ``fetch(handle)``: waits for that batch only and unpacks the packed
       wire, plane 0 = sequence | moves << 3, plane 1 = qstring.
+
+    ``head_route`` names where the CRF head's move scores are computed:
+    ``"fused"`` inside the decode, in f32 (``forward_tcn_head`` +
+    ``viterbi_decode_head``), ``"tcn"`` by the head matmul in the model
+    dtype (``forward_tcn`` + ``viterbi_decode_tcn``). None is
+    bonito_tpu's default: fused for the small state spaces
+    (``ops.decode.use_fused_head``) where the head can be split, else tcn.
     """
     if reverse:
         raise NotImplementedError(
@@ -51,6 +62,11 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
         raise NotImplementedError(
             f"decoder={decoder!r}: the device beam search is a later slice "
             f"of the port")
+    if head_route is not None and head_route not in HEAD_ROUTES:
+        raise ValueError(f"head_route {head_route!r}: expected None or one "
+                         f"of {HEAD_ROUTES}")
+    fused_head = (use_fused_head(model.seqdist) if head_route is None
+                  else head_route == "fused")
     qcfg = getattr(model, "config", {}).get("qscore", {})
     qscale = float(qcfg.get("scale", 1.0))
     qbias = float(qcfg.get("bias", 0.0))
@@ -81,9 +97,17 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
         n, x, sig_scale = prepared
         with torch.inference_mode():
             xc = upload(x).to(dtype) * upload(sig_scale)[:, None].to(dtype)
-            mv, blank = model.forward_tcn(xc[..., None])
-            out = viterbi_decode_tcn(model.seqdist, mv, blank,
-                                     qscale=qscale, qbias=qbias)
+            head = model.forward_tcn_head(xc[..., None]) if fused_head else None
+            if head is not None:
+                out = viterbi_decode_head(model.seqdist, head, qscale=qscale,
+                                          qbias=qbias)
+            elif head_route == "fused":
+                raise ValueError("head_route='fused': this model's head "
+                                 "cannot be split from its encoder")
+            else:
+                mv, blank = model.forward_tcn(xc[..., None])
+                out = viterbi_decode_tcn(model.seqdist, mv, blank,
+                                         qscale=qscale, qbias=qbias)
             packed = torch.stack(
                 [out["sequence"] | (out["moves"] << 3), out["qstring"]])
             if not on_card:
@@ -114,11 +138,12 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
 
 
 def basecall(model, reads, chunksize=4000, overlap=100, batchsize=32,
-             reverse=False, rna=False, decoder="viterbi"):
+             reverse=False, rna=False, decoder="viterbi", head_route=None):
     """Basecall a stream of reads (objects with ``.signal``) on the
-    model's device; yields (read, result-dict) pairs."""
+    model's device; yields (read, result-dict) pairs. ``head_route`` as in
+    ``make_compute_fn``."""
     compute = make_compute_fn(model, batchsize, chunksize, reverse=reverse,
-                              decoder=decoder)
+                              decoder=decoder, head_route=head_route)
 
     chunks = thread_iter(
         ((read, 0, read.signal.shape[-1]),

@@ -2,16 +2,27 @@
 LSTM-CRF model family: an encoder (conv downsample + LSTM stack + CRF
 head, built from the config's layer tree) paired with a CTC_CRF state
 space. ``forward`` gives full scores [N, T, n_score]; ``forward_tcn`` the
-decode layout the TCN kernels read.
+decode layout the TCN kernels read; ``forward_tcn_head`` the encoder output
+and the head's weights for the decode kernels that hold the head.
 """
+
+from collections import namedtuple
 
 import numpy as np
 import torch
 
 from bonito_tpu_torch import nn
 from bonito_tpu_torch.crf.seqdist import CTC_CRF
+from bonito_tpu_torch.ops import int8
 from bonito_tpu_torch.ops.decode import tcn_permutation
 from bonito_tpu_torch.ops.lstm import INT8_ROUTES
+
+
+# forward_tcn_head's return: the encoder output and the CRF head as the
+# operands of the fused-head decode (ops.decode.viterbi_decode_head)
+HeadSplit = namedtuple(
+    "HeadSplit",
+    ["h", "wT", "bias", "act_tanh", "scale", "cmin", "cmax", "blank"])
 
 
 class SeqdistModel(torch.nn.Module):
@@ -114,6 +125,68 @@ class SeqdistModel(torch.nn.Module):
             moves = clamp[1](moves)
             blank = float(np.clip(blank, clamp[1].min, clamp[1].max))
         return moves.permute(1, 2, 0), blank
+
+    def forward_tcn_head(self, x):
+        """Fused-head forward split: the encoder up to, and without, the
+        last LinearUpsample (if any) and the CRF head, and the head folded
+        into one weight per upsample phase:
+
+            HeadSplit(h [T/U, N, H], wT [U, S*nb, H], bias [U, S*nb] f32 or
+                      None, act_tanh, scale, cmin, cmax, blank)
+
+        with ``wT``'s rows in the TCN (b, j, r) order and the upsample
+        folded exactly into the projection: wT[p] = (W_up[:, p] @ w)^T,
+        bias = b_up @ w (+ b). ``h`` and ``wT`` are in the compute dtype;
+        an int8 h from a quantised chain is dequantised, and the float
+        ``w`` is used even where the head also holds int8 weights. None
+        where bonito_tpu's returns None: no fixed blank, an activation
+        other than tanh, or a head that neither tanh nor a Clamp bounds
+        (the decode's exp() relies on bounded scores).
+
+        bonito_tpu returns h as [T/U, H, N], batch on the TPU's lanes; here
+        it is [T/U, N, H], the LSTM's own output memory, rows contiguous
+        in H as a CUDA block reads them."""
+        split = self.decode_head()
+        if split is None:
+            return None
+        items, (_, crf), clamp = split
+        act_tanh = isinstance(crf.activation, nn.Tanh)
+        if crf.activation is not None and not act_tanh:
+            return None
+        if not act_tanh and clamp is None:
+            return None
+        cmin = cmax = None
+        if clamp is not None:
+            cmin, cmax = float(clamp[1].min), float(clamp[1].max)
+        upsample = None
+        if items and isinstance(items[-1][1], nn.LinearUpsample):
+            upsample = items.pop()[1]
+        h = x
+        for _, layer in items:
+            h = layer(h)
+        if h.dtype == torch.int8:
+            h = int8.dequantize_h(h, self.compute_dtype)
+
+        perm = self._tcn_perm(h.device)
+        w = crf.w.float()[:, perm]                               # [H, Cm]
+        b = crf.b.float()[perm] if crf.b is not None else None
+        if upsample is None:
+            wT = w.t()[None]
+            bias = None if b is None else b[None]
+        else:
+            U, H = upsample.scale_factor, upsample.d_model
+            w_up = upsample.w.float().reshape(H, U, H)
+            wT = torch.einsum("hpg,gc->pch", w_up, w)
+            bias = torch.matmul(upsample.b.float().reshape(U, H), w)
+            if b is not None:
+                bias = bias + b[None]
+        scale = float(crf.scale) if crf.scale is not None else 1.0
+        blank = float(crf.blank_score)
+        if clamp is not None:
+            blank = float(np.clip(blank, cmin, cmax))
+        return HeadSplit(h.to(self.compute_dtype).transpose(0, 1),
+                         wT.to(self.compute_dtype).contiguous(), bias,
+                         act_tanh, scale, cmin, cmax, blank)
 
 
 GLUE = (nn.Permute,)  # value-preserving layers an int8 h passes through

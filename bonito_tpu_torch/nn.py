@@ -15,8 +15,7 @@ bonito_tpu's (and upstream bonito's) ``config.toml`` files name.
   give the int8 forms of bonito_tpu's quantised parameter tree (the same
   names and shapes), as buffers: ``to_bf16`` casts parameters only.
 
-Stack, NamedSerial, LinearUpsample and Reverse wait for the slices that
-run them.
+Stack, NamedSerial and Reverse wait for the slices that run them.
 """
 
 import math
@@ -271,8 +270,9 @@ class Convolution(Layer):
 class LSTM(Layer):
     """Unidirectional LSTM over [N, T, C]; torch gate order (i, f, g, o),
     ``w_ih`` [C, 4H], ``w_hh`` [H, 4H], ``b`` [4H] as in bonito_tpu. The
-    input projection is one matmul; the recurrence runs in ``ops.lstm``
-    (kernel A on the card). ``reverse`` walks time backwards.
+    layer runs in ``ops.lstm``: a small one (H <= 256) wholly in kernel F,
+    a wide one as one projection matmul and kernel A's recurrence.
+    ``reverse`` walks time backwards.
 
     After ``quantize_params`` the layer holds bonito_tpu's quantised form
     instead — ``w_hh_q``/``w_ih_q`` int8 with ``scales``/``ih_scales``
@@ -493,6 +493,39 @@ class LinearCRFEncoder(Layer):
 
     def init_(self, rng):
         _fill(self.w, rng.normal(size=self.w.shape) / math.sqrt(self.insize))
+
+
+@register
+class LinearUpsample(Layer):
+    """Linear projection that lengthens the sequence by ``scale_factor``:
+    [N, T, d_model] -> [N, T * scale_factor, d_model], frame t giving
+    output frames t * scale_factor .. with ``w`` [d_model, scale_factor *
+    d_model] and ``b`` as in bonito_tpu. In front of a CRF head it folds
+    into the head's weights (``SeqdistModel.forward_tcn_head``)."""
+
+    def __init__(self, d_model, scale_factor, batch_first=True):
+        super().__init__()
+        self.d_model = d_model
+        self.scale_factor = scale_factor
+        self.batch_first = batch_first
+        self.w = torch.nn.Parameter(
+            torch.zeros(d_model, scale_factor * d_model))
+        self.b = torch.nn.Parameter(torch.zeros(scale_factor * d_model))
+
+    def forward(self, x):
+        N, T, C = x.shape
+        h = torch.matmul(x, self.w.to(x.dtype)) + self.b.to(x.dtype)
+        return h.reshape(N, T * self.scale_factor, C)
+
+    def to_dict(self):
+        return {"d_model": self.d_model, "scale_factor": self.scale_factor,
+                "batch_first": self.batch_first}
+
+    def output_stride(self, stride):
+        return stride // self.scale_factor
+
+    def init_(self, rng):
+        _fill(self.w, rng.normal(size=self.w.shape) / math.sqrt(self.d_model))
 
 
 # ---------------------------------------------------------------------------

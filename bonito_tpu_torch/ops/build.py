@@ -40,12 +40,23 @@ SIGNATURES = {
     "lstm_int8_fused": [P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, P],
     # xw, w_hh_q^T, scales, out, hbuf, cbuf, T, N, Np, H, reverse, stream
     "lstm_int8_recurrence": [P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, w_ih, w_hh, bias, out, T, N, C, H, reverse, stream
+    "lstm_fused_bf16": [P, P, P, P, P, I, I, I, I, I, P],
     # moves, move_in, choices, c, logz, end_state, N, T, S, p_stay,
     # blank, stream
     "decode_tcn_fwd_bf16": [P, P, P, P, P, P, I, I, I, F, F, P],
     # moves, move_in, choices, c, logz, end_state, sequence, qstring,
     # moves_out, N, T, S, p_stay, qscale, qbias, stream
     "decode_tcn_bwd_bf16": [P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, P],
+    # h, w, bias, move_in, choices, c, logz, end_state, Th, N, H, S, U,
+    # p_stay, blank, act_tanh, scale, clamp, cmin, cmax, stream
+    "decode_fused_fwd_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,
+                              I, F, I, F, F, P],
+    # h, w, bias, move_in, choices, c, logz, end_state, sequence, qstring,
+    # moves_out, Th, N, H, S, U, p_stay, qscale, qbias, act_tanh, scale,
+    # clamp, cmin, cmax, stream
+    "decode_fused_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                              F, F, F, I, F, I, F, F, P],
 }
 
 ptxas_report = ""  # nvcc -Xptxas -v output of the library's build

@@ -12,6 +12,14 @@ by its max each frame, with a log correction) beside the max-semiring
 alpha and its argmax choices; the backward carries beta and the
 traceback state and emits each frame. Nothing of [N, T, n_score] is
 built on the kernel route.
+
+Two routes lead here from a model. ``viterbi_decode_tcn`` reads the move
+scores the head matmul wrote, in the model dtype (kernels B and C).
+``viterbi_decode_head`` reads the encoder output and the head's weights
+and computes the move scores inside the decode, in f32 (kernels G and J);
+``use_fused_head`` says where it is the default. Rounding the moves to
+bf16 or not changes near-ties, so the two routes decode a bf16 model
+differently and the choice is part of the result.
 """
 
 import numpy as np
@@ -19,6 +27,8 @@ import torch
 
 from bonito_tpu_torch.ops.decode_cuda import (
     NB, tcn_backward, tcn_backward_plain, tcn_forward, tcn_forward_plain)
+from bonito_tpu_torch.ops.decode_fused_cuda import (
+    head_moves_plain, tcn_fused_backward, tcn_fused_forward)
 
 
 def _check(seqdist, Cm):
@@ -44,6 +54,29 @@ def viterbi_decode_tcn(seqdist, moves_tcn, blank_score, qscale=1.0,
     blank = float(blank_score)
     fwd = tcn_forward(moves, blank)
     return tcn_backward(moves, *fwd, blank, qscale=qscale, qbias=qbias)
+
+
+def use_fused_head(seqdist):
+    """Whether the fused-head decode is a model's default route: for the
+    small state spaces (fast, S = 64), as in bonito_tpu, so that a model
+    decodes alike in both packages."""
+    return seqdist.n_states <= 128
+
+
+def tcn_from_head(head):
+    """The [T, S*nb, N] move tensor of a head (``forward_tcn_head``) in
+    f32: what the fused-head kernels compute frame by frame, as a tensor.
+    The plain versions and the tests read it; no kernel route does."""
+    return head_moves_plain(head).permute(1, 2, 0)
+
+
+def viterbi_decode_head(seqdist, head, qscale=1.0, qbias=0.0):
+    """Decode from ``SeqdistModel.forward_tcn_head``'s split. Same
+    contract as bonito_tpu's ``viterbi_decode_head``; the move tensor is
+    never built on the card."""
+    _check(seqdist, head.wT.shape[1])
+    fwd = tcn_fused_forward(head)
+    return tcn_fused_backward(head, *fwd, qscale=qscale, qbias=qbias)
 
 
 def viterbi_decode_plain(seqdist, scores, qscale=1.0, qbias=0.0):

@@ -1,13 +1,22 @@
 """
-LSTM over [N, T, C] activations.
+LSTM over [N, T, C] activations, torch gate order (i, f, g, o).
 
-The input projection ``xw = x @ w_ih (+ b)`` for all timesteps is one
-``torch.matmul`` in the model dtype (bonito_tpu leaves it to XLA outside
-its Pallas kernel, ``lstm_pallas.py:106-108``). It is computed time-major,
-so xw lands as the contiguous [T, N, 4H] the recurrence reads. The
-recurrence is ``ops.lstm_cuda.lstm_recurrence``: the plain version on the
-CPU, kernel A on the card, and an error for anything else — there is no
-silent fallback. Torch gate order (i, f, g, o).
+``lstm`` takes one of two routes, chosen by shape before any launch and
+alike on the CPU (plain versions) and on the card (kernels):
+
+- a small layer (``small_h``: H <= 256, C and H multiples of 16) runs
+  ``ops.lstm_fused_cuda.lstm_fused``, kernel F: the input projection
+  inside the kernel, accumulated and kept in f32. It is where bonito_tpu
+  runs ``lstm_pallas_fused`` (its ``supported_fused``);
+- any other layer computes ``xw = x @ w_ih (+ b)`` for all timesteps as
+  one ``torch.matmul`` in the model dtype (bonito_tpu leaves it to XLA
+  outside its Pallas kernel, ``lstm_pallas.py:106-108``), time-major, so
+  that xw lands as the contiguous [T, N, 4H] which
+  ``ops.lstm_cuda.lstm_recurrence``, kernel A, reads.
+
+The two differ in arithmetic (A reads xw rounded to the model dtype), so
+the gate is part of the result. Neither wrapper falls back: a tensor on
+the card launches the kernel or raises.
 
 ``lstm_int8`` is the quantised layer (bonito_tpu's ``ops/lstm.py:
 lstm_int8``). Its route is an argument, not an environment variable, and
@@ -16,10 +25,11 @@ the same route runs on the CPU (plain versions) and on the card (kernels):
 - ``"fused"``: kernel D, projection and recurrence in int8 from an int8
   input; the only route that can emit an int8 h for the next layer;
 - ``"two_stage"``: ``project_int8`` outside, then kernel E;
-- ``"dequant"``: the dequantised weights through ``lstm`` (kernel A) —
-  what bonito_tpu runs off the TPU, and on it for small H, where its fused
-  bf16 input-projection kernel stands in; that kernel is not ported yet,
-  so ``lstm`` stands in for it here.
+- ``"dequant"``: the dequantised weights through ``lstm`` — what
+  bonito_tpu runs off the TPU, and on it for a small layer with a float
+  input (every layer of a quantised fast model), which it sends through
+  ``lstm_pallas_fused`` (``ops/lstm.py:108-122``) as ``lstm`` sends it
+  through kernel F.
 """
 
 import torch
@@ -27,17 +37,27 @@ import torch
 from bonito_tpu_torch.ops import int8
 from bonito_tpu_torch.ops.lstm_cuda import (  # noqa: F401 (re-exported)
     lstm_recurrence, lstm_recurrence_plain)
+# small_h(C, H): whether a layer runs kernel F. It is bonito_tpu's
+# ``supported_fused`` (H <= 256, C and H tiling) by shape; that gate's other
+# two terms are the TPU's and are not carried over: the batch need not be a
+# multiple of 8 (sublanes), and the VMEM budget is replaced by kernel F's own
+# limit (C and H multiples of 16, the WMMA tile; C up to 1024).
+from bonito_tpu_torch.ops.lstm_fused_cuda import (
+    fused_supported as small_h, lstm_fused)
 from bonito_tpu_torch.ops.lstm_int8_cuda import (
     fused_supported, lstm_int8_fused, lstm_int8_recurrence)
 
 INT8_ROUTES = ("fused", "two_stage", "dequant")
-SMALL_H = 256  # bonito_tpu's bound for its small-H (fast) routing
 
 
 def lstm(x, w_ih, w_hh, b, reverse=False):
     """x [N, T, C]; w_ih [C, 4H]; w_hh [H, 4H]; b [4H] or None -> hidden
     states [N, T, H] (a transposed view of the [T, N, H] result)."""
     dtype = x.dtype
+    if small_h(x.shape[-1], w_hh.shape[0]):
+        h = lstm_fused(x.transpose(0, 1), w_ih.to(dtype), w_hh.to(dtype), b,
+                       reverse=reverse)
+        return h.transpose(0, 1)
     xw = torch.matmul(x.transpose(0, 1), w_ih.to(dtype)).contiguous()
     if b is not None:
         xw.add_(b.to(dtype))  # in place: xw is a fresh tensor of its own
@@ -46,12 +66,12 @@ def lstm(x, w_ih, w_hh, b, reverse=False):
 
 
 def int8_route(x, w_hh_q, w_ih_q):
-    """The route ``lstm_int8`` takes when none is named: the stand-in for
-    the small-H kernel where bonito_tpu routes to it (a float input, a
-    quantised projection, H <= 256), kernel D where its tiles fit, else
-    the two-stage route."""
+    """The route ``lstm_int8`` takes when none is named: the dequantised
+    weights through kernel F where bonito_tpu sends them through its
+    small-H kernel (a float input, a quantised projection, ``small_h``),
+    kernel D where its tiles fit, else the two-stage route."""
     C, H = x.shape[-1], w_hh_q.shape[0]
-    if w_ih_q is not None and x.dtype != torch.int8 and H <= SMALL_H:
+    if w_ih_q is not None and x.dtype != torch.int8 and small_h(C, H):
         return "dequant"
     if w_ih_q is not None and fused_supported(C, H):
         return "fused"

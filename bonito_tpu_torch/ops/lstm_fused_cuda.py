@@ -1,0 +1,111 @@
+"""
+Kernel F — the LSTM layer with its input projection inside
+(``csrc/lstm_fused.cu``) — with its plain PyTorch version and its launch
+count.
+
+Replaces ``bonito_tpu/ops/lstm_pallas.py:lstm_pallas_fused``
+(``_lstm_kernel_fused``), the route of every small-H model (fast, H = 96).
+What sets it apart from projection + kernel A is its arithmetic, not only
+its traffic: ``xw = x @ w_ih + b`` is accumulated and **kept in f32** (A
+reads an xw rounded to the model dtype), then every step adds
+``dtype(h) @ w_hh`` in f32; h and c are carried in f32 and h is written in
+the model dtype. The [T, N, 4H] gate-input tensor never exists in device
+memory.
+
+Time-major like kernels A, D and E: x [T, N, C] -> h [T, N, H].
+``lstm_fused`` runs the plain version for a tensor on the CPU and the
+kernel for a tensor on the card; it never falls back from one to the
+other. ``csrc/lstm_fused.cu`` says how the kernel is laid out and what
+bounds it.
+"""
+
+import torch
+
+from bonito_tpu_torch.ops import build
+
+TILE = 16     # C and H must be multiples of the WMMA k-tile
+MAX_H = 256   # the widest f32 gate tile a block keeps in shared memory
+MAX_C = 1024  # the widest input rows its ring of staged steps holds
+
+
+def fused_supported(C, H):
+    """The shapes kernel F takes: C and H multiples of 16 (WMMA tiles), H
+    up to 256 and C up to 1024 (a block's gate tile and staged inputs must
+    fit shared memory). Only C = H = 96, the fast models' shape, keeps its
+    weights in registers; any other reads them through L2 every step."""
+    return (C % TILE == 0 and H % TILE == 0 and 0 < H <= MAX_H
+            and 0 < C <= MAX_C)
+
+
+def lstm_fused_plain(x, w_ih, w_hh, b, reverse=False):
+    """x [T, N, C] in the model dtype; w_ih [C, 4H], w_hh [H, 4H]; b [4H]
+    or None (zeros) -> h [T, N, H] in the model dtype. The projection is
+    taken over operands in the model dtype with f32 accumulation, the bias
+    is added in f32 and the sum stays f32; each step:
+    gates = xw[t] + f32(dtype(h) @ w_hh), torch gate order (i, f, g, o);
+    h and c are carried in f32. ``reverse`` walks t = T-1 .. 0 and writes
+    each step at t. Nothing depends on any blocking of T."""
+    T, N, C = x.shape
+    H = w_hh.shape[0]
+    dtype = x.dtype
+    xw = torch.matmul(x.float(), w_ih.to(dtype).float())
+    if b is not None:
+        xw = xw + b.float()
+    w = w_hh.to(dtype).float()
+    h = torch.zeros(N, H, dtype=torch.float32, device=x.device)
+    c = torch.zeros(N, H, dtype=torch.float32, device=x.device)
+    out = torch.empty(T, N, H, dtype=dtype, device=x.device)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        gates = xw[t] + torch.matmul(h.to(dtype).float(), w)
+        i, f, g, o = gates.chunk(4, dim=1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        out[t] = h.to(dtype)
+    return out
+
+
+def _aligned(w):
+    """A contiguous weight at a 32-byte address (WMMA tile loads)."""
+    w = w.contiguous()
+    return w.clone() if w.data_ptr() % 32 else w
+
+
+def lstm_fused(x, w_ih, w_hh, b, reverse=False):
+    """``lstm_fused_plain``'s function: the plain version for a CPU
+    tensor, kernel F for a CUDA tensor (bf16; C and H as
+    ``fused_supported`` says)."""
+    if x.device.type == "cpu":
+        return lstm_fused_plain(x, w_ih, w_hh, b, reverse=reverse)
+    if x.device.type != "cuda" or any(
+            t.device != x.device for t in (w_ih, w_hh)):
+        raise ValueError(f"kernel F needs x, w_ih and w_hh on one CUDA "
+                         f"device, got {x.device}, {w_ih.device} and "
+                         f"{w_hh.device}")
+    if any(t.dtype != torch.bfloat16 for t in (x, w_ih, w_hh)):
+        raise TypeError(f"kernel F takes bf16 x, w_ih and w_hh (a half=True "
+                        f"model), got {x.dtype}, {w_ih.dtype} and "
+                        f"{w_hh.dtype}")
+    T, N, C = x.shape
+    H = w_hh.shape[0]
+    if (tuple(w_ih.shape) != (C, 4 * H) or tuple(w_hh.shape) != (H, 4 * H)
+            or T < 1 or N < 1 or not fused_supported(C, H)):
+        raise ValueError(
+            f"kernel F: x {tuple(x.shape)}, w_ih {tuple(w_ih.shape)} and "
+            f"w_hh {tuple(w_hh.shape)} need [T, N, C], [C, 4H], [H, 4H] with "
+            f"C and H multiples of {TILE}, at most {MAX_C} and {MAX_H}")
+    x = x.contiguous()
+    w_ih, w_hh = _aligned(w_ih), _aligned(w_hh)
+    bias = (torch.zeros(4 * H, device=x.device) if b is None
+            else b.to(device=x.device, dtype=torch.float32).contiguous())
+    if bias.numel() != 4 * H:
+        raise ValueError(f"kernel F: b has {bias.numel()} values, not {4 * H}")
+    out = torch.empty(T, N, H, dtype=torch.bfloat16, device=x.device)
+    lstm_fused.launches += 1
+    build.check(build.library().lstm_fused_bf16(
+        x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), T, N, C, H, int(bool(reverse)),
+        build.stream_of(x)), "lstm_fused_bf16")
+    return out
+
+
+lstm_fused.launches = 0

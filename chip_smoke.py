@@ -10,26 +10,37 @@ PyTorch built for CUDA. In order, it:
  1. prints the card's name, power limit and count;
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory and spills;
- 3. holds each kernel against its plain PyTorch version on the card at
-    hac widths (N=96, T=1666, C=H=1024, S=1024): A, B, C in bf16, the int8
-    LSTM kernels D (both outputs) and E, every one in both directions;
- 4. writes two full-width hac model directories with the port's own code
-    (random weights from a seed, the CRF weight scaled up so that the
-    output mixes stays and moves): one whose config says quantize=false,
-    one with the config's own default, quantize=true;
+ 3. holds each kernel against its plain PyTorch version on the card: at
+    hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 and the
+    int8 LSTM kernels D (both outputs) and E, every one in both
+    directions; at fast widths (N=1024, T=1200, C=H=96, S=64) the fused
+    LSTM layer F (both directions, with and without a bias) and the
+    fused-head decode G + J (the fast head, and a small head with two
+    upsample phases, tanh, a scale and a bias);
+ 4. writes full-width model directories with the port's own code (random
+    weights from a seed, the CRF weight scaled up so that the output is no
+    run of stays): hac and fast, each once with quantize=false in its
+    config and once with the config's own default, quantize=true;
  5. basecalls synthetic reads through ``load_model`` + ``basecall`` on
-    the card (batch 96, chunk 9996) on three paths and checks the output
-    of each: bf16 (quantize=false; kernels A, B, C; 48 reads), int8 fused
+    the card and checks the output of each path. hac (batch 96, chunk
+    9996): bf16 (quantize=false; kernels A, B, C; 48 reads), int8 fused
     (the default directory loaded with quantize=None; D, B, C; 144 reads)
     and int8 two-stage (the same with route="two_stage"; E, B, C; 20
-    reads); then holds one batch's move scores on the int8 path against
-    the same path with D's plain version in the kernel's place;
+    reads). fast (batch 1024, chunk 6000, overlap 500): the default
+    directory loaded with quantize=None (dequantised weights through F,
+    then G, J; 160 reads, over 4 full batches) and a short run of the
+    quantize=false directory (40 reads). Then it holds one batch on the
+    int8 path and one on the fast path against the same batch with the
+    plain versions in the kernels' place;
  6. checks from the launch counts, set to 0 before each path and read
-    after it, that each path launched its kernels and no other LSTM kernel;
- 7. prints samples/s, the device step and peak memory of the bf16 and
-    int8 paths beside the card's name and power;
+    after it, that each path launched its own kernels, 5 LSTM and 1 + 1
+    decode launches per batch, and no other kernel of the port;
+ 7. prints samples/s, the device step and peak memory of the hac bf16 and
+    int8 paths and of the fast path beside the card's name and power;
  8. times each kernel, its plain version and a PyTorch library call where
-    one computes the same function, and prints one ``kernels`` JSON line.
+    one computes the same function (and, for comparison, the routes that
+    F, G and J take the place of at fast widths), and prints one
+    ``kernels`` JSON line with all eight kernels.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -67,6 +78,25 @@ INT8_MAX_STEPS, INT8_MEAN_STEPS = 1, 0.001  # see check_lstm_int8
 # x 8 gives a cycle through all four bases (seed 0 x 8 a homopolymer).
 CRF_SCALE = 8.0
 
+# fast geometry (dna_r10.4.1_e8.2_400bps_fast@v4.3): batch 1024, chunk 6000,
+# stride 5 -> T = 1200 frames, 96 features, state_len 3 -> 64 states
+FAST = "dna_r10.4.1_e8.2_400bps_fast@v4.3"
+FN, FT, FH, FS = 1024, 1200, 96, 64
+# A random fast model behaves like a random hac one: its output hardly
+# depends on the signal. With the weights of seed 1 the CRF weight x 6 and
+# below gives stays only, x 6.5 to 11 a cycle without T, x 16 and above a
+# homopolymer or no stay at all; x 13 to 14 gives a cycle of ten bases
+# through all four letters, with the stay at the head of a read. Found on
+# the CPU with the plain versions, bf16, quantised and not.
+FAST_CRF_SCALE = 13.5
+# G + J against their plain versions: the head sums run in another order, so
+# a near-tie (a winning margin under ~1e-4) may fall the other way and move a
+# stretch of the traceback. Frames whose moves and sequence agree: at least
+# DECODE_MIN_EQUAL of all; qstring within 1 on those. logZ is a running f32
+# sum of T logs near 4000, where one f32 step is 2.4e-4.
+DECODE_MIN_EQUAL = 0.999
+LOGZ_ATOL, LOGZ_RTOL = 1e-3, 1e-5
+
 
 def log(msg):
     print(msg, flush=True)
@@ -99,9 +129,11 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes, n_ops, peak_ops):
+def bound(n_bytes, n_ops, peak_ops, more_ops=0, more_peak=H100_F32_OPS):
+    """The least time in ms for the bytes and for the operations (of up to
+    two kinds, each at its own peak), and which of the two it is."""
     t_bytes = n_bytes / H100_BYTES * 1e3
-    t_ops = n_ops / peak_ops * 1e3
+    t_ops = (n_ops / peak_ops + more_ops / more_peak) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -112,10 +144,18 @@ def ptxas_summary(report):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             base = re.search(r"(lstm_step_bf16|lstm_int8_step|"
-                             r"decode_tcn_(?:fwd|bwd))", m.group(1))
+                             r"lstm_fused_bf16_kernel|"
+                             r"decode_(?:tcn|fused)_(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
-            if "decode" in name:
+            resident = re.search(r"(?:fwd|bwd)ILb(\d)EE", m.group(1))
+            tiles = re.search(r"kernelILi(\d+)ELi(\d+)EE", m.group(1))
+            if resident:
+                name = f"{name}<weights in shared memory={resident.group(1)}>"
+            elif tiles:
+                name = (f"{name}<weight k-tiles in registers="
+                        f"{tiles.group(1)}+{tiles.group(2)}>")
+            elif "decode" in name:
                 name = f"{name}<{tmpl}>"
             flags = re.search(r"lstm_int8_stepILi(\d+)ELb(\d)ELb(\d)E",
                               m.group(1))
@@ -245,18 +285,105 @@ def check_decode(torch, decode_cuda, dev):
     return moves, blank, fwd, err_b, float(dq)
 
 
+def check_lstm_fused(torch, lstm_fused_cuda, dev):
+    """Kernel F against its plain version at fast widths, both directions,
+    with and without a bias. As for kernel A: both round h to bf16 every
+    step and sum in f32 in another order, so the tolerance is LSTM_ATOL
+    (four bf16 steps) on the max and LSTM_MEAN_TOL on the mean."""
+    g = torch.Generator().manual_seed(SEED + 3)
+    x = torch.tanh(torch.randn(FT, FN, FH, generator=g)).to(dev, torch.bfloat16)
+    w_ih, w_hh = ((torch.randn(FH, 4 * FH, generator=g) / math.sqrt(FH)).to(
+        dev, torch.bfloat16) for _ in range(2))
+    b = (0.5 * torch.randn(4 * FH, generator=g)).to(dev)
+    worst = 0.0
+    for reverse, bias in ((False, b), (True, b), (False, None), (True, None)):
+        out = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, bias, reverse=reverse)
+        torch.cuda.synchronize()
+        ref = lstm_fused_cuda.lstm_fused_plain(x, w_ih, w_hh, bias,
+                                               reverse=reverse)
+        diff = (out.float() - ref.float()).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        spread = out.float().std().item()
+        log(f"  kernel F reverse={reverse} bias={bias is not None}: max |h - "
+            f"plain| {err:.3g}, mean {mean:.3g} (tolerance {LSTM_ATOL} / "
+            f"{LSTM_MEAN_TOL}); std of h {spread:.3f}")
+        require(torch.isfinite(out.float()).all().item() and spread > 0.05,
+                "kernel F: h is not finite or does not vary")
+        require(err <= LSTM_ATOL and mean <= LSTM_MEAN_TOL,
+                f"kernel F disagrees with its plain version: max {err}, "
+                f"mean {mean}")
+        worst = max(worst, err)
+    return (x, w_ih, w_hh, b), worst
+
+
+def check_decode_fused(torch, decode_fused_cuda, HeadSplit, dev):
+    """Kernels G and J against their plain versions: the fast head (U = 1,
+    no tanh, Clamp +-5) at fast widths, and a small head with two upsample
+    phases, tanh, scale 5 and a bias. Tolerances: DECODE_MIN_EQUAL and
+    LOGZ_* above."""
+    def case(name, N, Th, H, S, U, tanh, gain):
+        g = torch.Generator().manual_seed(SEED + 4 + U)
+        h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(
+            dev, torch.bfloat16)
+        wT = (gain * torch.randn(U, 4 * S, H, generator=g) / math.sqrt(H)).to(
+            dev, torch.bfloat16)
+        bias = ((0.3 * torch.randn(U, 4 * S, generator=g)).to(dev) if tanh
+                else None)
+        head = HeadSplit(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+                         None if tanh else -5.0, None if tanh else 5.0, 2.0)
+        fwd = decode_fused_cuda.tcn_fused_forward(head)
+        out = decode_fused_cuda.tcn_fused_backward(head, *fwd, qscale=1.05,
+                                                   qbias=0.2)
+        torch.cuda.synchronize()
+        ref_fwd = decode_fused_cuda.tcn_fused_forward_plain(head)
+        ref = decode_fused_cuda.tcn_fused_backward_plain(
+            head, *ref_fwd, qscale=1.05, qbias=0.2)
+        n_choice = (fwd[1] != ref_fwd[1]).sum().item()
+        n_end = (fwd[4] != ref_fwd[4]).sum().item()
+        err_in = (fwd[0] - ref_fwd[0]).abs().max().item()
+        d_lz = (fwd[3] - ref_fwd[3]).abs()
+        ok_lz = (d_lz <= LOGZ_ATOL + LOGZ_RTOL * ref_fwd[3].abs()).all().item()
+        same = ((out["moves"] == ref["moves"])
+                & (out["sequence"] == ref["sequence"]))
+        n_diff = (~same).sum().item()
+        n_rows = (~same).any(1).sum().item()
+        dq = (out["qstring"].int() - ref["qstring"].int()).abs()[same]
+        dq = dq.max().item() if dq.numel() else 0
+        frac = out["moves"].float().mean().item()
+        log(f"  kernels G + J, {name} (N={N}, T={Th * U}, H={H}, S={S}, "
+            f"U={U}): {n_choice} of {fwd[1].numel()} choices and {n_end} end "
+            f"states differ, max |move_in - plain| {err_in:.3g}, max |logZ - "
+            f"plain| {d_lz.max().item():.3g} at |logZ| about "
+            f"{ref_fwd[3].abs().mean().item():.4g} (tolerance {LOGZ_ATOL} + "
+            f"{LOGZ_RTOL} |logZ|); {n_diff} of "
+            f"{same.numel()} frames differ in {n_rows} of {N} rows (at most "
+            f"{1 - DECODE_MIN_EQUAL:.1%} may), max |dq| {dq} on the others; "
+            f"{frac:.3f} of frames move")
+        require(err_in <= 1e-4 and ok_lz,
+                f"kernel G ({name}) disagrees with its plain version")
+        require(n_diff <= (1 - DECODE_MIN_EQUAL) * same.numel() and dq <= 1,
+                f"kernels G + J ({name}) disagree with their plain versions")
+        require(0.01 < frac < 1, f"kernels G + J ({name}): degenerate decode")
+        return head, fwd, err_in, float(dq)
+
+    case("two phases, tanh * 5, bias", 24, 50, 32, 64, 2, True, 0.5)
+    return case("fast head", FN, FT, FH, FS, 1, False, 3.0)
+
+
 class Read:
     def __init__(self, read_id, signal):
         self.read_id = read_id
         self.signal = signal
 
 
-def run_path(torch, name, model, reads, counters, basecall, chunk):
+def run_path(torch, name, model, reads, counters, basecall, chunk, geometry):
     """Basecall ``reads`` through ``basecall`` with every launch count set
-    to 0 just before and read just after; check what came back."""
+    to 0 just before and read just after; check what came back.
+    ``geometry`` is the (chunksize, overlap, batchsize) the model's config
+    must name."""
     bc = model.config["basecaller"]
     chunksize, overlap, batchsize = bc["chunksize"], bc["overlap"], bc["batchsize"]
-    require((chunksize, batchsize) == (9996, 96), f"unexpected {bc}")
+    require((chunksize, overlap, batchsize) == geometry, f"unexpected {bc}")
     n_chunks = sum(chunk(r.signal, chunksize, overlap).shape[0] for r in reads)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -290,21 +417,29 @@ def run_path(torch, name, model, reads, counters, basecall, chunk):
         f"bases, {frac:.3f} of frames emit, letters {sorted(letters)}; "
         f"{samples / wall:.6g} samples/s over {wall:.3f} s, peak memory "
         f"{peak:.3f} GiB ({held:.3f} GiB of it held before the path: the "
-        f"three models and the checks' tensors); launches {launches}")
+        f"models and the checks' tensors); launches {launches}")
     require(0.01 < frac < 1 and letters == set("ACGT"),
             f"{name}: degenerate output")
-    return {"launches": launches, "batches": launches["B"], "wall": wall,
-            "samples": samples, "peak": peak, "held": held}
+    return {"launches": launches, "batches": -(-n_chunks // batchsize),
+            "full_batches": n_chunks // batchsize, "batchsize": batchsize,
+            "chunksize": chunksize, "wall": wall, "samples": samples,
+            "peak": peak, "held": held}
 
 
-def device_step(np, model, reads, make_compute_fn, chunk):
-    """One prepared batch and the time of its device step (upload,
+def device_step(np, model, reads, make_compute_fn, chunk, head_route=None):
+    """One prepared full batch and the time of its device step (upload,
     forward, decode, fetch)."""
     bc = model.config["basecaller"]
-    compute = make_compute_fn(model, bc["batchsize"], bc["chunksize"])
-    prepared = compute.prepare(np.concatenate(
-        [chunk(r.signal, bc["chunksize"], bc["overlap"])
-         for r in reads[2:20]])[:bc["batchsize"]])
+    compute = make_compute_fn(model, bc["batchsize"], bc["chunksize"],
+                              head_route=head_route)
+    chunks, n = [], 0
+    for r in reads[2:]:  # the first two reads are short ones
+        if n >= bc["batchsize"]:
+            break
+        chunks.append(chunk(r.signal, bc["chunksize"], bc["overlap"]))
+        n += chunks[-1].shape[0]
+    require(n >= bc["batchsize"], "too few reads for one full batch")
+    prepared = compute.prepare(np.concatenate(chunks)[:bc["batchsize"]])
     ms = cuda_ms(lambda: compute.fetch(compute.dispatch(prepared)), reps=3)
     return prepared, ms
 
@@ -317,10 +452,12 @@ def main():
     from bonito_tpu_torch import checkpoint
     from bonito_tpu_torch.config import save_config
     from bonito_tpu_torch.crf.basecall import basecall, make_compute_fn
-    from bonito_tpu_torch.crf.model import Model
-    from bonito_tpu_torch.models import lstm_crf_config
-    from bonito_tpu_torch.ops import (build, decode_cuda, int8, lstm_cuda,
+    from bonito_tpu_torch.crf.model import HeadSplit, Model
+    from bonito_tpu_torch.models import MODELS, lstm_crf_config
+    from bonito_tpu_torch.ops import (build, decode_cuda, decode_fused_cuda,
+                                      int8, lstm_cuda, lstm_fused_cuda,
                                       lstm_int8_cuda)
+    from bonito_tpu_torch.ops import decode as ops_decode
     from bonito_tpu_torch.ops import lstm as ops_lstm
     from bonito_tpu_torch.util import chunk, load_model
 
@@ -343,44 +480,58 @@ def main():
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
     d_args, e_args, err_int8 = check_lstm_int8(torch, int8, lstm_int8_cuda, dev)
     moves, blank, fwd, err_b, err_c = check_decode(torch, decode_cuda, dev)
+    log(f"    and at fast widths (N={FN}, T={FT}, C=H={FH}, S={FS})")
+    f_args, err_f = check_lstm_fused(torch, lstm_fused_cuda, dev)
+    f_head, f_fwd, err_g, err_j = check_decode_fused(
+        torch, decode_fused_cuda, HeadSplit, dev)
 
-    log("[4] hac model directories from the port's own code")
+    log("[4] hac and fast model directories from the port's own code")
     dirs = {}
-    for name, quantize in (("bf16", False), ("int8", True)):
-        model_dir = build.BUILD / f"chip_smoke_hac_{name}"
+    for name, quantize, scale in (("bf16", False, CRF_SCALE),
+                                  ("int8", True, CRF_SCALE),
+                                  ("fast_bf16", False, FAST_CRF_SCALE),
+                                  ("fast", True, FAST_CRF_SCALE)):
+        model_dir = build.BUILD / f"chip_smoke_{name}"
         if model_dir.exists():
             shutil.rmtree(model_dir)
         model_dir.mkdir(parents=True)
-        cfg = lstm_crf_config(quantize=quantize)
+        cfg = MODELS[FAST]() if name.startswith("fast") else lstm_crf_config()
+        require(cfg["basecaller"]["quantize"] is True,
+                "the config's default is no longer quantize=true")
+        cfg["basecaller"]["quantize"] = quantize
         model = Model(cfg).init(SEED)
         _, (_, crf), _ = model.decode_head()
         with torch.no_grad():
-            crf.w.mul_(CRF_SCALE)
+            crf.w.mul_(scale)
         save_config(cfg, model_dir / "config.toml")
         checkpoint.save_params(model_dir / "weights_1.npz", model)
         dirs[name] = model_dir
         del model
-    require(lstm_crf_config()["basecaller"]["quantize"] is True,
-            "the config's default is no longer quantize=true")
 
-    log("[5] load_model + basecall on the card, three paths")
+    log("[5] load_model + basecall on the card, five paths")
     rng = np.random.default_rng(SEED)
     lengths = np.concatenate([[3000, 9000], rng.integers(20000, 110000, 142)])
     reads = [Read(f"read{i}", rng.normal(size=int(n)).astype(np.float32))
              for i, n in enumerate(lengths)]
+    # fast: chunks of 6000 at a step of 5500; 160 reads of 100k to 220k
+    # samples make about 4600 chunks, over 4 full batches of 1024
+    lengths = np.concatenate([[3000, 9000], rng.integers(100000, 220000, 158)])
+    fast_reads = [Read(f"fast{i}", rng.normal(size=int(n)).astype(np.float32))
+                  for i, n in enumerate(lengths)]
     counters = {"A": lstm_cuda.lstm_recurrence,
                 "B": decode_cuda.tcn_forward, "C": decode_cuda.tcn_backward,
                 "D": lstm_int8_cuda.lstm_int8_fused,
-                "E": lstm_int8_cuda.lstm_int8_recurrence}
+                "E": lstm_int8_cuda.lstm_int8_recurrence,
+                "F": lstm_fused_cuda.lstm_fused,
+                "G": decode_fused_cuda.tcn_fused_forward,
+                "J": decode_fused_cuda.tcn_fused_backward}
     models = {
-        "bf16": load_model(dirs["bf16"], half=True, fuse_bn=True,
-                           quantize=None, device="cuda"),
-        "int8": load_model(dirs["int8"], half=True, fuse_bn=True,
-                           quantize=None, device="cuda"),
-        "two_stage": load_model(dirs["int8"], half=True, fuse_bn=True,
-                                quantize=None, device="cuda",
-                                route="two_stage"),
-    }
+        name: load_model(dirs[src], half=True, fuse_bn=True, quantize=None,
+                         device="cuda", **kw)
+        for name, src, kw in (("bf16", "bf16", {}), ("int8", "int8", {}),
+                              ("two_stage", "int8", {"route": "two_stage"}),
+                              ("fast", "fast", {}),
+                              ("fast_bf16", "fast_bf16", {}))}
     lstms = [m for m in models["int8"].encoder.modules()
              if hasattr(m, "quantize_params")]
     require(len(lstms) == 5 and all(
@@ -389,9 +540,24 @@ def main():
     require(not any(m.quantized for m in models["bf16"].encoder.modules()
                     if hasattr(m, "quantize_params")),
             "quantize=false in the config was not honoured")
-    n_reads = {"bf16": 48, "int8": 144, "two_stage": 20}
-    runs = {name: run_path(torch, name, models[name], reads[:n_reads[name]],
-                           counters, basecall, chunk) for name in models}
+    fast_lstms = [m for m in models["fast"].encoder.modules()
+                  if hasattr(m, "quantize_params")]
+    require(len(fast_lstms) == 5 and all(
+        m.quantized and ops_lstm.int8_route(
+            torch.empty(1, 1, FH, dtype=torch.bfloat16), m.w_hh_q,
+            m.w_ih_q) == "dequant" for m in fast_lstms),
+        "the fast directory did not load quantised on the dequant route")
+    hac_geometry, fast_geometry = (9996, 492, 96), (6000, 500, FN)
+    paths = {"bf16": (reads[:48], hac_geometry),
+             "int8": (reads[:144], hac_geometry),
+             "two_stage": (reads[:20], hac_geometry),
+             "fast": (fast_reads, fast_geometry),
+             "fast_bf16": (fast_reads[:40], fast_geometry)}
+    runs = {name: run_path(torch, name, models[name], rds, counters, basecall,
+                           chunk, geometry)
+            for name, (rds, geometry) in paths.items()}
+    require(runs["fast"]["full_batches"] >= 4,
+            "the fast path ran fewer than 4 full batches")
 
     # one batch's move scores: kernel D's chain against its plain version's
     prepared, step_int8 = device_step(np, models["int8"], reads,
@@ -420,31 +586,82 @@ def main():
             "int8 path: the kernels' moves disagree with the plain versions'")
     del mv_kernel, mv_plain, diff
 
+    # one fast batch: the encoder through kernel F against F's plain version
+    # in its place, then the kernels' head through G + J against their plain
+    # versions. Five layers, each within LSTM_ATOL / LSTM_MEAN_TOL of its
+    # plain version on the same input, compound: five times those.
+    prepared, step_fast = device_step(np, models["fast"], fast_reads,
+                                      make_compute_fn, chunk)
+    _, step_fast_tcn = device_step(np, models["fast"], fast_reads,
+                                   make_compute_fn, chunk, head_route="tcn")
+    _, x_wire, sig_scale = prepared
+    with torch.inference_mode():
+        xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+              * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+        head_kernel = models["fast"].forward_tcn_head(xc[..., None])
+        ops_lstm.lstm_fused = lstm_fused_cuda.lstm_fused_plain
+        try:
+            head_plain = models["fast"].forward_tcn_head(xc[..., None])
+        finally:
+            ops_lstm.lstm_fused = lstm_fused_cuda.lstm_fused
+        diff = (head_kernel.h.float() - head_plain.h.float()).abs()
+        worst, mean = diff.max().item(), diff.mean().item()
+        out_kernel = ops_decode.viterbi_decode_head(
+            models["fast"].seqdist, head_kernel, qscale=1.05, qbias=0.2)
+        out_plain = decode_fused_cuda.tcn_fused_backward_plain(
+            head_kernel, *decode_fused_cuda.tcn_fused_forward_plain(
+                head_kernel), qscale=1.05, qbias=0.2)
+        same = ((out_kernel["moves"] == out_plain["moves"])
+                & (out_kernel["sequence"] == out_plain["sequence"]))
+        n_diff = (~same).sum().item()
+        dq = (out_kernel["qstring"].int()
+              - out_plain["qstring"].int()).abs()[same].max().item()
+    log(f"  fast path, one batch: encoder output {tuple(head_kernel.h.shape)} "
+        f"through kernel F vs its plain version: max |diff| {worst:.3g}, "
+        f"mean {mean:.3g} (tolerance {5 * LSTM_ATOL:.3g} / "
+        f"{5 * LSTM_MEAN_TOL:.3g}); its decode through G + J vs their plain "
+        f"versions: {n_diff} of {same.numel()} frames differ (at most "
+        f"{1 - DECODE_MIN_EQUAL:.1%} may), max |dq| {dq} on the others")
+    require(torch.isfinite(head_kernel.h.float()).all().item(),
+            "fast path: non-finite encoder output")
+    require(worst <= 5 * LSTM_ATOL and mean <= 5 * LSTM_MEAN_TOL,
+            "fast path: kernel F's encoder output disagrees with the plain "
+            "version's")
+    require(n_diff <= (1 - DECODE_MIN_EQUAL) * same.numel() and dq <= 1,
+            "fast path: G + J disagree with their plain versions")
+    del head_kernel, head_plain, diff, out_kernel, out_plain, same
+
     log("[6] launches on each path (counts set to 0 before it, read after)")
-    own = {"bf16": "A", "int8": "D", "two_stage": "E"}
+    own = {"bf16": "A", "int8": "D", "two_stage": "E", "fast": "F",
+           "fast_bf16": "F"}
     for name, run in runs.items():
-        per_batch = {k: v / run["batches"] for k, v in run["launches"].items()}
-        log(f"  {name}: {run['batches']} batches, per batch {per_batch}")
-        for k, n in run["launches"].items():
-            if k in ("B", "C") or k == own[name]:
-                require(n > 0, f"kernel {k} never launched on the {name} path")
-            else:
-                require(n == 0, f"kernel {k} launched on the {name} path")
-        require(per_batch[own[name]] == 5 and per_batch["C"] == 1,
-                f"{name}: expected 5 LSTM and 1 + 1 decode launches per batch")
+        dec = ("G", "J") if own[name] == "F" else ("B", "C")
+        expect = {k: 0 for k in counters}
+        expect.update({own[name]: 5 * run["batches"],
+                       dec[0]: run["batches"], dec[1]: run["batches"]})
+        log(f"  {name}: {run['batches']} batches ({run['full_batches']} "
+            f"full) of {run['batchsize']}; launches {run['launches']}")
+        require(run["launches"] == expect,
+                f"{name}: launches {run['launches']}, expected {expect}: 5 "
+                f"{own[name]} and 1 + 1 {dec} per batch, no other kernel")
 
     log(f"[7] on {card}:")
-    for name, step in (("bf16", step_bf16), ("int8", step_int8)):
+    for name, step in (("bf16", step_bf16), ("int8", step_int8),
+                       ("fast", step_fast)):
         run = runs[name]
+        per_batch = run["batchsize"] * run["chunksize"]
         log(f"  {name}: {run['samples'] / run['wall']:.6g} samples/s over "
             f"{run['wall']:.3f} s ({run['samples']} samples, "
-            f"{run['batches']} batches of 96), peak memory "
+            f"{run['batches']} batches of {run['batchsize']}), peak memory "
             f"{run['peak']:.3f} GiB, {run['peak'] - run['held']:.3f} GiB "
             f"above what was held before the path; device step (upload, forward, decode, "
             f"fetch) {step:.4g} ms per batch = "
-            f"{96 * 9996 / step * 1e3:.6g} samples/s")
+            f"{per_batch / step * 1e3:.6g} samples/s")
+    log(f"  fast with head_route='tcn' (head matmul + B + C in place of G + "
+        f"J): device step {step_fast_tcn:.4g} ms per batch")
 
-    log("[8] kernel times at hac shapes (CUDA events)")
+    log(f"[8] kernel times at hac shapes (N={N}, T={T}, C=H={H}, S={S}; "
+        f"CUDA events)")
     x_lstm = torch.randn(T, N, H, device=dev, dtype=torch.bfloat16)
     w_ih = (torch.randn(H, 4 * H, device=dev) / math.sqrt(H)).to(torch.bfloat16)
     ms_a = cuda_ms(lambda: lstm_cuda.lstm_recurrence(xw, w_hh), reps=3)
@@ -509,15 +726,75 @@ def main():
     bound_c = bound(move_bytes + N * T * R * 4 + N * T * 5 + N * 8 + 3 * N * T,
                     20 * N * T * S, H100_F32_OPS)
 
-    for name, ms_lstm, step in (("bf16", ms_a, step_bf16),
-                                ("int8", ms_d, step_int8)):
-        kernels_ms = 5 * ms_lstm + ms_b + ms_c
+    log(f"    and at fast shapes (N={FN}, T={FT}, C=H={FH}, S={FS})")
+    fx, fw_ih, fw_hh, fb = f_args
+    ms_f = cuda_ms(lambda: lstm_fused_cuda.lstm_fused(fx, fw_ih, fw_hh, fb),
+                   reps=5)
+    plain_f = cuda_ms(lambda: lstm_fused_cuda.lstm_fused_plain(
+        fx, fw_ih, fw_hh, fb), reps=1, warmup=0)
+    cudnn_f = torch.nn.LSTM(FH, FH, device=dev, dtype=torch.bfloat16)
+    cudnn_f.flatten_parameters()
+    with torch.no_grad():
+        lib_f = cuda_ms(lambda: cudnn_f(fx), reps=5)
+
+    def projection_and_a():  # the route kernel F takes the place of
+        xw_f = torch.matmul(fx, fw_ih)
+        xw_f.add_(fb.to(torch.bfloat16))
+        return lstm_cuda.lstm_recurrence(xw_f, fw_hh)
+    ms_via_a = cuda_ms(projection_and_a, reps=2)
+    log(f"  F: {ms_f:.4g} ms per layer vs projection + kernel A "
+        f"{ms_via_a:.4g} ms vs one cuDNN torch.nn.LSTM({FH}, {FH}) layer "
+        f"{lib_f:.4g} ms")
+    # F: bf16 x in, both weights, the f32 bias, bf16 h out
+    bound_f = bound(2 * FT * FN * FH * 2 + 2 * FH * 4 * FH * 2 + 4 * FH * 4,
+                    2 * FN * FT * (FH + FH) * 4 * FH, H100_BF16_OPS)
+
+    ms_g = cuda_ms(lambda: decode_fused_cuda.tcn_fused_forward(f_head), reps=5)
+    plain_g = cuda_ms(lambda: decode_fused_cuda.tcn_fused_forward_plain(
+        f_head), reps=1, warmup=0)
+    ms_j = cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward(
+        f_head, *f_fwd), reps=5)
+    plain_j = cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward_plain(
+        f_head, *f_fwd), reps=1, warmup=0)
+    head_ops = 2 * FT * FN * FH * 4 * FS     # on the tensor cores
+    head_in = FT * FN * FH * 2 + 4 * FS * FH * 2
+    # G: h and the weights in; move-in f32, choices, c, logZ, end state out
+    bound_g = bound(head_in + FN * FT * FS * 5 + FN * FT * 4 + FN * 8,
+                    head_ops, H100_BF16_OPS, 20 * FN * FT * FS)
+    # J: h and the weights in; as for C a quarter of move-in, one choice per
+    # frame, c, logZ, end state; three [N, T] planes out
+    bound_j = bound(head_in + FN * FT * (FS // 4) * 4 + FN * FT * 5 + FN * 8
+                    + 3 * FN * FT, head_ops, H100_BF16_OPS, 20 * FN * FT * FS)
+    # the TCN route's pieces at fast widths, which G + J take the place of
+    _, (_, crf_fast), clamp_fast = models["fast_bf16"].decode_head()
+    perm_fast = models["fast_bf16"]._tcn_perm(dev)
+    h_nt = f_head.h.transpose(0, 1)
+    head_tcn = lambda: clamp_fast[1](
+        crf_fast.head(h_nt, perm_fast)).contiguous()
+    ms_head_fast = cuda_ms(head_tcn, reps=5)
+    mv_fast = head_tcn()
+    ms_b_fast = cuda_ms(lambda: decode_cuda.tcn_forward(mv_fast, 2.0), reps=3)
+    fwd_fast = decode_cuda.tcn_forward(mv_fast, 2.0)
+    ms_c_fast = cuda_ms(lambda: decode_cuda.tcn_backward(
+        mv_fast, *fwd_fast, 2.0), reps=3)
+    log(f"  G {ms_g:.4g} ms + J {ms_j:.4g} ms vs the TCN route at these "
+        f"widths: head matmul + clamp {ms_head_fast:.4g} ms + B "
+        f"{ms_b_fast:.4g} ms + C {ms_c_fast:.4g} ms")
+
+    for name, ms_lstm, dec, step in (
+            ("bf16", ms_a, (("B", ms_b), ("C", ms_c)), step_bf16),
+            ("int8", ms_d, (("B", ms_b), ("C", ms_c)), step_int8),
+            ("fast", ms_f, (("G", ms_g), ("J", ms_j)), step_fast)):
+        kernels_ms = 5 * ms_lstm + dec[0][1] + dec[1][1]
         log(f"  {name} path per batch: 5 x {own[name]} {5 * ms_lstm:.4g} ms + "
-            f"B {ms_b:.4g} ms + C {ms_c:.4g} ms = {kernels_ms:.4g} ms of the "
-            f"{step:.4g} ms device step; the rest {step - kernels_ms:.4g} ms")
+            f"{dec[0][0]} {dec[0][1]:.4g} ms + {dec[1][0]} {dec[1][1]:.4g} ms "
+            f"= {kernels_ms:.4g} ms of the {step:.4g} ms device step; the "
+            f"rest {step - kernels_ms:.4g} ms")
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
+    src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
     # launches: the count on the path that is the kernel's own (A: bf16,
-    # D, B, C: int8 fused, E: int8 two-stage); by_path has every path's
+    # D, B, C: int8 fused, E: int8 two-stage, F, G, J: fast); by_path has
+    # every path's
     entries = [
         ("lstm_recurrence", "A", "bf16", "bonito_tpu_torch/csrc/lstm.cu",
          "bonito_tpu/ops/lstm_pallas.py:54", err_a, ms_a, plain_a, bound_a,
@@ -534,6 +811,15 @@ def main():
         ("lstm_int8_recurrence", "E", "two_stage", src_int8,
          "bonito_tpu/ops/lstm_pallas.py:355", err_int8["E"], ms_e, plain_e,
          bound_e, None),
+        ("lstm_fused", "F", "fast", "bonito_tpu_torch/csrc/lstm_fused.cu",
+         "bonito_tpu/ops/lstm_pallas.py:604", err_f, ms_f, plain_f, bound_f,
+         lib_f),
+        ("decode_fused_fwd", "G", "fast", src_fused,
+         "bonito_tpu/ops/decode_pallas.py:348", err_g, ms_g, plain_g, bound_g,
+         None),
+        ("decode_fused_bwd", "J", "fast", src_fused,
+         "bonito_tpu/ops/decode_pallas.py:413", err_j, ms_j, plain_j, bound_j,
+         None),
     ]
     kernels = []
     for name, key, path, src, rep, err, ms, plain, (bms, by), lib in entries:

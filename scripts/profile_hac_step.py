@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """
-Where one hac device step of the PyTorch/CUDA port spends the card's time.
+Where one device step of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_hac_step.py [int8]
+    python3 scripts/profile_hac_step.py [int8 | fast]
 
 from the root of a checkout, on a machine with a CUDA card. Builds a
-random full-width hac model (as chip_smoke.py does, without the trip
-through a model directory) — the bf16 model, or with ``int8`` the
-quantised one on its default route (kernel D chain, int8 head) —, runs one warm-up batch of 96 x 9996 samples
-through ``make_compute_fn``, then traces two more with ``torch.profiler``
-and prints, for the traced window: its wall time, the device time by
-kernel name (count, total, mean), the device busy share (sum of kernel
-times over the wall time; one stream, so kernels do not overlap) and the
-card's name and power limit.
+random full-width model (as chip_smoke.py does, without the trip through
+a model directory): the bf16 hac model; with ``int8`` the quantised hac
+model on its default route (kernel D chain, int8 head); with ``fast`` the
+fast model as shipped (quantize=true: dequantised weights through kernel
+F, then the fused-head decode G + J). It runs one warm-up batch (hac 96 x
+9996 samples, fast 1024 x 6000) through ``make_compute_fn``, then traces
+two more with ``torch.profiler`` and prints, for the traced window: its
+wall time, the device time by kernel name (count, total, mean), the device
+busy share (sum of kernel times over the wall time; one stream, so kernels
+do not overlap) and the card's name and power limit. Beside it, the host's
+time to prepare one batch (the int8 signal wire), which the pipeline runs
+in a thread of its own.
 """
 
 import subprocess
@@ -28,9 +32,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from bonito_tpu_torch import nn  # noqa: E402
 from bonito_tpu_torch.crf.basecall import make_compute_fn  # noqa: E402
 from bonito_tpu_torch.crf.model import Model  # noqa: E402
-from bonito_tpu_torch.models import lstm_crf_config  # noqa: E402
+from bonito_tpu_torch.models import MODELS, lstm_crf_config  # noqa: E402
 
-BATCH, CHUNK, STEPS = 96, 9996, 2
+STEPS = 2
+FAST = "dna_r10.4.1_e8.2_400bps_fast@v4.3"
 
 
 def device_us(event):
@@ -46,19 +51,27 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if sys.argv[1:] not in ([], ["int8"]):
+    if sys.argv[1:] not in ([], ["int8"], ["fast"]):
         raise SystemExit(__doc__)
-    quantize = sys.argv[1:] == ["int8"]
-    model = Model(lstm_crf_config(quantize=quantize)).init(1)
+    which = (sys.argv[1:] or ["bf16"])[0]
+    cfg = MODELS[FAST]() if which == "fast" else lstm_crf_config()
+    batch = cfg["basecaller"]["batchsize"]
+    model = Model(cfg).init(1)
+    chunk = cfg["basecaller"]["chunksize"] // model.stride * model.stride
     nn.fuse_bn(model.encoder)
     model.to_bf16()
-    if quantize:
+    if which != "bf16":
         model.quantize()
     model.to("cuda")
-    compute = make_compute_fn(model, BATCH, CHUNK)
-    signal = np.random.default_rng(1).normal(size=(BATCH, CHUNK))
-    prepared = compute.prepare(signal.astype(np.float32))
+    compute = make_compute_fn(model, batch, chunk)
+    signal = np.random.default_rng(1).normal(size=(batch, chunk)).astype(
+        np.float32)
+    prepared = compute.prepare(signal)
     compute.fetch(compute.dispatch(prepared))  # warm-up: build, cuBLAS, cuDNN
+    t0 = time.perf_counter()
+    for _ in range(3):
+        compute.prepare(signal)
+    prepare_ms = (time.perf_counter() - t0) / 3 * 1e3
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -74,9 +87,11 @@ def main():
             if device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    print(f"card: {card}; model: hac, {'int8' if quantize else 'bf16'}")
+    name = "fast, quantize=true" if which == "fast" else f"hac, {which}"
+    print(f"card: {card}; model: {name}, batch {batch} x {chunk} samples")
     print(f"{STEPS} device steps traced: wall {wall_us / 1e3:.4g} ms, "
-          f"{wall_us / 1e3 / STEPS:.4g} ms per step")
+          f"{wall_us / 1e3 / STEPS:.4g} ms per step; host prepare (int8 "
+          f"wire, numpy) {prepare_ms:.4g} ms per batch")
     print(f"{'device time by kernel':<60} {'count':>7} {'total ms':>10} "
           f"{'mean us':>9}")
     for key, count, us in rows[:15]:

@@ -59,10 +59,10 @@ def reads():
             for i, n in enumerate(lengths)]
 
 
-def _run(fn, model, reads):
+def _run(fn, model, reads, **kw):
     return {r.read_id: res for r, res in fn(
         model, iter(reads), chunksize=CHUNK, overlap=OVERLAP,
-        batchsize=BATCH)}
+        batchsize=BATCH, **kw)}
 
 
 def test_basecall_matches_bonito_tpu(model_dir, reads, monkeypatch):
@@ -72,7 +72,7 @@ def test_basecall_matches_bonito_tpu(model_dir, reads, monkeypatch):
                jax_load_model(model_dir, half=False, fuse_bn=True), reads)
     out = _run(basecall,
                load_model(model_dir, half=False, fuse_bn=True, device="cpu"),
-               reads)
+               reads, head_route="tcn")
     assert out.keys() == ref.keys() == {r.read_id for r in reads}
     for rid in ref:
         got, want = out[rid], ref[rid]

@@ -7,8 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from bonito_tpu_torch.ops import decode_cuda, int8, lstm_cuda, lstm_int8_cuda
-from bonito_tpu_torch.ops.lstm import lstm_int8
+from bonito_tpu_torch.crf.model import HeadSplit as Head
+from bonito_tpu_torch.ops import (decode_cuda, decode_fused_cuda, int8,
+                                  lstm_cuda, lstm_fused_cuda, lstm_int8_cuda)
+from bonito_tpu_torch.ops.lstm import lstm, lstm_int8
 
 pytestmark = pytest.mark.gpu
 
@@ -171,3 +173,115 @@ def test_lstm_int8_routes_agree_on_the_card(cuda, route):
                     route="fused")
     assert out.dtype == torch.bfloat16 and out.shape == (N, T, H)
     assert (out.float().cpu() - ref.float()).abs().max().item() <= 0.06
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,C,H", [(8, 9, 16, 16), (19, 17, 32, 48),
+                                     (64, 40, 96, 96), (16, 5, 112, 112),
+                                     (8, 4, 1024, 96), (8, 6, 256, 256)])
+def test_fused_lstm_kernel_matches_plain(cuda, N, T, C, H, reverse, bias):
+    """Kernel F: the same bf16 products summed in f32 in another order, h
+    rounded to bf16 each step: 2 bf16 steps of |h| <= 1, as for kernel A.
+    The shapes take a ragged last row block (N 19), the fast shape (C = H =
+    96: weight fragments in registers) and others (fragments through L2),
+    up to the widest the kernel takes."""
+    g = torch.Generator().manual_seed(N + T + H)
+    x = torch.tanh(torch.randn(T, N, C, generator=g)).to(cuda, torch.bfloat16)
+    w_ih = (torch.randn(C, 4 * H, generator=g) / C ** 0.5).to(
+        cuda, torch.bfloat16)
+    w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(
+        cuda, torch.bfloat16)
+    b = (0.5 * torch.randn(4 * H, generator=g)).to(cuda) if bias else None
+    before = lstm_fused_cuda.lstm_fused.launches
+    out = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, b, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_fused_cuda.lstm_fused.launches == before + 1
+    ref = lstm_fused_cuda.lstm_fused_plain(x, w_ih, w_hh, b, reverse=reverse)
+    assert out.dtype == torch.bfloat16 and out.shape == (T, N, H)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+    assert (out.float() - ref.float()).abs().mean().item() <= 1e-4
+
+
+def test_fused_lstm_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(3, 8, 16, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(16, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        lstm_fused_cuda.lstm_fused(x.float(), w, w, None)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        lstm_fused_cuda.lstm_fused(x[..., :8], w[:8], w, None)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lstm_fused_cuda.lstm_fused(x, w.cpu(), w, None)
+
+
+def test_lstm_gate_launches_the_fused_kernel_for_a_small_layer(cuda):
+    """``lstm`` by shape: kernel F for H = 96, projection + kernel A for
+    H = 272 (over F's width), and never both."""
+    counts = lambda: (lstm_fused_cuda.lstm_fused.launches,
+                      lstm_cuda.lstm_recurrence.launches)
+    for H, want in ((96, (1, 0)), (272, (0, 1))):
+        x = torch.zeros(8, 5, 96, device=cuda, dtype=torch.bfloat16)
+        w_ih = torch.zeros(96, 4 * H, device=cuda, dtype=torch.bfloat16)
+        w_hh = torch.zeros(H, 4 * H, device=cuda, dtype=torch.bfloat16)
+        before = counts()
+        assert lstm(x, w_ih, w_hh, None).shape == (8, 5, H)
+        assert tuple(a - b for a, b in zip(counts(), before)) == want
+
+
+@pytest.mark.parametrize("N,Th,H,S,U,tanh", [
+    (8, 9, 32, 64, 1, False), (5, 7, 32, 64, 2, True), (6, 10, 16, 16, 2, True),
+    (3, 6, 16, 4, 1, False), (4, 5, 96, 256, 1, False),
+    (9, 13, 256, 64, 3, True), (64, 60, 96, 64, 1, False)])
+def test_fused_decode_kernels_match_plain(cuda, N, Th, H, S, U, tanh):
+    """Kernels G and J: the head sums run in another order than the plain
+    version's matmul, so a near-tie may fall the other way; at these sizes
+    none was seen, and at most 0.1% of frames may differ. The shapes take
+    ragged row blocks and chunks, rows inside one warp (S 4, 16) and over
+    several (64, 256), one to three upsample phases, and weights in shared
+    memory and (H 256 with 3 phases, S 256) read through L2."""
+    g = torch.Generator().manual_seed(N + Th + S)
+    gain = 0.5 if tanh else 3.0
+    h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(cuda, torch.bfloat16)
+    wT = (gain * torch.randn(U, 4 * S, H, generator=g) / H ** 0.5).to(
+        cuda, torch.bfloat16)
+    bias = (0.3 * torch.randn(U, 4 * S, generator=g)).to(cuda) if tanh else None
+    head = Head(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+                None if tanh else -5.0, None if tanh else 5.0, 2.0)
+    counts = lambda: (decode_fused_cuda.tcn_fused_forward.launches,
+                      decode_fused_cuda.tcn_fused_backward.launches)
+    before = counts()
+    fwd = decode_fused_cuda.tcn_fused_forward(head)
+    out = decode_fused_cuda.tcn_fused_backward(head, *fwd, qscale=1.05,
+                                               qbias=0.2)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    ref_fwd = decode_fused_cuda.tcn_fused_forward_plain(head)
+    ref = decode_fused_cuda.tcn_fused_backward_plain(head, *ref_fwd,
+                                                     qscale=1.05, qbias=0.2)
+    T = Th * U
+    assert fwd[0].shape == (N, T, S) and out["sequence"].shape == (N, T)
+    torch.testing.assert_close(fwd[0], ref_fwd[0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(fwd[3], ref_fwd[3], rtol=1e-5, atol=1e-3)
+    same = ((out["moves"] == ref["moves"])
+            & (out["sequence"] == ref["sequence"]))
+    assert (~same).sum().item() <= 1e-3 * same.numel()
+    dq = (out["qstring"].int() - ref["qstring"].int()).abs()[same]
+    assert dq.max().item() <= 1
+    assert 0 < out["moves"].float().mean().item() < 1
+
+
+def test_fused_decode_kernels_reject_what_they_do_not_take(cuda):
+    h = torch.zeros(4, 2, 16, device=cuda, dtype=torch.bfloat16)
+    wT = torch.zeros(1, 64, 16, device=cuda, dtype=torch.bfloat16)
+    ok = Head(h, wT, None, False, 1.0, -5.0, 5.0, 2.0)
+    with pytest.raises(TypeError, match="bf16"):
+        decode_fused_cuda.tcn_fused_forward(ok._replace(h=h.float()))
+    with pytest.raises(ValueError, match="power of two"):
+        decode_fused_cuda.tcn_fused_forward(ok._replace(
+            wT=torch.zeros(1, 4 * 1024, 16, device=cuda,
+                           dtype=torch.bfloat16)))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        decode_fused_cuda.tcn_fused_forward(ok._replace(wT=wT.cpu()))
+    with pytest.raises(ValueError, match="bias"):
+        decode_fused_cuda.tcn_fused_forward(ok._replace(
+            bias=torch.zeros(2, 64, device=cuda)))

@@ -36,8 +36,17 @@ def test_no_jax_or_bonito_tpu_import(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, bonito_tpu_torch.crf.basecall, "
-            "bonito_tpu_torch.util, bonito_tpu_torch.checkpoint; "
+    """Every module of the port imports in a fresh interpreter, with no
+    JAX and without building a kernel (this machine has no nvcc: a build
+    at import would raise)."""
+    modules = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                     for p in PORT_FILES if p.parent != ROOT
+                     and p.name != "__init__.py")
+    assert {"bonito_tpu_torch.ops.lstm_fused_cuda",
+            "bonito_tpu_torch.ops.decode_fused_cuda"} <= set(modules)
+    code = (f"import sys, {', '.join(modules)}; "
+            "from bonito_tpu_torch.ops import build; "
+            "assert build._lib is None, 'a kernel was built at import'; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'bonito_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

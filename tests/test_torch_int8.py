@@ -207,7 +207,7 @@ def test_default_route_and_rejections():
                           torch.zeros(H, 4 * H, dtype=torch.int8), w_ih_q)
     assert route(1024) == "fused"                    # hac
     assert route(1024, dtype=torch.int8) == "fused"  # chained
-    assert route(96) == "dequant"                    # fast: small-H stand-in
+    assert route(96) == "dequant"                    # fast: through kernel F
     assert route(96, dtype=torch.int8) == "fused"
     assert route(1024, C=1000) == "two_stage"        # C off the int8 tiles
     assert route(1024, w_ih_q=None) == "two_stage"   # float projection
@@ -418,7 +418,8 @@ def test_int8_slice_matches_bonito_tpu_fused_route(tmp_path, monkeypatch):
              for i, n in enumerate([700, 2400, 5100])]
     kw = dict(chunksize=1000, overlap=200, batchsize=8)
     ref = {r.read_id: res for r, res in jax_basecall(jm, iter(reads), **kw)}
-    out = {r.read_id: res for r, res in basecall(pm, iter(reads), **kw)}
+    out = {r.read_id: res for r, res in basecall(pm, iter(reads), **kw,
+                                                 head_route="tcn")}
     assert out.keys() == ref.keys() == {r.read_id for r in reads}
     for rid in ref:
         assert out[rid]["sequence"] == ref[rid]["sequence"]
