@@ -3,9 +3,12 @@ Checkpoints: bonito_tpu's flat, dot-keyed ``weights_{N}.npz`` (numpy
 alone reads it) and the converter from bonito_tpu's parameter tree.
 
 bonito_tpu keys are the port's ``state_dict`` keys (``encoder.4.w_hh``,
-``encoder.0.norm.mean``, ...). One layout differs: a conv weight is
-[W, I, O] in bonito_tpu and [O, I, W] here. Param-less layers (Permute,
-Clamp) have no entry. Importing upstream ``weights_N.tar`` waits.
+``encoder.0.norm.mean``, ...; for the transformer family
+``encoder.conv.0.w``, ``encoder.transformer_encoder.3.self_attn.wqkv``,
+``encoder.upsample.w``, ``encoder.crf.w``). One layout differs: a conv
+weight is [W, I, O] in bonito_tpu and [O, I, W] here; linear weights are
+[in, out] in both. Param-less layers (Permute, Clamp) have no entry.
+Importing upstream ``weights_N.tar`` waits.
 
 Checkpoints on disk hold the float tree only: quantisation happens at
 load (``util.load_model``), as in bonito_tpu. ``params_from_jax`` also

@@ -1,7 +1,8 @@
 """
-LSTM-CRF model family: an encoder (conv downsample + LSTM stack + CRF
-head, built from the config's layer tree) paired with a CTC_CRF state
-space. ``forward`` gives full scores [N, T, n_score]; ``forward_tcn`` the
+CRF model families: an encoder (conv downsample, then an LSTM stack or,
+for the transformer family, a stack of attention layers and an upsample,
+then a CRF head, built from the config's layer tree) paired with a CTC_CRF
+state space. ``forward`` gives full scores [N, T, n_score]; ``forward_tcn`` the
 decode layout the TCN kernels read; ``forward_tcn_head`` the encoder output
 and the head's weights for the decode kernels that hold the head.
 """
@@ -25,8 +26,11 @@ HeadSplit = namedtuple(
     ["h", "wT", "bias", "act_tanh", "scale", "cmin", "cmax", "blank"])
 
 
+@nn.register
 class SeqdistModel(torch.nn.Module):
-    """Encoder + CTC_CRF seqdist."""
+    """Encoder + CTC_CRF seqdist. Registered as ``seqdistmodel`` so that a
+    config which serialises the whole model (the transformer family's)
+    builds through ``nn.from_dict``."""
 
     def __init__(self, encoder, seqdist):
         super().__init__()
@@ -36,6 +40,20 @@ class SeqdistModel(torch.nn.Module):
         self.alphabet = seqdist.alphabet
         self.compute_dtype = torch.float32
         self._perm = {}
+
+    @classmethod
+    def from_dict(cls, model_dict, layer_types=None):
+        kwargs = dict(model_dict)
+        kwargs["encoder"] = nn.from_dict(kwargs["encoder"], layer_types)
+        kwargs["seqdist"] = CTC_CRF(**kwargs.pop("seqdist"))
+        return cls(**kwargs)
+
+    def to_dict(self):
+        return {
+            "encoder": nn.to_dict(self.encoder),
+            "seqdist": {"state_len": self.seqdist.state_len,
+                        "alphabet": self.seqdist.alphabet},
+        }
 
     @property
     def device(self):
@@ -67,12 +85,22 @@ class SeqdistModel(torch.nn.Module):
         not break a chain. ``route`` names the int8 LSTM route of every
         layer (``ops.lstm.INT8_ROUTES``; None: each layer's shape gate).
 
-        bonito_tpu's ``quantize`` also takes calibrated activation scales
-        (``amax``) for the transformer family's projections; that part
-        waits for the sup slice."""
+        bonito_tpu's ``quantize`` also quantises the transformer family's
+        attention and MLP projections, with calibrated activation scales
+        (``amax``). That is a slice of its own: a model with such
+        projections raises here, it never runs in bf16 under the name of
+        a quantised model."""
         if route is not None and route not in INT8_ROUTES:
             raise ValueError(f"route {route!r}: expected None or one of "
                              f"{INT8_ROUTES}")
+        waits = sorted({type(m).__name__ for m in self.encoder.modules()
+                        if hasattr(m, "wqkv") or hasattr(m, "fc1")})
+        if waits:
+            raise NotImplementedError(
+                f"quantize: the int8 projections of {waits} with calibrated "
+                f"amax activation scales (bonito_tpu's --quantize for the "
+                f"transformer family) are a later slice of the port; load "
+                f"this model with quantize=False")
         for layer in self.encoder.modules():
             if hasattr(layer, "quantize_params"):
                 layer.quantize_params()

@@ -1,0 +1,665 @@
+// Kernels K and L: sliding-window (banded) self-attention of the transformer
+// family. Query i sees key j iff -left <= j - i <= right and j < t_real.
+//
+// K, fused_rotary_window_attention, replaces
+// bonito_tpu/ops/attention_pallas.py:fused_rotary_window_attention
+// (`_fused_kernel_dt`, `_rot_dt`): from qkv [N, T, 3, H, D] in its natural
+// memory (the wqkv matmul's output) and cos/sin [T, r/2] f32 it writes
+// [N, T, H, D], ready for the out projection. It rounds where the TPU kernel
+// rounds, for bf16 and for f32 input alike:
+//
+//     q, k  = bf16(rotary(f32(q)), rotary(f32(k)))   non-interleaved: element
+//             d < r/2 pairs with d + r/2; the tail beyond r passes through
+//     s     = (q . k) / sqrt(D)       bf16 products, f32 accumulation
+//     s     = -1e30 where masked      (not -inf: no NaN in a masked row)
+//     p     = bf16(exp(s - max) / sum)                f32 softmax, then bf16
+//     o     = p . bf16(v)             f32 accumulation, cast to the output
+//
+// A row that sees no key at all (a query at or beyond t_real + left) gives 0.
+//
+// L, local_attention, replaces attention_pallas.py:local_attention_pallas
+// (`_kernel`): q, k, v [N, H, T, D] (rotary already applied, any strides
+// with a contiguous D) -> [N, H, T, D] with f32 operands and f32 products
+// throughout (bf16 input is widened) and out = (p . v) / sum.
+//
+// What bounds them on an H100: at sup shapes (N 128, T 1000, H 8, D 64,
+// window (127, 128), bf16) K reads 393 MB and writes 131 MB, 0.16 ms at 3.35
+// TB/s, against 67 GFLOP inside the band, 0.07 ms on the tensor cores:
+// bytes. L does the same work in f32 FMAs (67 TFLOP/s): operations.
+//
+// Design of K. One block of 4 warps per (row n, head h, tile of 64 queries):
+// 16,384 blocks at sup shapes. The band of 64 queries spans at most
+// 127 + 64 + 128 = 319 keys, so the block stages its whole key window once --
+// q and k rotated in f32 as they are loaded, rounded to bf16, v as it is (by
+// cp.async) -- into shared memory (101 KB at D = 64: two blocks an SM) and
+// no score or probability ever leaves the SM. With 8 warps an SM the
+// staging is bound by latency, so its loops keep several chunks' loads in
+// flight (the first version took one chunk at a time, with half of each
+// warp idle in the rotary: 2.4 ms at sup shapes; PERF.md has both times).
+// A warp owns 16 query rows and uses mma.sync m16n8k16 (bf16 in, f32 out),
+// whose accumulator layout is known: a thread holds two rows' entries, so
+// the softmax needs no shared memory.
+// The TPU kernel normalises p before the second product, so the softmax is
+// not the online one: pass 1 walks the warp's key tiles for each row's max
+// and sum, pass 2 recomputes the scores (the tensor cores have time to spare:
+// bytes bound the kernel), rounds exp(s - max) / sum to bf16 in the A-operand
+// layout that the accumulators already have, and multiplies with v, read
+// through ldmatrix.trans. A ragged T needs no padding: loads and the key mask
+// are predicated on t_real and T. It is not the TPU kernel carried over: that
+// one runs one program per batch row with the query blocks unrolled and a
+// [N, 3, H, D, T] layout, which answer the TPU's pipeline overhead and lanes.
+//
+// Design of L. One block of 8 warps per (n, h, tile of 64 queries), key tiles
+// of 32 through shared memory in f32, a lane per key for the scores and a
+// lane per head-dim element for the output, online softmax in f32 (exact up
+// to f32 rounding: L normalises at the end, as the TPU kernel does). FMA
+// only: TF32 tensor-core products would not keep f32.
+//
+// Later work: K with wgmma and TMA, the key window shared by the query tiles
+// of one (n, h) in a cluster instead of read five times through L2; L on
+// register tiles.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_pipeline.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float NEG = -1e30f;
+constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a block may ask for
+
+__host__ __device__ inline int round_up(int v, int m) {
+    return (v + m - 1) / m * m;
+}
+
+// ---------------------------------------------------------------------------
+// element access
+// ---------------------------------------------------------------------------
+
+__device__ inline void load8(const bf16* p, float (&v)[8]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+    }
+}
+
+__device__ inline void load8(const float* p, float (&v)[8]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 8 floats, rounded to bf16, to a 16-byte aligned shared-memory address
+__device__ inline void store8(bf16* s, const float (&v)[8]) {
+    uint4 raw;
+    raw.x = pack_bf16(v[0], v[1]);
+    raw.y = pack_bf16(v[2], v[3]);
+    raw.z = pack_bf16(v[4], v[5]);
+    raw.w = pack_bf16(v[6], v[7]);
+    *reinterpret_cast<uint4*>(s) = raw;
+}
+
+__device__ inline float to_float(float x) { return x; }
+__device__ inline float to_float(bf16 x) { return __bfloat162float(x); }
+
+__device__ inline void store_pair(bf16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ inline void store_pair(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ inline void store_one(bf16* p, float a) { *p = __float2bfloat16(a); }
+__device__ inline void store_one(float* p, float a) { *p = a; }
+
+// ---------------------------------------------------------------------------
+// kernel K
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;           // query rows per block
+constexpr int KNW = BQ / 16;     // warps: 16 query rows each
+constexpr int KNT = KNW * 32;
+constexpr int PADB = 8;          // bf16 values of padding per shared row
+
+// Staging, device memory -> the rows of a shared tile, in chunks of 8
+// head-dim elements (16 bytes of bf16). Three kinds of chunk:
+//   rotary   the chunk at d0 < r2 with its partner at d0 + r2: rotated in
+//            f32, every product and sum rounded on its own (no fused
+//            multiply-add) as the plain version's are, both written;
+//   plain    v, and the tail of q and k beyond the rotary dim: copied (bf16
+//            input goes by cp.async, without a trip through registers);
+//   zero     a dead token (beyond T or the key window) and the padding
+//            beyond D.
+// The loops over chunks are unrolled so that a thread has several chunks'
+// loads in flight: what the staging costs is latency, not bytes.
+__device__ inline void zero_chunk(bf16* s) {
+    *reinterpret_cast<uint4*>(s) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ inline void plain_chunk(const bf16* g, bf16* s) {
+    __pipeline_memcpy_async(s, g, 16);
+}
+
+__device__ inline void plain_chunk(const float* g, bf16* s) {
+    float a[8];
+    load8(g, a);
+    store8(s, a);
+}
+
+template <typename T>
+__device__ inline void rotary_chunk(const T* g, const float* cs,
+                                    const float* sn, bf16* s, int r2)
+{
+    float a[8], b[8], c[8], sv[8], o1[8], o2[8];
+    load8(g, a);
+    load8(g + r2, b);
+    load8(cs, c);
+    load8(sn, sv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        o1[i] = __fsub_rn(__fmul_rn(a[i], c[i]), __fmul_rn(b[i], sv[i]));
+        o2[i] = __fadd_rn(__fmul_rn(b[i], c[i]), __fmul_rn(a[i], sv[i]));
+    }
+    store8(s, o1);
+    store8(s + r2, o2);
+}
+
+__device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                uint32_t b0, uint32_t b1)
+{
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 tiles, transposed: lanes 8i .. 8i+7 give the row addresses
+// of tile i; register i holds, of tile i, rows 2c and 2c + 1 of column g
+// (g = lane / 4, c = lane % 4) -- the B operand of m16n8k16.
+__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// DP: the head dim padded to 32, 64 or 128 (zeros beyond D).
+template <typename T, int DP>
+__global__ void __launch_bounds__(KNT)
+fused_rotary_window_attention_kernel(
+    const T* __restrict__ qkv, const float* __restrict__ cosp,
+    const float* __restrict__ sinp, T* __restrict__ out, int Tn, int H, int D,
+    int r2, int left, int right, int t_real, int kw_max, int n_qt,
+    float scale)
+{
+    constexpr int LD = DP + PADB;
+    constexpr int CH = DP / 8;
+    constexpr int KT = DP / 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD]
+    bf16* Ks = Qs + BQ * LD;                        // [kw_max][LD]
+    bf16* Vs = Ks + (size_t)kw_max * LD;            // [kw_max][LD]
+
+    const int tid = threadIdx.x;
+    const int qt = blockIdx.x % n_qt;
+    const int h = (blockIdx.x / n_qt) % H;
+    const int n = blockIdx.x / (n_qt * H);
+    const int q0 = qt * BQ;
+    const int q_end = min(q0 + BQ, Tn);
+    const int k_beg = max(0, q0 - left);
+    const int k_end = min(t_real, q_end + right);   // exclusive
+    const int kw = max(k_end - k_beg, 0);
+    const int kwp = round_up(kw, 16);               // <= kw_max
+
+    const size_t tok_stride = (size_t)3 * H * D;
+    const T* base = qkv + (size_t)n * Tn * tok_stride + (size_t)h * D;
+
+    // rows 0 .. BQ-1 of the staging are the queries, the rest the key window
+    const int rows = BQ + kwp;
+    auto token = [&](int row, bool& live) {
+        const int tok = row < BQ ? q0 + row : k_beg + row - BQ;
+        live = row < BQ ? tok < Tn : row - BQ < kw;
+        return (size_t)(live ? tok : 0);
+    };
+    // v: plain chunks up to D
+#pragma unroll 4
+    for (int e = tid; e < kwp * CH; e += KNT) {
+        const int j = e / CH, d0 = (e % CH) * 8;
+        bf16* s = Vs + (size_t)j * LD + d0;
+        if (j < kw && d0 < D)
+            plain_chunk(base + (size_t)(k_beg + j) * tok_stride
+                        + (size_t)2 * H * D + d0, s);
+        else
+            zero_chunk(s);
+    }
+    // q and k: rotary pairs
+    const int rch = r2 / 8;
+#pragma unroll 4
+    for (int e = tid; e < rows * rch; e += KNT) {
+        const int row = e / rch, d0 = (e % rch) * 8;
+        bool live;
+        const size_t t_ = token(row, live);
+        bf16* s = (row < BQ ? Qs + row * LD : Ks + (size_t)(row - BQ) * LD) + d0;
+        if (live) {
+            rotary_chunk(base + t_ * tok_stride
+                         + (row < BQ ? 0 : (size_t)H * D) + d0,
+                         cosp + t_ * r2 + d0, sinp + t_ * r2 + d0, s, r2);
+        } else {
+            zero_chunk(s);
+            zero_chunk(s + r2);
+        }
+    }
+    // q and k: the tail beyond the rotary dim, and the padding beyond D
+    const int tch = CH - 2 * rch;
+    for (int e = tid; e < rows * tch; e += KNT) {
+        const int row = e / tch, d0 = (2 * rch + e % tch) * 8;
+        bool live;
+        const size_t t_ = token(row, live);
+        bf16* s = (row < BQ ? Qs + row * LD : Ks + (size_t)(row - BQ) * LD) + d0;
+        if (live && d0 < D)
+            plain_chunk(base + t_ * tok_stride
+                        + (row < BQ ? 0 : (size_t)H * D) + d0, s);
+        else
+            zero_chunk(s);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+    const int w = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, c4 = lane & 3;
+    const int r0 = w * 16;
+    if (q0 + r0 >= Tn) return;                      // no live row in the warp
+    const int ia = q0 + r0 + g, ib = ia + 8;
+
+    uint32_t qf[KT][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+        const bf16* p = Qs + (r0 + g) * LD + kt * 16 + 2 * c4;
+        qf[kt][0] = *reinterpret_cast<const uint32_t*>(p);
+        qf[kt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
+        qf[kt][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+        qf[kt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+    }
+
+    // the warp's own stretch of the window, in tiles of 16 keys
+    const int row_last = min(q0 + r0 + 15, Tn - 1);
+    const int j_lo = max(k_beg, q0 + r0 - left) - k_beg;
+    const int j_hi = min(k_end, row_last + right + 1) - k_beg;
+    const int t_lo = j_lo / 16;
+    const int t_hi = j_hi > j_lo ? (j_hi + 15) / 16 : t_lo;
+
+    // scores of one tile of 16 keys: s[nt] holds, of keys 8 nt + 2 c4 and
+    // + 1, rows ia (entries 0, 1) and ib (2, 3); vis the same, as bits
+    auto scores = [&](int t, float (&s)[2][4], unsigned& vis) {
+        vis = 0;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+            float acc[4] = {0.f, 0.f, 0.f, 0.f};
+            const bf16* kp = Ks + (size_t)(t * 16 + nt * 8 + g) * LD + 2 * c4;
+#pragma unroll
+            for (int kt = 0; kt < KT; ++kt) {
+                const uint32_t b0 =
+                    *reinterpret_cast<const uint32_t*>(kp + kt * 16);
+                const uint32_t b1 =
+                    *reinterpret_cast<const uint32_t*>(kp + kt * 16 + 8);
+                mma_bf16(acc, qf[kt], b0, b1);
+            }
+            const int j0 = k_beg + t * 16 + nt * 8 + 2 * c4;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int j = j0 + (e & 1);
+                const int i = e < 2 ? ia : ib;
+                const bool ok = j - i >= -left && j - i <= right && j < k_end;
+                s[nt][e] = ok ? acc[e] * scale : NEG;
+                vis |= (unsigned)ok << (nt * 4 + e);
+            }
+        }
+    };
+
+    // pass 1: each row's max and sum, first over the thread's own columns
+    float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+#pragma unroll 2
+    for (int t = t_lo; t < t_hi; ++t) {
+        float s[2][4];
+        unsigned vis;
+        scores(t, s, vis);
+        const float ta = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
+        const float tb = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
+        const float na = fmaxf(m_a, ta), nb = fmaxf(m_b, tb);
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+            if (vis >> (nt * 4 + 0) & 1) sa += __expf(s[nt][0] - na);
+            if (vis >> (nt * 4 + 1) & 1) sa += __expf(s[nt][1] - na);
+            if (vis >> (nt * 4 + 2) & 1) sb += __expf(s[nt][2] - nb);
+            if (vis >> (nt * 4 + 3) & 1) sb += __expf(s[nt][3] - nb);
+        }
+        l_a = l_a * __expf(m_a - na) + sa;
+        l_b = l_b * __expf(m_b - nb) + sb;
+        m_a = na;
+        m_b = nb;
+    }
+    // ... then over the four threads that share a row
+    float M_a = m_a, M_b = m_b;
+#pragma unroll
+    for (int d = 1; d <= 2; d <<= 1) {
+        M_a = fmaxf(M_a, __shfl_xor_sync(0xffffffffu, M_a, d));
+        M_b = fmaxf(M_b, __shfl_xor_sync(0xffffffffu, M_b, d));
+    }
+    l_a *= __expf(m_a - M_a);
+    l_b *= __expf(m_b - M_b);
+#pragma unroll
+    for (int d = 1; d <= 2; d <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, d);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, d);
+    }
+    const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+    const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+
+    // pass 2: p = bf16(exp(s - max) / sum), o += p . v
+    float o[2 * KT][4];
+#pragma unroll
+    for (int dt = 0; dt < 2 * KT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+#pragma unroll 2
+    for (int t = t_lo; t < t_hi; ++t) {
+        float s[2][4];
+        unsigned vis;
+        scores(t, s, vis);
+        float p[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float mx = e < 2 ? M_a : M_b;
+                const float iv = e < 2 ? inv_a : inv_b;
+                p[nt][e] = (vis >> (nt * 4 + e) & 1)
+                    ? __expf(s[nt][e] - mx) * iv : 0.f;
+            }
+        uint32_t pa[4];
+        pa[0] = pack_bf16(p[0][0], p[0][1]);   // row ia, keys 2c, 2c + 1
+        pa[1] = pack_bf16(p[0][2], p[0][3]);   // row ib
+        pa[2] = pack_bf16(p[1][0], p[1][1]);   // row ia, keys 8 + 2c, ...
+        pa[3] = pack_bf16(p[1][2], p[1][3]);   // row ib
+        const bf16* vp = Vs
+            + (size_t)(t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
+            + (lane >> 4) * 8;
+#pragma unroll
+        for (int dk = 0; dk < KT; ++dk) {
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, vp + dk * 16);
+            mma_bf16(o[2 * dk], pa, vb[0], vb[1]);
+            mma_bf16(o[2 * dk + 1], pa, vb[2], vb[3]);
+        }
+    }
+
+    T* orow_a = out + (((size_t)n * Tn + ia) * H + h) * D;
+    T* orow_b = out + (((size_t)n * Tn + ib) * H + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < 2 * KT; ++dt) {
+        const int d = dt * 8 + 2 * c4;
+        if (d < D) {
+            if (ia < Tn) store_pair(orow_a + d, o[dt][0], o[dt][1]);
+            if (ib < Tn) store_pair(orow_b + d, o[dt][2], o[dt][3]);
+        }
+    }
+}
+
+template <typename T, int DP>
+int launch_fused(const void* qkv, const void* cosp, const void* sinp,
+                 void* out, int N, int Tn, int H, int D, int r2, int left,
+                 int right, int t_real, cudaStream_t stream)
+{
+    const int kw_max = round_up(min(left + BQ + right, t_real), 16);
+    const int n_qt = (Tn + BQ - 1) / BQ;
+    const size_t smem = (size_t)(BQ + 2 * kw_max) * (DP + PADB) * sizeof(bf16);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const long long blocks = (long long)N * H * n_qt;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const auto kernel = fused_rotary_window_attention_kernel<T, DP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const float scale = (float)(1.0 / sqrt((double)D));
+    kernel<<<(unsigned)blocks, KNT, smem, stream>>>(
+        static_cast<const T*>(qkv), static_cast<const float*>(cosp),
+        static_cast<const float*>(sinp), static_cast<T*>(out), Tn, H, D, r2,
+        left, right, t_real, kw_max, n_qt, scale);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_fused(int D, const void* qkv, const void* cosp, const void* sinp,
+                   void* out, int N, int Tn, int H, int r2, int left,
+                   int right, int t_real, cudaStream_t stream)
+{
+    if (D <= 32)
+        return launch_fused<T, 32>(qkv, cosp, sinp, out, N, Tn, H, D, r2,
+                                   left, right, t_real, stream);
+    if (D <= 64)
+        return launch_fused<T, 64>(qkv, cosp, sinp, out, N, Tn, H, D, r2,
+                                   left, right, t_real, stream);
+    return launch_fused<T, 128>(qkv, cosp, sinp, out, N, Tn, H, D, r2, left,
+                                right, t_real, stream);
+}
+
+// ---------------------------------------------------------------------------
+// kernel L
+// ---------------------------------------------------------------------------
+
+constexpr int LQ = 64;           // query rows per block
+constexpr int LK = 32;           // keys per tile: a lane each
+constexpr int LR = 8;            // query rows per warp
+constexpr int LNW = LQ / LR;
+constexpr int LNT = LNW * 32;
+constexpr int LDD = 4;           // head-dim elements per lane: D <= 128
+
+struct Strides { long long n, h, t; };
+
+template <typename T>
+__global__ void __launch_bounds__(LNT)
+local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       int H, int Tn, int D, int left, int right, int n_qt,
+                       float scale)
+{
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int LDK = D + 1;
+    float* Qs = reinterpret_cast<float*>(smem_raw);  // [LQ][LDK]
+    float* Ks = Qs + LQ * LDK;                       // [LK][LDK]
+    float* Vs = Ks + LK * LDK;                       // [LK][D]
+    float* Ps = Vs + LK * D;                         // [LNW][LR][LK]
+
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int qt = blockIdx.x % n_qt;
+    const int h = (blockIdx.x / n_qt) % H;
+    const int n = blockIdx.x / (n_qt * H);
+    const int q0 = qt * LQ;
+    const int q_end = min(q0 + LQ, Tn);
+    const int k_beg = max(0, q0 - left);
+    const int k_end = min(Tn, q_end + right);        // exclusive
+
+    const T* qb = q + n * sq.n + h * sq.h;
+    const T* kb = k + n * sk.n + h * sk.h;
+    const T* vb = v + n * sv.n + h * sv.h;
+    for (int e = tid; e < LQ * D; e += LNT) {
+        const int i = e / D, d = e % D;
+        const int tok = q0 + i;
+        Qs[i * LDK + d] = tok < Tn ? to_float(qb[tok * sq.t + d]) : 0.f;
+    }
+
+    // the warp's rows and the keys they see
+    const int row0 = q0 + w * LR;
+    const bool warp_live = row0 < Tn;
+    const int w_lo = row0 - left;
+    const int w_hi = min(row0 + LR - 1, Tn - 1) + right;  // inclusive
+    float m[LR], l[LR], acc[LR][LDD];
+#pragma unroll
+    for (int r = 0; r < LR; ++r) {
+        m[r] = NEG;
+        l[r] = 0.f;
+#pragma unroll
+        for (int dd = 0; dd < LDD; ++dd) acc[r][dd] = 0.f;
+    }
+    float* Pw = Ps + w * LR * LK;
+
+    for (int kt = k_beg; kt < k_end; kt += LK) {
+        __syncthreads();                             // the last tile is read
+        for (int e = tid; e < LK * D; e += LNT) {
+            const int j = e / D, d = e % D;
+            const int tok = kt + j;
+            const bool live = tok < k_end;
+            Ks[j * LDK + d] = live ? to_float(kb[tok * sk.t + d]) : 0.f;
+            Vs[j * D + d] = live ? to_float(vb[tok * sv.t + d]) : 0.f;
+        }
+        __syncthreads();
+        if (!warp_live || kt > w_hi || kt + LK <= w_lo) continue;
+
+        float s[LR];
+#pragma unroll
+        for (int r = 0; r < LR; ++r) s[r] = 0.f;
+        const float* krow = Ks + lane * LDK;
+        const float* qrow = Qs + w * LR * LDK;
+        for (int d = 0; d < D; ++d) {
+            const float kv = krow[d];
+#pragma unroll
+            for (int r = 0; r < LR; ++r) s[r] += qrow[r * LDK + d] * kv;
+        }
+        const int j = kt + lane;
+#pragma unroll
+        for (int r = 0; r < LR; ++r) {
+            const int i = row0 + r;
+            const bool ok = j - i >= -left && j - i <= right && j < k_end;
+            float sc = ok ? s[r] * scale : NEG;
+            float tmax = sc;
+#pragma unroll
+            for (int d = 16; d >= 1; d >>= 1)
+                tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, d));
+            const float m_new = fmaxf(m[r], tmax);
+            const float p = ok ? expf(sc - m_new) : 0.f;
+            float psum = p;
+#pragma unroll
+            for (int d = 16; d >= 1; d >>= 1)
+                psum += __shfl_xor_sync(0xffffffffu, psum, d);
+            const float alpha = expf(m[r] - m_new);
+            l[r] = l[r] * alpha + psum;
+            m[r] = m_new;
+#pragma unroll
+            for (int dd = 0; dd < LDD; ++dd) acc[r][dd] *= alpha;
+            Pw[r * LK + lane] = p;
+        }
+        __syncwarp();
+        for (int jj = 0; jj < LK; ++jj) {
+            float vv[LDD];
+#pragma unroll
+            for (int dd = 0; dd < LDD; ++dd) {
+                const int d = lane + 32 * dd;
+                vv[dd] = d < D ? Vs[jj * D + d] : 0.f;
+            }
+#pragma unroll
+            for (int r = 0; r < LR; ++r) {
+                const float pj = Pw[r * LK + jj];
+#pragma unroll
+                for (int dd = 0; dd < LDD; ++dd) acc[r][dd] += pj * vv[dd];
+            }
+        }
+        __syncwarp();
+    }
+
+    if (!warp_live) return;
+    T* ob = out + n * so.n + h * so.h;
+#pragma unroll
+    for (int r = 0; r < LR; ++r) {
+        const int i = row0 + r;
+        if (i >= Tn) continue;
+#pragma unroll
+        for (int dd = 0; dd < LDD; ++dd) {
+            const int d = lane + 32 * dd;
+            if (d < D)
+                store_one(ob + i * so.t + d,
+                          l[r] > 0.f ? acc[r][dd] / l[r] : 0.f);
+        }
+    }
+}
+
+template <typename T>
+int launch_local(const void* q, const void* k, const void* v, void* out,
+                 const long long* st, int N, int H, int Tn, int D, int left,
+                 int right, cudaStream_t stream)
+{
+    const int n_qt = (Tn + LQ - 1) / LQ;
+    const size_t smem = sizeof(float)
+        * ((size_t)(LQ + LK) * (D + 1) + (size_t)LK * D + LNW * LR * LK);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const long long blocks = (long long)N * H * n_qt;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const auto kernel = local_attention_kernel<T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const Strides sq = {st[0], st[1], st[2]}, sk = {st[3], st[4], st[5]},
+                  sv = {st[6], st[7], st[8]}, so = {st[9], st[10], st[11]};
+    const float scale = (float)(1.0 / sqrt((double)D));
+    kernel<<<(unsigned)blocks, LNT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), sq, sk, sv, so, H, Tn,
+        D, left, right, n_qt, scale);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel K. qkv [N, T, 3, H, D] and out [N, T, H, D] contiguous, bf16 or
+// (is_f32) f32, at 16-byte addresses; cos, sin [T, r2] f32 with r2 half the
+// rotary dim. D a multiple of 8 up to 128, r2 a multiple of 8 with
+// 2 r2 <= D, 0 <= left < 128, 0 <= right <= 128, 1 <= t_real <= T.
+extern "C" int fused_rotary_window_attention(
+    const void* qkv, const void* cosp, const void* sinp, void* out, int N,
+    int T, int H, int D, int r2, int left, int right, int t_real, int is_f32,
+    void* stream)
+{
+    if (N < 1 || T < 1 || H < 1 || D < 8 || D > 128 || D % 8 != 0 || r2 < 8
+        || r2 % 8 != 0 || 2 * r2 > D || left < 0 || left >= 128 || right < 0
+        || right > 128 || t_real < 1 || t_real > T)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return is_f32
+        ? dispatch_fused<float>(D, qkv, cosp, sinp, out, N, T, H, r2, left,
+                                right, t_real, s)
+        : dispatch_fused<bf16>(D, qkv, cosp, sinp, out, N, T, H, r2, left,
+                               right, t_real, s);
+}
+
+// Kernel L. q, k, v, out [N, H, T, D] with element strides
+// strides[12] = (n, h, t) of q, k, v, out (a host array) and a contiguous
+// D, bf16 or (is_f32) f32. D a multiple of 8 up to 128, left and right >= 0.
+extern "C" int local_attention(const void* q, const void* k, const void* v,
+                               void* out, const long long* strides, int N,
+                               int H, int T, int D, int left, int right,
+                               int is_f32, void* stream)
+{
+    if (N < 1 || T < 1 || H < 1 || D < 8 || D > 32 * LDD || D % 8 != 0
+        || left < 0 || right < 0)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return is_f32
+        ? launch_local<float>(q, k, v, out, strides, N, H, T, D, left, right, s)
+        : launch_local<bf16>(q, k, v, out, strides, N, H, T, D, left, right, s);
+}

@@ -1,9 +1,10 @@
 """
-Model zoo: the LSTM-CRF family (fast/hac) as bonito-style config dicts,
-schema-compatible with bonito_tpu's builders and upstream bonito's
-``dna_r10.4.1@v4.x`` configs. The package is named ``bonito.crf``, the
-upstream name that both bonito_tpu and this port map onto their own CRF
-family, so a directory written here loads in either package.
+Model zoo: the LSTM-CRF family (fast/hac) and the transformer-CRF family
+(sup) as bonito-style config dicts, schema-compatible with bonito_tpu's
+config functions and upstream bonito's ``dna_r10.4.1@v4.x`` and ``@v5.0`` configs.
+The packages are named ``bonito.crf`` and ``bonito.transformer``, the
+upstream names that both bonito_tpu and this port map onto their own
+families, so a directory written here loads in either package.
 """
 
 
@@ -61,7 +62,68 @@ def lstm_crf_config(
     }
 
 
-# name -> config builder (the LSTM-CRF entries of bonito_tpu.models.MODELS)
+def transformer_crf_config(
+    d_model=512, nhead=8, depth=18, dim_feedforward=2048,
+    attn_window=(127, 128), state_len=5, conv_stride=12, upsample=2,
+    blank_score=2.0, crf_scale=5.0,
+    batchsize=128, chunksize=12000, overlap=600, sample_rate=5000,
+    qscale=1.05, qbias=1.3, scaling_strategy="pa", standardisation=None,
+):
+    """Transformer-CRF "sup" family (schema of dna_r10.4.1@v5.0.toml): the
+    whole model tree sits under ``[model]``; no ``basecaller.quantize`` key,
+    so it loads in bf16. ``conv_stride`` is the fixed 1, 1, 3, 2, 2 of the
+    five convs (kept as an argument for bonito_tpu's signature)."""
+    if standardisation is None and scaling_strategy == "pa":
+        standardisation = {"standardise": 1, "mean": 90.0, "stdev": 23.0}
+    convs = [
+        _conv(1, 64, 5, 1),
+        _conv(64, 64, 5, 1),
+        _conv(64, 128, 9, 3),
+        _conv(128, 128, 9, 2),
+        _conv(128, d_model, 5, 2),
+    ]
+    encoder = {
+        "type": "namedserial",
+        "conv": {"type": "serial", "sublayers": convs},
+        "transformer_encoder": {
+            "type": "stack",
+            "depth": depth,
+            "layer": {
+                "type": "transformerencoderlayer",
+                "d_model": d_model, "nhead": nhead,
+                "dim_feedforward": dim_feedforward,
+                "deepnorm_alpha": round((2 * depth) ** 0.25, 7),
+                "deepnorm_beta": round((8 * depth) ** -0.25, 7),
+                "attn_window": list(attn_window),
+            },
+        },
+        "upsample": {"type": "linearupsample", "d_model": d_model,
+                     "scale_factor": upsample},
+        "crf": {
+            "type": "linearcrfencoder", "insize": d_model, "n_base": 4,
+            "state_len": state_len, "bias": False,
+            "blank_score": blank_score, "scale": crf_scale,
+            "activation": "tanh",
+        },
+    }
+    return {
+        "model": {
+            "package": "bonito.transformer",
+            "type": "seqdistmodel",
+            "seqdist": {"state_len": state_len,
+                        "alphabet": ["N", "A", "C", "G", "T"]},
+            "encoder": encoder,
+        },
+        "scaling": {"strategy": scaling_strategy},
+        **({"standardisation": standardisation} if standardisation else {}),
+        "run_info": {"sample_rate": sample_rate},
+        "qscore": {"scale": qscale, "bias": qbias},
+        "basecaller": {"batchsize": batchsize, "chunksize": chunksize,
+                       "overlap": overlap},
+    }
+
+
+# name -> config function (the CRF entries of bonito_tpu.models.MODELS)
 MODELS = {
     "dna_r10.4.1_e8.2_400bps_fast@v4.3": lambda: lstm_crf_config(
         features=96, num_layers=5, state_len=3, stride=5,
@@ -71,4 +133,7 @@ MODELS = {
         features=96, num_layers=5, state_len=3, stride=5,
         batchsize=1024, chunksize=6000, overlap=500, sample_rate=4000),
     "rna004_130bps_hac@v3.0.1": lambda: lstm_crf_config(sample_rate=4000),
+    "dna_r10.4.1_e8.2_400bps_sup@v5.0": lambda: transformer_crf_config(),
+    "rna004_130bps_sup@v5.0": lambda: transformer_crf_config(
+        sample_rate=4000),
 }

@@ -15,7 +15,10 @@ bonito_tpu's (and upstream bonito's) ``config.toml`` files name.
   give the int8 forms of bonito_tpu's quantised parameter tree (the same
   names and shapes), as buffers: ``to_bf16`` casts parameters only.
 
-Stack, NamedSerial and Reverse wait for the slices that run them.
+- ``Stack`` (a layer spec repeated ``depth`` times) and ``NamedSerial``
+  (children named by their config keys) build the transformer family's
+  encoder; ``from_dict`` defers to a type's own ``from_dict`` where it has
+  one. Reverse and the conv-CTC blocks wait for the slices that run them.
 """
 
 import math
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 
 from bonito_tpu_torch.ops import int8
 from bonito_tpu_torch.ops.lstm import lstm, lstm_int8
+from bonito_tpu_torch.ops.relayout import pin_layout
 
 layers = {}
 
@@ -49,8 +53,13 @@ def from_dict(model_dict, layer_types=None):
     type_name = model_dict.pop("type")
     if type_name not in layer_types:
         raise NotImplementedError(
-            f"layer type {type_name!r} is not ported to bonito_tpu_torch yet")
+            f"layer type {type_name!r} is not ported to bonito_tpu_torch yet "
+            f"(reverse and the conv-CTC blocks wait for their slices; the "
+            f"transformer layers register when bonito_tpu_torch.transformer "
+            f"is imported)")
     typ = layer_types[type_name]
+    if hasattr(typ, "from_dict"):
+        return typ.from_dict(model_dict, layer_types)
     if "sublayers" in model_dict:
         sub = model_dict["sublayers"]
         model_dict["sublayers"] = (
@@ -130,6 +139,67 @@ class Serial(Layer):
 
     def to_dict(self):
         return {"sublayers": [to_dict(l) for l in self.children()]}
+
+    def output_stride(self, stride):
+        for layer in self.children():
+            stride = layer.output_stride(stride)
+        return stride
+
+    def init_(self, rng):
+        for layer in self.children():
+            layer.init_(rng)
+
+
+@register
+class Stack(Serial):
+    """``depth`` copies of one layer spec. A layer class can ask for a
+    layout pin at the stack's input (``pin_input_layout``): the activation
+    arrives as a [N, T, C] view of a convolution's [N, C, T] output, and
+    ``ops.relayout.pin_layout`` makes it row-major once instead of every
+    layer's first matmul paying for the strides.
+
+    bonito_tpu also pads the tokens to a block multiple here for its
+    attention kernel; the port's kernel takes a ragged T as it is."""
+
+    @classmethod
+    def from_dict(cls, model_dict, layer_types=None):
+        return cls([from_dict(model_dict["layer"], layer_types)
+                    for _ in range(model_dict["depth"])])
+
+    def forward(self, x):
+        first = next(self.children(), None)
+        if getattr(first, "pin_input_layout", False):
+            x = pin_layout(x)
+        return super().forward(x)
+
+    def to_dict(self):
+        layers_ = list(self.children())
+        return {"layer": to_dict(layers_[0]), "depth": len(layers_)}
+
+
+@register
+class NamedSerial(Layer):
+    """Sublayers in order, each a child under its config key, so parameter
+    paths match bonito_tpu's tree (``encoder.conv.0.w``,
+    ``encoder.transformer_encoder.3.self_attn.wqkv``, ``encoder.crf.w``)."""
+
+    @classmethod
+    def from_dict(cls, model_dict, layer_types=None):
+        return cls({k: from_dict(v, layer_types)
+                    for k, v in model_dict.items()})
+
+    def __init__(self, named_layers):
+        super().__init__()
+        for name, layer in dict(named_layers).items():
+            self.add_module(name, layer)
+
+    def forward(self, x):
+        for layer in self.children():
+            x = layer(x)
+        return x
+
+    def to_dict(self):
+        return {k: to_dict(v) for k, v in self.named_children()}
 
     def output_stride(self, stride):
         for layer in self.children():

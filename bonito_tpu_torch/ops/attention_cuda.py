@@ -1,0 +1,236 @@
+"""
+Kernels K and L — banded self-attention (``csrc/attention.cu``) — with
+their plain PyTorch versions and launch counts.
+
+K, ``fused_rotary_window_attention``, replaces
+``bonito_tpu/ops/attention_pallas.py:fused_rotary_window_attention``
+(``_fused_kernel_dt``): rotary embedding of q and k, the band-masked
+softmax and both products in one kernel, from qkv [N, T, 3, H, D] as the
+projection wrote it to [N, T, H, D]. It is the attention of every sup
+layer (18 launches per batch). It rounds where the TPU kernel rounds, for
+bf16 and f32 input alike: rotary in f32 then bf16, scores from bf16
+operands with f32 accumulation, softmax in f32, ``p / sum`` rounded to
+bf16, ``p . v`` accumulated in f32 and cast last. The TPU kernel
+normalises before the second product, so kernel and plain version do too
+(two passes over the scores, no online softmax): they then differ by the
+order of f32 sums and the last bit of exp only.
+
+L, ``local_attention``, replaces ``attention_pallas.py:
+local_attention_pallas`` (``_kernel``), the banded attention of the
+non-fused route (``ops.attention.attend``): q, k, v [N, H, T, D] with
+rotary already applied, f32 operands and products throughout, normalised
+at the end. Unlike the TPU kernel it takes any T.
+
+Query i sees key j iff ``-left <= j - i <= right`` (and ``j < t_real`` for
+K); a masked score is -1e30, not -inf. A row that sees no key gives 0
+(the TPU kernels give an unspecified mean of v there; such rows are
+padding that the caller drops).
+
+Each wrapper runs the plain version for a tensor on the CPU and the
+kernel for a tensor on the card; it never falls back from one to the
+other. ``csrc/attention.cu`` says how the kernels are laid out and what
+bounds them.
+"""
+
+import ctypes
+
+import torch
+
+from bonito_tpu_torch.ops import build
+
+NEG = -1e30
+BLOCK = 128        # bonito_tpu's attention block: the band must fit one
+MAX_D = 128        # the widest head the kernels keep on chip
+SLAB = 1 << 28     # score entries a plain version holds at a time
+
+
+def _window_fits(window):
+    left, right = window
+    return 0 <= left < BLOCK and 0 <= right <= BLOCK
+
+
+def fused_supported(qkv, window, rotary_dim):
+    """The shapes kernel K takes — bonito_tpu's ``fused_supported`` without
+    its TPU terms (the backend and the VMEM budget), and with the widest
+    head the kernel holds: a band inside one 128-block, D a multiple of 8
+    up to 128, rotary_dim a multiple of 16 up to D. Any T, N and H."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3 or window is None:
+        return False
+    D = qkv.shape[4]
+    return (_window_fits(window) and D % 8 == 0 and 0 < D <= MAX_D
+            and rotary_dim % 16 == 0 and 0 < rotary_dim <= D)
+
+
+def local_supported(q, window):
+    """The shapes kernel L takes: bonito_tpu's ``supported`` without the
+    T % 128 and backend terms, with D up to 128."""
+    D = q.shape[-1]
+    return (q.dim() == 4 and window is not None and _window_fits(window)
+            and D % 8 == 0 and 0 < D <= MAX_D)
+
+
+def band_mask(T, window, t_real=None, device=None):
+    """[T, T] bool: key j visible to query i."""
+    left, right = window
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    mask = (j - i >= -left) & (j - i <= right)
+    if t_real is not None:
+        mask = mask & (j < t_real)
+    return mask
+
+
+def rotary_f32(x, cos, sin):
+    """Non-interleaved rotary on the leading 2 * r2 of the head dim, in
+    f32, every product and sum rounded on its own. x [N, T, H, D] f32;
+    cos/sin [T, r2] f32."""
+    r2 = cos.shape[-1]
+    x1, x2, rest = x[..., :r2], x[..., r2:2 * r2], x[..., 2 * r2:]
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s, rest], dim=-1)
+
+
+def _slabs(N, H, T):
+    step = max(1, SLAB // (H * T * T))
+    return [(n, min(n + step, N)) for n in range(0, N, step)]
+
+
+def fused_rotary_window_attention_plain(qkv, cos, sin, window, t_real=None):
+    """qkv [N, T, 3, H, D] (bf16 or f32); cos/sin [T, r2] f32 ->
+    [N, T, H, D] in qkv's dtype, rounding as the module says. ``t_real``
+    masks the keys at and beyond it (a stream the caller padded)."""
+    N, T, _, H, D = qkv.shape
+    bf16 = torch.bfloat16
+    mask = band_mask(T, window, t_real, qkv.device)
+    cos, sin = cos.float(), sin.float()
+    scale = 1.0 / D ** 0.5
+    out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
+    for a, b in _slabs(N, H, T):
+        x = qkv[a:b].float()
+        q = rotary_f32(x[:, :, 0], cos, sin).to(bf16).float().transpose(1, 2)
+        k = rotary_f32(x[:, :, 1], cos, sin).to(bf16).float().transpose(1, 2)
+        v = x[:, :, 2].to(bf16).float().transpose(1, 2)
+        s = torch.matmul(q, k.transpose(-1, -2)) * scale
+        s = torch.where(mask, s, NEG)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)
+        p = torch.where(mask, p, 0.0).to(bf16).float()
+        out[a:b] = torch.matmul(p, v).transpose(1, 2).to(qkv.dtype)
+    return out
+
+
+def local_attention_plain(q, k, v, window):
+    """q, k, v [N, H, T, D] -> [N, H, T, D] in q's dtype: f32 operands,
+    band-masked softmax, ``(p . v) / sum``."""
+    N, H, T, D = q.shape
+    mask = band_mask(T, window, None, q.device)
+    scale = 1.0 / D ** 0.5
+    out = torch.empty_like(q)
+    for a, b in _slabs(N, H, T):
+        s = torch.matmul(q[a:b].float(),
+                         k[a:b].float().transpose(-1, -2)) * scale
+        s = torch.where(mask, s, NEG)
+        p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        o = torch.matmul(p, v[a:b].float()) / p.sum(-1, keepdim=True)
+        out[a:b] = o.to(q.dtype)
+    return out
+
+
+def _check_types(name, tensors):
+    first = tensors[0]
+    if first.device.type != "cuda" or any(
+            t.device != first.device for t in tensors):
+        raise ValueError(f"kernel {name} needs its tensors on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if first.dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != first.dtype for t in tensors):
+        raise TypeError(f"kernel {name} takes bf16 or f32 tensors of one "
+                        f"type, got {[t.dtype for t in tensors]}")
+
+
+def _check_packed(name, **tensors):
+    """Kernel K's vector loads need contiguous tensors at 16-byte
+    addresses; the wrapper copies nothing on the card."""
+    for what, x in tensors.items():
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(
+                f"kernel {name} needs a contiguous {what} at a 16-byte "
+                f"address, got strides {tuple(x.stride())} at offset "
+                f"{x.data_ptr() % 16} (ops.relayout.pin_layout copies one)")
+
+
+def fused_rotary_window_attention(qkv, cos, sin, window, t_real=None):
+    """``fused_rotary_window_attention_plain``'s function: the plain
+    version for a CPU tensor, kernel K for a CUDA tensor (bf16 or f32;
+    shapes as ``fused_supported`` says)."""
+    if qkv.device.type == "cpu":
+        return fused_rotary_window_attention_plain(qkv, cos, sin, window,
+                                                   t_real)
+    _check_types("K", [qkv])
+    if cos.device != qkv.device or sin.device != qkv.device:
+        raise ValueError(f"kernel K needs cos and sin on {qkv.device}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise TypeError(f"kernel K takes f32 cos and sin, got {cos.dtype} "
+                        f"and {sin.dtype}")
+    rotary_dim = 2 * cos.shape[-1]
+    if not fused_supported(qkv, window, rotary_dim):
+        raise ValueError(
+            f"kernel K: qkv {tuple(qkv.shape)}, window {window}, rotary_dim "
+            f"{rotary_dim} need [N, T, 3, H, D] with D a multiple of 8 up to "
+            f"{MAX_D}, 0 <= left < {BLOCK}, 0 <= right <= {BLOCK} and "
+            f"rotary_dim a multiple of 16 up to D")
+    N, T, _, H, D = qkv.shape
+    t_real = T if t_real is None else int(t_real)
+    if (tuple(cos.shape) != (T, rotary_dim // 2) or cos.shape != sin.shape
+            or N < 1 or T < 1 or not 1 <= t_real <= T):
+        raise ValueError(
+            f"kernel K: cos {tuple(cos.shape)} and sin {tuple(sin.shape)} "
+            f"must be [T, rotary_dim / 2] for qkv {tuple(qkv.shape)}, and "
+            f"t_real {t_real} in 1 .. T")
+    _check_packed("K", qkv=qkv, cos=cos, sin=sin)
+    out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
+    fused_rotary_window_attention.launches += 1
+    build.check(build.library().fused_rotary_window_attention(
+        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), N, T,
+        H, D, rotary_dim // 2, int(window[0]), int(window[1]), t_real,
+        int(qkv.dtype == torch.float32), build.stream_of(qkv)),
+        "fused_rotary_window_attention")
+    return out
+
+
+def local_attention(q, k, v, window):
+    """``local_attention_plain``'s function: the plain version for a CPU
+    tensor, kernel L for CUDA tensors (bf16 or f32, D a multiple of 8 up
+    to 128, a band inside one 128-block; any strides with a contiguous D).
+    The result has q's strides."""
+    if q.device.type == "cpu":
+        return local_attention_plain(q, k, v, window)
+    _check_types("L", [q, k, v])
+    if not local_supported(q, window) or k.shape != q.shape \
+            or v.shape != q.shape or q.numel() == 0:
+        raise ValueError(
+            f"kernel L: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, window {window} need three [N, H, T, D] with "
+            f"D a multiple of 8 up to {MAX_D}, 0 <= left < {BLOCK} and "
+            f"0 <= right <= {BLOCK}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(
+            f"kernel L needs a contiguous head dim, got strides "
+            f"{[tuple(t.stride()) for t in (q, k, v)]} "
+            f"(ops.relayout.pin_layout copies one)")
+    out = torch.empty_like(q)  # q's strides: dense, D contiguous
+    if out.stride(-1) != 1:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    N, H, T, D = q.shape
+    local_attention.launches += 1
+    build.check(build.library().local_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        (ctypes.c_longlong * 12)(*strides), N, H, T, D, int(window[0]),
+        int(window[1]), int(q.dtype == torch.float32), build.stream_of(q)),
+        "local_attention")
+    return out
+
+
+fused_rotary_window_attention.launches = 0
+local_attention.launches = 0

@@ -30,6 +30,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+L = ctypes.c_longlong
+LP = ctypes.POINTER(ctypes.c_longlong)  # a host array of 64-bit integers
 
 # C entry points: name -> argtypes (restype is int, the cudaError_t)
 SIGNATURES = {
@@ -57,6 +59,15 @@ SIGNATURES = {
     # clamp, cmin, cmax, stream
     "decode_fused_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                               F, F, F, I, F, I, F, F, P],
+    # qkv, cos, sin, out, N, T, H, D, r2, left, right, t_real, is_f32, stream
+    "fused_rotary_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I,
+                                      P],
+    # q, k, v, out, strides[12], N, H, T, D, left, right, is_f32, stream
+    "local_attention": [P, P, P, P, LP, I, I, I, I, I, I, I, P],
+    # in, out, nd, sizes[nd], strides[nd], unit, stream
+    "relayout_gather_any": [P, P, I, LP, LP, I, P],
+    # in, out, B, R, C, sb, sc, unit, stream
+    "relayout_transpose_any": [P, P, L, I, I, L, L, I, P],
 }
 
 ptxas_report = ""  # nvcc -Xptxas -v output of the library's build

@@ -202,14 +202,15 @@ def set_config_defaults(config, chunksize=None, batchsize=None, overlap=None,
 
 def load_model(dirname, weights=None, half=True, chunksize=None,
                batchsize=None, overlap=None, quantize=False, fuse_bn=False,
-               device=None, route=None):
+               device=None, route=None, attn_route=None):
     """Load a model (config + weights) off disk onto ``device`` (the card
     unless ``device="cpu"``). Chunksize is rounded down to a stride
     multiple and overlap to an even stride multiple so stitching stays
     exact. ``quantize=None`` takes the config's own ``basecaller.quantize``
     (true in every shipped LSTM-CRF config); a quantised model runs the
     int8 LSTM route ``route`` (``ops.lstm.INT8_ROUTES``; None: each
-    layer's shape gate decides)."""
+    layer's shape gate decides). ``attn_route="local"`` puts a transformer
+    model's attention on the local route (``transformer.model``)."""
     from bonito_tpu_torch import resolve_device
     from bonito_tpu_torch.config import load_config
 
@@ -225,11 +226,11 @@ def load_model(dirname, weights=None, half=True, chunksize=None,
     config = load_config(dirname / "config.toml")
     config = set_config_defaults(config, chunksize, batchsize, overlap, quantize)
     return _load_model(weights_path, config, half=half, fuse_bn=fuse_bn,
-                       device=device, route=route)
+                       device=device, route=route, attn_route=attn_route)
 
 
 def _load_model(weights_path, config, half=True, fuse_bn=False, device=None,
-                route=None):
+                route=None, attn_route=None):
     from bonito_tpu_torch import nn, resolve_device
     from bonito_tpu_torch.checkpoint import load_params, params_from_jax
 
@@ -251,4 +252,7 @@ def _load_model(weights_path, config, half=True, fuse_bn=False, device=None,
         # after the cast, as in bonito_tpu: the int8 weights are those of
         # the bf16-rounded values
         model.quantize(route=route)
+    if attn_route is not None:
+        from bonito_tpu_torch.transformer.model import set_attn_route
+        set_attn_route(model, attn_route)
     return model.to(device)

@@ -16,11 +16,19 @@ PyTorch built for CUDA. In order, it:
     directions; at fast widths (N=1024, T=1200, C=H=96, S=64) the fused
     LSTM layer F (both directions, with and without a bias) and the
     fused-head decode G + J (the fast head, and a small head with two
-    upsample phases, tanh, a scale and a bias);
+    upsample phases, tanh, a scale and a bias); at sup widths (N=128,
+    T=1000 and 1024, 8 heads of 64, window (127, 128)) the fused rotary +
+    banded attention K in bf16 (and once with a partial rotary_dim), the
+    banded attention L in f32 and bf16 and, in bf16, on what the shallow
+    transformer below hands it (N=32, 8 heads of 40, q and k out of
+    apply_rotary), and the layout pin P on a transposed view and on a
+    contiguous tensor;
  4. writes full-width model directories with the port's own code (random
     weights from a seed, the CRF weight scaled up so that the output is no
     run of stays): hac and fast, each once with quantize=false in its
-    config and once with the config's own default, quantize=true;
+    config and once with the config's own default, quantize=true; the
+    shipped sup (transformer) model, and a shallow transformer whose heads
+    (8 of 40) the fused attention kernel's gate rejects;
  5. basecalls synthetic reads through ``load_model`` + ``basecall`` on
     the card and checks the output of each path. hac (batch 96, chunk
     9996): bf16 (quantize=false; kernels A, B, C; 48 reads), int8 fused
@@ -29,18 +37,25 @@ PyTorch built for CUDA. In order, it:
     reads). fast (batch 1024, chunk 6000, overlap 500): the default
     directory loaded with quantize=None (dequantised weights through F,
     then G, J; 160 reads, over 4 full batches) and a short run of the
-    quantize=false directory (40 reads). Then it holds one batch on the
-    int8 path and one on the fast path against the same batch with the
-    plain versions in the kernels' place;
+    quantize=false directory (40 reads). sup (batch 128, chunk 12000,
+    overlap 600; bf16 as shipped): 42 reads over at least 3 full batches
+    (P, 18 x K, then B, C), and a short run of the shallow directory
+    (rotary + L in each layer). Then it holds one batch on the int8 path,
+    one on the fast path, one on the sup path (in bf16 and on an f32 copy
+    of the model) and one of the shallow transformer (likewise) against the
+    same batch with the plain versions in the kernels' place;
  6. checks from the launch counts, set to 0 before each path and read
-    after it, that each path launched its own kernels, 5 LSTM and 1 + 1
-    decode launches per batch, and no other kernel of the port;
+    after it, that each path launched its own kernels (5 LSTM and 1 + 1
+    decode launches per batch; sup: 1 pin, 18 attention and 1 + 1 decode
+    launches) and no other kernel of the port;
  7. prints samples/s, the device step and peak memory of the hac bf16 and
-    int8 paths and of the fast path beside the card's name and power;
+    int8 paths, the fast path and the sup path beside the card's name and
+    power;
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function (and, for comparison, the routes that
-    F, G and J take the place of at fast widths), and prints one
-    ``kernels`` JSON line with all eight kernels.
+    F, G and J take the place of at fast widths, B and C at sup shapes and
+    the parts of one sup layer), and prints one ``kernels`` JSON line with
+    all eleven kernels.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -98,6 +113,52 @@ DECODE_MIN_EQUAL = 0.999
 LOGZ_ATOL, LOGZ_RTOL = 1e-3, 1e-5
 
 
+# sup geometry (dna_r10.4.1_e8.2_400bps_sup@v5.0): batch 128, chunk 12000,
+# stride 12 into the transformer -> 1000 tokens of d 512 = 8 heads of 64,
+# window (127, 128), x 2 upsample -> 2000 decode frames, S = 1024
+SUP = "dna_r10.4.1_e8.2_400bps_sup@v5.0"
+SN, ST, SH, SD, SWIN = 128, 1000, 8, 64, (127, 128)
+# A random sup model needs no rescue: its tanh x 5 head already gives all
+# four letters and no long homopolymer. With the weights of seed 1 the CRF
+# weight as drawn emits on 97% of the frames and x 2 on every frame; x 0.5
+# leaves 84% (16% stays). Found on the CPU with the plain versions, two
+# chunks of 12000 samples, bf16 and f32 alike. The shallow model with heads
+# of 40 behaves the same (84% at x 0.5).
+SUP_CRF_SCALE = 0.5
+# K and L against their plain versions: the same operands and rounding
+# points, f32 sums in another order: one bf16 step of the largest output on
+# the max in bf16 (a rounding of p or of the output can flip), ATTN_F32_TOL
+# for L in f32 (bonito_tpu's tolerance for its kernel); ATTN_MEAN_TOL on the
+# mean.
+ATTN_F32_TOL, ATTN_MEAN_TOL = 2e-5, 1e-5
+# One sup batch through 18 layers with K and P against 18 with their plain
+# versions: each layer's attention is within a bf16 step of the other's, the
+# layers in between (RMSNorm keeps |x| near 1) pass the difference on. In
+# bf16 every layer rounds its output anew, so two runs that differ in one
+# rounding drift apart by a fraction of a step everywhere, and a random
+# model's paths tie often. Over random models of seeds 1 to 3
+# (scripts/sup_drift.py) the move scores (tanh x 5, |m| <= 5, one bf16 step
+# 0.0313 there) differ by 0.117 to 0.119 on the max and 0.0081 to 0.0084 on
+# the mean, and the two decodes agree on 0.9562 to 0.9628 of the frames: the
+# limits are eight steps, half a step and SUP_MIN_EQUAL. The same batch on an
+# f32 copy of the model, where only K's own bf16 roundings can flip, holds
+# the kernels' path tight: SUP_F32_MAX and SUP_F32_MEAN on the moves (seen:
+# 9.2e-5 to 1.2e-4 and 5e-6). The decode kernels read bf16 moves, and that
+# cast turns a difference of 1e-5 into a whole step on some entries, so a few
+# frames of the f32 decodes may differ too (seen: 0, 0 and 23 of 256,000; 47
+# of the shallow model's 64,000): at least SUP_F32_MIN_EQUAL agree.
+SUP_MOVES_MAX, SUP_MOVES_MEAN, SUP_MIN_EQUAL = 0.25, 0.0313 / 2, 0.95
+SUP_F32_MAX, SUP_F32_MEAN, SUP_F32_MIN_EQUAL = 1e-3, 5e-5, 0.998
+# the shallow transformer whose heads (8 of 40; rotary_dim 40 is no multiple
+# of 16) the fused kernel's gate rejects: every layer runs apply_rotary and
+# then L, in bf16, on batches of 32 chunks of 1000 tokens
+D40 = dict(d_model=320, nhead=8, depth=2, dim_feedforward=1280, batchsize=32)
+D40_N, D40_H, D40_D = 32, 8, 40
+# its batch through P + 2 x L against the plain versions, in bf16 (seen:
+# 0.0469, 0.00056, 0.9925 of the frames); its f32 copy is held to SUP_F32_*
+D40_MOVES_MAX, D40_MOVES_MEAN, D40_MIN_EQUAL = 0.125, 0.003, 0.98
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -145,6 +206,9 @@ def ptxas_summary(report):
         if m:
             base = re.search(r"(lstm_step_bf16|lstm_int8_step|"
                              r"lstm_fused_bf16_kernel|"
+                             r"fused_rotary_window_attention_kernel|"
+                             r"local_attention_kernel|"
+                             r"relayout_transpose|relayout_gather|"
                              r"decode_(?:tcn|fused)_(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
@@ -157,6 +221,15 @@ def ptxas_summary(report):
                         f"{tiles.group(1)}+{tiles.group(2)}>")
             elif "decode" in name:
                 name = f"{name}<{tmpl}>"
+            io = re.search(r"(?:attention_kernel|relayout_\w+?)I"
+                           r"(13__nv_bfloat16|5uint4|[fhtjm])(?:Li(\d+)E)?",
+                           m.group(1))
+            if io:
+                kinds = {"13__nv_bfloat16": "bf16", "f": "f32", "h": "1 byte",
+                         "t": "2 bytes", "j": "4 bytes", "m": "8 bytes",
+                         "5uint4": "16 bytes"}
+                name = f"{name}<{kinds[io.group(1)]}" + (
+                    f", head dim up to {io.group(2)}>" if io.group(2) else ">")
             flags = re.search(r"lstm_int8_stepILi(\d+)ELb(\d)ELb(\d)E",
                               m.group(1))
             if flags:
@@ -370,6 +443,111 @@ def check_decode_fused(torch, decode_fused_cuda, HeadSplit, dev):
     return case("fast head", FN, FT, FH, FS, 1, False, 3.0)
 
 
+def bf16_step(x):
+    """One bf16 step at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def check_attention(torch, attention_cuda, transformer, dev):
+    """Kernels K and L against their plain versions at sup widths: K in
+    bf16 at T = 1000 (the shipped chunk) and 1024, full and partial
+    rotary_dim; L on the strided [N, H, T, D] views of a packed qkv in f32
+    and bf16, and on what the shallow transformer's layers hand it (32 rows,
+    8 heads of 40, bf16: q and k from apply_rotary, v a view of the packed
+    qkv). Tolerances: ATTN_* above."""
+    g = torch.Generator().manual_seed(SEED + 7)
+    rotary_freqs = transformer.rotary_freqs
+    errs = {"K": 0.0, "L": 0.0, "L sup f32": 0.0}
+    kept = {}
+    for T, r in ((ST, SD), (1024, SD), (ST, SD // 2)):
+        qkv = torch.randn(SN, T, 3, SH, SD, generator=g).to(dev, torch.bfloat16)
+        cos, sin = rotary_freqs(T, r, device=dev)
+        out = attention_cuda.fused_rotary_window_attention(qkv, cos, sin, SWIN)
+        torch.cuda.synchronize()
+        ref = attention_cuda.fused_rotary_window_attention_plain(
+            qkv, cos, sin, SWIN)
+        diff = (out.float() - ref.float()).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        top = ref.float().abs().max().item()
+        log(f"  kernel K T={T} rotary_dim={r}: max |o - plain| {err:.3g}, "
+            f"mean {mean:.3g} at max |o| {top:.3g} (tolerance "
+            f"{bf16_step(top):.3g}, one bf16 step there / {ATTN_MEAN_TOL}); "
+            f"std of o {out.float().std().item():.3f}")
+        require(torch.isfinite(out.float()).all().item()
+                and out.float().std().item() > 0.01,
+                "kernel K: o is not finite or does not vary")
+        require(err <= bf16_step(top) and mean <= ATTN_MEAN_TOL,
+                f"kernel K disagrees with its plain version: max {err}, "
+                f"mean {mean}")
+        errs["K"] = max(errs["K"], err)
+        if (T, r) == (ST, SD):
+            kept["K"] = (qkv, cos, sin)
+    for T, dtype, own in ((ST, torch.float32, False),
+                          (1024, torch.float32, False),
+                          (ST, torch.bfloat16, False),
+                          (1024, torch.bfloat16, False),
+                          (ST, torch.bfloat16, True)):
+        if own:  # the shallow transformer's own call
+            qkv = torch.randn(D40_N, T, 3, D40_H, D40_D, generator=g).to(
+                dev, dtype)
+            cos, sin = rotary_freqs(T, D40_D, device=dev)
+            q = transformer.apply_rotary(qkv[:, :, 0], cos, sin).transpose(1, 2)
+            k = transformer.apply_rotary(qkv[:, :, 1], cos, sin).transpose(1, 2)
+            v = qkv[:, :, 2].transpose(1, 2)
+        else:
+            qkv = torch.randn(SN, T, 3, SH, SD, generator=g).to(dev, dtype)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        out = attention_cuda.local_attention(q, k, v, SWIN)
+        torch.cuda.synchronize()
+        ref = attention_cuda.local_attention_plain(q, k, v, SWIN)
+        diff = (out.float() - ref.float()).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        tol = (ATTN_F32_TOL if dtype == torch.float32
+               else bf16_step(ref.float().abs().max().item()))
+        log(f"  kernel L {tuple(q.shape)} strides {q.stride()} / "
+            f"{v.stride()} {str(dtype)[6:]}: max |o - plain| {err:.3g}, "
+            f"mean {mean:.3g} (tolerance {tol:.3g} / {ATTN_MEAN_TOL}); std of "
+            f"o {out.float().std().item():.3f}")
+        require(torch.isfinite(out.float()).all().item()
+                and out.float().std().item() > 0.01
+                and err <= tol and mean <= ATTN_MEAN_TOL,
+                f"kernel L disagrees with its plain version: max {err}, "
+                f"mean {mean}")
+        if own:
+            errs["L"], kept["L"] = err, (q, k, v)
+        elif dtype == torch.float32:
+            errs["L sup f32"] = max(errs["L sup f32"], err)
+            if T == ST:
+                kept["L sup f32"] = (q, k, v)
+    return kept, errs
+
+
+def check_pin(torch, relayout, dev):
+    """Kernel P against its plain version: the [N, T, C] view of a
+    [N, C, T] tensor at sup widths (what a convolution hands the stack),
+    and a contiguous tensor. Identical in every bit, contiguous, a copy."""
+    g = torch.Generator().manual_seed(SEED + 8)
+    base = torch.randn(SN, 512, ST, generator=g).to(dev, torch.bfloat16)
+    view = base.transpose(1, 2)
+    worst = 0.0
+    for name, x in (("transposed view", view),
+                    ("contiguous", view.contiguous())):
+        out = relayout.pin_layout(x)
+        torch.cuda.synchronize()
+        ref = relayout.pin_layout_plain(x)
+        plan = relayout.relayout_plan(list(x.shape), list(x.stride()),
+                                      x.element_size())
+        same = torch.equal(out, ref)
+        log(f"  kernel P, {name} {tuple(x.shape)} strides {x.stride()} "
+            f"({plan[0]}, unit {plan[-1]}): identical {same}, contiguous "
+            f"{out.is_contiguous()}")
+        require(same and out.is_contiguous()
+                and out.data_ptr() != x.data_ptr(),
+                f"kernel P ({name}) is no identical contiguous copy")
+        worst = max(worst, (out.float() - ref.float()).abs().max().item())
+    return view, worst
+
+
 class Read:
     def __init__(self, read_id, signal):
         self.read_id = read_id
@@ -444,21 +622,74 @@ def device_step(np, model, reads, make_compute_fn, chunk, head_route=None):
     return prepared, ms
 
 
+def moves_kernels_vs_plain(torch, model, x):
+    """One batch's move scores through a transformer model twice: with its
+    attention and pin kernels (K or L, and P), and with their plain versions
+    in the kernels' place. Returns both, the max and mean absolute
+    difference, and the kernels' launches in the first pass."""
+    from bonito_tpu_torch import nn as port_nn
+    from bonito_tpu_torch.ops import attention as ops_attention
+    from bonito_tpu_torch.ops import attention_cuda, relayout
+    from bonito_tpu_torch.transformer import model as transformer
+    kernels = {"K": attention_cuda.fused_rotary_window_attention,
+               "L": attention_cuda.local_attention, "P": relayout.pin_layout}
+    before = {k: fn.launches for k, fn in kernels.items()}
+    mv_kernel, blank = model.forward_tcn(x)
+    launches = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    transformer.fused_rotary_window_attention = (
+        attention_cuda.fused_rotary_window_attention_plain)
+    ops_attention.local_attention = attention_cuda.local_attention_plain
+    port_nn.pin_layout = relayout.pin_layout_plain
+    try:
+        mv_plain, _ = model.forward_tcn(x)
+    finally:
+        transformer.fused_rotary_window_attention = kernels["K"]
+        ops_attention.local_attention = kernels["L"]
+        port_nn.pin_layout = kernels["P"]
+    require({k: fn.launches - before[k] for k, fn in kernels.items()}
+            == launches, "the plain pass launched a kernel")
+    worst = total = 0.0
+    for a in range(0, mv_kernel.shape[0], 250):  # slabs of frames
+        diff = (mv_kernel[a:a + 250].float()
+                - mv_plain[a:a + 250].float()).abs()
+        worst = max(worst, diff.max().item())
+        total += diff.sum().item()
+    require(torch.isfinite(mv_kernel.float()).all().item(),
+            "non-finite move scores")
+    mean = total / mv_kernel.numel()
+    return mv_kernel, mv_plain, blank, worst, mean, launches
+
+
+def decodes_differ(torch, model, mv_a, mv_b, blank, ops_decode, **q):
+    """Frames on which the TCN decodes (B + C) of two move tensors differ in
+    moves or sequence, and all frames."""
+    outs = [ops_decode.viterbi_decode_tcn(
+        model.seqdist, mv.to(torch.bfloat16), blank, **q)
+        for mv in (mv_a, mv_b)]
+    same = ((outs[0]["moves"] == outs[1]["moves"])
+            & (outs[0]["sequence"] == outs[1]["sequence"]))
+    return (~same).sum().item(), same.numel(), outs[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    import torch.nn.functional as F
     from bonito_tpu_torch import checkpoint
     from bonito_tpu_torch.config import save_config
     from bonito_tpu_torch.crf.basecall import basecall, make_compute_fn
     from bonito_tpu_torch.crf.model import HeadSplit, Model
-    from bonito_tpu_torch.models import MODELS, lstm_crf_config
-    from bonito_tpu_torch.ops import (build, decode_cuda, decode_fused_cuda,
-                                      int8, lstm_cuda, lstm_fused_cuda,
-                                      lstm_int8_cuda)
+    from bonito_tpu_torch.models import (MODELS, lstm_crf_config,
+                                         transformer_crf_config)
+    from bonito_tpu_torch.ops import (attention_cuda, build, decode_cuda,
+                                      decode_fused_cuda, int8, lstm_cuda,
+                                      lstm_fused_cuda, lstm_int8_cuda,
+                                      relayout)
     from bonito_tpu_torch.ops import decode as ops_decode
     from bonito_tpu_torch.ops import lstm as ops_lstm
+    from bonito_tpu_torch.transformer import model as transformer
     from bonito_tpu_torch.util import chunk, load_model
 
     dev = torch.device("cuda")
@@ -484,17 +715,37 @@ def main():
     f_args, err_f = check_lstm_fused(torch, lstm_fused_cuda, dev)
     f_head, f_fwd, err_g, err_j = check_decode_fused(
         torch, decode_fused_cuda, HeadSplit, dev)
+    log(f"    and at sup widths (N={SN}, T={ST}, H={SH}, D={SD}, window "
+        f"{SWIN})")
+    attn_args, err_attn = check_attention(torch, attention_cuda, transformer,
+                                          dev)
+    pin_view, err_p = check_pin(torch, relayout, dev)
 
-    log("[4] hac and fast model directories from the port's own code")
+    log("[4] hac, fast and sup model directories from the port's own code")
     dirs = {}
     for name, quantize, scale in (("bf16", False, CRF_SCALE),
                                   ("int8", True, CRF_SCALE),
                                   ("fast_bf16", False, FAST_CRF_SCALE),
-                                  ("fast", True, FAST_CRF_SCALE)):
+                                  ("fast", True, FAST_CRF_SCALE),
+                                  ("sup", None, SUP_CRF_SCALE),
+                                  ("sup_d40", None, SUP_CRF_SCALE)):
         model_dir = build.BUILD / f"chip_smoke_{name}"
         if model_dir.exists():
             shutil.rmtree(model_dir)
         model_dir.mkdir(parents=True)
+        if name.startswith("sup"):
+            cfg = (MODELS[SUP]() if name == "sup"
+                   else transformer_crf_config(**D40))
+            require("quantize" not in cfg["basecaller"],
+                    "the sup config names a quantize default")
+            model = transformer.Model(cfg).init(SEED)
+            with torch.no_grad():
+                model.encoder.crf.w.mul_(scale)
+            save_config(cfg, model_dir / "config.toml")
+            checkpoint.save_params(model_dir / "weights_1.npz", model)
+            dirs[name] = model_dir
+            del model
+            continue
         cfg = MODELS[FAST]() if name.startswith("fast") else lstm_crf_config()
         require(cfg["basecaller"]["quantize"] is True,
                 "the config's default is no longer quantize=true")
@@ -508,7 +759,7 @@ def main():
         dirs[name] = model_dir
         del model
 
-    log("[5] load_model + basecall on the card, five paths")
+    log("[5] load_model + basecall on the card, seven paths")
     rng = np.random.default_rng(SEED)
     lengths = np.concatenate([[3000, 9000], rng.integers(20000, 110000, 142)])
     reads = [Read(f"read{i}", rng.normal(size=int(n)).astype(np.float32))
@@ -524,14 +775,18 @@ def main():
                 "E": lstm_int8_cuda.lstm_int8_recurrence,
                 "F": lstm_fused_cuda.lstm_fused,
                 "G": decode_fused_cuda.tcn_fused_forward,
-                "J": decode_fused_cuda.tcn_fused_backward}
+                "J": decode_fused_cuda.tcn_fused_backward,
+                "K": attention_cuda.fused_rotary_window_attention,
+                "L": attention_cuda.local_attention,
+                "P": relayout.pin_layout}
     models = {
         name: load_model(dirs[src], half=True, fuse_bn=True, quantize=None,
                          device="cuda", **kw)
         for name, src, kw in (("bf16", "bf16", {}), ("int8", "int8", {}),
                               ("two_stage", "int8", {"route": "two_stage"}),
                               ("fast", "fast", {}),
-                              ("fast_bf16", "fast_bf16", {}))}
+                              ("fast_bf16", "fast_bf16", {}),
+                              ("sup", "sup", {}), ("sup_d40", "sup_d40", {}))}
     lstms = [m for m in models["int8"].encoder.modules()
              if hasattr(m, "quantize_params")]
     require(len(lstms) == 5 and all(
@@ -547,17 +802,37 @@ def main():
             torch.empty(1, 1, FH, dtype=torch.bfloat16), m.w_hh_q,
             m.w_ih_q) == "dequant" for m in fast_lstms),
         "the fast directory did not load quantised on the dequant route")
+    sup_layers = [m for m in models["sup"].modules()
+                  if isinstance(m, transformer.TransformerEncoderLayer)]
+    require(len(sup_layers) == 18 and models["sup"].compute_dtype
+            == torch.bfloat16 and models["sup"].seqdist.n_states == S
+            and all(m.self_attn.route(torch.empty(1, 9, 3, SH, SD)) == "fused"
+                    for m in sup_layers),
+            "the sup directory did not load as 18 bf16 layers on the fused "
+            "attention route")
+    d40_layers = [m for m in models["sup_d40"].modules()
+                  if isinstance(m, transformer.TransformerEncoderLayer)]
+    require(len(d40_layers) == 2 and all(
+        m.self_attn.route(torch.empty(1, 9, 3, 8, 40)) == "local"
+        for m in d40_layers),
+        "the shallow transformer's heads do not take the local route")
     hac_geometry, fast_geometry = (9996, 492, 96), (6000, 500, FN)
+    # sup: chunks of 12000 at a step of 11400; 40 reads of 100k to 220k
+    # samples make about 570 chunks, over 4 full batches of 128
     paths = {"bf16": (reads[:48], hac_geometry),
              "int8": (reads[:144], hac_geometry),
              "two_stage": (reads[:20], hac_geometry),
              "fast": (fast_reads, fast_geometry),
-             "fast_bf16": (fast_reads[:40], fast_geometry)}
+             "fast_bf16": (fast_reads[:40], fast_geometry),
+             "sup": (fast_reads[:42], (12000, 600, SN)),
+             "sup_d40": (fast_reads[:7], (12000, 600, 32))}
     runs = {name: run_path(torch, name, models[name], rds, counters, basecall,
                            chunk, geometry)
             for name, (rds, geometry) in paths.items()}
     require(runs["fast"]["full_batches"] >= 4,
             "the fast path ran fewer than 4 full batches")
+    require(runs["sup"]["full_batches"] >= 3,
+            "the sup path ran fewer than 3 full batches")
 
     # one batch's move scores: kernel D's chain against its plain version's
     prepared, step_int8 = device_step(np, models["int8"], reads,
@@ -631,23 +906,135 @@ def main():
             "fast path: G + J disagree with their plain versions")
     del head_kernel, head_plain, diff, out_kernel, out_plain, same
 
+    # one sup batch: the conv stack's own output through P, the move scores
+    # through P + 18 x K against the plain versions in their place, and the
+    # decode of both through B + C (and B, C against their plain versions on
+    # the kernels' moves: identical, as in phase 3)
+    prepared, step_sup = device_step(np, models["sup"], fast_reads,
+                                     make_compute_fn, chunk)
+    _, x_wire, sig_scale = prepared
+    sup = models["sup"]
+    q = dict(qscale=1.05, qbias=1.3)
+    with torch.inference_mode():
+        xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+              * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+        conv_out = sup.encoder.conv(xc[..., None])
+        pinned = relayout.pin_layout(conv_out)
+        log(f"  sup path, one batch: the conv stack's output "
+            f"{tuple(conv_out.shape)} {str(conv_out.dtype)[6:]} has strides "
+            f"{conv_out.stride()}; kernel P's copy is identical: "
+            f"{torch.equal(pinned, conv_out)}, contiguous: "
+            f"{pinned.is_contiguous()}")
+        require(tuple(conv_out.shape) == (SN, ST, 512)
+                and torch.equal(pinned, conv_out) and pinned.is_contiguous(),
+                "sup path: kernel P does not copy the conv stack's output")
+        sup_view = conv_out
+        del pinned
+        mv_kernel, mv_plain, sup_blank, worst, mean, n_k = (
+            moves_kernels_vs_plain(torch, sup, xc[..., None]))
+        n_diff, n_all, out_kernel = decodes_differ(
+            torch, sup, mv_kernel, mv_plain, sup_blank, ops_decode, **q)
+        sup_moves = mv_kernel.permute(2, 0, 1).contiguous()
+        sup_fwd = decode_cuda.tcn_forward(sup_moves, sup_blank)
+        ref_fwd = decode_cuda.tcn_forward_plain(sup_moves, sup_blank)
+        out_plain = decode_cuda.tcn_backward_plain(sup_moves, *ref_fwd,
+                                                   sup_blank, **q)
+        exact = all(torch.equal(out_kernel[k], out_plain[k])
+                    for k in ("sequence", "moves"))
+        dq = (out_kernel["qstring"].int()
+              - out_plain["qstring"].int()).abs().max().item()
+    log(f"    its moves {tuple(mv_kernel.shape)} through P + 18 x K vs the "
+        f"plain versions: max |diff| {worst:.3g}, mean {mean:.3g} (tolerance "
+        f"{SUP_MOVES_MAX} / {SUP_MOVES_MEAN}); the two decodes agree on "
+        f"{1 - n_diff / n_all:.5f} of {n_all} frames (at least "
+        f"{SUP_MIN_EQUAL}); B + C vs their plain versions on the kernels' "
+        f"moves: sequence and moves identical {exact}, choices identical "
+        f"{torch.equal(sup_fwd[1], ref_fwd[1])}, max |dq| {dq}")
+    require(n_k == {"K": 18, "L": 0, "P": 1}, f"sup path: launches {n_k}")
+    require(worst <= SUP_MOVES_MAX and mean <= SUP_MOVES_MEAN,
+            "sup path: the kernels' moves disagree with the plain versions'")
+    require(n_diff <= (1 - SUP_MIN_EQUAL) * n_all,
+            "sup path: the decode through the kernels disagrees with the "
+            "decode through the plain versions")
+    require(exact and torch.equal(sup_fwd[1], ref_fwd[1]) and dq <= 1,
+            "sup path: B + C disagree with their plain versions")
+    del mv_kernel, mv_plain, out_kernel, out_plain, ref_fwd, conv_out
+
+    # the same batch on an f32 copy of the model: K takes f32 in and out and
+    # rounds to bf16 inside, nothing else rounds to bf16
+    sup32 = load_model(dirs["sup"], half=False, fuse_bn=True, device="cuda")
+    with torch.inference_mode():
+        mv_kernel, mv_plain, _, worst, mean, n_k = moves_kernels_vs_plain(
+            torch, sup32, xc[..., None].float())
+        n_diff, n_all, _ = decodes_differ(
+            torch, sup32, mv_kernel, mv_plain, sup_blank, ops_decode, **q)
+    log(f"    an f32 copy of the model, the same {SN} chunks, launches {n_k} "
+        f"in f32: moves {tuple(mv_kernel.shape)} {str(mv_kernel.dtype)[6:]} "
+        f"vs the plain versions: max |diff| {worst:.3g}, mean {mean:.3g} "
+        f"(tolerance {SUP_F32_MAX} / {SUP_F32_MEAN}); the two decodes differ "
+        f"on {n_diff} of {n_all} frames (at most "
+        f"{1 - SUP_F32_MIN_EQUAL:.1%} may)")
+    require(n_k == {"K": 18, "L": 0, "P": 1}
+            and mv_kernel.dtype == torch.float32,
+            f"sup path, f32: launches {n_k} on {mv_kernel.dtype} moves")
+    require(worst <= SUP_F32_MAX and mean <= SUP_F32_MEAN
+            and n_diff <= (1 - SUP_F32_MIN_EQUAL) * n_all,
+            "sup path, f32: the kernels' moves disagree with the plain "
+            "versions'")
+    del sup32, mv_kernel, mv_plain
+
+    # one batch of the shallow transformer: P + 2 x (apply_rotary, L) against
+    # the plain versions in their place, in bf16 as it runs and on an f32 copy
+    prepared, _ = device_step(np, models["sup_d40"], fast_reads,
+                              make_compute_fn, chunk)
+    _, x_wire, sig_scale = prepared
+    d40_32 = load_model(dirs["sup_d40"], half=False, fuse_bn=True,
+                        device="cuda")
+    with torch.inference_mode():
+        xd = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+              * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+        for name, model, x, tol_max, tol_mean, tol_frames in (
+                ("bf16", models["sup_d40"], xd[..., None], D40_MOVES_MAX,
+                 D40_MOVES_MEAN, 1 - D40_MIN_EQUAL),
+                ("an f32 copy", d40_32, xd[..., None].float(), SUP_F32_MAX,
+                 SUP_F32_MEAN, 1 - SUP_F32_MIN_EQUAL)):
+            mv_kernel, mv_plain, d40_blank, worst, mean, n_l = (
+                moves_kernels_vs_plain(torch, model, x))
+            n_diff, n_all, _ = decodes_differ(
+                torch, model, mv_kernel, mv_plain, d40_blank, ops_decode, **q)
+            log(f"  shallow transformer, one batch, {name}: moves "
+                f"{tuple(mv_kernel.shape)} {str(mv_kernel.dtype)[6:]} through "
+                f"P + 2 x (apply_rotary, L), launches {n_l}, vs the plain "
+                f"versions: max |diff| {worst:.3g}, mean {mean:.3g} "
+                f"(tolerance {tol_max} / {tol_mean}); the two decodes differ "
+                f"on {n_diff} of {n_all} frames (at most {tol_frames:.1%} "
+                f"may)")
+            require(n_l == {"K": 0, "L": 2, "P": 1},
+                    f"shallow transformer, {name}: launches {n_l}")
+            require(worst <= tol_max and mean <= tol_mean
+                    and n_diff <= tol_frames * n_all,
+                    f"shallow transformer, {name}: the kernels' moves "
+                    f"disagree with the plain versions'")
+    del d40_32, mv_kernel, mv_plain, xd
+
     log("[6] launches on each path (counts set to 0 before it, read after)")
-    own = {"bf16": "A", "int8": "D", "two_stage": "E", "fast": "F",
-           "fast_bf16": "F"}
+    own = {"bf16": {"A": 5, "B": 1, "C": 1}, "int8": {"D": 5, "B": 1, "C": 1},
+           "two_stage": {"E": 5, "B": 1, "C": 1},
+           "fast": {"F": 5, "G": 1, "J": 1},
+           "fast_bf16": {"F": 5, "G": 1, "J": 1},
+           "sup": {"P": 1, "K": 18, "B": 1, "C": 1},
+           "sup_d40": {"P": 1, "L": 2, "B": 1, "C": 1}}
     for name, run in runs.items():
-        dec = ("G", "J") if own[name] == "F" else ("B", "C")
-        expect = {k: 0 for k in counters}
-        expect.update({own[name]: 5 * run["batches"],
-                       dec[0]: run["batches"], dec[1]: run["batches"]})
+        expect = {k: own[name].get(k, 0) * run["batches"] for k in counters}
         log(f"  {name}: {run['batches']} batches ({run['full_batches']} "
             f"full) of {run['batchsize']}; launches {run['launches']}")
         require(run["launches"] == expect,
-                f"{name}: launches {run['launches']}, expected {expect}: 5 "
-                f"{own[name]} and 1 + 1 {dec} per batch, no other kernel")
+                f"{name}: launches {run['launches']}, expected {expect}: "
+                f"{own[name]} per batch, no other kernel")
 
     log(f"[7] on {card}:")
     for name, step in (("bf16", step_bf16), ("int8", step_int8),
-                       ("fast", step_fast)):
+                       ("fast", step_fast), ("sup", step_sup)):
         run = runs[name]
         per_batch = run["batchsize"] * run["chunksize"]
         log(f"  {name}: {run['samples'] / run['wall']:.6g} samples/s over "
@@ -781,20 +1168,150 @@ def main():
         f"widths: head matmul + clamp {ms_head_fast:.4g} ms + B "
         f"{ms_b_fast:.4g} ms + C {ms_c_fast:.4g} ms")
 
-    for name, ms_lstm, dec, step in (
-            ("bf16", ms_a, (("B", ms_b), ("C", ms_c)), step_bf16),
-            ("int8", ms_d, (("B", ms_b), ("C", ms_c)), step_int8),
-            ("fast", ms_f, (("G", ms_g), ("J", ms_j)), step_fast)):
+    log(f"    and at sup shapes (N={SN}, T={ST}, H={SH}, D={SD}, window "
+        f"{SWIN}; decode N={SN}, T={2 * ST}, S={S})")
+    qkv_s, cos_s, sin_s = attn_args["K"]
+    ms_k = cuda_ms(lambda: attention_cuda.fused_rotary_window_attention(
+        qkv_s, cos_s, sin_s, SWIN), reps=10)
+    plain_k = cuda_ms(
+        lambda: attention_cuda.fused_rotary_window_attention_plain(
+            qkv_s, cos_s, sin_s, SWIN), reps=1, warmup=0)
+    band = attention_cuda.band_mask(ST, SWIN, None, dev)
+
+    def library_k():  # rotary passes + one fused-attention call with the band
+        q = transformer.apply_rotary(qkv_s[:, :, 0], cos_s, sin_s)
+        k = transformer.apply_rotary(qkv_s[:, :, 1], cos_s, sin_s)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2),
+            qkv_s[:, :, 2].transpose(1, 2), attn_mask=band).transpose(1, 2)
+    lib_k = cuda_ms(library_k, reps=5)
+    lib_k_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qkv_s[:, :, 0].transpose(1, 2), qkv_s[:, :, 1].transpose(1, 2),
+        qkv_s[:, :, 2].transpose(1, 2), attn_mask=band), reps=5)
+    ref_k = attention_cuda.fused_rotary_window_attention(
+        qkv_s, cos_s, sin_s, SWIN)
+    lib_err = (library_k().float() - ref_k.float()).abs().max().item()
+    require(lib_err <= 2e-2, f"the library yardstick for K computes another "
+                             f"function: {lib_err}")
+    del ref_k
+    # L where the shallow transformer calls it (bf16, 32 rows, 8 heads of
+    # 40), and at sup widths in f32
+    def time_l(q_l, k_l, v_l):
+        T_l = q_l.shape[2]
+        mask = band if T_l == ST else attention_cuda.band_mask(
+            T_l, SWIN, None, dev)
+        return (cuda_ms(lambda: attention_cuda.local_attention(
+                    q_l, k_l, v_l, SWIN), reps=5),
+                cuda_ms(lambda: attention_cuda.local_attention_plain(
+                    q_l, k_l, v_l, SWIN), reps=1, warmup=0),
+                cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q_l, k_l, v_l, attn_mask=mask), reps=5))
+    ms_l, plain_l, lib_l = time_l(*attn_args["L"])
+    ms_l32, plain_l32, lib_l32 = time_l(*attn_args["L sup f32"])
+    ref_l = attention_cuda.local_attention(*attn_args["L"], SWIN)
+    lib_err_l = (F.scaled_dot_product_attention(
+        *attn_args["L"], attn_mask=band).float()
+        - ref_l.float()).abs().max().item()
+    require(lib_err_l <= 2e-2, f"the library yardstick for L computes another "
+                               f"function: {lib_err_l}")
+    del ref_l
+    log(f"  K {ms_k:.4g} ms vs rotary passes + scaled_dot_product_attention "
+        f"with the band as a mask {lib_k:.4g} ms (the attention call alone "
+        f"{lib_k_sdpa:.4g} ms; max |K - library| {lib_err:.3g}); L on the "
+        f"shallow transformer's call (N={D40_N}, H={D40_H}, D={D40_D}, bf16) "
+        f"{ms_l:.4g} ms vs scaled_dot_product_attention {lib_l:.4g} ms (max "
+        f"|L - library| {lib_err_l:.3g}); L at sup widths in f32 {ms_l32:.4g} "
+        f"ms vs scaled_dot_product_attention in f32 {lib_l32:.4g} ms")
+    # visible (query, key) pairs of one head of one row
+    i = np.arange(ST)
+    pairs = int((np.minimum(ST - 1, i + SWIN[1])
+                 - np.maximum(0, i - SWIN[0]) + 1).sum())
+    attn_ops = 2 * 2 * SN * SH * pairs * SD  # both products
+    # K: bf16 qkv in, the two f32 tables, bf16 o out; products on the tensor
+    # cores, about 10 f32 operations per pair for the softmax
+    bound_k = bound(SN * ST * 4 * SH * SD * 2 + 2 * ST * (SD // 2) * 4,
+                    attn_ops, H100_BF16_OPS, 10 * SN * SH * pairs)
+    # L: q, k, v in, o out, in their own type; everything in f32 outside the
+    # tensor cores
+    d40_ops = D40_N * D40_H * pairs * (2 * 2 * D40_D + 10)
+    bound_l = bound(D40_N * ST * 4 * D40_H * D40_D * 2, d40_ops, H100_F32_OPS)
+    bound_l32 = bound(SN * ST * 4 * SH * SD * 4,
+                      attn_ops + 10 * SN * SH * pairs, H100_F32_OPS)
+    ms_p = cuda_ms(lambda: relayout.pin_layout(sup_view), reps=10)
+    plain_p = cuda_ms(lambda: relayout.pin_layout_plain(sup_view), reps=5)
+    lib_p = cuda_ms(lambda: sup_view.contiguous(), reps=5)
+    ms_p_t = cuda_ms(lambda: relayout.pin_layout(pin_view), reps=10)
+    lib_p_t = cuda_ms(lambda: pin_view.contiguous(), reps=5)
+    log(f"  P on the conv stack's output (strides {sup_view.stride()}) "
+        f"{ms_p:.4g} ms vs Tensor.contiguous() {lib_p:.4g} ms; on a "
+        f"transposed [N, C, T] view {ms_p_t:.4g} ms vs {lib_p_t:.4g} ms")
+    bound_p = bound(2 * sup_view.numel() * sup_view.element_size(), 0,
+                    H100_F32_OPS)
+    ms_b_sup = cuda_ms(lambda: decode_cuda.tcn_forward(sup_moves, sup_blank),
+                       reps=3)
+    ms_c_sup = cuda_ms(lambda: decode_cuda.tcn_backward(
+        sup_moves, *sup_fwd, sup_blank), reps=3)
+    log(f"  B {ms_b_sup:.4g} ms, C {ms_c_sup:.4g} ms at sup shapes")
+
+    # the parts of one sup layer and of the step around the stack, each timed
+    # alone on the tensors it sees in a batch
+    layer = sup_layers[0]
+    attn, ff = layer.self_attn, layer.ff
+    with torch.inference_mode():
+        x_s = relayout.pin_layout(sup_view)
+        o_s = attention_cuda.fused_rotary_window_attention(
+            qkv_s, cos_s, sin_s, SWIN).reshape(SN, ST, SH * SD)
+        y_s = torch.matmul(x_s, ff.fc1)
+        parts = {
+            "wqkv matmul": lambda: torch.matmul(x_s, attn.wqkv),
+            "out_w matmul + bias": lambda: torch.matmul(o_s, attn.out_w)
+            + attn.out_b,
+            "fc1 matmul": lambda: torch.matmul(x_s, ff.fc1),
+            "SwiGLU": lambda: y_s.chunk(2, -1)[0] * F.silu(y_s.chunk(2, -1)[1]),
+            "fc2 matmul": lambda: torch.matmul(y_s[..., :ff.hidden], ff.fc2),
+            "residual + RMSNorm": lambda: layer.norm1(
+                torch.add(o_s, x_s, alpha=layer.deepnorm_alpha)),
+        }
+        ms_parts = {k: cuda_ms(fn, reps=5) for k, fn in parts.items()}
+        xc1 = xc[..., None]
+        ms_conv = cuda_ms(lambda: sup.encoder.conv(xc1), reps=3)
+        _, (_, crf_sup), _ = sup.decode_head()
+        perm_sup = sup._tcn_perm(dev)
+        ms_up = cuda_ms(lambda: sup.encoder.upsample(x_s), reps=3)
+        up_s = sup.encoder.upsample(x_s)
+        ms_head = cuda_ms(lambda: crf_sup.head(up_s, perm_sup,
+                                               torch.bfloat16), reps=3)
+        del up_s, y_s
+    per_layer = (ms_k + sum(v for k, v in ms_parts.items()
+                            if k != "residual + RMSNorm")
+                 + 2 * ms_parts["residual + RMSNorm"])
+    log("  one sup layer: K " + f"{ms_k:.4g} ms, " + ", ".join(
+        f"{k} {v:.4g} ms" for k, v in ms_parts.items())
+        + f" (x 2): {per_layer:.4g} ms per layer, {18 * per_layer:.4g} ms "
+        f"for 18; around the stack: convs {ms_conv:.4g} ms, P {ms_p:.4g} ms, "
+        f"upsample {ms_up:.4g} ms, head matmul + tanh + scale {ms_head:.4g} "
+        f"ms, B {ms_b_sup:.4g} ms, C {ms_c_sup:.4g} ms")
+    sup_sum = (18 * per_layer + ms_conv + ms_p + ms_up + ms_head + ms_b_sup
+               + ms_c_sup)
+    log(f"  sup path per batch: these parts sum to {sup_sum:.4g} ms of the "
+        f"{step_sup:.4g} ms device step; the rest {step_sup - sup_sum:.4g} ms "
+        f"(wire, pack, fetch)")
+
+    for name, key, ms_lstm, dec, step in (
+            ("bf16", "A", ms_a, (("B", ms_b), ("C", ms_c)), step_bf16),
+            ("int8", "D", ms_d, (("B", ms_b), ("C", ms_c)), step_int8),
+            ("fast", "F", ms_f, (("G", ms_g), ("J", ms_j)), step_fast)):
         kernels_ms = 5 * ms_lstm + dec[0][1] + dec[1][1]
-        log(f"  {name} path per batch: 5 x {own[name]} {5 * ms_lstm:.4g} ms + "
+        log(f"  {name} path per batch: 5 x {key} {5 * ms_lstm:.4g} ms + "
             f"{dec[0][0]} {dec[0][1]:.4g} ms + {dec[1][0]} {dec[1][1]:.4g} ms "
             f"= {kernels_ms:.4g} ms of the {step:.4g} ms device step; the "
             f"rest {step - kernels_ms:.4g} ms")
+    src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
     src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
     # launches: the count on the path that is the kernel's own (A: bf16,
-    # D, B, C: int8 fused, E: int8 two-stage, F, G, J: fast); by_path has
-    # every path's
+    # D, B, C: int8 fused, E: int8 two-stage, F, G, J: fast, K, P: sup, L:
+    # the shallow transformer); by_path has every path's
     entries = [
         ("lstm_recurrence", "A", "bf16", "bonito_tpu_torch/csrc/lstm.cu",
          "bonito_tpu/ops/lstm_pallas.py:54", err_a, ms_a, plain_a, bound_a,
@@ -820,7 +1337,22 @@ def main():
         ("decode_fused_bwd", "J", "fast", src_fused,
          "bonito_tpu/ops/decode_pallas.py:413", err_j, ms_j, plain_j, bound_j,
          None),
+        ("fused_rotary_window_attention", "K", "sup", src_attn,
+         "bonito_tpu/ops/attention_pallas.py:106", err_attn["K"], ms_k,
+         plain_k, bound_k, lib_k),
+        ("local_attention", "L", "sup_d40", src_attn,
+         "bonito_tpu/ops/attention_pallas.py:26", err_attn["L"], ms_l,
+         plain_l, bound_l, lib_l),
+        ("pin_layout", "P", "sup", "bonito_tpu_torch/csrc/relayout.cu",
+         "bonito_tpu/ops/relayout.py:25", err_p, ms_p, plain_p, bound_p,
+         lib_p),
     ]
+    # times at another path's shapes than the one the entry's numbers are of
+    more = {"B": {"sup_shape_ms": ms_b_sup}, "C": {"sup_shape_ms": ms_c_sup},
+            "L": {"sup_f32": {
+                "max_abs_err": err_attn["L sup f32"], "ms": ms_l32,
+                "plain_ms": plain_l32, "bound_ms": bound_l32[0],
+                "bound_by": bound_l32[1], "library_ms": lib_l32}}}
     kernels = []
     for name, key, path, src, rep, err, ms, plain, (bms, by), lib in entries:
         n = runs[path]["launches"][key]
@@ -828,7 +1360,8 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
-            "by_path": {p: r["launches"][key] for p, r in runs.items()}})
+            "by_path": {p: r["launches"][key] for p, r in runs.items()},
+            **more.get(key, {})})
         log(f"  {name}: {ms:.4g} ms (plain {plain:.4g} ms, bound {bms:.4g} ms "
             f"by {by}), {n} launches on the {path} path")
     print(json.dumps({"kernels": kernels}), flush=True)

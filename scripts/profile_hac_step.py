@@ -2,15 +2,17 @@
 """
 Where one device step of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_hac_step.py [int8 | fast]
+    python3 scripts/profile_hac_step.py [int8 | fast | sup]
 
 from the root of a checkout, on a machine with a CUDA card. Builds a
 random full-width model (as chip_smoke.py does, without the trip through
 a model directory): the bf16 hac model; with ``int8`` the quantised hac
 model on its default route (kernel D chain, int8 head); with ``fast`` the
 fast model as shipped (quantize=true: dequantised weights through kernel
-F, then the fused-head decode G + J). It runs one warm-up batch (hac 96 x
-9996 samples, fast 1024 x 6000) through ``make_compute_fn``, then traces
+F, then the fused-head decode G + J); with ``sup`` the transformer model
+as shipped (bf16: the layout pin P, 18 fused attention launches K, the TCN
+decode B + C). It runs one warm-up batch (hac 96 x 9996 samples, fast
+1024 x 6000, sup 128 x 12000) through ``make_compute_fn``, then traces
 two more with ``torch.profiler`` and prints, for the traced window: its
 wall time, the device time by kernel name (count, total, mean), the device
 busy share (sum of kernel times over the wall time; one stream, so kernels
@@ -33,9 +35,11 @@ from bonito_tpu_torch import nn  # noqa: E402
 from bonito_tpu_torch.crf.basecall import make_compute_fn  # noqa: E402
 from bonito_tpu_torch.crf.model import Model  # noqa: E402
 from bonito_tpu_torch.models import MODELS, lstm_crf_config  # noqa: E402
+from bonito_tpu_torch.transformer.model import Model as SupModel  # noqa: E402
 
 STEPS = 2
 FAST = "dna_r10.4.1_e8.2_400bps_fast@v4.3"
+SUP = "dna_r10.4.1_e8.2_400bps_sup@v5.0"
 
 
 def device_us(event):
@@ -51,16 +55,17 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if sys.argv[1:] not in ([], ["int8"], ["fast"]):
+    if sys.argv[1:] not in ([], ["int8"], ["fast"], ["sup"]):
         raise SystemExit(__doc__)
     which = (sys.argv[1:] or ["bf16"])[0]
-    cfg = MODELS[FAST]() if which == "fast" else lstm_crf_config()
+    cfg = (MODELS[FAST]() if which == "fast" else MODELS[SUP]()
+           if which == "sup" else lstm_crf_config())
     batch = cfg["basecaller"]["batchsize"]
-    model = Model(cfg).init(1)
+    model = (SupModel if which == "sup" else Model)(cfg).init(1)
     chunk = cfg["basecaller"]["chunksize"] // model.stride * model.stride
     nn.fuse_bn(model.encoder)
     model.to_bf16()
-    if which != "bf16":
+    if which in ("int8", "fast"):
         model.quantize()
     model.to("cuda")
     compute = make_compute_fn(model, batch, chunk)
@@ -87,14 +92,15 @@ def main():
             if device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    name = "fast, quantize=true" if which == "fast" else f"hac, {which}"
+    name = {"fast": "fast, quantize=true", "sup": "sup, bf16"}.get(
+        which, f"hac, {which}")
     print(f"card: {card}; model: {name}, batch {batch} x {chunk} samples")
     print(f"{STEPS} device steps traced: wall {wall_us / 1e3:.4g} ms, "
           f"{wall_us / 1e3 / STEPS:.4g} ms per step; host prepare (int8 "
           f"wire, numpy) {prepare_ms:.4g} ms per batch")
     print(f"{'device time by kernel':<60} {'count':>7} {'total ms':>10} "
           f"{'mean us':>9}")
-    for key, count, us in rows[:15]:
+    for key, count, us in rows[:25 if which == "sup" else 15]:
         print(f"{key[:60]:<60} {count:>7} {us / 1e3:>10.4g} "
               f"{us / count:>9.4g}")
     print(f"device busy {busy / 1e3:.4g} ms of {wall_us / 1e3:.4g} ms: "

@@ -8,8 +8,9 @@ import pytest
 import torch
 
 from bonito_tpu_torch.crf.model import HeadSplit as Head
-from bonito_tpu_torch.ops import (decode_cuda, decode_fused_cuda, int8,
-                                  lstm_cuda, lstm_fused_cuda, lstm_int8_cuda)
+from bonito_tpu_torch.ops import (attention, attention_cuda, decode_cuda,
+                                  decode_fused_cuda, int8, lstm_cuda,
+                                  lstm_fused_cuda, lstm_int8_cuda, relayout)
 from bonito_tpu_torch.ops.lstm import lstm, lstm_int8
 
 pytestmark = pytest.mark.gpu
@@ -285,3 +286,133 @@ def test_fused_decode_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="bias"):
         decode_fused_cuda.tcn_fused_forward(ok._replace(
             bias=torch.zeros(2, 64, device=cuda)))
+
+
+def _freqs(T, r, device):
+    inv = 1.0 / (10000.0 ** (np.arange(0, r, 2) / r))
+    f = np.outer(np.arange(T), inv)
+    return (torch.tensor(np.cos(f), dtype=torch.float32, device=device),
+            torch.tensor(np.sin(f), dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize("N,T,H,D,r,window,t_real,dtype", [
+    (2, 64, 2, 64, 64, (127, 128), None, torch.bfloat16),
+    (3, 200, 4, 16, 16, (63, 64), None, torch.bfloat16),
+    (2, 300, 2, 32, 16, (100, 20), 250, torch.bfloat16),
+    (2, 130, 2, 24, 16, (15, 16), None, torch.float32),
+    (2, 257, 1, 128, 64, (127, 128), None, torch.bfloat16),
+    (2, 100, 3, 40, 32, (5, 0), 77, torch.float32),
+    (1, 1, 1, 16, 16, (127, 128), None, torch.bfloat16),
+    (16, 1000, 8, 64, 64, (127, 128), None, torch.bfloat16),  # sup widths
+    (16, 1024, 8, 64, 64, (127, 128), 1000, torch.bfloat16)])
+def test_fused_attention_kernel_matches_plain(cuda, N, T, H, D, r, window,
+                                              t_real, dtype):
+    """Kernel K: the same bf16 operands and the same rounding points as
+    the plain version; f32 sums in another order and exp's last bit can
+    flip a bf16 rounding of p or of the output: one bf16 step of the
+    largest output on the max, 1e-5 on the mean. Ragged T, a padded stream
+    (t_real), partial rotary, heads of 16 to 128 and one that is no
+    multiple of 16, f32 input."""
+    g = torch.Generator().manual_seed(N + T + D)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, dtype)
+    cos, sin = _freqs(T, r, cuda)
+    fused = attention_cuda.fused_rotary_window_attention
+    before = fused.launches
+    out = fused(qkv, cos, sin, window, t_real)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    ref = attention_cuda.fused_rotary_window_attention_plain(
+        qkv, cos, sin, window, t_real)
+    assert out.shape == (N, T, H, D) and out.dtype == dtype
+    assert torch.isfinite(out.float()).all()
+    diff = (out.float() - ref.float()).abs()
+    step = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+    assert diff.max().item() <= step and diff.mean().item() <= 1e-5
+
+
+@pytest.mark.parametrize("N,T,H,D,window,dtype", [
+    (2, 64, 2, 64, (127, 128), torch.float32),
+    (3, 200, 4, 40, (63, 64), torch.float32),
+    (2, 300, 2, 128, (100, 20), torch.bfloat16),
+    (2, 77, 3, 8, (3, 4), torch.float32),
+    (8, 1000, 8, 64, (127, 128), torch.float32),   # sup widths
+    (8, 1024, 8, 64, (127, 128), torch.bfloat16),
+    (32, 1000, 8, 40, (127, 128), torch.bfloat16)])  # heads of 40, a batch
+def test_local_attention_kernel_matches_plain(cuda, N, T, H, D, window, dtype):
+    """Kernel L on strided [N, H, T, D] views of a packed qkv: f32 operands
+    and products, so 2e-5 in f32 (bonito_tpu's tolerance for its kernel)
+    and one bf16 step of the output in bf16."""
+    g = torch.Generator().manual_seed(N + T + D)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = attention_cuda.local_attention.launches
+    out = attention.attend(q, k, v, window)
+    torch.cuda.synchronize()
+    assert attention_cuda.local_attention.launches == before + 1
+    ref = attention_cuda.local_attention_plain(q, k, v, window)
+    assert out.shape == (N, H, T, D) and out.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+def test_attention_kernels_reject_what_they_do_not_take(cuda):
+    """A CUDA input outside a kernel's shapes raises; nothing takes the
+    plain version in its place."""
+    fused = attention_cuda.fused_rotary_window_attention
+    qkv = torch.zeros(1, 32, 3, 2, 40, device=cuda, dtype=torch.bfloat16)
+    cos, sin = _freqs(32, 40, cuda)
+    before = fused.launches, attention_cuda.local_attention.launches
+    with pytest.raises(ValueError, match="rotary_dim a multiple of 16"):
+        fused(qkv, cos, sin, (127, 128))
+    ok = torch.zeros(1, 32, 3, 2, 32, device=cuda, dtype=torch.bfloat16)
+    cos, sin = _freqs(32, 32, cuda)
+    with pytest.raises(ValueError, match="left < 128"):
+        fused(ok, cos, sin, (128, 128))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fused(ok.half(), cos, sin, (127, 128))
+    with pytest.raises(ValueError, match="cos and sin on"):
+        fused(ok, cos.cpu(), sin.cpu(), (127, 128))
+    with pytest.raises(ValueError, match="t_real"):
+        fused(ok, cos, sin, (127, 128), t_real=33)
+    with pytest.raises(ValueError, match="contiguous qkv at a 16-byte"):
+        fused(ok.expand(2, 32, 3, 2, 32), cos, sin, (127, 128))
+    with pytest.raises(ValueError, match="contiguous qkv at a 16-byte"):
+        fused(torch.zeros(ok.numel() + 1, device=cuda, dtype=torch.bfloat16)
+              [1:].view(ok.shape), cos, sin, (127, 128))
+    q = torch.zeros(1, 2, 32, 20, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention_cuda.local_attention(q, q, q, (127, 128))
+    q = torch.zeros(1, 2, 16, 32, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        attention_cuda.local_attention(q, q, q, (127, 128))
+    assert (fused.launches, attention_cuda.local_attention.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.uint8, torch.float64])
+@pytest.mark.parametrize("shape,view", [
+    ((16, 512, 1000), lambda x: x.transpose(1, 2)),   # the sup stack input
+    ((16, 1000, 512), lambda x: x),
+    ((4, 50, 36), lambda x: x[:, 3:40:2, 1:30]),
+    ((6, 7, 5, 3), lambda x: x.permute(3, 1, 0, 2)),
+    ((16, 64, 24), lambda x: x.transpose(1, 2)),
+    ((8, 40, 64), lambda x: x[:, :, 8:40]),
+    ((3, 1, 40), lambda x: x.expand(3, 6, 40))])
+def test_pin_layout_kernel_is_a_contiguous_identical_copy(cuda, shape, view,
+                                                          dtype):
+    """Kernel P on each of its variants (tile transpose, 16-byte rows,
+    element gather): bit-identical, contiguous, one launch."""
+    g = torch.Generator().manual_seed(len(shape))
+    x = view((torch.randn(*shape, generator=g) * 50).to(cuda).to(dtype))
+    before = relayout.pin_layout.launches
+    out = relayout.pin_layout(x)
+    torch.cuda.synchronize()
+    assert relayout.pin_layout.launches == before + 1
+    assert out.is_contiguous() and out.data_ptr() != x.data_ptr()
+    assert torch.equal(out, x)
+
+
+def test_pin_layout_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError, match="bytes"):
+        relayout.pin_layout(torch.zeros(4, 4, device=cuda,
+                                        dtype=torch.complex128))

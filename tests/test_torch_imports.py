@@ -43,7 +43,10 @@ def test_importing_the_port_loads_no_jax():
                      for p in PORT_FILES if p.parent != ROOT
                      and p.name != "__init__.py")
     assert {"bonito_tpu_torch.ops.lstm_fused_cuda",
-            "bonito_tpu_torch.ops.decode_fused_cuda"} <= set(modules)
+            "bonito_tpu_torch.ops.decode_fused_cuda",
+            "bonito_tpu_torch.ops.attention_cuda",
+            "bonito_tpu_torch.ops.relayout",
+            "bonito_tpu_torch.transformer.model"} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "from bonito_tpu_torch.ops import build; "
             "assert build._lib is None, 'a kernel was built at import'; "
