@@ -13,8 +13,10 @@ ragged last batch is padded with zero rows of scale 1.
 import numpy as np
 import torch
 
+from bonito_tpu_torch.ops.beam_device import beam_search_device
 from bonito_tpu_torch.ops.decode import (
-    to_str, use_fused_head, viterbi_decode_head, viterbi_decode_tcn)
+    to_str, use_fused_head, viterbi_decode, viterbi_decode_head,
+    viterbi_decode_tcn)
 from bonito_tpu_torch.pipeline import device_stage, thread_iter
 from bonito_tpu_torch.profiling import instrument
 from bonito_tpu_torch.util import batchify, chunk, stitch, unbatchify
@@ -32,6 +34,7 @@ def stitch_results(results, length, size, overlap, stride, reverse=False):
 
 
 HEAD_ROUTES = ("fused", "tcn")
+DECODERS = ("viterbi", "beam")
 
 
 def make_compute_fn(model, batchsize, chunksize, reverse=False,
@@ -47,32 +50,63 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
     - ``fetch(handle)``: waits for that batch only and unpacks the packed
       wire, plane 0 = sequence | moves << 3, plane 1 = qstring.
 
-    ``head_route`` names where the CRF head's move scores are computed:
-    ``"fused"`` inside the decode, in f32 (``forward_tcn_head`` +
-    ``viterbi_decode_head``), ``"tcn"`` by the head matmul in the model
-    dtype (``forward_tcn`` + ``viterbi_decode_tcn``). None is
-    bonito_tpu's default: fused for the small state spaces
-    (``ops.decode.use_fused_head``) where the head can be split, else tcn.
+    The forward strand's Viterbi decode reads the move scores of the CRF
+    head. ``head_route`` names where they are computed: ``"fused"`` inside
+    the decode, in f32 (``forward_tcn_head`` + ``viterbi_decode_head``),
+    ``"tcn"`` by the head matmul in the model dtype (``forward_tcn`` +
+    ``viterbi_decode_tcn``). None is bonito_tpu's default: fused for the
+    small state spaces (``ops.decode.use_fused_head``) where the head can
+    be split, else tcn, else (no fixed blank) the full scores.
+
+    ``reverse`` (the basecaller's ``--revcomp``) and ``decoder="beam"``
+    take the full scores of ``model(x)``, as bonito_tpu does: reverse
+    complemented if ``reverse`` (``seqdist.reverse_complement``), then
+    ``beam_search_device`` (width ``basecaller.beam_width`` of the config, 32
+    by default) or ``viterbi_decode``. ``head_route`` names no route there.
     """
-    if reverse:
-        raise NotImplementedError(
-            "reverse (revcomp/duplex) decode is the reverse/duplex slice of "
-            "the port")
-    if decoder != "viterbi":
-        raise NotImplementedError(
-            f"decoder={decoder!r}: the device beam search is a later slice "
-            f"of the port")
+    if decoder not in DECODERS:
+        raise ValueError(f"decoder {decoder!r}: expected one of {DECODERS}")
     if head_route is not None and head_route not in HEAD_ROUTES:
         raise ValueError(f"head_route {head_route!r}: expected None or one "
                          f"of {HEAD_ROUTES}")
+    full = reverse or decoder == "beam"
+    if full and head_route is not None:
+        raise ValueError(f"head_route={head_route!r}: the reverse strand and "
+                         f"the beam decode read the full scores, not a head "
+                         f"route")
     fused_head = (use_fused_head(model.seqdist) if head_route is None
                   else head_route == "fused")
-    qcfg = getattr(model, "config", {}).get("qscore", {})
+    config = getattr(model, "config", {})
+    qcfg = config.get("qscore", {})
     qscale = float(qcfg.get("scale", 1.0))
     qbias = float(qcfg.get("bias", 0.0))
+    beam_width = int(config.get("basecaller", {}).get("beam_width", 32))
     device = model.device
     dtype = model.compute_dtype
     on_card = device.type == "cuda"
+    q = dict(qscale=qscale, qbias=qbias)
+
+    def decode(x):
+        if not full:
+            head = model.forward_tcn_head(x) if fused_head else None
+            if head is not None:
+                return viterbi_decode_head(model.seqdist, head, **q)
+            if head_route == "fused":
+                raise ValueError("head_route='fused': this model's head "
+                                 "cannot be split from its encoder")
+            tcn = model.forward_tcn(x)
+            if tcn is not None:
+                return viterbi_decode_tcn(model.seqdist, *tcn, **q)
+            if head_route == "tcn":
+                raise ValueError("head_route='tcn': this model's head has no "
+                                 "fixed blank score")
+        scores = model(x)
+        if reverse:
+            scores = model.seqdist.reverse_complement(scores)
+        if decoder == "beam":
+            return beam_search_device(model.seqdist, scores,
+                                      beam_width=beam_width, **q)
+        return viterbi_decode(model.seqdist, scores, **q)
 
     def prepare(batch):
         n = batch.shape[0]
@@ -97,17 +131,7 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
         n, x, sig_scale = prepared
         with torch.inference_mode():
             xc = upload(x).to(dtype) * upload(sig_scale)[:, None].to(dtype)
-            head = model.forward_tcn_head(xc[..., None]) if fused_head else None
-            if head is not None:
-                out = viterbi_decode_head(model.seqdist, head, qscale=qscale,
-                                          qbias=qbias)
-            elif head_route == "fused":
-                raise ValueError("head_route='fused': this model's head "
-                                 "cannot be split from its encoder")
-            else:
-                mv, blank = model.forward_tcn(xc[..., None])
-                out = viterbi_decode_tcn(model.seqdist, mv, blank,
-                                         qscale=qscale, qbias=qbias)
+            out = decode(xc[..., None])
             packed = torch.stack(
                 [out["sequence"] | (out["moves"] << 3), out["qstring"]])
             if not on_card:
@@ -140,8 +164,9 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
 def basecall(model, reads, chunksize=4000, overlap=100, batchsize=32,
              reverse=False, rna=False, decoder="viterbi", head_route=None):
     """Basecall a stream of reads (objects with ``.signal``) on the
-    model's device; yields (read, result-dict) pairs. ``head_route`` as in
-    ``make_compute_fn``."""
+    model's device; yields (read, result-dict) pairs. ``reverse``,
+    ``decoder`` and ``head_route`` as in ``make_compute_fn``; with
+    ``reverse`` each read's chunks are stitched in reverse order."""
     compute = make_compute_fn(model, batchsize, chunksize, reverse=reverse,
                               decoder=decoder, head_route=head_route)
 

@@ -2,9 +2,10 @@
 CRF model families: an encoder (conv downsample, then an LSTM stack or,
 for the transformer family, a stack of attention layers and an upsample,
 then a CRF head, built from the config's layer tree) paired with a CTC_CRF
-state space. ``forward`` gives full scores [N, T, n_score]; ``forward_tcn`` the
-decode layout the TCN kernels read; ``forward_tcn_head`` the encoder output
-and the head's weights for the decode kernels that hold the head.
+state space. ``forward`` gives full scores [N, T, n_score] (what
+``decode_batch`` decodes); ``forward_tcn`` the decode layout the TCN kernels
+read; ``forward_tcn_head`` the encoder output and the head's weights for the
+decode kernels that hold the head.
 """
 
 from collections import namedtuple
@@ -15,7 +16,7 @@ import torch
 from bonito_tpu_torch import nn
 from bonito_tpu_torch.crf.seqdist import CTC_CRF
 from bonito_tpu_torch.ops import int8
-from bonito_tpu_torch.ops.decode import tcn_permutation
+from bonito_tpu_torch.ops.decode import tcn_permutation, viterbi_decode
 from bonito_tpu_torch.ops.lstm import INT8_ROUTES
 
 
@@ -111,6 +112,19 @@ class SeqdistModel(torch.nn.Module):
     def forward(self, x):
         """x [N, T, 1] signal chunks -> scores [N, T/stride, n_score]."""
         return self.encoder(x)
+
+    def decode_batch(self, scores):
+        """Viterbi strings from full scores [N, T, n_score] (a tensor or an
+        array, decoded on the model's device): ``viterbi_decode``, the exact
+        MAP path, as bonito_tpu's ``decode_batch``."""
+        scores = torch.as_tensor(scores, device=self.device)
+        out = viterbi_decode(self.seqdist, scores)
+        return [self.seqdist.path_to_str(p)
+                for p in out["sequence"].cpu().numpy()]
+
+    def decode(self, x):
+        """The Viterbi string of one read's full scores [T, n_score]."""
+        return self.decode_batch(x[None])[0]
 
     def decode_head(self):
         """(items_before_head, (name, crf), (name, clamp) or None), or None

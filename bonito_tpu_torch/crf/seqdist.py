@@ -13,6 +13,7 @@ training slice.
 """
 
 import numpy as np
+import torch
 
 
 class CTC_CRF:
@@ -41,3 +42,23 @@ class CTC_CRF:
         alphabet = np.frombuffer("".join(self.alphabet).encode(), dtype="u1")
         path = np.asarray(path)
         return alphabet[path[path != 0]].tobytes().decode()
+
+    def reverse_complement(self, scores):
+        """Full scores [N, T, S*(n_base+1)] of the reverse-complement
+        strand: time reversed, each k-mer transition mapped to its reverse
+        complement. A permutation of the entries, bonito_tpu's exactly:
+        the stay columns take the state's digits in reverse order, each
+        flipped (complemented); the move columns take the new state's
+        digits and the slot, the dropped digit becoming the new slot."""
+        N, T, C = scores.shape
+        nb, sl = self.n_base, self.state_len
+        expanded = scores.reshape(N, T, *(nb,) * sl, nb + 1)
+
+        blanks = expanded[..., 0].permute(0, 1, *range(sl + 1, 1, -1))
+        blanks = blanks.reshape(N, T, -1, 1).flip(1, 2)
+
+        # (N, T, a1..a_sl, j) -> (N, T, a_sl-1..a1, j, a_sl)
+        moves = expanded[..., 1:].permute(0, 1, *range(sl, 1, -1), sl + 2,
+                                          sl + 1)
+        moves = moves.reshape(N, T, -1, nb).flip(1, 2, 3)
+        return torch.cat([blanks, moves], dim=-1).reshape(N, T, -1)

@@ -1,0 +1,297 @@
+// The two passes of the Viterbi + posterior CRF decode, written once for
+// every layout of a frame's scores (included by decode_tcn.cu, kernels B
+// and C, and decode_full.cu, kernels M and Q).
+//
+// A Frame says where a frame's scores sit: how many values a frame has
+// (width), the score of the move into state s from slot j (the
+// predecessor p = j*R + s/nb, R = S/nb, nb = 4), and the stay score of
+// state s with its probability exp(stay). The kernels copy each frame's
+// row into shared memory as f32 and read it through the Frame.
+//
+// Forward, per batch row n and frame t (alpha in probability space,
+// renormalised by its max with a log correction c; the max semiring in log
+// space):
+//     move_in[s] = sum_j exp(move(s, j)) * A[j*R + s/nb]
+//     A <- (exp(stay[s])*A + move_in) / max,  c += log(max)
+//     cand_j = move(s, j) + amax[j*R + s/nb]; jbest = first j of the max;
+//     the move wins only if strictly greater than stay[s] + amax[s]
+// storing move_in/max (f32), c and the choice (uint8: 0 stay, j+1 move).
+// After T frames: logZ = log(sum A) + c, end_state = first argmax amax.
+//
+// Backward, t = T-1 .. 0, with beta B (init 1), its log correction d and
+// the traceback state (one integer per row — no one-hot on the GPU):
+//     choice = choices[t, state]; base = state % nb + 1;
+//     prob = sum_r move_in[t, r*nb+base-1] * B[r*nb+base-1]
+//            * exp(c_t + d - logZ)
+//     B[p=j*R+r] <- (exp(stay[p])*B[p] + sum_b exp(move(r*nb+b, j))
+//                    * B[r*nb+b]) / max
+//     q = rint(-10*log10(clip(1-prob, 1e-4, 1))*qscale + qbias) + 33
+// and writes sequence, qstring and moves per frame.
+//
+// Every product and sum is rounded on its own (__fmul_rn/__fadd_rn: no FMA
+// contraction), the sums over j or b run in order 0..nb-1 and the block
+// sums in the butterfly order below: the f32 steps of the plain versions
+// (ops/decode_cuda.py). The log corrections c and d grow to thousands over
+// a chunk (|logZ| about 7000 at hac), where one f32 step is 5e-4, and the
+// posterior's exp(c + d - logZ) cancels them: any difference in how they
+// were summed shows up in the qualities of confident frames (at q 40 a
+// relative error of 5e-4 in prob is 8 phred steps). With the same steps,
+// kernel and plain version give the same bits.
+//
+// What bounds them on an H100: bytes (the score tensor is read by both
+// passes, move_in written by one and a quarter of it read by the other),
+// well under a millisecond at hac shapes at 3.35 TB/s. The recursion over
+// T is serial, so the design is latency-bound instead: one block per batch
+// row, one thread per state, alpha/beta and the frame's row in shared
+// memory, one block-wide max (and for the backward a sum) per frame.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int NB = 4;
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// Block-wide reductions over blockDim.x (a multiple of 32). Every thread
+// returns the same bits: the xor butterfly pairs equal values, and every
+// warp reduces the per-warp partials in the same order. The leading
+// barrier keeps `red` from being overwritten while a warp still reads it
+// from the previous call.
+__device__ float block_max(float v, float* red) {
+    for (int o = 16; o > 0; o >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    const int nw = blockDim.x >> 5;
+    __syncthreads();
+    if (l == 0) red[w] = v;
+    __syncthreads();
+    v = l < nw ? red[l] : -INFINITY;
+    for (int o = 16; o > 0; o >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+__device__ void block_sum_max(float& sum, float& mx, float* red) {
+    for (int o = 16; o > 0; o >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    const int nw = blockDim.x >> 5;
+    __syncthreads();
+    if (l == 0) {
+        red[w] = sum;
+        red[32 + w] = mx;
+    }
+    __syncthreads();
+    sum = l < nw ? red[l] : 0.f;
+    mx = l < nw ? red[32 + l] : -INFINITY;
+    for (int o = 16; o > 0; o >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+}
+
+// first index of the maximum on ties
+__device__ void block_argmax(float& v, int& i, float* redv, int* redi) {
+    for (int o = 16; o > 0; o >>= 1) {
+        const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
+        const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
+        if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
+    }
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    const int nw = blockDim.x >> 5;
+    __syncthreads();
+    if (l == 0) { redv[w] = v; redi[w] = i; }
+    __syncthreads();
+    v = l < nw ? redv[l] : -INFINITY;
+    i = l < nw ? redi[l] : INT_MAX;
+    for (int o = 16; o > 0; o >>= 1) {
+        const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
+        const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
+        if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
+    }
+}
+
+template <typename In>
+__device__ void load_row(const In* __restrict__ src, float* dst, int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+        dst[i] = to_f32(src[i]);
+}
+
+template <class Frame, typename In>
+__global__ void decode_fwd(const In* __restrict__ scores,  // [N, T, width]
+                           float* __restrict__ move_in,    // [N, T, S]
+                           uint8_t* __restrict__ choices,  // [N, T, S]
+                           float* __restrict__ cs,         // [N, T]
+                           float* __restrict__ logz,       // [N]
+                           int* __restrict__ end_state,    // [N]
+                           int T, int S, Frame f)
+{
+    extern __shared__ float smem[];
+    __shared__ float red[64];
+    __shared__ int redi[32];
+    const int W = f.width(S), R = S / NB;
+    float* row = smem;         // [W] this frame's scores
+    float* A = row + W;        // [S] alpha (probability space)
+    float* amax = A + S;       // [S] max-semiring alpha
+    const int n = blockIdx.x;
+    const int s = threadIdx.x;
+    const bool active = s < S;
+    const int r = s / NB;
+
+    if (active) { A[s] = 1.f; amax[s] = 0.f; }
+    float c = 0.f;
+    const In* srow = scores + (size_t)n * T * W;
+    for (int t = 0; t < T; ++t) {
+        __syncthreads();  // last frame's A/amax visible; row free
+        load_row(srow + (size_t)t * W, row, W);
+        __syncthreads();
+        float acc = 0.f, a_raw = -INFINITY, best = 0.f, stay_m = 0.f;
+        int jbest = 0;
+        if (active) {
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+                const float m = f.move(row, S, s, j);
+                const int p = j * R + r;
+                acc = __fadd_rn(acc, __fmul_rn(expf(m), A[p]));
+                const float cand = m + amax[p];
+                if (j == 0 || cand > best) { best = cand; jbest = j; }
+            }
+            a_raw = __fadd_rn(__fmul_rn(f.stay_prob(row, s), A[s]), acc);
+            stay_m = f.stay(row, s) + amax[s];
+        }
+        // every read of A/amax/row above precedes the reduction's barriers
+        const float mx = block_max(a_raw, red);
+        const float inv = 1.f / mx;
+        c += logf(mx);
+        if (active) {
+            const bool is_move = best > stay_m;
+            A[s] = a_raw * inv;
+            amax[s] = is_move ? best : stay_m;
+            const size_t o = ((size_t)n * T + t) * S + s;
+            move_in[o] = acc * inv;
+            choices[o] = is_move ? (uint8_t)(jbest + 1) : (uint8_t)0;
+        }
+        if (threadIdx.x == 0) cs[(size_t)n * T + t] = c;
+    }
+    float sum = active ? A[s] : 0.f, unused = -INFINITY;
+    block_sum_max(sum, unused, red);
+    float v = active ? amax[s] : -INFINITY;
+    int idx = active ? s : INT_MAX;
+    block_argmax(v, idx, red, redi);
+    if (threadIdx.x == 0) {
+        logz[n] = logf(sum) + c;
+        end_state[n] = idx;
+    }
+}
+
+template <class Frame, typename In>
+__global__ void decode_bwd(const In* __restrict__ scores,      // [N, T, width]
+                           const float* __restrict__ move_in,  // [N, T, S]
+                           const uint8_t* __restrict__ choices,
+                           const float* __restrict__ cs,       // [N, T]
+                           const float* __restrict__ logz,     // [N]
+                           const int* __restrict__ end_state,  // [N]
+                           uint8_t* __restrict__ seq,          // [N, T]
+                           uint8_t* __restrict__ qstr,         // [N, T]
+                           uint8_t* __restrict__ mvout,        // [N, T]
+                           int T, int S, float qscale, float qbias, Frame f)
+{
+    extern __shared__ float smem[];
+    __shared__ float red[64];
+    const int W = f.width(S), R = S / NB;
+    float* row = smem;         // [W]
+    float* B = row + W;        // [S] beta (probability space)
+    const int n = blockIdx.x;
+    const int s = threadIdx.x;
+    const bool active = s < S;
+    const int j = s / R, r = s % R;   // this thread as predecessor p = j*R + r
+
+    if (active) B[s] = 1.f;
+    float d = 0.f;
+    int state = end_state[n];
+    const float lz = logz[n];
+    const In* srow = scores + (size_t)n * T * W;
+    for (int t = T - 1; t >= 0; --t) {
+        __syncthreads();
+        load_row(srow + (size_t)t * W, row, W);
+        __syncthreads();
+        const size_t frame = (size_t)n * T + t;
+        // traceback: uniform across the block
+        const int choice = choices[frame * S + state];
+        const bool is_move = choice != 0;
+        const int base = state % NB + 1;
+        const int prev = is_move ? state / NB + (choice - 1) * R : state;
+
+        float v = 0.f, b_raw = -INFINITY;
+        if (active) {
+            if (s % NB == base - 1) v = move_in[frame * S + s] * B[s];
+            float acc = 0.f;
+#pragma unroll
+            for (int bb = 0; bb < NB; ++bb)
+                acc = __fadd_rn(acc, __fmul_rn(expf(f.move(row, S, r * NB + bb, j)),
+                                               B[r * NB + bb]));
+            b_raw = __fadd_rn(__fmul_rn(f.stay_prob(row, s), B[s]), acc);
+        }
+        float bmass = v, mx = b_raw;
+        block_sum_max(bmass, mx, red);
+        if (active) B[s] = b_raw * (1.f / mx);
+        if (threadIdx.x == 0) {
+            const float prob = bmass * expf(cs[frame] + d - lz);
+            const float err = fminf(fmaxf(1.f - prob, 1e-4f), 1.f);
+            const float q = __fadd_rn(__fmul_rn(-10.f * log10f(err), qscale),
+                                      qbias);
+            const int qc = (int)rintf(q) + 33;
+            seq[frame] = is_move ? (uint8_t)base : (uint8_t)0;
+            qstr[frame] = is_move ? (uint8_t)qc : (uint8_t)0;
+            mvout[frame] = is_move ? 1 : 0;
+        }
+        d += logf(mx);
+        state = prev;
+    }
+}
+
+inline int threads_for(int S) { return ((S + 31) / 32) * 32; }
+
+// One launch of each pass over N batch rows: one block per row.
+template <class Frame, typename In>
+int launch_fwd(const void* scores, void* move_in, void* choices, void* c,
+               void* logz, void* end_state, int N, int T, int S, Frame f,
+               void* stream) {
+    const size_t smem = (size_t)(f.width(S) + 2 * S) * sizeof(float);
+    decode_fwd<Frame, In><<<N, threads_for(S), smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const In*>(scores), static_cast<float*>(move_in),
+        static_cast<uint8_t*>(choices), static_cast<float*>(c),
+        static_cast<float*>(logz), static_cast<int*>(end_state), T, S, f);
+    return (int)cudaGetLastError();
+}
+
+template <class Frame, typename In>
+int launch_bwd(const void* scores, const void* move_in, const void* choices,
+               const void* c, const void* logz, const void* end_state,
+               void* seq, void* qstr, void* mvout, int N, int T, int S,
+               float qscale, float qbias, Frame f, void* stream) {
+    const size_t smem = (size_t)(f.width(S) + S) * sizeof(float);
+    decode_bwd<Frame, In><<<N, threads_for(S), smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const In*>(scores), static_cast<const float*>(move_in),
+        static_cast<const uint8_t*>(choices), static_cast<const float*>(c),
+        static_cast<const float*>(logz), static_cast<const int*>(end_state),
+        static_cast<uint8_t*>(seq), static_cast<uint8_t*>(qstr),
+        static_cast<uint8_t*>(mvout), T, S, qscale, qbias, f);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace

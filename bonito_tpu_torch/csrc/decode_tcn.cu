@@ -3,7 +3,8 @@
 //
 // Replace bonito_tpu/ops/decode_pallas.py:viterbi_decode_tcn — B is
 // `_fwd_kernel_tcn` (forward pass), C is `_bwd_kernel_tcn` (backward pass)
-// together with that function's qscore epilogue.
+// together with that function's qscore epilogue. The passes themselves,
+// their math, what bounds them and the design are in decode_passes.cuh.
 //
 // Layout. Move scores are read as [N, T, nb*S] with the columns of each
 // frame in (b, j, r) order: column (b*nb + j)*R + r is the move into state
@@ -11,242 +12,24 @@
 // the memory of the [N, T, Cm] head matmul output; ops/decode.py hands
 // bonito_tpu's [T, Cm, N] contract to these kernels as a permuted view of
 // it, so no transpose is paid. The stay score is the constant `blank`
-// (P_stay = exp(blank)).
-//
-// B, per batch row n and frame t (alpha in probability space, renormalised
-// by its max with a log correction c; the max semiring in log space):
-//     move_in[s] = sum_j exp(move[b,j,r]) * A[j*R + r]
-//     A <- (P_stay*A + move_in) / max,  c += log(max)
-//     cand_j = move[b,j,r] + amax[j*R + r]; jbest = first j of the max;
-//     the move wins only if strictly greater than blank + amax[s]
-// storing move_in/max (f32), c and the choice (uint8: 0 stay, j+1 move).
-// After T frames: logZ = log(sum A) + c, end_state = first argmax amax.
-//
-// C walks t = T-1 .. 0 with beta B (init 1), its log correction d and the
-// traceback state (one integer per row — no one-hot on the GPU):
-//     choice = choices[t, state]; base = state % nb + 1;
-//     prob = sum_r move_in[t, r*nb+base-1] * B[r*nb+base-1]
-//            * exp(c_t + d - logZ)
-//     B[p=j*R+r] <- (P_stay*B[p] + sum_b exp(move[b,j,r]) * B[r*nb+b]) / max
-//     q = rint(-10*log10(clip(1-prob, 1e-4, 1))*qscale + qbias) + 33
-// and writes sequence, qstring and moves per frame.
-//
-// What bounds them on an H100: bytes. At hac (N=96, T=1666, S=1024) both
-// read the 1.31 GB bf16 move tensor; B writes 0.66 GB of f32 move-in and
-// 0.16 GB of choices, C reads a quarter of the move-in back (the chosen
-// base's states). That is under 1 ms each at 3.35 TB/s; the recursion over
-// T is serial, so the design is latency-bound instead: one block per
-// batch row, one thread per state, alpha/beta and the frame's move row in
-// shared memory, one block-wide max (and for C a sum) per frame.
+// (P_stay = exp(blank)). At hac (N=96, T=1666, S=1024) both read the 1.31
+// GB bf16 move tensor; B writes 0.66 GB of f32 move-in and 0.16 GB of
+// choices, C reads a quarter of the move-in back (the chosen base's
+// states).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <climits>
-#include <cmath>
-#include <cstdint>
+#include "decode_passes.cuh"
 
 namespace {
 
-constexpr int NB = 4;
-
-// Block-wide reductions over blockDim.x (a multiple of 32). Every thread
-// returns the same bits: the xor butterfly pairs equal values, and every
-// warp reduces the per-warp partials in the same order. The leading
-// barrier keeps `red` from being overwritten while a warp still reads it
-// from the previous call.
-__device__ float block_max(float v, float* red) {
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-    const int nw = blockDim.x >> 5;
-    __syncthreads();
-    if (l == 0) red[w] = v;
-    __syncthreads();
-    v = l < nw ? red[l] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ void block_sum_max(float& sum, float& mx, float* red) {
-    for (int o = 16; o > 0; o >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+struct TcnFrame {
+    float blank, p_stay;
+    __host__ __device__ int width(int S) const { return NB * S; }
+    __device__ float move(const float* row, int S, int s, int j) const {
+        return row[((s % NB) * NB + j) * (S / NB) + s / NB];
     }
-    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-    const int nw = blockDim.x >> 5;
-    __syncthreads();
-    if (l == 0) {
-        red[w] = sum;
-        red[32 + w] = mx;
-    }
-    __syncthreads();
-    sum = l < nw ? red[l] : 0.f;
-    mx = l < nw ? red[32 + l] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    }
-}
-
-// first index of the maximum on ties
-__device__ void block_argmax(float& v, int& i, float* redv, int* redi) {
-    for (int o = 16; o > 0; o >>= 1) {
-        const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
-        const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
-        if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
-    }
-    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-    const int nw = blockDim.x >> 5;
-    __syncthreads();
-    if (l == 0) { redv[w] = v; redi[w] = i; }
-    __syncthreads();
-    v = l < nw ? redv[l] : -INFINITY;
-    i = l < nw ? redi[l] : INT_MAX;
-    for (int o = 16; o > 0; o >>= 1) {
-        const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
-        const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
-        if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
-    }
-}
-
-__device__ void load_row(const __nv_bfloat16* __restrict__ src, float* dst,
-                         int n) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-        dst[i] = __bfloat162float(src[i]);
-}
-
-__global__ void decode_tcn_fwd(const __nv_bfloat16* __restrict__ moves,  // [N, T, NB*S]
-                               float* __restrict__ move_in,    // [N, T, S]
-                               uint8_t* __restrict__ choices,  // [N, T, S]
-                               float* __restrict__ cs,         // [N, T]
-                               float* __restrict__ logz,       // [N]
-                               int* __restrict__ end_state,    // [N]
-                               int T, int S, float p_stay, float blank)
-{
-    extern __shared__ float smem[];
-    __shared__ float red[64];
-    __shared__ int redi[32];
-    const int Cm = NB * S, R = S / NB;
-    float* mv = smem;          // [Cm] this frame's move scores
-    float* A = mv + Cm;        // [S]  alpha (probability space)
-    float* amax = A + S;       // [S]  max-semiring alpha
-    const int n = blockIdx.x;
-    const int s = threadIdx.x;
-    const bool active = s < S;
-    const int r = s / NB, b = s % NB;
-
-    if (active) { A[s] = 1.f; amax[s] = 0.f; }
-    float c = 0.f;
-    const __nv_bfloat16* mrow = moves + (size_t)n * T * Cm;
-    for (int t = 0; t < T; ++t) {
-        __syncthreads();  // last frame's A/amax visible; mv free
-        load_row(mrow + (size_t)t * Cm, mv, Cm);
-        __syncthreads();
-        float acc = 0.f, a_raw = -INFINITY, best = 0.f, stay_m = 0.f;
-        int jbest = 0;
-        if (active) {
-#pragma unroll
-            for (int j = 0; j < NB; ++j) {
-                const float m = mv[(b * NB + j) * R + r];
-                const int p = j * R + r;
-                acc += expf(m) * A[p];
-                const float cand = m + amax[p];
-                if (j == 0 || cand > best) { best = cand; jbest = j; }
-            }
-            a_raw = p_stay * A[s] + acc;
-            stay_m = blank + amax[s];
-        }
-        // every read of A/amax/mv above precedes the reduction's barriers
-        const float mx = block_max(a_raw, red);
-        const float inv = 1.f / mx;
-        c += logf(mx);
-        if (active) {
-            const bool is_move = best > stay_m;
-            A[s] = a_raw * inv;
-            amax[s] = is_move ? best : stay_m;
-            const size_t o = ((size_t)n * T + t) * S + s;
-            move_in[o] = acc * inv;
-            choices[o] = is_move ? (uint8_t)(jbest + 1) : (uint8_t)0;
-        }
-        if (threadIdx.x == 0) cs[(size_t)n * T + t] = c;
-    }
-    float sum = active ? A[s] : 0.f, unused = -INFINITY;
-    block_sum_max(sum, unused, red);
-    float v = active ? amax[s] : -INFINITY;
-    int idx = active ? s : INT_MAX;
-    block_argmax(v, idx, red, redi);
-    if (threadIdx.x == 0) {
-        logz[n] = logf(sum) + c;
-        end_state[n] = idx;
-    }
-}
-
-__global__ void decode_tcn_bwd(const __nv_bfloat16* __restrict__ moves,  // [N, T, NB*S]
-                               const float* __restrict__ move_in,  // [N, T, S]
-                               const uint8_t* __restrict__ choices,
-                               const float* __restrict__ cs,       // [N, T]
-                               const float* __restrict__ logz,     // [N]
-                               const int* __restrict__ end_state,  // [N]
-                               uint8_t* __restrict__ seq,          // [N, T]
-                               uint8_t* __restrict__ qstr,         // [N, T]
-                               uint8_t* __restrict__ mvout,        // [N, T]
-                               int T, int S, float p_stay, float qscale,
-                               float qbias)
-{
-    extern __shared__ float smem[];
-    __shared__ float red[64];
-    const int Cm = NB * S, R = S / NB;
-    float* mv = smem;          // [Cm]
-    float* B = mv + Cm;        // [S] beta (probability space)
-    const int n = blockIdx.x;
-    const int s = threadIdx.x;
-    const bool active = s < S;
-    const int j = s / R, r = s % R;   // this thread as predecessor p = j*R + r
-
-    if (active) B[s] = 1.f;
-    float d = 0.f;
-    int state = end_state[n];
-    const float lz = logz[n];
-    const __nv_bfloat16* mrow = moves + (size_t)n * T * Cm;
-    for (int t = T - 1; t >= 0; --t) {
-        __syncthreads();
-        load_row(mrow + (size_t)t * Cm, mv, Cm);
-        __syncthreads();
-        const size_t row = (size_t)n * T + t;
-        // traceback: uniform across the block
-        const int choice = choices[row * S + state];
-        const bool is_move = choice != 0;
-        const int base = state % NB + 1;
-        const int prev = is_move ? state / NB + (choice - 1) * R : state;
-
-        float v = 0.f, b_raw = -INFINITY;
-        if (active) {
-            if (s % NB == base - 1) v = move_in[row * S + s] * B[s];
-            float acc = 0.f;
-#pragma unroll
-            for (int bb = 0; bb < NB; ++bb)
-                acc += expf(mv[(bb * NB + j) * R + r]) * B[r * NB + bb];
-            b_raw = p_stay * B[s] + acc;
-        }
-        float bmass = v, mx = b_raw;
-        block_sum_max(bmass, mx, red);
-        if (active) B[s] = b_raw * (1.f / mx);
-        if (threadIdx.x == 0) {
-            const float prob = bmass * expf(cs[row] + d - lz);
-            const float err = fminf(fmaxf(1.f - prob, 1e-4f), 1.f);
-            const float q = -10.f * log10f(err) * qscale + qbias;
-            const int qc = (int)rintf(q) + 33;
-            seq[row] = is_move ? (uint8_t)base : (uint8_t)0;
-            qstr[row] = is_move ? (uint8_t)qc : (uint8_t)0;
-            mvout[row] = is_move ? 1 : 0;
-        }
-        d += logf(mx);
-        state = prev;
-    }
-}
-
-int threads_for(int S) { return ((S + 31) / 32) * 32; }
+    __device__ float stay(const float*, int) const { return blank; }
+    __device__ float stay_prob(const float*, int) const { return p_stay; }
+};
 
 bool bad_shape(int N, int T, int S) {
     return N < 1 || T < 1 || S < NB || S % NB != 0 || S > 1024;
@@ -262,14 +45,9 @@ int decode_tcn_fwd_bf16(const void* moves, void* move_in, void* choices,
                         void* c, void* logz, void* end_state, int N, int T,
                         int S, float p_stay, float blank, void* stream) {
     if (bad_shape(N, T, S)) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(NB * S + 2 * S) * sizeof(float);
-    decode_tcn_fwd<<<N, threads_for(S), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(moves),
-        static_cast<float*>(move_in), static_cast<uint8_t*>(choices),
-        static_cast<float*>(c), static_cast<float*>(logz),
-        static_cast<int*>(end_state), T, S, p_stay, blank);
-    return (int)cudaGetLastError();
+    return launch_fwd<TcnFrame, __nv_bfloat16>(
+        moves, move_in, choices, c, logz, end_state, N, T, S,
+        TcnFrame{blank, p_stay}, stream);
 }
 
 // the forward's outputs -> sequence, qstring, moves_out, each [N, T] uint8
@@ -279,16 +57,9 @@ int decode_tcn_bwd_bf16(const void* moves, const void* move_in,
                         void* mvout, int N, int T, int S, float p_stay,
                         float qscale, float qbias, void* stream) {
     if (bad_shape(N, T, S)) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(NB * S + S) * sizeof(float);
-    decode_tcn_bwd<<<N, threads_for(S), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(moves),
-        static_cast<const float*>(move_in),
-        static_cast<const uint8_t*>(choices), static_cast<const float*>(c),
-        static_cast<const float*>(logz), static_cast<const int*>(end_state),
-        static_cast<uint8_t*>(seq), static_cast<uint8_t*>(qstr),
-        static_cast<uint8_t*>(mvout), T, S, p_stay, qscale, qbias);
-    return (int)cudaGetLastError();
+    return launch_bwd<TcnFrame, __nv_bfloat16>(
+        moves, move_in, choices, c, logz, end_state, seq, qstr, mvout, N, T,
+        S, qscale, qbias, TcnFrame{0.f, p_stay}, stream);
 }
 
 }  // extern "C"

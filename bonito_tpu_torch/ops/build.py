@@ -1,6 +1,7 @@
 """
-Builds the hand-written Hopper kernels in ``csrc/*.cu`` into one shared
-library with a plain C interface and loads it with ctypes.
+Builds the hand-written Hopper kernels in ``csrc/*.cu`` (with the headers
+``csrc/*.cuh`` they include) into one shared library with a plain C
+interface and loads it with ctypes.
 
 Each source compiles in its own ``nvcc`` process, all started together,
 for sm_90a (``wgmma``/``setmaxnreg`` exist only for the ``a`` target);
@@ -50,6 +51,11 @@ SIGNATURES = {
     # moves, move_in, choices, c, logz, end_state, sequence, qstring,
     # moves_out, N, T, S, p_stay, qscale, qbias, stream
     "decode_tcn_bwd_bf16": [P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, P],
+    # scores, is_f32, move_in, choices, c, logz, end_state, N, T, S, stream
+    "decode_full_fwd": [P, I, P, P, P, P, P, I, I, I, P],
+    # scores, is_f32, move_in, choices, c, logz, end_state, sequence,
+    # qstring, moves_out, N, T, S, qscale, qbias, stream
+    "decode_full_bwd": [P, I, P, P, P, P, P, P, P, P, I, I, I, F, F, P],
     # h, w, bias, move_in, choices, c, logz, end_state, Th, N, H, S, U,
     # p_stay, blank, act_tanh, scale, clamp, cmin, cmax, stream
     "decode_fused_fwd_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,

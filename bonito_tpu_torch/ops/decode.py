@@ -10,23 +10,27 @@ scale/bias. Output per frame, [N, T] uint8 each:
 Two passes. The forward carries alpha in probability space (renormalised
 by its max each frame, with a log correction) beside the max-semiring
 alpha and its argmax choices; the backward carries beta and the
-traceback state and emits each frame. Nothing of [N, T, n_score] is
-built on the kernel route.
+traceback state and emits each frame. The TCN routes build nothing of
+[N, T, n_score].
 
-Two routes lead here from a model. ``viterbi_decode_tcn`` reads the move
-scores the head matmul wrote, in the model dtype (kernels B and C).
+Three routes lead here from a model. ``viterbi_decode_tcn`` reads the
+move scores the head matmul wrote, in the model dtype (kernels B and C).
 ``viterbi_decode_head`` reads the encoder output and the head's weights
 and computes the move scores inside the decode, in f32 (kernels G and J);
 ``use_fused_head`` says where it is the default. Rounding the moves to
 bf16 or not changes near-ties, so the two routes decode a bf16 model
-differently and the choice is part of the result.
+differently and the choice is part of the result. ``viterbi_decode``
+reads full score tensors with a stay plane (kernels M and Q): the reverse
+strand's, whose stays are no longer one constant, and a head's without a
+fixed blank. The beam decoder over full scores is
+``ops.beam_device.beam_search_device``.
 """
 
 import numpy as np
 import torch
 
-from bonito_tpu_torch.ops.decode_cuda import (
-    NB, tcn_backward, tcn_backward_plain, tcn_forward, tcn_forward_plain)
+from bonito_tpu_torch.ops.decode_cuda import NB, tcn_backward, tcn_forward
+from bonito_tpu_torch.ops.decode_full_cuda import full_backward, full_forward
 from bonito_tpu_torch.ops.decode_fused_cuda import (
     head_moves_plain, tcn_fused_backward, tcn_fused_forward)
 
@@ -34,7 +38,7 @@ from bonito_tpu_torch.ops.decode_fused_cuda import (
 def _check(seqdist, Cm):
     S = seqdist.n_states
     if seqdist.n_base != NB or Cm != S * NB:
-        raise ValueError(f"TCN decode needs n_base {NB} and {S * NB} move "
+        raise ValueError(f"the decode needs n_base {NB} and {S * NB} move "
                          f"columns, got n_base {seqdist.n_base}, {Cm}")
 
 
@@ -79,21 +83,17 @@ def viterbi_decode_head(seqdist, head, qscale=1.0, qbias=0.0):
     return tcn_fused_backward(head, *fwd, qscale=qscale, qbias=qbias)
 
 
-def viterbi_decode_plain(seqdist, scores, qscale=1.0, qbias=0.0):
-    """Full scores [N, T, S*(nb+1)] (slot 0 of each state the stay) ->
-    the decode dict: bonito_tpu's ``viterbi_decode_scan`` in plain torch,
-    probability-space sums with the max renormalisation."""
+def viterbi_decode(seqdist, scores, qscale=1.0, qbias=0.0):
+    """Full scores [N, T, S*(nb+1)] (slot 0 of each state the stay) -> the
+    decode dict. Same contract as bonito_tpu's ``viterbi_decode``: kernels
+    M and Q on the card, their plain versions (bonito_tpu's
+    ``viterbi_decode_scan`` in plain torch) for a CPU tensor. The rows are
+    independent, so the whole batch goes in one launch of each. The kernels
+    read the scores in place: a strided CUDA tensor raises."""
     N, T, C = scores.shape
-    S = seqdist.n_states
-    R = S // seqdist.n_base
-    _check(seqdist, C - S)
-    Ms = scores.reshape(N, T, S, NB + 1)
-    stay = Ms[..., 0]
-    # [N, T, r, b, j] -> (b, j, r) columns
-    moves = Ms[..., 1:].reshape(N, T, R, NB, NB).permute(0, 1, 3, 4, 2)
-    moves = moves.reshape(N, T, S * NB)
-    fwd = tcn_forward_plain(moves, stay)
-    return tcn_backward_plain(moves, *fwd, stay, qscale=qscale, qbias=qbias)
+    _check(seqdist, C - seqdist.n_states)
+    fwd = full_forward(scores)
+    return full_backward(scores, *fwd, qscale=qscale, qbias=qbias)
 
 
 def tcn_permutation(seqdist):

@@ -13,8 +13,14 @@ block-wide reduction per frame. ``csrc/decode_tcn.cu`` has the math.
 Moves here are [N, T, nb*S] with each frame's columns in (b, j, r) order
 (column (b*nb + j)*R + r: into state s = r*nb + b from p = j*R + r). The
 stay score is a constant ``blank`` for the kernels; the plain versions
-also take a per-state stay plane [N, T, S], which is how
-``ops.decode.viterbi_decode_plain`` decodes full score tensors.
+also take a per-state stay plane [N, T, S], which makes them the plain
+versions of kernels M and Q too (``ops/decode_full_cuda.py``).
+
+The plain versions take the kernels' f32 steps one for one: every
+product and sum rounded on its own, the sums over j or b in order, the sums
+over states in the kernels' block order (``block_sum``). On the card they
+give the kernels' bits, qualities included (``csrc/decode_passes.cuh`` says
+why that matters).
 
 ``tcn_forward``/``tcn_backward`` run the plain version for a tensor on the
 CPU and the kernel for a tensor on the card; never one for the other.
@@ -41,6 +47,19 @@ def _stay_score(stay, t):
     return stay
 
 
+def block_sum(x):
+    """Sum over the last dim in the order of the kernels' block-wide
+    sum: an xor butterfly over each warp of 32 states (zeros past the
+    end), then over the warps' partials."""
+    while x.shape[-1] > 1:
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % 32))
+        x = x.reshape(*x.shape[:-1], -1, 32)
+        for o in (16, 8, 4, 2, 1):
+            x = x[..., :o] + x[..., o:2 * o]
+        x = x[..., 0]
+    return x[..., 0]
+
+
 def tcn_forward_plain(moves, stay):
     """moves [N, T, nb*S]; stay a float or [N, T, S] -> (move_in [N, T, S]
     f32, choices [N, T, S] uint8, c [N, T] f32, logz [N] f32, end_state [N]
@@ -58,7 +77,8 @@ def tcn_forward_plain(moves, stay):
     for t in range(T):
         mv = moves[:, t].float().reshape(N, NB, NB, R)            # [N, b, j, r]
         # sum semiring in probability space, renormalised by the max
-        mi = (torch.exp(mv) * A.reshape(N, 1, NB, R)).sum(2)      # [N, b, r]
+        p = torch.exp(mv) * A.reshape(N, 1, NB, R)
+        mi = p[:, :, 0] + p[:, :, 1] + p[:, :, 2] + p[:, :, 3]    # [N, b, r]
         mi = mi.transpose(1, 2).reshape(N, S)                     # s = r*nb + b
         a_raw = _stay_prob(stay, t) * A + mi
         m = a_raw.amax(1, keepdim=True)
@@ -76,7 +96,7 @@ def tcn_forward_plain(moves, stay):
         is_move = mbest > stay_m
         amax = torch.where(is_move, mbest, stay_m)
         choices[:, t] = torch.where(is_move, jbest + 1, 0).to(torch.uint8)
-    logz = torch.log(A.sum(1)) + c
+    logz = torch.log(block_sum(A)) + c
     end_state = torch.argmax(amax, 1).to(torch.int32)
     return move_in, choices, cs, logz, end_state
 
@@ -97,6 +117,7 @@ def tcn_backward_plain(moves, move_in, choices, cs, logz, end_state, stay,
     R = S // NB
     dev = moves.device
     rows = torch.arange(N, device=dev)
+    states = torch.arange(S, device=dev)
     B = torch.ones(N, S, device=dev)
     d = torch.zeros(N, device=dev)
     state = end_state.long()
@@ -111,15 +132,16 @@ def tcn_backward_plain(moves, move_in, choices, cs, logz, end_state, stay,
         prev = torch.where(is_move, state // NB + (choice - 1).clamp(min=0) * R,
                            state)
         # posterior mass of the emitted base: the stored move-in already
-        # sums the predecessors; group by base b = s % nb
-        bmass = (move_in[:, t] * B).reshape(N, R, NB).sum(1)      # [N, b]
-        corr = torch.exp(cs[:, t] + d - logz)
-        probs[:, t] = bmass.gather(1, (base - 1)[:, None])[:, 0] * corr
+        # sums the predecessors; the states s with s % nb = base - 1
+        bmass = block_sum(torch.where(
+            states % NB == (base - 1)[:, None], move_in[:, t] * B, 0.0))
+        probs[:, t] = bmass * torch.exp(cs[:, t] + d - logz)
         moved[:, t] = is_move
         bases[:, t] = base
         # beta to frame t: B[p = j*R + r]
         Bv = B.reshape(N, R, NB).transpose(1, 2)                  # [N, b, r]
-        mo = (torch.exp(mv) * Bv[:, :, None]).sum(1)              # [N, j, r]
+        p = torch.exp(mv) * Bv[:, :, None]
+        mo = p[:, 0] + p[:, 1] + p[:, 2] + p[:, 3]                # [N, j, r]
         b_raw = _stay_prob(stay, t) * B + mo.reshape(N, S)
         n = b_raw.amax(1, keepdim=True)
         B = b_raw * (1.0 / n)
@@ -147,6 +169,22 @@ def _check_cuda(moves):
         raise ValueError(f"decode kernels: moves {tuple(moves.shape)} needs "
                          f"nb*S columns with S a multiple of 4, at most 1024")
     return N, T, S
+
+
+def check_forward_outputs(kernel, device, N, T, S, move_in, choices, cs,
+                          logz, end_state):
+    """Raise unless the forward pass's outputs are what a backward kernel
+    reads: contiguous, of their shapes and types, on ``device``."""
+    for name, x, shape, dtype in (
+            ("move_in", move_in, (N, T, S), torch.float32),
+            ("choices", choices, (N, T, S), torch.uint8),
+            ("c", cs, (N, T), torch.float32),
+            ("logz", logz, (N,), torch.float32),
+            ("end_state", end_state, (N,), torch.int32)):
+        if (tuple(x.shape) != shape or x.dtype != dtype
+                or x.device != device or not x.is_contiguous()):
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dtype} "
+                             f"{shape} on {device}")
 
 
 def tcn_forward(moves, blank):
@@ -179,16 +217,8 @@ def tcn_backward(moves, move_in, choices, cs, logz, end_state, blank,
         return tcn_backward_plain(moves, move_in, choices, cs, logz,
                                   end_state, blank, qscale, qbias)
     N, T, S = _check_cuda(moves)
-    for name, x, shape, dtype in (
-            ("move_in", move_in, (N, T, S), torch.float32),
-            ("choices", choices, (N, T, S), torch.uint8),
-            ("c", cs, (N, T), torch.float32),
-            ("logz", logz, (N,), torch.float32),
-            ("end_state", end_state, (N,), torch.int32)):
-        if (tuple(x.shape) != shape or x.dtype != dtype
-                or x.device != moves.device or not x.is_contiguous()):
-            raise ValueError(f"kernel C: {name} must be a contiguous {dtype} "
-                             f"{shape} on {moves.device}")
+    check_forward_outputs("kernel C", moves.device, N, T, S, move_in, choices,
+                          cs, logz, end_state)
     lib = build.library()
     out = torch.empty(3, N, T, dtype=torch.uint8, device=moves.device)
     tcn_backward.launches += 1

@@ -13,9 +13,10 @@ PyTorch built for CUDA. In order, it:
  3. holds each kernel against its plain PyTorch version on the card: at
     hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 and the
     int8 LSTM kernels D (both outputs) and E, every one in both
-    directions; at fast widths (N=1024, T=1200, C=H=96, S=64) the fused
-    LSTM layer F (both directions, with and without a bias) and the
-    fused-head decode G + J (the fast head, and a small head with two
+    directions; the full-score decode M + Q (a stay plane that is not
+    constant, bf16) at hac and at fast widths; at fast widths (N=1024,
+    T=1200, C=H=96, S=64) the fused LSTM layer F (both directions, with and
+    without a bias) and the fused-head decode G + J (the fast head, and a small head with two
     upsample phases, tanh, a scale and a bias); at sup widths (N=128,
     T=1000 and 1024, 8 heads of 64, window (127, 128)) the fused rotary +
     banded attention K in bf16 (and once with a partial rotary_dim), the
@@ -40,22 +41,32 @@ PyTorch built for CUDA. In order, it:
     quantize=false directory (40 reads). sup (batch 128, chunk 12000,
     overlap 600; bf16 as shipped): 42 reads over at least 3 full batches
     (P, 18 x K, then B, C), and a short run of the shallow directory
-    (rotary + L in each layer). Then it holds one batch on the int8 path,
-    one on the fast path, one on the sup path (in bf16 and on an f32 copy
-    of the model) and one of the shallow transformer (likewise) against the
-    same batch with the plain versions in the kernels' place;
+    (rotary + L in each layer). The full-score paths: the reverse strand
+    (``reverse=True``: model(x), reverse_complement, M + Q) of hac as
+    shipped (48 reads, at least 3 full batches), of fast (one full batch of
+    1024) and of sup (one full batch of 128: T 2000 behind P and 18 x K),
+    and the beam decode of hac (``decoder="beam"``, one full batch). Then it
+    holds one batch on the int8 path, one on the hac reverse path (M + Q;
+    it prints, and does not require, the share of rows whose reverse call is
+    the shifted reverse complement of the forward call), one on the fast
+    path, one on the sup path (in bf16 and on an f32 copy of the model; and
+    its full scores, reverse complemented, through M + Q) and one of the
+    shallow transformer (likewise) against the same batch with the plain
+    versions in the kernels' place;
  6. checks from the launch counts, set to 0 before each path and read
     after it, that each path launched its own kernels (5 LSTM and 1 + 1
     decode launches per batch; sup: 1 pin, 18 attention and 1 + 1 decode
-    launches) and no other kernel of the port;
- 7. prints samples/s, the device step and peak memory of the hac bf16 and
-    int8 paths, the fast path and the sup path beside the card's name and
-    power;
+    launches; the beam: 5 LSTM launches and no decode kernel) and no other
+    kernel of the port;
+ 7. prints samples/s, the device step and peak memory of the hac bf16,
+    int8, reverse and beam paths, the fast path and the sup path beside the
+    card's name and power;
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function (and, for comparison, the routes that
     F, G and J take the place of at fast widths, B and C at sup shapes and
-    the parts of one sup layer), and prints one ``kernels`` JSON line with
-    all eleven kernels.
+    the parts of one sup layer; M and Q at fast shapes, and the reverse
+    complement they read), and prints one ``kernels`` JSON line with all
+    thirteen kernels.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -209,7 +220,7 @@ def ptxas_summary(report):
                              r"fused_rotary_window_attention_kernel|"
                              r"local_attention_kernel|"
                              r"relayout_transpose|relayout_gather|"
-                             r"decode_(?:tcn|fused)_(?:fwd|bwd))", m.group(1))
+                             r"decode_(?:fused_)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
             resident = re.search(r"(?:fwd|bwd)ILb(\d)EE", m.group(1))
@@ -220,7 +231,9 @@ def ptxas_summary(report):
                 name = (f"{name}<weight k-tiles in registers="
                         f"{tiles.group(1)}+{tiles.group(2)}>")
             elif "decode" in name:
-                name = f"{name}<{tmpl}>"
+                frame = re.search(r"(Tcn|Full)Frame", m.group(1))
+                name = (f"{name}<{frame.group(1)} frame, {tmpl}>" if frame
+                        else f"{name}<{tmpl}>")
             io = re.search(r"(?:attention_kernel|relayout_\w+?)I"
                            r"(13__nv_bfloat16|5uint4|[fhtjm])(?:Li(\d+)E)?",
                            m.group(1))
@@ -356,6 +369,68 @@ def check_decode(torch, decode_cuda, dev):
         f"{frac:.3f} of frames move")
     require(dq <= 1, f"kernel C: qstring off by {dq}")
     return moves, blank, fwd, err_b, float(dq)
+
+
+def hold_full(torch, decode_full_cuda, scores, **q):
+    """Kernels M + Q on full scores against their plain versions on the same
+    tensor. Returns M's outputs, Q's, and the comparison: choices and end
+    states identical (as for B and C: the max semiring does the same f32 adds
+    in both), max |move_in - plain|, logZ within LOGZ_*, sequence and moves
+    identical, max |dq|; ``ok`` when all of them hold (qstring within one
+    step)."""
+    fwd = decode_full_cuda.full_forward(scores)
+    out = decode_full_cuda.full_backward(scores, *fwd, **q)
+    torch.cuda.synchronize()
+    ref_fwd = decode_full_cuda.full_forward_plain(scores)
+    ref = decode_full_cuda.full_backward_plain(scores, *ref_fwd, **q)
+    d_lz = (fwd[3] - ref_fwd[3]).abs()
+    h = {"same": all(torch.equal(fwd[i], ref_fwd[i]) for i in (1, 4)),
+         "err_in": (fwd[0] - ref_fwd[0]).abs().max().item(),
+         "d_lz": d_lz.max().item(), "lz": ref_fwd[3].abs().mean().item(),
+         "ok_lz": (d_lz <= LOGZ_ATOL + LOGZ_RTOL * ref_fwd[3].abs()).all()
+         .item(),
+         "exact": all(torch.equal(out[k], ref[k])
+                      for k in ("sequence", "moves")),
+         "dq": (out["qstring"].int() - ref["qstring"].int()).abs().max()
+         .item(),
+         "frac": out["moves"].float().mean().item()}
+    h["ok"] = (h["same"] and h["err_in"] <= 1e-4 and h["ok_lz"] and h["exact"]
+               and h["dq"] <= 1)
+    h["text"] = (
+        f"choices and end states identical {h['same']}; max |move_in - "
+        f"plain| {h['err_in']:.3g}, max |logZ - plain| {h['d_lz']:.3g} at "
+        f"|logZ| about {h['lz']:.4g} (tolerance {LOGZ_ATOL} + {LOGZ_RTOL} "
+        f"|logZ|); sequence and moves identical {h['exact']}, max |dq| "
+        f"{h['dq']}; {h['frac']:.3f} of frames move")
+    return fwd, out, h
+
+
+def random_full_scores(torch, dev, n, t, s):
+    """bf16 full scores [n, t, 5 s] drawn on the card from SEED + 9: a stay
+    plane that is not constant. The same draw for the same shape, so phase 8
+    times what phase 3 checked without holding it on the card through the
+    paths of phase 5."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    return (3 * torch.randn(n, t, 5 * s, generator=g, device=dev)).clamp(
+        -5, 5).to(torch.bfloat16)
+
+
+def check_decode_full(torch, decode_full_cuda, dev):
+    """Kernels M and Q against their plain versions (``hold_full``) on the
+    same bf16 full scores with a stay plane that is not constant, at hac
+    widths (N=96, T=1666, S=1024) and fast widths (N=1024, T=1200, S=64)."""
+    err_m, err_q = 0.0, 0.0
+    for name, n, t, s in (("hac", N, T, S), ("fast", FN, FT, FS)):
+        scores = random_full_scores(torch, dev, n, t, s)
+        _, _, h = hold_full(torch, decode_full_cuda, scores, qscale=1.05,
+                            qbias=0.2)
+        log(f"  kernels M + Q, {name} (N={n}, T={t}, S={s}): {h['text']}")
+        require(h["ok"], f"kernels M + Q ({name}) disagree with their plain "
+                f"versions")
+        require(0.01 < h["frac"] < 1,
+                f"kernels M + Q ({name}): degenerate decode")
+        err_m, err_q = max(err_m, h["err_in"]), max(err_q, float(h["dq"]))
+    return err_m, err_q
 
 
 def check_lstm_fused(torch, lstm_fused_cuda, dev):
@@ -554,11 +629,12 @@ class Read:
         self.signal = signal
 
 
-def run_path(torch, name, model, reads, counters, basecall, chunk, geometry):
-    """Basecall ``reads`` through ``basecall`` with every launch count set
-    to 0 just before and read just after; check what came back.
-    ``geometry`` is the (chunksize, overlap, batchsize) the model's config
-    must name."""
+def run_path(torch, name, model, reads, counters, basecall, chunk, geometry,
+             **kw):
+    """Basecall ``reads`` through ``basecall`` (with the options ``kw``)
+    with every launch count set to 0 just before and read just after; check
+    what came back. ``geometry`` is the (chunksize, overlap, batchsize) the
+    model's config must name."""
     bc = model.config["basecaller"]
     chunksize, overlap, batchsize = bc["chunksize"], bc["overlap"], bc["batchsize"]
     require((chunksize, overlap, batchsize) == geometry, f"unexpected {bc}")
@@ -571,7 +647,7 @@ def run_path(torch, name, model, reads, counters, basecall, chunk, geometry):
     t0 = time.perf_counter()
     results = {r.read_id: res for r, res in basecall(
         model, iter(reads), chunksize=chunksize, overlap=overlap,
-        batchsize=batchsize)}
+        batchsize=batchsize, **kw)}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -604,12 +680,22 @@ def run_path(torch, name, model, reads, counters, basecall, chunk, geometry):
             "peak": peak, "held": held}
 
 
-def device_step(np, model, reads, make_compute_fn, chunk, head_route=None):
+def first_reads(reads, chunk, geometry, n_chunks):
+    """The shortest run of ``reads`` from the first that makes at least
+    ``n_chunks`` chunks of ``geometry`` (chunksize, overlap, batchsize)."""
+    total = 0
+    for i, r in enumerate(reads):
+        total += chunk(r.signal, geometry[0], geometry[1]).shape[0]
+        if total >= n_chunks:
+            return reads[:i + 1]
+    raise RuntimeError(f"chip_smoke: too few reads for {n_chunks} chunks")
+
+
+def device_step(np, model, reads, make_compute_fn, chunk, **kw):
     """One prepared full batch and the time of its device step (upload,
-    forward, decode, fetch)."""
+    forward, decode, fetch) with the options ``kw`` of make_compute_fn."""
     bc = model.config["basecaller"]
-    compute = make_compute_fn(model, bc["batchsize"], bc["chunksize"],
-                              head_route=head_route)
+    compute = make_compute_fn(model, bc["batchsize"], bc["chunksize"], **kw)
     chunks, n = [], 0
     for r in reads[2:]:  # the first two reads are short ones
         if n >= bc["batchsize"]:
@@ -684,9 +770,9 @@ def main():
     from bonito_tpu_torch.models import (MODELS, lstm_crf_config,
                                          transformer_crf_config)
     from bonito_tpu_torch.ops import (attention_cuda, build, decode_cuda,
-                                      decode_fused_cuda, int8, lstm_cuda,
-                                      lstm_fused_cuda, lstm_int8_cuda,
-                                      relayout)
+                                      decode_full_cuda, decode_fused_cuda,
+                                      int8, lstm_cuda, lstm_fused_cuda,
+                                      lstm_int8_cuda, relayout)
     from bonito_tpu_torch.ops import decode as ops_decode
     from bonito_tpu_torch.ops import lstm as ops_lstm
     from bonito_tpu_torch.transformer import model as transformer
@@ -711,6 +797,7 @@ def main():
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
     d_args, e_args, err_int8 = check_lstm_int8(torch, int8, lstm_int8_cuda, dev)
     moves, blank, fwd, err_b, err_c = check_decode(torch, decode_cuda, dev)
+    err_m, err_q = check_decode_full(torch, decode_full_cuda, dev)
     log(f"    and at fast widths (N={FN}, T={FT}, C=H={FH}, S={FS})")
     f_args, err_f = check_lstm_fused(torch, lstm_fused_cuda, dev)
     f_head, f_fwd, err_g, err_j = check_decode_fused(
@@ -759,7 +846,7 @@ def main():
         dirs[name] = model_dir
         del model
 
-    log("[5] load_model + basecall on the card, seven paths")
+    log("[5] load_model + basecall on the card, eleven paths")
     rng = np.random.default_rng(SEED)
     lengths = np.concatenate([[3000, 9000], rng.integers(20000, 110000, 142)])
     reads = [Read(f"read{i}", rng.normal(size=int(n)).astype(np.float32))
@@ -778,7 +865,9 @@ def main():
                 "J": decode_fused_cuda.tcn_fused_backward,
                 "K": attention_cuda.fused_rotary_window_attention,
                 "L": attention_cuda.local_attention,
-                "P": relayout.pin_layout}
+                "P": relayout.pin_layout,
+                "M": decode_full_cuda.full_forward,
+                "Q": decode_full_cuda.full_backward}
     models = {
         name: load_model(dirs[src], half=True, fuse_bn=True, quantize=None,
                          device="cuda", **kw)
@@ -829,10 +918,24 @@ def main():
     runs = {name: run_path(torch, name, models[name], rds, counters, basecall,
                            chunk, geometry)
             for name, (rds, geometry) in paths.items()}
-    require(runs["fast"]["full_batches"] >= 4,
-            "the fast path ran fewer than 4 full batches")
-    require(runs["sup"]["full_batches"] >= 3,
-            "the sup path ran fewer than 3 full batches")
+    # the full-score paths: the reverse strand (M, Q) of hac as shipped, of
+    # fast (S 64) and of sup (T 2000 behind P and 18 x K), and the beam
+    sup_geometry = (12000, 600, SN)
+    full_paths = {
+        "rev": ("int8", reads[:48], hac_geometry, dict(reverse=True)),
+        "fast_rev": ("fast", first_reads(fast_reads, chunk, fast_geometry, FN),
+                     fast_geometry, dict(reverse=True)),
+        "sup_rev": ("sup", first_reads(fast_reads, chunk, sup_geometry, SN),
+                    sup_geometry, dict(reverse=True)),
+        "beam": ("int8", first_reads(reads[2:], chunk, hac_geometry, N),
+                 hac_geometry, dict(decoder="beam"))}
+    for name, (model, rds, geometry, kw) in full_paths.items():
+        runs[name] = run_path(torch, name, models[model], rds, counters,
+                              basecall, chunk, geometry, **kw)
+    for name, n in (("fast", 4), ("sup", 3), ("rev", 3), ("fast_rev", 1),
+                    ("sup_rev", 1), ("beam", 1)):
+        require(runs[name]["full_batches"] >= n,
+                f"the {name} path ran fewer than {n} full batches")
 
     # one batch's move scores: kernel D's chain against its plain version's
     prepared, step_int8 = device_step(np, models["int8"], reads,
@@ -860,6 +963,41 @@ def main():
     require(worst <= 0.5 and mean <= 1e-3,
             "int8 path: the kernels' moves disagree with the plain versions'")
     del mv_kernel, mv_plain, diff
+
+    # one hac batch on the reverse path: its full scores, reverse
+    # complemented, through M + Q against their plain versions; and the
+    # share of rows whose reverse call is the forward call's reverse
+    # complement shifted by state_len (tests/test_seqdist.py's property)
+    prepared, step_rev = device_step(np, models["int8"], reads,
+                                     make_compute_fn, chunk, reverse=True)
+    _, step_beam = device_step(np, models["int8"], reads, make_compute_fn,
+                               chunk, decoder="beam")
+    _, x_wire, sig_scale = prepared
+    sd = models["int8"].seqdist
+    with torch.inference_mode():
+        xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+              * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+        scores = models["int8"](xc[..., None])
+        rc = sd.reverse_complement(scores)
+        _, out_kernel, h = hold_full(torch, decode_full_cuda, rc, qscale=1.05,
+                                     qbias=0.2)
+        out_fwd = ops_decode.viterbi_decode(sd, scores)
+    comp = dict(zip("ACGT", "TGCA"))
+    shifted = 0
+    for a, b in zip(out_fwd["sequence"].cpu().numpy(),
+                    out_kernel["sequence"].cpu().numpy()):
+        f, r = sd.path_to_str(a), sd.path_to_str(b)
+        expect = "".join(comp[c] for c in reversed(f))
+        k = sd.state_len
+        shifted += len(r) == len(f) and r[:len(r) - k] == expect[k:]
+    log(f"  reverse path, one batch: scores {tuple(rc.shape)} "
+        f"{str(rc.dtype)[6:]} reverse complemented, through M + Q vs their "
+        f"plain versions: {h['text']}; {shifted} of {N} rows call the "
+        f"shifted reverse complement of the forward strand's call (not "
+        f"required: a random bf16 model's paths tie)")
+    require(h["ok"], "reverse path: M + Q disagree with their plain versions")
+    err_m, err_q = max(err_m, h["err_in"]), max(err_q, float(h["dq"]))
+    del scores, rc, out_kernel, out_fwd
 
     # one fast batch: the encoder through kernel F against F's plain version
     # in its place, then the kernels' head through G + J against their plain
@@ -959,6 +1097,19 @@ def main():
     require(exact and torch.equal(sup_fwd[1], ref_fwd[1]) and dq <= 1,
             "sup path: B + C disagree with their plain versions")
     del mv_kernel, mv_plain, out_kernel, out_plain, ref_fwd, conv_out
+    # the same batch on the reverse path: its full scores (T 2000), reverse
+    # complemented, through M + Q against their plain versions; M and Q are
+    # timed on these scores in phase 8
+    with torch.inference_mode():
+        sup_rc = sup.seqdist.reverse_complement(sup(xc[..., None]))
+        _, _, h = hold_full(torch, decode_full_cuda, sup_rc, **q)
+    log(f"    the same batch on the reverse path: scores "
+        f"{tuple(sup_rc.shape)} {str(sup_rc.dtype)[6:]} reverse "
+        f"complemented, through M + Q vs their plain versions: {h['text']}")
+    require(h["ok"], "sup reverse path: M + Q disagree with their plain "
+            "versions")
+    require(0.01 < h["frac"] < 1, "sup reverse path: degenerate decode")
+    err_m, err_q = max(err_m, h["err_in"]), max(err_q, float(h["dq"]))
 
     # the same batch on an f32 copy of the model: K takes f32 in and out and
     # rounds to bf16 inside, nothing else rounds to bf16
@@ -1023,7 +1174,11 @@ def main():
            "fast": {"F": 5, "G": 1, "J": 1},
            "fast_bf16": {"F": 5, "G": 1, "J": 1},
            "sup": {"P": 1, "K": 18, "B": 1, "C": 1},
-           "sup_d40": {"P": 1, "L": 2, "B": 1, "C": 1}}
+           "sup_d40": {"P": 1, "L": 2, "B": 1, "C": 1},
+           "rev": {"D": 5, "M": 1, "Q": 1},
+           "fast_rev": {"F": 5, "M": 1, "Q": 1},
+           "sup_rev": {"P": 1, "K": 18, "M": 1, "Q": 1},
+           "beam": {"D": 5}}
     for name, run in runs.items():
         expect = {k: own[name].get(k, 0) * run["batches"] for k in counters}
         log(f"  {name}: {run['batches']} batches ({run['full_batches']} "
@@ -1034,7 +1189,8 @@ def main():
 
     log(f"[7] on {card}:")
     for name, step in (("bf16", step_bf16), ("int8", step_int8),
-                       ("fast", step_fast), ("sup", step_sup)):
+                       ("fast", step_fast), ("sup", step_sup),
+                       ("rev", step_rev), ("beam", step_beam)):
         run = runs[name]
         per_batch = run["batchsize"] * run["chunksize"]
         log(f"  {name}: {run['samples'] / run['wall']:.6g} samples/s over "
@@ -1113,6 +1269,30 @@ def main():
     bound_c = bound(move_bytes + N * T * R * 4 + N * T * 5 + N * 8 + 3 * N * T,
                     20 * N * T * S, H100_F32_OPS)
 
+    full_scores = random_full_scores(torch, dev, N, T, S)
+    full_fwd = decode_full_cuda.full_forward(full_scores)
+    ms_m = cuda_ms(lambda: decode_full_cuda.full_forward(full_scores), reps=3)
+    plain_m = cuda_ms(lambda: decode_full_cuda.full_forward_plain(full_scores),
+                      reps=1, warmup=0)
+    ms_q = cuda_ms(lambda: decode_full_cuda.full_backward(
+        full_scores, *full_fwd), reps=3)
+    plain_q = cuda_ms(lambda: decode_full_cuda.full_backward_plain(
+        full_scores, *full_fwd), reps=1, warmup=0)
+    sd = models["int8"].seqdist
+    ms_rc = cuda_ms(lambda: sd.reverse_complement(full_scores), reps=3)
+    score_bytes = N * T * 5 * S * 2
+    # M: scores in; move-in f32, choices, c, logZ and end state out; one
+    # more exp per state and frame than B (the stay plane's)
+    bound_m = bound(score_bytes + N * T * S * 5 + N * T * 4 + N * 8,
+                    25 * N * T * S, H100_F32_OPS)
+    # Q: scores in; as for C a quarter of move-in, one choice per frame, c,
+    # logZ, end state; three [N, T] planes out
+    bound_q = bound(score_bytes + N * T * R * 4 + N * T * 5 + N * 8
+                    + 3 * N * T, 25 * N * T * S, H100_F32_OPS)
+    log(f"  M {ms_m:.4g} ms, Q {ms_q:.4g} ms on bf16 scores [{N}, {T}, "
+        f"{5 * S}] (B {ms_b:.4g}, C {ms_c:.4g} on the [{N}, {T}, {4 * S}] "
+        f"moves); reverse_complement of those scores {ms_rc:.4g} ms")
+
     log(f"    and at fast shapes (N={FN}, T={FT}, C=H={FH}, S={FS})")
     fx, fw_ih, fw_hh, fb = f_args
     ms_f = cuda_ms(lambda: lstm_fused_cuda.lstm_fused(fx, fw_ih, fw_hh, fb),
@@ -1164,9 +1344,18 @@ def main():
     fwd_fast = decode_cuda.tcn_forward(mv_fast, 2.0)
     ms_c_fast = cuda_ms(lambda: decode_cuda.tcn_backward(
         mv_fast, *fwd_fast, 2.0), reps=3)
+    # the same moves as full scores with the stays beside them
+    full_fast = ops_decode.tcn_to_scores(models["fast"].seqdist,
+                                         mv_fast.permute(1, 2, 0), 2.0)
+    ms_m_fast = cuda_ms(lambda: decode_full_cuda.full_forward(full_fast),
+                        reps=3)
+    fwd_full_fast = decode_full_cuda.full_forward(full_fast)
+    ms_q_fast = cuda_ms(lambda: decode_full_cuda.full_backward(
+        full_fast, *fwd_full_fast), reps=3)
     log(f"  G {ms_g:.4g} ms + J {ms_j:.4g} ms vs the TCN route at these "
         f"widths: head matmul + clamp {ms_head_fast:.4g} ms + B "
-        f"{ms_b_fast:.4g} ms + C {ms_c_fast:.4g} ms")
+        f"{ms_b_fast:.4g} ms + C {ms_c_fast:.4g} ms; M {ms_m_fast:.4g} ms + Q "
+        f"{ms_q_fast:.4g} ms on [{FN}, {FT}, {5 * FS}] full scores")
 
     log(f"    and at sup shapes (N={SN}, T={ST}, H={SH}, D={SD}, window "
         f"{SWIN}; decode N={SN}, T={2 * ST}, S={S})")
@@ -1251,7 +1440,23 @@ def main():
                        reps=3)
     ms_c_sup = cuda_ms(lambda: decode_cuda.tcn_backward(
         sup_moves, *sup_fwd, sup_blank), reps=3)
-    log(f"  B {ms_b_sup:.4g} ms, C {ms_c_sup:.4g} ms at sup shapes")
+    ST2 = 2 * ST  # decode frames
+    sup_move_bytes = SN * ST2 * 4 * S * 2
+    bound_b_sup = bound(sup_move_bytes + SN * ST2 * S * 5 + SN * ST2 * 4
+                        + SN * 8, 20 * SN * ST2 * S, H100_F32_OPS)
+    bound_c_sup = bound(sup_move_bytes + SN * ST2 * R * 4 + SN * ST2 * 5
+                        + SN * 8 + 3 * SN * ST2, 20 * SN * ST2 * S,
+                        H100_F32_OPS)
+    # M and Q on the sup reverse batch's scores
+    ms_m_sup = cuda_ms(lambda: decode_full_cuda.full_forward(sup_rc), reps=3)
+    sup_rc_fwd = decode_full_cuda.full_forward(sup_rc)
+    ms_q_sup = cuda_ms(lambda: decode_full_cuda.full_backward(
+        sup_rc, *sup_rc_fwd), reps=3)
+    del sup_rc, sup_rc_fwd
+    log(f"  B {ms_b_sup:.4g} ms, C {ms_c_sup:.4g} ms at sup shapes (bounds "
+        f"{bound_b_sup[0]:.4g} and {bound_c_sup[0]:.4g} ms by bytes); M "
+        f"{ms_m_sup:.4g} ms, Q {ms_q_sup:.4g} ms on the same batch's reverse "
+        f"scores")
 
     # the parts of one sup layer and of the step around the stack, each timed
     # alone on the tensors it sees in a batch
@@ -1300,6 +1505,7 @@ def main():
     for name, key, ms_lstm, dec, step in (
             ("bf16", "A", ms_a, (("B", ms_b), ("C", ms_c)), step_bf16),
             ("int8", "D", ms_d, (("B", ms_b), ("C", ms_c)), step_int8),
+            ("rev", "D", ms_d, (("M", ms_m), ("Q", ms_q)), step_rev),
             ("fast", "F", ms_f, (("G", ms_g), ("J", ms_j)), step_fast)):
         kernels_ms = 5 * ms_lstm + dec[0][1] + dec[1][1]
         log(f"  {name} path per batch: 5 x {key} {5 * ms_lstm:.4g} ms + "
@@ -1309,9 +1515,11 @@ def main():
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
     src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
+    src_full = "bonito_tpu_torch/csrc/decode_full.cu"
     # launches: the count on the path that is the kernel's own (A: bf16,
     # D, B, C: int8 fused, E: int8 two-stage, F, G, J: fast, K, P: sup, L:
-    # the shallow transformer); by_path has every path's
+    # the shallow transformer, M, Q: hac's reverse strand); by_path has
+    # every path's
     entries = [
         ("lstm_recurrence", "A", "bf16", "bonito_tpu_torch/csrc/lstm.cu",
          "bonito_tpu/ops/lstm_pallas.py:54", err_a, ms_a, plain_a, bound_a,
@@ -1346,9 +1554,20 @@ def main():
         ("pin_layout", "P", "sup", "bonito_tpu_torch/csrc/relayout.cu",
          "bonito_tpu/ops/relayout.py:25", err_p, ms_p, plain_p, bound_p,
          lib_p),
+        ("decode_full_fwd", "M", "rev", src_full,
+         "bonito_tpu/ops/decode_pallas.py:48", err_m, ms_m, plain_m, bound_m,
+         None),
+        ("decode_full_bwd", "Q", "rev", src_full,
+         "bonito_tpu/ops/decode_pallas.py:109", err_q, ms_q, plain_q, bound_q,
+         None),
     ]
     # times at another path's shapes than the one the entry's numbers are of
-    more = {"B": {"sup_shape_ms": ms_b_sup}, "C": {"sup_shape_ms": ms_c_sup},
+    more = {"B": {"sup_shape_ms": ms_b_sup,
+                  "sup_shape_bound_ms": bound_b_sup[0]},
+            "C": {"sup_shape_ms": ms_c_sup,
+                  "sup_shape_bound_ms": bound_c_sup[0]},
+            "M": {"fast_shape_ms": ms_m_fast, "sup_shape_ms": ms_m_sup},
+            "Q": {"fast_shape_ms": ms_q_fast, "sup_shape_ms": ms_q_sup},
             "L": {"sup_f32": {
                 "max_abs_err": err_attn["L sup f32"], "ms": ms_l32,
                 "plain_ms": plain_l32, "bound_ms": bound_l32[0],

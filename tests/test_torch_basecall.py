@@ -100,9 +100,20 @@ def test_prepare_pads_a_ragged_batch(model_dir):
 
 
 def test_unported_routes_raise(model_dir):
+    """What still raises: a decoder that does not exist, and a head route
+    forced onto the full-score decodes (the reverse strand and the beam
+    read ``model(x)``, not a head route)."""
     from bonito_tpu_torch.crf.basecall import make_compute_fn
     m = load_model(model_dir, half=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="reverse"):
-        make_compute_fn(m, BATCH, CHUNK, reverse=True)
-    with pytest.raises(NotImplementedError, match="beam"):
-        make_compute_fn(m, BATCH, CHUNK, decoder="beam")
+    with pytest.raises(ValueError, match="decoder"):
+        make_compute_fn(m, BATCH, CHUNK, decoder="greedy")
+    for kw in (dict(reverse=True), dict(decoder="beam")):
+        for route in ("fused", "tcn"):
+            with pytest.raises(ValueError, match="head_route"):
+                make_compute_fn(m, BATCH, CHUNK, head_route=route, **kw)
+    with pytest.raises(ValueError, match="head_route"):
+        make_compute_fn(m, BATCH, CHUNK, head_route="dense")
+    for kw in (dict(reverse=True), dict(decoder="beam")):
+        out = make_compute_fn(m, BATCH, CHUNK, **kw)(
+            np.random.default_rng(2).normal(size=(2, CHUNK)))
+        assert out["sequence"].shape == (2, CHUNK // 5)

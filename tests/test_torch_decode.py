@@ -72,7 +72,7 @@ def test_tcn_decode_matches_scan(ties):
 
 
 def test_plain_full_scores_match_scan():
-    """viterbi_decode_plain over full scores with a stay plane that is
+    """viterbi_decode over full scores with a stay plane that is
     not constant."""
     S = 4 ** STATE_LEN
     rng = np.random.default_rng(5)
@@ -80,7 +80,7 @@ def test_plain_full_scores_match_scan():
     ref = jdecode.viterbi_decode_scan(JaxCRF(STATE_LEN, ALPHABET),
                                       jnp.asarray(scores), qscale=QSCALE,
                                       qbias=QBIAS)
-    out = decode.viterbi_decode_plain(CTC_CRF(STATE_LEN, ALPHABET),
+    out = decode.viterbi_decode(CTC_CRF(STATE_LEN, ALPHABET),
                                       torch.from_numpy(scores),
                                       qscale=QSCALE, qbias=QBIAS)
     _assert_same(_port(out), ref)

@@ -8,7 +8,11 @@ import pytest
 import torch
 
 from bonito_tpu_torch.crf.model import HeadSplit as Head
-from bonito_tpu_torch.ops import (attention, attention_cuda, decode_cuda,
+from bonito_tpu_torch.crf.model import Model
+from bonito_tpu_torch.crf.seqdist import CTC_CRF
+from bonito_tpu_torch.models import lstm_crf_config
+from bonito_tpu_torch.ops import (attention, attention_cuda, decode,
+                                  decode_cuda, decode_full_cuda,
                                   decode_fused_cuda, int8, lstm_cuda,
                                   lstm_fused_cuda, lstm_int8_cuda, relayout)
 from bonito_tpu_torch.ops.lstm import lstm, lstm_int8
@@ -81,6 +85,73 @@ def test_decode_launch_counts(cuda):
     assert decode_cuda.tcn_forward.launches == b + 1
     assert decode_cuda.tcn_backward.launches == c + 1
     np.testing.assert_array_equal(fwd[4].cpu().numpy(), [0, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("state_len,N,T", [(1, 3, 7), (2, 4, 9), (3, 8, 30),
+                                           (4, 2, 11), (5, 3, 12)])
+def test_full_decode_kernels_match_plain(cuda, state_len, N, T, dtype):
+    """Kernels M and Q against their plain versions on full scores with a
+    stay plane: choices, end states, sequence and moves identical (the max
+    semiring does the same f32 adds in both), qstring within one step."""
+    S = 4 ** state_len
+    g = torch.Generator().manual_seed(S + N + T)
+    scores = (3 * torch.randn(N, T, 5 * S, generator=g)).to(cuda, dtype)
+    m, q = decode_full_cuda.full_forward, decode_full_cuda.full_backward
+    before = (m.launches, q.launches)
+    fwd = m(scores)
+    out = q(scores, *fwd, qscale=1.05, qbias=0.2)
+    torch.cuda.synchronize()
+    assert (m.launches, q.launches) == (before[0] + 1, before[1] + 1)
+    ref_fwd = decode_full_cuda.full_forward_plain(scores)
+    ref = decode_full_cuda.full_backward_plain(scores, *ref_fwd, qscale=1.05,
+                                               qbias=0.2)
+    torch.testing.assert_close(fwd[1], ref_fwd[1], rtol=0, atol=0)  # choices
+    torch.testing.assert_close(fwd[4], ref_fwd[4], rtol=0, atol=0)  # end
+    torch.testing.assert_close(fwd[0], ref_fwd[0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(fwd[3], ref_fwd[3], rtol=1e-5, atol=1e-4)
+    for k in ("sequence", "moves"):
+        torch.testing.assert_close(out[k], ref[k], rtol=0, atol=0)
+    dq = (out["qstring"].int() - ref["qstring"].int()).abs().max().item()
+    assert dq <= 1
+
+
+def test_full_decode_kernels_reject_what_they_do_not_take(cuda):
+    """No fallback: a wrong dtype, a state count outside the gate, a
+    strided tensor or a forward output on the CPU raise."""
+    scores = torch.zeros(2, 4, 5 * 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        decode_full_cuda.full_forward(scores.half())
+    for S in (8, 32, 2048):
+        with pytest.raises(ValueError, match="4\\*\\*k"):
+            decode_full_cuda.full_forward(
+                torch.zeros(2, 4, 5 * S, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_full_cuda.full_forward(scores.transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        decode.viterbi_decode(CTC_CRF(3, "NACGT"), scores.transpose(0, 1))
+    fwd = decode_full_cuda.full_forward(scores)
+    with pytest.raises(ValueError, match="move_in"):
+        decode_full_cuda.full_backward(scores, fwd[0].cpu(), *fwd[1:])
+    with pytest.raises(ValueError, match="choices"):
+        decode_full_cuda.full_backward(scores, fwd[0], fwd[1].float(),
+                                       *fwd[2:])
+
+
+def test_decode_batch_decodes_an_array_on_the_card(cuda):
+    """A numpy array handed to a model on the card is decoded there, by M
+    and Q, as a CUDA tensor is, and calls what the plain versions call."""
+    cfg = lstm_crf_config(features=32, num_layers=1, state_len=2)
+    x = (2 * np.random.default_rng(4).normal(size=(3, 30, 80))).astype(
+        np.float32)
+    model = Model(cfg).to(cuda)
+    m, q = decode_full_cuda.full_forward, decode_full_cuda.full_backward
+    before = (m.launches, q.launches)
+    out = model.decode_batch(x)
+    assert (m.launches, q.launches) == (before[0] + 1, before[1] + 1)
+    assert out == model.decode_batch(torch.from_numpy(x).to(cuda))
+    assert out == Model(cfg).decode_batch(x)
+    assert all(len(s) > 5 for s in out)
 
 
 def _int8_layer(cuda, seed, N, T, C, H):

@@ -32,7 +32,7 @@ from bonito_tpu_torch import checkpoint, nn
 from bonito_tpu_torch.crf.basecall import basecall
 from bonito_tpu_torch.crf.model import Model
 from bonito_tpu_torch.ops import int8
-from bonito_tpu_torch.ops.decode import to_str, viterbi_decode_plain
+from bonito_tpu_torch.ops.decode import to_str, viterbi_decode
 from bonito_tpu_torch.ops.lstm import int8_route, lstm_int8
 from bonito_tpu_torch.ops.lstm_int8_cuda import (
     lstm_int8_fused, lstm_int8_recurrence)
@@ -357,7 +357,7 @@ def test_int8_golden_reproduced_on_the_dequant_route():
     assert all(m.int8_out for m in _lstms(pm))
     with torch.no_grad():
         scores = pm(_t(signal)[..., None])
-        out = viterbi_decode_plain(pm.seqdist, scores, qscale=1.05, qbias=0.2)
+        out = viterbi_decode(pm.seqdist, scores, qscale=1.05, qbias=0.2)
     golden = json.loads(GOLDEN_INT8.read_text())
     assert [to_str(s) for s in out["sequence"].numpy()] == golden["sequences"]
     assert [to_str(q, qstring=True)

@@ -380,8 +380,8 @@ def test_transformer_decode_golden_reproduced():
     jscores = np.asarray(jm.forward(jnp.asarray(signal)[..., None]))
     with torch.no_grad():
         scores = pm(_t(signal)[..., None])
-        out = decode.viterbi_decode_plain(pm.seqdist, scores)
-        exact = decode.viterbi_decode_plain(pm.seqdist, _t(jscores))
+        out = decode.viterbi_decode(pm.seqdist, scores)
+        exact = decode.viterbi_decode(pm.seqdist, _t(jscores))
     np.testing.assert_allclose(scores.numpy(), jscores, atol=2e-3)
     _assert_golden(_strings(exact), "transformer_decode.json")
     _assert_golden(_strings(out), "transformer_decode.json", bases_off=1)
