@@ -3,9 +3,10 @@ CRF model families: an encoder (conv downsample, then an LSTM stack or,
 for the transformer family, a stack of attention layers and an upsample,
 then a CRF head, built from the config's layer tree) paired with a CTC_CRF
 state space. ``forward`` gives full scores [N, T, n_score] (what
-``decode_batch`` decodes); ``forward_tcn`` the decode layout the TCN kernels
-read; ``forward_tcn_head`` the encoder output and the head's weights for the
-decode kernels that hold the head.
+``decode_batch`` decodes and ``loss`` scores); ``forward_tcn`` the decode
+layout the TCN kernels read (and ``loss_tcn``, the default training loss,
+scores); ``forward_tcn_head`` the encoder output and the head's weights for
+the decode kernels that hold the head.
 """
 
 from collections import namedtuple
@@ -33,7 +34,8 @@ class SeqdistModel(torch.nn.Module):
     config which serialises the whole model (the transformer family's)
     builds through ``nn.from_dict``."""
 
-    def __init__(self, encoder, seqdist):
+    def __init__(self, encoder, seqdist, n_pre_post_context_bases=None,
+                 target_projection=None):
         super().__init__()
         self.seqdist = seqdist
         self.encoder = encoder
@@ -41,6 +43,13 @@ class SeqdistModel(torch.nn.Module):
         self.alphabet = seqdist.alphabet
         self.compute_dtype = torch.float32
         self._perm = {}
+        if n_pre_post_context_bases is None:
+            n_pre_post_context_bases = (seqdist.state_len - 1, 1)
+        self.n_pre_context_bases, self.n_post_context_bases = (
+            n_pre_post_context_bases)
+        self.target_projection = (
+            None if target_projection is None
+            else np.array([0] + list(target_projection)))
 
     @classmethod
     def from_dict(cls, model_dict, layer_types=None):
@@ -50,11 +59,16 @@ class SeqdistModel(torch.nn.Module):
         return cls(**kwargs)
 
     def to_dict(self):
-        return {
+        res = {
             "encoder": nn.to_dict(self.encoder),
             "seqdist": {"state_len": self.seqdist.state_len,
                         "alphabet": self.seqdist.alphabet},
+            "n_pre_post_context_bases": (self.n_pre_context_bases,
+                                         self.n_post_context_bases),
         }
+        if self.target_projection is not None:
+            res["target_projection"] = self.target_projection.tolist()[1:]
+        return res
 
     @property
     def device(self):
@@ -122,9 +136,40 @@ class SeqdistModel(torch.nn.Module):
         return [self.seqdist.path_to_str(p)
                 for p in out["sequence"].cpu().numpy()]
 
+    def decode_batch_posteriors(self, scores):
+        """Viterbi strings over the smoothed posteriors (bonito_tpu's
+        validation decoder, reference semantics): plain torch."""
+        scores = torch.as_tensor(scores, device=self.device).float()
+        post = self.seqdist.posteriors(scores) + 1e-8
+        paths = self.seqdist.viterbi(torch.log(post)).cpu().numpy()
+        return [self.seqdist.path_to_str(p) for p in paths]
+
     def decode(self, x):
         """The Viterbi string of one read's full scores [T, n_score]."""
         return self.decode_batch(x[None])[0]
+
+    def _project_targets(self, targets):
+        targets = torch.as_tensor(targets)
+        if self.target_projection is None:
+            return targets
+        return torch.as_tensor(self.target_projection,
+                               device=targets.device)[targets.long()]
+
+    def loss(self, scores, targets, target_lengths, **kwargs):
+        """``ctc_loss`` of full scores [N, T, n_score] (in f32): logZ
+        through kernels W and X on the card, the lattice a plain loop."""
+        return self.seqdist.ctc_loss(scores.float(),
+                                     self._project_targets(targets),
+                                     target_lengths, **kwargs)
+
+    def loss_tcn(self, moves_tcn, blank_score, targets, target_lengths,
+                 **kwargs):
+        """``ctc_loss_tcn`` from ``forward_tcn``'s output, the default
+        training loss: kernels Y and Z (the lattice) and U and V (logZ)
+        on the card."""
+        return self.seqdist.ctc_loss_tcn(moves_tcn, blank_score,
+                                         self._project_targets(targets),
+                                         target_lengths, **kwargs)
 
     def decode_head(self):
         """(items_before_head, (name, crf), (name, clamp) or None), or None
@@ -261,5 +306,8 @@ class Model(SeqdistModel):
         if "type" not in config["encoder"]:
             raise NotImplementedError(
                 "old-style parametric encoder configs are not ported yet")
-        super().__init__(nn.from_dict(config["encoder"]), seqdist)
+        super().__init__(
+            nn.from_dict(config["encoder"]), seqdist,
+            n_pre_post_context_bases=config["input"].get(
+                "n_pre_post_context_bases"))
         self.config = config

@@ -22,19 +22,6 @@
 
 namespace {
 
-struct FullFrame {
-    __host__ __device__ int width(int S) const { return (NB + 1) * S; }
-    __device__ float move(const float* row, int, int s, int j) const {
-        return row[s * (NB + 1) + 1 + j];
-    }
-    __device__ float stay(const float* row, int s) const {
-        return row[s * (NB + 1)];
-    }
-    __device__ float stay_prob(const float* row, int s) const {
-        return expf(stay(row, s));
-    }
-};
-
 // S = 4**state_len, 4 to 1024 states (a thread each)
 bool bad_shape(int N, int T, int S) {
     return N < 1 || T < 1 || S < NB || S > 1024 || (S & (S - 1)) != 0

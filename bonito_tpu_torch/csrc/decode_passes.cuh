@@ -2,11 +2,9 @@
 // every layout of a frame's scores (included by decode_tcn.cu, kernels B
 // and C, and decode_full.cu, kernels M and Q).
 //
-// A Frame says where a frame's scores sit: how many values a frame has
-// (width), the score of the move into state s from slot j (the
-// predecessor p = j*R + s/nb, R = S/nb, nb = 4), and the stay score of
-// state s with its probability exp(stay). The kernels copy each frame's
-// row into shared memory as f32 and read it through the Frame.
+// A Frame (crf_frames.cuh, with the block-wide reductions) says where a
+// frame's scores sit; the kernels copy each frame's row into shared memory
+// as f32 and read it through the Frame.
 //
 // Forward, per batch row n and frame t (alpha in probability space,
 // renormalised by its max with a log correction c; the max semiring in log
@@ -47,81 +45,9 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <climits>
-#include <cmath>
-#include <cstdint>
+#include "crf_frames.cuh"
 
 namespace {
-
-constexpr int NB = 4;
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// Block-wide reductions over blockDim.x (a multiple of 32). Every thread
-// returns the same bits: the xor butterfly pairs equal values, and every
-// warp reduces the per-warp partials in the same order. The leading
-// barrier keeps `red` from being overwritten while a warp still reads it
-// from the previous call.
-__device__ float block_max(float v, float* red) {
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-    const int nw = blockDim.x >> 5;
-    __syncthreads();
-    if (l == 0) red[w] = v;
-    __syncthreads();
-    v = l < nw ? red[l] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ void block_sum_max(float& sum, float& mx, float* red) {
-    for (int o = 16; o > 0; o >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    }
-    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-    const int nw = blockDim.x >> 5;
-    __syncthreads();
-    if (l == 0) {
-        red[w] = sum;
-        red[32 + w] = mx;
-    }
-    __syncthreads();
-    sum = l < nw ? red[l] : 0.f;
-    mx = l < nw ? red[32 + l] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    }
-}
-
-// first index of the maximum on ties
-__device__ void block_argmax(float& v, int& i, float* redv, int* redi) {
-    for (int o = 16; o > 0; o >>= 1) {
-        const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
-        const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
-        if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
-    }
-    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-    const int nw = blockDim.x >> 5;
-    __syncthreads();
-    if (l == 0) { redv[w] = v; redi[w] = i; }
-    __syncthreads();
-    v = l < nw ? redv[l] : -INFINITY;
-    i = l < nw ? redi[l] : INT_MAX;
-    for (int o = 16; o > 0; o >>= 1) {
-        const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
-        const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
-        if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
-    }
-}
 
 template <typename In>
 __device__ void load_row(const In* __restrict__ src, float* dst, int n) {

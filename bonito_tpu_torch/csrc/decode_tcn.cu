@@ -21,16 +21,6 @@
 
 namespace {
 
-struct TcnFrame {
-    float blank, p_stay;
-    __host__ __device__ int width(int S) const { return NB * S; }
-    __device__ float move(const float* row, int S, int s, int j) const {
-        return row[((s % NB) * NB + j) * (S / NB) + s / NB];
-    }
-    __device__ float stay(const float*, int) const { return blank; }
-    __device__ float stay_prob(const float*, int) const { return p_stay; }
-};
-
 bool bad_shape(int N, int T, int S) {
     return N < 1 || T < 1 || S < NB || S % NB != 0 || S > 1024;
 }

@@ -74,6 +74,17 @@ SIGNATURES = {
     "relayout_gather_any": [P, P, I, LP, LP, I, P],
     # in, out, B, R, C, sb, sc, unit, stream
     "relayout_transpose_any": [P, P, L, I, I, L, L, I, P],
+    # scores, is_f32, is_full, round, stack (or null), logz, N, T, S,
+    # blank, stream
+    "logz_fwd": [P, I, I, I, P, P, I, I, I, F, P],
+    # scores, is_f32, is_full, round, stack, logz, g, grad, out_f32, N, T,
+    # S, blank, stream
+    "logz_bwd": [P, I, I, I, P, P, P, P, I, I, I, I, F, P],
+    # move, lengths, stack (or null), logz, N, T, P, blank, stream
+    "lattice_fwd": [P, P, P, P, I, I, I, F, P],
+    # move, stack, lengths, log|g| - logz, sign(g), dmove, N, T, P, blank,
+    # stream
+    "lattice_bwd": [P, P, P, P, P, P, I, I, I, F, P],
 }
 
 ptxas_report = ""  # nvcc -Xptxas -v output of the library's build

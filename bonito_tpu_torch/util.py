@@ -177,16 +177,28 @@ def model_directory(dirname):
     return p
 
 
+def _tar_not_ported(path):
+    return NotImplementedError(
+        f"{path}: upstream weights_N.tar checkpoints are not read by the "
+        f"port yet; convert it with bonito_tpu or keep a weights_N.npz")
+
+
 def get_last_checkpoint(dirname):
-    """Latest weights_{N}.npz in a model directory."""
+    """Latest weights_{N}.npz or .tar in a model directory, as bonito_tpu's
+    (the .tar wins a tie of N). The port reads .npz only: a latest .tar
+    raises rather than an older .npz being loaded in its place."""
     found = []
-    for path in _glob.glob(os.path.join(str(dirname), "weights_*.npz")):
-        m = re.search(r"_(\d+)\.npz$", path)
-        if m:
-            found.append((int(m.group(1)), path))
+    for pattern in ("weights_*.npz", "weights_*.tar"):
+        for path in _glob.glob(os.path.join(str(dirname), pattern)):
+            m = re.search(r"_(\d+)\.(npz|tar)$", path)
+            if m:
+                found.append((int(m.group(1)), path))
     if not found:
         raise FileNotFoundError(f"no model weights found in '{dirname}'")
-    return max(found)[1]
+    path = max(found)[1]
+    if path.endswith(".tar"):
+        raise _tar_not_ported(path)
+    return path
 
 
 def set_config_defaults(config, chunksize=None, batchsize=None, overlap=None,
@@ -221,6 +233,8 @@ def load_model(dirname, weights=None, half=True, chunksize=None,
     else:
         weights_path = dirname / f"weights_{weights}.npz"
         if not weights_path.exists():
+            if weights_path.with_suffix(".tar").exists():
+                raise _tar_not_ported(weights_path.with_suffix(".tar"))
             raise FileNotFoundError(f"{weights_path} not found")
 
     config = load_config(dirname / "config.toml")

@@ -65,8 +65,18 @@ PyTorch built for CUDA. In order, it:
     one computes the same function (and, for comparison, the routes that
     F, G and J take the place of at fast widths, B and C at sup shapes and
     the parts of one sup layer; M and Q at fast shapes, and the reverse
-    complement they read), and prints one ``kernels`` JSON line with all
-    thirteen kernels.
+    complement they read);
+ 9. runs the CRF training loss at hac training width: the hac bf16
+    directory (quantize=false), a batch of 128 chunks of 6000 samples and
+    targets of 250 to 500 bases from the seed, through ``forward_tcn``
+    under no_grad, ``loss_tcn`` and its backward (kernels U, V, Y, Z), then
+    ``model(x)``, ``loss`` and its backward (W, X), then ``loss_tcn`` under
+    no_grad as validation does (U and Y without their stacks); each path
+    with its launch counts, held against the same path on the plain
+    versions, with its loss, time, train-loss samples/s and peak memory;
+    then U to Z alone against their plain versions at hac, fast and sup
+    training shapes, with their times and bounds; and prints one
+    ``kernels`` JSON line with all nineteen kernels.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -169,6 +179,30 @@ D40_N, D40_H, D40_D = 32, 8, 40
 # 0.0469, 0.00056, 0.9925 of the frames); its f32 copy is held to SUP_F32_*
 D40_MOVES_MAX, D40_MOVES_MEAN, D40_MIN_EQUAL = 0.125, 0.003, 0.98
 
+# The CRF training loss (kernels U to Z) at hac training width, as the JAX
+# package's train bench builds it: lstm_crf_config() in bf16 with
+# quantize=false (the hac bf16 directory above), batch 128 x chunk 6000 ->
+# T = 1000 frames, S = 1024; targets of 250 to 500 bases (1..4) from the
+# seed, so up to P = 496 lattice positions. The kernels alone also run at
+# fast's training shapes and sup's: (N, T, S, L) below.
+TRAIN_N, TRAIN_CHUNK, TRAIN_L = 128, 6000, 500
+LOSS_SHAPES = {"hac": (128, 1000, 1024, 500), "fast": (128, 1200, 64, 600),
+               "sup": (32, 2048, 1024, 1024)}
+# Tolerances of the loss kernels against their plain versions, which take
+# the same f32 steps in the same order (equality is expected, not
+# required). Forward values (alpha stacks, logZ, the loss) and Z's f32
+# gradient: within F32_STEPS f32 steps of the output's largest magnitude
+# (another sum order moves a value by a step or two). The gradients of V and
+# X, rounded to bf16 as the TPU kernels round them: each entry within one
+# bf16 step of its own magnitude (another f32 sum order can round to the
+# neighbouring bf16 value), at least GRAD_MIN_EQUAL of the entries equal.
+# A path's gradient adds the lattice branch's to logZ's, each a posterior
+# (at most 1) times the row's cotangent g_row = 1 / (length x rows): each
+# entry within one bf16 step of |g_row| plus one of its own value, at least
+# GRAD_MIN_EQUAL equal (the gather's backward adds repeated columns with
+# atomics, in no fixed order).
+F32_STEPS, GRAD_MIN_EQUAL = 4, 0.99
+
 
 def log(msg):
     print(msg, flush=True)
@@ -220,6 +254,7 @@ def ptxas_summary(report):
                              r"fused_rotary_window_attention_kernel|"
                              r"local_attention_kernel|"
                              r"relayout_transpose|relayout_gather|"
+                             r"(?:logz|lattice)_(?:fwd|bwd)_kernel|"
                              r"decode_(?:fused_)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
@@ -230,6 +265,9 @@ def ptxas_summary(report):
             elif tiles:
                 name = (f"{name}<weight k-tiles in registers="
                         f"{tiles.group(1)}+{tiles.group(2)}>")
+            elif name.startswith(("logz", "lattice")):
+                # the template arguments as the mangled name gives them
+                name += f" [{m.group(1).split('_kernel', 1)[1]}]"
             elif "decode" in name:
                 frame = re.search(r"(Tcn|Full)Frame", m.group(1))
                 name = (f"{name}<{frame.group(1)} frame, {tmpl}>" if frame
@@ -757,6 +795,348 @@ def decodes_differ(torch, model, mv_a, mv_b, blank, ops_decode, **q):
     return (~same).sum().item(), same.numel(), outs[0]
 
 
+def timed(torch, fn):
+    """(fn(), its time in ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def f32_close(out, ref, steps=F32_STEPS):
+    """(max |out - ref|, whether it is within ``steps`` f32 steps of the
+    largest |ref|)."""
+    if out.numel() == 0:
+        return 0.0, True
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, err <= steps * 2.0 ** -23 * ref.float().abs().max().item()
+
+
+def grad_close(torch, out, ref, g_row=None, row_dim=0):
+    """(max |out - ref|, whether each entry is within one bf16 step of its
+    own magnitude (plus one of |g_row| for a path's gradient), the share of
+    equal entries) and whether at least GRAD_MIN_EQUAL are equal."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    tol = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    if g_row is not None:
+        shape = [1] * out.dim()
+        shape[row_dim] = -1
+        tol = tol + 2.0 ** -7 * g_row.abs().reshape(shape)
+    equal = (out == ref).float().mean().item()
+    return (err.max().item(), bool((err <= tol).all())
+            and equal >= GRAD_MIN_EQUAL, equal)
+
+
+class plain_loss_kernels:
+    """Within the block, the loss's kernel wrappers run their plain
+    versions on the card (the launch counts do not move)."""
+
+    def __init__(self, logz, logz_cuda, lattice, lattice_cuda):
+        self.mods = (logz_cuda, lattice_cuda)
+        self.swap = {
+            (logz_cuda, "tcn_forward"): lambda m, b, round_bf16=True,
+                with_stack=True: logz.forward_plain(m, float(b), round_bf16,
+                                                    with_stack),
+            (logz_cuda, "tcn_backward"): lambda m, st, lz, g, b,
+                round_bf16=True, out_dtype=None: logz.backward_plain(
+                    m, float(b), st, lz, g, round_bf16,
+                    m.dtype if out_dtype is None else out_dtype)[0],
+            (logz_cuda, "full_forward"): logz.full_forward_plain,
+            (logz_cuda, "full_backward"): logz.full_backward_plain,
+            (lattice_cuda, "lattice_forward"): lattice.forward_plain,
+            (lattice_cuda, "lattice_backward"): lattice.backward_plain}
+
+    def __enter__(self):
+        self.saved = {k: getattr(*k) for k in self.swap}
+        for (mod, name), fn in self.swap.items():
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+
+
+def loss_path(torch, counters, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its result, the counts, peak memory above what was held, GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    return out, launches, (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+
+
+def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
+                      g_lat, time_plain):
+    """Each of U to Z on the given tensors against its plain version on the
+    same inputs, and its time (the plain version's when ``time_plain``).
+    Returns {key: {"err", "ok", "ms", "plain_ms", "bytes", "ops"}} and U's
+    time without its stack."""
+    logz, logz_cuda, lattice, lattice_cuda = mods
+    N, T, Cm = moves.shape
+    S = Cm // 4
+    P = move.shape[2] + 1
+    res = {}
+
+    def plain_time(fn):
+        return timed(torch, fn) if time_plain else (fn(), None)
+
+    stack, lz = logz_cuda.tcn_forward(moves, blank)
+    (ref_stack, ref_lz), plain_ms = plain_time(
+        lambda: logz.forward_plain(moves, blank))
+    e1, ok1 = f32_close(stack, ref_stack)
+    e2, ok2 = f32_close(lz, ref_lz)
+    _, lz_only = logz_cuda.tcn_forward(moves, blank, with_stack=False)
+    res["U"] = dict(err=max(e1, e2), ok=ok1 and ok2 and torch.equal(
+        lz, lz_only), plain_ms=plain_ms, ms=cuda_ms(
+        lambda: logz_cuda.tcn_forward(moves, blank), reps=3),
+        bytes=moves.numel() * moves.element_size() + stack.numel() * 4
+        + N * 4, bytes_no_stack=moves.numel() * moves.element_size() + N * 4,
+        ops=30 * N * T * S)
+    ms_u_only = cuda_ms(lambda: logz_cuda.tcn_forward(
+        moves, blank, with_stack=False), reps=3)
+    grad = logz_cuda.tcn_backward(moves, stack, lz, g, blank)
+    ref, plain_ms = plain_time(lambda: logz.backward_plain(
+        moves, blank, ref_stack, ref_lz, g, out_dtype=moves.dtype)[0])
+    err, ok, _ = grad_close(torch, grad, ref)
+    res["V"] = dict(err=err, ok=ok, plain_ms=plain_ms, ms=cuda_ms(
+        lambda: logz_cuda.tcn_backward(moves, stack, lz, g, blank), reps=3),
+        bytes=2 * moves.numel() * moves.element_size() + stack.numel() * 4
+        + N * 8, ops=54 * N * T * S)
+    del stack, ref_stack, grad, ref
+
+    stack, lz = logz_cuda.full_forward(scores)
+    (ref_stack, ref_lz), plain_ms = plain_time(
+        lambda: logz.full_forward_plain(scores))
+    e1, ok1 = f32_close(stack, ref_stack)
+    e2, ok2 = f32_close(lz, ref_lz)
+    res["W"] = dict(err=max(e1, e2), ok=ok1 and ok2, plain_ms=plain_ms,
+                    ms=cuda_ms(lambda: logz_cuda.full_forward(scores), reps=3),
+                    bytes=scores.numel() * scores.element_size()
+                    + stack.numel() * 4 + N * 4, ops=32 * N * T * S)
+    grad = logz_cuda.full_backward(scores, stack, lz, g)
+    ref, plain_ms = plain_time(lambda: logz.full_backward_plain(
+        scores, ref_stack, ref_lz, g, out_dtype=scores.dtype))
+    err, ok, _ = grad_close(torch, grad, ref)
+    res["X"] = dict(err=err, ok=ok, plain_ms=plain_ms, ms=cuda_ms(
+        lambda: logz_cuda.full_backward(scores, stack, lz, g), reps=3),
+        bytes=2 * scores.numel() * scores.element_size() + stack.numel() * 4
+        + N * 8, ops=60 * N * T * S)
+    del stack, ref_stack, grad, ref
+
+    stack, lz = lattice_cuda.lattice_forward(move, lengths, blank)
+    (ref_stack, ref_lz), plain_ms = plain_time(
+        lambda: lattice.forward_plain(move, lengths, blank))
+    e1, ok1 = f32_close(stack, ref_stack)
+    e2, ok2 = f32_close(lz, ref_lz)
+    res["Y"] = dict(err=max(e1, e2), ok=ok1 and ok2, plain_ms=plain_ms,
+                    ms=cuda_ms(lambda: lattice_cuda.lattice_forward(
+                        move, lengths, blank), reps=3),
+                    bytes=move.numel() * 4 + stack.numel() * 4 + N * 8,
+                    ops=8 * N * T * P)
+    gz, sg = lattice.cotangent(g_lat, lz)
+    dmove = lattice_cuda.lattice_backward(move, stack, lengths, gz, sg, blank)
+    ref, plain_ms = plain_time(lambda: lattice.backward_plain(
+        move, ref_stack, lengths, gz, sg, blank))
+    err, ok = f32_close(dmove, ref)
+    res["Z"] = dict(err=err, ok=ok and bool(torch.isfinite(dmove).all()),
+                    plain_ms=plain_ms, ms=cuda_ms(
+        lambda: lattice_cuda.lattice_backward(move, stack, lengths, gz, sg,
+                                              blank), reps=3),
+        bytes=2 * move.numel() * 4 + stack.numel() * 4 + N * 12,
+        ops=14 * N * T * P)
+    return res, ms_u_only
+
+
+def random_loss_inputs(torch, dev, N, T, S, L, seed):
+    """Moves [N, T, 4S] bf16 (tanh x 5, as a head gives them), full scores
+    [N, T, 5S] f32, lattice moves [N, T, P-1] f32 and lengths from P/2 to
+    P, the cotangents of logZ and of the lattice."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = L + 1 - round(math.log(S, 4))  # L - (state_len - 1)
+    moves = (5 * torch.tanh(torch.randn(N, T, 4 * S, device=dev,
+                                        generator=g))).to(torch.bfloat16)
+    scores = 2 * torch.randn(N, T, 5 * S, device=dev, generator=g)
+    move = 2 * torch.randn(N, T, P - 1, device=dev, generator=g)
+    lengths = torch.randint(P // 2, P + 1, (N,), device=dev, generator=g,
+                            dtype=torch.int32)
+    g_row = 1.0 / (lengths.float() * N)
+    return moves, scores, move, lengths, g_row, -g_row
+
+
+def train_loss_phase(torch, hac, counters, dev):
+    """Phase 9: the training loss on the hac model ``hac`` (bf16,
+    quantize=false) through ``loss_tcn`` and ``loss`` with their backward,
+    and under no_grad, each path with the launch counts ``counters`` set to
+    0 before it and read after it and held against the plain versions;
+    then each of U to Z alone at hac, fast and sup training shapes."""
+    from bonito_tpu_torch.ops import lattice as ops_lattice
+    from bonito_tpu_torch.ops import lattice_cuda, logz_cuda
+    from bonito_tpu_torch.ops import logz as ops_logz
+
+    log(f"[9] the CRF training loss at hac training width (batch {TRAIN_N} "
+        f"x chunk {TRAIN_CHUNK}, bf16, quantize=false; targets of "
+        f"{TRAIN_L // 2} to {TRAIN_L} bases), kernels U to Z")
+    loss_mods = (ops_logz, logz_cuda, ops_lattice, lattice_cuda)
+    sd = hac.seqdist
+    rng = np.random.default_rng(SEED)
+    x_train = torch.from_numpy(rng.normal(size=(TRAIN_N, TRAIN_CHUNK, 1))
+                               .astype(np.float32)).to(dev, torch.bfloat16)
+    t_lengths = rng.integers(TRAIN_L // 2, TRAIN_L + 1, TRAIN_N)
+    targets = rng.integers(1, 5, (TRAIN_N, TRAIN_L))
+    targets[np.arange(TRAIN_L)[None] >= t_lengths[:, None]] = 0
+    targets = torch.from_numpy(targets).to(dev)
+    t_lengths = torch.from_numpy(t_lengths).to(dev)
+    # the cotangent of each row's logZ in the mean loss: 1 / (length x rows)
+    g_row = 1.0 / (t_lengths.float() * TRAIN_N)
+
+    def train_step():
+        with torch.no_grad():
+            moves, blank = hac.forward_tcn(x_train)
+        mv = moves.detach().requires_grad_()
+        loss = hac.loss_tcn(mv, blank, targets, t_lengths)
+        loss.backward()
+        return loss.detach(), mv, blank
+
+    def loss_step():
+        with torch.no_grad():
+            scores = hac(x_train)
+        sc = scores.detach().requires_grad_()
+        loss = hac.loss(sc, targets, t_lengths)
+        loss.backward()
+        return loss.detach(), sc
+
+    def valid_step():
+        with torch.no_grad():
+            moves, blank = hac.forward_tcn(x_train)
+            return hac.loss_tcn(moves, blank, targets, t_lengths)
+
+    loss_paths = {}
+    (train_loss, mv, train_blank), n, mem = loss_path(torch, counters,
+                                                      train_step)
+    loss_paths["train_loss"] = (n, mem)
+    (full_loss, sc), n, mem = loss_path(torch, counters, loss_step)
+    loss_paths["loss"] = (n, mem)
+    valid_loss, n, mem = loss_path(torch, counters, valid_step)
+    loss_paths["valid_loss"] = (n, mem)
+    own_loss = {"train_loss": {"A": 5, "U": 1, "V": 1, "Y": 1, "Z": 1},
+                "loss": {"A": 5, "W": 1, "X": 1},
+                "valid_loss": {"A": 5, "U": 1, "Y": 1}}
+    for name, (n, _) in loss_paths.items():
+        expect = {k: own_loss[name].get(k, 0) for k in counters}
+        require(n == expect, f"{name}: launches {n}, expected {expect}")
+
+    # each path's loss + backward alone (the encoder's forward outside the
+    # time), and the same on the plain versions in the kernels' place
+    moves_d = mv.detach()
+    sc_d = sc.detach()
+
+    def tcn_loss(m):
+        m = m.detach().requires_grad_()
+        hac.loss_tcn(m, train_blank, targets, t_lengths).backward()
+        return m.grad
+
+    def full_loss_grad(scores):
+        scores = scores.detach().requires_grad_()
+        hac.loss(scores, targets, t_lengths).backward()
+        return scores.grad
+
+    def plain_path(fn, arg):
+        with plain_loss_kernels(*loss_mods):
+            with torch.enable_grad():
+                a = arg.detach().requires_grad_()
+                loss = fn(a)
+                loss.backward()
+        return loss.detach(), a.grad
+
+    ms_train = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
+    ms_full = cuda_ms(lambda: full_loss_grad(sc_d), reps=2)
+    with torch.no_grad():
+        ms_valid = cuda_ms(lambda: hac.loss_tcn(moves_d, train_blank, targets,
+                                                t_lengths), reps=3)
+    plain_train, plain_g = plain_path(
+        lambda m: hac.loss_tcn(m, train_blank, targets, t_lengths), moves_d)
+    plain_full, plain_gs = plain_path(
+        lambda s_: hac.loss(s_, targets, t_lengths), sc_d)
+    checks = {}
+    for name, loss, grad, ploss, pgrad, row_dim in (
+            ("train_loss", train_loss, mv.grad, plain_train, plain_g, 2),
+            ("loss", full_loss, sc.grad, plain_full, plain_gs, 0)):
+        err_l, ok_l = f32_close(loss, ploss)
+        err_g, ok_g, equal = grad_close(torch, grad, pgrad, g_row, row_dim)
+        finite = bool(torch.isfinite(grad.float()).all()) and bool(
+            torch.isfinite(loss))
+        checks[name] = ok_l and ok_g and finite
+        log(f"  {name}: loss {loss.item():.7g} (plain versions "
+            f"{ploss.item():.7g}, |diff| {err_l:.3g}); gradient "
+            f"{tuple(grad.shape)} {str(grad.dtype)[6:]} vs the plain "
+            f"versions' max |diff| {err_g:.3g}, {equal:.5f} equal; finite "
+            f"{finite}")
+    err_v, ok_v = f32_close(valid_loss, train_loss)
+    checks["valid_loss"] = ok_v
+    for name, value, ms, what in (
+            ("train_loss", train_loss, ms_train, "forward + backward"),
+            ("loss", full_loss, ms_full, "forward + backward"),
+            ("valid_loss", valid_loss, ms_valid, "forward")):
+        n, mem = loss_paths[name]
+        log(f"  {name} path: loss {value.item():.7g}; the loss's {what} "
+            f"{ms:.4g} ms = {TRAIN_N * TRAIN_CHUNK / ms * 1e3:.6g} "
+            f"train-loss samples/s; peak memory {mem:.3f} GiB above what "
+            f"was held; launches {({k: v for k, v in n.items() if v})}")
+    log(f"  valid_loss (no_grad: U and Y without their stacks) vs "
+        f"train_loss: |diff| {err_v:.3g}")
+    for name, ok in checks.items():
+        require(ok, f"{name}: the kernels disagree with the plain versions")
+    del plain_g, plain_gs
+
+    # the kernels alone: at hac on the path's own tensors, at fast and sup
+    # training shapes on random ones
+    lat_lengths = (t_lengths + 1 - sd.state_len).int()
+    held = hold_loss_kernels(
+        torch, loss_mods, moves_d.permute(2, 0, 1).contiguous(), train_blank,
+        sc_d.float(), sd.prepare_ctc_moves_tcn(moves_d, targets),
+        lat_lengths, g_row, -g_row, time_plain=True)
+    loss_k, ms_u_only = held
+    del mv, sc, moves_d, sc_d
+    loss_more = {}
+    for shape in ("fast", "sup"):
+        N_, T_, S_, L_ = LOSS_SHAPES[shape]
+        inputs = random_loss_inputs(torch, dev, N_, T_, S_, L_, SEED)
+        res, _ = hold_loss_kernels(torch, loss_mods, inputs[0], 2.0,
+                                   *inputs[1:], time_plain=False)
+        del inputs
+        for key, r in res.items():
+            loss_more.setdefault(key, {})[f"{shape}_shape_ms"] = r["ms"]
+            loss_more[key][f"{shape}_shape_max_abs_err"] = r["err"]
+            require(r["ok"], f"kernel {key} at {shape} training shapes "
+                             f"disagrees with its plain version")
+        log(f"  at {shape} training shapes (N {N_}, T {T_}, S {S_}, L "
+            f"{L_}): " + ", ".join(f"{k} {r['ms']:.4g} ms (max |diff| "
+                                  f"{r['err']:.3g})" for k, r in res.items()))
+    for key, r in loss_k.items():
+        require(r["ok"], f"kernel {key} at hac training shapes disagrees "
+                         f"with its plain version")
+        r["bound"] = bound(r["bytes"], r["ops"], H100_F32_OPS)
+    bound_u_only = bound(loss_k["U"]["bytes_no_stack"], loss_k["U"]["ops"],
+                         H100_F32_OPS)
+    log("  at hac training shapes: " + ", ".join(
+        f"{k} {r['ms']:.4g} ms (plain {r['plain_ms']:.4g}, bound "
+        f"{r['bound'][0]:.4g} by {r['bound'][1]}, max |diff| {r['err']:.3g})"
+        for k, r in loss_k.items()) + f"; U without its stack "
+        f"{ms_u_only:.4g} ms (bound {bound_u_only[0]:.4g})")
+    return loss_paths, loss_k, loss_more, ms_u_only, bound_u_only
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -771,7 +1151,8 @@ def main():
                                          transformer_crf_config)
     from bonito_tpu_torch.ops import (attention_cuda, build, decode_cuda,
                                       decode_full_cuda, decode_fused_cuda,
-                                      int8, lstm_cuda, lstm_fused_cuda,
+                                      int8, lattice_cuda, logz_cuda,
+                                      lstm_cuda, lstm_fused_cuda,
                                       lstm_int8_cuda, relayout)
     from bonito_tpu_torch.ops import decode as ops_decode
     from bonito_tpu_torch.ops import lstm as ops_lstm
@@ -867,7 +1248,11 @@ def main():
                 "L": attention_cuda.local_attention,
                 "P": relayout.pin_layout,
                 "M": decode_full_cuda.full_forward,
-                "Q": decode_full_cuda.full_backward}
+                "Q": decode_full_cuda.full_backward,
+                "U": logz_cuda.tcn_forward, "V": logz_cuda.tcn_backward,
+                "W": logz_cuda.full_forward, "X": logz_cuda.full_backward,
+                "Y": lattice_cuda.lattice_forward,
+                "Z": lattice_cuda.lattice_backward}
     models = {
         name: load_model(dirs[src], half=True, fuse_bn=True, quantize=None,
                          device="cuda", **kw)
@@ -1512,6 +1897,9 @@ def main():
             f"{dec[0][0]} {dec[0][1]:.4g} ms + {dec[1][0]} {dec[1][1]:.4g} ms "
             f"= {kernels_ms:.4g} ms of the {step:.4g} ms device step; the "
             f"rest {step - kernels_ms:.4g} ms")
+    loss_paths, loss_k, loss_more, ms_u_only, bound_u_only = (
+        train_loss_phase(torch, models["bf16"], counters, dev))
+
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
     src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
@@ -1583,6 +1971,39 @@ def main():
             **more.get(key, {})})
         log(f"  {name}: {ms:.4g} ms (plain {plain:.4g} ms, bound {bms:.4g} ms "
             f"by {by}), {n} launches on the {path} path")
+    # the loss kernels: launches on the path that is each one's own (U, V,
+    # Y, Z: train_loss; W, X: loss); no library call computes a CRF
+    # partition function or this lattice (torch.nn.functional.ctc_loss is
+    # another function: interleaved blanks, a softmax per frame)
+    src_logz = "bonito_tpu_torch/csrc/logz.cu"
+    src_lat = "bonito_tpu_torch/csrc/lattice.cu"
+    for name, key, path, src, rep in (
+            ("logz_tcn_fwd", "U", "train_loss", src_logz,
+             "bonito_tpu/ops/logz_pallas.py:246"),
+            ("logz_tcn_bwd", "V", "train_loss", src_logz,
+             "bonito_tpu/ops/logz_pallas.py:293"),
+            ("logz_full_fwd", "W", "loss", src_logz,
+             "bonito_tpu/ops/logz_pallas.py:28"),
+            ("logz_full_bwd", "X", "loss", src_logz,
+             "bonito_tpu/ops/logz_pallas.py:82"),
+            ("lattice_fwd", "Y", "train_loss", src_lat,
+             "bonito_tpu/ops/lattice_pallas.py:54"),
+            ("lattice_bwd", "Z", "train_loss", src_lat,
+             "bonito_tpu/ops/lattice_pallas.py:78")):
+        r = loss_k[key]
+        n = loss_paths[path][0][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": n, "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None,
+            "by_path": {p: v[0][key] for p, v in loss_paths.items()},
+            **loss_more[key],
+            **({"no_stack_ms": ms_u_only, "no_stack_bound_ms":
+                bound_u_only[0]} if key == "U" else {})})
+        log(f"  {name}: {r['ms']:.4g} ms (plain {r['plain_ms']:.4g} ms, "
+            f"bound {r['bound'][0]:.4g} ms by {r['bound'][1]}), {n} launches "
+            f"on the {path} path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ from bonito_tpu_torch.crf.seqdist import CTC_CRF
 from bonito_tpu_torch.models import lstm_crf_config
 from bonito_tpu_torch.ops import (attention, attention_cuda, decode,
                                   decode_cuda, decode_full_cuda,
-                                  decode_fused_cuda, int8, lstm_cuda,
+                                  decode_fused_cuda, int8, lattice,
+                                  lattice_cuda, logz, logz_cuda, lstm_cuda,
                                   lstm_fused_cuda, lstm_int8_cuda, relayout)
 from bonito_tpu_torch.ops.lstm import lstm, lstm_int8
 
@@ -487,3 +488,140 @@ def test_pin_layout_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="bytes"):
         relayout.pin_layout(torch.zeros(4, 4, device=cuda,
                                         dtype=torch.complex128))
+
+
+def _grad_close(out, ref, min_equal=0.99):
+    """Each entry within one bf16 step of its magnitude (another f32 sum
+    order can round to the neighbouring bf16 value); most equal."""
+    out, ref = out.float(), ref.float()
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    assert bool(((out - ref).abs() <= step).all())
+    assert (out == ref).float().mean().item() >= min_equal
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("state_len,N,T", [(3, 8, 30), (5, 3, 12),
+                                           (2, 5, 9)])
+def test_logz_kernels_match_plain(cuda, state_len, N, T, dtype, round_bf16,
+                                  full):
+    """U + V (TCN moves, constant stay) and W + X (full scores): the alpha
+    stack and logZ, the forward-only variant, and the gradient in bf16 or
+    f32, rounded to bf16 first or not."""
+    S = 4 ** state_len
+    g = torch.Generator().manual_seed(S + N + T)
+    scores = (3 * torch.randn(N, T, (5 if full else 4) * S, generator=g)).to(
+        cuda, dtype)
+    cot = torch.linspace(-1.5, 2.0, N, device=cuda)
+    if full:
+        fwd, bwd = logz_cuda.full_forward, logz_cuda.full_backward
+        ref_fwd, ref_bwd = logz.full_forward_plain, logz.full_backward_plain
+        args = ()
+    else:
+        fwd, bwd = logz_cuda.tcn_forward, logz_cuda.tcn_backward
+        ref_fwd = lambda s, r, w: logz.forward_plain(s, 1.5, r, w)
+        ref_bwd = lambda s, *a, **k: logz.backward_plain(s, 1.5, *a, **k)[0]
+        args = (1.5,)
+    before = (fwd.launches, bwd.launches)
+    stack, lz = fwd(scores, *args, round_bf16=round_bf16)
+    _, lz_only = fwd(scores, *args, round_bf16=round_bf16, with_stack=False)
+    grad = bwd(scores, stack, lz, cot, *args, round_bf16=round_bf16)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 1)
+    ref_stack, ref_lz = ref_fwd(scores, round_bf16, True)
+    torch.testing.assert_close(stack, ref_stack, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(lz, ref_lz, rtol=1e-6, atol=1e-4)
+    assert torch.equal(lz, lz_only)
+    ref = ref_bwd(scores, ref_stack, ref_lz, cot, round_bf16=round_bf16,
+                  out_dtype=dtype)
+    assert grad.dtype == dtype and grad.shape == scores.shape
+    if round_bf16 or dtype == torch.bfloat16:
+        _grad_close(grad, ref)
+    else:
+        torch.testing.assert_close(grad, ref, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("P,N,T", [(13, 8, 24), (37, 5, 40), (1100, 3, 20),
+                                   (1, 4, 6)])
+def test_lattice_kernels_match_plain(cuda, P, N, T):
+    """Y + Z: P not a multiple of 32, above 1024 and 1; rows of length 0
+    and -1 (a target shorter than state_len), a zero cotangent; the
+    forward without its stack."""
+    g = torch.Generator().manual_seed(P + N)
+    move = torch.randn(N, T, P - 1, generator=g).to(cuda)
+    lengths = torch.tensor([P, 0, -1, max(P // 2, 1), P, 1, 3, P][:N],
+                           dtype=torch.int32, device=cuda)
+    cot = torch.tensor([1.0, 0.0, 0.0, -2.0, 0.5, 3.0, 1.0, 2.0][:N],
+                       device=cuda)
+    before = (lattice_cuda.lattice_forward.launches,
+              lattice_cuda.lattice_backward.launches)
+    stack, lz = lattice_cuda.lattice_forward(move, lengths, 2.0)
+    _, lz_only = lattice_cuda.lattice_forward(move, lengths, 2.0,
+                                              with_stack=False)
+    gz, sg = lattice.cotangent(cot, lz)
+    dmove = lattice_cuda.lattice_backward(move, stack, lengths, gz, sg, 2.0)
+    torch.cuda.synchronize()
+    assert (lattice_cuda.lattice_forward.launches,
+            lattice_cuda.lattice_backward.launches) == (before[0] + 2,
+                                                        before[1] + 1)
+    ref_stack, ref_lz = lattice.forward_plain(move, lengths, 2.0)
+    torch.testing.assert_close(stack, ref_stack, rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(lz, ref_lz, rtol=1e-6, atol=1e-4)
+    assert torch.equal(lz, lz_only)
+    assert lz[1].item() == 0 and lz[2].item() == 0
+    ref = lattice.backward_plain(move, ref_stack, lengths, gz, sg, 2.0)
+    torch.testing.assert_close(dmove, ref, rtol=1e-5, atol=1e-7)
+    assert bool(torch.isfinite(dmove).all()) and not dmove[1:3].any()
+
+
+def test_loss_launches_its_kernels(cuda):
+    """loss_tcn with its backward runs U, V, Y and Z once each; under
+    no_grad U and Y without their stacks; loss runs W and X."""
+    sd = CTC_CRF(3, "NACGT")
+    N, T, S, L = 8, 40, 64, 20
+    g = torch.Generator().manual_seed(3)
+    moves = (2 * torch.randn(N, T, 4 * S, generator=g)).to(
+        cuda, torch.bfloat16)
+    targets = torch.randint(1, 5, (N, L), generator=g)
+    lengths = torch.randint(10, L + 1, (N,), generator=g)
+    kernels = (logz_cuda.tcn_forward, logz_cuda.tcn_backward,
+               lattice_cuda.lattice_forward, lattice_cuda.lattice_backward,
+               logz_cuda.full_forward, logz_cuda.full_backward)
+    for k in kernels:
+        k.launches = 0
+    mv = moves.permute(1, 2, 0).detach().requires_grad_()
+    loss = sd.ctc_loss_tcn(mv, 2.0, targets, lengths)
+    loss.backward()
+    assert mv.grad.dtype == torch.bfloat16 and mv.grad.stride() == mv.stride()
+    with torch.no_grad():
+        valid = sd.ctc_loss_tcn(mv, 2.0, targets, lengths)
+    torch.testing.assert_close(valid, loss.detach(), rtol=0, atol=0)
+    scores = torch.randn(N, T, 5 * S, generator=g).to(cuda).requires_grad_()
+    sd.ctc_loss(scores, targets, lengths).backward()
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [2, 1, 2, 1, 1, 1]
+    assert bool(torch.isfinite(scores.grad).all())
+
+
+def test_loss_kernels_reject_what_they_do_not_take(cuda):
+    before = (logz_cuda.tcn_forward.launches,
+              lattice_cuda.lattice_forward.launches)
+    three = CTC_CRF(3, "NACG")  # n_base 3
+    with pytest.raises(ValueError, match="no kernel"):
+        three.logZ_tcn(torch.zeros(4, 27 * 3, 8, device=cuda), 2.0)
+    big = CTC_CRF(6, "NACGT")   # 4096 states
+    with pytest.raises(ValueError, match="no kernel"):
+        big.logZ(torch.zeros(8, 2, 5 * 4096, device=cuda))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        logz_cuda.tcn_forward(torch.zeros(2, 3, 256, device=cuda,
+                                          dtype=torch.float16), 2.0)
+    with pytest.raises(ValueError, match="f32 moves"):
+        lattice_cuda.lattice_forward(
+            torch.zeros(2, 3, 4, device=cuda, dtype=torch.bfloat16),
+            torch.ones(2, dtype=torch.int32, device=cuda), 2.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lattice_cuda.lattice_forward(torch.zeros(2, 3, 4),
+                                     torch.ones(2, dtype=torch.int32), 2.0)
+    assert (logz_cuda.tcn_forward.launches,
+            lattice_cuda.lattice_forward.launches) == before

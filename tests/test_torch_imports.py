@@ -48,6 +48,8 @@ def test_importing_the_port_loads_no_jax():
             "bonito_tpu_torch.ops.relayout",
             "bonito_tpu_torch.ops.decode_full_cuda",
             "bonito_tpu_torch.ops.beam_device",
+            "bonito_tpu_torch.ops.logz_cuda",
+            "bonito_tpu_torch.ops.lattice_cuda",
             "bonito_tpu_torch.transformer.model"} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "from bonito_tpu_torch.ops import build; "
