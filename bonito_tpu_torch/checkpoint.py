@@ -8,7 +8,8 @@ bonito_tpu keys are the port's ``state_dict`` keys (``encoder.4.w_hh``,
 ``encoder.upsample.w``, ``encoder.crf.w``). One layout differs: a conv
 weight is [W, I, O] in bonito_tpu and [O, I, W] here; linear weights are
 [in, out] in both. Param-less layers (Permute, Clamp) have no entry.
-Importing upstream ``weights_N.tar`` waits.
+Importing upstream ``weights_N.tar`` waits. A training run also writes
+the optimiser's state, in the port's own ``optim_N.pt``.
 
 Checkpoints on disk hold the float tree only: quantisation happens at
 load (``util.load_model``), as in bonito_tpu. ``params_from_jax`` also
@@ -17,6 +18,8 @@ takes an already-quantised bonito_tpu tree (``w_hh_q``/``scales``/
 ``w_q``/``w_s`` beside a CRF head's ``w``) and puts the model's layers
 into that form.
 """
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -103,3 +106,24 @@ def save_params(path, model):
             value = value.transpose(2, 1, 0)
         flat[key] = np.ascontiguousarray(value)
     np.savez(path, **flat)
+
+
+def save_checkpoint(workdir, epoch, model, optim_state=None):
+    """``weights_{epoch}.npz`` in ``workdir`` (bonito_tpu's key format: it
+    loads there with ``checkpoint.load_params``), and ``optim_{epoch}.pt``
+    with the optimiser's state when one is given. The port keeps its own
+    optimiser file: bonito_tpu's ``optim_{epoch}.pkl`` pickles optax state,
+    which neither side reads from the other."""
+    workdir = Path(workdir)
+    save_params(workdir / f"weights_{epoch}.npz", model)
+    if optim_state is not None:
+        torch.save(optim_state, workdir / f"optim_{epoch}.pt")
+
+
+def load_optim_state(workdir, epoch):
+    """The optimiser state ``save_checkpoint`` wrote for ``epoch``, or
+    None."""
+    path = Path(workdir) / f"optim_{epoch}.pt"
+    if not path.exists():
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)

@@ -1,0 +1,44 @@
+"""
+Command line of the port: ``python -m bonito_tpu_torch <subcommand>``,
+with bonito_tpu's subcommands. ``train`` is ported; each other one raises,
+naming the ROADMAP item that ports it.
+"""
+
+import sys
+from argparse import REMAINDER, ArgumentParser
+from importlib import import_module
+
+# subcommand -> the ROADMAP item (Queue 1) that ports it
+WAITING = {
+    "basecaller": "Queue 1 item 9 (the basecaller CLI and the readers)",
+    "evaluate": "Queue 1 item 11 (other CLI tools)",
+    "view": "Queue 1 item 11 (other CLI tools)",
+    "download": "Queue 1 item 11 (other CLI tools)",
+    "export": "Queue 1 item 11 (other CLI tools)",
+    "duplex": "Queue 1 item 11 (other CLI tools)",
+}
+
+
+def _waiting(args):
+    raise NotImplementedError(
+        f"bonito_tpu_torch {args.command} is not ported yet: "
+        f"{WAITING[args.command]}")
+
+
+def main(argv=None):
+    from bonito_tpu_torch import __version__
+    parser = ArgumentParser(prog="bonito_tpu_torch",
+                            description="bonito_tpu on PyTorch and CUDA")
+    parser.add_argument("-v", "--version", action="version",
+                        version="%(prog)s " + __version__)
+    subparsers = parser.add_subparsers(title="subcommands", dest="command",
+                                       required=True)
+    train = import_module("bonito_tpu_torch.cli.train")
+    sub = subparsers.add_parser("train", parents=[train.argparser()])
+    sub.set_defaults(func=train.main)
+    for name in WAITING:
+        sub = subparsers.add_parser(name, add_help=False)
+        sub.add_argument("rest", nargs=REMAINDER)
+        sub.set_defaults(func=_waiting)
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    args.func(args)

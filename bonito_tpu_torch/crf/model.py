@@ -43,6 +43,7 @@ class SeqdistModel(torch.nn.Module):
         self.alphabet = seqdist.alphabet
         self.compute_dtype = torch.float32
         self._perm = {}
+        self.training = False  # inference until .train(), as its layers
         if n_pre_post_context_bases is None:
             n_pre_post_context_bases = (seqdist.state_len - 1, 1)
         self.n_pre_context_bases, self.n_post_context_bases = (
@@ -206,7 +207,12 @@ class SeqdistModel(torch.nn.Module):
         h = x
         for _, layer in items:
             h = layer(h)
-        moves = crf.head(h, self._tcn_perm(h.device), self.compute_dtype)
+        # a float h keeps its dtype through the head (the bf16 input of an
+        # amp train step gives bf16 moves, as bonito_tpu's cast tree does);
+        # an int8 h from a quantised chain gives the compute dtype
+        moves = crf.head(h, self._tcn_perm(h.device),
+                         self.compute_dtype if h.dtype == torch.int8
+                         else h.dtype)
         blank = float(crf.blank_score)
         if clamp is not None:
             moves = clamp[1](moves)

@@ -137,3 +137,14 @@ MODELS = {
     "rna004_130bps_sup@v5.0": lambda: transformer_crf_config(
         sample_rate=4000),
 }
+
+
+def get_config(name):
+    """The config dict of a ``MODELS`` entry; an unknown name raises (the
+    old-style configs, such as the train CLI's default ``dna_r9.4.1@v3.1``,
+    wait for ROADMAP Queue 1 item 8)."""
+    try:
+        return MODELS[name]()
+    except KeyError:
+        raise KeyError(
+            f"unknown model {name!r}; available: {sorted(MODELS)}") from None

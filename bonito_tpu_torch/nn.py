@@ -9,7 +9,11 @@ bonito_tpu's (and upstream bonito's) ``config.toml`` files name.
   dot-keyed bonito_tpu checkpoint maps onto ``state_dict`` keys; only
   the conv weight changes layout ([W, I, O] there, [O, I, W] here — the
   converter in ``checkpoint.py`` transposes it).
-- Inference only: BatchNorm uses its running statistics.
+- A layer starts in inference mode (``training`` False), as bonito_tpu's
+  ``apply`` without a train context; ``.train()`` switches a model to what
+  its train step runs: BatchNorm on batch statistics with a pending
+  running-stat update, and a float LSTM through ``ops.lstm.lstm_train``
+  (kernels R and S on the card).
 
 - ``LSTM.quantize_params`` and ``LinearCRFEncoder.quantize_head_params``
   give the int8 forms of bonito_tpu's quantised parameter tree (the same
@@ -28,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from bonito_tpu_torch.ops import int8
-from bonito_tpu_torch.ops.lstm import lstm, lstm_int8
+from bonito_tpu_torch.ops.lstm import lstm, lstm_int8, lstm_train
 from bonito_tpu_torch.ops.relayout import pin_layout
 
 layers = {}
@@ -69,7 +73,12 @@ def from_dict(model_dict, layer_types=None):
 
 
 class Layer(torch.nn.Module):
-    """Architecture node: a module with a config round-trip."""
+    """Architecture node: a module with a config round-trip, in inference
+    mode until ``.train()``."""
+
+    def __init__(self):
+        super().__init__()
+        self.training = False
 
     def to_dict(self):
         return {}
@@ -246,15 +255,22 @@ class Clamp(Layer):
 
 @register
 class BatchNorm(Layer):
-    """Inference BatchNorm over the channels of [N, T, C] activations.
-    mean/var stay f32 under ``to_bf16``."""
+    """BatchNorm over the channels of [N, T, C] activations. mean/var stay
+    f32 under ``to_bf16``.
+
+    In training (and always without ``track_running_stats``) it normalises
+    by the batch's mean and (biased) variance over (N, T), computed in f32
+    and rounded to x's dtype as bonito_tpu's ``jnp.mean``/``jnp.var`` are.
+    The running statistics do not change in the forward: it leaves
+    ``pending``, bonito_tpu's update ``(1 - m) * running + m * batch`` (the
+    unbiased variance) from the running statistics as they stand, and the
+    train step writes it with ``apply_pending`` after the optimiser step,
+    so that under grad accumulation the last microbatch's update is the one
+    kept, as in bonito_tpu (``training.py:148-168``)."""
 
     def __init__(self, num_features, eps=1e-05, momentum=0.1, affine=True,
                  track_running_stats=True):
         super().__init__()
-        if not track_running_stats:
-            raise NotImplementedError(
-                "batch-statistics BatchNorm waits for the training slice")
         self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
@@ -263,15 +279,36 @@ class BatchNorm(Layer):
         if affine:
             self.scale = torch.nn.Parameter(torch.ones(num_features))
             self.bias = torch.nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("mean", torch.zeros(num_features))
-        self.register_buffer("var", torch.ones(num_features))
+        if track_running_stats:
+            self.register_buffer("mean", torch.zeros(num_features))
+            self.register_buffer("var", torch.ones(num_features))
+        self.pending = None
 
     def forward(self, x):
-        inv = torch.rsqrt(self.var.float() + self.eps).to(x.dtype)
-        y = (x - self.mean.to(x.dtype)) * inv
+        if self.training or not self.track_running_stats:
+            xf = x.float()
+            mean = xf.mean((0, 1)).to(x.dtype)
+            var = xf.var((0, 1), unbiased=False).to(x.dtype)
+            if self.training and self.track_running_stats:
+                m, n = self.momentum, x.shape[0] * x.shape[1]
+                unbiased = (var * n / max(n - 1, 1)).detach()
+                self.pending = ((1 - m) * self.mean + m * mean.detach(),
+                                (1 - m) * self.var + m * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt((var + self.eps).float()).to(x.dtype)
+        y = (x - mean.to(x.dtype)) * inv
         if self.affine:
             y = y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
         return y
+
+    def apply_pending(self):
+        """Write the running-stat update of the last training forward."""
+        if self.pending is not None:
+            with torch.no_grad():
+                self.mean.copy_(self.pending[0])
+                self.var.copy_(self.pending[1])
+            self.pending = None
 
     def to_dict(self):
         return {"num_features": self.num_features, "eps": self.eps,
@@ -349,7 +386,9 @@ class LSTM(Layer):
     [1, 4H] f32, and ``b`` in f32, all buffers — and runs
     ``ops.lstm.lstm_int8`` on ``int8_route`` (None: the shape gate's
     choice). ``int8_out`` makes the fused route emit ``round(h * 127)``
-    int8 for a quantised consumer."""
+    int8 for a quantised consumer. In training a float layer runs
+    ``ops.lstm.lstm_train`` (kernels R and S) whatever its H; a quantised
+    one keeps its int8 route, as in bonito_tpu."""
 
     def __init__(self, size, insize, bias=True, reverse=False):
         super().__init__()
@@ -376,6 +415,9 @@ class LSTM(Layer):
                              reverse=self.reverse, w_ih_q=self.w_ih_q,
                              ih_scales=self.ih_scales,
                              out_int8=self.int8_out, route=self.int8_route)
+        if self.training:
+            return lstm_train(x, self.w_ih, self.w_hh, self.b,
+                              reverse=self.reverse)
         return lstm(x, self.w_ih, self.w_hh, self.b, reverse=self.reverse)
 
     def set_quantized(self, w_hh_q, scales, w_ih_q, ih_scales):
@@ -606,7 +648,8 @@ def fuse_bn(layer):
     """Fold every Convolution's BatchNorm into its weights, in f64 before
     any cast, and drop the norm from the tree."""
     for sub in list(layer.modules()):
-        if isinstance(sub, Convolution) and isinstance(sub.norm, BatchNorm):
+        if (isinstance(sub, Convolution) and isinstance(sub.norm, BatchNorm)
+                and sub.norm.track_running_stats):  # else nothing to fold
             bn = sub.norm
             inv = 1.0 / np.sqrt(bn.var.detach().cpu().double().numpy() + bn.eps)
             gamma = (bn.scale.detach().cpu().numpy() if bn.affine

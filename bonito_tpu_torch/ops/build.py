@@ -85,6 +85,12 @@ SIGNATURES = {
     # move, stack, lengths, log|g| - logz, sign(g), dmove, N, T, P, blank,
     # stream
     "lattice_bwd": [P, P, P, P, P, P, I, I, I, F, P],
+    # xw, w_hh, h, c, acts, hbuf, cbuf, is_f32, round_bf16, T, N, Np, H,
+    # reverse, stream
+    "lstm_train_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # w_hh, acts, c, g_h, dgates, dgbuf, dcbuf, is_f32, round_bf16, T, N, Np,
+    # H, reverse, stream
+    "lstm_train_bwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 }
 
 ptxas_report = ""  # nvcc -Xptxas -v output of the library's build

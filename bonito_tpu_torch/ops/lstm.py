@@ -30,6 +30,12 @@ the same route runs on the CPU (plain versions) and on the card (kernels):
   input (every layer of a quantised fast model), which it sends through
   ``lstm_pallas_fused`` (``ops/lstm.py:108-122``) as ``lstm`` sends it
   through kernel F.
+
+``lstm_train`` is the layer in training (bonito_tpu's ``lstm_train``,
+kernel-table row 8): the projection as in ``lstm``, under autograd, then
+the recurrence through ``LSTMRecurrence``, kernels R and S, whatever H is
+(bonito_tpu trains a small layer through the same kernels, not through
+its small-H one).
 """
 
 import torch
@@ -46,6 +52,8 @@ from bonito_tpu_torch.ops.lstm_fused_cuda import (
     fused_supported as small_h, lstm_fused)
 from bonito_tpu_torch.ops.lstm_int8_cuda import (
     fused_supported, lstm_int8_fused, lstm_int8_recurrence)
+from bonito_tpu_torch.ops.lstm_train_cuda import (
+    lstm_train_backward, lstm_train_forward)
 
 INT8_ROUTES = ("fused", "two_stage", "dequant")
 
@@ -119,3 +127,72 @@ def lstm_int8(x, w_ih, w_hh_q, scales, b, reverse=False, w_ih_q=None,
         w_ih = (w_ih_q.float() * ih_scales.float()).to(dtype)
     w_hh = (w_hh_q.float() * scales.float() * 127.0).to(dtype)
     return lstm(x, w_ih, w_hh, b, reverse=reverse)
+
+
+def train_supported(x, w_hh):
+    """bonito_tpu's ``supported_train`` gate by shape (its TPU backend test
+    left out): H a multiple of 8, and its VMEM model of W_hh plus the
+    double-buffered per-step streams of R and S (lane-padded to 128) under
+    90 MB. Where it holds, c, the gates and their gradient are rounded to
+    bf16, as its kernels round them; where it fails they stay f32 (it runs
+    its scan there)."""
+    N, _, _ = x.shape
+    H = w_hh.shape[0]
+    if H % 8:
+        return False
+    eff = lambda d: -(-d // 128) * 128  # noqa: E731
+    G = 4 * H
+    itemsize = 2 if x.dtype in (torch.bfloat16, torch.float16) else 4
+    whh = H * G * itemsize
+    fwd = 2 * N * (eff(G) * itemsize + eff(H) * itemsize + eff(H) * 2
+                   + eff(G) * 2)
+    bwd = 2 * N * (2 * eff(G) * 2 + 3 * eff(H) * 2)
+    scratch = 2 * N * eff(H) * 4
+    return whh + max(fwd, bwd) + scratch < 90 * 1024 * 1024
+
+
+class LSTMRecurrence(torch.autograd.Function):
+    """h [T, N, H] of xw [T, N, 4H] and w_hh [H, 4H] (both in the model
+    dtype) through R, and their gradients through S: bonito_tpu's
+    ``_lstm_rec`` custom VJP. The forward keeps (w_hh, h, c, acts), not
+    xw. The backward returns dxw = dgates in h's dtype and dW_hh =
+    sum_t h_prev^T dgates, h_prev being h one step back in the
+    recurrence's direction (0 at its first step), as one torch.matmul in
+    the model dtype (cuBLAS sums in f32) over the steps that have one."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh, reverse, round_bf16):
+        h, c, acts = lstm_train_forward(xw, w_hh, reverse, round_bf16)
+        ctx.save_for_backward(w_hh, h, c, acts)
+        ctx.reverse, ctx.round_bf16 = reverse, round_bf16
+        return h
+
+    @staticmethod
+    def backward(ctx, g_h):
+        w_hh, h, c, acts = ctx.saved_tensors
+        dgates = lstm_train_backward(
+            w_hh, acts, c, g_h.to(h.dtype).contiguous(), ctx.reverse,
+            ctx.round_bf16)
+        T, N, H = h.shape
+        dtype = torch.promote_types(h.dtype, dgates.dtype)
+        # the step that reads h[s] as its h_prev: s + 1, or s - 1 reversed
+        h_prev, dg = (h[1:], dgates[:-1]) if ctx.reverse else (h[:-1],
+                                                                dgates[1:])
+        dw = torch.matmul(h_prev.reshape(-1, H).t().to(dtype),
+                          dg.reshape(-1, 4 * H).to(dtype))
+        return dgates.to(h.dtype), dw.to(w_hh.dtype), None, None
+
+
+def lstm_train(x, w_ih, w_hh, b, reverse=False):
+    """The differentiable layer: x [N, T, C] -> h [N, T, H] (a transposed
+    view of [T, N, H]), the projection xw = x @ w_ih (+ b) in x's dtype
+    under autograd, then ``LSTMRecurrence``, rounded to bf16 inside where
+    ``train_supported`` holds. A CUDA tensor that R or S does not take
+    raises."""
+    dtype = x.dtype
+    xw = torch.matmul(x.transpose(0, 1), w_ih.to(dtype))
+    if b is not None:
+        xw = xw + b.to(dtype)
+    h = LSTMRecurrence.apply(xw.contiguous(), w_hh.to(dtype), bool(reverse),
+                             train_supported(x, w_hh))
+    return h.transpose(0, 1)

@@ -17,6 +17,7 @@ other.
 import torch
 
 from bonito_tpu_torch.ops import build
+from bonito_tpu_torch.ops.lstm_train_cuda import lstm_train_forward_plain
 
 ROW_BLOCK = 32  # batch rows per CUDA block (RB in csrc/lstm.cu)
 
@@ -25,21 +26,9 @@ def lstm_recurrence_plain(xw, w_hh, reverse=False):
     """xw [T, N, 4H] in the model dtype, w_hh [H, 4H] -> h [T, N, H] in
     the model dtype. Each step: gates = f32(xw[t]) + f32(dtype(h) @ w_hh)
     (f32 accumulation), torch gate order (i, f, g, o); h and c are carried
-    in f32. ``reverse`` walks t = T-1 .. 0 and writes each step at t."""
-    T, N, G = xw.shape
-    H = G // 4
-    dtype = xw.dtype
-    w = w_hh.to(dtype).float()
-    h = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
-    c = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
-    out = torch.empty(T, N, H, dtype=dtype, device=xw.device)
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gates = xw[t].float() + torch.matmul(h.to(dtype).float(), w)
-        i, f, g, o = gates.chunk(4, dim=1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        out[t] = h.to(dtype)
-    return out
+    in f32. ``reverse`` walks t = T-1 .. 0 and writes each step at t. It is
+    the h of kernel R's plain version, which keeps c and the gates too."""
+    return lstm_train_forward_plain(xw, w_hh, reverse)[0]
 
 
 def lstm_recurrence(xw, w_hh, reverse=False):

@@ -1,12 +1,15 @@
 """
-Host-side utilities: signal chunking/stitching, batch bookkeeping and
-model loading. The chunk/stitch arithmetic is bonito_tpu's (and upstream
+Host-side utilities: signal chunking/stitching, batch bookkeeping, model
+loading, and the training helpers (``init``, ``decode_ref``,
+``accuracy``). The chunk/stitch arithmetic is bonito_tpu's (and upstream
 bonito's) exactly, so stitched strings agree at chunk junctions.
 """
 
 import os
+import random
 import re
 import glob as _glob
+from collections import defaultdict
 from importlib import import_module
 from itertools import groupby
 from operator import itemgetter
@@ -17,6 +20,8 @@ import numpy as np
 
 __dir__ = Path(__file__).parent
 __models_dir__ = __dir__ / "models"
+
+_CIGAR_RE = re.compile(r"(\d+)([MIDNSHP=X])")
 
 
 def concat(xs, dim=0):
@@ -270,3 +275,52 @@ def _load_model(weights_path, config, half=True, fuse_bn=False, device=None,
         from bonito_tpu_torch.transformer.model import set_attn_route
         set_attn_route(model, attn_route)
     return model.to(device)
+
+
+# ---------------------------------------------------------------------------
+# training helpers
+# ---------------------------------------------------------------------------
+
+def init(seed=25):
+    """Seed the host's generators (Python's, numpy's) and torch's."""
+    import torch
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def decode_ref(encoded, labels):
+    """Integer-encoded reference -> string, dropping blanks (label 0)."""
+    return "".join(labels[e] for e in np.asarray(encoded).tolist() if e)
+
+
+def parasail_style_cigar_counts(cigar):
+    counts = defaultdict(int)
+    for count, op in _CIGAR_RE.findall(cigar):
+        counts[op] += int(count)
+    return counts
+
+
+def accuracy(ref, seq, balanced=False, min_coverage=0.0):
+    """Percent accuracy of ``seq`` against ``ref`` from a local alignment
+    (``alignment.smith_waterman``), as bonito_tpu's and upstream bonito's:
+    0 below ``min_coverage`` of the reference aligned."""
+    from bonito_tpu_torch.alignment import smith_waterman
+
+    if len(seq) == 0 or len(ref) == 0:
+        return 0.0
+    result = smith_waterman(seq, ref)
+    if result is None:
+        return 0.0
+    if result.ref_aligned_length / len(ref) < min_coverage:
+        return 0.0
+    counts = parasail_style_cigar_counts(result.cigar)
+    if balanced:
+        denom = counts["="] + counts["X"] + counts["D"]
+        if denom == 0:
+            return 0.0
+        return (counts["="] - counts["I"]) / denom * 100
+    denom = counts["="] + counts["I"] + counts["X"] + counts["D"]
+    if denom == 0:
+        return 0.0
+    return counts["="] / denom * 100

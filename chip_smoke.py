@@ -75,8 +75,23 @@ PyTorch built for CUDA. In order, it:
     with its launch counts, held against the same path on the plain
     versions, with its loss, time, train-loss samples/s and peak memory;
     then U to Z alone against their plain versions at hac, fast and sup
-    training shapes, with their times and bounds; and prints one
-    ``kernels`` JSON line with all nineteen kernels.
+    training shapes, with their times and bounds;
+10. runs the LSTM-CRF train step: R and S (the LSTM recurrence of a train
+    step and its backward through time) against their plain versions at
+    hac and fast training shapes (N 128; T 1000, H 1024 and T 1200, H 96),
+    both directions, with their times, bounds and a cuDNN LSTM layer's
+    forward + backward beside them; the hac train step (lstm_crf_config()
+    with f32 master weights, a bf16 forward, batch 128 x chunk 6000,
+    targets of 250 to 500 bases, AdamW 2e-3, clip 2.0): a warm-up step and
+    three timed ones with their launch counts (R 5, S 5, U, V, Y, Z 1 each
+    per step, nothing else), finite losses and norms, every parameter
+    moved, and one step's gradients through the kernels against the same
+    through the plain versions; its time, train samples/s and peak memory;
+    one fast train step (R and S at H 96); and ``python -m
+    bonito_tpu_torch train`` (in this process) for one epoch of hac on a
+    generated npy set (3 batches of 128 x 6000, one validation batch, which
+    runs A, U, Y, B and C), checking its checkpoint and logs. It prints one
+    ``kernels`` JSON line with all twenty-one kernels.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -203,6 +218,25 @@ LOSS_SHAPES = {"hac": (128, 1000, 1024, 500), "fast": (128, 1200, 64, 600),
 # atomics, in no fixed order).
 F32_STEPS, GRAD_MIN_EQUAL = 4, 0.99
 
+# The LSTM-CRF train step (kernels R and S, with U to Z) at hac training
+# width: lstm_crf_config() with f32 master weights and a bf16 forward, batch
+# 128 x chunk 6000, AdamW 2e-3, clip 2.0; TRAIN_STEPS timed steps after a
+# warm-up. R and S alone at hac and fast training shapes (N, T, H).
+HAC = "dna_r10.4.1_e8.2_400bps_hac@v4.3"
+TRAIN_SHAPES = {"hac": (128, 1000, 1024), "fast": (128, 1200, 96)}
+TRAIN_STEPS, TRAIN_CLI_BATCHES = 3, 3
+# R and S against their plain versions: h rounded to bf16 each step, f32
+# sums in another order, so a flipped rounding moves a trajectory by a few
+# bf16 steps (as kernel A's); each output's worst difference relative to its
+# largest magnitude within LSTM_TRAIN_MAX, the mean within LSTM_TRAIN_MEAN
+# (seen on the H100: at most 0.0061 and 1.3e-4, dW_hh's mean the largest).
+LSTM_TRAIN_MAX, LSTM_TRAIN_MEAN = 2.0 ** -6, 1e-3
+# One hac step's gradients through the kernels against the plain versions':
+# each parameter's within TRAIN_GRAD_REL (relative L2; a convolution bias in
+# front of BatchNorm, whose gradient is 0 in exact arithmetic, relative to
+# its weight's), the losses within TRAIN_LOSS_TOL.
+TRAIN_GRAD_REL, TRAIN_LOSS_TOL = 0.05, 1e-3
+
 
 def log(msg):
     print(msg, flush=True)
@@ -250,6 +284,7 @@ def ptxas_summary(report):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             base = re.search(r"(lstm_step_bf16|lstm_int8_step|"
+                             r"lstm_train_(?:fwd|bwd)_step|"
                              r"lstm_fused_bf16_kernel|"
                              r"fused_rotary_window_attention_kernel|"
                              r"local_attention_kernel|"
@@ -265,6 +300,10 @@ def ptxas_summary(report):
             elif tiles:
                 name = (f"{name}<weight k-tiles in registers="
                         f"{tiles.group(1)}+{tiles.group(2)}>")
+            elif name.startswith("lstm_train"):
+                name += (" <c, activations, gradient stored in bf16>"
+                         if "stepI13__nv_bfloat16" in m.group(1)
+                         else " <c, activations, gradient stored in f32>")
             elif name.startswith(("logz", "lattice")):
                 # the template arguments as the mangled name gives them
                 name += f" [{m.group(1).split('_kernel', 1)[1]}]"
@@ -1136,6 +1175,372 @@ def train_loss_phase(torch, hac, counters, dev):
     return loss_paths, loss_k, loss_more, ms_u_only, bound_u_only
 
 
+def kernel_counters():
+    """Every kernel wrapper of the port by its letter; each carries the
+    count of its launches."""
+    from bonito_tpu_torch.ops import (attention_cuda, decode_cuda,
+                                      decode_full_cuda, decode_fused_cuda,
+                                      lattice_cuda, logz_cuda, lstm_cuda,
+                                      lstm_fused_cuda, lstm_int8_cuda,
+                                      lstm_train_cuda, relayout)
+    return {"A": lstm_cuda.lstm_recurrence,
+            "B": decode_cuda.tcn_forward, "C": decode_cuda.tcn_backward,
+            "D": lstm_int8_cuda.lstm_int8_fused,
+            "E": lstm_int8_cuda.lstm_int8_recurrence,
+            "F": lstm_fused_cuda.lstm_fused,
+            "G": decode_fused_cuda.tcn_fused_forward,
+            "J": decode_fused_cuda.tcn_fused_backward,
+            "K": attention_cuda.fused_rotary_window_attention,
+            "L": attention_cuda.local_attention,
+            "P": relayout.pin_layout,
+            "M": decode_full_cuda.full_forward,
+            "Q": decode_full_cuda.full_backward,
+            "U": logz_cuda.tcn_forward, "V": logz_cuda.tcn_backward,
+            "W": logz_cuda.full_forward, "X": logz_cuda.full_backward,
+            "Y": lattice_cuda.lattice_forward,
+            "Z": lattice_cuda.lattice_backward,
+            "R": lstm_train_cuda.lstm_train_forward,
+            "S": lstm_train_cuda.lstm_train_backward}
+
+
+def loss_mods():
+    """The loss's route and kernel modules, in ``plain_loss_kernels``'s
+    order."""
+    from bonito_tpu_torch.ops import lattice as ops_lattice
+    from bonito_tpu_torch.ops import lattice_cuda, logz_cuda
+    from bonito_tpu_torch.ops import logz as ops_logz
+    return ops_logz, logz_cuda, ops_lattice, lattice_cuda
+
+
+class plain_train_kernels(plain_loss_kernels):
+    """Within the block every kernel of a train step runs its plain version
+    on the card: R and S (named in ``ops.lstm``, where the autograd
+    Function calls them) and the loss's U to Z."""
+
+    def __init__(self, ops_lstm, lstm_train_cuda, *loss_mods):
+        super().__init__(*loss_mods)
+        self.swap[(ops_lstm, "lstm_train_forward")] = (
+            lstm_train_cuda.lstm_train_forward_plain)
+        self.swap[(ops_lstm, "lstm_train_backward")] = (
+            lstm_train_cuda.lstm_train_backward_plain)
+
+
+def check_lstm_train(torch, ops_lstm, lstm_train_cuda, dev, n, t, h,
+                     time_it):
+    """Kernels R and S against their plain versions on random bf16 inputs
+    at (N, T, H) = (n, t, h), both directions, rounding as bonito_tpu's
+    kernels do: R's h, c and activations; S's gate gradient on R's own
+    output (the same inputs as its plain version); and the Function's dxw
+    and dW_hh through the kernels against the same through the plain
+    versions. Returns the worst differences (max and mean relative to the
+    largest magnitude of the reference, and the max absolute) and, with
+    ``time_it``, the
+    times of R, S, their plain versions and a cuDNN LSTM layer's forward +
+    backward at the same shape."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xw = torch.randn(t, n, 4 * h, device=dev, generator=g).to(torch.bfloat16)
+    w_hh = (torch.randn(h, 4 * h, device=dev, generator=g) / math.sqrt(h)
+            ).to(torch.bfloat16)
+    g_h = torch.randn(t, n, h, device=dev, generator=g).to(torch.bfloat16)
+    err = {}
+
+    def diff(key, out, ref):
+        d = (out.float() - ref.float()).abs()
+        scale = max(ref.float().abs().max().item(), 1e-30)
+        worst = d.max().item()
+        old = err.get(key, (0.0, 0.0, 0.0))
+        err[key] = (max(old[0], worst / scale),
+                    max(old[1], d.mean().item() / scale), max(old[2], worst))
+
+    def function(xw_, w_, reverse):
+        xw_ = xw_.detach().requires_grad_()
+        w_ = w_.detach().requires_grad_()
+        out = ops_lstm.LSTMRecurrence.apply(xw_, w_, reverse, True)
+        out.backward(g_h)
+        return xw_.grad, w_.grad
+
+    for reverse in (False, True):
+        hk, ck, ak = lstm_train_cuda.lstm_train_forward(xw, w_hh, reverse)
+        hp, cp, ap = lstm_train_cuda.lstm_train_forward_plain(xw, w_hh,
+                                                              reverse)
+        torch.cuda.synchronize()
+        for key, out, ref in (("h", hk, hp), ("c", ck, cp), ("acts", ak, ap)):
+            require(bool(torch.isfinite(out.float()).all()),
+                    f"kernel R: non-finite {key}")
+            diff(key, out, ref)
+        del hp, cp, ap
+        dk = lstm_train_cuda.lstm_train_backward(w_hh, ak, ck, g_h, reverse)
+        dp = lstm_train_cuda.lstm_train_backward_plain(w_hh, ak, ck, g_h,
+                                                       reverse)
+        require(bool(torch.isfinite(dk.float()).all()),
+                "kernel S: non-finite dgates")
+        diff("dgates", dk, dp)
+        del dk, dp, hk, ck, ak
+        dxw, dw = function(xw, w_hh, reverse)
+        with plain_train_kernels(ops_lstm, lstm_train_cuda, *loss_mods()):
+            pdxw, pdw = function(xw, w_hh, reverse)
+        diff("dxw", dxw, pdxw)
+        diff("dW_hh", dw, pdw)
+        del dxw, dw, pdxw, pdw
+    times = {}
+    if time_it:
+        times["R"] = cuda_ms(lambda: lstm_train_cuda.lstm_train_forward(
+            xw, w_hh), reps=3)
+        _, ck, ak = lstm_train_cuda.lstm_train_forward(xw, w_hh)
+        times["S"] = cuda_ms(lambda: lstm_train_cuda.lstm_train_backward(
+            w_hh, ak, ck, g_h), reps=3)
+        times["R_plain"] = cuda_ms(
+            lambda: lstm_train_cuda.lstm_train_forward_plain(xw, w_hh),
+            reps=1, warmup=0)
+        times["S_plain"] = cuda_ms(
+            lambda: lstm_train_cuda.lstm_train_backward_plain(w_hh, ak, ck,
+                                                              g_h),
+            reps=1, warmup=0)
+        del ck, ak
+        # cuDNN: one layer's forward + backward, its input projection
+        # included (x of width H), at the same shape
+        cudnn = torch.nn.LSTM(h, h, device=dev, dtype=torch.bfloat16)
+        cudnn.flatten_parameters()
+        x = torch.randn(t, n, h, device=dev, generator=g).to(
+            torch.bfloat16).requires_grad_()
+
+        def cudnn_step():
+            out, _ = cudnn(x)
+            out.backward(g_h)
+        times["cudnn"] = cuda_ms(cudnn_step, reps=3)
+        del cudnn, x
+    # bounds: R reads xw and W_hh and writes h, c and the activations; S
+    # reads the activations, c (its previous step's too, the same tensor),
+    # g_h and W_hh and writes the gates' gradient; each 2*N*H*4H*T
+    # operations on the tensor cores, and about 20 f32 operations per hidden
+    # unit and step outside them
+    plane, gates = t * n * h * 2, t * n * 4 * h * 2
+    bounds = {
+        "R": bound(gates + h * 4 * h * 2 + 2 * plane + gates,
+                   2 * n * h * 4 * h * t, H100_BF16_OPS, 20 * n * h * t),
+        "S": bound(gates + 2 * plane + h * 4 * h * 2 + gates,
+                   2 * n * h * 4 * h * (t - 1), H100_BF16_OPS,
+                   20 * n * h * t)}
+    return err, times, bounds
+
+
+def train_batch(torch, dev, n, chunk, length, seed):
+    """A batch of ``n`` chunks of standard-normal signal and targets of
+    length/2 to ``length`` bases (1..4), from ``seed``, on the card."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, chunk, 1)).astype(np.float32))
+    lengths = rng.integers(length // 2, length + 1, n)
+    targets = rng.integers(1, 5, (n, length))
+    targets[np.arange(length)[None] >= lengths[:, None]] = 0
+    return (x.to(dev), torch.from_numpy(targets).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+def step_grads(torch, model, batch):
+    """The loss and every parameter's gradient of one amp step, without
+    the optimiser (the train step's forward and backward)."""
+    x, targets, lengths = batch
+    model.train()
+    model.zero_grad(set_to_none=True)
+    try:
+        moves, blank = model.forward_tcn(x.to(torch.bfloat16))
+        loss = model.loss_tcn(moves, blank, targets, lengths)
+        loss.backward()
+    finally:
+        model.eval()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def train_step_phase(torch, counters, dev):
+    """Phase 10: the LSTM-CRF train step. (a) R and S against their plain
+    versions at hac and fast training shapes; (b) the hac train step at
+    batch 128 x 6000 (f32 master weights, bf16 forward, AdamW 2e-3, clip
+    2.0): a warm-up step, then TRAIN_STEPS timed ones with their launch
+    counts, and one step's gradients through the kernels against the same
+    through the plain versions; (c) one fast train step; (d) the train CLI
+    end to end on a generated npy set."""
+    from bonito_tpu_torch.crf.model import Model
+    from bonito_tpu_torch.models import MODELS, lstm_crf_config
+    from bonito_tpu_torch.ops import lstm as ops_lstm
+    from bonito_tpu_torch.ops import lstm_train_cuda
+    from bonito_tpu_torch.training import make_optimizer, make_train_step
+
+    log(f"[10] the LSTM-CRF train step (kernels R, S with U, V, Y, Z)")
+    res = {"kernels": {}}
+    for shape, (n, t, h) in TRAIN_SHAPES.items():
+        err, times, bounds = check_lstm_train(
+            torch, ops_lstm, lstm_train_cuda, dev, n, t, h, time_it=True)
+        res["kernels"][shape] = (err, times, bounds)
+        bad = {k: v for k, v in err.items()
+               if v[0] > LSTM_TRAIN_MAX or v[1] > LSTM_TRAIN_MEAN}
+        log(f"  R, S vs plain at {shape} training shapes (N {n}, T {t}, H "
+            f"{h}), both directions; worst |diff| / max |ref| (max, mean): "
+            + ", ".join(f"{k} {m:.3g} / {a:.3g} (max abs {w:.3g})"
+                        for k, (m, a, w) in err.items()))
+        log(f"    R {times['R']:.4g} ms (plain {times['R_plain']:.4g}, bound "
+            f"{bounds['R'][0]:.4g} by {bounds['R'][1]}), S {times['S']:.4g} "
+            f"ms (plain {times['S_plain']:.4g}, bound {bounds['S'][0]:.4g} by "
+            f"{bounds['S'][1]}); cuDNN LSTM({h}, {h}) forward + backward "
+            f"{times['cudnn']:.4g} ms")
+        require(not bad, f"R, S at {shape} training shapes disagree with "
+                         f"their plain versions: {bad}")
+
+    log(f"  hac train step: batch {TRAIN_N} x chunk {TRAIN_CHUNK}, f32 "
+        f"master weights, bf16 forward, AdamW 2e-3, clip 2.0")
+    hac = Model(lstm_crf_config()).init(SEED).to(dev)
+    step = make_train_step(hac, make_optimizer(hac, 2e-3))
+    batch = train_batch(torch, dev, TRAIN_N, TRAIN_CHUNK, TRAIN_L, SEED)
+    before = {k: p.detach().clone() for k, p in hac.named_parameters()}
+    losses, norm = step(batch, 1.0, 2.0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = [step(batch, 1.0, 2.0) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    own = {"R": 5, "S": 5, "U": 1, "V": 1, "Y": 1, "Z": 1}
+    expect = {k: own.get(k, 0) * TRAIN_STEPS for k in counters}
+    require(launches == expect, f"hac train step: launches {launches}, "
+                                f"expected {expect}")
+    values = [(float(l["loss"]), float(n_)) for l, n_ in [(losses, norm)]
+              + out]
+    require(all(math.isfinite(v) for pair in values for v in pair),
+            f"hac train step: non-finite loss or grad norm {values}")
+    moved = sum(not torch.equal(p.detach(), before[k])
+                for k, p in hac.named_parameters())
+    require(moved == len(before), f"hac train step: {len(before) - moved} "
+                                  f"parameters did not move")
+    del before
+    res["hac"] = dict(ms=wall * 1e3, peak=peak, held=held / 2 ** 30,
+                      launches=launches, values=values)
+    log(f"  hac train step on {card_line()}: {wall * 1e3:.4g} ms per step "
+        f"= {TRAIN_N * TRAIN_CHUNK / wall:.6g} train samples/s ("
+        f"{TRAIN_STEPS} steps after a warm-up); peak memory {peak:.3f} GiB "
+        f"above the {held / 2 ** 30:.3f} GiB held before the timed steps; "
+        f"loss and grad norm per step {values}; launches per step "
+        f"{({k: v // TRAIN_STEPS for k, v in launches.items() if v})}")
+
+    loss_k, grads_k = step_grads(torch, hac, batch)
+    with plain_train_kernels(ops_lstm, lstm_train_cuda, *loss_mods()):
+        loss_p, grads_p = step_grads(torch, hac, batch)
+    # a convolution's bias in front of a batch-statistics BatchNorm has a
+    # gradient of 0 in exact arithmetic (the norm takes the batch mean out):
+    # what both give there is rounding noise, held to the others' size
+    rel = {}
+    for k in grads_p:
+        d = (grads_k[k].float() - grads_p[k].float()).norm().item()
+        if k.endswith(".b") and k[:-1] + "norm.scale" in grads_p:
+            ref = max(grads_p[k[:-1] + "w"].float().norm().item(), 1e-30)
+        else:
+            ref = max(grads_p[k].float().norm().item(), 1e-30)
+        rel[k] = d / ref
+    top = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    worst = top[0][1]
+    res["hac"]["grad_rel"] = worst
+    res["hac"]["loss_diff"] = abs(loss_k.item() - loss_p.item())
+    log(f"  one hac step through the kernels vs the plain versions: loss "
+        f"{loss_k.item():.7g} vs {loss_p.item():.7g}; relative L2 "
+        f"difference of the gradients, worst three: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in top)
+        + f" (limit {TRAIN_GRAD_REL})")
+    require(worst <= TRAIN_GRAD_REL and res["hac"]["loss_diff"]
+            <= TRAIN_LOSS_TOL, "hac train step: the kernels' gradients "
+                               "disagree with the plain versions'")
+    del hac, step, grads_k, grads_p, batch
+    torch.cuda.empty_cache()
+
+    cfg = MODELS[FAST]()
+    fast = Model(cfg).init(SEED).to(dev)
+    step = make_train_step(fast, make_optimizer(fast, 2e-3))
+    batch = train_batch(torch, dev, TRAIN_N, TRAIN_CHUNK, TRAIN_L, SEED)
+    step(batch, 1.0, 2.0)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    losses, norm = step(batch, 1.0, 2.0)
+    torch.cuda.synchronize()
+    fast_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: c.launches for k, c in counters.items()}
+    require(launches == {k: own.get(k, 0) for k in counters},
+            f"fast train step: launches {launches}")
+    require(math.isfinite(float(losses["loss"])) and math.isfinite(
+        float(norm)), "fast train step: non-finite loss or grad norm")
+    res["fast"] = dict(ms=fast_ms, launches=launches)
+    log(f"  fast train step (batch {TRAIN_N} x {TRAIN_CHUNK}, H 96): "
+        f"{fast_ms:.4g} ms = {TRAIN_N * TRAIN_CHUNK / fast_ms * 1e3:.6g} "
+        f"train samples/s (one step after a warm-up); loss "
+        f"{float(losses['loss']):.6g}")
+    del fast, step, batch
+    torch.cuda.empty_cache()
+    res["cli"] = train_cli(torch, counters)
+    return res
+
+
+def train_cli(torch, counters):
+    """``python -m bonito_tpu_torch train`` in this process on a generated
+    npy set under the build directory: TRAIN_CLI_BATCHES training batches
+    of 128 x 6000 and one validation batch, one epoch of hac."""
+    from bonito_tpu_torch.cli import main as cli_main
+    from bonito_tpu_torch.ops import build
+    root = build.BUILD / "chip_smoke_train"
+    if root.exists():
+        shutil.rmtree(root)
+    rng = np.random.default_rng(SEED)
+    for sub, rows in (("", TRAIN_CLI_BATCHES * TRAIN_N),
+                      ("validation", TRAIN_N)):
+        d = root / "data" / sub
+        d.mkdir(parents=True)
+        lengths = rng.integers(TRAIN_L // 2, TRAIN_L + 1, rows)
+        refs = rng.integers(1, 5, (rows, TRAIN_L))
+        refs[np.arange(TRAIN_L)[None] >= lengths[:, None]] = 0
+        np.save(d / "chunks.npy", rng.normal(size=(rows, TRAIN_CHUNK))
+                .astype(np.float16))
+        np.save(d / "references.npy", refs.astype(np.uint8))
+        np.save(d / "reference_lengths.npy", lengths.astype(np.uint16))
+    work = root / "work"
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    cli_main(["train", str(work), "--config", HAC, "--directory",
+              str(root / "data"), "--batch", str(TRAIN_N), "--epochs", "1",
+              "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    own = {"R": 5, "S": 5, "U": 1, "V": 1, "Y": 1, "Z": 1}
+    expect = {k: own.get(k, 0) * TRAIN_CLI_BATCHES for k in counters}
+    # validation, in eval mode: the inference route (A x 5), the loss (U
+    # and Y without their stacks), then the decode (B and C)
+    for k, n in (("A", 5), ("U", 1), ("Y", 1), ("B", 1), ("C", 1)):
+        expect[k] += n
+    require(launches == expect, f"train CLI: launches {launches}, expected "
+                                f"{expect}")
+    require((work / "weights_1.npz").exists(), "train CLI: no weights_1.npz")
+    with open(work / "losses_1.csv") as f:
+        rows = f.read().strip().splitlines()
+    require(len(rows) == 1 + TRAIN_CLI_BATCHES,
+            f"train CLI: losses_1.csv has {len(rows) - 1} rows")
+    with open(work / "training.csv") as f:
+        header, row = f.read().strip().splitlines()
+    fields = dict(zip(header.split(","), row.split(",")))
+    acc = float(fields["validation_mean"])
+    require(math.isfinite(acc) and math.isfinite(
+        float(fields["validation_loss"])), f"train CLI: {fields}")
+    log(f"  train CLI, one epoch of hac ({TRAIN_CLI_BATCHES} batches of "
+        f"{TRAIN_N} x {TRAIN_CHUNK}, one validation batch): {wall:.1f} s in "
+        f"all (model init, data, steps, checkpoint, validation); "
+        f"training.csv {fields}; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    return dict(wall=wall, launches=launches, fields=fields)
+
 
 def main():
     import torch
@@ -1237,22 +1642,7 @@ def main():
     lengths = np.concatenate([[3000, 9000], rng.integers(100000, 220000, 158)])
     fast_reads = [Read(f"fast{i}", rng.normal(size=int(n)).astype(np.float32))
                   for i, n in enumerate(lengths)]
-    counters = {"A": lstm_cuda.lstm_recurrence,
-                "B": decode_cuda.tcn_forward, "C": decode_cuda.tcn_backward,
-                "D": lstm_int8_cuda.lstm_int8_fused,
-                "E": lstm_int8_cuda.lstm_int8_recurrence,
-                "F": lstm_fused_cuda.lstm_fused,
-                "G": decode_fused_cuda.tcn_fused_forward,
-                "J": decode_fused_cuda.tcn_fused_backward,
-                "K": attention_cuda.fused_rotary_window_attention,
-                "L": attention_cuda.local_attention,
-                "P": relayout.pin_layout,
-                "M": decode_full_cuda.full_forward,
-                "Q": decode_full_cuda.full_backward,
-                "U": logz_cuda.tcn_forward, "V": logz_cuda.tcn_backward,
-                "W": logz_cuda.full_forward, "X": logz_cuda.full_backward,
-                "Y": lattice_cuda.lattice_forward,
-                "Z": lattice_cuda.lattice_backward}
+    counters = kernel_counters()
     models = {
         name: load_model(dirs[src], half=True, fuse_bn=True, quantize=None,
                          device="cuda", **kw)
@@ -1899,6 +2289,9 @@ def main():
             f"rest {step - kernels_ms:.4g} ms")
     loss_paths, loss_k, loss_more, ms_u_only, bound_u_only = (
         train_loss_phase(torch, models["bf16"], counters, dev))
+    del models
+    torch.cuda.empty_cache()
+    train = train_step_phase(torch, counters, dev)
 
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
@@ -2004,6 +2397,37 @@ def main():
         log(f"  {name}: {r['ms']:.4g} ms (plain {r['plain_ms']:.4g} ms, "
             f"bound {r['bound'][0]:.4g} ms by {r['bound'][1]}), {n} launches "
             f"on the {path} path")
+    # R and S: launches on the hac train step (per step); times, bounds and
+    # the library call (a cuDNN LSTM layer's forward + backward, its input
+    # projection included) at hac training shapes, fast's beside them
+    src_train = "bonito_tpu_torch/csrc/lstm_train.cu"
+    err_hac, t_hac, b_hac = train["kernels"]["hac"]
+    err_fast, t_fast, b_fast = train["kernels"]["fast"]
+    for name, key, rep, outs in (
+            ("lstm_train_fwd", "R", "bonito_tpu/ops/lstm_pallas.py:165",
+             ("h", "c", "acts")),
+            ("lstm_train_bwd", "S", "bonito_tpu/ops/lstm_pallas.py:192",
+             ("dgates", "dxw", "dW_hh"))):
+        n = train["hac"]["launches"][key] // TRAIN_STEPS
+        kernels.append({
+            "name": name, "route": "cuda", "source": src_train,
+            "replaces": rep, "launches": n,
+            "max_abs_err": max(err_hac[k][2] for k in outs),
+            "ms": t_hac[key], "plain_ms": t_hac[f"{key}_plain"],
+            "bound_ms": b_hac[key][0], "bound_by": b_hac[key][1],
+            "library_ms": t_hac["cudnn"],
+            "by_path": {"hac_train_step": n,
+                        "fast_train_step": train["fast"]["launches"][key],
+                        "train_cli": train["cli"]["launches"][key]},
+            "err_relative_to_max": {k: err_hac[k] for k in outs},
+            "fast_shape_ms": t_fast[key],
+            "fast_shape_plain_ms": t_fast[f"{key}_plain"],
+            "fast_shape_bound_ms": b_fast[key][0],
+            "fast_shape_library_ms": t_fast["cudnn"],
+            "fast_shape_err_relative_to_max": {k: err_fast[k] for k in outs}})
+        log(f"  {name}: {t_hac[key]:.4g} ms (plain {t_hac[key + '_plain']:.4g}"
+            f" ms, bound {b_hac[key][0]:.4g} ms by {b_hac[key][1]}), {n} "
+            f"launches per hac train step")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

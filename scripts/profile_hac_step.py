@@ -2,7 +2,7 @@
 """
 Where one device step of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_hac_step.py [int8 | fast | sup]
+    python3 scripts/profile_hac_step.py [int8 | fast | sup | train]
 
 from the root of a checkout, on a machine with a CUDA card. Builds a
 random full-width model (as chip_smoke.py does, without the trip through
@@ -19,6 +19,12 @@ busy share (sum of kernel times over the wall time; one stream, so kernels
 do not overlap) and the card's name and power limit. Beside it, the host's
 time to prepare one batch (the int8 signal wire), which the pipeline runs
 in a thread of its own.
+
+With ``train`` it traces two train steps of hac instead (after a warm-up
+step): ``lstm_crf_config()`` with f32 master weights, the bf16 forward,
+batch 128 x 6000 samples with targets of 250 to 500 bases, AdamW 2e-3 and
+the clip at 2.0 (``training.make_train_step``, kernels R, S, U, V, Y, Z),
+and prints the same table.
 """
 
 import subprocess
@@ -55,9 +61,15 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if sys.argv[1:] not in ([], ["int8"], ["fast"], ["sup"]):
+    if sys.argv[1:] not in ([], ["int8"], ["fast"], ["sup"], ["train"]):
         raise SystemExit(__doc__)
     which = (sys.argv[1:] or ["bf16"])[0]
+    if which == "train":
+        step, batch = train_step()
+        step(batch, 1.0, 2.0)  # warm-up: build, cuBLAS, cuDNN
+        report(card, "hac train step (f32 master weights, bf16 forward)",
+               128, 6000, lambda: step(batch, 1.0, 2.0), rows_shown=20)
+        return
     cfg = (MODELS[FAST]() if which == "fast" else MODELS[SUP]()
            if which == "sup" else lstm_crf_config())
     batch = cfg["basecaller"]["batchsize"]
@@ -78,13 +90,37 @@ def main():
         compute.prepare(signal)
     prepare_ms = (time.perf_counter() - t0) / 3 * 1e3
 
+    name = {"fast": "fast, quantize=true", "sup": "sup, bf16"}.get(
+        which, f"hac, {which}")
+    print(f"host prepare (int8 wire, numpy) {prepare_ms:.4g} ms per batch")
+    report(card, name, batch, chunk,
+           lambda: compute.fetch(compute.dispatch(prepared)),
+           rows_shown=25 if which == "sup" else 15)
+
+
+def train_step():
+    """hac's train step and one batch on the card."""
+    from bonito_tpu_torch.training import make_optimizer, make_train_step
+    model = Model(lstm_crf_config()).init(1).to("cuda")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(128, 6000, 1)).astype(np.float32))
+    lengths = rng.integers(250, 501, 128)
+    targets = rng.integers(1, 5, (128, 500))
+    targets[np.arange(500)[None] >= lengths[:, None]] = 0
+    batch = tuple(t.to("cuda") for t in (x, torch.from_numpy(targets),
+                                         torch.from_numpy(lengths)))
+    return make_train_step(model, make_optimizer(model, 2e-3)), batch
+
+
+def report(card, name, batch, chunk, run, rows_shown):
+    """Trace STEPS calls of ``run`` and print the device time by kernel."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            compute.fetch(compute.dispatch(prepared))
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -92,15 +128,12 @@ def main():
             if device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    name = {"fast": "fast, quantize=true", "sup": "sup, bf16"}.get(
-        which, f"hac, {which}")
     print(f"card: {card}; model: {name}, batch {batch} x {chunk} samples")
     print(f"{STEPS} device steps traced: wall {wall_us / 1e3:.4g} ms, "
-          f"{wall_us / 1e3 / STEPS:.4g} ms per step; host prepare (int8 "
-          f"wire, numpy) {prepare_ms:.4g} ms per batch")
+          f"{wall_us / 1e3 / STEPS:.4g} ms per step")
     print(f"{'device time by kernel':<60} {'count':>7} {'total ms':>10} "
           f"{'mean us':>9}")
-    for key, count, us in rows[:25 if which == "sup" else 15]:
+    for key, count, us in rows[:rows_shown]:
         print(f"{key[:60]:<60} {count:>7} {us / 1e3:>10.4g} "
               f"{us / count:>9.4g}")
     print(f"device busy {busy / 1e3:.4g} ms of {wall_us / 1e3:.4g} ms: "

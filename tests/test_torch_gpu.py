@@ -15,7 +15,8 @@ from bonito_tpu_torch.ops import (attention, attention_cuda, decode,
                                   decode_cuda, decode_full_cuda,
                                   decode_fused_cuda, int8, lattice,
                                   lattice_cuda, logz, logz_cuda, lstm_cuda,
-                                  lstm_fused_cuda, lstm_int8_cuda, relayout)
+                                  lstm_fused_cuda, lstm_int8_cuda,
+                                  lstm_train_cuda, relayout)
 from bonito_tpu_torch.ops.lstm import lstm, lstm_int8
 
 pytestmark = pytest.mark.gpu
@@ -625,3 +626,118 @@ def test_loss_kernels_reject_what_they_do_not_take(cuda):
                                      torch.ones(2, dtype=torch.int32), 2.0)
     assert (logz_cuda.tcn_forward.launches,
             lattice_cuda.lattice_forward.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# kernels R and S: the LSTM recurrence of a train step and its BPTT
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,H", [(8, 9, 16), (40, 17, 64), (128, 6, 96)])
+def test_lstm_train_kernels_match_plain(cuda, N, T, H, reverse, round_bf16,
+                                        dtype):
+    """R against its plain version as kernel A against its own (in bf16 h
+    is rounded each step and f32 sums run in another order: a flipped
+    rounding drifts by a few bf16 steps); S on R's own output against its
+    plain version on the same tensors: its product's f32 sums in another
+    order, within two bf16 steps of the largest gradient (and of c, which
+    is not bounded). An f32 model (training without amp) runs the same
+    kernels with f32 products."""
+    g = torch.Generator().manual_seed(N + T + H)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(cuda, dtype)
+    w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(cuda, dtype)
+    g_h = torch.randn(T, N, H, generator=g).to(cuda, dtype)
+    before = (lstm_train_cuda.lstm_train_forward.launches,
+              lstm_train_cuda.lstm_train_backward.launches)
+    h, c, acts = lstm_train_cuda.lstm_train_forward(xw, w_hh, reverse,
+                                                    round_bf16)
+    dg = lstm_train_cuda.lstm_train_backward(w_hh, acts, c, g_h, reverse,
+                                             round_bf16)
+    torch.cuda.synchronize()
+    assert (lstm_train_cuda.lstm_train_forward.launches,
+            lstm_train_cuda.lstm_train_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    store = torch.bfloat16 if round_bf16 else torch.float32
+    assert h.dtype == dtype and c.dtype == acts.dtype == store
+    assert dg.dtype == store
+    ref_h, ref_c, ref_a = lstm_train_cuda.lstm_train_forward_plain(
+        xw, w_hh, reverse, round_bf16)
+    torch.testing.assert_close(h.float(), ref_h.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(acts.float(), ref_a.float(), rtol=0,
+                               atol=2e-2)
+    torch.testing.assert_close(c.float(), ref_c.float(), rtol=0, atol=2e-2 *
+                               max(1.0, ref_c.float().abs().max().item()))
+    ref_dg = lstm_train_cuda.lstm_train_backward_plain(w_hh, acts, c, g_h,
+                                                       reverse, round_bf16)
+    big = ref_dg.float().abs().max().item()
+    torch.testing.assert_close(dg.float(), ref_dg.float(), rtol=0,
+                               atol=2 * 2.0 ** -7 * big)
+    assert bool(torch.isfinite(dg.float()).all())
+
+
+@pytest.mark.parametrize("use_amp", [True, False])
+def test_train_step_launches_r_and_s(cuda, use_amp):
+    """One train step of a narrow LSTM-CRF on the card, in bf16 amp and in
+    f32: R and S once per LSTM layer, U, V, Y, Z once each, and never
+    kernel A or F."""
+    from bonito_tpu_torch.training import make_optimizer, make_train_step
+    cfg = lstm_crf_config(features=64, num_layers=2, state_len=3, stride=5)
+    model = Model(cfg).init(3).to(cuda)
+    step = make_train_step(model, make_optimizer(model, 2e-3),
+                           use_amp=use_amp)
+    g = torch.Generator().manual_seed(5)
+    N, chunk, L = 16, 500, 40
+    x = torch.randn(N, chunk, 1, generator=g).to(cuda)
+    lengths = torch.randint(L // 2, L + 1, (N,), generator=g)
+    targets = torch.randint(1, 5, (N, L), generator=g)
+    targets[torch.arange(L)[None] >= lengths[:, None]] = 0
+    kernels = {"R": lstm_train_cuda.lstm_train_forward,
+               "S": lstm_train_cuda.lstm_train_backward,
+               "U": logz_cuda.tcn_forward, "V": logz_cuda.tcn_backward,
+               "Y": lattice_cuda.lattice_forward,
+               "Z": lattice_cuda.lattice_backward,
+               "A": lstm_cuda.lstm_recurrence, "F": lstm_fused_cuda.lstm_fused}
+    for k in kernels.values():
+        k.launches = 0
+    lstm0 = next(m for m in model.modules() if hasattr(m, "w_hh"))
+    w0 = lstm0.w_hh.detach().clone()
+    losses, norm = step((x, targets.to(cuda), lengths.to(cuda)), 1.0, 2.0)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in kernels.items()} == {
+        "R": 2, "S": 2, "U": 1, "V": 1, "Y": 1, "Z": 1, "A": 0, "F": 0}
+    assert bool(torch.isfinite(losses["loss"])) and bool(torch.isfinite(norm))
+    assert not torch.equal(lstm0.w_hh.detach(), w0)
+    assert not model.training
+
+
+def test_lstm_train_kernels_reject_what_they_do_not_take(cuda):
+    before = (lstm_train_cuda.lstm_train_forward.launches,
+              lstm_train_cuda.lstm_train_backward.launches)
+    w = torch.zeros(16, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        lstm_train_cuda.lstm_train_forward(
+            torch.zeros(2, 8, 64, device=cuda, dtype=torch.float16), w.half())
+    with pytest.raises(ValueError, match="xw"):  # xw and W_hh of two types
+        lstm_train_cuda.lstm_train_forward(
+            torch.zeros(2, 8, 64, device=cuda), w)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lstm_train_cuda.lstm_train_forward(
+            torch.zeros(2, 8, 96, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(24, 96, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_train_cuda.lstm_train_forward(
+            torch.zeros(8, 2, 64, device=cuda,
+                        dtype=torch.bfloat16).transpose(0, 1), w)
+    with pytest.raises(ValueError, match="acts"):
+        lstm_train_cuda.lstm_train_backward(
+            w, torch.zeros(2, 8, 64, device=cuda), torch.zeros(
+                2, 8, 16, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(2, 8, 16, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_train_cuda.lstm_train_backward(
+            w.cpu(), torch.zeros(2, 8, 64, device=cuda), torch.zeros(
+                2, 8, 16, device=cuda), torch.zeros(2, 8, 16, device=cuda))
+    assert (lstm_train_cuda.lstm_train_forward.launches,
+            lstm_train_cuda.lstm_train_backward.launches) == before

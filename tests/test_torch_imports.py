@@ -50,7 +50,13 @@ def test_importing_the_port_loads_no_jax():
             "bonito_tpu_torch.ops.beam_device",
             "bonito_tpu_torch.ops.logz_cuda",
             "bonito_tpu_torch.ops.lattice_cuda",
-            "bonito_tpu_torch.transformer.model"} <= set(modules)
+            "bonito_tpu_torch.transformer.model",
+            "bonito_tpu_torch.ops.lstm_train_cuda",
+            "bonito_tpu_torch.training", "bonito_tpu_torch.schedule",
+            "bonito_tpu_torch.data", "bonito_tpu_torch.io",
+            "bonito_tpu_torch.native", "bonito_tpu_torch.alignment",
+            "bonito_tpu_torch.cli.train",
+            "bonito_tpu_torch.__main__"} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "from bonito_tpu_torch.ops import build; "
             "assert build._lib is None, 'a kernel was built at import'; "
@@ -83,3 +89,16 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.library()
+
+
+def test_failed_native_build_raises(monkeypatch, tmp_path):
+    """The accuracy metric's aligner is built with g++ at first use; a
+    source that does not compile raises (no numpy fallback)."""
+    from bonito_tpu_torch import native
+    (tmp_path / "align").mkdir()
+    (tmp_path / "align" / "align.cpp").write_text("not C++\n")
+    monkeypatch.setattr(native, "NATIVE", tmp_path)
+    monkeypatch.setattr(native, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(native, "_loaded", {})
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.load("align")
