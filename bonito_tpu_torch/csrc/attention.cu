@@ -1,5 +1,6 @@
-// Kernels K and L: sliding-window (banded) self-attention of the transformer
-// family. Query i sees key j iff -left <= j - i <= right and j < t_real.
+// Kernels K, H, O and L: sliding-window (banded) self-attention of the
+// transformer family. Query i sees key j iff -left <= j - i <= right and
+// j < t_real.
 //
 // K, fused_rotary_window_attention, replaces
 // bonito_tpu/ops/attention_pallas.py:fused_rotary_window_attention
@@ -55,9 +56,46 @@
 // to f32 rounding: L normalises at the end, as the TPU kernel does). FMA
 // only: TF32 tensor-core products would not keep f32.
 //
+// H and O, the training twin: they replace attention_pallas.py:
+// fused_rotary_window_attention_train (`_fused_fwd_kernel_dt`,
+// `_fused_bwd_kernel_dt`). H is K's code with one more output, each query's
+// lse = max + log(sum) in f32, under a template flag: its o is K's bit for
+// bit. O computes dqkv [N, T, 3, H, D] from qkv, cos/sin, lse, o and the
+// cotangent do, rounding where the TPU kernel rounds:
+//
+//     p     = exp(s - lse), 0 where masked         s as in K, in f32
+//     dp    = bf16(do) . bf16(v)                   f32 accumulation
+//     Di    = sum_d do o                           f32, o as stored
+//     ds    = bf16(p (dp - Di) / sqrt(D))
+//     dq    = rotary^-1(bf16(k) . ds)              f32, rotated by -theta
+//     dk    = rotary^-1(sum over queries of ds^T . bf16(q))
+//     dv    = bf16(p)^T . bf16(do)                 f32 accumulation
+//
+// What bounds them at sup training shapes (N 32, T 1024, 8 heads of 64,
+// bf16): H moves 135 MB (0.04 ms) against 17 GFLOP in the band (0.02 ms);
+// O moves 270 MB (0.08 ms) against five band products, 43 GFLOP (0.04 ms):
+// bytes, both.
+//
+// Design of O. The TPU kernel runs one program per row and carries dk and dv
+// in scratch across its query blocks, in order; CUDA blocks run in no order,
+// so O splits the work by what each block writes, with no atomics and a
+// fixed order of every sum: one launch, two kinds of block of 4 warps per
+// (n, h, tile of 64 tokens). A dq block stages its 64 queries (q rotated, do)
+// and their key window (k rotated, v; at most 319 keys); a dk block stages
+// its 64 keys (k rotated, v) and the queries that see them (q rotated, do;
+// at most 64 + 127 + 128 = 319), with their lse and Di. Both recompute s and
+// dp for their pairs (bytes, not the tensor cores, bound the kernel), and Di
+// is computed in each block by the same code, so both kinds see the same
+// bits of it. A warp owns 16 rows of the tile and uses mma.sync m16n8k16 as
+// K does: ds leaves the score products in the A-operand layout of the next
+// product, whose B operand (k, q or do) comes through ldmatrix.trans. The
+// rotation back by -theta runs on the accumulators: element d < r/2 and its
+// partner d + r/2 sit in the same thread. About 113 KB of shared memory at
+// D = 64: two blocks an SM.
+//
 // Later work: K with wgmma and TMA, the key window shared by the query tiles
 // of one (n, h) in a cluster instead of read five times through L2; L on
-// register tiles.
+// register tiles; O's two kinds of block on wgmma.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -197,13 +235,15 @@ __device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
 }
 
 // DP: the head dim padded to 32, 64 or 128 (zeros beyond D).
-template <typename T, int DP>
+// LSE: also write each query's log-sum-exp (kernel H); K's instance is the
+// same code without that store, so both give the same o bit for bit.
+template <typename T, int DP, bool LSE>
 __global__ void __launch_bounds__(KNT)
 fused_rotary_window_attention_kernel(
     const T* __restrict__ qkv, const float* __restrict__ cosp,
-    const float* __restrict__ sinp, T* __restrict__ out, int Tn, int H, int D,
-    int r2, int left, int right, int t_real, int kw_max, int n_qt,
-    float scale)
+    const float* __restrict__ sinp, T* __restrict__ out,
+    float* __restrict__ lse, int Tn, int H, int D, int r2, int left,
+    int right, int t_real, int kw_max, int n_qt, float scale)
 {
     constexpr int LD = DP + PADB;
     constexpr int CH = DP / 8;
@@ -369,6 +409,13 @@ fused_rotary_window_attention_kernel(
     }
     const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
     const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+    if (LSE && c4 == 0) {
+        // lse = max + log(sum); a row that sees no key gets -1e30, which
+        // leaves every p of the backward at 0 as the TPU kernel's m does
+        float* lrow = lse + ((size_t)n * H + h) * Tn;
+        if (ia < Tn) lrow[ia] = l_a > 0.f ? M_a + logf(l_a) : NEG;
+        if (ib < Tn) lrow[ib] = l_b > 0.f ? M_b + logf(l_b) : NEG;
+    }
 
     // pass 2: p = bf16(exp(s - max) / sum), o += p . v
     float o[2 * KT][4];
@@ -421,10 +468,10 @@ fused_rotary_window_attention_kernel(
     }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool LSE>
 int launch_fused(const void* qkv, const void* cosp, const void* sinp,
-                 void* out, int N, int Tn, int H, int D, int r2, int left,
-                 int right, int t_real, cudaStream_t stream)
+                 void* out, float* lse, int N, int Tn, int H, int D, int r2,
+                 int left, int right, int t_real, cudaStream_t stream)
 {
     const int kw_max = round_up(min(left + BQ + right, t_real), 16);
     const int n_qt = (Tn + BQ - 1) / BQ;
@@ -432,31 +479,394 @@ int launch_fused(const void* qkv, const void* cosp, const void* sinp,
     if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     const long long blocks = (long long)N * H * n_qt;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    const auto kernel = fused_rotary_window_attention_kernel<T, DP>;
+    const auto kernel = fused_rotary_window_attention_kernel<T, DP, LSE>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const float scale = (float)(1.0 / sqrt((double)D));
     kernel<<<(unsigned)blocks, KNT, smem, stream>>>(
         static_cast<const T*>(qkv), static_cast<const float*>(cosp),
-        static_cast<const float*>(sinp), static_cast<T*>(out), Tn, H, D, r2,
-        left, right, t_real, kw_max, n_qt, scale);
+        static_cast<const float*>(sinp), static_cast<T*>(out), lse, Tn, H, D,
+        r2, left, right, t_real, kw_max, n_qt, scale);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, bool LSE>
+int dispatch_fused(int D, const void* qkv, const void* cosp, const void* sinp,
+                   void* out, float* lse, int N, int Tn, int H, int r2,
+                   int left, int right, int t_real, cudaStream_t stream)
+{
+    if (D <= 32)
+        return launch_fused<T, 32, LSE>(qkv, cosp, sinp, out, lse, N, Tn, H,
+                                        D, r2, left, right, t_real, stream);
+    if (D <= 64)
+        return launch_fused<T, 64, LSE>(qkv, cosp, sinp, out, lse, N, Tn, H,
+                                        D, r2, left, right, t_real, stream);
+    return launch_fused<T, 128, LSE>(qkv, cosp, sinp, out, lse, N, Tn, H, D,
+                                     r2, left, right, t_real, stream);
+}
+
+// ---------------------------------------------------------------------------
+// kernel O: the backward of H
+// ---------------------------------------------------------------------------
+
+// Stage `rows` rows of tokens tok0, tok0 + 1, ... (live while row < live)
+// into two shared tiles: Rs from a source that is rotated (q or k, whose
+// tokens lie `rs` elements apart), Ps from one that is copied (v or do, `ps`
+// apart). Dead rows and the padding beyond D are zeros.
+template <typename T, int DP>
+__device__ inline void stage_rows(const T* rsrc, size_t rs, const T* psrc,
+                                  size_t ps, const float* cosp,
+                                  const float* sinp, int tok0, int rows,
+                                  int live, bf16* Rs, bf16* Ps, int D, int r2,
+                                  int tid)
+{
+    constexpr int LD = DP + PADB;
+    constexpr int CH = DP / 8;
+#pragma unroll 4
+    for (int e = tid; e < rows * CH; e += KNT) {
+        const int j = e / CH, d0 = (e % CH) * 8;
+        bf16* s = Ps + (size_t)j * LD + d0;
+        if (j < live && d0 < D)
+            plain_chunk(psrc + (size_t)(tok0 + j) * ps + d0, s);
+        else
+            zero_chunk(s);
+    }
+    const int rch = r2 / 8;
+#pragma unroll 4
+    for (int e = tid; e < rows * rch; e += KNT) {
+        const int j = e / rch, d0 = (e % rch) * 8;
+        bf16* s = Rs + (size_t)j * LD + d0;
+        if (j < live) {
+            const size_t t_ = (size_t)(tok0 + j);
+            rotary_chunk(rsrc + t_ * rs + d0, cosp + t_ * r2 + d0,
+                         sinp + t_ * r2 + d0, s, r2);
+        } else {
+            zero_chunk(s);
+            zero_chunk(s + r2);
+        }
+    }
+    const int tch = CH - 2 * rch;
+    for (int e = tid; e < rows * tch; e += KNT) {
+        const int j = e / tch, d0 = (2 * rch + e % tch) * 8;
+        bf16* s = Rs + (size_t)j * LD + d0;
+        if (j < live && d0 < D)
+            plain_chunk(rsrc + (size_t)(tok0 + j) * rs + d0, s);
+        else
+            zero_chunk(s);
+    }
+}
+
+// One block of 4 warps per (n, h, tile of 64 tokens, kind). Kind 0 (dq):
+// the tile's tokens are queries, the window their keys. Kind 1 (dk, dv):
+// the tile's tokens are keys, the window the queries that see them. In both
+// a warp owns 16 rows of the tile and walks its stretch of the window in
+// tiles of 16 columns:
+//   s  = A1 . W1^T   (dq: q . k; dk: k . q)     bf16 products, f32 sums
+//   dp = A2 . W2^T   (dq: do . v; dk: v . do)
+//   p  = exp(s / sqrt(D) - lse[query]), 0 where masked
+//   ds = bf16(p (dp - Di[query]) / sqrt(D))
+//   acc1 += ds . W1                    (dq += ds . k; dk += ds^T . q)
+//   acc2 += bf16(p) . W2               (dk kind only: dv += p^T . do)
+// then acc1 is rotated back by -theta at its own tokens and both are stored.
+template <typename T, int DP>
+__global__ void __launch_bounds__(KNT)
+fused_attention_bwd_kernel(
+    const T* __restrict__ qkv, const float* __restrict__ cosp,
+    const float* __restrict__ sinp, const float* __restrict__ lse,
+    const T* __restrict__ o, const T* __restrict__ dout,
+    T* __restrict__ dqkv, int Tn, int H, int D, int r2, int left, int right,
+    int t_real, int rows_max, int n_tiles, float scale)
+{
+    constexpr int LD = DP + PADB;
+    constexpr int KT = DP / 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* A1s = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD] q or k
+    bf16* A2s = A1s + BQ * LD;                       // [BQ][LD] do or v
+    bf16* W1s = A2s + BQ * LD;                       // [rows_max][LD] k or q
+    bf16* W2s = W1s + (size_t)rows_max * LD;         // [rows_max][LD] v or do
+    float* LSEs = reinterpret_cast<float*>(W2s + (size_t)rows_max * LD);
+    float* DIs = LSEs + max(BQ, rows_max);           // the query rows' Di
+
+    const int tid = threadIdx.x;
+    const int tile = blockIdx.x % n_tiles;
+    const bool dk_kind = (blockIdx.x / n_tiles) & 1;
+    const int h = (blockIdx.x / (2 * n_tiles)) % H;
+    const int n = blockIdx.x / (2 * n_tiles * H);
+    const int t0 = tile * BQ;
+    const int t_end = min(t0 + BQ, Tn);             // exclusive
+    int w_beg, w_end;                               // the window, exclusive
+    if (!dk_kind) {
+        w_beg = max(0, t0 - left);
+        w_end = min(t_real, t_end + right);
+    } else {
+        const int kl_end = min(t_end, t_real);      // keys that anyone sees
+        w_beg = max(0, t0 - right);
+        w_end = kl_end > t0 ? min(Tn, kl_end + left) : w_beg;
+    }
+    const int wn = max(w_end - w_beg, 0);
+    const int wnp = round_up(wn, 16);               // <= rows_max
+
+    const size_t tok = (size_t)3 * H * D;           // qkv's token stride
+    const size_t otok = (size_t)H * D;              // o's and do's
+    const T* qb = qkv + (size_t)n * Tn * tok + (size_t)h * D;
+    const T* kb = qb + (size_t)H * D;
+    const T* vb = qb + (size_t)2 * H * D;
+    const T* ob = o + (size_t)n * Tn * otok + (size_t)h * D;
+    const T* dob = dout + (size_t)n * Tn * otok + (size_t)h * D;
+    const float* lb = lse + ((size_t)n * H + h) * Tn;
+
+    stage_rows<T, DP>(dk_kind ? kb : qb, tok, dk_kind ? vb : dob,
+                      dk_kind ? tok : otok, cosp, sinp, t0, BQ, t_end - t0,
+                      A1s, A2s, D, r2, tid);
+    stage_rows<T, DP>(dk_kind ? qb : kb, tok, dk_kind ? dob : vb,
+                      dk_kind ? otok : tok, cosp, sinp, w_beg, wnp, wn, W1s,
+                      W2s, D, r2, tid);
+    // the query rows' lse and Di = sum_d do o in f32, in one fixed order: 8
+    // lanes a row, lane l8 over the chunks l8, l8 + 8, ... of 8 elements,
+    // then a tree over the 8 lanes (both kinds of block run this same code,
+    // so a query's Di has the same bits in each)
+    {
+        const int qn = dk_kind ? wnp : BQ;          // a multiple of 16
+        const int l8 = tid & 7;
+        for (int row = tid >> 3; row < qn; row += KNT / 8) {
+            const int tq = dk_kind ? w_beg + row : t0 + row;
+            const bool live = dk_kind ? row < wn : tq < Tn;
+            float acc = 0.f;
+            if (live) {
+                const T* dr = dob + (size_t)tq * otok;
+                const T* orow = ob + (size_t)tq * otok;
+                for (int d0 = l8 * 8; d0 < D; d0 += 64) {
+                    float x[8], y[8];
+                    load8(dr + d0, x);
+                    load8(orow + d0, y);
+#pragma unroll
+                    for (int i = 0; i < 8; ++i) acc = fmaf(x[i], y[i], acc);
+                }
+            }
+#pragma unroll
+            for (int d = 1; d <= 4; d <<= 1)
+                acc += __shfl_xor_sync(0xffffffffu, acc, d);
+            if (l8 == 0) {
+                DIs[row] = acc;
+                LSEs[row] = live ? lb[tq] : 0.f;
+            }
+        }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+    const int w = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, c4 = lane & 3;
+    const int r0 = w * 16;
+    if (t0 + r0 >= Tn) return;                      // no live row in the warp
+    const int ia = t0 + r0 + g, ib = ia + 8;        // the thread's two rows
+
+    uint32_t a1[KT][4], a2[KT][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+        const bf16* p1 = A1s + (r0 + g) * LD + kt * 16 + 2 * c4;
+        const bf16* p2 = A2s + (r0 + g) * LD + kt * 16 + 2 * c4;
+        a1[kt][0] = *reinterpret_cast<const uint32_t*>(p1);
+        a1[kt][1] = *reinterpret_cast<const uint32_t*>(p1 + 8 * LD);
+        a1[kt][2] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+        a1[kt][3] = *reinterpret_cast<const uint32_t*>(p1 + 8 * LD + 8);
+        a2[kt][0] = *reinterpret_cast<const uint32_t*>(p2);
+        a2[kt][1] = *reinterpret_cast<const uint32_t*>(p2 + 8 * LD);
+        a2[kt][2] = *reinterpret_cast<const uint32_t*>(p2 + 8);
+        a2[kt][3] = *reinterpret_cast<const uint32_t*>(p2 + 8 * LD + 8);
+    }
+
+    // the warp's stretch of the window, in tiles of 16 columns
+    const int row_last = min(t0 + r0 + 15, Tn - 1);
+    int lo, hi;                                     // tokens, inclusive
+    if (!dk_kind) {
+        lo = t0 + r0 - left;
+        hi = row_last + right;
+    } else {
+        lo = t0 + r0 - right;
+        hi = t0 + r0 < t_real ? min(row_last, t_real - 1) + left : lo - 1;
+    }
+    const int j_lo = max(w_beg, lo) - w_beg;
+    const int j_hi = min(w_end, hi + 1) - w_beg;
+    const int c_lo = j_lo / 16;
+    const int c_hi = j_hi > j_lo ? (j_hi + 15) / 16 : c_lo;
+
+    // the dq kind's rows are queries: their lse and Di once
+    const float lse_a = dk_kind ? 0.f : LSEs[r0 + g];
+    const float lse_b = dk_kind ? 0.f : LSEs[r0 + g + 8];
+    const float di_a = dk_kind ? 0.f : DIs[r0 + g];
+    const float di_b = dk_kind ? 0.f : DIs[r0 + g + 8];
+
+    float acc1[2 * KT][4], acc2[2 * KT][4];
+#pragma unroll
+    for (int dt = 0; dt < 2 * KT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc1[dt][e] = acc2[dt][e] = 0.f;
+
+    const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix rows
+    const int lcol = (lane >> 4) * 8;
+#pragma unroll 1
+    for (int c = c_lo; c < c_hi; ++c) {
+        float ds[2][4], pp[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+            float s[4] = {0.f, 0.f, 0.f, 0.f};
+            float dp[4] = {0.f, 0.f, 0.f, 0.f};
+            const int cw = c * 16 + nt * 8;         // the n-tile's window row
+            const bf16* w1 = W1s + (size_t)(cw + g) * LD + 2 * c4;
+            const bf16* w2 = W2s + (size_t)(cw + g) * LD + 2 * c4;
+#pragma unroll
+            for (int kt = 0; kt < KT; ++kt) {
+                mma_bf16(s, a1[kt],
+                         *reinterpret_cast<const uint32_t*>(w1 + kt * 16),
+                         *reinterpret_cast<const uint32_t*>(w1 + kt * 16 + 8));
+                mma_bf16(dp, a2[kt],
+                         *reinterpret_cast<const uint32_t*>(w2 + kt * 16),
+                         *reinterpret_cast<const uint32_t*>(w2 + kt * 16 + 8));
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int wc = cw + 2 * c4 + (e & 1);  // window row of entry e
+                const int col = w_beg + wc;
+                const int row = e < 2 ? ia : ib;
+                const int i = dk_kind ? col : row;     // the query
+                const int j = dk_kind ? row : col;     // the key
+                const bool ok = j - i >= -left && j - i <= right
+                    && j < t_real && col < w_end && row < Tn;
+                const float L = dk_kind ? LSEs[wc] : (e < 2 ? lse_a : lse_b);
+                const float Di = dk_kind ? DIs[wc] : (e < 2 ? di_a : di_b);
+                const float p = ok ? __expf(s[e] * scale - L) : 0.f;
+                pp[nt][e] = p;
+                ds[nt][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[e], Di)),
+                                      scale);
+            }
+        }
+        uint32_t da[4];
+        da[0] = pack_bf16(ds[0][0], ds[0][1]);
+        da[1] = pack_bf16(ds[0][2], ds[0][3]);
+        da[2] = pack_bf16(ds[1][0], ds[1][1]);
+        da[3] = pack_bf16(ds[1][2], ds[1][3]);
+        const bf16* w1p = W1s + (size_t)(c * 16 + lrow) * LD + lcol;
+#pragma unroll
+        for (int dk = 0; dk < KT; ++dk) {
+            uint32_t wb[4];
+            ldmatrix_x4_trans(wb, w1p + dk * 16);
+            mma_bf16(acc1[2 * dk], da, wb[0], wb[1]);
+            mma_bf16(acc1[2 * dk + 1], da, wb[2], wb[3]);
+        }
+        if (dk_kind) {
+            uint32_t pa[4];
+            pa[0] = pack_bf16(pp[0][0], pp[0][1]);
+            pa[1] = pack_bf16(pp[0][2], pp[0][3]);
+            pa[2] = pack_bf16(pp[1][0], pp[1][1]);
+            pa[3] = pack_bf16(pp[1][2], pp[1][3]);
+            const bf16* w2p = W2s + (size_t)(c * 16 + lrow) * LD + lcol;
+#pragma unroll
+            for (int dk = 0; dk < KT; ++dk) {
+                uint32_t wb[4];
+                ldmatrix_x4_trans(wb, w2p + dk * 16);
+                mma_bf16(acc2[2 * dk], pa, wb[0], wb[1]);
+                mma_bf16(acc2[2 * dk + 1], pa, wb[2], wb[3]);
+            }
+        }
+    }
+
+    // rotate acc1 back by -theta at the rows' own tokens, in f32 with every
+    // product and sum rounded on its own: element d < r2 pairs with d + r2,
+    // which the same thread holds r2 / 8 column tiles further on (the loops
+    // unroll, so the pair is picked without indexing registers at run time)
+    const int r8 = r2 / 8;
+#pragma unroll
+    for (int dt = 0; dt < 2 * KT; ++dt) {
+        if (dt >= r8) continue;
+#pragma unroll
+        for (int pt = 0; pt < 2 * KT; ++pt) {
+            if (pt != dt + r8) continue;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int tk = half ? ib : ia;
+                if (tk >= Tn) continue;
+                const size_t at = (size_t)tk * r2 + dt * 8 + 2 * c4;
+                const float2 cc = *reinterpret_cast<const float2*>(cosp + at);
+                const float2 ss = *reinterpret_cast<const float2*>(sinp + at);
+#pragma unroll
+                for (int m = 0; m < 2; ++m) {
+                    const int e = 2 * half + m;
+                    const float cv = m ? cc.y : cc.x, sv = m ? ss.y : ss.x;
+                    const float x1 = acc1[dt][e], x2 = acc1[pt][e];
+                    acc1[dt][e] = __fadd_rn(__fmul_rn(x1, cv),
+                                            __fmul_rn(x2, sv));
+                    acc1[pt][e] = __fsub_rn(__fmul_rn(x2, cv),
+                                            __fmul_rn(x1, sv));
+                }
+            }
+        }
+    }
+
+    T* base = dqkv + (size_t)n * Tn * tok + (size_t)h * D;
+    T* d1 = base + (dk_kind ? (size_t)H * D : 0);   // dq or dk
+    T* d2 = base + (size_t)2 * H * D;               // dv
+#pragma unroll
+    for (int dt = 0; dt < 2 * KT; ++dt) {
+        const int d = dt * 8 + 2 * c4;
+        if (d >= D) continue;
+        if (ia < Tn)
+            store_pair(d1 + (size_t)ia * tok + d, acc1[dt][0], acc1[dt][1]);
+        if (ib < Tn)
+            store_pair(d1 + (size_t)ib * tok + d, acc1[dt][2], acc1[dt][3]);
+        if (dk_kind) {
+            if (ia < Tn)
+                store_pair(d2 + (size_t)ia * tok + d, acc2[dt][0],
+                           acc2[dt][1]);
+            if (ib < Tn)
+                store_pair(d2 + (size_t)ib * tok + d, acc2[dt][2],
+                           acc2[dt][3]);
+        }
+    }
+}
+
+template <typename T, int DP>
+int launch_bwd(const void* qkv, const void* cosp, const void* sinp,
+               const float* lse, const void* o, const void* dout, void* dqkv,
+               int N, int Tn, int H, int D, int r2, int left, int right,
+               int t_real, cudaStream_t stream)
+{
+    const int rows_max = round_up(min(left + BQ + right, Tn), 16);
+    const int n_tiles = (Tn + BQ - 1) / BQ;
+    const size_t smem = (size_t)(2 * BQ + 2 * rows_max) * (DP + PADB)
+        * sizeof(bf16) + (size_t)2 * max(BQ, rows_max) * sizeof(float);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const long long blocks = (long long)N * H * 2 * n_tiles;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const auto kernel = fused_attention_bwd_kernel<T, DP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const float scale = (float)(1.0 / sqrt((double)D));
+    kernel<<<(unsigned)blocks, KNT, smem, stream>>>(
+        static_cast<const T*>(qkv), static_cast<const float*>(cosp),
+        static_cast<const float*>(sinp), lse, static_cast<const T*>(o),
+        static_cast<const T*>(dout), static_cast<T*>(dqkv), Tn, H, D, r2,
+        left, right, t_real, rows_max, n_tiles, scale);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_fused(int D, const void* qkv, const void* cosp, const void* sinp,
-                   void* out, int N, int Tn, int H, int r2, int left,
-                   int right, int t_real, cudaStream_t stream)
+int dispatch_bwd(int D, const void* qkv, const void* cosp, const void* sinp,
+                 const float* lse, const void* o, const void* dout,
+                 void* dqkv, int N, int Tn, int H, int r2, int left,
+                 int right, int t_real, cudaStream_t stream)
 {
     if (D <= 32)
-        return launch_fused<T, 32>(qkv, cosp, sinp, out, N, Tn, H, D, r2,
-                                   left, right, t_real, stream);
+        return launch_bwd<T, 32>(qkv, cosp, sinp, lse, o, dout, dqkv, N, Tn,
+                                 H, D, r2, left, right, t_real, stream);
     if (D <= 64)
-        return launch_fused<T, 64>(qkv, cosp, sinp, out, N, Tn, H, D, r2,
-                                   left, right, t_real, stream);
-    return launch_fused<T, 128>(qkv, cosp, sinp, out, N, Tn, H, D, r2, left,
-                                right, t_real, stream);
+        return launch_bwd<T, 64>(qkv, cosp, sinp, lse, o, dout, dqkv, N, Tn,
+                                 H, D, r2, left, right, t_real, stream);
+    return launch_bwd<T, 128>(qkv, cosp, sinp, lse, o, dout, dqkv, N, Tn, H,
+                              D, r2, left, right, t_real, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -624,6 +1034,14 @@ int launch_local(const void* q, const void* k, const void* v, void* out,
     return (int)cudaGetLastError();
 }
 
+bool fused_args_ok(int N, int T, int H, int D, int r2, int left, int right,
+                   int t_real)
+{
+    return N >= 1 && T >= 1 && H >= 1 && D >= 8 && D <= 128 && D % 8 == 0
+        && r2 >= 8 && r2 % 8 == 0 && 2 * r2 <= D && left >= 0 && left < 128
+        && right >= 0 && right <= 128 && t_real >= 1 && t_real <= T;
+}
+
 }  // namespace
 
 // Kernel K. qkv [N, T, 3, H, D] and out [N, T, H, D] contiguous, bf16 or
@@ -635,16 +1053,53 @@ extern "C" int fused_rotary_window_attention(
     int T, int H, int D, int r2, int left, int right, int t_real, int is_f32,
     void* stream)
 {
-    if (N < 1 || T < 1 || H < 1 || D < 8 || D > 128 || D % 8 != 0 || r2 < 8
-        || r2 % 8 != 0 || 2 * r2 > D || left < 0 || left >= 128 || right < 0
-        || right > 128 || t_real < 1 || t_real > T)
+    if (!fused_args_ok(N, T, H, D, r2, left, right, t_real))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return is_f32
-        ? dispatch_fused<float>(D, qkv, cosp, sinp, out, N, T, H, r2, left,
-                                right, t_real, s)
-        : dispatch_fused<bf16>(D, qkv, cosp, sinp, out, N, T, H, r2, left,
-                               right, t_real, s);
+        ? dispatch_fused<float, false>(D, qkv, cosp, sinp, out, nullptr, N, T,
+                                       H, r2, left, right, t_real, s)
+        : dispatch_fused<bf16, false>(D, qkv, cosp, sinp, out, nullptr, N, T,
+                                      H, r2, left, right, t_real, s);
+}
+
+// Kernel H: kernel K that also writes lse [N, H, T] f32, each query's
+// log-sum-exp max + log(sum) of its scaled, masked scores (-1e30 where the
+// query sees no key). Its out equals kernel K's bit for bit.
+extern "C" int fused_rotary_window_attention_lse(
+    const void* qkv, const void* cosp, const void* sinp, void* out,
+    void* lse, int N, int T, int H, int D, int r2, int left, int right,
+    int t_real, int is_f32, void* stream)
+{
+    if (!fused_args_ok(N, T, H, D, r2, left, right, t_real))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* l = static_cast<float*>(lse);
+    return is_f32
+        ? dispatch_fused<float, true>(D, qkv, cosp, sinp, out, l, N, T, H, r2,
+                                      left, right, t_real, s)
+        : dispatch_fused<bf16, true>(D, qkv, cosp, sinp, out, l, N, T, H, r2,
+                                     left, right, t_real, s);
+}
+
+// Kernel O: the backward of H. qkv, cos, sin, t_real as H took them; lse
+// [N, H, T] f32 as H wrote it; o (H's out) and dout, its cotangent, [N, T, H,
+// D] -> dqkv [N, T, 3, H, D]. qkv, o, dout and dqkv contiguous, of one type
+// (bf16 or, is_f32, f32), at 16-byte addresses.
+extern "C" int fused_rotary_window_attention_bwd(
+    const void* qkv, const void* cosp, const void* sinp, const void* lse,
+    const void* o, const void* dout, void* dqkv, int N, int T, int H, int D,
+    int r2, int left, int right, int t_real, int is_f32, void* stream)
+{
+    if (!fused_args_ok(N, T, H, D, r2, left, right, t_real))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* l = static_cast<const float*>(lse);
+    return is_f32
+        ? dispatch_bwd<float>(D, qkv, cosp, sinp, l, o, dout, dqkv, N, T, H,
+                              r2, left, right, t_real, s)
+        : dispatch_bwd<bf16>(D, qkv, cosp, sinp, l, o, dout, dqkv, N, T, H,
+                             r2, left, right, t_real, s);
 }
 
 // Kernel L. q, k, v, out [N, H, T, D] with element strides

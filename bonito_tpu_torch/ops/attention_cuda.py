@@ -1,6 +1,6 @@
 """
-Kernels K and L — banded self-attention (``csrc/attention.cu``) — with
-their plain PyTorch versions and launch counts.
+Kernels K, H, O and L — banded self-attention (``csrc/attention.cu``) —
+with their plain PyTorch versions and launch counts.
 
 K, ``fused_rotary_window_attention``, replaces
 ``bonito_tpu/ops/attention_pallas.py:fused_rotary_window_attention``
@@ -15,6 +15,16 @@ normalises before the second product, so kernel and plain version do too
 (two passes over the scores, no online softmax): they then differ by the
 order of f32 sums and the last bit of exp only.
 
+H and O, ``fused_rotary_window_attention_train`` and
+``fused_rotary_window_attention_bwd``, replace ``attention_pallas.py:
+fused_rotary_window_attention_train`` (``_fused_fwd_kernel_dt``,
+``_fused_bwd_kernel_dt``), the training twin: H is K that also returns each
+query's log-sum-exp (lse [N, H, T] f32; its o is K's bit for bit), O the
+flash-style backward from qkv, lse, o and the cotangent to dqkv, rotary's
+inverse included, rounding where the TPU kernel rounds (``csrc/attention.cu``
+lists the points). ``ops.attention.fused_attention_train`` is the autograd
+Function around them, 18 + 18 launches per sup train step.
+
 L, ``local_attention``, replaces ``attention_pallas.py:
 local_attention_pallas`` (``_kernel``), the banded attention of the
 non-fused route (``ops.attention.attend``): q, k, v [N, H, T, D] with
@@ -28,8 +38,12 @@ padding that the caller drops).
 
 Each wrapper runs the plain version for a tensor on the CPU and the
 kernel for a tensor on the card; it never falls back from one to the
-other. ``csrc/attention.cu`` says how the kernels are laid out and what
-bounds them.
+other. A kernel's result carries no autograd graph, so on the card each
+wrapper raises where a gradient is wanted through its input: the
+differentiable routes are ``ops.attention.fused_attention_train`` (H, O)
+and ``ops.attention.attend(..., differentiable=True)``. The plain versions
+on the CPU stay differentiable as any torch code. ``csrc/attention.cu``
+says how the kernels are laid out and what bounds them.
 """
 
 import ctypes
@@ -80,6 +94,15 @@ def band_mask(T, window, t_real=None, device=None):
     return mask
 
 
+def rotary_inv_f32(x, cos, sin):
+    """The inverse (transpose) of ``rotary_f32``, the rotation by -theta,
+    as bonito_tpu's ``_rot_dt_inv``."""
+    r2 = cos.shape[-1]
+    x1, x2, rest = x[..., :r2], x[..., r2:2 * r2], x[..., 2 * r2:]
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    return torch.cat([x1 * c + x2 * s, x2 * c - x1 * s, rest], dim=-1)
+
+
 def rotary_f32(x, cos, sin):
     """Non-interleaved rotary on the leading 2 * r2 of the head dim, in
     f32, every product and sum rounded on its own. x [N, T, H, D] f32;
@@ -95,28 +118,83 @@ def _slabs(N, H, T):
     return [(n, min(n + step, N)) for n in range(0, N, step)]
 
 
+def _rotated_bf16(x, cos, sin):
+    """q, k, v of an f32 slab of qkv [n, T, 3, H, D] as the kernels multiply
+    them: q and k rotated in f32, all three rounded to bf16; [n, H, T, D]
+    f32."""
+    bf16 = torch.bfloat16
+    q = rotary_f32(x[:, :, 0], cos, sin).to(bf16).float().transpose(1, 2)
+    k = rotary_f32(x[:, :, 1], cos, sin).to(bf16).float().transpose(1, 2)
+    v = x[:, :, 2].to(bf16).float().transpose(1, 2)
+    return q, k, v
+
+
+def _fused_plain(qkv, cos, sin, window, t_real, with_lse):
+    N, T, _, H, D = qkv.shape
+    mask = band_mask(T, window, t_real, qkv.device)
+    cos, sin = cos.float(), sin.float()
+    scale = 1.0 / D ** 0.5
+    out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty(N, H, T, dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
+    for a, b in _slabs(N, H, T):
+        q, k, v = _rotated_bf16(qkv[a:b].float(), cos, sin)
+        s = torch.matmul(q, k.transpose(-1, -2)) * scale
+        s = torch.where(mask, s, NEG)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        den = p.sum(-1, keepdim=True)
+        if with_lse:
+            lse[a:b] = (m + torch.log(den))[..., 0]
+        p = torch.where(mask, p / den, 0.0).to(torch.bfloat16).float()
+        out[a:b] = torch.matmul(p, v).transpose(1, 2).to(qkv.dtype)
+    return out, lse
+
+
 def fused_rotary_window_attention_plain(qkv, cos, sin, window, t_real=None):
     """qkv [N, T, 3, H, D] (bf16 or f32); cos/sin [T, r2] f32 ->
     [N, T, H, D] in qkv's dtype, rounding as the module says. ``t_real``
     masks the keys at and beyond it (a stream the caller padded)."""
+    return _fused_plain(qkv, cos, sin, window, t_real, False)[0]
+
+
+def fused_rotary_window_attention_train_plain(qkv, cos, sin, window,
+                                              t_real=None):
+    """H's function: (``fused_rotary_window_attention_plain``'s o, lse
+    [N, H, T] f32 = max + log(sum) of each query's scaled, masked scores;
+    about -1e30 where a query sees no key)."""
+    return _fused_plain(qkv, cos, sin, window, t_real, True)
+
+
+def fused_rotary_window_attention_bwd_plain(qkv, cos, sin, lse, o, do,
+                                            window, t_real=None):
+    """O's function: dqkv [N, T, 3, H, D] in qkv's dtype from qkv, cos/sin,
+    H's lse and o, and o's cotangent ``do``, with the TPU kernel's rounding
+    points: p = exp(s - lse) (0 where masked), dp = bf16(do) . bf16(v), Di
+    = sum do o in f32, ds = bf16(p (dp - Di) / sqrt(D)), dq and dk
+    accumulated in f32 from bf16 operands and rotated back by -theta in
+    f32, dv = bf16(p)^T . bf16(do). cos and sin get no gradient."""
     N, T, _, H, D = qkv.shape
     bf16 = torch.bfloat16
     mask = band_mask(T, window, t_real, qkv.device)
     cos, sin = cos.float(), sin.float()
     scale = 1.0 / D ** 0.5
-    out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     for a, b in _slabs(N, H, T):
-        x = qkv[a:b].float()
-        q = rotary_f32(x[:, :, 0], cos, sin).to(bf16).float().transpose(1, 2)
-        k = rotary_f32(x[:, :, 1], cos, sin).to(bf16).float().transpose(1, 2)
-        v = x[:, :, 2].to(bf16).float().transpose(1, 2)
+        q, k, v = _rotated_bf16(qkv[a:b].float(), cos, sin)
+        d_o = do[a:b].float().transpose(1, 2)
         s = torch.matmul(q, k.transpose(-1, -2)) * scale
-        s = torch.where(mask, s, NEG)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        p = p / p.sum(-1, keepdim=True)
-        p = torch.where(mask, p, 0.0).to(bf16).float()
-        out[a:b] = torch.matmul(p, v).transpose(1, 2).to(qkv.dtype)
-    return out
+        p = torch.where(mask, torch.exp(s - lse[a:b, :, :, None]), 0.0)
+        dp = torch.matmul(d_o.to(bf16).float(), v.transpose(-1, -2))
+        di = (d_o * o[a:b].float().transpose(1, 2)).sum(-1, keepdim=True)
+        ds = (p * (dp - di) * scale).to(bf16).float()
+        dq = rotary_inv_f32(torch.matmul(ds, k).transpose(1, 2), cos, sin)
+        dk = rotary_inv_f32(torch.matmul(ds.transpose(-1, -2), q)
+                            .transpose(1, 2), cos, sin)
+        dv = torch.matmul(p.to(bf16).float().transpose(-1, -2),
+                          d_o.to(bf16).float()).transpose(1, 2)
+        dqkv[a:b] = torch.stack([dq, dk, dv], dim=2).to(qkv.dtype)
+    return dqkv
 
 
 def local_attention_plain(q, k, v, window):
@@ -159,6 +237,38 @@ def _check_packed(name, **tensors):
                 f"{x.data_ptr() % 16} (ops.relayout.pin_layout copies one)")
 
 
+FUSED_GRAD_ROUTE = ("ops.attention.fused_attention_train (kernels H and O) "
+                    "is the differentiable route")
+
+
+def _check_fused(name, qkv, cos, sin, window, t_real):
+    """Kernels K, H and O's checks of qkv, cos, sin, the window and t_real;
+    returns (rotary_dim, t_real)."""
+    _check_types(name, [qkv])
+    if cos.device != qkv.device or sin.device != qkv.device:
+        raise ValueError(f"kernel {name} needs cos and sin on {qkv.device}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise TypeError(f"kernel {name} takes f32 cos and sin, got "
+                        f"{cos.dtype} and {sin.dtype}")
+    rotary_dim = 2 * cos.shape[-1]
+    if not fused_supported(qkv, window, rotary_dim):
+        raise ValueError(
+            f"kernel {name}: qkv {tuple(qkv.shape)}, window {window}, "
+            f"rotary_dim {rotary_dim} need [N, T, 3, H, D] with D a multiple "
+            f"of 8 up to {MAX_D}, 0 <= left < {BLOCK}, 0 <= right <= {BLOCK} "
+            f"and rotary_dim a multiple of 16 up to D")
+    N, T = qkv.shape[:2]
+    t_real = T if t_real is None else int(t_real)
+    if (tuple(cos.shape) != (T, rotary_dim // 2) or cos.shape != sin.shape
+            or N < 1 or T < 1 or not 1 <= t_real <= T):
+        raise ValueError(
+            f"kernel {name}: cos {tuple(cos.shape)} and sin "
+            f"{tuple(sin.shape)} must be [T, rotary_dim / 2] for qkv "
+            f"{tuple(qkv.shape)}, and t_real {t_real} in 1 .. T")
+    _check_packed(name, qkv=qkv, cos=cos, sin=sin)
+    return rotary_dim, t_real
+
+
 def fused_rotary_window_attention(qkv, cos, sin, window, t_real=None):
     """``fused_rotary_window_attention_plain``'s function: the plain
     version for a CPU tensor, kernel K for a CUDA tensor (bf16 or f32;
@@ -166,28 +276,9 @@ def fused_rotary_window_attention(qkv, cos, sin, window, t_real=None):
     if qkv.device.type == "cpu":
         return fused_rotary_window_attention_plain(qkv, cos, sin, window,
                                                    t_real)
-    _check_types("K", [qkv])
-    if cos.device != qkv.device or sin.device != qkv.device:
-        raise ValueError(f"kernel K needs cos and sin on {qkv.device}")
-    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
-        raise TypeError(f"kernel K takes f32 cos and sin, got {cos.dtype} "
-                        f"and {sin.dtype}")
-    rotary_dim = 2 * cos.shape[-1]
-    if not fused_supported(qkv, window, rotary_dim):
-        raise ValueError(
-            f"kernel K: qkv {tuple(qkv.shape)}, window {window}, rotary_dim "
-            f"{rotary_dim} need [N, T, 3, H, D] with D a multiple of 8 up to "
-            f"{MAX_D}, 0 <= left < {BLOCK}, 0 <= right <= {BLOCK} and "
-            f"rotary_dim a multiple of 16 up to D")
+    build.refuse_grad("K", [qkv], FUSED_GRAD_ROUTE)
+    rotary_dim, t_real = _check_fused("K", qkv, cos, sin, window, t_real)
     N, T, _, H, D = qkv.shape
-    t_real = T if t_real is None else int(t_real)
-    if (tuple(cos.shape) != (T, rotary_dim // 2) or cos.shape != sin.shape
-            or N < 1 or T < 1 or not 1 <= t_real <= T):
-        raise ValueError(
-            f"kernel K: cos {tuple(cos.shape)} and sin {tuple(sin.shape)} "
-            f"must be [T, rotary_dim / 2] for qkv {tuple(qkv.shape)}, and "
-            f"t_real {t_real} in 1 .. T")
-    _check_packed("K", qkv=qkv, cos=cos, sin=sin)
     out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
     fused_rotary_window_attention.launches += 1
     build.check(build.library().fused_rotary_window_attention(
@@ -198,6 +289,58 @@ def fused_rotary_window_attention(qkv, cos, sin, window, t_real=None):
     return out
 
 
+def fused_rotary_window_attention_train(qkv, cos, sin, window, t_real=None):
+    """``fused_rotary_window_attention_train_plain``'s function, (o, lse):
+    the plain version for a CPU tensor, kernel H for a CUDA tensor (as K
+    takes it)."""
+    if qkv.device.type == "cpu":
+        return fused_rotary_window_attention_train_plain(qkv, cos, sin,
+                                                         window, t_real)
+    build.refuse_grad("H", [qkv], FUSED_GRAD_ROUTE)
+    rotary_dim, t_real = _check_fused("H", qkv, cos, sin, window, t_real)
+    N, T, _, H, D = qkv.shape
+    out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty(N, H, T, dtype=torch.float32, device=qkv.device)
+    fused_rotary_window_attention_train.launches += 1
+    build.check(build.library().fused_rotary_window_attention_lse(
+        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), N, T, H, D, rotary_dim // 2, int(window[0]),
+        int(window[1]), t_real, int(qkv.dtype == torch.float32),
+        build.stream_of(qkv)), "fused_rotary_window_attention_lse")
+    return out, lse
+
+
+def fused_rotary_window_attention_bwd(qkv, cos, sin, lse, o, do, window,
+                                      t_real=None):
+    """``fused_rotary_window_attention_bwd_plain``'s function: the plain
+    version for CPU tensors, kernel O for CUDA tensors (qkv, o and do of one
+    type, contiguous; lse [N, H, T] f32 as H wrote it)."""
+    if qkv.device.type == "cpu":
+        return fused_rotary_window_attention_bwd_plain(qkv, cos, sin, lse, o,
+                                                       do, window, t_real)
+    build.refuse_grad("O", [qkv, o, do], FUSED_GRAD_ROUTE)
+    rotary_dim, t_real = _check_fused("O", qkv, cos, sin, window, t_real)
+    _check_types("O", [qkv, o, do])
+    N, T, _, H, D = qkv.shape
+    if (tuple(o.shape) != (N, T, H, D) or o.shape != do.shape
+            or tuple(lse.shape) != (N, H, T) or lse.dtype != torch.float32
+            or lse.device != qkv.device):
+        raise ValueError(
+            f"kernel O: o {tuple(o.shape)} and do {tuple(do.shape)} must be "
+            f"[N, T, H, D] and lse {tuple(lse.shape)} {lse.dtype} [N, H, T] "
+            f"f32 for qkv {tuple(qkv.shape)}")
+    _check_packed("O", o=o, do=do, lse=lse)
+    dqkv = torch.empty_like(qkv)
+    fused_rotary_window_attention_bwd.launches += 1
+    build.check(build.library().fused_rotary_window_attention_bwd(
+        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), lse.data_ptr(),
+        o.data_ptr(), do.data_ptr(), dqkv.data_ptr(), N, T, H, D,
+        rotary_dim // 2, int(window[0]), int(window[1]), t_real,
+        int(qkv.dtype == torch.float32), build.stream_of(qkv)),
+        "fused_rotary_window_attention_bwd")
+    return dqkv
+
+
 def local_attention(q, k, v, window):
     """``local_attention_plain``'s function: the plain version for a CPU
     tensor, kernel L for CUDA tensors (bf16 or f32, D a multiple of 8 up
@@ -205,6 +348,8 @@ def local_attention(q, k, v, window):
     The result has q's strides."""
     if q.device.type == "cpu":
         return local_attention_plain(q, k, v, window)
+    build.refuse_grad("L", [q, k, v], "ops.attention.attend(..., "
+                      "differentiable=True) is the differentiable route")
     _check_types("L", [q, k, v])
     if not local_supported(q, window) or k.shape != q.shape \
             or v.shape != q.shape or q.numel() == 0:
@@ -233,4 +378,6 @@ def local_attention(q, k, v, window):
 
 
 fused_rotary_window_attention.launches = 0
+fused_rotary_window_attention_train.launches = 0
+fused_rotary_window_attention_bwd.launches = 0
 local_attention.launches = 0

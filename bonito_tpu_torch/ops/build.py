@@ -68,6 +68,14 @@ SIGNATURES = {
     # qkv, cos, sin, out, N, T, H, D, r2, left, right, t_real, is_f32, stream
     "fused_rotary_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I,
                                       P],
+    # qkv, cos, sin, out, lse, N, T, H, D, r2, left, right, t_real, is_f32,
+    # stream
+    "fused_rotary_window_attention_lse": [P, P, P, P, P, I, I, I, I, I, I, I,
+                                          I, I, P],
+    # qkv, cos, sin, lse, o, dout, dqkv, N, T, H, D, r2, left, right, t_real,
+    # is_f32, stream
+    "fused_rotary_window_attention_bwd": [P, P, P, P, P, P, P, I, I, I, I, I,
+                                          I, I, I, I, P],
     # q, k, v, out, strides[12], N, H, T, D, left, right, is_f32, stream
     "local_attention": [P, P, P, P, LP, I, I, I, I, I, I, I, P],
     # in, out, nd, sizes[nd], strides[nd], unit, stream
@@ -187,6 +195,26 @@ def library():
 def check(rc, name):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {rc}")
+
+
+# what ``refuse_grad`` names in place of an inference-only kernel
+TRAIN_ROUTE = ("an LSTM trains through ops.lstm.lstm_train (kernels R and S), "
+               "which model.train() selects")
+NO_GRAD_ROUTE = "an int8 model does not train: run it under torch.no_grad()"
+DECODE_ROUTE = "a decode has no gradient: run it under torch.no_grad()"
+
+
+def refuse_grad(name, tensors, route):
+    """A kernel writes into memory that autograd does not see, so its result
+    would carry no gradient back to ``tensors``: raise where one is wanted
+    (grad mode on and a tensor that requires grad). ``route`` names what to
+    call instead."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"kernel {name} keeps no autograd graph, and a gradient is "
+            f"wanted through its input: {route}")
 
 
 def stream_of(tensor):

@@ -192,6 +192,7 @@ def tcn_forward(moves, blank):
     ``blank``: the plain version for a CPU tensor, kernel B on the card."""
     if moves.device.type == "cpu":
         return tcn_forward_plain(moves, blank)
+    build.refuse_grad("B", [moves], build.DECODE_ROUTE)
     N, T, S = _check_cuda(moves)
     lib = build.library()
     dev = moves.device
@@ -216,6 +217,7 @@ def tcn_backward(moves, move_in, choices, cs, logz, end_state, blank,
     if moves.device.type == "cpu":
         return tcn_backward_plain(moves, move_in, choices, cs, logz,
                                   end_state, blank, qscale, qbias)
+    build.refuse_grad("C", [moves], build.DECODE_ROUTE)
     N, T, S = _check_cuda(moves)
     check_forward_outputs("kernel C", moves.device, N, T, S, move_in, choices,
                           cs, logz, end_state)

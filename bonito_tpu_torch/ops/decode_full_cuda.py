@@ -80,6 +80,7 @@ def full_forward(scores):
     on the card."""
     if scores.device.type == "cpu":
         return full_forward_plain(scores)
+    build.refuse_grad("M", [scores], build.DECODE_ROUTE)
     N, T, S = _check_cuda(scores)
     lib = build.library()
     dev = scores.device
@@ -104,6 +105,7 @@ def full_backward(scores, move_in, choices, cs, logz, end_state, qscale=1.0,
     if scores.device.type == "cpu":
         return full_backward_plain(scores, move_in, choices, cs, logz,
                                    end_state, qscale, qbias)
+    build.refuse_grad("Q", [scores], build.DECODE_ROUTE)
     N, T, S = _check_cuda(scores)
     check_forward_outputs("kernel Q", scores.device, N, T, S, move_in,
                           choices, cs, logz, end_state)

@@ -150,6 +150,7 @@ def tcn_fused_forward(head):
     G on the card."""
     if head.h.device.type == "cpu":
         return tcn_fused_forward_plain(head)
+    build.refuse_grad("G", [head.h, head.wT, head.bias], build.DECODE_ROUTE)
     Th, N, H, S, U = _check_head(head, "kernel G")
     T = Th * U
     h, w, bias = _operands(head, fused_rows(S))
@@ -178,6 +179,7 @@ def tcn_fused_backward(head, move_in, choices, cs, logz, end_state,
     if head.h.device.type == "cpu":
         return tcn_fused_backward_plain(head, move_in, choices, cs, logz,
                                         end_state, qscale, qbias)
+    build.refuse_grad("J", [head.h, head.wT, head.bias], build.DECODE_ROUTE)
     Th, N, H, S, U = _check_head(head, "kernel J")
     T = Th * U
     h, w, bias = _operands(head)

@@ -36,6 +36,7 @@ def lstm_recurrence(xw, w_hh, reverse=False):
     a CPU tensor, kernel A for a CUDA tensor (bf16 only)."""
     if xw.device.type == "cpu":
         return lstm_recurrence_plain(xw, w_hh, reverse=reverse)
+    build.refuse_grad("A", [xw, w_hh], build.TRAIN_ROUTE)
     if xw.device.type != "cuda" or w_hh.device != xw.device:
         raise ValueError(f"kernel A needs xw and w_hh on one CUDA device, "
                          f"got {xw.device} and {w_hh.device}")

@@ -76,6 +76,7 @@ def lstm_fused(x, w_ih, w_hh, b, reverse=False):
     ``fused_supported`` says)."""
     if x.device.type == "cpu":
         return lstm_fused_plain(x, w_ih, w_hh, b, reverse=reverse)
+    build.refuse_grad("F", [x, w_ih, w_hh, b], build.TRAIN_ROUTE)
     if x.device.type != "cuda" or any(
             t.device != x.device for t in (w_ih, w_hh)):
         raise ValueError(f"kernel F needs x, w_ih and w_hh on one CUDA "

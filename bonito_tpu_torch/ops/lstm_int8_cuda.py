@@ -133,6 +133,7 @@ def lstm_int8_fused(x_q, w_ih_q, w_hh_q, ih_scales, scales, b,
     if x_q.device.type == "cpu":
         return lstm_int8_fused_plain(x_q, w_ih_q, w_hh_q, ih_scales, scales,
                                      b, reverse=reverse, out_int8=out_int8)
+    build.refuse_grad("D", [ih_scales, scales, b], build.NO_GRAD_ROUTE)
     _on_one_card("kernel D", x_q, w_ih_q, w_hh_q)
     T, N, C = x_q.shape
     H = w_hh_q.shape[0]
@@ -170,6 +171,7 @@ def lstm_int8_recurrence(xw, w_hh_q, scales, reverse=False):
     _check_int8("kernel E", w_hh_q=w_hh_q)
     if xw.device.type == "cpu":
         return lstm_int8_recurrence_plain(xw, w_hh_q, scales, reverse=reverse)
+    build.refuse_grad("E", [xw, scales], build.NO_GRAD_ROUTE)
     _on_one_card("kernel E", xw, w_hh_q)
     if xw.dtype != torch.bfloat16:
         raise TypeError(f"kernel E takes a bf16 xw (a half=True model), got "

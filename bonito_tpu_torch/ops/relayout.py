@@ -12,9 +12,10 @@ for. An already contiguous tensor is copied too, as the TPU entry does.
 ``pin_layout`` runs the plain version for a tensor on the CPU and the
 kernel for a tensor on the card; it never falls back from one to the
 other. ``relayout_plan`` picks the kernel's variant from the sizes and
-strides alone, so the CPU tests reach it. The TPU entry's custom gradient
-(the cotangent is pinned too) waits for the training slice: this is an
-inference-only copy.
+strides alone, so the CPU tests reach it. Where a gradient is wanted it
+goes through ``PinLayout``, the TPU entry's custom gradient: the copy
+forward and the copy of the cotangent backward (kernel P twice on the
+card, both counted in ``pin_layout.launches``).
 """
 
 import ctypes
@@ -81,7 +82,27 @@ def _array(values):
 
 def pin_layout(x):
     """``pin_layout_plain``'s function: the plain version for a CPU tensor,
-    kernel P for a CUDA tensor of any strides."""
+    kernel P for a CUDA tensor of any strides; through ``PinLayout`` where
+    a gradient is wanted."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return PinLayout.apply(x)
+    return _pin(x)
+
+
+class PinLayout(torch.autograd.Function):
+    """The identity with both directions pinned, as bonito_tpu's
+    ``pin_layout`` VJP: the cotangent is copied row-major too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _pin(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pin(g)
+
+
+def _pin(x):
     if x.device.type == "cpu":
         return pin_layout_plain(x)
     if x.device.type != "cuda":

@@ -11,7 +11,12 @@ bonito_tpu: fused, rotary + band-masked attention in one kernel from the
 packed qkv (``ops.attention_cuda.fused_rotary_window_attention``, kernel
 K), wherever that kernel takes the head shape; else local,
 ``apply_rotary`` and then ``ops.attention.attend`` (kernel L for a band
-that fits, dense otherwise). ``set_attn_route(model, "local")``, or
+that fits, dense otherwise). Where a gradient is wanted (grad mode on and
+qkv requiring grad, as in ``training.make_train_step``; bonito_tpu's
+``ctx["train"]``) the fused route is ``ops.attention.fused_attention_train``
+(kernels H and O) and the local route ``attend(..., differentiable=True)``
+(plain torch under autograd): K and L keep no graph. The output is the same
+either way. ``set_attn_route(model, "local")``, or
 ``load_model(..., attn_route="local")``, puts every layer on the local
 route, which is what bonito_tpu computes off the TPU. The two round
 differently (K rounds its operands and probabilities to bf16 whatever the
@@ -20,8 +25,8 @@ RMSNorm, SwiGLU and the residuals are plain torch, as they are plain XLA
 in bonito_tpu.
 
 bonito_tpu's int8 projections (``--quantize`` with calibrated ``amax``
-scales), rematerialisation and the training twin of kernel K wait for
-their slices.
+scales) and rematerialisation (its opt-in ``jax.checkpoint`` of a layer)
+wait for their slices.
 """
 
 import math
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 
 from bonito_tpu_torch import nn
 from bonito_tpu_torch.crf.model import SeqdistModel  # registers "seqdistmodel"
-from bonito_tpu_torch.ops.attention import attend
+from bonito_tpu_torch.ops.attention import attend, fused_attention_train
 from bonito_tpu_torch.ops.attention_cuda import (
     fused_rotary_window_attention, fused_supported)
 
@@ -76,7 +81,9 @@ class RMSNorm(nn.Layer):
         xf = x.float()
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.scale.float()).to(x.dtype)
+        # the scale in x's dtype first, as bonito_tpu casts every parameter
+        # for a bf16 forward of f32 master weights
+        return (y * self.scale.to(x.dtype).float()).to(x.dtype)
 
     def to_dict(self):
         return {"d_model": self.d_model, "eps": self.eps}
@@ -148,15 +155,19 @@ class MultiHeadAttention(nn.Layer):
             qkv = qkv + self.qkv_b.to(x.dtype)
         qkv = qkv.reshape(N, T, 3, self.nhead, self.head_dim)
         cos, sin = rotary_freqs(T, self.rotary_dim, device=x.device)
+        grad = torch.is_grad_enabled() and qkv.requires_grad
         if self.route(qkv) == "fused":
-            o = fused_rotary_window_attention(qkv, cos, sin, self.attn_window)
+            fused = (fused_attention_train if grad
+                     else fused_rotary_window_attention)
+            o = fused(qkv, cos, sin, self.attn_window)
         else:
             q = apply_rotary(qkv[:, :, 0], cos, sin)
             k = apply_rotary(qkv[:, :, 1], cos, sin)
             v = qkv[:, :, 2]
             # [N, T, H, D] -> [N, H, T, D]
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-            o = attend(q, k, v, window=self.attn_window).transpose(1, 2)
+            o = attend(q, k, v, window=self.attn_window,
+                       differentiable=grad).transpose(1, 2)
         o = torch.matmul(o.reshape(N, T, self.d_model),
                          self.out_w.to(x.dtype))
         if self.out_b is not None:

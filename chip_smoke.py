@@ -90,8 +90,26 @@ PyTorch built for CUDA. In order, it:
     one fast train step (R and S at H 96); and ``python -m
     bonito_tpu_torch train`` (in this process) for one epoch of hac on a
     generated npy set (3 batches of 128 x 6000, one validation batch, which
-    runs A, U, Y, B and C), checking its checkpoint and logs. It prints one
-    ``kernels`` JSON line with all twenty-one kernels.
+    runs A, U, Y, B and C), checking its checkpoint and logs;
+11. runs the sup train step: H and O (the training twin of K: its forward
+    with each query's lse, and the flash-style backward to dqkv) against
+    their plain versions at sup training widths (N 32, 8 heads of 64,
+    window (127, 128); T 1024 and 1000, bf16 and f32, t_real < T, a partial
+    rotary_dim), H's o against K's, and P's backward on a transposed
+    cotangent; the full-width sup train step (the shipped sup model with f32
+    master weights, a bf16 forward, batch 32 x chunk 12288, targets of 1024
+    bases, AdamW 2e-3, clip 2.0: the JAX package's sup train bench): a
+    warm-up step and three timed ones with their launch counts (P 2, H 18,
+    O 18, U, V, Y, Z 1 each per step, nothing else), finite losses and
+    norms, every parameter moved (the convolutions and each wqkv among
+    them), and one step's gradients through the kernels against the same
+    through the plain versions; its time, sup train samples/s and peak
+    memory; one epoch of ``python -m bonito_tpu_torch train --config
+    dna_r10.4.1_e8.2_400bps_sup@v5.0`` on a generated npy set (2 batches of
+    32 x 12288, one validation batch: P, 18 x K, U, Y, B, C); and H's and
+    O's times, plain times and bounds beside rotary + scaled_dot_product_
+    attention with the band as a mask, forward and backward. It prints one
+    ``kernels`` JSON line with all twenty-three kernels.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -236,6 +254,24 @@ LSTM_TRAIN_MAX, LSTM_TRAIN_MEAN = 2.0 ** -6, 1e-3
 # front of BatchNorm, whose gradient is 0 in exact arithmetic, relative to
 # its weight's), the losses within TRAIN_LOSS_TOL.
 TRAIN_GRAD_REL, TRAIN_LOSS_TOL = 0.05, 1e-3
+
+# The sup train step (kernels H and O, P twice, with U, V, Y, Z) as the JAX
+# package's sup train bench builds it (bench.py:221-254): the shipped sup
+# model with f32 master weights and a bf16 forward, batch 32 x chunk 12288 ->
+# 1024 tokens, 2048 decode frames; targets of 1024 bases (1..4) from the
+# seed; AdamW 2e-3, clip 2.0; TRAIN_STEPS timed steps after a warm-up. H and
+# O alone at the step's shapes (T 1024) and at the shipped basecall chunk's
+# (T 1000), in bf16 and f32, with t_real < T and a partial rotary_dim.
+SUP_TRAIN_N, SUP_TRAIN_CHUNK, SUP_TRAIN_L = 32, 12288, 1024
+SUP_TRAIN_T = SUP_TRAIN_CHUNK // 12  # tokens
+SUP_TRAIN_CLI_BATCHES = 2
+# H and O against their plain versions on the same inputs (O's o and lse
+# are H's): the same bf16 operands and rounding points, f32 sums in another
+# order and exp's last bit, which can flip a bf16 rounding of p, ds or an
+# output. o, dq, dk, dv: one bf16 step of the output's largest magnitude on
+# the max, ROW13_MEAN of it on the mean; lse: ROW13_LSE_STEPS f32 steps of
+# its largest magnitude. H's o equals K's bit for bit.
+ROW13_MEAN, ROW13_LSE_STEPS = 2.0 ** -16, 16
 
 
 def log(msg):
@@ -1200,7 +1236,9 @@ def kernel_counters():
             "Y": lattice_cuda.lattice_forward,
             "Z": lattice_cuda.lattice_backward,
             "R": lstm_train_cuda.lstm_train_forward,
-            "S": lstm_train_cuda.lstm_train_backward}
+            "S": lstm_train_cuda.lstm_train_backward,
+            "H": attention_cuda.fused_rotary_window_attention_train,
+            "O": attention_cuda.fused_rotary_window_attention_bwd}
 
 
 def loss_mods():
@@ -1480,28 +1518,36 @@ def train_step_phase(torch, counters, dev):
         f"{float(losses['loss']):.6g}")
     del fast, step, batch
     torch.cuda.empty_cache()
-    res["cli"] = train_cli(torch, counters)
+    res["cli"] = train_cli(
+        torch, counters, HAC, TRAIN_N, TRAIN_CHUNK, TRAIN_L,
+        TRAIN_CLI_BATCHES, own,
+        # validation, in eval mode: the inference route (A x 5), the loss (U
+        # and Y without their stacks), then the decode (B and C)
+        {"A": 5, "U": 1, "Y": 1, "B": 1, "C": 1}, "hac")
     return res
 
 
-def train_cli(torch, counters):
-    """``python -m bonito_tpu_torch train`` in this process on a generated
-    npy set under the build directory: TRAIN_CLI_BATCHES training batches
-    of 128 x 6000 and one validation batch, one epoch of hac."""
+def train_cli(torch, counters, config, n, chunk, length, batches, own,
+              valid, name):
+    """``python -m bonito_tpu_torch train --config config`` in this process
+    on a generated npy set under the build directory: ``batches`` training
+    batches of ``n`` x ``chunk`` samples with targets of length/2 to
+    ``length`` bases and one validation batch, one epoch. ``own``: each
+    kernel's launches per training batch; ``valid``: the validation
+    batch's."""
     from bonito_tpu_torch.cli import main as cli_main
     from bonito_tpu_torch.ops import build
-    root = build.BUILD / "chip_smoke_train"
+    root = build.BUILD / f"chip_smoke_train_{name}"
     if root.exists():
         shutil.rmtree(root)
     rng = np.random.default_rng(SEED)
-    for sub, rows in (("", TRAIN_CLI_BATCHES * TRAIN_N),
-                      ("validation", TRAIN_N)):
+    for sub, rows in (("", batches * n), ("validation", n)):
         d = root / "data" / sub
         d.mkdir(parents=True)
-        lengths = rng.integers(TRAIN_L // 2, TRAIN_L + 1, rows)
-        refs = rng.integers(1, 5, (rows, TRAIN_L))
-        refs[np.arange(TRAIN_L)[None] >= lengths[:, None]] = 0
-        np.save(d / "chunks.npy", rng.normal(size=(rows, TRAIN_CHUNK))
+        lengths = rng.integers(length // 2, length + 1, rows)
+        refs = rng.integers(1, 5, (rows, length))
+        refs[np.arange(length)[None] >= lengths[:, None]] = 0
+        np.save(d / "chunks.npy", rng.normal(size=(rows, chunk))
                 .astype(np.float16))
         np.save(d / "references.npy", refs.astype(np.uint8))
         np.save(d / "reference_lengths.npy", lengths.astype(np.uint16))
@@ -1509,24 +1555,19 @@ def train_cli(torch, counters):
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    cli_main(["train", str(work), "--config", HAC, "--directory",
-              str(root / "data"), "--batch", str(TRAIN_N), "--epochs", "1",
+    cli_main(["train", str(work), "--config", config, "--directory",
+              str(root / "data"), "--batch", str(n), "--epochs", "1",
               "--seed", str(SEED)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
-    own = {"R": 5, "S": 5, "U": 1, "V": 1, "Y": 1, "Z": 1}
-    expect = {k: own.get(k, 0) * TRAIN_CLI_BATCHES for k in counters}
-    # validation, in eval mode: the inference route (A x 5), the loss (U
-    # and Y without their stacks), then the decode (B and C)
-    for k, n in (("A", 5), ("U", 1), ("Y", 1), ("B", 1), ("C", 1)):
-        expect[k] += n
-    require(launches == expect, f"train CLI: launches {launches}, expected "
-                                f"{expect}")
+    expect = {k: own.get(k, 0) * batches + valid.get(k, 0) for k in counters}
+    require(launches == expect, f"train CLI ({name}): launches {launches}, "
+                                f"expected {expect}")
     require((work / "weights_1.npz").exists(), "train CLI: no weights_1.npz")
     with open(work / "losses_1.csv") as f:
         rows = f.read().strip().splitlines()
-    require(len(rows) == 1 + TRAIN_CLI_BATCHES,
+    require(len(rows) == 1 + batches,
             f"train CLI: losses_1.csv has {len(rows) - 1} rows")
     with open(work / "training.csv") as f:
         header, row = f.read().strip().splitlines()
@@ -1534,12 +1575,285 @@ def train_cli(torch, counters):
     acc = float(fields["validation_mean"])
     require(math.isfinite(acc) and math.isfinite(
         float(fields["validation_loss"])), f"train CLI: {fields}")
-    log(f"  train CLI, one epoch of hac ({TRAIN_CLI_BATCHES} batches of "
-        f"{TRAIN_N} x {TRAIN_CHUNK}, one validation batch): {wall:.1f} s in "
-        f"all (model init, data, steps, checkpoint, validation); "
-        f"training.csv {fields}; launches "
-        f"{({k: v for k, v in launches.items() if v})}")
+    log(f"  train CLI, one epoch of {name} ({batches} batches of {n} x "
+        f"{chunk}, one validation batch): {wall:.1f} s in all (model init, "
+        f"data, steps, checkpoint, validation); training.csv {fields}; "
+        f"launches {({k: v for k, v in launches.items() if v})}")
     return dict(wall=wall, launches=launches, fields=fields)
+
+
+class plain_sup_train_kernels(plain_loss_kernels):
+    """Within the block every kernel of a sup train step runs its plain
+    version on the card: H and O (named in ``ops.attention_cuda``, where
+    the autograd Function calls them), P (``ops.relayout._pin``, forward
+    and backward) and the loss's U to Z."""
+
+    def __init__(self, attention_cuda, relayout, *loss_mods):
+        super().__init__(*loss_mods)
+        self.swap[(attention_cuda, "fused_rotary_window_attention_train")] = (
+            attention_cuda.fused_rotary_window_attention_train_plain)
+        self.swap[(attention_cuda, "fused_rotary_window_attention_bwd")] = (
+            attention_cuda.fused_rotary_window_attention_bwd_plain)
+        self.swap[(relayout, "_pin")] = relayout.pin_layout_plain
+
+
+def band_pairs(T, window, t_real=None):
+    """Visible (query, key) pairs of one head of one row."""
+    i = np.arange(T)
+    hi = np.minimum(np.minimum(T, t_real or T) - 1, i + window[1])
+    return int(np.maximum(hi - np.maximum(0, i - window[0]) + 1, 0).sum())
+
+
+def check_attention_train(torch, attention_cuda, relayout, dev):
+    """Kernels H and O against their plain versions at sup training widths
+    (N 32, 8 heads of 64, window (127, 128)): T 1024 and 1000 in bf16, T
+    1024 with t_real 1000, f32, and a partial rotary_dim of 32; H's o
+    against K's; P's backward on a transposed cotangent. Returns the first
+    case's tensors (for the times) and the worst differences."""
+    from bonito_tpu_torch.transformer.model import rotary_freqs
+    g = torch.Generator().manual_seed(SEED + 11)
+    fwd = attention_cuda.fused_rotary_window_attention_train
+    bwd = attention_cuda.fused_rotary_window_attention_bwd
+    errs = {"o": 0.0, "lse": 0.0, "dqkv": 0.0}
+    kept = None
+    for T, dtype, r, t_real in ((SUP_TRAIN_T, torch.bfloat16, SD, None),
+                                (ST, torch.bfloat16, SD, None),
+                                (SUP_TRAIN_T, torch.bfloat16, SD, ST),
+                                (SUP_TRAIN_T, torch.float32, SD, None),
+                                (ST, torch.bfloat16, SD // 2, None)):
+        qkv = torch.randn(SUP_TRAIN_N, T, 3, SH, SD, generator=g).to(dev, dtype)
+        do = torch.randn(SUP_TRAIN_N, T, SH, SD, generator=g).to(dev, dtype)
+        cos, sin = rotary_freqs(T, r, device=dev)
+        o, lse = fwd(qkv, cos, sin, SWIN, t_real)
+        dqkv = bwd(qkv, cos, sin, lse, o, do, SWIN, t_real)
+        torch.cuda.synchronize()
+        same_k = torch.equal(o, attention_cuda.fused_rotary_window_attention(
+            qkv, cos, sin, SWIN, t_real))
+        ref_o, ref_lse = attention_cuda.fused_rotary_window_attention_train_plain(
+            qkv, cos, sin, SWIN, t_real)
+        ref = attention_cuda.fused_rotary_window_attention_bwd_plain(
+            qkv, cos, sin, lse, o, do, SWIN, t_real)
+        outs = [("o", o, ref_o)] + [(f"d{c}", dqkv[:, :, i], ref[:, :, i])
+                                    for i, c in enumerate("qkv")]
+        line, ok = [], same_k and bool(torch.isfinite(dqkv.float()).all())
+        for name, out, want in outs:
+            diff = (out.float() - want.float()).abs()
+            top = want.float().abs().max().item()
+            err, mean = diff.max().item(), diff.mean().item()
+            ok &= err <= bf16_step(top) and mean <= ROW13_MEAN * top
+            line.append(f"{name} {err:.3g} / {mean:.3g} at max {top:.3g}")
+            key = "o" if name == "o" else "dqkv"
+            errs[key] = max(errs[key], err)
+        top = ref_lse.abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        lse_tol = ROW13_LSE_STEPS * 2.0 ** (math.floor(math.log2(top)) - 23)
+        ok &= lse_err <= lse_tol
+        errs["lse"] = max(errs["lse"], lse_err)
+        log(f"  H, O vs plain, T={T} {str(dtype)[6:]} rotary_dim={r} "
+            f"t_real={t_real}: max / mean |diff| " + ", ".join(line)
+            + f"; lse {lse_err:.3g} (tolerance {lse_tol:.3g}); o equals K's "
+            f"{same_k}")
+        require(ok, f"H or O disagrees with its plain version at T={T}, "
+                    f"{dtype}, rotary_dim {r}, t_real {t_real}")
+        if kept is None:
+            kept = (qkv, cos, sin, do, o, lse)
+        del dqkv, ref, ref_o, ref_lse
+    x = torch.randn(SUP_TRAIN_N, SH * SD, SUP_TRAIN_T, generator=g).to(
+        dev, torch.bfloat16).transpose(1, 2).requires_grad_()
+    cot = torch.randn(SUP_TRAIN_N, SH * SD, SUP_TRAIN_T, generator=g).to(
+        dev, torch.bfloat16).transpose(1, 2)
+    before = relayout.pin_layout.launches
+    y = relayout.pin_layout(x)
+    y.backward(cot)
+    torch.cuda.synchronize()
+    n_p = relayout.pin_layout.launches - before
+    log(f"  P backward on a transposed cotangent {tuple(cot.shape)} strides "
+        f"{cot.stride()}: x.grad identical {torch.equal(x.grad, cot)}, "
+        f"{n_p} launches (forward and backward)")
+    require(torch.equal(x.grad, cot) and torch.equal(y, x) and n_p == 2,
+            "P's backward is not the identity through two launches")
+    return kept, errs
+
+
+def sup_train_batch(torch, dev, seed):
+    """The sup bench's batch: SUP_TRAIN_N chunks of standard-normal signal,
+    targets of SUP_TRAIN_L bases (1..4) from ``seed``, on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(SUP_TRAIN_N, SUP_TRAIN_CHUNK, 1)).astype(np.float32)
+    targets = rng.integers(1, 5, (SUP_TRAIN_N, SUP_TRAIN_L))
+    lengths = np.full(SUP_TRAIN_N, SUP_TRAIN_L)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, targets, lengths))
+
+
+def sup_train_phase(torch, counters, dev):
+    """Phase 11: the sup train step. (a) H and O against their plain
+    versions, P's backward; (b) the full-width sup train step: a warm-up,
+    TRAIN_STEPS timed steps with their launch counts, every parameter moved,
+    one step's gradients through the kernels against the plain versions';
+    (c) one epoch of the train CLI; (d) H's and O's times, bounds and the
+    library yardstick."""
+    import torch.nn.functional as F
+    from bonito_tpu_torch.models import MODELS
+    from bonito_tpu_torch.ops import attention_cuda, relayout
+    from bonito_tpu_torch.training import make_optimizer, make_train_step
+    from bonito_tpu_torch.transformer import model as transformer
+
+    log(f"[11] the sup train step (kernels H, O, P with U, V, Y, Z): batch "
+        f"{SUP_TRAIN_N} x chunk {SUP_TRAIN_CHUNK}, f32 master weights, bf16 "
+        f"forward, AdamW 2e-3, clip 2.0")
+    kept, errs = check_attention_train(torch, attention_cuda, relayout, dev)
+    res = {"errs": errs}
+
+    model = transformer.Model(MODELS[SUP]()).init(SEED).to(dev)
+    step = make_train_step(model, make_optimizer(model, 2e-3))
+    batch = sup_train_batch(torch, dev, SEED)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    losses, norm = step(batch, 1.0, 2.0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = [step(batch, 1.0, 2.0) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    own = {"P": 2, "H": 18, "O": 18, "U": 1, "V": 1, "Y": 1, "Z": 1}
+    expect = {k: own.get(k, 0) * TRAIN_STEPS for k in counters}
+    require(launches == expect, f"sup train step: launches {launches}, "
+                                f"expected {expect}")
+    values = [(float(l["loss"]), float(n_)) for l, n_ in [(losses, norm)]
+              + out]
+    require(all(math.isfinite(v) for pair in values for v in pair),
+            f"sup train step: non-finite loss or grad norm {values}")
+    still = [k for k, p in model.named_parameters()
+             if torch.equal(p.detach(), before[k])]
+    convs = [k for k in before if k.startswith("encoder.conv.")
+             and k.endswith(".w")]
+    wqkv = [k for k in before if k.endswith("wqkv")]
+    log(f"  every parameter moved: {not still} ({len(before)} parameters, "
+        f"{len(convs)} convolution weights and {len(wqkv)} wqkv among them)")
+    require(not still and len(convs) == 5 and len(wqkv) == 18,
+            f"sup train step: {still} did not move")
+    del before
+    res["step"] = dict(ms=wall * 1e3, peak=peak, held=held / 2 ** 30,
+                       launches=launches, values=values)
+    log(f"  sup train step on {card_line()}: {wall * 1e3:.4g} ms per step "
+        f"= {SUP_TRAIN_N * SUP_TRAIN_CHUNK / wall:.6g} sup train samples/s "
+        f"({TRAIN_STEPS} steps after a warm-up); peak memory {peak:.3f} GiB "
+        f"above the {held / 2 ** 30:.3f} GiB held before the timed steps; "
+        f"loss and grad norm per step {values}; launches per step "
+        f"{({k: v // TRAIN_STEPS for k, v in launches.items() if v})}")
+
+    def grads_of_one_step():
+        x, targets, lengths = batch
+        model.train()
+        model.zero_grad(set_to_none=True)
+        try:
+            moves, blank = model.forward_tcn(x.to(torch.bfloat16))
+            loss = model.loss_tcn(moves, blank, targets, lengths)
+            loss.backward()
+        finally:
+            model.eval()
+        grads = {k: p.grad.detach().clone()
+                 for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+    loss_k, grads_k = grads_of_one_step()
+    with plain_sup_train_kernels(attention_cuda, relayout, *loss_mods()):
+        loss_p, grads_p = grads_of_one_step()
+    # a convolution's bias in front of a batch-statistics BatchNorm: its
+    # gradient is 0 in exact arithmetic, held to its weight's size (phase 10)
+    rel = {}
+    for k in grads_p:
+        d = (grads_k[k].float() - grads_p[k].float()).norm().item()
+        ref_k = (k[:-1] + "w" if k.endswith(".b")
+                 and k[:-1] + "norm.scale" in grads_p else k)
+        rel[k] = d / max(grads_p[ref_k].float().norm().item(), 1e-30)
+    top = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    res["step"]["grad_rel"] = top[0][1]
+    res["step"]["loss_diff"] = abs(loss_k.item() - loss_p.item())
+    log(f"  one sup step through the kernels vs the plain versions: loss "
+        f"{loss_k.item():.7g} vs {loss_p.item():.7g}; relative L2 difference "
+        f"of the gradients, worst three: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in top)
+        + f"; conv weights up to {max(rel[k] for k in convs):.3g}, wqkv up "
+        f"to {max(rel[k] for k in wqkv):.3g} (limit {TRAIN_GRAD_REL})")
+    require(top[0][1] <= TRAIN_GRAD_REL
+            and res["step"]["loss_diff"] <= TRAIN_LOSS_TOL,
+            "sup train step: the kernels' gradients disagree with the plain "
+            "versions'")
+    del model, step, grads_k, grads_p, batch
+    torch.cuda.empty_cache()
+    res["cli"] = train_cli(
+        torch, counters, SUP, SUP_TRAIN_N, SUP_TRAIN_CHUNK, SUP_TRAIN_L,
+        SUP_TRAIN_CLI_BATCHES, own,
+        # validation in eval mode: P, 18 x K, the loss (U and Y without
+        # their stacks), then the decode (B and C)
+        {"P": 1, "K": 18, "U": 1, "Y": 1, "B": 1, "C": 1}, "sup")
+
+    # H's and O's times at the step's shapes, their plain versions', and the
+    # library yardstick: rotary passes + scaled_dot_product_attention with
+    # the band as a mask, forward (H's) and backward under autograd (O's)
+    qkv, cos, sin, do, o, lse = kept
+    N_, T_ = qkv.shape[:2]
+    fwd = attention_cuda.fused_rotary_window_attention_train
+    bwd = attention_cuda.fused_rotary_window_attention_bwd
+    ms = {"H": cuda_ms(lambda: fwd(qkv, cos, sin, SWIN), reps=10),
+          "O": cuda_ms(lambda: bwd(qkv, cos, sin, lse, o, do, SWIN),
+                       reps=10),
+          "H_plain": cuda_ms(lambda: attention_cuda.
+                             fused_rotary_window_attention_train_plain(
+                                 qkv, cos, sin, SWIN), reps=1, warmup=0),
+          "O_plain": cuda_ms(lambda: attention_cuda.
+                             fused_rotary_window_attention_bwd_plain(
+                                 qkv, cos, sin, lse, o, do, SWIN), reps=1,
+                             warmup=0)}
+    band = attention_cuda.band_mask(T_, SWIN, None, dev)
+    x_l = qkv.detach().requires_grad_()
+
+    def library_fwd():
+        q = transformer.apply_rotary(x_l[:, :, 0], cos, sin)
+        k = transformer.apply_rotary(x_l[:, :, 1], cos, sin)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2),
+            x_l[:, :, 2].transpose(1, 2), attn_mask=band).transpose(1, 2)
+    ms["H_library"] = cuda_ms(lambda: library_fwd().detach(), reps=5)
+    o_l = library_fwd()
+    ms["O_library"] = cuda_ms(lambda: torch.autograd.grad(
+        o_l, x_l, do, retain_graph=True), reps=5)
+    lib_err = (o_l.detach().float() - o.float()).abs().max().item()
+    g_l = torch.autograd.grad(o_l, x_l, do)[0]
+    g_k = bwd(qkv, cos, sin, lse, o, do, SWIN)
+    lib_gerr = (g_l.float() - g_k.float()).abs().max().item()
+    require(lib_err <= 2e-2 and lib_gerr <= 0.1 * g_k.float().abs().max()
+            .item(), f"the library yardstick for H and O computes another "
+                     f"function: {lib_err}, {lib_gerr}")
+    del o_l, x_l, g_l, g_k
+    pairs = N_ * SH * band_pairs(T_, SWIN)
+    isz = qkv.element_size()
+    plane = N_ * T_ * SH * SD * isz
+    trig = 2 * T_ * cos.shape[1] * 4
+    # H: qkv in, o and lse out; two band products on the tensor cores and
+    # about 10 f32 operations per pair for the softmax. O: qkv, o, do and
+    # lse in, dqkv out; five band products (s, dp, dq, dk, dv) and about 10
+    # f32 operations per pair
+    bounds = {"H": bound(3 * plane + plane + N_ * SH * T_ * 4 + trig,
+                         2 * 2 * pairs * SD, H100_BF16_OPS, 10 * pairs),
+              "O": bound(3 * plane + 2 * plane + N_ * SH * T_ * 4 + trig
+                         + 3 * plane, 5 * 2 * pairs * SD, H100_BF16_OPS,
+                         10 * pairs)}
+    res["ms"], res["bounds"], res["lib_err"] = ms, bounds, lib_err
+    log(f"  at the step's shapes (N {N_}, T {T_}, bf16): H {ms['H']:.4g} ms "
+        f"(plain {ms['H_plain']:.4g}, bound {bounds['H'][0]:.4g} by "
+        f"{bounds['H'][1]}), O {ms['O']:.4g} ms (plain {ms['O_plain']:.4g}, "
+        f"bound {bounds['O'][0]:.4g} by {bounds['O'][1]}); rotary + "
+        f"scaled_dot_product_attention with the band as a mask: forward "
+        f"{ms['H_library']:.4g} ms, backward {ms['O_library']:.4g} ms (max "
+        f"|o - H| {lib_err:.3g}, |dqkv - O| {lib_gerr:.3g})")
+    return res
 
 
 def main():
@@ -1651,6 +1965,10 @@ def main():
                               ("fast", "fast", {}),
                               ("fast_bf16", "fast_bf16", {}),
                               ("sup", "sup", {}), ("sup_d40", "sup_d40", {}))}
+    # inference only: these paths' kernels keep no autograd graph and refuse
+    # an input that wants a gradient, so the weights want none
+    for m in models.values():
+        m.requires_grad_(False)
     lstms = [m for m in models["int8"].encoder.modules()
              if hasattr(m, "quantize_params")]
     require(len(lstms) == 5 and all(
@@ -2186,10 +2504,7 @@ def main():
         f"{ms_l:.4g} ms vs scaled_dot_product_attention {lib_l:.4g} ms (max "
         f"|L - library| {lib_err_l:.3g}); L at sup widths in f32 {ms_l32:.4g} "
         f"ms vs scaled_dot_product_attention in f32 {lib_l32:.4g} ms")
-    # visible (query, key) pairs of one head of one row
-    i = np.arange(ST)
-    pairs = int((np.minimum(ST - 1, i + SWIN[1])
-                 - np.maximum(0, i - SWIN[0]) + 1).sum())
+    pairs = band_pairs(ST, SWIN)
     attn_ops = 2 * 2 * SN * SH * pairs * SD  # both products
     # K: bf16 qkv in, the two f32 tables, bf16 o out; products on the tensor
     # cores, about 10 f32 operations per pair for the softmax
@@ -2292,6 +2607,8 @@ def main():
     del models
     torch.cuda.empty_cache()
     train = train_step_phase(torch, counters, dev)
+    torch.cuda.empty_cache()
+    sup_train = sup_train_phase(torch, counters, dev)
 
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
@@ -2428,6 +2745,32 @@ def main():
         log(f"  {name}: {t_hac[key]:.4g} ms (plain {t_hac[key + '_plain']:.4g}"
             f" ms, bound {b_hac[key][0]:.4g} ms by {b_hac[key][1]}), {n} "
             f"launches per hac train step")
+    # H and O: launches on the sup train step (per step); times, bounds and
+    # the library yardstick at its shapes
+    for name, key, rep, err in (
+            ("fused_rotary_window_attention_train_fwd", "H",
+             "bonito_tpu/ops/attention_pallas.py:264",
+             max(sup_train["errs"]["o"], sup_train["errs"]["lse"])),
+            ("fused_rotary_window_attention_train_bwd", "O",
+             "bonito_tpu/ops/attention_pallas.py:298",
+             sup_train["errs"]["dqkv"])):
+        n = sup_train["step"]["launches"][key] // TRAIN_STEPS
+        b = sup_train["bounds"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src_attn,
+            "replaces": rep, "launches": n, "max_abs_err": err,
+            "ms": sup_train["ms"][key],
+            "plain_ms": sup_train["ms"][f"{key}_plain"], "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": sup_train["ms"][f"{key}_library"],
+            "by_path": {"sup_train_step": n,
+                        "sup_train_cli": sup_train["cli"]["launches"][key]}})
+        log(f"  {name}: {sup_train['ms'][key]:.4g} ms (plain "
+            f"{sup_train['ms'][key + '_plain']:.4g} ms, bound {b[0]:.4g} ms by "
+            f"{b[1]}), {n} launches per sup train step")
+    for k in kernels:
+        if k["name"] == "pin_layout":
+            k["by_path"]["sup_train_step"] = (
+                sup_train["step"]["launches"]["P"] // TRAIN_STEPS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

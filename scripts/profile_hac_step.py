@@ -2,7 +2,7 @@
 """
 Where one device step of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_hac_step.py [int8 | fast | sup | train]
+    python3 scripts/profile_hac_step.py [int8 | fast | sup | train | suptrain]
 
 from the root of a checkout, on a machine with a CUDA card. Builds a
 random full-width model (as chip_smoke.py does, without the trip through
@@ -24,7 +24,10 @@ With ``train`` it traces two train steps of hac instead (after a warm-up
 step): ``lstm_crf_config()`` with f32 master weights, the bf16 forward,
 batch 128 x 6000 samples with targets of 250 to 500 bases, AdamW 2e-3 and
 the clip at 2.0 (``training.make_train_step``, kernels R, S, U, V, Y, Z),
-and prints the same table.
+and prints the same table. With ``suptrain`` it does the same for the sup
+train step: the shipped sup model with f32 master weights, the bf16
+forward, batch 32 x 12288 samples with targets of 1024 bases, AdamW 2e-3
+and the clip at 2.0 (kernels P twice, H and O once a layer, U, V, Y, Z).
 """
 
 import subprocess
@@ -61,14 +64,17 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if sys.argv[1:] not in ([], ["int8"], ["fast"], ["sup"], ["train"]):
+    if sys.argv[1:] not in ([], ["int8"], ["fast"], ["sup"], ["train"],
+                            ["suptrain"]):
         raise SystemExit(__doc__)
     which = (sys.argv[1:] or ["bf16"])[0]
-    if which == "train":
-        step, batch = train_step()
+    if which in ("train", "suptrain"):
+        sup = which == "suptrain"
+        step, batch = sup_train_step() if sup else train_step()
         step(batch, 1.0, 2.0)  # warm-up: build, cuBLAS, cuDNN
-        report(card, "hac train step (f32 master weights, bf16 forward)",
-               128, 6000, lambda: step(batch, 1.0, 2.0), rows_shown=20)
+        report(card, f"{'sup' if sup else 'hac'} train step (f32 master "
+               f"weights, bf16 forward)", *batch[0].shape[:2],
+               lambda: step(batch, 1.0, 2.0), rows_shown=25 if sup else 20)
         return
     cfg = (MODELS[FAST]() if which == "fast" else MODELS[SUP]()
            if which == "sup" else lstm_crf_config())
@@ -109,6 +115,19 @@ def train_step():
     targets[np.arange(500)[None] >= lengths[:, None]] = 0
     batch = tuple(t.to("cuda") for t in (x, torch.from_numpy(targets),
                                          torch.from_numpy(lengths)))
+    return make_train_step(model, make_optimizer(model, 2e-3)), batch
+
+
+def sup_train_step():
+    """The shipped sup model's train step and one batch of the JAX
+    package's sup train bench on the card."""
+    from bonito_tpu_torch.training import make_optimizer, make_train_step
+    model = SupModel(MODELS[SUP]()).init(1).to("cuda")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(32, 12288, 1)).astype(np.float32))
+    targets = torch.from_numpy(rng.integers(1, 5, (32, 1024)))
+    lengths = torch.full((32,), 1024)
+    batch = tuple(t.to("cuda") for t in (x, targets, lengths))
     return make_train_step(model, make_optimizer(model, 2e-3)), batch
 
 

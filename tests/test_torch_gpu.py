@@ -741,3 +741,197 @@ def test_lstm_train_kernels_reject_what_they_do_not_take(cuda):
                 2, 8, 16, device=cuda), torch.zeros(2, 8, 16, device=cuda))
     assert (lstm_train_cuda.lstm_train_forward.launches,
             lstm_train_cuda.lstm_train_backward.launches) == before
+
+
+@pytest.mark.parametrize("N,T,H,D,r,window,t_real,dtype", [
+    (2, 64, 2, 64, 64, (127, 128), None, torch.bfloat16),
+    (3, 200, 4, 16, 16, (63, 64), None, torch.bfloat16),
+    (2, 300, 2, 32, 16, (100, 20), 250, torch.bfloat16),
+    (2, 130, 2, 24, 16, (15, 16), None, torch.float32),
+    (2, 257, 1, 128, 64, (127, 128), None, torch.bfloat16),
+    (2, 100, 3, 40, 32, (5, 0), 77, torch.float32),
+    (1, 1, 1, 16, 16, (127, 128), None, torch.bfloat16),
+    (8, 1000, 8, 64, 64, (127, 128), None, torch.bfloat16),  # sup training
+    (8, 1024, 8, 64, 64, (127, 128), 1000, torch.float32),
+    (8, 1024, 8, 64, 32, (127, 128), None, torch.bfloat16)])
+def test_fused_train_kernels_match_plain(cuda, N, T, H, D, r, window, t_real,
+                                         dtype):
+    """Kernels H and O against their plain versions on the same inputs
+    (O's o and lse are H's). H: o equal to K's bit for bit and within one
+    bf16 step of the largest output of the plain version (as K); lse within
+    16 f32 steps of its largest magnitude (exp, log and sums in another
+    order). O: each of dq, dk, dv within one bf16 step of its largest
+    magnitude on the max (a flipped bf16 rounding of p, ds or the output)
+    and 2^-16 of it on the mean."""
+    g = torch.Generator().manual_seed(N + T + D + r)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, dtype)
+    do = torch.randn(N, T, H, D, generator=g).to(cuda, dtype)
+    cos, sin = _freqs(T, r, cuda)
+    fwd = attention_cuda.fused_rotary_window_attention_train
+    bwd = attention_cuda.fused_rotary_window_attention_bwd
+    before = fwd.launches, bwd.launches
+    o, lse = fwd(qkv, cos, sin, window, t_real)
+    dqkv = bwd(qkv, cos, sin, lse, o, do, window, t_real)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(o, attention_cuda.fused_rotary_window_attention(
+        qkv, cos, sin, window, t_real))
+    ref_o, ref_lse = attention_cuda.fused_rotary_window_attention_train_plain(
+        qkv, cos, sin, window, t_real)
+    ref = attention_cuda.fused_rotary_window_attention_bwd_plain(
+        qkv, cos, sin, lse, o, do, window, t_real)
+    assert lse.shape == (N, H, T) and lse.dtype == torch.float32
+    assert dqkv.shape == qkv.shape and dqkv.dtype == dtype
+    assert bool(torch.isfinite(dqkv.float()).all())
+
+    def step(x):
+        return 2.0 ** (np.floor(np.log2(max(x.abs().max().item(), 1e-30)))
+                       - 7)
+    assert (o.float() - ref_o.float()).abs().max().item() <= step(
+        ref_o.float())
+    top = ref_lse.abs().max().item()
+    assert (lse - ref_lse).abs().max().item() <= 16 * 2.0 ** (
+        np.floor(np.log2(top)) - 23)
+    for i in range(3):
+        out, want = dqkv[:, :, i].float(), ref[:, :, i].float()
+        diff = (out - want).abs()
+        assert diff.max().item() <= step(want), (i, diff.max().item())
+        assert diff.mean().item() <= 2.0 ** -16 * want.abs().max().item()
+
+
+def test_fused_attention_function_keeps_the_graph(cuda):
+    """The Function on the card: H forward, O backward, one launch each;
+    x.grad is O's result, cos and sin get zeros."""
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn(2, 150, 3, 2, 32, generator=g).to(cuda, torch.bfloat16)
+    do = torch.randn(2, 150, 2, 32, generator=g).to(cuda, torch.bfloat16)
+    cos, sin = _freqs(150, 32, cuda)
+    x = qkv.clone().requires_grad_()
+    fwd = attention_cuda.fused_rotary_window_attention_train
+    bwd = attention_cuda.fused_rotary_window_attention_bwd
+    before = fwd.launches, bwd.launches
+    o = attention.fused_attention_train(x, cos, sin, (127, 128))
+    assert o.grad_fn is not None
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    o2, lse = fwd(qkv, cos, sin, (127, 128))
+    assert torch.equal(o.detach(), o2)
+    assert torch.equal(x.grad, bwd(qkv, cos, sin, lse, o2, do, (127, 128)))
+
+
+def test_raw_attention_kernels_refuse_a_gradient(cuda):
+    """K and L write into memory autograd does not see: where a gradient
+    is wanted they raise and name the differentiable route; under no_grad
+    they run."""
+    qkv = torch.randn(1, 40, 3, 2, 16, device=cuda).requires_grad_()
+    cos, sin = _freqs(40, 16, cuda)
+    with pytest.raises(RuntimeError, match="fused_attention_train"):
+        attention_cuda.fused_rotary_window_attention(qkv, cos, sin, (7, 8))
+    q = torch.randn(1, 2, 40, 16, device=cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="differentiable=True"):
+        attention_cuda.local_attention(q, q, q, (7, 8))
+    with torch.no_grad():
+        attention_cuda.fused_rotary_window_attention(qkv, cos, sin, (7, 8))
+        attention_cuda.local_attention(q, q, q, (7, 8))
+    moves = torch.randn(2, 5, 256, device=cuda,
+                        dtype=torch.bfloat16).requires_grad_()
+    with pytest.raises(RuntimeError, match="no_grad"):
+        decode_cuda.tcn_forward(moves, 2.0)
+
+
+def test_pin_layout_backward_is_the_identity_on_the_card(cuda):
+    """P forward and P on the cotangent: two launches, x.grad equal to the
+    transposed cotangent, every bit."""
+    x = torch.randn(4, 64, 100, device=cuda,
+                    dtype=torch.bfloat16).transpose(1, 2).requires_grad_()
+    g = torch.randn(4, 64, 100, device=cuda,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    before = relayout.pin_layout.launches
+    y = relayout.pin_layout(x)
+    assert y.is_contiguous() and torch.equal(y, x)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert relayout.pin_layout.launches == before + 2
+    assert torch.equal(x.grad, g)
+
+
+def _sup_counters():
+    return {"H": attention_cuda.fused_rotary_window_attention_train,
+            "O": attention_cuda.fused_rotary_window_attention_bwd,
+            "K": attention_cuda.fused_rotary_window_attention,
+            "L": attention_cuda.local_attention, "P": relayout.pin_layout,
+            "U": logz_cuda.tcn_forward, "V": logz_cuda.tcn_backward,
+            "Y": lattice_cuda.lattice_forward,
+            "Z": lattice_cuda.lattice_backward}
+
+
+def _sup_batch(cuda, N=8, chunk=1536, L=50):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(N, chunk, 1, generator=g).to(cuda)
+    lengths = torch.randint(L // 2, L + 1, (N,), generator=g)
+    targets = torch.randint(1, 5, (N, L), generator=g)
+    targets[torch.arange(L)[None] >= lengths[:, None]] = 0
+    return x, targets.to(cuda), lengths.to(cuda)
+
+
+def test_sup_backward_reaches_every_parameter(cuda):
+    """The fault this slice repaired: a backward through a sup model on the
+    card gives every convolution and each wqkv a gradient (the layout pin
+    and the fused attention keep the graph), through P twice and H, O once
+    per layer, never K or L."""
+    from bonito_tpu_torch.models import transformer_crf_config
+    from bonito_tpu_torch.transformer.model import Model as SupModel
+    cfg = transformer_crf_config(d_model=64, nhead=4, depth=2,
+                                 dim_feedforward=128, state_len=3)
+    model = SupModel(cfg).init(3).to(cuda)
+    x, targets, lengths = _sup_batch(cuda)
+    counters = _sup_counters()
+    for k in counters.values():
+        k.launches = 0
+    model.train()
+    moves, blank = model.forward_tcn(x.to(torch.bfloat16))
+    model.loss_tcn(moves, blank, targets, lengths).backward()
+    torch.cuda.synchronize()
+    model.eval()
+    assert {k: c.launches for k, c in counters.items()} == {
+        "H": 2, "O": 2, "K": 0, "L": 0, "P": 2, "U": 1, "V": 1, "Y": 1,
+        "Z": 1}
+    for name, p in model.named_parameters():
+        if name.endswith("wqkv") or (".conv." in name and name.endswith(
+                ".w")):
+            assert p.grad is not None and p.grad.abs().max().item() > 0, name
+
+
+@pytest.mark.parametrize("use_amp", [True, False])
+@pytest.mark.parametrize("heads", [(64, 4), (80, 2)])  # fused; local (of 40)
+def test_sup_train_step_launches(cuda, heads, use_amp):
+    """One sup train step on the card, bf16 amp and f32: P 2, H and O once a
+    layer on the fused route (none on the local route, heads of 40, where
+    the blocked plain torch attention keeps the graph), U, V, Y, Z once,
+    never K or L; every parameter but a convolution's bias in front of
+    BatchNorm moves."""
+    from bonito_tpu_torch.models import transformer_crf_config
+    from bonito_tpu_torch.training import make_optimizer, make_train_step
+    from bonito_tpu_torch.transformer.model import Model as SupModel
+    d_model, nhead = heads
+    cfg = transformer_crf_config(d_model=d_model, nhead=nhead, depth=2,
+                                 dim_feedforward=128, state_len=3)
+    model = SupModel(cfg).init(3).to(cuda)
+    step = make_train_step(model, make_optimizer(model, 2e-3),
+                           use_amp=use_amp)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    counters = _sup_counters()
+    for k in counters.values():
+        k.launches = 0
+    losses, norm = step(_sup_batch(cuda), 1.0, 2.0)
+    torch.cuda.synchronize()
+    fused = 2 if nhead == 4 else 0
+    assert {k: c.launches for k, c in counters.items()} == {
+        "H": fused, "O": fused, "K": 0, "L": 0, "P": 2, "U": 1, "V": 1,
+        "Y": 1, "Z": 1}
+    assert bool(torch.isfinite(losses["loss"])) and bool(torch.isfinite(norm))
+    still = [k for k, p in model.named_parameters()
+             if torch.equal(p.detach(), before[k])
+             and not (k.endswith(".b") and k[:-1] + "norm.scale" in before)]
+    assert not still, still

@@ -45,6 +45,7 @@ def test_importing_the_port_loads_no_jax():
     assert {"bonito_tpu_torch.ops.lstm_fused_cuda",
             "bonito_tpu_torch.ops.decode_fused_cuda",
             "bonito_tpu_torch.ops.attention_cuda",
+            "bonito_tpu_torch.ops.attention",
             "bonito_tpu_torch.ops.relayout",
             "bonito_tpu_torch.ops.decode_full_cuda",
             "bonito_tpu_torch.ops.beam_device",
