@@ -1,10 +1,13 @@
 // The two passes of the Viterbi + posterior CRF decode, written once for
 // every layout of a frame's scores (included by decode_tcn.cu, kernels B
-// and C, and decode_full.cu, kernels M and Q).
+// and C, decode_full.cu, kernels M and Q, and decode_tcn_fused_wide.cu,
+// kernels GW and JW).
 //
 // A Frame (crf_frames.cuh, with the block-wide reductions) says where a
-// frame's scores sit; the kernels copy each frame's row into shared memory
-// as f32 and read it through the Frame.
+// frame's scores sit; the kernels hold each frame's row in shared memory
+// as f32 and read it through the Frame. fwd_frame and bwd_frame are one
+// frame of each pass: B, C, M and Q copy the row from device memory, GW
+// and JW compute it from the head.
 //
 // Forward, per batch row n and frame t (alpha in probability space,
 // renormalised by its max with a log correction c; the max semiring in log
@@ -55,6 +58,121 @@ __device__ void load_row(const In* __restrict__ src, float* dst, int n) {
         dst[i] = to_f32(src[i]);
 }
 
+// One frame of the forward pass, for thread s of a block whose first S
+// threads hold a state each (the rest idle): `row` is the frame's scores
+// in shared memory, read through the Frame; alpha A and the max-semiring
+// amax ([S] each, shared) are updated in place, every read of them
+// preceding the barriers of the block max; c is the running log
+// correction. Writes state s's move-in and choice of the frame and, from
+// thread 0, its c.
+template <class Frame>
+__device__ __forceinline__ void fwd_frame(const Frame& f, const float* row,
+                                          int S, float* A, float* amax,
+                                          float& c, float* red,
+                                          float* __restrict__ move_in,
+                                          uint8_t* __restrict__ choices,
+                                          float* __restrict__ cs) {
+    const int s = threadIdx.x, R = S / NB, r = s / NB;
+    const bool active = s < S;
+    float acc = 0.f, a_raw = -INFINITY, best = 0.f, stay_m = 0.f;
+    int jbest = 0;
+    if (active) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+            const float m = f.move(row, S, s, j);
+            const int p = j * R + r;
+            acc = __fadd_rn(acc, __fmul_rn(expf(m), A[p]));
+            const float cand = m + amax[p];
+            if (j == 0 || cand > best) { best = cand; jbest = j; }
+        }
+        a_raw = __fadd_rn(__fmul_rn(f.stay_prob(row, s), A[s]), acc);
+        stay_m = f.stay(row, s) + amax[s];
+    }
+    const float mx = block_max(a_raw, red);
+    const float inv = 1.f / mx;
+    c += logf(mx);
+    if (active) {
+        const bool is_move = best > stay_m;
+        A[s] = a_raw * inv;
+        amax[s] = is_move ? best : stay_m;
+        move_in[s] = acc * inv;
+        choices[s] = is_move ? (uint8_t)(jbest + 1) : (uint8_t)0;
+    }
+    if (threadIdx.x == 0) *cs = c;
+}
+
+// After the last frame: logZ = log(sum A) + c and the first argmax of
+// amax, written by thread 0.
+__device__ __forceinline__ void fwd_end(const float* A, const float* amax,
+                                        int S, float c, float* red,
+                                        int* redi, float* __restrict__ logz,
+                                        int* __restrict__ end_state) {
+    const int s = threadIdx.x;
+    const bool active = s < S;
+    float sum = active ? A[s] : 0.f, unused = -INFINITY;
+    block_sum_max(sum, unused, red);
+    float v = active ? amax[s] : -INFINITY;
+    int idx = active ? s : INT_MAX;
+    block_argmax(v, idx, red, redi);
+    if (threadIdx.x == 0) {
+        *logz = logf(sum) + c;
+        *end_state = idx;
+    }
+}
+
+// One frame of the backward pass (frames in reverse order), for thread s
+// as predecessor p = j*R + r: `row` as for fwd_frame; beta B ([S], shared)
+// updated in place; d its running log correction; `state` the traceback
+// state, the same in every thread. move_in, choices and c point at the
+// frame's own [S], [S] and scalar; seq, qstr and mvout at its outputs,
+// which thread 0 writes.
+template <class Frame>
+__device__ __forceinline__ void bwd_frame(const Frame& f, const float* row,
+                                          int S, float* B, float& d,
+                                          int& state, float lz, float* red,
+                                          const float* __restrict__ move_in,
+                                          const uint8_t* __restrict__ choices,
+                                          const float* __restrict__ cs,
+                                          float qscale, float qbias,
+                                          uint8_t* __restrict__ seq,
+                                          uint8_t* __restrict__ qstr,
+                                          uint8_t* __restrict__ mvout) {
+    const int s = threadIdx.x, R = S / NB;
+    const bool active = s < S;
+    const int j = s / R, r = s % R;
+    // traceback: uniform across the block
+    const int choice = choices[state];
+    const bool is_move = choice != 0;
+    const int base = state % NB + 1;
+    const int prev = is_move ? state / NB + (choice - 1) * R : state;
+
+    float v = 0.f, b_raw = -INFINITY;
+    if (active) {
+        if (s % NB == base - 1) v = move_in[s] * B[s];
+        float acc = 0.f;
+#pragma unroll
+        for (int bb = 0; bb < NB; ++bb)
+            acc = __fadd_rn(acc, __fmul_rn(expf(f.move(row, S, r * NB + bb, j)),
+                                           B[r * NB + bb]));
+        b_raw = __fadd_rn(__fmul_rn(f.stay_prob(row, s), B[s]), acc);
+    }
+    float bmass = v, mx = b_raw;
+    block_sum_max(bmass, mx, red);
+    if (active) B[s] = b_raw * (1.f / mx);
+    if (threadIdx.x == 0) {
+        const float prob = bmass * expf(*cs + d - lz);
+        const float err = fminf(fmaxf(1.f - prob, 1e-4f), 1.f);
+        const float q = __fadd_rn(__fmul_rn(-10.f * log10f(err), qscale),
+                                  qbias);
+        const int qc = (int)rintf(q) + 33;
+        *seq = is_move ? (uint8_t)base : (uint8_t)0;
+        *qstr = is_move ? (uint8_t)qc : (uint8_t)0;
+        *mvout = is_move ? 1 : 0;
+    }
+    d += logf(mx);
+    state = prev;
+}
+
 template <class Frame, typename In>
 __global__ void decode_fwd(const In* __restrict__ scores,  // [N, T, width]
                            float* __restrict__ move_in,    // [N, T, S]
@@ -67,59 +185,25 @@ __global__ void decode_fwd(const In* __restrict__ scores,  // [N, T, width]
     extern __shared__ float smem[];
     __shared__ float red[64];
     __shared__ int redi[32];
-    const int W = f.width(S), R = S / NB;
+    const int W = f.width(S);
     float* row = smem;         // [W] this frame's scores
     float* A = row + W;        // [S] alpha (probability space)
     float* amax = A + S;       // [S] max-semiring alpha
     const int n = blockIdx.x;
     const int s = threadIdx.x;
-    const bool active = s < S;
-    const int r = s / NB;
 
-    if (active) { A[s] = 1.f; amax[s] = 0.f; }
+    if (s < S) { A[s] = 1.f; amax[s] = 0.f; }
     float c = 0.f;
     const In* srow = scores + (size_t)n * T * W;
     for (int t = 0; t < T; ++t) {
         __syncthreads();  // last frame's A/amax visible; row free
         load_row(srow + (size_t)t * W, row, W);
         __syncthreads();
-        float acc = 0.f, a_raw = -INFINITY, best = 0.f, stay_m = 0.f;
-        int jbest = 0;
-        if (active) {
-#pragma unroll
-            for (int j = 0; j < NB; ++j) {
-                const float m = f.move(row, S, s, j);
-                const int p = j * R + r;
-                acc = __fadd_rn(acc, __fmul_rn(expf(m), A[p]));
-                const float cand = m + amax[p];
-                if (j == 0 || cand > best) { best = cand; jbest = j; }
-            }
-            a_raw = __fadd_rn(__fmul_rn(f.stay_prob(row, s), A[s]), acc);
-            stay_m = f.stay(row, s) + amax[s];
-        }
-        // every read of A/amax/row above precedes the reduction's barriers
-        const float mx = block_max(a_raw, red);
-        const float inv = 1.f / mx;
-        c += logf(mx);
-        if (active) {
-            const bool is_move = best > stay_m;
-            A[s] = a_raw * inv;
-            amax[s] = is_move ? best : stay_m;
-            const size_t o = ((size_t)n * T + t) * S + s;
-            move_in[o] = acc * inv;
-            choices[o] = is_move ? (uint8_t)(jbest + 1) : (uint8_t)0;
-        }
-        if (threadIdx.x == 0) cs[(size_t)n * T + t] = c;
+        const size_t frame = (size_t)n * T + t;
+        fwd_frame(f, row, S, A, amax, c, red, move_in + frame * S,
+                  choices + frame * S, cs + frame);
     }
-    float sum = active ? A[s] : 0.f, unused = -INFINITY;
-    block_sum_max(sum, unused, red);
-    float v = active ? amax[s] : -INFINITY;
-    int idx = active ? s : INT_MAX;
-    block_argmax(v, idx, red, redi);
-    if (threadIdx.x == 0) {
-        logz[n] = logf(sum) + c;
-        end_state[n] = idx;
-    }
+    fwd_end(A, amax, S, c, red, redi, logz + n, end_state + n);
 }
 
 template <class Frame, typename In>
@@ -136,15 +220,12 @@ __global__ void decode_bwd(const In* __restrict__ scores,      // [N, T, width]
 {
     extern __shared__ float smem[];
     __shared__ float red[64];
-    const int W = f.width(S), R = S / NB;
+    const int W = f.width(S);
     float* row = smem;         // [W]
     float* B = row + W;        // [S] beta (probability space)
     const int n = blockIdx.x;
-    const int s = threadIdx.x;
-    const bool active = s < S;
-    const int j = s / R, r = s % R;   // this thread as predecessor p = j*R + r
 
-    if (active) B[s] = 1.f;
+    if (threadIdx.x < S) B[threadIdx.x] = 1.f;
     float d = 0.f;
     int state = end_state[n];
     const float lz = logz[n];
@@ -154,37 +235,9 @@ __global__ void decode_bwd(const In* __restrict__ scores,      // [N, T, width]
         load_row(srow + (size_t)t * W, row, W);
         __syncthreads();
         const size_t frame = (size_t)n * T + t;
-        // traceback: uniform across the block
-        const int choice = choices[frame * S + state];
-        const bool is_move = choice != 0;
-        const int base = state % NB + 1;
-        const int prev = is_move ? state / NB + (choice - 1) * R : state;
-
-        float v = 0.f, b_raw = -INFINITY;
-        if (active) {
-            if (s % NB == base - 1) v = move_in[frame * S + s] * B[s];
-            float acc = 0.f;
-#pragma unroll
-            for (int bb = 0; bb < NB; ++bb)
-                acc = __fadd_rn(acc, __fmul_rn(expf(f.move(row, S, r * NB + bb, j)),
-                                               B[r * NB + bb]));
-            b_raw = __fadd_rn(__fmul_rn(f.stay_prob(row, s), B[s]), acc);
-        }
-        float bmass = v, mx = b_raw;
-        block_sum_max(bmass, mx, red);
-        if (active) B[s] = b_raw * (1.f / mx);
-        if (threadIdx.x == 0) {
-            const float prob = bmass * expf(cs[frame] + d - lz);
-            const float err = fminf(fmaxf(1.f - prob, 1e-4f), 1.f);
-            const float q = __fadd_rn(__fmul_rn(-10.f * log10f(err), qscale),
-                                      qbias);
-            const int qc = (int)rintf(q) + 33;
-            seq[frame] = is_move ? (uint8_t)base : (uint8_t)0;
-            qstr[frame] = is_move ? (uint8_t)qc : (uint8_t)0;
-            mvout[frame] = is_move ? 1 : 0;
-        }
-        d += logf(mx);
-        state = prev;
+        bwd_frame(f, row, S, B, d, state, lz, red, move_in + frame * S,
+                  choices + frame * S, cs + frame, qscale, qbias,
+                  seq + frame, qstr + frame, mvout + frame);
     }
 }
 

@@ -65,6 +65,11 @@ SIGNATURES = {
     # clamp, cmin, cmax, stream
     "decode_fused_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                               F, F, F, I, F, I, F, F, P],
+    # kernels GW and JW: as G and J, the weights laid out fragment-major
+    "decode_fused_wide_fwd_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, F,
+                                   F, I, F, I, F, F, P],
+    "decode_fused_wide_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                   I, I, F, F, F, I, F, I, F, F, P],
     # qkv, cos, sin, out, N, T, H, D, r2, left, right, t_real, is_f32, stream
     "fused_rotary_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I,
                                       P],

@@ -23,7 +23,10 @@ PyTorch built for CUDA. In order, it:
     banded attention L in f32 and bf16 and, in bf16, on what the shallow
     transformer below hands it (N=32, 8 heads of 40, q and k out of
     apply_rotary), and the layout pin P on a transposed view and on a
-    contiguous tensor;
+    contiguous tensor; GW + JW, the fused-head decode at 1024 states, on
+    random heads of hac's width (N=96, T=1666, H=1024, U=1, clamped to +-5)
+    and sup's (N=128, 1000 encoder frames x 2 phases, H=512, tanh x 5 and a
+    bias);
  4. writes full-width model directories with the port's own code (random
     weights from a seed, the CRF weight scaled up so that the output is no
     run of stays): hac and fast, each once with quantize=false in its
@@ -45,27 +48,36 @@ PyTorch built for CUDA. In order, it:
     (``reverse=True``: model(x), reverse_complement, M + Q) of hac as
     shipped (48 reads, at least 3 full batches), of fast (one full batch of
     1024) and of sup (one full batch of 128: T 2000 behind P and 18 x K),
-    and the beam decode of hac (``decoder="beam"``, one full batch). Then it
+    and the beam decode of hac (``decoder="beam"``, one full batch). The
+    fused-head decode at 1024 states (``head_route="fused"``): hac as
+    shipped (hac_fused: D x 5, GW, JW) and sup (sup_fused: P, 18 x K, GW,
+    JW), at least 2 full batches each. Then it
     holds one batch on the int8 path, one on the hac reverse path (M + Q;
     it prints, and does not require, the share of rows whose reverse call is
     the shifted reverse complement of the forward call), one on the fast
     path, one on the sup path (in bf16 and on an f32 copy of the model; and
     its full scores, reverse complemented, through M + Q) and one of the
     shallow transformer (likewise) against the same batch with the plain
-    versions in the kernels' place;
+    versions in the kernels' place; and one batch of each fused path: its
+    head through GW + JW against their plain versions, and its decode
+    against the same batch's on the TCN route (the count of frames that
+    differ is printed, not required: f32 against bf16 move scores);
  6. checks from the launch counts, set to 0 before each path and read
     after it, that each path launched its own kernels (5 LSTM and 1 + 1
     decode launches per batch; sup: 1 pin, 18 attention and 1 + 1 decode
-    launches; the beam: 5 LSTM launches and no decode kernel) and no other
-    kernel of the port;
+    launches; the beam: 5 LSTM launches and no decode kernel; hac_fused: 5
+    LSTM launches and GW + JW; sup_fused: 1 pin, 18 attention, GW + JW) and
+    no other kernel of the port;
  7. prints samples/s, the device step and peak memory of the hac bf16,
-    int8, reverse and beam paths, the fast path and the sup path beside the
-    card's name and power;
+    int8, reverse and beam paths, the fast path, the sup path and the two
+    fused paths (beside the TCN route's device step on the same batch)
+    beside the card's name and power;
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function (and, for comparison, the routes that
     F, G and J take the place of at fast widths, B and C at sup shapes and
     the parts of one sup layer; M and Q at fast shapes, and the reverse
-    complement they read);
+    complement they read; GW and JW at hac's and sup's shapes beside the TCN
+    route's head matmul + B + C there);
  9. runs the CRF training loss at hac training width: the hac bf16
     directory (quantize=false), a batch of 128 chunks of 6000 samples and
     targets of 250 to 500 bases from the seed, through ``forward_tcn``
@@ -109,7 +121,7 @@ PyTorch built for CUDA. In order, it:
     32 x 12288, one validation batch: P, 18 x K, U, Y, B, C); and H's and
     O's times, plain times and bounds beside rotary + scaled_dot_product_
     attention with the band as a mask, forward and backward. It prints one
-    ``kernels`` JSON line with all twenty-three kernels.
+    ``kernels`` JSON line with all twenty-five kernels.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -165,6 +177,12 @@ FAST_CRF_SCALE = 13.5
 # sum of T logs near 4000, where one f32 step is 2.4e-4.
 DECODE_MIN_EQUAL = 0.999
 LOGZ_ATOL, LOGZ_RTOL = 1e-3, 1e-5
+# GW + JW, the fused-head decode above 256 states, on random heads of
+# hac's width (N, Th, H, S, U, tanh, gain: no tanh, clamped to +-5) and
+# sup's (1000 encoder frames x 2 phases of H 512, tanh x 5 and a bias),
+# held to the tolerances of G + J
+WIDE_HEADS = {"hac": (96, 1666, 1024, 1024, 1, False, 3.0),
+              "sup": (128, 1000, 512, 1024, 2, True, 0.5)}
 
 
 # sup geometry (dna_r10.4.1_e8.2_400bps_sup@v5.0): batch 128, chunk 12000,
@@ -326,7 +344,7 @@ def ptxas_summary(report):
                              r"local_attention_kernel|"
                              r"relayout_transpose|relayout_gather|"
                              r"(?:logz|lattice)_(?:fwd|bwd)_kernel|"
-                             r"decode_(?:fused_)?(?:fwd|bwd))", m.group(1))
+                             r"decode_(?:fused_(?:wide_)?)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
             resident = re.search(r"(?:fwd|bwd)ILb(\d)EE", m.group(1))
@@ -577,58 +595,87 @@ def check_lstm_fused(torch, lstm_fused_cuda, dev):
     return (x, w_ih, w_hh, b), worst
 
 
+def fused_head(torch, HeadSplit, dev, N, Th, H, S, U, tanh, gain):
+    """A random head split from the seed: tanh x 5 with a bias (sup's kind),
+    or a linear head clamped to +-5 (hac's and fast's). The same draw for
+    the same shape, so phase 8 times what phase 3 checked."""
+    g = torch.Generator().manual_seed(SEED + 4 + U)
+    h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(dev, torch.bfloat16)
+    wT = (gain * torch.randn(U, 4 * S, H, generator=g) / math.sqrt(H)).to(
+        dev, torch.bfloat16)
+    bias = ((0.3 * torch.randn(U, 4 * S, generator=g)).to(dev) if tanh
+            else None)
+    return HeadSplit(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+                     None if tanh else -5.0, None if tanh else 5.0, 2.0)
+
+
+def hold_fused(torch, decode_fused_cuda, head, name, kernels, **q):
+    """A head through the fused-head decode (G + J, or GW + JW above 256
+    states) and through their plain versions. Tolerances: DECODE_MIN_EQUAL
+    and LOGZ_* above, move-in within 1e-4. Returns the kernels' forward
+    outputs and decode, the worst move-in difference and |dq|."""
+    fwd = decode_fused_cuda.tcn_fused_forward(head)
+    out = decode_fused_cuda.tcn_fused_backward(head, *fwd, **q)
+    torch.cuda.synchronize()
+    ref_fwd = decode_fused_cuda.tcn_fused_forward_plain(head)
+    ref = decode_fused_cuda.tcn_fused_backward_plain(head, *ref_fwd, **q)
+    Th, N, H = head.h.shape
+    U, S = head.wT.shape[0], head.wT.shape[1] // 4
+    n_choice = (fwd[1] != ref_fwd[1]).sum().item()
+    n_end = (fwd[4] != ref_fwd[4]).sum().item()
+    err_in = (fwd[0] - ref_fwd[0]).abs().max().item()
+    d_lz = (fwd[3] - ref_fwd[3]).abs()
+    ok_lz = (d_lz <= LOGZ_ATOL + LOGZ_RTOL * ref_fwd[3].abs()).all().item()
+    same = ((out["moves"] == ref["moves"])
+            & (out["sequence"] == ref["sequence"]))
+    n_diff = (~same).sum().item()
+    n_rows = (~same).any(1).sum().item()
+    dq = (out["qstring"].int() - ref["qstring"].int()).abs()[same]
+    dq = dq.max().item() if dq.numel() else 0
+    frac = out["moves"].float().mean().item()
+    log(f"  kernels {kernels}, {name} (N={N}, T={Th * U}, H={H}, S={S}, "
+        f"U={U}): {n_choice} of {fwd[1].numel()} choices and {n_end} end "
+        f"states differ, max |move_in - plain| {err_in:.3g}, max |logZ - "
+        f"plain| {d_lz.max().item():.3g} at |logZ| about "
+        f"{ref_fwd[3].abs().mean().item():.4g} (tolerance {LOGZ_ATOL} + "
+        f"{LOGZ_RTOL} |logZ|); {n_diff} of "
+        f"{same.numel()} frames differ in {n_rows} of {N} rows (at most "
+        f"{1 - DECODE_MIN_EQUAL:.1%} may), max |dq| {dq} on the others; "
+        f"{frac:.3f} of frames move")
+    first = kernels.split(" + ")[0]
+    require(err_in <= 1e-4 and ok_lz,
+            f"kernel {first} ({name}) disagrees with its plain version")
+    require(n_diff <= (1 - DECODE_MIN_EQUAL) * same.numel() and dq <= 1,
+            f"kernels {kernels} ({name}) disagree with their plain versions")
+    require(0.01 < frac < 1, f"kernels {kernels} ({name}): degenerate decode")
+    return fwd, out, err_in, float(dq)
+
+
 def check_decode_fused(torch, decode_fused_cuda, HeadSplit, dev):
     """Kernels G and J against their plain versions: the fast head (U = 1,
     no tanh, Clamp +-5) at fast widths, and a small head with two upsample
-    phases, tanh, scale 5 and a bias. Tolerances: DECODE_MIN_EQUAL and
-    LOGZ_* above."""
-    def case(name, N, Th, H, S, U, tanh, gain):
-        g = torch.Generator().manual_seed(SEED + 4 + U)
-        h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(
-            dev, torch.bfloat16)
-        wT = (gain * torch.randn(U, 4 * S, H, generator=g) / math.sqrt(H)).to(
-            dev, torch.bfloat16)
-        bias = ((0.3 * torch.randn(U, 4 * S, generator=g)).to(dev) if tanh
-                else None)
-        head = HeadSplit(h, wT, bias, tanh, 5.0 if tanh else 1.0,
-                         None if tanh else -5.0, None if tanh else 5.0, 2.0)
-        fwd = decode_fused_cuda.tcn_fused_forward(head)
-        out = decode_fused_cuda.tcn_fused_backward(head, *fwd, qscale=1.05,
-                                                   qbias=0.2)
-        torch.cuda.synchronize()
-        ref_fwd = decode_fused_cuda.tcn_fused_forward_plain(head)
-        ref = decode_fused_cuda.tcn_fused_backward_plain(
-            head, *ref_fwd, qscale=1.05, qbias=0.2)
-        n_choice = (fwd[1] != ref_fwd[1]).sum().item()
-        n_end = (fwd[4] != ref_fwd[4]).sum().item()
-        err_in = (fwd[0] - ref_fwd[0]).abs().max().item()
-        d_lz = (fwd[3] - ref_fwd[3]).abs()
-        ok_lz = (d_lz <= LOGZ_ATOL + LOGZ_RTOL * ref_fwd[3].abs()).all().item()
-        same = ((out["moves"] == ref["moves"])
-                & (out["sequence"] == ref["sequence"]))
-        n_diff = (~same).sum().item()
-        n_rows = (~same).any(1).sum().item()
-        dq = (out["qstring"].int() - ref["qstring"].int()).abs()[same]
-        dq = dq.max().item() if dq.numel() else 0
-        frac = out["moves"].float().mean().item()
-        log(f"  kernels G + J, {name} (N={N}, T={Th * U}, H={H}, S={S}, "
-            f"U={U}): {n_choice} of {fwd[1].numel()} choices and {n_end} end "
-            f"states differ, max |move_in - plain| {err_in:.3g}, max |logZ - "
-            f"plain| {d_lz.max().item():.3g} at |logZ| about "
-            f"{ref_fwd[3].abs().mean().item():.4g} (tolerance {LOGZ_ATOL} + "
-            f"{LOGZ_RTOL} |logZ|); {n_diff} of "
-            f"{same.numel()} frames differ in {n_rows} of {N} rows (at most "
-            f"{1 - DECODE_MIN_EQUAL:.1%} may), max |dq| {dq} on the others; "
-            f"{frac:.3f} of frames move")
-        require(err_in <= 1e-4 and ok_lz,
-                f"kernel G ({name}) disagrees with its plain version")
-        require(n_diff <= (1 - DECODE_MIN_EQUAL) * same.numel() and dq <= 1,
-                f"kernels G + J ({name}) disagree with their plain versions")
-        require(0.01 < frac < 1, f"kernels G + J ({name}): degenerate decode")
-        return head, fwd, err_in, float(dq)
+    phases, tanh, scale 5 and a bias."""
+    q = dict(qscale=1.05, qbias=0.2)
+    hold_fused(torch, decode_fused_cuda, fused_head(
+        torch, HeadSplit, dev, 24, 50, 32, 64, 2, True, 0.5),
+        "two phases, tanh * 5, bias", "G + J", **q)
+    head = fused_head(torch, HeadSplit, dev, FN, FT, FH, FS, 1, False, 3.0)
+    fwd, _, err, dq = hold_fused(torch, decode_fused_cuda, head, "fast head",
+                                 "G + J", **q)
+    return head, fwd, err, dq
 
-    case("two phases, tanh * 5, bias", 24, 50, 32, 64, 2, True, 0.5)
-    return case("fast head", FN, FT, FH, FS, 1, False, 3.0)
+
+def check_decode_fused_wide(torch, decode_fused_cuda, HeadSplit, dev):
+    """Kernels GW and JW against their plain versions at hac's and sup's
+    widths (WIDE_HEADS) -> the worst move-in difference and |dq|."""
+    err = dq = 0.0
+    for name, shape in WIDE_HEADS.items():
+        head = fused_head(torch, HeadSplit, dev, *shape)
+        _, _, e, d = hold_fused(torch, decode_fused_cuda, head, f"{name} head",
+                                "GW + JW", qscale=1.05, qbias=0.2)
+        err, dq = max(err, e), max(dq, d)
+        del head
+    return err, dq
 
 
 def bf16_step(x):
@@ -1226,6 +1273,8 @@ def kernel_counters():
             "F": lstm_fused_cuda.lstm_fused,
             "G": decode_fused_cuda.tcn_fused_forward,
             "J": decode_fused_cuda.tcn_fused_backward,
+            "GW": decode_fused_cuda.tcn_fused_forward_wide,
+            "JW": decode_fused_cuda.tcn_fused_backward_wide,
             "K": attention_cuda.fused_rotary_window_attention,
             "L": attention_cuda.local_attention,
             "P": relayout.pin_layout,
@@ -1907,6 +1956,10 @@ def main():
     attn_args, err_attn = check_attention(torch, attention_cuda, transformer,
                                           dev)
     pin_view, err_p = check_pin(torch, relayout, dev)
+    log(f"    and the fused-head decode at {S} states (GW, JW) on random "
+        f"heads of hac's and sup's widths")
+    err_gw, err_jw = check_decode_fused_wide(torch, decode_fused_cuda,
+                                             HeadSplit, dev)
 
     log("[4] hac, fast and sup model directories from the port's own code")
     dirs = {}
@@ -1946,7 +1999,7 @@ def main():
         dirs[name] = model_dir
         del model
 
-    log("[5] load_model + basecall on the card, eleven paths")
+    log("[5] load_model + basecall on the card, thirteen paths")
     rng = np.random.default_rng(SEED)
     lengths = np.concatenate([[3000, 9000], rng.integers(20000, 110000, 142)])
     reads = [Read(f"read{i}", rng.normal(size=int(n)).astype(np.float32))
@@ -2025,8 +2078,19 @@ def main():
     for name, (model, rds, geometry, kw) in full_paths.items():
         runs[name] = run_path(torch, name, models[model], rds, counters,
                               basecall, chunk, geometry, **kw)
+    # the fused-head decode at 1024 states (GW, JW): hac as shipped and sup
+    # with head_route="fused", over at least 2 full batches each
+    fused_paths = {
+        "hac_fused": ("int8", first_reads(reads, chunk, hac_geometry, 2 * N),
+                      hac_geometry),
+        "sup_fused": ("sup", first_reads(fast_reads, chunk, sup_geometry,
+                                         2 * SN), sup_geometry)}
+    for name, (model, rds, geometry) in fused_paths.items():
+        runs[name] = run_path(torch, name, models[model], rds, counters,
+                              basecall, chunk, geometry, head_route="fused")
     for name, n in (("fast", 4), ("sup", 3), ("rev", 3), ("fast_rev", 1),
-                    ("sup_rev", 1), ("beam", 1)):
+                    ("sup_rev", 1), ("beam", 1), ("hac_fused", 2),
+                    ("sup_fused", 2)):
         require(runs[name]["full_batches"] >= n,
                 f"the {name} path ran fewer than {n} full batches")
 
@@ -2261,6 +2325,36 @@ def main():
                     f"disagree with the plain versions'")
     del d40_32, mv_kernel, mv_plain, xd
 
+    # one batch of each fused path (the batch the TCN route's device step
+    # above ran): its head through GW + JW against their plain versions, and
+    # its decode against the same batch's on the TCN route (printed, not
+    # required: f32 against bf16 move scores decode differently by design)
+    fused_steps = {}
+    for name, src, rds in (("hac_fused", "int8", reads),
+                           ("sup_fused", "sup", fast_reads)):
+        model = models[src]
+        prepared, fused_steps[name] = device_step(
+            np, model, rds, make_compute_fn, chunk, head_route="fused")
+        _, x_wire, sig_scale = prepared
+        with torch.inference_mode():
+            xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+                  * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+            head = model.forward_tcn_head(xc[..., None])
+            _, out_kernel, e, d = hold_fused(
+                torch, decode_fused_cuda, head, f"{name} path, one batch",
+                "GW + JW", **q)
+            out_tcn = ops_decode.viterbi_decode_tcn(
+                model.seqdist, *model.forward_tcn(xc[..., None]), **q)
+            differ = ((out_tcn["moves"] != out_kernel["moves"])
+                      | (out_tcn["sequence"] != out_kernel["sequence"]))
+        log(f"    the same batch on the TCN route (head matmul, bf16 moves, "
+            f"B + C): {differ.sum().item()} of {differ.numel()} frames "
+            f"differ in moves or sequence, in {differ.any(1).sum().item()} "
+            f"of {differ.shape[0]} rows (not required: f32 against bf16 "
+            f"move scores)")
+        err_gw, err_jw = max(err_gw, e), max(err_jw, d)
+        del head, out_kernel, out_tcn, differ
+
     log("[6] launches on each path (counts set to 0 before it, read after)")
     own = {"bf16": {"A": 5, "B": 1, "C": 1}, "int8": {"D": 5, "B": 1, "C": 1},
            "two_stage": {"E": 5, "B": 1, "C": 1},
@@ -2271,7 +2365,9 @@ def main():
            "rev": {"D": 5, "M": 1, "Q": 1},
            "fast_rev": {"F": 5, "M": 1, "Q": 1},
            "sup_rev": {"P": 1, "K": 18, "M": 1, "Q": 1},
-           "beam": {"D": 5}}
+           "beam": {"D": 5},
+           "hac_fused": {"D": 5, "GW": 1, "JW": 1},
+           "sup_fused": {"P": 1, "K": 18, "GW": 1, "JW": 1}}
     for name, run in runs.items():
         expect = {k: own[name].get(k, 0) * run["batches"] for k in counters}
         log(f"  {name}: {run['batches']} batches ({run['full_batches']} "
@@ -2295,6 +2391,18 @@ def main():
             f"{per_batch / step * 1e3:.6g} samples/s")
     log(f"  fast with head_route='tcn' (head matmul + B + C in place of G + "
         f"J): device step {step_fast_tcn:.4g} ms per batch")
+    for name, tcn_name, tcn_step in (("hac_fused", "int8", step_int8),
+                                     ("sup_fused", "sup", step_sup)):
+        run, step = runs[name], fused_steps[name]
+        per_batch = run["batchsize"] * run["chunksize"]
+        log(f"  {name} (head_route='fused': GW + JW in place of the head "
+            f"matmul + B + C): {run['samples'] / run['wall']:.6g} samples/s "
+            f"over {run['wall']:.3f} s ({run['samples']} samples, "
+            f"{run['batches']} batches of {run['batchsize']}), peak memory "
+            f"{run['peak']:.3f} GiB, {run['peak'] - run['held']:.3f} GiB "
+            f"above what was held before the path; device step {step:.4g} ms "
+            f"per batch = {per_batch / step * 1e3:.6g} samples/s, beside the "
+            f"TCN route's ({tcn_name}) {tcn_step:.4g} ms on the same batch")
 
     log(f"[8] kernel times at hac shapes (N={N}, T={T}, C=H={H}, S={S}; "
         f"CUDA events)")
@@ -2592,6 +2700,69 @@ def main():
         f"{step_sup:.4g} ms device step; the rest {step_sup - sup_sum:.4g} ms "
         f"(wire, pack, fetch)")
 
+    # GW and JW at hac's and sup's shapes (the random heads of phase 3),
+    # beside the TCN route's pieces they take the place of at those shapes
+    log(f"    and the fused-head decode at {S} states (GW, JW)")
+    wide = {}
+    for name, shape in WIDE_HEADS.items():
+        head = fused_head(torch, HeadSplit, dev, *shape)
+        Nw, Thw, Hw, Sw, Uw = shape[:5]
+        Tw = Thw * Uw
+        fwd_w = decode_fused_cuda.tcn_fused_forward(head)
+        t = {"GW": cuda_ms(lambda: decode_fused_cuda.tcn_fused_forward(head),
+                           reps=3),
+             "GW_plain": cuda_ms(
+                 lambda: decode_fused_cuda.tcn_fused_forward_plain(head),
+                 reps=1, warmup=0),
+             "JW": cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward(
+                 head, *fwd_w), reps=3),
+             "JW_plain": cuda_ms(
+                 lambda: decode_fused_cuda.tcn_fused_backward_plain(
+                     head, *fwd_w), reps=1, warmup=0)}
+        # the head product on the tensor cores; about 20 f32 operations per
+        # state and frame for the decode, as for G and J
+        head_ops = 2 * Nw * Tw * Hw * 4 * Sw
+        head_in = (Thw * Nw * Hw * 2 + Uw * 4 * Sw * Hw * 2
+                   + (Uw * 4 * Sw * 4 if head.bias is not None else 0))
+        # GW: h, the weights and bias in; move-in f32, choices, c, logZ,
+        # end state out
+        t["GW_bound"] = bound(head_in + Nw * Tw * Sw * 5 + Nw * Tw * 4
+                              + Nw * 8, head_ops, H100_BF16_OPS,
+                              20 * Nw * Tw * Sw)
+        # JW: as for J, a quarter of move-in, one choice per frame, c, logZ,
+        # end state in; three [N, T] planes out
+        t["JW_bound"] = bound(head_in + Nw * Tw * (Sw // 4) * 4 + Nw * Tw * 5
+                              + Nw * 8 + 3 * Nw * Tw, head_ops, H100_BF16_OPS,
+                              20 * Nw * Tw * Sw)
+        wide[name] = t
+        del head, fwd_w
+    # the TCN route's pieces at the same shapes: hac's bf16 head matmul (and
+    # the int8 head of hac as shipped), B, C; sup's upsample, head matmul +
+    # tanh + scale, B, C
+    tcn_route = {"hac": head_bf16 + ms_b + ms_c,
+                 "hac_int8_head": head_int8 + ms_b + ms_c,
+                 "sup": ms_up + ms_head + ms_b_sup + ms_c_sup}
+    for name, t in wide.items():
+        log(f"  {name} shapes: GW {t['GW']:.4g} ms (plain {t['GW_plain']:.4g}, "
+            f"bound {t['GW_bound'][0]:.4g} by {t['GW_bound'][1]}) + JW "
+            f"{t['JW']:.4g} ms (plain {t['JW_plain']:.4g}, bound "
+            f"{t['JW_bound'][0]:.4g} by {t['JW_bound'][1]}) = "
+            f"{t['GW'] + t['JW']:.4g} ms vs the TCN route's pieces "
+            f"{tcn_route[name]:.4g} ms" + (
+                f" (bf16 head {head_bf16:.4g} + B {ms_b:.4g} + C {ms_c:.4g};"
+                f" with the int8 head of hac as shipped "
+                f"{tcn_route['hac_int8_head']:.4g})" if name == "hac" else
+                f" (upsample {ms_up:.4g} + head {ms_head:.4g} + B "
+                f"{ms_b_sup:.4g} + C {ms_c_sup:.4g})"))
+    for name, step, tcn_step in (("hac_fused", fused_steps["hac_fused"],
+                                  step_int8),
+                                 ("sup_fused", fused_steps["sup_fused"],
+                                  step_sup)):
+        t = wide[name.split("_")[0]]
+        log(f"  {name} path per batch: GW + JW {t['GW'] + t['JW']:.4g} ms of "
+            f"the {step:.4g} ms device step ({step - tcn_step:+.4g} ms against "
+            f"the TCN route's step)")
+
     for name, key, ms_lstm, dec, step in (
             ("bf16", "A", ms_a, (("B", ms_b), ("C", ms_c)), step_bf16),
             ("int8", "D", ms_d, (("B", ms_b), ("C", ms_c)), step_int8),
@@ -2614,10 +2785,11 @@ def main():
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
     src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
     src_full = "bonito_tpu_torch/csrc/decode_full.cu"
+    src_wide = "bonito_tpu_torch/csrc/decode_tcn_fused_wide.cu"
     # launches: the count on the path that is the kernel's own (A: bf16,
     # D, B, C: int8 fused, E: int8 two-stage, F, G, J: fast, K, P: sup, L:
-    # the shallow transformer, M, Q: hac's reverse strand); by_path has
-    # every path's
+    # the shallow transformer, M, Q: hac's reverse strand, GW, JW:
+    # hac_fused); by_path has every path's
     entries = [
         ("lstm_recurrence", "A", "bf16", "bonito_tpu_torch/csrc/lstm.cu",
          "bonito_tpu/ops/lstm_pallas.py:54", err_a, ms_a, plain_a, bound_a,
@@ -2658,6 +2830,12 @@ def main():
         ("decode_full_bwd", "Q", "rev", src_full,
          "bonito_tpu/ops/decode_pallas.py:109", err_q, ms_q, plain_q, bound_q,
          None),
+        ("decode_fused_wide_fwd", "GW", "hac_fused", src_wide,
+         "bonito_tpu/ops/decode_pallas.py:348", err_gw, wide["hac"]["GW"],
+         wide["hac"]["GW_plain"], wide["hac"]["GW_bound"], None),
+        ("decode_fused_wide_bwd", "JW", "hac_fused", src_wide,
+         "bonito_tpu/ops/decode_pallas.py:413", err_jw, wide["hac"]["JW"],
+         wide["hac"]["JW_plain"], wide["hac"]["JW_bound"], None),
     ]
     # times at another path's shapes than the one the entry's numbers are of
     more = {"B": {"sup_shape_ms": ms_b_sup,
@@ -2665,6 +2843,10 @@ def main():
             "C": {"sup_shape_ms": ms_c_sup,
                   "sup_shape_bound_ms": bound_c_sup[0]},
             "M": {"fast_shape_ms": ms_m_fast, "sup_shape_ms": ms_m_sup},
+            **{k: {"sup_shape_ms": wide["sup"][k],
+                   "sup_shape_plain_ms": wide["sup"][f"{k}_plain"],
+                   "sup_shape_bound_ms": wide["sup"][f"{k}_bound"][0],
+                   "tcn_route_ms": tcn_route} for k in ("GW", "JW")},
             "Q": {"fast_shape_ms": ms_q_fast, "sup_shape_ms": ms_q_sup},
             "L": {"sup_f32": {
                 "max_abs_err": err_attn["L sup f32"], "ms": ms_l32,

@@ -305,14 +305,21 @@ def test_lstm_gate_launches_the_fused_kernel_for_a_small_layer(cuda):
 @pytest.mark.parametrize("N,Th,H,S,U,tanh", [
     (8, 9, 32, 64, 1, False), (5, 7, 32, 64, 2, True), (6, 10, 16, 16, 2, True),
     (3, 6, 16, 4, 1, False), (4, 5, 96, 256, 1, False),
-    (9, 13, 256, 64, 3, True), (64, 60, 96, 64, 1, False)])
+    (9, 13, 256, 64, 3, True), (64, 60, 96, 64, 1, False),
+    (4, 24, 1024, 1024, 1, False), (6, 12, 512, 1024, 2, True),
+    (3, 19, 64, 1024, 1, True), (5, 11, 512, 1024, 2, False),
+    (2, 13, 256, 512, 1, True)])
 def test_fused_decode_kernels_match_plain(cuda, N, Th, H, S, U, tanh):
-    """Kernels G and J: the head sums run in another order than the plain
-    version's matmul, so a near-tie may fall the other way; at these sizes
-    none was seen, and at most 0.1% of frames may differ. The shapes take
-    ragged row blocks and chunks, rows inside one warp (S 4, 16) and over
-    several (64, 256), one to three upsample phases, and weights in shared
-    memory and (H 256 with 3 phases, S 256) read through L2."""
+    """Kernels G and J (S <= 256): the head sums run in WMMA tiles, another
+    order than the plain version's, so a near-tie may fall the other way;
+    at these sizes none was seen, and at most 0.1% of frames may differ.
+    The shapes take ragged row blocks and chunks, rows inside one warp (S 4,
+    16) and over several (64, 256), one to three upsample phases, and
+    weights in shared memory and (H 256 with 3 phases, S 256) read through
+    L2. GW and JW (S 512, 1024) take the plain versions' f32 steps and give
+    their bits: hac's head (H 1024, U 1, clamped) and sup's (H 512, U 2,
+    tanh x 5 and a bias), odd N, and a Th that leaves a partial chunk of
+    their 8 output frames (19, 11, 13)."""
     g = torch.Generator().manual_seed(N + Th + S)
     gain = 0.5 if tanh else 3.0
     h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(cuda, torch.bfloat16)
@@ -321,14 +328,19 @@ def test_fused_decode_kernels_match_plain(cuda, N, Th, H, S, U, tanh):
     bias = (0.3 * torch.randn(U, 4 * S, generator=g)).to(cuda) if tanh else None
     head = Head(h, wT, bias, tanh, 5.0 if tanh else 1.0,
                 None if tanh else -5.0, None if tanh else 5.0, 2.0)
-    counts = lambda: (decode_fused_cuda.tcn_fused_forward.launches,
-                      decode_fused_cuda.tcn_fused_backward.launches)
+    wide = S > decode_fused_cuda.MAX_S
+    counts = lambda: (
+        decode_fused_cuda.tcn_fused_forward.launches,
+        decode_fused_cuda.tcn_fused_backward.launches,
+        decode_fused_cuda.tcn_fused_forward_wide.launches,
+        decode_fused_cuda.tcn_fused_backward_wide.launches)
     before = counts()
     fwd = decode_fused_cuda.tcn_fused_forward(head)
     out = decode_fused_cuda.tcn_fused_backward(head, *fwd, qscale=1.05,
                                                qbias=0.2)
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 1, before[1] + 1)
+    launched = (0, 0, 1, 1) if wide else (1, 1, 0, 0)
+    assert counts() == tuple(b + d for b, d in zip(before, launched))
     ref_fwd = decode_fused_cuda.tcn_fused_forward_plain(head)
     ref = decode_fused_cuda.tcn_fused_backward_plain(head, *ref_fwd,
                                                      qscale=1.05, qbias=0.2)
@@ -342,6 +354,9 @@ def test_fused_decode_kernels_match_plain(cuda, N, Th, H, S, U, tanh):
     dq = (out["qstring"].int() - ref["qstring"].int()).abs()[same]
     assert dq.max().item() <= 1
     assert 0 < out["moves"].float().mean().item() < 1
+    if wide:
+        assert all(torch.equal(a, b) for a, b in zip(fwd, ref_fwd))
+        assert all(torch.equal(out[k], ref[k]) for k in ref)
 
 
 def test_fused_decode_kernels_reject_what_they_do_not_take(cuda):
@@ -352,8 +367,15 @@ def test_fused_decode_kernels_reject_what_they_do_not_take(cuda):
         decode_fused_cuda.tcn_fused_forward(ok._replace(h=h.float()))
     with pytest.raises(ValueError, match="power of two"):
         decode_fused_cuda.tcn_fused_forward(ok._replace(
-            wT=torch.zeros(1, 4 * 1024, 16, device=cuda,
+            wT=torch.zeros(1, 4 * 2048, 16, device=cuda,
                            dtype=torch.bfloat16)))
+    wide = lambda U, H: ok._replace(
+        h=torch.zeros(4, 2, H, device=cuda, dtype=torch.bfloat16),
+        wT=torch.zeros(U, 4 * 1024, H, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="H up to 1024"):
+        decode_fused_cuda.tcn_fused_forward(wide(1, 2048))
+    with pytest.raises(ValueError, match="U in"):
+        decode_fused_cuda.tcn_fused_backward(wide(3, 16), *[None] * 5)
     with pytest.raises(ValueError, match="one CUDA device"):
         decode_fused_cuda.tcn_fused_forward(ok._replace(wT=wT.cpu()))
     with pytest.raises(ValueError, match="bias"):
