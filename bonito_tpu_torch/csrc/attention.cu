@@ -20,13 +20,16 @@
 //
 // L, local_attention, replaces attention_pallas.py:local_attention_pallas
 // (`_kernel`): q, k, v [N, H, T, D] (rotary already applied, any strides
-// with a contiguous D) -> [N, H, T, D] with f32 operands and f32 products
-// throughout (bf16 input is widened) and out = (p . v) / sum.
+// with a contiguous D) -> [N, H, T, D]: s = q . k / sqrt(D) in f32 from the
+// inputs' values (bf16 input is widened exactly), p = exp(s - max) in f32,
+// out = (p . v) / sum with f32 p and f32 sums.
 //
 // What bounds them on an H100: at sup shapes (N 128, T 1000, H 8, D 64,
 // window (127, 128), bf16) K reads 393 MB and writes 131 MB, 0.16 ms at 3.35
 // TB/s, against 67 GFLOP inside the band, 0.07 ms on the tensor cores:
-// bytes. L does the same work in f32 FMAs (67 TFLOP/s): operations.
+// bytes. L in bf16 the same (at the shallow transformer's call, N 32, 8
+// heads of 40: 82 MB, 0.025 ms); L in f32 does the work in f32 FMAs (67
+// TFLOP/s): operations.
 //
 // Design of K. One block of 4 warps per (row n, head h, tile of 64 queries):
 // 16,384 blocks at sup shapes. The band of 64 queries spans at most
@@ -50,11 +53,29 @@
 // one runs one program per batch row with the query blocks unrolled and a
 // [N, 3, H, D, T] layout, which answer the TPU's pipeline overhead and lanes.
 //
-// Design of L. One block of 8 warps per (n, h, tile of 64 queries), key tiles
-// of 32 through shared memory in f32, a lane per key for the scores and a
-// lane per head-dim element for the output, online softmax in f32 (exact up
-// to f32 rounding: L normalises at the end, as the TPU kernel does). FMA
-// only: TF32 tensor-core products would not keep f32.
+// Design of L. The dtype picks one of two instances; both keep an online
+// softmax in f32 and normalise at the end, as the TPU kernel does.
+//   bf16: one block of 4 warps per (n, h, tile of 64 queries), a warp per
+//   16 query rows. Key and value tiles of 64 go through shared memory by
+//   cp.async, double-buffered, the head dim zero-padded to a multiple of 16
+//   (heads of 40 become 48); only the tiles of the block's key window are
+//   staged, and a warp skips the sub-tiles of 16 keys its rows do not see.
+//   S = Q K^T runs on mma.sync m16n8k16 (bf16 operands, which are the
+//   inputs' exact values; f32 sums). The band mask, the running max, sum
+//   and rescale stay in f32 registers. P V runs on the tensor cores too,
+//   with f32 p split into three bf16 terms p = hi + mid + lo (all 24 of its
+//   bits) and three products per 16 keys, summed from zero and added to o
+//   on the f32 cores. A bf16 p moves p by up to 2^-9; two terms (2^-17),
+//   with the products accumulated in the tensor cores, which truncate,
+//   flipped the outputs' bf16 roundings against the plain version often
+//   enough to triple the shallow transformer's drift from its plain path
+//   (on an H100; PERF.md). Loads take 16-byte copies where q, k, v and out
+//   lie at 16-byte addresses with strides of multiples of 8 elements,
+//   element loads otherwise (a branch inside the kernel).
+//   f32: one block of 8 warps per (n, h, tile of 64 queries), key tiles of
+//   32 through shared memory in f32, a lane per key for the scores and a
+//   lane per head-dim element for the output. FMA only: TF32 tensor-core
+//   products would round its operands.
 //
 // H and O, the training twin: they replace attention_pallas.py:
 // fused_rotary_window_attention_train (`_fused_fwd_kernel_dt`,
@@ -94,8 +115,8 @@
 // D = 64: two blocks an SM.
 //
 // Later work: K with wgmma and TMA, the key window shared by the query tiles
-// of one (n, h) in a cluster instead of read five times through L2; L on
-// register tiles; O's two kinds of block on wgmma.
+// of one (n, h) in a cluster instead of read five times through L2; O's two
+// kinds of block on wgmma.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -150,17 +171,12 @@ __device__ inline void store8(bf16* s, const float (&v)[8]) {
     *reinterpret_cast<uint4*>(s) = raw;
 }
 
-__device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(bf16 x) { return __bfloat162float(x); }
-
 __device__ inline void store_pair(bf16* p, float a, float b) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 __device__ inline void store_pair(float* p, float a, float b) {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ inline void store_one(bf16* p, float a) { *p = __float2bfloat16(a); }
-__device__ inline void store_one(float* p, float a) { *p = a; }
 
 // ---------------------------------------------------------------------------
 // kernel K
@@ -882,13 +898,13 @@ constexpr int LDD = 4;           // head-dim elements per lane: D <= 128
 
 struct Strides { long long n, h, t; };
 
-template <typename T>
 __global__ void __launch_bounds__(LNT)
-local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       Strides sq, Strides sk, Strides sv, Strides so,
-                       int H, int Tn, int D, int left, int right, int n_qt,
-                       float scale)
+local_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, Strides sq, Strides sk,
+                           Strides sv, Strides so, int H, int Tn, int D,
+                           int left, int right, int n_qt, float scale)
 {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int LDK = D + 1;
@@ -906,13 +922,13 @@ local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k_beg = max(0, q0 - left);
     const int k_end = min(Tn, q_end + right);        // exclusive
 
-    const T* qb = q + n * sq.n + h * sq.h;
-    const T* kb = k + n * sk.n + h * sk.h;
-    const T* vb = v + n * sv.n + h * sv.h;
+    const float* qb = q + n * sq.n + h * sq.h;
+    const float* kb = k + n * sk.n + h * sk.h;
+    const float* vb = v + n * sv.n + h * sv.h;
     for (int e = tid; e < LQ * D; e += LNT) {
         const int i = e / D, d = e % D;
         const int tok = q0 + i;
-        Qs[i * LDK + d] = tok < Tn ? to_float(qb[tok * sq.t + d]) : 0.f;
+        Qs[i * LDK + d] = tok < Tn ? qb[tok * sq.t + d] : 0.f;
     }
 
     // the warp's rows and the keys they see
@@ -936,8 +952,8 @@ local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int j = e / D, d = e % D;
             const int tok = kt + j;
             const bool live = tok < k_end;
-            Ks[j * LDK + d] = live ? to_float(kb[tok * sk.t + d]) : 0.f;
-            Vs[j * D + d] = live ? to_float(vb[tok * sv.t + d]) : 0.f;
+            Ks[j * LDK + d] = live ? kb[tok * sk.t + d] : 0.f;
+            Vs[j * D + d] = live ? vb[tok * sv.t + d] : 0.f;
         }
         __syncthreads();
         if (!warp_live || kt > w_hi || kt + LK <= w_lo) continue;
@@ -994,7 +1010,7 @@ local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     if (!warp_live) return;
-    T* ob = out + n * so.n + h * so.h;
+    float* ob = out + n * so.n + h * so.h;
 #pragma unroll
     for (int r = 0; r < LR; ++r) {
         const int i = row0 + r;
@@ -1003,16 +1019,14 @@ local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int dd = 0; dd < LDD; ++dd) {
             const int d = lane + 32 * dd;
             if (d < D)
-                store_one(ob + i * so.t + d,
-                          l[r] > 0.f ? acc[r][dd] / l[r] : 0.f);
+                ob[i * so.t + d] = l[r] > 0.f ? acc[r][dd] / l[r] : 0.f;
         }
     }
 }
 
-template <typename T>
-int launch_local(const void* q, const void* k, const void* v, void* out,
-                 const long long* st, int N, int H, int Tn, int D, int left,
-                 int right, cudaStream_t stream)
+int launch_local_f32(const void* q, const void* k, const void* v, void* out,
+                     const long long* st, int N, int H, int Tn, int D,
+                     int left, int right, cudaStream_t stream)
 {
     const int n_qt = (Tn + LQ - 1) / LQ;
     const size_t smem = sizeof(float)
@@ -1020,7 +1034,7 @@ int launch_local(const void* q, const void* k, const void* v, void* out,
     if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     const long long blocks = (long long)N * H * n_qt;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    const auto kernel = local_attention_kernel<T>;
+    const auto kernel = local_attention_f32_kernel;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -1028,10 +1042,334 @@ int launch_local(const void* q, const void* k, const void* v, void* out,
                   sv = {st[6], st[7], st[8]}, so = {st[9], st[10], st[11]};
     const float scale = (float)(1.0 / sqrt((double)D));
     kernel<<<(unsigned)blocks, LNT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), sq, sk, sv, so, H, Tn,
-        D, left, right, n_qt, scale);
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), sq, sk, sv,
+        so, H, Tn, D, left, right, n_qt, scale);
     return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// kernel L, bf16: both products on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TQ = 64;           // query rows per block: 4 warps x 16
+constexpr int TK = 64;           // keys per staged tile
+constexpr int TNT = (TQ / 16) * 32;
+
+__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// p = hi + mid + lo in three bf16 terms (24 bits, all of an f32 p's): the
+// pair (a, b) as the A operand's halves
+__device__ inline void split_pair(float a, float b, uint32_t& hi,
+                                  uint32_t& mid, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    const float ra = a - hf.x, rb = b - hf.y;
+    const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+    const float2 mf = __bfloat1622float2(m);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    mid = *reinterpret_cast<const uint32_t*>(&m);
+    lo = pack_bf16(ra - mf.x, rb - mf.y);
+}
+
+// DP: the head dim rounded up to 16 (zeros beyond D in shared memory).
+// vec: q, k, v and out at 16-byte addresses with (n, h, t) strides that
+// are multiples of 8 elements: 16-byte cp.async copies and paired stores;
+// else element by element.
+template <int DP>
+__global__ void __launch_bounds__(TNT)
+local_attention_tc_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ out,
+                          Strides sq, Strides sk, Strides sv, Strides so,
+                          int H, int Tn, int D, int left, int right, int n_qt,
+                          float scale, int vec)
+{
+    constexpr int LD = DP + PADB;
+    constexpr int KT = DP / 16;
+    constexpr int CH = DP / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [TQ][LD]
+    bf16* Ks = Qs + TQ * LD;                        // [2][TK][LD]
+    bf16* Vs = Ks + 2 * TK * LD;                    // [2][TK][LD]
+
+    const int tid = threadIdx.x;
+    const int qt = blockIdx.x % n_qt;
+    const int h = (blockIdx.x / n_qt) % H;
+    const int n = blockIdx.x / (n_qt * H);
+    const int q0 = qt * TQ;
+    const int q_end = min(q0 + TQ, Tn);
+    const int k_beg = max(0, q0 - left);
+    const int k_end = min(Tn, q_end + right);        // exclusive
+    const int n_kt = (k_end - k_beg + TK - 1) / TK;
+
+    const bf16* qb = q + n * sq.n + h * sq.h;
+    const bf16* kb = k + n * sk.n + h * sk.h;
+    const bf16* vb = v + n * sv.n + h * sv.h;
+    // rows tok0 .. tok0 + 63 of a [T, D] view into a shared tile, zeros
+    // beyond tok_end and D
+    auto stage = [&](bf16* dst, const bf16* src, long long st, int tok0,
+                     int tok_end) {
+        for (int e = tid; e < TK * CH; e += TNT) {
+            const int r = e / CH, d0 = (e % CH) * 8;
+            const int tok = tok0 + r;
+            bf16* s = dst + r * LD + d0;
+            if (tok < tok_end && d0 < D) {
+                const bf16* g = src + tok * st + d0;
+                if (vec) {
+                    __pipeline_memcpy_async(s, g, 16);
+                } else {
+#pragma unroll
+                    for (int i = 0; i < 8; ++i) s[i] = g[i];
+                }
+            } else {
+                zero_chunk(s);
+            }
+        }
+    };
+    stage(Qs, qb, sq.t, q0, Tn);
+    stage(Ks, kb, sk.t, k_beg, k_end);
+    stage(Vs, vb, sv.t, k_beg, k_end);
+    __pipeline_commit();
+
+    const int w = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, c4 = lane & 3;
+    const int r0 = w * 16;
+    const bool warp_live = q0 + r0 < Tn;
+    const int ia = q0 + r0 + g, ib = ia + 8;
+    // the keys the warp's rows see: w_lo .. w_hi
+    const int w_lo = q0 + r0 - left;
+    const int w_hi = min(q0 + r0 + 15, Tn - 1) + right;
+    // ldmatrix lanes: A rows and columns; B (k, non-transposed) rows and
+    // columns of two n-tiles; V (transposed) rows and columns
+    const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+    const int b_row = (lane >> 4) * 8 + (lane & 7);
+    const int b_col = ((lane >> 3) & 1) * 8;
+    const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int v_col = (lane >> 4) * 8;
+
+    uint32_t qf[KT][4];
+    float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+    float o[2 * KT][4];
+#pragma unroll
+    for (int dt = 0; dt < 2 * KT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+        if (kt + 1 < n_kt) {
+            const int nxt = ((kt + 1) & 1) * TK * LD;
+            stage(Ks + nxt, kb, sk.t, k_beg + (kt + 1) * TK, k_end);
+            stage(Vs + nxt, vb, sv.t, k_beg + (kt + 1) * TK, k_end);
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(1);                   // tile kt is in
+        __syncthreads();
+        if (kt == 0 && warp_live) {
+#pragma unroll
+            for (int kk = 0; kk < KT; ++kk)
+                ldmatrix_x4(qf[kk], Qs + (r0 + a_row) * LD + kk * 16 + a_col);
+        }
+        const int key0 = k_beg + kt * TK;
+        if (warp_live && key0 <= w_hi && key0 + TK > w_lo) {
+            const bf16* Kt = Ks + (kt & 1) * TK * LD;
+            const bf16* Vt = Vs + (kt & 1) * TK * LD;
+            // scores of the tile's four sub-tiles of 16 keys: s[st][nt]
+            // holds, of keys 16 st + 8 nt + 2 c4 and + 1, rows ia (entries
+            // 0, 1) and ib (2, 3); vis the same, as bits
+            // (live: the sub-tiles that hold a key the warp's rows see, the
+            // same in every lane: mma.sync and ldmatrix run warp-wide)
+            float s[4][2][4];
+            unsigned vis = 0, live = 0;
+#pragma unroll
+            for (int st = 0; st < 4; ++st) {
+                const int j0 = key0 + st * 16;
+                if (j0 > w_hi || j0 + 16 <= w_lo || j0 >= k_end) {
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) s[st][e >> 2][e & 3] = NEG;
+                    continue;
+                }
+                live |= 1u << st;
+                float a0[4] = {0.f, 0.f, 0.f, 0.f};
+                float a1[4] = {0.f, 0.f, 0.f, 0.f};
+                const bf16* kp = Kt + (st * 16 + b_row) * LD + b_col;
+#pragma unroll
+                for (int kk = 0; kk < KT; ++kk) {
+                    uint32_t b[4];
+                    ldmatrix_x4(b, kp + kk * 16);
+                    mma_bf16(a0, qf[kk], b[0], b[1]);
+                    mma_bf16(a1, qf[kk], b[2], b[3]);
+                }
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const int nt = e >> 2, ee = e & 3;
+                    const int j = j0 + nt * 8 + 2 * c4 + (ee & 1);
+                    const int i = ee < 2 ? ia : ib;
+                    const bool ok = j - i >= -left && j - i <= right
+                        && j < k_end;
+                    s[st][nt][ee] = ok ? (nt ? a1[ee] : a0[ee]) * scale : NEG;
+                    vis |= (unsigned)ok << (st * 8 + e);
+                }
+            }
+            // online softmax over the tile: each row's max over the four
+            // threads that share it, then p and the rescale of o
+            float ta = NEG, tb = NEG;
+#pragma unroll
+            for (int st = 0; st < 4; ++st)
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt) {
+                    ta = fmaxf(ta, fmaxf(s[st][nt][0], s[st][nt][1]));
+                    tb = fmaxf(tb, fmaxf(s[st][nt][2], s[st][nt][3]));
+                }
+#pragma unroll
+            for (int d = 1; d <= 2; d <<= 1) {
+                ta = fmaxf(ta, __shfl_xor_sync(0xffffffffu, ta, d));
+                tb = fmaxf(tb, __shfl_xor_sync(0xffffffffu, tb, d));
+            }
+            const float na = fmaxf(m_a, ta), nb = fmaxf(m_b, tb);
+            const float alpha_a = expf(m_a - na), alpha_b = expf(m_b - nb);
+            m_a = na;
+            m_b = nb;
+            float sa = 0.f, sb = 0.f;
+#pragma unroll
+            for (int st = 0; st < 4; ++st)
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const int nt = e >> 2, ee = e & 3;
+                    const float p = (vis >> (st * 8 + e) & 1)
+                        ? expf(s[st][nt][ee] - (ee < 2 ? na : nb)) : 0.f;
+                    s[st][nt][ee] = p;
+                    if (ee < 2) sa += p; else sb += p;
+                }
+            l_a = l_a * alpha_a + sa;
+            l_b = l_b * alpha_b + sb;
+#pragma unroll
+            for (int dt = 0; dt < 2 * KT; ++dt) {
+                o[dt][0] *= alpha_a;
+                o[dt][1] *= alpha_a;
+                o[dt][2] *= alpha_b;
+                o[dt][3] *= alpha_b;
+            }
+            // o += p . v with p = hi + mid + lo: three bf16 products of
+            // the sub-tile's 16 keys, smallest first, summed from zero on
+            // the tensor cores, then added to o on the f32 cores (the
+            // tensor cores truncate where they add to an accumulator)
+#pragma unroll
+            for (int st = 0; st < 4; ++st) {
+                if (!(live >> st & 1u)) continue;
+                uint32_t hi[4], mid[4], lo[4];
+                split_pair(s[st][0][0], s[st][0][1], hi[0], mid[0], lo[0]);
+                split_pair(s[st][0][2], s[st][0][3], hi[1], mid[1], lo[1]);
+                split_pair(s[st][1][0], s[st][1][1], hi[2], mid[2], lo[2]);
+                split_pair(s[st][1][2], s[st][1][3], hi[3], mid[3], lo[3]);
+                const bf16* vp = Vt + (st * 16 + v_row) * LD + v_col;
+#pragma unroll
+                for (int dk = 0; dk < KT; ++dk) {
+                    uint32_t vb4[4];
+                    ldmatrix_x4_trans(vb4, vp + dk * 16);
+                    float t0[4] = {0.f, 0.f, 0.f, 0.f};
+                    float t1[4] = {0.f, 0.f, 0.f, 0.f};
+                    mma_bf16(t0, lo, vb4[0], vb4[1]);
+                    mma_bf16(t1, lo, vb4[2], vb4[3]);
+                    mma_bf16(t0, mid, vb4[0], vb4[1]);
+                    mma_bf16(t1, mid, vb4[2], vb4[3]);
+                    mma_bf16(t0, hi, vb4[0], vb4[1]);
+                    mma_bf16(t1, hi, vb4[2], vb4[3]);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        o[2 * dk][e] += t0[e];
+                        o[2 * dk + 1][e] += t1[e];
+                    }
+                }
+            }
+        }
+        __syncthreads();                            // tile kt is read
+    }
+
+    if (!warp_live) return;
+#pragma unroll
+    for (int d = 1; d <= 2; d <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, d);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, d);
+    }
+    bf16* ob = out + n * so.n + h * so.h;
+#pragma unroll
+    for (int dt = 0; dt < 2 * KT; ++dt) {
+        const int d = dt * 8 + 2 * c4;
+        if (d >= D) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int i = half ? ib : ia;
+            const float l = half ? l_b : l_a;
+            if (i >= Tn) continue;
+            const float x0 = l > 0.f ? o[dt][2 * half] / l : 0.f;
+            const float x1 = l > 0.f ? o[dt][2 * half + 1] / l : 0.f;
+            bf16* dst = ob + i * so.t + d;
+            if (vec) {
+                store_pair(dst, x0, x1);
+            } else {
+                dst[0] = __float2bfloat16(x0);
+                dst[1] = __float2bfloat16(x1);
+            }
+        }
+    }
+}
+
+template <int DP>
+int launch_local_tc(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                    const Strides (&st)[4], int N, int H, int Tn, int D,
+                    int left, int right, cudaStream_t stream)
+{
+    const int n_qt = (Tn + TQ - 1) / TQ;
+    const size_t smem = sizeof(bf16) * (size_t)(TQ + 4 * TK) * (DP + PADB);
+    const long long blocks = (long long)N * H * n_qt;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const auto at16 = [](const void* p) {
+        return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    bool vec = at16(q) && at16(k) && at16(v) && at16(out);
+    for (int i = 0; i < 4; ++i)
+        vec = vec && st[i].n % 8 == 0 && st[i].h % 8 == 0 && st[i].t % 8 == 0;
+    const auto kernel = local_attention_tc_kernel<DP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const float scale = (float)(1.0 / sqrt((double)D));
+    kernel<<<(unsigned)blocks, TNT, smem, stream>>>(
+        q, k, v, out, st[0], st[1], st[2], st[3], H, Tn, D, left, right,
+        n_qt, scale, (int)vec);
+    return (int)cudaGetLastError();
+}
+
+int launch_local_bf16(const void* q, const void* k, const void* v, void* out,
+                      const long long* s, int N, int H, int Tn, int D, int dp,
+                      int left, int right, cudaStream_t stream)
+{
+    const Strides st[4] = {{s[0], s[1], s[2]}, {s[3], s[4], s[5]},
+                           {s[6], s[7], s[8]}, {s[9], s[10], s[11]}};
+    const auto* qq = static_cast<const bf16*>(q);
+    const auto* kk = static_cast<const bf16*>(k);
+    const auto* vv = static_cast<const bf16*>(v);
+    auto* oo = static_cast<bf16*>(out);
+    switch (dp) {
+    case 16: return launch_local_tc<16>(qq, kk, vv, oo, st, N, H, Tn, D,
+                                        left, right, stream);
+    case 32: return launch_local_tc<32>(qq, kk, vv, oo, st, N, H, Tn, D,
+                                        left, right, stream);
+    case 48: return launch_local_tc<48>(qq, kk, vv, oo, st, N, H, Tn, D,
+                                        left, right, stream);
+    case 64: return launch_local_tc<64>(qq, kk, vv, oo, st, N, H, Tn, D,
+                                        left, right, stream);
+    case 96: return launch_local_tc<96>(qq, kk, vv, oo, st, N, H, Tn, D,
+                                        left, right, stream);
+    default: return launch_local_tc<128>(qq, kk, vv, oo, st, N, H, Tn, D,
+                                         left, right, stream);
+    }
 }
 
 bool fused_args_ok(int N, int T, int H, int D, int r2, int left, int right,
@@ -1105,16 +1443,21 @@ extern "C" int fused_rotary_window_attention_bwd(
 // Kernel L. q, k, v, out [N, H, T, D] with element strides
 // strides[12] = (n, h, t) of q, k, v, out (a host array) and a contiguous
 // D, bf16 or (is_f32) f32. D a multiple of 8 up to 128, left and right >= 0.
+// dp, the bf16 instance's padded head dim (ops/attention_cuda.py:
+// padded_head_dim), is 16, 32, 48, 64, 96 or 128 and at least D.
 extern "C" int local_attention(const void* q, const void* k, const void* v,
                                void* out, const long long* strides, int N,
-                               int H, int T, int D, int left, int right,
-                               int is_f32, void* stream)
+                               int H, int T, int D, int dp, int left,
+                               int right, int is_f32, void* stream)
 {
     if (N < 1 || T < 1 || H < 1 || D < 8 || D > 32 * LDD || D % 8 != 0
-        || left < 0 || right < 0)
+        || left < 0 || right < 0 || dp < D
+        || !(dp == 16 || dp == 32 || dp == 48 || dp == 64 || dp == 96
+             || dp == 128))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return is_f32
-        ? launch_local<float>(q, k, v, out, strides, N, H, T, D, left, right, s)
-        : launch_local<bf16>(q, k, v, out, strides, N, H, T, D, left, right, s);
+        ? launch_local_f32(q, k, v, out, strides, N, H, T, D, left, right, s)
+        : launch_local_bf16(q, k, v, out, strides, N, H, T, D, dp, left,
+                            right, s);
 }

@@ -28,8 +28,11 @@ Function around them, 18 + 18 launches per sup train step.
 L, ``local_attention``, replaces ``attention_pallas.py:
 local_attention_pallas`` (``_kernel``), the banded attention of the
 non-fused route (``ops.attention.attend``): q, k, v [N, H, T, D] with
-rotary already applied, f32 operands and products throughout, normalised
-at the end. Unlike the TPU kernel it takes any T.
+rotary already applied, f32 scores, p and sums, normalised at the end.
+Unlike the TPU kernel it takes any T. Its bf16 instance runs both products
+on the tensor cores (the inputs' exact values; p split into three bf16
+terms), at the head dim ``padded_head_dim`` picks; its f32 instance stays
+on the f32 cores.
 
 Query i sees key j iff ``-left <= j - i <= right`` (and ``j < t_real`` for
 K); a masked score is -1e30, not -inf. A row that sees no key gives 0
@@ -73,6 +76,18 @@ def fused_supported(qkv, window, rotary_dim):
     D = qkv.shape[4]
     return (_window_fits(window) and D % 8 == 0 and 0 < D <= MAX_D
             and rotary_dim % 16 == 0 and 0 < rotary_dim <= D)
+
+
+# the head dims kernel L's bf16 instance is built for (D is zero-padded up
+# to the next; its tiles of 64 queries and 64 keys are fixed in the kernel)
+L_PADDED = (16, 32, 48, 64, 96, 128)
+
+
+def padded_head_dim(D):
+    """The head dim kernel L's bf16 instance runs at for heads of D: the
+    least of ``L_PADDED`` that is at least D (40 becomes 48). The wrapper
+    passes it to the kernel, which instantiates one template for each."""
+    return next(p for p in L_PADDED if p >= D)
 
 
 def local_supported(q, window):
@@ -368,10 +383,11 @@ def local_attention(q, k, v, window):
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     N, H, T, D = q.shape
+    dp = padded_head_dim(D)
     local_attention.launches += 1
     build.check(build.library().local_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        (ctypes.c_longlong * 12)(*strides), N, H, T, D, int(window[0]),
+        (ctypes.c_longlong * 12)(*strides), N, H, T, D, dp, int(window[0]),
         int(window[1]), int(q.dtype == torch.float32), build.stream_of(q)),
         "local_attention")
     return out

@@ -38,6 +38,10 @@ LP = ctypes.POINTER(ctypes.c_longlong)  # a host array of 64-bit integers
 SIGNATURES = {
     # xw, w_hh, out, hbuf, cbuf, T, N, Np, H, reverse, stream
     "lstm_recurrence_bf16": [P, P, P, P, P, I, I, I, I, I, P],
+    # xw, wt, out, hbuf, flags, T, N, n0, rows, H, mt, slices, kc, stages,
+    # cluster, reverse, stream
+    "lstm_recurrence_persistent": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                                   I, I, P],
     # x_q, w_ih_q^T, w_hh_q^T, ih_scales, scales, b, out, out_int8, hbuf,
     # cbuf, T, N, Np, C, H, reverse, stream
     "lstm_int8_fused": [P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, P],
@@ -81,8 +85,8 @@ SIGNATURES = {
     # is_f32, stream
     "fused_rotary_window_attention_bwd": [P, P, P, P, P, P, P, I, I, I, I, I,
                                           I, I, I, I, P],
-    # q, k, v, out, strides[12], N, H, T, D, left, right, is_f32, stream
-    "local_attention": [P, P, P, P, LP, I, I, I, I, I, I, I, P],
+    # q, k, v, out, strides[12], N, H, T, D, dp, left, right, is_f32, stream
+    "local_attention": [P, P, P, P, LP, I, I, I, I, I, I, I, I, P],
     # in, out, nd, sizes[nd], strides[nd], unit, stream
     "relayout_gather_any": [P, P, I, LP, LP, I, P],
     # in, out, B, R, C, sb, sc, unit, stream

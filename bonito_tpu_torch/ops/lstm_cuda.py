@@ -1,13 +1,23 @@
 """
 Kernel A — the LSTM recurrence (``csrc/lstm.cu``) — with its plain
-PyTorch version and its launch count.
+PyTorch version, its launch count and its shape rule.
 
 Replaces ``bonito_tpu/ops/lstm_pallas.py:lstm_pallas`` (``_lstm_kernel``).
 On an H100 the recurrence is 2*N*H*4H*T tensor-core operations per layer
-against ~1.6 GB of xw/h traffic at hac, but it is serial in T: what bounds
-this first design is per-step latency (one launch per step; every block
-re-reads W_hh and h_prev from L2). ``csrc/lstm.cu`` says how the kernel
-is laid out and what its redesign is.
+against ~1.6 GB of xw/h traffic at hac, but it is serial in T, so what
+a design pays per step decides. A is a persistent kernel: one cooperative
+launch walks the whole layer, each CTA holding its slice of W_hh in
+shared memory, the CTAs of a row slice meeting once a step.
+``csrc/lstm.cu`` says how the kernel is laid out and what bounds it.
+
+The shape rule, ``persistent_plan(N, H, sms)``, is pure Python: it picks
+the rows per CTA, the row slices, the ring of h chunks, whether two CTAs
+share each load of h, and the number of launches (row groups: batch rows
+are independent, so a batch larger than one grid holds runs as several
+launches of the same kernel), or None where W_hh's slice cannot stay in
+shared memory beside the ring. Then A runs as its step kernel, one launch
+per timestep from one C call. Each C call counts one launch: a row
+group's persistent launch, or the step kernel's call.
 
 ``lstm_recurrence`` runs the plain version for a tensor on the CPU and
 the kernel for a tensor on the card; it never falls back from one to the
@@ -19,7 +29,76 @@ import torch
 from bonito_tpu_torch.ops import build
 from bonito_tpu_torch.ops.lstm_train_cuda import lstm_train_forward_plain
 
-ROW_BLOCK = 32  # batch rows per CUDA block (RB in csrc/lstm.cu)
+ROW_BLOCK = 32     # batch rows per block of the step kernel (RB)
+UNITS = 16         # hidden units per CTA of the persistent kernel (PU)
+MAX_ROWS = 64      # batch rows per CTA: four m-tiles of 16
+MAX_KC = 512       # the widest k-chunk of h
+K_SLICES = 4       # k-slices, a slot of partial sums each (PKS)
+PAD = 8            # bf16 (or f32) padding per shared-memory row
+SMEM_LIMIT = 232448  # 227 KB, the most a block may ask for
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def smem_bytes(H, rows, kc, stages, cluster=1):
+    """Shared memory of one CTA: W_hh's slice (4 x UNITS columns of H), then
+    the ring of h chunks, which the k-slices' f32 partials reuse, and with
+    a cluster an mbarrier per chunk."""
+    w = 4 * UNITS * (H + PAD) * 2
+    ring = stages * rows * (kc + PAD) * 2
+    part = K_SLICES * rows * (4 * UNITS + PAD) * 4
+    return w + max(ring, part) + (8 * stages if cluster > 1 else 0)
+
+
+def persistent_plan(N, H, sms):
+    """The persistent kernel's plan for N batch rows and H hidden units on
+    a card of ``sms`` SMs, or None where it cannot hold W_hh (H / 16 CTAs
+    beyond the SMs, or W_hh's slice and a ring of two stages of 16 rows
+    beyond the shared memory): then the step kernel runs.
+
+    A CTA owns 16 units and one slice of ``rows`` batch rows (16 to 64);
+    a launch has H / 16 x ``slices`` CTAs, at most one an SM, and covers
+    ``n_launch`` batch rows; ``launches`` row groups cover N. Rows are
+    spread evenly. The ring of h chunks takes the widest k-chunk that fits
+    (each chunk costs a barrier of the CTA; scripts/lstm_step_split.py
+    times the choices at hac), then as many stages as fit, up to all of a
+    step's chunks (at most 8, at least 2). Where the ring holds all of
+    a step's chunks and H / 16 is even, ``cluster`` is 2: the CTAs of two
+    neighbouring unit blocks share each load of h (bulk copies multicast to
+    both), which halves the L2 traffic of the step. The kernel launches
+    exactly this plan, or fails where the card cannot hold its grid."""
+    if N < 1 or H < 16 or H % 16:
+        raise ValueError(f"kernel A: N {N} and H {H}: N >= 1, H a "
+                         f"multiple of 16")
+    g_u = H // UNITS
+    if g_u > sms:
+        return None
+    # k-chunks: H split into 2 or more chunks of a multiple of 16, at most
+    # 512 wide, the widest first (H itself where no split is a multiple of
+    # 16)
+    kcs = [H // n for n in range(2, H // 16 + 1)
+           if H % n == 0 and (H // n) % 16 == 0 and H // n <= MAX_KC] or [H]
+    slices_max = sms // g_u
+    for rows_max in range(MAX_ROWS, 0, -16):
+        launches = _cdiv(N, slices_max * rows_max)
+        n_launch = _cdiv(N, launches)
+        slices = min(slices_max, _cdiv(n_launch, 16))
+        rows = _cdiv(_cdiv(n_launch, slices), 16) * 16
+        slices = _cdiv(n_launch, rows)
+        for kc in kcs:
+            for stages in range(min(8, max(H // kc, 2)), 1, -1):
+                cluster = 2 if g_u % 2 == 0 and stages == H // kc else 1
+                smem = smem_bytes(H, rows, kc, stages, cluster)
+                if smem <= SMEM_LIMIT:
+                    return {"units": UNITS, "unit_blocks": g_u,
+                            "rows": rows, "slices": slices,
+                            "ctas": g_u * slices, "n_launch": n_launch,
+                            "launches": launches, "kc": kc,
+                            "stages": stages, "cluster": cluster,
+                            "smem": smem}
+    return None
 
 
 def lstm_recurrence_plain(xw, w_hh, reverse=False):
@@ -51,20 +130,40 @@ def lstm_recurrence(xw, w_hh, reverse=False):
                          f"with H a multiple of 16")
     if not xw.is_contiguous():
         raise ValueError("kernel A: xw must be contiguous")
-    w = w_hh.contiguous()
-    if w.data_ptr() % 32:  # WMMA loads need 32-byte alignment
-        w = w.clone()
     lib = build.library()
-    Np = -(-N // ROW_BLOCK) * ROW_BLOCK
     out = torch.empty(T, N, H, dtype=xw.dtype, device=xw.device)
-    hbuf = torch.zeros(2, Np, H, dtype=xw.dtype, device=xw.device)
-    cbuf = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
-    lstm_recurrence.launches += 1
-    build.check(lib.lstm_recurrence_bf16(
-        xw.data_ptr(), w.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
-        cbuf.data_ptr(), T, N, Np, H, int(bool(reverse)),
-        build.stream_of(xw)), "lstm_recurrence_bf16")
+    sms = torch.cuda.get_device_properties(xw.device).multi_processor_count
+    plan = persistent_plan(N, H, sms)
+    lstm_recurrence.plan = plan
+    stream = build.stream_of(xw)
+    if plan is None:
+        w = w_hh.contiguous()
+        if w.data_ptr() % 32:  # WMMA loads need 32-byte alignment
+            w = w.clone()
+        Np = -(-N // ROW_BLOCK) * ROW_BLOCK
+        hbuf = torch.zeros(2, Np, H, dtype=xw.dtype, device=xw.device)
+        cbuf = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
+        lstm_recurrence.launches += 1
+        build.check(lib.lstm_recurrence_bf16(
+            xw.data_ptr(), w.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
+            cbuf.data_ptr(), T, N, Np, H, int(bool(reverse)), stream),
+            "lstm_recurrence_bf16")
+        return out
+    wt = w_hh.t().contiguous()  # [4H, H]: a gate column's k contiguous
+    rows, slices = plan["rows"], plan["slices"]
+    hbuf = torch.empty(2, slices * rows, H, dtype=xw.dtype, device=xw.device)
+    flags = torch.empty(slices, dtype=torch.int32, device=xw.device)
+    for n0 in range(0, N, plan["n_launch"]):
+        hbuf.zero_()
+        flags.zero_()
+        lstm_recurrence.launches += 1
+        build.check(lib.lstm_recurrence_persistent(
+            xw.data_ptr(), wt.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
+            flags.data_ptr(), T, N, n0, min(plan["n_launch"], N - n0), H,
+            rows // 16, slices, plan["kc"], plan["stages"], plan["cluster"],
+            int(bool(reverse)), stream), "lstm_recurrence_persistent")
     return out
 
 
 lstm_recurrence.launches = 0
+lstm_recurrence.plan = None  # the plan of the last call (None: step kernel)

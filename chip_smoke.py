@@ -20,7 +20,8 @@ PyTorch built for CUDA. In order, it:
     upsample phases, tanh, a scale and a bias); at sup widths (N=128,
     T=1000 and 1024, 8 heads of 64, window (127, 128)) the fused rotary +
     banded attention K in bf16 (and once with a partial rotary_dim), the
-    banded attention L in f32 and bf16 and, in bf16, on what the shallow
+    banded attention L in f32 and bf16 (its tensor-core instance) and, in
+    bf16, on what the shallow
     transformer below hands it (N=32, 8 heads of 40, q and k out of
     apply_rotary), and the layout pin P on a transposed view and on a
     contiguous tensor; GW + JW, the fused-head decode at 1024 states, on
@@ -52,7 +53,9 @@ PyTorch built for CUDA. In order, it:
     fused-head decode at 1024 states (``head_route="fused"``): hac as
     shipped (hac_fused: D x 5, GW, JW) and sup (sup_fused: P, 18 x K, GW,
     JW), at least 2 full batches each. Then it
-    holds one batch on the int8 path, one on the hac reverse path (M + Q;
+    holds one batch on the int8 path, one on the hac bf16 path (five
+    layers through A against A's plain version in its place, and both
+    decodes), one on the hac reverse path (M + Q;
     it prints, and does not require, the share of rows whose reverse call is
     the shifted reverse complement of the forward call), one on the fast
     path, one on the sup path (in bf16 and on an f32 copy of the model; and
@@ -73,7 +76,9 @@ PyTorch built for CUDA. In order, it:
     fused paths (beside the TCN route's device step on the same batch)
     beside the card's name and power;
  8. times each kernel, its plain version and a PyTorch library call where
-    one computes the same function (and, for comparison, the routes that
+    one computes the same function (and, for comparison, A's step kernel
+    at hac widths beside its persistent kernel, L in bf16 at sup widths
+    beside scaled_dot_product_attention, the routes that
     F, G and J take the place of at fast widths, B and C at sup shapes and
     the parts of one sup layer; M and Q at fast shapes, and the reverse
     complement they read; GW and JW at hac's and sup's shapes beside the TCN
@@ -151,6 +156,16 @@ SEED = 1
 N, T, H, STATE_LEN = 96, 1666, 1024, 5
 S = 4 ** STATE_LEN
 LSTM_ATOL, LSTM_MEAN_TOL = 1.6e-2, 1e-4  # see check_lstm
+# One hac bf16 batch through 5 x A against the same batch with A's plain
+# version in its place: each layer's h drifts from the plain version's by a
+# flipped bf16 rounding here and there (check_lstm), and the head (clamped to
+# +-5, where one bf16 step is 0.0313) carries that to the move scores: seen
+# one step on the max and 0.0027 on the mean (an H100, random weights of
+# seed 1); the limits are two steps and a quarter step. A random hac
+# model's Viterbi path is a periodic cycle of moves with near-ties all along
+# (CRF_SCALE), so a one-step change shifts stretches of it: seen 0.672 of the
+# frames decoded alike; at least HAC_MIN_EQUAL must be.
+HAC_MOVES_MAX, HAC_MOVES_MEAN, HAC_MIN_EQUAL = 0.0625, 0.0313 / 4, 0.5
 INT8_MAX_STEPS, INT8_MEAN_STEPS = 1, 0.001  # see check_lstm_int8
 # A random hac model's moves carry a large per-column offset, so over a
 # 1666-frame chunk its Viterbi path settles either on staying or on one
@@ -226,8 +241,9 @@ SUP_F32_MAX, SUP_F32_MEAN, SUP_F32_MIN_EQUAL = 1e-3, 5e-5, 0.998
 # then L, in bf16, on batches of 32 chunks of 1000 tokens
 D40 = dict(d_model=320, nhead=8, depth=2, dim_feedforward=1280, batchsize=32)
 D40_N, D40_H, D40_D = 32, 8, 40
-# its batch through P + 2 x L against the plain versions, in bf16 (seen:
-# 0.0469, 0.00056, 0.9925 of the frames); its f32 copy is held to SUP_F32_*
+# its batch through P + 2 x L against the plain versions, in bf16 (seen on
+# an H100: 0.0469, 0.00084, 0.9947 of the frames); its f32 copy is held to
+# SUP_F32_*
 D40_MOVES_MAX, D40_MOVES_MEAN, D40_MIN_EQUAL = 0.125, 0.003, 0.98
 
 # The CRF training loss (kernels U to Z) at hac training width, as the JAX
@@ -337,19 +353,26 @@ def ptxas_summary(report):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            base = re.search(r"(lstm_step_bf16|lstm_int8_step|"
+            base = re.search(r"(lstm_step_bf16|lstm_persistent_bf16|"
+                             r"lstm_int8_step|"
                              r"lstm_train_(?:fwd|bwd)_step|"
                              r"lstm_fused_bf16_kernel|"
                              r"fused_rotary_window_attention_kernel|"
-                             r"local_attention_kernel|"
+                             r"local_attention_(?:tc|f32)_kernel|"
                              r"relayout_transpose|relayout_gather|"
                              r"(?:logz|lattice)_(?:fwd|bwd)_kernel|"
                              r"decode_(?:fused_(?:wide_)?)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
             resident = re.search(r"(?:fwd|bwd)ILb(\d)EE", m.group(1))
+            padded = re.search(r"(?:tc_kernel|persistent_bf16)ILi(\d+)EE",
+                               m.group(1))
             tiles = re.search(r"kernelILi(\d+)ELi(\d+)EE", m.group(1))
-            if resident:
+            if padded and name.startswith("lstm"):
+                name = f"{name}<rows={16 * int(padded.group(1))}>"
+            elif padded:
+                name = f"{name}<bf16, head dim padded to {padded.group(1)}>"
+            elif resident:
                 name = f"{name}<weights in shared memory={resident.group(1)}>"
             elif tiles:
                 name = (f"{name}<weight k-tiles in registers="
@@ -678,6 +701,25 @@ def check_decode_fused_wide(torch, decode_fused_cuda, HeadSplit, dev):
     return err, dq
 
 
+def a_step_kernel(torch, build, xw, w_hh):
+    """A's step kernel (one launch per timestep: the branch of
+    ops.lstm_cuda.lstm_recurrence for an H whose slice of W_hh does not fit
+    in shared memory, and A's first design) at xw's shape, through its C
+    entry: the persistent kernel's time stands beside it from the same run.
+    No path runs it at hac widths, so it counts no launch."""
+    T_, N_, G_ = xw.shape
+    H_ = G_ // 4
+    Np = -(-N_ // 32) * 32
+    out = torch.empty(T_, N_, H_, dtype=xw.dtype, device=xw.device)
+    hbuf = torch.zeros(2, Np, H_, dtype=xw.dtype, device=xw.device)
+    cbuf = torch.zeros(N_, H_, dtype=torch.float32, device=xw.device)
+    build.check(build.library().lstm_recurrence_bf16(
+        xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
+        cbuf.data_ptr(), T_, N_, Np, H_, 0, build.stream_of(xw)),
+        "lstm_recurrence_bf16")
+    return out
+
+
 def bf16_step(x):
     """One bf16 step at magnitude x (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7)
@@ -741,8 +783,9 @@ def check_attention(torch, attention_cuda, transformer, dev):
                else bf16_step(ref.float().abs().max().item()))
         log(f"  kernel L {tuple(q.shape)} strides {q.stride()} / "
             f"{v.stride()} {str(dtype)[6:]}: max |o - plain| {err:.3g}, "
-            f"mean {mean:.3g} (tolerance {tol:.3g} / {ATTN_MEAN_TOL}); std of "
-            f"o {out.float().std().item():.3f}")
+            f"mean {mean:.3g} (tolerance {tol:.3g} / {ATTN_MEAN_TOL}), "
+            f"{(diff > 0).float().mean().item():.3g} of the outputs differ; "
+            f"std of o {out.float().std().item():.3f}")
         require(torch.isfinite(out.float()).all().item()
                 and out.float().std().item() > 0.01
                 and err <= tol and mean <= ATTN_MEAN_TOL,
@@ -750,10 +793,11 @@ def check_attention(torch, attention_cuda, transformer, dev):
                 f"mean {mean}")
         if own:
             errs["L"], kept["L"] = err, (q, k, v)
-        elif dtype == torch.float32:
-            errs["L sup f32"] = max(errs["L sup f32"], err)
+        else:
+            key = "L sup f32" if dtype == torch.float32 else "L sup bf16"
+            errs[key] = max(errs.get(key, 0.0), err)
             if T == ST:
-                kept["L sup f32"] = (q, k, v)
+                kept[key] = (q, k, v)
     return kept, errs
 
 
@@ -2097,8 +2141,8 @@ def main():
     # one batch's move scores: kernel D's chain against its plain version's
     prepared, step_int8 = device_step(np, models["int8"], reads,
                                       make_compute_fn, chunk)
-    _, step_bf16 = device_step(np, models["bf16"], reads, make_compute_fn,
-                               chunk)
+    prepared_bf16, step_bf16 = device_step(np, models["bf16"], reads,
+                                           make_compute_fn, chunk)
     _, x_wire, sig_scale = prepared
     with torch.inference_mode():
         xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
@@ -2119,6 +2163,39 @@ def main():
             "int8 path: non-finite move scores")
     require(worst <= 0.5 and mean <= 1e-3,
             "int8 path: the kernels' moves disagree with the plain versions'")
+    del mv_kernel, mv_plain, diff
+
+    # one hac bf16 batch: its five layers through kernel A against the same
+    # batch with A's plain version in A's place, and both decodes (B + C)
+    _, x_wire, sig_scale = prepared_bf16
+    with torch.inference_mode():
+        xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+              * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+        before = lstm_cuda.lstm_recurrence.launches
+        mv_kernel, hac_blank = models["bf16"].forward_tcn(xc[..., None])
+        n_a = lstm_cuda.lstm_recurrence.launches - before
+        ops_lstm.lstm_recurrence = lstm_cuda.lstm_recurrence_plain
+        try:
+            mv_plain, _ = models["bf16"].forward_tcn(xc[..., None])
+        finally:
+            ops_lstm.lstm_recurrence = lstm_cuda.lstm_recurrence
+        diff = (mv_kernel.float() - mv_plain.float()).abs()
+        worst, mean = diff.max().item(), diff.mean().item()
+        n_diff, n_all, _ = decodes_differ(
+            torch, models["bf16"], mv_kernel, mv_plain, hac_blank, ops_decode,
+            qscale=1.05, qbias=0.2)
+    log(f"  hac bf16 path, one batch's moves {tuple(mv_kernel.shape)} "
+        f"through {n_a} launches of kernel A vs its plain version: max "
+        f"|diff| {worst:.3g}, mean {mean:.3g} (tolerance {HAC_MOVES_MAX} / "
+        f"{HAC_MOVES_MEAN}); the two decodes differ on {n_diff} of {n_all} "
+        f"frames (at most {1 - HAC_MIN_EQUAL:.1%} may)")
+    require(n_a == 5, f"hac bf16 path: {n_a} launches of A, expected 5")
+    require(torch.isfinite(mv_kernel.float()).all().item(),
+            "hac bf16 path: non-finite move scores")
+    require(worst <= HAC_MOVES_MAX and mean <= HAC_MOVES_MEAN
+            and n_diff <= (1 - HAC_MIN_EQUAL) * n_all,
+            "hac bf16 path: kernel A's moves disagree with its plain "
+            "version's")
     del mv_kernel, mv_plain, diff
 
     # one hac batch on the reverse path: its full scores, reverse
@@ -2409,6 +2486,9 @@ def main():
     x_lstm = torch.randn(T, N, H, device=dev, dtype=torch.bfloat16)
     w_ih = (torch.randn(H, 4 * H, device=dev) / math.sqrt(H)).to(torch.bfloat16)
     ms_a = cuda_ms(lambda: lstm_cuda.lstm_recurrence(xw, w_hh), reps=3)
+    a_plan = lstm_cuda.lstm_recurrence.plan  # what the timed launches ran
+    require(a_plan is not None, "A took its step kernel at hac")
+    ms_a_step = cuda_ms(lambda: a_step_kernel(torch, build, xw, w_hh), reps=2)
     plain_a = cuda_ms(lambda: lstm_cuda.lstm_recurrence_plain(xw, w_hh),
                       reps=1, warmup=0)
     proj = cuda_ms(lambda: torch.matmul(x_lstm, w_ih), reps=5)
@@ -2416,8 +2496,13 @@ def main():
     cudnn.flatten_parameters()
     with torch.no_grad():
         lib_a = cuda_ms(lambda: cudnn(x_lstm), reps=5)
-    log(f"  A: projection matmul {proj:.4g} ms + kernel {ms_a:.4g} ms vs "
-        f"one cuDNN torch.nn.LSTM layer {lib_a:.4g} ms")
+    log(f"  A: projection matmul {proj:.4g} ms + kernel {ms_a:.4g} ms "
+        f"(persistent: {a_plan['launches']} launch of {a_plan['ctas']} CTAs "
+        f"in clusters of {a_plan['cluster']}, {a_plan['rows']} rows and 16 "
+        f"units each, {a_plan['smem']} B of shared memory; "
+        f"{ms_a / T * 1e3:.4g} us a step) vs one cuDNN "
+        f"torch.nn.LSTM layer {lib_a:.4g} ms; A's step kernel at this shape "
+        f"{ms_a_step:.4g} ms ({ms_a_step / T * 1e3:.4g} us a step)")
     bytes_a = T * N * 4 * H * 2 + H * 4 * H * 2 + T * N * H * 2
     bound_a = bound(bytes_a, 2 * N * H * 4 * H * T, H100_BF16_OPS)
 
@@ -2598,6 +2683,7 @@ def main():
                     q_l, k_l, v_l, attn_mask=mask), reps=5))
     ms_l, plain_l, lib_l = time_l(*attn_args["L"])
     ms_l32, plain_l32, lib_l32 = time_l(*attn_args["L sup f32"])
+    ms_l16, plain_l16, lib_l16 = time_l(*attn_args["L sup bf16"])
     ref_l = attention_cuda.local_attention(*attn_args["L"], SWIN)
     lib_err_l = (F.scaled_dot_product_attention(
         *attn_args["L"], attn_mask=band).float()
@@ -2610,18 +2696,24 @@ def main():
         f"{lib_k_sdpa:.4g} ms; max |K - library| {lib_err:.3g}); L on the "
         f"shallow transformer's call (N={D40_N}, H={D40_H}, D={D40_D}, bf16) "
         f"{ms_l:.4g} ms vs scaled_dot_product_attention {lib_l:.4g} ms (max "
-        f"|L - library| {lib_err_l:.3g}); L at sup widths in f32 {ms_l32:.4g} "
-        f"ms vs scaled_dot_product_attention in f32 {lib_l32:.4g} ms")
+        f"|L - library| {lib_err_l:.3g}); L at sup widths in bf16 "
+        f"{ms_l16:.4g} ms vs scaled_dot_product_attention {lib_l16:.4g} ms; "
+        f"in f32 {ms_l32:.4g} ms vs scaled_dot_product_attention in f32 "
+        f"{lib_l32:.4g} ms")
     pairs = band_pairs(ST, SWIN)
     attn_ops = 2 * 2 * SN * SH * pairs * SD  # both products
     # K: bf16 qkv in, the two f32 tables, bf16 o out; products on the tensor
     # cores, about 10 f32 operations per pair for the softmax
     bound_k = bound(SN * ST * 4 * SH * SD * 2 + 2 * ST * (SD // 2) * 4,
                     attn_ops, H100_BF16_OPS, 10 * SN * SH * pairs)
-    # L: q, k, v in, o out, in their own type; everything in f32 outside the
-    # tensor cores
-    d40_ops = D40_N * D40_H * pairs * (2 * 2 * D40_D + 10)
-    bound_l = bound(D40_N * ST * 4 * D40_H * D40_D * 2, d40_ops, H100_F32_OPS)
+    # L: q, k, v in, o out, in their own type. bf16: as K, the products on
+    # the tensor cores and about 10 f32 operations per pair for the softmax;
+    # f32: everything on the f32 cores
+    bound_l = bound(D40_N * ST * 4 * D40_H * D40_D * 2,
+                    2 * 2 * D40_N * D40_H * pairs * D40_D, H100_BF16_OPS,
+                    10 * D40_N * D40_H * pairs)
+    bound_l16 = bound(SN * ST * 4 * SH * SD * 2, attn_ops, H100_BF16_OPS,
+                      10 * SN * SH * pairs)
     bound_l32 = bound(SN * ST * 4 * SH * SD * 4,
                       attn_ops + 10 * SN * SH * pairs, H100_F32_OPS)
     ms_p = cuda_ms(lambda: relayout.pin_layout(sup_view), reps=10)
@@ -2838,7 +2930,8 @@ def main():
          wide["hac"]["JW_plain"], wide["hac"]["JW_bound"], None),
     ]
     # times at another path's shapes than the one the entry's numbers are of
-    more = {"B": {"sup_shape_ms": ms_b_sup,
+    more = {"A": {"step_kernel_ms": ms_a_step, "plan": a_plan},
+            "B": {"sup_shape_ms": ms_b_sup,
                   "sup_shape_bound_ms": bound_b_sup[0]},
             "C": {"sup_shape_ms": ms_c_sup,
                   "sup_shape_bound_ms": bound_c_sup[0]},
@@ -2851,7 +2944,11 @@ def main():
             "L": {"sup_f32": {
                 "max_abs_err": err_attn["L sup f32"], "ms": ms_l32,
                 "plain_ms": plain_l32, "bound_ms": bound_l32[0],
-                "bound_by": bound_l32[1], "library_ms": lib_l32}}}
+                "bound_by": bound_l32[1], "library_ms": lib_l32},
+                  "sup_bf16": {
+                "max_abs_err": err_attn["L sup bf16"], "ms": ms_l16,
+                "plain_ms": plain_l16, "bound_ms": bound_l16[0],
+                "bound_by": bound_l16[1], "library_ms": lib_l16}}}
     kernels = []
     for name, key, path, src, rep, err, ms, plain, (bms, by), lib in entries:
         n = runs[path]["launches"][key]

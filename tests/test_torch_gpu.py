@@ -30,16 +30,31 @@ def cuda():
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("N,T,H", [(8, 9, 16), (40, 17, 64), (96, 5, 128)])
+@pytest.mark.parametrize("N,T,H", [
+    (8, 9, 16), (40, 17, 64), (96, 5, 128),
+    (96, 33, 1024),     # hac: one launch of 64 x 2 CTAs in clusters of 2
+    (200, 7, 1024),     # more rows than one grid holds: two row groups
+    (1, 3, 96),
+    (1024, 3, 96),      # 132 CTAs, every one an SM, in 66 clusters of 2
+    (8, 5, 2048)])      # W_hh beyond shared memory: the step kernel
 def test_lstm_kernel_matches_plain(cuda, N, T, H, reverse):
+    """Kernel A on each branch of its shape rule (lstm_cuda.persistent_plan:
+    one persistent launch per row group, or the step kernel's one call),
+    with the launches that branch counts."""
     g = torch.Generator().manual_seed(N + T + H)
     xw = torch.randn(T, N, 4 * H, generator=g).to(cuda, torch.bfloat16)
     w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(
         cuda, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = lstm_cuda.persistent_plan(N, H, sms)
+    assert (plan is None) == (H == 2048)
+    assert plan is None or plan["launches"] == (2 if N == 200 else 1)
     before = lstm_cuda.lstm_recurrence.launches
     out = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence.launches == before + 1
+    assert lstm_cuda.lstm_recurrence.launches == before + (
+        1 if plan is None else plan["launches"])
+    assert lstm_cuda.lstm_recurrence.plan == plan  # what the kernel ran
     ref = lstm_cuda.lstm_recurrence_plain(xw, w_hh, reverse=reverse)
     # both round h to bf16 each step; f32 sums in another order can flip
     # one bf16 rounding, which then propagates: 2 bf16 ulps of |h| <= 1
@@ -432,11 +447,20 @@ def test_fused_attention_kernel_matches_plain(cuda, N, T, H, D, r, window,
     (2, 77, 3, 8, (3, 4), torch.float32),
     (8, 1000, 8, 64, (127, 128), torch.float32),   # sup widths
     (8, 1024, 8, 64, (127, 128), torch.bfloat16),
-    (32, 1000, 8, 40, (127, 128), torch.bfloat16)])  # heads of 40, a batch
+    (32, 1000, 8, 40, (127, 128), torch.bfloat16),  # heads of 40, a batch
+    # the bf16 instance on the tensor cores: heads of 40 (padded to 48), 64
+    # and 128, T no multiple of the 64-token tile, a narrow band and one
+    # that reaches past the tile on both sides
+    (2, 77, 3, 40, (3, 4), torch.bfloat16),
+    (2, 300, 2, 64, (3, 4), torch.bfloat16),
+    (3, 200, 2, 128, (127, 128), torch.bfloat16),
+    (2, 130, 4, 40, (100, 90), torch.bfloat16),
+    (1, 1, 1, 8, (127, 128), torch.bfloat16)])
 def test_local_attention_kernel_matches_plain(cuda, N, T, H, D, window, dtype):
-    """Kernel L on strided [N, H, T, D] views of a packed qkv: f32 operands
-    and products, so 2e-5 in f32 (bonito_tpu's tolerance for its kernel)
-    and one bf16 step of the output in bf16."""
+    """Kernel L on strided [N, H, T, D] views of a packed qkv: f32 scores,
+    p and sums (in bf16, from the inputs' exact values on the tensor cores,
+    p split into three bf16 terms), so 2e-5 in f32 (bonito_tpu's tolerance
+    for its kernel) and one bf16 step of the output in bf16."""
     g = torch.Generator().manual_seed(N + T + D)
     qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, dtype)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -448,6 +472,26 @@ def test_local_attention_kernel_matches_plain(cuda, N, T, H, D, window, dtype):
     assert out.shape == (N, H, T, D) and out.dtype == dtype
     tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("offset", [0, 2])
+def test_local_attention_bf16_takes_any_alignment(cuda, offset):
+    """Kernel L's bf16 instance copies 16 bytes at a time where q, k, v and
+    out allow it, element by element where they do not: heads of 40 viewed
+    from rows of 48, at an offset of 0 elements (the first branch) or 2
+    (the second). Both meet one bf16 step of the output, and the mean 1e-5."""
+    g = torch.Generator().manual_seed(offset)
+    buf = torch.randn(2, 150, 3, 4, 48, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = (buf[:, :, i, :, offset:offset + 40].transpose(1, 2)
+               for i in range(3))
+    before = attention_cuda.local_attention.launches
+    out = attention_cuda.local_attention(q, k, v, (127, 128))
+    torch.cuda.synchronize()
+    assert attention_cuda.local_attention.launches == before + 1
+    ref = attention_cuda.local_attention_plain(q, k, v, (127, 128))
+    diff = (out.float() - ref.float()).abs()
+    step = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+    assert diff.max().item() <= step and diff.mean().item() <= 1e-5
 
 
 def test_attention_kernels_reject_what_they_do_not_take(cuda):
