@@ -33,6 +33,7 @@ FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 L = ctypes.c_longlong
 LP = ctypes.POINTER(ctypes.c_longlong)  # a host array of 64-bit integers
+IP = ctypes.POINTER(ctypes.c_int)  # a host int the C function writes
 
 # C entry points: name -> argtypes (restype is int, the cudaError_t)
 SIGNATURES = {
@@ -108,6 +109,16 @@ SIGNATURES = {
     # w_hh, acts, c, g_h, dgates, dgbuf, dcbuf, is_f32, round_bf16, T, N, Np,
     # H, reverse, stream
     "lstm_train_bwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # xw, wt, h, c, acts, hbuf, flags, T, N, n0, rows, H, mt, slices, kc,
+    # stages, cluster, reverse, stream
+    "lstm_train_fwd_persistent": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                  I, I, I, I, P],
+    # w_hh, acts, c, g_h, dgates, flags, T, N, n0, rows, H, mt, slices,
+    # cluster, stages, reverse, stream
+    "lstm_train_bwd_persistent": [P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                  I, I, P],
+    # cluster, &clusters
+    "lstm_train_bwd_clusters": [I, IP],
 }
 
 ptxas_report = ""  # nvcc -Xptxas -v output of the library's build

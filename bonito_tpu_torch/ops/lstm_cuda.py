@@ -27,7 +27,6 @@ other.
 import torch
 
 from bonito_tpu_torch.ops import build
-from bonito_tpu_torch.ops.lstm_train_cuda import lstm_train_forward_plain
 
 ROW_BLOCK = 32     # batch rows per block of the step kernel (RB)
 UNITS = 16         # hidden units per CTA of the persistent kernel (PU)
@@ -101,13 +100,40 @@ def persistent_plan(N, H, sms):
     return None
 
 
+def recurrence_plain(xw, w_hh, reverse=False, store=torch.bfloat16):
+    """xw [T, N, 4H] in the model dtype, w_hh [H, 4H] -> (h [T, N, H] in
+    the model dtype, c [T, N, H] and the activations [i, f, g, o] [T, N,
+    4H], both in ``store``). Each step: gates = f32(xw[t]) + f32(dtype(h)
+    @ w_hh) (f32 accumulation), torch gate order (i, f, g, o); h and c are
+    carried in f32. ``reverse`` walks t = T-1 .. 0 and writes each step at
+    t. Kernel A's plain version keeps h; kernel R's keeps all three."""
+    T, N, G = xw.shape
+    H = G // 4
+    dtype = xw.dtype
+    w = w_hh.to(dtype).float()
+    h = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
+    c = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
+    hs = torch.empty(T, N, H, dtype=dtype, device=xw.device)
+    cs = torch.empty(T, N, H, dtype=store, device=xw.device)
+    acts = torch.empty(T, N, G, dtype=store, device=xw.device)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        gates = xw[t].float() + torch.matmul(h.to(dtype).float(), w)
+        i = torch.sigmoid(gates[:, :H])
+        f = torch.sigmoid(gates[:, H:2 * H])
+        g = torch.tanh(gates[:, 2 * H:3 * H])
+        o = torch.sigmoid(gates[:, 3 * H:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs[t] = h.to(dtype)
+        cs[t] = c.to(store)
+        acts[t] = torch.cat([i, f, g, o], dim=1).to(store)
+    return hs, cs, acts
+
+
 def lstm_recurrence_plain(xw, w_hh, reverse=False):
     """xw [T, N, 4H] in the model dtype, w_hh [H, 4H] -> h [T, N, H] in
-    the model dtype. Each step: gates = f32(xw[t]) + f32(dtype(h) @ w_hh)
-    (f32 accumulation), torch gate order (i, f, g, o); h and c are carried
-    in f32. ``reverse`` walks t = T-1 .. 0 and writes each step at t. It is
-    the h of kernel R's plain version, which keeps c and the gates too."""
-    return lstm_train_forward_plain(xw, w_hh, reverse)[0]
+    the model dtype: the h of ``recurrence_plain``."""
+    return recurrence_plain(xw, w_hh, reverse)[0]
 
 
 def lstm_recurrence(xw, w_hh, reverse=False):

@@ -1,7 +1,7 @@
 """
 Kernels R and S — the LSTM recurrence of a training step and its backward
-through time (``csrc/lstm_train.cu``) — with their plain PyTorch versions
-and their launch counts.
+through time (``csrc/lstm_train.cu``) — with their plain PyTorch versions,
+their launch counts and their shape rules.
 
 R replaces ``bonito_tpu/ops/lstm_pallas.py:_lstm_train_fwd_kernel`` and S
 ``_lstm_train_bwd_kernel`` (``lstm_pallas_train`` via ``_lstm_rec``). R is
@@ -9,8 +9,21 @@ kernel A's recurrence that also keeps what S needs: the cell state c and
 the post-activation gates. S walks the recurrence's steps last to first and
 writes the gradient of the gates; ``ops.lstm.lstm_train`` forms dW_hh and
 the projection's gradients from it with torch.matmul. Each is 2*N*H*4H*T
-tensor-core operations per layer, serial in T: one launch per step, so
-per-step latency bounds this first design, as it bounds A.
+tensor-core operations per layer, serial in T, so what a step costs
+decides.
+
+Both are persistent kernels where their plans take the shape: one
+cooperative launch per row group walks the whole layer, with W_hh in the
+SMs' shared memory. R is kernel A's kernel with R's stores
+(``forward_plan``: A's ``persistent_plan``); in S the CTAs of a cluster
+split the 4H gate columns of the product between them and swap the
+partial sums through distributed shared memory (``backward_plan``).
+Where a plan is None — an f32 model (training without amp), c and the
+gates stored in f32 (``round_bf16=False``), or an H beyond the SMs or the
+shared memory — the first design runs: one launch per timestep from a loop
+in one C call. Each C call counts one launch: a row group's persistent
+launch, or the step kernel's call. Each wrapper keeps the plan that ran
+in ``.plan`` (None: the step kernel).
 
 ``round_bf16`` stores c, the gates and their gradient in bf16, as
 bonito_tpu's kernels do; without it they stay f32 (where bonito_tpu's
@@ -20,44 +33,156 @@ version for a tensor on the CPU and the kernel for a tensor on the card
 of 16); they never fall back from one to the other.
 """
 
+import ctypes
+
 import torch
 
 from bonito_tpu_torch.ops import build
+# kernel A's: R runs A's kernel; S's CTAs are laid out as A's (16 units,
+# 16 to 64 rows), its ring's rows padded alike
+from bonito_tpu_torch.ops.lstm_cuda import (MAX_ROWS, PAD, SMEM_LIMIT, UNITS,
+                                            _cdiv, persistent_plan,
+                                            recurrence_plain)
 
-ROW_BLOCK = 32  # batch rows per CUDA block (RB in csrc/lstm_train.cu)
+ROW_BLOCK = 32  # batch rows per block of the step kernels (RB)
+MAX_H = 1024    # S holds W_hh's block in registers: H / 8 a thread
+CLUSTERS = (2, 1)  # S's cluster sizes, the wider first (csrc/lstm_train.cu
+                   # says why no wider)
+MAX_STAGES = 4  # slots of S's ring, at most
+WARPS = 8       # warps a CTA of S: k-slices of its columns
 
 
 def _store(round_bf16):
     return torch.bfloat16 if round_bf16 else torch.float32
 
 
+def forward_plan(N, H, sms, dtype=torch.bfloat16, round_bf16=True):
+    """R's plan for N batch rows and H hidden units on a card of ``sms``
+    SMs: kernel A's ``persistent_plan`` (R's stores go straight to global
+    memory and need no shared memory), for a bf16 model that stores c and
+    the activations in bf16; None otherwise, or where A's plan is None:
+    then the step kernel runs."""
+    if N < 1 or H < 16 or H % 16:
+        raise ValueError(f"kernel R: N {N} and H {H}: N >= 1, H a "
+                         f"multiple of 16")
+    if dtype != torch.bfloat16 or not round_bf16:
+        return None
+    return persistent_plan(N, H, sms)
+
+
+def chunk_rows(rows):
+    """dgates rows a slot of S's ring holds: two n-tiles of 8, one where a
+    CTA has 16 rows (so that its ring still has two chunks)."""
+    return 16 if rows >= 32 else 8
+
+
+def backward_smem(H, rows, cluster, stages):
+    """Shared memory of one CTA of S's persistent kernel: the ring of
+    dgates chunks (``chunk_rows`` rows of the CTA's 4H / cluster columns a
+    slot), the warps' f32 partial sums (a k-slice each, over its rows and
+    the cluster's 16 x cluster units), the partial dh it receives (a slot
+    per rank of its cluster), a full and an empty mbarrier per ring slot.
+    W_hh's block is in registers."""
+    ring = stages * chunk_rows(rows) * (4 * H // cluster + PAD) * 2
+    part = WARPS * rows * (16 * cluster + 4) * 4
+    return ring + part + cluster * rows * UNITS * 4 + 16 * stages
+
+
+def backward_plan(N, H, sms, resident, dtype=torch.bfloat16,
+                  round_bf16=True):
+    """S's plan for N batch rows and H hidden units on a card of ``sms``
+    SMs, where ``resident[c]`` CTAs can be resident at once in clusters of
+    c (``CLUSTERS``; ``resident_ctas``); None for an f32 model or f32
+    storage, or where no cluster size fits (H above MAX_H, H / 16 CTAs
+    beyond the SMs, a k-slice no multiple of 16, or the ring beyond the
+    shared memory): then the step kernel runs.
+
+    A CTA owns 16 units and one slice of ``rows`` batch rows (16 to 64) in
+    the elementwise part; a launch has H / 16 x ``slices`` CTAs and covers
+    ``n_launch`` batch rows, ``launches`` row groups cover N, rows spread
+    evenly (as kernel A's ``persistent_plan``). The ``cluster`` CTAs of a
+    cluster (neighbouring unit blocks of one slice) split the gate columns
+    of the product: each holds, in its warps' registers, W_hh's rows of the
+    cluster's 16 x cluster units over its ``k_cols`` = 4H / cluster
+    columns (from rank x k_cols), computes the partial dh of all those
+    units over them and sends each owner its part. A CTA reads its rows'
+    k_cols columns of dgates a step, ``chunk_rows`` rows (a copy each) at
+    a time through a ring of ``stages`` slots. Of the plans that fit, the
+    one with the fewest launches, then the wider cluster (half the bytes a
+    CTA reads a step). The kernel launches exactly this plan, or fails
+    where the card cannot hold its grid in those clusters."""
+    if N < 1 or H < 16 or H % 16:
+        raise ValueError(f"kernel S: N {N} and H {H}: N >= 1, H a "
+                         f"multiple of 16")
+    if dtype != torch.bfloat16 or not round_bf16 or H > MAX_H:
+        return None
+    g_u = H // UNITS
+    best = None
+    for cluster in CLUSTERS:
+        slices_max = min(sms, resident.get(cluster, 0)) // g_u
+        k_cols = 4 * H // cluster
+        if g_u % cluster or slices_max < 1 or k_cols % (16 * WARPS):
+            continue
+        plan = None
+        for rows_max in range(MAX_ROWS, 0, -16):
+            launches = _cdiv(N, slices_max * rows_max)
+            n_launch = _cdiv(N, launches)
+            slices = min(slices_max, _cdiv(n_launch, 16))
+            rows = _cdiv(_cdiv(n_launch, slices), 16) * 16
+            slices = _cdiv(n_launch, rows)
+            # the ring: as many slots as fit, 2 to MAX_STAGES (a chunk's
+            # copies in flight while another is read), dividing the step's
+            # chunks
+            n_chunks = rows // chunk_rows(rows)
+            fits = [st for st in range(2, MAX_STAGES + 1)
+                    if n_chunks % st == 0 and backward_smem(
+                        H, rows, cluster, st) <= SMEM_LIMIT]
+            if fits:
+                stages = max(fits)
+                plan = {"units": UNITS, "unit_blocks": g_u, "rows": rows,
+                        "slices": slices, "ctas": g_u * slices,
+                        "n_launch": n_launch, "launches": launches,
+                        "cluster": cluster, "k_cols": k_cols,
+                        "chunk_rows": chunk_rows(rows), "stages": stages,
+                        "smem": backward_smem(H, rows, cluster, stages)}
+                break
+        if plan and (best is None or plan["launches"] < best["launches"]):
+            best = plan
+    return best
+
+
+_resident = {}  # card -> {cluster: CTAs resident at once}
+
+
+def resident_ctas(device):
+    """How many CTAs of S's persistent kernel ``device``'s card holds at
+    once in clusters of each size (the occupancy API, at one CTA an SM)."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    if key not in _resident:
+        lib = build.library()
+        out = {}
+        with torch.cuda.device(device):
+            for cluster in CLUSTERS:
+                n = ctypes.c_int(0)
+                build.check(lib.lstm_train_bwd_clusters(
+                    cluster, ctypes.byref(n)), "lstm_train_bwd_clusters")
+                out[cluster] = n.value * cluster
+        _resident[key] = out
+    return _resident[key]
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def lstm_train_forward_plain(xw, w_hh, reverse=False, round_bf16=True):
     """xw [T, N, 4H] in the model dtype, w_hh [H, 4H] -> (h [T, N, H] in
     the model dtype, c [T, N, H] and the activations [i, f, g, o] [T, N,
-    4H], both bf16 with ``round_bf16`` else f32). Each step as kernel A's
-    plain version: gates = f32(xw[t]) + f32(dtype(h) @ w_hh), h and c
-    carried in f32; ``reverse`` walks t = T-1 .. 0, writing each step at t."""
-    T, N, G = xw.shape
-    H = G // 4
-    dtype, store = xw.dtype, _store(round_bf16)
-    w = w_hh.to(dtype).float()
-    h = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
-    c = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
-    hs = torch.empty(T, N, H, dtype=dtype, device=xw.device)
-    cs = torch.empty(T, N, H, dtype=store, device=xw.device)
-    acts = torch.empty(T, N, G, dtype=store, device=xw.device)
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gates = xw[t].float() + torch.matmul(h.to(dtype).float(), w)
-        i = torch.sigmoid(gates[:, :H])
-        f = torch.sigmoid(gates[:, H:2 * H])
-        g = torch.tanh(gates[:, 2 * H:3 * H])
-        o = torch.sigmoid(gates[:, 3 * H:])
-        c = f * c + i * g
-        h = o * torch.tanh(c)
-        hs[t] = h.to(dtype)
-        cs[t] = c.to(store)
-        acts[t] = torch.cat([i, f, g, o], dim=1).to(store)
-    return hs, cs, acts
+    4H], both bf16 with ``round_bf16`` else f32): kernel A's plain version
+    (``lstm_cuda.recurrence_plain``) with c and the activations kept."""
+    return recurrence_plain(xw, w_hh, reverse, _store(round_bf16))
 
 
 def lstm_train_backward_plain(w_hh, acts, c, g_h, reverse=False,
@@ -127,31 +252,52 @@ def _weights(w_hh):
 
 def lstm_train_forward(xw, w_hh, reverse=False, round_bf16=True):
     """R: ``lstm_train_forward_plain`` for CPU tensors, the kernel for
-    CUDA ones."""
+    CUDA ones (the persistent kernel where ``forward_plan`` takes the
+    shape, else the step kernel)."""
     if xw.device.type == "cpu":
         return lstm_train_forward_plain(xw, w_hh, reverse, round_bf16)
     G, io = 4 * w_hh.shape[0], w_hh.dtype
     T, N, H = _check("R", w_hh, xw=(xw, (io,), G))
     lib = build.library()
     dev, store = xw.device, _store(round_bf16)
-    Np = -(-N // ROW_BLOCK) * ROW_BLOCK
     h = torch.empty(T, N, H, dtype=io, device=dev)
     c = torch.empty(T, N, H, dtype=store, device=dev)
     acts = torch.empty(T, N, G, dtype=store, device=dev)
-    hbuf = torch.zeros(2, Np, H, dtype=io, device=dev)
-    cbuf = torch.zeros(N, H, dtype=torch.float32, device=dev)
-    lstm_train_forward.launches += 1
-    build.check(lib.lstm_train_fwd(
-        xw.data_ptr(), _weights(w_hh).data_ptr(), h.data_ptr(), c.data_ptr(),
-        acts.data_ptr(), hbuf.data_ptr(), cbuf.data_ptr(),
-        int(io == torch.float32), int(round_bf16), T, N, Np, H,
-        int(bool(reverse)), build.stream_of(xw)), "lstm_train_fwd")
+    plan = forward_plan(N, H, _sms(dev), io, round_bf16)
+    lstm_train_forward.plan = plan
+    stream = build.stream_of(xw)
+    if plan is None:
+        Np = -(-N // ROW_BLOCK) * ROW_BLOCK
+        hbuf = torch.zeros(2, Np, H, dtype=io, device=dev)
+        cbuf = torch.zeros(N, H, dtype=torch.float32, device=dev)
+        lstm_train_forward.launches += 1
+        build.check(lib.lstm_train_fwd(
+            xw.data_ptr(), _weights(w_hh).data_ptr(), h.data_ptr(),
+            c.data_ptr(), acts.data_ptr(), hbuf.data_ptr(), cbuf.data_ptr(),
+            int(io == torch.float32), int(round_bf16), T, N, Np, H,
+            int(bool(reverse)), stream), "lstm_train_fwd")
+        return h, c, acts
+    wt = w_hh.t().contiguous()  # [4H, H]: a gate column's k contiguous
+    rows, slices = plan["rows"], plan["slices"]
+    hbuf = torch.empty(2, slices * rows, H, dtype=io, device=dev)
+    flags = torch.empty(slices, dtype=torch.int32, device=dev)
+    for n0 in range(0, N, plan["n_launch"]):
+        hbuf.zero_()
+        flags.zero_()
+        lstm_train_forward.launches += 1
+        build.check(lib.lstm_train_fwd_persistent(
+            xw.data_ptr(), wt.data_ptr(), h.data_ptr(), c.data_ptr(),
+            acts.data_ptr(), hbuf.data_ptr(), flags.data_ptr(), T, N, n0,
+            min(plan["n_launch"], N - n0), H, rows // 16, slices, plan["kc"],
+            plan["stages"], plan["cluster"], int(bool(reverse)), stream),
+            "lstm_train_fwd_persistent")
     return h, c, acts
 
 
 def lstm_train_backward(w_hh, acts, c, g_h, reverse=False, round_bf16=True):
     """S: ``lstm_train_backward_plain`` for CPU tensors, the kernel for
-    CUDA ones."""
+    CUDA ones (the persistent kernel where ``backward_plan`` takes the
+    shape, else the step kernel)."""
     if acts.device.type == "cpu":
         return lstm_train_backward_plain(w_hh, acts, c, g_h, reverse,
                                          round_bf16)
@@ -161,18 +307,36 @@ def lstm_train_backward(w_hh, acts, c, g_h, reverse=False, round_bf16=True):
                      c=(c, (store,), H), g_h=(g_h, (io,), H))
     lib = build.library()
     dev = acts.device
-    Np = -(-N // ROW_BLOCK) * ROW_BLOCK
     dgates = torch.empty(T, N, 4 * H, dtype=store, device=dev)
-    dgbuf = torch.zeros(2, Np, 4 * H, dtype=io, device=dev)
-    dcbuf = torch.zeros(N, H, dtype=torch.float32, device=dev)
-    lstm_train_backward.launches += 1
-    build.check(lib.lstm_train_bwd(
-        _weights(w_hh).data_ptr(), acts.data_ptr(), c.data_ptr(),
-        g_h.data_ptr(), dgates.data_ptr(), dgbuf.data_ptr(),
-        dcbuf.data_ptr(), int(io == torch.float32), int(round_bf16), T, N, Np,
-        H, int(bool(reverse)), build.stream_of(acts)), "lstm_train_bwd")
+    plan = backward_plan(N, H, _sms(dev), resident_ctas(dev), io, round_bf16)
+    lstm_train_backward.plan = plan
+    stream = build.stream_of(acts)
+    if plan is None:
+        Np = -(-N // ROW_BLOCK) * ROW_BLOCK
+        dgbuf = torch.zeros(2, Np, 4 * H, dtype=io, device=dev)
+        dcbuf = torch.zeros(N, H, dtype=torch.float32, device=dev)
+        lstm_train_backward.launches += 1
+        build.check(lib.lstm_train_bwd(
+            _weights(w_hh).data_ptr(), acts.data_ptr(), c.data_ptr(),
+            g_h.data_ptr(), dgates.data_ptr(), dgbuf.data_ptr(),
+            dcbuf.data_ptr(), int(io == torch.float32), int(round_bf16), T,
+            N, Np, H, int(bool(reverse)), stream), "lstm_train_bwd")
+        return dgates
+    w = _weights(w_hh)
+    flags = torch.empty(plan["slices"], dtype=torch.int32, device=dev)
+    for n0 in range(0, N, plan["n_launch"]):
+        flags.zero_()
+        lstm_train_backward.launches += 1
+        build.check(lib.lstm_train_bwd_persistent(
+            w.data_ptr(), acts.data_ptr(), c.data_ptr(), g_h.data_ptr(),
+            dgates.data_ptr(), flags.data_ptr(), T, N, n0,
+            min(plan["n_launch"], N - n0), H, plan["rows"] // 16,
+            plan["slices"], plan["cluster"], plan["stages"],
+            int(bool(reverse)), stream), "lstm_train_bwd_persistent")
     return dgates
 
 
 lstm_train_forward.launches = 0
 lstm_train_backward.launches = 0
+lstm_train_forward.plan = None   # the plan of the last call (None: the
+lstm_train_backward.plan = None  # step kernel)

@@ -96,8 +96,9 @@ PyTorch built for CUDA. In order, it:
 10. runs the LSTM-CRF train step: R and S (the LSTM recurrence of a train
     step and its backward through time) against their plain versions at
     hac and fast training shapes (N 128; T 1000, H 1024 and T 1200, H 96),
-    both directions, with their times, bounds and a cuDNN LSTM layer's
-    forward + backward beside them; the hac train step (lstm_crf_config()
+    both directions, R's h against A's bit for bit, with the plans they
+    ran, their times, bounds, their step kernels' times and a cuDNN LSTM
+    layer's forward + backward beside them; the hac train step (lstm_crf_config()
     with f32 master weights, a bf16 forward, batch 128 x chunk 6000,
     targets of 250 to 500 bases, AdamW 2e-3, clip 2.0): a warm-up step and
     three timed ones with their launch counts (R 5, S 5, U, V, Y, Z 1 each
@@ -354,6 +355,7 @@ def ptxas_summary(report):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             base = re.search(r"(lstm_step_bf16|lstm_persistent_bf16|"
+                             r"lstm_bptt_persistent|"
                              r"lstm_int8_step|"
                              r"lstm_train_(?:fwd|bwd)_step|"
                              r"lstm_fused_bf16_kernel|"
@@ -365,11 +367,17 @@ def ptxas_summary(report):
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
             resident = re.search(r"(?:fwd|bwd)ILb(\d)EE", m.group(1))
-            padded = re.search(r"(?:tc_kernel|persistent_bf16)ILi(\d+)EE",
-                               m.group(1))
+            padded = re.search(r"(?:tc_kernel|persistent_bf16)ILi(\d+)E"
+                               r"(?:Lb(\d)E)?E", m.group(1))
+            bptt = re.search(r"bptt_persistentILi(\d+)ELi(\d+)EE",
+                             m.group(1))
             tiles = re.search(r"kernelILi(\d+)ELi(\d+)EE", m.group(1))
             if padded and name.startswith("lstm"):
-                name = f"{name}<rows={16 * int(padded.group(1))}>"
+                train = ", R's stores" if padded.group(2) == "1" else ""
+                name = f"{name}<rows={16 * int(padded.group(1))}{train}>"
+            elif bptt:
+                name = (f"{name}<rows={16 * int(bptt.group(1))}, cluster="
+                        f"{bptt.group(2)}>")
             elif padded:
                 name = f"{name}<bf16, head dim padded to {padded.group(1)}>"
             elif resident:
@@ -1356,18 +1364,57 @@ class plain_train_kernels(plain_loss_kernels):
             lstm_train_cuda.lstm_train_backward_plain)
 
 
-def check_lstm_train(torch, ops_lstm, lstm_train_cuda, dev, n, t, h,
-                     time_it):
+def r_step_kernel(torch, build, xw, w_hh, reverse=False):
+    """R's step kernel (one launch per timestep: the branch of
+    ops.lstm_train_cuda.lstm_train_forward for an f32 model, f32 storage or
+    an H whose W_hh does not fit in shared memory, and R's first design) at
+    xw's shape in bf16 with bf16 storage, through its C entry: checked
+    against the plain version and timed beside the persistent kernel in
+    the same run. No path runs it at these shapes, so it counts no
+    launch."""
+    T_, N_, G_ = xw.shape
+    H_ = G_ // 4
+    Np = -(-N_ // 32) * 32
+    h = torch.empty(T_, N_, H_, dtype=xw.dtype, device=xw.device)
+    c = torch.empty(T_, N_, H_, dtype=xw.dtype, device=xw.device)
+    acts = torch.empty(T_, N_, G_, dtype=xw.dtype, device=xw.device)
+    hbuf = torch.zeros(2, Np, H_, dtype=xw.dtype, device=xw.device)
+    cbuf = torch.zeros(N_, H_, dtype=torch.float32, device=xw.device)
+    build.check(build.library().lstm_train_fwd(
+        xw.data_ptr(), w_hh.data_ptr(), h.data_ptr(), c.data_ptr(),
+        acts.data_ptr(), hbuf.data_ptr(), cbuf.data_ptr(), 0, 1, T_, N_, Np,
+        H_, int(reverse), build.stream_of(xw)), "lstm_train_fwd")
+    return h, c, acts
+
+
+def s_step_kernel(torch, build, w_hh, acts, c, g_h, reverse=False):
+    """S's step kernel, as ``r_step_kernel`` R's."""
+    T_, N_, G_ = acts.shape
+    Np = -(-N_ // 32) * 32
+    dgates = torch.empty_like(acts)
+    dgbuf = torch.zeros(2, Np, G_, dtype=acts.dtype, device=acts.device)
+    dcbuf = torch.zeros(N_, G_ // 4, dtype=torch.float32, device=acts.device)
+    build.check(build.library().lstm_train_bwd(
+        w_hh.data_ptr(), acts.data_ptr(), c.data_ptr(), g_h.data_ptr(),
+        dgates.data_ptr(), dgbuf.data_ptr(), dcbuf.data_ptr(), 0, 1, T_, N_,
+        Np, G_ // 4, int(reverse), build.stream_of(acts)), "lstm_train_bwd")
+    return dgates
+
+
+def check_lstm_train(torch, ops_lstm, lstm_train_cuda, lstm_cuda, build, dev,
+                     n, t, h, time_it):
     """Kernels R and S against their plain versions on random bf16 inputs
     at (N, T, H) = (n, t, h), both directions, rounding as bonito_tpu's
     kernels do: R's h, c and activations; S's gate gradient on R's own
-    output (the same inputs as its plain version); and the Function's dxw
-    and dW_hh through the kernels against the same through the plain
-    versions. Returns the worst differences (max and mean relative to the
-    largest magnitude of the reference, and the max absolute) and, with
-    ``time_it``, the
-    times of R, S, their plain versions and a cuDNN LSTM layer's forward +
-    backward at the same shape."""
+    output (the same inputs as its plain version); their step kernels
+    (``r_step_kernel``, ``s_step_kernel``) on the same inputs; and the
+    Function's dxw and dW_hh through the kernels against the same through
+    the plain versions. R's h against kernel A's on the same xw and W_hh:
+    at one plan, bit for bit. Returns the worst differences (max and mean
+    relative to the largest magnitude of the reference, and the max
+    absolute), the plans R and S ran and, with ``time_it``, the times of
+    R, S, their step kernels, their plain versions and a cuDNN LSTM
+    layer's forward + backward at the same shape."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     xw = torch.randn(t, n, 4 * h, device=dev, generator=g).to(torch.bfloat16)
     w_hh = (torch.randn(h, 4 * h, device=dev, generator=g) / math.sqrt(h)
@@ -1390,8 +1437,17 @@ def check_lstm_train(torch, ops_lstm, lstm_train_cuda, dev, n, t, h,
         out.backward(g_h)
         return xw_.grad, w_.grad
 
+    plans = {}
     for reverse in (False, True):
         hk, ck, ak = lstm_train_cuda.lstm_train_forward(xw, w_hh, reverse)
+        plans["R"] = lstm_train_cuda.lstm_train_forward.plan
+        ha = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
+        require(lstm_cuda.lstm_recurrence.plan == plans["R"]
+                and torch.equal(hk, ha),
+                f"kernel R's h is not kernel A's at (N {n}, T {t}, H {h}), "
+                f"reverse={reverse}: plans {plans['R']} and "
+                f"{lstm_cuda.lstm_recurrence.plan}")
+        del ha
         hp, cp, ap = lstm_train_cuda.lstm_train_forward_plain(xw, w_hh,
                                                               reverse)
         torch.cuda.synchronize()
@@ -1399,14 +1455,25 @@ def check_lstm_train(torch, ops_lstm, lstm_train_cuda, dev, n, t, h,
             require(bool(torch.isfinite(out.float()).all()),
                     f"kernel R: non-finite {key}")
             diff(key, out, ref)
+        for key, out, ref in zip(("step h", "step c", "step acts"),
+                                 r_step_kernel(torch, build, xw, w_hh,
+                                               reverse), (hp, cp, ap)):
+            require(bool(torch.isfinite(out.float()).all()),
+                    f"R's step kernel: non-finite {key}")
+            diff(key, out, ref)
         del hp, cp, ap
         dk = lstm_train_cuda.lstm_train_backward(w_hh, ak, ck, g_h, reverse)
+        plans["S"] = lstm_train_cuda.lstm_train_backward.plan
         dp = lstm_train_cuda.lstm_train_backward_plain(w_hh, ak, ck, g_h,
                                                        reverse)
         require(bool(torch.isfinite(dk.float()).all()),
                 "kernel S: non-finite dgates")
         diff("dgates", dk, dp)
-        del dk, dp, hk, ck, ak
+        ds = s_step_kernel(torch, build, w_hh, ak, ck, g_h, reverse)
+        require(bool(torch.isfinite(ds.float()).all()),
+                "S's step kernel: non-finite dgates")
+        diff("step dgates", ds, dp)
+        del dk, dp, ds, hk, ck, ak
         dxw, dw = function(xw, w_hh, reverse)
         with plain_train_kernels(ops_lstm, lstm_train_cuda, *loss_mods()):
             pdxw, pdw = function(xw, w_hh, reverse)
@@ -1420,6 +1487,10 @@ def check_lstm_train(torch, ops_lstm, lstm_train_cuda, dev, n, t, h,
         _, ck, ak = lstm_train_cuda.lstm_train_forward(xw, w_hh)
         times["S"] = cuda_ms(lambda: lstm_train_cuda.lstm_train_backward(
             w_hh, ak, ck, g_h), reps=3)
+        times["R_step"] = cuda_ms(
+            lambda: r_step_kernel(torch, build, xw, w_hh), reps=2)
+        times["S_step"] = cuda_ms(
+            lambda: s_step_kernel(torch, build, w_hh, ak, ck, g_h), reps=2)
         times["R_plain"] = cuda_ms(
             lambda: lstm_train_cuda.lstm_train_forward_plain(xw, w_hh),
             reps=1, warmup=0)
@@ -1452,7 +1523,7 @@ def check_lstm_train(torch, ops_lstm, lstm_train_cuda, dev, n, t, h,
         "S": bound(gates + 2 * plane + h * 4 * h * 2 + gates,
                    2 * n * h * 4 * h * (t - 1), H100_BF16_OPS,
                    20 * n * h * t)}
-    return err, times, bounds
+    return err, plans, times, bounds
 
 
 def train_batch(torch, dev, n, chunk, length, seed):
@@ -1494,27 +1565,34 @@ def train_step_phase(torch, counters, dev):
     end to end on a generated npy set."""
     from bonito_tpu_torch.crf.model import Model
     from bonito_tpu_torch.models import MODELS, lstm_crf_config
+    from bonito_tpu_torch.ops import build, lstm_cuda, lstm_train_cuda
     from bonito_tpu_torch.ops import lstm as ops_lstm
-    from bonito_tpu_torch.ops import lstm_train_cuda
     from bonito_tpu_torch.training import make_optimizer, make_train_step
 
     log(f"[10] the LSTM-CRF train step (kernels R, S with U, V, Y, Z)")
     res = {"kernels": {}}
     for shape, (n, t, h) in TRAIN_SHAPES.items():
-        err, times, bounds = check_lstm_train(
-            torch, ops_lstm, lstm_train_cuda, dev, n, t, h, time_it=True)
-        res["kernels"][shape] = (err, times, bounds)
+        err, plans, times, bounds = check_lstm_train(
+            torch, ops_lstm, lstm_train_cuda, lstm_cuda, build, dev, n, t, h,
+            time_it=True)
+        res["kernels"][shape] = (err, plans, times, bounds)
         bad = {k: v for k, v in err.items()
                if v[0] > LSTM_TRAIN_MAX or v[1] > LSTM_TRAIN_MEAN}
         log(f"  R, S vs plain at {shape} training shapes (N {n}, T {t}, H "
             f"{h}), both directions; worst |diff| / max |ref| (max, mean): "
             + ", ".join(f"{k} {m:.3g} / {a:.3g} (max abs {w:.3g})"
                         for k, (m, a, w) in err.items()))
-        log(f"    R {times['R']:.4g} ms (plain {times['R_plain']:.4g}, bound "
-            f"{bounds['R'][0]:.4g} by {bounds['R'][1]}), S {times['S']:.4g} "
-            f"ms (plain {times['S_plain']:.4g}, bound {bounds['S'][0]:.4g} by "
-            f"{bounds['S'][1]}); cuDNN LSTM({h}, {h}) forward + backward "
-            f"{times['cudnn']:.4g} ms")
+        log(f"    R {times['R']:.4g} ms = {times['R'] / t * 1e3:.4g} us a "
+            f"step (step kernel {times['R_step']:.4g}, plain "
+            f"{times['R_plain']:.4g}, bound {bounds['R'][0]:.4g} by "
+            f"{bounds['R'][1]}), S {times['S']:.4g} ms = "
+            f"{times['S'] / t * 1e3:.4g} us a step (step kernel "
+            f"{times['S_step']:.4g}, plain {times['S_plain']:.4g}, bound "
+            f"{bounds['S'][0]:.4g} by {bounds['S'][1]}); R + S "
+            f"{times['R'] + times['S']:.4g} ms vs cuDNN LSTM({h}, {h}) "
+            f"forward + backward {times['cudnn']:.4g} ms; R's h is A's bit "
+            f"for bit")
+        log(f"    R's plan {plans['R']}; S's plan {plans['S']}")
         require(not bad, f"R, S at {shape} training shapes disagree with "
                          f"their plain versions: {bad}")
 
@@ -2997,8 +3075,8 @@ def main():
     # the library call (a cuDNN LSTM layer's forward + backward, its input
     # projection included) at hac training shapes, fast's beside them
     src_train = "bonito_tpu_torch/csrc/lstm_train.cu"
-    err_hac, t_hac, b_hac = train["kernels"]["hac"]
-    err_fast, t_fast, b_fast = train["kernels"]["fast"]
+    err_hac, p_hac, t_hac, b_hac = train["kernels"]["hac"]
+    err_fast, p_fast, t_fast, b_fast = train["kernels"]["fast"]
     for name, key, rep, outs in (
             ("lstm_train_fwd", "R", "bonito_tpu/ops/lstm_pallas.py:165",
              ("h", "c", "acts")),
@@ -3016,14 +3094,24 @@ def main():
                         "fast_train_step": train["fast"]["launches"][key],
                         "train_cli": train["cli"]["launches"][key]},
             "err_relative_to_max": {k: err_hac[k] for k in outs},
+            "plan": p_hac[key], "step_kernel_ms": t_hac[f"{key}_step"],
+            "step_kernel_err_relative_to_max": {
+                k: err_hac[f"step {k}"] for k in outs
+                if f"step {k}" in err_hac},
+            "fast_shape_plan": p_fast[key],
+            "fast_shape_step_kernel_ms": t_fast[f"{key}_step"],
             "fast_shape_ms": t_fast[key],
             "fast_shape_plain_ms": t_fast[f"{key}_plain"],
             "fast_shape_bound_ms": b_fast[key][0],
             "fast_shape_library_ms": t_fast["cudnn"],
-            "fast_shape_err_relative_to_max": {k: err_fast[k] for k in outs}})
-        log(f"  {name}: {t_hac[key]:.4g} ms (plain {t_hac[key + '_plain']:.4g}"
-            f" ms, bound {b_hac[key][0]:.4g} ms by {b_hac[key][1]}), {n} "
-            f"launches per hac train step")
+            "fast_shape_err_relative_to_max": {k: err_fast[k] for k in outs},
+            "fast_shape_step_kernel_err_relative_to_max": {
+                k: err_fast[f"step {k}"] for k in outs
+                if f"step {k}" in err_fast}})
+        log(f"  {name}: {t_hac[key]:.4g} ms (step kernel "
+            f"{t_hac[key + '_step']:.4g} ms, plain "
+            f"{t_hac[key + '_plain']:.4g} ms, bound {b_hac[key][0]:.4g} ms by "
+            f"{b_hac[key][1]}), {n} launches per hac train step")
     # H and O: launches on the sup train step (per step); times, bounds and
     # the library yardstick at its shapes
     for name, key, rep, err in (

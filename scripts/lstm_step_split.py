@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """
-Where a step of kernel A's persistent form goes (the bf16 LSTM recurrence
-of the PyTorch/CUDA port, ``bonito_tpu_torch/csrc/lstm.cu``), at hac widths
-(N=96, T=1666, H=1024).
+Where a step of the port's persistent LSTM kernels goes (the PyTorch/CUDA
+port, ``bonito_tpu_torch/csrc``): kernel A, the bf16 recurrence
+(``lstm.cu`` over ``lstm_persistent.cuh``), at hac widths (N=96, T=1666,
+H=1024), or kernel S, the train step's backward through time
+(``lstm_train.cu``), at hac training widths (N=128, T=1000, H=1024; N
+may be given after ``s``).
 
-    python3 scripts/lstm_step_split.py
+    python3 scripts/lstm_step_split.py [a | s [N]]
 
-from the root of a checkout, on a machine with a CUDA card and nvcc. It
-copies ``csrc/lstm.cu`` into ``bonito_tpu_torch/build/step_split/``, builds
-one library per variant with nvcc for sm_90a (all at once), and times each
-through the persistent kernel's C entry (CUDA events, 3 runs after a
-warm-up), with the card's name and power limit:
+from the root of a checkout, on a machine with a CUDA card and nvcc (``a``
+when no kernel is named). It copies the kernel's sources into
+``bonito_tpu_torch/build/step_split/``, builds one library per variant
+with nvcc for sm_90a (all at once), and times each through the persistent
+kernel's C entry (CUDA events, 3 runs after a warm-up), with the card's
+name and power limit.
 
+A:
 - the source as it stands, at the plan's k-chunks, ring and cluster
   (``ops.lstm_cuda.persistent_plan``: two CTAs share each load of h), the
   same without the sharing, and at narrower chunks, after a check against
@@ -20,9 +25,25 @@ warm-up), with the card's name and power limit:
   slice's counter, the h loads, the products, the gate math (the gates'
   sum is stored in place of h), and all four (with a cluster, not the
   wait); with a cluster also the two proxy fences that order the bulk
-  copies against the generic loads and stores. What a part adds is the
-  source's time less the variant's; the variants' outputs are wrong by
-  design (or, without the fences, unordered) and only timed.
+  copies against the generic loads and stores.
+
+S (on random activations and cell states, which S takes as given):
+- for each cluster size, the plan ``ops.lstm_train_cuda.backward_plan``
+  would make if the card held clusters of that size only: checked against
+  the plain version (``lstm_train_backward_plain``, T=33, both
+  directions), then timed at the plan's ring and at rings of 2 and 4
+  slots where they fit; the plan that the card's clusters give is one of
+  them;
+- the source at the plan with one part of each step left out: the wait at
+  the row slice's counter, the dgates loads (and their waits), the
+  products (each warp still stores its zero partial sums), the exchange
+  (the sum of the warps' partials, the stores into the owners' shared
+  memory and the cluster's barrier), the elementwise part (dh is stored in
+  place of the gates' gradient), and all five.
+
+What a part adds is the source's time less the variant's; the variants'
+outputs are wrong by design (or, without the fences, unordered) and only
+timed.
 """
 
 import ctypes
@@ -34,15 +55,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from bonito_tpu_torch.ops import build, lstm_cuda  # noqa: E402
+from bonito_tpu_torch.ops import build, lstm_cuda, lstm_train_cuda  # noqa: E402
 
 OUT = build.BUILD / "step_split"
-N, T, H = 96, 1666, 1024
+HEADER = "lstm_persistent.cuh"
 
-# the text each cut replaces in the persistent kernel, and what with
-CUTS = {
-    "wait": ("while (ld_acquire(p.flags + slice) < target)",
-             "while (!CUT_WAIT && ld_acquire(p.flags + slice) < target)"),
+# A: the text each cut replaces in the persistent kernel, and what with
+CUTS_A = {
+    "wait": ("if (tid == 0) wait_count(p.flags + slice, (unsigned)step",
+             "if (!CUT_WAIT && tid == 0) wait_count(p.flags + slice, "
+             "(unsigned)step"),
     "load_first": ("if (ch < n_chunks) load_chunk(ch);",
                    "if (!CUT_LOAD && ch < n_chunks) load_chunk(ch);"),
     "load_next": ("if (ch + stages - 1 < n_chunks) "
@@ -54,9 +76,9 @@ CUTS = {
                  "                for (int c = 0;"),
     "load_copy": ("            if (tid < share) {",
                   "            if (!CUT_LOAD && tid < share) {"),
-    "load_wait": ("while (!mbar_try_wait(mbar + ch, (unsigned)(step & 1)))",
-                  "while (!CUT_LOAD && "
-                  "!mbar_try_wait(mbar + ch, (unsigned)(step & 1)))"),
+    "load_wait": ("                mbar_wait(mbar + ch, (unsigned)(step & 1));",
+                  "                if (!CUT_LOAD) "
+                  "mbar_wait(mbar + ch, (unsigned)(step & 1));"),
     "fence_global": ('asm volatile("fence.proxy.async.global;\\n"',
                      'if (!CUT_FENCE) asm volatile('
                      '"fence.proxy.async.global;\\n"'),
@@ -73,50 +95,105 @@ CUTS = {
               "                continue;\n            }\n"
               "            const float ig = sigmoid_f(gt[0]);"),
 }
-VARIANTS = {"source": [], "no wait": ["WAIT"], "no h loads": ["LOAD"],
-            "no products": ["MMA"], "no gate math": ["GATES"],
-            "none of the four": ["WAIT", "LOAD", "MMA", "GATES"],
-            "no proxy fences": ["FENCE"]}
+VARIANTS_A = {"source": [], "no wait": ["WAIT"], "no h loads": ["LOAD"],
+              "no products": ["MMA"], "no gate math": ["GATES"],
+              "none of the four": ["WAIT", "LOAD", "MMA", "GATES"],
+              "no proxy fences": ["FENCE"]}
+
+# S: the same for its kernel in lstm_train.cu
+CUTS_S = {
+    "wait": ("if (tid == 0) wait_count(p.flags + slice,",
+             "if (!CUT_WAIT && tid == 0) wait_count(p.flags + slice,"),
+    "load_first": ("for (int ch = 0; ch < stages; ++ch) load(ch);",
+                   "for (int ch = 0; !CUT_LOAD && ch < stages; ++ch) "
+                   "load(ch);"),
+    "load_next": ("if (warp == 0 && ch + stages < NCH) {",
+                  "if (!CUT_LOAD && warp == 0 && ch + stages < NCH) {"),
+    "load_wait": ("                mbar_wait(full + s, parity);",
+                  "                if (!CUT_LOAD) mbar_wait(full + s, parity);"),
+    "mma": ("                    if (kt >= KT) break;\n"
+            "                    uint32_t b[4];",
+            "                    if (CUT_MMA || kt >= KT) break;\n"
+            "                    uint32_t b[4];"),
+    "exchange_in": ("            // their sum, four units at a time,",
+                    "#if !CUT_EXCHANGE\n"
+                    "            // their sum, four units at a time,"),
+    "exchange_out": ("            cluster_sync();\n        }\n",
+                     "            cluster_sync();\n#endif\n        }\n"),
+    "elementwise": ("            const float ig = __low2float(xa[i][0]);",
+                    "            if (CUT_ELEM) {\n"
+                    "                p.dgates[t * pl_g + (size_t)(row0 + r) * G"
+                    " + u0 + u] = __float2bfloat16(dh);\n"
+                    "                continue;\n            }\n"
+                    "            const float ig = __low2float(xa[i][0]);"),
+}
+VARIANTS_S = {"source": [], "no wait": ["WAIT"], "no dgates loads": ["LOAD"],
+              "no products": ["MMA"], "no exchange": ["EXCHANGE"],
+              "no elementwise part": ["ELEM"],
+              "none of the five": ["WAIT", "LOAD", "MMA", "EXCHANGE",
+                                   "ELEM"]}
+
+P, I = ctypes.c_void_p, ctypes.c_int
+MODES = {
+    # source compiled, file cut, cuts, variants, C entry, its argtypes
+    "a": ("lstm.cu", HEADER, CUTS_A, VARIANTS_A,
+          "lstm_recurrence_persistent", [P] * 5 + [I] * 11 + [P]),
+    "s": ("lstm_train.cu", "lstm_train.cu", CUTS_S, VARIANTS_S,
+          "lstm_train_bwd_persistent", [P] * 6 + [I] * 10 + [P]),
+}
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("lstm_step_split: no CUDA device", file=sys.stderr)
-        return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    text = (build.CSRC / "lstm.cu").read_text()
-    for old, new in CUTS.values():
+def ms_of(fn, reps=3):
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def build_variants(mode):
+    """One library per variant of the mode's kernel: its entry by name."""
+    source, cut_file, cuts, variants, entry, argtypes = MODES[mode]
+    flags = sorted({c for names in variants.values() for c in names})
+    text = (build.CSRC / cut_file).read_text()
+    for old, new in cuts.values():
         if text.count(old) != 1:
-            raise RuntimeError(f"lstm_step_split: the source no longer has "
+            raise RuntimeError(f"lstm_step_split: {cut_file} no longer has "
                                f"one {old!r}")
         text = text.replace(old, new)
     text = "".join(f"#ifndef CUT_{k}\n#define CUT_{k} 0\n#endif\n"
-                   for k in ("WAIT", "LOAD", "MMA", "GATES", "FENCE")) + text
+                   for k in flags) + text
     OUT.mkdir(parents=True, exist_ok=True)
-    src = OUT / "lstm_cut.cu"
-    src.write_text(text)
+    for name in {source, HEADER}:
+        (OUT / name).write_text((build.CSRC / name).read_text())
+    (OUT / cut_file).write_text(text)
     nvcc = build._nvcc()
     procs = {name: subprocess.Popen(
         [nvcc, *build.ARCH, *build.FLAGS, "-shared",
-         *[f"-DCUT_{c}=1" for c in cuts], "-o",
-         str(OUT / f"lib_{i}.so"), str(src)],
+         *[f"-DCUT_{c}=1" for c in cuts_on], "-o",
+         str(OUT / f"lib_{mode}_{i}.so"), str(OUT / source)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for i, (name, cuts) in enumerate(VARIANTS.items())}
+        for i, (name, cuts_on) in enumerate(variants.items())}
     for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
-    P, I = ctypes.c_void_p, ctypes.c_int
     libs = {}
-    for i, name in enumerate(VARIANTS):
-        fn = ctypes.CDLL(str(OUT / f"lib_{i}.so")).lstm_recurrence_persistent
-        fn.argtypes = [P, P, P, P, P] + [I] * 11 + [P]
+    for i, name in enumerate(variants):
+        fn = getattr(ctypes.CDLL(str(OUT / f"lib_{mode}_{i}.so")), entry)
+        fn.argtypes = argtypes
         libs[name] = fn
+    return libs
 
-    dev = torch.device("cuda")
+
+def split_a(card, dev):
+    N, T, H = 96, 1666, 1024
+    libs = build_variants("a")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = lstm_cuda.persistent_plan(N, H, sms)
 
@@ -132,23 +209,11 @@ def main():
             torch.cuda.current_stream().cuda_stream), name)
         return out
 
-    def ms_of(fn, reps=3):
-        fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     g = torch.Generator().manual_seed(1)
     xw = torch.randn(T, N, 4 * H, generator=g).to(dev, torch.bfloat16)
     w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev,
                                                            torch.bfloat16)
-    print(f"{card}; N={N}, T={T}, H={H}; plan {plan}", flush=True)
+    print(f"{card}; kernel A, N={N}, T={T}, H={H}; plan {plan}", flush=True)
     # the plan's chunks and cluster, the same without sharing h, narrower
     # chunks
     chunks = [(plan["kc"], plan["stages"], plan["cluster"]),
@@ -165,7 +230,7 @@ def main():
                   f"{diff.mean().item():.3g} (T=33)", flush=True)
     for kc, stages, cluster in chunks:
         base = None
-        for name, cuts in VARIANTS.items():
+        for name, cuts in VARIANTS_A.items():
             # without the wait, a CTA of a cluster could copy into a peer
             # that still reads: a race, not a timing; without a cluster
             # there are no proxy fences to leave out
@@ -179,6 +244,105 @@ def main():
             print(f"  k-chunks of {kc}, {stages} stages, cluster {cluster}, "
                   f"{name}: {ms:.4g} ms "
                   f"a layer = {ms / T * 1e3:.4g} us a step{more}", flush=True)
+
+
+def split_s(card, dev, N=128):
+    T, H = 1000, 1024
+    libs = build_variants("s")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    count = ctypes.CDLL(str(OUT / "lib_s_0.so")).lstm_train_bwd_clusters
+    count.argtypes = [I, build.IP]
+    resident = {}
+    for cl in lstm_train_cuda.CLUSTERS:
+        n = ctypes.c_int(0)
+        build.check(count(cl, ctypes.byref(n)), "lstm_train_bwd_clusters")
+        resident[cl] = n.value * cl
+    plan = lstm_train_cuda.backward_plan(N, H, sms, resident)
+    # each cluster size's own plan: backward_plan as if the card held no
+    # other size
+    plans = {cl: lstm_train_cuda.backward_plan(N, H, sms, {cl: resident[cl]})
+             for cl in lstm_train_cuda.CLUSTERS}
+
+    g = torch.Generator().manual_seed(1)
+    acts = torch.sigmoid(torch.randn(T, N, 4 * H, generator=g)).to(
+        dev, torch.bfloat16)
+    c = torch.randn(T, N, H, generator=g).to(dev, torch.bfloat16)
+    g_h = torch.randn(T, N, H, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev,
+                                                           torch.bfloat16)
+
+    def run(name, pl, t_len, stages=None, reverse=0):
+        # as the wrapper: a launch per row group
+        a, cc, gg = (x[:t_len].contiguous() for x in (acts, c, g_h))
+        out = torch.empty(t_len, N, 4 * H, dtype=torch.bfloat16, device=dev)
+        flags = torch.empty(pl["slices"], dtype=torch.int32, device=dev)
+        for n0 in range(0, N, pl["n_launch"]):
+            flags.zero_()
+            build.check(libs[name](
+                w.data_ptr(), a.data_ptr(), cc.data_ptr(), gg.data_ptr(),
+                out.data_ptr(), flags.data_ptr(), t_len, N, n0,
+                min(pl["n_launch"], N - n0), H, pl["rows"] // 16,
+                pl["slices"], pl["cluster"], stages or pl["stages"], reverse,
+                torch.cuda.current_stream().cuda_stream), name)
+        return out
+
+    print(f"{card}; kernel S, N={N}, T={T}, H={H}; CTAs resident in "
+          f"clusters of each size: {resident}; plan {plan}", flush=True)
+    for cl, pl in plans.items():
+        if pl is None:
+            print(f"  clusters of {cl}: no plan", flush=True)
+            continue
+        for reverse in (0, 1):
+            out = run("source", pl, 33, reverse=reverse)
+            ref = lstm_train_cuda.lstm_train_backward_plain(
+                w, acts[:33], c[:33], g_h[:33], bool(reverse))
+            diff = (out.float() - ref.float()).abs()
+            big = ref.float().abs().max().item()
+            print(f"  clusters of {cl}, reverse={reverse}: max |dgates - "
+                  f"plain| {diff.max().item() / big:.3g} of the largest, "
+                  f"mean {diff.mean().item() / big:.3g} (T=33)", flush=True)
+        # the plan's ring, and rings of 2 and 4 slots where they fit
+        rows, n_chunks = pl["rows"], pl["rows"] // pl["chunk_rows"]
+        for stages in sorted({pl["stages"], 2, 4}):
+            if n_chunks % stages or lstm_train_cuda.backward_smem(
+                    H, rows, cl, stages) > lstm_train_cuda.SMEM_LIMIT:
+                continue
+            ms = ms_of(lambda: run("source", pl, T, stages))
+            print(f"  clusters of {cl}: {pl['slices']} slices of {rows} "
+                  f"rows, {pl['ctas']} CTAs, {pl['launches']} launch(es), "
+                  f"{pl['k_cols']} gate columns a CTA "
+                  f"({rows * pl['k_cols'] * 2 // 1024} KB of dgates a "
+                  f"step), a ring of {stages} slots of {pl['chunk_rows']} "
+                  f"rows: {ms:.4g} ms a layer = {ms / T * 1e3:.4g} us a "
+                  f"step", flush=True)
+    base = None
+    for name in VARIANTS_S:
+        ms = ms_of(lambda: run(name, plan, T))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {(base - ms) / T * 1e3:.3g} us")
+        print(f"  the plan, {name}: {ms:.4g} ms a layer = "
+              f"{ms / T * 1e3:.4g} us a step{more}", flush=True)
+
+
+def main():
+    mode = sys.argv[1] if len(sys.argv) > 1 else "a"
+    if mode not in MODES:
+        print(f"lstm_step_split: a kernel of {sorted(MODES)}, not {mode!r}",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("lstm_step_split: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    dev = torch.device("cuda")
+    if mode == "a":
+        split_a(card, dev)
+    else:
+        split_s(card, dev, *(int(n) for n in sys.argv[2:3]))
     return 0
 
 

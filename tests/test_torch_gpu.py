@@ -698,10 +698,24 @@ def test_loss_kernels_reject_what_they_do_not_take(cuda):
 # kernels R and S: the LSTM recurrence of a train step and its BPTT
 # ---------------------------------------------------------------------------
 
+# S's cluster size at each shape on an H100 (132 SMs, 132 CTAs resident in
+# clusters of 1 or 2): at H 96 a warp's share of 4H / 2 columns is no
+# whole number of k-steps
+H100_RESIDENT = {1: 132, 2: 132}
+H100_CLUSTER = {(40, 64): 2, (128, 96): 1, (128, 1024): 2, (64, 1024): 2,
+                (32, 1024): 2, (200, 1024): 2}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("round_bf16", [True, False])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("N,T,H", [(8, 9, 16), (40, 17, 64), (128, 6, 96)])
+@pytest.mark.parametrize("N,T,H", [
+    (8, 9, 16), (40, 17, 64), (128, 6, 96),
+    (128, 33, 1024),    # hac training: R as A (128 CTAs), S in clusters
+    (64, 33, 1024),     # the train CLI's default batch: 2 slices of 32
+    (32, 33, 1024),     # a small batch: 2 slices of 16, 8-row chunks
+    (200, 7, 1024),     # more rows than one grid holds: two row groups
+    (8, 5, 2048)])      # W_hh beyond shared memory: the step kernels
 def test_lstm_train_kernels_match_plain(cuda, N, T, H, reverse, round_bf16,
                                         dtype):
     """R against its plain version as kernel A against its own (in bf16 h
@@ -709,12 +723,30 @@ def test_lstm_train_kernels_match_plain(cuda, N, T, H, reverse, round_bf16,
     rounding drifts by a few bf16 steps); S on R's own output against its
     plain version on the same tensors: its product's f32 sums in another
     order, within two bf16 steps of the largest gradient (and of c, which
-    is not bounded). An f32 model (training without amp) runs the same
-    kernels with f32 products."""
+    is not bounded). Each on the branch of its shape rule
+    (``forward_plan``, ``backward_plan``: the persistent kernels for bf16
+    storage of a bf16 model where they fit, else the step kernels, which
+    also run an f32 model with f32 products), with the launches that branch
+    counts and the plan it ran; on an H100, S in each of its cluster
+    sizes. Where R runs A's plan, its h is A's bit for bit."""
     g = torch.Generator().manual_seed(N + T + H)
     xw = torch.randn(T, N, 4 * H, generator=g).to(cuda, dtype)
     w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(cuda, dtype)
     g_h = torch.randn(T, N, H, generator=g).to(cuda, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    fplan = lstm_train_cuda.forward_plan(N, H, sms, dtype, round_bf16)
+    bplan = lstm_train_cuda.backward_plan(
+        N, H, sms, lstm_train_cuda.resident_ctas(cuda), dtype, round_bf16)
+    bf16 = dtype == torch.bfloat16 and round_bf16
+    assert (fplan is not None) == (bf16 and H != 2048)
+    # S: a warp's k-slice of 4H / cluster columns is no multiple of 16 at
+    # H 16; H 2048 is beyond the registers that hold W_hh's block
+    assert (bplan is not None) == (bf16 and H not in (16, 2048))
+    for plan in (fplan, bplan):
+        assert plan is None or plan["launches"] == (2 if N == 200 else 1)
+    if bplan is not None and lstm_train_cuda.resident_ctas(cuda) \
+            == H100_RESIDENT:
+        assert bplan["cluster"] == H100_CLUSTER[N, H]
     before = (lstm_train_cuda.lstm_train_forward.launches,
               lstm_train_cuda.lstm_train_backward.launches)
     h, c, acts = lstm_train_cuda.lstm_train_forward(xw, w_hh, reverse,
@@ -724,10 +756,18 @@ def test_lstm_train_kernels_match_plain(cuda, N, T, H, reverse, round_bf16,
     torch.cuda.synchronize()
     assert (lstm_train_cuda.lstm_train_forward.launches,
             lstm_train_cuda.lstm_train_backward.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + (fplan["launches"] if fplan else 1),
+        before[1] + (bplan["launches"] if bplan else 1))
+    assert lstm_train_cuda.lstm_train_forward.plan == fplan
+    assert lstm_train_cuda.lstm_train_backward.plan == bplan
     store = torch.bfloat16 if round_bf16 else torch.float32
     assert h.dtype == dtype and c.dtype == acts.dtype == store
     assert dg.dtype == store
+    if fplan is not None:
+        a = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
+        torch.cuda.synchronize()
+        assert lstm_cuda.lstm_recurrence.plan == fplan
+        assert torch.equal(h, a)
     ref_h, ref_c, ref_a = lstm_train_cuda.lstm_train_forward_plain(
         xw, w_hh, reverse, round_bf16)
     torch.testing.assert_close(h.float(), ref_h.float(), rtol=0, atol=2e-2)

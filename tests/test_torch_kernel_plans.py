@@ -1,17 +1,23 @@
-"""The pure-Python shape rules of kernels A and L (``ops.lstm_cuda.
-persistent_plan``, ``ops.attention_cuda.padded_head_dim``): what each
-launch asks of the card, that A's CTAs cover every row and unit once, and
-the head dim L's bf16 instance runs at. Each is what the wrapper passes to
-its kernel. They run here, on the CPU; the kernels themselves, and L's
-tiling, which is fixed in the kernel, only on the card
+"""The pure-Python shape rules of kernels A, R, S and L (``ops.lstm_cuda.
+persistent_plan``, ``ops.lstm_train_cuda.forward_plan`` and
+``backward_plan``, ``ops.attention_cuda.padded_head_dim``): what each
+launch asks of the card, that A's and S's CTAs cover every row, unit and
+gate column once, and the head dim L's bf16 instance runs at. Each is what
+the wrapper passes to its kernel. They run here, on the CPU; the kernels
+themselves, and L's tiling, which is fixed in the kernel, only on the card
 (tests/test_torch_gpu.py)."""
 
 import pytest
+import torch
 
-from bonito_tpu_torch.ops import attention_cuda, lstm_cuda
+from bonito_tpu_torch.ops import attention_cuda, lstm_cuda, lstm_train_cuda
 
 SMS = 132             # an H100's SMs
 SMEM = 232448         # the most shared memory a block may ask for
+# CTAs of S's persistent kernel an H100 holds at once in clusters of 1 and
+# 2 (ops.lstm_train_cuda.resident_ctas on the card: the occupancy API's
+# clusters times their size)
+RESIDENT = {1: 132, 2: 132}
 
 # (N, H): hac (N 96, H 1024), fast's width through projection + A (N
 # 1024, H 96), the GPU tests' shapes, more rows than one grid holds, and an
@@ -111,3 +117,146 @@ def test_padded_head_dim(D):
     assert dp in attention_cuda.L_PADDED and dp % 16 == 0 and D <= dp
     assert all(p < D for p in attention_cuda.L_PADDED if p < dp)
     assert dp == {40: 48, 64: 64}.get(D, dp)
+
+
+# ---------------------------------------------------------------------------
+# kernels R and S: the train step's recurrence and its BPTT
+# ---------------------------------------------------------------------------
+
+# (N, H): hac training (N 128, H 1024) and fast's (N 128, H 96) at the
+# batches below, small H, more rows than one grid holds, and a width whose
+# hac-like grid takes 4 slices
+S_SHAPES = [(n, h) for h in (1024, 96) for n in (1, 32, 96, 128, 256)] + [
+    (8, 32), (40, 64), (200, 1024), (128, 512)]
+
+
+def test_forward_plan_is_a_plan_at_hac_training():
+    """R runs kernel A's kernel with its stores at A's plan: at hac training
+    (N 128, H 1024) 64 unit blocks x 2 slices of 64 rows, chunks 256 wide
+    in 2 stages without a cluster (64 rows of 512-wide chunks do not fit
+    beside W_hh's slice), 205,824 bytes."""
+    plan = lstm_train_cuda.forward_plan(128, 1024, SMS)
+    assert plan == lstm_cuda.persistent_plan(128, 1024, SMS)
+    assert (plan["unit_blocks"], plan["slices"], plan["rows"]) == (64, 2, 64)
+    assert (plan["launches"], plan["ctas"], plan["kc"], plan["stages"],
+            plan["cluster"]) == (1, 128, 256, 2, 1)
+    assert plan["smem"] == 64 * 1032 * 2 + 4 * 64 * 72 * 4 == 205824
+
+
+@pytest.mark.parametrize("dtype,round_bf16", [(torch.float32, True),
+                                              (torch.float32, False),
+                                              (torch.bfloat16, False)])
+def test_train_plans_send_f32_to_the_step_kernels(dtype, round_bf16):
+    """An f32 model (W_hh's f32 slice is 256 KB at hac) and c, the gates
+    and their gradient stored in f32 take the step kernels."""
+    assert lstm_train_cuda.forward_plan(128, 1024, SMS, dtype,
+                                        round_bf16) is None
+    assert lstm_train_cuda.backward_plan(128, 1024, SMS, RESIDENT, dtype,
+                                         round_bf16) is None
+
+
+@pytest.mark.parametrize("N,H", [(128, 1536), (128, 2048), (8, 4096),
+                                 (8, 16), (40, 48)])
+def test_backward_plan_sends_other_widths_to_the_step_kernel(N, H):
+    """W_hh's block is held in registers, H / 8 a thread: H above 1024
+    takes the step kernel (and H / 16 CTAs beyond the SMs at H 4096), as
+    does an H whose 4H / cluster columns do not split into the 8 warps'
+    k-slices of whole 16-column k-steps for any cluster that divides H /
+    16 (H 16, 48)."""
+    assert lstm_train_cuda.backward_plan(N, H, SMS, RESIDENT) is None
+
+
+@pytest.mark.parametrize("N,H", S_SHAPES)
+def test_backward_plan_fits_the_card(N, H):
+    plan = lstm_train_cuda.backward_plan(N, H, SMS, RESIDENT)
+    assert plan is not None
+    assert plan["smem"] <= SMEM
+    assert plan["smem"] == lstm_train_cuda.backward_smem(
+        H, plan["rows"], plan["cluster"], plan["stages"])
+    c = plan["cluster"]
+    assert c in lstm_train_cuda.CLUSTERS and plan["unit_blocks"] % c == 0
+    assert plan["ctas"] == plan["unit_blocks"] * plan["slices"]
+    assert plan["ctas"] <= min(SMS, RESIDENT[c])  # every CTA resident
+    assert plan["units"] == 16 and plan["rows"] in (16, 32, 48, 64)
+    # the 8 warps' k-slices of whole k-steps; W_hh's block in registers:
+    # c m-tiles x the k-steps of a k-slice x 4 registers = H / 8 a thread
+    assert plan["k_cols"] == 4 * H // c and plan["k_cols"] % (8 * 16) == 0
+    assert c * (plan["k_cols"] // 8 // 16) * 4 == H // 8 <= 128
+    n_chunks = plan["rows"] // plan["chunk_rows"]
+    assert plan["chunk_rows"] == (16 if plan["rows"] >= 32 else 8)
+    assert n_chunks % plan["stages"] == 0 and 2 <= plan["stages"] <= 4
+
+
+@pytest.mark.parametrize("N,H", S_SHAPES)
+def test_backward_plan_covers_every_row_unit_and_gate_column_once(N, H):
+    """The wrapper's launches, each CTA's slice of rows, the 16 units it
+    owns (dgates, dc) and its share of the product (its cluster's units
+    over its rank's gate columns): every (row, unit) owned once, and every
+    (row, unit, gate column) term of dh = dgates @ W_hh^T summed once."""
+    plan = lstm_train_cuda.backward_plan(N, H, SMS, RESIDENT)
+    starts = list(range(0, N, plan["n_launch"]))
+    assert len(starts) == plan["launches"]
+    c, k_cols, g_u = plan["cluster"], plan["k_cols"], plan["unit_blocks"]
+    assert g_u * plan["units"] == H
+    owner, terms = {}, {}
+    for n0 in starts:
+        rows = min(plan["n_launch"], N - n0)
+        assert plan["slices"] * plan["rows"] >= rows
+        for cta in range(plan["ctas"]):  # as csrc/lstm_train.cu's blockIdx.x
+            slice_, block = divmod(cta, g_u)
+            rank = block % c                 # clusters of c neighbours
+            first = (block - rank) * 16      # the cluster's first unit
+            for r in range(plan["rows"]):
+                row = slice_ * plan["rows"] + r
+                if row >= rows:  # a padding row: computed, never written
+                    continue
+                for u in range(16):
+                    key = (n0 + row, block * 16 + u)
+                    owner[key] = owner.get(key, 0) + 1
+                for u in range(first, first + 16 * c):
+                    key = (n0 + row, u)
+                    terms.setdefault(key, []).append(
+                        (rank * k_cols, (rank + 1) * k_cols))
+    assert sorted(owner) == [(n, u) for n in range(N) for u in range(H)]
+    assert set(owner.values()) == {1}
+    assert sorted(terms) == sorted(owner)
+    for spans in terms.values():
+        assert sorted(spans) == [(k, k + k_cols) for k in range(0, 4 * H,
+                                                                 k_cols)]
+
+
+def test_backward_plan_at_hac_training():
+    """hac training (N 128, H 1024) on an H100: 2 slices of 64 rows, 128
+    CTAs in clusters of 2. Each CTA's warps hold the 32 units x 2048 gate columns of W_hh
+    that are its (128 KB, 128 registers a thread); it reads its rows' 2048
+    columns of dgates a step, 16 rows (a 4 KB copy each) a slot through a
+    ring of 2; one launch."""
+    plan = lstm_train_cuda.backward_plan(128, 1024, SMS, RESIDENT)
+    assert (plan["cluster"], plan["rows"], plan["slices"]) == (2, 64, 2)
+    assert (plan["launches"], plan["ctas"], plan["k_cols"],
+            plan["chunk_rows"], plan["stages"]) == (1, 128, 2048, 16, 2)
+    assert plan["smem"] == (2 * 16 * 2056 * 2 + 8 * 64 * 36 * 4
+                            + 2 * 64 * 16 * 4 + 16 * 2) == 213536
+
+
+def test_backward_plan_follows_the_card():
+    """A card that holds no clusters of 2 runs hac training in clusters of
+    one, each CTA with all 4096 columns: its ring fits only 16 rows a CTA,
+    four launches; one that holds fewer than 128 CTAs in clusters of 2
+    takes two launches (still fewer than four); fewer SMs than H / 16
+    CTAs: the step kernel."""
+    plan = lstm_train_cuda.backward_plan(128, 1024, SMS, {1: 132, 2: 0})
+    assert (plan["cluster"], plan["launches"], plan["rows"],
+            plan["k_cols"]) == (1, 4, 16, 4096)
+    plan = lstm_train_cuda.backward_plan(128, 1024, SMS, {1: 132, 2: 120})
+    assert (plan["cluster"], plan["launches"]) == (2, 2)
+    assert lstm_train_cuda.backward_plan(128, 1024, 63, RESIDENT) is None
+
+
+@pytest.mark.parametrize("N,H", [(0, 1024), (8, 24)])
+def test_train_plans_reject_what_r_and_s_do_not_take(N, H):
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lstm_train_cuda.forward_plan(N, H, SMS)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lstm_train_cuda.backward_plan(N, H, SMS, RESIDENT)
+

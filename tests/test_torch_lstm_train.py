@@ -17,7 +17,9 @@ tensor over N x T rows (the LSTM's bias, BatchNorm's scale and bias): torch
 sums in f32, bonito_tpu's reduction on the CPU rounds in bf16 as it goes
 (seen: up to 2.05% of the largest entry, a mean relative difference of
 1.0-1.3%): within BF16_SUM_TOL of the largest entry, BF16_SUM_MEAN on the
-mean relative difference. Where the gate fails nothing is rounded: F32_TOL throughout."""
+mean relative difference. Where the gate fails nothing is rounded: F32_TOL
+throughout in f32, GATE_BF16_MAX and GATE_BF16_MEAN in bf16 (the test's
+docstring says why)."""
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +38,7 @@ F32_TOL = 2e-5
 GRAD_STEPS, GRAD_MIN_EQUAL = 2, 0.9
 H_STEPS = 4
 BF16_SUM_TOL, BF16_SUM_MEAN = 2.0 ** -5, 0.02
+GATE_BF16_MAX, GATE_BF16_MEAN = 2.0 ** -5, 4e-3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,21 +117,38 @@ def test_lstm_train_matches_pallas(N, T, C, H, dtype, reverse):
         _close_grad(o, r, name, dtype == "bf16")
 
 
-@pytest.mark.parametrize("reverse", [False, True])
-def test_lstm_train_matches_scan_where_the_gate_fails(reverse):
+@pytest.mark.parametrize("reverse,dtype", [
+    (False, "f32"), (True, "f32"),
+    pytest.param(False, "bf16", id="bf16-False"),
+    pytest.param(True, "bf16", id="bf16-True")])
+def test_lstm_train_matches_scan_where_the_gate_fails(reverse, dtype):
     """H 20 is no multiple of 8: bonito_tpu runs its scan under autodiff,
-    the port the same kernels (here their plain versions) unrounded."""
+    the port the same kernels (here their plain versions) unrounded. In
+    f32 the two agree to F32_TOL. In bf16 bonito_tpu's scan keeps its
+    carries in bf16 between steps while XLA on the CPU keeps f32 inside
+    each step's fused passes, and the port keeps h and c in f32 (h rounded
+    only as stored): h and the four gradients (x, w_ih, w_hh, b) each
+    within GATE_BF16_MAX of its largest entry, and the mean of the
+    differences within GATE_BF16_MEAN of that entry (seen at T 10 and 100,
+    both directions: 0.0058 to 0.0167 on the max, 0.0006 to 0.0021 on the
+    mean; a torch scan carrying h and c in bf16 came no closer)."""
     N, T, C, H = 6, 10, 12, 20
     x, w_ih, w_hh, b, g = _inputs(5, N, T, C, H)
     assert not ops_lstm.train_supported(torch.zeros(N, T, C),
                                         torch.zeros(H, 4 * H))
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
     ref = _jax_value_and_grads(
         lambda *a: lstm_scan(*a, reverse=reverse), (x, w_ih, w_hh, b), g,
-        jnp.float32)
-    out = _port_value_and_grads((x, w_ih, w_hh, b), g, torch.float32,
-                                reverse)
-    for o, r in zip(out, ref):
-        np.testing.assert_allclose(o, r, rtol=1e-4, atol=F32_TOL)
+        jdt)
+    out = _port_value_and_grads((x, w_ih, w_hh, b), g, tdt, reverse)
+    for name, o, r in zip(("h", "x", "w_ih", "w_hh", "b"), out, ref):
+        if dtype == "f32":
+            np.testing.assert_allclose(o, r, rtol=1e-4, atol=F32_TOL)
+            continue
+        err, big = np.abs(o - r), np.abs(r).max()
+        assert err.max() <= GATE_BF16_MAX * big, (name, err.max() / big)
+        assert err.mean() <= GATE_BF16_MEAN * big, (name, err.mean() / big)
 
 
 @pytest.mark.parametrize("N,C,H,dtype", [
