@@ -282,7 +282,9 @@ class SeqdistModel(torch.nn.Module):
                          act_tanh, scale, cmin, cmax, blank)
 
 
-GLUE = (nn.Permute,)  # value-preserving layers an int8 h passes through
+# value-preserving layers an int8 h passes through (bonito_tpu's glue also
+# names Dropout, a layer it does not have)
+GLUE = (nn.Permute, nn.MakeContiguous)
 
 
 def _mark_chains(layer):

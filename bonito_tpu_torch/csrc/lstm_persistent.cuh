@@ -1,8 +1,10 @@
 // The persistent LSTM recurrence that kernels A (csrc/lstm.cu) and R
-// (csrc/lstm_train.cu) share, and the primitives it and kernel S's
-// persistent BPTT are built from: cp.async, ldmatrix, mma.sync, mbarriers,
-// bulk copies (multicast or not), the cluster's barrier and its shared
-// memory, and the release/acquire counter in global memory.
+// (csrc/lstm_train.cu) share, and the primitives it, kernel S's persistent
+// BPTT and the persistent int8 layers D and E (csrc/lstm_int8.cu) are built
+// from: cp.async, ldmatrix, mma.sync, mbarriers, bulk copies (multicast or
+// not), the cluster's barrier and its shared memory, the release/acquire
+// counter in global memory, and the cooperative launch in clusters
+// (launch_resident).
 //
 // lstm_persistent_bf16<MT, TRAIN> is A's kernel (its design: csrc/lstm.cu).
 // TRAIN adds R's stores to the gate math and nothing else: c_t and the
@@ -439,15 +441,18 @@ lstm_persistent_bf16(Persist p)
     if (shared_h) cluster_sync();   // no CTA leaves while copies are due
 }
 
-template <int MT, bool TRAIN>
-cudaError_t launch_persistent(const Persist& p, int slices, size_t smem,
-                              cudaStream_t stream)
+// One cooperative launch of `grid` CTAs of PTHREADS threads in clusters of
+// `cluster`. Every CTA waits on others, so the grid must be resident all at
+// once, in the clusters the plan asked for: the occupancy API says so before
+// the launch, or this returns cudaErrorCooperativeLaunchTooLarge.
+template <typename Params>
+cudaError_t launch_resident(void (*kernel)(Params), long long grid,
+                            size_t smem, int cluster, cudaStream_t stream,
+                            const Params& p)
 {
-    const auto kernel = lstm_persistent_bf16<MT, TRAIN>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const long long grid = (long long)p.g_u * slices;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)grid);
     cfg.blockDim = dim3(PTHREADS);
@@ -455,7 +460,7 @@ cudaError_t launch_persistent(const Persist& p, int slices, size_t smem,
     cfg.stream = stream;
     cudaLaunchAttribute attrs[2];
     attrs[0].id = cudaLaunchAttributeClusterDimension;
-    attrs[0].val.clusterDim.x = p.cluster;
+    attrs[0].val.clusterDim.x = cluster;
     attrs[0].val.clusterDim.y = 1;
     attrs[0].val.clusterDim.z = 1;
     attrs[1].id = cudaLaunchAttributeCooperative;
@@ -465,12 +470,19 @@ cudaError_t launch_persistent(const Persist& p, int slices, size_t smem,
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return err;
-    // every CTA waits on others: the grid must be resident all at once, in
-    // the clusters the plan asked for
-    if ((long long)clusters * p.cluster < grid)
+    if ((long long)clusters * cluster < grid)
         return cudaErrorCooperativeLaunchTooLarge;
     cfg.numAttrs = 2;
     return cudaLaunchKernelEx(&cfg, kernel, p);
+}
+
+template <int MT, bool TRAIN>
+cudaError_t launch_persistent(const Persist& p, int slices, size_t smem,
+                              cudaStream_t stream)
+{
+    return launch_resident(lstm_persistent_bf16<MT, TRAIN>,
+                           (long long)p.g_u * slices, smem, p.cluster, stream,
+                           p);
 }
 
 // One launch of the persistent recurrence for the batch rows n0 .. n0 +

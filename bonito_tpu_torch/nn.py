@@ -237,6 +237,15 @@ class Permute(Layer):
 
 
 @register
+class MakeContiguous(Layer):
+    """Layout glue of torch-layout configs; the identity here, as in
+    bonito_tpu (``nn.py:MakeContiguous``)."""
+
+    def forward(self, x):
+        return x
+
+
+@register
 class Clamp(Layer):
     def __init__(self, min, max):
         super().__init__()

@@ -48,6 +48,15 @@ SIGNATURES = {
     "lstm_int8_fused": [P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, P],
     # xw, w_hh_q^T, scales, out, hbuf, cbuf, T, N, Np, H, reverse, stream
     "lstm_int8_recurrence": [P, P, P, P, P, P, I, I, I, I, I, P],
+    # x_q, w_ih_q^T, w_hh_q^T, ih_scales, scales, b, out, out_int8, hbuf,
+    # flags, T, N, n0, rows, C, H, mt, slices, kc, stages, cluster, reverse,
+    # stream
+    "lstm_int8_fused_persistent": [P, P, P, P, P, P, P, I, P, P, I, I, I, I,
+                                   I, I, I, I, I, I, I, I, P],
+    # xw, w_hh_q^T, scales, out, hbuf, flags, T, N, n0, rows, H, mt, slices,
+    # kc, stages, cluster, reverse, stream
+    "lstm_int8_recurrence_persistent": [P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                        I, I, I, I, P],
     # x, w_ih, w_hh, bias, out, T, N, C, H, reverse, stream
     "lstm_fused_bf16": [P, P, P, P, P, I, I, I, I, I, P],
     # moves, move_in, choices, c, logz, end_state, N, T, S, p_stay,

@@ -13,7 +13,9 @@ PyTorch built for CUDA. In order, it:
  3. holds each kernel against its plain PyTorch version on the card: at
     hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 and the
     int8 LSTM kernels D (both outputs) and E, every one in both
-    directions; the full-score decode M + Q (a stay plane that is not
+    directions (D and E each one persistent launch, the plan
+    ``persistent_plan`` gives, whose output equals its step kernel's bit
+    for bit); the full-score decode M + Q (a stay plane that is not
     constant, bf16) at hac and at fast widths; at fast widths (N=1024,
     T=1200, C=H=96, S=64) the fused LSTM layer F (both directions, with and
     without a bias) and the fused-head decode G + J (the fast head, and a small head with two
@@ -76,8 +78,8 @@ PyTorch built for CUDA. In order, it:
     fused paths (beside the TCN route's device step on the same batch)
     beside the card's name and power;
  8. times each kernel, its plain version and a PyTorch library call where
-    one computes the same function (and, for comparison, A's step kernel
-    at hac widths beside its persistent kernel, L in bf16 at sup widths
+    one computes the same function (and, for comparison, A's, D's and E's
+    step kernels at hac widths beside their persistent kernels, L in bf16 at sup widths
     beside scaled_dot_product_attention, the routes that
     F, G and J take the place of at fast widths, B and C at sup shapes and
     the parts of one sup layer; M and Q at fast shapes, and the reverse
@@ -356,7 +358,7 @@ def ptxas_summary(report):
         if m:
             base = re.search(r"(lstm_step_bf16|lstm_persistent_bf16|"
                              r"lstm_bptt_persistent|"
-                             r"lstm_int8_step|"
+                             r"lstm_int8_step|lstm_int8_persistent|"
                              r"lstm_train_(?:fwd|bwd)_step|"
                              r"lstm_fused_bf16_kernel|"
                              r"fused_rotary_window_attention_kernel|"
@@ -405,10 +407,12 @@ def ptxas_summary(report):
                          "5uint4": "16 bytes"}
                 name = f"{name}<{kinds[io.group(1)]}" + (
                     f", head dim up to {io.group(2)}>" if io.group(2) else ">")
-            flags = re.search(r"lstm_int8_stepILi(\d+)ELb(\d)ELb(\d)E",
-                              m.group(1))
+            flags = re.search(r"lstm_int8_(?:step|persistent)ILi(\d+)ELb(\d)"
+                              r"ELb(\d)E", m.group(1))
             if flags:
-                name = (f"{name}<rows={flags.group(1)}, fused="
+                tile = int(flags.group(1)) * (16 if "persistent" in name
+                                              else 1)
+                name = (f"{name}<rows={tile}, fused="
                         f"{flags.group(2)}, out_int8={flags.group(3)}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -456,7 +460,9 @@ def check_lstm_int8(torch, int8, lstm_int8_cuda, dev):
     only expf/tanhf can differ in the last bit and move an h across a
     half step. Differences are counted in int8 steps of 1/127: at most
     INT8_MAX_STEPS, INT8_MEAN_STEPS on the mean (none was seen: every run
-    so far gave equal outputs)."""
+    so far gave equal outputs). Each runs as one persistent launch, the
+    plan ``persistent_plan`` gives, and its output equals its step
+    kernel's (torch.equal): the same int32 sums and f32 operations."""
     g = torch.Generator().manual_seed(SEED + 2)
     x_q = torch.randint(-127, 128, (T, N, H), generator=g,
                         dtype=torch.int8).to(dev)
@@ -471,17 +477,35 @@ def check_lstm_int8(torch, int8, lstm_int8_cuda, dev):
     xw = torch.randn(T, N, 4 * H, generator=g).to(dev, torch.bfloat16)
     d_args = (x_q, w_ih_q, w_hh_q, ih_scales, scales, b)
     e_args = (xw, w_hh_q, scales)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {"D": lstm_int8_cuda.persistent_plan(N, H, H, sms),
+             "E": lstm_int8_cuda.persistent_plan(N, None, H, sms,
+                                                 fused=False)}
+    require(plans["D"] is not None and plans["E"] is not None,
+            f"no persistent plan for D or E at hac: {plans}")
     cases = [("D", lstm_int8_cuda.lstm_int8_fused,
+              lstm_int8_cuda.lstm_int8_fused_step_kernel,
               lstm_int8_cuda.lstm_int8_fused_plain, d_args,
               dict(reverse=r, out_int8=o))
              for r in (False, True) for o in (True, False)]
     cases += [("E", lstm_int8_cuda.lstm_int8_recurrence,
+               lstm_int8_cuda.lstm_int8_recurrence_step_kernel,
                lstm_int8_cuda.lstm_int8_recurrence_plain, e_args,
                dict(reverse=r)) for r in (False, True)]
     errs = {"D": 0.0, "E": 0.0}
-    for name, kernel, plain, args, kw in cases:
+    for name, kernel, step_kernel, plain, args, kw in cases:
         out = kernel(*args, **kw)
         torch.cuda.synchronize()
+        require(kernel.plan == plans[name],
+                f"kernel {name} ran {kernel.plan}, not the plan "
+                f"{plans[name]}")
+        same = torch.equal(out, step_kernel(*args, **kw))
+        log(f"  kernel {name} {kw}: one persistent launch ({plans[name]['ctas']}"
+            f" CTAs in clusters of {plans[name]['cluster']}, "
+            f"{plans[name]['rows']} rows each); equal to its step kernel: "
+            f"{same}")
+        require(same, f"kernel {name}'s persistent launch differs from its "
+                f"step kernel ({kw})")
         ref = plain(*args, **kw)
         require(out.dtype == ref.dtype, f"kernel {name}: dtype {out.dtype}")
         unit = 1.0 if out.dtype == torch.int8 else 127.0
@@ -498,7 +522,7 @@ def check_lstm_int8(torch, int8, lstm_int8_cuda, dev):
                 f"kernel {name} disagrees with its plain version: max "
                 f"{worst}, mean {mean} int8 steps")
         errs[name] = max(errs[name], worst / 127.0)
-    return d_args, e_args, errs
+    return d_args, e_args, errs, plans
 
 
 def check_decode(torch, decode_cuda, dev):
@@ -2066,7 +2090,8 @@ def main():
 
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
-    d_args, e_args, err_int8 = check_lstm_int8(torch, int8, lstm_int8_cuda, dev)
+    d_args, e_args, err_int8, int8_plans = check_lstm_int8(
+        torch, int8, lstm_int8_cuda, dev)
     moves, blank, fwd, err_b, err_c = check_decode(torch, decode_cuda, dev)
     err_m, err_q = check_decode_full(torch, decode_full_cuda, dev)
     log(f"    and at fast widths (N={FN}, T={FT}, C=H={FH}, S={FS})")
@@ -2586,12 +2611,28 @@ def main():
 
     ms_d = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_fused(
         *d_args, out_int8=True), reps=3)
+    require(lstm_int8_cuda.lstm_int8_fused.plan == int8_plans["D"],
+            "D took another plan than check_lstm_int8's")
+    ms_d_step = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_fused_step_kernel(
+        *d_args, out_int8=True), reps=2)
     plain_d = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_fused_plain(
         *d_args, out_int8=True), reps=1, warmup=0)
     ms_e = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_recurrence(*e_args),
                    reps=3)
+    require(lstm_int8_cuda.lstm_int8_recurrence.plan == int8_plans["E"],
+            "E took another plan than check_lstm_int8's")
+    ms_e_step = cuda_ms(
+        lambda: lstm_int8_cuda.lstm_int8_recurrence_step_kernel(*e_args),
+        reps=2)
     plain_e = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_recurrence_plain(
         *e_args), reps=1, warmup=0)
+    for key, ms, ms_step in (("D", ms_d, ms_d_step), ("E", ms_e, ms_e_step)):
+        pl = int8_plans[key]
+        log(f"  {key}: {ms:.4g} ms a layer ({ms / T * 1e3:.4g} us a step; "
+            f"persistent: {pl['launches']} launch of {pl['ctas']} CTAs in "
+            f"clusters of {pl['cluster']}, {pl['rows']} rows and 16 units "
+            f"each, {pl['smem']} B of shared memory) beside its step kernel's "
+            f"{ms_step:.4g} ms ({ms_step / T * 1e3:.4g} us a step)")
     # D: int8 x in, both int8 weights, three f32 rows, int8 h out
     bound_d = bound(T * N * H + 2 * H * 4 * H + 3 * 4 * H * 4 + T * N * H,
                     2 * N * T * (H + H) * 4 * H, H100_INT8_OPS)
@@ -3009,6 +3050,10 @@ def main():
     ]
     # times at another path's shapes than the one the entry's numbers are of
     more = {"A": {"step_kernel_ms": ms_a_step, "plan": a_plan},
+            "D": {"step_kernel_ms": ms_d_step, "plan": int8_plans["D"],
+                  "us_a_step": ms_d / T * 1e3},
+            "E": {"step_kernel_ms": ms_e_step, "plan": int8_plans["E"],
+                  "us_a_step": ms_e / T * 1e3},
             "B": {"sup_shape_ms": ms_b_sup,
                   "sup_shape_bound_ms": bound_b_sup[0]},
             "C": {"sup_shape_ms": ms_c_sup,

@@ -2,12 +2,12 @@
 """
 Where a step of the port's persistent LSTM kernels goes (the PyTorch/CUDA
 port, ``bonito_tpu_torch/csrc``): kernel A, the bf16 recurrence
-(``lstm.cu`` over ``lstm_persistent.cuh``), at hac widths (N=96, T=1666,
-H=1024), or kernel S, the train step's backward through time
-(``lstm_train.cu``), at hac training widths (N=128, T=1000, H=1024; N
-may be given after ``s``).
+(``lstm.cu`` over ``lstm_persistent.cuh``), or kernel D, the int8 layer
+(``lstm_int8.cu``), at hac widths (N=96, T=1666, C=H=1024), or kernel S,
+the train step's backward through time (``lstm_train.cu``), at hac
+training widths (N=128, T=1000, H=1024; N may be given after ``s``).
 
-    python3 scripts/lstm_step_split.py [a | s [N]]
+    python3 scripts/lstm_step_split.py [a | d | s [N]]
 
 from the root of a checkout, on a machine with a CUDA card and nvcc (``a``
 when no kernel is named). It copies the kernel's sources into
@@ -26,6 +26,18 @@ A:
   sum is stored in place of h), and all four (with a cluster, not the
   wait); with a cluster also the two proxy fences that order the bulk
   copies against the generic loads and stores.
+
+D (int8 out, as the hac chain runs it):
+- the source at the plan (``ops.lstm_int8_cuda.persistent_plan``: two CTAs
+  share each load of h and x, a ring of one chunk) and without the sharing
+  (two chunks of H / 2, each CTA loading its own), after a check against
+  the plain version (``lstm_int8_fused_plain``, T=33, both directions);
+- the same kernel with one part left out: the wait at the row slice's
+  counter (without the sharing only, as for A), the h loads, the h
+  product, the x product (x's rows, their wait, the products and the
+  partial sums),
+  the gate math (the gates' sum is stored in place of h_q), all five
+  (with a cluster, not the wait), and with a cluster the proxy fences.
 
 S (on random activations and cell states, which S takes as given):
 - for each cluster size, the plan ``ops.lstm_train_cuda.backward_plan``
@@ -55,7 +67,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from bonito_tpu_torch.ops import build, lstm_cuda, lstm_train_cuda  # noqa: E402
+from bonito_tpu_torch.ops import (  # noqa: E402
+    build, int8, lstm_cuda, lstm_int8_cuda, lstm_train_cuda)
 
 OUT = build.BUILD / "step_split"
 HEADER = "lstm_persistent.cuh"
@@ -100,6 +113,59 @@ VARIANTS_A = {"source": [], "no wait": ["WAIT"], "no h loads": ["LOAD"],
               "none of the four": ["WAIT", "LOAD", "MMA", "GATES"],
               "no proxy fences": ["FENCE"]}
 
+# D: the same for its persistent kernel in lstm_int8.cu
+CUTS_D = {
+    "wait": ("if (tid == 0) wait_count(p.flags + slice, (unsigned)step",
+             "if (!CUT_WAIT && tid == 0) wait_count(p.flags + slice, "
+             "(unsigned)step"),
+    "load_first": ("if (ch < n_chunks) load_chunk(ch);",
+                   "if (!CUT_LOAD && ch < n_chunks) load_chunk(ch);"),
+    "load_next": ("if (ch + stages - 1 < n_chunks) "
+                  "load_chunk(ch + stages - 1);",
+                  "if (!CUT_LOAD && ch + stages - 1 < n_chunks) "
+                  "load_chunk(ch + stages - 1);"),
+    "load_arm": ("            if (tid == 0)\n"
+                 "                for (int ch = 0; ch < n_chunks; ++ch)",
+                 "            if (!CUT_LOAD && tid == 0)\n"
+                 "                for (int ch = 0; ch < n_chunks; ++ch)"),
+    "load_copy": ("            if (lane == 0) {\n                // h_in",
+                  "            if (!CUT_LOAD && lane == 0) {\n"
+                  "                // h_in"),
+    "load_wait": ("                mbar_wait(mbar + ch, (unsigned)(step & 1));",
+                  "                if (!CUT_LOAD) "
+                  "mbar_wait(mbar + ch, (unsigned)(step & 1));"),
+    "fence_global": ('asm volatile("fence.proxy.async.global;\\n"',
+                     'if (!CUT_FENCE) asm volatile('
+                     '"fence.proxy.async.global;\\n"'),
+    "fence_shared": ("        if (shared_h)\n"
+                     "            asm volatile(\"fence.proxy",
+                     "        if (shared_h && !CUT_FENCE)\n"
+                     "            asm volatile(\"fence.proxy"),
+    "mma": ("for (int kt = ks; kt < kc / IKS; kt += PKS) {",
+            "for (int kt = ks; !CUT_MMA && kt < kc / IKS; kt += PKS) {"),
+    "x": ("if constexpr (FUSED) x_product(",
+          "if constexpr (FUSED && !CUT_X) x_product("),
+    "x_first": ("if constexpr (FUSED) load_x(p.reverse ? p.T - 1 : 0);",
+                "if constexpr (FUSED && !CUT_X) "
+                "load_x(p.reverse ? p.T - 1 : 0);"),
+    "x_wait": ("if (shared_h)   // and the peer's warps with theirs",
+               "if (shared_h && !CUT_X)"),
+    "x_next": ("if (step + 1 < p.T) load_x(p.reverse ? t - 1 : t + 1);",
+               "if (!CUT_X && step + 1 < p.T) "
+               "load_x(p.reverse ? t - 1 : t + 1);"),
+    "gates": ("            const float ig = sigmoid_f(gt[0]);",
+              "            if (CUT_GATES) {\n"
+              "                h_out[(size_t)(row0 + er[i]) * H + u0 + uu] = "
+              "(signed char)__float2int_rz(gt[0] + gt[1] + gt[2] + gt[3]);\n"
+              "                continue;\n            }\n"
+              "            const float ig = sigmoid_f(gt[0]);"),
+}
+VARIANTS_D = {"source": [], "no wait": ["WAIT"], "no h loads": ["LOAD"],
+              "no h product": ["MMA"], "no x product": ["X"],
+              "no gate math": ["GATES"],
+              "none of the five": ["WAIT", "LOAD", "MMA", "X", "GATES"],
+              "no proxy fences": ["FENCE"]}
+
 # S: the same for its kernel in lstm_train.cu
 CUTS_S = {
     "wait": ("if (tid == 0) wait_count(p.flags + slice,",
@@ -138,6 +204,9 @@ MODES = {
     # source compiled, file cut, cuts, variants, C entry, its argtypes
     "a": ("lstm.cu", HEADER, CUTS_A, VARIANTS_A,
           "lstm_recurrence_persistent", [P] * 5 + [I] * 11 + [P]),
+    "d": ("lstm_int8.cu", "lstm_int8.cu", CUTS_D, VARIANTS_D,
+          "lstm_int8_fused_persistent",
+          [P] * 7 + [I] + [P] * 2 + [I] * 12 + [P]),
     "s": ("lstm_train.cu", "lstm_train.cu", CUTS_S, VARIANTS_S,
           "lstm_train_bwd_persistent", [P] * 6 + [I] * 10 + [P]),
 }
@@ -246,6 +315,72 @@ def split_a(card, dev):
                   f"a layer = {ms / T * 1e3:.4g} us a step{more}", flush=True)
 
 
+def split_d(card, dev):
+    N, T, H = 96, 1666, 1024
+    libs = build_variants("d")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = lstm_int8_cuda.persistent_plan(N, H, H, sms)
+    g = torch.Generator().manual_seed(1)
+    x_q = torch.randint(-127, 128, (T, N, H), generator=g,
+                        dtype=torch.int8).to(dev)
+    w_ih_q, ih_scales = int8.quantize_cols(
+        (torch.randn(H, 4 * H, generator=g) / H ** 0.5).numpy())
+    w_hh_q, scales = int8.quantize_whh(
+        (torch.randn(H, 4 * H, generator=g) / H ** 0.5).numpy())
+    w_ih_q, w_hh_q = (torch.from_numpy(w).to(dev) for w in (w_ih_q, w_hh_q))
+    ihsc = torch.from_numpy(ih_scales).to(dev) * int8.H_STEP
+    sc = torch.from_numpy(scales).to(dev)
+    b = (0.5 * torch.randn(4 * H, generator=g)).to(dev)
+    wihT, whhT = w_ih_q.t().contiguous(), w_hh_q.t().contiguous()
+
+    # the plan's ring, and without the sharing a ring of two half-width
+    # chunks that each CTA loads itself
+    rings = {plan["cluster"]: (plan["kc"], plan["stages"]), 1: (H // 2, 2)}
+
+    def run(name, x, cluster, reverse=0):
+        t_len = x.shape[0]
+        kc, stages = rings[cluster]
+        out = torch.empty(t_len, N, H, dtype=torch.int8, device=dev)
+        hbuf = torch.zeros(2, plan["slices"] * plan["rows"], H,
+                           dtype=torch.int8, device=dev)
+        flags = torch.zeros(plan["slices"], dtype=torch.int32, device=dev)
+        build.check(libs[name](
+            x.data_ptr(), wihT.data_ptr(), whhT.data_ptr(), ihsc.data_ptr(),
+            sc.data_ptr(), b.data_ptr(), out.data_ptr(), 1, hbuf.data_ptr(),
+            flags.data_ptr(), t_len, N, 0, N, H, H, plan["rows"] // 16,
+            plan["slices"], kc, stages, cluster, reverse,
+            torch.cuda.current_stream().cuda_stream), name)
+        return out
+
+    print(f"{card}; kernel D, N={N}, T={T}, C=H={H}; plan {plan}",
+          flush=True)
+    x33 = x_q[:33].contiguous()
+    for cluster in sorted({plan["cluster"], 1}, reverse=True):
+        for reverse in (0, 1):
+            out = run("source", x33, cluster, reverse)
+            ref = lstm_int8_cuda.lstm_int8_fused_plain(
+                x33, w_ih_q, w_hh_q, ihsc, sc, b, reverse=bool(reverse),
+                out_int8=True)
+            diff = (out.float() - ref.float()).abs()
+            print(f"  cluster {cluster}, reverse={reverse}: max |h_q - plain| "
+                  f"{diff.max().item():.3g} int8 steps, mean "
+                  f"{diff.mean().item():.3g} (T=33)", flush=True)
+    for cluster in sorted({plan["cluster"], 1}, reverse=True):
+        base = None
+        for name, cuts in VARIANTS_D.items():
+            # as for A: without the wait, a CTA of a cluster could copy into
+            # a peer that still reads
+            if cluster > 1 and "WAIT" in cuts or cluster == 1 \
+                    and "FENCE" in cuts:
+                continue
+            ms = ms_of(lambda: run(name, x_q, cluster))
+            base = ms if base is None else base
+            more = "" if name == "source" else (
+                f"; the part(s) left out add {(base - ms) / T * 1e3:.3g} us")
+            print(f"  cluster {cluster}, {name}: {ms:.4g} ms a layer = "
+                  f"{ms / T * 1e3:.4g} us a step{more}", flush=True)
+
+
 def split_s(card, dev, N=128):
     T, H = 1000, 1024
     libs = build_variants("s")
@@ -341,6 +476,8 @@ def main():
     dev = torch.device("cuda")
     if mode == "a":
         split_a(card, dev)
+    elif mode == "d":
+        split_d(card, dev)
     else:
         split_s(card, dev, *(int(n) for n in sys.argv[2:3]))
     return 0

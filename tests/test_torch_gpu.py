@@ -196,11 +196,13 @@ def test_int8_fused_kernel_matches_plain(cuda, N, T, C, H, reverse, out_int8):
     The shapes take the 32-row tile (N 8, 40) and the 48-row one (96, 48),
     k-ranges of less than one staged chunk and of several with a tail."""
     args = _int8_layer(cuda, N + T + H, N, T, C, H)
+    plan = lstm_int8_cuda.persistent_plan(N, C, H, _sms(cuda))
     before = lstm_int8_cuda.lstm_int8_fused.launches
     out = lstm_int8_cuda.lstm_int8_fused(*args, reverse=reverse,
                                          out_int8=out_int8)
     torch.cuda.synchronize()
-    assert lstm_int8_cuda.lstm_int8_fused.launches == before + 1
+    assert lstm_int8_cuda.lstm_int8_fused.launches == before + (
+        1 if plan is None else plan["launches"])
     ref = lstm_int8_cuda.lstm_int8_fused_plain(*args, reverse=reverse,
                                                out_int8=out_int8)
     assert out.dtype == ref.dtype == (torch.int8 if out_int8
@@ -219,11 +221,91 @@ def test_int8_recurrence_kernel_matches_plain(cuda, N, T, H, reverse):
     _, _, w_hh_q, _, scales, _ = _int8_layer(cuda, N + T + H, N, T, H, H)
     g = torch.Generator().manual_seed(N)
     xw = torch.randn(T, N, 4 * H, generator=g).to(cuda, torch.bfloat16)
+    plan = lstm_int8_cuda.persistent_plan(N, None, H, _sms(cuda),
+                                          fused=False)
     before = lstm_int8_cuda.lstm_int8_recurrence.launches
     out = lstm_int8_cuda.lstm_int8_recurrence(xw, w_hh_q, scales,
                                               reverse=reverse)
     torch.cuda.synchronize()
-    assert lstm_int8_cuda.lstm_int8_recurrence.launches == before + 1
+    assert lstm_int8_cuda.lstm_int8_recurrence.launches == before + (
+        1 if plan is None else plan["launches"])
+    ref = lstm_int8_cuda.lstm_int8_recurrence_plain(xw, w_hh_q, scales,
+                                                    reverse=reverse)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=1 / 127 + 2 ** -8)
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the persistent D and E (lstm_int8_cuda.persistent_plan), in pairs of CTAs
+# that share each load: odd N, whose last row slice has padding rows (37, H
+# 64: 16-row slices); H 32, one pair; C 992 (31 k-steps, one k-slice short)
+# with H 160; 32-row slices (61 rows); hac widths (48-row slices, 128 CTAs);
+# 64-row slices (D with a narrow input); row groups (200 rows: D three of
+# 48-row slices, E two of 64)
+INT8_PERSISTENT = [(37, 9, 64, 64), (5, 7, 96, 32), (19, 6, 992, 160),
+                   (61, 4, 512, 1024), (96, 33, 1024, 1024),
+                   (128, 3, 128, 1024), (200, 5, 1024, 1024)]
+
+
+@pytest.mark.parametrize("out_int8", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,C,H", INT8_PERSISTENT)
+def test_int8_fused_persistent_equals_its_step_kernel(cuda, N, T, C, H,
+                                                       reverse, out_int8):
+    """Kernel D's persistent launches give its step kernel's output bit for
+    bit (exact int32 sums, the same f32 operations), and so stay within the
+    step kernel's tolerance of the plain version."""
+    args = _int8_layer(cuda, N + T + C + H, N, T, C, H)
+    plan = lstm_int8_cuda.persistent_plan(N, C, H, _sms(cuda))
+    assert plan is not None
+    assert plan["launches"] == (3 if N == 200 else 1)
+    before = lstm_int8_cuda.lstm_int8_fused.launches
+    out = lstm_int8_cuda.lstm_int8_fused(*args, reverse=reverse,
+                                         out_int8=out_int8)
+    torch.cuda.synchronize()
+    assert lstm_int8_cuda.lstm_int8_fused.launches == before + plan["launches"]
+    assert lstm_int8_cuda.lstm_int8_fused.plan == plan
+    step = lstm_int8_cuda.lstm_int8_fused_step_kernel(
+        *args, reverse=reverse, out_int8=out_int8)
+    torch.cuda.synchronize()
+    assert lstm_int8_cuda.lstm_int8_fused.launches == before + plan["launches"]
+    assert out.dtype == step.dtype and torch.equal(out, step)
+    ref = lstm_int8_cuda.lstm_int8_fused_plain(*args, reverse=reverse,
+                                               out_int8=out_int8)
+    diff = (out.float() - ref.float()).abs()
+    if out_int8:
+        assert diff.max().item() <= 1 and (diff == 0).float().mean() >= 0.99
+    else:
+        assert diff.max().item() <= 1 / 127 + 2 ** -8
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,H", [(n, t, h) for n, t, _, h in
+                                   INT8_PERSISTENT] + [
+    (64, 3, 2048)])     # W_hh's 132 KB slice: no ring of a whole step
+def test_int8_recurrence_persistent_equals_its_step_kernel(cuda, N, T, H,
+                                                           reverse):
+    _, _, w_hh_q, _, scales, _ = _int8_layer(cuda, N + T + H, N, T, H, H)
+    g = torch.Generator().manual_seed(N)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(cuda, torch.bfloat16)
+    plan = lstm_int8_cuda.persistent_plan(N, None, H, _sms(cuda),
+                                          fused=False)
+    assert plan is not None
+    assert plan["launches"] == (2 if N == 200 else 1)
+    assert plan["cluster"] == (1 if H == 2048 else 2)
+    before = lstm_int8_cuda.lstm_int8_recurrence.launches
+    out = lstm_int8_cuda.lstm_int8_recurrence(xw, w_hh_q, scales,
+                                              reverse=reverse)
+    step = lstm_int8_cuda.lstm_int8_recurrence_step_kernel(
+        xw, w_hh_q, scales, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_int8_cuda.lstm_int8_recurrence.launches == (
+        before + plan["launches"])
+    assert lstm_int8_cuda.lstm_int8_recurrence.plan == plan
+    assert torch.equal(out, step)
     ref = lstm_int8_cuda.lstm_int8_recurrence_plain(xw, w_hh_q, scales,
                                                     reverse=reverse)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,

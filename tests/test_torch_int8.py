@@ -428,3 +428,44 @@ def test_int8_slice_matches_bonito_tpu_fused_route(tmp_path, monkeypatch):
               - np.frombuffer(ref[rid]["qstring"].encode(), np.uint8))
         assert np.abs(dq).max(initial=0) <= 1
     assert sum(len(r["sequence"]) for r in out.values()) > 0
+
+
+def test_make_contiguous_keeps_the_int8_chain(tmp_path, monkeypatch):
+    """MakeContiguous (layout glue of torch-layout configs) between two
+    quantised LSTMs of a model built from a dict: the first still emits
+    int8 h, as bonito_tpu marks it, and the slice gives bonito_tpu's
+    moves on its fused int8 route (f32, as
+    test_int8_slice_matches_bonito_tpu_fused_route)."""
+    monkeypatch.setattr(jax_ops_lstm, "lstm_int8", _jax_fused_route)
+    monkeypatch.setenv("BONITO_TPU_FUSED_HEAD", "0")
+    cfg = _small_cfg(num_layers=2)
+    layers = cfg["encoder"]["sublayers"]
+    first = next(i for i, l in enumerate(layers) if l["type"] == "lstm")
+    layers.insert(first + 1, {"type": "makecontiguous"})
+    d = _jax_dir(tmp_path, cfg)
+    jm = jax_load_model(d, half=False, fuse_bn=True, quantize=None)
+    pm = load_model(d, half=False, fuse_bn=True, quantize=None, device="cpu",
+                    route="fused")
+    assert isinstance(pm.encoder.get_submodule(str(first + 1)),
+                      nn.MakeContiguous)
+    jl = [l for l in jm.encoder.sublayers if isinstance(l, jnn.LSTM)]
+    assert [l.int8_out for l in _lstms(pm)] == [
+        getattr(l, "int8_out", False) for l in jl] == [True, True]
+    x = np.random.default_rng(3).normal(size=(4, 500, 1)).astype(np.float32)
+    jmv, _ = jm.forward_tcn(jm.params, jnp.asarray(x))
+    with torch.no_grad():
+        mv, _ = pm.forward_tcn(_t(x))
+    err = np.abs(mv.numpy() - np.asarray(jmv)).max()
+    assert err <= 0.05, err
+    rng = np.random.default_rng(4)
+    reads = [FakeRead(f"r{i}", rng.normal(size=n).astype(np.float32))
+             for i, n in enumerate([700, 2400])]
+    kw = dict(chunksize=1000, overlap=200, batchsize=8)
+    ref = {r.read_id: res for r, res in jax_basecall(jm, iter(reads), **kw)}
+    out = {r.read_id: res for r, res in basecall(pm, iter(reads), **kw,
+                                                 head_route="tcn")}
+    assert out.keys() == ref.keys() == {r.read_id for r in reads}
+    for rid in ref:
+        assert out[rid]["sequence"] == ref[rid]["sequence"]
+        np.testing.assert_array_equal(out[rid]["moves"], ref[rid]["moves"])
+    assert sum(len(r["sequence"]) for r in out.values()) > 0

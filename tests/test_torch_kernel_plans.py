@@ -1,16 +1,18 @@
-"""The pure-Python shape rules of kernels A, R, S and L (``ops.lstm_cuda.
-persistent_plan``, ``ops.lstm_train_cuda.forward_plan`` and
-``backward_plan``, ``ops.attention_cuda.padded_head_dim``): what each
-launch asks of the card, that A's and S's CTAs cover every row, unit and
-gate column once, and the head dim L's bf16 instance runs at. Each is what
-the wrapper passes to its kernel. They run here, on the CPU; the kernels
+"""The pure-Python shape rules of kernels A, R, S, L, D and E
+(``ops.lstm_cuda.persistent_plan``, ``ops.lstm_train_cuda.forward_plan``
+and ``backward_plan``, ``ops.attention_cuda.padded_head_dim``,
+``ops.lstm_int8_cuda.persistent_plan``): what each launch asks of the
+card, that A's, S's, D's and E's CTAs cover every row, unit and gate
+column once, and the head dim L's bf16 instance runs at. Each is what the
+wrapper passes to its kernel. They run here, on the CPU; the kernels
 themselves, and L's tiling, which is fixed in the kernel, only on the card
 (tests/test_torch_gpu.py)."""
 
 import pytest
 import torch
 
-from bonito_tpu_torch.ops import attention_cuda, lstm_cuda, lstm_train_cuda
+from bonito_tpu_torch.ops import (attention_cuda, lstm_cuda,
+                                  lstm_int8_cuda, lstm_train_cuda)
 
 SMS = 132             # an H100's SMs
 SMEM = 232448         # the most shared memory a block may ask for
@@ -260,3 +262,131 @@ def test_train_plans_reject_what_r_and_s_do_not_take(N, H):
     with pytest.raises(ValueError, match="multiple of 16"):
         lstm_train_cuda.backward_plan(N, H, SMS, RESIDENT)
 
+
+
+# ---------------------------------------------------------------------------
+# kernels D and E: the int8 LSTM layer and its recurrence
+# ---------------------------------------------------------------------------
+
+# (N, C, H): hac (N 96, C = H = 1024), the card tests' shapes, odd N, a
+# narrow input, more rows than one grid holds, and H 2048 (W_hh_q's slice
+# leaves no room for a ring of the whole step)
+D_SHAPES = [(96, 1024, 1024), (37, 64, 64), (5, 96, 32), (19, 992, 160),
+            (61, 512, 1024), (128, 128, 1024), (200, 1024, 1024),
+            (1, 32, 32), (2000, 256, 256), (64, 1024, 2048)]
+
+
+def _int8_plan(N, C, H, fused, sms=SMS):
+    return lstm_int8_cuda.persistent_plan(N, C if fused else None, H, sms,
+                                          fused=fused)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("N,C,H", D_SHAPES)
+def test_int8_plan_fits_the_card(N, C, H, fused):
+    plan = _int8_plan(N, C, H, fused)
+    assert plan is not None
+    assert plan["smem"] <= SMEM
+    assert plan["smem"] == lstm_int8_cuda.smem_bytes(
+        C if fused else 0, H, plan["rows"], plan["kc"], plan["stages"], fused)
+    assert plan["ctas"] == plan["unit_blocks"] * plan["slices"] <= SMS
+    assert plan["units"] == 16 and plan["rows"] in (16, 32, 48, 64)
+    # the k-chunks are whole int8 products; pairs share h only where the
+    # ring holds a whole step, each CTA loads its own through 2+ stages
+    # otherwise
+    kc = plan["kc"]
+    assert H % kc == 0 and kc % 32 == 0 and kc <= 1024
+    if plan["cluster"] == 2:
+        assert plan["unit_blocks"] % 2 == 0 and plan["stages"] == H // kc
+    else:
+        assert plan["cluster"] == 1 and 2 <= plan["stages"] <= 8
+    # D stages x's rows of one step beside the x product's partial sums
+    assert plan["x_bytes"] == (plan["rows"] * (C + 16)
+                               + 4 * plan["rows"] * 72 * 4 if fused else 0)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("N,C,H", D_SHAPES)
+def test_int8_plan_covers_every_row_and_unit_once(N, C, H, fused):
+    """The wrapper's launches (row groups of n_launch rows), each CTA's
+    slice of rows and block of 16 units (csrc/lstm_int8.cu's blockIdx.x):
+    every (row, unit) exactly once; a cluster's two CTAs share a slice."""
+    plan = _int8_plan(N, C, H, fused)
+    starts = list(range(0, N, plan["n_launch"]))
+    assert len(starts) == plan["launches"]
+    assert plan["unit_blocks"] * plan["units"] == H
+    owner = {}
+    for n0 in starts:
+        rows = min(plan["n_launch"], N - n0)
+        # every slice has a row of the batch (the kernel's live rows)
+        assert (plan["slices"] - 1) * plan["rows"] < rows
+        assert plan["slices"] * plan["rows"] >= rows
+        for cta in range(plan["ctas"]):
+            slice_, block = divmod(cta, plan["unit_blocks"])
+            if plan["cluster"] == 2:  # the peer: the same slice
+                assert divmod(cta ^ 1, plan["unit_blocks"])[0] == slice_
+            for r in range(plan["rows"]):
+                row = slice_ * plan["rows"] + r
+                if row >= rows:  # a padding row: computed, never written
+                    continue
+                for u in range(plan["units"]):
+                    key = (n0 + row, block * plan["units"] + u)
+                    owner[key] = owner.get(key, 0) + 1
+    assert sorted(owner) == [(n, u) for n in range(N) for u in range(H)]
+    assert set(owner.values()) == {1}
+
+
+def test_int8_plan_at_hac():
+    """hac (N 96, C = H = 1024) on an H100: one launch of 64 unit blocks x
+    2 slices of 48 rows, in pairs that share each load of h (and in D of
+    x), h in one 1024-byte chunk a row. D: W_hh_q's slice (64 x 1040), the
+    ring under the h partial sums (4 x 48 x 72 int32), x's rows (48 x 1040)
+    and their partial sums, two mbarriers; E without x's region."""
+    d = lstm_int8_cuda.persistent_plan(96, 1024, 1024, SMS)
+    e = lstm_int8_cuda.persistent_plan(96, None, 1024, SMS, fused=False)
+    for plan in (d, e):
+        assert (plan["unit_blocks"], plan["slices"], plan["rows"]) == (64, 2,
+                                                                      48)
+        assert (plan["launches"], plan["ctas"], plan["cluster"], plan["kc"],
+                plan["stages"]) == (1, 128, 2, 1024, 1)
+    assert d["smem"] == 66560 + 55296 + (49920 + 55296) + 16 == 227088
+    assert e["smem"] == 66560 + 55296 + 8 == 121864
+
+
+@pytest.mark.parametrize("N,C,H,fused,launches", [
+    (200, 1024, 1024, True, 3), (200, 1024, 1024, False, 2),
+    (128, 1024, 1024, True, 2), (128, 128, 1024, True, 1),
+    (2000, 256, 256, True, 4)])
+def test_int8_plan_row_groups(N, C, H, fused, launches):
+    """D's x region takes 48-row slices at C 1024 where E's fit 64."""
+    assert _int8_plan(N, C, H, fused)["launches"] == launches
+
+
+@pytest.mark.parametrize("N,C,H,fused", [
+    (8, 2048, 1024, True),      # W_ih_q's slice beyond the registers
+    (8, 1024, 4096, True),      # H / 16 CTAs beyond the SMs
+    (8, None, 4096, False),
+    (8, 48, 64, True),          # C not a multiple of 32
+    (8, 64, 48, True),          # H not a multiple of 32
+    (8, None, 528, False)])
+def test_int8_plan_sends_the_rest_to_the_step_kernel(N, C, H, fused):
+    assert lstm_int8_cuda.persistent_plan(N, C, H, SMS, fused=fused) is None
+
+
+def test_int8_plan_follows_the_card():
+    """Fewer SMs, fewer slices a launch; a card too small for H / 16 CTAs
+    takes the step kernel."""
+    plan = lstm_int8_cuda.persistent_plan(96, 1024, 1024, 66)
+    assert plan["ctas"] <= 66 and plan["launches"] == 2
+    assert lstm_int8_cuda.persistent_plan(96, 1024, 1024, 63) is None
+    plan = lstm_int8_cuda.persistent_plan(96, None, 1024, 100, fused=False)
+    assert plan["ctas"] == 64 and plan["launches"] == 2
+
+
+@pytest.mark.parametrize("N,C,H,fused", [(0, 1024, 1024, True),
+                                         (8, 24, 64, True), (8, 64, 24, True),
+                                         (8, None, 64, True),
+                                         (8, None, 8, False)])
+def test_int8_plan_rejects_what_d_and_e_do_not_take(N, C, H, fused):
+    with pytest.raises(ValueError, match="multiples of 16"):
+        lstm_int8_cuda.persistent_plan(N, C, H, SMS, fused=fused)
