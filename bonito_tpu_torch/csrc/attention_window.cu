@@ -1,0 +1,641 @@
+// Kernels K and H for the H100: the rotary + banded attention of
+// csrc/attention.cu's fused kernel -- the same function, rounded at the same
+// points -- with the key window staged once per stretch of query tiles.
+//
+// K, fused_rotary_window_attention, replaces
+// bonito_tpu/ops/attention_pallas.py:fused_rotary_window_attention
+// (`_fused_kernel_dt`, `_rot_dt`); H, its instance that also writes each
+// query's lse, the forward of fused_rotary_window_attention_train
+// (`_fused_fwd_kernel_dt`). From qkv [N, T, 3, H, D] bf16 and cos/sin
+// [T, r2] f32 to o [N, T, H, D] bf16 (and lse [N, H, T] f32):
+//
+//     q, k  = bf16(rotary(f32(q)), rotary(f32(k)))   every product and sum
+//             rounded on its own (no fused multiply-add)
+//     s     = (q . k) / sqrt(D)       bf16 products, f32 sums; -1e30 masked
+//     p     = bf16(exp(s - max) / sum)                two passes, as the TPU
+//     o     = p . bf16(v)             f32 sums, rounded to bf16 last
+//     lse   = max + log(sum)          -1e30 where a query sees no key
+//
+// Query i sees key j iff -left <= j - i <= right and j < t_real; a query
+// that sees no key gives 0.
+//
+// What bounds it on an H100: at sup shapes (N 128, T 1000, 8 heads of 64,
+// window (127, 128)) the bytes, 0.16 ms (qkv in, o out), against 67 GFLOP
+// in the band on the tensor cores (0.07 ms) and two exps a visible pair on
+// the special-function units (about 0.13 ms at 16 a clock an SM). What sets
+// its pace is the consumers' work (scripts/attention_split.py leaves each
+// part out): three products a pair on mma.sync (pass 1, pass 2's scores
+// again and p . v), at about two thirds of the rate wgmma reaches, beside
+// the exps.
+//
+// Design. The earlier kernel (csrc/attention.cu, kept for f32 and for shapes
+// that window_plan does not take) gave each tile of 64 queries its own block,
+// which staged the tile's whole key window (up to 319 rows, rotated) before
+// any work: every key row was loaded, rotated and rounded about five times,
+// and nothing overlapped the staging. Here one CTA walks a stretch of
+// consecutive 64-query tiles of one (n, h) in order (ops/attention_cuda.py:
+// window_plan fixes the stretch from the shape and the SMs) and keeps a ring
+// of key blocks in shared memory: block b holds keys 64b .. 64b + 63, k
+// rotated and v as it is, in slot b % ring. Tile t sees blocks t - back ..
+// t + ahead (back = ceil(left / 64), ahead = floor((63 + right) / 64)), so a
+// stretch stages its leading window once and then one new block a tile;
+// ring = back + ahead + 2 slots leave the producers a tile ahead of the
+// consumers. All six warps stage the stretch's first tile (q's rows and the
+// leading window) together; then the CTA is warp-specialised:
+//   producers (2 warps)  copy tile t's 64 q rows and the new block's k and v
+//       rows by cp.async (16 bytes a lane), rotate q and k in place once a
+//       row (cos and sin from L2, the first batch's loads in flight while
+//       the copies land), zero the rows beyond T or t_real, then arrive at
+//       the mbarrier `full` of the tile; before refilling a slot they wait at
+//       `empty` for the consumers of the tile two back;
+//   consumers (4 warps)  own 16 query rows each and walk the keys their rows
+//       see in tiles of 16: pass 1 the scores on mma.sync m16n8k16 (ldmatrix
+//       from the ring, K as the B operand) for each row's max and sum, pass 2
+//       the scores again, p = bf16(exp(s - max) / sum) in the A-operand layout
+//       the accumulators already have, and o += p . v (ldmatrix.trans); then
+//       they arrive at `empty` and store o (and lse).
+// The masks are evaluated only on the key tiles at the band's edges (two of
+// about seventeen a warp at sup shapes), in loops of their own, so that the
+// tiles between them run without a branch; exp(s - max) is ex2 of one fused
+// multiply-add of the raw score. Rows are 16-byte chunks XOR-swizzled by the
+// row so that ldmatrix and the copies hit distinct banks without padding:
+// 112 KB at D 64 and the sup window, two CTAs an SM.
+
+#include "lstm_persistent.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float WNEG = -1e30f;      // a masked score
+constexpr int WQ = 64;              // queries a tile, keys a ring block
+constexpr int WCW = 4;              // consumer warps: 16 query rows each
+constexpr int WPW = 2;              // producer warps
+constexpr int WNT = (WCW + WPW) * 32;
+constexpr float WLOG2E = 1.4426950408889634f;
+
+struct Window {
+    const bf16* qkv;
+    const float* cosp;
+    const float* sinp;
+    bf16* out;
+    float* lse;
+    int T, H, D, r2, left, right, t_real;
+    int n_qt, stretch, n_str, ring, back, ahead;
+    float scale;
+};
+
+__host__ __device__ inline size_t window_smem(int ring, int dp) {
+    return (size_t)(2 * ring + 2) * WQ * dp * sizeof(bf16) + 4 * sizeof(uint64_t);
+}
+
+// element offset of chunk c (8 values) of `row` in a tile of rows of DP
+// values: the chunks of a row are XOR-swizzled by the row, so that the 8 rows
+// of an ldmatrix at one chunk lie in distinct banks
+template <int DP>
+__device__ __forceinline__ int swz(int row, int c) {
+    constexpr int CH = DP / 8;
+    const int x = CH >= 8 ? (row & 7) : ((row >> 1) & 3);
+    return row * DP + ((c ^ x) << 3);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// a register-only product: not volatile, so the compiler may interleave it
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1)
+{
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// rotate 8 elements of a row (ra, at lo) and their partners r2 further on
+// (rb, at hi) by the tables' cs and sn, in f32 with every product and sum
+// rounded on its own (as the plain version and the earlier kernel's
+// rotary_chunk), and store both
+__device__ __forceinline__ void rotate8(bf16* lo, bf16* hi, const uint4& ra,
+                                        const uint4& rb, const float4 (&cs)[2],
+                                        const float4 (&sn)[2]) {
+    const float c[8] = {cs[0].x, cs[0].y, cs[0].z, cs[0].w,
+                        cs[1].x, cs[1].y, cs[1].z, cs[1].w};
+    const float s[8] = {sn[0].x, sn[0].y, sn[0].z, sn[0].w,
+                        sn[1].x, sn[1].y, sn[1].z, sn[1].w};
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ra);
+    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&rb);
+    uint32_t o1[4], o2[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(ha[i]);
+        const float2 b = __bfloat1622float2(hb[i]);
+        const float ca = c[2 * i], cb = c[2 * i + 1];
+        const float sa = s[2 * i], sb = s[2 * i + 1];
+        o1[i] = pack2(__fsub_rn(__fmul_rn(a.x, ca), __fmul_rn(b.x, sa)),
+                      __fsub_rn(__fmul_rn(a.y, cb), __fmul_rn(b.y, sb)));
+        o2[i] = pack2(__fadd_rn(__fmul_rn(b.x, ca), __fmul_rn(a.x, sa)),
+                      __fadd_rn(__fmul_rn(b.y, cb), __fmul_rn(a.y, sb)));
+    }
+    *reinterpret_cast<uint4*>(lo) = make_uint4(o1[0], o1[1], o1[2], o1[3]);
+    *reinterpret_cast<uint4*>(hi) = make_uint4(o2[0], o2[1], o2[2], o2[3]);
+}
+
+__device__ __forceinline__ void zero16(bf16* p) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// the rotary of a step's rows, in place: q's tile (tokens q0 .. q0 + 63,
+// those below T) and the new key blocks b_lo, b_lo + 1, ... (those below
+// t_real), by thread i of NT, RB chunk pairs a thread a batch: load() issues
+// a batch's table loads, apply() rotates it, so that a batch's loads can be
+// in flight while the copies land
+template <int DP, int NT>
+struct Rotary {
+    static constexpr int RB = 4, CH2 = DP / 16;  // CH2: the most pairs a row
+    static constexpr int TILE = WQ * CH2;        // items a tile of rows
+    float4 cs[RB][2], sn[RB][2];
+    bf16* lo[RB];
+    bf16* hi[RB];
+    bool on[RB];
+
+    static __device__ __forceinline__ int batches(int items) {
+        return (items + NT * RB - 1) / (NT * RB);
+    }
+
+    __device__ __forceinline__ void load(const Window& a, bf16* Q, bf16* Ks,
+                                         int q0, int b_lo, int items, int i,
+                                         int j) {
+        const int rch = a.r2 / 8;
+#pragma unroll
+        for (int k = 0; k < RB; ++k) {
+            const int e = i + (j * RB + k) * NT;
+            on[k] = false;
+            if (e < items) {
+                const int part = e / TILE, rem = e % TILE;
+                const int r = rem / CH2, c = rem % CH2;
+                bf16* tile = Q;
+                int tok = q0 + r, live = a.T;
+                if (part > 0) {
+                    const int b = b_lo + part - 1;
+                    tile = Ks + (b % a.ring) * WQ * DP;
+                    tok = b * WQ + r;
+                    live = a.t_real;
+                }
+                on[k] = c < rch && tok < live;
+                if (on[k]) {
+                    lo[k] = tile + swz<DP>(r, c);
+                    hi[k] = tile + swz<DP>(r, c + rch);
+                    const size_t t = (size_t)tok * a.r2 + c * 8;
+                    const float4* cp = reinterpret_cast<const float4*>(a.cosp + t);
+                    const float4* sp = reinterpret_cast<const float4*>(a.sinp + t);
+                    cs[k][0] = __ldg(cp);
+                    cs[k][1] = __ldg(cp + 1);
+                    sn[k][0] = __ldg(sp);
+                    sn[k][1] = __ldg(sp + 1);
+                }
+            }
+        }
+    }
+
+    __device__ __forceinline__ void apply() {
+        uint4 ra[RB], rb[RB];
+#pragma unroll
+        for (int k = 0; k < RB; ++k)
+            if (on[k]) {
+                ra[k] = *reinterpret_cast<const uint4*>(lo[k]);
+                rb[k] = *reinterpret_cast<const uint4*>(hi[k]);
+            }
+#pragma unroll
+        for (int k = 0; k < RB; ++k)
+            if (on[k]) rotate8(lo[k], hi[k], ra[k], rb[k], cs[k], sn[k]);
+    }
+};
+
+// a step's copies, by thread i of n: q's tile of rows q0 .. q0 + 63 and the
+// k and v rows of key blocks b_lo .. b_hi, 16 bytes each by cp.async; zeros
+// for a row at or beyond T (q) or t_real (k, v); the padding beyond D stays
+// as it is (zero)
+template <int DP>
+__device__ __forceinline__ void stage(const Window& a, const bf16* base,
+                                      bf16* Q, bf16* Ks, bf16* Vs, int q0,
+                                      int b_lo, int b_hi, int i, int n) {
+    constexpr int CH = DP / 8;
+    const int chd = a.D / 8;
+    const size_t ts = (size_t)3 * a.H * a.D, hd = (size_t)a.H * a.D;
+    for (int e = i; e < WQ * CH; e += n) {
+        const int r = e / CH, c = e % CH;
+        if (c >= chd) continue;
+        bf16* d = Q + swz<DP>(r, c);
+        if (q0 + r < a.T)
+            cp_async16(d, base + (size_t)(q0 + r) * ts + c * 8);
+        else
+            zero16(d);
+    }
+    for (int b = b_lo; b <= b_hi; ++b) {
+        const int off = (b % a.ring) * WQ * DP;
+        for (int e = i; e < WQ * CH; e += n) {
+            const int r = e / CH, c = e % CH;
+            if (c >= chd) continue;
+            const int tok = b * WQ + r;
+            bf16* dk = Ks + off + swz<DP>(r, c);
+            bf16* dv = Vs + off + swz<DP>(r, c);
+            if (tok < a.t_real) {
+                const bf16* src = base + (size_t)tok * ts + c * 8;
+                cp_async16(dk, src + hd);
+                cp_async16(dv, src + 2 * hd);
+            } else {
+                zero16(dk);
+                zero16(dv);
+            }
+        }
+    }
+}
+
+// DP: the head dim padded to 32, 64 or 128 (zeros beyond D). LSE: also
+// write each query's log-sum-exp (kernel H); K's instance is the same code
+// without that store, so both give the same o bit for bit.
+template <int DP, bool LSE>
+__global__ void __launch_bounds__(WNT, DP <= 64 ? 2 : 1)
+window_attention_kernel(const Window a)
+{
+    constexpr int KT = DP / 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [ring][WQ][DP] k, rotated
+    bf16* Vs = Ks + (size_t)a.ring * WQ * DP;       // [ring][WQ][DP] v
+    bf16* Qs = Vs + (size_t)a.ring * WQ * DP;       // [2][WQ][DP] q, rotated
+    uint64_t* full = reinterpret_cast<uint64_t*>(Qs + 2 * WQ * DP);
+    uint64_t* empty = full + 2;
+
+    const int tid = threadIdx.x;
+    const int pair = blockIdx.x / a.n_str;
+    const int t_a = (blockIdx.x % a.n_str) * a.stretch;   // the first tile
+    const int n = pair / a.H, h = pair % a.H;
+    const int steps = min(a.stretch, a.n_qt - t_a);
+    const size_t ts = (size_t)3 * a.H * a.D;             // qkv's token stride
+    const bf16* base = a.qkv + (size_t)n * a.T * ts + (size_t)h * a.D;
+
+    // zeros everywhere first: the padding beyond D stays zero, and a slot
+    // that is never filled is never read
+    {
+        uint4* p = reinterpret_cast<uint4*>(smem_raw);
+        const int n16 = (2 * a.ring + 2) * WQ * DP / 8;
+        for (int i = tid; i < n16; i += WNT) p[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (tid == 0) {
+        mbar_init(full, WPW * 32);
+        mbar_init(full + 1, WPW * 32);
+        mbar_init(empty, WCW * 32);
+        mbar_init(empty + 1, WCW * 32);
+    }
+    __syncthreads();
+
+    const int nb = (a.t_real + WQ - 1) / WQ;   // blocks with a visible key
+    // the stretch's first tile, by all the warps: q's rows and the leading
+    // window (blocks t_a - back .. t_a + ahead), copied and rotated before
+    // the warps take their roles; the producers' arrival completes its phase
+    {
+        const int b_lo = max(t_a - a.back, 0), b_hi = min(t_a + a.ahead, nb - 1);
+        const int items = Rotary<DP, WNT>::TILE * (1 + max(b_hi - b_lo + 1, 0));
+        stage<DP>(a, base, Qs, Ks, Vs, t_a * WQ, b_lo, b_hi, tid, WNT);
+        cp_async_commit();
+        Rotary<DP, WNT> rot;
+        rot.load(a, Qs, Ks, t_a * WQ, b_lo, items, tid, 0);
+        cp_async_wait(0);
+        __syncthreads();
+        rot.apply();
+        for (int j = 1; j < Rotary<DP, WNT>::batches(items); ++j) {
+            rot.load(a, Qs, Ks, t_a * WQ, b_lo, items, tid, j);
+            rot.apply();
+        }
+        __syncthreads();
+    }
+
+    if (tid >= WCW * 32) {
+        // ------------------------------------------------------------ producers
+        constexpr int PT = WPW * 32;
+        const int pt = tid - WCW * 32;
+        mbar_arrive(full);                          // the first tile: staged
+        for (int s = 1; s < steps; ++s) {
+            const int t = t_a + s, q0 = t * WQ;
+            // the slots of this tile were last read two tiles back
+            if (s >= 2) mbar_wait(empty + (s & 1), (unsigned)(((s >> 1) + 1) & 1));
+            bf16* Q = Qs + (s & 1) * WQ * DP;
+            // the one block that enters the band
+            const int b = t + a.ahead < nb ? t + a.ahead : nb;
+            const int items = Rotary<DP, PT>::TILE * (b < nb ? 2 : 1);
+            stage<DP>(a, base, Q, Ks, Vs, q0, b, b < nb ? b : b - 1, pt, PT);
+            cp_async_commit();
+            // the rotary, once a row, in place; the first batch's tables load
+            // while the copies land
+            Rotary<DP, PT> rot;
+            rot.load(a, Q, Ks, q0, b, items, pt, 0);
+            cp_async_wait(0);
+            asm volatile("bar.sync 1, %0;\n" :: "n"(PT) : "memory");
+            rot.apply();
+            for (int j = 1; j < Rotary<DP, PT>::batches(items); ++j) {
+                rot.load(a, Q, Ks, q0, b, items, pt, j);
+                rot.apply();
+            }
+            mbar_arrive(full + (s & 1));
+        }
+        return;
+    }
+
+    // ---------------------------------------------------------------- consumers
+    const int w = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, c4 = lane & 3;
+    const int r0 = w * 16;
+    const float c2 = a.scale * WLOG2E;
+    const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix of Q, V
+    const int acol = lane >> 4;
+    const int brow = (lane & 7) + (lane >> 4) * 8;        // ldmatrix of K
+    const int bcol = (lane >> 3) & 1;
+
+    for (int s = 0; s < steps; ++s) {
+        const int q0 = (t_a + s) * WQ;
+        const int row0 = q0 + r0;                         // the warp's first
+        mbar_wait(full + (s & 1), (unsigned)((s >> 1) & 1));
+        if (row0 < a.T) {
+            const bf16* Q = Qs + (s & 1) * WQ * DP;
+            uint32_t qf[KT][4];
+#pragma unroll
+            for (int kt = 0; kt < KT; ++kt)
+                ldmatrix_x4(qf[kt], Q + swz<DP>(r0 + arow, 2 * kt + acol));
+
+            const int ia = row0 + g, ib = ia + 8;
+            const int row_last = min(row0 + 15, a.T - 1);
+            const int j_lo = max(0, row0 - a.left);
+            const int j_hi = min(a.t_real, row_last + a.right + 1);
+            const int kt_lo = j_lo >> 4;
+            const int kt_hi = j_hi > j_lo ? (j_hi + 15) >> 4 : kt_lo;
+            const int blk0 = kt_lo >> 2, slot0 = blk0 % a.ring;
+            // the tiles of keys j0 .. j0 + 15 that all 16 rows see (j0 >=
+            // row0 + 15 - left, j0 + 16 <= row0 + right + 1 and t_real):
+            // kt_in_lo .. kt_in_hi - 1, walked without masks and without a
+            // branch between tiles; the edge tiles before and after them
+            const int kt_in_lo = min(max(kt_lo, (row0 + 15 - a.left + 15) >> 4),
+                                     kt_hi);
+            const int kt_in_hi = max(kt_in_lo, min(
+                kt_hi, min(row0 + a.right + 1, a.t_real) >> 4));
+
+            // the ring row of the tile of 16 keys at 16 kt
+            auto krow = [&](int kt) {
+                int sl = slot0 + (kt >> 2) - blk0;
+                sl -= sl >= a.ring ? a.ring : 0;
+                return sl * WQ + (kt & 3) * 16;
+            };
+            // sc[nt][e]: of keys 16 kt + 8 nt + 2 c4 (+ 1 for odd e), rows ia
+            // (e 0, 1) and ib (e 2, 3); raw q . k
+            auto scores = [&](int kr, float (&sc)[2][4]) {
+                uint32_t kb[KT][4];
+#pragma unroll
+                for (int kk = 0; kk < KT; ++kk)
+                    ldmatrix_x4(kb[kk], Ks + swz<DP>(kr + brow, 2 * kk + bcol));
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+                for (int kk = 0; kk < KT; ++kk) {
+                    mma16816(sc[0], qf[kk], kb[kk][0], kb[kk][1]);
+                    mma16816(sc[1], qf[kk], kb[kk][2], kb[kk][3]);
+                }
+            };
+            // the band at the edges: WNEG where masked; bit 4 nt + e set
+            // where visible
+            auto mask = [&](int kt, float (&sc)[2][4]) {
+                unsigned vis = 0;
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int j = kt * 16 + nt * 8 + 2 * c4 + (e & 1);
+                        const int d = j - (e < 2 ? ia : ib);
+                        const bool ok = d >= -a.left && d <= a.right
+                            && j < a.t_real;
+                        if (!ok) sc[nt][e] = WNEG;
+                        vis |= (unsigned)ok << (nt * 4 + e);
+                    }
+                return vis;
+            };
+
+            // pass 1: each row's max (of the raw scores) and sum
+            float m_a = WNEG, m_b = WNEG, l_a = 0.f, l_b = 0.f;
+            auto pass1 = [&](float (&sc)[2][4], unsigned vis) {
+                const float na = fmaxf(m_a, fmaxf(fmaxf(sc[0][0], sc[0][1]),
+                                                  fmaxf(sc[1][0], sc[1][1])));
+                const float nb = fmaxf(m_b, fmaxf(fmaxf(sc[0][2], sc[0][3]),
+                                                  fmaxf(sc[1][2], sc[1][3])));
+                const float ca = -c2 * na, cb = -c2 * nb;
+                float sa = 0.f, sb = 0.f;
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float x = ex2(fmaf(sc[nt][e], c2, e < 2 ? ca : cb));
+                        const float v = (vis >> (nt * 4 + e) & 1) ? x : 0.f;
+                        if (e < 2) sa += v; else sb += v;
+                    }
+                l_a = l_a * ex2((m_a - na) * c2) + sa;
+                l_b = l_b * ex2((m_b - nb) * c2) + sb;
+                m_a = na;
+                m_b = nb;
+            };
+#pragma unroll 1
+            for (int kt = kt_lo; kt < kt_in_lo; ++kt) {
+                float sc[2][4];
+                scores(krow(kt), sc);
+                pass1(sc, mask(kt, sc));
+            }
+#pragma unroll 2
+            for (int kt = kt_in_lo; kt < kt_in_hi; ++kt) {
+                float sc[2][4];
+                scores(krow(kt), sc);
+                pass1(sc, 0xffu);
+            }
+#pragma unroll 1
+            for (int kt = kt_in_hi; kt < kt_hi; ++kt) {
+                float sc[2][4];
+                scores(krow(kt), sc);
+                pass1(sc, mask(kt, sc));
+            }
+            // ... then over the four threads that share a row
+            float M_a = m_a, M_b = m_b;
+#pragma unroll
+            for (int d = 1; d <= 2; d <<= 1) {
+                M_a = fmaxf(M_a, __shfl_xor_sync(0xffffffffu, M_a, d));
+                M_b = fmaxf(M_b, __shfl_xor_sync(0xffffffffu, M_b, d));
+            }
+            l_a *= ex2((m_a - M_a) * c2);
+            l_b *= ex2((m_b - M_b) * c2);
+#pragma unroll
+            for (int d = 1; d <= 2; d <<= 1) {
+                l_a += __shfl_xor_sync(0xffffffffu, l_a, d);
+                l_b += __shfl_xor_sync(0xffffffffu, l_b, d);
+            }
+            const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+            const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+            // pass 2: p = bf16(exp(s - max) / sum), o += p . v
+            float o[2 * KT][4];
+#pragma unroll
+            for (int dt = 0; dt < 2 * KT; ++dt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+            const float cma = -c2 * M_a, cmb = -c2 * M_b;
+            auto pass2 = [&](int kr, float (&sc)[2][4], unsigned vis) {
+                float p[2][4];
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        p[nt][e] = (vis >> (nt * 4 + e) & 1)
+                            ? ex2(fmaf(sc[nt][e], c2, e < 2 ? cma : cmb))
+                                * (e < 2 ? inv_a : inv_b)
+                            : 0.f;
+                uint32_t pa[4];
+                pa[0] = pack2(p[0][0], p[0][1]);   // row ia, keys 2c, 2c + 1
+                pa[1] = pack2(p[0][2], p[0][3]);   // row ib
+                pa[2] = pack2(p[1][0], p[1][1]);   // row ia, keys 8 + 2c, ...
+                pa[3] = pack2(p[1][2], p[1][3]);   // row ib
+                uint32_t vb[KT][4];
+#pragma unroll
+                for (int dk = 0; dk < KT; ++dk)
+                    ldmatrix_x4_trans(vb[dk], Vs + swz<DP>(kr + arow, 2 * dk + acol));
+#pragma unroll
+                for (int dk = 0; dk < KT; ++dk) {
+                    mma16816(o[2 * dk], pa, vb[dk][0], vb[dk][1]);
+                    mma16816(o[2 * dk + 1], pa, vb[dk][2], vb[dk][3]);
+                }
+            };
+#pragma unroll 1
+            for (int kt = kt_lo; kt < kt_in_lo; ++kt) {
+                float sc[2][4];
+                const int kr = krow(kt);
+                scores(kr, sc);
+                pass2(kr, sc, mask(kt, sc));
+            }
+#pragma unroll 2
+            for (int kt = kt_in_lo; kt < kt_in_hi; ++kt) {
+                float sc[2][4];
+                const int kr = krow(kt);
+                scores(kr, sc);
+                pass2(kr, sc, 0xffu);
+            }
+#pragma unroll 1
+            for (int kt = kt_in_hi; kt < kt_hi; ++kt) {
+                float sc[2][4];
+                const int kr = krow(kt);
+                scores(kr, sc);
+                pass2(kr, sc, mask(kt, sc));
+            }
+
+            // the ring and q's tile are read: free them before the stores,
+            // whose completion the arrival (a release) would wait for
+            mbar_arrive(empty + (s & 1));
+            if (LSE && c4 == 0) {
+                float* lrow = a.lse + ((size_t)n * a.H + h) * a.T;
+                if (ia < a.T) lrow[ia] = l_a > 0.f ? M_a * a.scale + logf(l_a) : WNEG;
+                if (ib < a.T) lrow[ib] = l_b > 0.f ? M_b * a.scale + logf(l_b) : WNEG;
+            }
+            bf16* oa = a.out + (((size_t)n * a.T + ia) * a.H + h) * a.D;
+            bf16* ob = oa + (size_t)8 * a.H * a.D;
+#pragma unroll
+            for (int dt = 0; dt < 2 * KT; ++dt) {
+                const int d = dt * 8 + 2 * c4;
+                if (d < a.D) {
+                    if (ia < a.T)
+                        *reinterpret_cast<__nv_bfloat162*>(oa + d) =
+                            __floats2bfloat162_rn(o[dt][0], o[dt][1]);
+                    if (ib < a.T)
+                        *reinterpret_cast<__nv_bfloat162*>(ob + d) =
+                            __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+                }
+            }
+        } else {
+            mbar_arrive(empty + (s & 1));
+        }
+    }
+}
+
+template <int DP, bool LSE>
+int launch_window(const Window& a, int N, cudaStream_t stream)
+{
+    const size_t smem = window_smem(a.ring, DP);
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const long long grid = (long long)N * a.H * a.n_str;
+    if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const auto kernel = window_attention_kernel<DP, LSE>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, WNT, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <bool LSE>
+int dispatch_window(const Window& a, int N, cudaStream_t stream)
+{
+    if (a.D <= 32) return launch_window<32, LSE>(a, N, stream);
+    if (a.D <= 64) return launch_window<64, LSE>(a, N, stream);
+    return launch_window<128, LSE>(a, N, stream);
+}
+
+}  // namespace
+
+// Kernels K and H on a stretch plan (ops/attention_cuda.py: window_plan).
+// qkv [N, T, 3, H, D] and out [N, T, H, D] bf16, contiguous, at 16-byte
+// addresses; cos, sin [T, r2] f32 with r2 half the rotary dim; lse [N, H,
+// T] f32, or null for K. D a multiple of 8 up to 128, r2 a multiple of 8
+// with 2 r2 <= D, 0 <= left < 128, 0 <= right <= 128, 1 <= t_real <= T.
+// One CTA per `stretch` consecutive tiles of 64 queries of one (n, h), a
+// ring of `ring` blocks of 64 keys: at least ceil(left / 64) +
+// floor((63 + right) / 64) + 2.
+extern "C" int fused_rotary_window_attention_stretch(
+    const void* qkv, const void* cosp, const void* sinp, void* out, void* lse,
+    int N, int T, int H, int D, int r2, int left, int right, int t_real,
+    int stretch, int ring, void* stream)
+{
+    if (N < 1 || T < 1 || H < 1 || D < 8 || D > 128 || D % 8 || r2 < 8
+        || r2 % 8 || 2 * r2 > D || left < 0 || left >= 128 || right < 0
+        || right > 128 || t_real < 1 || t_real > T || stretch < 1)
+        return (int)cudaErrorInvalidValue;
+    Window a;
+    a.qkv = static_cast<const bf16*>(qkv);
+    a.cosp = static_cast<const float*>(cosp);
+    a.sinp = static_cast<const float*>(sinp);
+    a.out = static_cast<bf16*>(out);
+    a.lse = static_cast<float*>(lse);
+    a.T = T;
+    a.H = H;
+    a.D = D;
+    a.r2 = r2;
+    a.left = left;
+    a.right = right;
+    a.t_real = t_real;
+    a.n_qt = (T + WQ - 1) / WQ;
+    a.stretch = stretch;
+    a.n_str = (a.n_qt + stretch - 1) / stretch;
+    a.back = (left + WQ - 1) / WQ;
+    a.ahead = (WQ - 1 + right) / WQ;
+    a.ring = ring;
+    if (ring < a.back + a.ahead + 2) return (int)cudaErrorInvalidValue;
+    a.scale = (float)(1.0 / sqrt((double)D));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return lse ? dispatch_window<true>(a, N, s) : dispatch_window<false>(a, N, s);
+}

@@ -15,6 +15,17 @@ normalises before the second product, so kernel and plain version do too
 (two passes over the scores, no online softmax): they then differ by the
 order of f32 sums and the last bit of exp only.
 
+On the card K runs, where ``window_plan`` gives a plan (bf16 and any
+window and head K takes), the stretch kernel of ``csrc/attention_window.cu``:
+one CTA walks a stretch of consecutive 64-query tiles of one (n, h) and
+stages each key row once into a ring in shared memory, producer warps
+copying (cp.async) and rotating the next tile's rows while consumer warps
+compute the current one. The plan is pure Python: the stretch, the ring
+and the CTAs, from the shape and the card's SMs. Where it is None (f32)
+the earlier kernel of ``csrc/attention.cu`` runs, one block per 64-query
+tile; ``fused_rotary_window_attention_old_kernel`` runs that one whatever
+the plan, for comparisons. Both count one launch per call.
+
 H and O, ``fused_rotary_window_attention_train`` and
 ``fused_rotary_window_attention_bwd``, replace ``attention_pallas.py:
 fused_rotary_window_attention_train`` (``_fused_fwd_kernel_dt``,
@@ -64,6 +75,78 @@ SLAB = 1 << 28     # score entries a plain version holds at a time
 def _window_fits(window):
     left, right = window
     return 0 <= left < BLOCK and 0 <= right <= BLOCK
+
+
+# kernel K's stretch kernel (csrc/attention_window.cu)
+WINDOW_TILE = 64        # queries a tile, keys a block of the ring (WQ)
+WINDOW_WARPS = 6        # 4 consumer warps of 16 query rows, 2 producers
+WINDOW_HEAD_DIMS = (32, 64, 128)  # the instances: D is zero-padded up
+SMEM_LIMIT = 232448     # 227 KB, the most a block may ask for
+SM_SMEM = 233472        # 228 KB an SM; each resident block reserves 1 KB
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def window_smem(ring, head_dim):
+    """Shared memory of one CTA of the stretch kernel: the ring's k and v
+    blocks, two tiles of q (bf16 rows of the padded head dim) and four
+    mbarriers."""
+    return (2 * ring + 2) * WINDOW_TILE * head_dim * 2 + 32
+
+
+def window_plan(N, T, H, D, window, dtype, sms):
+    """The stretch kernel's plan for qkv [N, T, 3, H, D] of ``dtype`` and
+    a band ``window`` = (left, right) on a card of ``sms`` SMs, or None
+    where the kernel does not take the shape (f32; a head or window beyond
+    what K takes): then K and H run the earlier kernel.
+
+    Tile t of 64 queries sees the key blocks t - back .. t + ahead (back =
+    ceil(left / 64), ahead = floor((63 + right) / 64)); the ring holds two
+    more, so the producers fill a tile's new block while the consumers
+    read the tile before. One CTA walks ``stretch`` consecutive tiles of
+    one (n, h): its first tile stages the leading window, each later tile
+    one block. The stretch is the one whose waves of CTAs (``resident`` a
+    SM) cost least, counting a tile's work as one and a stretch's first
+    tile as two; the longest among equals."""
+    left, right = (int(w) for w in window)
+    if (dtype != torch.bfloat16 or D % 8 or not 8 <= D <= MAX_D
+            or not _window_fits(window) or min(N, T, H, sms) < 1):
+        return None
+    head_dim = next(p for p in WINDOW_HEAD_DIMS if p >= D)
+    back = _cdiv(left, WINDOW_TILE)
+    ahead = (WINDOW_TILE - 1 + right) // WINDOW_TILE
+    ring = back + ahead + 2
+    smem = window_smem(ring, head_dim)
+    if smem > SMEM_LIMIT:
+        return None
+    # the kernel asks for two CTAs an SM at a head dim up to 64, one above
+    resident = min(2 if head_dim <= 64 else 1, SM_SMEM // (smem + 1024))
+    n_tiles = _cdiv(T, WINDOW_TILE)
+    slots = sms * resident
+    best = None
+    for stretch in range(1, n_tiles + 1):
+        ctas = N * H * _cdiv(n_tiles, stretch)
+        cost = _cdiv(ctas, slots) * (stretch + 1)
+        if best is None or cost <= best[0]:
+            best = (cost, stretch, ctas)
+    _, stretch, ctas = best
+    if ctas > 2 ** 31 - 1:
+        return None
+    return {"tile": WINDOW_TILE, "stretch": stretch,
+            "stretches": _cdiv(n_tiles, stretch), "tiles": n_tiles,
+            "ctas": ctas, "waves": _cdiv(ctas, slots), "resident": resident,
+            "ring": ring, "back": back, "ahead": ahead,
+            "head_dim": head_dim, "warps": WINDOW_WARPS, "smem": smem}
+
+
+def window_entry(plan, with_lse):
+    """The C entry that K (H, ``with_lse``) launches for ``plan``."""
+    if plan is not None:
+        return "fused_rotary_window_attention_stretch"
+    return ("fused_rotary_window_attention_lse" if with_lse
+            else "fused_rotary_window_attention")
 
 
 def fused_supported(qkv, window, rotary_dim):
@@ -284,45 +367,72 @@ def _check_fused(name, qkv, cos, sin, window, t_real):
     return rotary_dim, t_real
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _fused_forward(name, counter, qkv, cos, sin, window, t_real, with_lse):
+    """K's (H's, ``with_lse``) checks and launch: the stretch kernel on the
+    plan ``window_plan`` gives, the earlier kernel where it gives None or
+    where ``counter`` is None (the comparisons' route, which counts
+    nothing). Returns (out, lse or None)."""
+    build.refuse_grad(name, [qkv], FUSED_GRAD_ROUTE)
+    rotary_dim, t_real = _check_fused(name, qkv, cos, sin, window, t_real)
+    N, T, _, H, D = qkv.shape
+    out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty(N, H, T, dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
+    plan = None
+    if counter is not None:
+        plan = window_plan(N, T, H, D, window, qkv.dtype, _sms(qkv.device))
+        counter.plan = plan
+        counter.launches += 1
+    entry = window_entry(plan, with_lse)
+    args = [qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr()]
+    if with_lse or plan is not None:
+        args.append(lse.data_ptr() if with_lse else None)
+    args += [N, T, H, D, rotary_dim // 2, int(window[0]), int(window[1]),
+             t_real]
+    args += ([plan["stretch"], plan["ring"]] if plan is not None
+             else [int(qkv.dtype == torch.float32)])
+    build.check(getattr(build.library(), entry)(*args, build.stream_of(qkv)),
+                entry)
+    return out, lse
+
+
 def fused_rotary_window_attention(qkv, cos, sin, window, t_real=None):
     """``fused_rotary_window_attention_plain``'s function: the plain
     version for a CPU tensor, kernel K for a CUDA tensor (bf16 or f32;
-    shapes as ``fused_supported`` says)."""
+    shapes as ``fused_supported`` says): the stretch kernel on
+    ``window_plan``'s plan (recorded in ``.plan``), else the earlier
+    kernel."""
     if qkv.device.type == "cpu":
         return fused_rotary_window_attention_plain(qkv, cos, sin, window,
                                                    t_real)
-    build.refuse_grad("K", [qkv], FUSED_GRAD_ROUTE)
-    rotary_dim, t_real = _check_fused("K", qkv, cos, sin, window, t_real)
-    N, T, _, H, D = qkv.shape
-    out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
-    fused_rotary_window_attention.launches += 1
-    build.check(build.library().fused_rotary_window_attention(
-        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), N, T,
-        H, D, rotary_dim // 2, int(window[0]), int(window[1]), t_real,
-        int(qkv.dtype == torch.float32), build.stream_of(qkv)),
-        "fused_rotary_window_attention")
-    return out
+    return _fused_forward("K", fused_rotary_window_attention, qkv, cos, sin,
+                          window, t_real, False)[0]
 
 
 def fused_rotary_window_attention_train(qkv, cos, sin, window, t_real=None):
     """``fused_rotary_window_attention_train_plain``'s function, (o, lse):
     the plain version for a CPU tensor, kernel H for a CUDA tensor (as K
-    takes it)."""
+    takes it, on K's route)."""
     if qkv.device.type == "cpu":
         return fused_rotary_window_attention_train_plain(qkv, cos, sin,
                                                          window, t_real)
-    build.refuse_grad("H", [qkv], FUSED_GRAD_ROUTE)
-    rotary_dim, t_real = _check_fused("H", qkv, cos, sin, window, t_real)
-    N, T, _, H, D = qkv.shape
-    out = torch.empty(N, T, H, D, dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty(N, H, T, dtype=torch.float32, device=qkv.device)
-    fused_rotary_window_attention_train.launches += 1
-    build.check(build.library().fused_rotary_window_attention_lse(
-        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), N, T, H, D, rotary_dim // 2, int(window[0]),
-        int(window[1]), t_real, int(qkv.dtype == torch.float32),
-        build.stream_of(qkv)), "fused_rotary_window_attention_lse")
-    return out, lse
+    return _fused_forward("H", fused_rotary_window_attention_train, qkv, cos,
+                          sin, window, t_real, True)
+
+
+def fused_rotary_window_attention_old_kernel(qkv, cos, sin, window,
+                                             t_real=None, with_lse=False):
+    """K's (H's, ``with_lse``: (o, lse)) earlier kernel, one block per
+    64-query tile, whatever the plan (CUDA tensors only): the route where
+    ``window_plan`` gives None, and what chip_smoke.py and the card tests
+    hold the stretch kernel against. It counts no launch."""
+    out, lse = _fused_forward("H" if with_lse else "K", None, qkv, cos, sin,
+                              window, t_real, with_lse)
+    return (out, lse) if with_lse else out
 
 
 def fused_rotary_window_attention_bwd(qkv, cos, sin, lse, o, do, window,
@@ -395,5 +505,7 @@ def local_attention(q, k, v, window):
 
 fused_rotary_window_attention.launches = 0
 fused_rotary_window_attention_train.launches = 0
+fused_rotary_window_attention.plan = None  # the last call's (None: earlier)
+fused_rotary_window_attention_train.plan = None
 fused_rotary_window_attention_bwd.launches = 0
 local_attention.launches = 0

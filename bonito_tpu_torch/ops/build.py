@@ -91,6 +91,10 @@ SIGNATURES = {
     # stream
     "fused_rotary_window_attention_lse": [P, P, P, P, P, I, I, I, I, I, I, I,
                                           I, I, P],
+    # qkv, cos, sin, out, lse (or null), N, T, H, D, r2, left, right, t_real,
+    # stretch, ring, stream
+    "fused_rotary_window_attention_stretch": [P, P, P, P, P, I, I, I, I, I,
+                                              I, I, I, I, I, P],
     # qkv, cos, sin, lse, o, dout, dqkv, N, T, H, D, r2, left, right, t_real,
     # is_f32, stream
     "fused_rotary_window_attention_bwd": [P, P, P, P, P, P, P, I, I, I, I, I,

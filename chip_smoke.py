@@ -21,7 +21,9 @@ PyTorch built for CUDA. In order, it:
     without a bias) and the fused-head decode G + J (the fast head, and a small head with two
     upsample phases, tanh, a scale and a bias); at sup widths (N=128,
     T=1000 and 1024, 8 heads of 64, window (127, 128)) the fused rotary +
-    banded attention K in bf16 (and once with a partial rotary_dim), the
+    banded attention K in bf16 (and once with a partial rotary_dim) on its
+    stretch kernel (``window_plan`` gives a plan at each) and at T=1000 on
+    its earlier kernel beside it (H's o there equal to its K's), the
     banded attention L in f32 and bf16 (its tensor-core instance) and, in
     bf16, on what the shallow
     transformer below hands it (N=32, 8 heads of 40, q and k out of
@@ -76,10 +78,12 @@ PyTorch built for CUDA. In order, it:
  7. prints samples/s, the device step and peak memory of the hac bf16,
     int8, reverse and beam paths, the fast path, the sup path and the two
     fused paths (beside the TCN route's device step on the same batch)
-    beside the card's name and power;
+    beside the card's name and power, and the sup and sup_fused device
+    steps with K on its earlier kernel;
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function (and, for comparison, A's, D's and E's
-    step kernels at hac widths beside their persistent kernels, L in bf16 at sup widths
+    step kernels at hac widths beside their persistent kernels, K's earlier
+    kernel beside its stretch kernel, L in bf16 at sup widths
     beside scaled_dot_product_attention, the routes that
     F, G and J take the place of at fast widths, B and C at sup shapes and
     the parts of one sup layer; M and Q at fast shapes, and the reverse
@@ -94,7 +98,7 @@ PyTorch built for CUDA. In order, it:
     with its launch counts, held against the same path on the plain
     versions, with its loss, time, train-loss samples/s and peak memory;
     then U to Z alone against their plain versions at hac, fast and sup
-    training shapes, with their times and bounds;
+    training shapes, with their times and bounds at each;
 10. runs the LSTM-CRF train step: R and S (the LSTM recurrence of a train
     step and its backward through time) against their plain versions at
     hac and fast training shapes (N 128; T 1000, H 1024 and T 1200, H 96),
@@ -124,12 +128,15 @@ PyTorch built for CUDA. In order, it:
     norms, every parameter moved (the convolutions and each wqkv among
     them), and one step's gradients through the kernels against the same
     through the plain versions; its time, sup train samples/s and peak
-    memory; one epoch of ``python -m bonito_tpu_torch train --config
+    memory, and the same step's time with H on its earlier kernel; one
+    epoch of ``python -m bonito_tpu_torch train --config
     dna_r10.4.1_e8.2_400bps_sup@v5.0`` on a generated npy set (2 batches of
     32 x 12288, one validation batch: P, 18 x K, U, Y, B, C); and H's and
     O's times, plain times and bounds beside rotary + scaled_dot_product_
-    attention with the band as a mask, forward and backward. It prints one
-    ``kernels`` JSON line with all twenty-five kernels.
+    attention with the band as a mask, forward and backward (H's earlier
+    kernel beside it). It prints one ``kernels`` JSON line with all
+    twenty-five kernels (K's and H's with their plans and their earlier
+    kernel's time).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -362,6 +369,7 @@ def ptxas_summary(report):
                              r"lstm_train_(?:fwd|bwd)_step|"
                              r"lstm_fused_bf16_kernel|"
                              r"fused_rotary_window_attention_kernel|"
+                             r"window_attention_kernel|"
                              r"local_attention_(?:tc|f32)_kernel|"
                              r"relayout_transpose|relayout_gather|"
                              r"(?:logz|lattice)_(?:fwd|bwd)_kernel|"
@@ -374,7 +382,12 @@ def ptxas_summary(report):
             bptt = re.search(r"bptt_persistentILi(\d+)ELi(\d+)EE",
                              m.group(1))
             tiles = re.search(r"kernelILi(\d+)ELi(\d+)EE", m.group(1))
-            if padded and name.startswith("lstm"):
+            window = re.search(r"window_attention_kernelILi(\d+)ELb(\d)EE",
+                               m.group(1))
+            if window:
+                name = (f"{name}<bf16, head dim up to {window.group(1)}, "
+                        f"lse={window.group(2)}>")
+            elif padded and name.startswith("lstm"):
                 train = ", R's stores" if padded.group(2) == "1" else ""
                 name = f"{name}<rows={16 * int(padded.group(1))}{train}>"
             elif bptt:
@@ -591,6 +604,22 @@ def hold_full(torch, decode_full_cuda, scores, **q):
     return fwd, out, h
 
 
+def full_decode_bounds(scores):
+    """The bounds of M and Q on full scores [N, T, 5S]: M reads the scores
+    and writes move-in f32, choices, c, logZ and the end state; Q reads
+    them, as C a quarter of move-in, one choice per frame (the
+    traceback's), c, logZ and the end state, and writes three [N, T]
+    planes; about 25 f32 operations per state and frame (one more exp than
+    B and C, the stay plane's)."""
+    N, T, S5 = scores.shape
+    S = S5 // 5
+    n_in = scores.numel() * scores.element_size()
+    ops = 25 * N * T * S
+    return (bound(n_in + N * T * S * 5 + N * T * 4 + N * 8, ops, H100_F32_OPS),
+            bound(n_in + N * T * (S // 4) * 4 + N * T * 5 + N * 8 + 3 * N * T,
+                  ops, H100_F32_OPS))
+
+
 def random_full_scores(torch, dev, n, t, s):
     """bf16 full scores [n, t, 5 s] drawn on the card from SEED + 9: a stay
     plane that is not constant. The same draw for the same shape, so phase 8
@@ -760,7 +789,9 @@ def bf16_step(x):
 def check_attention(torch, attention_cuda, transformer, dev):
     """Kernels K and L against their plain versions at sup widths: K in
     bf16 at T = 1000 (the shipped chunk) and 1024, full and partial
-    rotary_dim; L on the strided [N, H, T, D] views of a packed qkv in f32
+    rotary_dim, on its stretch kernel (a plan at each), and K's earlier
+    kernel at the shipped chunk beside it (the same tolerance; H's o on it
+    equal to its K's); L on the strided [N, H, T, D] views of a packed qkv in f32
     and bf16, and on what the shallow transformer's layers hand it (32 rows,
     8 heads of 40, bf16: q and k from apply_rotary, v a view of the packed
     qkv). Tolerances: ATTN_* above."""
@@ -772,25 +803,45 @@ def check_attention(torch, attention_cuda, transformer, dev):
         qkv = torch.randn(SN, T, 3, SH, SD, generator=g).to(dev, torch.bfloat16)
         cos, sin = rotary_freqs(T, r, device=dev)
         out = attention_cuda.fused_rotary_window_attention(qkv, cos, sin, SWIN)
+        plan = attention_cuda.fused_rotary_window_attention.plan
         torch.cuda.synchronize()
         ref = attention_cuda.fused_rotary_window_attention_plain(
             qkv, cos, sin, SWIN)
-        diff = (out.float() - ref.float()).abs()
-        err, mean = diff.max().item(), diff.mean().item()
         top = ref.float().abs().max().item()
-        log(f"  kernel K T={T} rotary_dim={r}: max |o - plain| {err:.3g}, "
-            f"mean {mean:.3g} at max |o| {top:.3g} (tolerance "
-            f"{bf16_step(top):.3g}, one bf16 step there / {ATTN_MEAN_TOL}); "
-            f"std of o {out.float().std().item():.3f}")
-        require(torch.isfinite(out.float()).all().item()
-                and out.float().std().item() > 0.01,
-                "kernel K: o is not finite or does not vary")
-        require(err <= bf16_step(top) and mean <= ATTN_MEAN_TOL,
-                f"kernel K disagrees with its plain version: max {err}, "
-                f"mean {mean}")
-        errs["K"] = max(errs["K"], err)
+        routes = [("K", out)]
         if (T, r) == (ST, SD):
             kept["K"] = (qkv, cos, sin)
+            old, lse_old = (attention_cuda.
+                            fused_rotary_window_attention_old_kernel(
+                                qkv, cos, sin, SWIN, with_lse=True))
+            k_old = attention_cuda.fused_rotary_window_attention_old_kernel(
+                qkv, cos, sin, SWIN)
+            torch.cuda.synchronize()
+            routes.append(("K's earlier kernel", k_old))
+            require(torch.equal(old, k_old), "the earlier kernel: H's o is "
+                                             "not K's")
+            diff = (out.float() - k_old.float()).abs().max().item()
+            log(f"  kernel K T={T}: the stretch kernel against the earlier "
+                f"kernel: max |diff| {diff:.3g}; H's o on the earlier kernel "
+                f"equals its K's")
+            del old, lse_old, k_old
+        for name, o in routes:
+            diff = (o.float() - ref.float()).abs()
+            err, mean = diff.max().item(), diff.mean().item()
+            log(f"  {name} T={T} rotary_dim={r}: max |o - plain| {err:.3g}, "
+                f"mean {mean:.3g} at max |o| {top:.3g} (tolerance "
+                f"{bf16_step(top):.3g}, one bf16 step there / "
+                f"{ATTN_MEAN_TOL}); std of o {o.float().std().item():.3f}"
+                + (f"; plan {plan}" if name == "K" else ""))
+            require(torch.isfinite(o.float()).all().item()
+                    and o.float().std().item() > 0.01,
+                    f"{name}: o is not finite or does not vary")
+            require(err <= bf16_step(top) and mean <= ATTN_MEAN_TOL,
+                    f"{name} disagrees with its plain version: max {err}, "
+                    f"mean {mean}")
+            if name == "K":
+                errs["K"] = max(errs["K"], err)
+        require(plan is not None, f"kernel K took its earlier kernel at T={T}")
     for T, dtype, own in ((ST, torch.float32, False),
                           (1024, torch.float32, False),
                           (ST, torch.bfloat16, False),
@@ -942,6 +993,22 @@ def device_step(np, model, reads, make_compute_fn, chunk, **kw):
     prepared = compute.prepare(np.concatenate(chunks)[:bc["batchsize"]])
     ms = cuda_ms(lambda: compute.fetch(compute.dispatch(prepared)), reps=3)
     return prepared, ms
+
+
+class earlier_attention_kernel:
+    """K and H on their earlier kernel at every shape, for the comparisons
+    of phases 7 and 11: ``window_plan`` swapped for a rule that gives no
+    plan. The launch counts count as on the stretch kernel."""
+
+    def __init__(self, attention_cuda):
+        self.mod = attention_cuda
+
+    def __enter__(self):
+        self.rule = self.mod.window_plan
+        self.mod.window_plan = lambda *shape: None
+
+    def __exit__(self, *exc):
+        self.mod.window_plan = self.rule
 
 
 def moves_kernels_vs_plain(torch, model, x):
@@ -1314,12 +1381,16 @@ def train_loss_phase(torch, hac, counters, dev):
         del inputs
         for key, r in res.items():
             loss_more.setdefault(key, {})[f"{shape}_shape_ms"] = r["ms"]
+            loss_more[key][f"{shape}_shape_bound_ms"] = bound(
+                r["bytes"], r["ops"], H100_F32_OPS)[0]
             loss_more[key][f"{shape}_shape_max_abs_err"] = r["err"]
             require(r["ok"], f"kernel {key} at {shape} training shapes "
                              f"disagrees with its plain version")
         log(f"  at {shape} training shapes (N {N_}, T {T_}, S {S_}, L "
-            f"{L_}): " + ", ".join(f"{k} {r['ms']:.4g} ms (max |diff| "
-                                  f"{r['err']:.3g})" for k, r in res.items()))
+            f"{L_}): " + ", ".join(
+                f"{k} {r['ms']:.4g} ms (bound "
+                f"{loss_more[k][shape + '_shape_bound_ms']:.4g}, max |diff| "
+                f"{r['err']:.3g})" for k, r in res.items()))
     for key, r in loss_k.items():
         require(r["ok"], f"kernel {key} at hac training shapes disagrees "
                          f"with its plain version")
@@ -1980,6 +2051,18 @@ def sup_train_phase(torch, counters, dev):
             and res["step"]["loss_diff"] <= TRAIN_LOSS_TOL,
             "sup train step: the kernels' gradients disagree with the plain "
             "versions'")
+    # the same step with H on its earlier kernel (O unchanged)
+    with earlier_attention_kernel(attention_cuda):
+        step(batch, 1.0, 2.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            step(batch, 1.0, 2.0)
+        torch.cuda.synchronize()
+    res["step"]["old_kernel_ms"] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    log(f"  the same step with H on its earlier kernel: "
+        f"{res['step']['old_kernel_ms']:.4g} ms per step (the stretch "
+        f"kernel's {res['step']['ms']:.4g})")
     del model, step, grads_k, grads_p, batch
     torch.cuda.empty_cache()
     res["cli"] = train_cli(
@@ -1997,6 +2080,9 @@ def sup_train_phase(torch, counters, dev):
     fwd = attention_cuda.fused_rotary_window_attention_train
     bwd = attention_cuda.fused_rotary_window_attention_bwd
     ms = {"H": cuda_ms(lambda: fwd(qkv, cos, sin, SWIN), reps=10),
+          "H_old": cuda_ms(lambda: attention_cuda.
+                           fused_rotary_window_attention_old_kernel(
+                               qkv, cos, sin, SWIN, with_lse=True), reps=10),
           "O": cuda_ms(lambda: bwd(qkv, cos, sin, lse, o, do, SWIN),
                        reps=10),
           "H_plain": cuda_ms(lambda: attention_cuda.
@@ -2041,8 +2127,11 @@ def sup_train_phase(torch, counters, dev):
                          + 3 * plane, 5 * 2 * pairs * SD, H100_BF16_OPS,
                          10 * pairs)}
     res["ms"], res["bounds"], res["lib_err"] = ms, bounds, lib_err
+    res["plan"] = fwd.plan
     log(f"  at the step's shapes (N {N_}, T {T_}, bf16): H {ms['H']:.4g} ms "
-        f"(plain {ms['H_plain']:.4g}, bound {bounds['H'][0]:.4g} by "
+        f"on the stretch kernel (plan {fwd.plan}; the earlier kernel "
+        f"{ms['H_old']:.4g}; "
+        f"plain {ms['H_plain']:.4g}, bound {bounds['H'][0]:.4g} by "
         f"{bounds['H'][1]}), O {ms['O']:.4g} ms (plain {ms['O_plain']:.4g}, "
         f"bound {bounds['O'][0]:.4g} by {bounds['O'][1]}); rotary + "
         f"scaled_dot_product_attention with the band as a mask: forward "
@@ -2387,6 +2476,9 @@ def main():
     # the kernels' moves: identical, as in phase 3)
     prepared, step_sup = device_step(np, models["sup"], fast_reads,
                                      make_compute_fn, chunk)
+    with earlier_attention_kernel(attention_cuda):
+        _, step_sup_old = device_step(np, models["sup"], fast_reads,
+                                      make_compute_fn, chunk)
     _, x_wire, sig_scale = prepared
     sup = models["sup"]
     q = dict(qscale=1.05, qbias=1.3)
@@ -2515,6 +2607,11 @@ def main():
         model = models[src]
         prepared, fused_steps[name] = device_step(
             np, model, rds, make_compute_fn, chunk, head_route="fused")
+        if src == "sup":
+            with earlier_attention_kernel(attention_cuda):
+                _, fused_steps[name + "_old"] = device_step(
+                    np, model, rds, make_compute_fn, chunk,
+                    head_route="fused")
         _, x_wire, sig_scale = prepared
         with torch.inference_mode():
             xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
@@ -2571,6 +2668,10 @@ def main():
             f"{per_batch / step * 1e3:.6g} samples/s")
     log(f"  fast with head_route='tcn' (head matmul + B + C in place of G + "
         f"J): device step {step_fast_tcn:.4g} ms per batch")
+    log(f"  sup with K's earlier kernel in place of the stretch kernel: "
+        f"device step {step_sup_old:.4g} ms per batch (the stretch kernel's "
+        f"{step_sup:.4g}); sup_fused {fused_steps['sup_fused_old']:.4g} ms "
+        f"({fused_steps['sup_fused']:.4g})")
     for name, tcn_name, tcn_step in (("hac_fused", "int8", step_int8),
                                      ("sup_fused", "sup", step_sup)):
         run, step = runs[name], fused_steps[name]
@@ -2685,15 +2786,7 @@ def main():
         full_scores, *full_fwd), reps=1, warmup=0)
     sd = models["int8"].seqdist
     ms_rc = cuda_ms(lambda: sd.reverse_complement(full_scores), reps=3)
-    score_bytes = N * T * 5 * S * 2
-    # M: scores in; move-in f32, choices, c, logZ and end state out; one
-    # more exp per state and frame than B (the stay plane's)
-    bound_m = bound(score_bytes + N * T * S * 5 + N * T * 4 + N * 8,
-                    25 * N * T * S, H100_F32_OPS)
-    # Q: scores in; as for C a quarter of move-in, one choice per frame, c,
-    # logZ, end state; three [N, T] planes out
-    bound_q = bound(score_bytes + N * T * R * 4 + N * T * 5 + N * 8
-                    + 3 * N * T, 25 * N * T * S, H100_F32_OPS)
+    bound_m, bound_q = full_decode_bounds(full_scores)
     log(f"  M {ms_m:.4g} ms, Q {ms_q:.4g} ms on bf16 scores [{N}, {T}, "
         f"{5 * S}] (B {ms_b:.4g}, C {ms_c:.4g} on the [{N}, {T}, {4 * S}] "
         f"moves); reverse_complement of those scores {ms_rc:.4g} ms")
@@ -2757,6 +2850,7 @@ def main():
     fwd_full_fast = decode_full_cuda.full_forward(full_fast)
     ms_q_fast = cuda_ms(lambda: decode_full_cuda.full_backward(
         full_fast, *fwd_full_fast), reps=3)
+    bound_m_fast, bound_q_fast = full_decode_bounds(full_fast)
     log(f"  G {ms_g:.4g} ms + J {ms_j:.4g} ms vs the TCN route at these "
         f"widths: head matmul + clamp {ms_head_fast:.4g} ms + B "
         f"{ms_b_fast:.4g} ms + C {ms_c_fast:.4g} ms; M {ms_m_fast:.4g} ms + Q "
@@ -2767,6 +2861,10 @@ def main():
     qkv_s, cos_s, sin_s = attn_args["K"]
     ms_k = cuda_ms(lambda: attention_cuda.fused_rotary_window_attention(
         qkv_s, cos_s, sin_s, SWIN), reps=10)
+    plan_k = attention_cuda.fused_rotary_window_attention.plan
+    ms_k_old = cuda_ms(
+        lambda: attention_cuda.fused_rotary_window_attention_old_kernel(
+            qkv_s, cos_s, sin_s, SWIN), reps=10)
     plain_k = cuda_ms(
         lambda: attention_cuda.fused_rotary_window_attention_plain(
             qkv_s, cos_s, sin_s, SWIN), reps=1, warmup=0)
@@ -2810,7 +2908,9 @@ def main():
     require(lib_err_l <= 2e-2, f"the library yardstick for L computes another "
                                f"function: {lib_err_l}")
     del ref_l
-    log(f"  K {ms_k:.4g} ms vs rotary passes + scaled_dot_product_attention "
+    log(f"  K {ms_k:.4g} ms on the stretch kernel (plan {plan_k}), "
+        f"{ms_k_old:.4g} ms on the earlier kernel, vs rotary passes + "
+        f"scaled_dot_product_attention "
         f"with the band as a mask {lib_k:.4g} ms (the attention call alone "
         f"{lib_k_sdpa:.4g} ms; max |K - library| {lib_err:.3g}); L on the "
         f"shallow transformer's call (N={D40_N}, H={D40_H}, D={D40_D}, bf16) "
@@ -2861,6 +2961,7 @@ def main():
     sup_rc_fwd = decode_full_cuda.full_forward(sup_rc)
     ms_q_sup = cuda_ms(lambda: decode_full_cuda.full_backward(
         sup_rc, *sup_rc_fwd), reps=3)
+    bound_m_sup, bound_q_sup = full_decode_bounds(sup_rc)
     del sup_rc, sup_rc_fwd
     log(f"  B {ms_b_sup:.4g} ms, C {ms_c_sup:.4g} ms at sup shapes (bounds "
         f"{bound_b_sup[0]:.4g} and {bound_c_sup[0]:.4g} ms by bytes); M "
@@ -2993,6 +3094,7 @@ def main():
     sup_train = sup_train_phase(torch, counters, dev)
 
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
+    src_window = "bonito_tpu_torch/csrc/attention_window.cu"  # K's, H's
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
     src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
     src_full = "bonito_tpu_torch/csrc/decode_full.cu"
@@ -3026,7 +3128,7 @@ def main():
         ("decode_fused_bwd", "J", "fast", src_fused,
          "bonito_tpu/ops/decode_pallas.py:413", err_j, ms_j, plain_j, bound_j,
          None),
-        ("fused_rotary_window_attention", "K", "sup", src_attn,
+        ("fused_rotary_window_attention", "K", "sup", src_window,
          "bonito_tpu/ops/attention_pallas.py:106", err_attn["K"], ms_k,
          plain_k, bound_k, lib_k),
         ("local_attention", "L", "sup_d40", src_attn,
@@ -3058,12 +3160,24 @@ def main():
                   "sup_shape_bound_ms": bound_b_sup[0]},
             "C": {"sup_shape_ms": ms_c_sup,
                   "sup_shape_bound_ms": bound_c_sup[0]},
-            "M": {"fast_shape_ms": ms_m_fast, "sup_shape_ms": ms_m_sup},
+            "M": {"fast_shape_ms": ms_m_fast,
+                  "fast_shape_bound_ms": bound_m_fast[0],
+                  "sup_shape_ms": ms_m_sup,
+                  "sup_shape_bound_ms": bound_m_sup[0]},
             **{k: {"sup_shape_ms": wide["sup"][k],
                    "sup_shape_plain_ms": wide["sup"][f"{k}_plain"],
                    "sup_shape_bound_ms": wide["sup"][f"{k}_bound"][0],
                    "tcn_route_ms": tcn_route} for k in ("GW", "JW")},
-            "Q": {"fast_shape_ms": ms_q_fast, "sup_shape_ms": ms_q_sup},
+            "K": {"plan": plan_k, "old_kernel_ms": ms_k_old,
+                  "sup_device_step_ms": step_sup,
+                  "sup_device_step_old_kernel_ms": step_sup_old,
+                  "sup_fused_device_step_ms": fused_steps["sup_fused"],
+                  "sup_fused_device_step_old_kernel_ms":
+                      fused_steps["sup_fused_old"]},
+            "Q": {"fast_shape_ms": ms_q_fast,
+                  "fast_shape_bound_ms": bound_q_fast[0],
+                  "sup_shape_ms": ms_q_sup,
+                  "sup_shape_bound_ms": bound_q_sup[0]},
             "L": {"sup_f32": {
                 "max_abs_err": err_attn["L sup f32"], "ms": ms_l32,
                 "plain_ms": plain_l32, "bound_ms": bound_l32[0],
@@ -3159,23 +3273,29 @@ def main():
             f"{b_hac[key][1]}), {n} launches per hac train step")
     # H and O: launches on the sup train step (per step); times, bounds and
     # the library yardstick at its shapes
-    for name, key, rep, err in (
-            ("fused_rotary_window_attention_train_fwd", "H",
+    for name, key, src, rep, err in (
+            ("fused_rotary_window_attention_train_fwd", "H", src_window,
              "bonito_tpu/ops/attention_pallas.py:264",
              max(sup_train["errs"]["o"], sup_train["errs"]["lse"])),
-            ("fused_rotary_window_attention_train_bwd", "O",
+            ("fused_rotary_window_attention_train_bwd", "O", src_attn,
              "bonito_tpu/ops/attention_pallas.py:298",
              sup_train["errs"]["dqkv"])):
         n = sup_train["step"]["launches"][key] // TRAIN_STEPS
         b = sup_train["bounds"][key]
         kernels.append({
-            "name": name, "route": "cuda", "source": src_attn,
+            "name": name, "route": "cuda", "source": src,
             "replaces": rep, "launches": n, "max_abs_err": err,
             "ms": sup_train["ms"][key],
             "plain_ms": sup_train["ms"][f"{key}_plain"], "bound_ms": b[0],
             "bound_by": b[1], "library_ms": sup_train["ms"][f"{key}_library"],
             "by_path": {"sup_train_step": n,
-                        "sup_train_cli": sup_train["cli"]["launches"][key]}})
+                        "sup_train_cli": sup_train["cli"]["launches"][key]},
+            **({"plan": sup_train["plan"],
+                "old_kernel_ms": sup_train["ms"]["H_old"],
+                "sup_train_step_ms": sup_train["step"]["ms"],
+                "sup_train_step_old_kernel_ms":
+                    sup_train["step"]["old_kernel_ms"]} if key == "H"
+               else {})})
         log(f"  {name}: {sup_train['ms'][key]:.4g} ms (plain "
             f"{sup_train['ms'][key + '_plain']:.4g} ms, bound {b[0]:.4g} ms by "
             f"{b[1]}), {n} launches per sup train step")

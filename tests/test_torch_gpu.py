@@ -496,7 +496,8 @@ def _freqs(T, r, device):
     (2, 100, 3, 40, 32, (5, 0), 77, torch.float32),
     (1, 1, 1, 16, 16, (127, 128), None, torch.bfloat16),
     (16, 1000, 8, 64, 64, (127, 128), None, torch.bfloat16),  # sup widths
-    (16, 1024, 8, 64, 64, (127, 128), 1000, torch.bfloat16)])
+    (16, 1024, 8, 64, 64, (127, 128), 1000, torch.bfloat16),
+    (4, 1000, 8, 64, 32, (127, 128), 937, torch.bfloat16)])
 def test_fused_attention_kernel_matches_plain(cuda, N, T, H, D, r, window,
                                               t_real, dtype):
     """Kernel K: the same bf16 operands and the same rounding points as
@@ -520,6 +521,87 @@ def test_fused_attention_kernel_matches_plain(cuda, N, T, H, D, r, window,
     diff = (out.float() - ref.float()).abs()
     step = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
     assert diff.max().item() <= step and diff.mean().item() <= 1e-5
+
+
+# bf16 shapes that K and H take on the stretch kernel: sup inference and
+# training widths, ragged T, t_real < T, heads of 16 to 128, small windows
+WINDOW_CASES = [
+    (2, 64, 2, 64, 64, (127, 128), None),
+    (3, 200, 4, 16, 16, (63, 64), None),
+    (2, 300, 2, 32, 16, (100, 20), 250),
+    (2, 257, 1, 128, 64, (127, 128), None),
+    (2, 100, 3, 40, 32, (5, 0), 77),
+    (2, 130, 2, 24, 16, (0, 128), None),
+    (1, 1, 1, 16, 16, (127, 128), None),
+    (16, 1000, 8, 64, 64, (127, 128), None),
+    (8, 1024, 8, 64, 32, (127, 128), 1000),
+    (4, 1000, 8, 64, 64, (127, 128), 937)]
+
+
+@pytest.mark.parametrize("N,T,H,D,r,window,t_real", WINDOW_CASES)
+def test_window_kernel_matches_the_earlier_kernel(cuda, N, T, H, D, r,
+                                                  window, t_real):
+    """K and H take the stretch kernel at these shapes (a plan), and it
+    computes the earlier kernel's function: each within one bf16 step of
+    the largest output of the plain version, so the two within two; H's o
+    equals K's bit for bit on both routes, and the lse of the two routes
+    within 16 f32 steps of its largest magnitude."""
+    g = torch.Generator().manual_seed(N + T + D + r + 1)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, torch.bfloat16)
+    cos, sin = _freqs(T, r, cuda)
+    k_new = attention_cuda.fused_rotary_window_attention(qkv, cos, sin,
+                                                         window, t_real)
+    assert attention_cuda.fused_rotary_window_attention.plan is not None
+    o_new, lse_new = attention_cuda.fused_rotary_window_attention_train(
+        qkv, cos, sin, window, t_real)
+    assert attention_cuda.fused_rotary_window_attention_train.plan is not None
+    old = attention_cuda.fused_rotary_window_attention_old_kernel
+    k_old = old(qkv, cos, sin, window, t_real)
+    o_old, lse_old = old(qkv, cos, sin, window, t_real, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o_new, k_new) and torch.equal(o_old, k_old)
+    ref = attention_cuda.fused_rotary_window_attention_plain(
+        qkv, cos, sin, window, t_real).float()
+    step = 2.0 ** (np.floor(np.log2(max(ref.abs().max().item(), 1e-30))) - 7)
+    assert (k_new.float() - k_old.float()).abs().max().item() <= 2 * step
+    assert (k_new.float() - ref).abs().max().item() <= step
+    top = lse_old.abs().max().item()
+    assert (lse_new - lse_old).abs().max().item() <= 16 * 2.0 ** (
+        np.floor(np.log2(top)) - 23)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("N,T,H,D,r,window,t_real", [
+    (3, 1000, 2, 64, 64, (127, 128), 937),
+    (2, 700, 2, 32, 16, (100, 20), None),
+    (2, 520, 1, 128, 64, (0, 128), None)])
+def test_window_kernel_does_not_depend_on_the_stretch(cuda, N, T, H, D, r,
+                                                      window, t_real,
+                                                      with_lse):
+    """The stretch kernel's C entry at stretches of 1 tile (every tile
+    stages its own window), 3 and all of T (the ring wraps round): each
+    tile computes the same bits whatever its CTA walked before it."""
+    from bonito_tpu_torch.ops import build
+    g = torch.Generator().manual_seed(T + D)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, torch.bfloat16)
+    cos, sin = _freqs(T, r, cuda)
+    plan = attention_cuda.window_plan(N, T, H, D, window, torch.bfloat16,
+                                      torch.cuda.get_device_properties(
+                                          cuda).multi_processor_count)
+    outs = []
+    for stretch in (1, 3, -(-T // 64)):
+        out = torch.empty(N, T, H, D, dtype=torch.bfloat16, device=cuda)
+        lse = torch.empty(N, H, T, device=cuda) if with_lse else None
+        build.check(build.library().fused_rotary_window_attention_stretch(
+            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, N, T, H, D, r // 2,
+            window[0], window[1], t_real or T, stretch, plan["ring"],
+            torch.cuda.current_stream().cuda_stream), "stretch")
+        outs.append((out, lse))
+    torch.cuda.synchronize()
+    for out, lse in outs[1:]:
+        assert torch.equal(out, outs[0][0])
+        assert not with_lse or torch.equal(lse, outs[0][1])
 
 
 @pytest.mark.parametrize("N,T,H,D,window,dtype", [
@@ -941,7 +1023,8 @@ def test_lstm_train_kernels_reject_what_they_do_not_take(cuda):
     (1, 1, 1, 16, 16, (127, 128), None, torch.bfloat16),
     (8, 1000, 8, 64, 64, (127, 128), None, torch.bfloat16),  # sup training
     (8, 1024, 8, 64, 64, (127, 128), 1000, torch.float32),
-    (8, 1024, 8, 64, 32, (127, 128), None, torch.bfloat16)])
+    (8, 1024, 8, 64, 32, (127, 128), None, torch.bfloat16),
+    (4, 1000, 8, 64, 64, (127, 128), 937, torch.bfloat16)])
 def test_fused_train_kernels_match_plain(cuda, N, T, H, D, r, window, t_real,
                                          dtype):
     """Kernels H and O against their plain versions on the same inputs

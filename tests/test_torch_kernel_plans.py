@@ -1,9 +1,11 @@
-"""The pure-Python shape rules of kernels A, R, S, L, D and E
+"""The pure-Python shape rules of kernels A, R, S, L, D, E, K and H
 (``ops.lstm_cuda.persistent_plan``, ``ops.lstm_train_cuda.forward_plan``
 and ``backward_plan``, ``ops.attention_cuda.padded_head_dim``,
-``ops.lstm_int8_cuda.persistent_plan``): what each launch asks of the
-card, that A's, S's, D's and E's CTAs cover every row, unit and gate
-column once, and the head dim L's bf16 instance runs at. Each is what the
+``ops.lstm_int8_cuda.persistent_plan``, ``ops.attention_cuda.
+window_plan``): what each launch asks of the card, that A's, S's, D's and
+E's CTAs cover every row, unit and gate column once, that K's stretches
+cover every query tile once with its band in the ring, and the head dim
+L's bf16 instance runs at. Each is what the
 wrapper passes to its kernel. They run here, on the CPU; the kernels
 themselves, and L's tiling, which is fixed in the kernel, only on the card
 (tests/test_torch_gpu.py)."""
@@ -390,3 +392,148 @@ def test_int8_plan_follows_the_card():
 def test_int8_plan_rejects_what_d_and_e_do_not_take(N, C, H, fused):
     with pytest.raises(ValueError, match="multiples of 16"):
         lstm_int8_cuda.persistent_plan(N, C, H, SMS, fused=fused)
+
+
+# ---------------------------------------------------------------------------
+# kernels K and H: the stretch kernel's plan
+# ---------------------------------------------------------------------------
+
+SUP_WINDOW = (127, 128)
+# (N, T, H, D, window, t_real): sup inference (N 128, T 1000, 8 heads of
+# 64), sup training (N 32, T 1024 and 1000, t_real 1000), heads of 32 and
+# 128, the GPU tests' shapes (ragged T, small windows, one token)
+K_SHAPES = [(128, 1000, 8, 64, SUP_WINDOW, None),
+            (32, 1024, 8, 64, SUP_WINDOW, None),
+            (32, 1000, 8, 64, SUP_WINDOW, None),
+            (32, 1024, 8, 64, SUP_WINDOW, 1000),
+            (16, 1000, 8, 64, SUP_WINDOW, None),
+            (8, 1024, 8, 64, SUP_WINDOW, 1000),
+            (32, 1024, 8, 32, SUP_WINDOW, None),
+            (32, 1024, 8, 128, SUP_WINDOW, None),
+            (2, 257, 1, 128, SUP_WINDOW, None),
+            (3, 200, 4, 16, (63, 64), None),
+            (2, 300, 2, 32, (100, 20), 250),
+            (2, 100, 3, 40, (5, 0), 77),
+            (2, 130, 2, 24, (0, 128), None),
+            (1, 1, 1, 16, SUP_WINDOW, None)]
+
+
+def _plan(N, T, H, D, window, sms=SMS):
+    return attention_cuda.window_plan(N, T, H, D, window, torch.bfloat16, sms)
+
+
+def _stretch_steps(plan, t_a, T, t_real):
+    """What the kernel's producers stage for the stretch from tile t_a, as
+    ``csrc/attention_window.cu`` computes it: for each step, the tile and
+    the key blocks it adds (the leading window first, then one block)."""
+    n_tiles = -(-T // 64)
+    nb = -(-t_real // 64)
+    steps = min(plan["stretch"], n_tiles - t_a)
+    for s in range(steps):
+        t = t_a + s
+        lo = max(t - plan["back"] if s == 0 else t + plan["ahead"], 0)
+        yield t, range(lo, min(t + plan["ahead"], nb - 1) + 1)
+
+
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_plan_fits_the_card(N, T, H, D, window, t_real):
+    plan = _plan(N, T, H, D, window)
+    assert plan is not None
+    assert plan["smem"] == attention_cuda.window_smem(plan["ring"],
+                                                      plan["head_dim"])
+    assert plan["smem"] <= SMEM
+    assert plan["resident"] * (plan["smem"] + 1024) <= attention_cuda.SM_SMEM
+    assert D <= plan["head_dim"] in (32, 64, 128)
+    left, right = window
+    assert plan["back"] == -(-left // 64)
+    assert plan["ahead"] == (63 + right) // 64
+    assert plan["ring"] == plan["back"] + plan["ahead"] + 2 <= 6
+    assert plan["ctas"] == N * H * plan["stretches"]
+    assert plan["stretches"] == -(-plan["tiles"] // plan["stretch"])
+    assert plan["waves"] == -(-plan["ctas"] // (SMS * plan["resident"]))
+
+
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_plan_covers_every_tile_once(N, T, H, D, window, t_real):
+    """Each (n, h)'s stretches (one CTA each, as the kernel numbers them)
+    cover its query tiles 0 .. ceil(T / 64) - 1 exactly once."""
+    plan = _plan(N, T, H, D, window)
+    n_tiles = -(-T // 64)
+    seen = [0] * n_tiles
+    for st in range(plan["stretches"]):
+        for t, _ in _stretch_steps(plan, st * plan["stretch"], T,
+                                   t_real or T):
+            seen[t] += 1
+    assert seen == [1] * n_tiles
+
+
+@pytest.mark.parametrize("rotary_dim", [None, "half"])
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_plan_keeps_each_band_in_the_ring(N, T, H, D, window, t_real,
+                                                 rotary_dim):
+    """Walk every stretch as the kernel does: when tile t is computed,
+    every key of its band (-left <= j - i <= right, j < t_real) is in the
+    ring (its block staged and not overwritten since), and a block the
+    producers stage overwrites nothing that the tile before (which the
+    consumers may still read) or a later one needs. The rotary dim (all of
+    D or half of it) changes nothing of the plan."""
+    left, right = window
+    t_real = t_real or T
+    plan = _plan(N, T, H, D, window)
+    assert plan == _plan(N, T, H, D, window)  # rotary_dim is not an input
+    ring = plan["ring"]
+    for st in range(plan["stretches"]):
+        slots = [None] * ring  # the block each slot holds
+        steps = list(_stretch_steps(plan, st * plan["stretch"], T, t_real))
+        for s, (t, blocks) in enumerate(steps):
+            for b in blocks:
+                old = slots[b % ring]
+                # the consumers of tiles t - 1 and later must not need it
+                if old is not None:
+                    assert old + plan["back"] < t - 1, (t, b, old)
+                slots[b % ring] = b
+            for i in range(t * 64, min(t * 64 + 64, T)):
+                for j in range(max(0, i - left), min(t_real, i + right + 1)):
+                    assert slots[(j // 64) % ring] == j // 64, (t, i, j)
+
+
+def test_window_plan_at_sup():
+    """sup inference: a CTA per (n, h) walks all 16 tiles, two CTAs an SM,
+    1024 CTAs in four waves; a ring of six blocks of 64 keys."""
+    plan = _plan(128, 1000, 8, 64, SUP_WINDOW)
+    assert (plan["stretch"], plan["ctas"], plan["resident"], plan["waves"],
+            plan["ring"], plan["smem"]) == (16, 1024, 2, 4, 6, 114720)
+
+
+def test_window_plan_follows_the_card():
+    """sup training's 256 (n, h) pairs fill an H100's 264 slots in one
+    wave of whole stretches; twice the SMs take half stretches, half the
+    SMs keep them whole over two waves."""
+    assert _plan(32, 1024, 8, 64, SUP_WINDOW)["stretch"] == 16
+    wide = _plan(32, 1024, 8, 64, SUP_WINDOW, sms=264)
+    assert (wide["stretch"], wide["ctas"], wide["waves"]) == (8, 512, 1)
+    narrow = _plan(32, 1024, 8, 64, SUP_WINDOW, sms=66)
+    assert (narrow["stretch"], narrow["waves"]) == (16, 2)
+
+
+@pytest.mark.parametrize("dtype,D,window", [
+    (torch.float32, 64, SUP_WINDOW),   # f32: the earlier kernel
+    (torch.float16, 64, SUP_WINDOW),
+    (torch.bfloat16, 136, SUP_WINDOW),  # beyond the widest head K takes
+    (torch.bfloat16, 60, SUP_WINDOW),
+    (torch.bfloat16, 64, (128, 128)),   # beyond the band K takes
+    (torch.bfloat16, 64, (127, 129))])
+def test_window_plan_sends_the_rest_to_the_earlier_kernel(dtype, D, window):
+    """No plan for f32 (and none for a dtype, head or window K does not
+    take at all, which the wrapper's checks refuse first): the wrapper then
+    launches the earlier kernel's entry (K's, or H's with lse), by the
+    shape rule alone."""
+    plan = attention_cuda.window_plan(128, 1000, 8, D, window, dtype, SMS)
+    assert plan is None
+    assert attention_cuda.window_entry(plan, False) == \
+        "fused_rotary_window_attention"
+    assert attention_cuda.window_entry(plan, True) == \
+        "fused_rotary_window_attention_lse"
+    assert attention_cuda.window_entry(_plan(128, 1000, 8, 64, SUP_WINDOW),
+                                       True) == \
+        "fused_rotary_window_attention_stretch"
