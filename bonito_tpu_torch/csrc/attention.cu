@@ -107,7 +107,13 @@
 // O moves 270 MB (0.08 ms) against five band products, 43 GFLOP (0.04 ms):
 // bytes, both.
 //
-// Design of O. The TPU kernel runs one program per row and carries dk and dv
+// Design of O. On the card, bf16 O runs the stretch kernel of
+// csrc/attention_window_bwd.cu wherever ops/attention_cuda.py:
+// window_bwd_plan gives a plan: the same split as below, with each CTA
+// walking a stretch of tiles and staging each row of its window once into
+// a ring (that file says how). The kernel below is the earlier design, kept
+// for f32 input and as the stretch kernel's yardstick.
+// The TPU kernel runs one program per row and carries dk and dv
 // in scratch across its query blocks, in order; CUDA blocks run in no order,
 // so O splits the work by what each block writes, with no atomics and a
 // fixed order of every sum: one launch, two kinds of block of 4 warps per
@@ -124,9 +130,7 @@
 // partner d + r/2 sit in the same thread. About 113 KB of shared memory at
 // D = 64: two blocks an SM.
 //
-// Later work: O's key and query windows staged once per stretch, as the
-// stretch kernel stages K's, and its products on wgmma; the stretch kernel's
-// products on wgmma.
+// Later work: the stretch kernels' products (K's, H's and O's) on wgmma.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -61,18 +61,9 @@
 // row so that ldmatrix and the copies hit distinct banks without padding:
 // 112 KB at D 64 and the sup window, two CTAs an SM.
 
-#include "lstm_persistent.cuh"
+#include "attention_window.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr float WNEG = -1e30f;      // a masked score
-constexpr int WQ = 64;              // queries a tile, keys a ring block
-constexpr int WCW = 4;              // consumer warps: 16 query rows each
-constexpr int WPW = 2;              // producer warps
-constexpr int WNT = (WCW + WPW) * 32;
-constexpr float WLOG2E = 1.4426950408889634f;
 
 struct Window {
     const bf16* qkv;
@@ -88,144 +79,6 @@ struct Window {
 __host__ __device__ inline size_t window_smem(int ring, int dp) {
     return (size_t)(2 * ring + 2) * WQ * dp * sizeof(bf16) + 4 * sizeof(uint64_t);
 }
-
-// element offset of chunk c (8 values) of `row` in a tile of rows of DP
-// values: the chunks of a row are XOR-swizzled by the row, so that the 8 rows
-// of an ldmatrix at one chunk lie in distinct banks
-template <int DP>
-__device__ __forceinline__ int swz(int row, int c) {
-    constexpr int CH = DP / 8;
-    const int x = CH >= 8 ? (row & 7) : ((row >> 1) & 3);
-    return row * DP + ((c ^ x) << 3);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// a register-only product: not volatile, so the compiler may interleave it
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1)
-{
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// rotate 8 elements of a row (ra, at lo) and their partners r2 further on
-// (rb, at hi) by the tables' cs and sn, in f32 with every product and sum
-// rounded on its own (as the plain version and the earlier kernel's
-// rotary_chunk), and store both
-__device__ __forceinline__ void rotate8(bf16* lo, bf16* hi, const uint4& ra,
-                                        const uint4& rb, const float4 (&cs)[2],
-                                        const float4 (&sn)[2]) {
-    const float c[8] = {cs[0].x, cs[0].y, cs[0].z, cs[0].w,
-                        cs[1].x, cs[1].y, cs[1].z, cs[1].w};
-    const float s[8] = {sn[0].x, sn[0].y, sn[0].z, sn[0].w,
-                        sn[1].x, sn[1].y, sn[1].z, sn[1].w};
-    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ra);
-    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&rb);
-    uint32_t o1[4], o2[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 a = __bfloat1622float2(ha[i]);
-        const float2 b = __bfloat1622float2(hb[i]);
-        const float ca = c[2 * i], cb = c[2 * i + 1];
-        const float sa = s[2 * i], sb = s[2 * i + 1];
-        o1[i] = pack2(__fsub_rn(__fmul_rn(a.x, ca), __fmul_rn(b.x, sa)),
-                      __fsub_rn(__fmul_rn(a.y, cb), __fmul_rn(b.y, sb)));
-        o2[i] = pack2(__fadd_rn(__fmul_rn(b.x, ca), __fmul_rn(a.x, sa)),
-                      __fadd_rn(__fmul_rn(b.y, cb), __fmul_rn(a.y, sb)));
-    }
-    *reinterpret_cast<uint4*>(lo) = make_uint4(o1[0], o1[1], o1[2], o1[3]);
-    *reinterpret_cast<uint4*>(hi) = make_uint4(o2[0], o2[1], o2[2], o2[3]);
-}
-
-__device__ __forceinline__ void zero16(bf16* p) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// the rotary of a step's rows, in place: q's tile (tokens q0 .. q0 + 63,
-// those below T) and the new key blocks b_lo, b_lo + 1, ... (those below
-// t_real), by thread i of NT, RB chunk pairs a thread a batch: load() issues
-// a batch's table loads, apply() rotates it, so that a batch's loads can be
-// in flight while the copies land
-template <int DP, int NT>
-struct Rotary {
-    static constexpr int RB = 4, CH2 = DP / 16;  // CH2: the most pairs a row
-    static constexpr int TILE = WQ * CH2;        // items a tile of rows
-    float4 cs[RB][2], sn[RB][2];
-    bf16* lo[RB];
-    bf16* hi[RB];
-    bool on[RB];
-
-    static __device__ __forceinline__ int batches(int items) {
-        return (items + NT * RB - 1) / (NT * RB);
-    }
-
-    __device__ __forceinline__ void load(const Window& a, bf16* Q, bf16* Ks,
-                                         int q0, int b_lo, int items, int i,
-                                         int j) {
-        const int rch = a.r2 / 8;
-#pragma unroll
-        for (int k = 0; k < RB; ++k) {
-            const int e = i + (j * RB + k) * NT;
-            on[k] = false;
-            if (e < items) {
-                const int part = e / TILE, rem = e % TILE;
-                const int r = rem / CH2, c = rem % CH2;
-                bf16* tile = Q;
-                int tok = q0 + r, live = a.T;
-                if (part > 0) {
-                    const int b = b_lo + part - 1;
-                    tile = Ks + (b % a.ring) * WQ * DP;
-                    tok = b * WQ + r;
-                    live = a.t_real;
-                }
-                on[k] = c < rch && tok < live;
-                if (on[k]) {
-                    lo[k] = tile + swz<DP>(r, c);
-                    hi[k] = tile + swz<DP>(r, c + rch);
-                    const size_t t = (size_t)tok * a.r2 + c * 8;
-                    const float4* cp = reinterpret_cast<const float4*>(a.cosp + t);
-                    const float4* sp = reinterpret_cast<const float4*>(a.sinp + t);
-                    cs[k][0] = __ldg(cp);
-                    cs[k][1] = __ldg(cp + 1);
-                    sn[k][0] = __ldg(sp);
-                    sn[k][1] = __ldg(sp + 1);
-                }
-            }
-        }
-    }
-
-    __device__ __forceinline__ void apply() {
-        uint4 ra[RB], rb[RB];
-#pragma unroll
-        for (int k = 0; k < RB; ++k)
-            if (on[k]) {
-                ra[k] = *reinterpret_cast<const uint4*>(lo[k]);
-                rb[k] = *reinterpret_cast<const uint4*>(hi[k]);
-            }
-#pragma unroll
-        for (int k = 0; k < RB; ++k)
-            if (on[k]) rotate8(lo[k], hi[k], ra[k], rb[k], cs[k], sn[k]);
-    }
-};
 
 // a step's copies, by thread i of n: q's tile of rows q0 .. q0 + 63 and the
 // k and v rows of key blocks b_lo .. b_hi, 16 bytes each by cp.async; zeros
@@ -306,6 +159,7 @@ window_attention_kernel(const Window a)
     __syncthreads();
 
     const int nb = (a.t_real + WQ - 1) / WQ;   // blocks with a visible key
+    const RotView rv = {a.cosp, a.sinp, a.r2, a.ring, a.T, a.t_real};
     // the stretch's first tile, by all the warps: q's rows and the leading
     // window (blocks t_a - back .. t_a + ahead), copied and rotated before
     // the warps take their roles; the producers' arrival completes its phase
@@ -314,15 +168,10 @@ window_attention_kernel(const Window a)
         const int items = Rotary<DP, WNT>::TILE * (1 + max(b_hi - b_lo + 1, 0));
         stage<DP>(a, base, Qs, Ks, Vs, t_a * WQ, b_lo, b_hi, tid, WNT);
         cp_async_commit();
-        Rotary<DP, WNT> rot;
-        rot.load(a, Qs, Ks, t_a * WQ, b_lo, items, tid, 0);
-        cp_async_wait(0);
-        __syncthreads();
-        rot.apply();
-        for (int j = 1; j < Rotary<DP, WNT>::batches(items); ++j) {
-            rot.load(a, Qs, Ks, t_a * WQ, b_lo, items, tid, j);
-            rot.apply();
-        }
+        Rotary<DP, WNT>().run(rv, Qs, Ks, t_a * WQ, b_lo, items, tid, [] {
+            cp_async_wait(0);
+            __syncthreads();
+        });
         __syncthreads();
     }
 
@@ -343,15 +192,10 @@ window_attention_kernel(const Window a)
             cp_async_commit();
             // the rotary, once a row, in place; the first batch's tables load
             // while the copies land
-            Rotary<DP, PT> rot;
-            rot.load(a, Q, Ks, q0, b, items, pt, 0);
-            cp_async_wait(0);
-            asm volatile("bar.sync 1, %0;\n" :: "n"(PT) : "memory");
-            rot.apply();
-            for (int j = 1; j < Rotary<DP, PT>::batches(items); ++j) {
-                rot.load(a, Q, Ks, q0, b, items, pt, j);
-                rot.apply();
-            }
+            Rotary<DP, PT>().run(rv, Q, Ks, q0, b, items, pt, [] {
+                cp_async_wait(0);
+                asm volatile("bar.sync 1, %0;\n" :: "n"(PT) : "memory");
+            });
             mbar_arrive(full + (s & 1));
         }
         return;

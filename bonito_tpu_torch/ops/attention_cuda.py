@@ -34,7 +34,13 @@ query's log-sum-exp (lse [N, H, T] f32; its o is K's bit for bit), O the
 flash-style backward from qkv, lse, o and the cotangent to dqkv, rotary's
 inverse included, rounding where the TPU kernel rounds (``csrc/attention.cu``
 lists the points). ``ops.attention.fused_attention_train`` is the autograd
-Function around them, 18 + 18 launches per sup train step.
+Function around them, 18 + 18 launches per sup train step. On the card O
+runs, where ``window_bwd_plan`` gives a plan (bf16, the shapes K takes), the
+stretch kernel of ``csrc/attention_window_bwd.cu``: CTAs of two kinds, one
+walking query tiles with a ring of key blocks (dq), the other key tiles with
+a ring of query blocks (dk, dv), after a row pass that gathers each query's
+lse and Di; ``fused_rotary_window_attention_bwd_old_kernel`` runs the
+earlier kernel of ``csrc/attention.cu`` whatever the plan, for comparisons.
 
 L, ``local_attention``, replaces ``attention_pallas.py:
 local_attention_pallas`` (``_kernel``), the banded attention of the
@@ -61,6 +67,7 @@ says how the kernels are laid out and what bounds them.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -139,6 +146,99 @@ def window_plan(N, T, H, D, window, dtype, sms):
             "ctas": ctas, "waves": _cdiv(ctas, slots), "resident": resident,
             "ring": ring, "back": back, "ahead": ahead,
             "head_dim": head_dim, "warps": WINDOW_WARPS, "smem": smem}
+
+
+# kernel O's stretch kernel (csrc/attention_window_bwd.cu): products a
+# visible pair in a tile of each kind (s, dp and dq; s, dp and dk, then s
+# again and dv)
+WINDOW_BWD_TILE_COST = {"dk": 5, "dq": 3}
+
+
+def window_bwd_smem(ring, head_dim):
+    """Shared memory of one CTA of O's stretch kernel: the ring's two kinds
+    of rows (k and v, or q and do), the tile's two (q and do, or k and v)
+    and six mbarriers."""
+    return (2 * ring + 2) * WINDOW_TILE * head_dim * 2 + 48
+
+
+def _makespan(runs, slots):
+    """When the last CTA ends, CTAs of the (count, cost) ``runs`` starting
+    in launch order, each on the first of ``slots`` slots to come free."""
+    free = {0: slots}  # the time a slot comes free -> slots
+    for count, cost in runs:
+        while count > 0:
+            at = min(free)
+            k = min(free[at], count)
+            free[at] -= k
+            if not free[at]:
+                del free[at]
+            free[at + cost] = free.get(at + cost, 0) + k
+            count -= k
+    return max(free)
+
+
+@functools.lru_cache(maxsize=64)
+def window_bwd_plan(N, T, H, D, window, dtype, sms):
+    """O's stretch kernel's plan for qkv [N, T, 3, H, D] of ``dtype`` and
+    a band ``window`` = (left, right) on a card of ``sms`` SMs, or None
+    where the kernel does not take the shape (f32; a head or window beyond
+    what K takes): then O runs the earlier kernel.
+
+    One launch holds two kinds of CTA, the dk kind first: a dq CTA walks
+    ``stretch`` consecutive 64-query tiles of one (n, h) with a ring of key
+    blocks, tile t seeing blocks t - back .. t + ahead (back =
+    ceil(left / 64), ahead = ceil(right / 64)); a dk CTA walks 64-key tiles
+    with a ring of query blocks over the mirrored band (back and ahead
+    swapped). Both rings hold back + ahead + 2 blocks. Each kind's CTAs
+    come in order of their stretch (every (n, h)'s first, then every
+    second, ...). The stretch is the one whose CTAs, each starting in that
+    order on the first of the card's slots (``resident`` a SM) to come
+    free, end soonest, a tile of each kind costing its products a pair
+    (``WINDOW_BWD_TILE_COST``) and a stretch's first tile twice that; the
+    longest among equals. Cached (``window`` a tuple): the search takes
+    longer on the host than the kernel on the card at sup training, and
+    every layer of a step asks for the same plan; callers read the dict it
+    returns and do not change it."""
+    left, right = (int(w) for w in window)
+    if (dtype != torch.bfloat16 or D % 8 or not 8 <= D <= MAX_D
+            or not _window_fits(window) or min(N, T, H, sms) < 1):
+        return None
+    head_dim = next(p for p in WINDOW_HEAD_DIMS if p >= D)
+    wl, wr = _cdiv(left, WINDOW_TILE), _cdiv(right, WINDOW_TILE)
+    ring = wl + wr + 2
+    smem = window_bwd_smem(ring, head_dim)
+    if smem > SMEM_LIMIT:
+        return None
+    resident = min(2 if head_dim <= 64 else 1, SM_SMEM // (smem + 1024))
+    n_tiles = _cdiv(T, WINDOW_TILE)
+    slots = sms * resident
+    best = None
+    for stretch in range(1, n_tiles + 1):
+        n_str = _cdiv(n_tiles, stretch)
+        last = n_tiles - (n_str - 1) * stretch
+        runs = []
+        for kind in ("dk", "dq"):
+            w = WINDOW_BWD_TILE_COST[kind]
+            runs += [(N * H * (n_str - 1), w * (stretch + 1)),
+                     (N * H, w * (last + 1))]
+        cost = _makespan(runs, slots)
+        if best is None or cost <= best[0]:
+            best = (cost, stretch, n_str)
+    _, stretch, n_str = best
+    ctas = 2 * N * H * n_str
+    if ctas > 2 ** 31 - 1:
+        return None
+    return {"tile": WINDOW_TILE, "stretch": stretch, "stretches": n_str,
+            "tiles": n_tiles, "ctas": ctas, "waves": _cdiv(ctas, slots),
+            "resident": resident, "ring": ring,
+            "dq": {"back": wl, "ahead": wr}, "dk": {"back": wr, "ahead": wl},
+            "head_dim": head_dim, "warps": WINDOW_WARPS, "smem": smem}
+
+
+def window_bwd_entry(plan):
+    """The C entry that O launches for ``plan``."""
+    return ("fused_rotary_window_attention_bwd_stretch" if plan is not None
+            else "fused_rotary_window_attention_bwd")
 
 
 def window_entry(plan, with_lse):
@@ -435,14 +535,11 @@ def fused_rotary_window_attention_old_kernel(qkv, cos, sin, window,
     return (out, lse) if with_lse else out
 
 
-def fused_rotary_window_attention_bwd(qkv, cos, sin, lse, o, do, window,
-                                      t_real=None):
-    """``fused_rotary_window_attention_bwd_plain``'s function: the plain
-    version for CPU tensors, kernel O for CUDA tensors (qkv, o and do of one
-    type, contiguous; lse [N, H, T] f32 as H wrote it)."""
-    if qkv.device.type == "cpu":
-        return fused_rotary_window_attention_bwd_plain(qkv, cos, sin, lse, o,
-                                                       do, window, t_real)
+def _fused_backward(counter, qkv, cos, sin, lse, o, do, window, t_real):
+    """O's checks and launch: the stretch kernel on the plan
+    ``window_bwd_plan`` gives, the earlier kernel where it gives None or
+    where ``counter`` is None (the comparisons' route, which counts
+    nothing)."""
     build.refuse_grad("O", [qkv, o, do], FUSED_GRAD_ROUTE)
     rotary_dim, t_real = _check_fused("O", qkv, cos, sin, window, t_real)
     _check_types("O", [qkv, o, do])
@@ -456,14 +553,50 @@ def fused_rotary_window_attention_bwd(qkv, cos, sin, lse, o, do, window,
             f"f32 for qkv {tuple(qkv.shape)}")
     _check_packed("O", o=o, do=do, lse=lse)
     dqkv = torch.empty_like(qkv)
-    fused_rotary_window_attention_bwd.launches += 1
-    build.check(build.library().fused_rotary_window_attention_bwd(
-        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), lse.data_ptr(),
-        o.data_ptr(), do.data_ptr(), dqkv.data_ptr(), N, T, H, D,
-        rotary_dim // 2, int(window[0]), int(window[1]), t_real,
-        int(qkv.dtype == torch.float32), build.stream_of(qkv)),
-        "fused_rotary_window_attention_bwd")
+    plan = None
+    if counter is not None:
+        plan = window_bwd_plan(N, T, H, D, tuple(window), qkv.dtype,
+                               _sms(qkv.device))
+        counter.plan = plan
+        counter.launches += 1
+    entry = window_bwd_entry(plan)
+    args = [qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), lse.data_ptr(),
+            o.data_ptr(), do.data_ptr()]
+    if plan is not None:
+        # each query's (lse, Di), padded to whole tiles: the row pass's
+        rows = torch.empty(N, H, plan["tiles"] * WINDOW_TILE, 2,
+                           dtype=torch.float32, device=qkv.device)
+        args.append(rows.data_ptr())
+    args += [dqkv.data_ptr(), N, T, H, D, rotary_dim // 2, int(window[0]),
+             int(window[1]), t_real]
+    args += ([plan["stretch"], plan["ring"]] if plan is not None
+             else [int(qkv.dtype == torch.float32)])
+    build.check(getattr(build.library(), entry)(*args, build.stream_of(qkv)),
+                entry)
     return dqkv
+
+
+def fused_rotary_window_attention_bwd(qkv, cos, sin, lse, o, do, window,
+                                      t_real=None):
+    """``fused_rotary_window_attention_bwd_plain``'s function: the plain
+    version for CPU tensors, kernel O for CUDA tensors (qkv, o and do of one
+    type, contiguous; lse [N, H, T] f32 as H wrote it): the stretch kernel
+    on ``window_bwd_plan``'s plan (recorded in ``.plan``), else the earlier
+    kernel."""
+    if qkv.device.type == "cpu":
+        return fused_rotary_window_attention_bwd_plain(qkv, cos, sin, lse, o,
+                                                       do, window, t_real)
+    return _fused_backward(fused_rotary_window_attention_bwd, qkv, cos, sin,
+                           lse, o, do, window, t_real)
+
+
+def fused_rotary_window_attention_bwd_old_kernel(qkv, cos, sin, lse, o, do,
+                                                 window, t_real=None):
+    """O's earlier kernel, one block per 64-token tile and kind, whatever
+    the plan (CUDA tensors only): the route where ``window_bwd_plan`` gives
+    None, and what chip_smoke.py and the card tests hold the stretch kernel
+    against. It counts no launch."""
+    return _fused_backward(None, qkv, cos, sin, lse, o, do, window, t_real)
 
 
 def local_attention(q, k, v, window):
@@ -508,4 +641,5 @@ fused_rotary_window_attention_train.launches = 0
 fused_rotary_window_attention.plan = None  # the last call's (None: earlier)
 fused_rotary_window_attention_train.plan = None
 fused_rotary_window_attention_bwd.launches = 0
+fused_rotary_window_attention_bwd.plan = None
 local_attention.launches = 0

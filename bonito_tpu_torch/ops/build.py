@@ -99,6 +99,11 @@ SIGNATURES = {
     # is_f32, stream
     "fused_rotary_window_attention_bwd": [P, P, P, P, P, P, P, I, I, I, I, I,
                                           I, I, I, I, P],
+    # qkv, cos, sin, lse, o, dout, rows, dqkv, N, T, H, D, r2, left, right,
+    # t_real, stretch, ring, stream
+    "fused_rotary_window_attention_bwd_stretch": [P, P, P, P, P, P, P, P, I,
+                                                  I, I, I, I, I, I, I, I, I,
+                                                  P],
     # q, k, v, out, strides[12], N, H, T, D, dp, left, right, is_f32, stream
     "local_attention": [P, P, P, P, LP, I, I, I, I, I, I, I, I, P],
     # in, out, nd, sizes[nd], strides[nd], unit, stream

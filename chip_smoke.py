@@ -9,7 +9,8 @@ PyTorch built for CUDA. In order, it:
 
  1. prints the card's name, power limit and count;
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
-    sm_90a and prints each kernel's registers, shared memory and spills;
+    sm_90a and prints each kernel's registers, shared memory, stack frame
+    and spills (kernel O's stretch kernel must have neither);
  3. holds each kernel against its plain PyTorch version on the card: at
     hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 and the
     int8 LSTM kernels D (both outputs) and E, every one in both
@@ -119,8 +120,9 @@ PyTorch built for CUDA. In order, it:
     with each query's lse, and the flash-style backward to dqkv) against
     their plain versions at sup training widths (N 32, 8 heads of 64,
     window (127, 128); T 1024 and 1000, bf16 and f32, t_real < T, a partial
-    rotary_dim), H's o against K's, and P's backward on a transposed
-    cotangent; the full-width sup train step (the shipped sup model with f32
+    rotary_dim), O in bf16 on its stretch kernel (``window_bwd_plan`` gives
+    a plan at each) and against its earlier kernel, H's o against K's, and
+    P's backward on a transposed cotangent; the full-width sup train step (the shipped sup model with f32
     master weights, a bf16 forward, batch 32 x chunk 12288, targets of 1024
     bases, AdamW 2e-3, clip 2.0: the JAX package's sup train bench): a
     warm-up step and three timed ones with their launch counts (P 2, H 18,
@@ -128,15 +130,16 @@ PyTorch built for CUDA. In order, it:
     norms, every parameter moved (the convolutions and each wqkv among
     them), and one step's gradients through the kernels against the same
     through the plain versions; its time, sup train samples/s and peak
-    memory, and the same step's time with H on its earlier kernel; one
+    memory, and the same step's time with H, then O, on its earlier
+    kernel; one
     epoch of ``python -m bonito_tpu_torch train --config
     dna_r10.4.1_e8.2_400bps_sup@v5.0`` on a generated npy set (2 batches of
     32 x 12288, one validation batch: P, 18 x K, U, Y, B, C); and H's and
     O's times, plain times and bounds beside rotary + scaled_dot_product_
-    attention with the band as a mask, forward and backward (H's earlier
-    kernel beside it). It prints one ``kernels`` JSON line with all
-    twenty-five kernels (K's and H's with their plans and their earlier
-    kernel's time).
+    attention with the band as a mask, forward and backward (H's and O's
+    earlier kernels beside them). It prints one ``kernels`` JSON line with
+    all twenty-five kernels (K's, H's and O's with their plans and their
+    earlier kernel's time).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -370,6 +373,8 @@ def ptxas_summary(report):
                              r"lstm_fused_bf16_kernel|"
                              r"fused_rotary_window_attention_kernel|"
                              r"window_attention_kernel|"
+                             r"window_attention_bwd_kernel|"
+                             r"window_bwd_rows_kernel|"
                              r"local_attention_(?:tc|f32)_kernel|"
                              r"relayout_transpose|relayout_gather|"
                              r"(?:logz|lattice)_(?:fwd|bwd)_kernel|"
@@ -384,9 +389,13 @@ def ptxas_summary(report):
             tiles = re.search(r"kernelILi(\d+)ELi(\d+)EE", m.group(1))
             window = re.search(r"window_attention_kernelILi(\d+)ELb(\d)EE",
                                m.group(1))
+            window_bwd = re.search(r"window_attention_bwd_kernelILi(\d+)EE",
+                                   m.group(1))
             if window:
                 name = (f"{name}<bf16, head dim up to {window.group(1)}, "
                         f"lse={window.group(2)}>")
+            elif window_bwd:
+                name = f"{name}<bf16, head dim up to {window_bwd.group(1)}>"
             elif padded and name.startswith("lstm"):
                 train = ", R's stores" if padded.group(2) == "1" else ""
                 name = f"{name}<rows={16 * int(padded.group(1))}{train}>"
@@ -427,9 +436,11 @@ def ptxas_summary(report):
                                               else 1)
                 name = (f"{name}<rows={tile}, fused="
                         f"{flags.group(2)}, out_int8={flags.group(3)}>")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            spills = f"spills {m.group(1)}/{m.group(2)} B"
+            spills = (f"stack {m.group(1)} B, spills {m.group(2)}/"
+                      f"{m.group(3)} B")
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
             rows.append(f"  {name}: {m.group(1)} registers, {m.group(2) or 0} "
@@ -996,19 +1007,20 @@ def device_step(np, model, reads, make_compute_fn, chunk, **kw):
 
 
 class earlier_attention_kernel:
-    """K and H on their earlier kernel at every shape, for the comparisons
-    of phases 7 and 11: ``window_plan`` swapped for a rule that gives no
-    plan. The launch counts count as on the stretch kernel."""
+    """K and H (``rule`` "window_plan") or O ("window_bwd_plan") on their
+    earlier kernel at every shape, for the comparisons of phases 7 and 11:
+    the shape rule swapped for one that gives no plan. The launch counts
+    count as on the stretch kernel."""
 
-    def __init__(self, attention_cuda):
-        self.mod = attention_cuda
+    def __init__(self, attention_cuda, rule="window_plan"):
+        self.mod, self.name = attention_cuda, rule
 
     def __enter__(self):
-        self.rule = self.mod.window_plan
-        self.mod.window_plan = lambda *shape: None
+        self.rule = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, lambda *shape: None)
 
     def __exit__(self, *exc):
-        self.mod.window_plan = self.rule
+        setattr(self.mod, self.name, self.rule)
 
 
 def moves_kernels_vs_plain(torch, model, x):
@@ -1874,13 +1886,16 @@ def check_attention_train(torch, attention_cuda, relayout, dev):
     """Kernels H and O against their plain versions at sup training widths
     (N 32, 8 heads of 64, window (127, 128)): T 1024 and 1000 in bf16, T
     1024 with t_real 1000, f32, and a partial rotary_dim of 32; H's o
-    against K's; P's backward on a transposed cotangent. Returns the first
-    case's tensors (for the times) and the worst differences."""
+    against K's; O on its stretch kernel in bf16 (a plan at each), and
+    there against its earlier kernel: each of dq, dk, dv within one bf16
+    step of the earlier kernel's largest; P's backward on a transposed
+    cotangent. Returns the first case's tensors (for the times) and the
+    worst differences."""
     from bonito_tpu_torch.transformer.model import rotary_freqs
     g = torch.Generator().manual_seed(SEED + 11)
     fwd = attention_cuda.fused_rotary_window_attention_train
     bwd = attention_cuda.fused_rotary_window_attention_bwd
-    errs = {"o": 0.0, "lse": 0.0, "dqkv": 0.0}
+    errs = {"o": 0.0, "lse": 0.0, "dqkv": 0.0, "dqkv_old": 0.0}
     kept = None
     for T, dtype, r, t_real in ((SUP_TRAIN_T, torch.bfloat16, SD, None),
                                 (ST, torch.bfloat16, SD, None),
@@ -1892,6 +1907,10 @@ def check_attention_train(torch, attention_cuda, relayout, dev):
         cos, sin = rotary_freqs(T, r, device=dev)
         o, lse = fwd(qkv, cos, sin, SWIN, t_real)
         dqkv = bwd(qkv, cos, sin, lse, o, do, SWIN, t_real)
+        plan = bwd.plan
+        old = (attention_cuda.fused_rotary_window_attention_bwd_old_kernel(
+            qkv, cos, sin, lse, o, do, SWIN, t_real) if plan is not None
+            else None)
         torch.cuda.synchronize()
         same_k = torch.equal(o, attention_cuda.fused_rotary_window_attention(
             qkv, cos, sin, SWIN, t_real))
@@ -1915,15 +1934,28 @@ def check_attention_train(torch, attention_cuda, relayout, dev):
         lse_tol = ROW13_LSE_STEPS * 2.0 ** (math.floor(math.log2(top)) - 23)
         ok &= lse_err <= lse_tol
         errs["lse"] = max(errs["lse"], lse_err)
+        ok &= (plan is not None) == (dtype == torch.bfloat16)
+        route = "O on its earlier kernel"
+        if old is not None:
+            worst = 0.0
+            for i in range(3):
+                want = old[:, :, i].float()
+                d_old = (dqkv[:, :, i].float() - want).abs().max().item()
+                ok &= d_old <= bf16_step(want.abs().max().item())
+                worst = max(worst, d_old)
+            errs["dqkv_old"] = max(errs["dqkv_old"], worst)
+            route = (f"O on its stretch kernel (stretch {plan['stretch']}, "
+                     f"{plan['ctas']} CTAs), max |diff| from its earlier "
+                     f"kernel {worst:.3g}")
         log(f"  H, O vs plain, T={T} {str(dtype)[6:]} rotary_dim={r} "
             f"t_real={t_real}: max / mean |diff| " + ", ".join(line)
             + f"; lse {lse_err:.3g} (tolerance {lse_tol:.3g}); o equals K's "
-            f"{same_k}")
+            f"{same_k}; {route}")
         require(ok, f"H or O disagrees with its plain version at T={T}, "
                     f"{dtype}, rotary_dim {r}, t_real {t_real}")
         if kept is None:
             kept = (qkv, cos, sin, do, o, lse)
-        del dqkv, ref, ref_o, ref_lse
+        del dqkv, ref, ref_o, ref_lse, old
     x = torch.randn(SUP_TRAIN_N, SH * SD, SUP_TRAIN_T, generator=g).to(
         dev, torch.bfloat16).transpose(1, 2).requires_grad_()
     cot = torch.randn(SUP_TRAIN_N, SH * SD, SUP_TRAIN_T, generator=g).to(
@@ -2051,18 +2083,25 @@ def sup_train_phase(torch, counters, dev):
             and res["step"]["loss_diff"] <= TRAIN_LOSS_TOL,
             "sup train step: the kernels' gradients disagree with the plain "
             "versions'")
-    # the same step with H on its earlier kernel (O unchanged)
-    with earlier_attention_kernel(attention_cuda):
-        step(batch, 1.0, 2.0)
+
+    def step_ms():
+        step(batch, 1.0, 2.0)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(TRAIN_STEPS):
             step(batch, 1.0, 2.0)
         torch.cuda.synchronize()
-    res["step"]["old_kernel_ms"] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        return (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    # the same step with H on its earlier kernel (O on its own), then with O
+    # on its earlier kernel (H on its own)
+    with earlier_attention_kernel(attention_cuda):
+        res["step"]["old_kernel_ms"] = step_ms()
+    with earlier_attention_kernel(attention_cuda, "window_bwd_plan"):
+        res["step"]["o_old_kernel_ms"] = step_ms()
     log(f"  the same step with H on its earlier kernel: "
-        f"{res['step']['old_kernel_ms']:.4g} ms per step (the stretch "
-        f"kernel's {res['step']['ms']:.4g})")
+        f"{res['step']['old_kernel_ms']:.4g} ms per step; with O on its "
+        f"earlier kernel: {res['step']['o_old_kernel_ms']:.4g} ms (both on "
+        f"their stretch kernels: {res['step']['ms']:.4g})")
     del model, step, grads_k, grads_p, batch
     torch.cuda.empty_cache()
     res["cli"] = train_cli(
@@ -2085,6 +2124,9 @@ def sup_train_phase(torch, counters, dev):
                                qkv, cos, sin, SWIN, with_lse=True), reps=10),
           "O": cuda_ms(lambda: bwd(qkv, cos, sin, lse, o, do, SWIN),
                        reps=10),
+          "O_old": cuda_ms(lambda: attention_cuda.
+                           fused_rotary_window_attention_bwd_old_kernel(
+                               qkv, cos, sin, lse, o, do, SWIN), reps=10),
           "H_plain": cuda_ms(lambda: attention_cuda.
                              fused_rotary_window_attention_train_plain(
                                  qkv, cos, sin, SWIN), reps=1, warmup=0),
@@ -2127,13 +2169,15 @@ def sup_train_phase(torch, counters, dev):
                          + 3 * plane, 5 * 2 * pairs * SD, H100_BF16_OPS,
                          10 * pairs)}
     res["ms"], res["bounds"], res["lib_err"] = ms, bounds, lib_err
-    res["plan"] = fwd.plan
+    res["plan"], res["o_plan"] = fwd.plan, bwd.plan
     log(f"  at the step's shapes (N {N_}, T {T_}, bf16): H {ms['H']:.4g} ms "
         f"on the stretch kernel (plan {fwd.plan}; the earlier kernel "
         f"{ms['H_old']:.4g}; "
         f"plain {ms['H_plain']:.4g}, bound {bounds['H'][0]:.4g} by "
-        f"{bounds['H'][1]}), O {ms['O']:.4g} ms (plain {ms['O_plain']:.4g}, "
-        f"bound {bounds['O'][0]:.4g} by {bounds['O'][1]}); rotary + "
+        f"{bounds['H'][1]}), O {ms['O']:.4g} ms on the stretch kernel (plan "
+        f"{bwd.plan}; the earlier kernel {ms['O_old']:.4g}; plain "
+        f"{ms['O_plain']:.4g}, bound {bounds['O'][0]:.4g} by "
+        f"{bounds['O'][1]}); rotary + "
         f"scaled_dot_product_attention with the band as a mask: forward "
         f"{ms['H_library']:.4g} ms, backward {ms['O_library']:.4g} ms (max "
         f"|o - H| {lib_err:.3g}, |dqkv - O| {lib_gerr:.3g})")
@@ -2174,8 +2218,13 @@ def main():
     lib_path = build.build()
     build.library()
     log(f"[2] built {Path(lib_path).name} in {time.perf_counter() - t0:.1f} s")
-    for row in ptxas_summary(build.ptxas_report):
+    ptxas_rows = ptxas_summary(build.ptxas_report)
+    for row in ptxas_rows:
         log(row)
+    o_rows = [r for r in ptxas_rows if "window_attention_bwd_kernel" in r]
+    require(len(o_rows) == 3 and all("stack 0 B, spills 0/0 B" in r
+                                     for r in o_rows),
+            f"kernel O's stretch kernel has a stack frame or spills: {o_rows}")
 
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
@@ -3095,6 +3144,7 @@ def main():
 
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_window = "bonito_tpu_torch/csrc/attention_window.cu"  # K's, H's
+    src_window_bwd = "bonito_tpu_torch/csrc/attention_window_bwd.cu"  # O's
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
     src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
     src_full = "bonito_tpu_torch/csrc/decode_full.cu"
@@ -3277,7 +3327,7 @@ def main():
             ("fused_rotary_window_attention_train_fwd", "H", src_window,
              "bonito_tpu/ops/attention_pallas.py:264",
              max(sup_train["errs"]["o"], sup_train["errs"]["lse"])),
-            ("fused_rotary_window_attention_train_bwd", "O", src_attn,
+            ("fused_rotary_window_attention_train_bwd", "O", src_window_bwd,
              "bonito_tpu/ops/attention_pallas.py:298",
              sup_train["errs"]["dqkv"])):
         n = sup_train["step"]["launches"][key] // TRAIN_STEPS
@@ -3295,7 +3345,13 @@ def main():
                 "sup_train_step_ms": sup_train["step"]["ms"],
                 "sup_train_step_old_kernel_ms":
                     sup_train["step"]["old_kernel_ms"]} if key == "H"
-               else {})})
+               else {"plan": sup_train["o_plan"],
+                     "old_kernel_ms": sup_train["ms"]["O_old"],
+                     "max_abs_err_vs_old_kernel":
+                         sup_train["errs"]["dqkv_old"],
+                     "sup_train_step_ms": sup_train["step"]["ms"],
+                     "sup_train_step_old_kernel_ms":
+                         sup_train["step"]["o_old_kernel_ms"]})})
         log(f"  {name}: {sup_train['ms'][key]:.4g} ms (plain "
             f"{sup_train['ms'][key + '_plain']:.4g} ms, bound {b[0]:.4g} ms by "
             f"{b[1]}), {n} launches per sup train step")

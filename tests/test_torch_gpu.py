@@ -1033,7 +1033,8 @@ def test_fused_train_kernels_match_plain(cuda, N, T, H, D, r, window, t_real,
     16 f32 steps of its largest magnitude (exp, log and sums in another
     order). O: each of dq, dk, dv within one bf16 step of its largest
     magnitude on the max (a flipped bf16 rounding of p, ds or the output)
-    and 2^-16 of it on the mean."""
+    and 2^-16 of it on the mean. In bf16 O runs its stretch kernel, on the
+    plan ``window_bwd_plan`` gives; in f32 its earlier kernel."""
     g = torch.Generator().manual_seed(N + T + D + r)
     qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, dtype)
     do = torch.randn(N, T, H, D, generator=g).to(cuda, dtype)
@@ -1045,6 +1046,10 @@ def test_fused_train_kernels_match_plain(cuda, N, T, H, D, r, window, t_real,
     dqkv = bwd(qkv, cos, sin, lse, o, do, window, t_real)
     torch.cuda.synchronize()
     assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    plan = attention_cuda.window_bwd_plan(
+        N, T, H, D, window, dtype,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert bwd.plan == plan and (plan is None) == (dtype == torch.float32)
     assert torch.equal(o, attention_cuda.fused_rotary_window_attention(
         qkv, cos, sin, window, t_real))
     ref_o, ref_lse = attention_cuda.fused_rotary_window_attention_train_plain(
@@ -1068,6 +1073,73 @@ def test_fused_train_kernels_match_plain(cuda, N, T, H, D, r, window, t_real,
         diff = (out - want).abs()
         assert diff.max().item() <= step(want), (i, diff.max().item())
         assert diff.mean().item() <= 2.0 ** -16 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("N,T,H,D,r,window,t_real", WINDOW_CASES)
+def test_window_bwd_kernel_matches_the_earlier_kernel(cuda, N, T, H, D, r,
+                                                      window, t_real):
+    """O takes its stretch kernel at these shapes (a plan), and it computes
+    the earlier kernel's function: each of dq, dk and dv within one bf16
+    step of the earlier kernel's largest value on the same inputs, and dk
+    and dv 0 for the keys at or beyond t_real, which no query sees."""
+    g = torch.Generator().manual_seed(N + T + D + r + 2)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, torch.bfloat16)
+    do = torch.randn(N, T, H, D, generator=g).to(cuda, torch.bfloat16)
+    cos, sin = _freqs(T, r, cuda)
+    o, lse = attention_cuda.fused_rotary_window_attention_train(
+        qkv, cos, sin, window, t_real)
+    bwd = attention_cuda.fused_rotary_window_attention_bwd
+    before = bwd.launches
+    new = bwd(qkv, cos, sin, lse, o, do, window, t_real)
+    assert bwd.plan is not None and bwd.launches == before + 1
+    old = attention_cuda.fused_rotary_window_attention_bwd_old_kernel(
+        qkv, cos, sin, lse, o, do, window, t_real)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    assert bool(torch.isfinite(new.float()).all())
+    for i in range(3):
+        want = old[:, :, i].float()
+        step = 2.0 ** (np.floor(np.log2(max(want.abs().max().item(), 1e-30)))
+                       - 7)
+        assert (new[:, :, i].float() - want).abs().max().item() <= step, i
+    t_real = T if t_real is None else t_real
+    assert not new[:, t_real:, 1:].any() and not old[:, t_real:, 1:].any()
+
+
+@pytest.mark.parametrize("N,T,H,D,r,window,t_real", [
+    (3, 1000, 2, 64, 64, (127, 128), 937),
+    (2, 700, 2, 32, 16, (100, 20), None),
+    (2, 700, 2, 40, 32, (5, 0), 650),
+    (2, 520, 1, 128, 64, (0, 128), None)])
+def test_window_bwd_kernel_does_not_depend_on_the_stretch(cuda, N, T, H, D,
+                                                          r, window, t_real):
+    """O's stretch kernel's C entry at stretches of 1 tile (every tile
+    stages its own window), 3 and all of T (the rings wrap round): each
+    tile of each kind computes the same bits whatever its CTA walked before
+    it."""
+    from bonito_tpu_torch.ops import build
+    g = torch.Generator().manual_seed(T + D + 3)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, torch.bfloat16)
+    do = torch.randn(N, T, H, D, generator=g).to(cuda, torch.bfloat16)
+    cos, sin = _freqs(T, r, cuda)
+    o, lse = attention_cuda.fused_rotary_window_attention_train(
+        qkv, cos, sin, window, t_real)
+    plan = attention_cuda.window_bwd_plan(
+        N, T, H, D, window, torch.bfloat16,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    outs = []
+    for stretch in (1, 3, plan["tiles"]):
+        dqkv = torch.empty_like(qkv)
+        rows = torch.empty(N, H, plan["tiles"] * 64, 2, device=cuda)
+        build.check(build.library().fused_rotary_window_attention_bwd_stretch(
+            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), lse.data_ptr(),
+            o.data_ptr(), do.data_ptr(), rows.data_ptr(), dqkv.data_ptr(), N,
+            T, H, D, r // 2, window[0], window[1], t_real or T, stretch,
+            plan["ring"], torch.cuda.current_stream().cuda_stream), "stretch")
+        outs.append(dqkv)
+    torch.cuda.synchronize()
+    for dqkv in outs[1:]:
+        assert torch.equal(dqkv, outs[0])
 
 
 def test_fused_attention_function_keeps_the_graph(cuda):

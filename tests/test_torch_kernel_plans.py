@@ -1,10 +1,12 @@
-"""The pure-Python shape rules of kernels A, R, S, L, D, E, K and H
+"""The pure-Python shape rules of kernels A, R, S, L, D, E, K, H and O
 (``ops.lstm_cuda.persistent_plan``, ``ops.lstm_train_cuda.forward_plan``
 and ``backward_plan``, ``ops.attention_cuda.padded_head_dim``,
 ``ops.lstm_int8_cuda.persistent_plan``, ``ops.attention_cuda.
-window_plan``): what each launch asks of the card, that A's, S's, D's and
-E's CTAs cover every row, unit and gate column once, that K's stretches
-cover every query tile once with its band in the ring, and the head dim
+window_plan`` and ``window_bwd_plan``): what each launch asks of the card,
+that A's, S's, D's and E's CTAs cover every row, unit and gate column
+once, that K's stretches cover every query tile once with its band in the
+ring, that O's two kinds cover every query tile and every key tile once
+with their bands (the dk kind's mirrored) in their rings, and the head dim
 L's bf16 instance runs at. Each is what the
 wrapper passes to its kernel. They run here, on the CPU; the kernels
 themselves, and L's tiling, which is fixed in the kernel, only on the card
@@ -422,17 +424,20 @@ def _plan(N, T, H, D, window, sms=SMS):
     return attention_cuda.window_plan(N, T, H, D, window, torch.bfloat16, sms)
 
 
-def _stretch_steps(plan, t_a, T, t_real):
+def _stretch_steps(plan, t_a, T, live, back=None, ahead=None):
     """What the kernel's producers stage for the stretch from tile t_a, as
-    ``csrc/attention_window.cu`` computes it: for each step, the tile and
-    the key blocks it adds (the leading window first, then one block)."""
+    ``csrc/attention_window.cu`` (and ``attention_window_bwd.cu``) computes
+    it: for each step, the tile and the ring blocks it adds (the leading
+    window first, then one block); blocks hold data below ``live``."""
+    back = plan["back"] if back is None else back
+    ahead = plan["ahead"] if ahead is None else ahead
     n_tiles = -(-T // 64)
-    nb = -(-t_real // 64)
+    nb = -(-live // 64)
     steps = min(plan["stretch"], n_tiles - t_a)
     for s in range(steps):
         t = t_a + s
-        lo = max(t - plan["back"] if s == 0 else t + plan["ahead"], 0)
-        yield t, range(lo, min(t + plan["ahead"], nb - 1) + 1)
+        lo = max(t - back if s == 0 else t + ahead, 0)
+        yield t, range(lo, min(t + ahead, nb - 1) + 1)
 
 
 @pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
@@ -537,3 +542,122 @@ def test_window_plan_sends_the_rest_to_the_earlier_kernel(dtype, D, window):
     assert attention_cuda.window_entry(_plan(128, 1000, 8, 64, SUP_WINDOW),
                                        True) == \
         "fused_rotary_window_attention_stretch"
+
+
+def _bwd_plan(N, T, H, D, window, sms=SMS):
+    return attention_cuda.window_bwd_plan(N, T, H, D, window, torch.bfloat16,
+                                          sms)
+
+
+def _bwd_kind_steps(plan, kind, t_a, T, t_real):
+    """The steps of a CTA of O's ``kind``: the dq kind's ring holds key
+    blocks (data below t_real), the dk kind's query blocks (below T)."""
+    return _stretch_steps(plan, t_a, T, t_real if kind == "dq" else T,
+                          plan[kind]["back"], plan[kind]["ahead"])
+
+
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_bwd_plan_fits_the_card(N, T, H, D, window, t_real):
+    """O's plan: what a CTA asks (two rings' rows and the tile's two kinds
+    of rows in 227 KB; the resident CTAs within an SM), rings of at most six
+    blocks, the dk kind's band the dq kind's mirrored, two kinds of CTA."""
+    plan = _bwd_plan(N, T, H, D, window)
+    assert plan is not None
+    assert plan["smem"] == attention_cuda.window_bwd_smem(plan["ring"],
+                                                          plan["head_dim"])
+    assert plan["smem"] <= SMEM
+    assert plan["resident"] * (plan["smem"] + 1024) <= attention_cuda.SM_SMEM
+    assert plan["resident"] == (2 if plan["head_dim"] <= 64 else 1)
+    assert D <= plan["head_dim"] in (32, 64, 128)
+    left, right = window
+    assert plan["dq"] == {"back": -(-left // 64), "ahead": -(-right // 64)}
+    assert plan["dk"] == {"back": -(-right // 64), "ahead": -(-left // 64)}
+    for kind in ("dq", "dk"):
+        assert plan["ring"] == (plan[kind]["back"] + plan[kind]["ahead"]
+                                + 2) <= 6
+    assert plan["ctas"] == 2 * N * H * plan["stretches"]
+    assert plan["stretches"] == -(-plan["tiles"] // plan["stretch"])
+    assert plan["waves"] == -(-plan["ctas"] // (SMS * plan["resident"]))
+
+
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_bwd_plan_covers_every_tile_once(N, T, H, D, window, t_real):
+    """Each (n, h)'s stretches of each kind cover its tiles 0 .. ceil(T /
+    64) - 1 exactly once: the dq kind's query tiles, the dk kind's key
+    tiles."""
+    plan = _bwd_plan(N, T, H, D, window)
+    n_tiles = -(-T // 64)
+    for kind in ("dq", "dk"):
+        seen = [0] * n_tiles
+        for st in range(plan["stretches"]):
+            for t, _ in _bwd_kind_steps(plan, kind, st * plan["stretch"], T,
+                                        t_real or T):
+                seen[t] += 1
+        assert seen == [1] * n_tiles, kind
+
+
+@pytest.mark.parametrize("kind", ["dq", "dk"])
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_bwd_plan_keeps_each_band_in_the_ring(N, T, H, D, window,
+                                                     t_real, kind):
+    """Walk every stretch of each kind as the kernel does: when tile t is
+    computed, every pair of its band is in the ring (its block staged and
+    not overwritten since), and a block the producers stage overwrites
+    nothing the tile before (which the consumers may still read) or a later
+    one needs. The dq kind: query i of the tile (below T) and the keys it
+    sees (-left <= j - i <= right, j < t_real); the dk kind, the mirrored
+    band: key j of the tile (below t_real: a later key is seen by no query)
+    and the queries that see it (j - right <= i <= j + left, i < T)."""
+    left, right = window
+    t_real = t_real or T
+    plan = _bwd_plan(N, T, H, D, window)
+    ring, back = plan["ring"], plan[kind]["back"]
+    for st in range(plan["stretches"]):
+        slots = [None] * ring  # the block each slot holds
+        for t, blocks in _bwd_kind_steps(plan, kind, st * plan["stretch"], T,
+                                         t_real):
+            for b in blocks:
+                old = slots[b % ring]
+                if old is not None:
+                    assert old + back < t - 1, (t, b, old)
+                slots[b % ring] = b
+            for r in range(t * 64, min(t * 64 + 64, T)):
+                if kind == "dq":
+                    cols = range(max(0, r - left), min(t_real, r + right + 1))
+                else:
+                    cols = (range(max(0, r - right), min(T, r + left + 1))
+                            if r < t_real else range(0))
+                for c in cols:
+                    assert slots[(c // 64) % ring] == c // 64, (t, r, c)
+
+
+def test_window_bwd_plan_at_sup_training():
+    """sup training (N 32, T 1024, 8 heads of 64): each kind's CTA walks
+    all 16 tiles of its (n, h), 512 CTAs in two waves at two an SM (the 256
+    dk CTAs first, then the dq ones as slots come free); rings of six
+    blocks, 114,736 bytes a CTA."""
+    plan = _bwd_plan(32, 1024, 8, 64, SUP_WINDOW)
+    assert (plan["stretch"], plan["ctas"], plan["resident"], plan["waves"],
+            plan["ring"], plan["smem"]) == (16, 512, 2, 2, 6, 114736)
+    assert plan == _bwd_plan(32, 1000, 8, 64, SUP_WINDOW)
+
+
+@pytest.mark.parametrize("dtype,D,window", [
+    (torch.float32, 64, SUP_WINDOW),   # f32: the earlier kernel
+    (torch.float16, 64, SUP_WINDOW),
+    (torch.bfloat16, 136, SUP_WINDOW),  # beyond the widest head O takes
+    (torch.bfloat16, 60, SUP_WINDOW),
+    (torch.bfloat16, 64, (128, 128)),   # beyond the band O takes
+    (torch.bfloat16, 64, (127, 129))])
+def test_window_bwd_plan_sends_the_rest_to_the_earlier_kernel(dtype, D,
+                                                              window):
+    """No plan for f32 (and none for what O does not take at all, which the
+    wrapper's checks refuse first): the wrapper then launches the earlier
+    kernel's entry, by the shape rule alone."""
+    plan = attention_cuda.window_bwd_plan(32, 1024, 8, D, window, dtype, SMS)
+    assert plan is None
+    assert attention_cuda.window_bwd_entry(plan) == \
+        "fused_rotary_window_attention_bwd"
+    assert attention_cuda.window_bwd_entry(
+        _bwd_plan(32, 1024, 8, 64, SUP_WINDOW)) == \
+        "fused_rotary_window_attention_bwd_stretch"
