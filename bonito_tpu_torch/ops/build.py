@@ -65,6 +65,11 @@ SIGNATURES = {
     # moves, move_in, choices, c, logz, end_state, sequence, qstring,
     # moves_out, N, T, S, p_stay, qscale, qbias, stream
     "decode_tcn_bwd_bf16": [P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, P],
+    # kernels B and C on a ring of frames (csrc/decode_tcn_ring.cu): as the
+    # two above, with the ring's depth after S
+    "decode_tcn_fwd_ring": [P, P, P, P, P, P, I, I, I, I, F, F, P],
+    "decode_tcn_bwd_ring": [P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F,
+                            P],
     # scores, is_f32, move_in, choices, c, logz, end_state, N, T, S, stream
     "decode_full_fwd": [P, I, P, P, P, P, P, I, I, I, P],
     # scores, is_f32, move_in, choices, c, logz, end_state, sequence,

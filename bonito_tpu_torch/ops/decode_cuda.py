@@ -6,9 +6,13 @@ counts.
 B replaces ``bonito_tpu/ops/decode_pallas.py:_fwd_kernel_tcn`` and C
 ``_bwd_kernel_tcn`` plus the qscore epilogue of ``viterbi_decode_tcn``.
 Both are bound by bytes on an H100 (the 1.31 GB bf16 move tensor at hac
-is read by both passes) but are serial in T, so this first design is
-latency-bound: one block per batch row, one thread per state, one
-block-wide reduction per frame. ``csrc/decode_tcn.cu`` has the math.
+is read by both passes) but are serial in T, so the pace is the latency
+of a frame. On the card they run ``csrc/decode_tcn_ring.cu`` on the plan
+``decode_plan`` gives: one CTA per batch row, four states a thread, the
+frames' rows staged ahead through a ring in shared memory, one barrier a
+frame. Where it gives None the earlier kernels of ``csrc/decode_tcn.cu``
+(one thread per state, four barriers a frame) run; ``csrc/decode_passes.
+cuh`` has the math.
 
 Moves here are [N, T, nb*S] with each frame's columns in (b, j, r) order
 (column (b*nb + j)*R + r: into state s = r*nb + b from p = j*R + r). The
@@ -187,11 +191,68 @@ def check_forward_outputs(kernel, device, N, T, S, move_in, choices, cs,
                              f"{shape} on {device}")
 
 
-def tcn_forward(moves, blank):
-    """The forward pass of ``tcn_forward_plain`` with a constant stay
-    ``blank``: the plain version for a CPU tensor, kernel B on the card."""
-    if moves.device.type == "cpu":
-        return tcn_forward_plain(moves, blank)
+# frames the ring of csrc/decode_tcn_ring.cu holds (its C entries take 1 or
+# 2 to 16): a frame's copy is issued about RING - 1 frames before its row
+# is read; 4 kept pace at hac and 8 at sup (scripts/decode_split.py)
+RING = 8
+
+
+def ring_smem(S, ring, backward):
+    """Shared memory of one CTA of csrc/decode_tcn_ring.cu: the mbarriers,
+    the partials, the raw values of two frames (B: alpha and amax; C: beta,
+    and each consumer thread's share of two frames' posterior mass) and the
+    ring
+    (B: a frame's bf16 moves; C: its moves, move_in and choices)."""
+    head = (ring * 8 + 15) // 16 * 16 + (2 * 64 + 64) * 4
+    if backward:
+        consumers = -(-(S // NB) // 32) * 32
+        return head + 8 * S + 8 * consumers + ring * 13 * S
+    return head + 16 * S + ring * 8 * S
+
+
+def decode_plan(N, T, S, sms=None):
+    """The plan of kernels B and C on the ring (``csrc/decode_tcn_ring.cu``)
+    for moves [N, T, 4S] on a card of ``sms`` SMs, or None where the ring
+    does not take the shape: S a multiple of 16 (a frame's choices, S
+    bytes, are copied in 16-byte pieces), at most 1024. Then the earlier
+    kernels run. One CTA per batch row: S / 4 consumer threads (rounded up
+    to whole warps) with four states each, a producer warp that copies the
+    frames and an epilogue warp that does the per-frame work of one
+    thread."""
+    if N < 1 or T < 1 or S % 16 or not 16 <= S <= 1024:
+        return None
+    consumers = -(-(S // NB) // 32) * 32
+    plan = {"threads": consumers + 64, "consumer_threads": consumers,
+            "states_per_thread": NB, "ctas": N,
+            "waves": None if sms is None else -(-N // sms)}
+    for name, backward in (("fwd", False), ("bwd", True)):
+        plan[name] = {"ring": RING,
+                      "smem": ring_smem(S, RING, backward)}
+    return plan
+
+
+def decode_entry(plan, backward):
+    """The C entry a plan launches: the ring's, or the earlier kernel's
+    where the plan is None."""
+    if plan is None:
+        return "decode_tcn_bwd_bf16" if backward else "decode_tcn_fwd_bf16"
+    return "decode_tcn_bwd_ring" if backward else "decode_tcn_fwd_ring"
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned(*tensors):
+    """The ring's bulk copies read 16-byte aligned rows."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _forward(counter, moves, blank):
+    """B's checks and launch: the ring on ``decode_plan``'s plan, the
+    earlier kernel where it gives None (or where the rows are not 16-byte
+    aligned) or where ``counter`` is None (the comparisons' route, which
+    counts nothing)."""
     build.refuse_grad("B", [moves], build.DECODE_ROUTE)
     N, T, S = _check_cuda(moves)
     lib = build.library()
@@ -201,37 +262,83 @@ def tcn_forward(moves, blank):
     cs = torch.empty(N, T, device=dev)
     logz = torch.empty(N, device=dev)
     end_state = torch.empty(N, dtype=torch.int32, device=dev)
-    tcn_forward.launches += 1
-    build.check(lib.decode_tcn_fwd_bf16(
-        moves.data_ptr(), move_in.data_ptr(), choices.data_ptr(),
-        cs.data_ptr(), logz.data_ptr(), end_state.data_ptr(), N, T, S,
-        math.exp(blank), blank, build.stream_of(moves)),
-        "decode_tcn_fwd_bf16")
+    plan = None
+    if counter is not None:
+        plan = decode_plan(N, T, S, _sms(dev)) if _aligned(moves) else None
+        counter.plan = plan
+        counter.launches += 1
+    entry = decode_entry(plan, False)
+    args = [moves.data_ptr(), move_in.data_ptr(), choices.data_ptr(),
+            cs.data_ptr(), logz.data_ptr(), end_state.data_ptr(), N, T, S]
+    args += [] if plan is None else [plan["fwd"]["ring"]]
+    args += [math.exp(blank), blank]
+    build.check(getattr(lib, entry)(*args, build.stream_of(moves)), entry)
     return move_in, choices, cs, logz, end_state
 
 
-def tcn_backward(moves, move_in, choices, cs, logz, end_state, blank,
-                 qscale=1.0, qbias=0.0):
-    """The backward pass of ``tcn_backward_plain`` with a constant stay
-    ``blank``: the plain version for a CPU tensor, kernel C on the card."""
-    if moves.device.type == "cpu":
-        return tcn_backward_plain(moves, move_in, choices, cs, logz,
-                                  end_state, blank, qscale, qbias)
+def _backward(counter, moves, move_in, choices, cs, logz, end_state, blank,
+              qscale, qbias):
+    """C's checks and launch, routed as ``_forward``'s."""
     build.refuse_grad("C", [moves], build.DECODE_ROUTE)
     N, T, S = _check_cuda(moves)
     check_forward_outputs("kernel C", moves.device, N, T, S, move_in, choices,
                           cs, logz, end_state)
     lib = build.library()
     out = torch.empty(3, N, T, dtype=torch.uint8, device=moves.device)
-    tcn_backward.launches += 1
-    build.check(lib.decode_tcn_bwd_bf16(
-        moves.data_ptr(), move_in.data_ptr(), choices.data_ptr(),
-        cs.data_ptr(), logz.data_ptr(), end_state.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), N, T, S,
-        math.exp(blank), float(qscale), float(qbias),
-        build.stream_of(moves)), "decode_tcn_bwd_bf16")
+    plan = None
+    if counter is not None:
+        plan = (decode_plan(N, T, S, _sms(moves.device))
+                if _aligned(moves, move_in, choices) else None)
+        counter.plan = plan
+        counter.launches += 1
+    args = [moves.data_ptr(), move_in.data_ptr(), choices.data_ptr(),
+            cs.data_ptr(), logz.data_ptr(), end_state.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), N, T, S]
+    entry = decode_entry(plan, True)
+    args += [] if plan is None else [plan["bwd"]["ring"]]
+    args += [math.exp(blank), float(qscale), float(qbias)]
+    build.check(getattr(lib, entry)(*args, build.stream_of(moves)), entry)
     return {"sequence": out[0], "qstring": out[1], "moves": out[2]}
+
+
+def tcn_forward(moves, blank):
+    """The forward pass of ``tcn_forward_plain`` with a constant stay
+    ``blank``: the plain version for a CPU tensor, kernel B on the card (on
+    ``decode_plan``'s plan, recorded in ``.plan``, else the earlier
+    kernel)."""
+    if moves.device.type == "cpu":
+        return tcn_forward_plain(moves, blank)
+    return _forward(tcn_forward, moves, blank)
+
+
+def tcn_backward(moves, move_in, choices, cs, logz, end_state, blank,
+                 qscale=1.0, qbias=0.0):
+    """The backward pass of ``tcn_backward_plain`` with a constant stay
+    ``blank``: the plain version for a CPU tensor, kernel C on the card
+    (routed as ``tcn_forward``)."""
+    if moves.device.type == "cpu":
+        return tcn_backward_plain(moves, move_in, choices, cs, logz,
+                                  end_state, blank, qscale, qbias)
+    return _backward(tcn_backward, moves, move_in, choices, cs, logz,
+                     end_state, blank, qscale, qbias)
+
+
+def tcn_forward_old_kernel(moves, blank):
+    """B's earlier kernel (``csrc/decode_tcn.cu``) whatever the plan (CUDA
+    tensors only): the route where ``decode_plan`` gives None, and what
+    chip_smoke.py and the card tests hold the ring against. It counts no
+    launch."""
+    return _forward(None, moves, blank)
+
+
+def tcn_backward_old_kernel(moves, move_in, choices, cs, logz, end_state,
+                            blank, qscale=1.0, qbias=0.0):
+    """C's earlier kernel, as ``tcn_forward_old_kernel``."""
+    return _backward(None, moves, move_in, choices, cs, logz, end_state,
+                     blank, qscale, qbias)
 
 
 tcn_forward.launches = 0
 tcn_backward.launches = 0
+tcn_forward.plan = None  # the last call's (None: the earlier kernel)
+tcn_backward.plan = None

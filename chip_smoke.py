@@ -10,9 +10,12 @@ PyTorch built for CUDA. In order, it:
  1. prints the card's name, power limit and count;
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory, stack frame
-    and spills (kernel O's stretch kernel must have neither);
+    and spills (kernel O's stretch kernel and B's and C's ring kernels must
+    have neither);
  3. holds each kernel against its plain PyTorch version on the card: at
-    hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 and the
+    hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 (B and C
+    on their ring, ``decode_plan`` gives a plan, and held against their
+    earlier kernels bit for bit on all eight outputs) and the
     int8 LSTM kernels D (both outputs) and E, every one in both
     directions (D and E each one persistent launch, the plan
     ``persistent_plan`` gives, whose output equals its step kernel's bit
@@ -79,14 +82,16 @@ PyTorch built for CUDA. In order, it:
  7. prints samples/s, the device step and peak memory of the hac bf16,
     int8, reverse and beam paths, the fast path, the sup path and the two
     fused paths (beside the TCN route's device step on the same batch)
-    beside the card's name and power, and the sup and sup_fused device
-    steps with K on its earlier kernel;
+    beside the card's name and power, the sup and sup_fused device steps
+    with K on its earlier kernel, and the hac int8 and sup device steps
+    with B and C on theirs;
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function (and, for comparison, A's, D's and E's
     step kernels at hac widths beside their persistent kernels, K's earlier
     kernel beside its stretch kernel, L in bf16 at sup widths
     beside scaled_dot_product_attention, the routes that
-    F, G and J take the place of at fast widths, B and C at sup shapes and
+    F, G and J take the place of at fast widths, B and C (beside their
+    earlier kernels) at hac and sup shapes and
     the parts of one sup layer; M and Q at fast shapes, and the reverse
     complement they read; GW and JW at hac's and sup's shapes beside the TCN
     route's head matmul + B + C there);
@@ -139,7 +144,8 @@ PyTorch built for CUDA. In order, it:
     attention with the band as a mask, forward and backward (H's and O's
     earlier kernels beside them). It prints one ``kernels`` JSON line with
     all twenty-five kernels (K's, H's and O's with their plans and their
-    earlier kernel's time).
+    earlier kernel's time; B's and C's with their plan, their earlier
+    kernels' times and difference, and the device steps on both).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -378,6 +384,7 @@ def ptxas_summary(report):
                              r"local_attention_(?:tc|f32)_kernel|"
                              r"relayout_transpose|relayout_gather|"
                              r"(?:logz|lattice)_(?:fwd|bwd)_kernel|"
+                             r"decode_tcn_(?:fwd|bwd)_ring_kernel|"
                              r"decode_(?:fused_(?:wide_)?)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
@@ -416,6 +423,8 @@ def ptxas_summary(report):
             elif name.startswith(("logz", "lattice")):
                 # the template arguments as the mangled name gives them
                 name += f" [{m.group(1).split('_kernel', 1)[1]}]"
+            elif name.endswith("_ring_kernel"):
+                name += "<bf16>"
             elif "decode" in name:
                 frame = re.search(r"(Tcn|Full)Frame", m.group(1))
                 name = (f"{name}<{frame.group(1)} frame, {tmpl}>" if frame
@@ -549,10 +558,34 @@ def check_lstm_int8(torch, int8, lstm_int8_cuda, dev):
     return d_args, e_args, errs, plans
 
 
+DECODE_OUTPUTS = ("move_in", "choices", "c", "logZ", "end state",
+                  "sequence", "qstring", "moves")
+
+
+def ring_vs_old_kernel(torch, decode_cuda, moves, blank, fwd, out, **q):
+    """B's and C's outputs on the ring (``fwd``, ``out``: the wrappers'
+    on ``decode_plan``'s plan) against the earlier kernels' on the same
+    moves: the names of the outputs that differ in any bit (none where both
+    take the same f32 steps) and the largest difference."""
+    old_fwd = decode_cuda.tcn_forward_old_kernel(moves, blank)
+    old = decode_cuda.tcn_backward_old_kernel(moves, *old_fwd, blank, **q)
+    torch.cuda.synchronize()
+    pairs = list(zip(fwd, old_fwd)) + [
+        (out[k], old[k]) for k in ("sequence", "qstring", "moves")]
+    differ = [name for name, (a, b) in zip(DECODE_OUTPUTS, pairs)
+              if not torch.equal(a.contiguous().view(torch.uint8),
+                                 b.contiguous().view(torch.uint8))]
+    worst = max((a.double() - b.double()).abs().max().item()
+                for a, b in pairs)
+    return differ, worst
+
+
 def check_decode(torch, decode_cuda, dev):
     """Kernels B and C against their plain versions on the same bf16
     moves: choices, end states, sequence and moves identical (the max
-    semiring does the same f32 adds in both), qstring within one step."""
+    semiring does the same f32 adds in both), qstring within one step; and
+    on the ring (``decode_plan`` gives a plan at hac) against the earlier
+    kernels, bit for bit on all eight outputs."""
     g = torch.Generator().manual_seed(SEED + 1)
     moves = (3 * torch.randn(N, T, 4 * S, generator=g)).clamp(-5, 5).to(
         dev, torch.bfloat16)
@@ -578,7 +611,16 @@ def check_decode(torch, decode_cuda, dev):
     log(f"  kernel C: sequence and moves identical; max |dq| {dq}; "
         f"{frac:.3f} of frames move")
     require(dq <= 1, f"kernel C: qstring off by {dq}")
-    return moves, blank, fwd, err_b, float(dq)
+    plans = (decode_cuda.tcn_forward.plan, decode_cuda.tcn_backward.plan)
+    require(plans[0] is not None and plans[1] is not None,
+            "kernels B and C did not run on the ring at hac")
+    differ, vs_old = ring_vs_old_kernel(torch, decode_cuda, moves, blank,
+                                        fwd, out, qscale=1.05, qbias=0.2)
+    log(f"  B and C on the ring (plan {plans[0]}) vs the earlier kernels: "
+        f"outputs that differ in any bit {differ}, max |diff| {vs_old:.3g}")
+    require(not differ, f"kernels B and C on the ring differ from the "
+            f"earlier kernels in {differ}")
+    return moves, blank, fwd, err_b, float(dq), plans[0], vs_old
 
 
 def hold_full(torch, decode_full_cuda, scores, **q):
@@ -1006,11 +1048,12 @@ def device_step(np, model, reads, make_compute_fn, chunk, **kw):
     return prepared, ms
 
 
-class earlier_attention_kernel:
-    """K and H (``rule`` "window_plan") or O ("window_bwd_plan") on their
-    earlier kernel at every shape, for the comparisons of phases 7 and 11:
-    the shape rule swapped for one that gives no plan. The launch counts
-    count as on the stretch kernel."""
+class earlier_kernel:
+    """K and H (``rule`` "window_plan") or O ("window_bwd_plan") of
+    ``attention_cuda``, or B and C ("decode_plan" of ``decode_cuda``), on
+    their earlier kernels at every shape, for the comparisons of phases 7
+    and 11: the shape rule swapped for one that gives no plan. The launch
+    counts count as on the redesigned kernels."""
 
     def __init__(self, attention_cuda, rule="window_plan"):
         self.mod, self.name = attention_cuda, rule
@@ -2094,9 +2137,9 @@ def sup_train_phase(torch, counters, dev):
         return (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
     # the same step with H on its earlier kernel (O on its own), then with O
     # on its earlier kernel (H on its own)
-    with earlier_attention_kernel(attention_cuda):
+    with earlier_kernel(attention_cuda):
         res["step"]["old_kernel_ms"] = step_ms()
-    with earlier_attention_kernel(attention_cuda, "window_bwd_plan"):
+    with earlier_kernel(attention_cuda, "window_bwd_plan"):
         res["step"]["o_old_kernel_ms"] = step_ms()
     log(f"  the same step with H on its earlier kernel: "
         f"{res['step']['old_kernel_ms']:.4g} ms per step; with O on its "
@@ -2225,12 +2268,18 @@ def main():
     require(len(o_rows) == 3 and all("stack 0 B, spills 0/0 B" in r
                                      for r in o_rows),
             f"kernel O's stretch kernel has a stack frame or spills: {o_rows}")
+    ring_rows = [r for r in ptxas_rows if "_ring_kernel" in r]
+    require(len(ring_rows) == 2 and all("stack 0 B, spills 0/0 B" in r
+                                        for r in ring_rows),
+            f"kernels B and C on the ring have a stack frame or spills: "
+            f"{ring_rows}")
 
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
     d_args, e_args, err_int8, int8_plans = check_lstm_int8(
         torch, int8, lstm_int8_cuda, dev)
-    moves, blank, fwd, err_b, err_c = check_decode(torch, decode_cuda, dev)
+    moves, blank, fwd, err_b, err_c, plan_bc, bc_vs_old = check_decode(
+        torch, decode_cuda, dev)
     err_m, err_q = check_decode_full(torch, decode_full_cuda, dev)
     log(f"    and at fast widths (N={FN}, T={FT}, C=H={FH}, S={FS})")
     f_args, err_f = check_lstm_fused(torch, lstm_fused_cuda, dev)
@@ -2382,6 +2431,9 @@ def main():
     # one batch's move scores: kernel D's chain against its plain version's
     prepared, step_int8 = device_step(np, models["int8"], reads,
                                       make_compute_fn, chunk)
+    with earlier_kernel(decode_cuda, "decode_plan"):
+        _, step_int8_bc_old = device_step(np, models["int8"], reads,
+                                          make_compute_fn, chunk)
     prepared_bf16, step_bf16 = device_step(np, models["bf16"], reads,
                                            make_compute_fn, chunk)
     _, x_wire, sig_scale = prepared
@@ -2525,9 +2577,12 @@ def main():
     # the kernels' moves: identical, as in phase 3)
     prepared, step_sup = device_step(np, models["sup"], fast_reads,
                                      make_compute_fn, chunk)
-    with earlier_attention_kernel(attention_cuda):
+    with earlier_kernel(attention_cuda):
         _, step_sup_old = device_step(np, models["sup"], fast_reads,
                                       make_compute_fn, chunk)
+    with earlier_kernel(decode_cuda, "decode_plan"):
+        _, step_sup_bc_old = device_step(np, models["sup"], fast_reads,
+                                         make_compute_fn, chunk)
     _, x_wire, sig_scale = prepared
     sup = models["sup"]
     q = dict(qscale=1.05, qbias=1.3)
@@ -2552,6 +2607,12 @@ def main():
             torch, sup, mv_kernel, mv_plain, sup_blank, ops_decode, **q)
         sup_moves = mv_kernel.permute(2, 0, 1).contiguous()
         sup_fwd = decode_cuda.tcn_forward(sup_moves, sup_blank)
+        sup_out = decode_cuda.tcn_backward(sup_moves, *sup_fwd, sup_blank,
+                                           **q)
+        sup_plan = (decode_cuda.tcn_forward.plan,
+                    decode_cuda.tcn_backward.plan)
+        sup_differ, sup_vs_old = ring_vs_old_kernel(
+            torch, decode_cuda, sup_moves, sup_blank, sup_fwd, sup_out, **q)
         ref_fwd = decode_cuda.tcn_forward_plain(sup_moves, sup_blank)
         out_plain = decode_cuda.tcn_backward_plain(sup_moves, *ref_fwd,
                                                    sup_blank, **q)
@@ -2574,7 +2635,15 @@ def main():
             "decode through the plain versions")
     require(exact and torch.equal(sup_fwd[1], ref_fwd[1]) and dq <= 1,
             "sup path: B + C disagree with their plain versions")
-    del mv_kernel, mv_plain, out_kernel, out_plain, ref_fwd, conv_out
+    log(f"    B + C on the ring (plan {sup_plan[0]}) vs the earlier kernels "
+        f"on the kernels' moves: outputs that differ in any bit "
+        f"{sup_differ}, max |diff| {sup_vs_old:.3g}")
+    require(sup_plan[0] is not None and sup_plan[1] is not None,
+            "sup path: B and C did not run on the ring")
+    require(not sup_differ, f"sup path: B + C on the ring differ from the "
+            f"earlier kernels in {sup_differ}")
+    bc_vs_old = max(bc_vs_old, sup_vs_old)
+    del mv_kernel, mv_plain, out_kernel, out_plain, ref_fwd, conv_out, sup_out
     # the same batch on the reverse path: its full scores (T 2000), reverse
     # complemented, through M + Q against their plain versions; M and Q are
     # timed on these scores in phase 8
@@ -2657,7 +2726,7 @@ def main():
         prepared, fused_steps[name] = device_step(
             np, model, rds, make_compute_fn, chunk, head_route="fused")
         if src == "sup":
-            with earlier_attention_kernel(attention_cuda):
+            with earlier_kernel(attention_cuda):
                 _, fused_steps[name + "_old"] = device_step(
                     np, model, rds, make_compute_fn, chunk,
                     head_route="fused")
@@ -2717,6 +2786,9 @@ def main():
             f"{per_batch / step * 1e3:.6g} samples/s")
     log(f"  fast with head_route='tcn' (head matmul + B + C in place of G + "
         f"J): device step {step_fast_tcn:.4g} ms per batch")
+    log(f"  B and C on their earlier kernels in place of the ring: hac int8 "
+        f"device step {step_int8_bc_old:.4g} ms per batch (the ring's "
+        f"{step_int8:.4g}), sup {step_sup_bc_old:.4g} ms ({step_sup:.4g})")
     log(f"  sup with K's earlier kernel in place of the stretch kernel: "
         f"device step {step_sup_old:.4g} ms per batch (the stretch kernel's "
         f"{step_sup:.4g}); sup_fused {fused_steps['sup_fused_old']:.4g} ms "
@@ -2808,10 +2880,14 @@ def main():
         f"torch._int_mm, rescale) {project:.4g} ms per layer")
 
     ms_b = cuda_ms(lambda: decode_cuda.tcn_forward(moves, blank), reps=3)
+    ms_b_old = cuda_ms(lambda: decode_cuda.tcn_forward_old_kernel(
+        moves, blank), reps=3)
     plain_b = cuda_ms(lambda: decode_cuda.tcn_forward_plain(moves, blank),
                       reps=1, warmup=0)
     ms_c = cuda_ms(lambda: decode_cuda.tcn_backward(moves, *fwd, blank),
                    reps=3)
+    ms_c_old = cuda_ms(lambda: decode_cuda.tcn_backward_old_kernel(
+        moves, *fwd, blank), reps=3)
     plain_c = cuda_ms(lambda: decode_cuda.tcn_backward_plain(
         moves, *fwd, blank), reps=1, warmup=0)
     R = S // 4
@@ -2836,6 +2912,10 @@ def main():
     sd = models["int8"].seqdist
     ms_rc = cuda_ms(lambda: sd.reverse_complement(full_scores), reps=3)
     bound_m, bound_q = full_decode_bounds(full_scores)
+    log(f"  B {ms_b:.4g} ms, C {ms_c:.4g} ms on the ring (bounds "
+        f"{bound_b[0]:.4g} and {bound_c[0]:.4g} ms by {bound_b[1]}); their "
+        f"earlier kernels {ms_b_old:.4g} and {ms_c_old:.4g} ms on the same "
+        f"[{N}, {T}, {4 * S}] moves")
     log(f"  M {ms_m:.4g} ms, Q {ms_q:.4g} ms on bf16 scores [{N}, {T}, "
         f"{5 * S}] (B {ms_b:.4g}, C {ms_c:.4g} on the [{N}, {T}, {4 * S}] "
         f"moves); reverse_complement of those scores {ms_rc:.4g} ms")
@@ -2998,6 +3078,10 @@ def main():
                        reps=3)
     ms_c_sup = cuda_ms(lambda: decode_cuda.tcn_backward(
         sup_moves, *sup_fwd, sup_blank), reps=3)
+    ms_b_sup_old = cuda_ms(lambda: decode_cuda.tcn_forward_old_kernel(
+        sup_moves, sup_blank), reps=3)
+    ms_c_sup_old = cuda_ms(lambda: decode_cuda.tcn_backward_old_kernel(
+        sup_moves, *sup_fwd, sup_blank), reps=3)
     ST2 = 2 * ST  # decode frames
     sup_move_bytes = SN * ST2 * 4 * S * 2
     bound_b_sup = bound(sup_move_bytes + SN * ST2 * S * 5 + SN * ST2 * 4
@@ -3013,7 +3097,8 @@ def main():
     bound_m_sup, bound_q_sup = full_decode_bounds(sup_rc)
     del sup_rc, sup_rc_fwd
     log(f"  B {ms_b_sup:.4g} ms, C {ms_c_sup:.4g} ms at sup shapes (bounds "
-        f"{bound_b_sup[0]:.4g} and {bound_c_sup[0]:.4g} ms by bytes); M "
+        f"{bound_b_sup[0]:.4g} and {bound_c_sup[0]:.4g} ms by bytes; their "
+        f"earlier kernels {ms_b_sup_old:.4g} and {ms_c_sup_old:.4g} ms); M "
         f"{ms_m_sup:.4g} ms, Q {ms_q_sup:.4g} ms on the same batch's reverse "
         f"scores")
 
@@ -3148,6 +3233,7 @@ def main():
     src_int8 = "bonito_tpu_torch/csrc/lstm_int8.cu"
     src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
     src_full = "bonito_tpu_torch/csrc/decode_full.cu"
+    src_ring = "bonito_tpu_torch/csrc/decode_tcn_ring.cu"
     src_wide = "bonito_tpu_torch/csrc/decode_tcn_fused_wide.cu"
     # launches: the count on the path that is the kernel's own (A: bf16,
     # D, B, C: int8 fused, E: int8 two-stage, F, G, J: fast, K, P: sup, L:
@@ -3157,10 +3243,10 @@ def main():
         ("lstm_recurrence", "A", "bf16", "bonito_tpu_torch/csrc/lstm.cu",
          "bonito_tpu/ops/lstm_pallas.py:54", err_a, ms_a, plain_a, bound_a,
          lib_a),
-        ("decode_tcn_fwd", "B", "int8", "bonito_tpu_torch/csrc/decode_tcn.cu",
+        ("decode_tcn_fwd", "B", "int8", src_ring,
          "bonito_tpu/ops/decode_pallas.py:183", err_b, ms_b, plain_b, bound_b,
          None),
-        ("decode_tcn_bwd", "C", "int8", "bonito_tpu_torch/csrc/decode_tcn.cu",
+        ("decode_tcn_bwd", "C", "int8", src_ring,
          "bonito_tpu/ops/decode_pallas.py:246", err_c, ms_c, plain_c, bound_c,
          None),
         ("lstm_int8_fused", "D", "int8", src_int8,
@@ -3206,10 +3292,17 @@ def main():
                   "us_a_step": ms_d / T * 1e3},
             "E": {"step_kernel_ms": ms_e_step, "plan": int8_plans["E"],
                   "us_a_step": ms_e / T * 1e3},
-            "B": {"sup_shape_ms": ms_b_sup,
-                  "sup_shape_bound_ms": bound_b_sup[0]},
-            "C": {"sup_shape_ms": ms_c_sup,
-                  "sup_shape_bound_ms": bound_c_sup[0]},
+            **{k: {"plan": plan_bc, "old_kernel_ms": old,
+                   "max_abs_err_vs_old_kernel": bc_vs_old,
+                   "sup_shape_ms": sup, "sup_shape_old_kernel_ms": sup_old,
+                   "sup_shape_bound_ms": sup_bound[0],
+                   "hac_int8_device_step_ms": step_int8,
+                   "hac_int8_device_step_old_kernel_ms": step_int8_bc_old,
+                   "sup_device_step_ms": step_sup,
+                   "sup_device_step_old_kernel_ms": step_sup_bc_old}
+               for k, old, sup, sup_old, sup_bound in (
+                   ("B", ms_b_old, ms_b_sup, ms_b_sup_old, bound_b_sup),
+                   ("C", ms_c_old, ms_c_sup, ms_c_sup_old, bound_c_sup))},
             "M": {"fast_shape_ms": ms_m_fast,
                   "fast_shape_bound_ms": bound_m_fast[0],
                   "sup_shape_ms": ms_m_sup,

@@ -67,14 +67,24 @@ def test_lstm_kernel_rejects_f32(cuda):
         lstm_cuda.lstm_recurrence(xw, torch.zeros(16, 64, device=cuda))
 
 
-@pytest.mark.parametrize("state_len,N,T", [(3, 8, 30), (5, 3, 12), (2, 4, 9)])
+@pytest.mark.parametrize("state_len,N,T", [(3, 8, 30), (5, 3, 12), (2, 4, 9),
+                                           (5, 2, 200), (1, 3, 7)])
 def test_decode_kernels_match_plain(cuda, state_len, N, T):
+    """Kernels B and C on the shape rule's route (decode_cuda.decode_plan:
+    the ring for S a multiple of 16, state_len 2 and up; the earlier
+    kernels for S 4), the plan recorded; T 200 at S 1024 is well beyond
+    the ring's depth."""
     S = 4 ** state_len
     g = torch.Generator().manual_seed(S + N)
     moves = (3 * torch.randn(N, T, 4 * S, generator=g)).to(cuda, torch.bfloat16)
     fwd = decode_cuda.tcn_forward(moves, 2.0)
     out = decode_cuda.tcn_backward(moves, *fwd, 2.0, qscale=1.05, qbias=0.2)
     torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = decode_cuda.decode_plan(N, T, S, sms)
+    assert (plan is None) == (state_len == 1)
+    assert decode_cuda.tcn_forward.plan == plan
+    assert decode_cuda.tcn_backward.plan == plan
     ref_fwd = decode_cuda.tcn_forward_plain(moves, 2.0)
     ref = decode_cuda.tcn_backward_plain(moves, *ref_fwd, 2.0, qscale=1.05,
                                          qbias=0.2)
@@ -86,6 +96,46 @@ def test_decode_kernels_match_plain(cuda, state_len, N, T):
         torch.testing.assert_close(out[k], ref[k], rtol=0, atol=0)
     dq = (out["qstring"].int() - ref["qstring"].int()).abs().max().item()
     assert dq <= 1
+
+
+def _bits(x):
+    return x.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("S,N,T", [(1024, 3, 12), (1024, 96, 300),
+                                   (1024, 1, 1), (1024, 2, 8), (1024, 2, 9),
+                                   (64, 8, 30), (16, 4, 9), (256, 5, 40),
+                                   (48, 3, 17)])
+def test_decode_ring_matches_the_earlier_kernels(cuda, S, N, T):
+    """B and C on the ring against their earlier kernels on the same moves,
+    bit for bit on all eight outputs (move_in, choices, c, logZ, end state;
+    sequence, qstring, moves): T below, at (8) and beyond the ring's depth,
+    one frame, one row, S 48 (a warp with idle threads)."""
+    g = torch.Generator().manual_seed(S + N + T)
+    moves = (3 * torch.randn(N, T, 4 * S, generator=g)).clamp(-5, 5).to(
+        cuda, torch.bfloat16)
+    fwd = decode_cuda.tcn_forward(moves, 2.0)
+    out = decode_cuda.tcn_backward(moves, *fwd, 2.0, qscale=1.05, qbias=0.2)
+    assert decode_cuda.tcn_forward.plan is not None
+    assert decode_cuda.tcn_backward.plan is not None
+    old_fwd = decode_cuda.tcn_forward_old_kernel(moves, 2.0)
+    old = decode_cuda.tcn_backward_old_kernel(moves, *old_fwd, 2.0,
+                                              qscale=1.05, qbias=0.2)
+    torch.cuda.synchronize()
+    for a, b in zip(fwd, old_fwd):
+        assert torch.equal(_bits(a), _bits(b))
+    for k in ("sequence", "qstring", "moves"):
+        assert torch.equal(out[k], old[k]), k
+
+
+def test_decode_old_kernels_count_no_launch(cuda):
+    moves = torch.zeros(2, 4, 4 * 64, device=cuda, dtype=torch.bfloat16)
+    b, c = decode_cuda.tcn_forward.launches, decode_cuda.tcn_backward.launches
+    fwd = decode_cuda.tcn_forward_old_kernel(moves, 2.0)
+    decode_cuda.tcn_backward_old_kernel(moves, *fwd, 2.0)
+    torch.cuda.synchronize()
+    assert (decode_cuda.tcn_forward.launches,
+            decode_cuda.tcn_backward.launches) == (b, c)
 
 
 def test_decode_kernels_reject_f32(cuda):

@@ -1,13 +1,15 @@
-"""The pure-Python shape rules of kernels A, R, S, L, D, E, K, H and O
-(``ops.lstm_cuda.persistent_plan``, ``ops.lstm_train_cuda.forward_plan``
-and ``backward_plan``, ``ops.attention_cuda.padded_head_dim``,
-``ops.lstm_int8_cuda.persistent_plan``, ``ops.attention_cuda.
-window_plan`` and ``window_bwd_plan``): what each launch asks of the card,
+"""The pure-Python shape rules of kernels A, R, S, L, D, E, K, H, O, B
+and C (``ops.lstm_cuda.persistent_plan``, ``ops.lstm_train_cuda.
+forward_plan`` and ``backward_plan``, ``ops.attention_cuda.
+padded_head_dim``, ``ops.lstm_int8_cuda.persistent_plan``, ``ops.
+attention_cuda.window_plan`` and ``window_bwd_plan``, ``ops.decode_cuda.
+decode_plan``): what each launch asks of the card,
 that A's, S's, D's and E's CTAs cover every row, unit and gate column
 once, that K's stretches cover every query tile once with its band in the
 ring, that O's two kinds cover every query tile and every key tile once
-with their bands (the dk kind's mirrored) in their rings, and the head dim
-L's bf16 instance runs at. Each is what the
+with their bands (the dk kind's mirrored) in their rings, that B's and
+C's ring hands each frame over once, in order, and sums the states in
+``block_sum``'s tree, and the head dim L's bf16 instance runs at. Each is what the
 wrapper passes to its kernel. They run here, on the CPU; the kernels
 themselves, and L's tiling, which is fixed in the kernel, only on the card
 (tests/test_torch_gpu.py)."""
@@ -15,7 +17,7 @@ themselves, and L's tiling, which is fixed in the kernel, only on the card
 import pytest
 import torch
 
-from bonito_tpu_torch.ops import (attention_cuda, lstm_cuda,
+from bonito_tpu_torch.ops import (attention_cuda, decode_cuda, lstm_cuda,
                                   lstm_int8_cuda, lstm_train_cuda)
 
 SMS = 132             # an H100's SMs
@@ -661,3 +663,181 @@ def test_window_bwd_plan_sends_the_rest_to_the_earlier_kernel(dtype, D,
     assert attention_cuda.window_bwd_entry(
         _bwd_plan(32, 1024, 8, 64, SUP_WINDOW)) == \
         "fused_rotary_window_attention_bwd_stretch"
+
+
+# (N, T, S): hac (N 96, T 1666), sup (N 128, T 2000), the GPU tests'
+# shapes (state_len 2, 3 and 5; T below, at and beyond the ring), one row,
+# one frame, S 48 (no power of 4: a warp with idle threads)
+DECODE_SHAPES = [(96, 1666, 1024), (128, 2000, 1024), (4, 9, 16),
+                 (8, 30, 64), (3, 12, 1024), (2, 4, 64), (3, 400, 1024),
+                 (1, 8, 256), (2, 1, 1024), (1, 17, 48)]
+
+
+@pytest.mark.parametrize("N,T,S", DECODE_SHAPES)
+def test_decode_plan_fits_the_card(N, T, S):
+    """One CTA a row of S / 4 consumer threads (whole warps, at most 8),
+    a producer and an epilogue warp; each pass's shared memory within the
+    card's."""
+    plan = decode_cuda.decode_plan(N, T, S, SMS)
+    assert plan is not None and plan["ctas"] == N
+    assert plan["states_per_thread"] == 4
+    assert plan["consumer_threads"] % 32 == 0
+    assert S // 4 <= plan["consumer_threads"] < S // 4 + 32
+    assert plan["threads"] == plan["consumer_threads"] + 64 <= 320
+    for name, backward in (("fwd", False), ("bwd", True)):
+        ring = plan[name]["ring"]
+        assert 2 <= ring <= 16  # what the C entries take
+        assert plan[name]["smem"] == decode_cuda.ring_smem(S, ring, backward)
+        assert plan[name]["smem"] <= SMEM
+        # the slots and the rows they copy are whole 16-byte pieces
+        assert (8 * S) % 16 == 0 and (4 * S) % 16 == 0 and S % 16 == 0
+
+
+def _ring_events(T, ring, backward):
+    """The order of csrc/decode_tcn_ring.cu's fills and reads of the ring
+    for one row: ("fill", frame) by the producer warp (frames 0 .. ring -
+    1 first, then after the barrier of frame i those below i + 2 + ring in
+    B, i + 1 + ring in C), ("read", frame, why) by the consumers; frames
+    are the order the pass takes them (C's frame i is t = T - 1 - i). B's
+    consumers read frame 0's row before the loop and, in frame i, the row
+    of min(i + 1, T - 1); C's read the same rows, and in frame i also its
+    move_in and choices (the epilogue warp reads none of the ring)."""
+    events = [("fill", u) for u in range(min(ring, T))]
+    issued = min(ring, T)
+    events.append(("read", 0, "row"))
+    for i in range(T):
+        events.append(("read", min(i + 1, T - 1), "row"))
+        if backward:
+            events.append(("read", i, "frame"))
+        events.append(("barrier", i))
+        upto = min(T, i + (1 if backward else 2) + ring)
+        events += [("fill", u) for u in range(issued, upto)]
+        issued = max(issued, upto)
+    return events
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 7, 8, 9, 16, 17, 40])
+def test_decode_ring_hands_each_frame_over_once_in_order(T, backward):
+    """With the plan's ring of 8: T below, at and beyond it. Every frame
+    is copied once, in the pass's order (B t = 0 .. T-1, C t = T-1 .. 0);
+    each read finds its frame in its slot (slot u % ring), filled before;
+    the rows the consumers compute with are frames 0, 1, ..., T-1, each
+    once (the last frame's second read of its row is unused); and no slot
+    is refilled while a frame in it has a read to come."""
+    ring = decode_cuda.decode_plan(1, T, 1024)["bwd" if backward else
+                                               "fwd"]["ring"]
+    events = _ring_events(T, ring, backward)
+    fills = [e[1] for e in events if e[0] == "fill"]
+    assert fills == list(range(T))
+    slots = [None] * ring
+    rows = []
+    for k, e in enumerate(events):
+        if e[0] == "fill":
+            old = slots[e[1] % ring]
+            if old is not None:
+                assert not any(f[0] == "read" and f[1] == old
+                               for f in events[k:]), (e, old)
+            slots[e[1] % ring] = e[1]
+        elif e[0] == "read":
+            assert slots[e[1] % ring] == e[1], e
+            if e[2] == "row":
+                rows.append(e[1])
+    assert rows[:T] == list(range(T)) and rows[T:] == [T - 1]
+
+
+def test_decode_ring_leaves_its_copies_frames_to_land():
+    """Beyond the first ring, a frame's copy is issued at least ring - 2
+    whole frames before the frame in which its row is read (B: ring - 1
+    but for frame ring, which goes with ring + 1)."""
+    for backward in (False, True):
+        events = _ring_events(100, 8, backward)
+        at, frame = {}, 0
+        for e in events:
+            if e[0] == "barrier":
+                frame = e[1] + 1
+            elif e[0] == "fill":
+                at[e[1]] = frame
+        # frame u's row is read in frame u - 1
+        lead = [u - 1 - at[u] for u in range(8, 100)]
+        assert min(lead) == 6
+        assert lead[1:] == [6 if backward else 7] * len(lead[1:])
+
+
+def test_decode_plan_at_hac_and_sup():
+    """hac (N 96, T 1666) and sup (N 128, T 2000) at S 1024: 96 or 128
+    CTAs of 8 consumer warps, a producer and an epilogue warp, one wave on
+    132 SMs, rings
+    of 8 frames: 82,752 B (B) and 117,568 B (C) a CTA."""
+    for N, T in ((96, 1666), (128, 2000)):
+        plan = decode_cuda.decode_plan(N, T, 1024, SMS)
+        assert plan == {"threads": 320, "consumer_threads": 256,
+                        "states_per_thread": 4, "ctas": N, "waves": 1,
+                        "fwd": {"ring": 8, "smem": 82752},
+                        "bwd": {"ring": 8, "smem": 117568}}
+    assert decode_cuda.decode_entry(plan, False) == "decode_tcn_fwd_ring"
+    assert decode_cuda.decode_entry(plan, True) == "decode_tcn_bwd_ring"
+
+
+@pytest.mark.parametrize("N,T,S", [(3, 7, 4), (2, 9, 8), (2, 5, 20),
+                                   (2, 5, 1028), (0, 5, 64), (2, 0, 64)])
+def test_decode_plan_sends_the_rest_to_the_earlier_kernel(N, T, S):
+    """S not a multiple of 16 (a row of choices is no whole number of
+    16-byte pieces) or beyond 1024, and empty shapes: no plan, and the
+    wrappers launch the earlier kernels' entries."""
+    plan = decode_cuda.decode_plan(N, T, S, SMS)
+    assert plan is None
+    assert decode_cuda.decode_entry(plan, False) == "decode_tcn_fwd_bf16"
+    assert decode_cuda.decode_entry(plan, True) == "decode_tcn_bwd_bf16"
+
+
+def _ring_state_sum(x, only_base=None):
+    """A sum over states as csrc/decode_tcn_ring.cu takes it: thread r =
+    32w + lane holds states 4r .. 4r+3; each of its values goes through
+    lanes xor 4, 2, 1 (states xor 16, 8, 4 in the run of 32 of threads 8k
+    .. 8k+7), then the thread adds its own four as (v0 + v2) + (v1 + v3)
+    (states xor 2, then 1). C's mass: thread r's one share (its state of
+    the emitted base; the other three states add zeros), the same three
+    levels over threads 8k .. 8k+7 taken in one lane of the epilogue warp
+    ((v0 + v4) + (v2 + v6)) + ((v1 + v5) + (v3 + v7)). Run k's sum then goes
+    through the butterfly of 32 runs (zeros past the last). f32
+    throughout."""
+    S = x.shape[-1]
+    consumers = -(-(S // 4) // 32) * 32
+    v = torch.zeros(*x.shape[:-1], consumers, 4)
+    v[..., :S // 4, :] = x.reshape(*x.shape[:-1], S // 4, 4)
+    k = consumers // 8
+    if only_base is None:
+        lanes = torch.arange(consumers)
+        for o in (4, 2, 1):
+            v = v + v[..., lanes ^ o, :]
+        run = ((v[..., 0] + v[..., 2]) + (v[..., 1] + v[..., 3]))[..., ::8]
+    else:
+        u = v[..., only_base].reshape(*x.shape[:-1], k, 8)
+        run = (((u[..., 0] + u[..., 4]) + (u[..., 2] + u[..., 6]))
+               + ((u[..., 1] + u[..., 5]) + (u[..., 3] + u[..., 7])))
+    runs = torch.zeros(*x.shape[:-1], 32)
+    runs[..., :k] = run
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        runs = runs + runs[..., idx ^ o]
+    return runs[..., 0]
+
+
+@pytest.mark.parametrize("S", [16, 48, 64, 256, 1024])
+def test_decode_ring_sums_states_in_block_sums_tree(S):
+    """The ring's thread layout (four states a thread) takes B's closing
+    sum and C's posterior mass in block_sum's tree, bit for bit on random
+    f32 values of many magnitudes (and, for the mass, one base's states
+    with the others at zero)."""
+    g = torch.Generator().manual_seed(S)
+    x = torch.rand(64, S, generator=g) * torch.exp(
+        8 * torch.randn(64, S, generator=g))
+    want = decode_cuda.block_sum(x)
+    assert torch.equal(_ring_state_sum(x).view(torch.int32),
+                       want.view(torch.int32))
+    for base in range(4):
+        masked = torch.where(torch.arange(S) % 4 == base, x, torch.zeros(()))
+        assert torch.equal(
+            _ring_state_sum(x, base).view(torch.int32),
+            decode_cuda.block_sum(masked).view(torch.int32))
