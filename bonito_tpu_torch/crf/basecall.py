@@ -59,10 +59,12 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
     be split, else tcn, else (no fixed blank) the full scores.
 
     ``reverse`` (the basecaller's ``--revcomp``) and ``decoder="beam"``
-    take the full scores of ``model(x)``, as bonito_tpu does: reverse
-    complemented if ``reverse`` (``seqdist.reverse_complement``), then
-    ``beam_search_device`` (width ``basecaller.beam_width`` of the config, 32
-    by default) or ``viterbi_decode``. ``head_route`` names no route there.
+    take the full scores of ``model(x)``, as bonito_tpu does: the Viterbi
+    decode of the reverse strand reads them in reverse-complement order in
+    place (``viterbi_decode(..., reverse=True)``, bonito_tpu's decode of
+    ``seqdist.reverse_complement(scores)``); the beam decode
+    (``beam_search_device``, width ``basecaller.beam_width`` of the config,
+    32 by default) takes that copy. ``head_route`` names no route there.
     """
     if decoder not in DECODERS:
         raise ValueError(f"decoder {decoder!r}: expected one of {DECODERS}")
@@ -101,12 +103,12 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
                 raise ValueError("head_route='tcn': this model's head has no "
                                  "fixed blank score")
         scores = model(x)
-        if reverse:
-            scores = model.seqdist.reverse_complement(scores)
         if decoder == "beam":
+            if reverse:
+                scores = model.seqdist.reverse_complement(scores)
             return beam_search_device(model.seqdist, scores,
                                       beam_width=beam_width, **q)
-        return viterbi_decode(model.seqdist, scores, **q)
+        return viterbi_decode(model.seqdist, scores, reverse=reverse, **q)
 
     def prepare(batch):
         n = batch.shape[0]

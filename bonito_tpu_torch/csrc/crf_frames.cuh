@@ -17,6 +17,15 @@
 // FullFrame: full scores [N, T, (nb+1)*S]; state s owns the nb+1 adjacent
 // columns s*(nb+1) .. s*(nb+1)+nb, the stay first, then the move from
 // predecessor p = j*R + s/nb in column s*(nb+1)+1+j.
+// RevFullFrame: the reverse strand's full scores read from the forward
+// strand's in place (seqdist.reverse_complement, written as indexing). With
+// rc_k(x) the reverse of x's k base-4 digits, each complemented (d -> 3-d),
+// and S = 4**sl: the reverse strand's frame t is the forward frame T-1-t,
+// its stay of state s the forward column rc_sl(s)*(nb+1), its move into s
+// from slot j the column (rc_{sl-1}(s/nb)*nb + 3-j)*(nb+1) + 1 + 3 - s%nb.
+// Its move_in and choices are stored with the states in the forward
+// strand's order: reverse state s in column rc_sl(s) (out_of), where the
+// ring kernels (decode_ring.cuh) store them in whole warps.
 
 #pragma once
 
@@ -96,6 +105,17 @@ __device__ void block_argmax(float& v, int& i, float* redv, int* redi) {
     }
 }
 
+// the reverse complement of the `digits` base-4 digits of x: the digits in
+// reverse order, each d taken as 3 - d
+__host__ __device__ __forceinline__ int rc_digits(int x, int digits) {
+    int y = 0;
+    for (int k = 0; k < digits; ++k) {
+        y = y * NB + (NB - 1 - x % NB);
+        x /= NB;
+    }
+    return y;
+}
+
 struct TcnFrame {
     float blank, p_stay;
     __host__ __device__ int width(int S) const { return NB * S; }
@@ -127,5 +147,36 @@ struct FullFrame {
         j = i % (NB + 1) - 1;
     }
 };
+
+struct RevFullFrame {
+    int digits;  // state_len: S = 4**digits
+    __host__ __device__ int width(int S) const { return (NB + 1) * S; }
+    __device__ float move(const float* row, int, int s, int j) const {
+        const int p = rc_digits(s / NB, digits - 1) * NB + NB - 1 - j;
+        return row[p * (NB + 1) + NB - s % NB];
+    }
+    __device__ float stay(const float* row, int s) const {
+        return row[rc_digits(s, digits) * (NB + 1)];
+    }
+    __device__ float stay_prob(const float* row, int s) const {
+        return expf(stay(row, s));
+    }
+};
+
+// Where a pass reads frame t's row (the frame of the scores) and stores
+// state s's move_in and choice (the column): t and s but for the reverse
+// strand read in place.
+template <class Frame>
+__device__ __forceinline__ int frame_of(const Frame&, int t, int) {
+    return t;
+}
+__device__ __forceinline__ int frame_of(const RevFullFrame&, int t, int T) {
+    return T - 1 - t;
+}
+template <class Frame>
+__device__ __forceinline__ int out_of(const Frame&, int s) { return s; }
+__device__ __forceinline__ int out_of(const RevFullFrame& f, int s) {
+    return rc_digits(s, f.digits);
+}
 
 }  // namespace

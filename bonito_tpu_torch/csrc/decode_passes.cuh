@@ -5,7 +5,9 @@
 //
 // A Frame (crf_frames.cuh, with the block-wide reductions) says where a
 // frame's scores sit; the kernels hold each frame's row in shared memory
-// as f32 and read it through the Frame. fwd_frame and bwd_frame are one
+// as f32 and read it through the Frame. The reverse strand read in place
+// (RevFullFrame) also takes its rows in reverse order and keeps move_in and
+// choices in the forward strand's order of states (frame_of, out_of). fwd_frame and bwd_frame are one
 // frame of each pass: B, C, M and Q copy the row from device memory, GW
 // and JW compute it from the head.
 //
@@ -95,8 +97,8 @@ __device__ __forceinline__ void fwd_frame(const Frame& f, const float* row,
         const bool is_move = best > stay_m;
         A[s] = a_raw * inv;
         amax[s] = is_move ? best : stay_m;
-        move_in[s] = acc * inv;
-        choices[s] = is_move ? (uint8_t)(jbest + 1) : (uint8_t)0;
+        move_in[out_of(f, s)] = acc * inv;
+        choices[out_of(f, s)] = is_move ? (uint8_t)(jbest + 1) : (uint8_t)0;
     }
     if (threadIdx.x == 0) *cs = c;
 }
@@ -141,14 +143,14 @@ __device__ __forceinline__ void bwd_frame(const Frame& f, const float* row,
     const bool active = s < S;
     const int j = s / R, r = s % R;
     // traceback: uniform across the block
-    const int choice = choices[state];
+    const int choice = choices[out_of(f, state)];
     const bool is_move = choice != 0;
     const int base = state % NB + 1;
     const int prev = is_move ? state / NB + (choice - 1) * R : state;
 
     float v = 0.f, b_raw = -INFINITY;
     if (active) {
-        if (s % NB == base - 1) v = move_in[s] * B[s];
+        if (s % NB == base - 1) v = move_in[out_of(f, s)] * B[s];
         float acc = 0.f;
 #pragma unroll
         for (int bb = 0; bb < NB; ++bb)
@@ -197,7 +199,7 @@ __global__ void decode_fwd(const In* __restrict__ scores,  // [N, T, width]
     const In* srow = scores + (size_t)n * T * W;
     for (int t = 0; t < T; ++t) {
         __syncthreads();  // last frame's A/amax visible; row free
-        load_row(srow + (size_t)t * W, row, W);
+        load_row(srow + (size_t)frame_of(f, t, T) * W, row, W);
         __syncthreads();
         const size_t frame = (size_t)n * T + t;
         fwd_frame(f, row, S, A, amax, c, red, move_in + frame * S,
@@ -232,7 +234,7 @@ __global__ void decode_bwd(const In* __restrict__ scores,      // [N, T, width]
     const In* srow = scores + (size_t)n * T * W;
     for (int t = T - 1; t >= 0; --t) {
         __syncthreads();
-        load_row(srow + (size_t)t * W, row, W);
+        load_row(srow + (size_t)frame_of(f, t, T) * W, row, W);
         __syncthreads();
         const size_t frame = (size_t)n * T + t;
         bwd_frame(f, row, S, B, d, state, lz, red, move_in + frame * S,

@@ -70,11 +70,17 @@ SIGNATURES = {
     "decode_tcn_fwd_ring": [P, P, P, P, P, P, I, I, I, I, F, F, P],
     "decode_tcn_bwd_ring": [P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F,
                             P],
-    # scores, is_f32, move_in, choices, c, logz, end_state, N, T, S, stream
-    "decode_full_fwd": [P, I, P, P, P, P, P, I, I, I, P],
-    # scores, is_f32, move_in, choices, c, logz, end_state, sequence,
-    # qstring, moves_out, N, T, S, qscale, qbias, stream
-    "decode_full_bwd": [P, I, P, P, P, P, P, P, P, P, I, I, I, F, F, P],
+    # scores, is_f32, reverse, move_in, choices, c, logz, end_state, N, T,
+    # S, stream
+    "decode_full_fwd": [P, I, I, P, P, P, P, P, I, I, I, P],
+    # scores, is_f32, reverse, move_in, choices, c, logz, end_state,
+    # sequence, qstring, moves_out, N, T, S, qscale, qbias, stream
+    "decode_full_bwd": [P, I, I, P, P, P, P, P, P, P, P, I, I, I, F, F, P],
+    # kernels M and Q on a ring of frames (csrc/decode_full.cu with
+    # csrc/decode_ring.cuh): as the two above, with the ring's depth after S
+    "decode_full_fwd_ring": [P, I, I, P, P, P, P, P, I, I, I, I, P],
+    "decode_full_bwd_ring": [P, I, I, P, P, P, P, P, P, P, P, I, I, I, I, F,
+                             F, P],
     # h, w, bias, move_in, choices, c, logz, end_state, Th, N, H, S, U,
     # p_stay, blank, act_tanh, scale, clamp, cmin, cmax, stream
     "decode_fused_fwd_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, F,

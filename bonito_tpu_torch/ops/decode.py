@@ -21,9 +21,9 @@ and computes the move scores inside the decode, in f32 (kernels G and J);
 bf16 or not changes near-ties, so the two routes decode a bf16 model
 differently and the choice is part of the result. ``viterbi_decode``
 reads full score tensors with a stay plane (kernels M and Q): the reverse
-strand's, whose stays are no longer one constant, and a head's without a
-fixed blank. The beam decoder over full scores is
-``ops.beam_device.beam_search_device``.
+strand's, whose stays are no longer one constant (read from the forward
+strand's scores in place), and a head's without a fixed blank. The beam
+decoder over full scores is ``ops.beam_device.beam_search_device``.
 """
 
 import numpy as np
@@ -83,17 +83,23 @@ def viterbi_decode_head(seqdist, head, qscale=1.0, qbias=0.0):
     return tcn_fused_backward(head, *fwd, qscale=qscale, qbias=qbias)
 
 
-def viterbi_decode(seqdist, scores, qscale=1.0, qbias=0.0):
+def viterbi_decode(seqdist, scores, qscale=1.0, qbias=0.0, reverse=False):
     """Full scores [N, T, S*(nb+1)] (slot 0 of each state the stay) -> the
     decode dict. Same contract as bonito_tpu's ``viterbi_decode``: kernels
     M and Q on the card, their plain versions (bonito_tpu's
     ``viterbi_decode_scan`` in plain torch) for a CPU tensor. The rows are
     independent, so the whole batch goes in one launch of each. The kernels
-    read the scores in place: a strided CUDA tensor raises."""
+    read the scores in place: a strided CUDA tensor raises.
+
+    ``reverse``: the decode of the reverse strand,
+    ``viterbi_decode(seqdist, seqdist.reverse_complement(scores))``, with
+    the kernels reading ``scores`` in reverse-complement order in place
+    (no copy)."""
     N, T, C = scores.shape
     _check(seqdist, C - seqdist.n_states)
-    fwd = full_forward(scores)
-    return full_backward(scores, *fwd, qscale=qscale, qbias=qbias)
+    fwd = full_forward(scores, reverse=reverse)
+    return full_backward(scores, *fwd, qscale=qscale, qbias=qbias,
+                         reverse=reverse)
 
 
 def tcn_permutation(seqdist):

@@ -191,23 +191,25 @@ def check_forward_outputs(kernel, device, N, T, S, move_in, choices, cs,
                              f"{shape} on {device}")
 
 
-# frames the ring of csrc/decode_tcn_ring.cu holds (its C entries take 1 or
-# 2 to 16): a frame's copy is issued about RING - 1 frames before its row
+# frames the ring of csrc/decode_ring.cuh holds (its C entries take 1 or 2
+# to 16): a frame's copy is issued about RING - 1 frames before its row
 # is read; 4 kept pace at hac and 8 at sup (scripts/decode_split.py)
 RING = 8
 
 
-def ring_smem(S, ring, backward):
-    """Shared memory of one CTA of csrc/decode_tcn_ring.cu: the mbarriers,
-    the partials, the raw values of two frames (B: alpha and amax; C: beta,
-    and each consumer thread's share of two frames' posterior mass) and the
-    ring
-    (B: a frame's bf16 moves; C: its moves, move_in and choices)."""
+def ring_smem(S, ring, backward, row=None):
+    """Shared memory of one CTA of the ring kernels (``fwd_smem``/
+    ``bwd_smem`` of csrc/decode_ring.cuh): the mbarriers, the partials, the
+    raw values of two frames (B, M: alpha and amax; C, Q: beta, and each
+    consumer thread's share of two frames' posterior mass) and the ring of
+    slots: a frame's row of ``row`` bytes (B's bf16 moves, 8S, by default;
+    M's scores), and for C and Q also its move_in and choices."""
     head = (ring * 8 + 15) // 16 * 16 + (2 * 64 + 64) * 4
+    row = 8 * S if row is None else row
     if backward:
         consumers = -(-(S // NB) // 32) * 32
-        return head + 8 * S + 8 * consumers + ring * 13 * S
-    return head + 16 * S + ring * 8 * S
+        return head + 8 * S + 8 * consumers + ring * (row + 5 * S)
+    return head + 16 * S + ring * row
 
 
 def decode_plan(N, T, S, sms=None):

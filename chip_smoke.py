@@ -10,8 +10,8 @@ PyTorch built for CUDA. In order, it:
  1. prints the card's name, power limit and count;
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory, stack frame
-    and spills (kernel O's stretch kernel and B's and C's ring kernels must
-    have neither);
+    and spills (kernel O's stretch kernel and the ring kernels of B, C, M
+    and Q must have neither);
  3. holds each kernel against its plain PyTorch version on the card: at
     hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 (B and C
     on their ring, ``decode_plan`` gives a plan, and held against their
@@ -20,7 +20,9 @@ PyTorch built for CUDA. In order, it:
     directions (D and E each one persistent launch, the plan
     ``persistent_plan`` gives, whose output equals its step kernel's bit
     for bit); the full-score decode M + Q (a stay plane that is not
-    constant, bf16) at hac and at fast widths; at fast widths (N=1024,
+    constant, bf16) at hac and at fast widths, on their ring
+    (``decode_full_plan`` gives a plan) and held against their earlier
+    kernels bit for bit on all eight outputs; at fast widths (N=1024,
     T=1200, C=H=96, S=64) the fused LSTM layer F (both directions, with and
     without a bias) and the fused-head decode G + J (the fast head, and a small head with two
     upsample phases, tanh, a scale and a bias); at sup widths (N=128,
@@ -54,7 +56,8 @@ PyTorch built for CUDA. In order, it:
     overlap 600; bf16 as shipped): 42 reads over at least 3 full batches
     (P, 18 x K, then B, C), and a short run of the shallow directory
     (rotary + L in each layer). The full-score paths: the reverse strand
-    (``reverse=True``: model(x), reverse_complement, M + Q) of hac as
+    (``reverse=True``: model(x), M + Q reading it in reverse-complement
+    order in place) of hac as
     shipped (48 reads, at least 3 full batches), of fast (one full batch of
     1024) and of sup (one full batch of 128: T 2000 behind P and 18 x K),
     and the beam decode of hac (``decoder="beam"``, one full batch). The
@@ -63,11 +66,15 @@ PyTorch built for CUDA. In order, it:
     JW), at least 2 full batches each. Then it
     holds one batch on the int8 path, one on the hac bf16 path (five
     layers through A against A's plain version in its place, and both
-    decodes), one on the hac reverse path (M + Q;
-    it prints, and does not require, the share of rows whose reverse call is
-    the shifted reverse complement of the forward call), one on the fast
+    decodes), one on the hac and one on the fast reverse path (the in-place
+    read through M + Q against their plain versions, their earlier kernels
+    and M + Q on the reverse_complement copy, bit for bit but the plain
+    versions' qstring; for hac it prints, and does not require, the share of
+    rows whose reverse call is the shifted reverse complement of the forward
+    call), one on the fast
     path, one on the sup path (in bf16 and on an f32 copy of the model; and
-    its full scores, reverse complemented, through M + Q) and one of the
+    its full scores through M + Q on the reverse strand, held as hac's) and
+    one of the
     shallow transformer (likewise) against the same batch with the plain
     versions in the kernels' place; and one batch of each fused path: its
     head through GW + JW against their plain versions, and its decode
@@ -83,8 +90,10 @@ PyTorch built for CUDA. In order, it:
     int8, reverse and beam paths, the fast path, the sup path and the two
     fused paths (beside the TCN route's device step on the same batch)
     beside the card's name and power, the sup and sup_fused device steps
-    with K on its earlier kernel, and the hac int8 and sup device steps
-    with B and C on theirs;
+    with K on its earlier kernel, the hac int8 and sup device steps
+    with B and C on theirs, and the hac, fast and sup reverse device steps
+    beside the parent's route (the reverse_complement copy and M + Q's
+    earlier kernels; hac also the copy and the ring);
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function (and, for comparison, A's, D's and E's
     step kernels at hac widths beside their persistent kernels, K's earlier
@@ -92,8 +101,9 @@ PyTorch built for CUDA. In order, it:
     beside scaled_dot_product_attention, the routes that
     F, G and J take the place of at fast widths, B and C (beside their
     earlier kernels) at hac and sup shapes and
-    the parts of one sup layer; M and Q at fast shapes, and the reverse
-    complement they read; GW and JW at hac's and sup's shapes beside the TCN
+    the parts of one sup layer; M and Q on the ring, on the reverse strand
+    read in place and on the forward strand, beside their earlier kernels
+    and the reverse_complement copy, at hac, fast and sup shapes; GW and JW at hac's and sup's shapes beside the TCN
     route's head matmul + B + C there);
  9. runs the CRF training loss at hac training width: the hac bf16
     directory (quantize=false), a batch of 128 chunks of 6000 samples and
@@ -145,7 +155,8 @@ PyTorch built for CUDA. In order, it:
     earlier kernels beside them). It prints one ``kernels`` JSON line with
     all twenty-five kernels (K's, H's and O's with their plans and their
     earlier kernel's time; B's and C's with their plan, their earlier
-    kernels' times and difference, and the device steps on both).
+    kernels' times and difference, and the device steps on both; M's and
+    Q's likewise, with the reverse paths' device steps and the parent's).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -384,7 +395,7 @@ def ptxas_summary(report):
                              r"local_attention_(?:tc|f32)_kernel|"
                              r"relayout_transpose|relayout_gather|"
                              r"(?:logz|lattice)_(?:fwd|bwd)_kernel|"
-                             r"decode_tcn_(?:fwd|bwd)_ring_kernel|"
+                             r"decode_(?:fwd|bwd)_ring_kernel|"
                              r"decode_(?:fused_(?:wide_)?)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
@@ -424,9 +435,15 @@ def ptxas_summary(report):
                 # the template arguments as the mangled name gives them
                 name += f" [{m.group(1).split('_kernel', 1)[1]}]"
             elif name.endswith("_ring_kernel"):
-                name += "<bf16>"
+                full = re.search(r"FullRowsI(13__nv_bfloat16|f)Lb([01])E",
+                                 m.group(1))
+                name += ("<TcnRows: B, C>" if full is None else
+                         f"<FullRows: M, Q, "
+                         f"{'bf16' if full.group(1) != 'f' else 'f32'}, "
+                         f"{'reverse' if full.group(2) == '1' else 'forward'}"
+                         f" strand>")
             elif "decode" in name:
-                frame = re.search(r"(Tcn|Full)Frame", m.group(1))
+                frame = re.search(r"(Tcn|RevFull|Full)Frame", m.group(1))
                 name = (f"{name}<{frame.group(1)} frame, {tmpl}>" if frame
                         else f"{name}<{tmpl}>")
             io = re.search(r"(?:attention_kernel|relayout_\w+?)I"
@@ -562,6 +579,21 @@ DECODE_OUTPUTS = ("move_in", "choices", "c", "logZ", "end state",
                   "sequence", "qstring", "moves")
 
 
+def outputs_differ(torch, fwd, out, fwd2, out2):
+    """Two decodes' eight outputs (the forward pass's five, the backward
+    pass's three): the names of those that differ in any bit and the
+    largest difference."""
+    torch.cuda.synchronize()
+    pairs = list(zip(fwd, fwd2)) + [
+        (out[k], out2[k]) for k in ("sequence", "qstring", "moves")]
+    differ = [name for name, (a, b) in zip(DECODE_OUTPUTS, pairs)
+              if not torch.equal(a.contiguous().view(torch.uint8),
+                                 b.contiguous().view(torch.uint8))]
+    worst = max((a.double() - b.double()).abs().max().item()
+                for a, b in pairs)
+    return differ, worst
+
+
 def ring_vs_old_kernel(torch, decode_cuda, moves, blank, fwd, out, **q):
     """B's and C's outputs on the ring (``fwd``, ``out``: the wrappers'
     on ``decode_plan``'s plan) against the earlier kernels' on the same
@@ -569,15 +601,7 @@ def ring_vs_old_kernel(torch, decode_cuda, moves, blank, fwd, out, **q):
     take the same f32 steps) and the largest difference."""
     old_fwd = decode_cuda.tcn_forward_old_kernel(moves, blank)
     old = decode_cuda.tcn_backward_old_kernel(moves, *old_fwd, blank, **q)
-    torch.cuda.synchronize()
-    pairs = list(zip(fwd, old_fwd)) + [
-        (out[k], old[k]) for k in ("sequence", "qstring", "moves")]
-    differ = [name for name, (a, b) in zip(DECODE_OUTPUTS, pairs)
-              if not torch.equal(a.contiguous().view(torch.uint8),
-                                 b.contiguous().view(torch.uint8))]
-    worst = max((a.double() - b.double()).abs().max().item()
-                for a, b in pairs)
-    return differ, worst
+    return outputs_differ(torch, fwd, out, old_fwd, old)
 
 
 def check_decode(torch, decode_cuda, dev):
@@ -623,18 +647,28 @@ def check_decode(torch, decode_cuda, dev):
     return moves, blank, fwd, err_b, float(dq), plans[0], vs_old
 
 
-def hold_full(torch, decode_full_cuda, scores, **q):
-    """Kernels M + Q on full scores against their plain versions on the same
-    tensor. Returns M's outputs, Q's, and the comparison: choices and end
-    states identical (as for B and C: the max semiring does the same f32 adds
-    in both), max |move_in - plain|, logZ within LOGZ_*, sequence and moves
-    identical, max |dq|; ``ok`` when all of them hold (qstring within one
-    step)."""
-    fwd = decode_full_cuda.full_forward(scores)
-    out = decode_full_cuda.full_backward(scores, *fwd, **q)
+def hold_full(torch, decode_full_cuda, scores, reverse=False, **q):
+    """Kernels M + Q on full scores (``reverse``: the reverse strand read
+    from them in place) against their plain versions and against their
+    earlier kernels on the same tensor. Returns M's outputs, Q's, and the
+    comparison: choices and end states identical (as for B and C: the max
+    semiring does the same f32 adds in both), max |move_in - plain|, logZ
+    within LOGZ_*, sequence and moves identical, max |dq|; the plan they
+    ran, the outputs that differ from the earlier kernels' in any bit and
+    the largest difference; ``ok`` when all of them hold (qstring within
+    one step, on the ring, bit for bit with the earlier kernels)."""
+    fwd = decode_full_cuda.full_forward(scores, reverse=reverse)
+    out = decode_full_cuda.full_backward(scores, *fwd, reverse=reverse, **q)
+    plans = (decode_full_cuda.full_forward.plan,
+             decode_full_cuda.full_backward.plan)
     torch.cuda.synchronize()
-    ref_fwd = decode_full_cuda.full_forward_plain(scores)
-    ref = decode_full_cuda.full_backward_plain(scores, *ref_fwd, **q)
+    ref_fwd = decode_full_cuda.full_forward_plain(scores, reverse=reverse)
+    ref = decode_full_cuda.full_backward_plain(scores, *ref_fwd,
+                                               reverse=reverse, **q)
+    old_fwd = decode_full_cuda.full_forward_old_kernel(scores,
+                                                       reverse=reverse)
+    old = decode_full_cuda.full_backward_old_kernel(scores, *old_fwd,
+                                                    reverse=reverse, **q)
     d_lz = (fwd[3] - ref_fwd[3]).abs()
     h = {"same": all(torch.equal(fwd[i], ref_fwd[i]) for i in (1, 4)),
          "err_in": (fwd[0] - ref_fwd[0]).abs().max().item(),
@@ -645,16 +679,35 @@ def hold_full(torch, decode_full_cuda, scores, **q):
                       for k in ("sequence", "moves")),
          "dq": (out["qstring"].int() - ref["qstring"].int()).abs().max()
          .item(),
-         "frac": out["moves"].float().mean().item()}
+         "frac": out["moves"].float().mean().item(), "plan": plans[0]}
+    h["differ_old"], h["vs_old"] = outputs_differ(torch, fwd, out, old_fwd,
+                                                  old)
     h["ok"] = (h["same"] and h["err_in"] <= 1e-4 and h["ok_lz"] and h["exact"]
-               and h["dq"] <= 1)
+               and h["dq"] <= 1 and None not in plans
+               and not h["differ_old"])
     h["text"] = (
         f"choices and end states identical {h['same']}; max |move_in - "
         f"plain| {h['err_in']:.3g}, max |logZ - plain| {h['d_lz']:.3g} at "
         f"|logZ| about {h['lz']:.4g} (tolerance {LOGZ_ATOL} + {LOGZ_RTOL} "
         f"|logZ|); sequence and moves identical {h['exact']}, max |dq| "
-        f"{h['dq']}; {h['frac']:.3f} of frames move")
+        f"{h['dq']}; {h['frac']:.3f} of frames move; on the ring (plan "
+        f"{plans[0]}) vs the earlier kernels: outputs that differ in any bit "
+        f"{h['differ_old']}, max |diff| {h['vs_old']:.3g}")
     return fwd, out, h
+
+
+def reverse_vs_copy(torch, decode_full_cuda, seqdist, scores, fwd, out, **q):
+    """The reverse strand read in place (``fwd``, ``out``: M's and Q's
+    outputs with reverse=True) against M + Q on the copy
+    ``seqdist.reverse_complement(scores)``: the names of the outputs that
+    differ in any bit (move_in and choices taken in the forward strand's
+    order of states, ``rc_states``) and the largest difference."""
+    rc = seqdist.reverse_complement(scores)
+    ref_fwd = decode_full_cuda.full_forward(rc)
+    ref = decode_full_cuda.full_backward(rc, *ref_fwd, **q)
+    cols = decode_full_cuda.rc_states(scores.shape[-1] // 5).to(scores.device)
+    ref_fwd = (ref_fwd[0][..., cols], ref_fwd[1][..., cols], *ref_fwd[2:])
+    return outputs_differ(torch, fwd, out, ref_fwd, ref)
 
 
 def full_decode_bounds(scores):
@@ -673,6 +726,76 @@ def full_decode_bounds(scores):
                   ops, H100_F32_OPS))
 
 
+def time_full(torch, decode_full_cuda, seqdist, scores, plain=False):
+    """M's and Q's times on full scores: on the ring reading the reverse
+    strand in place (what the reverse paths run) and the forward strand;
+    their earlier kernels on the forward strand (the parent's M and Q, the
+    work they did on the reverse_complement copy); the copy itself; with
+    ``plain`` the in-place read's plain versions; and the bounds."""
+    f = decode_full_cuda
+    t = {}
+    for key, rev in (("rev", True), ("fwd", False)):
+        fwd = f.full_forward(scores, reverse=rev)
+        t["M_" + key] = cuda_ms(lambda: f.full_forward(scores, reverse=rev),
+                                reps=3)
+        t["Q_" + key] = cuda_ms(
+            lambda: f.full_backward(scores, *fwd, reverse=rev), reps=3)
+    t["plan"] = f.full_forward.plan
+    require(t["plan"] is not None and f.full_backward.plan is not None,
+            f"M and Q did not run on the ring at {tuple(scores.shape)}")
+    fwd = f.full_forward_old_kernel(scores)
+    t["M_old"] = cuda_ms(lambda: f.full_forward_old_kernel(scores), reps=3)
+    t["Q_old"] = cuda_ms(lambda: f.full_backward_old_kernel(scores, *fwd),
+                         reps=3)
+    t["rc"] = cuda_ms(lambda: seqdist.reverse_complement(scores), reps=3)
+    if plain:
+        fwd = f.full_forward(scores, reverse=True)
+        t["M_plain"] = cuda_ms(
+            lambda: f.full_forward_plain(scores, reverse=True), reps=1,
+            warmup=0)
+        t["Q_plain"] = cuda_ms(
+            lambda: f.full_backward_plain(scores, *fwd, reverse=True),
+            reps=1, warmup=0)
+    t["bounds"] = full_decode_bounds(scores)
+    return t
+
+
+def full_times_text(t):
+    (bm, by), (bq, _) = t["bounds"]
+    return (f"M {t['M_rev']:.4g} ms, Q {t['Q_rev']:.4g} ms on the ring "
+            f"reading the reverse strand in place (forward strand "
+            f"{t['M_fwd']:.4g}, {t['Q_fwd']:.4g}; plan {t['plan']}; bounds "
+            f"{bm:.4g} and {bq:.4g} ms by {by}); their earlier kernels "
+            f"{t['M_old']:.4g} and {t['Q_old']:.4g} ms; reverse_complement "
+            f"of the scores {t['rc']:.4g} ms")
+
+
+def full_more(tm, rev_steps, key, vs_old):
+    """The kernels line's extra keys of M or Q (``key``): the plan, the
+    times beside the earlier kernels' at each shape, the forward strand's,
+    the copy's, and the reverse paths' device steps beside the parent's
+    route."""
+    i = 0 if key == "M" else 1
+    more = {"plan": tm["hac"]["plan"],
+            "old_kernel_ms": tm["hac"][key + "_old"],
+            "forward_strand_ms": tm["hac"][key + "_fwd"],
+            "max_abs_err_vs_old_kernel": vs_old,
+            "reverse_complement_ms": tm["hac"]["rc"]}
+    for shape in ("fast", "sup"):
+        t = tm[shape]
+        more.update({f"{shape}_shape_ms": t[key + "_rev"],
+                     f"{shape}_shape_old_kernel_ms": t[key + "_old"],
+                     f"{shape}_shape_forward_strand_ms": t[key + "_fwd"],
+                     f"{shape}_shape_bound_ms": t["bounds"][i][0],
+                     f"{shape}_shape_reverse_complement_ms": t["rc"]})
+    for path, steps in rev_steps.items():
+        more[f"{path}_device_step_ms"] = steps["step"]
+        more[f"{path}_device_step_parent_route_ms"] = steps["copy_old"]
+        if "copy" in steps:
+            more[f"{path}_device_step_copy_and_ring_ms"] = steps["copy"]
+    return more
+
+
 def random_full_scores(torch, dev, n, t, s):
     """bf16 full scores [n, t, 5 s] drawn on the card from SEED + 9: a stay
     plane that is not constant. The same draw for the same shape, so phase 8
@@ -684,21 +807,50 @@ def random_full_scores(torch, dev, n, t, s):
 
 
 def check_decode_full(torch, decode_full_cuda, dev):
-    """Kernels M and Q against their plain versions (``hold_full``) on the
-    same bf16 full scores with a stay plane that is not constant, at hac
-    widths (N=96, T=1666, S=1024) and fast widths (N=1024, T=1200, S=64)."""
-    err_m, err_q = 0.0, 0.0
+    """Kernels M and Q on the ring against their plain versions and their
+    earlier kernels (``hold_full``) on the same bf16 full scores with a
+    stay plane that is not constant, at hac widths (N=96, T=1666, S=1024)
+    and fast widths (N=1024, T=1200, S=64)."""
+    err_m, err_q, vs_old = 0.0, 0.0, 0.0
     for name, n, t, s in (("hac", N, T, S), ("fast", FN, FT, FS)):
         scores = random_full_scores(torch, dev, n, t, s)
         _, _, h = hold_full(torch, decode_full_cuda, scores, qscale=1.05,
                             qbias=0.2)
         log(f"  kernels M + Q, {name} (N={n}, T={t}, S={s}): {h['text']}")
         require(h["ok"], f"kernels M + Q ({name}) disagree with their plain "
-                f"versions")
+                f"versions or their earlier kernels, or ran off the ring")
         require(0.01 < h["frac"] < 1,
                 f"kernels M + Q ({name}): degenerate decode")
         err_m, err_q = max(err_m, h["err_in"]), max(err_q, float(h["dq"]))
-    return err_m, err_q
+        vs_old = max(vs_old, h["vs_old"])
+    return err_m, err_q, vs_old
+
+
+def hold_reverse_batch(torch, decode_full_cuda, model, xc, name, **q):
+    """One batch of a reverse path: the model's full scores of the wire
+    batch ``xc``, the reverse strand read from them in place through M + Q
+    on the ring, held against the plain versions and the earlier kernels
+    (``hold_full``) and against M + Q on the copy
+    ``seqdist.reverse_complement(scores)`` (``reverse_vs_copy``), all bit
+    for bit but the plain versions' qstring. Returns the scores, Q's
+    outputs and the comparison."""
+    with torch.inference_mode():
+        scores = model(xc[..., None])
+        fwd, out, h = hold_full(torch, decode_full_cuda, scores, reverse=True,
+                                **q)
+        h["differ_copy"], h["vs_copy"] = reverse_vs_copy(
+            torch, decode_full_cuda, model.seqdist, scores, fwd, out, **q)
+    log(f"  {name} reverse path, one batch: scores {tuple(scores.shape)} "
+        f"{str(scores.dtype)[6:]} read in reverse-complement order in place "
+        f"through M + Q vs their plain versions: {h['text']}; vs M + Q on "
+        f"the reverse_complement copy: outputs that differ in any bit "
+        f"{h['differ_copy']}, max |diff| {h['vs_copy']:.3g}")
+    require(h["ok"], f"{name} reverse path: M + Q disagree with their plain "
+            f"versions or their earlier kernels, or ran off the ring")
+    require(not h["differ_copy"], f"{name} reverse path: the in-place read "
+            f"differs from the copy in {h['differ_copy']}")
+    require(0.01 < h["frac"] < 1, f"{name} reverse path: degenerate decode")
+    return scores, out, h
 
 
 def check_lstm_fused(torch, lstm_fused_cuda, dev):
@@ -1064,6 +1216,35 @@ class earlier_kernel:
 
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self.rule)
+
+
+class parent_reverse:
+    """The reverse strand as the parent tree decodes it, for the device
+    steps of phase 7: model(x)'s scores copied through
+    ``seqdist.reverse_complement``, then M + Q on the copy, on the ring or
+    (``old``: ``decode_full_plan`` giving no plan) on the earlier kernels,
+    the parent's M and Q. The launch counts count as on the in-place
+    read."""
+
+    def __init__(self, crf_basecall, decode_full_cuda, old):
+        self.basecall, self.full, self.old = crf_basecall, decode_full_cuda, old
+
+    def __enter__(self):
+        self.decode, self.plan = (self.basecall.viterbi_decode,
+                                  self.full.decode_full_plan)
+        decode = self.decode
+
+        def copy_decode(seqdist, scores, reverse=False, **q):
+            if reverse:
+                scores = seqdist.reverse_complement(scores)
+            return decode(seqdist, scores, **q)
+        self.basecall.viterbi_decode = copy_decode
+        if self.old:
+            self.full.decode_full_plan = lambda *shape: None
+
+    def __exit__(self, *exc):
+        self.basecall.viterbi_decode = self.decode
+        self.full.decode_full_plan = self.plan
 
 
 def moves_kernels_vs_plain(torch, model, x):
@@ -2235,6 +2416,7 @@ def main():
     import torch.nn.functional as F
     from bonito_tpu_torch import checkpoint
     from bonito_tpu_torch.config import save_config
+    from bonito_tpu_torch.crf import basecall as crf_basecall
     from bonito_tpu_torch.crf.basecall import basecall, make_compute_fn
     from bonito_tpu_torch.crf.model import HeadSplit, Model
     from bonito_tpu_torch.models import (MODELS, lstm_crf_config,
@@ -2269,10 +2451,10 @@ def main():
                                      for r in o_rows),
             f"kernel O's stretch kernel has a stack frame or spills: {o_rows}")
     ring_rows = [r for r in ptxas_rows if "_ring_kernel" in r]
-    require(len(ring_rows) == 2 and all("stack 0 B, spills 0/0 B" in r
-                                        for r in ring_rows),
-            f"kernels B and C on the ring have a stack frame or spills: "
-            f"{ring_rows}")
+    require(len(ring_rows) == 10 and all("stack 0 B, spills 0/0 B" in r
+                                         for r in ring_rows),
+            f"kernels B, C, M and Q on the ring have a stack frame or spills "
+            f"(or not ten instances): {ring_rows}")
 
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
@@ -2280,7 +2462,7 @@ def main():
         torch, int8, lstm_int8_cuda, dev)
     moves, blank, fwd, err_b, err_c, plan_bc, bc_vs_old = check_decode(
         torch, decode_cuda, dev)
-    err_m, err_q = check_decode_full(torch, decode_full_cuda, dev)
+    err_m, err_q, vs_old_mq = check_decode_full(torch, decode_full_cuda, dev)
     log(f"    and at fast widths (N={FN}, T={FT}, C=H={FH}, S={FS})")
     f_args, err_f = check_lstm_fused(torch, lstm_fused_cuda, dev)
     f_head, f_fwd, err_g, err_j = check_decode_fused(
@@ -2491,12 +2673,19 @@ def main():
             "version's")
     del mv_kernel, mv_plain, diff
 
-    # one hac batch on the reverse path: its full scores, reverse
-    # complemented, through M + Q against their plain versions; and the
-    # share of rows whose reverse call is the forward call's reverse
+    # one batch on each reverse path (hac, fast): its full scores read in
+    # reverse-complement order in place through M + Q, held against their
+    # plain versions, their earlier kernels and M + Q on the copy; and for
+    # hac the share of rows whose reverse call is the forward call's reverse
     # complement shifted by state_len (tests/test_seqdist.py's property)
     prepared, step_rev = device_step(np, models["int8"], reads,
                                      make_compute_fn, chunk, reverse=True)
+    rev_steps = {"rev": {"step": step_rev}}
+    for name, route in (("copy", False), ("copy_old", True)):
+        with parent_reverse(crf_basecall, decode_full_cuda, route):
+            _, rev_steps["rev"][name] = device_step(
+                np, models["int8"], reads, make_compute_fn, chunk,
+                reverse=True)
     _, step_beam = device_step(np, models["int8"], reads, make_compute_fn,
                                chunk, decoder="beam")
     _, x_wire, sig_scale = prepared
@@ -2504,10 +2693,10 @@ def main():
     with torch.inference_mode():
         xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
               * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
-        scores = models["int8"](xc[..., None])
-        rc = sd.reverse_complement(scores)
-        _, out_kernel, h = hold_full(torch, decode_full_cuda, rc, qscale=1.05,
-                                     qbias=0.2)
+    scores, out_kernel, h = hold_reverse_batch(
+        torch, decode_full_cuda, models["int8"], xc, "hac", qscale=1.05,
+        qbias=0.2)
+    with torch.inference_mode():
         out_fwd = ops_decode.viterbi_decode(sd, scores)
     comp = dict(zip("ACGT", "TGCA"))
     shifted = 0
@@ -2517,14 +2706,28 @@ def main():
         expect = "".join(comp[c] for c in reversed(f))
         k = sd.state_len
         shifted += len(r) == len(f) and r[:len(r) - k] == expect[k:]
-    log(f"  reverse path, one batch: scores {tuple(rc.shape)} "
-        f"{str(rc.dtype)[6:]} reverse complemented, through M + Q vs their "
-        f"plain versions: {h['text']}; {shifted} of {N} rows call the "
-        f"shifted reverse complement of the forward strand's call (not "
-        f"required: a random bf16 model's paths tie)")
-    require(h["ok"], "reverse path: M + Q disagree with their plain versions")
+    log(f"    {shifted} of {N} rows call the shifted reverse complement of "
+        f"the forward strand's call (not required: a random bf16 model's "
+        f"paths tie)")
     err_m, err_q = max(err_m, h["err_in"]), max(err_q, float(h["dq"]))
-    del scores, rc, out_kernel, out_fwd
+    vs_old_mq = max(vs_old_mq, h["vs_old"])
+    del scores, out_kernel, out_fwd
+    prepared, step_fast_rev = device_step(np, models["fast"], fast_reads,
+                                          make_compute_fn, chunk,
+                                          reverse=True)
+    rev_steps["fast_rev"] = {"step": step_fast_rev}
+    with parent_reverse(crf_basecall, decode_full_cuda, True):
+        _, rev_steps["fast_rev"]["copy_old"] = device_step(
+            np, models["fast"], fast_reads, make_compute_fn, chunk,
+            reverse=True)
+    _, x_wire, sig_scale = prepared
+    with torch.inference_mode():
+        xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+              * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+    _, _, h = hold_reverse_batch(torch, decode_full_cuda, models["fast"], xc,
+                                 "fast", qscale=1.05, qbias=0.2)
+    err_m, err_q = max(err_m, h["err_in"]), max(err_q, float(h["dq"]))
+    vs_old_mq = max(vs_old_mq, h["vs_old"])
 
     # one fast batch: the encoder through kernel F against F's plain version
     # in its place, then the kernels' head through G + J against their plain
@@ -2644,19 +2847,18 @@ def main():
             f"earlier kernels in {sup_differ}")
     bc_vs_old = max(bc_vs_old, sup_vs_old)
     del mv_kernel, mv_plain, out_kernel, out_plain, ref_fwd, conv_out, sup_out
-    # the same batch on the reverse path: its full scores (T 2000), reverse
-    # complemented, through M + Q against their plain versions; M and Q are
-    # timed on these scores in phase 8
-    with torch.inference_mode():
-        sup_rc = sup.seqdist.reverse_complement(sup(xc[..., None]))
-        _, _, h = hold_full(torch, decode_full_cuda, sup_rc, **q)
-    log(f"    the same batch on the reverse path: scores "
-        f"{tuple(sup_rc.shape)} {str(sup_rc.dtype)[6:]} reverse "
-        f"complemented, through M + Q vs their plain versions: {h['text']}")
-    require(h["ok"], "sup reverse path: M + Q disagree with their plain "
-            "versions")
-    require(0.01 < h["frac"] < 1, "sup reverse path: degenerate decode")
+    # the same batch on the reverse path: its full scores (T 2000) read in
+    # reverse-complement order in place through M + Q, held as hac's; M and
+    # Q are timed on these scores in phase 8
+    sup_scores, _, h = hold_reverse_batch(torch, decode_full_cuda, sup, xc,
+                                          "sup", **q)
     err_m, err_q = max(err_m, h["err_in"]), max(err_q, float(h["dq"]))
+    vs_old_mq = max(vs_old_mq, h["vs_old"])
+    rev_steps["sup_rev"] = {"step": device_step(
+        np, sup, fast_reads, make_compute_fn, chunk, reverse=True)[1]}
+    with parent_reverse(crf_basecall, decode_full_cuda, True):
+        rev_steps["sup_rev"]["copy_old"] = device_step(
+            np, sup, fast_reads, make_compute_fn, chunk, reverse=True)[1]
 
     # the same batch on an f32 copy of the model: K takes f32 in and out and
     # rounds to bf16 inside, nothing else rounds to bf16
@@ -2786,6 +2988,15 @@ def main():
             f"{per_batch / step * 1e3:.6g} samples/s")
     log(f"  fast with head_route='tcn' (head matmul + B + C in place of G + "
         f"J): device step {step_fast_tcn:.4g} ms per batch")
+    rs = rev_steps
+    log(f"  the reverse strand read in place (M + Q on the ring): device "
+        f"step hac {rs['rev']['step']:.4g} ms per batch, fast "
+        f"{rs['fast_rev']['step']:.4g}, sup {rs['sup_rev']['step']:.4g}; as "
+        f"the parent decodes it (the reverse_complement copy, M + Q's "
+        f"earlier kernels): hac {rs['rev']['copy_old']:.4g}, fast "
+        f"{rs['fast_rev']['copy_old']:.4g}, sup "
+        f"{rs['sup_rev']['copy_old']:.4g}; hac with the copy and the ring "
+        f"{rs['rev']['copy']:.4g}")
     log(f"  B and C on their earlier kernels in place of the ring: hac int8 "
         f"device step {step_int8_bc_old:.4g} ms per batch (the ring's "
         f"{step_int8:.4g}), sup {step_sup_bc_old:.4g} ms ({step_sup:.4g})")
@@ -2900,25 +3111,19 @@ def main():
     bound_c = bound(move_bytes + N * T * R * 4 + N * T * 5 + N * 8 + 3 * N * T,
                     20 * N * T * S, H100_F32_OPS)
 
-    full_scores = random_full_scores(torch, dev, N, T, S)
-    full_fwd = decode_full_cuda.full_forward(full_scores)
-    ms_m = cuda_ms(lambda: decode_full_cuda.full_forward(full_scores), reps=3)
-    plain_m = cuda_ms(lambda: decode_full_cuda.full_forward_plain(full_scores),
-                      reps=1, warmup=0)
-    ms_q = cuda_ms(lambda: decode_full_cuda.full_backward(
-        full_scores, *full_fwd), reps=3)
-    plain_q = cuda_ms(lambda: decode_full_cuda.full_backward_plain(
-        full_scores, *full_fwd), reps=1, warmup=0)
     sd = models["int8"].seqdist
-    ms_rc = cuda_ms(lambda: sd.reverse_complement(full_scores), reps=3)
-    bound_m, bound_q = full_decode_bounds(full_scores)
+    tm = {"hac": time_full(torch, decode_full_cuda, sd,
+                           random_full_scores(torch, dev, N, T, S),
+                           plain=True)}
+    ms_m, ms_q = tm["hac"]["M_rev"], tm["hac"]["Q_rev"]
+    plain_m, plain_q = tm["hac"]["M_plain"], tm["hac"]["Q_plain"]
+    bound_m, bound_q = tm["hac"]["bounds"]
     log(f"  B {ms_b:.4g} ms, C {ms_c:.4g} ms on the ring (bounds "
         f"{bound_b[0]:.4g} and {bound_c[0]:.4g} ms by {bound_b[1]}); their "
         f"earlier kernels {ms_b_old:.4g} and {ms_c_old:.4g} ms on the same "
         f"[{N}, {T}, {4 * S}] moves")
-    log(f"  M {ms_m:.4g} ms, Q {ms_q:.4g} ms on bf16 scores [{N}, {T}, "
-        f"{5 * S}] (B {ms_b:.4g}, C {ms_c:.4g} on the [{N}, {T}, {4 * S}] "
-        f"moves); reverse_complement of those scores {ms_rc:.4g} ms")
+    log(f"  on bf16 scores [{N}, {T}, {5 * S}] (B {ms_b:.4g}, C {ms_c:.4g} "
+        f"on the [{N}, {T}, {4 * S}] moves): {full_times_text(tm['hac'])}")
 
     log(f"    and at fast shapes (N={FN}, T={FT}, C=H={FH}, S={FS})")
     fx, fw_ih, fw_hh, fb = f_args
@@ -2974,16 +3179,12 @@ def main():
     # the same moves as full scores with the stays beside them
     full_fast = ops_decode.tcn_to_scores(models["fast"].seqdist,
                                          mv_fast.permute(1, 2, 0), 2.0)
-    ms_m_fast = cuda_ms(lambda: decode_full_cuda.full_forward(full_fast),
-                        reps=3)
-    fwd_full_fast = decode_full_cuda.full_forward(full_fast)
-    ms_q_fast = cuda_ms(lambda: decode_full_cuda.full_backward(
-        full_fast, *fwd_full_fast), reps=3)
-    bound_m_fast, bound_q_fast = full_decode_bounds(full_fast)
+    tm["fast"] = time_full(torch, decode_full_cuda, models["fast"].seqdist,
+                           full_fast)
     log(f"  G {ms_g:.4g} ms + J {ms_j:.4g} ms vs the TCN route at these "
         f"widths: head matmul + clamp {ms_head_fast:.4g} ms + B "
-        f"{ms_b_fast:.4g} ms + C {ms_c_fast:.4g} ms; M {ms_m_fast:.4g} ms + Q "
-        f"{ms_q_fast:.4g} ms on [{FN}, {FT}, {5 * FS}] full scores")
+        f"{ms_b_fast:.4g} ms + C {ms_c_fast:.4g} ms; on [{FN}, {FT}, "
+        f"{5 * FS}] full scores: {full_times_text(tm['fast'])}")
 
     log(f"    and at sup shapes (N={SN}, T={ST}, H={SH}, D={SD}, window "
         f"{SWIN}; decode N={SN}, T={2 * ST}, S={S})")
@@ -3090,17 +3291,12 @@ def main():
                         + SN * 8 + 3 * SN * ST2, 20 * SN * ST2 * S,
                         H100_F32_OPS)
     # M and Q on the sup reverse batch's scores
-    ms_m_sup = cuda_ms(lambda: decode_full_cuda.full_forward(sup_rc), reps=3)
-    sup_rc_fwd = decode_full_cuda.full_forward(sup_rc)
-    ms_q_sup = cuda_ms(lambda: decode_full_cuda.full_backward(
-        sup_rc, *sup_rc_fwd), reps=3)
-    bound_m_sup, bound_q_sup = full_decode_bounds(sup_rc)
-    del sup_rc, sup_rc_fwd
+    tm["sup"] = time_full(torch, decode_full_cuda, sup.seqdist, sup_scores)
+    del sup_scores
     log(f"  B {ms_b_sup:.4g} ms, C {ms_c_sup:.4g} ms at sup shapes (bounds "
         f"{bound_b_sup[0]:.4g} and {bound_c_sup[0]:.4g} ms by bytes; their "
-        f"earlier kernels {ms_b_sup_old:.4g} and {ms_c_sup_old:.4g} ms); M "
-        f"{ms_m_sup:.4g} ms, Q {ms_q_sup:.4g} ms on the same batch's reverse "
-        f"scores")
+        f"earlier kernels {ms_b_sup_old:.4g} and {ms_c_sup_old:.4g} ms); on "
+        f"the same batch's full scores: {full_times_text(tm['sup'])}")
 
     # the parts of one sup layer and of the step around the stack, each timed
     # alone on the tensors it sees in a batch
@@ -3303,10 +3499,7 @@ def main():
                for k, old, sup, sup_old, sup_bound in (
                    ("B", ms_b_old, ms_b_sup, ms_b_sup_old, bound_b_sup),
                    ("C", ms_c_old, ms_c_sup, ms_c_sup_old, bound_c_sup))},
-            "M": {"fast_shape_ms": ms_m_fast,
-                  "fast_shape_bound_ms": bound_m_fast[0],
-                  "sup_shape_ms": ms_m_sup,
-                  "sup_shape_bound_ms": bound_m_sup[0]},
+            **{k: full_more(tm, rev_steps, k, vs_old_mq) for k in "MQ"},
             **{k: {"sup_shape_ms": wide["sup"][k],
                    "sup_shape_plain_ms": wide["sup"][f"{k}_plain"],
                    "sup_shape_bound_ms": wide["sup"][f"{k}_bound"][0],
@@ -3317,10 +3510,6 @@ def main():
                   "sup_fused_device_step_ms": fused_steps["sup_fused"],
                   "sup_fused_device_step_old_kernel_ms":
                       fused_steps["sup_fused_old"]},
-            "Q": {"fast_shape_ms": ms_q_fast,
-                  "fast_shape_bound_ms": bound_q_fast[0],
-                  "sup_shape_ms": ms_q_sup,
-                  "sup_shape_bound_ms": bound_q_sup[0]},
             "L": {"sup_f32": {
                 "max_abs_err": err_attn["L sup f32"], "ms": ms_l32,
                 "plain_ms": plain_l32, "bound_ms": bound_l32[0],

@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
 """
-Where the time of kernels B and C on the ring goes (the PyTorch/CUDA port),
-at hac's and sup's decode shapes:
+Where the time of the decode's ring kernels goes (the PyTorch/CUDA port):
+B and C (the TCN decode) and M and Q (the full-score decode, on the reverse
+strand read in place, as the reverse paths run them), at hac's, sup's and
+fast's decode shapes:
 
-    python3 scripts/decode_split.py
+    python3 scripts/decode_split.py [bc | mq]
 
-from the root of a checkout, on a machine with a CUDA card and nvcc. It
-builds ``csrc/decode_tcn_ring.cu`` once per variant with nvcc for sm_90a
-(all at once, ``-DDECODE_CUT=<parts>`` into
-``bonito_tpu_torch/build/decode_split/``), prints each variant's registers,
-stack frame and spills, and times each through the kernels' C entries (CUDA
-events, 5 runs after a warm-up), with the card's name and power limit.
+from the root of a checkout, on a machine with a CUDA card and nvcc (both
+pairs without an argument). It builds ``csrc/decode_tcn_ring.cu`` (B, C)
+and ``csrc/decode_full.cu`` (M, Q; both include the ring of
+``csrc/decode_ring.cuh``) once per variant with nvcc for sm_90a (all at
+once, ``-DDECODE_CUT=<parts>`` into ``bonito_tpu_torch/build/decode_split/``),
+prints each ring kernel's registers, stack frame and spills, and times each
+through the kernels' C entries (CUDA events, 5 runs after a warm-up), with
+the card's name and power limit.
 
-At hac (N 96, T 1666, S 1024) and sup (N 128, T 2000, S 1024), on random
-bf16 moves clamped to +-5:
+B and C at hac (N 96, T 1666, S 1024) and sup (N 128, T 2000, S 1024) on
+random bf16 moves clamped to +-5; M and Q there and at fast (N 1024, T 1200,
+S 64) on random bf16 full scores clamped to +-5, reverse strand:
 
-- the source at the plan (``ops.decode_cuda.decode_plan``), after a check
-  against the earlier kernels (every output bit for bit), with the earlier
-  kernels' times beside it, and at other ring depths;
+- the source at the plan (``ops.decode_cuda.decode_plan``,
+  ``ops.decode_full_cuda.decode_full_plan``), after a check against the
+  earlier kernels (every output bit for bit), with the earlier kernels'
+  times beside it, and at other ring depths;
 - the source with one part left out: the ring's copies and waits (the rows
   are then whatever the slots hold), the exps (expf(m) taken as m), the
-  block reduction (the warps' maxes and C's sums across lanes; each warp
-  reads its own max), the stores of the outputs (with what feeds only them:
-  B's normalised move-in, C's qscore), C's traceback (the end state
-  throughout), and all of them.
+  block reduction (the warps' maxes and the mass sums across lanes; each
+  warp reads its own max), the stores of the outputs (with what feeds only
+  them: the normalised move-in, the qscore), the backward pass's traceback
+  (the end state throughout), and all of them.
 
 What a part adds is the source's time less the variant's; the variants'
 outputs are wrong by design and only timed.
@@ -40,16 +46,20 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from bonito_tpu_torch.ops import build, decode_cuda  # noqa: E402
+from bonito_tpu_torch.ops import (  # noqa: E402
+    build, decode_cuda, decode_full_cuda)
 
 OUT = build.BUILD / "decode_split"
-SOURCE = "decode_tcn_ring.cu"
-# csrc/decode_tcn_ring.cu's CUT_* bits
+SOURCES = {"bc": "decode_tcn_ring.cu", "mq": "decode_full.cu"}
+ENTRIES = {"bc": ("decode_tcn_fwd_ring", "decode_tcn_bwd_ring"),
+           "mq": ("decode_full_fwd_ring", "decode_full_bwd_ring")}
+# csrc/decode_ring.cuh's CUT_* bits
 PARTS = {"waits": 1, "exps": 2, "reduction": 4, "stores": 8, "traceback": 16}
 VARIANTS = {"source": [], "no ring waits": ["waits"], "no exps": ["exps"],
             "no block reduction": ["reduction"], "no stores": ["stores"],
-            "no traceback (C)": ["traceback"], "none of them": list(PARTS)}
-RINGS = (2, 4, 6, 8, 12, 16)
+            "no traceback (C, Q)": ["traceback"], "none of them": list(PARTS)}
+RINGS = (2, 4, 8, 16)
+SMEM = 232448  # the most shared memory a block may ask for
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -69,8 +79,8 @@ def ms_of(fn, reps=5):
 def ptxas_lines(report):
     rows, kernel, frame = [], None, ""
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\w*(decode_tcn_(?:fwd|bwd)"
-                      r"_ring_kernel)", line)
+        m = re.search(r"Compiling entry function '\w*(decode_(?:fwd|bwd)"
+                      r"_ring_kernel\w*?)'", line)
         if m:
             kernel = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -84,32 +94,64 @@ def ptxas_lines(report):
     return rows
 
 
-def build_variants():
-    """One library per variant: its two C entries."""
+def build_variants(pairs):
+    """One library per variant and source: its two C entries."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
     procs = {}
     for i, (name, parts) in enumerate(VARIANTS.items()):
         cut = sum(PARTS[p] for p in parts)
-        procs[name] = (i, subprocess.Popen(
-            [nvcc, *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared",
-             f"-DDECODE_CUT={cut}", "-I", str(build.CSRC),
-             "-o", str(OUT / f"lib_{i}.so"), str(build.CSRC / SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for pair in pairs:
+            lib = OUT / f"lib_{pair}_{i}.so"
+            procs[pair, name] = (lib, subprocess.Popen(
+                [nvcc, *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared",
+                 f"-DDECODE_CUT={cut}", "-I", str(build.CSRC),
+                 "-o", str(lib), str(build.CSRC / SOURCES[pair])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
-    for name, (i, proc) in procs.items():
+    for (pair, name), (path, proc) in procs.items():
         o, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+            raise RuntimeError(f"nvcc failed on {pair}, {name}:\n{err}")
         for row in ptxas_lines(o + err):
             print(f"  {name}, {row}", flush=True)
-        lib = ctypes.CDLL(str(OUT / f"lib_{i}.so"))
-        lib.decode_tcn_fwd_ring.argtypes = build.SIGNATURES[
-            "decode_tcn_fwd_ring"]
-        lib.decode_tcn_bwd_ring.argtypes = build.SIGNATURES[
-            "decode_tcn_bwd_ring"]
-        libs[name] = lib
+        lib = ctypes.CDLL(str(path))
+        for entry in ENTRIES[pair]:
+            getattr(lib, entry).argtypes = build.SIGNATURES[entry]
+        libs.setdefault(pair, {})[name] = lib
     return libs
+
+
+def time_parts(run_fwd, run_bwd, names, plan, what, fits):
+    """The plan's ring at other depths (``fits(ring, backward)``: within
+    the card's shared memory), then each variant at the plan."""
+    rf, rb = plan["fwd"]["ring"], plan["bwd"]["ring"]
+    for ring in RINGS:
+        ms = [f"{ms_of(lambda: run('source', ring)):.4g} ms"
+              if fits(ring, backward) else "does not fit"
+              for run, backward in ((run_fwd, False), (run_bwd, True))]
+        print(f"  the source on a ring of {ring}: {what[0]} {ms[0]}, "
+              f"{what[1]} {ms[1]}", flush=True)
+    base = None
+    for name in names:
+        ms = (ms_of(lambda: run_fwd(name, rf)),
+              ms_of(lambda: run_bwd(name, rb)))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {base[0] - ms[0]:.4g} and "
+            f"{base[1] - ms[1]:.4g} ms")
+        print(f"  the plan, {name}: {what[0]} {ms[0]:.4g} ms, {what[1]} "
+              f"{ms[1]:.4g} ms{more}", flush=True)
+
+
+def same_bits(fwd, out, old_fwd, old):
+    """move_in, choices, c, logZ, end state; sequence, qstring, moves: each
+    equal bit for bit, or not."""
+    torch.cuda.synchronize()
+    same = [torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(fwd, old_fwd)]
+    return same + [torch.equal(out[i], old[k])
+                   for i, k in enumerate(("sequence", "qstring", "moves"))]
 
 
 def split(libs, card, dev, what, N, T, S=1024, blank=2.0):
@@ -137,14 +179,9 @@ def split(libs, card, dev, what, N, T, S=1024, blank=2.0):
             ring, math.exp(blank), 1.05, 0.2, stream), name)
 
     print(f"{card}; {what}: N={N}, T={T}, S={S}; plan {plan}", flush=True)
-    rb, rc = plan["fwd"]["ring"], plan["bwd"]["ring"]
-    run_b("source", rb)
-    run_c("source", rc)
-    torch.cuda.synchronize()
-    same = [torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-            for a, b in zip(outs, fwd)]
-    same += [torch.equal(seq[i], old[k])
-             for i, k in enumerate(("sequence", "qstring", "moves"))]
+    run_b("source", plan["fwd"]["ring"])
+    run_c("source", plan["bwd"]["ring"])
+    same = same_bits(outs, seq, fwd, old)
     print(f"  the source vs the earlier kernels, bit for bit (move_in, "
           f"choices, c, logZ, end state; sequence, qstring, moves): {same}",
           flush=True)
@@ -156,33 +193,81 @@ def split(libs, card, dev, what, N, T, S=1024, blank=2.0):
           f" ms, C "
           f"{ms_of(lambda: decode_cuda.tcn_backward_old_kernel(moves, *fwd, blank)):.4g}"
           f" ms", flush=True)
-    for ring in RINGS:
-        print(f"  the source on a ring of {ring}: B "
-              f"{ms_of(lambda: run_b('source', ring)):.4g} ms, C "
-              f"{ms_of(lambda: run_c('source', ring)):.4g} ms", flush=True)
-    base = None
-    for name in libs:
-        ms = (ms_of(lambda: run_b(name, rb)), ms_of(lambda: run_c(name, rc)))
-        base = ms if base is None else base
-        more = "" if name == "source" else (
-            f"; the part(s) left out add {base[0] - ms[0]:.4g} and "
-            f"{base[1] - ms[1]:.4g} ms")
-        print(f"  the plan, {name}: B {ms[0]:.4g} ms, C {ms[1]:.4g} ms{more}",
-              flush=True)
+    time_parts(run_b, run_c, libs, plan, "BC", lambda ring, backward:
+               decode_cuda.ring_smem(S, ring, backward) <= SMEM)
+
+
+def split_full(libs, card, dev, what, N, T, S):
+    """M and Q on the reverse strand read in place, as split does B and
+    C."""
+    f = decode_full_cuda
+    plan = f.decode_full_plan(N, T, S, torch.bfloat16,
+                              torch.cuda.get_device_properties(dev)
+                              .multi_processor_count)
+    g = torch.Generator().manual_seed(N + T + S)
+    scores = (3 * torch.randn(N, T, 5 * S, generator=g)).clamp(-5, 5).to(
+        dev, torch.bfloat16)
+    fwd = f.full_forward_old_kernel(scores, reverse=True)
+    old = f.full_backward_old_kernel(scores, *fwd, qscale=1.05, qbias=0.2,
+                                     reverse=True)
+    outs = [torch.empty_like(x) for x in fwd]
+    seq = torch.empty(3, N, T, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_m(name, ring):
+        build.check(libs[name].decode_full_fwd_ring(
+            scores.data_ptr(), 0, 1, *[x.data_ptr() for x in outs], N, T, S,
+            ring, stream), name)
+
+    def run_q(name, ring):
+        build.check(libs[name].decode_full_bwd_ring(
+            scores.data_ptr(), 0, 1, *[x.data_ptr() for x in fwd],
+            seq[0].data_ptr(), seq[1].data_ptr(), seq[2].data_ptr(), N, T, S,
+            ring, 1.05, 0.2, stream), name)
+
+    print(f"{card}; {what}: N={N}, T={T}, S={S}, bf16, the reverse strand "
+          f"read in place; plan {plan}", flush=True)
+    run_m("source", plan["fwd"]["ring"])
+    run_q("source", plan["bwd"]["ring"])
+    same = same_bits(outs, seq, fwd, old)
+    print(f"  the source vs the earlier kernels, bit for bit (move_in, "
+          f"choices, c, logZ, end state; sequence, qstring, moves): {same}",
+          flush=True)
+    if not all(same):
+        raise RuntimeError("decode_split: M and Q disagree with the earlier "
+                           "kernels")
+    ms_m = ms_of(lambda: f.full_forward_old_kernel(scores, reverse=True))
+    ms_q = ms_of(lambda: f.full_backward_old_kernel(scores, *fwd,
+                                                    reverse=True))
+    print(f"  the earlier kernels: M {ms_m:.4g} ms, Q {ms_q:.4g} ms",
+          flush=True)
+    time_parts(run_m, run_q, libs, plan, "MQ", lambda ring, backward:
+               decode_cuda.ring_smem(S, ring, backward, 10 * S) <= SMEM)
 
 
 def main():
     if not torch.cuda.is_available():
         print("decode_split: no CUDA device", file=sys.stderr)
         return 1
+    pairs = sys.argv[1:] or list(SOURCES)
+    if not set(pairs) <= set(SOURCES):
+        print(f"decode_split: expected any of {list(SOURCES)}",
+              file=sys.stderr)
+        return 2
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     dev = torch.device("cuda")
-    libs = build_variants()
-    split(libs, card, dev, "B and C at hac", 96, 1666)
-    split(libs, card, dev, "B and C at sup", 128, 2000)
+    libs = build_variants(pairs)
+    if "bc" in pairs:
+        split(libs["bc"], card, dev, "B and C at hac", 96, 1666)
+        split(libs["bc"], card, dev, "B and C at sup", 128, 2000)
+    if "mq" in pairs:
+        for what, N, T, S in (("M and Q at hac", 96, 1666, 1024),
+                              ("M and Q at sup", 128, 2000, 1024),
+                              ("M and Q at fast", 1024, 1200, 64)):
+            split_full(libs["mq"], card, dev, what, N, T, S)
     return 0
 
 

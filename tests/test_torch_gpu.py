@@ -154,25 +154,33 @@ def test_decode_launch_counts(cuda):
     np.testing.assert_array_equal(fwd[4].cpu().numpy(), [0, 0])
 
 
+@pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("state_len,N,T", [(1, 3, 7), (2, 4, 9), (3, 8, 30),
                                            (4, 2, 11), (5, 3, 12)])
-def test_full_decode_kernels_match_plain(cuda, state_len, N, T, dtype):
+def test_full_decode_kernels_match_plain(cuda, state_len, N, T, dtype,
+                                         reverse):
     """Kernels M and Q against their plain versions on full scores with a
-    stay plane: choices, end states, sequence and moves identical (the max
-    semiring does the same f32 adds in both), qstring within one step."""
+    stay plane (and on the reverse strand read in place): choices, end
+    states, sequence and moves identical (the max semiring does the same f32
+    adds in both), qstring within one step; on the ring (decode_full_plan)
+    but for state_len 1."""
     S = 4 ** state_len
     g = torch.Generator().manual_seed(S + N + T)
     scores = (3 * torch.randn(N, T, 5 * S, generator=g)).to(cuda, dtype)
     m, q = decode_full_cuda.full_forward, decode_full_cuda.full_backward
     before = (m.launches, q.launches)
-    fwd = m(scores)
-    out = q(scores, *fwd, qscale=1.05, qbias=0.2)
+    fwd = m(scores, reverse=reverse)
+    out = q(scores, *fwd, qscale=1.05, qbias=0.2, reverse=reverse)
     torch.cuda.synchronize()
     assert (m.launches, q.launches) == (before[0] + 1, before[1] + 1)
-    ref_fwd = decode_full_cuda.full_forward_plain(scores)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = decode_full_cuda.decode_full_plan(N, T, S, dtype, sms)
+    assert (plan is None) == (state_len == 1)
+    assert m.plan == plan and q.plan == plan
+    ref_fwd = decode_full_cuda.full_forward_plain(scores, reverse=reverse)
     ref = decode_full_cuda.full_backward_plain(scores, *ref_fwd, qscale=1.05,
-                                               qbias=0.2)
+                                               qbias=0.2, reverse=reverse)
     torch.testing.assert_close(fwd[1], ref_fwd[1], rtol=0, atol=0)  # choices
     torch.testing.assert_close(fwd[4], ref_fwd[4], rtol=0, atol=0)  # end
     torch.testing.assert_close(fwd[0], ref_fwd[0], rtol=1e-4, atol=1e-5)
@@ -181,6 +189,84 @@ def test_full_decode_kernels_match_plain(cuda, state_len, N, T, dtype):
         torch.testing.assert_close(out[k], ref[k], rtol=0, atol=0)
     dq = (out["qstring"].int() - ref["qstring"].int()).abs().max().item()
     assert dq <= 1
+
+
+FULL_RING_SHAPES = [(1024, 3, 12), (1024, 96, 300), (1024, 1, 1),
+                    (1024, 2, 8), (1024, 2, 9), (1024, 2, 1666), (64, 8, 30),
+                    (16, 4, 9), (256, 5, 40)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,N,T", FULL_RING_SHAPES)
+def test_full_ring_matches_the_earlier_kernels(cuda, S, N, T, dtype,
+                                               reverse):
+    """M and Q on the ring against their earlier kernels on the same
+    scores, bit for bit on all eight outputs (move_in, choices, c, logZ,
+    end state; sequence, qstring, moves): T 1 to hac's 1666, below, at (8)
+    and beyond the ring's depth, one row, S 16 to 1024, bf16 and f32, each
+    strand."""
+    g = torch.Generator().manual_seed(S + N + T)
+    scores = (3 * torch.randn(N, T, 5 * S, generator=g)).clamp(-5, 5).to(
+        cuda, dtype)
+    q = dict(qscale=1.05, qbias=0.2, reverse=reverse)
+    fwd = decode_full_cuda.full_forward(scores, reverse=reverse)
+    out = decode_full_cuda.full_backward(scores, *fwd, **q)
+    assert decode_full_cuda.full_forward.plan is not None
+    assert decode_full_cuda.full_backward.plan is not None
+    old_fwd = decode_full_cuda.full_forward_old_kernel(scores,
+                                                       reverse=reverse)
+    old = decode_full_cuda.full_backward_old_kernel(scores, *old_fwd, **q)
+    torch.cuda.synchronize()
+    for a, b in zip(fwd, old_fwd):
+        assert torch.equal(_bits(a), _bits(b))
+    for k in ("sequence", "qstring", "moves"):
+        assert torch.equal(out[k], old[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("state_len,N,T", [(1, 3, 7), (2, 4, 9), (3, 8, 30),
+                                           (5, 3, 12), (5, 4, 400)])
+def test_full_reverse_entry_equals_the_copy(cuda, state_len, N, T, dtype):
+    """The reverse strand read in place equals M and Q on
+    seqdist.reverse_complement(scores) bit for bit: c, logZ, the end state
+    and the decoded frames as they are, move_in and choices in the forward
+    strand's order of states (rc_states); on the ring, and on the earlier
+    kernels for state_len 1."""
+    S = 4 ** state_len
+    g = torch.Generator().manual_seed(S + N + T + 1)
+    scores = (3 * torch.randn(N, T, 5 * S, generator=g)).to(cuda, dtype)
+    rc = CTC_CRF(state_len, "NACGT").reverse_complement(scores)
+    fwd = decode_full_cuda.full_forward(scores, reverse=True)
+    out = decode_full_cuda.full_backward(scores, *fwd, qscale=1.05,
+                                         qbias=0.2, reverse=True)
+    ref_fwd = decode_full_cuda.full_forward(rc)
+    ref = decode_full_cuda.full_backward(rc, *ref_fwd, qscale=1.05,
+                                         qbias=0.2)
+    torch.cuda.synchronize()
+    cols = decode_full_cuda.rc_states(S).to(cuda)
+    assert torch.equal(_bits(fwd[0]), _bits(ref_fwd[0][..., cols]))
+    assert torch.equal(fwd[1], ref_fwd[1][..., cols])
+    for a, b in zip(fwd[2:], ref_fwd[2:]):
+        assert torch.equal(_bits(a), _bits(b))
+    for k in ("sequence", "qstring", "moves"):
+        assert torch.equal(out[k], ref[k]), k
+    dec = decode.viterbi_decode(CTC_CRF(state_len, "NACGT"), scores,
+                                qscale=1.05, qbias=0.2, reverse=True)
+    for k in ("sequence", "qstring", "moves"):
+        assert torch.equal(dec[k], ref[k]), k
+
+
+def test_full_old_kernels_count_no_launch(cuda):
+    scores = torch.zeros(2, 4, 5 * 64, device=cuda, dtype=torch.bfloat16)
+    m, q = decode_full_cuda.full_forward, decode_full_cuda.full_backward
+    before = (m.launches, q.launches)
+    for reverse in (False, True):
+        fwd = decode_full_cuda.full_forward_old_kernel(scores, reverse)
+        decode_full_cuda.full_backward_old_kernel(scores, *fwd,
+                                                  reverse=reverse)
+    torch.cuda.synchronize()
+    assert (m.launches, q.launches) == before
 
 
 def test_full_decode_kernels_reject_what_they_do_not_take(cuda):
@@ -195,8 +281,10 @@ def test_full_decode_kernels_reject_what_they_do_not_take(cuda):
                 torch.zeros(2, 4, 5 * S, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         decode_full_cuda.full_forward(scores.transpose(0, 1))
-    with pytest.raises(ValueError, match="contiguous"):
-        decode.viterbi_decode(CTC_CRF(3, "NACGT"), scores.transpose(0, 1))
+    for reverse in (False, True):
+        with pytest.raises(ValueError, match="contiguous"):
+            decode.viterbi_decode(CTC_CRF(3, "NACGT"),
+                                  scores.transpose(0, 1), reverse=reverse)
     fwd = decode_full_cuda.full_forward(scores)
     with pytest.raises(ValueError, match="move_in"):
         decode_full_cuda.full_backward(scores, fwd[0].cpu(), *fwd[1:])

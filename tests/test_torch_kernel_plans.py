@@ -9,7 +9,10 @@ once, that K's stretches cover every query tile once with its band in the
 ring, that O's two kinds cover every query tile and every key tile once
 with their bands (the dk kind's mirrored) in their rings, that B's and
 C's ring hands each frame over once, in order, and sums the states in
-``block_sum``'s tree, and the head dim L's bf16 instance runs at. Each is what the
+``block_sum``'s tree, that M's and Q's (``ops.decode_full_cuda.
+decode_full_plan``) fits and copies each frame of either strand once, with
+the reverse strand's states kept in the forward strand's order, and the
+head dim L's bf16 instance runs at. Each is what the
 wrapper passes to its kernel. They run here, on the CPU; the kernels
 themselves, and L's tiling, which is fixed in the kernel, only on the card
 (tests/test_torch_gpu.py)."""
@@ -17,8 +20,9 @@ themselves, and L's tiling, which is fixed in the kernel, only on the card
 import pytest
 import torch
 
-from bonito_tpu_torch.ops import (attention_cuda, decode_cuda, lstm_cuda,
-                                  lstm_int8_cuda, lstm_train_cuda)
+from bonito_tpu_torch.ops import (attention_cuda, decode_cuda,
+                                  decode_full_cuda, lstm_cuda, lstm_int8_cuda,
+                                  lstm_train_cuda)
 
 SMS = 132             # an H100's SMs
 SMEM = 232448         # the most shared memory a block may ask for
@@ -694,7 +698,7 @@ def test_decode_plan_fits_the_card(N, T, S):
 
 
 def _ring_events(T, ring, backward):
-    """The order of csrc/decode_tcn_ring.cu's fills and reads of the ring
+    """The order of csrc/decode_ring.cuh's fills and reads of the ring
     for one row: ("fill", frame) by the producer warp (frames 0 .. ring -
     1 first, then after the barrier of frame i those below i + 2 + ring in
     B, i + 1 + ring in C), ("read", frame, why) by the consumers; frames
@@ -792,27 +796,30 @@ def test_decode_plan_sends_the_rest_to_the_earlier_kernel(N, T, S):
 
 
 def _ring_state_sum(x, only_base=None):
-    """A sum over states as csrc/decode_tcn_ring.cu takes it: thread r =
-    32w + lane holds states 4r .. 4r+3; each of its values goes through
-    lanes xor 4, 2, 1 (states xor 16, 8, 4 in the run of 32 of threads 8k
-    .. 8k+7), then the thread adds its own four as (v0 + v2) + (v1 + v3)
-    (states xor 2, then 1). C's mass: thread r's one share (its state of
-    the emitted base; the other three states add zeros), the same three
-    levels over threads 8k .. 8k+7 taken in one lane of the epilogue warp
-    ((v0 + v4) + (v2 + v6)) + ((v1 + v5) + (v3 + v7)). Run k's sum then goes
-    through the butterfly of 32 runs (zeros past the last). f32
-    throughout."""
+    """A sum over states as csrc/decode_ring.cuh takes it. The forward
+    pass's logZ: the epilogue warp reads run k's 32 states in its lanes
+    (zeros past S) and takes their xor butterfly (16, 8, 4, 2, 1). The
+    backward pass's mass: thread r = 32w + lane holds states 4r .. 4r+3 and
+    leaves one share (its state of the emitted base; the other three states
+    add zeros); one lane of the epilogue warp sums the shares of threads 8k
+    .. 8k+7 (states xor 16, 8, 4 of run k) as ((v0 + v4) + (v2 + v6)) +
+    ((v1 + v5) + (v3 + v7)). Run k's sum then goes through the butterfly
+    of 32 runs (zeros past the last). f32 throughout."""
     S = x.shape[-1]
-    consumers = -(-(S // 4) // 32) * 32
-    v = torch.zeros(*x.shape[:-1], consumers, 4)
-    v[..., :S // 4, :] = x.reshape(*x.shape[:-1], S // 4, 4)
-    k = consumers // 8
     if only_base is None:
-        lanes = torch.arange(consumers)
-        for o in (4, 2, 1):
-            v = v + v[..., lanes ^ o, :]
-        run = ((v[..., 0] + v[..., 2]) + (v[..., 1] + v[..., 3]))[..., ::8]
+        k = -(-S // 32)
+        u = torch.zeros(*x.shape[:-1], 32 * k)
+        u[..., :S] = x
+        u = u.reshape(*x.shape[:-1], k, 32)
+        lanes = torch.arange(32)
+        for o in (16, 8, 4, 2, 1):
+            u = u + u[..., lanes ^ o]
+        run = u[..., 0]
     else:
+        consumers = -(-(S // 4) // 32) * 32
+        v = torch.zeros(*x.shape[:-1], consumers, 4)
+        v[..., :S // 4, :] = x.reshape(*x.shape[:-1], S // 4, 4)
+        k = consumers // 8
         u = v[..., only_base].reshape(*x.shape[:-1], k, 8)
         run = (((u[..., 0] + u[..., 4]) + (u[..., 2] + u[..., 6]))
                + ((u[..., 1] + u[..., 5]) + (u[..., 3] + u[..., 7])))
@@ -826,8 +833,9 @@ def _ring_state_sum(x, only_base=None):
 
 @pytest.mark.parametrize("S", [16, 48, 64, 256, 1024])
 def test_decode_ring_sums_states_in_block_sums_tree(S):
-    """The ring's thread layout (four states a thread) takes B's closing
-    sum and C's posterior mass in block_sum's tree, bit for bit on random
+    """The ring's epilogue warp takes the forward pass's closing sum (the
+    states' alpha in their order) and, from four states a thread, the
+    backward pass's posterior mass in block_sum's tree, bit for bit on random
     f32 values of many magnitudes (and, for the mass, one base's states
     with the others at zero)."""
     g = torch.Generator().manual_seed(S)
@@ -841,3 +849,156 @@ def test_decode_ring_sums_states_in_block_sums_tree(S):
         assert torch.equal(
             _ring_state_sum(x, base).view(torch.int32),
             decode_cuda.block_sum(masked).view(torch.int32))
+
+
+# (N, T, S): hac (N 96, T 1666, S 1024), sup (N 128, T 2000), fast (N 1024,
+# T 1200, S 64), the GPU tests' shapes (one frame, one row, S 16 and 256)
+FULL_SHAPES = [(96, 1666, 1024), (128, 2000, 1024), (1024, 1200, 64),
+               (4, 9, 16), (5, 40, 256), (2, 1, 1024), (1, 300, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,T,S", FULL_SHAPES)
+def test_decode_full_plan_fits_the_card(N, T, S, dtype):
+    """M's and Q's ring: one CTA a row of S / 4 consumer threads (whole
+    warps, at most 8), a producer and an epilogue warp; each pass's shared
+    memory within the card's, its slots whole 16-byte pieces, the ring as
+    deep as B's and C's (f32 too, at 1024 states)."""
+    plan = decode_full_cuda.decode_full_plan(N, T, S, dtype, SMS)
+    assert plan is not None and plan["ctas"] == N
+    assert plan["waves"] == -(-N // SMS)
+    assert plan["states_per_thread"] == 4
+    assert S // 4 <= plan["consumer_threads"] < S // 4 + 32
+    assert plan["consumer_threads"] % 32 == 0
+    assert plan["threads"] == plan["consumer_threads"] + 64 <= 320
+    row = 5 * S * dtype.itemsize
+    for name, backward in (("fwd", False), ("bwd", True)):
+        ring = plan[name]["ring"]
+        assert ring == decode_cuda.RING
+        assert plan[name]["smem"] == decode_cuda.ring_smem(S, ring, backward,
+                                                           row)
+        assert plan[name]["smem"] <= SMEM
+        assert row % 16 == 0 and (4 * S) % 16 == 0 and S % 16 == 0
+    assert decode_full_cuda.decode_full_entry(plan, False) == \
+        "decode_full_fwd_ring"
+    assert decode_full_cuda.decode_full_entry(plan, True) == \
+        "decode_full_bwd_ring"
+
+
+def test_decode_full_plan_at_hac():
+    """hac (N 96, T 1666, S 1024): 96 CTAs of 8 consumer warps, a producer
+    and an epilogue warp, one wave on 132 SMs, rings of 8 frames: 99,136 B
+    (M) and 133,952 B (Q) a CTA in bf16 (a slot of 10S and 15S bytes),
+    181,056 and 215,872 B in f32."""
+    for dtype, smem in ((torch.bfloat16, (99136, 133952)),
+                        (torch.float32, (181056, 215872))):
+        plan = decode_full_cuda.decode_full_plan(96, 1666, 1024, dtype, SMS)
+        assert plan == {"threads": 320, "consumer_threads": 256,
+                        "states_per_thread": 4, "ctas": 96, "waves": 1,
+                        "fwd": {"ring": 8, "smem": smem[0]},
+                        "bwd": {"ring": 8, "smem": smem[1]}}
+
+
+@pytest.mark.parametrize("N,T,S,dtype", [
+    (3, 7, 4, torch.bfloat16), (3, 7, 4, torch.float32),
+    (2, 5, 48, torch.bfloat16), (2, 5, 32, torch.float32),
+    (2, 5, 2048, torch.bfloat16), (0, 5, 64, torch.bfloat16),
+    (2, 0, 64, torch.float32), (2, 5, 64, torch.float16)])
+def test_decode_full_plan_sends_the_rest_to_the_earlier_kernel(N, T, S,
+                                                               dtype):
+    """S 4 (a row of choices is no whole number of 16-byte pieces), S no
+    power of 4 or beyond 1024, empty shapes and another dtype: no plan, and
+    the wrappers launch the earlier kernels' entries (or raise, for what
+    those do not take either)."""
+    plan = decode_full_cuda.decode_full_plan(N, T, S, dtype, SMS)
+    assert plan is None
+    assert decode_full_cuda.decode_full_entry(plan, False) == \
+        "decode_full_fwd"
+    assert decode_full_cuda.decode_full_entry(plan, True) == \
+        "decode_full_bwd"
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 8, 9, 17, 40])
+def test_full_ring_hands_each_frame_over_once_in_order(T, backward,
+                                                       reverse):
+    """M's and Q's ring runs B's and C's schedule (``_ring_events``) on the
+    plan's ring: each frame of the pass (M t = 0 .. T-1, Q t = T-1 .. 0) is
+    copied once, found in its slot when read and not overwritten while a
+    read is to come, and its row is the forward strand's frame t, or T-1-t
+    for the reverse strand (``FullRows::row``): every forward frame once,
+    in the pass's order or its reverse."""
+    plan = decode_full_cuda.decode_full_plan(1, T, 1024, torch.bfloat16)
+    ring = plan["bwd" if backward else "fwd"]["ring"]
+    events = _ring_events(T, ring, backward)
+    fills = [e[1] for e in events if e[0] == "fill"]
+    assert fills == list(range(T))
+    slots = [None] * ring
+    for k, e in enumerate(events):
+        if e[0] == "fill":
+            old = slots[e[1] % ring]
+            if old is not None:
+                assert not any(f[0] == "read" and f[1] == old
+                               for f in events[k:]), (e, old)
+            slots[e[1] % ring] = e[1]
+        elif e[0] == "read":
+            assert slots[e[1] % ring] == e[1], e
+    strand = [T - 1 - u if backward else u for u in fills]
+    rows = [T - 1 - t if reverse else t for t in strand]
+    assert sorted(rows) == list(range(T))
+    assert rows == (list(range(T)) if backward == reverse
+                    else list(range(T - 1, -1, -1)))
+
+
+def _rc(x, digits):
+    return int(decode_full_cuda.rc_digits(x, digits))
+
+
+@pytest.mark.parametrize("S", [16, 64, 256, 1024])
+def test_reverse_ring_keeps_the_states_in_the_forward_order(S):
+    """The reverse strand's ring (``own_at``, ``load4``, ``store4`` of
+    csrc/decode_ring.cuh with REV): consumer q holds the reverse states
+    4 rc(q) + b at column (3-b)*R + q and their predecessors j*R + rc(q) at
+    4q + 3-j, the columns ``rc_states`` gives them; each kind covers every
+    column once, and each thread reads the 20 values of forward block q
+    (``FullRows::piece``): the moves into its states and, for Q, its
+    predecessors' stays, the columns ``rc_columns`` gives."""
+    R = S // 4
+    digits = decode_full_cuda.state_len(S) - 1
+    order = decode_full_cuda.rc_states(S).tolist()
+    cols = decode_full_cuda.rc_columns(S).reshape(S, 5).tolist()
+    own, pred = set(), set()
+    for q in range(R):
+        r = _rc(q, digits)
+        for k in range(4):
+            at_own, at_pred = (3 - k) * R + q, 4 * q + 3 - k
+            assert order[at_own] == 4 * r + k
+            assert order[at_pred] == k * R + r
+            own.add(at_own)
+            pred.add(at_pred)
+            # the move into state 4r + k from slot j, and Q's stay of
+            # predecessor j = k, inside block q
+            for j in range(4):
+                assert cols[4 * r + k][1 + j] == (
+                    20 * q + (3 - j) * 5 + 4 - k)
+            assert cols[k * R + r][0] == 20 * q + (3 - k) * 5
+            # M's stay of its own state b = k, outside the block
+            assert cols[4 * r + k][0] == ((3 - k) * R + q) * 5
+    assert own == pred == set(range(S))
+
+
+@pytest.mark.parametrize("state_len", [1, 2, 3, 5])
+def test_reverse_traceback_walks_the_forward_order(state_len):
+    """Q's traceback on the reverse strand keeps the column sigma =
+    rc_sl(state) of its state: the emitted base is 3 - sigma / R and a move
+    by choice c (1..4) goes to (sigma % R) * 4 + 4 - c, the column of
+    state / 4 + (c - 1) * R."""
+    S = 4 ** state_len
+    R = S // 4
+    order = decode_full_cuda.rc_states(S).tolist()
+    for state in range(S):
+        sigma = order[state]
+        assert state % 4 == 3 - sigma // R
+        for c in range(1, 5):
+            assert order[state // 4 + (c - 1) * R] == sigma % R * 4 + 4 - c

@@ -34,7 +34,7 @@ from bonito_tpu_torch import checkpoint, util
 from bonito_tpu_torch.crf.basecall import basecall, make_compute_fn
 from bonito_tpu_torch.crf.model import Model
 from bonito_tpu_torch.crf.seqdist import CTC_CRF
-from bonito_tpu_torch.ops import decode
+from bonito_tpu_torch.ops import decode, decode_full_cuda
 from bonito_tpu_torch.util import load_model
 
 ALPHABET = ["N", "A", "C", "G", "T"]
@@ -92,6 +92,60 @@ def test_reverse_complement_is_bonito_tpu_s(state_len):
     b16 = torch.from_numpy(x).to(torch.bfloat16)
     assert torch.equal(sd.reverse_complement(b16),
                        out.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("state_len", [1, 2, 3, 4, 5])
+def test_reverse_index_map_is_reverse_complement(state_len):
+    """The map kernels M and Q read the reverse strand through
+    (``rc_columns``: csrc/crf_frames.cuh's RevFullFrame, decode_ring.cuh's
+    FullRows) equals ``seqdist.reverse_complement`` and bonito_tpu's,
+    column for column and frame for frame: every entry distinct, so each
+    column of each reverse frame names its forward entry."""
+    S = 4 ** state_len
+    N, T = 2, 7
+    x = torch.arange(N * T * 5 * S, dtype=torch.float64).reshape(N, T, 5 * S)
+    ref = CTC_CRF(state_len, ALPHABET).reverse_complement(x)
+    cols = decode_full_cuda.rc_columns(S)
+    assert sorted(cols.tolist()) == list(range(5 * S))
+    for t in range(T):
+        assert torch.equal(x[:, T - 1 - t, cols], ref[:, t])
+    assert torch.equal(decode_full_cuda.reverse_scores(x), ref)
+    jref = JaxCRF(state_len, ALPHABET).reverse_complement(
+        jnp.asarray(x.numpy().astype(np.float32)))
+    np.testing.assert_array_equal(
+        decode_full_cuda.reverse_scores(x).numpy().astype(np.float32),
+        np.asarray(jref))
+
+
+@pytest.mark.parametrize("state_len", [1, 2, 3])
+def test_reverse_entry_plain_is_the_decode_of_the_copy(state_len):
+    """``viterbi_decode(..., reverse=True)`` on a CPU tensor (the plain
+    versions of the in-place entry) is bonito_tpu's decode of
+    ``reverse_complement(scores)``, and the plain passes equal those on the
+    copy: move_in and choices in the forward strand's order of states
+    (``rc_states``), the rest as they are."""
+    x = _scores(40 + state_len, state_len, 6, 23)
+    sd = CTC_CRF(state_len, ALPHABET)
+    q = dict(qscale=QSCALE, qbias=QBIAS)
+    xt = torch.from_numpy(x)
+    rc = sd.reverse_complement(xt)
+    fwd = decode_full_cuda.full_forward_plain(xt, reverse=True)
+    ref_fwd = decode_full_cuda.full_forward_plain(rc)
+    cols = decode_full_cuda.rc_states(4 ** state_len)
+    assert torch.equal(fwd[0], ref_fwd[0][..., cols])
+    assert torch.equal(fwd[1], ref_fwd[1][..., cols])
+    for a, b in zip(fwd[2:], ref_fwd[2:]):
+        assert torch.equal(a, b)
+    out = decode_full_cuda.full_backward_plain(xt, *fwd, reverse=True, **q)
+    ref = decode_full_cuda.full_backward_plain(rc, *ref_fwd, **q)
+    for k in out:
+        assert torch.equal(out[k], ref[k])
+    got = _port(decode.viterbi_decode(sd, xt, reverse=True, **q))
+    jsd = JaxCRF(state_len, ALPHABET)
+    scan = jdecode.viterbi_decode_scan(
+        jsd, jsd.reverse_complement(jnp.asarray(x)), **q)
+    _assert_same(got, scan)
+    assert 0.05 < got["moves"].mean() < 0.95
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -255,6 +309,34 @@ def test_full_score_slice_matches_bonito_tpu(tmp_path, monkeypatch, quantize,
     beam decode on either strand."""
     out = compare_slice(tmp_path, monkeypatch, quantize, **kw)
     assert len(set("".join(r["sequence"] for r in out.values()))) == 4
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_make_compute_fn_reverse_matches_bonito_tpu(tmp_path, monkeypatch,
+                                                    quantize):
+    """The device step of the reverse strand (``make_compute_fn(...,
+    reverse=True)``, the in-place entry's plain versions on the CPU) against
+    bonito_tpu's (``model(x)``, ``reverse_complement``, its Pallas decode
+    in interpret mode) on a full batch and a ragged one of ``lstm_dir``'s
+    chunks: the per-frame arrays identical, qualities within a step."""
+    from bonito_tpu.crf.basecall import make_compute_fn as jax_compute_fn
+    monkeypatch.setattr(jax_ops_lstm, "lstm_int8", _jax_fused_route)
+    d = lstm_dir(tmp_path, quantize)
+    jm = jax_load_model(d, half=False, fuse_bn=True, quantize=None)
+    pm = load_model(d, half=False, fuse_bn=True, quantize=None, device="cpu",
+                    route="fused" if quantize else None)
+    reads = _reads(8, [8 * 1000])
+    batch = util.chunk(reads[0].signal, 1000, 200)[:8]
+    assert batch.shape == (8, 1000)
+    port = make_compute_fn(pm, 8, 1000, reverse=True)
+    ref = jax_compute_fn(jm, 8, 1000, reverse=True)
+    for n in (8, 5):
+        out, want = port(batch[:n]), ref(batch[:n])
+        for k in ("sequence", "moves"):
+            np.testing.assert_array_equal(out[k], want[k])
+        dq = out["qstring"].astype(int) - want["qstring"].astype(int)
+        assert np.abs(dq).max() <= 1
+        assert out["moves"].shape == (n, 200) and out["moves"].mean() > 0.05
 
 
 def test_learned_blank_decodes_its_full_scores(tmp_path, monkeypatch):
