@@ -19,7 +19,8 @@
 //              bytes) into `ring` slots: the frame's scores, and for the
 //              backward pass also its move_in row and choices. The frame
 //              barrier is the slot's `empty`: a slot is refilled only after
-//              the barrier of the last frame whose threads read it.
+//              the barrier of the last frame whose threads read it (the
+//              plumbing, shared with the loss's U and V: csrc/ring.cuh).
 //   one barrier a frame  consumer thread q holds the states of one block of
 //              four (B, C, M, Q: states 4q .. 4q+3; the reverse strand's M
 //              and Q: states 4 rc(q) + b, below) whose predecessors are the
@@ -69,7 +70,7 @@
 #pragma once
 
 #include "crf_frames.cuh"
-#include "lstm_persistent.cuh"
+#include "ring.cuh"
 
 #ifndef DECODE_CUT
 #define DECODE_CUT 0
@@ -90,7 +91,6 @@ __device__ __forceinline__ constexpr bool cut(int part) {
     return (DECODE_CUT & part) != 0;
 }
 
-constexpr int RING_MAX = 16;
 constexpr int RING_THREADS = 256 + 64;  // S 1024: 8 consumer warps + 2
 
 __host__ __device__ inline int ring_consumers(int S) {
@@ -293,31 +293,6 @@ __device__ __forceinline__ void store4(float* x, int R, int q,
     }
 }
 
-// lane 0 of the producer warp: frame u's slot of `bytes` from the pieces
-// (src, bytes) given, after the reads of its last frame (fenced against the
-// async proxy where the slot was filled before)
-__device__ __forceinline__ void fill(uint64_t* full, unsigned char* slot,
-                                     unsigned bytes, bool refill,
-                                     const void* a, unsigned na,
-                                     const void* b = nullptr, unsigned nb = 0,
-                                     const void* c = nullptr,
-                                     unsigned nc = 0) {
-    if (cut(CUT_WAITS)) return;
-    if (refill) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    mbar_expect_tx(full, bytes);
-    bulk_copy(slot, a, na, full);
-    if (nb) bulk_copy(slot + na, b, nb, full);
-    if (nc) bulk_copy(slot + na + nb, c, nc, full);
-}
-
-// slot and phase of the next frame's row, advanced a frame at a time
-struct Cursor {
-    int slot, phase, ring;
-    __device__ __forceinline__ void next() {
-        if (++slot == ring) { slot = 0; phase ^= 1; }
-    }
-};
-
 // the states' base-4 digits below the first (R = 4**digits), for rc
 __device__ __forceinline__ int digits_of(int R) {
     return (__ffs(R) - 1) / 2;
@@ -459,8 +434,9 @@ decode_fwd_ring_kernel(const L l, const FwdArgs a)
         auto issue = [&](int upto) {
             for (; issued < upto; ++issued) {
                 const int s = issued % ring;
-                fill(full + s, rows + s * row_bytes, bytes, issued >= ring,
-                     l.row(row0, issued, T, S), bytes);
+                if (!cut(CUT_WAITS))
+                    fill(full + s, rows + s * row_bytes, bytes,
+                         issued >= ring, l.row(row0, issued, T, S), bytes);
             }
         };
         if (lane == 0) issue(min(ring, T));
@@ -682,10 +658,12 @@ decode_bwd_ring_kernel(const L l, const BwdArgs a)
             for (; issued < upto; ++issued) {
                 const int s = issued % ring, t = T - 1 - issued;
                 const size_t f = row0 + t;
-                fill(full + s, rows + s * slot_bytes, (unsigned)slot_bytes,
-                     issued >= ring, l.row(row0, t, T, S),
-                     (unsigned)row_bytes, a.move_in + f * S, 4u * S,
-                     a.choices + f * S, (unsigned)S);
+                if (!cut(CUT_WAITS))
+                    fill(full + s, rows + s * slot_bytes,
+                         (unsigned)slot_bytes, issued >= ring,
+                         l.row(row0, t, T, S), (unsigned)row_bytes,
+                         a.move_in + f * S, 4u * S, a.choices + f * S,
+                         (unsigned)S);
             }
         };
         if (lane == 0) issue(min(ring, T));
@@ -805,10 +783,6 @@ decode_bwd_ring_kernel(const L l, const BwdArgs a)
         ring_bwd_frame(l, a, i, q, active, lane, w, nwc, part + 64, part,
                        braw + S, braw, vb, rows + now.slot * slot_bytes, rows,
                        cur, full, raw, state, v0, v1);
-}
-
-bool aligned16(const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // the ring's shapes: S a multiple of 16 (a frame's choices, S bytes, are

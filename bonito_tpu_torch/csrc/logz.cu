@@ -30,7 +30,8 @@
 // scan route, f32 throughout) neither. The plain versions
 // (ops/logz.py) take the same f32 steps in the same order: the sums over j
 // and b in order 0..nb-1, the sum over states in the block butterfly's
-// order, no product contracted into an add.
+// order, no product contracted into an add (csrc/logz_steps.cuh has the
+// steps all their instances share).
 //
 // What bounds them on an H100: bytes. At hac training shapes (N 128,
 // T 1000, S 1024) U reads the 1.05 GB bf16 moves and writes the 0.52 GB
@@ -39,45 +40,15 @@
 // rate. The recursion over T is serial, so this first design is
 // latency-bound: one block per batch row, one thread per state, alpha or
 // beta, alpha_t and the frame's row in shared memory, two barriers per
-// frame.
+// frame. On the card U and V run on the ring of csrc/logz_ring.cu where
+// ops/logz_cuda.py's logz_plan gives a plan (the same bits); these
+// kernels stay for W and X, for what the plan does not take, and as the
+// ring's oracle.
 
 #include "crf_frames.cuh"
+#include "logz_steps.cuh"
 
 namespace {
-
-template <typename In, bool ROUND>
-__device__ __forceinline__ float load_score(const In* p) {
-    float v = to_f32(*p);
-    if (ROUND) v = __bfloat162float(__float2bfloat16_rn(v));
-    return v;
-}
-
-template <typename Out, bool ROUND>
-__device__ __forceinline__ void store_grad(Out* p, float v);
-
-template <>
-__device__ __forceinline__ void store_grad<float, true>(float* p, float v) {
-    *p = __bfloat162float(__float2bfloat16_rn(v));
-}
-template <>
-__device__ __forceinline__ void store_grad<float, false>(float* p, float v) {
-    *p = v;
-}
-template <>
-__device__ __forceinline__ void store_grad<__nv_bfloat16, true>(
-    __nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ void store_grad<__nv_bfloat16, false>(
-    __nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float lse2(float a, float b) {
-    const float big = fmaxf(a, b);
-    return big + logf(expf(a - big) + expf(b - big));
-}
 
 template <class Frame, typename In, bool ROUND, bool STACK>
 __global__ void logz_fwd_kernel(const In* __restrict__ scores,  // [N, T, W]

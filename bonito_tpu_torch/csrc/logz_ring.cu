@@ -1,0 +1,528 @@
+// Kernels U and V for the H100: logZ of the TCN moves (with the alpha stack
+// or without it) and its gradient -- the function of the earlier kernels in
+// csrc/logz.cu, with the same f32 steps, so the same bits on every output
+// -- on the ring of csrc/ring.cuh: each frame's row staged ahead in shared
+// memory by a producer warp, one block-wide barrier a frame.
+//
+// U replaces bonito_tpu/ops/logz_pallas.py `_fwd_kernel_tcn` (and
+// `_fwd_kernel_tcn_nockpt`: U without its stack), V `_bwd_kernel_tcn`. The
+// recurrences and the layout of the moves are in csrc/logz.cu (TcnFrame of
+// csrc/crf_frames.cuh: column (b*nb + j)*R + r is the move into state
+// s = r*nb + b from predecessor j*R + r; the stay is the constant blank).
+// Those earlier kernels stay: ops/logz_cuda.py launches them where
+// logz_plan gives no plan, chip_smoke.py holds these against them.
+//
+// What bounds them on an H100: the serial recursion over T. Per frame and
+// state U takes about 6 expf and 2 logf on alpha's chain, V 10 and 2 (4 of
+// its exps, the gradient's, off beta's chain); they run in log space with
+// no cross-state reduction, so the pace is one frame's chain and the SM's
+// issue rate for a row's S states where few rows share the card (sup
+// training: 32 rows), the bytes where every SM holds a row (at hac training
+// shapes U moves 1.6 GB, 0.47 ms at the card's rate). scripts/
+// logz_split.py times the kernels with each part left out.
+//
+// Per batch row one CTA of consumer threads and a producer warp:
+//   the ring   the producer's lane 0 copies each frame's row ahead into a
+//              ring of slots (U: the frame's 4S moves; V: its moves and the
+//              alpha stack's row, frames T-1 .. 0), one mbarrier `full` a
+//              slot; the frame barrier is the slot's `empty`. The consumers
+//              read the next frame's values from its slot into registers
+//              during a frame (so a ring holds at least 2), where they fill
+//              the chain's stalls.
+//   the states consumer i holds K states (K = 1 or 4, the plan's
+//              states_per_thread) of the block q = i % R, those of
+//              b = c*K .. c*K + K-1 with c = i / R: in U its states
+//              s = 4q + b, whose four predecessors j*R + q the block
+//              shares; in V its predecessors p = j*R + q (j = c*K ..) with
+//              their successors 4q + b (b = 0..3). Threads past the states
+//              compute thread 0's and store nothing.
+//   one barrier a frame  alpha (beta) lives in two parity buffers in shared
+//              memory; a thread reads its inputs from the frame's parity,
+//              writes its K new values to the other, then the one
+//              __syncthreads.
+//   the stores U's stack (alpha before each frame) goes out as one K-wide
+//              store of the thread's own alpha a frame; V's gradient as 4K
+//              warp-wide stores a thread a frame, in the moves' layout, two
+//              values rounded to bf16 by one conversion (one bulk store a
+//              frame, of the parity buffer or of a staged gradient row, was
+//              slower or no faster: PERF.md).
+//   the end    consumer warp 0 takes logZ from alpha_T: the max over the
+//              states, then the sum of exp(a - max) in block_sum's tree
+//              (the xor butterfly of each run of 32 states, then of the
+//              runs), as the earlier kernel's block_max and block_sum_max.
+// Each state's f32 steps are the earlier kernel's whatever thread takes
+// them (the sums over j or b in order 0..3, then lse2), so every assignment
+// of states to threads gives the same bits.
+
+#include "crf_frames.cuh"
+#include "logz_steps.cuh"
+#include "ring.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// the parts scripts/logz_split.py leaves out (LOGZ_CUT, 0 in the library;
+// bit 2, the exps and logs, in csrc/logz_steps.cuh)
+constexpr int LCUT_WAITS = 1;   // the ring's copies and waits
+constexpr int LCUT_STORES = 4;  // the stack's or the gradient's stores
+
+__device__ __forceinline__ constexpr bool lcut(int part) {
+    return (LOGZ_CUT & part) != 0;
+}
+
+// the most threads a CTA has: 8 consumer warps (K 4 up to S 1024, K 1 up
+// to S 256) and the producer warp
+constexpr int LOGZ_THREADS = 256 + 32;
+
+__host__ __device__ inline int logz_consumers(int S, int K) {
+    return (S / K + 31) / 32 * 32;
+}
+
+// shared memory: the mbarriers, alpha or beta of two parities ([2][S] f32)
+// and the ring of slots (U: the frame's moves; V: its moves and alpha_t)
+__host__ __device__ inline size_t logz_head(int ring) {
+    return (size_t)(ring * 8 + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t logz_fwd_smem(int S, int ring,
+                                                size_t in_bytes) {
+    return logz_head(ring) + (size_t)8 * S + ring * (NB * S * in_bytes);
+}
+__host__ __device__ inline size_t logz_bwd_smem(int S, int ring,
+                                                size_t in_bytes) {
+    return logz_head(ring) + (size_t)8 * S
+        + ring * (NB * S * in_bytes + (size_t)4 * S);
+}
+
+template <int K>
+__device__ __forceinline__ void load_k(const float* p, float (&v)[K]) {
+    if constexpr (K == 4) {
+        const float4 a = *reinterpret_cast<const float4*>(p);
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    } else {
+        v[0] = *p;
+    }
+}
+
+template <int K>
+__device__ __forceinline__ void store_k(float* p, const float (&v)[K]) {
+    if constexpr (K == 4)
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+        *p = v[0];
+}
+
+// the mbarriers' init by one thread, before the block's first barrier
+__device__ __forceinline__ void init_full(uint64_t* full, int ring) {
+    for (int s = 0; s < ring; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// two gradient values into their columns, rounded as store_grad rounds
+// them, with one conversion of the pair to bf16 where there is one
+template <typename Out, bool ROUND>
+__device__ __forceinline__ void store_grad2(Out* pa, Out* pb, float a,
+                                            float b) {
+    if constexpr (std::is_same<Out, bf16>::value) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+        *pa = h.x;
+        *pb = h.y;
+    } else if constexpr (ROUND) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+        *pa = __low2float(h);
+        *pb = __high2float(h);
+    } else {
+        *pa = a;
+        *pb = b;
+    }
+}
+
+// --------------------------------------------------------------- kernel U
+template <typename In, bool ROUND, bool STACK, int K>
+__global__ void __launch_bounds__(LOGZ_THREADS, 1)
+logz_fwd_ring_kernel(const In* __restrict__ moves,  // [N, T, 4S]
+                     float* __restrict__ stack,     // [N, T, S] or null
+                     float* __restrict__ logz,      // [N]
+                     int T, int S, int ring, float blank)
+{
+    extern __shared__ __align__(16) unsigned char logz_smem[];
+    const int R = S / NB, NC = logz_consumers(S, K);
+    const unsigned row_bytes = (unsigned)(NB * S * sizeof(In));
+    uint64_t* full = reinterpret_cast<uint64_t*>(logz_smem);
+    float* alpha = reinterpret_cast<float*>(logz_smem + logz_head(ring));
+    unsigned char* rows = reinterpret_cast<unsigned char*>(alpha + 2 * S);
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const size_t row0 = (size_t)blockIdx.x * T;
+
+    // alpha_0 = 0 in parity 0
+    for (int i = tid; i < S; i += blockDim.x) alpha[i] = 0.f;
+    if (tid == NC) init_full(full, ring);
+    __syncthreads();
+
+    if (w == NC / 32) {
+        // --------------------------------------------------- producer warp
+        int issued = 0;
+        auto issue = [&](int upto) {
+            for (; issued < upto; ++issued) {
+                const int s = issued % ring;
+                if (!lcut(LCUT_WAITS))
+                    fill(full + s, rows + (size_t)s * row_bytes, row_bytes,
+                         issued >= ring, moves + (row0 + issued) * NB * S,
+                         row_bytes);
+            }
+        };
+        if (lane == 0) issue(min(ring, T));
+        for (int t = 0; t < T; ++t) {
+            __syncthreads();  // the rows of frames up to t + 1 are read
+            if (lane == 0) issue(min(T, t + 2 + ring));
+        }
+        return;
+    }
+
+    // ------------------------------------------------------------ consumers
+    const bool active = tid < S / K;
+    const int i = active ? tid : 0;
+    const int q = i % R, c = i / R;
+    const int s0 = NB * q + c * K;  // the first of its states
+    // the moves into its states from slots j = 0..3 of a frame's row
+    auto read_row = [&](const unsigned char* slot, float (&mv)[K][NB]) {
+        const In* row = reinterpret_cast<const In*>(slot);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+            for (int j = 0; j < NB; ++j)
+                mv[k][j] = load_score<In, ROUND>(
+                    row + ((c * K + k) * NB + j) * R + q);
+    };
+    // the next frame's slot: frame min(t + 1, T - 1)
+    Cursor cur = {0, 0, ring};
+    // frame t: its moves in mv, the next frame's read into mvn on the way
+    auto frame = [&](int t, const float* ap, float* an,
+                     const float (&mv)[K][NB], float (&mvn)[K][NB]) {
+        if (!lcut(LCUT_WAITS))
+            mbar_wait(full + cur.slot, (unsigned)cur.phase);
+        float pred[NB], own[K], nxt[K];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) pred[j] = ap[j * R + q];
+        load_k<K>(ap + s0, own);
+        if (STACK && active && !lcut(LCUT_STORES))
+            store_k<K>(stack + (row0 + t) * S + s0, own);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            float cand[NB], m = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+                cand[j] = mv[k][j] + pred[j];
+                m = fmaxf(m, cand[j]);
+            }
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < NB; ++j) sum += exp_f(cand[j] - m);
+            nxt[k] = lse2(blank + own[k], m + log_f(sum));
+        }
+        read_row(rows + (size_t)cur.slot * row_bytes, mvn);
+        if (active) store_k<K>(an + s0, nxt);
+        if (t + 2 < T) cur.next();
+        __syncthreads();
+    };
+    float mv0[K][NB], mv1[K][NB];
+    if (!lcut(LCUT_WAITS)) mbar_wait(full, 0u);
+    read_row(rows, mv0);
+    if (T > 1) cur.next();
+    float* const a0 = alpha;
+    float* const a1 = alpha + S;
+    int t = 0;
+    for (; t + 1 < T; t += 2) {
+        frame(t, a0, a1, mv0, mv1);
+        frame(t + 1, a1, a0, mv1, mv0);
+    }
+    if (t < T) frame(t, a0, a1, mv0, mv1);
+
+    // logZ from alpha_T: the max, then the sum in block_sum's tree
+    if (w == 0) {
+        const float* end = alpha + (T & 1) * S;
+        float mx = -INFINITY;
+        for (int s = lane; s < S; s += 32) mx = fmaxf(mx, end[s]);
+        for (int o = 16; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        float sum = 0.f;
+        for (int k = 0; 32 * k < S; ++k) {
+            float x = 32 * k + lane < S ? exp_f(end[32 * k + lane] - mx) : 0.f;
+            for (int o = 16; o > 0; o >>= 1)
+                x += __shfl_xor_sync(0xffffffffu, x, o);
+            if (lane == k) sum = x;
+        }
+        for (int o = 16; o > 0; o >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (lane == 0) logz[blockIdx.x] = mx + log_f(sum);
+    }
+}
+
+// --------------------------------------------------------------- kernel V
+template <typename In, typename Out, bool ROUND, int K>
+__global__ void __launch_bounds__(LOGZ_THREADS, 1)
+logz_bwd_ring_kernel(const In* __restrict__ moves,    // [N, T, 4S]
+                     const float* __restrict__ stack, // [N, T, S]
+                     const float* __restrict__ logz,  // [N]
+                     const float* __restrict__ g,     // [N]
+                     Out* __restrict__ grad,          // [N, T, 4S]
+                     int T, int S, int ring, float blank)
+{
+    extern __shared__ __align__(16) unsigned char logz_smem[];
+    const int R = S / NB, NC = logz_consumers(S, K);
+    const unsigned row_bytes = (unsigned)(NB * S * sizeof(In));
+    const unsigned slot_bytes = row_bytes + 4u * S;
+    uint64_t* full = reinterpret_cast<uint64_t*>(logz_smem);
+    float* beta = reinterpret_cast<float*>(logz_smem + logz_head(ring));
+    unsigned char* rows = reinterpret_cast<unsigned char*>(beta + 2 * S);
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const int n = blockIdx.x;
+    const size_t row0 = (size_t)n * T;
+
+    // beta_T = 0 in parity 0
+    for (int i = tid; i < S; i += blockDim.x) beta[i] = 0.f;
+    if (tid == NC) init_full(full, ring);
+    __syncthreads();
+
+    if (w == NC / 32) {
+        // --------------------------------------------------- producer warp
+        int issued = 0;  // frames i = 0, 1, ... (t = T-1-i) in the ring
+        auto issue = [&](int upto) {
+            for (; issued < upto; ++issued) {
+                const int s = issued % ring;
+                const size_t f = row0 + T - 1 - issued;
+                if (!lcut(LCUT_WAITS))
+                    fill(full + s, rows + (size_t)s * slot_bytes, slot_bytes,
+                         issued >= ring, moves + f * NB * S, row_bytes,
+                         stack + f * S, 4u * S);
+            }
+        };
+        if (lane == 0) issue(min(ring, T));
+        for (int i = 0; i < T; ++i) {
+            __syncthreads();  // the slots of frames up to i + 1 are read
+            if (lane == 0) issue(min(T, i + 2 + ring));
+        }
+        return;
+    }
+
+    // ------------------------------------------------------------ consumers
+    const bool active = tid < S / K;
+    const int i0 = active ? tid : 0;
+    const int q = i0 % R, c = i0 / R;  // predecessors j*R + q, j = c*K ..
+    const float lz = logz[n], gg = g[n];
+    float sink = 0.f;  // what the gradient's stores take (their cut)
+    // a frame's slot: the moves out of its predecessors into 4q + b, and
+    // their alpha_t
+    auto read_slot = [&](const unsigned char* slot, float (&mv)[NB][K],
+                         float (&al)[K]) {
+        const In* row = reinterpret_cast<const In*>(slot);
+        const float* a = reinterpret_cast<const float*>(slot + row_bytes);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int j = c * K + k;
+            al[k] = a[j * R + q];
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+                mv[b][k] = load_score<In, ROUND>(row + (b * NB + j) * R + q);
+        }
+    };
+    // the next frame's slot: frame min(i + 1, T - 1)
+    Cursor cur = {0, 0, ring};
+    // frame i (t = T-1-i): its values in mv and al, the next frame's read
+    // into mvn and aln on the way
+    auto frame = [&](int i, const float* bp, float* bn,
+                     const float (&mv)[NB][K], const float (&al)[K],
+                     float (&mvn)[NB][K], float (&aln)[K]) {
+        const int t = T - 1 - i;
+        if (!lcut(LCUT_WAITS))
+            mbar_wait(full + cur.slot, (unsigned)cur.phase);
+        Out* dst = grad + (row0 + t) * NB * S;
+        float Bs[NB], Bp[K], nxt[K];
+        load_k<NB>(bp + NB * q, Bs);
+#pragma unroll
+        for (int k = 0; k < K; ++k) Bp[k] = bp[(c * K + k) * R + q];
+        // the edge posteriors x g, in the moves' layout, two at a time
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int j = c * K + k;
+            float v[NB];
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+                v[b] = exp_f(((mv[b][k] + al[k]) + Bs[b]) - lz) * gg;
+            if (lcut(LCUT_STORES)) {
+                sink += (v[0] + v[1]) + (v[2] + v[3]);
+            } else if (active) {
+#pragma unroll
+                for (int b = 0; b < NB; b += 2)
+                    store_grad2<Out, ROUND>(dst + (b * NB + j) * R + q,
+                                            dst + ((b + 1) * NB + j) * R + q,
+                                            v[b], v[b + 1]);
+            }
+        }
+        // beta_t of its predecessors
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            float mo[NB], mm = -INFINITY;
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+                mo[b] = mv[b][k] + Bs[b];
+                mm = fmaxf(mm, mo[b]);
+            }
+            float sum = 0.f;
+#pragma unroll
+            for (int b = 0; b < NB; ++b) sum += exp_f(mo[b] - mm);
+            nxt[k] = lse2(blank + Bp[k], mm + log_f(sum));
+        }
+        read_slot(rows + (size_t)cur.slot * slot_bytes, mvn, aln);
+        if (active) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) bn[(c * K + k) * R + q] = nxt[k];
+        }
+        if (i + 2 < T) cur.next();
+        __syncthreads();
+    };
+    float mv0[NB][K], mv1[NB][K], al0[K], al1[K];
+    if (!lcut(LCUT_WAITS)) mbar_wait(full, 0u);
+    read_slot(rows, mv0, al0);
+    if (T > 1) cur.next();
+    float* const b0 = beta;
+    float* const b1 = beta + S;
+    int i = 0;
+    for (; i + 1 < T; i += 2) {
+        frame(i, b0, b1, mv0, al0, mv1, al1);
+        frame(i + 1, b1, b0, mv1, al1, mv0, al0);
+    }
+    if (i < T) frame(i, b0, b1, mv0, al0, mv1, al1);
+    if (lcut(LCUT_STORES) && sink == 0.125f) grad[row0 * NB * S] = Out(sink);
+}
+
+// S = 4**k, 4 to 1024; K 1 or 4 states a thread within LOGZ_THREADS; a
+// ring of 2 (a frame's row and the next one's) to RING_MAX
+bool bad_logz_ring(int N, int T, int S, int K, int ring) {
+    return N < 1 || T < 1 || S < NB || S > 1024 || (S & (S - 1)) != 0
+        || (S & 0x55555555) == 0 || (K != 1 && K != 4)
+        || logz_consumers(S, K) + 32 > LOGZ_THREADS || ring < 2
+        || ring > RING_MAX;
+}
+
+template <typename In, bool ROUND, bool STACK, int K>
+int launch_fwd(const void* moves, void* stack, void* logz, int N, int T,
+               int S, int ring, float blank, cudaStream_t stream) {
+    const size_t smem = logz_fwd_smem(S, ring, sizeof(In));
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    auto kernel = logz_fwd_ring_kernel<In, ROUND, STACK, K>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<N, logz_consumers(S, K) + 32, smem, stream>>>(
+        static_cast<const In*>(moves), static_cast<float*>(stack),
+        static_cast<float*>(logz), T, S, ring, blank);
+    return (int)cudaGetLastError();
+}
+
+template <typename In, typename Out, bool ROUND, int K>
+int launch_bwd(const void* moves, const void* stack, const void* logz,
+               const void* g, void* grad, int N, int T, int S, int ring,
+               float blank, cudaStream_t stream) {
+    const size_t smem = logz_bwd_smem(S, ring, sizeof(In));
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    auto kernel = logz_bwd_ring_kernel<In, Out, ROUND, K>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<N, logz_consumers(S, K) + 32, smem, stream>>>(
+        static_cast<const In*>(moves), static_cast<const float*>(stack),
+        static_cast<const float*>(logz), static_cast<const float*>(g),
+        static_cast<Out*>(grad), T, S, ring, blank);
+    return (int)cudaGetLastError();
+}
+
+template <typename In, bool ROUND, bool STACK>
+int fwd_k(int K, const void* moves, void* stack, void* logz, int N, int T,
+          int S, int ring, float blank, cudaStream_t st) {
+    if (K == 4)
+        return launch_fwd<In, ROUND, STACK, 4>(moves, stack, logz, N, T, S,
+                                               ring, blank, st);
+    return launch_fwd<In, ROUND, STACK, 1>(moves, stack, logz, N, T, S, ring,
+                                           blank, st);
+}
+
+template <typename In, bool ROUND>
+int fwd_stack(int K, const void* moves, void* stack, void* logz, int N,
+              int T, int S, int ring, float blank, cudaStream_t st) {
+    return stack ? fwd_k<In, ROUND, true>(K, moves, stack, logz, N, T, S,
+                                          ring, blank, st)
+                 : fwd_k<In, ROUND, false>(K, moves, stack, logz, N, T, S,
+                                           ring, blank, st);
+}
+
+template <typename In, typename Out, bool ROUND>
+int bwd_k(int K, const void* moves, const void* stack, const void* logz,
+          const void* g, void* grad, int N, int T, int S, int ring,
+          float blank, cudaStream_t st) {
+    if (K == 4)
+        return launch_bwd<In, Out, ROUND, 4>(moves, stack, logz, g, grad, N,
+                                             T, S, ring, blank, st);
+    return launch_bwd<In, Out, ROUND, 1>(moves, stack, logz, g, grad, N, T,
+                                         S, ring, blank, st);
+}
+
+template <typename In, typename Out>
+int bwd_round(int round, int K, const void* moves, const void* stack,
+              const void* logz, const void* g, void* grad, int N, int T,
+              int S, int ring, float blank, cudaStream_t st) {
+    return round ? bwd_k<In, Out, true>(K, moves, stack, logz, g, grad, N, T,
+                                        S, ring, blank, st)
+                 : bwd_k<In, Out, false>(K, moves, stack, logz, g, grad, N,
+                                         T, S, ring, blank, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// kernel U on a ring of `ring` frames, `k` states a consumer thread: as
+// logz_fwd with is_full 0 (moves bf16, or f32 when is_f32; the stack null
+// for the forward-only variant)
+int logz_tcn_fwd_ring(const void* moves, int is_f32, int round, void* stack,
+                      void* logz, int N, int T, int S, int k, int ring,
+                      float blank, void* stream) {
+    if (bad_logz_ring(N, T, S, k, ring) || !aligned16(moves)
+        || (stack && !aligned16(stack)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (is_f32)
+        return round ? fwd_stack<float, true>(k, moves, stack, logz, N, T, S,
+                                              ring, blank, st)
+                     : fwd_stack<float, false>(k, moves, stack, logz, N, T, S,
+                                               ring, blank, st);
+    return round ? fwd_stack<bf16, true>(k, moves, stack, logz, N, T, S,
+                                           ring, blank, st)
+                 : fwd_stack<bf16, false>(k, moves, stack, logz, N, T, S,
+                                            ring, blank, st);
+}
+
+// kernel V on a ring of `ring` frames, `k` states a consumer thread: as
+// logz_bwd with is_full 0
+int logz_tcn_bwd_ring(const void* moves, int is_f32, int round,
+                      const void* stack, const void* logz, const void* g,
+                      void* grad, int out_f32, int N, int T, int S, int k,
+                      int ring, float blank, void* stream) {
+    if (bad_logz_ring(N, T, S, k, ring) || !aligned16(moves)
+        || !aligned16(stack) || !aligned16(grad))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (is_f32)
+        return out_f32
+            ? bwd_round<float, float>(round, k, moves, stack, logz, g, grad,
+                                      N, T, S, ring, blank, st)
+            : bwd_round<float, bf16>(round, k, moves, stack, logz, g, grad,
+                                       N, T, S, ring, blank, st);
+    return out_f32
+        ? bwd_round<bf16, float>(round, k, moves, stack, logz, g, grad, N,
+                                   T, S, ring, blank, st)
+        : bwd_round<bf16, bf16>(round, k, moves, stack, logz, g, grad, N,
+                                    T, S, ring, blank, st);
+}
+
+}  // extern "C"

@@ -127,6 +127,13 @@ SIGNATURES = {
     # scores, is_f32, is_full, round, stack, logz, g, grad, out_f32, N, T,
     # S, blank, stream
     "logz_bwd": [P, I, I, I, P, P, P, P, I, I, I, I, F, P],
+    # kernels U and V on a ring of frames (csrc/logz_ring.cu): moves,
+    # is_f32, round, stack (or null), logz, N, T, S, states a thread, ring,
+    # blank, stream
+    "logz_tcn_fwd_ring": [P, I, I, P, P, I, I, I, I, I, F, P],
+    # moves, is_f32, round, stack, logz, g, grad, out_f32, N, T, S, states a
+    # thread, ring, blank, stream
+    "logz_tcn_bwd_ring": [P, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
     # move, lengths, stack (or null), logz, N, T, P, blank, stream
     "lattice_fwd": [P, P, P, P, I, I, I, F, P],
     # move, stack, lengths, log|g| - logz, sign(g), dmove, N, T, P, blank,

@@ -9,12 +9,21 @@ W ``_fwd_kernel`` (and ``_fwd_kernel_nockpt``), X ``_bwd_kernel``. U and V
 read the decode layout: moves [N, T, nb*S], each frame's columns in
 (b, j, r) order, with a constant stay ``blank`` — the memory that
 ``Model.forward_tcn``'s [T, S*nb, N] view lies on. W and X read full
-scores [N, T, S*(nb+1)] with a stay plane. Both are bound by bytes on an
-H100 and, like the decode kernels, latency-bound by design: one block per
-batch row, one thread per state, one recursion step per frame.
+scores [N, T, S*(nb+1)] with a stay plane. The recursion over T is
+serial: one CTA per batch row, one recursion step per frame.
 
-Each wrapper launches its kernel for a CUDA tensor and raises for
-anything else; it never runs the plain version.
+On the card U and V run on the ring of ``csrc/logz_ring.cu`` (each
+frame's row staged ahead in shared memory by a producer warp, 1 or 4
+states a consumer thread, one barrier a frame) where ``logz_plan`` gives a
+plan; ``tcn_forward.plan`` and ``tcn_backward.plan`` hold the last call's.
+The earlier kernels of ``csrc/logz.cu`` (one thread per state, the frame's
+row loaded when the frame starts) run where it gives None (pointers that
+are not 16-byte aligned), for W and X, and in
+``tcn_forward_old_kernel``/``tcn_backward_old_kernel``, which count no
+launch; every output of the ring equals theirs bit for bit.
+
+Each wrapper launches a kernel for a CUDA tensor and raises for anything
+else; it never runs the plain version.
 """
 
 import torch
@@ -22,7 +31,61 @@ import torch
 from bonito_tpu_torch.ops import build
 
 NB = 4  # n_base; the kernels are written for the 4-letter alphabet
-STATES = (4, 16, 64, 256, 1024)  # S = 4**k, one thread each
+STATES = (4, 16, 64, 256, 1024)  # S = 4**k
+# frames the ring of csrc/logz_ring.cu holds (its C entries take 2 to 16):
+# a frame's copy is issued about RING - 1 frames before its row is read
+RING = 8
+# the states a consumer thread of the ring takes, by S (scripts/
+# logz_split.py times 1 and 4 a thread: four won at S 1024, eight warps;
+# one at S 64 and 256, where four leave warps empty or idle lanes)
+STATES_PER_THREAD = {4: 1, 16: 1, 64: 1, 256: 1, 1024: 4}
+# the most threads a CTA of the ring has (``LOGZ_THREADS``): 8 consumer
+# warps and the producer
+THREADS = 288
+
+
+def ring_consumers(S, k):
+    """The ring's consumer threads: S / k, rounded up to whole warps."""
+    return -(-(S // k) // 32) * 32
+
+
+def logz_smem(S, ring, dtype, backward):
+    """Shared memory of one CTA of the ring kernels (``logz_fwd_smem`` /
+    ``logz_bwd_smem`` of csrc/logz_ring.cu): the mbarriers, alpha (U) or
+    beta (V) of two parities, and the ring of slots: a frame's 4S moves in
+    ``dtype``, and for V also its row of the alpha stack (4S bytes)."""
+    head = (ring * 8 + 15) // 16 * 16
+    row = NB * S * dtype.itemsize
+    return head + 8 * S + ring * (row + (4 * S if backward else 0))
+
+
+def logz_plan(N, T, S, dtype, sms=None, aligned=True):
+    """The plan of kernels U and V on the ring (``csrc/logz_ring.cu``) for
+    moves [N, T, 4S] of ``dtype`` (what ``_check`` takes: bf16 or f32, S in
+    ``STATES``) on a card of ``sms`` SMs, or None where a pointer is not
+    16-byte aligned (``aligned`` false: the ring's bulk copies need it);
+    then the earlier kernels run. One CTA per batch row: S / k consumer
+    threads of k states each (k by S, ``STATES_PER_THREAD``; rounded up to
+    whole warps) and a producer warp, rings of ``RING`` frames."""
+    if not aligned:
+        return None
+    k = STATES_PER_THREAD[S]
+    consumers = ring_consumers(S, k)
+    plan = {"threads": consumers + 32, "consumer_threads": consumers,
+            "states_per_thread": k, "ctas": N,
+            "waves": None if sms is None else -(-N // sms)}
+    for name, backward in (("fwd", False), ("bwd", True)):
+        plan[name] = {"ring": RING,
+                      "smem": logz_smem(S, RING, dtype, backward)}
+    return plan
+
+
+def logz_entry(plan, backward):
+    """The C entry a plan of U or V launches: the ring's, or the earlier
+    kernel's where the plan is None."""
+    if plan is None:
+        return "logz_bwd" if backward else "logz_fwd"
+    return "logz_tcn_bwd_ring" if backward else "logz_tcn_fwd_ring"
 
 
 def _check(scores, full, name):
@@ -52,23 +115,50 @@ def _check_f32(name, device, **tensors):
                              f"{shape} on {device}")
 
 
-def _forward(fn, name, scores, full, blank, round_bf16, with_stack):
+def _plan(counter, scores, full, *tensors):
+    """The plan a counted launch of U or V takes (recorded in
+    ``counter.plan``): None for W and X, and where ``counter`` is None (the
+    comparisons' route, which counts nothing)."""
+    if counter is None:
+        return None
+    plan = None
+    if not full:
+        N, T, C = scores.shape
+        plan = logz_plan(
+            N, T, C // NB, scores.dtype,
+            torch.cuda.get_device_properties(scores.device)
+            .multi_processor_count,
+            aligned=all(t.data_ptr() % 16 == 0
+                        for t in (scores, *tensors) if t is not None))
+        counter.plan = plan
+    counter.launches += 1
+    return plan
+
+
+def _forward(counter, name, scores, full, blank, round_bf16, with_stack):
+    """U's or W's checks and launch: U on the ring where ``logz_plan``
+    gives a plan, the earlier kernel elsewhere (``_plan``)."""
     N, T, S = _check(scores, full, name)
     lib = build.library()
     dev = scores.device
     stack = torch.empty(N, T, S, device=dev) if with_stack else None
     logz = torch.empty(N, device=dev)
-    fn.launches += 1
-    build.check(lib.logz_fwd(
-        scores.data_ptr(), int(scores.dtype == torch.float32), int(full),
-        int(round_bf16), None if stack is None else stack.data_ptr(),
-        logz.data_ptr(), N, T, S, float(blank), build.stream_of(scores)),
-        "logz_fwd")
+    plan = _plan(counter, scores, full, stack)
+    args = [scores.data_ptr(), int(scores.dtype == torch.float32)]
+    args += [] if plan is not None else [int(full)]
+    args += [int(round_bf16), None if stack is None else stack.data_ptr(),
+             logz.data_ptr(), N, T, S]
+    args += [] if plan is None else [plan["states_per_thread"],
+                                     plan["fwd"]["ring"]]
+    entry = logz_entry(plan, False)
+    build.check(getattr(lib, entry)(*args, float(blank),
+                                    build.stream_of(scores)), entry)
     return stack, logz
 
 
-def _backward(fn, name, scores, full, stack, logz, g, blank, round_bf16,
-              out_dtype):
+def _backward(counter, name, scores, full, stack, logz, g, blank,
+              round_bf16, out_dtype):
+    """V's or X's checks and launch, routed as ``_forward``'s."""
     N, T, S = _check(scores, full, name)
     _check_f32(name, scores.device, stack=(stack, (N, T, S)),
                logz=(logz, (N,)), g=(g, (N,)))
@@ -77,18 +167,25 @@ def _backward(fn, name, scores, full, stack, logz, g, blank, round_bf16,
         raise TypeError(f"{name} writes bf16 or f32, not {out_dtype}")
     lib = build.library()
     grad = torch.empty(scores.shape, dtype=out_dtype, device=scores.device)
-    fn.launches += 1
-    build.check(lib.logz_bwd(
-        scores.data_ptr(), int(scores.dtype == torch.float32), int(full),
-        int(round_bf16), stack.data_ptr(), logz.data_ptr(), g.data_ptr(),
-        grad.data_ptr(), int(out_dtype == torch.float32), N, T, S,
-        float(blank), build.stream_of(scores)), "logz_bwd")
+    plan = _plan(counter, scores, full, stack, grad)
+    args = [scores.data_ptr(), int(scores.dtype == torch.float32)]
+    args += [] if plan is not None else [int(full)]
+    args += [int(round_bf16), stack.data_ptr(), logz.data_ptr(),
+             g.data_ptr(), grad.data_ptr(), int(out_dtype == torch.float32),
+             N, T, S]
+    args += [] if plan is None else [plan["states_per_thread"],
+                                     plan["bwd"]["ring"]]
+    entry = logz_entry(plan, True)
+    build.check(getattr(lib, entry)(*args, float(blank),
+                                    build.stream_of(scores)), entry)
     return grad
 
 
 def tcn_forward(moves, blank, round_bf16=True, with_stack=True):
     """Kernel U: moves [N, T, nb*S] (TCN column order), stay ``blank`` ->
-    (alpha stack [N, T, S] f32 or None, logZ [N] f32)."""
+    (alpha stack [N, T, S] f32 or None, logZ [N] f32). On the ring where
+    ``logz_plan`` gives a plan (recorded in ``.plan``), else the earlier
+    kernel."""
     return _forward(tcn_forward, "kernel U", moves, False, blank,
                     round_bf16, with_stack)
 
@@ -96,9 +193,25 @@ def tcn_forward(moves, blank, round_bf16=True, with_stack=True):
 def tcn_backward(moves, stack, logz, g, blank, round_bf16=True,
                  out_dtype=None):
     """Kernel V: d logZ / d moves x g, [N, T, nb*S] in ``out_dtype`` (the
-    moves' own by default)."""
+    moves' own by default); routed as ``tcn_forward``."""
     return _backward(tcn_backward, "kernel V", moves, False, stack, logz, g,
                      blank, round_bf16, out_dtype)
+
+
+def tcn_forward_old_kernel(moves, blank, round_bf16=True, with_stack=True):
+    """U's earlier kernel (``csrc/logz.cu``) whatever the plan (CUDA
+    tensors only): the route where ``logz_plan`` gives None, and what
+    chip_smoke.py and the card tests hold the ring against. It counts no
+    launch."""
+    return _forward(None, "kernel U", moves, False, blank, round_bf16,
+                    with_stack)
+
+
+def tcn_backward_old_kernel(moves, stack, logz, g, blank, round_bf16=True,
+                            out_dtype=None):
+    """V's earlier kernel, as ``tcn_forward_old_kernel``."""
+    return _backward(None, "kernel V", moves, False, stack, logz, g, blank,
+                     round_bf16, out_dtype)
 
 
 def full_forward(scores, round_bf16=True, with_stack=True):
@@ -116,5 +229,7 @@ def full_backward(scores, stack, logz, g, round_bf16=True, out_dtype=None):
 
 tcn_forward.launches = 0
 tcn_backward.launches = 0
+tcn_forward.plan = None  # the last call's (None: the earlier kernel)
+tcn_backward.plan = None
 full_forward.launches = 0
 full_backward.launches = 0

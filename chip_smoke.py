@@ -10,8 +10,8 @@ PyTorch built for CUDA. In order, it:
  1. prints the card's name, power limit and count;
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory, stack frame
-    and spills (kernel O's stretch kernel and the ring kernels of B, C, M
-    and Q must have neither);
+    and spills (kernel O's stretch kernel and the ring kernels of B, C, M,
+    Q, U and V must have neither);
  3. holds each kernel against its plain PyTorch version on the card: at
     hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 (B and C
     on their ring, ``decode_plan`` gives a plan, and held against their
@@ -112,9 +112,13 @@ PyTorch built for CUDA. In order, it:
     ``model(x)``, ``loss`` and its backward (W, X), then ``loss_tcn`` under
     no_grad as validation does (U and Y without their stacks); each path
     with its launch counts, held against the same path on the plain
-    versions, with its loss, time, train-loss samples/s and peak memory;
-    then U to Z alone against their plain versions at hac, fast and sup
-    training shapes, with their times and bounds at each;
+    versions, with its loss, time, train-loss samples/s and peak memory
+    (``loss_tcn`` also with U and V on their earlier kernels); then U to Z
+    alone against their plain versions at hac, fast and sup training
+    shapes, with their times and bounds at each, U and V on their ring
+    (``logz_plan`` gives a plan at each) and held against their earlier
+    kernels bit for bit (stack, logZ, no-stack logZ, gradient), with those
+    kernels' times;
 10. runs the LSTM-CRF train step: R and S (the LSTM recurrence of a train
     step and its backward through time) against their plain versions at
     hac and fast training shapes (N 128; T 1000, H 1024 and T 1200, H 96),
@@ -126,8 +130,9 @@ PyTorch built for CUDA. In order, it:
     three timed ones with their launch counts (R 5, S 5, U, V, Y, Z 1 each
     per step, nothing else), finite losses and norms, every parameter
     moved, and one step's gradients through the kernels against the same
-    through the plain versions; its time, train samples/s and peak memory;
-    one fast train step (R and S at H 96); and ``python -m
+    through the plain versions; its time, train samples/s and peak memory,
+    and the step with U and V on their earlier kernels (the parent's route)
+    and on the ring in turns; one fast train step (R and S at H 96); and ``python -m
     bonito_tpu_torch train`` (in this process) for one epoch of hac on a
     generated npy set (3 batches of 128 x 6000, one validation batch, which
     runs A, U, Y, B and C), checking its checkpoint and logs;
@@ -146,7 +151,7 @@ PyTorch built for CUDA. In order, it:
     them), and one step's gradients through the kernels against the same
     through the plain versions; its time, sup train samples/s and peak
     memory, and the same step's time with H, then O, on its earlier
-    kernel; one
+    kernel, and with U and V on theirs and on the ring in turns; one
     epoch of ``python -m bonito_tpu_torch train --config
     dna_r10.4.1_e8.2_400bps_sup@v5.0`` on a generated npy set (2 batches of
     32 x 12288, one validation batch: P, 18 x K, U, Y, B, C); and H's and
@@ -156,7 +161,9 @@ PyTorch built for CUDA. In order, it:
     all twenty-five kernels (K's, H's and O's with their plans and their
     earlier kernel's time; B's and C's with their plan, their earlier
     kernels' times and difference, and the device steps on both; M's and
-    Q's likewise, with the reverse paths' device steps and the parent's).
+    Q's likewise, with the reverse paths' device steps and the parent's;
+    U's and V's with their plan, their earlier kernels' times at hac, fast
+    and sup training shapes, and the loss and the train steps on both).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -394,7 +401,8 @@ def ptxas_summary(report):
                              r"window_bwd_rows_kernel|"
                              r"local_attention_(?:tc|f32)_kernel|"
                              r"relayout_transpose|relayout_gather|"
-                             r"(?:logz|lattice)_(?:fwd|bwd)_kernel|"
+                             r"(?:logz|lattice)_(?:fwd|bwd)"
+                             r"(?:_ring)?_kernel|"
                              r"decode_(?:fwd|bwd)_ring_kernel|"
                              r"decode_(?:fused_(?:wide_)?)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
@@ -1202,17 +1210,18 @@ def device_step(np, model, reads, make_compute_fn, chunk, **kw):
 
 class earlier_kernel:
     """K and H (``rule`` "window_plan") or O ("window_bwd_plan") of
-    ``attention_cuda``, or B and C ("decode_plan" of ``decode_cuda``), on
-    their earlier kernels at every shape, for the comparisons of phases 7
-    and 11: the shape rule swapped for one that gives no plan. The launch
-    counts count as on the redesigned kernels."""
+    ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), or U
+    and V ("logz_plan" of ``logz_cuda``) on their earlier kernels at every
+    shape, for the comparisons of phases 7 and 9 to 11: the shape rule
+    swapped for one that gives no plan. The launch counts count as on the
+    redesigned kernels."""
 
     def __init__(self, attention_cuda, rule="window_plan"):
         self.mod, self.name = attention_cuda, rule
 
     def __enter__(self):
         self.rule = getattr(self.mod, self.name)
-        setattr(self.mod, self.name, lambda *shape: None)
+        setattr(self.mod, self.name, lambda *shape, **kw: None)
 
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self.rule)
@@ -1376,12 +1385,27 @@ def loss_path(torch, counters, fn):
     return out, launches, (torch.cuda.max_memory_allocated() - held) / 2 ** 30
 
 
+def vs_old_kernel(torch, *pairs):
+    """Whether each pair of tensors (a kernel's output, its earlier
+    kernel's) is equal bit for bit, and the largest |difference| over all."""
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+               for a, b in pairs)
+    diff = max(float(torch.where(a == b, 0.0, (a.float() - b.float()).abs())
+                     .max()) for a, b in pairs)
+    return same, diff
+
+
 def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
                       g_lat, time_plain):
     """Each of U to Z on the given tensors against its plain version on the
-    same inputs, and its time (the plain version's when ``time_plain``).
-    Returns {key: {"err", "ok", "ms", "plain_ms", "bytes", "ops"}} and U's
-    time without its stack."""
+    same inputs, and its time (the plain version's when ``time_plain``); U
+    and V, on the ring where ``logz_plan`` gives a plan, also against their
+    earlier kernels bit for bit, and those kernels' times. Returns {key:
+    {"err", "ok", "ms", "plain_ms", "bytes", "ops"}, with U's and V's
+    "plan", "vs_old" (bit for bit), "diff_old" (max |diff|) and
+    "old_kernel_ms"} and U's time without its stack."""
     logz, logz_cuda, lattice, lattice_cuda = mods
     N, T, Cm = moves.shape
     S = Cm // 4
@@ -1392,28 +1416,45 @@ def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
         return timed(torch, fn) if time_plain else (fn(), None)
 
     stack, lz = logz_cuda.tcn_forward(moves, blank)
+    plan = logz_cuda.tcn_forward.plan
     (ref_stack, ref_lz), plain_ms = plain_time(
         lambda: logz.forward_plain(moves, blank))
     e1, ok1 = f32_close(stack, ref_stack)
     e2, ok2 = f32_close(lz, ref_lz)
     _, lz_only = logz_cuda.tcn_forward(moves, blank, with_stack=False)
+    old_stack, old_lz = logz_cuda.tcn_forward_old_kernel(moves, blank)
+    _, old_only = logz_cuda.tcn_forward_old_kernel(moves, blank,
+                                                   with_stack=False)
+    same_u, diff_u = vs_old_kernel(torch, (stack, old_stack), (lz, old_lz),
+                                   (lz_only, old_only))
     res["U"] = dict(err=max(e1, e2), ok=ok1 and ok2 and torch.equal(
         lz, lz_only), plain_ms=plain_ms, ms=cuda_ms(
         lambda: logz_cuda.tcn_forward(moves, blank), reps=3),
         bytes=moves.numel() * moves.element_size() + stack.numel() * 4
         + N * 4, bytes_no_stack=moves.numel() * moves.element_size() + N * 4,
-        ops=30 * N * T * S)
+        ops=30 * N * T * S, plan=plan, vs_old=same_u, diff_old=diff_u,
+        old_kernel_ms=cuda_ms(lambda: logz_cuda.tcn_forward_old_kernel(
+            moves, blank), reps=3),
+        no_stack_old_kernel_ms=cuda_ms(
+            lambda: logz_cuda.tcn_forward_old_kernel(
+                moves, blank, with_stack=False), reps=3))
+    del old_stack
     ms_u_only = cuda_ms(lambda: logz_cuda.tcn_forward(
         moves, blank, with_stack=False), reps=3)
     grad = logz_cuda.tcn_backward(moves, stack, lz, g, blank)
     ref, plain_ms = plain_time(lambda: logz.backward_plain(
         moves, blank, ref_stack, ref_lz, g, out_dtype=moves.dtype)[0])
     err, ok, _ = grad_close(torch, grad, ref)
+    old_grad = logz_cuda.tcn_backward_old_kernel(moves, stack, lz, g, blank)
+    same_v, diff_v = vs_old_kernel(torch, (grad, old_grad))
     res["V"] = dict(err=err, ok=ok, plain_ms=plain_ms, ms=cuda_ms(
         lambda: logz_cuda.tcn_backward(moves, stack, lz, g, blank), reps=3),
         bytes=2 * moves.numel() * moves.element_size() + stack.numel() * 4
-        + N * 8, ops=54 * N * T * S)
-    del stack, ref_stack, grad, ref
+        + N * 8, ops=54 * N * T * S, plan=logz_cuda.tcn_backward.plan,
+        vs_old=same_v, diff_old=diff_v,
+        old_kernel_ms=cuda_ms(lambda: logz_cuda.tcn_backward_old_kernel(
+            moves, stack, lz, g, blank), reps=3))
+    del stack, ref_stack, grad, ref, old_grad
 
     stack, lz = logz_cuda.full_forward(scores)
     (ref_stack, ref_lz), plain_ms = plain_time(
@@ -1559,11 +1600,19 @@ def train_loss_phase(torch, hac, counters, dev):
                 loss.backward()
         return loss.detach(), a.grad
 
+    def valid_ms():
+        with torch.no_grad():
+            return cuda_ms(lambda: hac.loss_tcn(moves_d, train_blank,
+                                                targets, t_lengths), reps=3)
     ms_train = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
     ms_full = cuda_ms(lambda: full_loss_grad(sc_d), reps=2)
-    with torch.no_grad():
-        ms_valid = cuda_ms(lambda: hac.loss_tcn(moves_d, train_blank, targets,
-                                                t_lengths), reps=3)
+    ms_valid = valid_ms()
+    # the same with U and V on their earlier kernels (the parent's route),
+    # then on the ring again
+    with earlier_kernel(logz_cuda, "logz_plan"):
+        ms_train_old = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
+        ms_valid_old = valid_ms()
+    ms_train_again = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
     plain_train, plain_g = plain_path(
         lambda m: hac.loss_tcn(m, train_blank, targets, t_lengths), moves_d)
     plain_full, plain_gs = plain_path(
@@ -1595,6 +1644,10 @@ def train_loss_phase(torch, hac, counters, dev):
             f"was held; launches {({k: v for k, v in n.items() if v})}")
     log(f"  valid_loss (no_grad: U and Y without their stacks) vs "
         f"train_loss: |diff| {err_v:.3g}")
+    log(f"  with U and V on their earlier kernels (the parent's route): "
+        f"train_loss forward + backward {ms_train_old:.4g} ms (on the ring "
+        f"{ms_train:.4g}, again {ms_train_again:.4g}), valid_loss "
+        f"{ms_valid_old:.4g} ms (on the ring {ms_valid:.4g})")
     for name, ok in checks.items():
         require(ok, f"{name}: the kernels disagree with the plain versions")
     del plain_g, plain_gs
@@ -1622,15 +1675,35 @@ def train_loss_phase(torch, hac, counters, dev):
             loss_more[key][f"{shape}_shape_max_abs_err"] = r["err"]
             require(r["ok"], f"kernel {key} at {shape} training shapes "
                              f"disagrees with its plain version")
+            if "vs_old" in r:
+                loss_more[key][f"{shape}_shape_old_kernel_ms"] = (
+                    r["old_kernel_ms"])
+                loss_more[key][f"{shape}_shape_max_abs_err_vs_old_kernel"] = (
+                    r["diff_old"])
+                loss_more[key][f"{shape}_shape_plan"] = r["plan"]
+                require(r["vs_old"] and r["plan"] is not None,
+                        f"kernel {key} at {shape} training shapes: the ring "
+                        f"(plan {r['plan']}) differs from the earlier "
+                        f"kernel")
         log(f"  at {shape} training shapes (N {N_}, T {T_}, S {S_}, L "
             f"{L_}): " + ", ".join(
                 f"{k} {r['ms']:.4g} ms (bound "
                 f"{loss_more[k][shape + '_shape_bound_ms']:.4g}, max |diff| "
                 f"{r['err']:.3g})" for k, r in res.items()))
+        log(f"    U and V on the ring (plan {res['U']['plan']}), bit for "
+            f"bit the earlier kernels' (stack, logZ, no-stack logZ; "
+            f"gradient): {res['U']['vs_old']}, {res['V']['vs_old']}; the "
+            f"earlier kernels U {res['U']['old_kernel_ms']:.4g} ms (no "
+            f"stack {res['U']['no_stack_old_kernel_ms']:.4g}), V "
+            f"{res['V']['old_kernel_ms']:.4g} ms")
     for key, r in loss_k.items():
         require(r["ok"], f"kernel {key} at hac training shapes disagrees "
                          f"with its plain version")
         r["bound"] = bound(r["bytes"], r["ops"], H100_F32_OPS)
+    for key in "UV":
+        require(loss_k[key]["vs_old"] and loss_k[key]["plan"] is not None,
+                f"kernel {key} at hac training shapes: the ring (plan "
+                f"{loss_k[key]['plan']}) differs from the earlier kernel")
     bound_u_only = bound(loss_k["U"]["bytes_no_stack"], loss_k["U"]["ops"],
                          H100_F32_OPS)
     log("  at hac training shapes: " + ", ".join(
@@ -1638,6 +1711,14 @@ def train_loss_phase(torch, hac, counters, dev):
         f"{r['bound'][0]:.4g} by {r['bound'][1]}, max |diff| {r['err']:.3g})"
         for k, r in loss_k.items()) + f"; U without its stack "
         f"{ms_u_only:.4g} ms (bound {bound_u_only[0]:.4g})")
+    log(f"    U and V on the ring (plan {loss_k['U']['plan']}), bit for bit "
+        f"the earlier kernels'; the earlier kernels U "
+        f"{loss_k['U']['old_kernel_ms']:.4g} ms (no stack "
+        f"{loss_k['U']['no_stack_old_kernel_ms']:.4g}), V "
+        f"{loss_k['V']['old_kernel_ms']:.4g} ms")
+    loss_k["U"]["train_loss_ms"] = loss_k["V"]["train_loss_ms"] = ms_train
+    loss_k["U"]["train_loss_old_kernel_ms"] = ms_train_old
+    loss_k["V"]["train_loss_old_kernel_ms"] = ms_train_old
     return loss_paths, loss_k, loss_more, ms_u_only, bound_u_only
 
 
@@ -1886,6 +1967,28 @@ def step_grads(torch, model, batch):
     return loss.detach(), grads
 
 
+def steps_in_turns(torch, step, batch, logz_cuda):
+    """A train step's ms (a warm-up, then TRAIN_STEPS steps), with U and V
+    on their earlier kernels (the parent's route), on the ring, then on the
+    earlier kernels again: {"old": [ms, ms], "ring": [ms]}."""
+    def step_ms():
+        step(batch, 1.0, 2.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            step(batch, 1.0, 2.0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    turns = {"old": [], "ring": []}
+    for route in ("old", "ring", "old"):
+        if route == "old":
+            with earlier_kernel(logz_cuda, "logz_plan"):
+                turns[route].append(step_ms())
+        else:
+            turns[route].append(step_ms())
+    return turns
+
+
 def train_step_phase(torch, counters, dev):
     """Phase 10: the LSTM-CRF train step. (a) R and S against their plain
     versions at hac and fast training shapes; (b) the hac train step at
@@ -1896,8 +1999,9 @@ def train_step_phase(torch, counters, dev):
     end to end on a generated npy set."""
     from bonito_tpu_torch.crf.model import Model
     from bonito_tpu_torch.models import MODELS, lstm_crf_config
-    from bonito_tpu_torch.ops import build, lstm_cuda, lstm_train_cuda
+    from bonito_tpu_torch.ops import build, logz_cuda, lstm_cuda
     from bonito_tpu_torch.ops import lstm as ops_lstm
+    from bonito_tpu_torch.ops import lstm_train_cuda
     from bonito_tpu_torch.training import make_optimizer, make_train_step
 
     log(f"[10] the LSTM-CRF train step (kernels R, S with U, V, Y, Z)")
@@ -1993,6 +2097,17 @@ def train_step_phase(torch, counters, dev):
     require(worst <= TRAIN_GRAD_REL and res["hac"]["loss_diff"]
             <= TRAIN_LOSS_TOL, "hac train step: the kernels' gradients "
                                "disagree with the plain versions'")
+    res["hac"]["uv_plans"] = (logz_cuda.tcn_forward.plan,
+                              logz_cuda.tcn_backward.plan)
+    turns = steps_in_turns(torch, step, batch, logz_cuda)
+    res["hac"]["uv_turns"] = turns
+    log(f"  the hac train step in turns, U and V on their earlier kernels "
+        f"(the parent's route) / on the ring: {turns['old'][0]:.4g} / "
+        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms (the timed "
+        f"steps above on the ring: {res['hac']['ms']:.4g}); U's and V's "
+        f"plans {res['hac']['uv_plans']}")
+    require(all(p is not None for p in res["hac"]["uv_plans"]),
+            "hac train step: U and V did not run on the ring")
     del hac, step, grads_k, grads_p, batch
     torch.cuda.empty_cache()
 
@@ -2216,7 +2331,7 @@ def sup_train_phase(torch, counters, dev):
     library yardstick."""
     import torch.nn.functional as F
     from bonito_tpu_torch.models import MODELS
-    from bonito_tpu_torch.ops import attention_cuda, relayout
+    from bonito_tpu_torch.ops import attention_cuda, logz_cuda, relayout
     from bonito_tpu_torch.training import make_optimizer, make_train_step
     from bonito_tpu_torch.transformer import model as transformer
 
@@ -2326,6 +2441,17 @@ def sup_train_phase(torch, counters, dev):
         f"{res['step']['old_kernel_ms']:.4g} ms per step; with O on its "
         f"earlier kernel: {res['step']['o_old_kernel_ms']:.4g} ms (both on "
         f"their stretch kernels: {res['step']['ms']:.4g})")
+    res["step"]["uv_plans"] = (logz_cuda.tcn_forward.plan,
+                               logz_cuda.tcn_backward.plan)
+    turns = steps_in_turns(torch, step, batch, logz_cuda)
+    res["step"]["uv_turns"] = turns
+    log(f"  the sup train step in turns, U and V on their earlier kernels "
+        f"(the parent's route) / on the ring: {turns['old'][0]:.4g} / "
+        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms (the timed "
+        f"steps above on the ring: {res['step']['ms']:.4g}); U's and V's "
+        f"plans {res['step']['uv_plans']}")
+    require(all(p is not None for p in res["step"]["uv_plans"]),
+            "sup train step: U and V did not run on the ring")
     del model, step, grads_k, grads_p, batch
     torch.cuda.empty_cache()
     res["cli"] = train_cli(
@@ -2450,11 +2576,20 @@ def main():
     require(len(o_rows) == 3 and all("stack 0 B, spills 0/0 B" in r
                                      for r in o_rows),
             f"kernel O's stretch kernel has a stack frame or spills: {o_rows}")
-    ring_rows = [r for r in ptxas_rows if "_ring_kernel" in r]
+    ring_rows = [r for r in ptxas_rows if "decode_" in r
+                 and "_ring_kernel" in r]
     require(len(ring_rows) == 10 and all("stack 0 B, spills 0/0 B" in r
                                          for r in ring_rows),
             f"kernels B, C, M and Q on the ring have a stack frame or spills "
             f"(or not ten instances): {ring_rows}")
+    # U: bf16 or f32 moves, rounded or not, with or without the stack, 1 or
+    # 4 states a thread; V: the same with a bf16 or f32 gradient
+    logz_rows = [r for r in ptxas_rows if "logz_" in r
+                 and "_ring_kernel" in r]
+    require(len(logz_rows) == 32 and all("stack 0 B, spills 0/0 B" in r
+                                         for r in logz_rows),
+            f"kernels U and V on the ring have a stack frame or spills (or "
+            f"not 32 instances): {logz_rows}")
 
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
@@ -3534,11 +3669,33 @@ def main():
     # partition function or this lattice (torch.nn.functional.ctc_loss is
     # another function: interleaved blanks, a softmax per frame)
     src_logz = "bonito_tpu_torch/csrc/logz.cu"
+    src_logz_ring = "bonito_tpu_torch/csrc/logz_ring.cu"  # U's, V's
     src_lat = "bonito_tpu_torch/csrc/lattice.cu"
+    # U and V on the ring: their plan, their earlier kernels' times, the
+    # loss path and the train steps with them on the earlier kernels
+    hac_turns = train["hac"]["uv_turns"]
+    sup_turns = sup_train["step"]["uv_turns"]
+    for key in "UV":
+        r = loss_k[key]
+        loss_more[key].update({
+            "plan": r["plan"], "old_kernel_ms": r["old_kernel_ms"],
+            "max_abs_err_vs_old_kernel": max(
+                [r["diff_old"]] + [loss_more[key][f"{s}_shape_max_abs_err_"
+                                                  f"vs_old_kernel"]
+                                   for s in ("fast", "sup")]),
+            "train_loss_ms": r["train_loss_ms"],
+            "train_loss_old_kernel_ms": r["train_loss_old_kernel_ms"],
+            "hac_train_step_ms": [train["hac"]["ms"]] + hac_turns["ring"],
+            "hac_train_step_old_kernel_ms": hac_turns["old"],
+            "sup_train_step_ms": [sup_train["step"]["ms"]]
+            + sup_turns["ring"],
+            "sup_train_step_old_kernel_ms": sup_turns["old"]})
+    loss_more["U"]["no_stack_old_kernel_ms"] = (
+        loss_k["U"]["no_stack_old_kernel_ms"])
     for name, key, path, src, rep in (
-            ("logz_tcn_fwd", "U", "train_loss", src_logz,
+            ("logz_tcn_fwd", "U", "train_loss", src_logz_ring,
              "bonito_tpu/ops/logz_pallas.py:246"),
-            ("logz_tcn_bwd", "V", "train_loss", src_logz,
+            ("logz_tcn_bwd", "V", "train_loss", src_logz_ring,
              "bonito_tpu/ops/logz_pallas.py:293"),
             ("logz_full_fwd", "W", "loss", src_logz,
              "bonito_tpu/ops/logz_pallas.py:28"),

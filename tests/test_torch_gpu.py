@@ -11,7 +11,7 @@ from bonito_tpu_torch.crf.model import HeadSplit as Head
 from bonito_tpu_torch.crf.model import Model
 from bonito_tpu_torch.crf.seqdist import CTC_CRF
 from bonito_tpu_torch.models import lstm_crf_config
-from bonito_tpu_torch.ops import (attention, attention_cuda, decode,
+from bonito_tpu_torch.ops import (attention, attention_cuda, build, decode,
                                   decode_cuda, decode_full_cuda,
                                   decode_fused_cuda, int8, lattice,
                                   lattice_cuda, logz, logz_cuda, lstm_cuda,
@@ -911,6 +911,113 @@ def test_logz_kernels_match_plain(cuda, state_len, N, T, dtype, round_bf16,
         torch.testing.assert_close(grad, ref, rtol=1e-4, atol=1e-7)
 
 
+# (S, N, T): every S the kernels take, T below (5), at (8) and beyond (9,
+# 40, 100) the ring's depth, one row, one frame
+LOGZ_RING_SHAPES = [(4, 3, 7), (16, 4, 9), (64, 8, 30), (256, 5, 40),
+                    (1024, 3, 12), (1024, 1, 1), (1024, 2, 8), (64, 1, 5),
+                    (1024, 32, 100)]
+
+
+def _logz_inputs(cuda, S, N, T, dtype):
+    g = torch.Generator().manual_seed(S + N + T)
+    moves = (5 * torch.tanh(torch.randn(N, T, 4 * S, generator=g))).to(
+        cuda, dtype)
+    cot = torch.linspace(-1.5, 2.0, N, device=cuda)
+    cot[0] = 0.0  # a zero cotangent: row 0's gradient is 0
+    return moves, cot
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,N,T", LOGZ_RING_SHAPES)
+def test_logz_ring_matches_the_earlier_kernels(cuda, S, N, T, dtype,
+                                               round_bf16, out_dtype):
+    """U and V on the ring (the plan's) against their earlier kernels on
+    the same moves, bit for bit: the alpha stack, logZ, the no-stack logZ
+    and the gradient in the moves' dtype or f32."""
+    moves, cot = _logz_inputs(cuda, S, N, T, dtype)
+    stack, lz = logz_cuda.tcn_forward(moves, 1.5, round_bf16)
+    _, lz_only = logz_cuda.tcn_forward(moves, 1.5, round_bf16,
+                                       with_stack=False)
+    grad = logz_cuda.tcn_backward(moves, stack, lz, cot, 1.5, round_bf16,
+                                  out_dtype)
+    assert logz_cuda.tcn_forward.plan == logz_cuda.logz_plan(
+        N, T, S, dtype, _sms(cuda))
+    assert logz_cuda.tcn_backward.plan == logz_cuda.tcn_forward.plan
+    old_stack, old_lz = logz_cuda.tcn_forward_old_kernel(moves, 1.5,
+                                                         round_bf16)
+    _, old_only = logz_cuda.tcn_forward_old_kernel(moves, 1.5, round_bf16,
+                                                   with_stack=False)
+    old = logz_cuda.tcn_backward_old_kernel(moves, old_stack, old_lz, cot,
+                                            1.5, round_bf16, out_dtype)
+    torch.cuda.synchronize()
+    for a, b in ((stack, old_stack), (lz, old_lz), (lz_only, old_only),
+                 (lz, lz_only), (grad, old)):
+        assert torch.equal(_bits(a), _bits(b))
+    assert grad.dtype == (dtype if out_dtype is None else out_dtype)
+    assert not grad[0].any() and bool(torch.isfinite(grad.float()).all())
+
+
+@pytest.mark.parametrize("S,N,T", [(4, 3, 7), (16, 4, 9), (64, 8, 30),
+                                   (256, 5, 40), (1024, 3, 12)])
+def test_logz_ring_bits_do_not_depend_on_the_assignment(cuda, S, N, T):
+    """The ring's C entries at every number of states a thread they take
+    (1 and 4 up to S 256; 4 at S 1024) and at rings of 2, 3 and 16
+    frames (where they fit in shared memory) give the plan's bits: stack,
+    logZ and gradient (f32 moves, f32 gradient, not rounded)."""
+    lib = build.library()
+    moves, cot = _logz_inputs(cuda, S, N, T, torch.float32)
+    stack, lz = logz_cuda.tcn_forward(moves, 1.5, False)
+    grad = logz_cuda.tcn_backward(moves, stack, lz, cot, 1.5, False)
+    stream = torch.cuda.current_stream().cuda_stream
+    for k in (1, 4):
+        if logz_cuda.ring_consumers(S, k) + 32 > logz_cuda.THREADS:
+            continue
+        for ring in (2, 3, 16):
+            if logz_cuda.logz_smem(S, ring, torch.float32, True) > 232448:
+                continue
+            st, z, gr = (torch.full_like(stack, float("nan")),
+                         torch.full_like(lz, float("nan")),
+                         torch.full_like(grad, float("nan")))
+            build.check(lib.logz_tcn_fwd_ring(
+                moves.data_ptr(), 1, 0, st.data_ptr(), z.data_ptr(), N, T, S,
+                k, ring, 1.5, stream), "logz_tcn_fwd_ring")
+            build.check(lib.logz_tcn_bwd_ring(
+                moves.data_ptr(), 1, 0, st.data_ptr(), z.data_ptr(),
+                cot.data_ptr(), gr.data_ptr(), 1, N, T, S, k, ring, 1.5,
+                stream), "logz_tcn_bwd_ring")
+            torch.cuda.synchronize()
+            for a, b in ((st, stack), (z, lz), (gr, grad)):
+                assert torch.equal(_bits(a), _bits(b)), (k, ring)
+
+
+def test_logz_old_kernels_count_no_launch(cuda):
+    moves = torch.zeros(2, 4, 4 * 64, device=cuda, dtype=torch.bfloat16)
+    before = (logz_cuda.tcn_forward.launches,
+              logz_cuda.tcn_backward.launches)
+    stack, lz = logz_cuda.tcn_forward_old_kernel(moves, 2.0)
+    logz_cuda.tcn_backward_old_kernel(moves, stack, lz,
+                                      torch.ones(2, device=cuda), 2.0)
+    torch.cuda.synchronize()
+    assert (logz_cuda.tcn_forward.launches,
+            logz_cuda.tcn_backward.launches) == before
+
+
+def test_logz_ring_takes_unaligned_moves_to_the_earlier_kernel(cuda):
+    """Moves whose rows do not start 16 bytes apart from an aligned base
+    (a view at an offset of 2 bytes): no plan, the earlier kernel, the
+    same bits."""
+    base = torch.randn(2 * 5 * 4 * 16 + 1, device=cuda).to(torch.bfloat16)
+    moves = base[1:].view(2, 5, 4 * 16)
+    stack, lz = logz_cuda.tcn_forward(moves, 1.5)
+    assert logz_cuda.tcn_forward.plan is None
+    old_stack, old_lz = logz_cuda.tcn_forward_old_kernel(moves, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(stack), _bits(old_stack))
+    assert torch.equal(_bits(lz), _bits(old_lz))
+
+
 @pytest.mark.parametrize("P,N,T", [(13, 8, 24), (37, 5, 40), (1100, 3, 20),
                                    (1, 4, 6)])
 def test_lattice_kernels_match_plain(cuda, P, N, T):
@@ -945,8 +1052,9 @@ def test_lattice_kernels_match_plain(cuda, P, N, T):
 
 
 def test_loss_launches_its_kernels(cuda):
-    """loss_tcn with its backward runs U, V, Y and Z once each; under
-    no_grad U and Y without their stacks; loss runs W and X."""
+    """loss_tcn with its backward runs U, V, Y and Z once each (U and V on
+    the ring: the plan recorded); under no_grad U and Y without their
+    stacks; loss runs W and X."""
     sd = CTC_CRF(3, "NACGT")
     N, T, S, L = 8, 40, 64, 20
     g = torch.Generator().manual_seed(3)
@@ -966,6 +1074,10 @@ def test_loss_launches_its_kernels(cuda):
     with torch.no_grad():
         valid = sd.ctc_loss_tcn(mv, 2.0, targets, lengths)
     torch.testing.assert_close(valid, loss.detach(), rtol=0, atol=0)
+    plan = logz_cuda.logz_plan(N, T, S, torch.bfloat16, _sms(cuda))
+    assert plan is not None
+    assert logz_cuda.tcn_forward.plan == plan
+    assert logz_cuda.tcn_backward.plan == plan
     scores = torch.randn(N, T, 5 * S, generator=g).to(cuda).requires_grad_()
     sd.ctc_loss(scores, targets, lengths).backward()
     torch.cuda.synchronize()

@@ -11,8 +11,11 @@ with their bands (the dk kind's mirrored) in their rings, that B's and
 C's ring hands each frame over once, in order, and sums the states in
 ``block_sum``'s tree, that M's and Q's (``ops.decode_full_cuda.
 decode_full_plan``) fits and copies each frame of either strand once, with
-the reverse strand's states kept in the forward strand's order, and the
-head dim L's bf16 instance runs at. Each is what the
+the reverse strand's states kept in the forward strand's order, that U's
+and V's (``ops.logz_cuda.logz_plan``) fits, covers every state once,
+copies each frame once in its pass's order and, emulated here state by
+state in the kernels' order, computes ``ops.logz``'s plain versions bit
+for bit, and the head dim L's bf16 instance runs at. Each is what the
 wrapper passes to its kernel. They run here, on the CPU; the kernels
 themselves, and L's tiling, which is fixed in the kernel, only on the card
 (tests/test_torch_gpu.py)."""
@@ -21,8 +24,8 @@ import pytest
 import torch
 
 from bonito_tpu_torch.ops import (attention_cuda, decode_cuda,
-                                  decode_full_cuda, lstm_cuda, lstm_int8_cuda,
-                                  lstm_train_cuda)
+                                  decode_full_cuda, logz, logz_cuda,
+                                  lstm_cuda, lstm_int8_cuda, lstm_train_cuda)
 
 SMS = 132             # an H100's SMs
 SMEM = 232448         # the most shared memory a block may ask for
@@ -1002,3 +1005,276 @@ def test_reverse_traceback_walks_the_forward_order(state_len):
         assert state % 4 == 3 - sigma // R
         for c in range(1, 5):
             assert order[state // 4 + (c - 1) * R] == sigma % R * 4 + 4 - c
+
+
+# (N, T, S): the loss kernels' training shapes (chip_smoke.py LOSS_SHAPES:
+# hac, fast, sup) and the card tests' (every S, T below, at and beyond the
+# ring, one row, one frame)
+LOGZ_SHAPES = [(128, 1000, 1024), (128, 1200, 64), (32, 2048, 1024),
+               (3, 7, 4), (4, 9, 16), (8, 30, 64), (5, 40, 256),
+               (3, 12, 1024), (1, 1, 1024), (2, 8, 1024), (1, 5, 64),
+               (32, 100, 1024)]
+
+
+def _logz_ks(S):
+    """The numbers of states a thread the ring's C entries take at S."""
+    return [k for k in (1, 4) if logz_cuda.ring_consumers(S, k) + 32
+            <= logz_cuda.THREADS]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,T,S", LOGZ_SHAPES)
+def test_logz_plan_fits_the_card(N, T, S, dtype):
+    """U's and V's ring: one CTA a row of S / k consumer threads (whole
+    warps) and a producer warp, within the C entries' bound; each
+    pass's shared memory within the card's, its slots' pieces (the moves'
+    row, the stack's row) whole 16-byte pieces."""
+    plan = logz_cuda.logz_plan(N, T, S, dtype, SMS)
+    assert plan is not None and plan["ctas"] == N
+    assert plan["waves"] == -(-N // SMS)
+    k = plan["states_per_thread"]
+    assert k in _logz_ks(S)
+    assert plan["consumer_threads"] % 32 == 0
+    assert S // k <= plan["consumer_threads"] < S // k + 32
+    assert plan["threads"] == plan["consumer_threads"] + 32
+    assert plan["threads"] <= logz_cuda.THREADS <= 1024
+    for name, backward in (("fwd", False), ("bwd", True)):
+        ring = plan[name]["ring"]
+        assert ring == logz_cuda.RING and 1 <= ring <= 16
+        assert plan[name]["smem"] == logz_cuda.logz_smem(S, ring, dtype,
+                                                         backward)
+        assert plan[name]["smem"] <= SMEM
+    assert (4 * S * dtype.itemsize) % 16 == 0 and (4 * S) % 16 == 0
+    assert logz_cuda.logz_entry(plan, False) == "logz_tcn_fwd_ring"
+    assert logz_cuda.logz_entry(plan, True) == "logz_tcn_bwd_ring"
+
+
+def test_logz_plan_at_hac_and_sup():
+    """hac training (N 128, T 1000) and sup's (N 32, T 2048) at S 1024, in
+    bf16: a CTA a row of 8 consumer warps of four states a thread and a
+    producer warp, one wave on 132 SMs, rings of 8 frames: 73,792 B (U, a
+    slot of 8 KB) and 106,560 B (V, a slot of 12 KB); in f32 139,328 and
+    172,096 B. fast's (N 128, T 1200, S 64): two warps of one state a
+    thread."""
+    for N, T in ((128, 1000), (32, 2048)):
+        for dtype, smem in ((torch.bfloat16, (73792, 106560)),
+                            (torch.float32, (139328, 172096))):
+            plan = logz_cuda.logz_plan(N, T, 1024, dtype, SMS)
+            assert plan == {"threads": 288, "consumer_threads": 256,
+                            "states_per_thread": 4, "ctas": N, "waves": 1,
+                            "fwd": {"ring": 8, "smem": smem[0]},
+                            "bwd": {"ring": 8, "smem": smem[1]}}
+    plan = logz_cuda.logz_plan(128, 1200, 64, torch.bfloat16, SMS)
+    assert (plan["threads"], plan["states_per_thread"]) == (96, 1)
+
+
+@pytest.mark.parametrize("N,T,S,dtype", [
+    (3, 7, 4, torch.bfloat16), (4, 9, 16, torch.float32),
+    (8, 30, 64, torch.bfloat16), (5, 40, 256, torch.float32),
+    (3, 12, 1024, torch.float32), (1, 1, 1024, torch.bfloat16),
+    (128, 1200, 64, torch.float32), (32, 2048, 1024, torch.float32),
+    (128, 1000, 1024, torch.bfloat16)])
+def test_logz_plan_sends_the_rest_to_the_earlier_kernel(N, T, S, dtype):
+    """Pointers not 16-byte aligned (the ring's bulk copies need them
+    so), at every S and in both dtypes: no plan, and the wrappers launch
+    the earlier kernels' entries. What neither takes (S outside STATES,
+    another dtype, an empty shape) the wrappers' checks refuse before a
+    plan is made."""
+    assert logz_cuda.logz_plan(N, T, S, dtype, SMS) is not None
+    plan = logz_cuda.logz_plan(N, T, S, dtype, SMS, aligned=False)
+    assert plan is None
+    assert logz_cuda.logz_entry(plan, False) == "logz_fwd"
+    assert logz_cuda.logz_entry(plan, True) == "logz_bwd"
+
+
+def _logz_threads(S, k):
+    """csrc/logz_ring.cu's consumers: thread i < S / k takes block
+    q = i % R and the k values c*k .. c*k + k-1 of it, c = i / R."""
+    R = S // 4
+    i = torch.arange(S // k)
+    q, c = i % R, i // R
+    kk = c[:, None] * k + torch.arange(k)[None]  # b (U) or j (V)
+    return q, kk
+
+
+@pytest.mark.parametrize("S", [4, 16, 64, 256, 1024])
+def test_logz_ring_covers_every_state_once(S):
+    """At every number of states a thread the C entries take: U's
+    consumers hold states 4q + b, V's predecessors j*R + q, each state
+    once; V's stores cover the 4S gradient columns (b*4 + j)*R + q once,
+    and U's and V's reads of a frame's moves cover its row."""
+    R = S // 4
+    for k in _logz_ks(S):
+        q, kk = _logz_threads(S, k)
+        own = (4 * q[:, None] + kk).flatten()
+        pred = (kk * R + q[:, None]).flatten()
+        assert sorted(own.tolist()) == list(range(S))
+        assert sorted(pred.tolist()) == list(range(S))
+        b = torch.arange(4)
+        cols_u = ((kk[:, :, None] * 4 + b) * R + q[:, None, None]).flatten()
+        cols_v = ((b[None, :, None] * 4 + kk[:, None, :]) * R
+                  + q[:, None, None]).flatten()
+        assert sorted(cols_u.tolist()) == list(range(4 * S))
+        assert sorted(cols_v.tolist()) == list(range(4 * S))
+
+
+def _logz_ring_events(T, ring):
+    """The order of csrc/logz_ring.cu's fills and reads of the ring for one
+    row (U and V alike, each in its pass's order: V's frame i is t = T-1-i):
+    ("fill", frame) by the producer's lane 0 (frames 0 .. ring - 1 first,
+    then after the barrier of frame i those below i + 2 + ring), ("read",
+    frame) by the consumers: frame 0's slot before the loop and, in frame
+    i, the slot of min(i + 1, T - 1), read into registers for the next
+    frame."""
+    events = [("fill", u) for u in range(min(ring, T))]
+    issued = min(ring, T)
+    events.append(("read", 0))
+    for i in range(T):
+        events.append(("read", min(i + 1, T - 1)))
+        events.append(("barrier", i))
+        upto = min(T, i + 2 + ring)
+        events += [("fill", u) for u in range(issued, upto)]
+        issued = max(issued, upto)
+    return events
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 7, 8, 9, 16, 17, 40])
+def test_logz_ring_hands_each_frame_over_once_in_order(T, backward):
+    """With the plan's ring of 8 (and rings of 2, the least the C entries
+    take, and 3): T below, at and beyond it. Every frame is copied once, in
+    the pass's order (U t = 0 .. T-1, V t = T-1 .. 0: the stack's and the
+    moves' rows of frame t in one slot); each read finds its frame in its
+    slot (slot u % ring), filled before; the frames whose values the
+    consumers compute with are 0 .. T-1, each once (the last frame's second
+    read is unused); and no slot is refilled while a frame in it has a
+    read to come."""
+    plan = logz_cuda.logz_plan(1, T, 1024, torch.bfloat16)
+    for ring in (plan["bwd" if backward else "fwd"]["ring"], 2, 3):
+        events = _logz_ring_events(T, ring)
+        fills = [e[1] for e in events if e[0] == "fill"]
+        assert fills == list(range(T))
+        slots = [None] * ring
+        for k, e in enumerate(events):
+            if e[0] == "fill":
+                old = slots[e[1] % ring]
+                if old is not None:
+                    assert not any(f[0] == "read" and f[1] == old
+                                   for f in events[k:]), (e, old)
+                slots[e[1] % ring] = e[1]
+            elif e[0] == "read":
+                assert slots[e[1] % ring] == e[1], e
+        reads = [e[1] for e in events if e[0] == "read"]
+        assert reads[:T] == list(range(T)) and reads[T:] == [T - 1]
+        frames = [T - 1 - u if backward else u for u in fills]
+        assert frames == (list(range(T - 1, -1, -1)) if backward
+                          else list(range(T)))
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one CPU thread, so that each elementwise exp and log takes
+    one code path over the whole tensor (its vector loop: the sizes below
+    are multiples of 64), in the emulation and in the plain version alike."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _max4(x):
+    """fmaxf from -inf over the last dim (4), in order."""
+    x = x.unbind(-1)
+    return torch.maximum(torch.maximum(torch.maximum(x[0], x[1]), x[2]),
+                         x[3])
+
+
+def _sum4(x):
+    """0 + x0 + x1 + x2 + x3 over the last dim, in order."""
+    x = x.unbind(-1)
+    return ((x[0] + x[1]) + x[2]) + x[3]
+
+
+def _lse2(a, b):
+    big = torch.maximum(a, b)
+    return big + torch.log(torch.exp(a - big) + torch.exp(b - big))
+
+
+def _emulate_u(moves, blank, k):
+    """U as csrc/logz_ring.cu's consumers take it, k states a thread: each
+    thread's states from its predecessors in the frame's parity, the sums
+    over j in order; logZ in the epilogue's tree (``_ring_state_sum``)."""
+    N, T, C = moves.shape
+    S = C // 4
+    R = S // 4
+    q, b = _logz_threads(S, k)
+    own = 4 * q[:, None] + b                              # [th, k]
+    pred = torch.arange(4)[None] * R + q[:, None]         # [th, 4]
+    col = (b[..., None] * 4 + torch.arange(4)) * R + q[:, None, None]
+    alpha = torch.zeros(N, S)
+    stack = torch.empty(N, T, S)
+    for t in range(T):
+        stack[:, t] = alpha
+        row = moves[:, t].to(torch.bfloat16).float()
+        cand = row[:, col] + alpha[:, pred][:, :, None, :]  # [N, th, k, 4]
+        m = _max4(cand)
+        move_in = m + torch.log(_sum4(torch.exp(cand - m[..., None])))
+        nxt = torch.empty(N, S)
+        nxt[:, own] = _lse2(blank + alpha[:, own], move_in)
+        alpha = nxt
+    mx = alpha.amax(1)
+    return stack, mx + torch.log(_ring_state_sum(torch.exp(alpha
+                                                           - mx[:, None])))
+
+
+def _emulate_v(moves, blank, stack, lz, g, k):
+    """V as csrc/logz_ring.cu's consumers take it, k predecessors a thread:
+    the 4k edge posteriors x g, then the thread's betas from their
+    successors 4q + b, the sums over b in order; the gradient rounded to
+    bf16 and kept in f32."""
+    N, T, C = moves.shape
+    S = C // 4
+    R = S // 4
+    q, j = _logz_threads(S, k)
+    pred = j * R + q[:, None]                              # [th, k]
+    succ = 4 * q[:, None] + torch.arange(4)                # [th, 4]
+    col = (torch.arange(4)[None, :, None] * 4 + j[:, None, :]) * R \
+        + q[:, None, None]                                 # [th, 4, k]
+    grad = torch.empty(N, T, C)
+    beta = torch.zeros(N, S)
+    lz, g = lz[:, None, None, None], g[:, None, None, None]
+    for t in range(T - 1, -1, -1):
+        row = moves[:, t].to(torch.bfloat16).float()
+        mv = row[:, col]                                   # [N, th, b, k]
+        bs = beta[:, succ][..., None]                      # [N, th, b, 1]
+        e = (mv + stack[:, t][:, pred][:, :, None, :]) + bs
+        gv = torch.exp(e - lz) * g
+        grad[:, t][:, col] = gv.to(torch.bfloat16).float()
+        mo = (mv + bs).transpose(2, 3)                     # [N, th, k, b]
+        mm = _max4(mo)
+        ls = mm + torch.log(_sum4(torch.exp(mo - mm[..., None])))
+        nxt = torch.empty(N, S)
+        nxt[:, pred] = _lse2(blank + beta[:, pred], ls)
+        beta = nxt
+    return grad
+
+
+@pytest.mark.parametrize("S,N,T", [(16, 8, 12), (64, 8, 12), (1024, 4, 6)])
+def test_logz_ring_emulation_equals_the_plain_versions(one_thread, S, N, T):
+    """At every number of states a thread the C entries take, the ring's
+    per-state order, emulated, gives ``ops.logz``'s forward_plain (stack
+    and logZ) and backward_plain (the gradient, rounded to bf16) bit for
+    bit: the assignment of states to threads moves no bit."""
+    g = torch.Generator().manual_seed(S + T)
+    moves = 5 * torch.tanh(torch.randn(N, T, 4 * S, generator=g))
+    cot = torch.linspace(-1.5, 2.0, N)
+    stack, lz = logz.forward_plain(moves, 1.5)
+    grad, _ = logz.backward_plain(moves, 1.5, stack, lz, cot)
+    for k in _logz_ks(S):
+        e_stack, e_lz = _emulate_u(moves, 1.5, k)
+        assert torch.equal(e_stack.view(torch.int32),
+                           stack.view(torch.int32)), k
+        assert torch.equal(e_lz.view(torch.int32), lz.view(torch.int32)), k
+        e_grad = _emulate_v(moves, 1.5, stack, lz, cot, k)
+        assert torch.equal(e_grad.view(torch.int32),
+                           grad.view(torch.int32)), k
