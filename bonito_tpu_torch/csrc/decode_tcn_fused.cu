@@ -31,8 +31,9 @@
 // same back (0.2 ms at 3.35 TB/s): bytes. The recursion is serial in T, so
 // what bounds the design is the time of one frame.
 //
-// Design: a block owns RB = 4 batch rows (256 blocks at N = 1024, two to an
-// SM) with one thread per (row, state). The head product does not depend on
+// The earlier design (G, and J where fused_decode_plan gives no plan): a
+// block owns RB = 4 batch rows (256 blocks at N = 1024, two to an SM) with
+// one thread per (row, state). The head product does not depend on
 // the decode's state, so it is taken FB = 4 encoder frames at a time: the 16
 // columns (frame, row) of a chunk make the n side of 16x16x16 bf16 WMMA
 // products with the move rows on the m side, f32 sums stored to shared
@@ -47,8 +48,35 @@
 // read per frame, reads shared memory. alpha/beta ping-pong between two
 // buffers: one block barrier per frame, one more where a row spans warps.
 //
-// Later work: the next chunk's head product overlapped with this chunk's
-// recursion (two warp groups), and S > 256 (a row per block or per cluster).
+// J on its ring (decode_fused_bwd_ring, ops/decode_fused_cuda.py:
+// fused_decode_plan: S 64, H 32 or 96, U 1 or 2), a CTA of 8 batch rows in
+// warps of their own:
+//   the producer  lane 0 bulk-copies each chunk's h rows (one copy an
+//              encoder frame) and, per row, its frames of move-in and
+//              choices into a ring of chunks (csrc/ring.cuh's fill; a slot
+//              refilled once its readers arrived on `empty`);
+//   8 head warps  hold their m-tiles of the weights in registers and, a
+//              chunk ahead of the consumers, compute the chunk's head sums
+//              (mma.sync m16n8k16, an encoder frame's 8 rows the n: the
+//              same HMMA and k order as head_product) and the exps of the
+//              move scores into one of two tiles;
+//   8 consumer warps  one a row, two states a thread: beta's step from the
+//              tile's exps with the earlier kernel's f32 steps, the row's
+//              max (a redux on the bits) and 1 / max in registers, the
+//              mass's butterfly over each run of 32 states, the traceback;
+//              __syncwarp once a frame, no block barrier;
+//   the epilogue warp  lane r: row r's posterior, qscore and three bytes a
+//              frame from the records the consumers leave, a chunk behind.
+// Every output equals the earlier J's bit for bit. On an H100 at fast
+// widths it takes about 0.83 ms against the earlier J's 2.23; the head
+// warps' exps and the consumers' chain set the pace (PERF.md;
+// scripts/decode_split.py j leaves out each part, J_CUT). One state a
+// thread, two consumer warps a row meeting at a named barrier, took about
+// 1.07 ms (26 warps leave 72 registers a thread: the head warps spill); the
+// split tool builds it from an edited copy of this file.
+//
+// Later work: G on the same ring, and S > 256 (a row per block or per
+// cluster).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,6 +86,12 @@
 #include <cmath>
 #include <cstdint>
 
+#include "ring.cuh"
+
+#ifndef J_CUT
+#define J_CUT 0
+#endif
+
 using namespace nvcuda;
 
 namespace {
@@ -66,8 +100,6 @@ constexpr int NB = 4;
 constexpr int RB = 4;               // batch rows per block
 constexpr int FB = 4;               // encoder frames per chunk
 constexpr int NCOL = RB * FB;       // the n of a 16x16x16 tile
-constexpr int PAD = 8;              // bf16 values: 16 bytes per padded row
-constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a block may ask for
 
 typedef __nv_bfloat16 bf16;
 
@@ -78,7 +110,7 @@ struct HeadOps {
     float cmin, cmax;
 };
 
-__host__ __device__ inline int round_up(int v, int m) {
+__host__ __device__ constexpr int round_up(int v, int m) {
     return (v + m - 1) / m * m;
 }
 
@@ -507,6 +539,380 @@ __global__ void decode_fused_bwd(const bf16* __restrict__ h,     // [Th, N, H]
     }
 }
 
+// ------------------------------------------------- kernel J on the ring
+// the parts scripts/decode_split.py j leaves out (J_CUT bits)
+constexpr int JCUT_HEAD = 1;      // the head warps' products and exps
+constexpr int JCUT_WAITS = 2;     // the ring's copies and the waits for them
+constexpr int JCUT_EPILOGUE = 4;  // the epilogue's masses, qscores, stores
+
+__device__ __forceinline__ constexpr bool jcut(int part) {
+    return (J_CUT & part) != 0;
+}
+
+constexpr int JS = 64;     // states: the instances built
+constexpr int JRB = 8;     // batch rows a CTA: an encoder frame's rows make
+                           // the n of a head tile (mma.sync m16n8k16)
+constexpr int JCW = JRB;   // consumer warps: one a row
+constexpr int JSPT = JS / 32;  // states a consumer thread
+constexpr int JHW = 8;     // head warps
+constexpr int JWARPS = JCW + JHW + 2;  // and the producer, the epilogue warp
+constexpr int JUMAX = 2;   // upsample phases the ring kernel takes
+constexpr int JFU = FB * JUMAX;  // output frames of a chunk, at most
+constexpr int JRING_MAX = 8;
+
+// a frame's record for the epilogue: the mass's sum over each run of 32
+// states, the row's max, the traceback word
+__host__ __device__ constexpr int jrec(int S) { return S / 32 + 2; }
+
+// Shared memory, in bytes from its start: the mbarriers; beta of two
+// parities (raw, [2][JRB][S]); two chunks' records ([2][JRB][fu][jrec(S)])
+// and exps ([2][fu][JRB][ldt]); the ring of chunks: each slot the chunk's h
+// rows ([FB][JRB][H] bf16) and, per row, its frames of move-in ([fu][S]
+// f32) and choices ([fu][S]).
+struct JLayout {
+    int fu, ldt, slot_h, slot_min, slot_bytes;
+    int off_beta, off_rec, off_tile, off_ring, total;
+    __host__ __device__ constexpr JLayout(int S, int H, int U, int ring)
+        : fu(FB * U), ldt(NB * S + 4), slot_h(FB * JRB * H * 2),
+          slot_min(JRB * FB * U * S * 4),
+          slot_bytes(round_up(FB * JRB * H * 2 + JRB * FB * U * S * 5, 128)),
+          off_beta(256),
+          off_rec(off_beta + round_up(2 * JRB * S * 4, 128)),
+          off_tile(off_rec + round_up(2 * JRB * FB * U * jrec(S) * 4, 128)),
+          off_ring(off_tile
+                   + round_up(2 * FB * U * JRB * (NB * S + 4) * 4, 128)),
+          total(off_ring + ring * slot_bytes) {}
+};
+
+struct JArgs {
+    const bf16* h;             // [Th, N, H]
+    const bf16* w;             // [U, nb*S, H], rows in the TCN order
+    const float* bias;         // [U, nb*S]
+    const float* move_in;      // [N, T, S]
+    const uint8_t* choices;    // [N, T, S]
+    const float* cs;           // [N, T]
+    const float* logz;         // [N]
+    const int* end_state;      // [N]
+    uint8_t* seq;              // [N, T] each
+    uint8_t* qstr;
+    uint8_t* mvout;
+    int Th, N, U, ring;
+    float p_stay, qscale, qbias;
+    HeadOps ops;
+};
+
+// Kernel J on a ring of chunks (FB encoder frames, fu = FB*U output frames,
+// taken in the pass's order: iteration j is chunk nchunk-1-j): a CTA of JRB
+// batch rows, S = JS states, H = 16 KT, MT m-tiles of the head's
+// U * nb*S rows a head warp. Warps, in order: JCW consumers (a row each,
+// JSPT states a thread), JHW head warps, the producer, the epilogue warp:
+// 18, so 96 registers a thread (ceil(18 / 4) warps on each of an SM's four
+// register files).
+template <int KT, int MT>
+__global__ void __launch_bounds__(JWARPS * 32, 1)
+decode_fused_bwd_ring(const JArgs a)
+{
+    constexpr int S = JS, R = S / NB, Cm = NB * S, H = 16 * KT;
+    constexpr int U = MT * JHW * 16 / Cm;  // the upsample phases
+    static_assert(U * Cm == MT * JHW * 16, "the head warps take every row");
+    constexpr int NRUN = S / 32;    // runs of 32 states (row_sum_max's)
+    constexpr int REC = jrec(S);
+    extern __shared__ __align__(128) unsigned char jsm[];
+    constexpr JLayout L(S, H, U, 0);  // the ring's depth is a.ring
+    uint64_t* full = reinterpret_cast<uint64_t*>(jsm);
+    uint64_t* empty = full + a.ring;
+    uint64_t* tfull = empty + a.ring;  // [2]: a chunk's exps are written
+    uint64_t* tempty = tfull + 2;      // [2]: ... read, and its records
+    uint64_t* rfull = tempty + 2;      // [2]: a chunk's records are written
+    float* beta = reinterpret_cast<float*>(jsm + L.off_beta);
+    float* rec = reinterpret_cast<float*>(jsm + L.off_rec);
+    float* tile = reinterpret_cast<float*>(jsm + L.off_tile);
+    unsigned char* ring = jsm + L.off_ring;
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const int n0 = blockIdx.x * JRB;
+    const int live = min(JRB, a.N - n0);
+    constexpr int fu = L.fu;
+    const int T = a.Th * U;
+    const int nchunk = (a.Th + FB - 1) / FB;
+    const unsigned consumers = 32u * live;  // the live rows' warps
+
+    // frame T in parity 1: beta 1 (raw), read through a max of 1
+    for (int e = tid; e < JRB * S; e += blockDim.x) beta[JRB * S + e] = 1.f;
+    if (tid == 0) {
+        for (int s = 0; s < a.ring; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 32 * JHW + consumers);
+        }
+        for (int b = 0; b < 2; ++b) {
+            mbar_init(tfull + b, 32 * JHW);
+            mbar_init(tempty + b, consumers + 32);
+            mbar_init(rfull + b, consumers);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (w == JCW + JHW) {
+        // ------------------------------------------------- producer warp
+        // chunk j's h rows and its rows' move-in and choices into slot
+        // j % ring once the chunk before in that slot is read
+        if (lane == 0 && !jcut(JCUT_WAITS)) {
+            Cursor cur = {0, 0, a.ring};
+            for (int it = 0; it < nchunk; ++it) {
+                const int th0 = (nchunk - 1 - it) * FB;
+                const int nf = min(FB, a.Th - th0), t0 = th0 * U, nt = nf * U;
+                if (it >= a.ring)
+                    mbar_wait(empty + cur.slot, (unsigned)(cur.phase ^ 1));
+                unsigned char* slot = ring + cur.slot * L.slot_bytes;
+                const unsigned hb = (unsigned)(live * H * 2);
+                const unsigned mb = (unsigned)(nt * S * 4);
+                const unsigned cb = (unsigned)(nt * S);
+                fill(full + cur.slot, slot, nf * hb + live * (mb + cb),
+                     it >= a.ring, a.h + ((size_t)th0 * a.N + n0) * H, hb);
+                for (int f = 1; f < nf; ++f)
+                    bulk_copy(slot + f * JRB * H * 2,
+                              a.h + ((size_t)(th0 + f) * a.N + n0) * H, hb,
+                              full + cur.slot);
+                for (int r = 0; r < live; ++r) {
+                    const size_t fr = ((size_t)(n0 + r) * T + t0) * S;
+                    bulk_copy(slot + L.slot_h + r * fu * S * 4,
+                              a.move_in + fr, mb, full + cur.slot);
+                    bulk_copy(slot + L.slot_h + L.slot_min + r * fu * S,
+                              a.choices + fr, cb, full + cur.slot);
+                }
+                cur.next();
+            }
+        }
+        return;
+    }
+    if (w == JCW + JHW + 1) {
+        // ------------------------------------------------ epilogue warp
+        // lane r: row r's posterior, qscore and three bytes a frame, from
+        // the records its consumers leave, a chunk behind them at most
+        const bool on = lane < live;
+        const int n = n0 + (on ? lane : 0);
+        const float lz = on ? a.logz[n] : 0.f;
+        float d = 0.f;
+        for (int it = 0; it < nchunk; ++it) {
+            const int th0 = (nchunk - 1 - it) * FB, b = it & 1;
+            const int nt = min(FB, a.Th - th0) * U, t0 = th0 * U;
+            float cv[JFU];
+#pragma unroll
+            for (int q = 0; q < JFU; ++q)
+                cv[q] = on && q < nt ? a.cs[(size_t)n * T + t0 + q] : 0.f;
+            mbar_wait(rfull + b, (unsigned)((it >> 1) & 1));
+            const float* rr =
+                rec + (size_t)(b * JRB + (on ? lane : 0)) * fu * REC;
+#pragma unroll
+            for (int q = JFU - 1; q >= 0; --q) {
+                if (q >= nt) continue;
+                const float* r = rr + q * REC;
+                // row_sum_max's sum: the runs' butterflies in order from 0
+                float bmass = r[0];
+                if (NRUN > 1) {
+                    bmass = 0.f;
+#pragma unroll
+                    for (int k = 0; k < NRUN; ++k) bmass += r[k];
+                }
+                const float mx = r[NRUN];
+                const int trace = __float_as_int(r[REC - 1]);
+                if (on && !jcut(JCUT_EPILOGUE)) {
+                    const bool is_move = (trace & 255) != 0;
+                    const int base = trace >> 8;
+                    const float prob = bmass * expf(cv[q] + d - lz);
+                    const float err = fminf(fmaxf(1.f - prob, 1e-4f), 1.f);
+                    const float qv = -10.f * log10f(err) * a.qscale + a.qbias;
+                    const int qc = (int)rintf(qv) + 33;
+                    const size_t o = (size_t)n * T + t0 + q;
+                    a.seq[o] = is_move ? (uint8_t)base : (uint8_t)0;
+                    a.qstr[o] = is_move ? (uint8_t)qc : (uint8_t)0;
+                    a.mvout[o] = is_move ? 1 : 0;
+                }
+                d += logf(mx);
+            }
+            mbar_arrive(tempty + b);
+        }
+        return;
+    }
+    if (w >= JCW) {
+        // ---------------------------------------------------- head warps
+        // m-tiles hw*MT .. hw*MT + MT-1 of the head's U * nb*S rows, their
+        // weights in registers: the exps of chunk j's move scores into tile
+        // j & 1 while the consumers walk chunk j - 1
+        const int hw = w - JCW, g = lane >> 2, tig = lane & 3;
+        uint32_t wa[MT][KT][4];
+        const uint32_t* wv = reinterpret_cast<const uint32_t*>(a.w);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            const int M = (hw * MT + mt) * 16 + g;
+#pragma unroll
+            for (int kt = 0; kt < KT; ++kt) {
+                const int k = 16 * kt + 2 * tig;
+                wa[mt][kt][0] = wv[((size_t)M * H + k) / 2];
+                wa[mt][kt][1] = wv[((size_t)(M + 8) * H + k) / 2];
+                wa[mt][kt][2] = wv[((size_t)M * H + k + 8) / 2];
+                wa[mt][kt][3] = wv[((size_t)(M + 8) * H + k + 8) / 2];
+            }
+        }
+        for (int it = 0; it < nchunk; ++it) {
+            const int b = it & 1, slot = it % a.ring;
+            const int nf = min(FB, a.Th - (nchunk - 1 - it) * FB);
+            if (!jcut(JCUT_WAITS))
+                mbar_wait(full + slot, (unsigned)((it / a.ring) & 1));
+            if (it >= 2)
+                mbar_wait(tempty + b, (unsigned)(((it - 2) >> 1) & 1));
+            const bf16* hs =
+                reinterpret_cast<const bf16*>(ring + slot * L.slot_bytes);
+            float* tb = tile + (size_t)b * fu * JRB * L.ldt;
+#pragma unroll 1
+            for (int f = 0; f < nf && !jcut(JCUT_HEAD); ++f) {
+                // head_product's sums: the same HMMA, k-tiles in order from 0
+                float acc[MT][4];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+                const bf16* rows = hs + (f * JRB + (lane & 7)) * H
+                                   + 8 * ((lane >> 3) & 1);
+#pragma unroll
+                for (int kt = 0; kt < KT; ++kt) {
+                    uint32_t b0, b1;
+                    ldmatrix_x2(b0, b1, rows + 16 * kt);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+                        mma_bf16(acc[mt], wa[mt][kt], b0, b1);
+                }
+                // element (row g (+8) of the tile, batch row 2 tig (+1))
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    const int M = (hw * MT + mt) * 16 + g;
+                    const int p = U == 1 ? 0 : M / Cm;
+                    const int m = U == 1 ? M : M % Cm;
+                    const float z0 = __ldg(a.bias + M);
+                    const float z8 = __ldg(a.bias + M + 8);
+                    float* o = tb + (size_t)((f * U + p) * JRB + 2 * tig)
+                                        * L.ldt + m;
+                    o[0] = expf(head_act(acc[mt][0] + z0, a.ops));
+                    o[L.ldt] = expf(head_act(acc[mt][1] + z0, a.ops));
+                    o[8] = expf(head_act(acc[mt][2] + z8, a.ops));
+                    o[L.ldt + 8] = expf(head_act(acc[mt][3] + z8, a.ops));
+                }
+            }
+            mbar_arrive(empty + slot);
+            mbar_arrive(tfull + b);
+        }
+        return;
+    }
+
+    // -------------------------------------------------------- consumers
+    // warp `row`: predecessors p = 32 i + lane, the earlier kernel's f32
+    // steps; the warp meets at __syncwarp once a frame
+    const int row = w;
+    if (row >= live) return;
+    int state = a.end_state[n0 + row];
+    float inv = 1.f;  // 1 / the row's max of the frame before
+    Cursor cur = {0, 0, a.ring};
+    int par = 0;  // the parity the next frame writes
+    for (int it = 0; it < nchunk; ++it) {
+        const int b = it & 1;
+        const int nt = min(FB, a.Th - (nchunk - 1 - it) * FB) * U;
+        if (!jcut(JCUT_WAITS)) mbar_wait(full + cur.slot, (unsigned)cur.phase);
+        mbar_wait(tfull + b, (unsigned)((it >> 1) & 1));
+        const unsigned char* slot = ring + cur.slot * L.slot_bytes;
+        const float* mins = reinterpret_cast<const float*>(slot + L.slot_h)
+                            + (size_t)row * fu * S;
+        const uint8_t* chs = slot + L.slot_h + L.slot_min
+                             + (size_t)row * fu * S;
+        const float* tb = tile + (size_t)b * fu * JRB * L.ldt;
+        float* rr = rec + (size_t)(b * JRB + row) * fu * REC;
+        for (int q = nt - 1; q >= 0; --q) {
+            const float* Bp = beta + ((par ^ 1) * JRB + row) * S;
+            float* Bn = beta + (par * JRB + row) * S;
+            // traceback, the same in every thread of the row
+            const int choice = jcut(JCUT_WAITS) ? 0 : chs[q * S + state];
+            const int base = state % NB + 1;
+            const float* er = tb + (size_t)(q * JRB + row) * L.ldt;
+            float braw[JSPT], v[JSPT], lmax = 0.f;
+#pragma unroll
+            for (int i = 0; i < JSPT; ++i) {
+                const int ps = 32 * i + lane, rs = ps % R;
+                // beta of frame t+1 normalised as the earlier kernel stored it
+                const float4 sr =
+                    *reinterpret_cast<const float4*>(Bp + NB * rs);
+                const float Bs[4] = {__fmul_rn(sr.x, inv), __fmul_rn(sr.y, inv),
+                                     __fmul_rn(sr.z, inv),
+                                     __fmul_rn(sr.w, inv)};
+                const float Bc = __fmul_rn(Bp[ps], inv);
+                float vv = 0.f;
+                if (ps % NB == base - 1) vv = mins[q * S + ps] * Bc;
+                float acc = 0.f;
+#pragma unroll
+                for (int bb = 0; bb < NB; ++bb) acc += er[bb * S + ps] * Bs[bb];
+                braw[i] = a.p_stay * Bc + acc;
+                v[i] = vv;
+                lmax = fmaxf(lmax, braw[i]);
+            }
+            // raw values are never negative: a warp's max on the bits
+            const float wmax = __uint_as_float(
+                __reduce_max_sync(0xffffffffu, __float_as_uint(lmax)));
+#pragma unroll
+            for (int i = 0; i < JSPT; ++i) Bn[32 * i + lane] = braw[i];
+            // the mass: row_sum_max's butterfly over each run of 32 states
+            float run[JSPT];
+#pragma unroll
+            for (int i = 0; i < JSPT; ++i) {
+                float x = v[i];
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1)
+                    x += __shfl_xor_sync(0xffffffffu, x, o);
+                run[i] = x;
+            }
+            if (lane == 0) {
+                float* r = rr + q * REC;
+#pragma unroll
+                for (int i = 0; i < JSPT; ++i) r[i] = run[i];
+                r[NRUN] = wmax;
+                r[REC - 1] = __int_as_float(choice | base << 8);
+            }
+            inv = 1.f / wmax;
+            if (choice != 0) state = state / NB + (choice - 1) * R;
+            if (jcut(JCUT_WAITS)) state %= S;
+            par ^= 1;
+            __syncwarp();
+        }
+        mbar_arrive(empty + cur.slot);
+        mbar_arrive(tempty + b);
+        mbar_arrive(rfull + b);
+        cur.next();
+    }
+}
+
+template <int KT, int MT>
+int launch_j_ring(const JArgs& a, int H, int S, void* stream) {
+    const JLayout L(S, H, a.U, a.ring);
+    if (L.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const auto kernel = decode_fused_bwd_ring<KT, MT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(a.N + JRB - 1) / JRB, JWARPS * 32, L.total,
+             static_cast<cudaStream_t>(stream)>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// the instances built: S 64, H 32 or 96, U 1 or 2 (MT = U*S / 32 m-tiles a
+// head warp); H 96 at U 2 would keep 96 registers of weights a thread and
+// is not built
+int launch_j_ring(const JArgs& a, int H, int S, void* stream) {
+    if (S != JS) return (int)cudaErrorInvalidValue;
+    switch ((H / 16) * 10 + a.U) {
+    case 21: return launch_j_ring<2, 2>(a, H, S, stream);
+    case 22: return launch_j_ring<2, 4>(a, H, S, stream);
+    case 61: return launch_j_ring<6, 2>(a, H, S, stream);
+    default: return (int)cudaErrorInvalidValue;
+    }
+}
+
 bool bad_shape(int Th, int N, int H, int S, int U) {
     return Th < 1 || N < 1 || U < 1 || S < NB || S % NB != 0 || S > 256
         || (S < 32 && (S & (S - 1)) != 0) || (S >= 32 && S % 32 != 0)
@@ -590,6 +996,38 @@ int decode_fused_bwd_bf16(const void* h, const void* w, const void* bias,
         static_cast<uint8_t*>(mvout), Th, N, H, S, U, p_stay, qscale, qbias,
         ops);
     return (int)cudaGetLastError();
+}
+
+// Kernel J on the ring (ops/decode_fused_cuda.py:fused_decode_plan): the
+// arguments of decode_fused_bwd_bf16 with the ring's depth (2 to JRING_MAX
+// chunks) after U; h, move_in and choices at
+// 16-byte addresses, w at a 4-byte one. Refuses (cudaErrorInvalidValue)
+// what no instance takes.
+int decode_fused_bwd_ring_bf16(const void* h, const void* w, const void* bias,
+                               const void* move_in, const void* choices,
+                               const void* c, const void* logz,
+                               const void* end_state, void* seq, void* qstr,
+                               void* mvout, int Th, int N, int H, int S,
+                               int U, int ring, float p_stay,
+                               float qscale, float qbias, int act_tanh,
+                               float scale, int clamp, float cmin,
+                               float cmax, void* stream) {
+    if (Th < 1 || N < 1 || U < 1 || U > JUMAX || ring < 2
+        || ring > JRING_MAX || !aligned16(h) || !aligned16(move_in)
+        || !aligned16(choices) || (reinterpret_cast<uintptr_t>(w) & 3))
+        return (int)cudaErrorInvalidValue;
+    const HeadOps ops = {act_tanh, scale, clamp, cmin, cmax};
+    const JArgs a = {static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+                     static_cast<const float*>(bias),
+                     static_cast<const float*>(move_in),
+                     static_cast<const uint8_t*>(choices),
+                     static_cast<const float*>(c),
+                     static_cast<const float*>(logz),
+                     static_cast<const int*>(end_state),
+                     static_cast<uint8_t*>(seq), static_cast<uint8_t*>(qstr),
+                     static_cast<uint8_t*>(mvout), Th, N, U, ring, p_stay,
+                     qscale, qbias, ops};
+    return launch_j_ring(a, H, S, stream);
 }
 
 }  // extern "C"

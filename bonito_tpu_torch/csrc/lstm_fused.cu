@@ -21,37 +21,62 @@
 // x in and h out (0.14 ms at 3.35 TB/s) -- but the recurrence is serial in T,
 // so what bounds the design is the time of one step.
 //
-// Design: one launch per layer and no grid-wide barrier. Batch rows do not
-// depend on each other, so a block owns RB = 8 rows for all T steps (128
-// blocks at N = 1024, one wave of the 132 SMs) and loops over time itself.
-// Per step a warp owns 32 gate columns: 32x8x16 bf16 WMMA products with the
-// gate columns on the m side and the 8 batch rows on the n side, one
-// accumulator for the x product and one for the h product (two independent
-// chains), summed and stored to a f32 gate tile in shared memory; after a
-// barrier every thread does the gate math of its (row, unit) pairs with
-// expf/tanhf, keeps c in shared memory, and writes bf16 h to the h tile and
-// to out. The x rows of the next PF steps are in flight as 16-byte cp.async
-// copies into a ring of PF + 1 slots, so no step waits for device memory.
-// Two block barriers per step.
+// Two kernels, one launch per layer each and no grid-wide barrier: batch
+// rows do not depend on each other, so a block owns 8 rows for all T steps
+// (128 blocks at N = 1024, one wave of the 132 SMs) and loops over time.
 //
-// The weights never change, so at the fast shape (C = H = 96: 12 warps, a
-// tile each) every warp keeps its 12 weight fragments in registers for the
-// whole layer (160 registers a thread, no spills). The first version held
-// both weights in the block's shared memory (144 KB, rows padded by 16
-// bytes) and reloaded the fragments every step: 4.4 ms a layer on an H100
-// at fast widths against 2.0 ms with them in registers (PERF.md). Any
-// other shape reads its fragments through L2 every step with the same code:
-// right, and no shipped model runs it.
+// lstm_fused_mma_kernel<KX, KH> (C = 16 KX, H = 16 KH; the shapes
+// ops/lstm_fused_cuda.py:fused_plan takes, fast's among them): H / 8 warps,
+// each owning 8 hidden units of all 8 rows, with the gate math in the
+// product's registers. It takes W_ih and W_hh as the earlier kernel does
+// and loads its A fragments once, with the gate columns permuted (row
+// 32w + 8k + r of its A operand is gate k of unit 8w + r: column k H + 8w +
+// r of W, ops/lstm_fused_cuda.py:gate_columns), so that in mma.sync
+// m16n8k16 (gate columns on m, the 8 rows on n) the two m-tiles of warp w
+// leave i, f (tile 0, rows g and g + 8) and g, o (tile 1) of unit 8w + g
+// for rows 2 tig and 2 tig + 1 in one thread's accumulators.
+// That thread adds them, does the gate math with c in registers and writes
+// bf16 h into one of two buffers in shared memory, which the next step's
+// h product reads with ldmatrix; one block barrier a step. The weights stay
+// in registers for the whole layer ((C + H) / 2 a thread: 96 at fast). The
+// x product does not depend on h, so step t + 1's is issued into a second
+// set of accumulators right after step t's h product and overlaps the gate
+// math; the x rows arrive PF steps ahead by cp.async into a ring. The x and
+// h sums stay apart, each in k order from zero, and the gate math takes the
+// earlier kernel's f32 steps, so h equals its output bit for bit (the
+// 32x8x16 WMMA tiles and m16n8k16 run the same HMMA, HMMA.16816.F32.BF16,
+// over the same k; nvcc contracts the earlier kernel's c update into one
+// fma, written out in gate_step). On an H100 at fast widths it takes about
+// 1.44 ms a layer (1.2 us a step) against the earlier kernel's 1.95: the
+// gate math (10 accurate expf/tanhf-based values a thread a step) sets the
+// pace, then the products on the tensor cores (PERF.md).
 //
-// Later work: mma.sync with the gates of a (row, unit) pair laid out in one
-// thread's accumulators, which would drop the gate tile's trip through
-// shared memory and one of the two barriers; the x product of the next step
-// during this one's gate math.
+// lstm_fused_bf16_kernel<KX, KH> (the earlier kernel, every other shape and
+// the in-run comparison): per step a warp owns 32 gate columns: 32x8x16 bf16
+// WMMA products with the gate columns on the m side and the 8 batch rows on
+// the n side, one accumulator for the x product and one for the h product,
+// summed and stored to a f32 gate tile in shared memory; after a barrier
+// every thread does the gate math of its (row, unit) pairs, keeps c in
+// shared memory and writes bf16 h; two block barriers a step. At C = H = 96
+// its weight fragments stay in registers; any other shape reads them
+// through L2 every step (the <0, 0> instance). Its first version held both
+// weights in the block's shared memory and reloaded the fragments every
+// step: 4.4 ms a layer on an H100 at fast widths against 2.0 ms with them in
+// registers (PERF.md).
+//
+// scripts/lstm_step_split.py f times the mma kernel with each part of a
+// step left out (LSTM_CUT, 0 in the library) and with tanh.approx.f32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <mma.h>
+
+#include "lstm_persistent.cuh"
+
+#ifndef LSTM_CUT
+#define LSTM_CUT 0
+#endif
 
 using namespace nvcuda;
 
@@ -63,8 +88,6 @@ constexpr int NWARP = 12;           // 4*96 / 32: a tile per warp at H = 96
 constexpr int NTHREAD = NWARP * 32;
 constexpr int PF = 4;               // steps of x in flight ahead
 constexpr int NSLOT = PF + 1;
-constexpr int PAD = 8;              // bf16 values: 16 bytes per padded row
-constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a block may ask for
 constexpr int KFAST = 6;            // k-tiles of x and of h at C = H = 96
 
 typedef __nv_bfloat16 bf16;
@@ -94,10 +117,6 @@ struct Layout {
 typedef wmma::fragment<wmma::matrix_a, 32, 8, 16, bf16, wmma::col_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 32, 8, 16, bf16, wmma::col_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 32, 8, 16, float> Acc;
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-    return 1.f / (1.f + expf(-x));
-}
 
 // KX, KH > 0: the shape is C = 16 KX, H = 16 KH with a tile per warp, and
 // the weight fragments stay in registers. 0, 0: any shape, fragments read
@@ -227,6 +246,244 @@ lstm_fused_bf16_kernel(const bf16* __restrict__ x,     // [T, N, C]
     }
 }
 
+// ---------------------------------------------- the mma kernel (fused_plan)
+// the parts scripts/lstm_step_split.py f leaves out (LSTM_CUT bits)
+constexpr int CUT_H = 1;         // the h product (its sums are zeros)
+constexpr int CUT_X = 2;         // the x product (its sums are zeros)
+constexpr int CUT_GATES = 4;     // the gate math: the gates' sum is h
+constexpr int CUT_BARRIER = 8;   // the step's block barrier
+constexpr int CUT_STORE = 16;    // the stores of h to out
+constexpr int TANH_APPROX = 32;  // tanh.approx.f32 in place of tanhf
+
+__device__ __forceinline__ constexpr bool cut(int part) {
+    return (LSTM_CUT & part) != 0;
+}
+
+constexpr int MRB = 8;  // batch rows per block: the n of m16n8k16
+constexpr int MPF = 4;  // steps of x in flight ahead
+constexpr int MSLOT = MPF + 1;  // the ring's slots
+
+__device__ __forceinline__ float tanh_f(float x) {
+    if (!cut(TANH_APPROX)) return tanhf(x);
+    float y;
+    asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// shared memory: the ring of x rows [MSLOT][MRB][C + PAD], then h in two
+// buffers [2][MRB][H + PAD] (bf16; rows padded by 16 bytes, so that the
+// eight rows an ldmatrix reads lie in distinct banks)
+__host__ __device__ inline int mma_smem(int C, int H) {
+    return (MSLOT * MRB * (C + PAD) + 2 * MRB * (H + PAD)) * 2;
+}
+
+// acc[mt] = sum over the KT k-tiles, in order from zero, of the A fragments
+// a[mt][kt] times the B fragments of `rows` (MRB rows of bf16, k contiguous,
+// row stride ld): two k-tiles an ldmatrix.x4
+template <int KT>
+__device__ __forceinline__ void product(float (&acc)[2][4],
+                                        const uint32_t (&a)[2][KT][4],
+                                        const bf16* rows, int ld, int lane) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+    const bf16* at = rows + (lane & 7) * ld + 8 * (lane >> 3);
+#pragma unroll
+    for (int kt = 0; kt + 1 < KT; kt += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, at + 16 * kt);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt], a[mt][kt], b[0], b[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+            mma_bf16(acc[mt], a[mt][kt + 1], b[2], b[3]);
+    }
+    if (KT % 2) {
+        uint32_t b0, b1;
+        ldmatrix_x2(b0, b1, rows + (lane & 7) * ld + 16 * (KT - 1)
+                                + 8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+            mma_bf16(acc[mt], a[mt][KT - 1], b0, b1);
+    }
+}
+
+// the bf16 pair W[k][col], W[k + 1][col] of W [K, G], the lower k in the
+// low half (an A fragment's register)
+__device__ __forceinline__ uint32_t k_pair(const bf16* __restrict__ W,
+                                          int G, int k, int col) {
+    const unsigned short* v = reinterpret_cast<const unsigned short*>(W);
+    return (uint32_t)v[(size_t)k * G + col]
+           | (uint32_t)v[(size_t)(k + 1) * G + col] << 16;
+}
+
+// the A fragments of warp w's two m-tiles from W [16 KT, 4H] (W_ih or
+// W_hh): the A operand's rows 32w + 16mt + g and g + 8 are gates 2mt and
+// 2mt + 1 of unit 8w + g, columns 2mt H + 8w + g and H more of W
+template <int KT>
+__device__ __forceinline__ void load_weights(uint32_t (&a)[2][KT][4],
+                                             const bf16* __restrict__ W,
+                                             int H, int w, int lane) {
+    const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) {
+            const int c0 = 2 * mt * H + 8 * w + g, c1 = c0 + H;
+            const int k = 16 * kt + 2 * tig;
+            a[mt][kt][0] = k_pair(W, 4 * H, k, c0);
+            a[mt][kt][1] = k_pair(W, 4 * H, k, c1);
+            a[mt][kt][2] = k_pair(W, 4 * H, k + 8, c0);
+            a[mt][kt][3] = k_pair(W, 4 * H, k + 8, c1);
+        }
+}
+
+// one (row, unit)'s step: the earlier kernel's f32 steps (the x and h sums
+// added, then the bias; expf and tanhf), c carried in registers. nvcc
+// compiles the earlier kernel's `fg * c + ig * gg` to fma(ig, gg, fg * c),
+// written out here so that this kernel keeps those bits.
+__device__ __forceinline__ bf16 gate_step(float xi, float xf, float xg,
+                                          float xo, float hi, float hf,
+                                          float hg, float ho, float bi,
+                                          float bf, float bg, float bo,
+                                          float& c) {
+    const float si = xi + hi, sf = xf + hf, sg = xg + hg, so = xo + ho;
+    if (cut(CUT_GATES)) return __float2bfloat16(si + sf + sg + so);
+    const float ig = sigmoid_f(si + bi);
+    const float fg = sigmoid_f(sf + bf);
+    const float gg = tanh_f(sg + bg);
+    const float og = sigmoid_f(so + bo);
+    const float cn = __fmaf_rn(ig, gg, __fmul_rn(fg, c));
+    c = cn;
+    return __float2bfloat16(og * tanh_f(cn));
+}
+
+template <int KX, int KH>
+__global__ void __launch_bounds__(64 * KH, 1)
+lstm_fused_mma_kernel(const bf16* __restrict__ x,     // [T, N, C]
+                      const bf16* __restrict__ wih,   // [C, 4H]
+                      const bf16* __restrict__ whh,   // [H, 4H]
+                      const float* __restrict__ bias, // [4H]
+                      bf16* __restrict__ out,         // [T, N, H]
+                      int T, int N, int reverse)
+{
+    constexpr int C = 16 * KX, H = 16 * KH;
+    constexpr int LDX = C + PAD, LDH = H + PAD;
+    extern __shared__ __align__(128) unsigned char smem[];
+    bf16* xs = reinterpret_cast<bf16*>(smem);    // [MSLOT][MRB][LDX]
+    bf16* hs = xs + MSLOT * MRB * LDX;           // [2][MRB][LDH]
+
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    const int n0 = blockIdx.x * MRB;
+    const int u = 8 * w + g;     // this thread's unit
+    const int ra = 2 * tig;      // and its rows ra, ra + 1 of the block
+
+    uint32_t wx[2][KX][4], wh[2][KH][4];
+    load_weights<KX>(wx, wih, H, w, lane);
+    load_weights<KH>(wh, whh, H, w, lane);
+    const float bi = bias[u], bf = bias[H + u], bg = bias[2 * H + u],
+                bo = bias[3 * H + u];
+    // h of step -1: zeros, in the buffer step 0 reads
+    for (int e = tid; e < MRB * LDH; e += 64 * KH)
+        hs[MRB * LDH + e] = __float2bfloat16(0.f);
+
+    // start the copy of step j's x rows into slot j % MSLOT (the slot of
+    // step j - MSLOT, whose x product ran before the last barrier: at step
+    // s = j - MPF that of step s - 1, read during step s - 2); one commit
+    // per call, with or without a copy
+    auto stage_x = [&](int j) {
+        if (j < T) {
+            const int t = reverse ? T - 1 - j : j;
+            const bf16* src = x + ((size_t)t * N + n0) * C;
+            bf16* dst = xs + (j % MSLOT) * MRB * LDX;
+            constexpr int units = C / 8;  // 16-byte pieces of a row
+            for (int e = tid; e < MRB * units; e += 64 * KH) {
+                const int row = e / units, p = e % units;
+                bf16* d = dst + row * LDX + 8 * p;
+                if (n0 + row < N)
+                    __pipeline_memcpy_async(d, src + (size_t)row * C + 8 * p,
+                                            16);
+                else
+                    *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
+            }
+        }
+        __pipeline_commit();
+    };
+
+    // the h product from the h buffer `hb` (with CUT_H: one value of it in
+    // every sum), and step j's x product (zeros past the last step)
+    auto h_product = [&](float (&acc)[2][4], const bf16* hb) {
+        if (!cut(CUT_H)) {
+            product<KH>(acc, wh, hb, LDH, lane);
+        } else {
+            for (int mt = 0; mt < 2; ++mt)
+                for (int e = 0; e < 4; ++e)
+                    acc[mt][e] = __bfloat162float(hb[ra * LDH + u]);
+        }
+    };
+    auto x_product = [&](float (&acc)[2][4], int j) {
+        if (j < T && !cut(CUT_X))
+            product<KX>(acc, wx, xs + (j % MSLOT) * MRB * LDX, LDX, lane);
+        else
+            for (int mt = 0; mt < 2; ++mt)
+                for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+    };
+
+    for (int j = 0; j < MPF; ++j) stage_x(j);
+    __pipeline_wait_prior(MPF - 2);  // x of steps 0 and 1
+    __syncthreads();
+    float ax[2][4];
+    x_product(ax, 0);
+    float ca = 0.f, cb = 0.f;
+    for (int step = 0; step < T; ++step) {
+        const int t = reverse ? T - 1 - step : step;
+        float ah[2][4], an[2][4];
+        h_product(ah, hs + ((step + 1) & 1) * MRB * LDH);
+        x_product(an, step + 1);  // off the chain of h
+        // accumulators: tile 0 holds i (e 0, 1) and f (e 2, 3), tile 1 g and
+        // o; e 0 and 2 are row ra, e 1 and 3 row ra + 1
+        const bf16 ha = gate_step(ax[0][0], ax[0][2], ax[1][0], ax[1][2],
+                                  ah[0][0], ah[0][2], ah[1][0], ah[1][2],
+                                  bi, bf, bg, bo, ca);
+        const bf16 hb = gate_step(ax[0][1], ax[0][3], ax[1][1], ax[1][3],
+                                  ah[0][1], ah[0][3], ah[1][1], ah[1][3],
+                                  bi, bf, bg, bo, cb);
+        bf16* hn = hs + (step & 1) * MRB * LDH;
+        hn[ra * LDH + u] = ha;
+        hn[(ra + 1) * LDH + u] = hb;
+        if (!cut(CUT_STORE)) {
+            bf16* o = out + ((size_t)t * N + n0 + ra) * H + u;
+            if (n0 + ra < N) o[0] = ha;
+            if (n0 + ra + 1 < N) o[H] = hb;
+        }
+        stage_x(step + MPF);
+        __pipeline_wait_prior(MPF - 2);  // x of step + 2
+        if (!cut(CUT_BARRIER)) __syncthreads();
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ax[mt][e] = an[mt][e];
+    }
+}
+
+// the mma kernel of C = H = 16 K (fused_plan's MMA_WIDTHS), or null
+typedef void (*MmaKernel)(const bf16*, const bf16*, const bf16*, const float*,
+                          bf16*, int, int, int);
+MmaKernel mma_kernel(int C, int H) {
+    if (C != H) return nullptr;
+    switch (H / 16) {
+    case 1: return lstm_fused_mma_kernel<1, 1>;
+    case 2: return lstm_fused_mma_kernel<2, 2>;
+    case 3: return lstm_fused_mma_kernel<3, 3>;
+    case 4: return lstm_fused_mma_kernel<4, 4>;
+    case 5: return lstm_fused_mma_kernel<5, 5>;
+    case 6: return lstm_fused_mma_kernel<6, 6>;
+    default: return nullptr;
+    }
+}
+
 }  // namespace
 
 // Kernel F. x [T, N, C], wih [C, 4H], whh [H, 4H] bf16 (the weights at
@@ -254,5 +511,27 @@ extern "C" int lstm_fused_bf16(const void* x, const void* wih,
         static_cast<const bf16*>(x), static_cast<const bf16*>(wih),
         static_cast<const bf16*>(whh), static_cast<const float*>(bias),
         static_cast<bf16*>(out), T, N, C, H, reverse);
+    return (int)cudaGetLastError();
+}
+
+// Kernel F on the mma kernel: the arguments of lstm_fused_bf16 (wih and
+// whh contiguous, at any address), C = H a multiple of 16 up to 96 (the
+// instances built).
+extern "C" int lstm_fused_mma(const void* x, const void* wih, const void* whh,
+                              const void* bias, void* out, int T, int N,
+                              int C, int H, int reverse, void* stream)
+{
+    const MmaKernel kernel = mma_kernel(C, H);
+    if (T < 1 || N < 1 || H % 16 != 0 || kernel == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int smem = mma_smem(C, H);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(N + MRB - 1) / MRB, 4 * H, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(wih),
+        static_cast<const bf16*>(whh), static_cast<const float*>(bias),
+        static_cast<bf16*>(out), T, N, reverse);
     return (int)cudaGetLastError();
 }

@@ -59,6 +59,8 @@ SIGNATURES = {
                                         I, I, I, I, P],
     # x, w_ih, w_hh, bias, out, T, N, C, H, reverse, stream
     "lstm_fused_bf16": [P, P, P, P, P, I, I, I, I, I, P],
+    # kernel F on its mma kernel: as F
+    "lstm_fused_mma": [P, P, P, P, P, I, I, I, I, I, P],
     # moves, move_in, choices, c, logz, end_state, N, T, S, p_stay,
     # blank, stream
     "decode_tcn_fwd_bf16": [P, P, P, P, P, P, I, I, I, F, F, P],
@@ -90,6 +92,9 @@ SIGNATURES = {
     # clamp, cmin, cmax, stream
     "decode_fused_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                               F, F, F, I, F, I, F, F, P],
+    # kernel J on its ring: as J, with the ring's depth after U
+    "decode_fused_bwd_ring_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                   I, I, I, F, F, F, I, F, I, F, F, P],
     # kernels GW and JW: as G and J, the weights laid out fragment-major
     "decode_fused_wide_fwd_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, F,
                                    F, I, F, I, F, F, P],

@@ -29,9 +29,14 @@ head on the CPU and a kernel for a head on the card: G and J where 4 batch
 rows of S states make a block (S <= 256, H <= 256), GW and JW, a block per
 row and a thread per state, for the 512 and 1024 states of hac and sup
 (``kernels_for`` says which, or raises). Never the plain version for a
-kernel, nor one kernel for another's shape.
+kernel, nor one kernel for another's shape. J runs on its ring
+(``fused_decode_plan``: 8 batch rows a CTA, head warps computing the next
+chunk's move scores while consumer warps walk this one) where the plan
+gives one, else on its earlier kernel; ``tcn_fused_backward_old_kernel``
+runs the earlier kernel whatever the plan (no count), for comparisons.
 """
 
+import functools
 import math
 
 import torch
@@ -47,6 +52,15 @@ MAX_S_WIDE = 1024  # GW, JW: one batch row of S states, a thread each
 MAX_H_WIDE = 1024  # GW, JW: hac's width, the widest they are tested at
 WIDE_PHASES = (1, 2)  # GW, JW: hac's and sup's; 8 / U encoder frames a chunk
 INVALID_VALUE = 1  # cudaErrorInvalidValue: the C entry points' refusal
+SMEM = 232448      # the most shared memory a block may ask for
+# J on its ring (csrc/decode_tcn_fused.cu:decode_fused_bwd_ring): batch rows
+# a CTA (an encoder frame's rows are the n of a head tile), encoder frames a
+# chunk, head warps, the instances built (S 64; H 32 or 96; U 1 or 2), the
+# slots of the ring of chunks (fewer where they do not fit; the C entry
+# takes 2 to J_RING_MAX)
+J_ROWS, J_FRAMES, J_HEAD_WARPS = 8, 4, 8
+J_STATES, J_WIDTHS, J_PHASES = (64,), (32, 96), (1, 2)
+J_RING, J_RING_MAX = 4, 8
 
 
 def head_moves_plain(head):
@@ -121,6 +135,68 @@ def kernels_for(S, H, U):
         raise ValueError(f"kernels GW and JW (S > {MAX_S}) take U in "
                          f"{WIDE_PHASES}, got U={U}")
     return "GW", "JW"
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def j_ring_smem(S, H, U, ring):
+    """The shared memory of J's ring kernel (csrc/decode_tcn_fused.cu:
+    JLayout): the mbarriers, beta of two parities, two chunks' records
+    (the mass of each run of 32 states, the row's max and the traceback
+    word a frame) and exps, and ``ring`` slots of a chunk's h rows, move-in
+    and choices."""
+    fu = J_FRAMES * U
+    slot = _round_up(J_FRAMES * J_ROWS * H * 2 + J_ROWS * fu * S * 5, 128)
+    return (256 + _round_up(2 * J_ROWS * S * 4, 128)
+            + _round_up(2 * J_ROWS * fu * (S // 32 + 2) * 4, 128)
+            + _round_up(2 * fu * J_ROWS * (NB * S + 4) * 4, 128)
+            + ring * slot)
+
+
+@functools.lru_cache(maxsize=None)
+def _j_plan(N, S, H, U, sms):
+    if S not in J_STATES or H not in J_WIDTHS or U not in J_PHASES:
+        return None
+    ring = J_RING
+    while ring > 2 and j_ring_smem(S, H, U, ring) > SMEM:
+        ring -= 1
+    smem = j_ring_smem(S, H, U, ring)
+    if smem > SMEM:
+        return None
+    ctas = -(-N // J_ROWS)
+    # a consumer warp a row, the head warps, the producer, the epilogue warp
+    warps = J_ROWS + J_HEAD_WARPS + 2
+    m_tiles = U * NB * S // 16 // J_HEAD_WARPS
+    # a thread's registers: the 4 sub-partitions of an SM's 65,536 hold
+    # ceil(warps / 4) warps each; a head warp keeps its weight fragments
+    # and needs about 48 more
+    registers = 65536 // 4 // (32 * -(-warps // 4)) // 8 * 8
+    if m_tiles * (H // 16) * 4 + 48 > min(registers, 255):
+        return None
+    return {"rows": J_ROWS, "ctas": ctas,
+            "waves": None if sms is None else -(-ctas // sms),
+            "threads": 32 * warps, "registers": min(registers, 255),
+            "consumer_warps": J_ROWS, "states_per_thread": S // 32,
+            "head_warps": J_HEAD_WARPS, "m_tiles_a_head_warp": m_tiles,
+            "k_tiles": H // 16, "frames_a_chunk": J_FRAMES * U,
+            "ring": ring, "smem": smem}
+
+
+def fused_decode_plan(N, T, S, H, U, sms=None, aligned=True):
+    """J's ring kernel's plan for a head of S states, width H and U phases
+    over N rows of T = Th * U frames on a card of ``sms`` SMs: 8 batch rows
+    a CTA, a consumer warp a row (two states a thread), 8 head warps with
+    their m-tiles of the weights in registers, a producer and an epilogue
+    warp, a ring of J_RING chunks of 4 encoder frames (or fewer, down to 2,
+    where the shared memory does not hold them); or None where no instance
+    takes the shape (S 64, H 32 or 96, U 1 or 2), where the head warps'
+    weights do not fit their registers, or where a pointer is not aligned
+    for the bulk copies, and the earlier kernel runs."""
+    if N < 1 or T < 1 or T % U or not aligned:
+        return None
+    return _j_plan(N, S, H, U, sms)
 
 
 def _check_head(head):
@@ -209,20 +285,22 @@ def _checked(kernel, head):
     return Th, N, H, S, U
 
 
-def _launch(wrapper, kernel, entry, head, shape, tensors, scalars):
-    """Count the launch on ``wrapper`` and call the library's ``entry``
-    with the head's operands (the weights in the kernel's row order and,
-    for GW and JW, laid out by ``k_major``), ``tensors``, the head's shape
-    and ``scalars``."""
+def _launch(wrapper, kernel, entry, head, shape, tensors, scalars,
+            operands=None, more=()):
+    """Count the launch on ``wrapper`` (None: count nothing) and call the
+    library's ``entry`` with the head's operands (the weights in the
+    kernel's row order and, for GW and JW, laid out by ``k_major``),
+    ``tensors``, the head's shape, ``more`` and ``scalars``."""
     S = shape[3]
-    h, w, bias = _operands(head, fused_rows(S) if kernel in ("G", "GW")
-                           else None)
+    h, w, bias = operands or _operands(
+        head, fused_rows(S) if kernel in ("G", "GW") else None)
     if kernel in ("GW", "JW"):
         w = k_major(w)
-    wrapper.launches += 1
+    if wrapper is not None:
+        wrapper.launches += 1
     _launched(getattr(build.library(), entry)(
         h.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        *(x.data_ptr() for x in tensors), *shape, *scalars,
+        *(x.data_ptr() for x in tensors), *shape, *more, *scalars,
         *_head_ops(head), build.stream_of(h)), entry, S, shape[2], shape[4])
 
 
@@ -241,14 +319,38 @@ def _forward(wrapper, kernel, entry, head):
 
 
 def _backward(wrapper, kernel, entry, head, fwd, qscale, qbias):
+    """J's and JW's checks and launch: for J the ring on
+    ``fused_decode_plan``'s plan where ``wrapper`` is J's counter and the
+    plan is not None, else the earlier kernel's ``entry``."""
     shape = _checked(kernel, head)
-    Th, N, _, S, U = shape
+    Th, N, H, S, U = shape
     dev = head.h.device
     check_forward_outputs(f"kernel {kernel}", dev, N, Th * U, S, *fwd)
     out = torch.empty(3, N, Th * U, dtype=torch.uint8, device=dev)
-    _launch(wrapper, kernel, entry, head, shape, (*fwd, *out),
-            (math.exp(float(head.blank)), float(qscale), float(qbias)))
+    scalars = (math.exp(float(head.blank)), float(qscale), float(qbias))
+    if kernel != "J":
+        _launch(wrapper, kernel, entry, head, shape, (*fwd, *out), scalars)
+        return {"sequence": out[0], "qstring": out[1], "moves": out[2]}
+    operands = _operands(head)
+    plan = None
+    if wrapper is not None:
+        plan = fused_decode_plan(
+            N, Th * U, S, H, U, _sms(dev),
+            aligned=all(x.data_ptr() % 16 == 0
+                        for x in (operands[0], fwd[0], fwd[1])))
+        wrapper.plan = plan
+    if plan is None:
+        _launch(wrapper, kernel, entry, head, shape, (*fwd, *out), scalars,
+                operands)
+    else:
+        _launch(wrapper, kernel, "decode_fused_bwd_ring_bf16", head, shape,
+                (*fwd, *out), scalars, operands,
+                (plan["ring"],))
     return {"sequence": out[0], "qstring": out[1], "moves": out[2]}
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def tcn_fused_forward(head):
@@ -287,6 +389,14 @@ def tcn_fused_backward(head, move_in, choices, cs, logz, end_state,
                      fwd, qscale, qbias)
 
 
+def tcn_fused_backward_old_kernel(head, move_in, choices, cs, logz,
+                                  end_state, qscale=1.0, qbias=0.0):
+    """Kernel J's earlier kernel whatever the plan, for comparisons; counts
+    no launch."""
+    return _backward(None, "J", "decode_fused_bwd_bf16", head,
+                     (move_in, choices, cs, logz, end_state), qscale, qbias)
+
+
 def tcn_fused_backward_wide(head, move_in, choices, cs, logz, end_state,
                             qscale=1.0, qbias=0.0):
     """``tcn_fused_backward`` above MAX_S states: kernel JW on the card,
@@ -300,5 +410,6 @@ def tcn_fused_backward_wide(head, move_in, choices, cs, logz, end_state,
 
 tcn_fused_forward.launches = 0
 tcn_fused_backward.launches = 0
+tcn_fused_backward.plan = None
 tcn_fused_forward_wide.launches = 0
 tcn_fused_backward_wide.launches = 0

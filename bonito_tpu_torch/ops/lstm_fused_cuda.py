@@ -15,9 +15,14 @@ memory.
 Time-major like kernels A, D and E: x [T, N, C] -> h [T, N, H].
 ``lstm_fused`` runs the plain version for a tensor on the CPU and the
 kernel for a tensor on the card; it never falls back from one to the
-other. ``csrc/lstm_fused.cu`` says how the kernel is laid out and what
-bounds it.
+other. On the card the shape rule ``fused_plan`` picks the kernel: the
+mma kernel (the gate math in the product's registers, one barrier a step)
+where it gives a plan, else the earlier kernel; ``lstm_fused_old_kernel``
+runs the earlier kernel whatever the plan (no count), for comparisons.
+``csrc/lstm_fused.cu`` says how both are laid out and what bounds them.
 """
+
+import functools
 
 import torch
 
@@ -26,6 +31,12 @@ from bonito_tpu_torch.ops import build
 TILE = 16     # C and H must be multiples of the WMMA k-tile
 MAX_H = 256   # the widest f32 gate tile a block keeps in shared memory
 MAX_C = 1024  # the widest input rows its ring of staged steps holds
+# C = H of the mma kernel's instances (csrc/lstm_fused.cu:mma_kernel): a
+# thread keeps (C + H) / 2 registers of weights, and at 4H threads a block
+# an H100's 65,536 registers leave 168 a thread at H = 96
+MMA_WIDTHS = (16, 32, 48, 64, 80, 96)
+MMA_ROWS = 8  # batch rows a block: the n of mma.sync m16n8k16
+MMA_SLOTS = 5  # the ring of x rows: 4 steps in flight and the one read
 
 
 def fused_supported(C, H):
@@ -64,6 +75,46 @@ def lstm_fused_plain(x, w_ih, w_hh, b, reverse=False):
     return out
 
 
+def gate_columns(H):
+    """The mma kernel's column order, which it applies as it loads its
+    weights: row p = 32w + 8k + r of its A operand is column k*H + 8w + r
+    of W (gate k of unit 8w + r), so that warp w's two m16 tiles hold i, f
+    and g, o of units 8w .. 8w + 7."""
+    return torch.arange(4 * H).view(4, H // 8, 8).permute(1, 0, 2).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(C, H, ctas, sms):
+    if C != H or H not in MMA_WIDTHS:
+        return None
+    # the ring of x rows and h in two buffers, bf16 rows padded by 8
+    smem = 2 * (MMA_SLOTS * MMA_ROWS * (C + 8) + 2 * MMA_ROWS * (H + 8))
+    return {"rows": MMA_ROWS, "warps": H // 8, "threads": 4 * H,
+            "units_a_warp": 8, "ctas": ctas,
+            "waves": None if sms is None else -(-ctas // sms),
+            "weight_registers": (C + H) // 2, "smem": smem}
+
+
+def fused_plan(N, C, H, sms=None):
+    """The mma kernel's plan for x [T, N, C] and W_hh [H, 4H] on a card of
+    ``sms`` SMs: rows a block (8, the n of m16n8k16), warps (H / 8, each 8
+    units of all 8 rows: 4H threads, the gate columns in ``gate_columns``
+    order), the registers a thread keeps its weights in and the shared
+    memory; or None where the mma kernel is not built for the shape
+    (C != H, or H not in MMA_WIDTHS: its weights must fit a thread's
+    registers), and the earlier kernel runs. Raises for a shape kernel F
+    does not take at all."""
+    if N < 1 or not fused_supported(C, H):
+        raise ValueError(f"kernel F takes N >= 1 and C, H multiples of "
+                         f"{TILE}, at most {MAX_C} and {MAX_H}: got N={N}, "
+                         f"C={C}, H={H}")
+    return _plan(C, H, -(-N // MMA_ROWS), sms)
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _aligned(w):
     """A contiguous weight at a 32-byte address (WMMA tile loads)."""
     w = w.contiguous()
@@ -73,9 +124,24 @@ def _aligned(w):
 def lstm_fused(x, w_ih, w_hh, b, reverse=False):
     """``lstm_fused_plain``'s function: the plain version for a CPU
     tensor, kernel F for a CUDA tensor (bf16; C and H as
-    ``fused_supported`` says)."""
+    ``fused_supported`` says): the mma kernel where ``fused_plan`` gives a
+    plan (``lstm_fused.plan`` holds the last call's), else the earlier
+    kernel."""
     if x.device.type == "cpu":
         return lstm_fused_plain(x, w_ih, w_hh, b, reverse=reverse)
+    return _launch(lstm_fused, x, w_ih, w_hh, b, reverse)
+
+
+def lstm_fused_old_kernel(x, w_ih, w_hh, b, reverse=False):
+    """Kernel F's earlier kernel whatever the plan, for comparisons; counts
+    no launch."""
+    return _launch(None, x, w_ih, w_hh, b, reverse)
+
+
+def _launch(counter, x, w_ih, w_hh, b, reverse):
+    """F's checks and launch: the mma kernel on ``fused_plan``'s plan, the
+    earlier kernel where it gives None or where ``counter`` is None (the
+    comparisons' route, which counts nothing)."""
     build.refuse_grad("F", [x, w_ih, w_hh, b], build.TRAIN_ROUTE)
     if x.device.type != "cuda" or any(
             t.device != x.device for t in (w_ih, w_hh)):
@@ -95,18 +161,27 @@ def lstm_fused(x, w_ih, w_hh, b, reverse=False):
             f"w_hh {tuple(w_hh.shape)} need [T, N, C], [C, 4H], [H, 4H] with "
             f"C and H multiples of {TILE}, at most {MAX_C} and {MAX_H}")
     x = x.contiguous()
-    w_ih, w_hh = _aligned(w_ih), _aligned(w_hh)
     bias = (torch.zeros(4 * H, device=x.device) if b is None
             else b.to(device=x.device, dtype=torch.float32).contiguous())
     if bias.numel() != 4 * H:
         raise ValueError(f"kernel F: b has {bias.numel()} values, not {4 * H}")
     out = torch.empty(T, N, H, dtype=torch.bfloat16, device=x.device)
-    lstm_fused.launches += 1
-    build.check(build.library().lstm_fused_bf16(
+    plan = None
+    if counter is not None:
+        plan = fused_plan(N, C, H, _sms(x.device))
+        counter.plan = plan
+        counter.launches += 1
+    entry = "lstm_fused_bf16" if plan is None else "lstm_fused_mma"
+    if plan is None:
+        w_ih, w_hh = _aligned(w_ih), _aligned(w_hh)
+    else:
+        w_ih, w_hh = w_ih.contiguous(), w_hh.contiguous()
+    build.check(getattr(build.library(), entry)(
         x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), T, N, C, H, int(bool(reverse)),
-        build.stream_of(x)), "lstm_fused_bf16")
+        out.data_ptr(), T, N, C, H, int(bool(reverse)), build.stream_of(x)),
+        entry)
     return out
 
 
 lstm_fused.launches = 0
+lstm_fused.plan = None

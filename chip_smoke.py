@@ -11,7 +11,8 @@ PyTorch built for CUDA. In order, it:
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory, stack frame
     and spills (kernel O's stretch kernel and the ring kernels of B, C, M,
-    Q, U and V must have neither);
+    Q, U and V, and F's mma kernel, must have neither; J's ring kernel
+    none at H 32 and no more than its 8 bytes at H 96);
  3. holds each kernel against its plain PyTorch version on the card: at
     hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 (B and C
     on their ring, ``decode_plan`` gives a plan, and held against their
@@ -24,8 +25,11 @@ PyTorch built for CUDA. In order, it:
     (``decode_full_plan`` gives a plan) and held against their earlier
     kernels bit for bit on all eight outputs; at fast widths (N=1024,
     T=1200, C=H=96, S=64) the fused LSTM layer F (both directions, with and
-    without a bias) and the fused-head decode G + J (the fast head, and a small head with two
-    upsample phases, tanh, a scale and a bias); at sup widths (N=128,
+    without a bias; on its mma kernel, ``fused_plan`` gives a plan, and held
+    against its earlier kernel bit for bit) and the fused-head decode G + J
+    (the fast head, and a small head with two upsample phases, tanh, a
+    scale and a bias; J on its ring, ``fused_decode_plan`` gives a plan,
+    and held against the earlier J bit for bit); at sup widths (N=128,
     T=1000 and 1024, 8 heads of 64, window (127, 128)) the fused rotary +
     banded attention K in bf16 (and once with a partial rotary_dim) on its
     stretch kernel (``window_plan`` gives a plan at each) and at T=1000 on
@@ -85,21 +89,25 @@ PyTorch built for CUDA. In order, it:
     decode launches per batch; sup: 1 pin, 18 attention and 1 + 1 decode
     launches; the beam: 5 LSTM launches and no decode kernel; hac_fused: 5
     LSTM launches and GW + JW; sup_fused: 1 pin, 18 attention, GW + JW) and
-    no other kernel of the port;
+    no other kernel of the port, and prints the plans F and J ran on (the
+    fast paths' must be the mma kernel's and the ring's);
  7. prints samples/s, the device step and peak memory of the hac bf16,
     int8, reverse and beam paths, the fast path, the sup path and the two
     fused paths (beside the TCN route's device step on the same batch)
     beside the card's name and power, the sup and sup_fused device steps
     with K on its earlier kernel, the hac int8 and sup device steps
-    with B and C on theirs, and the hac, fast and sup reverse device steps
+    with B and C on theirs, the fast device step with F and J on theirs
+    (the fast reverse step with F on its), and the hac, fast and sup
+    reverse device steps
     beside the parent's route (the reverse_complement copy and M + Q's
     earlier kernels; hac also the copy and the ring);
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function (and, for comparison, A's, D's and E's
     step kernels at hac widths beside their persistent kernels, K's earlier
     kernel beside its stretch kernel, L in bf16 at sup widths
-    beside scaled_dot_product_attention, the routes that
-    F, G and J take the place of at fast widths, B and C (beside their
+    beside scaled_dot_product_attention, F and J beside their earlier
+    kernels and the routes that F, G and J take the place of at fast
+    widths, B and C (beside their
     earlier kernels) at hac and sup shapes and
     the parts of one sup layer; M and Q on the ring, on the reverse strand
     read in place and on the forward strand, beside their earlier kernels
@@ -158,7 +166,9 @@ PyTorch built for CUDA. In order, it:
     O's times, plain times and bounds beside rotary + scaled_dot_product_
     attention with the band as a mask, forward and backward (H's and O's
     earlier kernels beside them). It prints one ``kernels`` JSON line with
-    all twenty-five kernels (K's, H's and O's with their plans and their
+    all twenty-five kernels (F's and J's with their plans, their earlier
+    kernels' times and the fast device steps on both; K's, H's and O's
+    with their plans and their
     earlier kernel's time; B's and C's with their plan, their earlier
     kernels' times and difference, and the device steps on both; M's and
     Q's likewise, with the reverse paths' device steps and the parent's;
@@ -229,6 +239,10 @@ FAST_CRF_SCALE = 13.5
 # sum of T logs near 4000, where one f32 step is 2.4e-4.
 DECODE_MIN_EQUAL = 0.999
 LOGZ_ATOL, LOGZ_RTOL = 1e-3, 1e-5
+# J's ring at H 96 (the fast head): 18 warps leave 96 registers a thread,
+# and ptxas spills 8 bytes of a head warp's (PERF.md, kernel-table row 3);
+# the stack frame and spills may not grow beyond that
+J_SPILL_MAX = 8
 # GW + JW, the fused-head decode above 256 states, on random heads of
 # hac's width (N, Th, H, S, U, tanh, gain: no tanh, clamped to +-5) and
 # sup's (1000 encoder frames x 2 phases of H 512, tanh x 5 and a bias),
@@ -394,7 +408,7 @@ def ptxas_summary(report):
                              r"lstm_bptt_persistent|"
                              r"lstm_int8_step|lstm_int8_persistent|"
                              r"lstm_train_(?:fwd|bwd)_step|"
-                             r"lstm_fused_bf16_kernel|"
+                             r"lstm_fused_bf16_kernel|lstm_fused_mma_kernel|"
                              r"fused_rotary_window_attention_kernel|"
                              r"window_attention_kernel|"
                              r"window_attention_bwd_kernel|"
@@ -404,6 +418,7 @@ def ptxas_summary(report):
                              r"(?:logz|lattice)_(?:fwd|bwd)"
                              r"(?:_ring)?_kernel|"
                              r"decode_(?:fwd|bwd)_ring_kernel|"
+                             r"decode_fused_bwd_ring|"
                              r"decode_(?:fused_(?:wide_)?)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
@@ -417,7 +432,17 @@ def ptxas_summary(report):
                                m.group(1))
             window_bwd = re.search(r"window_attention_bwd_kernelILi(\d+)EE",
                                    m.group(1))
-            if window:
+            mma = re.search(r"lstm_fused_mma_kernelILi(\d+)ELi(\d+)EE",
+                            m.group(1))
+            jring = re.search(r"decode_fused_bwd_ringILi(\d+)ELi(\d+)EE",
+                              m.group(1))
+            if mma:
+                name = (f"{name}<C={16 * int(mma.group(1))}, H="
+                        f"{16 * int(mma.group(2))}, weights in registers>")
+            elif jring:
+                name = (f"{name}<H={16 * int(jring.group(1))}, "
+                        f"{jring.group(2)} m-tiles a head warp>")
+            elif window:
                 name = (f"{name}<bf16, head dim up to {window.group(1)}, "
                         f"lse={window.group(2)}>")
             elif window_bwd:
@@ -865,13 +890,17 @@ def check_lstm_fused(torch, lstm_fused_cuda, dev):
     """Kernel F against its plain version at fast widths, both directions,
     with and without a bias. As for kernel A: both round h to bf16 every
     step and sum in f32 in another order, so the tolerance is LSTM_ATOL
-    (four bf16 steps) on the max and LSTM_MEAN_TOL on the mean."""
+    (four bf16 steps) on the max and LSTM_MEAN_TOL on the mean. On its mma
+    kernel (``fused_plan`` gives a plan at fast widths) h equals the
+    earlier kernel's bit for bit. Returns the inputs, the worst difference
+    to the plain version, the plan and the largest |h - the earlier
+    kernel's h| of the four cases."""
     g = torch.Generator().manual_seed(SEED + 3)
     x = torch.tanh(torch.randn(FT, FN, FH, generator=g)).to(dev, torch.bfloat16)
     w_ih, w_hh = ((torch.randn(FH, 4 * FH, generator=g) / math.sqrt(FH)).to(
         dev, torch.bfloat16) for _ in range(2))
     b = (0.5 * torch.randn(4 * FH, generator=g)).to(dev)
-    worst = 0.0
+    worst = vs_old = 0.0
     for reverse, bias in ((False, b), (True, b), (False, None), (True, None)):
         out = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, bias, reverse=reverse)
         torch.cuda.synchronize()
@@ -888,8 +917,20 @@ def check_lstm_fused(torch, lstm_fused_cuda, dev):
         require(err <= LSTM_ATOL and mean <= LSTM_MEAN_TOL,
                 f"kernel F disagrees with its plain version: max {err}, "
                 f"mean {mean}")
-        worst = max(worst, err)
-    return (x, w_ih, w_hh, b), worst
+        plan = lstm_fused_cuda.lstm_fused.plan
+        old = lstm_fused_cuda.lstm_fused_old_kernel(x, w_ih, w_hh, bias,
+                                                    reverse=reverse)
+        differ = (out != old).sum().item()
+        d_old = (out.float() - old.float()).abs().max().item()
+        log(f"    on the mma kernel vs the earlier kernel: {differ} of "
+            f"{out.numel()} values differ in any bit, max |diff| {d_old:.3g}")
+        require(plan is not None and differ == 0,
+                f"kernel F at fast widths: plan {plan}, {differ} values "
+                f"differ from the earlier kernel")
+        worst, vs_old = max(worst, err), max(vs_old, d_old)
+    plan = lstm_fused_cuda.lstm_fused.plan
+    log(f"  kernel F's plan: {plan}")
+    return (x, w_ih, w_hh, b), worst, plan, vs_old
 
 
 def fused_head(torch, HeadSplit, dev, N, Th, H, S, U, tanh, gain):
@@ -951,15 +992,31 @@ def hold_fused(torch, decode_fused_cuda, head, name, kernels, **q):
 def check_decode_fused(torch, decode_fused_cuda, HeadSplit, dev):
     """Kernels G and J against their plain versions: the fast head (U = 1,
     no tanh, Clamp +-5) at fast widths, and a small head with two upsample
-    phases, tanh, scale 5 and a bias."""
+    phases, tanh, scale 5 and a bias; on both J on its ring
+    (``fused_decode_plan`` gives a plan) against the earlier J, bit for bit
+    on sequence, qstring and moves. Returns the fast head, G's outputs on
+    it, the worst move-in difference and |dq|, J's plan and the largest
+    |ring - earlier J| over the three outputs of both heads."""
     q = dict(qscale=1.05, qbias=0.2)
-    hold_fused(torch, decode_fused_cuda, fused_head(
-        torch, HeadSplit, dev, 24, 50, 32, 64, 2, True, 0.5),
-        "two phases, tanh * 5, bias", "G + J", **q)
-    head = fused_head(torch, HeadSplit, dev, FN, FT, FH, FS, 1, False, 3.0)
-    fwd, _, err, dq = hold_fused(torch, decode_fused_cuda, head, "fast head",
-                                 "G + J", **q)
-    return head, fwd, err, dq
+    plans, vs_old = [], 0
+    for what, shape in (("two phases, tanh * 5, bias",
+                         (24, 50, 32, 64, 2, True, 0.5)),
+                        ("fast head", (FN, FT, FH, FS, 1, False, 3.0))):
+        head = fused_head(torch, HeadSplit, dev, *shape)
+        fwd, out, err, dq = hold_fused(torch, decode_fused_cuda, head, what,
+                                       "G + J", **q)
+        plans.append(decode_fused_cuda.tcn_fused_backward.plan)
+        old = decode_fused_cuda.tcn_fused_backward_old_kernel(head, *fwd, **q)
+        differ = [k for k in out if not torch.equal(out[k], old[k])]
+        d_old = max((out[k].int() - old[k].int()).abs().max().item()
+                    for k in out)
+        log(f"    J on its ring (plan {plans[-1]}) vs the earlier J: outputs "
+            f"that differ in any bit {differ}, max |diff| {d_old}")
+        require(plans[-1] is not None and not differ,
+                f"kernel J ({what}): plan {plans[-1]}, {differ} differ from "
+                f"the earlier J")
+        vs_old = max(vs_old, d_old)
+    return head, fwd, err, dq, plans[-1], float(vs_old)
 
 
 def check_decode_fused_wide(torch, decode_fused_cuda, HeadSplit, dev):
@@ -1151,6 +1208,8 @@ def run_path(torch, name, model, reads, counters, basecall, chunk, geometry,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    # the plans F and J ran on (their last call's), where the path ran them
+    plans = {k: counters[k].plan for k in ("F", "J") if launches[k]}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     require(results.keys() == {r.read_id for r in reads},
             f"{name}: not every read came back")
@@ -1174,7 +1233,8 @@ def run_path(torch, name, model, reads, counters, basecall, chunk, geometry,
         f"models and the checks' tensors); launches {launches}")
     require(0.01 < frac < 1 and letters == set("ACGT"),
             f"{name}: degenerate output")
-    return {"launches": launches, "batches": -(-n_chunks // batchsize),
+    return {"launches": launches, "plans": plans,
+            "batches": -(-n_chunks // batchsize),
             "full_batches": n_chunks // batchsize, "batchsize": batchsize,
             "chunksize": chunksize, "wall": wall, "samples": samples,
             "peak": peak, "held": held}
@@ -1210,11 +1270,12 @@ def device_step(np, model, reads, make_compute_fn, chunk, **kw):
 
 class earlier_kernel:
     """K and H (``rule`` "window_plan") or O ("window_bwd_plan") of
-    ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), or U
-    and V ("logz_plan" of ``logz_cuda``) on their earlier kernels at every
-    shape, for the comparisons of phases 7 and 9 to 11: the shape rule
-    swapped for one that gives no plan. The launch counts count as on the
-    redesigned kernels."""
+    ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), U and V
+    ("logz_plan" of ``logz_cuda``), F ("fused_plan" of ``lstm_fused_cuda``)
+    or J ("fused_decode_plan" of ``decode_fused_cuda``) on their earlier
+    kernels at every shape, for the comparisons of phases 7 and 9 to 11:
+    the shape rule swapped for one that gives no plan. The launch counts
+    count as on the redesigned kernels."""
 
     def __init__(self, attention_cuda, rule="window_plan"):
         self.mod, self.name = attention_cuda, rule
@@ -2591,6 +2652,23 @@ def main():
             f"kernels U and V on the ring have a stack frame or spills (or "
             f"not 32 instances): {logz_rows}")
 
+    # F's mma kernel at C = H from 16 to 96; J's ring at H 32 (U 1 and 2)
+    # and 96 (U 1, the fast head, whose head warps spill J_SPILL_MAX bytes)
+    f_rows = [r for r in ptxas_rows if "lstm_fused_mma_kernel" in r]
+    require(len(f_rows) == 6 and all("stack 0 B, spills 0/0 B" in r
+                                     for r in f_rows),
+            f"kernel F's mma kernel has a stack frame or spills (or not six "
+            f"instances): {f_rows}")
+    j_rows = [r for r in ptxas_rows if "decode_fused_bwd_ring" in r]
+    j_frames = [tuple(int(v) for v in re.search(
+        r"stack (\d+) B, spills (\d+)/(\d+) B", r).groups()) for r in j_rows]
+    require(len(j_rows) == 3 and all(
+        max(f) <= (J_SPILL_MAX if "H=96" in r else 0)
+        for r, f in zip(j_rows, j_frames)),
+            f"kernel J's ring: a stack frame or spills above "
+            f"{J_SPILL_MAX} B at H 96 or any at H 32 (or not three "
+            f"instances): {j_rows}")
+
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
     d_args, e_args, err_int8, int8_plans = check_lstm_int8(
@@ -2599,8 +2677,9 @@ def main():
         torch, decode_cuda, dev)
     err_m, err_q, vs_old_mq = check_decode_full(torch, decode_full_cuda, dev)
     log(f"    and at fast widths (N={FN}, T={FT}, C=H={FH}, S={FS})")
-    f_args, err_f = check_lstm_fused(torch, lstm_fused_cuda, dev)
-    f_head, f_fwd, err_g, err_j = check_decode_fused(
+    f_args, err_f, plan_f, f_vs_old = check_lstm_fused(torch, lstm_fused_cuda,
+                                                       dev)
+    f_head, f_fwd, err_g, err_j, plan_j, j_vs_old = check_decode_fused(
         torch, decode_fused_cuda, HeadSplit, dev)
     log(f"    and at sup widths (N={SN}, T={ST}, H={SH}, D={SD}, window "
         f"{SWIN})")
@@ -2855,6 +2934,10 @@ def main():
         _, rev_steps["fast_rev"]["copy_old"] = device_step(
             np, models["fast"], fast_reads, make_compute_fn, chunk,
             reverse=True)
+    with earlier_kernel(lstm_fused_cuda, "fused_plan"):
+        _, rev_steps["fast_rev"]["f_old"] = device_step(
+            np, models["fast"], fast_reads, make_compute_fn, chunk,
+            reverse=True)
     _, x_wire, sig_scale = prepared
     with torch.inference_mode():
         xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
@@ -2870,6 +2953,11 @@ def main():
     # plain version on the same input, compound: five times those.
     prepared, step_fast = device_step(np, models["fast"], fast_reads,
                                       make_compute_fn, chunk)
+    # the same batch with F and J on their earlier kernels (the parent's)
+    with earlier_kernel(lstm_fused_cuda, "fused_plan"), \
+            earlier_kernel(decode_fused_cuda, "fused_decode_plan"):
+        _, step_fast_old = device_step(np, models["fast"], fast_reads,
+                                       make_compute_fn, chunk)
     _, step_fast_tcn = device_step(np, models["fast"], fast_reads,
                                    make_compute_fn, chunk, head_route="tcn")
     _, x_wire, sig_scale = prepared
@@ -3107,6 +3195,11 @@ def main():
         require(run["launches"] == expect,
                 f"{name}: launches {run['launches']}, expected {expect}: "
                 f"{own[name]} per batch, no other kernel")
+        if run["plans"]:
+            log(f"    the plans F and J ran on: {run['plans']}")
+            require(all(v is not None for v in run["plans"].values()),
+                    f"{name}: F or J ran on its earlier kernel: "
+                    f"{run['plans']}")
 
     log(f"[7] on {card}:")
     for name, step in (("bf16", step_bf16), ("int8", step_int8),
@@ -3123,6 +3216,11 @@ def main():
             f"{per_batch / step * 1e3:.6g} samples/s")
     log(f"  fast with head_route='tcn' (head matmul + B + C in place of G + "
         f"J): device step {step_fast_tcn:.4g} ms per batch")
+    log(f"  fast with F and J on their earlier kernels: device step "
+        f"{step_fast_old:.4g} ms per batch ({step_fast:.4g} on the mma "
+        f"kernel and the ring); fast reverse with F on its earlier kernel "
+        f"{rev_steps['fast_rev']['f_old']:.4g} "
+        f"({rev_steps['fast_rev']['step']:.4g})")
     rs = rev_steps
     log(f"  the reverse strand read in place (M + Q on the ring): device "
         f"step hac {rs['rev']['step']:.4g} ms per batch, fast "
@@ -3264,6 +3362,8 @@ def main():
     fx, fw_ih, fw_hh, fb = f_args
     ms_f = cuda_ms(lambda: lstm_fused_cuda.lstm_fused(fx, fw_ih, fw_hh, fb),
                    reps=5)
+    ms_f_old = cuda_ms(lambda: lstm_fused_cuda.lstm_fused_old_kernel(
+        fx, fw_ih, fw_hh, fb), reps=5)
     plain_f = cuda_ms(lambda: lstm_fused_cuda.lstm_fused_plain(
         fx, fw_ih, fw_hh, fb), reps=1, warmup=0)
     cudnn_f = torch.nn.LSTM(FH, FH, device=dev, dtype=torch.bfloat16)
@@ -3276,9 +3376,10 @@ def main():
         xw_f.add_(fb.to(torch.bfloat16))
         return lstm_cuda.lstm_recurrence(xw_f, fw_hh)
     ms_via_a = cuda_ms(projection_and_a, reps=2)
-    log(f"  F: {ms_f:.4g} ms per layer vs projection + kernel A "
-        f"{ms_via_a:.4g} ms vs one cuDNN torch.nn.LSTM({FH}, {FH}) layer "
-        f"{lib_f:.4g} ms")
+    log(f"  F: {ms_f:.4g} ms per layer on the mma kernel "
+        f"({ms_f / FT * 1e3:.4g} us a step), its earlier kernel "
+        f"{ms_f_old:.4g} ms, vs projection + kernel A {ms_via_a:.4g} ms vs "
+        f"one cuDNN torch.nn.LSTM({FH}, {FH}) layer {lib_f:.4g} ms")
     # F: bf16 x in, both weights, the f32 bias, bf16 h out
     bound_f = bound(2 * FT * FN * FH * 2 + 2 * FH * 4 * FH * 2 + 4 * FH * 4,
                     2 * FN * FT * (FH + FH) * 4 * FH, H100_BF16_OPS)
@@ -3288,6 +3389,10 @@ def main():
         f_head), reps=1, warmup=0)
     ms_j = cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward(
         f_head, *f_fwd), reps=5)
+    ms_j_old = cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward_old_kernel(
+        f_head, *f_fwd), reps=5)
+    log(f"  J: {ms_j:.4g} ms on its ring, its earlier kernel {ms_j_old:.4g} "
+        f"ms")
     plain_j = cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward_plain(
         f_head, *f_fwd), reps=1, warmup=0)
     head_ops = 2 * FT * FN * FH * 4 * FS     # on the tensor cores
@@ -3639,6 +3744,18 @@ def main():
                    "sup_shape_plain_ms": wide["sup"][f"{k}_plain"],
                    "sup_shape_bound_ms": wide["sup"][f"{k}_bound"][0],
                    "tcn_route_ms": tcn_route} for k in ("GW", "JW")},
+            "F": {"plan": plan_f, "old_kernel_ms": ms_f_old,
+                  "max_abs_err_vs_old_kernel": f_vs_old,
+                  "us_a_step": ms_f / FT * 1e3,
+                  "fast_device_step_ms": step_fast,
+                  "fast_device_step_old_kernel_ms": step_fast_old,
+                  "fast_rev_device_step_ms": rev_steps["fast_rev"]["step"],
+                  "fast_rev_device_step_old_kernel_ms":
+                      rev_steps["fast_rev"]["f_old"]},
+            "J": {"plan": plan_j, "old_kernel_ms": ms_j_old,
+                  "max_abs_err_vs_old_kernel": j_vs_old,
+                  "fast_device_step_ms": step_fast,
+                  "fast_device_step_old_kernel_ms": step_fast_old},
             "K": {"plan": plan_k, "old_kernel_ms": ms_k_old,
                   "sup_device_step_ms": step_sup,
                   "sup_device_step_old_kernel_ms": step_sup_old,

@@ -5,10 +5,10 @@ B and C (the TCN decode) and M and Q (the full-score decode, on the reverse
 strand read in place, as the reverse paths run them), at hac's, sup's and
 fast's decode shapes:
 
-    python3 scripts/decode_split.py [bc | mq]
+    python3 scripts/decode_split.py [bc | mq | j]
 
-from the root of a checkout, on a machine with a CUDA card and nvcc (both
-pairs without an argument). It builds ``csrc/decode_tcn_ring.cu`` (B, C)
+from the root of a checkout, on a machine with a CUDA card and nvcc (B, C
+and M, Q without an argument). It builds ``csrc/decode_tcn_ring.cu`` (B, C)
 and ``csrc/decode_full.cu`` (M, Q; both include the ring of
 ``csrc/decode_ring.cuh``) once per variant with nvcc for sm_90a (all at
 once, ``-DDECODE_CUT=<parts>`` into ``bonito_tpu_torch/build/decode_split/``),
@@ -31,8 +31,23 @@ S 64) on random bf16 full scores clamped to +-5, reverse strand:
   them: the normalised move-in, the qscore), the backward pass's traceback
   (the end state throughout), and all of them.
 
-What a part adds is the source's time less the variant's; the variants'
-outputs are wrong by design and only timed.
+J, the fused-head decode's backward pass on its ring (``j``: builds
+``csrc/decode_tcn_fused.cu`` once per variant, ``-DJ_CUT=<parts>``), on
+the fast head (N 1024, 1200 frames, H 96, S 64, clamped to +-5) and a
+head of two phases (N 24, 50 x 2 frames, H 32, tanh x 5 and a bias), after
+G's forward pass on the same head:
+
+- the source at the plan (``ops.decode_fused_cuda.fused_decode_plan``),
+  after a check against the earlier J (sequence, qstring, moves bit for
+  bit), with the earlier kernel's and G's times beside it; at rings of 2,
+  4 and 8 chunks where they fit;
+- a copy at one state a thread (``J_ONE_STATE``: two consumer warps a row,
+  meeting at the row's named barrier, their maxes through shared memory;
+  26 warps), checked against the earlier J as the source is, at the
+  plan's ring;
+- the source with one part left out: the head warps (products, exps and
+  the tile's stores), the ring's copies and the waits for them, the
+  epilogue warp's qscores and stores, and all three.
 """
 
 import ctypes
@@ -46,8 +61,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+from bonito_tpu_torch.crf.model import HeadSplit  # noqa: E402
 from bonito_tpu_torch.ops import (  # noqa: E402
-    build, decode_cuda, decode_full_cuda)
+    build, decode_cuda, decode_full_cuda, decode_fused_cuda)
 
 OUT = build.BUILD / "decode_split"
 SOURCES = {"bc": "decode_tcn_ring.cu", "mq": "decode_full.cu"}
@@ -245,13 +261,180 @@ def split_full(libs, card, dev, what, N, T, S):
                decode_cuda.ring_smem(S, ring, backward, 10 * S) <= SMEM)
 
 
+# J: csrc/decode_tcn_fused.cu's J_CUT bits
+PARTS_J = {"head": 1, "waits": 2, "epilogue": 4}
+VARIANTS_J = {"source": [], "no head warps": ["head"],
+              "no ring waits": ["waits"], "no epilogue warp": ["epilogue"],
+              "none of the three": list(PARTS_J)}
+J_HEADS = {"the fast head": (1024, 1200, 96, 1, False, 3.0),
+           "a head of two phases": (24, 50, 32, 2, True, 0.5)}
+
+
+# J at one state a thread, two consumer warps a row (measured slower and
+# not kept): edits of csrc/decode_tcn_fused.cu
+J_ONE_STATE = [
+    ("constexpr int JCW = JRB;   // consumer warps: one a row",
+     "constexpr int JCW = 2 * JRB;  // consumer warps: two a row"),
+    ("constexpr int JSPT = JS / 32;", "constexpr int JSPT = JS / 64;"),
+    # the record holds both warps' maxes
+    ("return S / 32 + 2; }", "return S / 32 + 3; }"),
+    # the warps' maxes of two parities, [2][JRB][2], in front of the records
+    ("off_rec(off_beta + round_up(2 * JRB * S * 4, 128)),",
+     "off_rec(off_beta + round_up(2 * JRB * S * 4, 128) + 128),"),
+    ("    float* rec = reinterpret_cast<float*>(jsm + L.off_rec);\n",
+     "    float* rec = reinterpret_cast<float*>(jsm + L.off_rec);\n"
+     "    float* part = rec - 2 * JRB * 2;\n"),
+    ("const unsigned consumers = 32u * live;",
+     "const unsigned consumers = 64u * live;"),
+    ("beta[JRB * S + e] = 1.f;\n",
+     "beta[JRB * S + e] = 1.f;\n    if (tid < 2 * JRB) part[2 * JRB + tid] = 1.f;\n"),
+    ("const float mx = r[NRUN];", "const float mx = fmaxf(r[NRUN], r[NRUN + 1]);"),
+    ("    const int row = w;\n", "    const int row = w / 2, wr = w % 2;\n"),
+    ("            // traceback, the same in every thread of the row\n",
+     "            {\n"
+     "                const float* pp = part + ((par ^ 1) * JRB + row) * 2;\n"
+     "                inv = 1.f / fmaxf(pp[0], pp[1]);\n"
+     "            }\n"
+     "            // traceback, the same in every thread of the row\n"),
+    ("const int ps = 32 * i + lane, rs = ps % R;",
+     "const int ps = 32 * (wr * JSPT + i) + lane, rs = ps % R;"),
+    ("Bn[32 * i + lane] = braw[i];", "Bn[32 * (wr * JSPT + i) + lane] = braw[i];"),
+    ("r[i] = run[i];\n                r[NRUN] = wmax;",
+     "r[wr * JSPT + i] = run[i];\n"
+     "                part[(par * JRB + row) * 2 + wr] = wmax;\n"
+     "                r[NRUN + wr] = wmax;"),
+    ("            inv = 1.f / wmax;\n", ""),
+    ("            par ^= 1;\n            __syncwarp();\n",
+     "            par ^= 1;\n"
+     "            asm volatile(\"bar.sync %0, 64;\\n\" :: \"r\"(1 + row) : \"memory\");\n"),
+]
+
+
+def one_state_source():
+    """``csrc/decode_tcn_fused.cu`` with ``J_ONE_STATE``, written beside the
+    split's libraries."""
+    cu = (build.CSRC / "decode_tcn_fused.cu").read_text()
+    for old, new in J_ONE_STATE:
+        if cu.count(old) != 1:
+            raise SystemExit(f"decode_split: the one-state copy's anchor "
+                             f"{old[:60]!r} is not in "
+                             f"csrc/decode_tcn_fused.cu once")
+        cu = cu.replace(old, new)
+    path = OUT / "decode_tcn_fused_one_state.cu"
+    path.write_text(cu)
+    return path
+
+
+def build_j():
+    """One library of csrc/decode_tcn_fused.cu per J variant, and one of
+    its one-state copy: the ring entry."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = build._nvcc()
+    sources = {name: (build.CSRC / "decode_tcn_fused.cu",
+                      sum(PARTS_J[p] for p in parts))
+               for name, parts in VARIANTS_J.items()}
+    sources["one state a thread"] = (one_state_source(), 0)
+    procs = {name: subprocess.Popen(
+        [nvcc, *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared",
+         f"-DJ_CUT={cut}", "-I", str(build.CSRC),
+         "-o", str(OUT / f"lib_j_{i}.so"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, (name, (src, cut)) in enumerate(sources.items())}
+    libs = {}
+    for i, (name, proc) in enumerate(procs.items()):
+        o, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on J, {name}:\n{err}")
+        kernel, frame = None, ""
+        for line in (o + err).splitlines():
+            m = re.search(r"Compiling entry function '\w*decode_fused_bwd"
+                          r"_ringILi(\d+)ELi(\d+)EE", line)
+            if m:
+                kernel = (f"J<H {16 * int(m.group(1))}, {m.group(2)} m-tiles "
+                          f"a head warp>")
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if kernel and m:
+                frame = (f"stack {m.group(1)} B, spills {m.group(2)}/"
+                         f"{m.group(3)} B")
+            m = re.search(r"Used (\d+) registers", line)
+            if kernel and m:
+                print(f"  {name}, {kernel}: {m.group(1)} registers, {frame}",
+                      flush=True)
+                kernel = None
+        lib = ctypes.CDLL(str(OUT / f"lib_j_{i}.so"))
+        entry = "decode_fused_bwd_ring_bf16"
+        getattr(lib, entry).argtypes = build.SIGNATURES[entry]
+        libs[name] = lib
+    return libs
+
+
+def split_j(libs, card, dev, what, N, Th, H, U, tanh, gain, S=64):
+    f = decode_fused_cuda
+    g = torch.Generator().manual_seed(N + Th)
+    h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(dev, torch.bfloat16)
+    wT = (gain * torch.randn(U, 4 * S, H, generator=g) / math.sqrt(H)).to(
+        dev, torch.bfloat16)
+    bias = (0.3 * torch.randn(U, 4 * S, generator=g)).to(dev) if tanh \
+        else None
+    head = HeadSplit(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+                     None if tanh else -5.0, None if tanh else 5.0, 2.0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = f.fused_decode_plan(N, Th * U, S, H, U, sms)
+    fwd = f.tcn_fused_forward(head)
+    old = f.tcn_fused_backward_old_kernel(head, *fwd, qscale=1.05, qbias=0.2)
+    hh, w, b = f._operands(head)
+    out = torch.empty(3, N, Th * U, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, ring):
+        f._launched(libs[name].decode_fused_bwd_ring_bf16(
+            hh.data_ptr(), w.data_ptr(), b.data_ptr(),
+            *(x.data_ptr() for x in fwd), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), Th, N, H, S, U, ring,
+            math.exp(2.0), 1.05, 0.2, *f._head_ops(head), stream), name, S, H,
+            U)
+
+    print(f"{card}; J on {what}: N={N}, T={Th * U}, H={H}, S={S}, U={U}; "
+          f"plan {plan}", flush=True)
+    for name in ("source", "one state a thread"):
+        run(name, plan["ring"])
+        torch.cuda.synchronize()
+        same = [torch.equal(out[i], old[k])
+                for i, k in enumerate(("sequence", "qstring", "moves"))]
+        print(f"  {name} vs the earlier J, bit for bit (sequence, qstring, "
+              f"moves): {same}", flush=True)
+        if not all(same):
+            raise RuntimeError(f"decode_split: J's ring ({name}) disagrees "
+                               f"with the earlier kernel")
+    print(f"  the earlier J "
+          f"{ms_of(lambda: f.tcn_fused_backward_old_kernel(head, *fwd)):.4g}"
+          f" ms; G {ms_of(lambda: f.tcn_fused_forward(head)):.4g} ms",
+          flush=True)
+    for ring in (2, 4, 8):
+        fits = f.j_ring_smem(S, H, U, ring) <= SMEM
+        ms = (f"{ms_of(lambda: run('source', ring)):.4g} ms" if fits
+              else "does not fit")
+        print(f"  the source, a ring of {ring} chunks: {ms}", flush=True)
+    print(f"  one state a thread, a ring of {plan['ring']} chunks: "
+          f"{ms_of(lambda: run('one state a thread', plan['ring'])):.4g} ms",
+          flush=True)
+    base = None
+    for name in VARIANTS_J:
+        ms = ms_of(lambda: run(name, plan["ring"]))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {base - ms:.4g} ms")
+        print(f"  the plan, {name}: {ms:.4g} ms{more}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("decode_split: no CUDA device", file=sys.stderr)
         return 1
     pairs = sys.argv[1:] or list(SOURCES)
-    if not set(pairs) <= set(SOURCES):
-        print(f"decode_split: expected any of {list(SOURCES)}",
+    if not set(pairs) <= {*SOURCES, "j"}:
+        print(f"decode_split: expected any of {[*SOURCES, 'j']}",
               file=sys.stderr)
         return 2
     card = subprocess.run(
@@ -259,6 +442,13 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     dev = torch.device("cuda")
+    if "j" in pairs:
+        libs = build_j()
+        for what, shape in J_HEADS.items():
+            split_j(libs, card, dev, what, *shape)
+        pairs = [p for p in pairs if p != "j"]
+    if not pairs:
+        return 0
     libs = build_variants(pairs)
     if "bc" in pairs:
         split(libs["bc"], card, dev, "B and C at hac", 96, 1666)

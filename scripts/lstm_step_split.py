@@ -5,9 +5,11 @@ port, ``bonito_tpu_torch/csrc``): kernel A, the bf16 recurrence
 (``lstm.cu`` over ``lstm_persistent.cuh``), or kernel D, the int8 layer
 (``lstm_int8.cu``), at hac widths (N=96, T=1666, C=H=1024), or kernel S,
 the train step's backward through time (``lstm_train.cu``), at hac
-training widths (N=128, T=1000, H=1024; N may be given after ``s``).
+training widths (N=128, T=1000, H=1024; N may be given after ``s``), or
+kernel F, the fast LSTM layer on its mma kernel (``lstm_fused.cu``), at
+fast widths (N=1024, T=1200, C=H=96).
 
-    python3 scripts/lstm_step_split.py [a | d | s [N]]
+    python3 scripts/lstm_step_split.py [a | d | s [N] | f]
 
 from the root of a checkout, on a machine with a CUDA card and nvcc (``a``
 when no kernel is named). It copies the kernel's sources into
@@ -53,12 +55,25 @@ S (on random activations and cell states, which S takes as given):
   memory and the cluster's barrier), the elementwise part (dh is stored in
   place of the gates' gradient), and all five.
 
+F (``-DLSTM_CUT=<parts>``, csrc/lstm_fused.cu's CUT_* bits):
+- the source at the plan (``ops.lstm_fused_cuda.fused_plan``), checked
+  against the earlier kernel (bit for bit, T=1200, both directions, with
+  and without a bias) and the plain version (``lstm_fused_plain``, T=33),
+  with the earlier kernel's time beside it, and the registers of each
+  variant;
+- the same kernel with one part of each step left out: the h product
+  (its sums zeros), the x product, the gate math (the gates' sum is h),
+  the block barrier, the stores of h to the output, and all five;
+- the source with tanh.approx.f32 in place of tanhf, timed, and its drift
+  from the plain version (T=1200) beside the source's.
+
 What a part adds is the source's time less the variant's; the variants'
-outputs are wrong by design (or, without the fences, unordered) and only
-timed.
+outputs are wrong by design (or, without the fences or F's barrier,
+unordered) and only timed.
 """
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -68,7 +83,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from bonito_tpu_torch.ops import (  # noqa: E402
-    build, int8, lstm_cuda, lstm_int8_cuda, lstm_train_cuda)
+    build, int8, lstm_cuda, lstm_fused_cuda, lstm_int8_cuda, lstm_train_cuda)
 
 OUT = build.BUILD / "step_split"
 HEADER = "lstm_persistent.cuh"
@@ -258,6 +273,114 @@ def build_variants(mode):
         fn.argtypes = argtypes
         libs[name] = fn
     return libs
+
+
+# F: csrc/lstm_fused.cu's LSTM_CUT bits
+PARTS_F = {"h": 1, "x": 2, "gates": 4, "barrier": 8, "stores": 16,
+           "tanh_approx": 32}
+VARIANTS_F = {"source": [], "no h product": ["h"], "no x product": ["x"],
+              "no gate math": ["gates"], "no barrier": ["barrier"],
+              "no out stores": ["stores"],
+              "none of the five": ["h", "x", "gates", "barrier", "stores"],
+              "tanh.approx.f32": ["tanh_approx"]}
+
+
+def build_f():
+    """One library of csrc/lstm_fused.cu per F variant, -DLSTM_CUT=<bits>:
+    its two entries (the mma kernel and the earlier kernel)."""
+    out = OUT / "f"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = build._nvcc()
+    procs = {name: subprocess.Popen(
+        [nvcc, *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared",
+         f"-DLSTM_CUT={sum(PARTS_F[p] for p in parts)}", "-I",
+         str(build.CSRC), "-o", str(out / f"lib_f_{i}.so"),
+         str(build.CSRC / "lstm_fused.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, (name, parts) in enumerate(VARIANTS_F.items())}
+    libs = {}
+    for i, (name, proc) in enumerate(procs.items()):
+        o, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+        kernel, frame = None, ""
+        for line in (o + err).splitlines():
+            m = re.search(r"Compiling entry function '\w*lstm_fused_mma"
+                          r"_kernelILi6ELi6EE", line)
+            kernel = kernel or bool(m)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores", line)
+            if kernel and m:
+                frame = f", stack {m.group(1)} B, spills {m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if kernel and m:
+                print(f"  {name}, the mma kernel at C=H=96: {m.group(1)} "
+                      f"registers{frame}", flush=True)
+                kernel = False
+        lib = ctypes.CDLL(str(out / f"lib_f_{i}.so"))
+        for entry in ("lstm_fused_mma", "lstm_fused_bf16"):
+            getattr(lib, entry).argtypes = build.SIGNATURES[entry]
+        libs[name] = lib
+    return libs
+
+
+def split_f(card, dev):
+    N, T, H = 1024, 1200, 96
+    libs = build_f()
+    plan = lstm_fused_cuda.fused_plan(
+        N, H, H, torch.cuda.get_device_properties(dev).multi_processor_count)
+    g = torch.Generator().manual_seed(4)
+    x = torch.tanh(torch.randn(T, N, H, generator=g)).to(dev, torch.bfloat16)
+    w_ih, w_hh = ((torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(
+        dev, torch.bfloat16) for _ in range(2))
+    b = (0.5 * torch.randn(4 * H, generator=g)).to(dev)
+    zero = torch.zeros(4 * H, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, xs, bias, reverse=0, old=False):
+        out = torch.empty(xs.shape[0], N, H, dtype=torch.bfloat16,
+                          device=dev)
+        entry = "lstm_fused_bf16" if old else "lstm_fused_mma"
+        build.check(getattr(libs[name], entry)(
+            xs.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), xs.shape[0], N, H, H, reverse, stream), name)
+        return out
+
+    print(f"{card}; kernel F, N={N}, T={T}, C=H={H}; plan {plan}",
+          flush=True)
+    x33 = x[:33].contiguous()
+    for reverse in (0, 1):
+        for bias in (b, zero):
+            same = torch.equal(run("source", x, bias, reverse),
+                               run("source", x, bias, reverse, old=True))
+            ref = lstm_fused_cuda.lstm_fused_plain(x33, w_ih, w_hh, bias,
+                                                   reverse=bool(reverse))
+            diff = (run("source", x33, bias, reverse).float()
+                    - ref.float()).abs()
+            print(f"  reverse={reverse}, bias={bias is b}: equal to the "
+                  f"earlier kernel bit for bit {same}; max |h - plain| "
+                  f"{diff.max().item():.3g}, mean {diff.mean().item():.3g} "
+                  f"(T=33)", flush=True)
+            if not same:
+                raise RuntimeError("lstm_step_split: F's mma kernel differs "
+                                   "from its earlier kernel")
+    ref = lstm_fused_cuda.lstm_fused_plain(x, w_ih, w_hh, b)
+    for name in ("source", "tanh.approx.f32"):
+        diff = (run(name, x, b).float() - ref.float()).abs()
+        print(f"  {name}: max |h - plain| {diff.max().item():.3g}, mean "
+              f"{diff.mean().item():.3g} (T=1200)", flush=True)
+    ms = ms_of(lambda: run("source", x, b, old=True))
+    print(f"  the earlier kernel: {ms:.4g} ms a layer = "
+          f"{ms / T * 1e3:.4g} us a step", flush=True)
+
+    base = None
+    for name in VARIANTS_F:
+        ms = ms_of(lambda: run(name, x, b))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {(base - ms) / T * 1e3:.3g} us")
+        print(f"  the plan, {name}: {ms:.4g} ms a layer = "
+              f"{ms / T * 1e3:.4g} us a step{more}", flush=True)
 
 
 def split_a(card, dev):
@@ -462,9 +585,9 @@ def split_s(card, dev, N=128):
 
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "a"
-    if mode not in MODES:
-        print(f"lstm_step_split: a kernel of {sorted(MODES)}, not {mode!r}",
-              file=sys.stderr)
+    if mode not in (*MODES, "f"):
+        print(f"lstm_step_split: a kernel of {sorted((*MODES, 'f'))}, not "
+              f"{mode!r}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("lstm_step_split: no CUDA device", file=sys.stderr)
@@ -478,6 +601,8 @@ def main():
         split_a(card, dev)
     elif mode == "d":
         split_d(card, dev)
+    elif mode == "f":
+        split_f(card, dev)
     else:
         split_s(card, dev, *(int(n) for n in sys.argv[2:3]))
     return 0

@@ -2,16 +2,19 @@
 """
 Where one device step of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_hac_step.py [int8 | fast | sup | train | suptrain]
+    python3 scripts/profile_hac_step.py [int8 | fast | fastrev | sup | train |
+                                         suptrain]
 
 from the root of a checkout, on a machine with a CUDA card. Builds a
 random full-width model (as chip_smoke.py does, without the trip through
 a model directory): the bf16 hac model; with ``int8`` the quantised hac
 model on its default route (kernel D chain, int8 head); with ``fast`` the
 fast model as shipped (quantize=true: dequantised weights through kernel
-F, then the fused-head decode G + J); with ``sup`` the transformer model
-as shipped (bf16: the layout pin P, 18 fused attention launches K, the TCN
-decode B + C). It runs one warm-up batch (hac 96 x 9996 samples, fast
+F, then the fused-head decode G + J); with ``fastrev`` the same model's
+reverse strand (``--revcomp``: kernel F, the head's full scores, the
+full-score decode M + Q read in reverse-complement order); with ``sup``
+the transformer model as shipped (bf16: the layout pin P, 18 fused
+attention launches K, the TCN decode B + C). It runs one warm-up batch (hac 96 x 9996 samples, fast
 1024 x 6000, sup 128 x 12000) through ``make_compute_fn``, then traces
 two more with ``torch.profiler`` and prints, for the traced window: its
 wall time, the device time by kernel name (count, total, mean), the device
@@ -64,8 +67,8 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if sys.argv[1:] not in ([], ["int8"], ["fast"], ["sup"], ["train"],
-                            ["suptrain"]):
+    if sys.argv[1:] not in ([], ["int8"], ["fast"], ["fastrev"], ["sup"],
+                            ["train"], ["suptrain"]):
         raise SystemExit(__doc__)
     which = (sys.argv[1:] or ["bf16"])[0]
     if which in ("train", "suptrain"):
@@ -76,17 +79,18 @@ def main():
                f"weights, bf16 forward)", *batch[0].shape[:2],
                lambda: step(batch, 1.0, 2.0), rows_shown=25 if sup else 20)
         return
-    cfg = (MODELS[FAST]() if which == "fast" else MODELS[SUP]()
+    cfg = (MODELS[FAST]() if which in ("fast", "fastrev") else MODELS[SUP]()
            if which == "sup" else lstm_crf_config())
     batch = cfg["basecaller"]["batchsize"]
     model = (SupModel if which == "sup" else Model)(cfg).init(1)
     chunk = cfg["basecaller"]["chunksize"] // model.stride * model.stride
     nn.fuse_bn(model.encoder)
     model.to_bf16()
-    if which in ("int8", "fast"):
+    if which in ("int8", "fast", "fastrev"):
         model.quantize()
     model.to("cuda")
-    compute = make_compute_fn(model, batch, chunk)
+    compute = make_compute_fn(model, batch, chunk,
+                              reverse=which == "fastrev")
     signal = np.random.default_rng(1).normal(size=(batch, chunk)).astype(
         np.float32)
     prepared = compute.prepare(signal)
@@ -96,8 +100,9 @@ def main():
         compute.prepare(signal)
     prepare_ms = (time.perf_counter() - t0) / 3 * 1e3
 
-    name = {"fast": "fast, quantize=true", "sup": "sup, bf16"}.get(
-        which, f"hac, {which}")
+    name = {"fast": "fast, quantize=true",
+            "fastrev": "fast, quantize=true, reverse strand",
+            "sup": "sup, bf16"}.get(which, f"hac, {which}")
     print(f"host prepare (int8 wire, numpy) {prepare_ms:.4g} ms per batch")
     report(card, name, batch, chunk,
            lambda: compute.fetch(compute.dispatch(prepared)),

@@ -512,6 +512,34 @@ def test_fused_lstm_kernel_matches_plain(cuda, N, T, C, H, reverse, bias):
     assert (out.float() - ref.float()).abs().mean().item() <= 1e-4
 
 
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,H", [(64, 40, 96), (1024, 25, 96), (19, 17, 32),
+                                   (8, 9, 16), (1, 7, 80), (5, 33, 48)])
+def test_fused_lstm_mma_kernel_equals_its_earlier_kernel(cuda, N, T, H,
+                                                         reverse, bias):
+    """Kernel F on its mma kernel (``fused_plan`` gives a plan at C = H up
+    to 96): one launch counted, the plan it ran, and h equal to the earlier
+    kernel's bit for bit (the same HMMA over the same k, the same f32 steps
+    of the gate math), a ragged last block and one row among the shapes."""
+    g = torch.Generator().manual_seed(N + T + H)
+    x = torch.tanh(torch.randn(T, N, H, generator=g)).to(cuda, torch.bfloat16)
+    w_ih, w_hh = ((torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    b = (0.5 * torch.randn(4 * H, generator=g)).to(cuda) if bias else None
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = lstm_fused_cuda.fused_plan(N, H, H, sms)
+    assert plan is not None
+    before = lstm_fused_cuda.lstm_fused.launches
+    out = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, b, reverse=reverse)
+    old = lstm_fused_cuda.lstm_fused_old_kernel(x, w_ih, w_hh, b,
+                                                reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_fused_cuda.lstm_fused.launches == before + 1
+    assert lstm_fused_cuda.lstm_fused.plan == plan
+    assert torch.equal(out, old)
+
+
 def test_fused_lstm_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.zeros(3, 8, 16, device=cuda, dtype=torch.bfloat16)
     w = torch.zeros(16, 64, device=cuda, dtype=torch.bfloat16)
@@ -592,6 +620,41 @@ def test_fused_decode_kernels_match_plain(cuda, N, Th, H, S, U, tanh):
     if wide:
         assert all(torch.equal(a, b) for a, b in zip(fwd, ref_fwd))
         assert all(torch.equal(out[k], ref[k]) for k in ref)
+
+
+@pytest.mark.parametrize("N,Th,H,U,tanh", [
+    (8, 9, 32, 1, False), (5, 7, 32, 2, True), (64, 60, 96, 1, False),
+    (19, 13, 96, 1, False), (24, 50, 32, 2, True), (1, 1, 96, 1, False),
+    (1024, 40, 96, 1, False)])
+def test_fused_decode_ring_equals_its_earlier_kernel(cuda, N, Th, H, U, tanh):
+    """Kernel J on its ring (``fused_decode_plan`` gives a plan at S 64, H
+    32 or 96, U 1 or 2): one launch counted, the plan it ran, and sequence,
+    qstring and moves equal to the earlier J's bit for bit on G's outputs,
+    ragged rows and chunks, one frame and the fast batch among the
+    shapes."""
+    S = 64
+    g = torch.Generator().manual_seed(N + Th + H)
+    gain = 0.5 if tanh else 3.0
+    h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(cuda, torch.bfloat16)
+    wT = (gain * torch.randn(U, 4 * S, H, generator=g) / H ** 0.5).to(
+        cuda, torch.bfloat16)
+    bias = (0.3 * torch.randn(U, 4 * S, generator=g)).to(cuda) if tanh else None
+    head = Head(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+                None if tanh else -5.0, None if tanh else 5.0, 2.0)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = decode_fused_cuda.fused_decode_plan(N, Th * U, S, H, U, sms)
+    assert plan is not None
+    fwd = decode_fused_cuda.tcn_fused_forward(head)
+    before = decode_fused_cuda.tcn_fused_backward.launches
+    out = decode_fused_cuda.tcn_fused_backward(head, *fwd, qscale=1.05,
+                                               qbias=0.2)
+    old = decode_fused_cuda.tcn_fused_backward_old_kernel(
+        head, *fwd, qscale=1.05, qbias=0.2)
+    torch.cuda.synchronize()
+    assert decode_fused_cuda.tcn_fused_backward.launches == before + 1
+    assert decode_fused_cuda.tcn_fused_backward.plan == plan
+    for k in ("sequence", "qstring", "moves"):
+        assert torch.equal(out[k], old[k]), k
 
 
 def test_fused_decode_kernels_reject_what_they_do_not_take(cuda):
