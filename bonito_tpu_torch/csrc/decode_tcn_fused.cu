@@ -75,8 +75,24 @@
 // 1.07 ms (26 warps leave 72 registers a thread: the head warps spill); the
 // split tool builds it from an edited copy of this file.
 //
-// Later work: G on the same ring, and S > 256 (a row per block or per
-// cluster).
+// G on the same ring (decode_fused_fwd_ring, fused_decode_plan's "fwd":
+// the instances J builds), a CTA of 8 batch rows in 17 warps:
+//   the producer  lane 0 bulk-copies each chunk's h rows (4 / U encoder
+//              frames, one copy a frame) into a ring of chunks;
+//   8 head warps  J's, with the weights' rows in G's (j, s) order: a chunk
+//              ahead of the consumers, each move's score head_act(sum +
+//              bias) and its exp into one of two tiles (float2 pairs);
+//   8 consumer warps  one a row, two states a thread: alpha's step and the
+//              max semiring's with the earlier G's f32 steps (alpha kept
+//              raw, read times 1 / the last frame's max as the earlier G
+//              stored it), the row's max (a redux on the bits), c, and the
+//              stores of move-in, choices and c a frame; __syncwarp once a
+//              frame, no block barrier; at the end logZ (row_sum_max's runs
+//              in order) and the first argmax.
+// Every output equals the earlier G's bit for bit (scripts/decode_split.py
+// g leaves out each part, G_CUT).
+//
+// Later work: S > 256 (a row per block or per cluster).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,6 +106,9 @@
 
 #ifndef J_CUT
 #define J_CUT 0
+#endif
+#ifndef G_CUT
+#define G_CUT 0
 #endif
 
 using namespace nvcuda;
@@ -913,6 +932,315 @@ int launch_j_ring(const JArgs& a, int H, int S, void* stream) {
     }
 }
 
+// ------------------------------------------------- kernel G on the ring
+// the parts scripts/decode_split.py g leaves out (G_CUT bits)
+constexpr int GCUT_HEAD = 1;     // the head warps' products, scores, exps
+constexpr int GCUT_WAITS = 2;    // the ring's copies and the waits for them
+constexpr int GCUT_STORES = 4;   // the consumers' stores of move-in,
+                                 // choices and c
+
+__device__ __forceinline__ constexpr bool gcut(int part) {
+    return (G_CUT & part) != 0;
+}
+
+constexpr int GFU = 4;  // output frames a chunk: 4 / U encoder frames
+constexpr int GCW = JRB;       // consumer warps: one a row
+constexpr int GSPT = JS / 32;  // states a consumer thread
+constexpr int GWARPS = GCW + JHW + 1;  // and the producer
+
+// Shared memory, in bytes from its start: the mbarriers; alpha (raw) and
+// the max semiring's scores of two parities ([2][JRB][S] float2); two
+// chunks' tiles of each move's score and its exp ([2][GFU][JRB][ldt]
+// float2, rows of the head's (j, s) order); the ring of chunks, each slot
+// the chunk's h rows ([GFU / U][JRB][H] bf16).
+struct GLayout {
+    int ldt, slot_bytes, off_state, off_tile, off_ring, total;
+    __host__ __device__ constexpr GLayout(int S, int H, int U, int ring)
+        : ldt(NB * S + 2),
+          slot_bytes(round_up(GFU / U * JRB * H * 2, 128)),
+          off_state(256),
+          off_tile(off_state + round_up(2 * JRB * S * 8, 128)),
+          off_ring(off_tile + round_up(2 * GFU * JRB * (NB * S + 2) * 8, 128)),
+          total(off_ring + ring * round_up(GFU / U * JRB * H * 2, 128)) {}
+};
+
+struct GArgs {
+    const bf16* h;             // [Th, N, H]
+    const bf16* w;             // [U, (j, s), H]
+    const float* bias;         // [U, (j, s)]
+    float* move_in;            // [N, T, S]
+    uint8_t* choices;          // [N, T, S]
+    float* cs;                 // [N, T]
+    float* logz;               // [N]
+    int* end_state;            // [N]
+    int Th, N, U, ring;
+    float p_stay, blank;
+    HeadOps ops;
+};
+
+// Kernel G on a ring of chunks (GFU / U encoder frames, GFU output frames,
+// in the pass's order): a CTA of JRB batch rows, S = JS states, H = 16 KT,
+// MT m-tiles of the head's U * nb*S rows a head warp. Warps, in order: GCW
+// consumers (a row each, GSPT states a thread), JHW head warps, the
+// producer: 17, so 96 registers a thread.
+template <int KT, int MT>
+__global__ void __launch_bounds__(GWARPS * 32, 1)
+decode_fused_fwd_ring(const GArgs a)
+{
+    constexpr int S = JS, R = S / NB, Cm = NB * S, H = 16 * KT;
+    constexpr int U = MT * JHW * 16 / Cm;  // the upsample phases
+    static_assert(U * Cm == MT * JHW * 16, "the head warps take every row");
+    constexpr int FB = GFU / U;            // encoder frames a chunk
+    extern __shared__ __align__(128) unsigned char gsm[];
+    constexpr GLayout L(S, H, U, 0);  // the ring's depth is a.ring
+    uint64_t* full = reinterpret_cast<uint64_t*>(gsm);
+    uint64_t* empty = full + a.ring;
+    uint64_t* tfull = empty + a.ring;  // [2]: a chunk's tile is written
+    uint64_t* tempty = tfull + 2;      // [2]: ... and read
+    float2* st = reinterpret_cast<float2*>(gsm + L.off_state);
+    float2* tile = reinterpret_cast<float2*>(gsm + L.off_tile);
+    unsigned char* ring = gsm + L.off_ring;
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const int n0 = blockIdx.x * JRB;
+    const int live = min(JRB, a.N - n0);
+    const int T = a.Th * U;
+    const int nchunk = (a.Th + FB - 1) / FB;
+
+    // frame -1 in parity 1: alpha 1 (raw, read through a max of 1), the
+    // max semiring's scores 0
+    for (int e = tid; e < JRB * S; e += blockDim.x)
+        st[JRB * S + e] = make_float2(1.f, 0.f);
+    if (tid == 0) {
+        for (int s = 0; s < a.ring; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 32 * JHW);
+        }
+        for (int b = 0; b < 2; ++b) {
+            mbar_init(tfull + b, 32 * JHW);
+            mbar_init(tempty + b, 32u * live);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (w == GCW + JHW) {
+        // ------------------------------------------------- producer warp
+        // chunk j's h rows into slot j % ring once the head warps have
+        // read the chunk before in that slot
+        if (lane == 0 && !gcut(GCUT_WAITS)) {
+            Cursor cur = {0, 0, a.ring};
+            for (int it = 0; it < nchunk; ++it) {
+                const int th0 = it * FB, nf = min(FB, a.Th - th0);
+                if (it >= a.ring)
+                    mbar_wait(empty + cur.slot, (unsigned)(cur.phase ^ 1));
+                unsigned char* slot = ring + cur.slot * L.slot_bytes;
+                const unsigned hb = (unsigned)(live * H * 2);
+                fill(full + cur.slot, slot, nf * hb, it >= a.ring,
+                     a.h + ((size_t)th0 * a.N + n0) * H, hb);
+                for (int f = 1; f < nf; ++f)
+                    bulk_copy(slot + f * JRB * H * 2,
+                              a.h + ((size_t)(th0 + f) * a.N + n0) * H, hb,
+                              full + cur.slot);
+                cur.next();
+            }
+        }
+        return;
+    }
+    if (w >= GCW) {
+        // ---------------------------------------------------- head warps
+        // m-tiles hw*MT .. hw*MT + MT-1 of the head's U * nb*S rows, their
+        // weights and biases in registers: chunk j's move scores and their
+        // exps into tile j & 1 while the consumers walk chunk j - 1
+        const int hw = w - GCW, g = lane >> 2, tig = lane & 3;
+        uint32_t wa[MT][KT][4];
+        float z[MT][2];
+        const uint32_t* wv = reinterpret_cast<const uint32_t*>(a.w);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            const int M = (hw * MT + mt) * 16 + g;
+            z[mt][0] = __ldg(a.bias + M);
+            z[mt][1] = __ldg(a.bias + M + 8);
+#pragma unroll
+            for (int kt = 0; kt < KT; ++kt) {
+                const int k = 16 * kt + 2 * tig;
+                wa[mt][kt][0] = wv[((size_t)M * H + k) / 2];
+                wa[mt][kt][1] = wv[((size_t)(M + 8) * H + k) / 2];
+                wa[mt][kt][2] = wv[((size_t)M * H + k + 8) / 2];
+                wa[mt][kt][3] = wv[((size_t)(M + 8) * H + k + 8) / 2];
+            }
+        }
+        for (int it = 0; it < nchunk; ++it) {
+            const int b = it & 1, slot = it % a.ring;
+            const int nf = min(FB, a.Th - it * FB);
+            if (!gcut(GCUT_WAITS))
+                mbar_wait(full + slot, (unsigned)((it / a.ring) & 1));
+            if (it >= 2)
+                mbar_wait(tempty + b, (unsigned)(((it - 2) >> 1) & 1));
+            const bf16* hs =
+                reinterpret_cast<const bf16*>(ring + slot * L.slot_bytes);
+            float2* tb = tile + (size_t)b * GFU * JRB * L.ldt;
+#pragma unroll 1
+            for (int f = 0; f < nf && !gcut(GCUT_HEAD); ++f) {
+                // head_product's sums: the same HMMA, k-tiles in order from 0
+                float acc[MT][4];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+                const bf16* rows = hs + (f * JRB + (lane & 7)) * H
+                                   + 8 * ((lane >> 3) & 1);
+#pragma unroll
+                for (int kt = 0; kt < KT; ++kt) {
+                    uint32_t b0, b1;
+                    ldmatrix_x2(b0, b1, rows + 16 * kt);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+                        mma_bf16(acc[mt], wa[mt][kt], b0, b1);
+                }
+                // element (row g (+8) of the tile, batch row 2 tig (+1)):
+                // the earlier G's score head_act(sum + bias) and its exp
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    const int M = (hw * MT + mt) * 16 + g;
+                    const int p = U == 1 ? 0 : M / Cm;
+                    const int m = U == 1 ? M : M % Cm;
+                    float2* o = tb + (size_t)((f * U + p) * JRB + 2 * tig)
+                                         * L.ldt + m;
+                    const float v[4] = {
+                        head_act(acc[mt][0] + z[mt][0], a.ops),
+                        head_act(acc[mt][1] + z[mt][0], a.ops),
+                        head_act(acc[mt][2] + z[mt][1], a.ops),
+                        head_act(acc[mt][3] + z[mt][1], a.ops)};
+                    o[0] = make_float2(v[0], expf(v[0]));
+                    o[L.ldt] = make_float2(v[1], expf(v[1]));
+                    o[8] = make_float2(v[2], expf(v[2]));
+                    o[L.ldt + 8] = make_float2(v[3], expf(v[3]));
+                }
+            }
+            mbar_arrive(empty + slot);
+            mbar_arrive(tfull + b);
+        }
+        return;
+    }
+
+    // -------------------------------------------------------- consumers
+    // warp w: row w, states s = 32 i + lane, the earlier G's f32 steps; the
+    // warp meets at __syncwarp once a frame
+    if (w >= live) return;
+    const int n = n0 + w;
+    float rmax = 1.f;  // 1 / the row's max of the frame before
+    float c = 0.f;
+    int par = 0;  // the parity the next frame writes
+    for (int it = 0; it < nchunk; ++it) {
+        const int b = it & 1;
+        const int nt = min(FB, a.Th - it * FB) * U, t0 = it * GFU;
+        mbar_wait(tfull + b, (unsigned)((it >> 1) & 1));
+        const float2* tb = tile + (size_t)b * GFU * JRB * L.ldt;
+        for (int q = 0; q < nt; ++q) {
+            const float2* Ap = st + ((par ^ 1) * JRB + w) * S;
+            float2* An = st + (par * JRB + w) * S;
+            const float2* er = tb + (size_t)(q * JRB + w) * L.ldt;
+            float araw[GSPT], accs[GSPT], amx[GSPT], lmax = 0.f;
+            int ch[GSPT];
+#pragma unroll
+            for (int i = 0; i < GSPT; ++i) {
+                const int s = 32 * i + lane, r = s / NB;
+                float acc = 0.f, best = 0.f;
+                int jbest = 0;
+#pragma unroll
+                for (int j = 0; j < NB; ++j) {
+                    const float2 me = er[j * S + s];     // score, exp
+                    const float2 ax = Ap[j * R + r];     // alpha raw, amax
+                    // alpha of the frame before normalised as the earlier
+                    // kernel stored it
+                    const float Aq = __fmul_rn(ax.x, rmax);
+                    acc += me.y * Aq;
+                    const float cand = me.x + ax.y;
+                    if (j == 0 || cand > best) { best = cand; jbest = j; }
+                }
+                const float2 as = Ap[s];
+                araw[i] = a.p_stay * __fmul_rn(as.x, rmax) + acc;
+                const float stay_m = a.blank + as.y;
+                const bool is_move = best > stay_m;
+                amx[i] = is_move ? best : stay_m;
+                ch[i] = is_move ? jbest + 1 : 0;
+                accs[i] = acc;
+                lmax = fmaxf(lmax, araw[i]);
+            }
+            // raw values are never negative: a warp's max on the bits
+            const float wmax = __uint_as_float(
+                __reduce_max_sync(0xffffffffu, __float_as_uint(lmax)));
+#pragma unroll
+            for (int i = 0; i < GSPT; ++i)
+                An[32 * i + lane] = make_float2(araw[i], amx[i]);
+            rmax = 1.f / wmax;
+            c += logf(wmax);
+            if (!gcut(GCUT_STORES)) {
+                const size_t o = ((size_t)n * T + t0 + q) * S + lane;
+#pragma unroll
+                for (int i = 0; i < GSPT; ++i) {
+                    a.move_in[o + 32 * i] = accs[i] * rmax;
+                    a.choices[o + 32 * i] = (uint8_t)ch[i];
+                }
+                if (lane == 0) a.cs[(size_t)n * T + t0 + q] = c;
+            }
+            __syncwarp();
+            par ^= 1;
+        }
+        mbar_arrive(tempty + b);
+    }
+    // logZ from the last alpha as the earlier kernel stored it (row_sum_max's
+    // sum: each run of 32 states' butterfly, the runs in order from 0) and
+    // the first argmax of the max semiring's scores
+    const float2* Ap = st + ((par ^ 1) * JRB + w) * S;
+    float sum = 0.f, v = -INFINITY;
+    int idx = INT_MAX;
+#pragma unroll
+    for (int i = 0; i < GSPT; ++i) {
+        const float2 x = Ap[32 * i + lane];
+        float run = __fmul_rn(x.x, rmax);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            run += __shfl_xor_sync(0xffffffffu, run, o);
+        sum += run;
+        if (i == 0 || x.y > v) { v = x.y; idx = 32 * i + lane; }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
+        const int i2 = __shfl_xor_sync(0xffffffffu, idx, o);
+        if (v2 > v || (v2 == v && i2 < idx)) { v = v2; idx = i2; }
+    }
+    if (lane == 0) {
+        a.logz[n] = logf(sum) + c;
+        a.end_state[n] = idx;
+    }
+}
+
+template <int KT, int MT>
+int launch_g_ring(const GArgs& a, int H, int S, void* stream) {
+    const GLayout L(S, H, a.U, a.ring);
+    if (L.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const auto kernel = decode_fused_fwd_ring<KT, MT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(a.N + JRB - 1) / JRB, GWARPS * 32, L.total,
+             static_cast<cudaStream_t>(stream)>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// J's instances: S 64, H 32 or 96, U 1 or 2 (MT = U*S / 32)
+int launch_g_ring(const GArgs& a, int H, int S, void* stream) {
+    if (S != JS) return (int)cudaErrorInvalidValue;
+    switch ((H / 16) * 10 + a.U) {
+    case 21: return launch_g_ring<2, 2>(a, H, S, stream);
+    case 22: return launch_g_ring<2, 4>(a, H, S, stream);
+    case 61: return launch_g_ring<6, 2>(a, H, S, stream);
+    default: return (int)cudaErrorInvalidValue;
+    }
+}
+
 bool bad_shape(int Th, int N, int H, int S, int U) {
     return Th < 1 || N < 1 || U < 1 || S < NB || S % NB != 0 || S > 256
         || (S < 32 && (S & (S - 1)) != 0) || (S >= 32 && S % 32 != 0)
@@ -964,6 +1292,31 @@ int decode_fused_fwd_bf16(const void* h, const void* w, const void* bias,
         static_cast<float*>(logz), static_cast<int*>(end_state), Th, N, H, S,
         U, p_stay, blank, ops);
     return (int)cudaGetLastError();
+}
+
+// Kernel G on the ring (ops/decode_fused_cuda.py:fused_decode_plan's
+// "fwd"): the arguments of decode_fused_fwd_bf16 with the ring's depth (2
+// to JRING_MAX chunks) after U; h at a 16-byte address, w at a 4-byte one.
+// Refuses (cudaErrorInvalidValue) what no instance takes.
+int decode_fused_fwd_ring_bf16(const void* h, const void* w, const void* bias,
+                               void* move_in, void* choices, void* c,
+                               void* logz, void* end_state, int Th, int N,
+                               int H, int S, int U, int ring, float p_stay,
+                               float blank, int act_tanh, float scale,
+                               int clamp, float cmin, float cmax,
+                               void* stream) {
+    if (Th < 1 || N < 1 || U < 1 || U > JUMAX || ring < 2
+        || ring > JRING_MAX || !aligned16(h)
+        || (reinterpret_cast<uintptr_t>(w) & 3))
+        return (int)cudaErrorInvalidValue;
+    const HeadOps ops = {act_tanh, scale, clamp, cmin, cmax};
+    const GArgs a = {static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+                     static_cast<const float*>(bias),
+                     static_cast<float*>(move_in),
+                     static_cast<uint8_t*>(choices), static_cast<float*>(c),
+                     static_cast<float*>(logz), static_cast<int*>(end_state),
+                     Th, N, U, ring, p_stay, blank, ops};
+    return launch_g_ring(a, H, S, stream);
 }
 
 // Kernel J. h as for G; w and bias in the TCN (b, j, r) row order; G's

@@ -25,12 +25,34 @@
 //
 // What bounds them on an H100: bytes. At hac training shapes (N 128,
 // T 1000, P 496) Y reads 0.25 GB of moves and writes the 0.25 GB stack, Z
-// reads both and writes 0.25 GB. One block per batch row; positions are
-// strided over up to 1024 threads, so any P runs (alpha or beta double
-// buffered in shared memory, 8 bytes a position); one barrier per frame.
+// reads both and writes 0.25 GB. The earlier design (Y; Z where
+// ops/lattice_cuda.py:lattice_plan gives no plan): one block per batch row,
+// positions strided over up to 1024 threads, so any P runs (alpha or beta
+// double buffered in shared memory, 8 bytes a position); one barrier per
+// frame, each frame's reads of move and stack waited for in the frame.
+//
+// Z split over warps (lattice_bwd_split, the plan's): one CTA a batch row,
+// warp w owning positions 32 K w .. 32 K (w+1) - 1, lane l of it positions
+// 32 K w + 32 j + l (j < K: coalesced reads and stores). beta of a warp's
+// positions stays in registers; the neighbour's beta[p+1] comes by shuffle
+// from lane l+1 (lane 0 hands on its next position's, or the warp above's
+// first position's, which each warp leaves in shared memory by the parity
+// of its frame). One block barrier a frame orders those edge values, and
+// nothing else: each thread's move and stack values arrive D frames ahead
+// into registers (plain loads: the rows of [N, T, P-1] are not 16-byte
+// aligned), so no frame waits for device memory. The f32 operations are the
+// earlier kernel's, in its order: dmove equals its output bit for bit.
+// Measured and not kept (PERF.md): the warps handing their edge values on
+// through a ring of tagged slots in shared memory with no block barrier
+// (slower at every shape: the lane that polls and publishes lengthens
+// every warp's frame).
 
 #include <cuda_runtime.h>
 #include <cmath>
+
+#ifndef LATTICE_CUT
+#define LATTICE_CUT 0
+#endif
 
 namespace {
 
@@ -107,6 +129,125 @@ __global__ void lattice_bwd_kernel(const float* __restrict__ move,  // [N,T,P-1]
     }
 }
 
+// ------------------------------------------------ Z split over warps
+// the parts scripts/lattice_split.py leaves out (LATTICE_CUT bits)
+constexpr int ZCUT_BARRIER = 1;  // the frame's block barrier (the warp
+                                 // above's edge value read unordered)
+constexpr int ZCUT_EXPS = 2;     // expf and log1pf (each its argument)
+constexpr int ZCUT_STORES = 4;   // the stores of dmove (their values summed)
+constexpr int ZCUT_LOADS = 8;    // the reads of move and stack after the
+                                 // first D frames' (whose values repeat)
+
+__device__ __forceinline__ constexpr bool zcut(int part) {
+    return (LATTICE_CUT & part) != 0;
+}
+
+constexpr int ZWARPS = 32;  // warps a CTA, at most
+
+__device__ __forceinline__ float zexp(float x) {
+    return zcut(ZCUT_EXPS) ? x : expf(x);
+}
+
+__device__ __forceinline__ float zlogaddexp(float x, float y) {
+    if (!zcut(ZCUT_EXPS)) return logaddexp(x, y);
+    const float m = fmaxf(x, y);
+    return m + (-fabsf(x - y));
+}
+
+// kernel Z with K positions a thread, move and stack D frames ahead; a CTA
+// of up to 32 warps, so at most 64 registers a thread (ptxas gives every
+// instance built no more; launch bounds that forced it changed the schedule
+// and slowed the 8-frame instances twofold when tried)
+template <int K, int D>
+__global__ void lattice_bwd_split_kernel(const float* __restrict__ move,
+                                         const float* __restrict__ stack,
+                                         const int* __restrict__ lengths,
+                                         const float* __restrict__ gz,
+                                         const float* __restrict__ sg,
+                                         float* __restrict__ dmove,
+                                         int T, int P, float blank)
+{
+    // each warp's first position's beta, by the parity of its frame
+    __shared__ float edge[2][ZWARPS];
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int n = blockIdx.x;
+    const int p0 = 32 * K * w + lane;   // position of j = 0
+    const bool above = 32 * K * (w + 1) < P;  // a warp above holds one
+    const float* mrow = move + (size_t)n * T * (P - 1);
+    const float* srow = stack + (size_t)n * T * P;
+    float* drow = dmove + (size_t)n * T * (P - 1);
+    const int end = lengths[n] - 1;
+    const float g0 = gz[n], s = sg[n];
+    float b[K];  // beta of the frame after, positions p0 + 32 j
+#pragma unroll
+    for (int j = 0; j < K; ++j) b[j] = p0 + 32 * j == end ? 0.f : NEG;
+    if (lane == 0) edge[T & 1][w] = b[0];
+    __syncthreads();
+
+    // positions past P - 1 have no move: NEG, and no stack value
+    auto load = [&](int t, float (&m)[K], float (&a)[K]) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+            const int p = p0 + 32 * j;
+            const bool in = p < P - 1;
+            m[j] = in ? __ldg(mrow + (size_t)t * (P - 1) + p) : NEG;
+            a[j] = in ? __ldg(srow + (size_t)t * P + p) : 0.f;
+        }
+    };
+    float pm[D][K], pa[D][K];
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+        if (T - 1 - d >= 0) load(T - 1 - d, pm[d], pa[d]);
+    float sink = 0.f;
+    for (int t0 = T - 1; t0 >= 0; t0 -= D) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            const int t = t0 - d;
+            if (t < 0) break;
+            // beta of frame t+1 at the warp above's first position
+            const float up = lane == 0 && above ? edge[(t + 1) & 1][w + 1]
+                                                : NEG;
+            float nb[K];  // beta of frame t+1 at p + 1
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const float src =
+                    lane == 0 ? (j + 1 < K ? b[j + 1] : up) : b[j];
+                nb[j] = __shfl_sync(0xffffffffu, src, (lane + 1) & 31);
+            }
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const int p = p0 + 32 * j;
+                const float mv = pm[d][j], a = pa[d][j];
+                if (p < P - 1) {
+                    const float v = zexp(((a + mv) + nb[j]) + g0) * s;
+                    if (zcut(ZCUT_STORES))
+                        sink += v;
+                    else
+                        drow[(size_t)t * (P - 1) + p] = v;
+                }
+                if (p < P) b[j] = zlogaddexp(b[j] + blank, nb[j] + mv);
+            }
+            // the parity this frame writes was last read a frame ago,
+            // before the last barrier
+            if (lane == 0) edge[t & 1][w] = b[0];
+            if (!zcut(ZCUT_BARRIER)) __syncthreads();
+            if (t - D >= 0 && !zcut(ZCUT_LOADS)) load(t - D, pm[d], pa[d]);
+        }
+    }
+    if (zcut(ZCUT_STORES) && sink == 1.2345f) drow[0] = sink;
+}
+
+template <int K, int D>
+int launch_z(const float* move, const float* stack, const int* lengths,
+             const float* gz, const float* sg, float* dmove, int N, int T,
+             int P, float blank, cudaStream_t st) {
+    const int warps = (P + 32 * K - 1) / (32 * K);
+    if (warps > ZWARPS) return (int)cudaErrorInvalidValue;
+    lattice_bwd_split_kernel<K, D><<<N, 32 * warps, 0, st>>>(
+        move, stack, lengths, gz, sg, dmove, T, P, blank);
+    return (int)cudaGetLastError();
+}
+
 int threads_for(int P) { return P >= 1024 ? 1024 : ((P + 31) / 32) * 32; }
 
 int smem_for(const void* kernel, int P, size_t* bytes) {
@@ -158,6 +299,33 @@ int lattice_bwd(const void* move, const void* stack, const void* lengths,
         static_cast<const float*>(sg), static_cast<float*>(dmove), T, P,
         blank);
     return (int)cudaGetLastError();
+}
+
+// Z split over warps (ops/lattice_cuda.py:lattice_plan): the arguments of
+// lattice_bwd with the plan's positions a thread (1 or 2) and
+// prefetch depth after P (the instances built: 1 position with 8 or 16
+// frames, 2 with 4 or 8). Refuses
+// (cudaErrorInvalidValue) P below 2, more than 32 warps' positions and
+// what no instance takes.
+int lattice_bwd_split(const void* move, const void* stack,
+                      const void* lengths, const void* gz, const void* sg,
+                      void* dmove, int N, int T, int P, int k, int depth,
+                      float blank, void* stream) {
+    if (N < 1 || T < 1 || P < 2) return (int)cudaErrorInvalidValue;
+    const float* m = static_cast<const float*>(move);
+    const float* a = static_cast<const float*>(stack);
+    const int* l = static_cast<const int*>(lengths);
+    const float* g = static_cast<const float*>(gz);
+    const float* s = static_cast<const float*>(sg);
+    float* d = static_cast<float*>(dmove);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define Z_CASE(K, D)                                                      \
+    if (k == K && depth == D)                                             \
+        return launch_z<K, D>(m, a, l, g, s, d, N, T, P, blank, st);
+    Z_CASE(1, 8) Z_CASE(1, 16)
+    Z_CASE(2, 4) Z_CASE(2, 8)
+#undef Z_CASE
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

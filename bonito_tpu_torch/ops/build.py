@@ -92,6 +92,9 @@ SIGNATURES = {
     # clamp, cmin, cmax, stream
     "decode_fused_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                               F, F, F, I, F, I, F, F, P],
+    # kernel G on its ring: as G, with the ring's depth after U
+    "decode_fused_fwd_ring_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                   F, F, I, F, I, F, F, P],
     # kernel J on its ring: as J, with the ring's depth after U
     "decode_fused_bwd_ring_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I,
                                    I, I, I, F, F, F, I, F, I, F, F, P],
@@ -144,6 +147,9 @@ SIGNATURES = {
     # move, stack, lengths, log|g| - logz, sign(g), dmove, N, T, P, blank,
     # stream
     "lattice_bwd": [P, P, P, P, P, P, I, I, I, F, P],
+    # kernel Z split over warps: as lattice_bwd, with positions a thread and
+    # the prefetch depth after P
+    "lattice_bwd_split": [P, P, P, P, P, P, I, I, I, I, I, F, P],
     # xw, w_hh, h, c, acts, hbuf, cbuf, is_f32, round_bf16, T, N, Np, H,
     # reverse, stream
     "lstm_train_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],

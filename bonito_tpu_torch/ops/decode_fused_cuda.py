@@ -29,11 +29,12 @@ head on the CPU and a kernel for a head on the card: G and J where 4 batch
 rows of S states make a block (S <= 256, H <= 256), GW and JW, a block per
 row and a thread per state, for the 512 and 1024 states of hac and sup
 (``kernels_for`` says which, or raises). Never the plain version for a
-kernel, nor one kernel for another's shape. J runs on its ring
-(``fused_decode_plan``: 8 batch rows a CTA, head warps computing the next
-chunk's move scores while consumer warps walk this one) where the plan
-gives one, else on its earlier kernel; ``tcn_fused_backward_old_kernel``
-runs the earlier kernel whatever the plan (no count), for comparisons.
+kernel, nor one kernel for another's shape. G and J run on their rings
+(``fused_decode_plan``'s "fwd" and "bwd": 8 batch rows a CTA, head warps
+computing the next chunk's move scores while consumer warps walk this one)
+where the plan gives one, else on their earlier kernels;
+``tcn_fused_forward_old_kernel`` and ``tcn_fused_backward_old_kernel`` run
+the earlier kernels whatever the plan (no count), for comparisons.
 """
 
 import functools
@@ -61,6 +62,10 @@ SMEM = 232448      # the most shared memory a block may ask for
 J_ROWS, J_FRAMES, J_HEAD_WARPS = 8, 4, 8
 J_STATES, J_WIDTHS, J_PHASES = (64,), (32, 96), (1, 2)
 J_RING, J_RING_MAX = 4, 8
+# G on its ring (decode_fused_fwd_ring): J's rows, head warps and instances;
+# chunks of G_FRAMES output frames (G_FRAMES / U encoder frames: two tiles
+# of a chunk's scores and exps must fit beside the ring), rings of G_RING
+G_FRAMES, G_RING = 4, 4
 
 
 def head_moves_plain(head):
@@ -99,15 +104,17 @@ def tcn_fused_backward_plain(head, move_in, choices, cs, logz, end_state,
                               logz, end_state, head.blank, qscale, qbias)
 
 
-def fused_rows(S):
+@functools.lru_cache(maxsize=None)
+def fused_rows(S, device=None):
     """For each forward-pass thread's reads: row j * S + s of the weights
     the forward kernel takes is row (b * nb + j) * R + r of ``wT``, the
     move into state s = r * nb + b from predecessor j * R + r. (The
     backward pass reads ``wT`` as it is: thread p = j * R + r takes rows
-    b * S + p.)"""
+    b * S + p.) Made once per device, so that no launch waits for a copy
+    of it to the card."""
     R = S // NB
-    s = torch.arange(S)
-    j = torch.arange(NB)[:, None]
+    s = torch.arange(S, device=device)
+    j = torch.arange(NB, device=device)[:, None]
     return (((s % NB) * NB + j) * R + s // NB).reshape(-1)
 
 
@@ -155,48 +162,68 @@ def j_ring_smem(S, H, U, ring):
             + ring * slot)
 
 
+def g_ring_smem(S, H, U, ring):
+    """The shared memory of G's ring kernel (csrc/decode_tcn_fused.cu:
+    GLayout): the mbarriers, alpha and the max semiring's scores of two
+    parities, two chunks' tiles of each move's score and exp (float2
+    pairs), and ``ring`` slots of a chunk's h rows."""
+    return (256 + _round_up(2 * J_ROWS * S * 8, 128)
+            + _round_up(2 * G_FRAMES * J_ROWS * (NB * S + 2) * 8, 128)
+            + ring * _round_up(G_FRAMES // U * J_ROWS * H * 2, 128))
+
+
+def _registers(warps):
+    """A thread's registers in a CTA of ``warps``: the 4 sub-partitions of
+    an SM's 65,536 hold ceil(warps / 4) warps each."""
+    return min(65536 // 4 // (32 * -(-warps // 4)) // 8 * 8, 255)
+
+
 @functools.lru_cache(maxsize=None)
-def _j_plan(N, S, H, U, sms):
+def _ring_plan(N, S, H, U, sms, backward):
     if S not in J_STATES or H not in J_WIDTHS or U not in J_PHASES:
         return None
-    ring = J_RING
-    while ring > 2 and j_ring_smem(S, H, U, ring) > SMEM:
+    smem_of, ring = ((j_ring_smem, J_RING) if backward
+                     else (g_ring_smem, G_RING))
+    while ring > 2 and smem_of(S, H, U, ring) > SMEM:
         ring -= 1
-    smem = j_ring_smem(S, H, U, ring)
+    smem = smem_of(S, H, U, ring)
     if smem > SMEM:
         return None
     ctas = -(-N // J_ROWS)
-    # a consumer warp a row, the head warps, the producer, the epilogue warp
-    warps = J_ROWS + J_HEAD_WARPS + 2
+    # a consumer warp a row, the head warps, the producer (and J's
+    # epilogue warp)
+    warps = J_ROWS + J_HEAD_WARPS + 1 + backward
     m_tiles = U * NB * S // 16 // J_HEAD_WARPS
-    # a thread's registers: the 4 sub-partitions of an SM's 65,536 hold
-    # ceil(warps / 4) warps each; a head warp keeps its weight fragments
-    # and needs about 48 more
-    registers = 65536 // 4 // (32 * -(-warps // 4)) // 8 * 8
-    if m_tiles * (H // 16) * 4 + 48 > min(registers, 255):
+    # a head warp keeps its weight fragments and needs about 48 more
+    registers = _registers(warps)
+    if m_tiles * (H // 16) * 4 + 48 > registers:
         return None
     return {"rows": J_ROWS, "ctas": ctas,
             "waves": None if sms is None else -(-ctas // sms),
-            "threads": 32 * warps, "registers": min(registers, 255),
+            "threads": 32 * warps, "registers": registers,
             "consumer_warps": J_ROWS, "states_per_thread": S // 32,
             "head_warps": J_HEAD_WARPS, "m_tiles_a_head_warp": m_tiles,
-            "k_tiles": H // 16, "frames_a_chunk": J_FRAMES * U,
+            "k_tiles": H // 16,
+            "frames_a_chunk": J_FRAMES * U if backward else G_FRAMES,
             "ring": ring, "smem": smem}
 
 
 def fused_decode_plan(N, T, S, H, U, sms=None, aligned=True):
-    """J's ring kernel's plan for a head of S states, width H and U phases
-    over N rows of T = Th * U frames on a card of ``sms`` SMs: 8 batch rows
-    a CTA, a consumer warp a row (two states a thread), 8 head warps with
-    their m-tiles of the weights in registers, a producer and an epilogue
-    warp, a ring of J_RING chunks of 4 encoder frames (or fewer, down to 2,
-    where the shared memory does not hold them); or None where no instance
-    takes the shape (S 64, H 32 or 96, U 1 or 2), where the head warps'
-    weights do not fit their registers, or where a pointer is not aligned
-    for the bulk copies, and the earlier kernel runs."""
+    """The ring kernels' plans, {"fwd": G's, "bwd": J's}, for a head of S
+    states, width H and U phases over N rows of T = Th * U frames on a card
+    of ``sms`` SMs: 8 batch rows a CTA, a consumer warp a row (two states a
+    thread), 8 head warps with their m-tiles of the weights in registers, a
+    producer warp (and J's epilogue warp); G's ring of G_RING chunks of
+    G_FRAMES output frames, J's of J_RING chunks of 4 encoder frames (or
+    fewer, down to 2, where the shared memory does not hold them). None
+    where no instance takes the shape (S 64, H 32 or 96, U 1 or 2), where
+    the head warps' weights do not fit their registers, or where a pointer
+    is not aligned for the bulk copies, and the earlier kernels run."""
     if N < 1 or T < 1 or T % U or not aligned:
         return None
-    return _j_plan(N, S, H, U, sms)
+    plans = {"fwd": _ring_plan(N, S, H, U, sms, False),
+             "bwd": _ring_plan(N, S, H, U, sms, True)}
+    return None if plans["fwd"] is None and plans["bwd"] is None else plans
 
 
 def _check_head(head):
@@ -286,14 +313,15 @@ def _checked(kernel, head):
 
 
 def _launch(wrapper, kernel, entry, head, shape, tensors, scalars,
-            operands=None, more=()):
+            operands, plan):
     """Count the launch on ``wrapper`` (None: count nothing) and call the
-    library's ``entry`` with the head's operands (the weights in the
-    kernel's row order and, for GW and JW, laid out by ``k_major``),
-    ``tensors``, the head's shape, ``more`` and ``scalars``."""
+    library's ``entry`` (with ``plan``'s ring depth after the shape where
+    the plan is not None) with ``operands`` (the weights in the kernel's
+    row order; for GW and JW laid out here by ``k_major``), ``tensors``,
+    the head's shape and ``scalars``."""
     S = shape[3]
-    h, w, bias = operands or _operands(
-        head, fused_rows(S) if kernel in ("G", "GW") else None)
+    h, w, bias = operands
+    more = () if plan is None else (plan["ring"],)
     if kernel in ("GW", "JW"):
         w = k_major(w)
     if wrapper is not None:
@@ -304,7 +332,24 @@ def _launch(wrapper, kernel, entry, head, shape, tensors, scalars,
         *_head_ops(head), build.stream_of(h)), entry, S, shape[2], shape[4])
 
 
+def _plan(wrapper, key, shape, pointers):
+    """``fused_decode_plan``'s plan of G (``key`` "fwd") or J ("bwd") for
+    a launch counted on ``wrapper``, kept as ``wrapper.plan``; None for the
+    earlier kernels' wrappers and launches counted on none."""
+    if wrapper not in (tcn_fused_forward, tcn_fused_backward):
+        return None
+    Th, N, H, S, U = shape
+    plans = fused_decode_plan(N, Th * U, S, H, U, _sms(pointers[0].device),
+                              aligned=all(x.data_ptr() % 16 == 0
+                                          for x in pointers))
+    wrapper.plan = None if plans is None else plans[key]
+    return wrapper.plan
+
+
 def _forward(wrapper, kernel, entry, head):
+    """G's and GW's checks and launch: for G the ring on
+    ``fused_decode_plan``'s plan where ``wrapper`` is G's counter and the
+    plan is not None, else the earlier kernel's ``entry``."""
     shape = _checked(kernel, head)
     Th, N, _, S, U = shape
     dev = head.h.device
@@ -313,8 +358,11 @@ def _forward(wrapper, kernel, entry, head):
            torch.empty(N, Th * U, device=dev), torch.empty(N, device=dev),
            torch.empty(N, dtype=torch.int32, device=dev))
     blank = float(head.blank)
-    _launch(wrapper, kernel, entry, head, shape, out,
-            (math.exp(blank), blank))
+    operands = _operands(head, fused_rows(S, head.wT.device))
+    plan = _plan(wrapper, "fwd", shape, operands[:1])
+    _launch(wrapper, kernel,
+            entry if plan is None else "decode_fused_fwd_ring_bf16", head,
+            shape, out, (math.exp(blank), blank), operands, plan)
     return out
 
 
@@ -328,24 +376,11 @@ def _backward(wrapper, kernel, entry, head, fwd, qscale, qbias):
     check_forward_outputs(f"kernel {kernel}", dev, N, Th * U, S, *fwd)
     out = torch.empty(3, N, Th * U, dtype=torch.uint8, device=dev)
     scalars = (math.exp(float(head.blank)), float(qscale), float(qbias))
-    if kernel != "J":
-        _launch(wrapper, kernel, entry, head, shape, (*fwd, *out), scalars)
-        return {"sequence": out[0], "qstring": out[1], "moves": out[2]}
     operands = _operands(head)
-    plan = None
-    if wrapper is not None:
-        plan = fused_decode_plan(
-            N, Th * U, S, H, U, _sms(dev),
-            aligned=all(x.data_ptr() % 16 == 0
-                        for x in (operands[0], fwd[0], fwd[1])))
-        wrapper.plan = plan
-    if plan is None:
-        _launch(wrapper, kernel, entry, head, shape, (*fwd, *out), scalars,
-                operands)
-    else:
-        _launch(wrapper, kernel, "decode_fused_bwd_ring_bf16", head, shape,
-                (*fwd, *out), scalars, operands,
-                (plan["ring"],))
+    plan = _plan(wrapper, "bwd", shape, (operands[0], fwd[0], fwd[1]))
+    _launch(wrapper, kernel,
+            entry if plan is None else "decode_fused_bwd_ring_bf16", head,
+            shape, (*fwd, *out), scalars, operands, plan)
     return {"sequence": out[0], "qstring": out[1], "moves": out[2]}
 
 
@@ -363,6 +398,12 @@ def tcn_fused_forward(head):
     if _wide(head):
         return tcn_fused_forward_wide(head)
     return _forward(tcn_fused_forward, "G", "decode_fused_fwd_bf16", head)
+
+
+def tcn_fused_forward_old_kernel(head):
+    """Kernel G's earlier kernel whatever the plan, for comparisons; counts
+    no launch."""
+    return _forward(None, "G", "decode_fused_fwd_bf16", head)
 
 
 def tcn_fused_forward_wide(head):
@@ -409,6 +450,7 @@ def tcn_fused_backward_wide(head, move_in, choices, cs, logz, end_state,
 
 
 tcn_fused_forward.launches = 0
+tcn_fused_forward.plan = None
 tcn_fused_backward.launches = 0
 tcn_fused_backward.plan = None
 tcn_fused_forward_wide.launches = 0

@@ -7,19 +7,66 @@ counts. The plain versions, the autograd Function and the route are in
 Y replaces ``bonito_tpu/ops/lattice_pallas.py:_fwd_kernel`` and Z
 ``_bwd_kernel``. They read the move scores [N, T, P-1] f32 that
 ``CTC_CRF.prepare_ctc_moves_tcn`` selects, the stay being the constant
-blank. Bound by bytes on an H100 and latency-bound by design: one block
-per batch row, the lattice's positions strided over its threads, so any
-P runs.
+blank. Bound by bytes on an H100. Y, and Z where ``lattice_plan`` gives no
+plan, is the earlier design: one block per batch row, the lattice's
+positions strided over its threads, one barrier a frame, so any P runs. Z
+on its plan is split over warps: a CTA a row, K positions a thread, beta
+in registers, the neighbour's value by shuffle and between warps through
+shared memory with one barrier a frame, move and stack read D frames ahead
+into registers. ``lattice_backward_old_kernel`` runs the earlier Z
+whatever the plan (no count), for comparisons: the outputs are equal bit
+for bit.
 
 Each wrapper launches its kernel for a CUDA tensor and raises for
 anything else; it never runs the plain version.
 """
+
+import functools
 
 import torch
 
 from bonito_tpu_torch.ops import build
 
 MAX_POSITIONS = 227 * 1024 // 8  # alpha or beta, double buffered in shared memory
+# Z split over warps (csrc/lattice.cu:lattice_bwd_split): positions a
+# thread (the instances built, each with the prefetch depths built; 4 and 8
+# positions a thread were slower at every training shape, and a CTA of 32
+# warps leaves them too few registers), the most warps a CTA may have, and
+# its shared memory (each warp's edge value by parity)
+Z_POSITIONS = (1, 2)
+Z_DEPTHS = {1: (8, 16), 2: (4, 8)}
+Z_WARPS_MAX = 32
+Z_SMEM = 2 * Z_WARPS_MAX * 4
+
+
+def z_prefetch(k, warps):
+    """Frames of move and stack a thread reads ahead, as measured fastest
+    (scripts/lattice_split.py on an H100): 16 at one position a thread up
+    to 24 warps (beyond, their 62 registers a thread fill the register
+    file), else 8."""
+    return 16 if k == 1 and warps <= 24 else 8
+
+
+@functools.lru_cache(maxsize=None)
+def lattice_plan(N, T, P, sms=None):
+    """Z's plan for moves [N, T, P-1] on a card of ``sms`` SMs: one CTA a
+    row; the fewest positions a thread (``Z_POSITIONS``) that keep the CTA
+    to Z_WARPS_MAX warps of 32 threads, with ``z_prefetch``'s depth. None
+    (the earlier Z) for P below 2 or above 2048; a ValueError above
+    MAX_POSITIONS, which no kernel takes."""
+    if P > MAX_POSITIONS:
+        raise ValueError(f"kernel Z takes at most {MAX_POSITIONS} lattice "
+                         f"positions, got P={P}")
+    if N < 1 or T < 1 or P < 2:
+        return None
+    k = next((k for k in Z_POSITIONS if -(-P // (32 * k)) <= Z_WARPS_MAX),
+             None)
+    if k is None:
+        return None
+    warps = -(-P // (32 * k))
+    return {"ctas": N, "waves": None if sms is None else -(-N // sms),
+            "positions_per_thread": k, "warps": warps, "threads": 32 * warps,
+            "prefetch": z_prefetch(k, warps), "smem": Z_SMEM}
 
 
 def _check(move, lengths, name):
@@ -56,9 +103,10 @@ def lattice_forward(move, lengths, blank, with_stack=True):
     return stack, logz
 
 
-def lattice_backward(move, stack, lengths, gz, sign, blank):
-    """Kernel Z: the gradient of Y's logZ times g, from log|g| - logZ and
-    sign(g) ([N] f32 each) -> d move [N, T, P-1] f32."""
+def _backward(wrapper, move, stack, lengths, gz, sign, blank):
+    """Z's checks and launch: split over warps on ``lattice_plan``'s plan
+    where ``wrapper`` is Z's counter and the plan is not None, else the
+    earlier kernel; the launch counted on ``wrapper`` (None: no count)."""
     N, T, P = _check(move, lengths, "kernel Z")
     for key, x, shape in (("stack", stack, (N, T, P)), ("gz", gz, (N,)),
                           ("sign", sign, (N,))):
@@ -68,13 +116,38 @@ def lattice_backward(move, stack, lengths, gz, sign, blank):
                              f"{shape} on {move.device}")
     lib = build.library()
     dmove = torch.empty_like(move)
-    lattice_backward.launches += 1
-    build.check(lib.lattice_bwd(
-        move.data_ptr(), stack.data_ptr(), lengths.data_ptr(), gz.data_ptr(),
-        sign.data_ptr(), dmove.data_ptr(), N, T, P, float(blank),
-        build.stream_of(move)), "lattice_bwd")
+    plan = None
+    if wrapper is not None:
+        plan = lattice_plan(N, T, P, torch.cuda.get_device_properties(
+            move.device).multi_processor_count)
+        wrapper.plan = plan
+        wrapper.launches += 1
+    args = (move.data_ptr(), stack.data_ptr(), lengths.data_ptr(),
+            gz.data_ptr(), sign.data_ptr(), dmove.data_ptr(), N, T, P)
+    if plan is None:
+        build.check(lib.lattice_bwd(*args, float(blank),
+                                    build.stream_of(move)), "lattice_bwd")
+    else:
+        build.check(lib.lattice_bwd_split(
+            *args, plan["positions_per_thread"], plan["prefetch"],
+            float(blank), build.stream_of(move)), "lattice_bwd_split")
     return dmove
+
+
+def lattice_backward(move, stack, lengths, gz, sign, blank):
+    """Kernel Z: the gradient of Y's logZ times g, from log|g| - logZ and
+    sign(g) ([N] f32 each) -> d move [N, T, P-1] f32; split over warps on
+    ``lattice_plan``'s plan (``lattice_backward.plan`` holds the last
+    call's), else the earlier kernel."""
+    return _backward(lattice_backward, move, stack, lengths, gz, sign, blank)
+
+
+def lattice_backward_old_kernel(move, stack, lengths, gz, sign, blank):
+    """Kernel Z's earlier kernel whatever the plan, for comparisons; counts
+    no launch."""
+    return _backward(None, move, stack, lengths, gz, sign, blank)
 
 
 lattice_forward.launches = 0
 lattice_backward.launches = 0
+lattice_backward.plan = None

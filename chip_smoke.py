@@ -11,8 +11,9 @@ PyTorch built for CUDA. In order, it:
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory, stack frame
     and spills (kernel O's stretch kernel and the ring kernels of B, C, M,
-    Q, U and V, and F's mma kernel, must have neither; J's ring kernel
-    none at H 32 and no more than its 8 bytes at H 96);
+    Q, U and V, F's mma kernel and Z split over warps must have neither;
+    G's and J's ring kernels none at H 32 and no more than J's 8 bytes at
+    H 96);
  3. holds each kernel against its plain PyTorch version on the card: at
     hac widths (N=96, T=1666, C=H=1024, S=1024) A, B, C in bf16 (B and C
     on their ring, ``decode_plan`` gives a plan, and held against their
@@ -28,8 +29,9 @@ PyTorch built for CUDA. In order, it:
     without a bias; on its mma kernel, ``fused_plan`` gives a plan, and held
     against its earlier kernel bit for bit) and the fused-head decode G + J
     (the fast head, and a small head with two upsample phases, tanh, a
-    scale and a bias; J on its ring, ``fused_decode_plan`` gives a plan,
-    and held against the earlier J bit for bit); at sup widths (N=128,
+    scale and a bias; G and J on their rings, ``fused_decode_plan`` gives
+    both plans, each held against its earlier kernel bit for bit); at sup
+    widths (N=128,
     T=1000 and 1024, 8 heads of 64, window (127, 128)) the fused rotary +
     banded attention K in bf16 (and once with a partial rotary_dim) on its
     stretch kernel (``window_plan`` gives a plan at each) and at T=1000 on
@@ -89,23 +91,24 @@ PyTorch built for CUDA. In order, it:
     decode launches per batch; sup: 1 pin, 18 attention and 1 + 1 decode
     launches; the beam: 5 LSTM launches and no decode kernel; hac_fused: 5
     LSTM launches and GW + JW; sup_fused: 1 pin, 18 attention, GW + JW) and
-    no other kernel of the port, and prints the plans F and J ran on (the
-    fast paths' must be the mma kernel's and the ring's);
+    no other kernel of the port, and prints the plans F, G and J ran on
+    (the fast paths' must be the mma kernel's and the rings');
  7. prints samples/s, the device step and peak memory of the hac bf16,
     int8, reverse and beam paths, the fast path, the sup path and the two
     fused paths (beside the TCN route's device step on the same batch)
     beside the card's name and power, the sup and sup_fused device steps
     with K on its earlier kernel, the hac int8 and sup device steps
     with B and C on theirs, the fast device step with F and J on theirs
-    (the fast reverse step with F on its), and the hac, fast and sup
-    reverse device steps
+    and, in turns with the rings, with G on its earlier kernel (the fast
+    reverse step with F on its), and the hac, fast and sup reverse device
+    steps
     beside the parent's route (the reverse_complement copy and M + Q's
     earlier kernels; hac also the copy and the ring);
  8. times each kernel, its plain version and a PyTorch library call where
     one computes the same function (and, for comparison, A's, D's and E's
     step kernels at hac widths beside their persistent kernels, K's earlier
     kernel beside its stretch kernel, L in bf16 at sup widths
-    beside scaled_dot_product_attention, F and J beside their earlier
+    beside scaled_dot_product_attention, F, G and J beside their earlier
     kernels and the routes that F, G and J take the place of at fast
     widths, B and C (beside their
     earlier kernels) at hac and sup shapes and
@@ -125,8 +128,9 @@ PyTorch built for CUDA. In order, it:
     alone against their plain versions at hac, fast and sup training
     shapes, with their times and bounds at each, U and V on their ring
     (``logz_plan`` gives a plan at each) and held against their earlier
-    kernels bit for bit (stack, logZ, no-stack logZ, gradient), with those
-    kernels' times;
+    kernels bit for bit (stack, logZ, no-stack logZ, gradient), Z split
+    over warps (``lattice_plan`` gives a plan at each) held against its
+    earlier kernel bit for bit, with those kernels' times;
 10. runs the LSTM-CRF train step: R and S (the LSTM recurrence of a train
     step and its backward through time) against their plain versions at
     hac and fast training shapes (N 128; T 1000, H 1024 and T 1200, H 96),
@@ -139,8 +143,9 @@ PyTorch built for CUDA. In order, it:
     per step, nothing else), finite losses and norms, every parameter
     moved, and one step's gradients through the kernels against the same
     through the plain versions; its time, train samples/s and peak memory,
-    and the step with U and V on their earlier kernels (the parent's route)
-    and on the ring in turns; one fast train step (R and S at H 96); and ``python -m
+    and the step with U and V on their earlier kernels and on the ring in
+    turns, and with Z on its earlier kernel (the parent's route) and split
+    over warps in turns; one fast train step (R and S at H 96); and ``python -m
     bonito_tpu_torch train`` (in this process) for one epoch of hac on a
     generated npy set (3 batches of 128 x 6000, one validation batch, which
     runs A, U, Y, B and C), checking its checkpoint and logs;
@@ -159,21 +164,22 @@ PyTorch built for CUDA. In order, it:
     them), and one step's gradients through the kernels against the same
     through the plain versions; its time, sup train samples/s and peak
     memory, and the same step's time with H, then O, on its earlier
-    kernel, and with U and V on theirs and on the ring in turns; one
+    kernel, with U and V on theirs and on the ring in turns, and with Z on
+    its earlier kernel and split over warps in turns; one
     epoch of ``python -m bonito_tpu_torch train --config
     dna_r10.4.1_e8.2_400bps_sup@v5.0`` on a generated npy set (2 batches of
     32 x 12288, one validation batch: P, 18 x K, U, Y, B, C); and H's and
     O's times, plain times and bounds beside rotary + scaled_dot_product_
     attention with the band as a mask, forward and backward (H's and O's
     earlier kernels beside them). It prints one ``kernels`` JSON line with
-    all twenty-five kernels (F's and J's with their plans, their earlier
-    kernels' times and the fast device steps on both; K's, H's and O's
+    all twenty-five kernels (F's, G's and J's with their plans, their
+    earlier kernels' times and the fast device steps on both; K's, H's and O's
     with their plans and their
     earlier kernel's time; B's and C's with their plan, their earlier
     kernels' times and difference, and the device steps on both; M's and
     Q's likewise, with the reverse paths' device steps and the parent's;
-    U's and V's with their plan, their earlier kernels' times at hac, fast
-    and sup training shapes, and the loss and the train steps on both).
+    U's, V's and Z's with their plan, their earlier kernels' times at hac,
+    fast and sup training shapes, and the train steps on both).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -416,9 +422,9 @@ def ptxas_summary(report):
                              r"local_attention_(?:tc|f32)_kernel|"
                              r"relayout_transpose|relayout_gather|"
                              r"(?:logz|lattice)_(?:fwd|bwd)"
-                             r"(?:_ring)?_kernel|"
+                             r"(?:_ring|_split)?_kernel|"
                              r"decode_(?:fwd|bwd)_ring_kernel|"
-                             r"decode_fused_bwd_ring|"
+                             r"decode_fused_(?:fwd|bwd)_ring|"
                              r"decode_(?:fused_(?:wide_)?)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
             name = base.group(1) if base else m.group(1)
@@ -434,14 +440,19 @@ def ptxas_summary(report):
                                    m.group(1))
             mma = re.search(r"lstm_fused_mma_kernelILi(\d+)ELi(\d+)EE",
                             m.group(1))
-            jring = re.search(r"decode_fused_bwd_ringILi(\d+)ELi(\d+)EE",
-                              m.group(1))
+            zsplit = re.search(r"lattice_bwd_split_kernelILi(\d+)ELi(\d+)EE",
+                               m.group(1))
+            jring = re.search(r"decode_fused_(?:fwd|bwd)_ringILi(\d+)ELi"
+                              r"(\d+)EE", m.group(1))
             if mma:
                 name = (f"{name}<C={16 * int(mma.group(1))}, H="
                         f"{16 * int(mma.group(2))}, weights in registers>")
             elif jring:
                 name = (f"{name}<H={16 * int(jring.group(1))}, "
                         f"{jring.group(2)} m-tiles a head warp>")
+            elif zsplit:
+                name = (f"{name}<{zsplit.group(1)} positions a thread, "
+                        f"{zsplit.group(2)} frames ahead>")
             elif window:
                 name = (f"{name}<bf16, head dim up to {window.group(1)}, "
                         f"lse={window.group(2)}>")
@@ -992,31 +1003,43 @@ def hold_fused(torch, decode_fused_cuda, head, name, kernels, **q):
 def check_decode_fused(torch, decode_fused_cuda, HeadSplit, dev):
     """Kernels G and J against their plain versions: the fast head (U = 1,
     no tanh, Clamp +-5) at fast widths, and a small head with two upsample
-    phases, tanh, scale 5 and a bias; on both J on its ring
-    (``fused_decode_plan`` gives a plan) against the earlier J, bit for bit
-    on sequence, qstring and moves. Returns the fast head, G's outputs on
-    it, the worst move-in difference and |dq|, J's plan and the largest
-    |ring - earlier J| over the three outputs of both heads."""
+    phases, tanh, scale 5 and a bias; on both G and J on their rings
+    (``fused_decode_plan`` gives both plans) against their earlier kernels,
+    bit for bit on move-in, choices, c, logZ and the end state, and on
+    sequence, qstring and moves. Returns the fast head, G's outputs on it,
+    the worst move-in difference and |dq|, G's and J's plans and the
+    largest |ring - earlier kernel| over each one's outputs on both heads."""
     q = dict(qscale=1.05, qbias=0.2)
-    plans, vs_old = [], 0
+    plans, vs_old = {}, {"G": 0.0, "J": 0.0}
     for what, shape in (("two phases, tanh * 5, bias",
                          (24, 50, 32, 64, 2, True, 0.5)),
                         ("fast head", (FN, FT, FH, FS, 1, False, 3.0))):
         head = fused_head(torch, HeadSplit, dev, *shape)
         fwd, out, err, dq = hold_fused(torch, decode_fused_cuda, head, what,
                                        "G + J", **q)
-        plans.append(decode_fused_cuda.tcn_fused_backward.plan)
+        plans = {"G": decode_fused_cuda.tcn_fused_forward.plan,
+                 "J": decode_fused_cuda.tcn_fused_backward.plan}
+        old_fwd = decode_fused_cuda.tcn_fused_forward_old_kernel(head)
+        same_g, d_g = vs_old_kernel(torch, *zip(fwd, old_fwd))
         old = decode_fused_cuda.tcn_fused_backward_old_kernel(head, *fwd, **q)
         differ = [k for k in out if not torch.equal(out[k], old[k])]
         d_old = max((out[k].int() - old[k].int()).abs().max().item()
                     for k in out)
-        log(f"    J on its ring (plan {plans[-1]}) vs the earlier J: outputs "
+        log(f"    G on its ring (plan {plans['G']}) vs the earlier G: "
+            f"move-in, choices, c, logZ, end state equal bit for bit "
+            f"{same_g}, max |diff| {d_g}")
+        log(f"    J on its ring (plan {plans['J']}) vs the earlier J: outputs "
             f"that differ in any bit {differ}, max |diff| {d_old}")
-        require(plans[-1] is not None and not differ,
-                f"kernel J ({what}): plan {plans[-1]}, {differ} differ from "
+        require(plans["G"] is not None and same_g,
+                f"kernel G ({what}): plan {plans['G']}, its outputs differ "
+                f"from the earlier G's")
+        require(plans["J"] is not None and not differ,
+                f"kernel J ({what}): plan {plans['J']}, {differ} differ from "
                 f"the earlier J")
-        vs_old = max(vs_old, d_old)
-    return head, fwd, err, dq, plans[-1], float(vs_old)
+        vs_old["G"] = max(vs_old["G"], d_g)
+        vs_old["J"] = max(vs_old["J"], float(d_old))
+        del old_fwd
+    return head, fwd, err, dq, plans, vs_old
 
 
 def check_decode_fused_wide(torch, decode_fused_cuda, HeadSplit, dev):
@@ -1208,8 +1231,9 @@ def run_path(torch, name, model, reads, counters, basecall, chunk, geometry,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    # the plans F and J ran on (their last call's), where the path ran them
-    plans = {k: counters[k].plan for k in ("F", "J") if launches[k]}
+    # the plans F, G and J ran on (their last call's), where the path ran
+    # them
+    plans = {k: counters[k].plan for k in ("F", "G", "J") if launches[k]}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     require(results.keys() == {r.read_id for r in reads},
             f"{name}: not every read came back")
@@ -1271,18 +1295,26 @@ def device_step(np, model, reads, make_compute_fn, chunk, **kw):
 class earlier_kernel:
     """K and H (``rule`` "window_plan") or O ("window_bwd_plan") of
     ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), U and V
-    ("logz_plan" of ``logz_cuda``), F ("fused_plan" of ``lstm_fused_cuda``)
-    or J ("fused_decode_plan" of ``decode_fused_cuda``) on their earlier
-    kernels at every shape, for the comparisons of phases 7 and 9 to 11:
-    the shape rule swapped for one that gives no plan. The launch counts
-    count as on the redesigned kernels."""
+    ("logz_plan" of ``logz_cuda``), F ("fused_plan" of ``lstm_fused_cuda``),
+    G and J ("fused_decode_plan" of ``decode_fused_cuda``; G or J alone
+    with ``part`` "fwd" or "bwd") or Z ("lattice_plan" of
+    ``lattice_cuda``) on their earlier kernels at every shape, for the
+    comparisons of phases 7 and 9 to 11: the shape rule swapped for one
+    that gives no plan (or none for ``part``). The launch counts count as
+    on the redesigned kernels."""
 
-    def __init__(self, attention_cuda, rule="window_plan"):
-        self.mod, self.name = attention_cuda, rule
+    def __init__(self, attention_cuda, rule="window_plan", part=None):
+        self.mod, self.name, self.part = attention_cuda, rule, part
 
     def __enter__(self):
-        self.rule = getattr(self.mod, self.name)
-        setattr(self.mod, self.name, lambda *shape, **kw: None)
+        self.rule = rule = getattr(self.mod, self.name)
+        part = self.part
+
+        def without(*shape, **kw):
+            plans = rule(*shape, **kw)
+            return plans and {**plans, part: None}
+        setattr(self.mod, self.name,
+                (lambda *shape, **kw: None) if part is None else without)
 
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self.rule)
@@ -1466,7 +1498,8 @@ def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
     earlier kernels bit for bit, and those kernels' times. Returns {key:
     {"err", "ok", "ms", "plain_ms", "bytes", "ops"}, with U's and V's
     "plan", "vs_old" (bit for bit), "diff_old" (max |diff|) and
-    "old_kernel_ms"} and U's time without its stack."""
+    "old_kernel_ms"}, Z's likewise against its earlier kernel) and U's
+    time without its stack."""
     logz, logz_cuda, lattice, lattice_cuda = mods
     N, T, Cm = moves.shape
     S = Cm // 4
@@ -1551,12 +1584,19 @@ def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
     ref, plain_ms = plain_time(lambda: lattice.backward_plain(
         move, ref_stack, lengths, gz, sg, blank))
     err, ok = f32_close(dmove, ref)
+    plan_z = lattice_cuda.lattice_backward.plan
+    same_z, diff_z = vs_old_kernel(torch, (dmove, lattice_cuda.
+                                           lattice_backward_old_kernel(
+                                               move, stack, lengths, gz, sg,
+                                               blank)))
     res["Z"] = dict(err=err, ok=ok and bool(torch.isfinite(dmove).all()),
                     plain_ms=plain_ms, ms=cuda_ms(
         lambda: lattice_cuda.lattice_backward(move, stack, lengths, gz, sg,
                                               blank), reps=3),
         bytes=2 * move.numel() * 4 + stack.numel() * 4 + N * 12,
-        ops=14 * N * T * P)
+        ops=14 * N * T * P, plan=plan_z, vs_old=same_z, diff_old=diff_z,
+        old_kernel_ms=cuda_ms(lambda: lattice_cuda.lattice_backward_old_kernel(
+            move, stack, lengths, gz, sg, blank), reps=3))
     return res, ms_u_only
 
 
@@ -1627,6 +1667,10 @@ def train_loss_phase(torch, hac, counters, dev):
     (train_loss, mv, train_blank), n, mem = loss_path(torch, counters,
                                                       train_step)
     loss_paths["train_loss"] = (n, mem)
+    log(f"  train_loss: Z ran on the plan "
+        f"{lattice_cuda.lattice_backward.plan}")
+    require(lattice_cuda.lattice_backward.plan is not None,
+            "train_loss: Z ran on its earlier kernel")
     (full_loss, sc), n, mem = loss_path(torch, counters, loss_step)
     loss_paths["loss"] = (n, mem)
     valid_loss, n, mem = loss_path(torch, counters, valid_step)
@@ -1668,8 +1712,7 @@ def train_loss_phase(torch, hac, counters, dev):
     ms_train = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
     ms_full = cuda_ms(lambda: full_loss_grad(sc_d), reps=2)
     ms_valid = valid_ms()
-    # the same with U and V on their earlier kernels (the parent's route),
-    # then on the ring again
+    # the same with U and V on their earlier kernels, then on the ring again
     with earlier_kernel(logz_cuda, "logz_plan"):
         ms_train_old = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
         ms_valid_old = valid_ms()
@@ -1705,7 +1748,7 @@ def train_loss_phase(torch, hac, counters, dev):
             f"was held; launches {({k: v for k, v in n.items() if v})}")
     log(f"  valid_loss (no_grad: U and Y without their stacks) vs "
         f"train_loss: |diff| {err_v:.3g}")
-    log(f"  with U and V on their earlier kernels (the parent's route): "
+    log(f"  with U and V on their earlier kernels: "
         f"train_loss forward + backward {ms_train_old:.4g} ms (on the ring "
         f"{ms_train:.4g}, again {ms_train_again:.4g}), valid_loss "
         f"{ms_valid_old:.4g} ms (on the ring {ms_valid:.4g})")
@@ -1743,8 +1786,8 @@ def train_loss_phase(torch, hac, counters, dev):
                     r["diff_old"])
                 loss_more[key][f"{shape}_shape_plan"] = r["plan"]
                 require(r["vs_old"] and r["plan"] is not None,
-                        f"kernel {key} at {shape} training shapes: the ring "
-                        f"(plan {r['plan']}) differs from the earlier "
+                        f"kernel {key} at {shape} training shapes: the plan "
+                        f"{r['plan']} ran, or differs from the earlier "
                         f"kernel")
         log(f"  at {shape} training shapes (N {N_}, T {T_}, S {S_}, L "
             f"{L_}): " + ", ".join(
@@ -1757,14 +1800,18 @@ def train_loss_phase(torch, hac, counters, dev):
             f"earlier kernels U {res['U']['old_kernel_ms']:.4g} ms (no "
             f"stack {res['U']['no_stack_old_kernel_ms']:.4g}), V "
             f"{res['V']['old_kernel_ms']:.4g} ms")
+        log(f"    Z split over warps (plan {res['Z']['plan']}), bit for bit "
+            f"the earlier kernel's: {res['Z']['vs_old']}; the earlier Z "
+            f"{res['Z']['old_kernel_ms']:.4g} ms")
     for key, r in loss_k.items():
         require(r["ok"], f"kernel {key} at hac training shapes disagrees "
                          f"with its plain version")
         r["bound"] = bound(r["bytes"], r["ops"], H100_F32_OPS)
-    for key in "UV":
+    for key in "UVZ":
         require(loss_k[key]["vs_old"] and loss_k[key]["plan"] is not None,
-                f"kernel {key} at hac training shapes: the ring (plan "
-                f"{loss_k[key]['plan']}) differs from the earlier kernel")
+                f"kernel {key} at hac training shapes: the plan "
+                f"{loss_k[key]['plan']} ran, or differs from the earlier "
+                f"kernel")
     bound_u_only = bound(loss_k["U"]["bytes_no_stack"], loss_k["U"]["ops"],
                          H100_F32_OPS)
     log("  at hac training shapes: " + ", ".join(
@@ -1776,7 +1823,9 @@ def train_loss_phase(torch, hac, counters, dev):
         f"the earlier kernels'; the earlier kernels U "
         f"{loss_k['U']['old_kernel_ms']:.4g} ms (no stack "
         f"{loss_k['U']['no_stack_old_kernel_ms']:.4g}), V "
-        f"{loss_k['V']['old_kernel_ms']:.4g} ms")
+        f"{loss_k['V']['old_kernel_ms']:.4g} ms; Z split over warps (plan "
+        f"{loss_k['Z']['plan']}), bit for bit the earlier Z's, which takes "
+        f"{loss_k['Z']['old_kernel_ms']:.4g} ms")
     loss_k["U"]["train_loss_ms"] = loss_k["V"]["train_loss_ms"] = ms_train
     loss_k["U"]["train_loss_old_kernel_ms"] = ms_train_old
     loss_k["V"]["train_loss_old_kernel_ms"] = ms_train_old
@@ -2028,10 +2077,11 @@ def step_grads(torch, model, batch):
     return loss.detach(), grads
 
 
-def steps_in_turns(torch, step, batch, logz_cuda):
-    """A train step's ms (a warm-up, then TRAIN_STEPS steps), with U and V
-    on their earlier kernels (the parent's route), on the ring, then on the
-    earlier kernels again: {"old": [ms, ms], "ring": [ms]}."""
+def steps_in_turns(torch, step, batch, mod, rule):
+    """A train step's ms (a warm-up, then TRAIN_STEPS steps) with the
+    kernels of ``rule`` (``earlier_kernel``'s: "logz_plan" for U and V,
+    "lattice_plan" for Z) on their earlier kernels, on their plans, then on
+    the earlier kernels again: {"old": [ms, ms], "ring": [ms]}."""
     def step_ms():
         step(batch, 1.0, 2.0)
         torch.cuda.synchronize()
@@ -2043,7 +2093,7 @@ def steps_in_turns(torch, step, batch, logz_cuda):
     turns = {"old": [], "ring": []}
     for route in ("old", "ring", "old"):
         if route == "old":
-            with earlier_kernel(logz_cuda, "logz_plan"):
+            with earlier_kernel(mod, rule):
                 turns[route].append(step_ms())
         else:
             turns[route].append(step_ms())
@@ -2060,7 +2110,7 @@ def train_step_phase(torch, counters, dev):
     end to end on a generated npy set."""
     from bonito_tpu_torch.crf.model import Model
     from bonito_tpu_torch.models import MODELS, lstm_crf_config
-    from bonito_tpu_torch.ops import build, logz_cuda, lstm_cuda
+    from bonito_tpu_torch.ops import build, lattice_cuda, logz_cuda, lstm_cuda
     from bonito_tpu_torch.ops import lstm as ops_lstm
     from bonito_tpu_torch.ops import lstm_train_cuda
     from bonito_tpu_torch.training import make_optimizer, make_train_step
@@ -2160,15 +2210,24 @@ def train_step_phase(torch, counters, dev):
                                "disagree with the plain versions'")
     res["hac"]["uv_plans"] = (logz_cuda.tcn_forward.plan,
                               logz_cuda.tcn_backward.plan)
-    turns = steps_in_turns(torch, step, batch, logz_cuda)
+    res["hac"]["z_plan"] = lattice_cuda.lattice_backward.plan
+    turns = steps_in_turns(torch, step, batch, logz_cuda, "logz_plan")
     res["hac"]["uv_turns"] = turns
     log(f"  the hac train step in turns, U and V on their earlier kernels "
-        f"(the parent's route) / on the ring: {turns['old'][0]:.4g} / "
-        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms (the timed "
-        f"steps above on the ring: {res['hac']['ms']:.4g}); U's and V's "
-        f"plans {res['hac']['uv_plans']}")
+        f"/ on the ring: {turns['old'][0]:.4g} / {turns['ring'][0]:.4g} / "
+        f"{turns['old'][1]:.4g} ms (the timed steps above: "
+        f"{res['hac']['ms']:.4g}); U's and V's plans "
+        f"{res['hac']['uv_plans']}")
+    turns = steps_in_turns(torch, step, batch, lattice_cuda, "lattice_plan")
+    res["hac"]["z_turns"] = turns
+    log(f"  the hac train step in turns, Z on its earlier kernel (the "
+        f"parent's route) / split over warps: {turns['old'][0]:.4g} / "
+        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms; Z's plan "
+        f"{res['hac']['z_plan']}")
     require(all(p is not None for p in res["hac"]["uv_plans"]),
             "hac train step: U and V did not run on the ring")
+    require(res["hac"]["z_plan"] is not None,
+            "hac train step: Z ran on its earlier kernel")
     del hac, step, grads_k, grads_p, batch
     torch.cuda.empty_cache()
 
@@ -2392,7 +2451,8 @@ def sup_train_phase(torch, counters, dev):
     library yardstick."""
     import torch.nn.functional as F
     from bonito_tpu_torch.models import MODELS
-    from bonito_tpu_torch.ops import attention_cuda, logz_cuda, relayout
+    from bonito_tpu_torch.ops import (attention_cuda, lattice_cuda,
+                                      logz_cuda, relayout)
     from bonito_tpu_torch.training import make_optimizer, make_train_step
     from bonito_tpu_torch.transformer import model as transformer
 
@@ -2504,15 +2564,24 @@ def sup_train_phase(torch, counters, dev):
         f"their stretch kernels: {res['step']['ms']:.4g})")
     res["step"]["uv_plans"] = (logz_cuda.tcn_forward.plan,
                                logz_cuda.tcn_backward.plan)
-    turns = steps_in_turns(torch, step, batch, logz_cuda)
+    res["step"]["z_plan"] = lattice_cuda.lattice_backward.plan
+    turns = steps_in_turns(torch, step, batch, logz_cuda, "logz_plan")
     res["step"]["uv_turns"] = turns
     log(f"  the sup train step in turns, U and V on their earlier kernels "
-        f"(the parent's route) / on the ring: {turns['old'][0]:.4g} / "
-        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms (the timed "
-        f"steps above on the ring: {res['step']['ms']:.4g}); U's and V's "
-        f"plans {res['step']['uv_plans']}")
+        f"/ on the ring: {turns['old'][0]:.4g} / {turns['ring'][0]:.4g} / "
+        f"{turns['old'][1]:.4g} ms (the timed steps above: "
+        f"{res['step']['ms']:.4g}); U's and V's plans "
+        f"{res['step']['uv_plans']}")
+    turns = steps_in_turns(torch, step, batch, lattice_cuda, "lattice_plan")
+    res["step"]["z_turns"] = turns
+    log(f"  the sup train step in turns, Z on its earlier kernel (the "
+        f"parent's route) / split over warps: {turns['old'][0]:.4g} / "
+        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms; Z's plan "
+        f"{res['step']['z_plan']}")
     require(all(p is not None for p in res["step"]["uv_plans"]),
             "sup train step: U and V did not run on the ring")
+    require(res["step"]["z_plan"] is not None,
+            "sup train step: Z ran on its earlier kernel")
     del model, step, grads_k, grads_p, batch
     torch.cuda.empty_cache()
     res["cli"] = train_cli(
@@ -2668,6 +2737,22 @@ def main():
             f"kernel J's ring: a stack frame or spills above "
             f"{J_SPILL_MAX} B at H 96 or any at H 32 (or not three "
             f"instances): {j_rows}")
+    # G's ring at J's instances, held to J's limit
+    g_rows = [r for r in ptxas_rows if "decode_fused_fwd_ring" in r]
+    g_frames = [tuple(int(v) for v in re.search(
+        r"stack (\d+) B, spills (\d+)/(\d+) B", r).groups()) for r in g_rows]
+    require(len(g_rows) == 3 and all(
+        max(f) <= (J_SPILL_MAX if "H=96" in r else 0)
+        for r, f in zip(g_rows, g_frames)),
+            f"kernel G's ring: a stack frame or spills above "
+            f"{J_SPILL_MAX} B at H 96 or any at H 32 (or not three "
+            f"instances): {g_rows}")
+    # Z split over warps: 1 or 2 positions a thread, two depths each
+    z_rows = [r for r in ptxas_rows if "lattice_bwd_split_kernel" in r]
+    require(len(z_rows) == 4 and all("stack 0 B, spills 0/0 B" in r
+                                     for r in z_rows),
+            f"kernel Z split over warps has a stack frame or spills (or not "
+            f"four instances): {z_rows}")
 
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
@@ -2679,7 +2764,7 @@ def main():
     log(f"    and at fast widths (N={FN}, T={FT}, C=H={FH}, S={FS})")
     f_args, err_f, plan_f, f_vs_old = check_lstm_fused(torch, lstm_fused_cuda,
                                                        dev)
-    f_head, f_fwd, err_g, err_j, plan_j, j_vs_old = check_decode_fused(
+    f_head, f_fwd, err_g, err_j, plans_gj, gj_vs_old = check_decode_fused(
         torch, decode_fused_cuda, HeadSplit, dev)
     log(f"    and at sup widths (N={SN}, T={ST}, H={SH}, D={SD}, window "
         f"{SWIN})")
@@ -2955,11 +3040,23 @@ def main():
                                       make_compute_fn, chunk)
     # the same batch with F and J on their earlier kernels (the parent's)
     with earlier_kernel(lstm_fused_cuda, "fused_plan"), \
-            earlier_kernel(decode_fused_cuda, "fused_decode_plan"):
+            earlier_kernel(decode_fused_cuda, "fused_decode_plan", "bwd"):
         _, step_fast_old = device_step(np, models["fast"], fast_reads,
                                        make_compute_fn, chunk)
     _, step_fast_tcn = device_step(np, models["fast"], fast_reads,
                                    make_compute_fn, chunk, head_route="tcn")
+    # G on its earlier kernel (the parent's route) and on the ring, in turns
+    g_turns = {"old": [], "ring": []}
+    for route in ("old", "ring", "old", "ring"):
+        if route == "old":
+            with earlier_kernel(decode_fused_cuda, "fused_decode_plan",
+                                "fwd"):
+                g_turns[route].append(device_step(
+                    np, models["fast"], fast_reads, make_compute_fn,
+                    chunk)[1])
+        else:
+            g_turns[route].append(device_step(
+                np, models["fast"], fast_reads, make_compute_fn, chunk)[1])
     _, x_wire, sig_scale = prepared
     with torch.inference_mode():
         xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
@@ -3196,9 +3293,9 @@ def main():
                 f"{name}: launches {run['launches']}, expected {expect}: "
                 f"{own[name]} per batch, no other kernel")
         if run["plans"]:
-            log(f"    the plans F and J ran on: {run['plans']}")
+            log(f"    the plans F, G and J ran on: {run['plans']}")
             require(all(v is not None for v in run["plans"].values()),
-                    f"{name}: F or J ran on its earlier kernel: "
+                    f"{name}: F, G or J ran on its earlier kernel: "
                     f"{run['plans']}")
 
     log(f"[7] on {card}:")
@@ -3216,6 +3313,10 @@ def main():
             f"{per_batch / step * 1e3:.6g} samples/s")
     log(f"  fast with head_route='tcn' (head matmul + B + C in place of G + "
         f"J): device step {step_fast_tcn:.4g} ms per batch")
+    log(f"  fast in turns, G on its earlier kernel (the parent's route) / "
+        f"on the ring: device step " + " / ".join(
+            f"{g_turns[r][i]:.4g}" for i in range(2) for r in ("old", "ring"))
+        + " ms per batch")
     log(f"  fast with F and J on their earlier kernels: device step "
         f"{step_fast_old:.4g} ms per batch ({step_fast:.4g} on the mma "
         f"kernel and the ring); fast reverse with F on its earlier kernel "
@@ -3385,14 +3486,17 @@ def main():
                     2 * FN * FT * (FH + FH) * 4 * FH, H100_BF16_OPS)
 
     ms_g = cuda_ms(lambda: decode_fused_cuda.tcn_fused_forward(f_head), reps=5)
+    ms_g_old = cuda_ms(lambda: decode_fused_cuda.tcn_fused_forward_old_kernel(
+        f_head), reps=5)
     plain_g = cuda_ms(lambda: decode_fused_cuda.tcn_fused_forward_plain(
         f_head), reps=1, warmup=0)
     ms_j = cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward(
         f_head, *f_fwd), reps=5)
     ms_j_old = cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward_old_kernel(
         f_head, *f_fwd), reps=5)
-    log(f"  J: {ms_j:.4g} ms on its ring, its earlier kernel {ms_j_old:.4g} "
-        f"ms")
+    log(f"  G: {ms_g:.4g} ms on its ring, its earlier kernel {ms_g_old:.4g} "
+        f"ms; J: {ms_j:.4g} ms on its ring, its earlier kernel "
+        f"{ms_j_old:.4g} ms")
     plain_j = cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward_plain(
         f_head, *f_fwd), reps=1, warmup=0)
     head_ops = 2 * FT * FN * FH * 4 * FS     # on the tensor cores
@@ -3752,8 +3856,12 @@ def main():
                   "fast_rev_device_step_ms": rev_steps["fast_rev"]["step"],
                   "fast_rev_device_step_old_kernel_ms":
                       rev_steps["fast_rev"]["f_old"]},
-            "J": {"plan": plan_j, "old_kernel_ms": ms_j_old,
-                  "max_abs_err_vs_old_kernel": j_vs_old,
+            "G": {"plan": plans_gj["G"], "old_kernel_ms": ms_g_old,
+                  "max_abs_err_vs_old_kernel": gj_vs_old["G"],
+                  "fast_device_step_ms": g_turns["ring"],
+                  "fast_device_step_old_kernel_ms": g_turns["old"]},
+            "J": {"plan": plans_gj["J"], "old_kernel_ms": ms_j_old,
+                  "max_abs_err_vs_old_kernel": gj_vs_old["J"],
                   "fast_device_step_ms": step_fast,
                   "fast_device_step_old_kernel_ms": step_fast_old},
             "K": {"plan": plan_k, "old_kernel_ms": ms_k_old,
@@ -3788,20 +3896,22 @@ def main():
     src_logz = "bonito_tpu_torch/csrc/logz.cu"
     src_logz_ring = "bonito_tpu_torch/csrc/logz_ring.cu"  # U's, V's
     src_lat = "bonito_tpu_torch/csrc/lattice.cu"
-    # U and V on the ring: their plan, their earlier kernels' times, the
-    # loss path and the train steps with them on the earlier kernels
-    hac_turns = train["hac"]["uv_turns"]
-    sup_turns = sup_train["step"]["uv_turns"]
-    for key in "UV":
+    # U and V on the ring, Z split over warps: their plan, their earlier
+    # kernels' times, the loss path (U, V) and the train steps with them on
+    # the earlier kernels
+    for key in "UVZ":
         r = loss_k[key]
+        turn = "z_turns" if key == "Z" else "uv_turns"
+        hac_turns, sup_turns = train["hac"][turn], sup_train["step"][turn]
         loss_more[key].update({
             "plan": r["plan"], "old_kernel_ms": r["old_kernel_ms"],
             "max_abs_err_vs_old_kernel": max(
                 [r["diff_old"]] + [loss_more[key][f"{s}_shape_max_abs_err_"
                                                   f"vs_old_kernel"]
                                    for s in ("fast", "sup")]),
-            "train_loss_ms": r["train_loss_ms"],
-            "train_loss_old_kernel_ms": r["train_loss_old_kernel_ms"],
+            **({} if key == "Z" else {
+                "train_loss_ms": r["train_loss_ms"],
+                "train_loss_old_kernel_ms": r["train_loss_old_kernel_ms"]}),
             "hac_train_step_ms": [train["hac"]["ms"]] + hac_turns["ring"],
             "hac_train_step_old_kernel_ms": hac_turns["old"],
             "sup_train_step_ms": [sup_train["step"]["ms"]]

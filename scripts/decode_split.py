@@ -5,7 +5,7 @@ B and C (the TCN decode) and M and Q (the full-score decode, on the reverse
 strand read in place, as the reverse paths run them), at hac's, sup's and
 fast's decode shapes:
 
-    python3 scripts/decode_split.py [bc | mq | j]
+    python3 scripts/decode_split.py [bc | mq | j | g]
 
 from the root of a checkout, on a machine with a CUDA card and nvcc (B, C
 and M, Q without an argument). It builds ``csrc/decode_tcn_ring.cu`` (B, C)
@@ -48,6 +48,18 @@ G's forward pass on the same head:
 - the source with one part left out: the head warps (products, exps and
   the tile's stores), the ring's copies and the waits for them, the
   epilogue warp's qscores and stores, and all three.
+
+G, the fused-head decode's forward pass on its ring (``g``: builds
+``csrc/decode_tcn_fused.cu`` once per variant, ``-DG_CUT=<parts>``), on
+the same two heads:
+
+- the source at the plan (``fused_decode_plan``'s "fwd"), after a check
+  against the earlier G (move-in, choices, c, logZ, end state bit for
+  bit), with the earlier kernel's and J's times beside it; at rings of 2,
+  4 and 8 chunks;
+- the source with one part left out: the head warps (products, scores,
+  exps and the tile's stores), the ring's copies and the waits for them,
+  the consumers' stores of move-in, choices and c, and all three.
 """
 
 import ctypes
@@ -325,33 +337,38 @@ def one_state_source():
     return path
 
 
-def build_j():
-    """One library of csrc/decode_tcn_fused.cu per J variant, and one of
-    its one-state copy: the ring entry."""
+def build_fused(key):
+    """One library of csrc/decode_tcn_fused.cu per variant of J (``key``
+    "j", with its one-state copy) or G ("g"): the ring entry."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
+    parts_of, variants, letter, pass_ = (
+        (PARTS_J, VARIANTS_J, "J", "bwd") if key == "j"
+        else (PARTS_G, VARIANTS_G, "G", "fwd"))
     sources = {name: (build.CSRC / "decode_tcn_fused.cu",
-                      sum(PARTS_J[p] for p in parts))
-               for name, parts in VARIANTS_J.items()}
-    sources["one state a thread"] = (one_state_source(), 0)
+                      sum(parts_of[p] for p in parts))
+               for name, parts in variants.items()}
+    if key == "j":
+        sources["one state a thread"] = (one_state_source(), 0)
     procs = {name: subprocess.Popen(
         [nvcc, *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared",
-         f"-DJ_CUT={cut}", "-I", str(build.CSRC),
-         "-o", str(OUT / f"lib_j_{i}.so"), str(src)],
+         f"-D{letter}_CUT={cut}", "-I", str(build.CSRC),
+         "-o", str(OUT / f"lib_{key}_{i}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for i, (name, (src, cut)) in enumerate(sources.items())}
     libs = {}
+    entry = f"decode_fused_{pass_}_ring_bf16"
     for i, (name, proc) in enumerate(procs.items()):
         o, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on J, {name}:\n{err}")
+            raise RuntimeError(f"nvcc failed on {letter}, {name}:\n{err}")
         kernel, frame = None, ""
         for line in (o + err).splitlines():
-            m = re.search(r"Compiling entry function '\w*decode_fused_bwd"
+            m = re.search(rf"Compiling entry function '\w*decode_fused_{pass_}"
                           r"_ringILi(\d+)ELi(\d+)EE", line)
             if m:
-                kernel = (f"J<H {16 * int(m.group(1))}, {m.group(2)} m-tiles "
-                          f"a head warp>")
+                kernel = (f"{letter}<H {16 * int(m.group(1))}, {m.group(2)} "
+                          f"m-tiles a head warp>")
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
             if kernel and m:
@@ -362,25 +379,30 @@ def build_j():
                 print(f"  {name}, {kernel}: {m.group(1)} registers, {frame}",
                       flush=True)
                 kernel = None
-        lib = ctypes.CDLL(str(OUT / f"lib_j_{i}.so"))
-        entry = "decode_fused_bwd_ring_bf16"
+        lib = ctypes.CDLL(str(OUT / f"lib_{key}_{i}.so"))
         getattr(lib, entry).argtypes = build.SIGNATURES[entry]
         libs[name] = lib
     return libs
 
 
-def split_j(libs, card, dev, what, N, Th, H, U, tanh, gain, S=64):
-    f = decode_fused_cuda
+def fused_head(dev, N, Th, H, U, tanh, gain, S=64):
+    """The random head split_j and split_g decode, from a seed of its
+    shape."""
     g = torch.Generator().manual_seed(N + Th)
     h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(dev, torch.bfloat16)
     wT = (gain * torch.randn(U, 4 * S, H, generator=g) / math.sqrt(H)).to(
         dev, torch.bfloat16)
     bias = (0.3 * torch.randn(U, 4 * S, generator=g)).to(dev) if tanh \
         else None
-    head = HeadSplit(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+    return HeadSplit(h, wT, bias, tanh, 5.0 if tanh else 1.0,
                      None if tanh else -5.0, None if tanh else 5.0, 2.0)
+
+
+def split_j(libs, card, dev, what, N, Th, H, U, tanh, gain, S=64):
+    f = decode_fused_cuda
+    head = fused_head(dev, N, Th, H, U, tanh, gain, S)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = f.fused_decode_plan(N, Th * U, S, H, U, sms)
+    plan = f.fused_decode_plan(N, Th * U, S, H, U, sms)["bwd"]
     fwd = f.tcn_fused_forward(head)
     old = f.tcn_fused_backward_old_kernel(head, *fwd, qscale=1.05, qbias=0.2)
     hh, w, b = f._operands(head)
@@ -428,13 +450,65 @@ def split_j(libs, card, dev, what, N, Th, H, U, tanh, gain, S=64):
         print(f"  the plan, {name}: {ms:.4g} ms{more}", flush=True)
 
 
+# G: csrc/decode_tcn_fused.cu's G_CUT bits
+PARTS_G = {"head": 1, "waits": 2, "stores": 4}
+VARIANTS_G = {"source": [], "no head warps": ["head"],
+              "no ring waits": ["waits"], "no stores": ["stores"],
+              "none of the three": list(PARTS_G)}
+
+
+def split_g(libs, card, dev, what, N, Th, H, U, tanh, gain, S=64):
+    f = decode_fused_cuda
+    head = fused_head(dev, N, Th, H, U, tanh, gain, S)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = f.fused_decode_plan(N, Th * U, S, H, U, sms)["fwd"]
+    old = f.tcn_fused_forward_old_kernel(head)
+    hh, w, b = f._operands(head, f.fused_rows(S, dev))
+    out = [torch.empty_like(x) for x in old]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, ring):
+        f._launched(libs[name].decode_fused_fwd_ring_bf16(
+            hh.data_ptr(), w.data_ptr(), b.data_ptr(),
+            *(x.data_ptr() for x in out), Th, N, H, S, U, ring,
+            math.exp(2.0), 2.0, *f._head_ops(head), stream), name, S, H, U)
+
+    print(f"{card}; G on {what}: N={N}, T={Th * U}, H={H}, S={S}, U={U}; "
+          f"plan {plan}", flush=True)
+    run("source", plan["ring"])
+    torch.cuda.synchronize()
+    same = [torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+            for a, c in zip(out, old)]
+    print(f"  the source vs the earlier G, bit for bit (move_in, choices, "
+          f"c, logZ, end state): {same}", flush=True)
+    if not all(same):
+        raise RuntimeError("decode_split: G's ring disagrees with the "
+                           "earlier kernel")
+    print(f"  the earlier G "
+          f"{ms_of(lambda: f.tcn_fused_forward_old_kernel(head)):.4g} ms; J "
+          f"{ms_of(lambda: f.tcn_fused_backward(head, *old)):.4g} ms",
+          flush=True)
+    for ring in (2, 4, 8):
+        fits = f.g_ring_smem(S, H, U, ring) <= SMEM
+        ms = (f"{ms_of(lambda: run('source', ring)):.4g} ms" if fits
+              else "does not fit")
+        print(f"  the source, a ring of {ring} chunks: {ms}", flush=True)
+    base = None
+    for name in VARIANTS_G:
+        ms = ms_of(lambda: run(name, plan["ring"]))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {base - ms:.4g} ms")
+        print(f"  the plan, {name}: {ms:.4g} ms{more}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("decode_split: no CUDA device", file=sys.stderr)
         return 1
     pairs = sys.argv[1:] or list(SOURCES)
-    if not set(pairs) <= {*SOURCES, "j"}:
-        print(f"decode_split: expected any of {[*SOURCES, 'j']}",
+    if not set(pairs) <= {*SOURCES, "j", "g"}:
+        print(f"decode_split: expected any of {[*SOURCES, 'j', 'g']}",
               file=sys.stderr)
         return 2
     card = subprocess.run(
@@ -442,11 +516,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     dev = torch.device("cuda")
-    if "j" in pairs:
-        libs = build_j()
-        for what, shape in J_HEADS.items():
-            split_j(libs, card, dev, what, *shape)
-        pairs = [p for p in pairs if p != "j"]
+    for key, split_fused in (("j", split_j), ("g", split_g)):
+        if key in pairs:
+            libs = build_fused(key)
+            for what, shape in J_HEADS.items():
+                split_fused(libs, card, dev, what, *shape)
+    pairs = [p for p in pairs if p not in ("j", "g")]
     if not pairs:
         return 0
     libs = build_variants(pairs)

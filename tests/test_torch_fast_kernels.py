@@ -178,7 +178,7 @@ def test_fused_decode_plan_fits_the_card(N, T, S, H, U):
     weights in registers, a producer and an epilogue warp; the registers a
     thread may hold in such a block, and the shared memory with a ring of
     2 to 8 chunks."""
-    plan = dfc.fused_decode_plan(N, T, S, H, U, SMS)
+    plan = dfc.fused_decode_plan(N, T, S, H, U, SMS)["bwd"]
     assert plan is not None
     assert plan["rows"] == 8 and plan["ctas"] == -(-N // 8)
     assert plan["consumer_warps"] == 8 and plan["states_per_thread"] == 2
@@ -196,7 +196,7 @@ def test_fused_decode_plan_at_fast():
     """The fast head (N 1024, T 1200, H 96, S 64, U 1): 128 CTAs of 18
     warps, one wave of 132 SMs, 96 registers a thread (48 of them a head
     warp's weights), a ring of 4 chunks, 137,472 B."""
-    assert dfc.fused_decode_plan(1024, 1200, 64, 96, 1, SMS) == {
+    assert dfc.fused_decode_plan(1024, 1200, 64, 96, 1, SMS)["bwd"] == {
         "rows": 8, "ctas": 128, "waves": 1, "threads": 576,
         "registers": 96, "consumer_warps": 8, "states_per_thread": 2,
         "head_warps": 8, "m_tiles_a_head_warp": 2, "k_tiles": 6,

@@ -642,7 +642,7 @@ def test_fused_decode_ring_equals_its_earlier_kernel(cuda, N, Th, H, U, tanh):
     head = Head(h, wT, bias, tanh, 5.0 if tanh else 1.0,
                 None if tanh else -5.0, None if tanh else 5.0, 2.0)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = decode_fused_cuda.fused_decode_plan(N, Th * U, S, H, U, sms)
+    plan = decode_fused_cuda.fused_decode_plan(N, Th * U, S, H, U, sms)["bwd"]
     assert plan is not None
     fwd = decode_fused_cuda.tcn_fused_forward(head)
     before = decode_fused_cuda.tcn_fused_backward.launches
@@ -655,6 +655,46 @@ def test_fused_decode_ring_equals_its_earlier_kernel(cuda, N, Th, H, U, tanh):
     assert decode_fused_cuda.tcn_fused_backward.plan == plan
     for k in ("sequence", "qstring", "moves"):
         assert torch.equal(out[k], old[k]), k
+
+
+@pytest.mark.parametrize("N,Th,H,U,tanh", [
+    (8, 9, 32, 1, False), (5, 7, 32, 2, True), (64, 60, 96, 1, False),
+    (19, 13, 96, 1, False), (24, 50, 32, 2, True), (1, 1, 96, 1, False),
+    (1024, 40, 96, 1, False), (1024, 1200, 96, 1, False)])
+def test_fused_forward_ring_equals_its_earlier_kernel(cuda, N, Th, H, U,
+                                                      tanh):
+    """Kernel G on its ring (``fused_decode_plan``'s "fwd" at S 64, H 32 or
+    96, U 1 or 2): one launch counted, the plan it ran, and move-in,
+    choices, c, logZ and the end state equal to the earlier G's bit for
+    bit, ragged rows and chunks, one frame, the two-phase tanh head and the
+    fast batch among the shapes; on the fast head and the two-phase head
+    also against the plain version, as test_fused_decode_kernels_match_plain
+    holds G."""
+    S = 64
+    g = torch.Generator().manual_seed(N + Th + H)
+    gain = 0.5 if tanh else 3.0
+    h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(cuda, torch.bfloat16)
+    wT = (gain * torch.randn(U, 4 * S, H, generator=g) / H ** 0.5).to(
+        cuda, torch.bfloat16)
+    bias = (0.3 * torch.randn(U, 4 * S, generator=g)).to(cuda) if tanh else None
+    head = Head(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+                None if tanh else -5.0, None if tanh else 5.0, 2.0)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = decode_fused_cuda.fused_decode_plan(N, Th * U, S, H, U, sms)["fwd"]
+    assert plan is not None
+    before = decode_fused_cuda.tcn_fused_forward.launches
+    fwd = decode_fused_cuda.tcn_fused_forward(head)
+    old = decode_fused_cuda.tcn_fused_forward_old_kernel(head)
+    torch.cuda.synchronize()
+    assert decode_fused_cuda.tcn_fused_forward.launches == before + 1
+    assert decode_fused_cuda.tcn_fused_forward.plan == plan
+    for a, b in zip(fwd, old):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    if (N, Th) in ((1024, 1200), (24, 50)):
+        ref = decode_fused_cuda.tcn_fused_forward_plain(head)
+        torch.testing.assert_close(fwd[0], ref[0], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(fwd[3], ref[3], rtol=1e-5, atol=1e-3)
+        assert (fwd[1] != ref[1]).float().mean().item() <= 1e-3
 
 
 def test_fused_decode_kernels_reject_what_they_do_not_take(cuda):
@@ -1112,6 +1152,39 @@ def test_lattice_kernels_match_plain(cuda, P, N, T):
     ref = lattice.backward_plain(move, ref_stack, lengths, gz, sg, 2.0)
     torch.testing.assert_close(dmove, ref, rtol=1e-5, atol=1e-7)
     assert bool(torch.isfinite(dmove).all()) and not dmove[1:3].any()
+
+
+@pytest.mark.parametrize("N,T,P", [
+    (128, 1000, 496), (128, 1200, 598), (32, 2048, 1020),  # training
+    (6, 40, 597), (5, 33, 33), (4, 17, 2), (3, 21, 31), (3, 7, 1025),
+    (2, 9, 2048)])
+def test_lattice_backward_split_equals_its_earlier_kernel(cuda, N, T, P):
+    """Kernel Z split over warps (``lattice_plan``: hac's, fast's and sup's
+    training shapes, P odd, P - 1 no multiple of 4, P below a warp, and
+    two positions a thread above 32 warps of one): one launch counted, the
+    plan it ran,
+    and dmove equal to the earlier Z's bit for bit, with rows of length 0,
+    1 and -1 and cotangents of sign -1, 0 and +1."""
+    g = torch.Generator(device=cuda).manual_seed(N + T + P)
+    move = 2 * torch.randn(N, T, P - 1, device=cuda, generator=g)
+    lengths = torch.randint(P // 2, P + 1, (N,), device=cuda, generator=g,
+                            dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, -1], dtype=torch.int32)[:N]
+    cot = torch.randn(N, device=cuda, generator=g)
+    cot[1:3] = 0.0
+    stack, lz = lattice_cuda.lattice_forward(move, lengths, 2.0)
+    gz, sg = lattice.cotangent(cot, lz)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = lattice_cuda.lattice_plan(N, T, P, sms)
+    assert plan is not None
+    before = lattice_cuda.lattice_backward.launches
+    dmove = lattice_cuda.lattice_backward(move, stack, lengths, gz, sg, 2.0)
+    old = lattice_cuda.lattice_backward_old_kernel(move, stack, lengths, gz,
+                                                   sg, 2.0)
+    torch.cuda.synchronize()
+    assert lattice_cuda.lattice_backward.launches == before + 1
+    assert lattice_cuda.lattice_backward.plan == plan
+    assert torch.equal(dmove.view(torch.int32), old.view(torch.int32))
 
 
 def test_loss_launches_its_kernels(cuda):
