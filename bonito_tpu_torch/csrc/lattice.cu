@@ -25,8 +25,9 @@
 //
 // What bounds them on an H100: bytes. At hac training shapes (N 128,
 // T 1000, P 496) Y reads 0.25 GB of moves and writes the 0.25 GB stack, Z
-// reads both and writes 0.25 GB. The earlier design (Y; Z where
-// ops/lattice_cuda.py:lattice_plan gives no plan): one block per batch row,
+// reads both and writes 0.25 GB. The earlier design (Y where
+// ops/lattice_cuda.py:lattice_fwd_plan gives no plan, Z where lattice_plan
+// gives none): one block per batch row,
 // positions strided over up to 1024 threads, so any P runs (alpha or beta
 // double buffered in shared memory, 8 bytes a position); one barrier per
 // frame, each frame's reads of move and stack waited for in the frame.
@@ -46,6 +47,20 @@
 // through a ring of tagged slots in shared memory with no block barrier
 // (slower at every shape: the lane that polls and publishes lengthens
 // every warp's frame).
+//
+// Y split over warps (lattice_fwd_split, ops/lattice_cuda.py:
+// lattice_fwd_plan's): Z's layout with the edge the other way. Lane l of
+// warp w holds alpha of positions 32 K w + 32 j + l in registers; alpha[p-1]
+// comes by shuffle from lane l-1 (lane 0 takes lane 31's position of j-1,
+// or for j = 0 the warp below's last position, which each warp leaves in
+// shared memory by the parity of its frame); one block barrier a frame
+// orders those edge values. Each thread's move values arrive D frames ahead
+// into registers (no stack to read: deeper than Z's), its alpha goes to the
+// stack before the frame's update (coalesced), and the thread holding
+// position lengths - 1 writes logZ. The f32 steps are the earlier Y's:
+// stack and logZ equal its outputs bit for bit. Measured and not kept
+// (PERF.md): 16 frames ahead at one position a thread (slower at every
+// training shape) and at two (slower than 8).
 
 #include <cuda_runtime.h>
 #include <cmath>
@@ -129,14 +144,16 @@ __global__ void lattice_bwd_kernel(const float* __restrict__ move,  // [N,T,P-1]
     }
 }
 
-// ------------------------------------------------ Z split over warps
+// ------------------------------------------- Y and Z split over warps
 // the parts scripts/lattice_split.py leaves out (LATTICE_CUT bits)
-constexpr int ZCUT_BARRIER = 1;  // the frame's block barrier (the warp
-                                 // above's edge value read unordered)
+constexpr int ZCUT_BARRIER = 1;  // the frame's block barrier (the
+                                 // neighbouring warp's edge value read
+                                 // unordered)
 constexpr int ZCUT_EXPS = 2;     // expf and log1pf (each its argument)
-constexpr int ZCUT_STORES = 4;   // the stores of dmove (their values summed)
-constexpr int ZCUT_LOADS = 8;    // the reads of move and stack after the
-                                 // first D frames' (whose values repeat)
+constexpr int ZCUT_STORES = 4;   // the stores of dmove (Z) or of the stack
+                                 // (Y), their values summed
+constexpr int ZCUT_LOADS = 8;    // the reads of move (and Z's stack) after
+                                 // the first D frames' (whose values repeat)
 
 __device__ __forceinline__ constexpr bool zcut(int part) {
     return (LATTICE_CUT & part) != 0;
@@ -237,6 +254,101 @@ __global__ void lattice_bwd_split_kernel(const float* __restrict__ move,
     if (zcut(ZCUT_STORES) && sink == 1.2345f) drow[0] = sink;
 }
 
+// kernel Y with K positions a thread, move D frames ahead; STACK: alpha
+// before each frame stored. At most 64 registers a thread, so that a CTA
+// of 32 warps launches (unbounded, ptxas gave the 2-position, 8-frame
+// instance with its stack 91); the 1-position instances take 40-56
+// without the bound.
+template <int K, int D, bool STACK>
+__global__ void __launch_bounds__(32 * ZWARPS)
+lattice_fwd_split_kernel(const float* __restrict__ move,
+                                         const int* __restrict__ lengths,
+                                         float* __restrict__ stack,
+                                         float* __restrict__ logz,
+                                         int T, int P, float blank)
+{
+    // each warp's last position's alpha, by the parity of its frame
+    __shared__ float edge[2][ZWARPS];
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int n = blockIdx.x;
+    const int p0 = 32 * K * w + lane;   // position of j = 0
+    const float* mrow = move + (size_t)n * T * (P - 1);
+    float* srow = STACK ? stack + (size_t)n * T * P : nullptr;
+    float a[K];  // alpha of this frame, positions p0 + 32 j
+#pragma unroll
+    for (int j = 0; j < K; ++j) a[j] = p0 + 32 * j == 0 ? 0.f : NEG;
+    if (lane == 31) edge[0][w] = a[K - 1];
+    __syncthreads();
+
+    // the move into p from p - 1: none at p = 0 and past P - 1
+    auto load = [&](int t, float (&m)[K]) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+            const int p = p0 + 32 * j;
+            m[j] = p >= 1 && p < P
+                ? __ldg(mrow + (size_t)t * (P - 1) + p - 1) : NEG;
+        }
+    };
+    float pm[D][K];
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+        if (d < T) load(d, pm[d]);
+    float sink = 0.f;
+    for (int t0 = 0; t0 < T; t0 += D) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            const int t = t0 + d;
+            if (t >= T) break;
+            // alpha of frame t at the warp below's last position
+            const float down = lane == 0 && w > 0 ? edge[t & 1][w - 1] : NEG;
+            float nb[K];  // alpha of frame t at p - 1
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                // lane 31's value goes to lane 0 only: its position of j-1
+                const float src =
+                    lane == 31 ? (j > 0 ? a[j - 1] : NEG) : a[j];
+                nb[j] = __shfl_sync(0xffffffffu, src, (lane + 31) & 31);
+            }
+            if (lane == 0) nb[0] = down;
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const int p = p0 + 32 * j;
+                if (p < P) {
+                    if (STACK) {
+                        if (zcut(ZCUT_STORES))
+                            sink += a[j];
+                        else
+                            srow[(size_t)t * P + p] = a[j];
+                    }
+                    const float moved = p == 0 ? NEG : nb[j] + pm[d][j];
+                    a[j] = zlogaddexp(a[j] + blank, moved);
+                }
+            }
+            // the parity this frame writes was last read a frame ago,
+            // before the last barrier
+            if (lane == 31) edge[(t + 1) & 1][w] = a[K - 1];
+            if (!zcut(ZCUT_BARRIER)) __syncthreads();
+            if (t + D < T && !zcut(ZCUT_LOADS)) load(t + D, pm[d]);
+        }
+    }
+    const int end = lengths[n] - 1;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+        if (p0 + 32 * j == end && end < P) logz[n] = a[j];
+    if (threadIdx.x == 0 && !(end >= 0 && end < P)) logz[n] = 0.f;
+    if (STACK && zcut(ZCUT_STORES) && sink == 1.2345f) srow[0] = sink;
+}
+
+template <int K, int D, bool STACK>
+int launch_y(const float* move, const int* lengths, float* stack,
+             float* logz, int N, int T, int P, float blank, cudaStream_t st) {
+    const int warps = (P + 32 * K - 1) / (32 * K);
+    if (warps > ZWARPS) return (int)cudaErrorInvalidValue;
+    lattice_fwd_split_kernel<K, D, STACK><<<N, 32 * warps, 0, st>>>(
+        move, lengths, stack, logz, T, P, blank);
+    return (int)cudaGetLastError();
+}
+
 template <int K, int D>
 int launch_z(const float* move, const float* stack, const int* lengths,
              const float* gz, const float* sg, float* dmove, int N, int T,
@@ -299,6 +411,31 @@ int lattice_bwd(const void* move, const void* stack, const void* lengths,
         static_cast<const float*>(sg), static_cast<float*>(dmove), T, P,
         blank);
     return (int)cudaGetLastError();
+}
+
+// Y split over warps (ops/lattice_cuda.py:lattice_fwd_plan): the arguments
+// of lattice_fwd with the plan's positions a thread (1 or 2) and prefetch
+// depth after P (the instances built: 1 position with 32 frames, 2 with
+// 8; each with the stack and without it; scripts/lattice_split.py y builds
+// 16 frames at both beside them). Refuses
+// (cudaErrorInvalidValue) P below 2, more than 32 warps' positions and
+// what no instance takes.
+int lattice_fwd_split(const void* move, const void* lengths, void* stack,
+                      void* logz, int N, int T, int P, int k, int depth,
+                      float blank, void* stream) {
+    if (N < 1 || T < 1 || P < 2) return (int)cudaErrorInvalidValue;
+    const float* m = static_cast<const float*>(move);
+    const int* l = static_cast<const int*>(lengths);
+    float* a = static_cast<float*>(stack);
+    float* z = static_cast<float*>(logz);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define Y_CASE(K, D)                                                      \
+    if (k == K && depth == D)                                             \
+        return a ? launch_y<K, D, true>(m, l, a, z, N, T, P, blank, st)   \
+                 : launch_y<K, D, false>(m, l, a, z, N, T, P, blank, st);
+    Y_CASE(1, 32) Y_CASE(2, 8)
+#undef Y_CASE
+    return (int)cudaErrorInvalidValue;
 }
 
 // Z split over warps (ops/lattice_cuda.py:lattice_plan): the arguments of

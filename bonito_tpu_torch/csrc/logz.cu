@@ -40,10 +40,10 @@
 // rate. The recursion over T is serial, so this first design is
 // latency-bound: one block per batch row, one thread per state, alpha or
 // beta, alpha_t and the frame's row in shared memory, two barriers per
-// frame. On the card U and V run on the ring of csrc/logz_ring.cu where
-// ops/logz_cuda.py's logz_plan gives a plan (the same bits); these
-// kernels stay for W and X, for what the plan does not take, and as the
-// ring's oracle.
+// frame. On the card U, V and X run on the ring of csrc/logz_ring.cu
+// where ops/logz_cuda.py's logz_plan gives a plan (the same bits); these
+// kernels stay for W, for what the plan does not take, and as the ring's
+// oracle.
 
 #include "crf_frames.cuh"
 #include "logz_steps.cuh"

@@ -1,11 +1,15 @@
-// Kernels U and V for the H100: logZ of the TCN moves (with the alpha stack
-// or without it) and its gradient -- the function of the earlier kernels in
-// csrc/logz.cu, with the same f32 steps, so the same bits on every output
-// -- on the ring of csrc/ring.cuh: each frame's row staged ahead in shared
-// memory by a producer warp, one block-wide barrier a frame.
+// Kernels U, V and X for the H100: logZ of the TCN moves (with the alpha
+// stack or without it), its gradient, and the gradient of logZ of the full
+// scores -- the function of the earlier kernels in csrc/logz.cu, with the
+// same f32 steps, so the same bits on every output -- on the ring of
+// csrc/ring.cuh: each frame's row staged ahead in shared memory by a
+// producer warp, one block-wide barrier a frame.
 //
 // U replaces bonito_tpu/ops/logz_pallas.py `_fwd_kernel_tcn` (and
-// `_fwd_kernel_tcn_nockpt`: U without its stack), V `_bwd_kernel_tcn`. The
+// `_fwd_kernel_tcn_nockpt`: U without its stack), V `_bwd_kernel_tcn`, X
+// `_bwd_kernel` (full scores [N, T, 5S] with a stay plane: FullFrame of
+// csrc/crf_frames.cuh, state s's stay at column 5s, its move from
+// predecessor j*R + s/4 at 5s + 1 + j). The
 // recurrences and the layout of the moves are in csrc/logz.cu (TcnFrame of
 // csrc/crf_frames.cuh: column (b*nb + j)*R + r is the move into state
 // s = r*nb + b from predecessor j*R + r; the stay is the constant blank).
@@ -53,6 +57,31 @@
 // Each state's f32 steps are the earlier kernel's whatever thread takes
 // them (the sums over j or b in order 0..3, then lse2), so every assignment
 // of states to threads gives the same bits.
+//
+// X is V's kernel for the full scores' layout. A slot holds a frame's 5S
+// scores and its alpha row (24,576 B at S 1024 in f32, 8 of them 204,864 B
+// with beta and the mbarriers); it is read again by the frame's own
+// gradient pass, so it is refilled one frame later than V's. The chain's
+// consumers hold V's predecessors and read the next frame's chain values
+// (16 moves and 4 stays a thread at K 4) during a frame, the lanes of a
+// warp on four predecessors j at once (lane q's k-th read takes j = (k +
+// q/8) mod 4): the moves into 4q + b lie 20 words apart between blocks q,
+// so one j for the whole warp is a 4-way bank conflict. The gradient is
+// one pass over the frame's 5S columns in the scores' order by every
+// consumer thread, more of them than the chain has (one column a thread,
+// up to 384: ops/logz_cuda.py's X_CONSUMERS), consecutive threads on
+// consecutive columns (coalesced stores, the stay's gradient in the same
+// row), from the slot and beta_{t+1}'s parity buffer, which the frame's
+// barrier has completed: no barrier more. What bounds X at hac training
+// shapes: the bytes (2.6 GB of f32 scores in, as many out, 0.52 GB of
+// stack), 1.72 ms at the card's rate; what paces it there and at sup (32
+// rows, one SM each): the per-frame issue of the pass and the chain, their
+// exps and logs (a third of the time: scripts/logz_split.py x). Measured
+// and not kept (PERF.md): V's lane layout; the chain's warps out of the
+// gradient's pass (at S 1024 slower at every count of consumers: the pass
+// sets the pace; at S 64 none faster than the plan); the alpha row in four pieces with 4 words of padding each
+// against the pass's 4-way conflicts in its reads of alpha[j*R + s/4]
+// (four bulk copies more a frame: slower).
 
 #include "crf_frames.cuh"
 #include "logz_steps.cuh"
@@ -396,6 +425,168 @@ logz_bwd_ring_kernel(const In* __restrict__ moves,    // [N, T, 4S]
     if (lcut(LCUT_STORES) && sink == 0.125f) grad[row0 * NB * S] = Out(sink);
 }
 
+// --------------------------------------------------------------- kernel X
+// the most threads a CTA of X has: 20 consumer warps and the producer
+// (at most 97 registers a thread; the instances take 51 and 90)
+constexpr int X_THREADS = 640 + 32;
+
+// shared memory of X: the mbarriers, beta of two parities and the ring of
+// slots, each a frame's 5S scores and its row of the alpha stack
+__host__ __device__ inline size_t logz_full_bwd_smem(int S, int ring,
+                                                     size_t in_bytes) {
+    return logz_head(ring) + (size_t)8 * S
+        + ring * ((NB + 1) * S * in_bytes + (size_t)4 * S);
+}
+
+// kernel X: `nc` consumer threads (whole warps), K predecessors a thread
+// for the chain's first S / K of them, every one of them in the gradient's
+// pass
+template <typename In, typename Out, bool ROUND, int K>
+__global__ void __launch_bounds__(X_THREADS, 1)
+logz_full_bwd_ring_kernel(const In* __restrict__ scores,   // [N, T, 5S]
+                          const float* __restrict__ stack, // [N, T, S]
+                          const float* __restrict__ logz,  // [N]
+                          const float* __restrict__ g,     // [N]
+                          Out* __restrict__ grad,          // [N, T, 5S]
+                          int T, int S, int nc, int ring)
+{
+    extern __shared__ __align__(16) unsigned char logz_smem[];
+    const int R = S / NB, W = (NB + 1) * S;
+    const unsigned row_bytes = (unsigned)(W * sizeof(In));
+    const unsigned slot_bytes = row_bytes + 4u * S;
+    uint64_t* full = reinterpret_cast<uint64_t*>(logz_smem);
+    float* beta = reinterpret_cast<float*>(logz_smem + logz_head(ring));
+    unsigned char* rows = reinterpret_cast<unsigned char*>(beta + 2 * S);
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const int n = blockIdx.x;
+    const size_t row0 = (size_t)n * T;
+
+    // beta_T = 0 in parity 0
+    for (int i = tid; i < S; i += blockDim.x) beta[i] = 0.f;
+    if (tid == nc) init_full(full, ring);
+    __syncthreads();
+
+    if (w == nc / 32) {
+        // --------------------------------------------------- producer warp
+        int issued = 0;  // frames i = 0, 1, ... (t = T-1-i) in the ring
+        auto issue = [&](int upto) {
+            for (; issued < upto; ++issued) {
+                const int s = issued % ring;
+                const size_t f = row0 + T - 1 - issued;
+                if (!lcut(LCUT_WAITS))
+                    fill(full + s, rows + (size_t)s * slot_bytes, slot_bytes,
+                         issued >= ring, scores + f * W, row_bytes,
+                         stack + f * S, 4u * S);
+            }
+        };
+        if (lane == 0) issue(min(ring, T));
+        for (int i = 0; i < T; ++i) {
+            // frame i's slot, read by its own gradient pass, is free
+            __syncthreads();
+            if (lane == 0) issue(min(T, i + 1 + ring));
+        }
+        return;
+    }
+
+    // ------------------------------------------------------------ consumers
+    const bool active = tid < S / K;
+    const int i0 = active ? tid : 0;
+    // V's predecessors, j*R + q for j = j0 .. j0 + K-1, taken in the order
+    // j0 + (k + q/8) % K: at K 4 the lanes of a warp read four j at once,
+    // so that a read of the moves into 4q + b (word 5(4q + b) + 1 + j: 8
+    // blocks q cover 8 banks, 4 apart) covers the 32 banks
+    const int q = i0 % R, j0 = (i0 / R) * K;
+    auto pj = [&](int k) { return j0 + ((k + (q >> 3)) & (K - 1)); };
+    const float lz = logz[n], gg = g[n];
+    float sink = 0.f;  // what the gradient's stores take (their cut)
+    // the chain's values of a frame: the moves out of its predecessors
+    // into 4q + b, and their stays
+    auto read_chain = [&](const unsigned char* slot, float (&mv)[NB][K],
+                          float (&st)[K]) {
+        const In* row = reinterpret_cast<const In*>(slot);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int j = pj(k);
+            st[k] = load_score<In, ROUND>(row + (j * R + q) * (NB + 1));
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+                mv[b][k] = load_score<In, ROUND>(
+                    row + (NB * q + b) * (NB + 1) + 1 + j);
+        }
+    };
+    // the next frame's slot: frame min(i + 1, T - 1)
+    Cursor cur = {0, 0, ring};
+    // frame i (t = T-1-i) in slot `here`: the chain from its values in mv
+    // and st, the gradient from its slot, the next frame's chain values
+    // read into mvn and stn on the way
+    auto frame = [&](int i, int here, const float* bp, float* bn,
+                     const float (&mv)[NB][K], const float (&st)[K],
+                     float (&mvn)[NB][K], float (&stn)[K]) {
+        const int t = T - 1 - i;
+        if (!lcut(LCUT_WAITS))
+            mbar_wait(full + cur.slot, (unsigned)cur.phase);
+        // beta_t of its predecessors
+        float Bs[NB], Bp[K], nxt[K];
+        load_k<NB>(bp + NB * q, Bs);
+#pragma unroll
+        for (int k = 0; k < K; ++k) Bp[k] = bp[pj(k) * R + q];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            float mo[NB], mm = -INFINITY;
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+                mo[b] = mv[b][k] + Bs[b];
+                mm = fmaxf(mm, mo[b]);
+            }
+            float sum = 0.f;
+#pragma unroll
+            for (int b = 0; b < NB; ++b) sum += exp_f(mo[b] - mm);
+            nxt[k] = lse2(st[k] + Bp[k], mm + log_f(sum));
+        }
+        // the edge posteriors x g over the frame's columns, in the scores'
+        // order: the stay (alpha_t[s] + stay) + beta[s], a move
+        // (move + alpha_t[j*R + s/4]) + beta[s], as the earlier kernel
+        const unsigned char* slot = rows + (size_t)here * slot_bytes;
+        const In* row = reinterpret_cast<const In*>(slot);
+        const float* al = reinterpret_cast<const float*>(slot + row_bytes);
+        Out* dst = grad + (row0 + t) * W;
+#pragma unroll 4
+        for (int col = tid; col < W; col += nc) {
+            const int s = col / (NB + 1), jj = col - s * (NB + 1) - 1;
+            const float x = load_score<In, ROUND>(row + col);
+            const float e = jj < 0 ? (al[s] + x) + bp[s]
+                                   : (x + al[jj * R + s / NB]) + bp[s];
+            const float v = exp_f(e - lz) * gg;
+            if (lcut(LCUT_STORES))
+                sink += v;
+            else
+                store_grad<Out, ROUND>(dst + col, v);
+        }
+        read_chain(rows + (size_t)cur.slot * slot_bytes, mvn, stn);
+        if (active) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) bn[pj(k) * R + q] = nxt[k];
+        }
+        if (i + 2 < T) cur.next();
+        __syncthreads();
+    };
+    float mv0[NB][K], mv1[NB][K], st0[K], st1[K];
+    if (!lcut(LCUT_WAITS)) mbar_wait(full, 0u);
+    read_chain(rows, mv0, st0);
+    if (T > 1) cur.next();
+    float* const b0 = beta;
+    float* const b1 = beta + S;
+    int i = 0, here = 0;
+    for (; i + 1 < T; i += 2) {
+        frame(i, here, b0, b1, mv0, st0, mv1, st1);
+        here = here + 1 == ring ? 0 : here + 1;
+        frame(i + 1, here, b1, b0, mv1, st1, mv0, st0);
+        here = here + 1 == ring ? 0 : here + 1;
+    }
+    if (i < T) frame(i, here, b0, b1, mv0, st0, mv1, st1);
+    if (lcut(LCUT_STORES) && sink == 0.125f) grad[row0 * W] = Out(sink);
+}
+
 // S = 4**k, 4 to 1024; K 1 or 4 states a thread within LOGZ_THREADS; a
 // ring of 2 (a frame's row and the next one's) to RING_MAX
 bool bad_logz_ring(int N, int T, int S, int K, int ring) {
@@ -435,6 +626,40 @@ int launch_bwd(const void* moves, const void* stack, const void* logz,
         static_cast<const float*>(logz), static_cast<const float*>(g),
         static_cast<Out*>(grad), T, S, ring, blank);
     return (int)cudaGetLastError();
+}
+
+template <typename In, typename Out, bool ROUND, int K>
+int launch_full_bwd(const void* scores, const void* stack, const void* logz,
+                    const void* g, void* grad, int N, int T, int S, int nc,
+                    int ring, cudaStream_t stream) {
+    const size_t smem = logz_full_bwd_smem(S, ring, sizeof(In));
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    auto kernel = logz_full_bwd_ring_kernel<In, Out, ROUND, K>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<N, nc + 32, smem, stream>>>(
+        static_cast<const In*>(scores), static_cast<const float*>(stack),
+        static_cast<const float*>(logz), static_cast<const float*>(g),
+        static_cast<Out*>(grad), T, S, nc, ring);
+    return (int)cudaGetLastError();
+}
+
+template <typename In, typename Out>
+int full_bwd_for(int round, int K, const void* scores, const void* stack,
+                 const void* logz, const void* g, void* grad, int N, int T,
+                 int S, int nc, int ring, cudaStream_t st) {
+    if (round)
+        return K == 4 ? launch_full_bwd<In, Out, true, 4>(
+                            scores, stack, logz, g, grad, N, T, S, nc, ring,
+                            st)
+                      : launch_full_bwd<In, Out, true, 1>(
+                            scores, stack, logz, g, grad, N, T, S, nc, ring,
+                            st);
+    return K == 4 ? launch_full_bwd<In, Out, false, 4>(
+                        scores, stack, logz, g, grad, N, T, S, nc, ring, st)
+                  : launch_full_bwd<In, Out, false, 1>(
+                        scores, stack, logz, g, grad, N, T, S, nc, ring, st);
 }
 
 template <typename In, bool ROUND, bool STACK>
@@ -523,6 +748,35 @@ int logz_tcn_bwd_ring(const void* moves, int is_f32, int round,
                                    T, S, ring, blank, st)
         : bwd_round<bf16, bf16>(round, k, moves, stack, logz, g, grad, N,
                                     T, S, ring, blank, st);
+}
+
+// kernel X on a ring of `ring` frames, `k` predecessors a thread for the
+// chain's first S / k of `consumers` consumer threads (whole warps, at
+// most 640), the gradient's pass by all of them: as logz_bwd with is_full
+// 1 (scores bf16, or f32 when is_f32; each frame's row of 5S scores a
+// whole number of 16-byte pieces)
+int logz_full_bwd_ring(const void* scores, int is_f32, int round,
+                       const void* stack, const void* logz, const void* g,
+                       void* grad, int out_f32, int N, int T, int S, int k,
+                       int consumers, int ring, void* stream) {
+    if (bad_logz_ring(N, T, S, k, ring) || !aligned16(scores)
+        || !aligned16(stack)
+        || ((NB + 1) * S * (is_f32 ? 4 : 2)) % 16 != 0
+        || consumers % 32 != 0 || consumers < logz_consumers(S, k)
+        || consumers + 32 > X_THREADS)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (is_f32)
+        return out_f32
+            ? full_bwd_for<float, float>(round, k, scores, stack, logz, g,
+                                         grad, N, T, S, consumers, ring, st)
+            : full_bwd_for<float, bf16>(round, k, scores, stack, logz, g,
+                                        grad, N, T, S, consumers, ring, st);
+    return out_f32
+        ? full_bwd_for<bf16, float>(round, k, scores, stack, logz, g, grad,
+                                    N, T, S, consumers, ring, st)
+        : full_bwd_for<bf16, bf16>(round, k, scores, stack, logz, g, grad,
+                                   N, T, S, consumers, ring, st);
 }
 
 }  // extern "C"

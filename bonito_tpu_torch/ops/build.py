@@ -142,11 +142,18 @@ SIGNATURES = {
     # moves, is_f32, round, stack, logz, g, grad, out_f32, N, T, S, states a
     # thread, ring, blank, stream
     "logz_tcn_bwd_ring": [P, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
+    # kernel X on a ring of frames: scores, is_f32, round, stack, logz, g,
+    # grad, out_f32, N, T, S, states a thread, consumer threads, ring,
+    # stream
+    "logz_full_bwd_ring": [P, I, I, P, P, P, P, I, I, I, I, I, I, I, P],
     # move, lengths, stack (or null), logz, N, T, P, blank, stream
     "lattice_fwd": [P, P, P, P, I, I, I, F, P],
     # move, stack, lengths, log|g| - logz, sign(g), dmove, N, T, P, blank,
     # stream
     "lattice_bwd": [P, P, P, P, P, P, I, I, I, F, P],
+    # kernel Y split over warps: as lattice_fwd, with positions a thread and
+    # the prefetch depth after P
+    "lattice_fwd_split": [P, P, P, P, I, I, I, I, I, F, P],
     # kernel Z split over warps: as lattice_bwd, with positions a thread and
     # the prefetch depth after P
     "lattice_bwd_split": [P, P, P, P, P, P, I, I, I, I, I, F, P],

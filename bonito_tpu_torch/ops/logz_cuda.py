@@ -12,15 +12,16 @@ read the decode layout: moves [N, T, nb*S], each frame's columns in
 scores [N, T, S*(nb+1)] with a stay plane. The recursion over T is
 serial: one CTA per batch row, one recursion step per frame.
 
-On the card U and V run on the ring of ``csrc/logz_ring.cu`` (each
+On the card U, V and X run on the ring of ``csrc/logz_ring.cu`` (each
 frame's row staged ahead in shared memory by a producer warp, 1 or 4
 states a consumer thread, one barrier a frame) where ``logz_plan`` gives a
-plan; ``tcn_forward.plan`` and ``tcn_backward.plan`` hold the last call's.
-The earlier kernels of ``csrc/logz.cu`` (one thread per state, the frame's
-row loaded when the frame starts) run where it gives None (pointers that
-are not 16-byte aligned), for W and X, and in
-``tcn_forward_old_kernel``/``tcn_backward_old_kernel``, which count no
-launch; every output of the ring equals theirs bit for bit.
+plan; ``tcn_forward.plan``, ``tcn_backward.plan`` and
+``full_backward.plan`` hold the last call's. The earlier kernels of
+``csrc/logz.cu`` (one thread per state, the frame's row loaded when the
+frame starts) run where it gives None (pointers that are not 16-byte
+aligned, X's rows of bf16 at S 4), for W, and in the ``*_old_kernel``
+wrappers, which count no launch; every output of the ring equals theirs
+bit for bit.
 
 Each wrapper launches a kernel for a CUDA tensor and raises for anything
 else; it never runs the plain version.
@@ -42,6 +43,13 @@ STATES_PER_THREAD = {4: 1, 16: 1, 64: 1, 256: 1, 1024: 4}
 # the most threads a CTA of the ring has (``LOGZ_THREADS``): 8 consumer
 # warps and the producer
 THREADS = 288
+# kernel X's consumer threads by S (the first S / k of them also take the
+# chain; all of them the gradient's pass over the frame's 5S columns): one
+# column a thread up to 384 threads, as measured fastest at S 64 and 1024
+# (scripts/logz_split.py x on an H100: 320 and 384 threads; 256 not
+# measured), within the C entry's ``X_THREADS`` a CTA (csrc/logz_ring.cu)
+X_CONSUMERS = {4: 32, 16: 96, 64: 320, 256: 384, 1024: 384}
+X_THREADS = 640 + 32
 
 
 def ring_consumers(S, k):
@@ -49,42 +57,51 @@ def ring_consumers(S, k):
     return -(-(S // k) // 32) * 32
 
 
-def logz_smem(S, ring, dtype, backward):
-    """Shared memory of one CTA of the ring kernels (``logz_fwd_smem`` /
-    ``logz_bwd_smem`` of csrc/logz_ring.cu): the mbarriers, alpha (U) or
-    beta (V) of two parities, and the ring of slots: a frame's 4S moves in
-    ``dtype``, and for V also its row of the alpha stack (4S bytes)."""
+def logz_smem(S, ring, dtype, backward, full=False):
+    """Shared memory of one CTA of the ring kernels (``logz_fwd_smem``,
+    ``logz_bwd_smem`` and ``logz_full_bwd_smem`` of csrc/logz_ring.cu): the
+    mbarriers, alpha (U) or beta (V, X) of two parities, and the ring of
+    slots: a frame's 4S moves (5S scores when ``full``) in ``dtype``, and
+    for V and X also its row of the alpha stack (4S bytes)."""
     head = (ring * 8 + 15) // 16 * 16
-    row = NB * S * dtype.itemsize
+    row = (NB + 1 if full else NB) * S * dtype.itemsize
     return head + 8 * S + ring * (row + (4 * S if backward else 0))
 
 
-def logz_plan(N, T, S, dtype, sms=None, aligned=True):
-    """The plan of kernels U and V on the ring (``csrc/logz_ring.cu``) for
-    moves [N, T, 4S] of ``dtype`` (what ``_check`` takes: bf16 or f32, S in
-    ``STATES``) on a card of ``sms`` SMs, or None where a pointer is not
-    16-byte aligned (``aligned`` false: the ring's bulk copies need it);
-    then the earlier kernels run. One CTA per batch row: S / k consumer
-    threads of k states each (k by S, ``STATES_PER_THREAD``; rounded up to
-    whole warps) and a producer warp, rings of ``RING`` frames."""
-    if not aligned:
+def logz_plan(N, T, S, dtype, sms=None, aligned=True, full=False):
+    """The plan of kernels U and V (X with ``full``: scores [N, T, 5S]) on
+    the ring (``csrc/logz_ring.cu``) for moves [N, T, 4S] of ``dtype``
+    (what ``_check`` takes: bf16 or f32, S in ``STATES``) on a card of
+    ``sms`` SMs, or None where a pointer is not 16-byte aligned
+    (``aligned`` false) or, for X, a frame's row of scores is no whole
+    number of 16-byte pieces (bf16 at S 4: 40 B): the ring's bulk copies
+    need both; then the earlier kernels run. One CTA per batch row: S / k
+    consumer threads of k states each (k by S, ``STATES_PER_THREAD``;
+    rounded up to whole warps) and a producer warp, rings of ``RING``
+    frames. With ``full`` the consumers are ``X_CONSUMERS``' (the first S
+    / k of them take the chain) and the forward part, W's, is None: W runs
+    the earlier kernel."""
+    if not aligned or (full and (NB + 1) * S * dtype.itemsize % 16):
         return None
     k = STATES_PER_THREAD[S]
-    consumers = ring_consumers(S, k)
+    consumers = X_CONSUMERS[S] if full else ring_consumers(S, k)
     plan = {"threads": consumers + 32, "consumer_threads": consumers,
             "states_per_thread": k, "ctas": N,
             "waves": None if sms is None else -(-N // sms)}
     for name, backward in (("fwd", False), ("bwd", True)):
-        plan[name] = {"ring": RING,
-                      "smem": logz_smem(S, RING, dtype, backward)}
+        plan[name] = None if full and not backward else {
+            "ring": RING, "smem": logz_smem(S, RING, dtype, backward, full)}
     return plan
 
 
-def logz_entry(plan, backward):
-    """The C entry a plan of U or V launches: the ring's, or the earlier
-    kernel's where the plan is None."""
-    if plan is None:
+def logz_entry(plan, backward, full=False):
+    """The C entry a plan of U, V, W or X (``full``) launches: the
+    ring's, or the earlier kernel's where the plan, or its part for the
+    pass, is None."""
+    if plan is None or plan["bwd" if backward else "fwd"] is None:
         return "logz_bwd" if backward else "logz_fwd"
+    if full:
+        return "logz_full_bwd_ring"
     return "logz_tcn_bwd_ring" if backward else "logz_tcn_fwd_ring"
 
 
@@ -116,41 +133,38 @@ def _check_f32(name, device, **tensors):
 
 
 def _plan(counter, scores, full, *tensors):
-    """The plan a counted launch of U or V takes (recorded in
-    ``counter.plan``): None for W and X, and where ``counter`` is None (the
-    comparisons' route, which counts nothing)."""
+    """The plan a counted launch of U, V, W or X takes (recorded in
+    ``counter.plan``; W's part is always None); None where ``counter`` is
+    None (the comparisons' route, which counts nothing)."""
     if counter is None:
         return None
-    plan = None
-    if not full:
-        N, T, C = scores.shape
-        plan = logz_plan(
-            N, T, C // NB, scores.dtype,
-            torch.cuda.get_device_properties(scores.device)
-            .multi_processor_count,
-            aligned=all(t.data_ptr() % 16 == 0
-                        for t in (scores, *tensors) if t is not None))
-        counter.plan = plan
+    N, T, C = scores.shape
+    plan = logz_plan(
+        N, T, C // (NB + 1 if full else NB), scores.dtype,
+        torch.cuda.get_device_properties(scores.device).multi_processor_count,
+        aligned=all(t.data_ptr() % 16 == 0
+                    for t in (scores, *tensors) if t is not None), full=full)
+    counter.plan = plan
     counter.launches += 1
     return plan
 
 
 def _forward(counter, name, scores, full, blank, round_bf16, with_stack):
     """U's or W's checks and launch: U on the ring where ``logz_plan``
-    gives a plan, the earlier kernel elsewhere (``_plan``)."""
+    gives a plan, the earlier kernel elsewhere and for W."""
     N, T, S = _check(scores, full, name)
     lib = build.library()
     dev = scores.device
     stack = torch.empty(N, T, S, device=dev) if with_stack else None
     logz = torch.empty(N, device=dev)
     plan = _plan(counter, scores, full, stack)
+    entry = logz_entry(plan, False, full)
+    ring = entry != "logz_fwd"
     args = [scores.data_ptr(), int(scores.dtype == torch.float32)]
-    args += [] if plan is not None else [int(full)]
+    args += [] if ring else [int(full)]
     args += [int(round_bf16), None if stack is None else stack.data_ptr(),
              logz.data_ptr(), N, T, S]
-    args += [] if plan is None else [plan["states_per_thread"],
-                                     plan["fwd"]["ring"]]
-    entry = logz_entry(plan, False)
+    args += [plan["states_per_thread"], plan["fwd"]["ring"]] if ring else []
     build.check(getattr(lib, entry)(*args, float(blank),
                                     build.stream_of(scores)), entry)
     return stack, logz
@@ -168,16 +182,18 @@ def _backward(counter, name, scores, full, stack, logz, g, blank,
     lib = build.library()
     grad = torch.empty(scores.shape, dtype=out_dtype, device=scores.device)
     plan = _plan(counter, scores, full, stack, grad)
+    entry = logz_entry(plan, True, full)
+    ring = entry != "logz_bwd"
     args = [scores.data_ptr(), int(scores.dtype == torch.float32)]
-    args += [] if plan is not None else [int(full)]
+    args += [] if ring else [int(full)]
     args += [int(round_bf16), stack.data_ptr(), logz.data_ptr(),
              g.data_ptr(), grad.data_ptr(), int(out_dtype == torch.float32),
              N, T, S]
-    args += [] if plan is None else [plan["states_per_thread"],
-                                     plan["bwd"]["ring"]]
-    entry = logz_entry(plan, True)
-    build.check(getattr(lib, entry)(*args, float(blank),
-                                    build.stream_of(scores)), entry)
+    args += [plan["states_per_thread"]] if ring else []
+    args += [plan["consumer_threads"]] if entry == "logz_full_bwd_ring" else []
+    args += [plan["bwd"]["ring"]] if ring else []
+    args += [] if entry == "logz_full_bwd_ring" else [float(blank)]
+    build.check(getattr(lib, entry)(*args, build.stream_of(scores)), entry)
     return grad
 
 
@@ -222,9 +238,18 @@ def full_forward(scores, round_bf16=True, with_stack=True):
 
 
 def full_backward(scores, stack, logz, g, round_bf16=True, out_dtype=None):
-    """Kernel X: d logZ / d scores x g, [N, T, (nb+1)*S]."""
+    """Kernel X: d logZ / d scores x g, [N, T, (nb+1)*S]; on the ring where
+    ``logz_plan(..., full=True)`` gives a plan (recorded in ``.plan``),
+    else the earlier kernel."""
     return _backward(full_backward, "kernel X", scores, True, stack, logz, g,
                      0.0, round_bf16, out_dtype)
+
+
+def full_backward_old_kernel(scores, stack, logz, g, round_bf16=True,
+                             out_dtype=None):
+    """X's earlier kernel, as ``tcn_forward_old_kernel``."""
+    return _backward(None, "kernel X", scores, True, stack, logz, g, 0.0,
+                     round_bf16, out_dtype)
 
 
 tcn_forward.launches = 0
@@ -233,3 +258,5 @@ tcn_forward.plan = None  # the last call's (None: the earlier kernel)
 tcn_backward.plan = None
 full_forward.launches = 0
 full_backward.launches = 0
+full_forward.plan = None  # W's part is None: the earlier kernel
+full_backward.plan = None

@@ -124,13 +124,15 @@ PyTorch built for CUDA. In order, it:
     no_grad as validation does (U and Y without their stacks); each path
     with its launch counts, held against the same path on the plain
     versions, with its loss, time, train-loss samples/s and peak memory
-    (``loss_tcn`` also with U and V on their earlier kernels); then U to Z
-    alone against their plain versions at hac, fast and sup training
-    shapes, with their times and bounds at each, U and V on their ring
-    (``logz_plan`` gives a plan at each) and held against their earlier
-    kernels bit for bit (stack, logZ, no-stack logZ, gradient), Z split
-    over warps (``lattice_plan`` gives a plan at each) held against its
-    earlier kernel bit for bit, with those kernels' times;
+    (``loss_tcn`` also with U and V, and with Y, on their earlier kernels;
+    ``loss`` in turns with X on its earlier kernel and on the ring); then
+    U to Z alone against their plain versions at hac, fast and sup
+    training shapes, with their times and bounds at each, U, V and X on
+    their ring (``logz_plan`` gives a plan at each) and held against their
+    earlier kernels bit for bit (stack, logZ, no-stack logZ, gradients), Y
+    and Z split over warps (``lattice_fwd_plan`` and ``lattice_plan`` give
+    a plan at each) held against their earlier kernels bit for bit (Y's
+    stack, logZ and no-stack logZ, Z's dmove), with those kernels' times;
 10. runs the LSTM-CRF train step: R and S (the LSTM recurrence of a train
     step and its backward through time) against their plain versions at
     hac and fast training shapes (N 128; T 1000, H 1024 and T 1200, H 96),
@@ -144,8 +146,9 @@ PyTorch built for CUDA. In order, it:
     moved, and one step's gradients through the kernels against the same
     through the plain versions; its time, train samples/s and peak memory,
     and the step with U and V on their earlier kernels and on the ring in
-    turns, and with Z on its earlier kernel (the parent's route) and split
-    over warps in turns; one fast train step (R and S at H 96); and ``python -m
+    turns, with Z, and with Y (the parent's route), on its earlier kernel
+    and split over warps in turns; one fast train step (R and S at H 96);
+    and ``python -m
     bonito_tpu_torch train`` (in this process) for one epoch of hac on a
     generated npy set (3 batches of 128 x 6000, one validation batch, which
     runs A, U, Y, B and C), checking its checkpoint and logs;
@@ -164,8 +167,8 @@ PyTorch built for CUDA. In order, it:
     them), and one step's gradients through the kernels against the same
     through the plain versions; its time, sup train samples/s and peak
     memory, and the same step's time with H, then O, on its earlier
-    kernel, with U and V on theirs and on the ring in turns, and with Z on
-    its earlier kernel and split over warps in turns; one
+    kernel, with U and V on theirs and on the ring in turns, and with Z,
+    and with Y, on its earlier kernel and split over warps in turns; one
     epoch of ``python -m bonito_tpu_torch train --config
     dna_r10.4.1_e8.2_400bps_sup@v5.0`` on a generated npy set (2 batches of
     32 x 12288, one validation batch: P, 18 x K, U, Y, B, C); and H's and
@@ -178,8 +181,9 @@ PyTorch built for CUDA. In order, it:
     earlier kernel's time; B's and C's with their plan, their earlier
     kernels' times and difference, and the device steps on both; M's and
     Q's likewise, with the reverse paths' device steps and the parent's;
-    U's, V's and Z's with their plan, their earlier kernels' times at hac,
-    fast and sup training shapes, and the train steps on both).
+    U's, V's, X's, Y's and Z's with their plan, their earlier kernels'
+    times at hac, fast and sup training shapes, and the loss paths and
+    train steps on both).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -421,7 +425,7 @@ def ptxas_summary(report):
                              r"window_bwd_rows_kernel|"
                              r"local_attention_(?:tc|f32)_kernel|"
                              r"relayout_transpose|relayout_gather|"
-                             r"(?:logz|lattice)_(?:fwd|bwd)"
+                             r"(?:logz|lattice)_(?:full_)?(?:fwd|bwd)"
                              r"(?:_ring|_split)?_kernel|"
                              r"decode_(?:fwd|bwd)_ring_kernel|"
                              r"decode_fused_(?:fwd|bwd)_ring|"
@@ -442,6 +446,8 @@ def ptxas_summary(report):
                             m.group(1))
             zsplit = re.search(r"lattice_bwd_split_kernelILi(\d+)ELi(\d+)EE",
                                m.group(1))
+            ysplit = re.search(r"lattice_fwd_split_kernelILi(\d+)ELi(\d+)E"
+                               r"Lb(\d)EE", m.group(1))
             jring = re.search(r"decode_fused_(?:fwd|bwd)_ringILi(\d+)ELi"
                               r"(\d+)EE", m.group(1))
             if mma:
@@ -453,6 +459,10 @@ def ptxas_summary(report):
             elif zsplit:
                 name = (f"{name}<{zsplit.group(1)} positions a thread, "
                         f"{zsplit.group(2)} frames ahead>")
+            elif ysplit:
+                name = (f"{name}<{ysplit.group(1)} positions a thread, "
+                        f"{ysplit.group(2)} frames ahead, stack="
+                        f"{ysplit.group(3)}>")
             elif window:
                 name = (f"{name}<bf16, head dim up to {window.group(1)}, "
                         f"lse={window.group(2)}>")
@@ -1294,14 +1304,15 @@ def device_step(np, model, reads, make_compute_fn, chunk, **kw):
 
 class earlier_kernel:
     """K and H (``rule`` "window_plan") or O ("window_bwd_plan") of
-    ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), U and V
-    ("logz_plan" of ``logz_cuda``), F ("fused_plan" of ``lstm_fused_cuda``),
-    G and J ("fused_decode_plan" of ``decode_fused_cuda``; G or J alone
-    with ``part`` "fwd" or "bwd") or Z ("lattice_plan" of
-    ``lattice_cuda``) on their earlier kernels at every shape, for the
-    comparisons of phases 7 and 9 to 11: the shape rule swapped for one
-    that gives no plan (or none for ``part``). The launch counts count as
-    on the redesigned kernels."""
+    ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), U, V
+    and X ("logz_plan" of ``logz_cuda``: U and V on the TCN moves, X on the
+    full scores of ``loss``), F ("fused_plan" of ``lstm_fused_cuda``), G
+    and J ("fused_decode_plan" of ``decode_fused_cuda``; G or J alone with
+    ``part`` "fwd" or "bwd"), Z ("lattice_plan" of ``lattice_cuda``) or Y
+    alone ("lattice_fwd_plan" of ``lattice_cuda``) on their earlier kernels
+    at every shape, for the comparisons of phases 7 and 9 to 11: the shape
+    rule swapped for one that gives no plan (or none for ``part``). The
+    launch counts count as on the redesigned kernels."""
 
     def __init__(self, attention_cuda, rule="window_plan", part=None):
         self.mod, self.name, self.part = attention_cuda, rule, part
@@ -1493,13 +1504,14 @@ def vs_old_kernel(torch, *pairs):
 def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
                       g_lat, time_plain):
     """Each of U to Z on the given tensors against its plain version on the
-    same inputs, and its time (the plain version's when ``time_plain``); U
-    and V, on the ring where ``logz_plan`` gives a plan, also against their
-    earlier kernels bit for bit, and those kernels' times. Returns {key:
-    {"err", "ok", "ms", "plain_ms", "bytes", "ops"}, with U's and V's
-    "plan", "vs_old" (bit for bit), "diff_old" (max |diff|) and
-    "old_kernel_ms"}, Z's likewise against its earlier kernel) and U's
-    time without its stack."""
+    same inputs, and its time (the plain version's when ``time_plain``); U,
+    V and X, on the ring where ``logz_plan`` gives a plan, and Y and Z,
+    split over warps where ``lattice_fwd_plan`` and ``lattice_plan`` give
+    one, also against their earlier kernels bit for bit, and those kernels'
+    times. Returns {key: {"err", "ok", "ms", "plain_ms", "bytes", "ops"},
+    with U's, V's, X's, Y's and Z's "plan", "vs_old" (bit for bit),
+    "diff_old" (max |diff|) and "old_kernel_ms"} and U's time without its
+    stack."""
     logz, logz_cuda, lattice, lattice_cuda = mods
     N, T, Cm = moves.shape
     S = Cm // 4
@@ -1560,25 +1572,52 @@ def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
                     bytes=scores.numel() * scores.element_size()
                     + stack.numel() * 4 + N * 4, ops=32 * N * T * S)
     grad = logz_cuda.full_backward(scores, stack, lz, g)
+    plan_x = logz_cuda.full_backward.plan
     ref, plain_ms = plain_time(lambda: logz.full_backward_plain(
         scores, ref_stack, ref_lz, g, out_dtype=scores.dtype))
     err, ok, _ = grad_close(torch, grad, ref)
+    old_grad = logz_cuda.full_backward_old_kernel(scores, stack, lz, g)
+    same_x, diff_x = vs_old_kernel(torch, (grad, old_grad))
+    del old_grad
     res["X"] = dict(err=err, ok=ok, plain_ms=plain_ms, ms=cuda_ms(
         lambda: logz_cuda.full_backward(scores, stack, lz, g), reps=3),
         bytes=2 * scores.numel() * scores.element_size() + stack.numel() * 4
-        + N * 8, ops=60 * N * T * S)
+        + N * 8, ops=60 * N * T * S, plan=plan_x, vs_old=same_x,
+        diff_old=diff_x, old_kernel_ms=cuda_ms(
+            lambda: logz_cuda.full_backward_old_kernel(scores, stack, lz, g),
+            reps=3))
     del stack, ref_stack, grad, ref
 
     stack, lz = lattice_cuda.lattice_forward(move, lengths, blank)
+    plan_y = lattice_cuda.lattice_forward.plan
     (ref_stack, ref_lz), plain_ms = plain_time(
         lambda: lattice.forward_plain(move, lengths, blank))
     e1, ok1 = f32_close(stack, ref_stack)
     e2, ok2 = f32_close(lz, ref_lz)
-    res["Y"] = dict(err=max(e1, e2), ok=ok1 and ok2, plain_ms=plain_ms,
+    _, lz_only = lattice_cuda.lattice_forward(move, lengths, blank,
+                                              with_stack=False)
+    old_stack, old_lz = lattice_cuda.lattice_forward_old_kernel(
+        move, lengths, blank)
+    _, old_only = lattice_cuda.lattice_forward_old_kernel(
+        move, lengths, blank, with_stack=False)
+    same_y, diff_y = vs_old_kernel(torch, (stack, old_stack), (lz, old_lz),
+                                   (lz_only, old_only))
+    del old_stack
+    res["Y"] = dict(err=max(e1, e2), ok=ok1 and ok2 and torch.equal(
+        lz, lz_only), plain_ms=plain_ms,
                     ms=cuda_ms(lambda: lattice_cuda.lattice_forward(
                         move, lengths, blank), reps=3),
                     bytes=move.numel() * 4 + stack.numel() * 4 + N * 8,
-                    ops=8 * N * T * P)
+                    ops=8 * N * T * P, plan=plan_y, vs_old=same_y,
+                    diff_old=diff_y,
+                    old_kernel_ms=cuda_ms(
+                        lambda: lattice_cuda.lattice_forward_old_kernel(
+                            move, lengths, blank), reps=3),
+                    no_stack_ms=cuda_ms(lambda: lattice_cuda.lattice_forward(
+                        move, lengths, blank, with_stack=False), reps=3),
+                    no_stack_old_kernel_ms=cuda_ms(
+                        lambda: lattice_cuda.lattice_forward_old_kernel(
+                            move, lengths, blank, with_stack=False), reps=3))
     gz, sg = lattice.cotangent(g_lat, lz)
     dmove = lattice_cuda.lattice_backward(move, stack, lengths, gz, sg, blank)
     ref, plain_ms = plain_time(lambda: lattice.backward_plain(
@@ -1667,14 +1706,22 @@ def train_loss_phase(torch, hac, counters, dev):
     (train_loss, mv, train_blank), n, mem = loss_path(torch, counters,
                                                       train_step)
     loss_paths["train_loss"] = (n, mem)
-    log(f"  train_loss: Z ran on the plan "
+    log(f"  train_loss: Y ran on the plan "
+        f"{lattice_cuda.lattice_forward.plan}, Z on "
         f"{lattice_cuda.lattice_backward.plan}")
+    require(lattice_cuda.lattice_forward.plan is not None,
+            "train_loss: Y ran on its earlier kernel")
     require(lattice_cuda.lattice_backward.plan is not None,
             "train_loss: Z ran on its earlier kernel")
     (full_loss, sc), n, mem = loss_path(torch, counters, loss_step)
     loss_paths["loss"] = (n, mem)
+    log(f"  loss: X ran on the plan {logz_cuda.full_backward.plan}")
+    require(logz_cuda.full_backward.plan is not None,
+            "loss: X ran on its earlier kernel")
     valid_loss, n, mem = loss_path(torch, counters, valid_step)
     loss_paths["valid_loss"] = (n, mem)
+    require(lattice_cuda.lattice_forward.plan is not None,
+            "valid_loss: Y ran on its earlier kernel")
     own_loss = {"train_loss": {"A": 5, "U": 1, "V": 1, "Y": 1, "Z": 1},
                 "loss": {"A": 5, "W": 1, "X": 1},
                 "valid_loss": {"A": 5, "U": 1, "Y": 1}}
@@ -1710,13 +1757,25 @@ def train_loss_phase(torch, hac, counters, dev):
             return cuda_ms(lambda: hac.loss_tcn(moves_d, train_blank,
                                                 targets, t_lengths), reps=3)
     ms_train = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
+    # loss + backward with X on its earlier kernel, on the ring, and on the
+    # earlier kernel again (W runs its earlier kernel in all three)
+    ms_full_old = []
+    with earlier_kernel(logz_cuda, "logz_plan"):
+        ms_full_old.append(cuda_ms(lambda: full_loss_grad(sc_d), reps=2))
     ms_full = cuda_ms(lambda: full_loss_grad(sc_d), reps=2)
+    with earlier_kernel(logz_cuda, "logz_plan"):
+        ms_full_old.append(cuda_ms(lambda: full_loss_grad(sc_d), reps=2))
     ms_valid = valid_ms()
     # the same with U and V on their earlier kernels, then on the ring again
     with earlier_kernel(logz_cuda, "logz_plan"):
         ms_train_old = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
         ms_valid_old = valid_ms()
     ms_train_again = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
+    # and with Y on its earlier kernel (Z on its plan), then split again
+    with earlier_kernel(lattice_cuda, "lattice_fwd_plan"):
+        ms_train_y_old = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
+        ms_valid_y_old = valid_ms()
+    ms_train_y_again = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
     plain_train, plain_g = plain_path(
         lambda m: hac.loss_tcn(m, train_blank, targets, t_lengths), moves_d)
     plain_full, plain_gs = plain_path(
@@ -1752,6 +1811,13 @@ def train_loss_phase(torch, hac, counters, dev):
         f"train_loss forward + backward {ms_train_old:.4g} ms (on the ring "
         f"{ms_train:.4g}, again {ms_train_again:.4g}), valid_loss "
         f"{ms_valid_old:.4g} ms (on the ring {ms_valid:.4g})")
+    log(f"  with Y on its earlier kernel: train_loss forward + backward "
+        f"{ms_train_y_old:.4g} ms (split over warps {ms_train:.4g}, again "
+        f"{ms_train_y_again:.4g}), valid_loss {ms_valid_y_old:.4g} ms "
+        f"(split {ms_valid:.4g})")
+    log(f"  loss forward + backward in turns, X on its earlier kernel / on "
+        f"the ring / on its earlier kernel: {ms_full_old[0]:.4g} / "
+        f"{ms_full:.4g} / {ms_full_old[1]:.4g} ms")
     for name, ok in checks.items():
         require(ok, f"{name}: the kernels disagree with the plain versions")
     del plain_g, plain_gs
@@ -1803,11 +1869,23 @@ def train_loss_phase(torch, hac, counters, dev):
         log(f"    Z split over warps (plan {res['Z']['plan']}), bit for bit "
             f"the earlier kernel's: {res['Z']['vs_old']}; the earlier Z "
             f"{res['Z']['old_kernel_ms']:.4g} ms")
+        log(f"    Y split over warps (plan {res['Y']['plan']}), bit for bit "
+            f"the earlier kernel's (stack, logZ, no-stack logZ): "
+            f"{res['Y']['vs_old']}; the earlier Y "
+            f"{res['Y']['old_kernel_ms']:.4g} ms (no stack "
+            f"{res['Y']['no_stack_old_kernel_ms']:.4g}; split "
+            f"{res['Y']['no_stack_ms']:.4g})")
+        log(f"    X on the ring (plan {res['X']['plan']}), bit for bit the "
+            f"earlier kernel's: {res['X']['vs_old']}; the earlier X "
+            f"{res['X']['old_kernel_ms']:.4g} ms")
+        loss_more["Y"][f"{shape}_shape_no_stack_ms"] = res["Y"]["no_stack_ms"]
+        loss_more["Y"][f"{shape}_shape_no_stack_old_kernel_ms"] = (
+            res["Y"]["no_stack_old_kernel_ms"])
     for key, r in loss_k.items():
         require(r["ok"], f"kernel {key} at hac training shapes disagrees "
                          f"with its plain version")
         r["bound"] = bound(r["bytes"], r["ops"], H100_F32_OPS)
-    for key in "UVZ":
+    for key in "UVXYZ":
         require(loss_k[key]["vs_old"] and loss_k[key]["plan"] is not None,
                 f"kernel {key} at hac training shapes: the plan "
                 f"{loss_k[key]['plan']} ran, or differs from the earlier "
@@ -1826,9 +1904,22 @@ def train_loss_phase(torch, hac, counters, dev):
         f"{loss_k['V']['old_kernel_ms']:.4g} ms; Z split over warps (plan "
         f"{loss_k['Z']['plan']}), bit for bit the earlier Z's, which takes "
         f"{loss_k['Z']['old_kernel_ms']:.4g} ms")
+    log(f"    Y split over warps (plan {loss_k['Y']['plan']}), bit for bit "
+        f"the earlier Y's (stack, logZ, no-stack logZ), which takes "
+        f"{loss_k['Y']['old_kernel_ms']:.4g} ms (no stack "
+        f"{loss_k['Y']['no_stack_old_kernel_ms']:.4g}; split "
+        f"{loss_k['Y']['no_stack_ms']:.4g}); X on the ring (plan "
+        f"{loss_k['X']['plan']}), bit for bit the earlier X's, which takes "
+        f"{loss_k['X']['old_kernel_ms']:.4g} ms")
     loss_k["U"]["train_loss_ms"] = loss_k["V"]["train_loss_ms"] = ms_train
     loss_k["U"]["train_loss_old_kernel_ms"] = ms_train_old
     loss_k["V"]["train_loss_old_kernel_ms"] = ms_train_old
+    loss_k["Y"]["train_loss_ms"] = [ms_train, ms_train_y_again]
+    loss_k["Y"]["train_loss_old_kernel_ms"] = ms_train_y_old
+    loss_k["Y"]["valid_loss_ms"] = ms_valid
+    loss_k["Y"]["valid_loss_old_kernel_ms"] = ms_valid_y_old
+    loss_k["X"]["loss_ms"] = ms_full
+    loss_k["X"]["loss_old_kernel_ms"] = ms_full_old
     return loss_paths, loss_k, loss_more, ms_u_only, bound_u_only
 
 
@@ -2080,8 +2171,9 @@ def step_grads(torch, model, batch):
 def steps_in_turns(torch, step, batch, mod, rule):
     """A train step's ms (a warm-up, then TRAIN_STEPS steps) with the
     kernels of ``rule`` (``earlier_kernel``'s: "logz_plan" for U and V,
-    "lattice_plan" for Z) on their earlier kernels, on their plans, then on
-    the earlier kernels again: {"old": [ms, ms], "ring": [ms]}."""
+    "lattice_plan" for Z, "lattice_fwd_plan" for Y) on their earlier
+    kernels, on their plans, then on the earlier kernels again: {"old":
+    [ms, ms], "ring": [ms]}."""
     def step_ms():
         step(batch, 1.0, 2.0)
         torch.cuda.synchronize()
@@ -2211,6 +2303,7 @@ def train_step_phase(torch, counters, dev):
     res["hac"]["uv_plans"] = (logz_cuda.tcn_forward.plan,
                               logz_cuda.tcn_backward.plan)
     res["hac"]["z_plan"] = lattice_cuda.lattice_backward.plan
+    res["hac"]["y_plan"] = lattice_cuda.lattice_forward.plan
     turns = steps_in_turns(torch, step, batch, logz_cuda, "logz_plan")
     res["hac"]["uv_turns"] = turns
     log(f"  the hac train step in turns, U and V on their earlier kernels "
@@ -2220,14 +2313,22 @@ def train_step_phase(torch, counters, dev):
         f"{res['hac']['uv_plans']}")
     turns = steps_in_turns(torch, step, batch, lattice_cuda, "lattice_plan")
     res["hac"]["z_turns"] = turns
-    log(f"  the hac train step in turns, Z on its earlier kernel (the "
+    log(f"  the hac train step in turns, Z on its earlier kernel / split "
+        f"over warps: {turns['old'][0]:.4g} / {turns['ring'][0]:.4g} / "
+        f"{turns['old'][1]:.4g} ms; Z's plan {res['hac']['z_plan']}")
+    turns = steps_in_turns(torch, step, batch, lattice_cuda,
+                           "lattice_fwd_plan")
+    res["hac"]["y_turns"] = turns
+    log(f"  the hac train step in turns, Y on its earlier kernel (the "
         f"parent's route) / split over warps: {turns['old'][0]:.4g} / "
-        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms; Z's plan "
-        f"{res['hac']['z_plan']}")
+        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms; Y's plan "
+        f"{res['hac']['y_plan']}")
     require(all(p is not None for p in res["hac"]["uv_plans"]),
             "hac train step: U and V did not run on the ring")
     require(res["hac"]["z_plan"] is not None,
             "hac train step: Z ran on its earlier kernel")
+    require(res["hac"]["y_plan"] is not None,
+            "hac train step: Y ran on its earlier kernel")
     del hac, step, grads_k, grads_p, batch
     torch.cuda.empty_cache()
 
@@ -2248,6 +2349,9 @@ def train_step_phase(torch, counters, dev):
             f"fast train step: launches {launches}")
     require(math.isfinite(float(losses["loss"])) and math.isfinite(
         float(norm)), "fast train step: non-finite loss or grad norm")
+    require(lattice_cuda.lattice_forward.plan is not None
+            and lattice_cuda.lattice_backward.plan is not None,
+            "fast train step: Y or Z ran on its earlier kernel")
     res["fast"] = dict(ms=fast_ms, launches=launches)
     log(f"  fast train step (batch {TRAIN_N} x {TRAIN_CHUNK}, H 96): "
         f"{fast_ms:.4g} ms = {TRAIN_N * TRAIN_CHUNK / fast_ms * 1e3:.6g} "
@@ -2565,6 +2669,7 @@ def sup_train_phase(torch, counters, dev):
     res["step"]["uv_plans"] = (logz_cuda.tcn_forward.plan,
                                logz_cuda.tcn_backward.plan)
     res["step"]["z_plan"] = lattice_cuda.lattice_backward.plan
+    res["step"]["y_plan"] = lattice_cuda.lattice_forward.plan
     turns = steps_in_turns(torch, step, batch, logz_cuda, "logz_plan")
     res["step"]["uv_turns"] = turns
     log(f"  the sup train step in turns, U and V on their earlier kernels "
@@ -2574,14 +2679,22 @@ def sup_train_phase(torch, counters, dev):
         f"{res['step']['uv_plans']}")
     turns = steps_in_turns(torch, step, batch, lattice_cuda, "lattice_plan")
     res["step"]["z_turns"] = turns
-    log(f"  the sup train step in turns, Z on its earlier kernel (the "
+    log(f"  the sup train step in turns, Z on its earlier kernel / split "
+        f"over warps: {turns['old'][0]:.4g} / {turns['ring'][0]:.4g} / "
+        f"{turns['old'][1]:.4g} ms; Z's plan {res['step']['z_plan']}")
+    turns = steps_in_turns(torch, step, batch, lattice_cuda,
+                           "lattice_fwd_plan")
+    res["step"]["y_turns"] = turns
+    log(f"  the sup train step in turns, Y on its earlier kernel (the "
         f"parent's route) / split over warps: {turns['old'][0]:.4g} / "
-        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms; Z's plan "
-        f"{res['step']['z_plan']}")
+        f"{turns['ring'][0]:.4g} / {turns['old'][1]:.4g} ms; Y's plan "
+        f"{res['step']['y_plan']}")
     require(all(p is not None for p in res["step"]["uv_plans"]),
             "sup train step: U and V did not run on the ring")
     require(res["step"]["z_plan"] is not None,
             "sup train step: Z ran on its earlier kernel")
+    require(res["step"]["y_plan"] is not None,
+            "sup train step: Y ran on its earlier kernel")
     del model, step, grads_k, grads_p, batch
     torch.cuda.empty_cache()
     res["cli"] = train_cli(
@@ -2715,7 +2828,7 @@ def main():
     # U: bf16 or f32 moves, rounded or not, with or without the stack, 1 or
     # 4 states a thread; V: the same with a bf16 or f32 gradient
     logz_rows = [r for r in ptxas_rows if "logz_" in r
-                 and "_ring_kernel" in r]
+                 and "_ring_kernel" in r and "logz_full" not in r]
     require(len(logz_rows) == 32 and all("stack 0 B, spills 0/0 B" in r
                                          for r in logz_rows),
             f"kernels U and V on the ring have a stack frame or spills (or "
@@ -2753,6 +2866,15 @@ def main():
                                      for r in z_rows),
             f"kernel Z split over warps has a stack frame or spills (or not "
             f"four instances): {z_rows}")
+    # Y split over warps: 1 or 2 positions a thread, with the stack and
+    # without; X on the ring: bf16 or f32 in and out, rounded or not, 1 or 4
+    # predecessors a thread
+    y_rows = [r for r in ptxas_rows if "lattice_fwd_split_kernel" in r]
+    x_rows = [r for r in ptxas_rows if "logz_full_bwd_ring_kernel" in r]
+    require(len(y_rows) == 4 and len(x_rows) == 16 and all(
+        "stack 0 B, spills 0/0 B" in r for r in y_rows + x_rows),
+            f"kernel Y split over warps or X on the ring has a stack frame "
+            f"or spills (or not 4 and 16 instances): {y_rows} {x_rows}")
 
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
@@ -3894,31 +4016,36 @@ def main():
     # partition function or this lattice (torch.nn.functional.ctc_loss is
     # another function: interleaved blanks, a softmax per frame)
     src_logz = "bonito_tpu_torch/csrc/logz.cu"
-    src_logz_ring = "bonito_tpu_torch/csrc/logz_ring.cu"  # U's, V's
+    src_logz_ring = "bonito_tpu_torch/csrc/logz_ring.cu"  # U's, V's, X's
     src_lat = "bonito_tpu_torch/csrc/lattice.cu"
-    # U and V on the ring, Z split over warps: their plan, their earlier
-    # kernels' times, the loss path (U, V) and the train steps with them on
-    # the earlier kernels
-    for key in "UVZ":
+    # U, V and X on the ring, Y and Z split over warps: their plan, their
+    # earlier kernels' times, the loss paths (U, V, Y: loss_tcn; X: loss)
+    # and the train steps (U, V, Y, Z) with them on the earlier kernels
+    turn_of = {"U": "uv_turns", "V": "uv_turns", "Y": "y_turns",
+               "Z": "z_turns"}
+    for key in "UVXYZ":
         r = loss_k[key]
-        turn = "z_turns" if key == "Z" else "uv_turns"
-        hac_turns, sup_turns = train["hac"][turn], sup_train["step"][turn]
         loss_more[key].update({
             "plan": r["plan"], "old_kernel_ms": r["old_kernel_ms"],
             "max_abs_err_vs_old_kernel": max(
                 [r["diff_old"]] + [loss_more[key][f"{s}_shape_max_abs_err_"
                                                   f"vs_old_kernel"]
                                    for s in ("fast", "sup")]),
-            **({} if key == "Z" else {
-                "train_loss_ms": r["train_loss_ms"],
-                "train_loss_old_kernel_ms": r["train_loss_old_kernel_ms"]}),
-            "hac_train_step_ms": [train["hac"]["ms"]] + hac_turns["ring"],
-            "hac_train_step_old_kernel_ms": hac_turns["old"],
-            "sup_train_step_ms": [sup_train["step"]["ms"]]
-            + sup_turns["ring"],
-            "sup_train_step_old_kernel_ms": sup_turns["old"]})
-    loss_more["U"]["no_stack_old_kernel_ms"] = (
-        loss_k["U"]["no_stack_old_kernel_ms"])
+            **{k: r[k] for k in ("train_loss_ms", "train_loss_old_kernel_ms",
+                                 "valid_loss_ms", "valid_loss_old_kernel_ms",
+                                 "loss_ms", "loss_old_kernel_ms",
+                                 "no_stack_ms", "no_stack_old_kernel_ms")
+               if k in r}})
+        if key in turn_of:
+            hac_turns = train["hac"][turn_of[key]]
+            sup_turns = sup_train["step"][turn_of[key]]
+            loss_more[key].update({
+                "hac_train_step_ms": [train["hac"]["ms"]]
+                + hac_turns["ring"],
+                "hac_train_step_old_kernel_ms": hac_turns["old"],
+                "sup_train_step_ms": [sup_train["step"]["ms"]]
+                + sup_turns["ring"],
+                "sup_train_step_old_kernel_ms": sup_turns["old"]})
     for name, key, path, src, rep in (
             ("logz_tcn_fwd", "U", "train_loss", src_logz_ring,
              "bonito_tpu/ops/logz_pallas.py:246"),
@@ -3926,7 +4053,7 @@ def main():
              "bonito_tpu/ops/logz_pallas.py:293"),
             ("logz_full_fwd", "W", "loss", src_logz,
              "bonito_tpu/ops/logz_pallas.py:28"),
-            ("logz_full_bwd", "X", "loss", src_logz,
+            ("logz_full_bwd", "X", "loss", src_logz_ring,
              "bonito_tpu/ops/logz_pallas.py:82"),
             ("lattice_fwd", "Y", "train_loss", src_lat,
              "bonito_tpu/ops/lattice_pallas.py:54"),

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """
-Where the time of kernel Z goes (the PyTorch/CUDA port): the gradient of
-the alignment lattice's logZ, split over warps (``csrc/lattice.cu``:
-lattice_bwd_split), at hac's, fast's and sup's training shapes:
+Where the time of kernels Z and Y goes (the PyTorch/CUDA port): the
+gradient of the alignment lattice's logZ and its forward pass, each split
+over warps (``csrc/lattice.cu``: lattice_bwd_split, lattice_fwd_split), at
+hac's, fast's and sup's training shapes:
 
-    python3 scripts/lattice_split.py
+    python3 scripts/lattice_split.py [z | y]
 
-from the root of a checkout, on a machine with a CUDA card and nvcc. It
+(Z when no kernel is named) from the root of a checkout, on a machine with
+a CUDA card and nvcc. It
 builds ``csrc/lattice.cu`` once per variant with nvcc for sm_90a (all at
 once, ``-DLATTICE_CUT=<parts>``, into
 ``bonito_tpu_torch/build/lattice_split/``), prints each instance's
@@ -34,6 +36,14 @@ to P (as chip_smoke.py's), Y's stack from the main library:
   one 8-byte word, lane 0 polling the slot it needs (read a frame early)
   and publishing its own once the warp below has finished the frame that
   read the slot; checked bit for bit and timed at the plan's instance.
+
+``y`` does the same for Y (``ops.lattice_cuda.lattice_fwd_plan``), with
+the stack and without it (validation's instance): the earlier Y's times,
+every instance built (1 or 2 positions a thread at each prefetch depth),
+each checked against the earlier Y (stack, logZ and the no-stack logZ bit
+for bit), and the plan with each part left out (the barrier, the exps and
+logs, the stack's stores, the reads of move after the first prefetched
+frames, all of them).
 
 What a part adds is the source's time less the variant's; the cut
 variants' outputs are wrong by design and only timed. Each line gives the
@@ -63,6 +73,13 @@ VARIANTS = {"source": [], "no block barrier": ["barrier"],
 # (positions a thread, prefetch depth): the instances of lattice_bwd_split
 INSTANCES = [(k, depth) for k in lattice_cuda.Z_POSITIONS
              for depth in lattice_cuda.Z_DEPTHS[k]]
+# and of lattice_fwd_split (each with the stack and without it), with the
+# depths measured against the source's and not kept, added to every
+# library built here (``Y_EDIT``)
+Y_ENTRY = "lattice_fwd_split"
+Y_EDIT = ("    Y_CASE(1, 32) Y_CASE(2, 8)\n",
+          "    Y_CASE(1, 16) Y_CASE(1, 32) Y_CASE(2, 8) Y_CASE(2, 16)\n")
+Y_INSTANCES = [(1, 16), (1, 32), (2, 8), (2, 16)]
 RING_SOURCE = "lattice_edge_ring.cu"  # written into OUT
 # the edge ring in place of the block barrier: edits of csrc/lattice.cu
 RING_HELPERS = r"""
@@ -105,7 +122,8 @@ __device__ __forceinline__ void st_count(int* p, int v) {
 RING_EDITS = [
     ("constexpr int ZWARPS = 32;  // warps a CTA, at most\n",
      "constexpr int ZWARPS = 32;  // warps a CTA, at most\n" + RING_HELPERS),
-    ("    __shared__ float edge[2][ZWARPS];\n",
+    ("    // each warp's first position's beta, by the parity of its frame\n"
+     "    __shared__ float edge[2][ZWARPS];\n",
      "    __shared__ unsigned long long edge[ZWARPS][ZE];\n"
      "    __shared__ int count[ZWARPS];\n"),
     ("    if (lane == 0) edge[T & 1][w] = b[0];\n    __syncthreads();\n",
@@ -176,6 +194,11 @@ def ptxas_lines(report):
                       r"ILi(\d+)ELi(\d+)E", line)
         if m:
             kernel = f"Z<{m.group(1)} positions, depth {m.group(2)}>"
+        m = re.search(r"Compiling entry function '\w*lattice_fwd_split_kernel"
+                      r"ILi(\d+)ELi(\d+)ELb(\d)E", line)
+        if m:
+            kernel = (f"Y<{m.group(1)} positions, depth {m.group(2)}, "
+                      f"stack {m.group(3)}>")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if kernel and m:
@@ -187,10 +210,19 @@ def ptxas_lines(report):
     return rows
 
 
+def y_depths(cu):
+    """``csrc/lattice.cu`` with Y's other depths (``Y_EDIT``)."""
+    old, new = Y_EDIT
+    if cu.count(old) != 1:
+        raise SystemExit("lattice_split: Y's instances are not in "
+                         "csrc/lattice.cu as expected")
+    return cu.replace(old, new)
+
+
 def ring_source():
-    """``csrc/lattice.cu`` with ``RING_EDITS``, written beside the split's
-    libraries."""
-    cu = (build.CSRC / SOURCE).read_text()
+    """``csrc/lattice.cu`` with ``RING_EDITS`` (and ``Y_EDIT``), written
+    beside the split's libraries."""
+    cu = y_depths((build.CSRC / SOURCE).read_text())
     for old, new in RING_EDITS:
         if cu.count(old) != 1:
             raise SystemExit(f"lattice_split: the ring copy's anchor "
@@ -201,14 +233,18 @@ def ring_source():
     return path
 
 
-def build_variants():
-    """One library per variant, and one of the edge-ring copy: the C
-    entry."""
+def build_variants(kernel):
+    """One library per variant, and for Z (``kernel`` "z") one of the
+    edge-ring copy: the C entries; the source's registers for ``kernel``'s
+    instances."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
-    sources = {name: (build.CSRC / SOURCE, sum(PARTS[p] for p in parts))
+    source = OUT / SOURCE
+    source.write_text(y_depths((build.CSRC / SOURCE).read_text()))
+    sources = {name: (source, sum(PARTS[p] for p in parts))
                for name, parts in VARIANTS.items()}
-    sources["the edge ring"] = (ring_source(), 0)
+    if kernel == "z":
+        sources["the edge ring"] = (ring_source(), 0)
     procs = {}
     for i, (name, (src, cut)) in enumerate(sources.items()):
         lib = OUT / f"lib_lattice_{i}.so"
@@ -224,9 +260,11 @@ def build_variants():
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
         if name == "source":
             for row in ptxas_lines(o + err):
-                print(f"  {name}, {row}", flush=True)
+                if row.startswith(kernel.upper() + "<"):
+                    print(f"  {name}, {row}", flush=True)
         lib = ctypes.CDLL(str(path))
-        getattr(lib, ENTRY).argtypes = build.SIGNATURES[ENTRY]
+        for entry in (ENTRY, Y_ENTRY):
+            getattr(lib, entry).argtypes = build.SIGNATURES[entry]
         libs[name] = lib
     return libs
 
@@ -294,7 +332,79 @@ def split(libs, card, dev, what, N, T, P):
         print(line(f"the plan, {name}", ms) + more, flush=True)
 
 
+def split_y(libs, card, dev, what, N, T, P):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = lattice_cuda.lattice_fwd_plan(N, T, P, sms)
+    g = torch.Generator(device=dev).manual_seed(N + T + P)
+    move = 2 * torch.randn(N, T, P - 1, device=dev, generator=g)
+    lengths = torch.randint(P // 2, P + 1, (N,), device=dev, generator=g,
+                            dtype=torch.int32)
+    old_stack, old_lz = lattice_cuda.lattice_forward_old_kernel(
+        move, lengths, BLANK)
+    _, old_only = lattice_cuda.lattice_forward_old_kernel(
+        move, lengths, BLANK, with_stack=False)
+    stack, lz, lz_only = (torch.empty_like(old_stack),
+                          torch.empty_like(old_lz), torch.empty_like(old_lz))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, k, depth, with_stack=True):
+        build.check(getattr(libs[name], Y_ENTRY)(
+            move.data_ptr(), lengths.data_ptr(),
+            stack.data_ptr() if with_stack else None,
+            (lz if with_stack else lz_only).data_ptr(), N, T, P, k, depth,
+            BLANK, stream), name)
+
+    def same(k, depth):
+        for x in (stack, lz, lz_only):
+            x.fill_(float("nan"))
+        run("source", k, depth)
+        run("source", k, depth, with_stack=False)
+        torch.cuda.synchronize()
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in ((stack, old_stack), (lz, old_lz),
+                                (lz_only, old_only)))
+
+    def line(label, ms, ms_only):
+        return (f"  {label}: {ms:.4g} ms ({ms / T * 1e3:.4g} us a frame), "
+                f"without the stack {ms_only:.4g} ms")
+
+    k0, d0 = plan["positions_per_thread"], plan["prefetch"]
+    print(f"{card}; Y at {what}: N={N}, T={T}, P={P}; plan {plan}",
+          flush=True)
+    print(line("the earlier kernel", ms_of(
+        lambda: lattice_cuda.lattice_forward_old_kernel(move, lengths,
+                                                        BLANK)),
+        ms_of(lambda: lattice_cuda.lattice_forward_old_kernel(
+            move, lengths, BLANK, with_stack=False))), flush=True)
+    for k, depth in Y_INSTANCES:
+        if -(-P // (32 * k)) > lattice_cuda.Z_WARPS_MAX:
+            continue
+        ok = same(k, depth)
+        print(line(f"{k} positions a thread ({-(-P // (32 * k))} warps), "
+                   f"{depth} frames ahead (bits equal: {ok})",
+                   ms_of(lambda: run("source", k, depth)),
+                   ms_of(lambda: run("source", k, depth, False))),
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"lattice_split: Y at {k} positions, depth "
+                               f"{depth} disagrees with the earlier kernel "
+                               f"at {what}")
+    base = None
+    for name in VARIANTS:
+        ms = (ms_of(lambda: run(name, k0, d0)),
+              ms_of(lambda: run(name, k0, d0, False)))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {base[0] - ms[0]:.4g} and "
+            f"{base[1] - ms[1]:.4g} ms")
+        print(line(f"the plan, {name}", *ms) + more, flush=True)
+
+
 def main():
+    kernel = sys.argv[1] if len(sys.argv) > 1 else "z"
+    if kernel not in ("z", "y"):
+        print("usage: lattice_split.py [z | y]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("lattice_split: no CUDA device", file=sys.stderr)
         return 1
@@ -303,9 +413,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     dev = torch.device("cuda")
-    libs = build_variants()
+    libs = build_variants(kernel)
     for what, N, T, P in SHAPES:
-        split(libs, card, dev, what, N, T, P)
+        (split if kernel == "z" else split_y)(libs, card, dev, what, N, T, P)
     return 0
 
 

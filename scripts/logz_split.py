@@ -2,9 +2,10 @@
 """
 Where the time of the loss's ring kernels U and V goes (the PyTorch/CUDA
 port): logZ of the TCN moves with its alpha stack, and its gradient, at
-hac's, sup's and fast's training shapes:
+hac's, sup's and fast's training shapes; with ``x``, the same for kernel X
+(the gradient of logZ of the full scores, ``logz_full_bwd_ring``):
 
-    python3 scripts/logz_split.py
+    python3 scripts/logz_split.py [x]
 
 from the root of a checkout, on a machine with a CUDA card and nvcc. It
 builds ``csrc/logz_ring.cu`` once per variant with nvcc for sm_90a (all at
@@ -30,6 +31,22 @@ them), with round_bf16 as the train step runs them:
 - the copy with the stores sent by bulk copies instead: U's stack as one
   bulk store a frame of the parity buffer, V's gradient staged in shared
   memory and sent as one bulk store a frame.
+
+``x``: at hac (N 128, T 1000, S 1024), sup (N 32, T 2048) and fast (N
+128, T 1200, S 64) on f32 scores (2 times a normal draw) with round_bf16
+and an f32 gradient, as ``loss`` runs X, the alpha stack from W: the
+source at the plan (``logz_plan(..., full=True)``), checked against the
+earlier X (the gradient bit for bit), with the earlier X's time beside
+it; 32 to 640 consumer threads (the chain's S / k and more for the
+gradient's pass), each also with the chain's warps out of the pass (from
+a copy); rings of 2, 4, 8 and 16 frames where they fit in shared memory;
+the plan with the ring's waits, the exps and logs, the gradient's stores,
+or all of them left out; and the copies with the designs measured against
+the source and not kept (``X_EDITS``), checked and timed: V's lane layout
+(each read of a frame's moves takes one predecessor j for the whole warp,
+a 4-way bank conflict at S 1024, where the source's lane q reads j = (k +
+q / 8) mod 4 in its k-th read), and the chain's warps out of the
+gradient's pass (the pass by the other consumers only).
 
 What a part adds is the source's time less the variant's; the cut
 variants' outputs are wrong by design and only timed (the copy's are
@@ -64,6 +81,24 @@ SHAPES = (("hac", 128, 1000, 1024), ("sup", 32, 2048, 1024),
                                     256))
 BLANK = 2.0
 THREADS_K2 = 512 + 32  # the copy's CTA at 2 states a thread
+X_ENTRY = "logz_full_bwd_ring"
+X_VARIANTS = {"source": [], "no ring waits": ["waits"],
+              "no exps or logs": ["exps"], "no stores": ["stores"],
+              "none of them": list(PARTS), "V's lane layout": ["lanes"],
+              "the chain out of the pass": ["split"]}
+X_SHAPES = (("hac", 128, 1000, 1024), ("sup", 32, 2048, 1024),
+            ("fast", 128, 1200, 64))
+X_CONSUMERS = (32, 64, 96, 128, 192, 256, 320, 384, 448, 512, 640)
+# the designs measured against X's source and not kept, as edits of it
+X_EDITS = {
+    "lanes": ("    auto pj = [&](int k) { return j0 + ((k + (q >> 3)) & "
+              "(K - 1)); };\n",
+              "    auto pj = [&](int k) { return j0 + k; };\n"),
+    "split": ("        for (int col = tid; col < W; col += nc) {\n",
+              "        const int g0 = logz_consumers(S, K);\n"
+              "        for (int col = tid - g0; col < W; col += nc - g0) {\n"
+              "            if (col < 0) break;\n"),
+}
 
 # 2 states a thread (a CTA of 16 consumer warps at S 1024), and the stores
 # sent as one bulk store a frame (-DLOGZ_STACK_BULK=1: U's stack from the
@@ -123,9 +158,11 @@ VARIANT_EDITS = [
      "template <typename In, bool ROUND, bool STACK, int K>\n"
      "__global__ void __launch_bounds__(logz_bound(K), 1)"),
     ("template <typename In, typename Out, bool ROUND, int K>\n"
-     "__global__ void __launch_bounds__(LOGZ_THREADS, 1)",
+     "__global__ void __launch_bounds__(LOGZ_THREADS, 1)\n"
+     "logz_bwd_ring_kernel(",
      "template <typename In, typename Out, bool ROUND, int K>\n"
-     "__global__ void __launch_bounds__(logz_bound(K), 1)"),
+     "__global__ void __launch_bounds__(logz_bound(K), 1)\n"
+     "logz_bwd_ring_kernel("),
     ("(K != 1 && K != 4)", "(K != 1 && K != 2 && K != 4)"),
     ("""        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     } else {""", """        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
@@ -198,8 +235,16 @@ VARIANT_EDITS = [
         + (GRAD_BULK ? GRAD_SLOTS * NB * S * out_bytes : 0);"""),
     ("logz_bwd_smem(S, ring, sizeof(In));",
      "logz_bwd_smem(S, ring, sizeof(In), sizeof(Out));"),
-    ("""    unsigned char* rows = reinterpret_cast<unsigned char*>(beta + 2 * S);
-""", """    unsigned char* rows = reinterpret_cast<unsigned char*>(beta + 2 * S);
+    ("""    const unsigned row_bytes = (unsigned)(NB * S * sizeof(In));
+    const unsigned slot_bytes = row_bytes + 4u * S;
+    uint64_t* full = reinterpret_cast<uint64_t*>(logz_smem);
+    float* beta = reinterpret_cast<float*>(logz_smem + logz_head(ring));
+    unsigned char* rows = reinterpret_cast<unsigned char*>(beta + 2 * S);
+""", """    const unsigned row_bytes = (unsigned)(NB * S * sizeof(In));
+    const unsigned slot_bytes = row_bytes + 4u * S;
+    uint64_t* full = reinterpret_cast<uint64_t*>(logz_smem);
+    float* beta = reinterpret_cast<float*>(logz_smem + logz_head(ring));
+    unsigned char* rows = reinterpret_cast<unsigned char*>(beta + 2 * S);
     Out* staged = reinterpret_cast<Out*>(rows + (size_t)ring * slot_bytes);
 """),
     ("""            __syncthreads();  // the slots of frames up to i + 1 are read
@@ -223,7 +268,12 @@ VARIANT_EDITS = [
     ("""        Out* dst = grad + (row0 + t) * NB * S;""",
      """        Out* dst = GRAD_BULK ? staged + (size_t)(i % GRAD_SLOTS) * NB * S
                              : grad + (row0 + t) * NB * S;"""),
-    ("""        if (i + 2 < T) cur.next();""", """        if (GRAD_BULK) fence_async_shared();
+    ("""            for (int k = 0; k < K; ++k) bn[(c * K + k) * R + q] = nxt[k];
+        }
+        if (i + 2 < T) cur.next();""",
+     """            for (int k = 0; k < K; ++k) bn[(c * K + k) * R + q] = nxt[k];
+        }
+        if (GRAD_BULK) fence_async_shared();
         if (i + 2 < T) cur.next();"""),
 ]
 
@@ -255,8 +305,8 @@ def ms_of(fn, reps=5):
 def ptxas_lines(report):
     rows, kernel, frame = [], None, ""
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\w*(logz_(?:fwd|bwd)"
-                      r"_ring_kernel\w*?)'", line)
+        m = re.search(r"Compiling entry function '\w*(logz_(?:full_)?"
+                      r"(?:fwd|bwd)_ring_kernel\w*?)'", line)
         if m:
             kernel = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -270,19 +320,35 @@ def ptxas_lines(report):
     return rows
 
 
-def build_variants():
-    """One library per variant: its two C entries."""
+def x_source(cu, edit):
+    """``csrc/logz_ring.cu`` with ``X_EDITS[edit]``."""
+    old, new = X_EDITS[edit]
+    if cu.count(old) != 1:
+        raise SystemExit(f"logz_split: {old!r} is not in csrc/logz_ring.cu "
+                         f"once")
+    return cu.replace(old, new)
+
+
+def build_variants(kernel="uv"):
+    """One library per variant (``VARIANTS``, or ``X_VARIANTS`` for
+    ``kernel`` "x"): its C entries."""
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / VARIANT_SOURCE).write_text(
-        variant_source((build.CSRC / SOURCE).read_text()))
+    cu = (build.CSRC / SOURCE).read_text()
+    (OUT / VARIANT_SOURCE).write_text(variant_source(cu))
+    for edit in X_EDITS:
+        (OUT / f"logz_ring_x_{edit}.cu").write_text(x_source(cu, edit))
     nvcc = build._nvcc()
     procs = {}
-    for i, (name, parts) in enumerate(VARIANTS.items()):
+    variants = X_VARIANTS if kernel == "x" else VARIANTS
+    for i, (name, parts) in enumerate(variants.items()):
         cut = sum(PARTS.get(p, 0) for p in parts)
         flags = [f"-DLOGZ_CUT={cut}"]
         if "bulk" in parts:
             flags += ["-DLOGZ_STACK_BULK=1", "-DLOGZ_GRAD_BULK=1"]
-        src = OUT / VARIANT_SOURCE if "copy" in parts else build.CSRC / SOURCE
+        edit = next((p for p in parts if p in X_EDITS), None)
+        src = (OUT / VARIANT_SOURCE if "copy" in parts else
+               OUT / f"logz_ring_x_{edit}.cu" if edit else
+               build.CSRC / SOURCE)
         lib = OUT / f"lib_logz_{i}.so"
         procs[name] = (lib, subprocess.Popen(
             [nvcc, *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared",
@@ -293,12 +359,15 @@ def build_variants():
         o, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
-        if name in ("source", "bulk stores"):
+        if name in ("source", "bulk stores", "V's lane layout"):
             for row in ptxas_lines(o + err):
-                if "13__nv_bfloat16" in row and "Lb1E" in row:
+                if kernel == "x" and "full" in row and "IffLb1E" in row:
+                    print(f"  {name}, {row}", flush=True)
+                elif (kernel != "x" and "full" not in row
+                      and "13__nv_bfloat16" in row and "Lb1E" in row):
                     print(f"  {name}, {row}", flush=True)
         lib = ctypes.CDLL(str(path))
-        for entry in ENTRIES:
+        for entry in ENTRIES + (X_ENTRY,):
             getattr(lib, entry).argtypes = build.SIGNATURES[entry]
         libs[name] = lib
     return libs
@@ -398,7 +467,80 @@ def split(libs, card, dev, what, N, T, S):
         print(line(f"the plan, {name}", *ms) + more, flush=True)
 
 
+def split_x(libs, card, dev, what, N, T, S):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = logz_cuda.logz_plan(N, T, S, torch.float32, sms, full=True)
+    g = torch.Generator(device=dev).manual_seed(N + T + S)
+    scores = 2 * torch.randn(N, T, 5 * S, device=dev, generator=g)
+    cot = 1.0 / torch.arange(1, N + 1, device=dev, dtype=torch.float32)
+    stack, lz = logz_cuda.full_forward(scores)
+    old = logz_cuda.full_backward_old_kernel(scores, stack, lz, cot)
+    grad = torch.empty_like(old)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, nc, ring):
+        build.check(getattr(libs[name], X_ENTRY)(
+            scores.data_ptr(), 1, 1, stack.data_ptr(), lz.data_ptr(),
+            cot.data_ptr(), grad.data_ptr(), 1, N, T, S, k0, nc, ring,
+            stream), name)
+
+    def same(name, nc, ring):
+        grad.fill_(float("nan"))
+        run(name, nc, ring)
+        torch.cuda.synchronize()
+        return torch.equal(grad.view(torch.int32), old.view(torch.int32))
+
+    def line(label, ms):
+        return f"  {label}: {ms:.4g} ms ({ms / T * 1e3:.4g} us a frame)"
+
+    k0, r0 = plan["states_per_thread"], plan["bwd"]["ring"]
+    c0 = plan["consumer_threads"]
+    print(f"{card}; X at {what}: N={N}, T={T}, S={S}, f32, round_bf16, "
+          f"f32 gradient; plan {plan}", flush=True)
+    print(line("the earlier kernel", ms_of(
+        lambda: logz_cuda.full_backward_old_kernel(scores, stack, lz, cot))),
+        flush=True)
+    for name in ("source", "V's lane layout"):
+        ok = same(name, c0, r0)
+        print(line(f"{name} at the plan (bits equal: {ok})",
+                   ms_of(lambda: run(name, c0, r0))), flush=True)
+        if not ok:
+            raise RuntimeError(f"logz_split: X's {name} disagrees with the "
+                               f"earlier kernel at {what}")
+    chain = logz_cuda.ring_consumers(S, k0)
+    for nc in X_CONSUMERS:
+        for name in ("source", "the chain out of the pass"):
+            if nc < chain or (name != "source" and nc <= chain):
+                continue
+            ok = same(name, nc, r0)
+            print(line(f"{name} with {nc} consumer threads (bits equal: "
+                       f"{ok})", ms_of(lambda: run(name, nc, r0))),
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"logz_split: X's {name} with {nc} "
+                                   f"consumers disagrees at {what}")
+    for ring in RINGS:
+        if logz_cuda.logz_smem(S, ring, torch.float32, True, True) > 232448:
+            continue
+        ok = same("source", c0, ring)
+        print(line(f"the source on a ring of {ring} (bits equal: {ok})",
+                   ms_of(lambda: run("source", c0, ring))), flush=True)
+    base = None
+    for name in X_VARIANTS:
+        if X_VARIANTS[name] and X_VARIANTS[name][0] in X_EDITS:
+            continue
+        ms = ms_of(lambda: run(name, c0, r0))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {base - ms:.4g} ms")
+        print(line(f"the plan, {name}", ms) + more, flush=True)
+
+
 def main():
+    kernel = sys.argv[1] if len(sys.argv) > 1 else "uv"
+    if kernel not in ("uv", "x"):
+        print("usage: logz_split.py [x]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("logz_split: no CUDA device", file=sys.stderr)
         return 1
@@ -407,7 +549,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     dev = torch.device("cuda")
-    libs = build_variants()
+    libs = build_variants(kernel)
+    if kernel == "x":
+        for what, N, T, S in X_SHAPES:
+            split_x(libs, card, dev, what, N, T, S)
+        return 0
     for what, N, T, S in SHAPES:
         split(libs, card, dev, what, N, T, S)
     return 0

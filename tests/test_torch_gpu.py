@@ -1187,6 +1187,174 @@ def test_lattice_backward_split_equals_its_earlier_kernel(cuda, N, T, P):
     assert torch.equal(dmove.view(torch.int32), old.view(torch.int32))
 
 
+# P from 2 to 2048: below a warp, around the warps' edges, P - 1 no
+# multiple of 4, two positions a thread above 1024, and the training shapes
+Y_SHAPES = [(128, 1000, 496), (128, 1200, 598), (32, 2048, 1020),
+            (4, 17, 2), (5, 9, 3), (3, 21, 31), (3, 20, 32), (3, 20, 33),
+            (6, 40, 597), (3, 8, 1024), (3, 7, 1025), (2, 9, 2048),
+            (2, 1, 65), (3, 40, 33)]
+
+
+@pytest.mark.parametrize("with_stack", [True, False])
+@pytest.mark.parametrize("N,T,P", Y_SHAPES)
+def test_lattice_forward_split_equals_its_earlier_kernel(cuda, N, T, P,
+                                                         with_stack):
+    """Kernel Y split over warps (``lattice_fwd_plan``) against the
+    earlier Y on the same moves, bit for bit: the stack and logZ, and the
+    forward without its stack; rows of length 0, 1, -1, P, above P and
+    between. One launch counted, the plan it ran recorded."""
+    g = torch.Generator(device=cuda).manual_seed(N + T + P)
+    move = 2 * torch.randn(N, T, P - 1, device=cuda, generator=g)
+    lengths = torch.randint(P // 2, P + 1, (N,), device=cuda, generator=g,
+                            dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, -1], dtype=torch.int32)[:N]
+    lengths[3:4] = P + 1
+    plan = lattice_cuda.lattice_fwd_plan(N, T, P, _sms(cuda))
+    assert plan is not None
+    before = lattice_cuda.lattice_forward.launches
+    stack, lz = lattice_cuda.lattice_forward(move, lengths, 2.0, with_stack)
+    old_stack, old_lz = lattice_cuda.lattice_forward_old_kernel(
+        move, lengths, 2.0, with_stack)
+    torch.cuda.synchronize()
+    assert lattice_cuda.lattice_forward.launches == before + 1
+    assert lattice_cuda.lattice_forward.plan == plan
+    assert torch.equal(_bits(lz), _bits(old_lz))
+    assert (stack is None) == (old_stack is None) == (not with_stack)
+    if with_stack:
+        assert torch.equal(_bits(stack), _bits(old_stack))
+    zero = [i for i in (0, 2, 3) if i < N]  # lengths 0, -1 and P + 1
+    assert not lz[zero].any()
+
+
+@pytest.mark.parametrize("k,depth", [(k, d) for k in (1, 2)
+                                     for d in lattice_cuda.Y_DEPTHS[k]])
+def test_lattice_forward_split_bits_do_not_depend_on_the_instance(cuda, k,
+                                                                  depth):
+    """Every instance of ``lattice_fwd_split`` (1 or 2 positions a thread,
+    each prefetch depth built) gives the earlier Y's stack and logZ."""
+    N, T, P = 5, 45, 300
+    g = torch.Generator(device=cuda).manual_seed(7)
+    move = 2 * torch.randn(N, T, P - 1, device=cuda, generator=g)
+    lengths = torch.tensor([P, 0, 150, P - 1, 1], dtype=torch.int32,
+                           device=cuda)
+    old_stack, old_lz = lattice_cuda.lattice_forward_old_kernel(
+        move, lengths, 2.0)
+    stack, lz = torch.full_like(old_stack, float("nan")), torch.empty_like(
+        old_lz)
+    build.check(build.library().lattice_fwd_split(
+        move.data_ptr(), lengths.data_ptr(), stack.data_ptr(), lz.data_ptr(),
+        N, T, P, k, depth, 2.0, torch.cuda.current_stream().cuda_stream),
+        "lattice_fwd_split")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(stack), _bits(old_stack))
+    assert torch.equal(_bits(lz), _bits(old_lz))
+
+
+def test_lattice_old_kernels_count_no_launch(cuda):
+    move = torch.randn(3, 5, 40, device=cuda)
+    lengths = torch.tensor([41, 20, 0], dtype=torch.int32, device=cuda)
+    before = (lattice_cuda.lattice_forward.launches,
+              lattice_cuda.lattice_backward.launches)
+    stack, lz = lattice_cuda.lattice_forward_old_kernel(move, lengths, 2.0)
+    gz, sg = lattice.cotangent(torch.ones(3, device=cuda), lz)
+    lattice_cuda.lattice_backward_old_kernel(move, stack, lengths, gz, sg,
+                                             2.0)
+    torch.cuda.synchronize()
+    assert (lattice_cuda.lattice_forward.launches,
+            lattice_cuda.lattice_backward.launches) == before
+
+
+def _full_inputs(cuda, S, N, T, dtype):
+    g = torch.Generator().manual_seed(S + N + T)
+    scores = (3 * torch.randn(N, T, 5 * S, generator=g)).to(cuda, dtype)
+    cot = torch.linspace(-1.5, 2.0, N, device=cuda)
+    cot[0] = 0.0  # a zero cotangent: row 0's gradient is 0
+    return scores, cot
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,N,T", LOGZ_RING_SHAPES)
+def test_logz_full_ring_matches_the_earlier_kernel(cuda, S, N, T, dtype,
+                                                   round_bf16, out_dtype):
+    """X on the ring (``logz_plan(..., full=True)``) against the earlier
+    X on the same scores and stack, bit for bit, in the scores' dtype, f32
+    or bf16; bf16 scores at S 4 (rows of 40 B) take the earlier X."""
+    scores, cot = _full_inputs(cuda, S, N, T, dtype)
+    stack, lz = logz_cuda.full_forward(scores, round_bf16)
+    before = logz_cuda.full_backward.launches
+    grad = logz_cuda.full_backward(scores, stack, lz, cot, round_bf16,
+                                   out_dtype)
+    plan = logz_cuda.logz_plan(N, T, S, dtype, _sms(cuda), full=True)
+    assert logz_cuda.full_backward.plan == plan
+    assert (plan is None) == (S == 4 and dtype == torch.bfloat16)
+    old = logz_cuda.full_backward_old_kernel(scores, stack, lz, cot,
+                                             round_bf16, out_dtype)
+    torch.cuda.synchronize()
+    assert logz_cuda.full_backward.launches == before + 1
+    assert torch.equal(_bits(grad), _bits(old))
+    assert grad.dtype == (dtype if out_dtype is None else out_dtype)
+    assert not grad[0].any() and bool(torch.isfinite(grad.float()).all())
+
+
+@pytest.mark.parametrize("S,N,T", [(4, 3, 7), (16, 4, 9), (64, 8, 30),
+                                   (256, 5, 40), (1024, 3, 12)])
+def test_logz_full_ring_bits_do_not_depend_on_the_ring(cuda, S, N, T):
+    """X's C entry at every number of predecessors a thread it takes,
+    with the chain's consumer threads alone, the plan's and 640, and rings
+    of 2, 3 and 16 frames (where they fit in shared memory), gives the
+    plan's gradient (f32 scores and gradient, not rounded)."""
+    lib = build.library()
+    scores, cot = _full_inputs(cuda, S, N, T, torch.float32)
+    stack, lz = logz_cuda.full_forward(scores, False)
+    grad = logz_cuda.full_backward(scores, stack, lz, cot, False)
+    stream = torch.cuda.current_stream().cuda_stream
+    for k in (1, 4):
+        if logz_cuda.ring_consumers(S, k) + 32 > logz_cuda.THREADS:
+            continue
+        chain = logz_cuda.ring_consumers(S, k)
+        for nc in sorted({chain, logz_cuda.X_CONSUMERS[S], 640}):
+            if nc < chain:
+                continue
+            for ring in (2, 3, 16):
+                if logz_cuda.logz_smem(S, ring, torch.float32, True,
+                                       True) > 232448:
+                    continue
+                gr = torch.full_like(grad, float("nan"))
+                build.check(lib.logz_full_bwd_ring(
+                    scores.data_ptr(), 1, 0, stack.data_ptr(), lz.data_ptr(),
+                    cot.data_ptr(), gr.data_ptr(), 1, N, T, S, k, nc, ring,
+                    stream), "logz_full_bwd_ring")
+                torch.cuda.synchronize()
+                assert torch.equal(_bits(gr), _bits(grad)), (k, nc, ring)
+
+
+def test_logz_full_old_kernel_counts_no_launch(cuda):
+    scores = torch.zeros(2, 4, 5 * 64, device=cuda)
+    stack, lz = logz_cuda.full_forward(scores)
+    before = logz_cuda.full_backward.launches
+    logz_cuda.full_backward_old_kernel(scores, stack, lz,
+                                       torch.ones(2, device=cuda))
+    torch.cuda.synchronize()
+    assert logz_cuda.full_backward.launches == before
+
+
+def test_logz_full_ring_takes_unaligned_scores_to_the_earlier_kernel(cuda):
+    """Scores whose rows do not start 16 bytes apart from an aligned base
+    (a view at an offset of 4 bytes): no plan, the earlier X, the same
+    bits."""
+    base = torch.randn(2 * 5 * 5 * 16 + 1, device=cuda)
+    scores = base[1:].view(2, 5, 5 * 16)
+    stack, lz = logz_cuda.full_forward(scores)
+    cot = torch.tensor([1.0, -0.5], device=cuda)
+    grad = logz_cuda.full_backward(scores, stack, lz, cot)
+    assert logz_cuda.full_backward.plan is None
+    old = logz_cuda.full_backward_old_kernel(scores, stack, lz, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(grad), _bits(old))
+
+
 def test_loss_launches_its_kernels(cuda):
     """loss_tcn with its backward runs U, V, Y and Z once each (U and V on
     the ring: the plan recorded); under no_grad U and Y without their

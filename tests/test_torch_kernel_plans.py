@@ -1118,21 +1118,25 @@ def test_logz_ring_covers_every_state_once(S):
         assert sorted(cols_v.tolist()) == list(range(4 * S))
 
 
-def _logz_ring_events(T, ring):
+def _logz_ring_events(T, ring, full=False):
     """The order of csrc/logz_ring.cu's fills and reads of the ring for one
-    row (U and V alike, each in its pass's order: V's frame i is t = T-1-i):
-    ("fill", frame) by the producer's lane 0 (frames 0 .. ring - 1 first,
-    then after the barrier of frame i those below i + 2 + ring), ("read",
-    frame) by the consumers: frame 0's slot before the loop and, in frame
-    i, the slot of min(i + 1, T - 1), read into registers for the next
-    frame."""
+    row (U, V and X alike, each in its pass's order: V's and X's frame i is
+    t = T-1-i): ("fill", frame) by the producer's lane 0 (frames 0 .. ring
+    - 1 first, then after the barrier of frame i those below i + 2 + ring,
+    for X those below i + 1 + ring), ("read", frame) by the consumers:
+    frame 0's slot before the loop and, in frame i, the slot of min(i + 1,
+    T - 1), read into registers for the next frame; X (``full``) also
+    reads frame i's own slot in frame i ("pass": its gradient over the
+    frame's columns)."""
     events = [("fill", u) for u in range(min(ring, T))]
     issued = min(ring, T)
     events.append(("read", 0))
     for i in range(T):
+        if full:
+            events.append(("pass", i))
         events.append(("read", min(i + 1, T - 1)))
         events.append(("barrier", i))
-        upto = min(T, i + 2 + ring)
+        upto = min(T, i + (1 if full else 2) + ring)
         events += [("fill", u) for u in range(issued, upto)]
         issued = max(issued, upto)
     return events
@@ -1148,10 +1152,17 @@ def test_logz_ring_hands_each_frame_over_once_in_order(T, backward):
     slot (slot u % ring), filled before; the frames whose values the
     consumers compute with are 0 .. T-1, each once (the last frame's second
     read is unused); and no slot is refilled while a frame in it has a
-    read to come."""
+    read to come. With V, X's ring (``full``: the slot of the full scores
+    and the stack's row, read again by the frame's own gradient pass) the
+    same, each frame's pass finding it in its slot."""
     plan = logz_cuda.logz_plan(1, T, 1024, torch.bfloat16)
-    for ring in (plan["bwd" if backward else "fwd"]["ring"], 2, 3):
-        events = _logz_ring_events(T, ring)
+    rings = [(plan["bwd" if backward else "fwd"]["ring"], False), (2, False),
+             (3, False)]
+    if backward:
+        full = logz_cuda.logz_plan(1, T, 1024, torch.float32, full=True)
+        rings += [(full["bwd"]["ring"], True), (2, True), (3, True)]
+    for ring, is_full in rings:
+        events = _logz_ring_events(T, ring, is_full)
         fills = [e[1] for e in events if e[0] == "fill"]
         assert fills == list(range(T))
         slots = [None] * ring
@@ -1159,13 +1170,15 @@ def test_logz_ring_hands_each_frame_over_once_in_order(T, backward):
             if e[0] == "fill":
                 old = slots[e[1] % ring]
                 if old is not None:
-                    assert not any(f[0] == "read" and f[1] == old
+                    assert not any(f[0] in ("read", "pass") and f[1] == old
                                    for f in events[k:]), (e, old)
                 slots[e[1] % ring] = e[1]
-            elif e[0] == "read":
+            elif e[0] in ("read", "pass"):
                 assert slots[e[1] % ring] == e[1], e
         reads = [e[1] for e in events if e[0] == "read"]
         assert reads[:T] == list(range(T)) and reads[T:] == [T - 1]
+        passes = [e[1] for e in events if e[0] == "pass"]
+        assert passes == (list(range(T)) if is_full else [])
         frames = [T - 1 - u if backward else u for u in fills]
         assert frames == (list(range(T - 1, -1, -1)) if backward
                           else list(range(T)))
