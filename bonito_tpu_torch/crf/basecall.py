@@ -51,8 +51,9 @@ def make_compute_fn(model, batchsize, chunksize, reverse=False,
       wire, plane 0 = sequence | moves << 3, plane 1 = qstring.
 
     The forward strand's Viterbi decode reads the move scores of the CRF
-    head. ``head_route`` names where they are computed: ``"fused"`` inside
-    the decode, in f32 (``forward_tcn_head`` + ``viterbi_decode_head``),
+    head. ``head_route`` names where they are computed: ``"fused"`` by the
+    fused-head decode, in f32 (``forward_tcn_head`` + ``viterbi_decode_head``:
+    inside kernels G and J, or once by GW's head product at 1024 states),
     ``"tcn"`` by the head matmul in the model dtype (``forward_tcn`` +
     ``viterbi_decode_tcn``). None is bonito_tpu's default: fused for the
     small state spaces (``ops.decode.use_fused_head``) where the head can

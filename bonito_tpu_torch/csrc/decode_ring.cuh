@@ -43,9 +43,9 @@
 //              the end logZ and the end state.
 //              Neither it nor the producer is on the consumers' chain.
 // A layout (TcnRows, FullRows) says where a frame's row comes from and how
-// consumer q reads its values from the slot: B's moves at stride R (column
-// (b*nb + j)*R + q), the full scores' block of the 20 adjacent values of
-// states 4q .. 4q+3 (loaded in 8- or 16-byte pieces).
+// consumer q reads its values from the slot: the TCN moves at stride R
+// (column (b*nb + j)*R + q), the full scores' block of the 20 adjacent
+// values of states 4q .. 4q+3 (loaded in 8- or 16-byte pieces).
 //
 // The reverse strand read in place (FullRows<In, true>): frame t is the
 // forward frame T-1-t, and with rc(x) the reverse complement of x's base-4
@@ -154,15 +154,17 @@ __device__ __forceinline__ float exp_of(float m) {
     return cut(CUT_EXPS) ? m : expf(m);
 }
 
-// B and C: [N, T, 4S] bf16 moves, each frame's columns in (b, j, r) order
-// (TcnFrame's), the stay the constant blank
+// B and C: [N, T, 4S] moves, each frame's columns in (b, j, r) order
+// (TcnFrame's), the stay the constant blank; bf16 (B and C) or f32 (GW's
+// and JW's passes over the head product's moves, csrc/head_product.cu)
+template <typename In>
 struct TcnRows {
     static constexpr bool REV = false;
-    const bf16* moves;
+    const In* moves;
     float blank, p_stay;
     struct Raw {};
     __host__ __device__ static size_t row_bytes(int S) {
-        return (size_t)8 * S;
+        return (size_t)NB * S * sizeof(In);
     }
     __device__ const void* row(size_t row0, int t, int, int S) const {
         return moves + (row0 + t) * NB * S;
@@ -174,7 +176,7 @@ struct TcnRows {
     template <bool FWD, int K>
     __device__ void piece(const unsigned char* slot, int R, int q,
                           const Raw&, Vals& v) const {
-        const bf16* row = reinterpret_cast<const bf16*>(slot);
+        const In* row = reinterpret_cast<const In*>(slot);
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
             const float m = to_f32(row[(K * NB + j) * R + q]);

@@ -1,6 +1,11 @@
-// Kernels GW and JW: the two-pass Viterbi + posterior CRF decode with the
-// CRF head inside, for the wide state spaces (512 and 1024 states: hac and
-// sup through head_route="fused").
+// The earlier kernels GW and JW: the two-pass Viterbi + posterior CRF
+// decode with the CRF head inside, for the wide state spaces (512 and 1024
+// states: hac and sup through head_route="fused"). GW and JW now take the
+// head product once for the batch (csrc/head_product.cu) and run both
+// passes over its f32 moves on the ring of kernels B and C
+// (csrc/decode_tcn_ring.cu); these stay for the shapes
+// ops/decode_fused_cuda.py:wide_decode_plan gives no plan, and as what
+// chip_smoke.py and the card tests hold the new pair against bit for bit.
 //
 // Replace bonito_tpu/ops/decode_pallas.py:viterbi_decode_tcn_fused above
 // 256 states -- GW is `_fwd_kernel_tcn_fused` (forward pass), JW is
@@ -55,9 +60,8 @@
 // frames against the plain version. With the order fixed, kernel and plain
 // version agree bit for bit, as B, C, M and Q do.
 //
-// Later work (ROADMAP): a cluster per row that splits the move rows over
-// its blocks and swaps alpha and beta through distributed shared memory, or
-// one head product per chunk shared by all rows.
+// What replaced them: one head product for the whole batch, shared by all
+// rows and both passes (csrc/head_product.cu).
 
 #include "decode_passes.cuh"
 

@@ -16,6 +16,13 @@
 // into its states 4r .. 4r+3 at stride R (column (b*nb + j)*R + r), the
 // stay is the constant blank. scripts/decode_split.py times the kernels
 // with each part left out (DECODE_CUT, 0 in the library).
+//
+// The f32 instances (TcnRows<float>: 16S bytes a slot, 21S for the
+// backward pass) are the passes of kernels GW and JW, the fused-head decode
+// at 512 and 1024 states, over the f32 moves of the head product
+// (csrc/head_product.cu). Their frame steps are the f32 steps of
+// csrc/decode_passes.cuh that the earlier GW and JW took
+// (csrc/decode_tcn_fused_wide.cu), on the same f32 moves: the same bits.
 
 #include "decode_ring.cuh"
 
@@ -26,7 +33,7 @@ int decode_tcn_fwd_ring(const void* moves, void* move_in, void* choices,
                         void* c, void* logz, void* end_state, int N, int T,
                         int S, int ring, float p_stay, float blank,
                         void* stream) {
-    const TcnRows l = {static_cast<const bf16*>(moves), blank, p_stay};
+    const TcnRows<bf16> l = {static_cast<const bf16*>(moves), blank, p_stay};
     return launch_fwd_ring(l, moves, move_in, choices, c, logz, end_state, N,
                            T, S, ring, stream);
 }
@@ -38,7 +45,31 @@ int decode_tcn_bwd_ring(const void* moves, const void* move_in,
                         void* mvout, int N, int T, int S, int ring,
                         float p_stay, float qscale, float qbias,
                         void* stream) {
-    const TcnRows l = {static_cast<const bf16*>(moves), 0.f, p_stay};
+    const TcnRows<bf16> l = {static_cast<const bf16*>(moves), 0.f, p_stay};
+    return launch_bwd_ring(l, moves, move_in, choices, c, logz, end_state,
+                           seq, qstr, mvout, N, T, S, ring, qscale, qbias,
+                           stream);
+}
+
+// kernel GW's forward pass: as decode_tcn_fwd_ring on f32 moves [N, T, 4S]
+int decode_tcn_fwd_ring_f32(const void* moves, void* move_in, void* choices,
+                            void* c, void* logz, void* end_state, int N,
+                            int T, int S, int ring, float p_stay, float blank,
+                            void* stream) {
+    const TcnRows<float> l = {static_cast<const float*>(moves), blank,
+                              p_stay};
+    return launch_fwd_ring(l, moves, move_in, choices, c, logz, end_state, N,
+                           T, S, ring, stream);
+}
+
+// kernel JW: as decode_tcn_bwd_ring on f32 moves [N, T, 4S]
+int decode_tcn_bwd_ring_f32(const void* moves, const void* move_in,
+                            const void* choices, const void* c,
+                            const void* logz, const void* end_state,
+                            void* seq, void* qstr, void* mvout, int N, int T,
+                            int S, int ring, float p_stay, float qscale,
+                            float qbias, void* stream) {
+    const TcnRows<float> l = {static_cast<const float*>(moves), 0.f, p_stay};
     return launch_bwd_ring(l, moves, move_in, choices, c, logz, end_state,
                            seq, qstr, mvout, N, T, S, ring, qscale, qbias,
                            stream);

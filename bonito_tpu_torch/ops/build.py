@@ -72,6 +72,13 @@ SIGNATURES = {
     "decode_tcn_fwd_ring": [P, P, P, P, P, P, I, I, I, I, F, F, P],
     "decode_tcn_bwd_ring": [P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F,
                             P],
+    # the same on f32 moves: GW's forward pass and kernel JW
+    "decode_tcn_fwd_ring_f32": [P, P, P, P, P, P, I, I, I, I, F, F, P],
+    "decode_tcn_bwd_ring_f32": [P, P, P, P, P, P, P, P, P, I, I, I, I, F, F,
+                                F, P],
+    # GW's head product (csrc/head_product.cu): h, wT, bias, out, Th, N, H,
+    # cols, ctas, act_tanh, scale, clamp, cmin, cmax, stream
+    "head_product_wide": [P, P, P, P, I, I, I, I, I, I, F, I, F, F, P],
     # scores, is_f32, reverse, move_in, choices, c, logz, end_state, N, T,
     # S, stream
     "decode_full_fwd": [P, I, I, P, P, P, P, P, I, I, I, P],
@@ -98,7 +105,7 @@ SIGNATURES = {
     # kernel J on its ring: as J, with the ring's depth after U
     "decode_fused_bwd_ring_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I,
                                    I, I, I, F, F, F, I, F, I, F, F, P],
-    # kernels GW and JW: as G and J, the weights laid out fragment-major
+    # the earlier GW and JW: as G and J, the weights laid out k-major
     "decode_fused_wide_fwd_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, F,
                                    F, I, F, I, F, F, P],
     "decode_fused_wide_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I,

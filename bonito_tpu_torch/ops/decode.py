@@ -16,7 +16,8 @@ traceback state and emits each frame. The TCN routes build nothing of
 Three routes lead here from a model. ``viterbi_decode_tcn`` reads the
 move scores the head matmul wrote, in the model dtype (kernels B and C).
 ``viterbi_decode_head`` reads the encoder output and the head's weights
-and computes the move scores inside the decode, in f32 (kernels G and J);
+and takes the move scores in f32 (kernels G and J inside the decode; GW's
+head product once for both passes at 512 and 1024 states);
 ``use_fused_head`` says where it is the default. Rounding the moves to
 bf16 or not changes near-ties, so the two routes decode a bf16 model
 differently and the choice is part of the result. ``viterbi_decode``
@@ -32,7 +33,7 @@ import torch
 from bonito_tpu_torch.ops.decode_cuda import NB, tcn_backward, tcn_forward
 from bonito_tpu_torch.ops.decode_full_cuda import full_backward, full_forward
 from bonito_tpu_torch.ops.decode_fused_cuda import (
-    head_moves_plain, tcn_fused_backward, tcn_fused_forward)
+    head_moves_plain, move_buffer, tcn_fused_backward, tcn_fused_forward)
 
 
 def _check(seqdist, Cm):
@@ -69,18 +70,24 @@ def use_fused_head(seqdist):
 
 def tcn_from_head(head):
     """The [T, S*nb, N] move tensor of a head (``forward_tcn_head``) in
-    f32: what the fused-head kernels compute frame by frame, as a tensor.
-    The plain versions and the tests read it; no kernel route does."""
+    f32, as the fused-head route takes it (``head_moves_plain``), in the
+    layout of ``viterbi_decode_tcn``'s input."""
     return head_moves_plain(head).permute(1, 2, 0)
 
 
 def viterbi_decode_head(seqdist, head, qscale=1.0, qbias=0.0):
     """Decode from ``SeqdistModel.forward_tcn_head``'s split. Same
-    contract as bonito_tpu's ``viterbi_decode_head``; the move tensor is
-    never built on the card."""
+    contract as bonito_tpu's ``viterbi_decode_head``. The move scores are
+    taken once and kept between the passes in an f32 [N, T, 4S] tensor
+    (``move_buffer``: on the CPU, and on the card at 512 and 1024 states,
+    where GW's head product writes it and JW reads it: 2.44 GiB at hac's
+    batch, 3.91 at sup's); kernels G and J compute them inside each pass
+    and build no tensor."""
     _check(seqdist, head.wT.shape[1])
-    fwd = tcn_fused_forward(head)
-    return tcn_fused_backward(head, *fwd, qscale=qscale, qbias=qbias)
+    moves = move_buffer(head)
+    fwd = tcn_fused_forward(head, moves_out=moves)
+    return tcn_fused_backward(head, *fwd, qscale=qscale, qbias=qbias,
+                              moves=moves)
 
 
 def viterbi_decode(seqdist, scores, qscale=1.0, qbias=0.0, reverse=False):

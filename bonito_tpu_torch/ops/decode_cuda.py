@@ -195,6 +195,7 @@ def check_forward_outputs(kernel, device, N, T, S, move_in, choices, cs,
 # to 16): a frame's copy is issued about RING - 1 frames before its row
 # is read; 4 kept pace at hac and 8 at sup (scripts/decode_split.py)
 RING = 8
+SMEM = 232448  # the most shared memory a block may ask for
 
 
 def ring_smem(S, ring, backward, row=None):
@@ -212,24 +213,30 @@ def ring_smem(S, ring, backward, row=None):
     return head + 16 * S + ring * row
 
 
-def decode_plan(N, T, S, sms=None):
+def decode_plan(N, T, S, sms=None, dtype=torch.bfloat16):
     """The plan of kernels B and C on the ring (``csrc/decode_tcn_ring.cu``)
-    for moves [N, T, 4S] on a card of ``sms`` SMs, or None where the ring
-    does not take the shape: S a multiple of 16 (a frame's choices, S
-    bytes, are copied in 16-byte pieces), at most 1024. Then the earlier
-    kernels run. One CTA per batch row: S / 4 consumer threads (rounded up
-    to whole warps) with four states each, a producer warp that copies the
-    frames and an epilogue warp that does the per-frame work of one
-    thread."""
+    for moves [N, T, 4S] of ``dtype`` on a card of ``sms`` SMs, or None
+    where the ring does not take the shape: S a multiple of 16 (a frame's
+    choices, S bytes, are copied in 16-byte pieces), at most 1024. Then the
+    earlier kernels run. One CTA per batch row: S / 4 consumer threads
+    (rounded up to whole warps) with four states each, a producer warp that
+    copies the frames and an epilogue warp that does the per-frame work of
+    one thread. B and C read bf16 moves; the f32 instance is the ring of
+    GW's and JW's passes (``ops.decode_fused_cuda.wide_decode_plan``), a
+    slot of 16S bytes (21S for the backward pass): RING frames fit at 1024
+    states too."""
     if N < 1 or T < 1 or S % 16 or not 16 <= S <= 1024:
         return None
+    row = NB * S * (4 if dtype == torch.float32 else 2)
     consumers = -(-(S // NB) // 32) * 32
     plan = {"threads": consumers + 64, "consumer_threads": consumers,
             "states_per_thread": NB, "ctas": N,
             "waves": None if sms is None else -(-N // sms)}
     for name, backward in (("fwd", False), ("bwd", True)):
-        plan[name] = {"ring": RING,
-                      "smem": ring_smem(S, RING, backward)}
+        smem = ring_smem(S, RING, backward, row)
+        if smem > SMEM:
+            return None
+        plan[name] = {"ring": RING, "smem": smem}
     return plan
 
 

@@ -1,17 +1,24 @@
 """
 Kernels G and J (``csrc/decode_tcn_fused.cu``, S <= 256) and GW and JW
-(``csrc/decode_tcn_fused_wide.cu``, 256 < S <= 1024) — the TCN decode
-with the CRF head inside — with their plain PyTorch versions and launch
-counts.
+(256 < S <= 1024) — the TCN decode with the CRF head inside — with their
+plain PyTorch versions and launch counts.
 
 G and GW replace ``bonito_tpu/ops/decode_pallas.py:_fwd_kernel_tcn_fused``,
 J and JW ``_bwd_kernel_tcn_fused`` plus the qscore epilogue of
-``viterbi_decode_tcn_fused``; all hold ``_head_mv``. They read the
+``viterbi_decode_tcn_fused``; all hold ``_head_mv``. The move scores are
+f32, never rounded to bf16, which is what makes this route's output differ
+from the TCN route's (kernels B and C read bf16 moves). G and J read the
 encoder output and the head's folded weights and compute every frame's
-move scores themselves, in f32, in both passes, so the [T, 4S, N] move
-tensor never exists in device memory — and is never rounded to bf16,
-which is what makes this route's output differ from the TCN route's
-(kernels B and C read bf16 moves).
+move scores themselves, in both passes, so at S <= 256 the [T, 4S, N] move
+tensor never exists in device memory. At 512 and 1024 states (hac and sup)
+GW takes the head product once for the whole batch (``head_product``:
+``csrc/head_product.cu``, a GEMM tiled over every row on the f32 cores)
+into an f32 [N, T, 4S] tensor and runs the forward pass over it on the
+ring of kernel B (``csrc/decode_tcn_ring.cu``, its f32 instance); JW is
+the backward pass over the same moves on C's ring, handed over by the
+caller (``tcn_fused_forward``'s ``moves_out``, ``tcn_fused_backward``'s
+``moves``; ``move_buffer`` makes the tensor), so the product is not taken
+again.
 
 A head is any object with ``SeqdistModel.forward_tcn_head``'s fields:
 ``h`` [T/U, N, H] (time-major, rows contiguous in H: the LSTM's own output
@@ -26,15 +33,17 @@ move tensor from ``head_moves_plain`` through ``tcn_forward_plain`` and
 
 ``tcn_fused_forward``/``tcn_fused_backward`` run the plain version for a
 head on the CPU and a kernel for a head on the card: G and J where 4 batch
-rows of S states make a block (S <= 256, H <= 256), GW and JW, a block per
-row and a thread per state, for the 512 and 1024 states of hac and sup
-(``kernels_for`` says which, or raises). Never the plain version for a
-kernel, nor one kernel for another's shape. G and J run on their rings
-(``fused_decode_plan``'s "fwd" and "bwd": 8 batch rows a CTA, head warps
-computing the next chunk's move scores while consumer warps walk this one)
-where the plan gives one, else on their earlier kernels;
-``tcn_fused_forward_old_kernel`` and ``tcn_fused_backward_old_kernel`` run
-the earlier kernels whatever the plan (no count), for comparisons.
+rows of S states make a block (S <= 256, H <= 256), GW and JW for the 512
+and 1024 states of hac and sup (``kernels_for`` says which, or raises).
+Never the plain version for a kernel, nor one kernel for another's shape.
+G and J run on their rings (``fused_decode_plan``'s "fwd" and "bwd": 8
+batch rows a CTA, head warps computing the next chunk's move scores while
+consumer warps walk this one) where the plan gives one, else on their
+earlier kernels; GW and JW on the product and the rings where
+``wide_decode_plan`` gives a plan, else on their earlier kernels
+(``csrc/decode_tcn_fused_wide.cu``: a block per row computing the head
+product itself, in each pass). ``*_old_kernel`` run the earlier kernels
+whatever the plan (no count), for comparisons.
 """
 
 import functools
@@ -44,7 +53,8 @@ import torch
 
 from bonito_tpu_torch.ops import build
 from bonito_tpu_torch.ops.decode_cuda import (
-    NB, check_forward_outputs, tcn_backward_plain, tcn_forward_plain)
+    NB, check_forward_outputs, decode_plan, tcn_backward_plain,
+    tcn_forward_plain)
 
 TILE = 16      # H must be a multiple of the WMMA k-tile
 MAX_S = 256    # G, J: 4 batch rows of S states make a block, 1024 threads
@@ -66,15 +76,20 @@ J_RING, J_RING_MAX = 4, 8
 # chunks of G_FRAMES output frames (G_FRAMES / U encoder frames: two tiles
 # of a chunk's scores and exps must fit beside the ring), rings of G_RING
 G_FRAMES, G_RING = 4, 4
+# GW's head product (csrc/head_product.cu, its HP_BM, HP_BN, HP_BK,
+# HP_STAGES): a CTA's tile of rows, columns and k a step, the ring's slots;
+# 256 threads of 8 x 8 outputs; two CTAs an SM (its launch bounds)
+HP_TILE, HP_STAGES, HP_THREADS, HP_CTAS_PER_SM = (128, 128, 16), 4, 256, 2
 
 
 def head_moves_plain(head):
     """The head's move scores [N, T, 4S] in f32: operands in the model
     dtype, the sum over H in order of k with one f32 rounding per product
     added (a product of two bf16 values is exact in f32), then bias, tanh,
-    scale and clamp in f32 (the order of bonito_tpu's ``_head_mv``). GW
-    and JW take the same steps, so on the card they give these bits; G and
-    J sum in WMMA tiles, another order."""
+    scale and clamp in f32 (the order of bonito_tpu's ``_head_mv``). GW's
+    product (``head_product``) and the earlier GW and JW take the same
+    steps, so on the card they give these bits; G and J sum in WMMA tiles,
+    another order."""
     h = head.h
     Th, N, H = h.shape
     U, Cm, _ = head.wT.shape
@@ -102,6 +117,23 @@ def tcn_fused_backward_plain(head, move_in, choices, cs, logz, end_state,
                              qscale=1.0, qbias=0.0):
     return tcn_backward_plain(head_moves_plain(head), move_in, choices, cs,
                               logz, end_state, head.blank, qscale, qbias)
+
+
+def _forward_plain(head, moves_out):
+    """The plain forward pass, its move scores also written to
+    ``moves_out`` where one is given."""
+    if moves_out is None:
+        return tcn_fused_forward_plain(head)
+    moves_out.copy_(head_moves_plain(head))
+    return tcn_forward_plain(moves_out, head.blank)
+
+
+def _backward_plain(head, fwd, qscale, qbias, moves):
+    """The plain backward pass over ``moves`` where given (the forward
+    pass's), else over the head's own."""
+    if moves is None:
+        return tcn_fused_backward_plain(head, *fwd, qscale, qbias)
+    return tcn_backward_plain(moves, *fwd, head.blank, qscale, qbias)
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,6 +311,8 @@ def _operands(head, rows=None):
         if rows is not None:
             bias = bias[:, rows.to(h.device)]
         bias = bias.contiguous()
+        if bias.data_ptr() % 16:  # GW's product reads it 16 bytes at a time
+            bias = bias.clone()
     return h, w, bias
 
 
@@ -388,15 +422,118 @@ def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def tcn_fused_forward(head):
+def product_plan(N, Th, H, cols, sms=None):
+    """The plan of GW's head product (``csrc/head_product.cu``) over M =
+    N * Th rows (row n * Th + th reads h[th, n]), ``cols`` = U * 4S columns
+    and K = H on a card of ``sms`` SMs: 128 x 128 output tiles (``tiles_m``
+    by ``tiles_n``, the last row tile ragged), 256 threads of 8 x 8 outputs,
+    16 k a step through a ring of 4 bf16 slots and two f32 tiles, a
+    persistent grid of two CTAs an SM (all the tiles where ``sms`` is None)
+    walking the tiles column fastest. None where the kernel does not take
+    the shape: H a multiple of 16, ``cols`` of 128."""
+    bm, bn, bk = HP_TILE
+    if N < 1 or Th < 1 or H < bk or H % bk or cols < bn or cols % bn:
+        return None
+    tiles_m, tiles_n = -(-N * Th // bm), cols // bn
+    tiles = tiles_m * tiles_n
+    ctas = tiles if sms is None else min(tiles, HP_CTAS_PER_SM * sms)
+    return {"tile": HP_TILE, "threads": HP_THREADS, "stages": HP_STAGES,
+            "k_steps": H // bk, "tiles_m": tiles_m, "tiles_n": tiles_n,
+            "tiles": tiles, "ctas": ctas, "ctas_per_sm": HP_CTAS_PER_SM,
+            "waves": None if sms is None else -(-tiles // ctas),
+            "smem": 2 * bk * (bm + bn) * 4 + HP_STAGES * (bm + bn) * bk * 2}
+
+
+@functools.lru_cache(maxsize=None)
+def wide_decode_plan(N, Th, H, S, U, sms=None):
+    """The plan of GW and JW for a head of S states (512 or 1024), width H
+    and U phases over N rows of Th encoder frames: {"product":
+    ``product_plan``'s, "fwd" and "bwd": the f32 ring of B's and C's
+    kernels (``decode_plan`` with f32 moves: rings of 8 frames, 148,288 and
+    183,104 B at S 1024)}. None where either does not take the shape, and
+    the earlier GW and JW run."""
+    product = product_plan(N, Th, H, U * NB * S, sms)
+    ring = decode_plan(N, Th * U, S, sms, torch.float32)
+    if product is None or ring is None:
+        return None
+    return {"product": product, "fwd": ring["fwd"], "bwd": ring["bwd"]}
+
+
+def _wide_plan(head):
+    Th, N, H = head.h.shape
+    U, Cm, _ = head.wT.shape
+    return wide_decode_plan(N, Th, H, Cm // NB, U, _sms(head.h.device))
+
+
+def move_buffer(head):
+    """An empty f32 [N, T, 4S] tensor for the head's move scores, taken once
+    for both passes (``tcn_fused_forward``'s ``moves_out``,
+    ``tcn_fused_backward``'s ``moves``): on the CPU, and on the card where
+    GW's product runs (``wide_decode_plan`` gives a plan). None where the
+    kernels take the moves from the head themselves (G and J; the earlier
+    GW and JW)."""
+    Th, N, _ = head.h.shape
+    U, Cm, _ = head.wT.shape
+    if head.h.device.type != "cpu" and (not _wide(head)
+                                        or _wide_plan(head) is None):
+        return None
+    return torch.empty(N, Th * U, Cm, device=head.h.device)
+
+
+def _check_moves(kernel, moves, head, shape):
+    Th, N, _, S, U = shape
+    if (moves.dtype != torch.float32 or moves.device != head.h.device
+            or tuple(moves.shape) != (N, Th * U, NB * S)
+            or not moves.is_contiguous() or moves.data_ptr() % 16):
+        raise ValueError(f"kernel {kernel}: moves must be a contiguous, "
+                         f"16-byte aligned f32 {(N, Th * U, NB * S)} on "
+                         f"{head.h.device}")
+
+
+def head_product(head, out=None):
+    """The head's move scores [N, T, 4S] f32 (``head_moves_plain``'s
+    tensor), into ``out`` where given: the plain version for a head on the
+    CPU, GW's product kernel (``csrc/head_product.cu``, on
+    ``product_plan``'s plan, recorded in ``.plan``) on the card, at 512 and
+    1024 states; it raises where the plan is None."""
+    if head.h.device.type == "cpu":
+        mv = head_moves_plain(head)
+        return mv if out is None else out.copy_(mv)
+    shape = _checked("GW", head)
+    Th, N, H, S, U = shape
+    cols = U * NB * S
+    plan = product_plan(N, Th, H, cols, _sms(head.h.device))
+    if plan is None:
+        raise ValueError(f"GW's head product takes H a multiple of "
+                         f"{HP_TILE[2]} and U*4S of {HP_TILE[1]}, got H={H}, "
+                         f"U*4S={cols}")
+    if out is None:
+        out = torch.empty(N, Th * U, NB * S, device=head.h.device)
+    _check_moves("GW", out, head, shape)
+    h, w, bias = _operands(head)
+    head_product.plan = plan
+    head_product.launches += 1
+    build.check(build.library().head_product_wide(
+        h.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), Th, N,
+        H, cols, plan["ctas"], *_head_ops(head), build.stream_of(h)),
+        "head_product_wide")
+    return out
+
+
+def tcn_fused_forward(head, moves_out=None):
     """The forward pass over a head's move scores -> (move_in [N, T, S]
     f32, choices [N, T, S] uint8, c [N, T] f32, logz [N] f32, end_state
     [N] int32): ``tcn_fused_forward_plain`` for a head on the CPU, kernel
-    G on the card, or GW (``tcn_fused_forward_wide``) above MAX_S states."""
+    G on the card, or GW (``tcn_fused_forward_wide``) above MAX_S states.
+    ``moves_out`` (``move_buffer``'s tensor, or None) receives the move
+    scores where they are taken as a tensor, for ``tcn_fused_backward``."""
     if head.h.device.type == "cpu":
-        return tcn_fused_forward_plain(head)
+        return _forward_plain(head, moves_out)
     if _wide(head):
-        return tcn_fused_forward_wide(head)
+        return tcn_fused_forward_wide(head, moves_out)
+    if moves_out is not None:
+        raise ValueError("kernel G takes the move scores inside the kernel: "
+                         "moves_out must be None")
     return _forward(tcn_fused_forward, "G", "decode_fused_fwd_bf16", head)
 
 
@@ -406,26 +543,61 @@ def tcn_fused_forward_old_kernel(head):
     return _forward(None, "G", "decode_fused_fwd_bf16", head)
 
 
-def tcn_fused_forward_wide(head):
-    """``tcn_fused_forward`` above MAX_S states: kernel GW on the card,
-    the plain version for a head on the CPU."""
+def tcn_fused_forward_wide(head, moves_out=None):
+    """``tcn_fused_forward`` above MAX_S states: the plain version for a
+    head on the CPU; on the card kernel GW, the head product
+    (``head_product``, into ``moves_out`` where given) and then the forward
+    pass over its f32 moves on B's ring, on ``wide_decode_plan``'s plan
+    (recorded in ``.plan``), or the earlier GW where it gives None."""
     if head.h.device.type == "cpu":
-        return tcn_fused_forward_plain(head)
-    return _forward(tcn_fused_forward_wide, "GW",
-                    "decode_fused_wide_fwd_bf16", head)
+        return _forward_plain(head, moves_out)
+    shape = _checked("GW", head)
+    plan = tcn_fused_forward_wide.plan = _wide_plan(head)
+    if plan is None:
+        if moves_out is not None:
+            raise ValueError("the earlier GW takes the move scores inside "
+                             "the kernel: moves_out must be None")
+        return _forward(tcn_fused_forward_wide, "GW",
+                        "decode_fused_wide_fwd_bf16", head)
+    Th, N, _, S, U = shape
+    moves = head_product(head, moves_out)
+    dev = head.h.device
+    out = (torch.empty(N, Th * U, S, device=dev),
+           torch.empty(N, Th * U, S, dtype=torch.uint8, device=dev),
+           torch.empty(N, Th * U, device=dev), torch.empty(N, device=dev),
+           torch.empty(N, dtype=torch.int32, device=dev))
+    blank = float(head.blank)
+    tcn_fused_forward_wide.launches += 1
+    build.check(build.library().decode_tcn_fwd_ring_f32(
+        moves.data_ptr(), *(x.data_ptr() for x in out), N, Th * U, S,
+        plan["fwd"]["ring"], math.exp(blank), blank, build.stream_of(moves)),
+        "decode_tcn_fwd_ring_f32")
+    return out
+
+
+def tcn_fused_forward_wide_old_kernel(head):
+    """Kernel GW's earlier kernel (``csrc/decode_tcn_fused_wide.cu``, the
+    product in each pass) whatever the plan, for comparisons; counts no
+    launch."""
+    return _forward(None, "GW", "decode_fused_wide_fwd_bf16", head)
 
 
 def tcn_fused_backward(head, move_in, choices, cs, logz, end_state,
-                       qscale=1.0, qbias=0.0):
+                       qscale=1.0, qbias=0.0, moves=None):
     """The backward pass, traceback and emission -> {"sequence",
     "qstring", "moves"}, each [N, T] uint8: ``tcn_fused_backward_plain``
     for a head on the CPU, kernel J on the card, or JW
-    (``tcn_fused_backward_wide``) above MAX_S states."""
+    (``tcn_fused_backward_wide``) above MAX_S states. ``moves``: the
+    forward pass's move scores (its ``moves_out``), which JW and the plain
+    version then read instead of taking the head product again."""
     fwd = (move_in, choices, cs, logz, end_state)
     if head.h.device.type == "cpu":
-        return tcn_fused_backward_plain(head, *fwd, qscale, qbias)
+        return _backward_plain(head, fwd, qscale, qbias, moves)
     if _wide(head):
-        return tcn_fused_backward_wide(head, *fwd, qscale, qbias)
+        return tcn_fused_backward_wide(head, *fwd, qscale, qbias, moves)
+    if moves is not None:
+        raise ValueError("kernel J takes the move scores inside the kernel: "
+                         "moves must be None")
     return _backward(tcn_fused_backward, "J", "decode_fused_bwd_bf16", head,
                      fwd, qscale, qbias)
 
@@ -439,14 +611,46 @@ def tcn_fused_backward_old_kernel(head, move_in, choices, cs, logz,
 
 
 def tcn_fused_backward_wide(head, move_in, choices, cs, logz, end_state,
-                            qscale=1.0, qbias=0.0):
-    """``tcn_fused_backward`` above MAX_S states: kernel JW on the card,
-    the plain version for a head on the CPU."""
+                            qscale=1.0, qbias=0.0, moves=None):
+    """``tcn_fused_backward`` above MAX_S states: the plain version for a
+    head on the CPU; on the card kernel JW, the backward pass on C's ring
+    over ``moves`` (the forward pass's f32 move scores; where None, GW's
+    head product takes them first), on ``wide_decode_plan``'s plan
+    (recorded in ``.plan``), or the earlier JW where it gives None."""
     fwd = (move_in, choices, cs, logz, end_state)
     if head.h.device.type == "cpu":
-        return tcn_fused_backward_plain(head, *fwd, qscale, qbias)
-    return _backward(tcn_fused_backward_wide, "JW",
-                     "decode_fused_wide_bwd_bf16", head, fwd, qscale, qbias)
+        return _backward_plain(head, fwd, qscale, qbias, moves)
+    shape = _checked("JW", head)
+    plan = tcn_fused_backward_wide.plan = _wide_plan(head)
+    if plan is None:
+        if moves is not None:
+            raise ValueError("the earlier JW takes the move scores inside "
+                             "the kernel: moves must be None")
+        return _backward(tcn_fused_backward_wide, "JW",
+                         "decode_fused_wide_bwd_bf16", head, fwd, qscale,
+                         qbias)
+    Th, N, _, S, U = shape
+    dev = head.h.device
+    check_forward_outputs("kernel JW", dev, N, Th * U, S, *fwd)
+    if moves is None:
+        moves = head_product(head)
+    _check_moves("JW", moves, head, shape)
+    out = torch.empty(3, N, Th * U, dtype=torch.uint8, device=dev)
+    tcn_fused_backward_wide.launches += 1
+    build.check(build.library().decode_tcn_bwd_ring_f32(
+        moves.data_ptr(), *(x.data_ptr() for x in fwd), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), N, Th * U, S,
+        plan["bwd"]["ring"], math.exp(float(head.blank)), float(qscale),
+        float(qbias), build.stream_of(moves)), "decode_tcn_bwd_ring_f32")
+    return {"sequence": out[0], "qstring": out[1], "moves": out[2]}
+
+
+def tcn_fused_backward_wide_old_kernel(head, move_in, choices, cs, logz,
+                                       end_state, qscale=1.0, qbias=0.0):
+    """Kernel JW's earlier kernel whatever the plan, for comparisons;
+    counts no launch."""
+    return _backward(None, "JW", "decode_fused_wide_bwd_bf16", head,
+                     (move_in, choices, cs, logz, end_state), qscale, qbias)
 
 
 tcn_fused_forward.launches = 0
@@ -454,4 +658,8 @@ tcn_fused_forward.plan = None
 tcn_fused_backward.launches = 0
 tcn_fused_backward.plan = None
 tcn_fused_forward_wide.launches = 0
+tcn_fused_forward_wide.plan = None
 tcn_fused_backward_wide.launches = 0
+tcn_fused_backward_wide.plan = None
+head_product.launches = 0
+head_product.plan = None

@@ -11,7 +11,8 @@ PyTorch built for CUDA. In order, it:
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory, stack frame
     and spills (kernel O's stretch kernel and the ring kernels of B, C, M,
-    Q, U and V, F's mma kernel and Z split over warps must have neither;
+    Q, U and V and of GW's and JW's passes, GW's head product, F's mma
+    kernel and Z split over warps must have neither;
     G's and J's ring kernels none at H 32 and no more than J's 8 bytes at
     H 96);
  3. holds each kernel against its plain PyTorch version on the card: at
@@ -40,10 +41,12 @@ PyTorch built for CUDA. In order, it:
     bf16, on what the shallow
     transformer below hands it (N=32, 8 heads of 40, q and k out of
     apply_rotary), and the layout pin P on a transposed view and on a
-    contiguous tensor; GW + JW, the fused-head decode at 1024 states, on
-    random heads of hac's width (N=96, T=1666, H=1024, U=1, clamped to +-5)
-    and sup's (N=128, 1000 encoder frames x 2 phases, H=512, tanh x 5 and a
-    bias);
+    contiguous tensor; GW + JW, the fused-head decode at 1024 states (GW's
+    head product once for the batch, both passes over its f32 moves on the
+    ring), on random heads of hac's width (N=96, T=1666, H=1024, U=1,
+    clamped to +-5) and sup's (N=128, 1000 encoder frames x 2 phases,
+    H=512, tanh x 5 and a bias), the moves equal to ``head_moves_plain``'s
+    and all eight outputs to the earlier GW + JW's bit for bit;
  4. writes full-width model directories with the port's own code (random
     weights from a seed, the CRF weight scaled up so that the output is no
     run of stays): hac and fast, each once with quantize=false in its
@@ -85,17 +88,21 @@ PyTorch built for CUDA. In order, it:
     versions in the kernels' place; and one batch of each fused path: its
     head through GW + JW against their plain versions, and its decode
     against the same batch's on the TCN route (the count of frames that
-    differ is printed, not required: f32 against bf16 move scores);
+    differ is printed, not required: f32 against bf16 move scores), and
+    GW + JW against the earlier GW + JW bit for bit;
  6. checks from the launch counts, set to 0 before each path and read
     after it, that each path launched its own kernels (5 LSTM and 1 + 1
     decode launches per batch; sup: 1 pin, 18 attention and 1 + 1 decode
     launches; the beam: 5 LSTM launches and no decode kernel; hac_fused: 5
-    LSTM launches and GW + JW; sup_fused: 1 pin, 18 attention, GW + JW) and
-    no other kernel of the port, and prints the plans F, G and J ran on
-    (the fast paths' must be the mma kernel's and the rings');
+    LSTM launches, GW's head product and GW + JW; sup_fused: 1 pin, 18
+    attention, the product, GW + JW) and no other kernel of the port, and
+    prints the plans F, G, J, GW and JW ran on (the fast paths' must be the
+    mma kernel's and the rings', the fused paths' the product's and
+    rings');
  7. prints samples/s, the device step and peak memory of the hac bf16,
     int8, reverse and beam paths, the fast path, the sup path and the two
-    fused paths (beside the TCN route's device step on the same batch)
+    fused paths (beside the TCN route's device step on the same batch, and
+    in turns with the earlier GW + JW, with the peak memory of each turn)
     beside the card's name and power, the sup and sup_fused device steps
     with K on its earlier kernel, the hac int8 and sup device steps
     with B and C on theirs, the fast device step with F and J on theirs
@@ -114,7 +121,9 @@ PyTorch built for CUDA. In order, it:
     earlier kernels) at hac and sup shapes and
     the parts of one sup layer; M and Q on the ring, on the reverse strand
     read in place and on the forward strand, beside their earlier kernels
-    and the reverse_complement copy, at hac, fast and sup shapes; GW and JW at hac's and sup's shapes beside the TCN
+    and the reverse_complement copy, at hac, fast and sup shapes; GW, JW and
+    GW's head product alone at hac's and sup's shapes beside the earlier GW
+    and JW, ``torch.matmul`` in f32 on the product's operands and the TCN
     route's head matmul + B + C there);
  9. runs the CRF training loss at hac training width: the hac bf16
     directory (quantize=false), a batch of 128 chunks of 6000 samples and
@@ -175,7 +184,7 @@ PyTorch built for CUDA. In order, it:
     O's times, plain times and bounds beside rotary + scaled_dot_product_
     attention with the band as a mask, forward and backward (H's and O's
     earlier kernels beside them). It prints one ``kernels`` JSON line with
-    all twenty-five kernels (F's, G's and J's with their plans, their
+    all twenty-six kernels (F's, G's and J's with their plans, their
     earlier kernels' times and the fast device steps on both; K's, H's and O's
     with their plans and their
     earlier kernel's time; B's and C's with their plan, their earlier
@@ -191,6 +200,7 @@ CUDA device is available, or when the bonito_tpu_torch package is absent.
 It imports nothing of JAX or bonito_tpu.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -428,6 +438,7 @@ def ptxas_summary(report):
                              r"(?:logz|lattice)_(?:full_)?(?:fwd|bwd)"
                              r"(?:_ring|_split)?_kernel|"
                              r"decode_(?:fwd|bwd)_ring_kernel|"
+                             r"head_product_kernel|"
                              r"decode_fused_(?:fwd|bwd)_ring|"
                              r"decode_(?:fused_(?:wide_)?)?(?:fwd|bwd))", m.group(1))
             tmpl = "bf16" if "bfloat16" in m.group(1) else "f32"
@@ -450,7 +461,13 @@ def ptxas_summary(report):
                                r"Lb(\d)EE", m.group(1))
             jring = re.search(r"decode_fused_(?:fwd|bwd)_ringILi(\d+)ELi"
                               r"(\d+)EE", m.group(1))
-            if mma:
+            product = re.search(r"head_product_kernelILi(\d+)ELi(\d+)ELi"
+                                r"(\d+)ELi(\d+)EE", m.group(1))
+            if product:
+                name = (f"{name}<{product.group(1)} x {product.group(2)}, k "
+                        f"{product.group(3)} a step, ring of "
+                        f"{product.group(4)}>")
+            elif mma:
                 name = (f"{name}<C={16 * int(mma.group(1))}, H="
                         f"{16 * int(mma.group(2))}, weights in registers>")
             elif jring:
@@ -491,7 +508,9 @@ def ptxas_summary(report):
             elif name.endswith("_ring_kernel"):
                 full = re.search(r"FullRowsI(13__nv_bfloat16|f)Lb([01])E",
                                  m.group(1))
-                name += ("<TcnRows: B, C>" if full is None else
+                tcn = ("<TcnRows, bf16: B, C>" if "TcnRowsI13" in m.group(1)
+                       else "<TcnRows, f32: GW, JW>")
+                name += (tcn if full is None else
                          f"<FullRows: M, Q, "
                          f"{'bf16' if full.group(1) != 'f' else 'f32'}, "
                          f"{'reverse' if full.group(2) == '1' else 'forward'}"
@@ -970,14 +989,23 @@ def fused_head(torch, HeadSplit, dev, N, Th, H, S, U, tanh, gain):
 
 def hold_fused(torch, decode_fused_cuda, head, name, kernels, **q):
     """A head through the fused-head decode (G + J, or GW + JW above 256
-    states) and through their plain versions. Tolerances: DECODE_MIN_EQUAL
-    and LOGZ_* above, move-in within 1e-4. Returns the kernels' forward
-    outputs and decode, the worst move-in difference and |dq|."""
-    fwd = decode_fused_cuda.tcn_fused_forward(head)
-    out = decode_fused_cuda.tcn_fused_backward(head, *fwd, **q)
+    states) on the route ``viterbi_decode_head`` takes (GW's head product
+    once, into ``move_buffer``'s tensor, which JW reads) and through their
+    plain versions. Tolerances: DECODE_MIN_EQUAL and LOGZ_* above, move-in
+    within 1e-4; GW's moves equal to ``head_moves_plain``'s bit for bit.
+    Returns the kernels' forward outputs and decode, the worst move-in
+    difference and |dq|."""
+    moves = decode_fused_cuda.move_buffer(head)
+    fwd = decode_fused_cuda.tcn_fused_forward(head, moves_out=moves)
+    out = decode_fused_cuda.tcn_fused_backward(head, *fwd, **q, moves=moves)
     torch.cuda.synchronize()
-    ref_fwd = decode_fused_cuda.tcn_fused_forward_plain(head)
-    ref = decode_fused_cuda.tcn_fused_backward_plain(head, *ref_fwd, **q)
+    ref_mv = decode_fused_cuda.head_moves_plain(head)
+    ref_fwd = decode_fused_cuda.tcn_forward_plain(ref_mv, head.blank)
+    ref = decode_fused_cuda.tcn_backward_plain(ref_mv, *ref_fwd, head.blank,
+                                               **q)
+    same_mv = moves is None or torch.equal(moves.view(torch.int32),
+                                           ref_mv.view(torch.int32))
+    del ref_mv
     Th, N, H = head.h.shape
     U, S = head.wT.shape[0], head.wT.shape[1] // 4
     n_choice = (fwd[1] != ref_fwd[1]).sum().item()
@@ -1000,14 +1028,37 @@ def hold_fused(torch, decode_fused_cuda, head, name, kernels, **q):
         f"{LOGZ_RTOL} |logZ|); {n_diff} of "
         f"{same.numel()} frames differ in {n_rows} of {N} rows (at most "
         f"{1 - DECODE_MIN_EQUAL:.1%} may), max |dq| {dq} on the others; "
-        f"{frac:.3f} of frames move")
+        f"{frac:.3f} of frames move"
+        + ("" if moves is None else
+           f"; GW's moves equal head_moves_plain's bit for bit {same_mv}"))
     first = kernels.split(" + ")[0]
-    require(err_in <= 1e-4 and ok_lz,
+    require(err_in <= 1e-4 and ok_lz and same_mv,
             f"kernel {first} ({name}) disagrees with its plain version")
     require(n_diff <= (1 - DECODE_MIN_EQUAL) * same.numel() and dq <= 1,
             f"kernels {kernels} ({name}) disagree with their plain versions")
     require(0.01 < frac < 1, f"kernels {kernels} ({name}): degenerate decode")
     return fwd, out, err_in, float(dq)
+
+
+def hold_wide_old(torch, decode_fused_cuda, head, fwd, out, name, **q):
+    """GW + JW (the head product, the passes on the f32 ring) against the
+    earlier GW + JW (``csrc/decode_tcn_fused_wide.cu``) on the same head:
+    move-in, choices, c, logZ, end state, sequence, qstring and moves equal
+    bit for bit -> the largest |difference| over them."""
+    old_fwd = decode_fused_cuda.tcn_fused_forward_wide_old_kernel(head)
+    old = decode_fused_cuda.tcn_fused_backward_wide_old_kernel(
+        head, *old_fwd, **q)
+    same_f, d_f = vs_old_kernel(torch, *zip(fwd, old_fwd))
+    differ = [k for k in out if not torch.equal(out[k], old[k])]
+    d_b = max((out[k].int() - old[k].int()).abs().max().item() for k in out)
+    log(f"    GW + JW (plan {decode_fused_cuda.tcn_fused_forward_wide.plan}) "
+        f"vs the earlier GW + JW, {name}: move-in, choices, c, logZ, end "
+        f"state equal bit for bit {same_f}, outputs of JW that differ in any "
+        f"bit {differ}, max |diff| {max(d_f, float(d_b))}")
+    require(decode_fused_cuda.tcn_fused_forward_wide.plan is not None
+            and same_f and not differ,
+            f"GW + JW ({name}) differ from the earlier GW + JW")
+    return max(d_f, float(d_b))
 
 
 def check_decode_fused(torch, decode_fused_cuda, HeadSplit, dev):
@@ -1053,16 +1104,20 @@ def check_decode_fused(torch, decode_fused_cuda, HeadSplit, dev):
 
 
 def check_decode_fused_wide(torch, decode_fused_cuda, HeadSplit, dev):
-    """Kernels GW and JW against their plain versions at hac's and sup's
-    widths (WIDE_HEADS) -> the worst move-in difference and |dq|."""
-    err = dq = 0.0
+    """Kernels GW and JW against their plain versions and against the
+    earlier GW and JW (bit for bit) at hac's and sup's widths (WIDE_HEADS)
+    -> the worst move-in difference, |dq| and |new - earlier|."""
+    err = dq = vs_old = 0.0
+    q = dict(qscale=1.05, qbias=0.2)
     for name, shape in WIDE_HEADS.items():
         head = fused_head(torch, HeadSplit, dev, *shape)
-        _, _, e, d = hold_fused(torch, decode_fused_cuda, head, f"{name} head",
-                                "GW + JW", qscale=1.05, qbias=0.2)
+        fwd, out, e, d = hold_fused(torch, decode_fused_cuda, head,
+                                    f"{name} head", "GW + JW", **q)
+        vs_old = max(vs_old, hold_wide_old(torch, decode_fused_cuda, head,
+                                           fwd, out, f"{name} head", **q))
         err, dq = max(err, e), max(dq, d)
-        del head
-    return err, dq
+        del head, fwd, out
+    return err, dq, vs_old
 
 
 def a_step_kernel(torch, build, xw, w_hh):
@@ -1241,9 +1296,10 @@ def run_path(torch, name, model, reads, counters, basecall, chunk, geometry,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    # the plans F, G and J ran on (their last call's), where the path ran
-    # them
-    plans = {k: counters[k].plan for k in ("F", "G", "J") if launches[k]}
+    # the plans F, G, J, GW and JW ran on (their last call's), where the
+    # path ran them
+    plans = {k: counters[k].plan for k in ("F", "G", "J", "GW", "JW")
+             if launches[k]}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     require(results.keys() == {r.read_id for r in reads},
             f"{name}: not every read came back")
@@ -1302,9 +1358,21 @@ def device_step(np, model, reads, make_compute_fn, chunk, **kw):
     return prepared, ms
 
 
+def step_and_peak(torch, np, model, reads, make_compute_fn, chunk, **kw):
+    """``device_step`` and the peak device memory of its run in GiB above
+    what was held before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    prepared, ms = device_step(np, model, reads, make_compute_fn, chunk, **kw)
+    torch.cuda.synchronize()
+    return prepared, ms, (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+
+
 class earlier_kernel:
     """K and H (``rule`` "window_plan") or O ("window_bwd_plan") of
-    ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), U, V
+    ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), GW and
+    JW ("wide_decode_plan" of ``decode_fused_cuda``), U, V
     and X ("logz_plan" of ``logz_cuda``: U and V on the TCN moves, X on the
     full scores of ``loss``), F ("fused_plan" of ``lstm_fused_cuda``), G
     and J ("fused_decode_plan" of ``decode_fused_cuda``; G or J alone with
@@ -1940,6 +2008,7 @@ def kernel_counters():
             "J": decode_fused_cuda.tcn_fused_backward,
             "GW": decode_fused_cuda.tcn_fused_forward_wide,
             "JW": decode_fused_cuda.tcn_fused_backward_wide,
+            "HP": decode_fused_cuda.head_product,
             "K": attention_cuda.fused_rotary_window_attention,
             "L": attention_cuda.local_attention,
             "P": relayout.pin_layout,
@@ -2821,10 +2890,13 @@ def main():
             f"kernel O's stretch kernel has a stack frame or spills: {o_rows}")
     ring_rows = [r for r in ptxas_rows if "decode_" in r
                  and "_ring_kernel" in r]
-    require(len(ring_rows) == 10 and all("stack 0 B, spills 0/0 B" in r
+    require(len(ring_rows) == 12 and all("stack 0 B, spills 0/0 B" in r
                                          for r in ring_rows),
-            f"kernels B, C, M and Q on the ring have a stack frame or spills "
-            f"(or not ten instances): {ring_rows}")
+            f"kernels B, C, M, Q and GW's and JW's passes on the ring have a "
+            f"stack frame or spills (or not twelve instances): {ring_rows}")
+    hp_rows = [r for r in ptxas_rows if "head_product_kernel" in r]
+    require(len(hp_rows) == 1 and "stack 0 B, spills 0/0 B" in hp_rows[0],
+            f"GW's head product has a stack frame or spills: {hp_rows}")
     # U: bf16 or f32 moves, rounded or not, with or without the stack, 1 or
     # 4 states a thread; V: the same with a bf16 or f32 gradient
     logz_rows = [r for r in ptxas_rows if "logz_" in r
@@ -2895,8 +2967,8 @@ def main():
     pin_view, err_p = check_pin(torch, relayout, dev)
     log(f"    and the fused-head decode at {S} states (GW, JW) on random "
         f"heads of hac's and sup's widths")
-    err_gw, err_jw = check_decode_fused_wide(torch, decode_fused_cuda,
-                                             HeadSplit, dev)
+    err_gw, err_jw, wide_vs_old = check_decode_fused_wide(
+        torch, decode_fused_cuda, HeadSplit, dev)
 
     log("[4] hac, fast and sup model directories from the port's own code")
     dirs = {}
@@ -3363,12 +3435,24 @@ def main():
     # above ran): its head through GW + JW against their plain versions, and
     # its decode against the same batch's on the TCN route (printed, not
     # required: f32 against bf16 move scores decode differently by design)
-    fused_steps = {}
+    fused_steps, wide_turns = {}, {}
     for name, src, rds in (("hac_fused", "int8", reads),
                            ("sup_fused", "sup", fast_reads)):
         model = models[src]
-        prepared, fused_steps[name] = device_step(
-            np, model, rds, make_compute_fn, chunk, head_route="fused")
+        # the device step with GW + JW and with the earlier pair in turns
+        # (earlier, new, new, earlier), each with its peak memory above
+        # what was held before it
+        turns = {"old": [], "new": [], "old_peak": [], "new_peak": []}
+        for pair in ("old", "new", "new", "old"):
+            with (earlier_kernel(decode_fused_cuda, "wide_decode_plan")
+                  if pair == "old" else contextlib.nullcontext()):
+                prepared, ms, peak = step_and_peak(
+                    torch, np, model, rds, make_compute_fn, chunk,
+                    head_route="fused")
+            turns[pair].append(ms)
+            turns[pair + "_peak"].append(peak)
+        wide_turns[name] = turns
+        fused_steps[name] = turns["new"][0]
         if src == "sup":
             with earlier_kernel(attention_cuda):
                 _, fused_steps[name + "_old"] = device_step(
@@ -3379,9 +3463,12 @@ def main():
             xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
                   * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
             head = model.forward_tcn_head(xc[..., None])
-            _, out_kernel, e, d = hold_fused(
+            fwd_kernel, out_kernel, e, d = hold_fused(
                 torch, decode_fused_cuda, head, f"{name} path, one batch",
                 "GW + JW", **q)
+            wide_vs_old = max(wide_vs_old, hold_wide_old(
+                torch, decode_fused_cuda, head, fwd_kernel, out_kernel,
+                f"{name} path, one batch", **q))
             out_tcn = ops_decode.viterbi_decode_tcn(
                 model.seqdist, *model.forward_tcn(xc[..., None]), **q)
             differ = ((out_tcn["moves"] != out_kernel["moves"])
@@ -3392,7 +3479,7 @@ def main():
             f"of {differ.shape[0]} rows (not required: f32 against bf16 "
             f"move scores)")
         err_gw, err_jw = max(err_gw, e), max(err_jw, d)
-        del head, out_kernel, out_tcn, differ
+        del head, fwd_kernel, out_kernel, out_tcn, differ
 
     log("[6] launches on each path (counts set to 0 before it, read after)")
     own = {"bf16": {"A": 5, "B": 1, "C": 1}, "int8": {"D": 5, "B": 1, "C": 1},
@@ -3405,8 +3492,8 @@ def main():
            "fast_rev": {"F": 5, "M": 1, "Q": 1},
            "sup_rev": {"P": 1, "K": 18, "M": 1, "Q": 1},
            "beam": {"D": 5},
-           "hac_fused": {"D": 5, "GW": 1, "JW": 1},
-           "sup_fused": {"P": 1, "K": 18, "GW": 1, "JW": 1}}
+           "hac_fused": {"D": 5, "GW": 1, "JW": 1, "HP": 1},
+           "sup_fused": {"P": 1, "K": 18, "GW": 1, "JW": 1, "HP": 1}}
     for name, run in runs.items():
         expect = {k: own[name].get(k, 0) * run["batches"] for k in counters}
         log(f"  {name}: {run['batches']} batches ({run['full_batches']} "
@@ -3415,9 +3502,9 @@ def main():
                 f"{name}: launches {run['launches']}, expected {expect}: "
                 f"{own[name]} per batch, no other kernel")
         if run["plans"]:
-            log(f"    the plans F, G and J ran on: {run['plans']}")
+            log(f"    the plans F, G, J, GW and JW ran on: {run['plans']}")
             require(all(v is not None for v in run["plans"].values()),
-                    f"{name}: F, G or J ran on its earlier kernel: "
+                    f"{name}: F, G, J, GW or JW ran on its earlier kernel: "
                     f"{run['plans']}")
 
     log(f"[7] on {card}:")
@@ -3472,6 +3559,13 @@ def main():
             f"above what was held before the path; device step {step:.4g} ms "
             f"per batch = {per_batch / step * 1e3:.6g} samples/s, beside the "
             f"TCN route's ({tcn_name}) {tcn_step:.4g} ms on the same batch")
+        turns = wide_turns[name]
+        log(f"    {name} in turns, the earlier GW + JW / GW + JW / GW + JW / "
+            f"the earlier: device step {turns['old'][0]:.4g} / "
+            f"{turns['new'][0]:.4g} / {turns['new'][1]:.4g} / "
+            f"{turns['old'][1]:.4g} ms per batch, peak memory above what was "
+            f"held {turns['old_peak'][0]:.3f} / {turns['new_peak'][0]:.3f} / "
+            f"{turns['new_peak'][1]:.3f} / {turns['old_peak'][1]:.3f} GiB")
 
     log(f"[8] kernel times at hac shapes (N={N}, T={T}, C=H={H}, S={S}; "
         f"CUDA events)")
@@ -3808,42 +3902,72 @@ def main():
         f"{step_sup:.4g} ms device step; the rest {step_sup - sup_sum:.4g} ms "
         f"(wire, pack, fetch)")
 
-    # GW and JW at hac's and sup's shapes (the random heads of phase 3),
-    # beside the TCN route's pieces they take the place of at those shapes
-    log(f"    and the fused-head decode at {S} states (GW, JW)")
+    # GW, JW and GW's head product alone at hac's and sup's shapes (the
+    # random heads of phase 3), the earlier GW and JW beside them, and
+    # torch.matmul in f32 on the product's operands as a yardstick (no path
+    # runs it); then the TCN route's pieces they take the place of
+    log(f"    and the fused-head decode at {S} states (GW, JW, GW's head "
+        f"product)")
     wide = {}
     for name, shape in WIDE_HEADS.items():
         head = fused_head(torch, HeadSplit, dev, *shape)
         Nw, Thw, Hw, Sw, Uw = shape[:5]
         Tw = Thw * Uw
-        fwd_w = decode_fused_cuda.tcn_fused_forward(head)
-        t = {"GW": cuda_ms(lambda: decode_fused_cuda.tcn_fused_forward(head),
+        f = decode_fused_cuda
+        mv_w = f.move_buffer(head)
+        fwd_w = f.tcn_fused_forward(head, moves_out=mv_w)
+        old_w = f.tcn_fused_forward_wide_old_kernel(head)
+        t = {"GW": cuda_ms(lambda: f.tcn_fused_forward(head, moves_out=mv_w),
                            reps=3),
-             "GW_plain": cuda_ms(
-                 lambda: decode_fused_cuda.tcn_fused_forward_plain(head),
-                 reps=1, warmup=0),
-             "JW": cuda_ms(lambda: decode_fused_cuda.tcn_fused_backward(
-                 head, *fwd_w), reps=3),
-             "JW_plain": cuda_ms(
-                 lambda: decode_fused_cuda.tcn_fused_backward_plain(
-                     head, *fwd_w), reps=1, warmup=0)}
-        # the head product on the tensor cores; about 20 f32 operations per
-        # state and frame for the decode, as for G and J
+             "HP": cuda_ms(lambda: f.head_product(head, mv_w), reps=3),
+             "JW": cuda_ms(lambda: f.tcn_fused_backward(head, *fwd_w,
+                                                        moves=mv_w), reps=3),
+             "GW_old": cuda_ms(lambda: f.tcn_fused_forward_wide_old_kernel(
+                 head), reps=2),
+             "JW_old": cuda_ms(lambda: f.tcn_fused_backward_wide_old_kernel(
+                 head, *old_w), reps=2),
+             "GW_plain": cuda_ms(lambda: f.tcn_fused_forward_plain(head),
+                                 reps=1, warmup=0),
+             "HP_plain": cuda_ms(lambda: f.head_moves_plain(head), reps=1,
+                                 warmup=0),
+             "JW_plain": cuda_ms(lambda: f.tcn_backward_plain(
+                 mv_w, *fwd_w, head.blank), reps=1, warmup=0)}
+        hp_err = (f.head_product(head) - f.head_moves_plain(head)).abs()
+        t["HP_err"] = hp_err.max().item()
+        del hp_err, old_w
+        a32 = head.h.float().transpose(0, 1).reshape(Nw * Thw, Hw)
+        w32 = head.wT.float().reshape(Uw * 4 * Sw, Hw).t()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            t["HP_library"] = cuda_ms(lambda: torch.matmul(a32, w32), reps=3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del a32, w32
+        # the head product: 2*N*T*H*4S operations, bf16 operands (the
+        # tensor cores' rate bounds it; the f32 cores' printed beside),
+        # h, the weights and bias in, the f32 moves out; about 20 f32
+        # operations per state and frame for each pass, as for G and J
         head_ops = 2 * Nw * Tw * Hw * 4 * Sw
         head_in = (Thw * Nw * Hw * 2 + Uw * 4 * Sw * Hw * 2
                    + (Uw * 4 * Sw * 4 if head.bias is not None else 0))
-        # GW: h, the weights and bias in; move-in f32, choices, c, logZ,
-        # end state out
-        t["GW_bound"] = bound(head_in + Nw * Tw * Sw * 5 + Nw * Tw * 4
-                              + Nw * 8, head_ops, H100_BF16_OPS,
+        moves_bytes = Nw * Tw * 4 * Sw * 4
+        t["HP_bound"] = bound(head_in + moves_bytes, head_ops, H100_BF16_OPS)
+        t["HP_f32_bound"] = head_ops / H100_F32_OPS * 1e3
+        # GW: the product, then the forward pass; its outputs are the moves
+        # (for JW), move-in f32, choices, c, logZ, end state
+        t["GW_bound"] = bound(head_in + moves_bytes + Nw * Tw * Sw * 5
+                              + Nw * Tw * 4 + Nw * 8, head_ops, H100_BF16_OPS,
                               20 * Nw * Tw * Sw)
-        # JW: as for J, a quarter of move-in, one choice per frame, c, logZ,
-        # end state in; three [N, T] planes out
-        t["JW_bound"] = bound(head_in + Nw * Tw * (Sw // 4) * 4 + Nw * Tw * 5
-                              + Nw * 8 + 3 * Nw * Tw, head_ops, H100_BF16_OPS,
-                              20 * Nw * Tw * Sw)
+        # JW: the moves, a quarter of move-in, one choice per frame, c,
+        # logZ, end state in; three [N, T] planes out
+        t["JW_bound"] = bound(moves_bytes + Nw * Tw * (Sw // 4) * 4
+                              + Nw * Tw * 5 + Nw * 8 + 3 * Nw * Tw, 0,
+                              H100_F32_OPS, 20 * Nw * Tw * Sw)
+        t["plan"] = f.tcn_fused_forward_wide.plan
         wide[name] = t
-        del head, fwd_w
+        del head, fwd_w, mv_w
+        torch.cuda.empty_cache()
     # the TCN route's pieces at the same shapes: hac's bf16 head matmul (and
     # the int8 head of hac as shipped), B, C; sup's upsample, head matmul +
     # tanh + scale, B, C
@@ -3851,12 +3975,20 @@ def main():
                  "hac_int8_head": head_int8 + ms_b + ms_c,
                  "sup": ms_up + ms_head + ms_b_sup + ms_c_sup}
     for name, t in wide.items():
-        log(f"  {name} shapes: GW {t['GW']:.4g} ms (plain {t['GW_plain']:.4g}, "
-            f"bound {t['GW_bound'][0]:.4g} by {t['GW_bound'][1]}) + JW "
+        log(f"  {name} shapes: GW {t['GW']:.4g} ms (of it the head product "
+            f"{t['HP']:.4g}: plain {t['HP_plain']:.4g}, bound "
+            f"{t['HP_bound'][0]:.4g} by {t['HP_bound'][1]} on the tensor "
+            f"cores, {t['HP_f32_bound']:.4g} on the f32 cores, torch.matmul "
+            f"f32 on its operands {t['HP_library']:.4g}, max |diff| "
+            f"{t['HP_err']:.3g}; GW plain {t['GW_plain']:.4g}, bound "
+            f"{t['GW_bound'][0]:.4g} by {t['GW_bound'][1]}) + JW "
             f"{t['JW']:.4g} ms (plain {t['JW_plain']:.4g}, bound "
             f"{t['JW_bound'][0]:.4g} by {t['JW_bound'][1]}) = "
-            f"{t['GW'] + t['JW']:.4g} ms vs the TCN route's pieces "
-            f"{tcn_route[name]:.4g} ms" + (
+            f"{t['GW'] + t['JW']:.4g} ms (bound "
+            f"{t['GW_bound'][0] + t['JW_bound'][0]:.4g}: the product once) "
+            f"against the earlier GW {t['GW_old']:.4g} + JW "
+            f"{t['JW_old']:.4g} = {t['GW_old'] + t['JW_old']:.4g} ms; the "
+            f"TCN route's pieces {tcn_route[name]:.4g} ms" + (
                 f" (bf16 head {head_bf16:.4g} + B {ms_b:.4g} + C {ms_c:.4g};"
                 f" with the int8 head of hac as shipped "
                 f"{tcn_route['hac_int8_head']:.4g})" if name == "hac" else
@@ -3896,11 +4028,11 @@ def main():
     src_fused = "bonito_tpu_torch/csrc/decode_tcn_fused.cu"
     src_full = "bonito_tpu_torch/csrc/decode_full.cu"
     src_ring = "bonito_tpu_torch/csrc/decode_tcn_ring.cu"
-    src_wide = "bonito_tpu_torch/csrc/decode_tcn_fused_wide.cu"
+    src_product = "bonito_tpu_torch/csrc/head_product.cu"  # GW's product
     # launches: the count on the path that is the kernel's own (A: bf16,
     # D, B, C: int8 fused, E: int8 two-stage, F, G, J: fast, K, P: sup, L:
-    # the shallow transformer, M, Q: hac's reverse strand, GW, JW:
-    # hac_fused); by_path has every path's
+    # the shallow transformer, M, Q: hac's reverse strand, GW, JW and GW's
+    # head product: hac_fused); by_path has every path's
     entries = [
         ("lstm_recurrence", "A", "bf16", "bonito_tpu_torch/csrc/lstm.cu",
          "bonito_tpu/ops/lstm_pallas.py:54", err_a, ms_a, plain_a, bound_a,
@@ -3941,12 +4073,20 @@ def main():
         ("decode_full_bwd", "Q", "rev", src_full,
          "bonito_tpu/ops/decode_pallas.py:109", err_q, ms_q, plain_q, bound_q,
          None),
-        ("decode_fused_wide_fwd", "GW", "hac_fused", src_wide,
+        # GW: the head product, then the forward pass on B's ring in f32
+        # (csrc/decode_tcn_ring.cu); JW: the backward pass on C's ring
+        ("decode_fused_wide_fwd", "GW", "hac_fused", src_ring,
          "bonito_tpu/ops/decode_pallas.py:348", err_gw, wide["hac"]["GW"],
          wide["hac"]["GW_plain"], wide["hac"]["GW_bound"], None),
-        ("decode_fused_wide_bwd", "JW", "hac_fused", src_wide,
+        ("decode_fused_wide_bwd", "JW", "hac_fused", src_ring,
          "bonito_tpu/ops/decode_pallas.py:413", err_jw, wide["hac"]["JW"],
          wide["hac"]["JW_plain"], wide["hac"]["JW_bound"], None),
+        # GW's head product; library: torch.matmul in f32 (TF32 off) on its
+        # operands, without the bias, tanh, scale and clamp
+        ("head_product_wide", "HP", "hac_fused", src_product,
+         "bonito_tpu/ops/decode_pallas.py:324", wide["hac"]["HP_err"],
+         wide["hac"]["HP"], wide["hac"]["HP_plain"], wide["hac"]["HP_bound"],
+         wide["hac"]["HP_library"]),
     ]
     # times at another path's shapes than the one the entry's numbers are of
     more = {"A": {"step_kernel_ms": ms_a_step, "plan": a_plan},
@@ -3966,10 +4106,38 @@ def main():
                    ("B", ms_b_old, ms_b_sup, ms_b_sup_old, bound_b_sup),
                    ("C", ms_c_old, ms_c_sup, ms_c_sup_old, bound_c_sup))},
             **{k: full_more(tm, rev_steps, k, vs_old_mq) for k in "MQ"},
-            **{k: {"sup_shape_ms": wide["sup"][k],
+            **{k: {"plan": wide["hac"]["plan"],
+                   "sup_shape_ms": wide["sup"][k],
                    "sup_shape_plain_ms": wide["sup"][f"{k}_plain"],
                    "sup_shape_bound_ms": wide["sup"][f"{k}_bound"][0],
-                   "tcn_route_ms": tcn_route} for k in ("GW", "JW")},
+                   **({"old_kernel_ms": wide["hac"][f"{k}_old"],
+                       "sup_shape_old_kernel_ms": wide["sup"][f"{k}_old"],
+                       "max_abs_err_vs_old_kernel": wide_vs_old,
+                       "tcn_route_ms": tcn_route,
+                       "hac_fused_device_step_ms": wide_turns[
+                           "hac_fused"]["new"],
+                       "hac_fused_device_step_old_kernel_ms": wide_turns[
+                           "hac_fused"]["old"],
+                       "sup_fused_device_step_ms": wide_turns[
+                           "sup_fused"]["new"],
+                       "sup_fused_device_step_old_kernel_ms": wide_turns[
+                           "sup_fused"]["old"],
+                       "hac_fused_peak_gib": wide_turns["hac_fused"][
+                           "new_peak"],
+                       "hac_fused_peak_old_kernel_gib": wide_turns[
+                           "hac_fused"]["old_peak"],
+                       "sup_fused_peak_gib": wide_turns["sup_fused"][
+                           "new_peak"],
+                       "sup_fused_peak_old_kernel_gib": wide_turns[
+                           "sup_fused"]["old_peak"]} if k != "HP" else
+                      {"f32_cores_bound_ms": wide["hac"]["HP_f32_bound"],
+                       "sup_shape_f32_cores_bound_ms":
+                           wide["sup"]["HP_f32_bound"],
+                       "sup_shape_max_abs_err": wide["sup"]["HP_err"],
+                       "sup_shape_library_ms": wide["sup"]["HP_library"],
+                       "library_call": "torch.matmul f32, TF32 off, no "
+                                       "bias, tanh, scale or clamp"})}
+               for k in ("GW", "JW", "HP")},
             "F": {"plan": plan_f, "old_kernel_ms": ms_f_old,
                   "max_abs_err_vs_old_kernel": f_vs_old,
                   "us_a_step": ms_f / FT * 1e3,

@@ -5,7 +5,7 @@ B and C (the TCN decode) and M and Q (the full-score decode, on the reverse
 strand read in place, as the reverse paths run them), at hac's, sup's and
 fast's decode shapes:
 
-    python3 scripts/decode_split.py [bc | mq | j | g]
+    python3 scripts/decode_split.py [bc | mq | j | g | gw]
 
 from the root of a checkout, on a machine with a CUDA card and nvcc (B, C
 and M, Q without an argument). It builds ``csrc/decode_tcn_ring.cu`` (B, C)
@@ -60,6 +60,25 @@ the same two heads:
 - the source with one part left out: the head warps (products, scores,
   exps and the tile's stores), the ring's copies and the waits for them,
   the consumers' stores of move-in, choices and c, and all three.
+
+GW and JW, the fused-head decode at 1024 states (``gw``): GW's head product
+(``csrc/head_product.cu``, built once per variant, ``-DHP_CUT=<parts>`` or
+another tile or ring, ``-DHP_BM``, ``-DHP_BN``, ``-DHP_BK``,
+``-DHP_STAGES``) on
+random heads of hac's width (N 96, Th 1666, H 1024, U 1, clamped to +-5)
+and sup's (N 128, Th 1000, H 512, U 2, tanh x 5 and a bias):
+
+- each variant's registers, stack frame and spills; the source and each
+  tile checked against the library's product (which equals
+  ``head_moves_plain``'s bits, checked here too), bit for bit;
+- the product at the plan with one part left out: the epilogue (bias,
+  tanh, scale, clamp), the output's stores, the conversion of the staged
+  bf16 to the f32 tiles, the copies into the ring and their waits (all, or
+  those of h or of wT alone), and the first four (the FFMA loop and its
+  shared loads alone); at other tiles and ring depths;
+- beside them, in the same run: GW and JW (the product and the two passes
+  on the f32 ring), the passes alone, the earlier GW and JW, and
+  ``torch.matmul`` in f32 (TF32 off) on the same operands.
 """
 
 import ctypes
@@ -502,13 +521,132 @@ def split_g(libs, card, dev, what, N, Th, H, U, tanh, gain, S=64):
         print(f"  the plan, {name}: {ms:.4g} ms{more}", flush=True)
 
 
+# GW's head product: csrc/head_product.cu's HP_CUT bits, and its tiles
+PARTS_GW = {"epilogue": 1, "stores": 2, "conversion": 4, "copies": 8,
+            "copies of h": 16, "copies of wT": 32}
+VARIANTS_GW = {
+    "source": {},
+    **{f"no {part}": {"HP_CUT": bit} for part, bit in PARTS_GW.items()},
+    "none of the first four": {"HP_CUT": 15},
+    "tile 128 x 64": {"HP_BN": 64}, "tile 64 x 128": {"HP_BM": 64},
+    "k 32 a step, ring of 3": {"HP_BK": 32, "HP_STAGES": 3},
+    "ring of 2": {"HP_STAGES": 2}, "ring of 3": {"HP_STAGES": 3},
+    "ring of 6": {"HP_STAGES": 6},
+    "ring of 2, k 32 a step": {"HP_STAGES": 2, "HP_BK": 32},
+    "ring of 2, tile 64 x 128": {"HP_STAGES": 2, "HP_BM": 64},
+    "ring of 2, no copies": {"HP_STAGES": 2, "HP_CUT": 8}}
+GW_HEADS = {"hac": (96, 1666, 1024, 1, False, 3.0),
+            "sup": (128, 1000, 512, 2, True, 0.5)}
+
+
+def build_gw():
+    """One library of csrc/head_product.cu per variant: its C entry, the
+    threads of its tile (for the grid: 512 threads an SM)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = build._nvcc()
+    procs = {name: subprocess.Popen(
+        [nvcc, *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared",
+         *(f"-D{k}={v}" for k, v in defs.items()), "-I", str(build.CSRC),
+         "-o", str(OUT / f"lib_gw_{i}.so"),
+         str(build.CSRC / "head_product.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, (name, defs) in enumerate(VARIANTS_GW.items())}
+    libs = {}
+    for i, (name, proc) in enumerate(procs.items()):
+        o, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on GW's product, {name}:\n{err}")
+        regs = re.findall(r"Used (\d+) registers", o + err)
+        frame = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                           r"stores, (\d+) bytes spill loads", o + err)
+        print(f"  {name}: {regs} registers, stack/spills {frame}",
+              flush=True)
+        lib = ctypes.CDLL(str(OUT / f"lib_gw_{i}.so"))
+        lib.head_product_wide.argtypes = build.SIGNATURES["head_product_wide"]
+        defs = VARIANTS_GW[name]
+        threads = (defs.get("HP_BM", 128) // 8) * (defs.get("HP_BN", 128)
+                                                  // 8)
+        libs[name] = (lib, threads)
+    return libs
+
+
+def split_gw(libs, card, dev, what, N, Th, H, U, tanh, gain, S=1024):
+    f = decode_fused_cuda
+    head = fused_head(dev, N, Th, H, U, tanh, gain, S)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = f.wide_decode_plan(N, Th, H, S, U, sms)
+    cols = U * 4 * S
+    hh, w, b = f._operands(head)
+    out = torch.empty(N, Th * U, 4 * S, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name):
+        lib, threads = libs[name]
+        f._launched(lib.head_product_wide(
+            hh.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), Th, N,
+            H, cols, sms * (512 // threads), *f._head_ops(head), stream),
+            name, S, H, U)
+
+    print(f"{card}; GW's head product at {what}: N={N}, Th={Th}, H={H}, "
+          f"S={S}, U={U}; plan {plan}", flush=True)
+    want = f.head_product(head)
+    plain = f.head_moves_plain(head)
+    torch.cuda.synchronize()
+    print(f"  the library's product vs head_moves_plain, bit for bit: "
+          f"{torch.equal(want.view(torch.int32), plain.view(torch.int32))}",
+          flush=True)
+    del plain
+    for name in VARIANTS_GW:
+        if "HP_CUT" not in VARIANTS_GW[name]:
+            out.fill_(float("nan"))
+            run(name)
+            torch.cuda.synchronize()
+            same = torch.equal(out.view(torch.int32), want.view(torch.int32))
+            print(f"  {name} vs the library's product, bit for bit: {same}",
+                  flush=True)
+            if not same:
+                raise RuntimeError(f"decode_split: GW's product ({name}) "
+                                   f"disagrees")
+    base = None
+    for name in VARIANTS_GW:
+        ms = ms_of(lambda: run(name))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f" ({base - ms:+.4g} ms against the source)")
+        print(f"  {name}: {ms:.4g} ms{more}", flush=True)
+    moves = f.move_buffer(head)
+    fwd = f.tcn_fused_forward(head, moves_out=moves)
+    old_fwd = f.tcn_fused_forward_wide_old_kernel(head)
+    t = {"GW": ms_of(lambda: f.tcn_fused_forward(head, moves_out=moves)),
+         "the product": ms_of(lambda: f.head_product(head, moves)),
+         "JW": ms_of(lambda: f.tcn_fused_backward(head, *fwd, moves=moves)),
+         "the earlier GW": ms_of(
+             lambda: f.tcn_fused_forward_wide_old_kernel(head), reps=2),
+         "the earlier JW": ms_of(
+             lambda: f.tcn_fused_backward_wide_old_kernel(head, *old_fwd),
+             reps=2)}
+    t["GW's forward pass"] = t["GW"] - t["the product"]
+    a = head.h.float().transpose(0, 1).reshape(N * Th, H)
+    wt = head.wT.float().reshape(cols, H).t()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t["torch.matmul f32"] = ms_of(lambda: torch.matmul(a, wt))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    f32_bound = 2 * N * Th * H * cols / 67e12 * 1e3
+    print("  " + ", ".join(f"{k} {v:.4g} ms" for k, v in t.items())
+          + f"; the f32 cores' bound of the product {f32_bound:.4g} ms",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("decode_split: no CUDA device", file=sys.stderr)
         return 1
     pairs = sys.argv[1:] or list(SOURCES)
-    if not set(pairs) <= {*SOURCES, "j", "g"}:
-        print(f"decode_split: expected any of {[*SOURCES, 'j', 'g']}",
+    if not set(pairs) <= {*SOURCES, "j", "g", "gw"}:
+        print(f"decode_split: expected any of {[*SOURCES, 'j', 'g', 'gw']}",
               file=sys.stderr)
         return 2
     card = subprocess.run(
@@ -521,7 +659,11 @@ def main():
             libs = build_fused(key)
             for what, shape in J_HEADS.items():
                 split_fused(libs, card, dev, what, *shape)
-    pairs = [p for p in pairs if p not in ("j", "g")]
+    if "gw" in pairs:
+        libs = build_gw()
+        for what, shape in GW_HEADS.items():
+            split_gw(libs, card, dev, what, *shape)
+    pairs = [p for p in pairs if p not in ("j", "g", "gw")]
     if not pairs:
         return 0
     libs = build_variants(pairs)

@@ -4,8 +4,10 @@ bonito_tpu: the plain version of kernels GW and JW against
 ``forward_tcn_head`` of an LSTM-CRF of hac's geometry (f32 and int8) and
 of a transformer with its upsample folded into two phases, the slice as a
 whole (``basecall(..., head_route="fused")`` against bonito_tpu's basecall
-under ``BONITO_TPU_FUSED_HEAD=1``), the wrapper's gate and the weights'
-fragment layout that GW and JW read.
+under ``BONITO_TPU_FUSED_HEAD=1``), the product taken once a decode and
+handed from GW to JW, a plain model of GW's head product's row and column
+map, the wrapper's gate and the weights' layout that the earlier GW and JW
+read.
 
 f32 throughout: the plain versions are the kernels' arithmetic with the
 move scores in f32, as bonito_tpu's kernel and scan have them. Decodes:
@@ -135,6 +137,103 @@ def test_wide_wrappers_take_the_plain_versions_on_the_cpu():
     out = decode_fused_cuda.tcn_fused_backward_wide(head, *fwd, **Q)
     want = decode_fused_cuda.tcn_fused_backward_plain(head, *ref, **Q)
     assert all(torch.equal(out[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("state_len", [5, 3], ids=["S1024", "S64"])
+def test_fused_route_takes_the_head_product_once(monkeypatch, state_len):
+    """``viterbi_decode_head`` on the CPU takes the move scores once
+    (``move_buffer``'s tensor, written by the forward pass and read by the
+    backward pass) and decodes as the two plain passes, each of which
+    takes them itself, do: bit for bit."""
+    S = 4 ** state_len
+    rng = np.random.default_rng(S)
+    h = np.tanh(rng.normal(size=(6, 4, 32))).astype(np.float32)
+    wT = (0.5 * rng.normal(size=(2, 4 * S, 32)) / np.sqrt(32)).astype(
+        np.float32)
+    bias = (0.3 * rng.normal(size=(2, 4 * S))).astype(np.float32)
+    head = HeadSplit(_t(h), _t(wT), _t(bias), True, 5.0, None, None, 2.0)
+    fwd = decode_fused_cuda.tcn_fused_forward_plain(head)
+    want = decode_fused_cuda.tcn_fused_backward_plain(head, *fwd, **Q)
+    plain = decode_fused_cuda.head_moves_plain
+    calls = []
+
+    def counted(hd):
+        calls.append(1)
+        return plain(hd)
+    monkeypatch.setattr(decode_fused_cuda, "head_moves_plain", counted)
+    out = decode.viterbi_decode_head(CTC_CRF(state_len, ALPHABET), head, **Q)
+    assert len(calls) == 1
+    assert all(torch.equal(out[k], want[k]) for k in want)
+
+
+def test_wide_wrappers_hand_the_moves_over_on_the_cpu():
+    """GW's ``moves_out`` receives ``head_moves_plain``'s tensor, which
+    JW's ``moves`` then reads; ``head_product`` on the CPU is the plain
+    version."""
+    h, wT, bias, ops = _head(6, 2, 5)
+    head = HeadSplit(_t(h), _t(wT), _t(bias), ops["act_tanh"], ops["scale"],
+                     ops["cmin"], ops["cmax"], 2.0)
+    moves = decode_fused_cuda.move_buffer(head)
+    assert moves.shape == (8, 10, 4096) and moves.dtype == torch.float32
+    fwd = decode_fused_cuda.tcn_fused_forward_wide(head, moves_out=moves)
+    want = decode_fused_cuda.head_moves_plain(head)
+    assert torch.equal(moves, want)
+    assert torch.equal(decode_fused_cuda.head_product(head), want)
+    ref = decode_fused_cuda.tcn_fused_forward_plain(head)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, ref))
+    out = decode_fused_cuda.tcn_fused_backward_wide(head, *fwd, **Q,
+                                                    moves=moves)
+    ref = decode_fused_cuda.tcn_fused_backward_plain(head, *ref, **Q)
+    assert all(torch.equal(out[k], ref[k]) for k in ref)
+
+
+@pytest.mark.parametrize("N,Th,U,H,tanh", [(3, 5, 2, 32, True),
+                                           (2, 70, 1, 48, False),
+                                           (1, 1, 1, 16, False)])
+def test_head_product_map_gives_head_moves_plain(N, Th, U, H, tanh):
+    """A plain model of GW's head product (csrc/head_product.cu): the GEMM
+    of M = N * Th rows, row m = n * Th + th reading h[th, n], and U * 4S
+    columns, column p * 4S + c reading wT[p, c], cut into 128-row tiles
+    (rows past M load row M - 1 and are not stored), each output one f32
+    sum over k in order, then bias, tanh, scale and clamp. Row-major it is
+    ``head_moves_plain``'s [N, T, 4S] tensor of frame t = th * U + p, bit
+    for bit, ragged row tiles among the shapes."""
+    rng = np.random.default_rng(N * Th + H)
+    S = 1024
+    h = torch.from_numpy(np.tanh(rng.normal(size=(Th, N, H))).astype(
+        np.float32)).to(torch.bfloat16)
+    wT = torch.from_numpy((3.0 * rng.normal(size=(U, 4 * S, H))
+                           / np.sqrt(H)).astype(np.float32)).to(
+                               torch.bfloat16)
+    bias = (torch.from_numpy((0.3 * rng.normal(size=(U, 4 * S))).astype(
+        np.float32)) if tanh else None)
+    head = HeadSplit(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+                     None if tanh else -5.0, None if tanh else 5.0, 2.0)
+    M, cols = N * Th, U * 4 * S
+    hf = h.float().numpy()
+    w = wT.float().numpy().reshape(cols, H)
+    out = np.full((M, cols), np.nan, np.float32)
+    for m0 in range(0, M, 128):
+        rows = np.minimum(np.arange(m0, m0 + 128), M - 1)
+        a = hf[rows % Th, rows // Th]                  # [128, H]
+        acc = np.zeros((128, cols), np.float32)
+        for k in range(H):  # products of bf16 values are exact in f32
+            acc = acc + a[:, k, None] * w[None, :, k]
+        keep = slice(0, min(128, M - m0))
+        out[m0:m0 + 128][keep] = acc[keep]
+    z = torch.from_numpy(out)
+    if bias is not None:
+        z = z + bias.reshape(cols)
+    if tanh:
+        z = torch.tanh(z)
+    if head.scale != 1.0:
+        z = z * head.scale
+    if head.cmin is not None:
+        z = torch.clamp(z, head.cmin, head.cmax)
+    want = decode_fused_cuda.head_moves_plain(head)
+    assert want.shape == (N, Th * U, 4 * S)
+    assert torch.equal(z.reshape(N, Th * U, 4 * S).view(torch.int32),
+                       want.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------

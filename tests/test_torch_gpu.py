@@ -721,6 +721,138 @@ def test_fused_decode_kernels_reject_what_they_do_not_take(cuda):
             bias=torch.zeros(2, 64, device=cuda)))
 
 
+def _wide_head(cuda, N, Th, H, S, U, act, seed):
+    """A random head of S states for GW and JW: ``act`` "clamp" (hac's:
+    no bias, clamped to +-5), "tanh" (sup's: tanh x 5 and a bias) or
+    "bias" (a bias, nothing else)."""
+    g = torch.Generator().manual_seed(seed)
+    gain = 0.5 if act == "tanh" else 3.0
+    h = torch.tanh(torch.randn(Th, N, H, generator=g)).to(cuda, torch.bfloat16)
+    wT = (gain * torch.randn(U, 4 * S, H, generator=g) / H ** 0.5).to(
+        cuda, torch.bfloat16)
+    bias = ((0.3 * torch.randn(U, 4 * S, generator=g)).to(cuda)
+            if act != "clamp" else None)
+    tanh = act == "tanh"
+    clamp = act == "clamp"
+    return Head(h, wT, bias, tanh, 5.0 if tanh else 1.0,
+                -5.0 if clamp else None, 5.0 if clamp else None, 2.0)
+
+
+@pytest.mark.parametrize("N,Th,H,S,U,act", [
+    (4, 24, 1024, 1024, 1, "clamp"), (6, 12, 512, 1024, 2, "tanh"),
+    (3, 19, 64, 1024, 1, "tanh"), (5, 11, 512, 1024, 2, "bias"),
+    (2, 13, 256, 512, 1, "tanh"), (7, 45, 128, 512, 2, "clamp"),
+    (1, 1, 16, 1024, 1, "clamp"), (33, 9, 48, 512, 1, "bias"),
+    (96, 40, 1024, 1024, 1, "clamp"), (16, 70, 512, 1024, 2, "tanh")])
+def test_wide_decode_equals_its_earlier_kernels(cuda, N, Th, H, S, U, act):
+    """GW (the head product, then the forward pass on B's ring in f32) and
+    JW (the backward pass on C's ring over the same moves) on the route
+    ``viterbi_decode_head`` takes: one product, one launch each counted,
+    the plans recorded, every output equal to the earlier GW's and JW's bit
+    for bit (move-in, choices, c, logZ, end state; sequence, qstring,
+    moves), and the moves to ``head_moves_plain``'s. U 1 and 2, S 512 and
+    1024, with and without bias, tanh and clamp, and N * Th no multiple of
+    the product's 128-row tile; JW handed the moves launches no product."""
+    head = _wide_head(cuda, N, Th, H, S, U, act, N + Th + H)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = decode_fused_cuda.wide_decode_plan(N, Th, H, S, U, sms)
+    assert plan is not None
+    f = decode_fused_cuda
+    counts = lambda: (f.head_product.launches,
+                      f.tcn_fused_forward_wide.launches,
+                      f.tcn_fused_backward_wide.launches)
+    before = counts()
+    moves = f.move_buffer(head)
+    fwd = f.tcn_fused_forward(head, moves_out=moves)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2])
+    out = f.tcn_fused_backward(head, *fwd, qscale=1.05, qbias=0.2,
+                               moves=moves)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert f.tcn_fused_forward_wide.plan == plan
+    assert f.tcn_fused_backward_wide.plan == plan
+    assert f.head_product.plan == plan["product"]
+    old_fwd = f.tcn_fused_forward_wide_old_kernel(head)
+    old = f.tcn_fused_backward_wide_old_kernel(head, *old_fwd, qscale=1.05,
+                                               qbias=0.2)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    for a, b in zip(fwd, old_fwd):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    for k in ("sequence", "qstring", "moves"):
+        assert torch.equal(out[k], old[k]), k
+    want = f.head_moves_plain(head)
+    assert torch.equal(moves.view(torch.int32), want.view(torch.int32))
+    if N * Th * U > 1:  # one frame decodes to one move or one stay
+        assert 0 < out["moves"].float().mean().item() < 1
+
+
+def test_wide_decode_without_moves_takes_the_product_itself(cuda):
+    """GW and JW called alone, as ``tcn_fused_forward(head)`` and
+    ``tcn_fused_backward(head, *fwd)``: each takes the product (two
+    launches of it), with the same outputs as with the moves handed over;
+    the route's moves of another shape or type raise."""
+    head = _wide_head(cuda, 5, 17, 64, 1024, 2, "tanh", 3)
+    f = decode_fused_cuda
+    before = f.head_product.launches
+    fwd = f.tcn_fused_forward(head)
+    out = f.tcn_fused_backward(head, *fwd, qscale=1.05, qbias=0.2)
+    torch.cuda.synchronize()
+    assert f.head_product.launches == before + 2
+    moves = f.move_buffer(head)
+    fwd2 = f.tcn_fused_forward(head, moves_out=moves)
+    out2 = f.tcn_fused_backward(head, *fwd2, qscale=1.05, qbias=0.2,
+                                moves=moves)
+    for a, b in zip(fwd, fwd2):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert all(torch.equal(out[k], out2[k]) for k in out)
+    with pytest.raises(ValueError, match="moves"):
+        f.tcn_fused_backward(head, *fwd, moves=moves[:, :-1])
+    with pytest.raises(ValueError, match="moves"):
+        f.tcn_fused_forward(head, moves_out=moves.to(torch.bfloat16))
+
+
+def test_wide_decode_on_its_earlier_kernels_without_a_plan(cuda,
+                                                           monkeypatch):
+    """Where ``wide_decode_plan`` gives None (as chip_smoke.py's turns
+    make it), GW and JW run the earlier kernels, counted as GW and JW, no
+    product is launched and ``move_buffer`` gives None."""
+    head = _wide_head(cuda, 3, 10, 64, 1024, 1, "clamp", 4)
+    f = decode_fused_cuda
+    monkeypatch.setattr(f, "wide_decode_plan", lambda *a, **k: None)
+    assert f.move_buffer(head) is None
+    counts = lambda: (f.head_product.launches,
+                      f.tcn_fused_forward_wide.launches,
+                      f.tcn_fused_backward_wide.launches)
+    before = counts()
+    out = decode.viterbi_decode_head(CTC_CRF(5, ["N", "A", "C", "G", "T"]),
+                                     head, qscale=1.05, qbias=0.2)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 1, before[2] + 1)
+    old_fwd = f.tcn_fused_forward_wide_old_kernel(head)
+    old = f.tcn_fused_backward_wide_old_kernel(head, *old_fwd, qscale=1.05,
+                                               qbias=0.2)
+    assert all(torch.equal(out[k], old[k]) for k in old)
+
+
+@pytest.mark.parametrize("N,Th,H,cols", [
+    (96, 30, 1024, 4096), (128, 9, 512, 8192), (5, 11, 512, 8192),
+    (1, 1, 16, 4096), (3, 50, 32, 2048)])
+def test_head_product_equals_head_moves_plain(cuda, N, Th, H, cols):
+    """GW's head product alone: ``head_moves_plain``'s bits (each output
+    one f32 sum over k in order), ragged row tiles among the shapes."""
+    S, U = (1024, cols // 4096) if cols >= 4096 else (cols // 4, 1)
+    head = _wide_head(cuda, N, Th, H, S, U, "tanh" if H == 512 else "clamp",
+                      N * Th)
+    before = decode_fused_cuda.head_product.launches
+    out = decode_fused_cuda.head_product(head)
+    torch.cuda.synchronize()
+    assert decode_fused_cuda.head_product.launches == before + 1
+    want = decode_fused_cuda.head_moves_plain(head)
+    assert out.shape == (N, Th * U, 4 * S)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
 def _freqs(T, r, device):
     inv = 1.0 / (10000.0 ** (np.arange(0, r, 2) / r))
     f = np.outer(np.arange(T), inv)

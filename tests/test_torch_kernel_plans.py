@@ -11,7 +11,10 @@ with their bands (the dk kind's mirrored) in their rings, that B's and
 C's ring hands each frame over once, in order, and sums the states in
 ``block_sum``'s tree, that M's and Q's (``ops.decode_full_cuda.
 decode_full_plan``) fits and copies each frame of either strand once, with
-the reverse strand's states kept in the forward strand's order, that U's
+the reverse strand's states kept in the forward strand's order, that the
+f32 ring of GW and JW (``decode_plan`` with f32 moves) fits, that GW's
+head product (``ops.decode_fused_cuda.product_plan``) fits and its
+persistent CTAs cover every output tile once, that U's
 and V's (``ops.logz_cuda.logz_plan``) fits, covers every state once,
 copies each frame once in its pass's order and, emulated here state by
 state in the kernels' order, computes ``ops.logz``'s plain versions bit
@@ -24,8 +27,9 @@ import pytest
 import torch
 
 from bonito_tpu_torch.ops import (attention_cuda, decode_cuda,
-                                  decode_full_cuda, logz, logz_cuda,
-                                  lstm_cuda, lstm_int8_cuda, lstm_train_cuda)
+                                  decode_full_cuda, decode_fused_cuda, logz,
+                                  logz_cuda, lstm_cuda, lstm_int8_cuda,
+                                  lstm_train_cuda)
 
 SMS = 132             # an H100's SMs
 SMEM = 232448         # the most shared memory a block may ask for
@@ -1291,3 +1295,100 @@ def test_logz_ring_emulation_equals_the_plain_versions(one_thread, S, N, T):
         e_grad = _emulate_v(moves, 1.5, stack, lz, cot, k)
         assert torch.equal(e_grad.view(torch.int32),
                            grad.view(torch.int32)), k
+
+
+@pytest.mark.parametrize("S", [512, 1024])
+def test_decode_plan_f32_slots_fit_the_card(S):
+    """GW's and JW's passes on B's and C's ring over the head product's f32
+    moves: a slot of 16S bytes (21S with C's move_in and choices), rings of
+    8 frames within the card's shared memory at S 512 and 1024, the bf16
+    plan's threads."""
+    plan = decode_cuda.decode_plan(96, 1666, S, SMS, torch.float32)
+    bf16 = decode_cuda.decode_plan(96, 1666, S, SMS)
+    assert plan["threads"] == bf16["threads"] and plan["ctas"] == 96
+    for name, backward in (("fwd", False), ("bwd", True)):
+        ring = plan[name]["ring"]
+        assert ring == decode_cuda.RING
+        assert plan[name]["smem"] == decode_cuda.ring_smem(S, ring, backward,
+                                                           16 * S)
+        assert bf16[name]["smem"] < plan[name]["smem"] <= SMEM
+    if S == 1024:
+        assert (plan["fwd"]["smem"], plan["bwd"]["smem"]) == (148288, 183104)
+
+
+# (N, Th, H, cols): hac (U 1, S 1024), sup (U 2), ragged rows (N * Th no
+# multiple of 128), one row, S 512, the card tests' shapes
+PRODUCT_SHAPES = [(96, 1666, 1024, 4096), (128, 1000, 512, 8192),
+                  (5, 11, 512, 8192), (1, 1, 16, 4096), (2, 13, 256, 2048),
+                  (3, 19, 64, 4096), (4, 24, 1024, 4096), (9, 37, 32, 2048)]
+
+
+@pytest.mark.parametrize("N,Th,H,cols", PRODUCT_SHAPES)
+def test_product_plan_fits_the_card(N, Th, H, cols):
+    """GW's head product: 128 x 128 tiles of 256 threads, 16 k a step,
+    two f32 tiles and a ring of 4 bf16 slots (64 KB, two CTAs an SM within
+    the SM's 228 KB), a persistent grid of at most two CTAs an SM."""
+    plan = decode_fused_cuda.product_plan(N, Th, H, cols, SMS)
+    assert plan["tile"] == (128, 128, 16) and plan["threads"] == 256
+    assert plan["tiles_m"] == -(-N * Th // 128)
+    assert plan["tiles_n"] * 128 == cols
+    assert plan["tiles"] == plan["tiles_m"] * plan["tiles_n"]
+    assert plan["ctas"] == min(plan["tiles"], 2 * SMS)
+    assert plan["waves"] == -(-plan["tiles"] // plan["ctas"])
+    assert plan["k_steps"] * 16 == H
+    assert plan["smem"] == 2 * 16 * 256 * 4 + 4 * 256 * 16 * 2 == 65536
+    assert plan["ctas_per_sm"] * (plan["smem"] + 1024) <= 233472
+
+
+def test_product_plan_at_hac_and_sup():
+    """hac: 159,936 rows by 4096 columns, 1250 x 32 tiles over 264 CTAs,
+    64 k steps; sup: 128,000 rows by 8192, 1000 x 64 tiles, 32 k steps."""
+    hac = decode_fused_cuda.product_plan(96, 1666, 1024, 4096, SMS)
+    sup = decode_fused_cuda.product_plan(128, 1000, 512, 8192, SMS)
+    for plan, want in ((hac, (1250, 32, 40000, 64, 152)),
+                       (sup, (1000, 64, 64000, 32, 243))):
+        assert (plan["tiles_m"], plan["tiles_n"], plan["tiles"],
+                plan["k_steps"], plan["waves"]) == want
+        assert plan["ctas"] == 264
+    assert decode_fused_cuda.wide_decode_plan(96, 1666, 1024, 1024, 1,
+                                              SMS) == {
+        "product": hac, "fwd": {"ring": 8, "smem": 148288},
+        "bwd": {"ring": 8, "smem": 183104}}
+
+
+@pytest.mark.parametrize("N,Th,H,cols", [
+    (4, 5, 1000, 4096), (4, 5, 8, 4096), (4, 5, 1024, 4000),
+    (4, 5, 1024, 64), (0, 5, 64, 4096), (4, 0, 64, 4096)])
+def test_product_plan_refuses_what_the_kernel_does_not_take(N, Th, H, cols):
+    """H no multiple of 16 (or below it), columns no multiple of 128 (or
+    fewer), empty shapes: no plan, and the wrapper raises."""
+    assert decode_fused_cuda.product_plan(N, Th, H, cols, SMS) is None
+    S = cols // 4
+    if N and Th and S and S & (S - 1) == 0:
+        assert decode_fused_cuda.wide_decode_plan(N, Th, H, S, 1,
+                                                  SMS) is None
+
+
+@pytest.mark.parametrize("N,Th,H,cols", PRODUCT_SHAPES)
+def test_product_ctas_cover_every_output_tile_once(N, Th, H, cols):
+    """CTA b of the persistent grid takes tiles b, b + ctas, ... (column
+    tile fastest): every tile once, and so every output (row n * Th + th,
+    column p * 4S + c) once, the ragged rows past N * Th stored by none;
+    CTAs in flight together work on at most a few row panels."""
+    plan = decode_fused_cuda.product_plan(N, Th, H, cols, SMS)
+    M, bm, bn = N * Th, 128, 128
+    taken = torch.zeros(plan["tiles"], dtype=torch.int32)
+    for b in range(plan["ctas"]):
+        taken[b::plan["ctas"]] += 1
+    assert (taken == 1).all()
+    # tile t's outputs: rows m0 .. m0 + 127 (those below M stored), columns
+    # c0 .. c0 + 127; the tiles' corners are every (m0, c0) once
+    t = torch.arange(plan["tiles"])
+    m0, c0 = t // plan["tiles_n"] * bm, t % plan["tiles_n"] * bn
+    corners = set(zip(m0.tolist(), c0.tolist()))
+    assert corners == {(m, c) for m in range(0, M, bm)
+                       for c in range(0, cols, bn)}
+    assert int(m0.max()) < M <= int(m0.max()) + bm
+    first_wave = range(min(plan["ctas"], plan["tiles"]))
+    panels = {t // plan["tiles_n"] for t in first_wave}
+    assert len(panels) <= -(-2 * SMS // plan["tiles_n"]) + 1
