@@ -40,10 +40,10 @@
 // rate. The recursion over T is serial, so this first design is
 // latency-bound: one block per batch row, one thread per state, alpha or
 // beta, alpha_t and the frame's row in shared memory, two barriers per
-// frame. On the card U, V and X run on the ring of csrc/logz_ring.cu
+// frame. On the card U, V, W and X run on the ring of csrc/logz_ring.cu
 // where ops/logz_cuda.py's logz_plan gives a plan (the same bits); these
-// kernels stay for W, for what the plan does not take, and as the ring's
-// oracle.
+// kernels stay for what the plan does not take (pointers not 16-byte
+// aligned, W's and X's bf16 rows at S 4) and as the ring's oracle.
 
 #include "crf_frames.cuh"
 #include "logz_steps.cuh"

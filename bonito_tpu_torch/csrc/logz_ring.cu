@@ -1,15 +1,17 @@
-// Kernels U, V and X for the H100: logZ of the TCN moves (with the alpha
-// stack or without it), its gradient, and the gradient of logZ of the full
-// scores -- the function of the earlier kernels in csrc/logz.cu, with the
-// same f32 steps, so the same bits on every output -- on the ring of
-// csrc/ring.cuh: each frame's row staged ahead in shared memory by a
-// producer warp, one block-wide barrier a frame.
+// Kernels U, V, W and X for the H100: logZ of the TCN moves (with the
+// alpha stack or without it), its gradient, logZ of the full scores (with
+// or without the stack) and its gradient -- the function of the earlier
+// kernels in csrc/logz.cu, with the same f32 steps, so the same bits on
+// every output -- on the ring of csrc/ring.cuh: each frame's row staged
+// ahead in shared memory by a producer warp, one block-wide barrier a
+// frame.
 //
 // U replaces bonito_tpu/ops/logz_pallas.py `_fwd_kernel_tcn` (and
-// `_fwd_kernel_tcn_nockpt`: U without its stack), V `_bwd_kernel_tcn`, X
-// `_bwd_kernel` (full scores [N, T, 5S] with a stay plane: FullFrame of
-// csrc/crf_frames.cuh, state s's stay at column 5s, its move from
-// predecessor j*R + s/4 at 5s + 1 + j). The
+// `_fwd_kernel_tcn_nockpt`: U without its stack), V `_bwd_kernel_tcn`, W
+// `_fwd_kernel` (and `_fwd_kernel_nockpt`), X `_bwd_kernel` (W and X: full
+// scores [N, T, 5S] with a stay plane, FullFrame of csrc/crf_frames.cuh,
+// state s's stay at column 5s, its move from predecessor j*R + s/4 at
+// 5s + 1 + j). The
 // recurrences and the layout of the moves are in csrc/logz.cu (TcnFrame of
 // csrc/crf_frames.cuh: column (b*nb + j)*R + r is the move into state
 // s = r*nb + b from predecessor j*R + r; the stay is the constant blank).
@@ -27,29 +29,30 @@
 //
 // Per batch row one CTA of consumer threads and a producer warp:
 //   the ring   the producer's lane 0 copies each frame's row ahead into a
-//              ring of slots (U: the frame's 4S moves; V: its moves and the
-//              alpha stack's row, frames T-1 .. 0), one mbarrier `full` a
-//              slot; the frame barrier is the slot's `empty`. The consumers
-//              read the next frame's values from its slot into registers
-//              during a frame (so a ring holds at least 2), where they fill
-//              the chain's stalls.
+//              ring of slots (U: the frame's 4S moves; W: its 5S scores; V:
+//              its moves and the alpha stack's row, frames T-1 .. 0), one
+//              mbarrier `full` a slot; the frame barrier is the slot's
+//              `empty`. The consumers read the next frame's values from its
+//              slot into registers during a frame (so a ring holds at least
+//              2), where they fill the chain's stalls.
 //   the states consumer i holds K states (K = 1 or 4, the plan's
 //              states_per_thread) of the block q = i % R, those of
 //              b = c*K .. c*K + K-1 with c = i / R: in U its states
 //              s = 4q + b, whose four predecessors j*R + q the block
 //              shares; in V its predecessors p = j*R + q (j = c*K ..) with
-//              their successors 4q + b (b = 0..3). Threads past the states
-//              compute thread 0's and store nothing.
+//              their successors 4q + b (b = 0..3); in W the states K*i ..
+//              K*i + K-1 (FullSlot). Threads past the states compute thread
+//              0's and store nothing.
 //   one barrier a frame  alpha (beta) lives in two parity buffers in shared
 //              memory; a thread reads its inputs from the frame's parity,
 //              writes its K new values to the other, then the one
 //              __syncthreads.
-//   the stores U's stack (alpha before each frame) goes out as one K-wide
-//              store of the thread's own alpha a frame; V's gradient as 4K
-//              warp-wide stores a thread a frame, in the moves' layout, two
-//              values rounded to bf16 by one conversion (one bulk store a
-//              frame, of the parity buffer or of a staged gradient row, was
-//              slower or no faster: PERF.md).
+//   the stores U's and W's stack (alpha before each frame) goes out as one
+//              K-wide store of the thread's own alpha a frame; V's gradient
+//              as 4K warp-wide stores a thread a frame, in the moves'
+//              layout, two values rounded to bf16 by one conversion (one
+//              bulk store a frame, of the parity buffer or of a staged
+//              gradient row, was slower or no faster: PERF.md).
 //   the end    consumer warp 0 takes logZ from alpha_T: the max over the
 //              states, then the sum of exp(a - max) in block_sum's tree
 //              (the xor butterfly of each run of 32 states, then of the
@@ -57,6 +60,18 @@
 // Each state's f32 steps are the earlier kernel's whatever thread takes
 // them (the sums over j or b in order 0..3, then lse2), so every assignment
 // of states to threads gives the same bits.
+//
+// W is U's kernel for the full scores' layout: the forward ring is written
+// once (fwd_ring) over a slot-reading functor, TcnSlot for U and FullSlot
+// for W, which says which states a consumer takes and reads its scores of
+// a frame into registers; U's steps, and so its bits, are as before. A
+// slot holds a frame's 5S scores (20,480 B at S 1024 in f32: 8 of them,
+// alpha and the mbarriers 172,096 B; 90,176 B in bf16). A consumer takes
+// K consecutive states, whose 5K scores are consecutive in the slot (five
+// 16-byte loads at K 4 in f32), and each state's stay is read with its
+// moves in place of U's constant blank: the same f32 steps, so the earlier
+// W's bits. At hac training shapes W moves 2.62 GB of f32 scores and 0.52
+// GB of stack, 0.94 ms at the card's rate.
 //
 // X is V's kernel for the full scores' layout. A slot holds a frame's 5S
 // scores and its alpha row (24,576 B at S 1024 in f32, 8 of them 204,864 B
@@ -109,13 +124,15 @@ __host__ __device__ inline int logz_consumers(int S, int K) {
 }
 
 // shared memory: the mbarriers, alpha or beta of two parities ([2][S] f32)
-// and the ring of slots (U: the frame's moves; V: its moves and alpha_t)
+// and the ring of slots (U: the frame's moves; W: its `cols` = 5 scores a
+// state; V: its moves and alpha_t)
 __host__ __device__ inline size_t logz_head(int ring) {
     return (size_t)(ring * 8 + 15) / 16 * 16;
 }
 __host__ __device__ inline size_t logz_fwd_smem(int S, int ring,
-                                                size_t in_bytes) {
-    return logz_head(ring) + (size_t)8 * S + ring * (NB * S * in_bytes);
+                                                size_t in_bytes,
+                                                int cols = NB) {
+    return logz_head(ring) + (size_t)8 * S + ring * (cols * S * in_bytes);
 }
 __host__ __device__ inline size_t logz_bwd_smem(int S, int ring,
                                                 size_t in_bytes) {
@@ -166,17 +183,110 @@ __device__ __forceinline__ void store_grad2(Out* pa, Out* pb, float a,
     }
 }
 
-// --------------------------------------------------------------- kernel U
-template <typename In, bool ROUND, bool STACK, int K>
-__global__ void __launch_bounds__(LOGZ_THREADS, 1)
-logz_fwd_ring_kernel(const In* __restrict__ moves,  // [N, T, 4S]
-                     float* __restrict__ stack,     // [N, T, S] or null
-                     float* __restrict__ logz,      // [N]
-                     int T, int S, int ring, float blank)
+// ---------------------------------------------------------- kernels U, W
+// What a consumer of the forward ring holds of a frame: the moves into its
+// K states from slots j = 0..3 and their stays (the frame's, and the next
+// frame's read from its slot a frame early)
+template <int K>
+struct FwdVals {
+    float mv[K][NB];
+    float st[K];
+};
+
+// U's slot: the frame's 4S moves in TCN order (TcnFrame), the stay the
+// constant blank. Consumer i takes block q = i % R and its states 4q + c0
+// .. 4q + c0 + K-1, c0 = (i / R) * K: consecutive threads read consecutive
+// columns ((c0 + k)*4 + j)*R + q.
+template <typename In, bool ROUND, int K>
+struct TcnSlot {
+    static constexpr int COLS = NB;  // a frame's scores a state
+    float blank;
+    __device__ __forceinline__ void place(int i, int R, int& q,
+                                          int& c0) const {
+        q = i % R;
+        c0 = i / R * K;
+    }
+    __device__ __forceinline__ void read(const unsigned char* slot, int R,
+                                         int q, int c0,
+                                         FwdVals<K>& v) const {
+        const In* row = reinterpret_cast<const In*>(slot);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+            for (int j = 0; j < NB; ++j)
+                v.mv[k][j] = load_score<In, ROUND>(
+                    row + ((c0 + k) * NB + j) * R + q);
+    }
+    __device__ __forceinline__ float stay(const FwdVals<K>&, int) const {
+        return blank;
+    }
+};
+
+// n scores from p into f32, rounded as load_score rounds them: f32 at n a
+// multiple of 4 in 16-byte loads
+template <typename In, bool ROUND, int N>
+__device__ __forceinline__ void load_scores(const In* p, float (&x)[N]) {
+    if constexpr (N % 4 == 0 && std::is_same<In, float>::value) {
+#pragma unroll
+        for (int m = 0; m < N / 4; ++m) {
+            const float4 a = reinterpret_cast<const float4*>(p)[m];
+            x[4 * m] = a.x; x[4 * m + 1] = a.y;
+            x[4 * m + 2] = a.z; x[4 * m + 3] = a.w;
+        }
+#pragma unroll
+        for (int m = 0; m < N; ++m)
+            if (ROUND) x[m] = __bfloat162float(__float2bfloat16_rn(x[m]));
+    } else {
+#pragma unroll
+        for (int m = 0; m < N; ++m) x[m] = load_score<In, ROUND>(p + m);
+    }
+}
+
+// W's slot: the frame's 5S scores (FullFrame: state s's stay at column 5s,
+// its move from slot j at 5s + 1 + j). Consumer i takes the K consecutive
+// states s0 = K*i .. (block q = s0 / 4, c0 = s0 % 4), whose 5K scores are
+// consecutive: in f32 at K 4 five 16-byte loads at word 20i (8 consecutive
+// threads on 8 distinct groups of 4 banks), at K 1 five words at 5i (5 is
+// odd: 32 distinct banks); in bf16 (no default path: `loss` casts to f32)
+// one score a load.
+template <typename In, bool ROUND, int K>
+struct FullSlot {
+    static constexpr int COLS = NB + 1;
+    __device__ __forceinline__ void place(int i, int, int& q,
+                                          int& c0) const {
+        q = i * K / NB;
+        c0 = i * K % NB;
+    }
+    __device__ __forceinline__ void read(const unsigned char* slot, int,
+                                         int q, int c0,
+                                         FwdVals<K>& v) const {
+        float x[COLS * K];
+        load_scores<In, ROUND>(
+            reinterpret_cast<const In*>(slot) + (NB * q + c0) * COLS, x);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            v.st[k] = x[k * COLS];
+#pragma unroll
+            for (int j = 0; j < NB; ++j) v.mv[k][j] = x[k * COLS + 1 + j];
+        }
+    }
+    __device__ __forceinline__ float stay(const FwdVals<K>& v, int k) const {
+        return v.st[k];
+    }
+};
+
+// the forward ring over a slot's layout (U: TcnSlot, W: FullSlot): scores
+// [N, T, COLS*S], the stack [N, T, S] or null, logz [N]
+template <class Slot, typename In, bool STACK, int K>
+__device__ __forceinline__ void fwd_ring(const Slot& f,
+                                         const In* __restrict__ scores,
+                                         float* __restrict__ stack,
+                                         float* __restrict__ logz, int T,
+                                         int S, int ring)
 {
     extern __shared__ __align__(16) unsigned char logz_smem[];
     const int R = S / NB, NC = logz_consumers(S, K);
-    const unsigned row_bytes = (unsigned)(NB * S * sizeof(In));
+    const unsigned row_bytes = (unsigned)(Slot::COLS * S * sizeof(In));
     uint64_t* full = reinterpret_cast<uint64_t*>(logz_smem);
     float* alpha = reinterpret_cast<float*>(logz_smem + logz_head(ring));
     unsigned char* rows = reinterpret_cast<unsigned char*>(alpha + 2 * S);
@@ -196,7 +306,8 @@ logz_fwd_ring_kernel(const In* __restrict__ moves,  // [N, T, 4S]
                 const int s = issued % ring;
                 if (!lcut(LCUT_WAITS))
                     fill(full + s, rows + (size_t)s * row_bytes, row_bytes,
-                         issued >= ring, moves + (row0 + issued) * NB * S,
+                         issued >= ring,
+                         scores + (row0 + issued) * Slot::COLS * S,
                          row_bytes);
             }
         };
@@ -210,24 +321,14 @@ logz_fwd_ring_kernel(const In* __restrict__ moves,  // [N, T, 4S]
 
     // ------------------------------------------------------------ consumers
     const bool active = tid < S / K;
-    const int i = active ? tid : 0;
-    const int q = i % R, c = i / R;
-    const int s0 = NB * q + c * K;  // the first of its states
-    // the moves into its states from slots j = 0..3 of a frame's row
-    auto read_row = [&](const unsigned char* slot, float (&mv)[K][NB]) {
-        const In* row = reinterpret_cast<const In*>(slot);
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-#pragma unroll
-            for (int j = 0; j < NB; ++j)
-                mv[k][j] = load_score<In, ROUND>(
-                    row + ((c * K + k) * NB + j) * R + q);
-    };
+    int q, c0;
+    f.place(active ? tid : 0, R, q, c0);
+    const int s0 = NB * q + c0;  // the first of its states
     // the next frame's slot: frame min(t + 1, T - 1)
     Cursor cur = {0, 0, ring};
-    // frame t: its moves in mv, the next frame's read into mvn on the way
-    auto frame = [&](int t, const float* ap, float* an,
-                     const float (&mv)[K][NB], float (&mvn)[K][NB]) {
+    // frame t: its scores in v, the next frame's read into vn on the way
+    auto frame = [&](int t, const float* ap, float* an, const FwdVals<K>& v,
+                     FwdVals<K>& vn) {
         if (!lcut(LCUT_WAITS))
             mbar_wait(full + cur.slot, (unsigned)cur.phase);
         float pred[NB], own[K], nxt[K];
@@ -241,31 +342,31 @@ logz_fwd_ring_kernel(const In* __restrict__ moves,  // [N, T, 4S]
             float cand[NB], m = -INFINITY;
 #pragma unroll
             for (int j = 0; j < NB; ++j) {
-                cand[j] = mv[k][j] + pred[j];
+                cand[j] = v.mv[k][j] + pred[j];
                 m = fmaxf(m, cand[j]);
             }
             float sum = 0.f;
 #pragma unroll
             for (int j = 0; j < NB; ++j) sum += exp_f(cand[j] - m);
-            nxt[k] = lse2(blank + own[k], m + log_f(sum));
+            nxt[k] = lse2(f.stay(v, k) + own[k], m + log_f(sum));
         }
-        read_row(rows + (size_t)cur.slot * row_bytes, mvn);
+        f.read(rows + (size_t)cur.slot * row_bytes, R, q, c0, vn);
         if (active) store_k<K>(an + s0, nxt);
         if (t + 2 < T) cur.next();
         __syncthreads();
     };
-    float mv0[K][NB], mv1[K][NB];
+    FwdVals<K> v0, v1;
     if (!lcut(LCUT_WAITS)) mbar_wait(full, 0u);
-    read_row(rows, mv0);
+    f.read(rows, R, q, c0, v0);
     if (T > 1) cur.next();
     float* const a0 = alpha;
     float* const a1 = alpha + S;
     int t = 0;
     for (; t + 1 < T; t += 2) {
-        frame(t, a0, a1, mv0, mv1);
-        frame(t + 1, a1, a0, mv1, mv0);
+        frame(t, a0, a1, v0, v1);
+        frame(t + 1, a1, a0, v1, v0);
     }
-    if (t < T) frame(t, a0, a1, mv0, mv1);
+    if (t < T) frame(t, a0, a1, v0, v1);
 
     // logZ from alpha_T: the max, then the sum in block_sum's tree
     if (w == 0) {
@@ -285,6 +386,30 @@ logz_fwd_ring_kernel(const In* __restrict__ moves,  // [N, T, 4S]
             sum += __shfl_xor_sync(0xffffffffu, sum, o);
         if (lane == 0) logz[blockIdx.x] = mx + log_f(sum);
     }
+}
+
+// --------------------------------------------------------------- kernel U
+template <typename In, bool ROUND, bool STACK, int K>
+__global__ void __launch_bounds__(LOGZ_THREADS, 1)
+logz_fwd_ring_kernel(const In* __restrict__ moves,  // [N, T, 4S]
+                     float* __restrict__ stack,     // [N, T, S] or null
+                     float* __restrict__ logz,      // [N]
+                     int T, int S, int ring, float blank)
+{
+    fwd_ring<TcnSlot<In, ROUND, K>, In, STACK, K>(
+        TcnSlot<In, ROUND, K>{blank}, moves, stack, logz, T, S, ring);
+}
+
+// --------------------------------------------------------------- kernel W
+template <typename In, bool ROUND, bool STACK, int K>
+__global__ void __launch_bounds__(LOGZ_THREADS, 1)
+logz_full_fwd_ring_kernel(const In* __restrict__ scores,  // [N, T, 5S]
+                          float* __restrict__ stack,  // [N, T, S] or null
+                          float* __restrict__ logz,   // [N]
+                          int T, int S, int ring)
+{
+    fwd_ring<FullSlot<In, ROUND, K>, In, STACK, K>(
+        FullSlot<In, ROUND, K>{}, scores, stack, logz, T, S, ring);
 }
 
 // --------------------------------------------------------------- kernel V
@@ -611,6 +736,21 @@ int launch_fwd(const void* moves, void* stack, void* logz, int N, int T,
     return (int)cudaGetLastError();
 }
 
+template <typename In, bool ROUND, bool STACK, int K>
+int launch_full_fwd(const void* scores, void* stack, void* logz, int N,
+                    int T, int S, int ring, cudaStream_t stream) {
+    const size_t smem = logz_fwd_smem(S, ring, sizeof(In), NB + 1);
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    auto kernel = logz_full_fwd_ring_kernel<In, ROUND, STACK, K>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<N, logz_consumers(S, K) + 32, smem, stream>>>(
+        static_cast<const In*>(scores), static_cast<float*>(stack),
+        static_cast<float*>(logz), T, S, ring);
+    return (int)cudaGetLastError();
+}
+
 template <typename In, typename Out, bool ROUND, int K>
 int launch_bwd(const void* moves, const void* stack, const void* logz,
                const void* g, void* grad, int N, int T, int S, int ring,
@@ -681,6 +821,29 @@ int fwd_stack(int K, const void* moves, void* stack, void* logz, int N,
                                            ring, blank, st);
 }
 
+template <typename In, bool ROUND, bool STACK>
+int full_fwd_k(int K, const void* scores, void* stack, void* logz, int N,
+               int T, int S, int ring, cudaStream_t st) {
+    return K == 4 ? launch_full_fwd<In, ROUND, STACK, 4>(scores, stack, logz,
+                                                         N, T, S, ring, st)
+                  : launch_full_fwd<In, ROUND, STACK, 1>(scores, stack, logz,
+                                                         N, T, S, ring, st);
+}
+
+template <typename In>
+int full_fwd_for(int round, int K, const void* scores, void* stack,
+                 void* logz, int N, int T, int S, int ring, cudaStream_t st) {
+    if (round)
+        return stack ? full_fwd_k<In, true, true>(K, scores, stack, logz, N,
+                                                  T, S, ring, st)
+                     : full_fwd_k<In, true, false>(K, scores, stack, logz, N,
+                                                   T, S, ring, st);
+    return stack ? full_fwd_k<In, false, true>(K, scores, stack, logz, N, T,
+                                               S, ring, st)
+                 : full_fwd_k<In, false, false>(K, scores, stack, logz, N, T,
+                                                S, ring, st);
+}
+
 template <typename In, typename Out, bool ROUND>
 int bwd_k(int K, const void* moves, const void* stack, const void* logz,
           const void* g, void* grad, int N, int T, int S, int ring,
@@ -725,6 +888,23 @@ int logz_tcn_fwd_ring(const void* moves, int is_f32, int round, void* stack,
                                            ring, blank, st)
                  : fwd_stack<bf16, false>(k, moves, stack, logz, N, T, S,
                                             ring, blank, st);
+}
+
+// kernel W on a ring of `ring` frames, `k` states a consumer thread: as
+// logz_fwd with is_full 1 (scores bf16, or f32 when is_f32; each frame's
+// row of 5S scores a whole number of 16-byte pieces)
+int logz_full_fwd_ring(const void* scores, int is_f32, int round,
+                       void* stack, void* logz, int N, int T, int S, int k,
+                       int ring, void* stream) {
+    if (bad_logz_ring(N, T, S, k, ring) || !aligned16(scores)
+        || (stack && !aligned16(stack))
+        || ((NB + 1) * S * (is_f32 ? 4 : 2)) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return is_f32 ? full_fwd_for<float>(round, k, scores, stack, logz, N, T,
+                                        S, ring, st)
+                  : full_fwd_for<bf16>(round, k, scores, stack, logz, N, T, S,
+                                       ring, st);
 }
 
 // kernel V on a ring of `ring` frames, `k` states a consumer thread: as

@@ -1,10 +1,10 @@
 // The f32 steps of the CRF loss's kernels that every instance takes alike:
 // the earlier kernels of csrc/logz.cu (U, V, W, X) and the ring kernels of
-// csrc/logz_ring.cu (U, V). The scores are rounded to bf16 on load with
-// `round` (round to nearest even, as XLA's convert), the gradient to bf16
-// before it is stored in the output type; lse2 is the log of a sum of two
-// exps, from their max. The same code in both sources is what makes their
-// outputs equal bit for bit.
+// csrc/logz_ring.cu (U, V, W, X). The scores are rounded to bf16 on load
+// with `round` (round to nearest even, as XLA's convert), the gradient to
+// bf16 before it is stored in the output type; lse2 is the log of a sum of
+// two exps, from their max. The same code in both sources is what makes
+// their outputs equal bit for bit.
 //
 // LOGZ_CUT (0 in the library) is for scripts/logz_split.py, which builds
 // csrc/logz_ring.cu with parts left out; its bit 2 takes every exp and log

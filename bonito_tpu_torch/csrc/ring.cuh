@@ -1,6 +1,6 @@
 // The plumbing of a ring of frames in shared memory, shared by the decode's
-// ring kernels (B, C, M, Q: csrc/decode_ring.cuh) and the loss's (U, V:
-// csrc/logz_ring.cu). A producer lane bulk-copies the rows of frames ahead
+// ring kernels (B, C, M, Q: csrc/decode_ring.cuh) and the loss's (U, V,
+// W, X: csrc/logz_ring.cu). A producer lane bulk-copies the rows of frames ahead
 // into `ring` slots, one mbarrier `full` a slot counting the bytes; the
 // consumers wait on a slot's `full` at the phase their Cursor gives. The
 // block-wide barrier of each frame is the slots' `empty`: a slot is

@@ -149,6 +149,9 @@ SIGNATURES = {
     # moves, is_f32, round, stack, logz, g, grad, out_f32, N, T, S, states a
     # thread, ring, blank, stream
     "logz_tcn_bwd_ring": [P, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
+    # kernel W on a ring of frames: scores, is_f32, round, stack (or null),
+    # logz, N, T, S, states a thread, ring, stream
+    "logz_full_fwd_ring": [P, I, I, P, P, I, I, I, I, I, P],
     # kernel X on a ring of frames: scores, is_f32, round, stack, logz, g,
     # grad, out_f32, N, T, S, states a thread, consumer threads, ring,
     # stream

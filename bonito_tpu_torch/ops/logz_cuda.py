@@ -12,16 +12,16 @@ read the decode layout: moves [N, T, nb*S], each frame's columns in
 scores [N, T, S*(nb+1)] with a stay plane. The recursion over T is
 serial: one CTA per batch row, one recursion step per frame.
 
-On the card U, V and X run on the ring of ``csrc/logz_ring.cu`` (each
+On the card U, V, W and X run on the ring of ``csrc/logz_ring.cu`` (each
 frame's row staged ahead in shared memory by a producer warp, 1 or 4
-states a consumer thread, one barrier a frame) where ``logz_plan`` gives a
-plan; ``tcn_forward.plan``, ``tcn_backward.plan`` and
-``full_backward.plan`` hold the last call's. The earlier kernels of
-``csrc/logz.cu`` (one thread per state, the frame's row loaded when the
-frame starts) run where it gives None (pointers that are not 16-byte
-aligned, X's rows of bf16 at S 4), for W, and in the ``*_old_kernel``
-wrappers, which count no launch; every output of the ring equals theirs
-bit for bit.
+states a consumer thread, one barrier a frame; W is U's kernel over the
+full scores' slot) where ``logz_plan`` gives a plan; ``tcn_forward.plan``,
+``tcn_backward.plan``, ``full_forward.plan`` and ``full_backward.plan``
+hold the last call's. The earlier kernels of ``csrc/logz.cu`` (one thread
+per state, the frame's row loaded when the frame starts) run where it
+gives None (pointers that are not 16-byte aligned, W's and X's rows of
+bf16 at S 4) and in the ``*_old_kernel`` wrappers, which count no launch;
+every output of the ring equals theirs bit for bit.
 
 Each wrapper launches a kernel for a CUDA tensor and raises for anything
 else; it never runs the plain version.
@@ -60,7 +60,7 @@ def ring_consumers(S, k):
 def logz_smem(S, ring, dtype, backward, full=False):
     """Shared memory of one CTA of the ring kernels (``logz_fwd_smem``,
     ``logz_bwd_smem`` and ``logz_full_bwd_smem`` of csrc/logz_ring.cu): the
-    mbarriers, alpha (U) or beta (V, X) of two parities, and the ring of
+    mbarriers, alpha (U, W) or beta (V, X) of two parities, and the ring of
     slots: a frame's 4S moves (5S scores when ``full``) in ``dtype``, and
     for V and X also its row of the alpha stack (4S bytes)."""
     head = (ring * 8 + 15) // 16 * 16
@@ -69,18 +69,19 @@ def logz_smem(S, ring, dtype, backward, full=False):
 
 
 def logz_plan(N, T, S, dtype, sms=None, aligned=True, full=False):
-    """The plan of kernels U and V (X with ``full``: scores [N, T, 5S]) on
-    the ring (``csrc/logz_ring.cu``) for moves [N, T, 4S] of ``dtype``
-    (what ``_check`` takes: bf16 or f32, S in ``STATES``) on a card of
-    ``sms`` SMs, or None where a pointer is not 16-byte aligned
-    (``aligned`` false) or, for X, a frame's row of scores is no whole
-    number of 16-byte pieces (bf16 at S 4: 40 B): the ring's bulk copies
-    need both; then the earlier kernels run. One CTA per batch row: S / k
-    consumer threads of k states each (k by S, ``STATES_PER_THREAD``;
-    rounded up to whole warps) and a producer warp, rings of ``RING``
-    frames. With ``full`` the consumers are ``X_CONSUMERS``' (the first S
-    / k of them take the chain) and the forward part, W's, is None: W runs
-    the earlier kernel."""
+    """The plan of kernels U and V (W and X with ``full``: scores [N, T,
+    5S]) on the ring (``csrc/logz_ring.cu``) for moves [N, T, 4S] of
+    ``dtype`` (what ``_check`` takes: bf16 or f32, S in ``STATES``) on a
+    card of ``sms`` SMs, or None where a pointer is not 16-byte aligned
+    (``aligned`` false) or, for W and X, a frame's row of scores is no
+    whole number of 16-byte pieces (bf16 at S 4: 40 B): the ring's bulk
+    copies need both; then the earlier kernels run. One CTA per batch row:
+    S / k consumer threads of k states each (k by S,
+    ``STATES_PER_THREAD``; rounded up to whole warps) and a producer warp,
+    rings of ``RING`` frames. With ``full`` the top-level consumers are X's
+    (``X_CONSUMERS``; the first S / k of them take the chain), and the
+    forward part, W's, carries its own ``threads``: U's S / k consumers
+    and the producer."""
     if not aligned or (full and (NB + 1) * S * dtype.itemsize % 16):
         return None
     k = STATES_PER_THREAD[S]
@@ -89,8 +90,10 @@ def logz_plan(N, T, S, dtype, sms=None, aligned=True, full=False):
             "states_per_thread": k, "ctas": N,
             "waves": None if sms is None else -(-N // sms)}
     for name, backward in (("fwd", False), ("bwd", True)):
-        plan[name] = None if full and not backward else {
-            "ring": RING, "smem": logz_smem(S, RING, dtype, backward, full)}
+        plan[name] = {"ring": RING,
+                      "smem": logz_smem(S, RING, dtype, backward, full)}
+    if full:
+        plan["fwd"]["threads"] = ring_consumers(S, k) + 32
     return plan
 
 
@@ -101,7 +104,7 @@ def logz_entry(plan, backward, full=False):
     if plan is None or plan["bwd" if backward else "fwd"] is None:
         return "logz_bwd" if backward else "logz_fwd"
     if full:
-        return "logz_full_bwd_ring"
+        return "logz_full_bwd_ring" if backward else "logz_full_fwd_ring"
     return "logz_tcn_bwd_ring" if backward else "logz_tcn_fwd_ring"
 
 
@@ -134,8 +137,8 @@ def _check_f32(name, device, **tensors):
 
 def _plan(counter, scores, full, *tensors):
     """The plan a counted launch of U, V, W or X takes (recorded in
-    ``counter.plan``; W's part is always None); None where ``counter`` is
-    None (the comparisons' route, which counts nothing)."""
+    ``counter.plan``); None where ``counter`` is None (the comparisons'
+    route, which counts nothing)."""
     if counter is None:
         return None
     N, T, C = scores.shape
@@ -150,8 +153,8 @@ def _plan(counter, scores, full, *tensors):
 
 
 def _forward(counter, name, scores, full, blank, round_bf16, with_stack):
-    """U's or W's checks and launch: U on the ring where ``logz_plan``
-    gives a plan, the earlier kernel elsewhere and for W."""
+    """U's or W's checks and launch: on the ring where ``logz_plan`` gives
+    a plan, the earlier kernel elsewhere."""
     N, T, S = _check(scores, full, name)
     lib = build.library()
     dev = scores.device
@@ -165,8 +168,8 @@ def _forward(counter, name, scores, full, blank, round_bf16, with_stack):
     args += [int(round_bf16), None if stack is None else stack.data_ptr(),
              logz.data_ptr(), N, T, S]
     args += [plan["states_per_thread"], plan["fwd"]["ring"]] if ring else []
-    build.check(getattr(lib, entry)(*args, float(blank),
-                                    build.stream_of(scores)), entry)
+    args += [] if entry == "logz_full_fwd_ring" else [float(blank)]
+    build.check(getattr(lib, entry)(*args, build.stream_of(scores)), entry)
     return stack, logz
 
 
@@ -232,7 +235,8 @@ def tcn_backward_old_kernel(moves, stack, logz, g, blank, round_bf16=True,
 
 def full_forward(scores, round_bf16=True, with_stack=True):
     """Kernel W: full scores [N, T, (nb+1)*S] -> (alpha stack or None,
-    logZ [N] f32)."""
+    logZ [N] f32); on the ring where ``logz_plan(..., full=True)`` gives a
+    plan (recorded in ``.plan``), else the earlier kernel."""
     return _forward(full_forward, "kernel W", scores, True, 0.0, round_bf16,
                     with_stack)
 
@@ -243,6 +247,12 @@ def full_backward(scores, stack, logz, g, round_bf16=True, out_dtype=None):
     else the earlier kernel."""
     return _backward(full_backward, "kernel X", scores, True, stack, logz, g,
                      0.0, round_bf16, out_dtype)
+
+
+def full_forward_old_kernel(scores, round_bf16=True, with_stack=True):
+    """W's earlier kernel, as ``tcn_forward_old_kernel``."""
+    return _forward(None, "kernel W", scores, True, 0.0, round_bf16,
+                    with_stack)
 
 
 def full_backward_old_kernel(scores, stack, logz, g, round_bf16=True,
@@ -258,5 +268,5 @@ tcn_forward.plan = None  # the last call's (None: the earlier kernel)
 tcn_backward.plan = None
 full_forward.launches = 0
 full_backward.launches = 0
-full_forward.plan = None  # W's part is None: the earlier kernel
+full_forward.plan = None
 full_backward.plan = None

@@ -11,8 +11,8 @@ PyTorch built for CUDA. In order, it:
  2. builds the port's kernels from ``bonito_tpu_torch/csrc`` with nvcc for
     sm_90a and prints each kernel's registers, shared memory, stack frame
     and spills (kernel O's stretch kernel and the ring kernels of B, C, M,
-    Q, U and V and of GW's and JW's passes, GW's head product, F's mma
-    kernel and Z split over warps must have neither;
+    Q, U, V, W and X and of GW's and JW's passes, GW's head product, F's
+    mma kernel and Y and Z split over warps must have neither;
     G's and J's ring kernels none at H 32 and no more than J's 8 bytes at
     H 96);
  3. holds each kernel against its plain PyTorch version on the card: at
@@ -134,11 +134,12 @@ PyTorch built for CUDA. In order, it:
     with its launch counts, held against the same path on the plain
     versions, with its loss, time, train-loss samples/s and peak memory
     (``loss_tcn`` also with U and V, and with Y, on their earlier kernels;
-    ``loss`` in turns with X on its earlier kernel and on the ring); then
-    U to Z alone against their plain versions at hac, fast and sup
-    training shapes, with their times and bounds at each, U, V and X on
-    their ring (``logz_plan`` gives a plan at each) and held against their
-    earlier kernels bit for bit (stack, logZ, no-stack logZ, gradients), Y
+    ``loss`` in turns with W and X, and with W alone, on their earlier
+    kernels and on the ring); then U to Z alone against their plain
+    versions at hac, fast and sup training shapes, with their times and
+    bounds at each, U, V, W and X on their ring (``logz_plan`` gives a plan
+    at each) and held against their earlier kernels bit for bit (stack,
+    logZ, no-stack logZ, gradients; U's and W's times without the stack), Y
     and Z split over warps (``lattice_fwd_plan`` and ``lattice_plan`` give
     a plan at each) held against their earlier kernels bit for bit (Y's
     stack, logZ and no-stack logZ, Z's dmove), with those kernels' times;
@@ -1372,9 +1373,10 @@ def step_and_peak(torch, np, model, reads, make_compute_fn, chunk, **kw):
 class earlier_kernel:
     """K and H (``rule`` "window_plan") or O ("window_bwd_plan") of
     ``attention_cuda``, B and C ("decode_plan" of ``decode_cuda``), GW and
-    JW ("wide_decode_plan" of ``decode_fused_cuda``), U, V
-    and X ("logz_plan" of ``logz_cuda``: U and V on the TCN moves, X on the
-    full scores of ``loss``), F ("fused_plan" of ``lstm_fused_cuda``), G
+    JW ("wide_decode_plan" of ``decode_fused_cuda``), U, V, W and X
+    ("logz_plan" of ``logz_cuda``: U and V on the TCN moves, W and X on the
+    full scores of ``loss``; W alone with ``part`` "fwd" on ``loss``'s
+    path), F ("fused_plan" of ``lstm_fused_cuda``), G
     and J ("fused_decode_plan" of ``decode_fused_cuda``; G or J alone with
     ``part`` "fwd" or "bwd"), Z ("lattice_plan" of ``lattice_cuda``) or Y
     alone ("lattice_fwd_plan" of ``lattice_cuda``) on their earlier kernels
@@ -1573,13 +1575,13 @@ def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
                       g_lat, time_plain):
     """Each of U to Z on the given tensors against its plain version on the
     same inputs, and its time (the plain version's when ``time_plain``); U,
-    V and X, on the ring where ``logz_plan`` gives a plan, and Y and Z,
+    V, W and X, on the ring where ``logz_plan`` gives a plan, and Y and Z,
     split over warps where ``lattice_fwd_plan`` and ``lattice_plan`` give
     one, also against their earlier kernels bit for bit, and those kernels'
     times. Returns {key: {"err", "ok", "ms", "plain_ms", "bytes", "ops"},
-    with U's, V's, X's, Y's and Z's "plan", "vs_old" (bit for bit),
-    "diff_old" (max |diff|) and "old_kernel_ms"} and U's time without its
-    stack."""
+    with each one's "plan", "vs_old" (bit for bit), "diff_old" (max |diff|)
+    and "old_kernel_ms", and W's times without its stack} and U's time
+    without its stack."""
     logz, logz_cuda, lattice, lattice_cuda = mods
     N, T, Cm = moves.shape
     S = Cm // 4
@@ -1631,14 +1633,35 @@ def hold_loss_kernels(torch, mods, moves, blank, scores, move, lengths, g,
     del stack, ref_stack, grad, ref, old_grad
 
     stack, lz = logz_cuda.full_forward(scores)
+    plan_w = logz_cuda.full_forward.plan
     (ref_stack, ref_lz), plain_ms = plain_time(
         lambda: logz.full_forward_plain(scores))
     e1, ok1 = f32_close(stack, ref_stack)
     e2, ok2 = f32_close(lz, ref_lz)
-    res["W"] = dict(err=max(e1, e2), ok=ok1 and ok2, plain_ms=plain_ms,
+    _, lz_only = logz_cuda.full_forward(scores, with_stack=False)
+    old_stack, old_lz = logz_cuda.full_forward_old_kernel(scores)
+    _, old_only = logz_cuda.full_forward_old_kernel(scores, with_stack=False)
+    same_w, diff_w = vs_old_kernel(torch, (stack, old_stack), (lz, old_lz),
+                                   (lz_only, old_only))
+    del old_stack
+    res["W"] = dict(err=max(e1, e2), ok=ok1 and ok2 and torch.equal(
+        lz, lz_only), plain_ms=plain_ms,
                     ms=cuda_ms(lambda: logz_cuda.full_forward(scores), reps=3),
                     bytes=scores.numel() * scores.element_size()
-                    + stack.numel() * 4 + N * 4, ops=32 * N * T * S)
+                    + stack.numel() * 4 + N * 4,
+                    bytes_no_stack=scores.numel() * scores.element_size()
+                    + N * 4, ops=32 * N * T * S,
+                    plan=plan_w if plan_w and plan_w["fwd"] else None,
+                    vs_old=same_w,
+                    diff_old=diff_w,
+                    old_kernel_ms=cuda_ms(
+                        lambda: logz_cuda.full_forward_old_kernel(scores),
+                        reps=3),
+                    no_stack_ms=cuda_ms(lambda: logz_cuda.full_forward(
+                        scores, with_stack=False), reps=3),
+                    no_stack_old_kernel_ms=cuda_ms(
+                        lambda: logz_cuda.full_forward_old_kernel(
+                            scores, with_stack=False), reps=3))
     grad = logz_cuda.full_backward(scores, stack, lz, g)
     plan_x = logz_cuda.full_backward.plan
     ref, plain_ms = plain_time(lambda: logz.full_backward_plain(
@@ -1783,7 +1806,10 @@ def train_loss_phase(torch, hac, counters, dev):
             "train_loss: Z ran on its earlier kernel")
     (full_loss, sc), n, mem = loss_path(torch, counters, loss_step)
     loss_paths["loss"] = (n, mem)
-    log(f"  loss: X ran on the plan {logz_cuda.full_backward.plan}")
+    log(f"  loss: W and X ran on the plan {logz_cuda.full_backward.plan}")
+    require(logz_cuda.full_forward.plan is not None
+            and logz_cuda.full_forward.plan["fwd"] is not None,
+            "loss: W ran on its earlier kernel")
     require(logz_cuda.full_backward.plan is not None,
             "loss: X ran on its earlier kernel")
     valid_loss, n, mem = loss_path(torch, counters, valid_step)
@@ -1825,14 +1851,18 @@ def train_loss_phase(torch, hac, counters, dev):
             return cuda_ms(lambda: hac.loss_tcn(moves_d, train_blank,
                                                 targets, t_lengths), reps=3)
     ms_train = cuda_ms(lambda: tcn_loss(moves_d), reps=3)
-    # loss + backward with X on its earlier kernel, on the ring, and on the
-    # earlier kernel again (W runs its earlier kernel in all three)
-    ms_full_old = []
-    with earlier_kernel(logz_cuda, "logz_plan"):
-        ms_full_old.append(cuda_ms(lambda: full_loss_grad(sc_d), reps=2))
-    ms_full = cuda_ms(lambda: full_loss_grad(sc_d), reps=2)
-    with earlier_kernel(logz_cuda, "logz_plan"):
-        ms_full_old.append(cuda_ms(lambda: full_loss_grad(sc_d), reps=2))
+    # loss + backward in turns: W and X on their earlier kernels, W alone
+    # on its earlier kernel (X on the ring), both on the ring, then W alone
+    # and both again on the earlier kernels
+    ms_full_old, ms_full_w_old = [], []
+    for turn in (ms_full_old, ms_full_w_old, None, ms_full_w_old,
+                 ms_full_old):
+        if turn is None:
+            ms_full = cuda_ms(lambda: full_loss_grad(sc_d), reps=2)
+            continue
+        with earlier_kernel(logz_cuda, "logz_plan",
+                            "fwd" if turn is ms_full_w_old else None):
+            turn.append(cuda_ms(lambda: full_loss_grad(sc_d), reps=2))
     ms_valid = valid_ms()
     # the same with U and V on their earlier kernels, then on the ring again
     with earlier_kernel(logz_cuda, "logz_plan"):
@@ -1883,9 +1913,11 @@ def train_loss_phase(torch, hac, counters, dev):
         f"{ms_train_y_old:.4g} ms (split over warps {ms_train:.4g}, again "
         f"{ms_train_y_again:.4g}), valid_loss {ms_valid_y_old:.4g} ms "
         f"(split {ms_valid:.4g})")
-    log(f"  loss forward + backward in turns, X on its earlier kernel / on "
-        f"the ring / on its earlier kernel: {ms_full_old[0]:.4g} / "
-        f"{ms_full:.4g} / {ms_full_old[1]:.4g} ms")
+    log(f"  loss forward + backward in turns, W and X on their earlier "
+        f"kernels / W on its earlier kernel / both on the ring / W on its "
+        f"earlier kernel / both on their earlier kernels: "
+        f"{ms_full_old[0]:.4g} / {ms_full_w_old[0]:.4g} / {ms_full:.4g} / "
+        f"{ms_full_w_old[1]:.4g} / {ms_full_old[1]:.4g} ms")
     for name, ok in checks.items():
         require(ok, f"{name}: the kernels disagree with the plain versions")
     del plain_g, plain_gs
@@ -1946,20 +1978,33 @@ def train_loss_phase(torch, hac, counters, dev):
         log(f"    X on the ring (plan {res['X']['plan']}), bit for bit the "
             f"earlier kernel's: {res['X']['vs_old']}; the earlier X "
             f"{res['X']['old_kernel_ms']:.4g} ms")
-        loss_more["Y"][f"{shape}_shape_no_stack_ms"] = res["Y"]["no_stack_ms"]
-        loss_more["Y"][f"{shape}_shape_no_stack_old_kernel_ms"] = (
-            res["Y"]["no_stack_old_kernel_ms"])
+        w_only_bound = bound(res["W"]["bytes_no_stack"], res["W"]["ops"],
+                             H100_F32_OPS)[0]
+        log(f"    W on the ring (plan {res['W']['plan']}), bit for bit the "
+            f"earlier kernel's (stack, logZ, no-stack logZ): "
+            f"{res['W']['vs_old']}; the earlier W "
+            f"{res['W']['old_kernel_ms']:.4g} ms (no stack "
+            f"{res['W']['no_stack_old_kernel_ms']:.4g}; on the ring "
+            f"{res['W']['no_stack_ms']:.4g}, bound {w_only_bound:.4g})")
+        for key in "WY":
+            loss_more[key][f"{shape}_shape_no_stack_ms"] = (
+                res[key]["no_stack_ms"])
+            loss_more[key][f"{shape}_shape_no_stack_old_kernel_ms"] = (
+                res[key]["no_stack_old_kernel_ms"])
+        loss_more["W"][f"{shape}_shape_no_stack_bound_ms"] = w_only_bound
     for key, r in loss_k.items():
         require(r["ok"], f"kernel {key} at hac training shapes disagrees "
                          f"with its plain version")
         r["bound"] = bound(r["bytes"], r["ops"], H100_F32_OPS)
-    for key in "UVXYZ":
+    for key in "UVWXYZ":
         require(loss_k[key]["vs_old"] and loss_k[key]["plan"] is not None,
                 f"kernel {key} at hac training shapes: the plan "
                 f"{loss_k[key]['plan']} ran, or differs from the earlier "
                 f"kernel")
     bound_u_only = bound(loss_k["U"]["bytes_no_stack"], loss_k["U"]["ops"],
                          H100_F32_OPS)
+    loss_k["W"]["no_stack_bound_ms"] = bound(
+        loss_k["W"]["bytes_no_stack"], loss_k["W"]["ops"], H100_F32_OPS)[0]
     log("  at hac training shapes: " + ", ".join(
         f"{k} {r['ms']:.4g} ms (plain {r['plain_ms']:.4g}, bound "
         f"{r['bound'][0]:.4g} by {r['bound'][1]}, max |diff| {r['err']:.3g})"
@@ -1979,6 +2024,11 @@ def train_loss_phase(torch, hac, counters, dev):
         f"{loss_k['Y']['no_stack_ms']:.4g}); X on the ring (plan "
         f"{loss_k['X']['plan']}), bit for bit the earlier X's, which takes "
         f"{loss_k['X']['old_kernel_ms']:.4g} ms")
+    log(f"    W on the ring, bit for bit the earlier W's (stack, logZ, "
+        f"no-stack logZ), which takes {loss_k['W']['old_kernel_ms']:.4g} ms "
+        f"(no stack {loss_k['W']['no_stack_old_kernel_ms']:.4g}; on the ring "
+        f"{loss_k['W']['no_stack_ms']:.4g}, bound "
+        f"{loss_k['W']['no_stack_bound_ms']:.4g})")
     loss_k["U"]["train_loss_ms"] = loss_k["V"]["train_loss_ms"] = ms_train
     loss_k["U"]["train_loss_old_kernel_ms"] = ms_train_old
     loss_k["V"]["train_loss_old_kernel_ms"] = ms_train_old
@@ -1986,8 +2036,9 @@ def train_loss_phase(torch, hac, counters, dev):
     loss_k["Y"]["train_loss_old_kernel_ms"] = ms_train_y_old
     loss_k["Y"]["valid_loss_ms"] = ms_valid
     loss_k["Y"]["valid_loss_old_kernel_ms"] = ms_valid_y_old
-    loss_k["X"]["loss_ms"] = ms_full
+    loss_k["X"]["loss_ms"] = loss_k["W"]["loss_ms"] = ms_full
     loss_k["X"]["loss_old_kernel_ms"] = ms_full_old
+    loss_k["W"]["loss_old_kernel_ms"] = ms_full_w_old
     return loss_paths, loss_k, loss_more, ms_u_only, bound_u_only
 
 
@@ -2940,13 +2991,17 @@ def main():
             f"four instances): {z_rows}")
     # Y split over warps: 1 or 2 positions a thread, with the stack and
     # without; X on the ring: bf16 or f32 in and out, rounded or not, 1 or 4
-    # predecessors a thread
+    # predecessors a thread; W on the ring: bf16 or f32 in, rounded or not,
+    # with the stack or without, 1 or 4 states a thread
     y_rows = [r for r in ptxas_rows if "lattice_fwd_split_kernel" in r]
     x_rows = [r for r in ptxas_rows if "logz_full_bwd_ring_kernel" in r]
-    require(len(y_rows) == 4 and len(x_rows) == 16 and all(
-        "stack 0 B, spills 0/0 B" in r for r in y_rows + x_rows),
-            f"kernel Y split over warps or X on the ring has a stack frame "
-            f"or spills (or not 4 and 16 instances): {y_rows} {x_rows}")
+    w_rows = [r for r in ptxas_rows if "logz_full_fwd_ring_kernel" in r]
+    require(len(y_rows) == 4 and len(x_rows) == 16 and len(w_rows) == 16
+            and all("stack 0 B, spills 0/0 B" in r
+                    for r in y_rows + x_rows + w_rows),
+            f"kernel Y split over warps or W or X on the ring has a stack "
+            f"frame or spills (or not 4, 16 and 16 instances): {y_rows} "
+            f"{x_rows} {w_rows}")
 
     log(f"[3] kernels vs plain at hac widths (N={N}, T={T}, C=H={H}, S={S})")
     xw, w_hh, err_a = check_lstm(torch, lstm_cuda, dev)
@@ -4183,15 +4238,15 @@ def main():
     # Y, Z: train_loss; W, X: loss); no library call computes a CRF
     # partition function or this lattice (torch.nn.functional.ctc_loss is
     # another function: interleaved blanks, a softmax per frame)
-    src_logz = "bonito_tpu_torch/csrc/logz.cu"
-    src_logz_ring = "bonito_tpu_torch/csrc/logz_ring.cu"  # U's, V's, X's
+    src_logz_ring = "bonito_tpu_torch/csrc/logz_ring.cu"  # U, V, W, X
     src_lat = "bonito_tpu_torch/csrc/lattice.cu"
-    # U, V and X on the ring, Y and Z split over warps: their plan, their
-    # earlier kernels' times, the loss paths (U, V, Y: loss_tcn; X: loss)
-    # and the train steps (U, V, Y, Z) with them on the earlier kernels
+    # U, V, W and X on the ring, Y and Z split over warps: their plan,
+    # their earlier kernels' times, the loss paths (U, V, Y: loss_tcn; W, X:
+    # loss) and the train steps (U, V, Y, Z) with them on the earlier
+    # kernels
     turn_of = {"U": "uv_turns", "V": "uv_turns", "Y": "y_turns",
                "Z": "z_turns"}
-    for key in "UVXYZ":
+    for key in "UVWXYZ":
         r = loss_k[key]
         loss_more[key].update({
             "plan": r["plan"], "old_kernel_ms": r["old_kernel_ms"],
@@ -4202,7 +4257,8 @@ def main():
             **{k: r[k] for k in ("train_loss_ms", "train_loss_old_kernel_ms",
                                  "valid_loss_ms", "valid_loss_old_kernel_ms",
                                  "loss_ms", "loss_old_kernel_ms",
-                                 "no_stack_ms", "no_stack_old_kernel_ms")
+                                 "no_stack_ms", "no_stack_old_kernel_ms",
+                                 "no_stack_bound_ms")
                if k in r}})
         if key in turn_of:
             hac_turns = train["hac"][turn_of[key]]
@@ -4219,7 +4275,7 @@ def main():
              "bonito_tpu/ops/logz_pallas.py:246"),
             ("logz_tcn_bwd", "V", "train_loss", src_logz_ring,
              "bonito_tpu/ops/logz_pallas.py:293"),
-            ("logz_full_fwd", "W", "loss", src_logz,
+            ("logz_full_fwd", "W", "loss", src_logz_ring,
              "bonito_tpu/ops/logz_pallas.py:28"),
             ("logz_full_bwd", "X", "loss", src_logz_ring,
              "bonito_tpu/ops/logz_pallas.py:82"),

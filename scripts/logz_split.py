@@ -3,9 +3,10 @@
 Where the time of the loss's ring kernels U and V goes (the PyTorch/CUDA
 port): logZ of the TCN moves with its alpha stack, and its gradient, at
 hac's, sup's and fast's training shapes; with ``x``, the same for kernel X
-(the gradient of logZ of the full scores, ``logz_full_bwd_ring``):
+(the gradient of logZ of the full scores, ``logz_full_bwd_ring``); with
+``w``, for kernel W (logZ of the full scores, ``logz_full_fwd_ring``):
 
-    python3 scripts/logz_split.py [x]
+    python3 scripts/logz_split.py [x | w]
 
 from the root of a checkout, on a machine with a CUDA card and nvcc. It
 builds ``csrc/logz_ring.cu`` once per variant with nvcc for sm_90a (all at
@@ -48,6 +49,15 @@ a 4-way bank conflict at S 1024, where the source's lane q reads j = (k +
 q / 8) mod 4 in its k-th read), and the chain's warps out of the
 gradient's pass (the pass by the other consumers only).
 
+``w``: at the same shapes and scores as ``x``, with round_bf16 as ``loss``
+runs W: the source at the plan (``logz_plan(..., full=True)["fwd"]``),
+checked against the earlier W (the stack, logZ and the no-stack logZ, bit
+for bit), with the earlier W's times beside it, with and without the
+stack; 1 and 4 states a thread where the C entry takes them; rings of 2,
+4, 8 and 16 frames where they fit in shared memory (each checked); the
+plan with the ring's waits, the exps and logs, the stack's stores, or all
+of them left out.
+
 What a part adds is the source's time less the variant's; the cut
 variants' outputs are wrong by design and only timed (the copy's are
 checked). Each line gives the time a frame beside the total.
@@ -89,6 +99,10 @@ X_VARIANTS = {"source": [], "no ring waits": ["waits"],
 X_SHAPES = (("hac", 128, 1000, 1024), ("sup", 32, 2048, 1024),
             ("fast", 128, 1200, 64))
 X_CONSUMERS = (32, 64, 96, 128, 192, 256, 320, 384, 448, 512, 640)
+W_ENTRY = "logz_full_fwd_ring"
+W_VARIANTS = {"source": [], "no ring waits": ["waits"],
+              "no exps or logs": ["exps"], "no stores": ["stores"],
+              "none of them": list(PARTS)}
 # the designs measured against X's source and not kept, as edits of it
 X_EDITS = {
     "lanes": ("    auto pj = [&](int k) { return j0 + ((k + (q >> 3)) & "
@@ -154,9 +168,11 @@ VARIANT_EDITS = [
      "__host__ __device__ constexpr int logz_bound(int K) {\n"
      "    return K == 2 ? 512 + 32 : 256 + 32;\n}"),
     ("template <typename In, bool ROUND, bool STACK, int K>\n"
-     "__global__ void __launch_bounds__(LOGZ_THREADS, 1)",
+     "__global__ void __launch_bounds__(LOGZ_THREADS, 1)\n"
+     "logz_fwd_ring_kernel(",
      "template <typename In, bool ROUND, bool STACK, int K>\n"
-     "__global__ void __launch_bounds__(logz_bound(K), 1)"),
+     "__global__ void __launch_bounds__(logz_bound(K), 1)\n"
+     "logz_fwd_ring_kernel("),
     ("template <typename In, typename Out, bool ROUND, int K>\n"
      "__global__ void __launch_bounds__(LOGZ_THREADS, 1)\n"
      "logz_bwd_ring_kernel(",
@@ -331,7 +347,7 @@ def x_source(cu, edit):
 
 def build_variants(kernel="uv"):
     """One library per variant (``VARIANTS``, or ``X_VARIANTS`` for
-    ``kernel`` "x"): its C entries."""
+    ``kernel`` "x", ``W_VARIANTS`` for "w"): its C entries."""
     OUT.mkdir(parents=True, exist_ok=True)
     cu = (build.CSRC / SOURCE).read_text()
     (OUT / VARIANT_SOURCE).write_text(variant_source(cu))
@@ -339,7 +355,7 @@ def build_variants(kernel="uv"):
         (OUT / f"logz_ring_x_{edit}.cu").write_text(x_source(cu, edit))
     nvcc = build._nvcc()
     procs = {}
-    variants = X_VARIANTS if kernel == "x" else VARIANTS
+    variants = {"x": X_VARIANTS, "w": W_VARIANTS}.get(kernel, VARIANTS)
     for i, (name, parts) in enumerate(variants.items()):
         cut = sum(PARTS.get(p, 0) for p in parts)
         flags = [f"-DLOGZ_CUT={cut}"]
@@ -361,13 +377,15 @@ def build_variants(kernel="uv"):
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
         if name in ("source", "bulk stores", "V's lane layout"):
             for row in ptxas_lines(o + err):
-                if kernel == "x" and "full" in row and "IffLb1E" in row:
+                if kernel == "x" and "full_bwd" in row and "IffLb1E" in row:
+                    print(f"  {name}, {row}", flush=True)
+                elif kernel == "w" and "full_fwd" in row and "IfLb1E" in row:
                     print(f"  {name}, {row}", flush=True)
                 elif (kernel != "x" and "full" not in row
                       and "13__nv_bfloat16" in row and "Lb1E" in row):
                     print(f"  {name}, {row}", flush=True)
         lib = ctypes.CDLL(str(path))
-        for entry in ENTRIES + (X_ENTRY,):
+        for entry in ENTRIES + (X_ENTRY, W_ENTRY):
             getattr(lib, entry).argtypes = build.SIGNATURES[entry]
         libs[name] = lib
     return libs
@@ -536,10 +554,80 @@ def split_x(libs, card, dev, what, N, T, S):
         print(line(f"the plan, {name}", ms) + more, flush=True)
 
 
+def split_w(libs, card, dev, what, N, T, S):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = logz_cuda.logz_plan(N, T, S, torch.float32, sms, full=True)
+    g = torch.Generator(device=dev).manual_seed(N + T + S)
+    scores = 2 * torch.randn(N, T, 5 * S, device=dev, generator=g)
+    old_stack, old_lz = logz_cuda.full_forward_old_kernel(scores)
+    _, old_only = logz_cuda.full_forward_old_kernel(scores, with_stack=False)
+    stack = torch.empty_like(old_stack)
+    lz = torch.empty_like(old_lz)
+    lz_only = torch.empty_like(old_lz)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, k, ring, with_stack=True):
+        build.check(getattr(libs[name], W_ENTRY)(
+            scores.data_ptr(), 1, 1, stack.data_ptr() if with_stack else None,
+            (lz if with_stack else lz_only).data_ptr(), N, T, S, k, ring,
+            stream), name)
+
+    def same(name, k, ring):
+        for x in (stack, lz, lz_only):
+            x.fill_(float("nan"))
+        run(name, k, ring)
+        run(name, k, ring, with_stack=False)
+        torch.cuda.synchronize()
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in ((stack, old_stack), (lz, old_lz),
+                                (lz_only, old_only)))
+
+    def line(label, w, w_only):
+        return (f"  {label}: W {w:.4g} ms ({w / T * 1e3:.4g} us a frame), "
+                f"W without its stack {w_only:.4g} ms")
+
+    k0, r0 = plan["states_per_thread"], plan["fwd"]["ring"]
+    print(f"{card}; W at {what}: N={N}, T={T}, S={S}, f32, round_bf16; "
+          f"plan {plan['fwd']}, {k0} states a thread", flush=True)
+    print(line("the earlier kernel",
+               ms_of(lambda: logz_cuda.full_forward_old_kernel(scores)),
+               ms_of(lambda: logz_cuda.full_forward_old_kernel(
+                   scores, with_stack=False))), flush=True)
+    for k in (1, 4):
+        if logz_cuda.ring_consumers(S, k) + 32 > logz_cuda.THREADS:
+            continue
+        ok = same("source", k, r0)
+        print(line(f"the source, {k} states a thread (bits equal: {ok})",
+                   ms_of(lambda: run("source", k, r0)),
+                   ms_of(lambda: run("source", k, r0, False))), flush=True)
+        if not ok:
+            raise RuntimeError(f"logz_split: W at {k} states a thread "
+                               f"disagrees with the earlier W at {what}")
+    for ring in RINGS:
+        if logz_cuda.logz_smem(S, ring, torch.float32, False, True) > 232448:
+            continue
+        ok = same("source", k0, ring)
+        print(line(f"the source on a ring of {ring} (bits equal: {ok})",
+                   ms_of(lambda: run("source", k0, ring)),
+                   ms_of(lambda: run("source", k0, ring, False))), flush=True)
+        if not ok:
+            raise RuntimeError(f"logz_split: W on a ring of {ring} "
+                               f"disagrees with the earlier W at {what}")
+    base = None
+    for name in W_VARIANTS:
+        ms = (ms_of(lambda: run(name, k0, r0)),
+              ms_of(lambda: run(name, k0, r0, False)))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {base[0] - ms[0]:.4g} and "
+            f"{base[1] - ms[1]:.4g} ms")
+        print(line(f"the plan, {name}", *ms) + more, flush=True)
+
+
 def main():
     kernel = sys.argv[1] if len(sys.argv) > 1 else "uv"
-    if kernel not in ("uv", "x"):
-        print("usage: logz_split.py [x]", file=sys.stderr)
+    if kernel not in ("uv", "x", "w"):
+        print("usage: logz_split.py [x | w]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("logz_split: no CUDA device", file=sys.stderr)
@@ -550,9 +638,10 @@ def main():
         check=True).stdout.strip()
     dev = torch.device("cuda")
     libs = build_variants(kernel)
-    if kernel == "x":
+    if kernel in ("x", "w"):
         for what, N, T, S in X_SHAPES:
-            split_x(libs, card, dev, what, N, T, S)
+            (split_x if kernel == "x" else split_w)(libs, card, dev, what, N,
+                                                   T, S)
         return 0
     for what, N, T, S in SHAPES:
         split(libs, card, dev, what, N, T, S)

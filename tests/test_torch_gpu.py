@@ -1487,10 +1487,102 @@ def test_logz_full_ring_takes_unaligned_scores_to_the_earlier_kernel(cuda):
     assert torch.equal(_bits(grad), _bits(old))
 
 
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,N,T", LOGZ_RING_SHAPES)
+def test_logz_full_fwd_ring_matches_the_earlier_kernel(cuda, S, N, T, dtype,
+                                                       round_bf16):
+    """W on the ring (``logz_plan(..., full=True)["fwd"]``) against the
+    earlier W on the same scores, bit for bit: the alpha stack, logZ and
+    the no-stack logZ; one launch counted a call, the plan recorded; bf16
+    scores at S 4 (rows of 40 B) take the earlier W."""
+    scores, _ = _full_inputs(cuda, S, N, T, dtype)
+    before = logz_cuda.full_forward.launches
+    stack, lz = logz_cuda.full_forward(scores, round_bf16)
+    plan = logz_cuda.logz_plan(N, T, S, dtype, _sms(cuda), full=True)
+    assert logz_cuda.full_forward.plan == plan
+    assert (plan is None) == (S == 4 and dtype == torch.bfloat16)
+    _, lz_only = logz_cuda.full_forward(scores, round_bf16, with_stack=False)
+    old_stack, old_lz = logz_cuda.full_forward_old_kernel(scores, round_bf16)
+    _, old_only = logz_cuda.full_forward_old_kernel(scores, round_bf16,
+                                                    with_stack=False)
+    torch.cuda.synchronize()
+    assert logz_cuda.full_forward.launches == before + 2
+    for a, b in ((stack, old_stack), (lz, old_lz), (lz_only, old_only),
+                 (lz, lz_only)):
+        assert torch.equal(_bits(a), _bits(b))
+    assert bool(torch.isfinite(stack).all()) and bool(torch.isfinite(lz).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,N,T", [(4, 3, 7), (16, 4, 9), (64, 8, 30),
+                                   (256, 5, 40), (1024, 3, 12)])
+def test_logz_full_fwd_ring_bits_do_not_depend_on_the_ring(cuda, S, N, T,
+                                                           dtype):
+    """W's C entry at every number of states a thread it takes (1 and 4
+    up to S 256, 4 at S 1024) and rings of 2, 3 and 16 frames (where they
+    fit in shared memory), rounded to bf16 and not, with the stack and
+    without, gives the earlier W's stack and logZ; it refuses bf16 rows at
+    S 4 (40 B, no whole number of 16-byte pieces)."""
+    lib = build.library()
+    scores, _ = _full_inputs(cuda, S, N, T, dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    refused = S == 4 and dtype == torch.bfloat16
+    for rnd in (True, False):
+        old_stack, old_lz = logz_cuda.full_forward_old_kernel(scores, rnd)
+        for k in (1, 4):
+            if logz_cuda.ring_consumers(S, k) + 32 > logz_cuda.THREADS:
+                continue
+            for ring in (2, 3, 16):
+                if logz_cuda.logz_smem(S, ring, dtype, False,
+                                       True) > 232448:
+                    continue
+                st = torch.full_like(old_stack, float("nan"))
+                z, z_only = (torch.full_like(old_lz, float("nan"))
+                             for _ in range(2))
+                rcs = [lib.logz_full_fwd_ring(
+                    scores.data_ptr(), int(dtype == torch.float32), int(rnd),
+                    None if out is None else out.data_ptr(), lz.data_ptr(),
+                    N, T, S, k, ring, stream)
+                    for out, lz in ((st, z), (None, z_only))]
+                if refused:
+                    assert all(rcs), (k, ring)
+                    continue
+                for rc in rcs:
+                    build.check(rc, "logz_full_fwd_ring")
+                torch.cuda.synchronize()
+                for a, b in ((st, old_stack), (z, old_lz), (z_only, old_lz)):
+                    assert torch.equal(_bits(a), _bits(b)), (rnd, k, ring)
+
+
+def test_logz_full_fwd_old_kernel_counts_no_launch(cuda):
+    scores = torch.zeros(2, 4, 5 * 64, device=cuda)
+    before = logz_cuda.full_forward.launches
+    logz_cuda.full_forward_old_kernel(scores)
+    logz_cuda.full_forward_old_kernel(scores, with_stack=False)
+    torch.cuda.synchronize()
+    assert logz_cuda.full_forward.launches == before
+
+
+def test_logz_full_fwd_ring_takes_unaligned_scores_to_the_earlier_kernel(
+        cuda):
+    """Scores whose rows do not start 16 bytes apart from an aligned base
+    (a view at an offset of 4 bytes): no plan, the earlier W, the same
+    bits."""
+    base = torch.randn(2 * 5 * 5 * 16 + 1, device=cuda)
+    scores = base[1:].view(2, 5, 5 * 16)
+    stack, lz = logz_cuda.full_forward(scores)
+    assert logz_cuda.full_forward.plan is None
+    old_stack, old_lz = logz_cuda.full_forward_old_kernel(scores)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(stack), _bits(old_stack))
+    assert torch.equal(_bits(lz), _bits(old_lz))
+
+
 def test_loss_launches_its_kernels(cuda):
     """loss_tcn with its backward runs U, V, Y and Z once each (U and V on
     the ring: the plan recorded); under no_grad U and Y without their
-    stacks; loss runs W and X."""
+    stacks; loss runs W and X (both on the ring: the plan recorded)."""
     sd = CTC_CRF(3, "NACGT")
     N, T, S, L = 8, 40, 64, 20
     g = torch.Generator().manual_seed(3)
@@ -1519,6 +1611,9 @@ def test_loss_launches_its_kernels(cuda):
     torch.cuda.synchronize()
     assert [k.launches for k in kernels] == [2, 1, 2, 1, 1, 1]
     assert bool(torch.isfinite(scores.grad).all())
+    full = logz_cuda.logz_plan(N, T, S, torch.float32, _sms(cuda), full=True)
+    assert full is not None
+    assert logz_cuda.full_forward.plan == logz_cuda.full_backward.plan == full
 
 
 def test_loss_kernels_reject_what_they_do_not_take(cuda):

@@ -1158,13 +1158,16 @@ def test_logz_ring_hands_each_frame_over_once_in_order(T, backward):
     read is unused); and no slot is refilled while a frame in it has a
     read to come. With V, X's ring (``full``: the slot of the full scores
     and the stack's row, read again by the frame's own gradient pass) the
-    same, each frame's pass finding it in its slot."""
+    same, each frame's pass finding it in its slot; with U, W's ring (a
+    frame's 5S scores to a slot, U's schedule)."""
     plan = logz_cuda.logz_plan(1, T, 1024, torch.bfloat16)
+    full = logz_cuda.logz_plan(1, T, 1024, torch.float32, full=True)
     rings = [(plan["bwd" if backward else "fwd"]["ring"], False), (2, False),
              (3, False)]
     if backward:
-        full = logz_cuda.logz_plan(1, T, 1024, torch.float32, full=True)
         rings += [(full["bwd"]["ring"], True), (2, True), (3, True)]
+    else:
+        rings += [(full["fwd"]["ring"], False)]  # W's, on U's schedule
     for ring, is_full in rings:
         events = _logz_ring_events(T, ring, is_full)
         fills = [e[1] for e in events if e[0] == "fill"]

@@ -211,9 +211,9 @@ def test_full_plan_fits_the_card(S, dtype):
     consumer threads, more consumer threads for the gradient's pass (whole
     warps, at most 20), a producer warp; rings of 8 frames within the
     card's shared memory, a slot's pieces (the 5S scores, the stack's row)
-    whole 16-byte pieces; the forward part None (W runs its earlier
-    kernel); the entries the wrappers launch. bf16 at S 4 (rows of 40 B)
-    has no plan."""
+    whole 16-byte pieces; the forward part W's ring on U's threads; the
+    entries the wrappers launch. bf16 at S 4 (rows of 40 B) has no
+    plan."""
     plan = logz_cuda.logz_plan(64, 100, S, dtype, SMS, full=True)
     if S == 4 and dtype == torch.bfloat16:
         assert plan is None
@@ -225,38 +225,46 @@ def test_full_plan_fits_the_card(S, dtype):
     assert logz_cuda.ring_consumers(S, k) <= nc <= 640
     assert plan["threads"] == nc + 32 <= logz_cuda.X_THREADS
     assert nc == min(384, -(-5 * S // 32) * 32)  # a column a thread, to 384
-    assert plan["fwd"] is None and plan["bwd"]["ring"] == logz_cuda.RING
+    assert plan["fwd"] == {
+        "ring": logz_cuda.RING, "threads": logz_cuda.ring_consumers(S, k) + 32,
+        "smem": logz_cuda.logz_smem(S, logz_cuda.RING, dtype, False,
+                                    full=True)}
+    assert plan["bwd"]["ring"] == logz_cuda.RING
     assert plan["bwd"]["smem"] == logz_cuda.logz_smem(
         S, logz_cuda.RING, dtype, True, full=True) <= SMEM
     assert (5 * S * dtype.itemsize) % 16 == 0 and (4 * S) % 16 == 0
     assert logz_cuda.logz_entry(plan, True, True) == "logz_full_bwd_ring"
-    assert logz_cuda.logz_entry(plan, False, True) == "logz_fwd"
+    assert logz_cuda.logz_entry(plan, False, True) == "logz_full_fwd_ring"
 
 
 def test_full_plan_at_the_training_shapes():
     """hac (N 128, T 1000) and sup (N 32, T 2048) at S 1024, f32 scores as
-    ``loss`` casts them: 12 consumer warps, the first 8 of four
+    ``loss`` casts them: X on 12 consumer warps, the first 8 of four
     predecessors a thread, every one of them in the gradient's pass, and a
     producer warp, one wave, a ring of 8 slots of 24,576 B, 204,864 B in
-    all; fast (N 128, T 1200, S 64): 10 consumer warps, the first 2 of one
-    predecessor a thread, 12,864 B."""
+    all; W on 8 consumer warps of four states a thread and the producer,
+    8 slots of 20,480 B, 172,096 B. fast (N 128, T 1200, S 64): X on 10
+    consumer warps, the first 2 of one predecessor a thread, 12,864 B; W
+    on 2 warps of one state a thread, 10,816 B."""
     for N in (128, 32):
         assert logz_cuda.logz_plan(N, 1000, 1024, torch.float32, SMS,
                                    full=True) == {
             "threads": 416, "consumer_threads": 384, "states_per_thread": 4,
-            "ctas": N, "waves": 1, "fwd": None,
+            "ctas": N, "waves": 1,
+            "fwd": {"ring": 8, "smem": 172096, "threads": 288},
             "bwd": {"ring": 8, "smem": 204864}}
     assert logz_cuda.logz_plan(128, 1200, 64, torch.float32, SMS,
                                full=True) == {
         "threads": 352, "consumer_threads": 320, "states_per_thread": 1,
-        "ctas": 128, "waves": 1, "fwd": None,
+        "ctas": 128, "waves": 1,
+        "fwd": {"ring": 8, "smem": 10816, "threads": 96},
         "bwd": {"ring": 8, "smem": 12864}}
 
 
 @pytest.mark.parametrize("S", STATES)
 def test_full_plan_sends_the_rest_to_the_earlier_kernel(S):
     """Pointers not 16-byte aligned, in both dtypes: no plan, the earlier
-    X's entry (and W's, always)."""
+    X's entry and the earlier W's."""
     for dtype in (torch.bfloat16, torch.float32):
         plan = logz_cuda.logz_plan(8, 9, S, dtype, SMS, aligned=False,
                                    full=True)
