@@ -12,9 +12,11 @@ Entry points (``util.load_model``, ``crf.basecall.basecall``) run on CUDA
 unless the caller passes ``device="cpu"``. Activations keep bonito_tpu's
 [N, T, C] layout at public functions, so the two packages compare like
 with like.
-"""
 
-import torch
+The package imports torch where it is used, not here: the basecaller's
+reader processes import only the readers (numpy), and torch's import cost
+each of them seconds.
+"""
 
 __version__ = "0.1.0"
 
@@ -22,6 +24,7 @@ __version__ = "0.1.0"
 def resolve_device(device=None):
     """The torch.device an entry point runs on. ``None`` means the card;
     with no card that raises — nothing falls back to the CPU on its own."""
+    import torch
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,7 +1,7 @@
 """
 Command line of the port: ``python -m bonito_tpu_torch <subcommand>``,
-with bonito_tpu's subcommands. ``train`` is ported; each other one raises,
-naming the ROADMAP item that ports it.
+with bonito_tpu's subcommands. ``basecaller`` and ``train`` are ported;
+each other one raises, naming the ROADMAP item that ports it.
 """
 
 import sys
@@ -10,7 +10,6 @@ from importlib import import_module
 
 # subcommand -> the ROADMAP item (Queue 1) that ports it
 WAITING = {
-    "basecaller": "Queue 1 item 9 (the basecaller CLI and the readers)",
     "evaluate": "Queue 1 item 11 (other CLI tools)",
     "view": "Queue 1 item 11 (other CLI tools)",
     "download": "Queue 1 item 11 (other CLI tools)",
@@ -33,9 +32,10 @@ def main(argv=None):
                         version="%(prog)s " + __version__)
     subparsers = parser.add_subparsers(title="subcommands", dest="command",
                                        required=True)
-    train = import_module("bonito_tpu_torch.cli.train")
-    sub = subparsers.add_parser("train", parents=[train.argparser()])
-    sub.set_defaults(func=train.main)
+    for name in ("basecaller", "train"):
+        module = import_module(f"bonito_tpu_torch.cli.{name}")
+        sub = subparsers.add_parser(name, parents=[module.argparser()])
+        sub.set_defaults(func=module.main)
     for name in WAITING:
         sub = subparsers.add_parser(name, add_help=False)
         sub.add_argument("rest", nargs=REMAINDER)

@@ -1,7 +1,10 @@
 """
 The host libraries the port builds from the repository's C++ sources in
-``native/`` (read, never edited): so far ``align`` (``native/align/
-align.cpp``: Smith-Waterman for the accuracy metric), bound with ctypes.
+``native/`` (read, never edited), bound with ctypes: ``align``
+(``native/align/align.cpp``: Smith-Waterman for the accuracy metric),
+``vbz`` (``native/vbz/vbz.cpp``: the svb16 layer of pod5's VBZ signal
+codec) and ``mapper`` (``native/mapper/mapper.cpp``: the minimiser
+mapper of the basecaller's ``--reference`` stage).
 
 Each is compiled with g++ at first use into ``bonito_tpu_torch/build/``,
 named by the source's content hash so a stale build never loads. A failed
@@ -36,7 +39,37 @@ def _bind_align(lib):
     ]
 
 
-SPECS = {"align": (["align/align.cpp"], _bind_align)}
+def _bind_vbz(lib):
+    size_t, u8p = ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint8)
+    lib.svb16_max_encoded_size.restype = size_t
+    lib.svb16_max_encoded_size.argtypes = [size_t]
+    lib.svb16_encode_dz.restype = size_t
+    lib.svb16_encode_dz.argtypes = [ctypes.POINTER(ctypes.c_int16), size_t,
+                                    u8p]
+    lib.svb16_decode_dz.restype = ctypes.c_int
+    lib.svb16_decode_dz.argtypes = [u8p, size_t,
+                                    ctypes.POINTER(ctypes.c_int16), size_t]
+
+
+def _bind_mapper(lib):
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    p_i32, p_i64 = ctypes.POINTER(i32), ctypes.POINTER(i64)
+    lib.mapper_index_build.restype = ctypes.c_void_p
+    lib.mapper_index_build.argtypes = [ctypes.c_char_p, i64, p_i64, i32, i32,
+                                       i32]
+    lib.mapper_index_free.restype = None
+    lib.mapper_index_free.argtypes = [ctypes.c_void_p]
+    lib.mapper_map.restype = i32
+    lib.mapper_map.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, i64,
+        p_i32, p_i64, p_i64, p_i32, p_i32, p_i32, p_i32, p_i32, p_i32,
+        ctypes.c_char_p, i32, ctypes.c_char_p, i32,
+    ]
+
+
+SPECS = {"align": (["align/align.cpp"], _bind_align),
+         "vbz": (["vbz/vbz.cpp"], _bind_vbz),
+         "mapper": (["mapper/mapper.cpp"], _bind_mapper)}
 
 
 def build(name):

@@ -79,22 +79,33 @@ def batch_timing(dispatch_s, fetch_s, gap_s=0.0):
                          f"gap={gap_s*1e3:7.1f} ms\n")
 
 
-def _report():
+def report(reset=False):
+    """The report's lines: the device stage's steady medians and each
+    stage's row. ``reset`` forgets what was recorded, so that the next
+    run reports alone."""
+    lines = []
     if _BATCHES:
         import statistics
         tail = _BATCHES[max(2, len(_BATCHES) // 4):] or _BATCHES
         d = statistics.median(t[0] for t in tail)
         f = statistics.median(t[1] for t in tail)
         g = statistics.median(t[2] for t in tail)
-        sys.stderr.write(
-            f"> device stage: {len(_BATCHES)} batches, steady median "
-            f"dispatch={d*1e3:.1f} ms fetch={f*1e3:.1f} ms "
-            f"gap={g*1e3:.1f} ms\n")
+        lines.append(f"> device stage: {len(_BATCHES)} batches, steady median "
+                     f"dispatch={d*1e3:.1f} ms fetch={f*1e3:.1f} ms "
+                     f"gap={g*1e3:.1f} ms")
     if _REPORTS:
-        sys.stderr.write("> pipeline stage profile (rate = items per "
-                         "non-upstream-blocked second):\n")
-        for s in _REPORTS:
-            sys.stderr.write(s.row() + "\n")
+        lines.append("> pipeline stage profile (rate = items per "
+                     "non-upstream-blocked second):")
+        lines += [s.row() for s in _REPORTS]
+    if reset:
+        _REPORTS.clear()
+        _BATCHES.clear()
+    return lines
+
+
+def _report():
+    for line in report():
+        sys.stderr.write(line + "\n")
 
 
 atexit.register(_report)

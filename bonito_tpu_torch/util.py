@@ -1,8 +1,9 @@
 """
 Host-side utilities: signal chunking/stitching, batch bookkeeping, model
-loading, and the training helpers (``init``, ``decode_ref``,
-``accuracy``). The chunk/stitch arithmetic is bonito_tpu's (and upstream
-bonito's) exactly, so stitched strings agree at chunk junctions.
+loading, the training helpers (``init``, ``decode_ref``, ``accuracy``) and
+the writers' (``revcomp``, ``mean_qscore_from_qstring``,
+``column_to_set``). The chunk/stitch arithmetic is bonito_tpu's (and
+upstream bonito's) exactly, so stitched strings agree at chunk junctions.
 """
 
 import os
@@ -22,6 +23,36 @@ __dir__ = Path(__file__).parent
 __models_dir__ = __dir__ / "models"
 
 _CIGAR_RE = re.compile(r"(\d+)([MIDNSHP=X])")
+
+# one reverse complement for every writer: the IUPAC ambiguity codes and
+# lowercase; S, W and N are their own complements
+_COMP = str.maketrans("ACGTURYKMBVDHacgturykmbvdh",
+                      "TGCAAYRMKVBHDtgcaayrmkvbhd")
+
+
+def revcomp(seq):
+    """Reverse complement (IUPAC and lowercase aware)."""
+    return seq.translate(_COMP)[::-1]
+
+
+def mean_qscore_from_qstring(qstring):
+    """Mean qscore of a phred+33 string, averaged in error space in f64
+    (f32 can move a read across the strict ``--min-qscore`` test)."""
+    if len(qstring) == 0:
+        return 0.0
+    qs = (np.frombuffer(qstring.encode(), dtype=np.uint8).astype(np.float64)
+          - 33)
+    mean_err = np.exp(qs * (-np.log(10) / 10.0)).mean()
+    return float(-10 * np.log10(max(mean_err, 1e-4)))
+
+
+def column_to_set(filename):
+    """The set of the first column of a whitespace-separated file (the
+    ``--read-ids`` file), or None without a file."""
+    if filename and os.path.isfile(filename):
+        with open(filename) as tsv:
+            return {line.split()[0] for line in tsv if line.strip()}
+    return None
 
 
 def concat(xs, dim=0):

@@ -184,16 +184,34 @@ PyTorch built for CUDA. In order, it:
     32 x 12288, one validation batch: P, 18 x K, U, Y, B, C); and H's and
     O's times, plain times and bounds beside rotary + scaled_dot_product_
     attention with the band as a mask, forward and backward (H's and O's
-    earlier kernels beside them). It prints one ``kernels`` JSON line with
-    all twenty-six kernels (F's, G's and J's with their plans, their
-    earlier kernels' times and the fast device steps on both; K's, H's and O's
-    with their plans and their
-    earlier kernel's time; B's and C's with their plan, their earlier
-    kernels' times and difference, and the device steps on both; M's and
-    Q's likewise, with the reverse paths' device steps and the parent's;
-    U's, V's, X's, Y's and Z's with their plan, their earlier kernels'
-    times at hac, fast and sup training shapes, and the loss paths and
-    train steps on both).
+    earlier kernels beside them);
+12. runs ``python -m bonito_tpu_torch basecaller`` (``cli.main``, in this
+    process, fd 1 on the output file) on pod5 directories written here with
+    the port's writer, two files each, VBZ (uncompressed where no libzstd
+    is found, which it says): hac as shipped (the phase-4 directory with
+    quantize=true) over 64 reads of 20k to 400k samples to BAM, with 4
+    reader processes, launch counts set to 0 before and read after (5 D, 1
+    B, 1 C per batch and nothing else), every record (sequence, qstring,
+    mv) equal to ``basecall`` in this process on the Reads the port's
+    reader yields, the RG, qs, ns, ts, ch and rn tags, one summary row a
+    read; 16 of those reads to SAM, a FASTA of their calls with every
+    other one reverse complemented, and the 16 again to SAM with
+    ``--reference``: each on its own contig and strand with NM 0, each
+    record the mapping ``Aligner`` gives its call here; fast as shipped
+    over 256 reads to fastq (5 F, 1 G, 1 J per batch; the first file's
+    reads equal to ``basecall``'s). It prints the CLI's own samples/s, the
+    wall time, reads and samples, the stage waits of
+    ``BONITO_TPU_PROFILE=1`` beside phase 7's device step, the reader
+    processes' start-up time and whether libzstd was found.
+
+Then it prints one ``kernels`` JSON line with all twenty-six kernels (F's,
+G's and J's with their plans, their earlier kernels' times and the fast
+device steps on both; K's, H's and O's with their plans and their earlier
+kernel's time; B's and C's with their plan, their earlier kernels' times
+and difference, and the device steps on both; M's and Q's likewise, with
+the reverse paths' device steps and the parent's; U's, V's, X's, Y's and
+Z's with their plan, their earlier kernels' times at hac, fast and sup
+training shapes, and the loss paths and train steps on both).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -202,13 +220,19 @@ It imports nothing of JAX or bonito_tpu.
 """
 
 import contextlib
+import gzip
+import io
 import json
 import math
+import os
 import re
 import shutil
+import signal
+import struct
 import subprocess
 import sys
 import time
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -2897,6 +2921,376 @@ def sup_train_phase(torch, counters, dev):
     return res
 
 
+# phase 12: the basecaller CLI on pod5 directories the port writes from the
+# seed; reads of 20k to 400k samples as int16 with a calibration, pA =
+# scale * (adc + offset) about the configs' pa standardisation (90, 23)
+CLI_HAC_READS, CLI_FAST_READS, CLI_REF_READS = 64, 256, 16
+CLI_LENGTHS = (20000, 400000)
+CLI_SCALE, CLI_OFFSET = 0.2, -12.0
+CLI_PROCS = 4
+BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
+_NT16 = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)
+_B_TYPES = {"c": "<i1", "C": "<u1", "s": "<i2", "S": "<u2", "i": "<i4",
+            "I": "<u4", "f": "<f4"}
+
+
+def write_cli_reads(pod5, directory, n, seed, compress):
+    """``n`` reads from ``seed`` in two pod5 files of the port's writer;
+    their samples."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(*CLI_LENGTHS, n)
+    records = []
+    for i, length in enumerate(lengths):
+        pa = 90 + 23 * rng.standard_normal(int(length), dtype=np.float32)
+        records.append({
+            "read_id": str(uuid.UUID(int=(seed << 32) + i)),
+            "signal": np.rint(pa / CLI_SCALE - CLI_OFFSET).astype(np.int16),
+            "calibration_scale": CLI_SCALE, "calibration_offset": CLI_OFFSET,
+            "channel": 1 + i % 512, "well": 1 + i % 4, "read_number": i,
+            "start": 4000 * i})
+    if directory.exists():
+        shutil.rmtree(directory)
+    directory.mkdir(parents=True)
+    pod5.write_pod5(directory / "a.pod5", records[:n // 2], compress=compress)
+    pod5.write_pod5(directory / "b.pod5", records[n // 2:], compress=compress)
+    return int(lengths.sum())
+
+
+def run_cli(cli_main, argv, out):
+    """``python -m bonito_tpu_torch`` (``cli_main(argv)``) in this process
+    with fd 1 on ``out``, whose name gives the format, and its stderr
+    captured (then echoed); its wall time and stderr. Nothing else may
+    print while fd 1 is the file."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    stdout, stderr = sys.stdout, sys.stderr
+    handler = signal.getsignal(signal.SIGINT)  # the CLI installs its own
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with open(out, "wb") as f:
+            os.dup2(f.fileno(), 1)
+            sys.stdout = io.TextIOWrapper(io.BufferedWriter(
+                io.FileIO(1, "w", closefd=False)))
+            sys.stderr = err
+            cli_main(argv)
+            sys.stdout.flush()
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+        sys.stdout, sys.stderr = stdout, stderr
+        signal.signal(signal.SIGINT, handler)
+        sys.stderr.write(err.getvalue())
+    return time.perf_counter() - t0, err.getvalue()
+
+
+def bam_records(data):
+    """The records of a BAM file's bytes, parsed with gzip and struct:
+    name, flag, sequence, qualities (phred+33) and tags."""
+    require(data.endswith(BGZF_EOF), "the BAM does not end in BGZF's EOF")
+    raw = gzip.decompress(data)
+    require(raw[:4] == b"BAM\x01", "no BAM magic")
+    (l_text,) = struct.unpack_from("<i", raw, 4)
+    pos = 8 + l_text
+    (n_ref,) = struct.unpack_from("<i", raw, pos)
+    pos += 4
+    for _ in range(n_ref):
+        pos += 8 + struct.unpack_from("<i", raw, pos)[0]
+    records = []
+    while pos < len(raw):
+        (size,) = struct.unpack_from("<i", raw, pos)
+        rec = raw[pos + 4:pos + 4 + size]
+        pos += 4 + size
+        _, _, l_name, _, _, n_cigar, flag, l_seq = struct.unpack_from(
+            "<iiBBHHHi", rec)
+        o = 32
+        name = rec[o:o + l_name - 1].decode()
+        o += l_name + 4 * n_cigar
+        packed = np.frombuffer(rec, np.uint8, (l_seq + 1) // 2, o)
+        o += (l_seq + 1) // 2
+        codes = np.stack([packed >> 4, packed & 15], 1).ravel()[:l_seq]
+        qual = (np.frombuffer(rec, np.uint8, l_seq, o) + 33).tobytes()
+        o += l_seq
+        tags = {}
+        while o < len(rec):
+            tag, typ = rec[o:o + 2].decode(), chr(rec[o + 2])
+            o += 3
+            if typ == "Z":
+                end = rec.index(b"\0", o)
+                tags[tag] = rec[o:end].decode()
+                o = end + 1
+            elif typ == "A":
+                tags[tag] = chr(rec[o])
+                o += 1
+            elif typ == "B":
+                dt = np.dtype(_B_TYPES[chr(rec[o])])
+                (n,) = struct.unpack_from("<i", rec, o + 1)
+                tags[tag] = np.frombuffer(rec, dt, n, o + 5)
+                o += 5 + n * dt.itemsize
+            else:
+                dt = np.dtype(_B_TYPES[typ])
+                tags[tag] = np.frombuffer(rec, dt, 1, o)[0].item()
+                o += dt.itemsize
+        records.append({"name": name, "flag": flag,
+                        "seq": _NT16[codes].tobytes().decode(),
+                        "qual": qual.decode(), "tags": tags})
+    return records
+
+
+def fastq_records(text):
+    """{read id: (sequence, qualities, tags)} of a fastq's text; the tags
+    are the header's comment (RG, qs, ns, ts, ...)."""
+    lines = text.splitlines()
+    require(len(lines) % 4 == 0, "a fastq whose lines are no records")
+    out = {}
+    for i in range(0, len(lines), 4):
+        rid, *tags = lines[i][1:].split()
+        tags = {t[:2]: int(t[5:]) if t[3] == "i" else t[5:] for t in tags}
+        out[rid] = (lines[i + 1], lines[i + 3], tags)
+    return out
+
+
+def cli_batches(chunk, tags, bc):
+    """The batches the CLI ran: its reads' trimmed signal (the records' ns
+    - ts) in chunks of the model's geometry, packed into batches."""
+    n_chunks = sum(chunk(np.empty(t["ns"] - t["ts"], np.float32),
+                         bc["chunksize"], bc["overlap"]).shape[0]
+                   for t in tags)
+    return -(-n_chunks // bc["batchsize"])
+
+
+def reference_calls(torch, load_model, basecall, pod5, model_dir, reads_dir,
+                    read_ids=None):
+    """``basecall`` in this process on the model the CLI loads and on the
+    Reads the port's pod5 reader yields (in this process), as the CLI
+    reads them: {read_id: result}, and the model's geometry."""
+    model = load_model(model_dir, half=True, fuse_bn=True, quantize=None,
+                       device="cuda")
+    model.requires_grad_(False)
+    scaling = model.config.get("scaling")
+    norm = (model.config.get("standardisation")
+            if (scaling or {}).get("strategy") == "pa"
+            else model.config.get("normalisation"))
+    bc = model.config["basecaller"]
+    reads = pod5.get_reads(reads_dir, read_ids=read_ids, n_proc=1,
+                           scaling_strategy=scaling, norm_params=norm)
+    out = {r.read_id: res for r, res in basecall(
+        model, reads, chunksize=bc["chunksize"], overlap=bc["overlap"],
+        batchsize=bc["batchsize"])}
+    del model
+    torch.cuda.empty_cache()
+    return out, bc
+
+
+def cli_phase(torch, counters, dirs, steps, card):
+    """Phase 12: ``python -m bonito_tpu_torch basecaller`` on the card, hac
+    as shipped to BAM (and with ``--reference`` to SAM) and fast as shipped
+    to fastq, from pod5 directories written here; launch counts, records
+    against in-process ``basecall`` on the same Reads, mappings, rates."""
+    from bonito_tpu_torch import pipeline, pod5, profiling
+    from bonito_tpu_torch.cli import main as cli_main
+    from bonito_tpu_torch.crf.basecall import basecall
+    from bonito_tpu_torch.util import chunk, load_model, revcomp
+
+    log("[12] the basecaller CLI on the card, from pod5 files")
+    try:
+        pod5.libzstd()
+        zstd = True
+    except pod5.LibraryMissing:
+        zstd = False
+    log(f"  libzstd: {'found' if zstd else 'not found'} "
+        f"(ctypes.util.find_library('zstd'))")
+    if not zstd:
+        log("  no libzstd: the pod5 files hold uncompressed signal (the "
+            "layout of write_pod5(compress=False)); the CLI reads them as "
+            "they are")
+    root = Path(dirs["int8"]).parent / "chip_smoke_cli"
+    t0 = time.perf_counter()
+    samples = {"hac": write_cli_reads(pod5, root / "hac_reads",
+                                      CLI_HAC_READS, SEED, zstd),
+               "fast": write_cli_reads(pod5, root / "fast_reads",
+                                       CLI_FAST_READS, SEED + 1, zstd)}
+    log(f"  wrote {CLI_HAC_READS} hac reads ({samples['hac']} samples) and "
+        f"{CLI_FAST_READS} fast reads ({samples['fast']} samples) in "
+        f"{time.perf_counter() - t0:.1f} s, two files each, "
+        f"{'VBZ' if zstd else 'uncompressed'}")
+    t0 = time.perf_counter()
+    list(pipeline.process_map(abs, ((i, -i) for i in range(CLI_PROCS)),
+                              n_proc=CLI_PROCS))
+    startup = time.perf_counter() - t0
+    log(f"  {CLI_PROCS} reader processes (spawned) start and answer in "
+        f"{startup:.2f} s")
+
+    results = {}
+    for name, model_dir, ext, n_reads in (
+            ("hac", dirs["int8"], "bam", CLI_HAC_READS),
+            ("fast", dirs["fast"], "fastq", CLI_FAST_READS)):
+        reads_dir = root / f"{name}_reads"
+        out = root / f"{name}_out" / f"out.{ext}"
+        if out.parent.exists():
+            shutil.rmtree(out.parent)
+        out.parent.mkdir()
+        ids = sorted(pod5.Pod5File(reads_dir / "a.pod5").read_ids()
+                     + pod5.Pod5File(reads_dir / "b.pod5").read_ids())
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        profiling.report(reset=True)
+        os.environ["BONITO_TPU_PROFILE"] = "1"
+        try:
+            wall, err = run_cli(cli_main, [
+                "basecaller", str(model_dir), str(reads_dir), "--n-proc",
+                str(CLI_PROCS), "--output-dir", str(out.parent)], out)
+        finally:
+            del os.environ["BONITO_TPU_PROFILE"]
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        stages = profiling.report(reset=True)
+        rate = re.search(r"samples per second (\S+)", err)
+        duration = re.search(r"duration: (\S+)", err)
+        require(rate and "completed reads: %d" % n_reads in err,
+                f"{name}: the CLI did not report {n_reads} completed reads")
+        summary = (out.parent / "out_summary.tsv").read_text().splitlines()
+        require(len(summary) == n_reads + 1,
+                f"{name}: the summary has {len(summary) - 1} rows, not "
+                f"{n_reads}")
+        results[name] = {"out": out, "ids": ids, "wall": wall,
+                         "rate": float(rate.group(1)),
+                         "duration": duration.group(1),
+                         "launches": launches, "stages": stages,
+                         "reads_dir": reads_dir}
+
+    # hac: one BAM record per read, its tags, the launches, the calls
+    hac = results["hac"]
+    records = bam_records(hac["out"].read_bytes())
+    require(sorted(r["name"] for r in records) == hac["ids"],
+            "hac: the BAM's records are not the pod5 files' reads")
+    for r in records:
+        missing = {"RG", "qs", "ns", "ts", "ch", "rn", "mv"} - r["tags"].keys()
+        require(not missing, f"hac: {r['name']} lacks the tags {missing}")
+    ref, hac["bc"] = reference_calls(torch, load_model, basecall, pod5,
+                                     dirs["int8"], hac["reads_dir"])
+    batches = cli_batches(chunk, [r["tags"] for r in records], hac["bc"])
+    want = {k: 0 for k in counters}
+    want.update({"D": 5 * batches, "B": batches, "C": batches})
+    require(hac["launches"] == want,
+            f"hac CLI: launches {hac['launches']}, expected {want}")
+    for r in records:
+        res = ref[r["name"]]
+        mv = r["tags"]["mv"]
+        require(r["seq"] == res["sequence"] and r["qual"] == res["qstring"]
+                and mv[0] == res["stride"]
+                and np.array_equal(mv[1:], res["moves"]),
+                f"hac: {r['name']}'s record differs from basecall's call")
+    hac["batches"] = batches
+    log(f"  hac CLI: {len(records)} BAM records, each the in-process "
+        f"basecall's call (sequence, qstring and mv), with RG, qs, ns, ts, "
+        f"ch, rn; {batches} batches, launches {hac['launches']}")
+
+    # --reference: 16 of the reads to SAM, a FASTA of their calls with
+    # every other one reverse complemented, and the same 16 again with
+    # --reference: each on its own contig and strand with NM 0, and each
+    # record the mapping the port's Aligner gives its call here. (The 16
+    # reads' calls are taken from a run of the 16 alone: the int8 chain
+    # quantises layer 0 over the whole batch, so a read's call depends on
+    # the other reads in its batches, and among the 64 it calls a little
+    # otherwise.)
+    from bonito_tpu_torch.aligner import Aligner
+    from bonito_tpu_torch.io import sam_record
+    chosen = sorted(r["name"] for r in records)[:CLI_REF_READS]
+    (root / "ref_ids.txt").write_text("\n".join(chosen) + "\n")
+
+    def sam_run(tag, *more):
+        out = root / f"{tag}_out" / "out.sam"
+        if out.parent.exists():
+            shutil.rmtree(out.parent)
+        out.parent.mkdir()
+        wall, _ = run_cli(cli_main, [
+            "basecaller", str(dirs["int8"]), str(hac["reads_dir"]),
+            "--n-proc", str(CLI_PROCS), "--read-ids",
+            str(root / "ref_ids.txt"), "--output-dir", str(out.parent),
+            *more], out)
+        text = out.read_text().splitlines()
+        return wall, [line for line in text if line.startswith("@SQ")], [
+            line.split("\t") for line in text if not line.startswith("@")]
+
+    _, _, sam16 = sam_run("calls16")
+    require(sorted(f[0] for f in sam16) == chosen,
+            "--read-ids: the SAM's records are not the chosen reads")
+    fasta = root / "calls.fasta"
+    with open(fasta, "w") as f:
+        for i, r in enumerate(sam16):
+            f.write(f">ctg{i}\n{revcomp(r[9]) if i % 2 else r[9]}\n")
+    contig = {r[0]: i for i, r in enumerate(sam16)}
+    wall_ref, sq, sam = sam_run("ref", "--reference", str(fasta))
+    require(len(sq) == len(sam16)
+            and sorted(f[0] for f in sam) == chosen,
+            "--reference: not one @SQ per contig or not the chosen reads")
+    aligner = Aligner(str(fasta))
+    for f in sam:
+        i = contig[f[0]]
+        tags = dict(t.split(":", 1) for t in f[11:])
+        require(f[2] == f"ctg{i}" and int(f[1]) & 16 == (16 if i % 2 else 0)
+                and tags.get("NM") == "i:0",
+                f"--reference: {f[0]} mapped to {f[2]} (flag {f[1]}, NM "
+                f"{tags.get('NM')}), not to ctg{i} on the "
+                f"{'-' if i % 2 else '+'} strand with NM 0")
+        reverse = int(f[1]) & 16
+        seq = revcomp(f[9]) if reverse else f[9]
+        qual = f[10][::-1] if reverse else f[10]
+        want = sam_record(f[0], seq, qual,
+                          mapping=aligner.map(seq)).split("\t")
+        require(f[1:11] == want[1:11] and [t for t in f[11:] if t[:2] in (
+            "NM", "MD")] == want[11:],
+                f"--reference: {f[0]}'s record is not the Aligner's mapping "
+                f"{want[1:6]}")
+    log(f"  hac CLI --reference: {len(sam)} reads to SAM in {wall_ref:.1f} s "
+        f"against {len(sq)} contigs of their calls (every other one reverse "
+        f"complemented): each on its own contig and strand with NM 0, each "
+        f"record the Aligner's mapping of its call")
+
+    # fast: one fastq record per read, the launches, one file's calls
+    fast = results["fast"]
+    fq = fastq_records(fast["out"].read_text())
+    require(sorted(fq) == fast["ids"],
+            "fast: the fastq's records are not the pod5 files' reads")
+    first = set(pod5.Pod5File(fast["reads_dir"] / "a.pod5").read_ids())
+    ref, fast["bc"] = reference_calls(torch, load_model, basecall, pod5,
+                                      dirs["fast"], fast["reads_dir"],
+                                      read_ids=first)
+    batches = cli_batches(chunk, [t for _, _, t in fq.values()], fast["bc"])
+    want = {k: 0 for k in counters}
+    want.update({"F": 5 * batches, "G": batches, "J": batches})
+    require(fast["launches"] == want,
+            f"fast CLI: launches {fast['launches']}, expected {want}")
+    require(ref.keys() == first, "fast: basecall missed a read")
+    for rid in first:
+        require(fq[rid][:2] == (ref[rid]["sequence"], ref[rid]["qstring"]),
+                f"fast: {rid}'s record differs from basecall's call")
+    fast["batches"] = batches
+    log(f"  fast CLI: {len(fq)} fastq records, the first file's "
+        f"{len(first)} each the in-process basecall's call; {batches} "
+        f"batches, launches {fast['launches']}")
+
+    for name, step in (("hac", steps["hac"]), ("fast", steps["fast"])):
+        r = results[name]
+        step_rate = r["bc"]["batchsize"] * r["bc"]["chunksize"] / step * 1e3
+        log(f"  {name} CLI on {card}: '> samples per second {r['rate']:.1E}' "
+            f"(synthetic pod5 reads: {len(r['ids'])} reads, "
+            f"{samples[name]} samples; the CLI's duration {r['duration']}), "
+            f"{samples[name] / r['wall']:.6g} samples/s over the command's "
+            f"{r['wall']:.2f} s wall (model load and reader start-up in it); "
+            f"phase 7's device step {step:.4g} ms a batch = "
+            f"{step_rate:.6g} samples/s; {r['batches']} batches")
+        for line in r["stages"]:
+            log(f"    {line}")
+    return {name: {k: r[k] for k in ("wall", "rate", "launches", "batches")}
+            | {"samples": samples[name], "reads": len(r["ids"]),
+               "stages": r["stages"]} for name, r in results.items()} | {
+        "reader_startup_s": startup, "libzstd": zstd}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4075,6 +4469,11 @@ def main():
     train = train_step_phase(torch, counters, dev)
     torch.cuda.empty_cache()
     sup_train = sup_train_phase(torch, counters, dev)
+    torch.cuda.empty_cache()
+    cli = cli_phase(torch, counters, dirs, {"hac": step_int8,
+                                            "fast": step_fast}, card)
+    runs["cli_hac"] = {"launches": cli["hac"]["launches"]}
+    runs["cli_fast"] = {"launches": cli["fast"]["launches"]}
 
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_window = "bonito_tpu_torch/csrc/attention_window.cu"  # K's, H's

@@ -2059,3 +2059,122 @@ def test_sup_train_step_launches(cuda, heads, use_amp):
              if torch.equal(p.detach(), before[k])
              and not (k.endswith(".b") and k[:-1] + "norm.scale" in before)]
     assert not still, still
+
+
+# ---------------------------------------------------------------------------
+# the basecaller CLI on the card
+# ---------------------------------------------------------------------------
+
+def _cli_to(out, argv):
+    """``python -m bonito_tpu_torch basecaller`` in this process with fd 1
+    on ``out`` (the format comes from its name)."""
+    import io
+    import os
+    import sys
+    from bonito_tpu_torch.cli import main
+    saved, stdout, stderr = os.dup(1), sys.stdout, sys.stderr
+    with open(out, "wb") as f:
+        os.dup2(f.fileno(), 1)
+        sys.stdout = io.TextIOWrapper(io.BufferedWriter(
+            io.FileIO(1, "w", closefd=False)))
+        sys.stderr = io.StringIO()
+        try:
+            main(["basecaller"] + argv + ["--output-dir", str(out.parent)])
+            sys.stdout.flush()
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+            sys.stdout, sys.stderr = stdout, stderr
+
+
+# the CLI on the card against --device cpu: bf16 in both, as the CLI loads
+# a model, and bf16 is not bit-comparable between the card's kernels and
+# cuDNN and the CPU's plain versions (ROADMAP Queue 3): a share of frames
+# may decode otherwise (seen: 2 of 4940 frames, NVIDIA H100 80GB HBM3,
+# torch 2.11.0+cu128)
+CLI_MIN_EQUAL = 0.999
+
+
+def test_basecaller_cli_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """A small fast-geometry model (H 96, two layers, state_len 3: F, G, J)
+    in bf16 as the CLI loads it, a pod5 directory of two files from the
+    port's writer, two reader processes: the BAM on the card holds the
+    records of ``--device cpu`` (the plain versions): the same reads,
+    flags and reader tags (RG, ns, ts, mx, ch, st, du, rn, f5, sm, sd, sv),
+    at least CLI_MIN_EQUAL of the frames' moves alike and, on the reads
+    whose moves are all alike, of the bases, with qstrings within one phred
+    step where the bases are alike;
+    with F twice and G, J once per batch and no other kernel."""
+    from uuid import UUID
+    from bonito_tpu_torch import checkpoint, config, pod5
+    from bonito_tpu_torch.util import chunk
+    from bam_records import parse_bam, parse_tags
+    cfg = lstm_crf_config(features=96, num_layers=2, state_len=3, stride=5,
+                          batchsize=8, chunksize=1000, overlap=200)
+    cfg["basecaller"]["quantize"] = False
+    model = Model(cfg).init(3)
+    _, (_, crf), _ = model.decode_head()
+    with torch.no_grad():
+        crf.w.mul_(10)
+    (tmp_path / "model").mkdir()
+    config.save_config(cfg, tmp_path / "model" / "config.toml")
+    checkpoint.save_params(tmp_path / "model" / "weights_1.npz", model)
+    rng = np.random.default_rng(3)
+    lengths = [3000, 7000, 1200, 9000, 500, 4000]
+    reads = [{"read_id": str(UUID(int=i + 1)),
+              "signal": np.rint((90 + 23 * rng.normal(size=n)) / 0.2
+                                ).astype(np.int16),
+              "calibration_scale": 0.2} for i, n in enumerate(lengths)]
+    (tmp_path / "reads").mkdir()
+    pod5.write_pod5(tmp_path / "reads" / "a.pod5", reads[:4])
+    pod5.write_pod5(tmp_path / "reads" / "b.pod5", reads[4:], compress=False)
+    argv = [str(tmp_path / "model"), str(tmp_path / "reads"), "--n-proc", "2",
+            "--no-trim"]
+    counters = {"F": lstm_fused_cuda.lstm_fused,
+                "G": decode_fused_cuda.tcn_fused_forward,
+                "J": decode_fused_cuda.tcn_fused_backward,
+                "A": lstm_cuda.lstm_recurrence, "B": decode_cuda.tcn_forward,
+                "C": decode_cuda.tcn_backward,
+                "D": lstm_int8_cuda.lstm_int8_fused,
+                "M": decode_full_cuda.full_forward,
+                "Q": decode_full_cuda.full_backward}
+    before = {k: fn.launches for k, fn in counters.items()}
+    (tmp_path / "card").mkdir()
+    _cli_to(tmp_path / "card" / "out.bam", argv)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    (tmp_path / "cpu").mkdir()
+    _cli_to(tmp_path / "cpu" / "out.bam", argv + ["--device", "cpu"])
+    card = parse_bam((tmp_path / "card" / "out.bam").read_bytes())
+    cpu = parse_bam((tmp_path / "cpu" / "out.bam").read_bytes())
+    assert card[0] == cpu[0] and len(card[2]) == len(cpu[2]) == len(reads)
+    equal = frames = same_bases = bases = 0
+    for x, y in zip(card[2], cpu[2]):
+        assert x[1] == y[1] and x[0][4] == y[0][4]  # name, flag
+        tx, ty = parse_tags(x[5]), parse_tags(y[5])
+        mx, my = tx.pop("mv"), ty.pop("mv")
+        tx.pop("qs"), ty.pop("qs")
+        assert tx == ty and len(mx) == len(my) and mx[0] == my[0]
+        equal += int((mx[1:] == my[1:]).sum())
+        frames += len(mx) - 1
+        if np.array_equal(mx, my):  # then base i of one is base i of other
+            sx = np.frombuffer(x[3], np.uint8)
+            sy = np.frombuffer(y[3], np.uint8)
+            alike = np.stack([sx >> 4 == sy >> 4, sx & 15 == sy & 15],
+                             1).ravel()[:len(x[4])]
+            same_bases += int(alike.sum())
+            bases += len(alike)
+            d = (np.frombuffer(x[4].encode(), np.uint8).astype(int)
+                 - np.frombuffer(y[4].encode(), np.uint8))
+            assert np.abs(d[alike]).max(initial=0) <= 1
+    print(f"card vs cpu: {equal} of {frames} frames' moves alike "
+          f"({equal / frames:.5f}); on the reads with all moves alike, "
+          f"{same_bases} of {bases} bases")
+    assert equal >= CLI_MIN_EQUAL * frames
+    assert same_bases >= CLI_MIN_EQUAL * bases
+    n_chunks = sum(chunk(np.zeros(n), 1000, 200).shape[0] for n in lengths)
+    batches = -(-n_chunks // 8)
+    assert launches == {"F": 2 * batches, "G": batches, "J": batches,
+                        "A": 0, "B": 0, "C": 0, "D": 0, "M": 0, "Q": 0}
+    assert len((tmp_path / "card" / "out_summary.tsv").read_text()
+               .splitlines()) == len(reads) + 1

@@ -369,8 +369,8 @@ def test_train_cli_on_the_cpu(tmp_path):
     with pytest.raises(KeyError, match="unknown model"):
         cli_main(["train", str(tmp_path / "w3"), "--directory",
                   str(tmp_path / "data"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli_main(["basecaller", "model", "reads"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        cli_main(["evaluate", "model", "reads"])
 
 
 # ---------------------------------------------------------------------------
