@@ -5,9 +5,14 @@ alone reads it) and the converter from bonito_tpu's parameter tree.
 bonito_tpu keys are the port's ``state_dict`` keys (``encoder.4.w_hh``,
 ``encoder.0.norm.mean``, ...; for the transformer family
 ``encoder.conv.0.w``, ``encoder.transformer_encoder.3.self_attn.wqkv``,
-``encoder.upsample.w``, ``encoder.crf.w``). One layout differs: a conv
-weight is [W, I, O] in bonito_tpu and [O, I, W] here; linear weights are
-[in, out] in both. Param-less layers (Permute, Clamp) have no entry.
+``encoder.upsample.w``, ``encoder.crf.w``; for the conv-CTC family
+``encoder.1.conv0.w_depth``, ``encoder.1.bn0.mean``,
+``encoder.1.res_conv.w``, ``decoder.0.w``). One layout differs: a conv
+weight is [W, I, O] in bonito_tpu and [O, I, W] here (a depthwise
+``w_depth`` [W, 1, I] is [I, 1, W], a pointwise ``w_point`` [1, I, O] is
+[O, I, 1]: each the same transpose); linear weights are [in, out] in
+both. A module names its conv weights in ``conv_weight_names``.
+Param-less layers (Permute, Clamp) have no entry.
 Importing upstream ``weights_N.tar`` waits. A training run also writes
 the optimiser's state, in the port's own ``optim_N.pt``.
 
@@ -45,8 +50,8 @@ def load_params(path):
 
 
 def _conv_weight_keys(model):
-    return {f"{name}.w" if name else "w" for name, m in model.named_modules()
-            if isinstance(m, nn.Convolution)}
+    return {f"{name}.{w}" if name else w for name, m in model.named_modules()
+            for w in getattr(m, "conv_weight_names", ())}
 
 
 def params_from_jax(model, tree):

@@ -1,7 +1,8 @@
 """
 Command line of the port: ``python -m bonito_tpu_torch <subcommand>``,
-with bonito_tpu's subcommands. ``basecaller`` and ``train`` are ported;
-each other one raises, naming the ROADMAP item that ports it.
+with bonito_tpu's subcommands. ``basecaller``, ``train``, ``evaluate``
+and ``view`` are ported; each other one raises, naming the ROADMAP item
+that ports it.
 """
 
 import sys
@@ -10,10 +11,9 @@ from importlib import import_module
 
 # subcommand -> the ROADMAP item (Queue 1) that ports it
 WAITING = {
-    "evaluate": "Queue 1 item 11 (other CLI tools)",
-    "view": "Queue 1 item 11 (other CLI tools)",
     "download": "Queue 1 item 11 (other CLI tools)",
-    "export": "Queue 1 item 11 (other CLI tools)",
+    "export": "Queue 1 item 11 (other CLI tools; it needs "
+              "export_state_dict, item 8)",
     "duplex": "Queue 1 item 11 (other CLI tools)",
 }
 
@@ -32,7 +32,7 @@ def main(argv=None):
                         version="%(prog)s " + __version__)
     subparsers = parser.add_subparsers(title="subcommands", dest="command",
                                        required=True)
-    for name in ("basecaller", "train"):
+    for name in ("basecaller", "train", "evaluate", "view"):
         module = import_module(f"bonito_tpu_torch.cli.{name}")
         sub = subparsers.add_parser(name, parents=[module.argparser()])
         sub.set_defaults(func=module.main)

@@ -6,9 +6,13 @@ basecaller.py``) with the same flags: reader processes -> the basecall
 chain (the device step inside) -> the aligner stage (``--reference``) ->
 the writer thread. The format follows the name stdout is redirected to.
 
+Every model family runs: LSTM-CRF, transformer-CRF and conv-CTC (whose
+fastq output takes the greedy decode with qualities; its SAM and BAM the
+beam's sequence, qstring "*" and no moves, as bonito_tpu's).
+
 Refused before the model loads, each naming its ROADMAP item:
-``--distributed``, CRAM output, a model name that would have to be
-downloaded and a conv-CTC model directory.
+``--distributed``, CRAM output and a model name that would have to be
+downloaded.
 """
 
 import inspect
@@ -23,7 +27,6 @@ from itertools import islice
 import numpy as np
 
 from bonito_tpu_torch import resolve_device
-from bonito_tpu_torch.config import load_config
 from bonito_tpu_torch.io import CTCWriter, NullWriter, Writer, biofmt
 from bonito_tpu_torch.pipeline import process_cancel
 from bonito_tpu_torch.reader import Reader, read_chunks
@@ -46,13 +49,6 @@ def refuse_what_waits(args, fmt):
         raise NotImplementedError(
             f"{args.model_directory}: downloading a model is not ported yet: "
             f"ROADMAP Queue 1 item 11; pass a model directory")
-    config = model_dir / "config.toml"
-    if config.exists():
-        package = load_config(config)["model"]["package"]
-        if package.split(".")[-1] == "ctc":
-            raise NotImplementedError(
-                f"{args.model_directory}: conv-CTC models are not ported "
-                f"yet: ROADMAP Queue 1 item 10")
 
 
 def main(args):
@@ -154,8 +150,13 @@ def main(args):
             read, chunksize=chunksize, overlap=overlap))
 
     kwargs = {}
+    params = inspect.signature(basecall).parameters
+    if fmt.name == "fastq" and "qscores" in params:
+        # conv-CTC: the beam gives no qstring ('*'), which fastq cannot
+        # hold; the greedy decode with qualities, as bonito_tpu's CLI
+        kwargs["qscores"] = True
     if args.beam:
-        if "decoder" in inspect.signature(basecall).parameters:
+        if "decoder" in params:
             kwargs["decoder"] = "beam"
         else:
             sys.stderr.write("> warning: --beam has no effect for this model "

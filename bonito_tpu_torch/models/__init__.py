@@ -1,8 +1,9 @@
 """
-Model zoo: the LSTM-CRF family (fast/hac) and the transformer-CRF family
-(sup) as bonito-style config dicts, schema-compatible with bonito_tpu's
-config functions and upstream bonito's ``dna_r10.4.1@v4.x`` and ``@v5.0`` configs.
-The packages are named ``bonito.crf`` and ``bonito.transformer``, the
+Model zoo: the LSTM-CRF family (fast/hac), the transformer-CRF family
+(sup) and the conv-CTC family (r9.4.1 fast) as bonito-style config dicts,
+schema-compatible with bonito_tpu's config functions and upstream bonito's
+``dna_r10.4.1@v4.x``, ``@v5.0`` and ``dna_r9.4.1@v2`` configs. The packages
+are named ``bonito.crf``, ``bonito.transformer`` and ``bonito.ctc``, the
 upstream names that both bonito_tpu and this port map onto their own
 families, so a directory written here loads in either package.
 """
@@ -123,7 +124,40 @@ def transformer_crf_config(
     }
 
 
-# name -> config function (the CRF entries of bonito_tpu.models.MODELS)
+def conv_ctc_config(batchsize=512, chunksize=4000, overlap=500):
+    """QuartzNet-style conv-CTC family (schema of upstream
+    ``dna_r9.4.1@v2.toml``): C1, B1..B5, C2, C3 with the published repeats
+    2, 7, 4, 9, 6, as bonito_tpu's ``conv_ctc_config``. No ``scaling``,
+    ``standardisation`` or ``run_info``: reads are scaled by quantiles."""
+    def block(filters, repeat, kernel, stride=1, separable=True,
+              residual=True, dilation=1, dropout=0.05):
+        return {
+            "filters": filters, "repeat": repeat, "kernel": [kernel],
+            "stride": [stride], "dilation": [dilation], "dropout": dropout,
+            "residual": residual, "separable": separable,
+        }
+    return {
+        "model": {"package": "bonito.ctc"},
+        "labels": {"labels": ["N", "A", "C", "G", "T"]},
+        "input": {"features": 1},
+        "encoder": {"activation": "swish"},
+        "qscore": {"scale": 0.9, "bias": 0.0},
+        "block": [
+            block(344, 1, 9, stride=3, separable=False, residual=False),
+            block(424, 2, 115),
+            block(464, 7, 5),
+            block(456, 4, 123),
+            block(440, 9, 9),
+            block(280, 6, 31),
+            block(384, 1, 67, separable=True, residual=False),
+            block(48, 1, 15, separable=False, residual=False),
+        ],
+        "basecaller": {"batchsize": batchsize, "chunksize": chunksize,
+                       "overlap": overlap},
+    }
+
+
+# name -> config function (bonito_tpu.models.MODELS)
 MODELS = {
     "dna_r10.4.1_e8.2_400bps_fast@v4.3": lambda: lstm_crf_config(
         features=96, num_layers=5, state_len=3, stride=5,
@@ -134,6 +168,7 @@ MODELS = {
         batchsize=1024, chunksize=6000, overlap=500, sample_rate=4000),
     "rna004_130bps_hac@v3.0.1": lambda: lstm_crf_config(sample_rate=4000),
     "dna_r10.4.1_e8.2_400bps_sup@v5.0": lambda: transformer_crf_config(),
+    "dna_r9.4.1_e8_fast@v2": lambda: conv_ctc_config(),
     "rna004_130bps_sup@v5.0": lambda: transformer_crf_config(
         sample_rate=4000),
 }

@@ -3,8 +3,9 @@ The host libraries the port builds from the repository's C++ sources in
 ``native/`` (read, never edited), bound with ctypes: ``align``
 (``native/align/align.cpp``: Smith-Waterman for the accuracy metric),
 ``vbz`` (``native/vbz/vbz.cpp``: the svb16 layer of pod5's VBZ signal
-codec) and ``mapper`` (``native/mapper/mapper.cpp``: the minimiser
-mapper of the basecaller's ``--reference`` stage).
+codec), ``mapper`` (``native/mapper/mapper.cpp``: the minimiser
+mapper of the basecaller's ``--reference`` stage) and ``ctcbeam``
+(``native/ctc/ctcbeam.cpp``: the conv-CTC family's prefix beam search).
 
 Each is compiled with g++ at first use into ``bonito_tpu_torch/build/``,
 named by the source's content hash so a stale build never loads. A failed
@@ -67,9 +68,19 @@ def _bind_mapper(lib):
     ]
 
 
+def _bind_ctcbeam(lib):
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    lib.ctc_beam_search.restype = ctypes.c_int
+    lib.ctc_beam_search.argtypes = [
+        ctypes.POINTER(ctypes.c_float), i32, i32, i32, ctypes.c_float,
+        ctypes.POINTER(i32), ctypes.POINTER(i64), i32,
+    ]
+
+
 SPECS = {"align": (["align/align.cpp"], _bind_align),
          "vbz": (["vbz/vbz.cpp"], _bind_vbz),
-         "mapper": (["mapper/mapper.cpp"], _bind_mapper)}
+         "mapper": (["mapper/mapper.cpp"], _bind_mapper),
+         "ctcbeam": (["ctc/ctcbeam.cpp"], _bind_ctcbeam)}
 
 
 def build(name):

@@ -22,7 +22,9 @@ bonito_tpu's (and upstream bonito's) ``config.toml`` files name.
 - ``Stack`` (a layer spec repeated ``depth`` times) and ``NamedSerial``
   (children named by their config keys) build the transformer family's
   encoder; ``from_dict`` defers to a type's own ``from_dict`` where it has
-  one. Reverse and the conv-CTC blocks wait for the slices that run them.
+  one. Reverse waits for the slice that runs it; the conv-CTC family's
+  blocks are built from its config's ``[[block]]`` list (``ctc/model.py``),
+  not through the registry.
 """
 
 import math
@@ -58,9 +60,8 @@ def from_dict(model_dict, layer_types=None):
     if type_name not in layer_types:
         raise NotImplementedError(
             f"layer type {type_name!r} is not ported to bonito_tpu_torch yet "
-            f"(reverse and the conv-CTC blocks wait for their slices; the "
-            f"transformer layers register when bonito_tpu_torch.transformer "
-            f"is imported)")
+            f"(reverse waits for its slice; the transformer layers register "
+            f"when bonito_tpu_torch.transformer is imported)")
     typ = layer_types[type_name]
     if hasattr(typ, "from_dict"):
         return typ.from_dict(model_dict, layer_types)
@@ -329,6 +330,8 @@ class BatchNorm(Layer):
 class Convolution(Layer):
     """1-D convolution (+ optional norm + activation) over [N, T, C];
     weight ``w`` [O, I, W] (torch's conv1d layout)."""
+
+    conv_weight_names = ("w",)  # [W, I, O] in a bonito_tpu checkpoint
 
     def __init__(self, insize, size, winlen, stride=1, padding=0, bias=True,
                  activation=None, norm=None):

@@ -1,9 +1,10 @@
 """
 Host-side utilities: signal chunking/stitching, batch bookkeeping, model
-loading, the training helpers (``init``, ``decode_ref``, ``accuracy``) and
+loading, the training helpers (``init``, ``decode_ref``, ``accuracy``),
 the writers' (``revcomp``, ``mean_qscore_from_qstring``,
-``column_to_set``). The chunk/stitch arithmetic is bonito_tpu's (and
-upstream bonito's) exactly, so stitched strings agree at chunk junctions.
+``column_to_set``) and the CTC decoders' (``phred``, ``phred_array``).
+The chunk/stitch arithmetic is bonito_tpu's (and upstream bonito's)
+exactly, so stitched strings agree at chunk junctions.
 """
 
 import os
@@ -44,6 +45,20 @@ def mean_qscore_from_qstring(qstring):
           - 33)
     mean_err = np.exp(qs * (-np.log(10) / 10.0)).mean()
     return float(-10 * np.log10(max(mean_err, 1e-4)))
+
+
+def phred(prob, scale=1.0, bias=0.0):
+    """ASCII phred char for a correctness probability (clamped to q40)."""
+    err = max(1.0 - prob, 1e-4)
+    q = -10 * np.log10(err) * scale + bias
+    return chr(int(np.round(q)) + 33)
+
+
+def phred_array(probs, scale=1.0, bias=0.0):
+    """Vectorised phred+33 codes (uint8) for an array of probabilities."""
+    err = np.maximum(1.0 - probs, 1e-4)
+    q = -10.0 * np.log10(err) * scale + bias
+    return (np.round(q) + 33).astype(np.uint8)
 
 
 def column_to_set(filename):
@@ -294,13 +309,15 @@ def _load_model(weights_path, config, half=True, fuse_bn=False, device=None,
 
     params_from_jax(model, load_params(weights_path))
     if fuse_bn:
-        # fold in f64/f32 before any bf16 cast
+        # fold in f64/f32 before any bf16 cast; a Convolution's own norm
+        # only (the conv-CTC blocks keep their BatchNorms, as in bonito_tpu)
         nn.fuse_bn(model.encoder)
     if half:
         model.to_bf16()
-    if config["basecaller"].get("quantize"):
+    if config["basecaller"].get("quantize") and hasattr(model, "quantize"):
         # after the cast, as in bonito_tpu: the int8 weights are those of
-        # the bf16-rounded values
+        # the bf16-rounded values; a family without int8 forms (conv-CTC)
+        # skips it, as bonito_tpu's does
         model.quantize(route=route)
     if attn_route is not None:
         from bonito_tpu_torch.transformer.model import set_attn_route

@@ -203,6 +203,25 @@ PyTorch built for CUDA. In order, it:
     wall time, reads and samples, the stage waits of
     ``BONITO_TPU_PROFILE=1`` beside phase 7's device step, the reader
     processes' start-up time and whether libzstd was found.
+13. runs the conv-CTC family (``dna_r9.4.1_e8_fast@v2`` as shipped, random
+    weights of the seed with BatchNorm statistics of a random batch),
+    which no hand kernel serves, every launch count 0 on each of its
+    paths: the device step at 512 x 3999 as the basecaller loads the model
+    (bf16, fuse_bn) in turns, with samples/s, peak memory, every module's
+    tensors on cuda, and the time of each block, of the k 115, 123 and 67
+    depthwise convs, a pointwise conv and a BatchNorm, swish and add pass,
+    and the device time by kernel (torch.profiler); the host's greedy and
+    beam decode of one batch on the decode threads; ``basecaller`` from
+    64 pod5 reads at 4 kHz to fastq (greedy with qualities), BAM and SAM
+    (the beam), every record the in-process ``basecall``'s, with the
+    CLI's samples/s and stage waits; one train step at 64 x 3999 (bf16
+    amp, AdamW, the clip) with train samples/s and peak memory; the
+    loss's route (F.ctc_loss in f64) against the plain recursion in f64
+    on one batch (F.ctc_loss in f32 and the recursion in f32 beside it);
+    one ``train`` CLI epoch; ``evaluate`` on 64 chunks, its seqs.fasta
+    ``decode_batch``'s in this process, and its refusal (item 13) of an f32
+    hac directory; one f32 batch on the card against the CPU with TF32 on
+    and off; ``view``'s parameter count.
 
 Then it prints one ``kernels`` JSON line with all twenty-six kernels (F's,
 G's and J's with their plans, their earlier kernels' times and the fast
@@ -211,7 +230,8 @@ kernel's time; B's and C's with their plan, their earlier kernels' times
 and difference, and the device steps on both; M's and Q's likewise, with
 the reverse paths' device steps and the parent's; U's, V's, X's, Y's and
 Z's with their plan, their earlier kernels' times at hac, fast and sup
-training shapes, and the loss paths and train steps on both).
+training shapes, and the loss paths and train steps on both; every
+kernel's ``by_path`` with phase 13's conv-CTC paths, all 0).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -2935,9 +2955,9 @@ _B_TYPES = {"c": "<i1", "C": "<u1", "s": "<i2", "S": "<u2", "i": "<i4",
             "I": "<u4", "f": "<f4"}
 
 
-def write_cli_reads(pod5, directory, n, seed, compress):
-    """``n`` reads from ``seed`` in two pod5 files of the port's writer;
-    their samples."""
+def write_cli_reads(pod5, directory, n, seed, compress, sample_rate=5000):
+    """``n`` reads from ``seed`` in two pod5 files of the port's writer, at
+    ``sample_rate``; their samples."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(*CLI_LENGTHS, n)
     records = []
@@ -2952,8 +2972,11 @@ def write_cli_reads(pod5, directory, n, seed, compress):
     if directory.exists():
         shutil.rmtree(directory)
     directory.mkdir(parents=True)
-    pod5.write_pod5(directory / "a.pod5", records[:n // 2], compress=compress)
-    pod5.write_pod5(directory / "b.pod5", records[n // 2:], compress=compress)
+    run_info = {"sample_rate": sample_rate}
+    pod5.write_pod5(directory / "a.pod5", records[:n // 2], compress=compress,
+                    run_info=run_info)
+    pod5.write_pod5(directory / "b.pod5", records[n // 2:], compress=compress,
+                    run_info=run_info)
     return int(lengths.sum())
 
 
@@ -3061,10 +3084,11 @@ def cli_batches(chunk, tags, bc):
 
 
 def reference_calls(torch, load_model, basecall, pod5, model_dir, reads_dir,
-                    read_ids=None):
-    """``basecall`` in this process on the model the CLI loads and on the
-    Reads the port's pod5 reader yields (in this process), as the CLI
-    reads them: {read_id: result}, and the model's geometry."""
+                    read_ids=None, **kw):
+    """``basecall`` (with the options ``kw``) in this process on the model
+    the CLI loads and on the Reads the port's pod5 reader yields (in this
+    process), as the CLI reads them: {read_id: result}, and the model's
+    geometry."""
     model = load_model(model_dir, half=True, fuse_bn=True, quantize=None,
                        device="cuda")
     model.requires_grad_(False)
@@ -3077,7 +3101,7 @@ def reference_calls(torch, load_model, basecall, pod5, model_dir, reads_dir,
                            scaling_strategy=scaling, norm_params=norm)
     out = {r.read_id: res for r, res in basecall(
         model, reads, chunksize=bc["chunksize"], overlap=bc["overlap"],
-        batchsize=bc["batchsize"])}
+        batchsize=bc["batchsize"], **kw)}
     del model
     torch.cuda.empty_cache()
     return out, bc
@@ -3289,6 +3313,516 @@ def cli_phase(torch, counters, dirs, steps, card):
             | {"samples": samples[name], "reads": len(r["ids"]),
                "stages": r["stages"]} for name, r in results.items()} | {
         "reader_startup_s": startup, "libzstd": zstd}
+
+
+
+# phase 13: the conv-CTC family at full width, dna_r9.4.1_e8_fast@v2 as
+# shipped (8 blocks of 344 to 48 filters, kernels 9 to 123, stride 3),
+# random weights from the seed with BatchNorm statistics of a random batch
+# of CTC_CALIBRATION chunks (with statistics of (0, 1) each block of a
+# random model halves its activations and the calls hardly depend on the
+# signal); batch 512 x 3999 (the config's 4000 at the stride)
+CTC = "dna_r9.4.1_e8_fast@v2"
+CTC_CALIBRATION = 16
+CTC_TURNS, CTC_REPS = 3, 5
+CTC_CLI_READS = 64
+CTC_SAMPLE_RATE = 4000
+# the train step at full width: the train CLI's default batch of 64
+# chunks, targets of 300 to 400 bases; the card's loss route (F.ctc_loss,
+# in f64) against the plain recursion run in f64 on one batch: the loss
+# within CTC_LOSS_RTOL relative, the gradient to the log-probs within
+# CTC_GRAD_RTOL relative L2 (F.ctc_loss in f32 and the plain recursion in
+# f32 are printed beside it: F.ctc_loss's f32 gradient drifted 1.4e-3
+# from the f64 recursion's over 1333 frames, the f32 recursion's 3.3e-5)
+CTC_TRAIN_BATCH, CTC_TARGETS, CTC_TRAIN_STEPS = 64, (300, 400), 3
+CTC_LOSS_RTOL, CTC_GRAD_RTOL = 1e-4, 1e-3
+# one f32 batch (CTC_F32_ROWS chunks) on the card against the CPU: with
+# TF32 off, cuDNN's and the CPU's f32 sums in other orders (max |d log-p|
+# within CTC_F32_TOL); with TF32 on (torch's default for cuDNN) within
+# CTC_TF32_TOL, a sanity bound: TF32 keeps 10 bits of each product's
+# operands
+CTC_F32_ROWS, CTC_F32_TOL, CTC_TF32_TOL = 4, 1e-3, 0.25
+CTC_EVAL_CHUNKS, CTC_EVAL_BATCH = 64, 32
+
+
+def ctc_flops_per_frame(model, TCSConv):
+    """Multiply-adds x 2 of the conv-CTC model per output frame: a plain
+    conv 2 I O K, a separable one 2 I K + 2 I O, the decoder 2 I O."""
+    flops = 0
+    for m in model.modules():
+        if isinstance(m, TCSConv):
+            flops += (2 * m.insize * m.winlen + 2 * m.insize * m.size
+                      if m.separable else 2 * m.insize * m.size * m.winlen)
+    dec = next(model.decoder.children())
+    return flops + 2 * dec.insize * dec.size
+
+
+def calibrate_ctc(torch, nn, model, x):
+    """Every BatchNorm's statistics set to those of the batch ``x`` (one
+    forward in train mode with the update's momentum 1)."""
+    norms = [m for m in model.modules() if isinstance(m, nn.BatchNorm)]
+    for bn in norms:
+        bn.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    model.eval()
+    for bn in norms:
+        bn.apply_pending()
+        bn.momentum = 0.1
+
+
+def profile_step(torch, fn):
+    """Device time by kernel of one call of ``fn`` under torch.profiler:
+    [(name, ms, count)], the most first; [] where the profiler records no
+    device time."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0)
+            if t:
+                rows.append((e.key, t / 1e3, e.count))
+        return sorted(rows, key=lambda r: -r[1])
+    except Exception as e:  # noqa: BLE001 - reported, the phase goes on
+        log(f"    torch.profiler gave no device times: {e!r}")
+        return []
+
+
+def zero_launches(counters, name, launches):
+    require(not any(launches.values()),
+            f"{name}: hand kernels launched on the conv-CTC path: "
+            f"{({k: v for k, v in launches.items() if v})}")
+
+
+def ctc_phase(torch, counters, dev, dirs, card):
+    """Phase 13: the conv-CTC family at full width on the card: the device
+    step and the host decode, the cuDNN pieces, the basecaller CLI from
+    pod5 to fastq, BAM and SAM against in-process ``basecall``, a train
+    step and F.ctc_loss against the plain loss, one train CLI epoch,
+    ``evaluate`` (and its item-13 refusal), f32 on the card against the
+    CPU, ``view``. Every hand kernel's count is 0 on each path."""
+    import contextlib
+    from functools import partial
+
+    import torch.nn.functional as F
+
+    from bonito_tpu_torch import checkpoint, nn, pod5, profiling, training
+    from bonito_tpu_torch.cli import main as cli_main
+    from bonito_tpu_torch.config import save_config
+    from bonito_tpu_torch.ctc import basecall as ctc_basecall
+    from bonito_tpu_torch.ctc import model as ctc_model
+    from bonito_tpu_torch.models import MODELS
+    from bonito_tpu_torch.pipeline import thread_map
+    from bonito_tpu_torch.util import chunk, load_model
+
+    log(f"[13] the conv-CTC family ({CTC}) at full width on the card")
+    root = Path(dirs["int8"]).parent / "chip_smoke_ctc"
+    if root.exists():
+        shutil.rmtree(root)
+    model_dir = root / "model"
+    model_dir.mkdir(parents=True)
+    cfg = MODELS[CTC]()
+    rng = np.random.default_rng(SEED)
+    master = ctc_model.Model(cfg).init(SEED).to(dev)
+    calibrate_ctc(torch, nn, master, torch.from_numpy(rng.normal(
+        size=(CTC_CALIBRATION, 3999, 1)).astype(np.float32)).to(dev))
+    save_config(cfg, model_dir / "config.toml")
+    checkpoint.save_params(model_dir / "weights_1.npz", master)
+    del master
+    launches = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: c.launches for k, c in counters.items()}
+        zero_launches(counters, name, launches[name])
+        return out
+
+    # (a) the device step, as the basecaller loads the model
+    model = load_model(model_dir, half=True, fuse_bn=True, quantize=None,
+                       device="cuda")
+    model.requires_grad_(False)
+    bc = model.config["basecaller"]
+    N, L = bc["batchsize"], bc["chunksize"]
+    require((N, L, bc["overlap"], model.stride) == (512, 3999, 498, 3),
+            f"unexpected geometry {bc}, stride {model.stride}")
+    kinds = sorted({(b.conv0.winlen, b.conv0.separable, b.residual)
+                    for b in model.encoder.children()})
+    batch = rng.normal(size=(N, L)).astype(np.float32)
+    compute = ctc_basecall.make_compute_fn(model, N)
+    devices, hooks = set(), []
+
+    def on_device(module, inputs, output):
+        for t in (*inputs, output):
+            if isinstance(t, torch.Tensor):
+                devices.add(t.device.type)
+    for m in model.modules():
+        hooks.append(m.register_forward_hook(on_device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = counted("ctc_device_step",
+                  lambda: compute.fetch(compute.dispatch(batch)))
+    for h in hooks:
+        h.remove()
+    params = {t.device.type for t in (*model.parameters(), *model.buffers())}
+    require(devices == params == {"cuda"},
+            f"the device stage's tensors lie on {devices | params}")
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    T = out.shape[1]
+    require(out.shape == (N, (L + 2) // 3, 5) and np.isfinite(out).all(),
+            f"log-probs {out.shape}, finite {np.isfinite(out).all()}")
+    turns = []
+    for _ in range(CTC_TURNS):
+        turns.append(cuda_ms(lambda: compute.fetch(compute.dispatch(batch)),
+                             reps=CTC_REPS))
+    step = min(turns)
+    flops = ctc_flops_per_frame(model, ctc_model.TCSConv) * N * T
+    t_ops, _ = bound(0, flops, H100_BF16_OPS)
+    log(f"  device step ({N} x {L} -> {T} frames, bf16, BatchNorm kept "
+        f"f32 statistics, log-probs in bf16 to the host) on {card}: "
+        f"{', '.join(f'{t:.4g}' for t in turns)} ms in {CTC_TURNS} turns of "
+        f"{CTC_REPS} (spread {max(turns) - min(turns):.3g} ms) = "
+        f"{N * L / step * 1e3:.6g} samples/s at the best; peak memory "
+        f"{peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held; "
+        f"{flops / 1e12:.4g} TFLOP a batch ({flops / N / T / 1e6:.4g} MFLOP "
+        f"a frame): {t_ops:.4g} ms at the bf16 peak; block kinds (kernel, "
+        f"separable, residual) {kinds}; every module's tensors on cuda")
+
+    # (b) the host decode of one batch on the decode threads
+    items = [(i, {"scores": out[i]}) for i in range(N)]
+    fn = partial(ctc_model.decode_scores, alphabet=model.alphabet,
+                 qscale=model.qscale, qbias=model.qbias)
+    host = {}
+    for name, kw in (("greedy", {"qscores": True}), ("beam", {})):
+        decoder = partial(ctc_basecall.decode, decode_fn=fn, stride=3, **kw)
+        t0 = time.perf_counter()
+        calls = [r for _, r in thread_map(decoder, iter(items), n_thread=4)]
+        host[name] = (time.perf_counter() - t0) * 1e3
+        bases = sum(len(c["sequence"]) for c in calls)
+        require(bases > 0.1 * N * T and set("".join(
+            c["sequence"] for c in calls)) == set("ACGT"),
+                f"{name} decode: {bases} bases in {N * T} frames")
+        log(f"  host {name} decode of one batch on 4 threads: "
+            f"{host[name]:.1f} ms ({bases} bases from {N * T} frames, "
+            f"{N * L / host[name] * 1e3:.4g} samples/s)")
+
+    # (c) where the device step's time goes: each block, the decoder, and
+    # the cuDNN pieces (not TPU kernels; plain torch)
+    x = torch.from_numpy(batch).to(dev, torch.bfloat16)[..., None]
+    block_ms = []
+    with torch.inference_mode():
+        h = x
+        for b in model.encoder.children():
+            block_ms.append(cuda_ms(lambda b=b, h=h: b(h), reps=3))
+            h = b(h)
+        dec_ms = cuda_ms(lambda: F.log_softmax(model.decoder(h).float(), -1),
+                         reps=3)
+        pieces = {}
+        for name, (c, k) in (("depthwise k115", (344, 115)),
+                             ("depthwise k123", (464, 123)),
+                             ("depthwise k67", (280, 67))):
+            a = torch.randn(N, c, T, device=dev, dtype=torch.bfloat16)
+            w = torch.randn(c, 1, k, device=dev, dtype=torch.bfloat16)
+            pieces[name] = cuda_ms(
+                lambda a=a, w=w, k=k, c=c: F.conv1d(a, w, padding=k // 2,
+                                                     groups=c), reps=3)
+        a = torch.randn(N, 464, T, device=dev, dtype=torch.bfloat16)
+        w = torch.randn(456, 464, 1, device=dev, dtype=torch.bfloat16)
+        pieces["pointwise 464->456"] = cuda_ms(lambda: F.conv1d(a, w), reps=3)
+        bn = nn.BatchNorm(464, eps=1e-3).to(dev)
+        v = a.transpose(1, 2)
+        pieces["BatchNorm pass (464 ch)"] = cuda_ms(lambda: bn(v), reps=3)
+        pieces["swish pass (464 ch)"] = cuda_ms(lambda: F.silu(v), reps=3)
+        pieces["residual add (464 ch)"] = cuda_ms(lambda: v + v, reps=3)
+        act_bytes = N * 464 * T * 2
+    kernels_ms = profile_step(torch, lambda: compute.fetch(
+        compute.dispatch(batch)))
+    log(f"  blocks: {', '.join(f'{t:.4g}' for t in block_ms)} ms (sum "
+        f"{sum(block_ms):.4g}); decoder + log-softmax {dec_ms:.4g} ms")
+    for name, t in pieces.items():
+        log(f"    {name} at [{N}, *, {T}] bf16: {t:.4g} ms")
+    log(f"    one bf16 activation of 464 channels is {act_bytes / 1e9:.4g} "
+        f"GB: a pass reading and writing it {2 * act_bytes / H100_BYTES * 1e3:.4g}"
+        f" ms at {H100_BYTES / 1e12:.3g} TB/s")
+    if kernels_ms:
+        total = sum(t for _, t, _ in kernels_ms)
+        log(f"    torch.profiler over one device step: {total:.4g} ms of "
+            f"device time in {len(kernels_ms)} kinds of kernel; the most:")
+        for name, t, n in kernels_ms[:12]:
+            log(f"      {t:8.3f} ms {n:5d} x {name[:100]}")
+    del x, h, a, w, v, bn
+    torch.cuda.empty_cache()
+
+    # (d) the basecaller CLI from pod5: fastq (greedy with qualities), BAM
+    # and SAM (the beam: qstring '*', no moves)
+    try:
+        pod5.libzstd()
+        zstd = True
+    except pod5.LibraryMissing:
+        zstd = False
+    reads_dir = root / "reads"
+    samples = write_cli_reads(pod5, reads_dir, CTC_CLI_READS, SEED + 2, zstd,
+                              sample_rate=CTC_SAMPLE_RATE)
+    ids = sorted(pod5.Pod5File(reads_dir / "a.pod5").read_ids()
+                 + pod5.Pod5File(reads_dir / "b.pod5").read_ids())
+    del model, compute
+    torch.cuda.empty_cache()
+    cli = {}
+    for ext in ("fastq", "bam", "sam"):
+        out_path = root / f"cli_{ext}" / f"out.{ext}"
+        out_path.parent.mkdir()
+        profiling.report(reset=True)
+        os.environ["BONITO_TPU_PROFILE"] = "1"
+        try:
+            wall, err = counted(f"ctc_cli_{ext}", lambda: run_cli(
+                cli_main, ["basecaller", str(model_dir), str(reads_dir),
+                           "--n-proc", str(CLI_PROCS), "--output-dir",
+                           str(out_path.parent)], out_path))
+        finally:
+            del os.environ["BONITO_TPU_PROFILE"]
+        rate = re.search(r"samples per second (\S+)", err)
+        require(rate and f"completed reads: {CTC_CLI_READS}" in err,
+                f"conv-CTC CLI to {ext}: no rate or not {CTC_CLI_READS} "
+                f"reads")
+        cli[ext] = {"wall": wall, "rate": float(rate.group(1)),
+                    "stages": profiling.report(reset=True), "out": out_path}
+    for qscores in (True, False):
+        ref, _ = reference_calls(torch, load_model, ctc_basecall.basecall,
+                                 pod5, model_dir, reads_dir, qscores=qscores)
+        require(sorted(ref) == ids, "basecall missed a read")
+        if qscores:
+            fq = fastq_records(cli["fastq"]["out"].read_text())
+            require(sorted(fq) == ids, "fastq: not the pod5 files' reads")
+            for rid, (seq, qual, _) in fq.items():
+                require((seq, qual) == (ref[rid]["sequence"],
+                                        ref[rid]["qstring"]),
+                        f"fastq: {rid}'s record differs from basecall's")
+            continue
+        records = bam_records(cli["bam"]["out"].read_bytes())
+        require(sorted(r["name"] for r in records) == ids,
+                "BAM: not the pod5 files' reads")
+        for r in records:
+            require(r["seq"] == ref[r["name"]]["sequence"]
+                    and "mv" not in r["tags"]
+                    and ref[r["name"]]["qstring"] == "*",
+                    f"BAM: {r['name']}'s record differs from basecall's")
+        rows = [line.split("\t") for line in cli["sam"]["out"].read_text()
+                .splitlines() if not line.startswith("@")]
+        require(sorted(f[0] for f in rows) == ids,
+                "SAM: not the pod5 files' reads")
+        for f in rows:
+            require(f[9] == ref[f[0]]["sequence"] and f[10] == "*",
+                    f"SAM: {f[0]}'s record differs from basecall's")
+    for ext, r in cli.items():
+        log(f"  CLI to {ext} on {card}: '> samples per second "
+            f"{r['rate']:.1E}' ({CTC_CLI_READS} synthetic pod5 reads at "
+            f"{CTC_SAMPLE_RATE} Hz, {samples} samples), {samples / r['wall']:.6g}"
+            f" samples/s over the command's {r['wall']:.2f} s wall; every "
+            f"record the in-process basecall's; no hand kernel launched")
+        for line in r["stages"]:
+            log(f"    {line}")
+
+    # (e) one train step at full width: bf16 amp on f32 master weights,
+    # AdamW and the clip, as the trainer runs them
+    model = ctc_model.Model(cfg).init(SEED).to(dev)
+    opt = training.make_optimizer(model, 2e-3)
+    step_fn = training.make_train_step(model, opt, use_amp=True)
+    lengths = rng.integers(CTC_TARGETS[0], CTC_TARGETS[1] + 1,
+                           CTC_TRAIN_BATCH)
+    targets = rng.integers(1, 5, (CTC_TRAIN_BATCH, CTC_TARGETS[1]))
+    targets[np.arange(CTC_TARGETS[1])[None] >= lengths[:, None]] = 0
+    tb = (torch.from_numpy(rng.normal(size=(CTC_TRAIN_BATCH, L, 1)).astype(
+        np.float32)).to(dev), torch.from_numpy(targets).to(dev),
+          torch.from_numpy(lengths).to(dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_t = torch.cuda.memory_allocated()
+    losses0, _ = step_fn(tb, 1.0, 2.0)
+
+    def train_steps():
+        t0 = time.perf_counter()
+        for _ in range(CTC_TRAIN_STEPS):
+            losses, norm = step_fn(tb, 1.0, 2.0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / CTC_TRAIN_STEPS * 1e3, losses
+    train_ms, losses = counted("ctc_train_step", train_steps)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(all(math.isfinite(float(v)) for v in losses.values()),
+            f"train step losses {losses}")
+    log(f"  train step ({CTC_TRAIN_BATCH} x {L}, targets of "
+        f"{CTC_TARGETS[0]} to {CTC_TARGETS[1]} bases; bf16 amp, f32 master "
+        f"weights, AdamW, clip 2) on {card}: {train_ms:.4g} ms (mean of "
+        f"{CTC_TRAIN_STEPS} after a warm-up) = "
+        f"{CTC_TRAIN_BATCH * L / train_ms * 1e3:.6g} train samples/s; peak "
+        f"memory {train_peak:.3f} GiB ({(train_peak - held_t / 2 ** 30):.3f} "
+        f"above the held); loss {float(losses0['loss']):.4g} -> "
+        f"{float(losses['loss']):.4g}")
+    # F.ctc_loss against the plain recursion on one batch's log-probs
+    model.train()
+    with torch.no_grad():
+        lp = model(tb[0].to(torch.bfloat16))
+    model.eval()
+    require(bool(ctc_model.alignable(tb[1], tb[2], lp.shape[1]).all()),
+            "the train batch has a row that cannot align")
+    grads, vals, ms, rows = {}, {}, {}, {}
+    nll = ctc_model.ctc_nll
+    def ctc_loss_f32(log_probs, targets, lengths):
+        return F.ctc_loss(log_probs.transpose(0, 1), targets, torch.full(
+            (log_probs.shape[0],), log_probs.shape[1], device=dev), lengths,
+            reduction="none")
+    for route, dtype, fn in (
+            ("ctc_loss", torch.float32, nll),
+            ("ctc_loss_f32", torch.float32, ctc_loss_f32),
+            ("plain", torch.float32, ctc_model.ctc_nll_plain),
+            ("plain_f64", torch.float64, ctc_model.ctc_nll_plain)):
+        leaf = lp.detach().to(dtype).clone().requires_grad_(True)
+        ctc_model.ctc_nll = fn
+        try:
+            def fwd_bwd(leaf=leaf):
+                out = model.loss(leaf, tb[1], tb[2])
+                out["total_loss"].backward()
+                return {k: float(v.detach()) for k, v in out.items()}
+            vals[route], ms[route] = timed(torch, fwd_bwd)
+            with torch.no_grad():
+                rows[route] = ctc_model.ctc_nll(leaf.detach(), tb[1],
+                                                tb[2]).double()
+        finally:
+            ctc_model.ctc_nll = nll
+        grads[route] = leaf.grad.double()
+
+    def against(a, b):
+        return ({k: abs(vals[a][k] / vals[b][k] - 1)
+                 for k in ("total_loss", "loss")},
+                float(((rows[a] - rows[b]).abs() / rows[b].abs()).max()),
+                float((grads[a] - grads[b]).norm() / grads[b].norm()))
+    lib, lib_rows, g_lib = against("ctc_loss", "plain_f64")
+    lib32, lib32_rows, g_lib32 = against("ctc_loss_f32", "plain_f64")
+    f32, f32_rows, g_f32 = against("plain", "plain_f64")
+    log(f"  loss through F.ctc_loss (in f64, the card's route) against the "
+        f"plain recursion (optax's) in f64 on one batch (loss "
+        f"{vals['plain_f64']['loss']:.8g}): relative differences {lib}, per "
+        f"row at most {lib_rows:.3g}, the gradient to the log-probs "
+        f"{g_lib:.3g} relative L2; F.ctc_loss in f32 (not the route): "
+        f"{lib32}, per row {lib32_rows:.3g}, gradient {g_lib32:.3g}; the "
+        f"plain recursion in f32: {f32}, per row {f32_rows:.3g}, gradient "
+        f"{g_f32:.3g}; forward + backward: F.ctc_loss {ms['ctc_loss']:.4g} "
+        f"ms (f32 {ms['ctc_loss_f32']:.4g}), plain f32 {ms['plain']:.4g} ms, "
+        f"f64 {ms['plain_f64']:.4g} ms")
+    require(max(lib.values()) <= CTC_LOSS_RTOL and g_lib <= CTC_GRAD_RTOL,
+            f"F.ctc_loss against the plain loss in f64: {lib}, gradient "
+            f"{g_lib}")
+    del model, opt, step_fn, lp, grads, tb
+    torch.cuda.empty_cache()
+    epoch = train_cli(torch, counters, CTC, 16, L, CTC_TARGETS[1], 2, {}, {},
+                      "ctc")
+    launches["ctc_train_cli"] = epoch["launches"]
+    zero_launches(counters, "ctc_train_cli", epoch["launches"])
+
+    # (f) evaluate on the card, against decode_batch in this process; an
+    # f32 hac directory refuses (kernel A takes bf16 only)
+    data = root / "eval_data"
+    rng_e = np.random.default_rng(SEED + 3)
+    for sub in ("", "validation"):
+        d = data / sub
+        d.mkdir(parents=True, exist_ok=True)
+        lens = rng_e.integers(150, 301, CTC_EVAL_CHUNKS)
+        refs = rng_e.integers(1, 5, (CTC_EVAL_CHUNKS, 300))
+        refs[np.arange(300)[None] >= lens[:, None]] = 0
+        np.save(d / "chunks.npy", rng_e.normal(size=(CTC_EVAL_CHUNKS, L))
+                .astype(np.float16))
+        np.save(d / "references.npy", refs.astype(np.uint8))
+        np.save(d / "reference_lengths.npy", lens.astype(np.uint16))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        counted("ctc_evaluate", lambda: cli_main([
+            "evaluate", str(model_dir), "--directory", str(data),
+            "--chunks", str(CTC_EVAL_CHUNKS), "--batchsize",
+            str(CTC_EVAL_BATCH), "--output-dir", str(root / "eval_out")]))
+    report = buf.getvalue()
+    model32 = load_model(model_dir, half=False, device="cuda")
+    model32.requires_grad_(False)
+    chunks = np.load(data / "validation" / "chunks.npy").astype(np.float32)
+    want = []
+    with torch.inference_mode():
+        for i in range(0, CTC_EVAL_CHUNKS, CTC_EVAL_BATCH):
+            xb = torch.from_numpy(chunks[i:i + CTC_EVAL_BATCH]).to(dev)
+            want += model32.decode_batch(model32(xb[..., None]))
+    seqs = (root / "eval_out" / "seqs.fasta").read_text().splitlines()[1::2]
+    require(seqs == want, "evaluate's seqs.fasta is not decode_batch's")
+    summary = [line for line in report.splitlines() if line.startswith("* ")]
+    log(f"  evaluate on the card ({CTC_EVAL_CHUNKS} chunks of {L}, batch "
+        f"{CTC_EVAL_BATCH}, f32): seqs.fasta equals decode_batch in this "
+        f"process; cudnn.allow_tf32 {tf32[0]}, matmul.allow_tf32 {tf32[1]} "
+        f"(the f32 convolutions run in TF32: {tf32[0]})")
+    for line in summary:
+        log(f"    {line}")
+    try:
+        cli_main(["evaluate", str(dirs["bf16"]), "--directory", str(data)])
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    require(refused and "item 13" in refused,
+            f"evaluate of an f32 hac directory did not refuse: {refused}")
+    log(f"  evaluate of the hac directory (f32): refused: {refused}")
+
+    # (g) f32 on the card against the CPU, with TF32 on and off
+    x = np.random.default_rng(SEED + 4).normal(
+        size=(CTC_F32_ROWS, L, 1)).astype(np.float32)
+    cpu = load_model(model_dir, half=False, device="cpu")
+    with torch.inference_mode():
+        ref = cpu(torch.from_numpy(x)).numpy()
+        diffs = {}
+        for allow in (True, False):
+            torch.backends.cudnn.allow_tf32 = allow
+            try:
+                got = model32(torch.from_numpy(x).to(dev)).cpu().numpy()
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32[0]
+            diffs[allow] = (float(np.abs(got - ref).max()),
+                            float((got.argmax(-1) == ref.argmax(-1)).mean()))
+    log(f"  one f32 batch ({CTC_F32_ROWS} x {L}) on the card against the CPU:"
+        f" TF32 on (torch's default) max |d log-p| {diffs[True][0]:.3g}, "
+        f"argmax alike {diffs[True][1]:.4f}; TF32 off {diffs[False][0]:.3g}, "
+        f"{diffs[False][1]:.4f}")
+    require(diffs[False][0] <= CTC_F32_TOL and diffs[True][0] <= CTC_TF32_TOL,
+            f"f32 card against CPU: {diffs}")
+    del model32, cpu
+    torch.cuda.empty_cache()
+
+    # (h) view
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(["view", CTC])
+    count = int(buf.getvalue().splitlines()[-1].split(":")[1].replace(",", ""))
+    want_count = sum(p.numel() for p in ctc_model.Model(cfg).parameters())
+    require(count == want_count, f"view counts {count}, not {want_count}")
+    log(f"  view {CTC}: total parameters {count:,} (BatchNorm statistics "
+        f"not counted)")
+    return {"launches": launches, "step_ms": turns, "samples_per_s":
+            N * L / step * 1e3, "peak_gib": peak, "host_ms": host,
+            "blocks_ms": block_ms, "pieces_ms": pieces,
+            "profile": kernels_ms[:12],
+            "cli": {k: {"rate": v["rate"], "wall": v["wall"]}
+                    for k, v in cli.items()},
+            "train_ms": train_ms, "train_peak_gib": train_peak,
+            "loss_vs_f64": {"ctc_loss": (lib, g_lib),
+                            "ctc_loss_f32": (lib32, g_lib32),
+                            "plain_f32": (f32, g_f32)}, "loss_ms": ms,
+            "tf32": tf32, "f32_vs_cpu": diffs, "view_count": count}
 
 
 def main():
@@ -4474,6 +5008,8 @@ def main():
                                             "fast": step_fast}, card)
     runs["cli_hac"] = {"launches": cli["hac"]["launches"]}
     runs["cli_fast"] = {"launches": cli["fast"]["launches"]}
+    torch.cuda.empty_cache()
+    ctc = ctc_phase(torch, counters, dev, dirs, card)
 
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_window = "bonito_tpu_torch/csrc/attention_window.cu"  # K's, H's
@@ -4775,6 +5311,14 @@ def main():
         if k["name"] == "pin_layout":
             k["by_path"]["sup_train_step"] = (
                 sup_train["step"]["launches"]["P"] // TRAIN_STEPS)
+    # every kernel's count on phase 13's conv-CTC paths (all 0: the
+    # family runs no hand kernel)
+    letters = ([e[1] for e in entries] + list("UVWXYZ") + ["R", "S", "H",
+                                                          "O"])
+    require(len(letters) == len(kernels), "a kernel without its letter")
+    for k, letter in zip(kernels, letters):
+        k["by_path"].update({p: n[letter]
+                             for p, n in ctc["launches"].items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

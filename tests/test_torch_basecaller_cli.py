@@ -9,8 +9,9 @@ summary TSV equal; and the same with ``--reference``, ``--revcomp``,
 ``--read-ids`` with and without ``--skip``, ``--max-reads``,
 ``--min-qscore``, ``--no-trim``, ``--save-ctc``, ``--beam`` and ``--rna``
 (the result dict of the port's ``basecall`` and ``fmt`` on each). The
-refusals (``--distributed``, CRAM, a download, a conv-CTC directory, no
-card) raise before a model loads.
+refusals (``--distributed``, CRAM, a download, no card) raise before a
+model loads; a conv-CTC directory basecalls (held against bonito_tpu in
+tests/test_torch_ctc_cli.py).
 
 The model is ``tests/test_torch_reverse.py``'s ``lstm_dir`` (H 96, two
 layers, seed 14, the CRF weight x 10, quantize=false). The reads' seed
@@ -299,14 +300,24 @@ def test_download_and_ctc_directory_refused(dirs, tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         cli_main(["basecaller", "dna_r10.4.1_e8.2_400bps_hac@v5.0.0",
                   str(dirs["reads"]), "--device", "cpu"])
+    # a conv-CTC directory (bonito_tpu's package name) basecalls now
+    from bonito_tpu_torch import checkpoint as tckpt
+    from bonito_tpu_torch.config import save_config
+    from bonito_tpu_torch.ctc.model import Model as CTCModel
+    from bonito_tpu_torch.models import conv_ctc_config
     ctc = tmp_path / "ctc"
     ctc.mkdir()
-    (ctc / "config.toml").write_text(
-        (dirs["model"] / "config.toml").read_text().replace(
-            "bonito_tpu.crf", "bonito_tpu.ctc"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli_main(["basecaller", str(ctc), str(dirs["reads"]), "--device",
-                  "cpu"])
+    cfg = conv_ctc_config(batchsize=4, chunksize=600, overlap=120)
+    cfg["model"]["package"] = "bonito_tpu.ctc"
+    cfg["block"] = [dict(b, filters=16, repeat=1) for b in cfg["block"][:3]]
+    save_config(cfg, ctc / "config.toml")
+    tckpt.save_params(ctc / "weights_1.npz", CTCModel(cfg).init(0))
+    out = tmp_path / "out.sam"
+    err = run_cli(port_cli, [str(ctc), str(dirs["reads"]), "--device", "cpu",
+                             "--n-proc", "1"], out)
+    assert "completed reads: 5" in err
+    assert len([line for line in out.read_text().splitlines()
+                if not line.startswith("@")]) == 5
 
 
 def test_no_card_raises_unless_the_cpu_is_asked(dirs, monkeypatch):

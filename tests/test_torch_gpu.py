@@ -2178,3 +2178,98 @@ def test_basecaller_cli_on_the_card_equals_the_cpu(cuda, tmp_path):
                         "A": 0, "B": 0, "C": 0, "D": 0, "M": 0, "Q": 0}
     assert len((tmp_path / "card" / "out_summary.tsv").read_text()
                .splitlines()) == len(reads) + 1
+
+
+# the conv-CTC CLI on the card against --device cpu, both bf16 (cuDNN's
+# convolutions and the CPU's sum in other orders, and a bf16 rounding
+# flips an argmax here and there, so few whole reads call alike: seen 2 of
+# 8): each call's identity to the CPU's (``util.accuracy``, matches over
+# alignment columns) at least CTC_CLI_MIN_IDENTITY percent, their mean at
+# least CTC_CLI_MEAN_IDENTITY (seen on an NVIDIA H100 80GB HBM3, torch
+# 2.11.0+cu128: fastq 98.7 to 100, mean 99.6; SAM 92.3 to 100, mean 97.0)
+CTC_CLI_MIN_IDENTITY, CTC_CLI_MEAN_IDENTITY = 90.0, 95.0
+
+
+def test_ctc_basecaller_cli_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """A narrow conv-CTC model (every block kind, the full kernel sizes;
+    BatchNorm statistics of a random batch, so that the calls depend on
+    the signal) in bf16 as the CLI loads it, a pod5 directory of two
+    files: fastq (the greedy decode with qualities) and SAM (the beam,
+    qstring '*') on the card hold the records of ``--device cpu``: the
+    same reads, each call within CTC_CLI_MIN_IDENTITY percent identity of
+    the CPU's and CTC_CLI_MEAN_IDENTITY on the mean; no hand kernel
+    launched."""
+    from uuid import UUID
+    from bonito_tpu_torch import checkpoint, config, nn, pod5
+    from bonito_tpu_torch.ctc.model import Model as CTCModel
+    from bonito_tpu_torch.models import conv_ctc_config
+    from bonito_tpu_torch.util import accuracy
+    cfg = conv_ctc_config(batchsize=8, chunksize=1200, overlap=120)
+    for b in cfg["block"]:
+        b["filters"] = max(16, b["filters"] // 16)
+        b["repeat"] = min(b["repeat"], 2)
+    model = CTCModel(cfg).init(3)
+    norms = [m for m in model.modules() if isinstance(m, nn.BatchNorm)]
+    for bn in norms:
+        bn.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(torch.from_numpy(np.random.default_rng(4).normal(
+            size=(8, 1200, 1)).astype(np.float32)))
+    model.eval()
+    for bn in norms:
+        bn.apply_pending()
+        bn.momentum = 0.1
+    (tmp_path / "model").mkdir()
+    config.save_config(cfg, tmp_path / "model" / "config.toml")
+    checkpoint.save_params(tmp_path / "model" / "weights_1.npz", model)
+    rng = np.random.default_rng(3)
+    lengths = [3000, 7000, 1100, 9000, 500, 4000, 6100, 2500]
+    reads = [{"read_id": str(UUID(int=i + 1)),
+              "signal": np.rint(rng.normal(size=n) * 60 + 500).astype(
+                  np.int16),
+              "calibration_scale": 0.2} for i, n in enumerate(lengths)]
+    (tmp_path / "reads").mkdir()
+    pod5.write_pod5(tmp_path / "reads" / "a.pod5", reads[:4])
+    pod5.write_pod5(tmp_path / "reads" / "b.pod5", reads[4:], compress=False)
+    argv = [str(tmp_path / "model"), str(tmp_path / "reads"), "--n-proc", "2"]
+    counters = {k: fn for k, fn in (
+        ("A", lstm_cuda.lstm_recurrence), ("B", decode_cuda.tcn_forward),
+        ("C", decode_cuda.tcn_backward), ("D", lstm_int8_cuda.lstm_int8_fused),
+        ("F", lstm_fused_cuda.lstm_fused),
+        ("G", decode_fused_cuda.tcn_fused_forward),
+        ("J", decode_fused_cuda.tcn_fused_backward),
+        ("K", attention_cuda.fused_rotary_window_attention),
+        ("M", decode_full_cuda.full_forward),
+        ("Q", decode_full_cuda.full_backward),
+        ("U", logz_cuda.tcn_forward), ("Y", lattice_cuda.lattice_forward))}
+    before = {k: fn.launches for k, fn in counters.items()}
+    for ext in ("fastq", "sam"):
+        calls = {}
+        for where in ("card", "cpu"):
+            out = tmp_path / f"{where}_{ext}" / f"out.{ext}"
+            out.parent.mkdir()
+            _cli_to(out, argv + (["--device", "cpu"] if where == "cpu"
+                                 else []))
+            lines = out.read_text().splitlines()
+            if ext == "fastq":
+                calls[where] = {lines[i].split()[0]: (lines[i + 1],
+                                                      lines[i + 3])
+                                for i in range(0, len(lines), 4)}
+            else:
+                rows = [r.split("\t") for r in lines if r[0] != "@"]
+                assert all(r[10] == "*" for r in rows)
+                calls[where] = {r[0]: (r[9], r[10]) for r in rows}
+        card, cpu = calls["card"], calls["cpu"]
+        assert card.keys() == cpu.keys() and len(card) == len(reads)
+        alike = sum(card[k][0] == cpu[k][0] for k in card)
+        identity = [accuracy(cpu[k][0], card[k][0]) for k in sorted(card)]
+        print(f"conv-CTC {ext}: card vs cpu, {alike} of {len(card)} calls "
+              f"identical; identity {[round(a, 3) for a in identity]}, mean "
+              f"{np.mean(identity):.4f}; lengths "
+              f"{[len(card[k][0]) for k in sorted(card)]} vs "
+              f"{[len(cpu[k][0]) for k in sorted(card)]}")
+        assert min(identity) >= CTC_CLI_MIN_IDENTITY
+        assert np.mean(identity) >= CTC_CLI_MEAN_IDENTITY
+    assert {k: fn.launches - before[k] for k, fn in counters.items()} == {
+        k: 0 for k in counters}

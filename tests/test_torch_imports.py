@@ -80,6 +80,9 @@ def test_importing_the_port_loads_no_jax():
             "bonito_tpu_torch.pod5", "bonito_tpu_torch.fast5",
             "bonito_tpu_torch.reader", "bonito_tpu_torch.signal",
             "bonito_tpu_torch.bam", "bonito_tpu_torch.aligner",
+            "bonito_tpu_torch.ctc.model", "bonito_tpu_torch.ctc.basecall",
+            "bonito_tpu_torch.ops.ctc_decode",
+            "bonito_tpu_torch.cli.evaluate", "bonito_tpu_torch.cli.view",
             "bonito_tpu_torch.__main__"} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "from bonito_tpu_torch.ops import build; "
@@ -142,13 +145,16 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name,source", [("vbz", "vbz/vbz.cpp"),
-                                         ("mapper", "mapper/mapper.cpp")])
+                                         ("mapper", "mapper/mapper.cpp"),
+                                         ("ctcbeam", "ctc/ctcbeam.cpp")])
 def test_failed_reader_and_mapper_build_raises(monkeypatch, tmp_path, name,
                                                source):
-    """The basecaller's svb16 codec and mapper build at first use too; a
-    source that does not compile raises, and so do the reader's VBZ and
-    the aligner that load them."""
+    """The basecaller's svb16 codec, mapper and conv-CTC beam build at
+    first use too; a source that does not compile raises, and so do the
+    reader's VBZ, the aligner and the beam decode that load them (the beam
+    has no Python fallback)."""
     from bonito_tpu_torch import aligner, native, pod5
+    from bonito_tpu_torch.ops import ctc_decode
     (tmp_path / source).parent.mkdir()
     (tmp_path / source).write_text("not C++\n")
     monkeypatch.setattr(native, "NATIVE", tmp_path)
@@ -159,6 +165,9 @@ def test_failed_reader_and_mapper_build_raises(monkeypatch, tmp_path, name,
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         if name == "vbz":
             pod5.vbz_compress(np.zeros(4, np.int16))
+        elif name == "ctcbeam":
+            ctc_decode.beam_search_ctc(np.full((6, 5), 0.2, np.float32),
+                                       "NACGT")
         else:
             (tmp_path / "ref.fasta").write_text(">c\nACGT\n")
             aligner.Aligner(str(tmp_path / "ref.fasta"))

@@ -370,7 +370,7 @@ def test_train_cli_on_the_cpu(tmp_path):
         cli_main(["train", str(tmp_path / "w3"), "--directory",
                   str(tmp_path / "data"), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 11"):
-        cli_main(["evaluate", "model", "reads"])
+        cli_main(["duplex", "model", "reads"])
 
 
 # ---------------------------------------------------------------------------
