@@ -1,8 +1,8 @@
 """
 Command line of the port: ``python -m bonito_tpu_torch <subcommand>``,
-with bonito_tpu's subcommands. ``basecaller``, ``train``, ``evaluate``
-and ``view`` are ported; each other one raises, naming the ROADMAP item
-that ports it.
+with bonito_tpu's subcommands. ``basecaller``, ``train``, ``evaluate``,
+``view``, ``download`` and ``export`` are ported; ``duplex`` raises,
+naming the ROADMAP item that ports it.
 """
 
 import sys
@@ -11,9 +11,6 @@ from importlib import import_module
 
 # subcommand -> the ROADMAP item (Queue 1) that ports it
 WAITING = {
-    "download": "Queue 1 item 11 (other CLI tools)",
-    "export": "Queue 1 item 11 (other CLI tools; it needs "
-              "export_state_dict, item 8)",
     "duplex": "Queue 1 item 11 (other CLI tools)",
 }
 
@@ -32,7 +29,8 @@ def main(argv=None):
                         version="%(prog)s " + __version__)
     subparsers = parser.add_subparsers(title="subcommands", dest="command",
                                        required=True)
-    for name in ("basecaller", "train", "evaluate", "view"):
+    for name in ("basecaller", "train", "evaluate", "view", "download",
+                 "export"):
         module = import_module(f"bonito_tpu_torch.cli.{name}")
         sub = subparsers.add_parser(name, parents=[module.argparser()])
         sub.set_defaults(func=module.main)

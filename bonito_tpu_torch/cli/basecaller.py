@@ -10,14 +10,14 @@ Every model family runs: LSTM-CRF, transformer-CRF and conv-CTC (whose
 fastq output takes the greedy decode with qualities; its SAM and BAM the
 beam's sequence, qstring "*" and no moves, as bonito_tpu's).
 
+A published model name (``cli.download.models``) with no directory on
+disk is downloaded into ``util.__models_dir__`` first, as bonito_tpu's.
 Refused before the model loads, each naming its ROADMAP item:
-``--distributed``, CRAM output and a model name that would have to be
-downloaded.
+``--distributed`` and CRAM output.
 """
 
 import inspect
 import os
-import re
 import sys
 import time
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
@@ -26,29 +26,20 @@ from itertools import islice
 
 import numpy as np
 
-from bonito_tpu_torch import resolve_device
+from bonito_tpu_torch import resolve_device, util
+from bonito_tpu_torch.cli.download import Downloader, models
 from bonito_tpu_torch.io import CTCWriter, NullWriter, Writer, biofmt
 from bonito_tpu_torch.pipeline import process_cancel
 from bonito_tpu_torch.reader import Reader, read_chunks
 from bonito_tpu_torch.util import (column_to_set, init, load_model,
-                                   load_symbol, model_directory)
-
-# the names of the published models (bonito_tpu/cli/download.py's list)
-PUBLISHED = re.compile(r"^(dna|rna)\d*_[\w.]+@v[\d.]+$")
-
+                                   load_symbol)
 
 def refuse_what_waits(args, fmt):
-    """The options and models the port does not run yet raise here,
-    naming the ROADMAP (Queue 1) item that ports them."""
+    """The options the port does not run yet raise here, naming the ROADMAP (Queue 1) item that ports them."""
     if fmt.name == "cram":
         raise NotImplementedError(
             "CRAM output is not ported yet: ROADMAP Queue 1 item 14; "
             "redirect to .bam, .sam or .fastq")
-    model_dir = model_directory(args.model_directory)
-    if not model_dir.exists() and PUBLISHED.match(args.model_directory):
-        raise NotImplementedError(
-            f"{args.model_directory}: downloading a model is not ported yet: "
-            f"ROADMAP Queue 1 item 11; pass a model directory")
 
 
 def main(args):
@@ -80,6 +71,11 @@ def main(args):
     else:
         sys.stderr.write(f"> outputting {fmt.aligned} {fmt.name}\n")
 
+    if (args.model_directory in models
+            and not (util.__models_dir__ / args.model_directory).exists()):
+        sys.stderr.write("> downloading model\n")
+        Downloader(util.__models_dir__).download(args.model_directory)
+
     sys.stderr.write(f"> loading model {args.model_directory}\n")
     if args.weights in (None, "", 0, "0"):
         weights = None  # 0 or unset: the latest
@@ -97,6 +93,9 @@ def main(args):
             quantize=args.quantize, fuse_bn=True, device=device)
     except FileNotFoundError:
         sys.stderr.write(f"> error: failed to load {args.model_directory}\n")
+        sys.stderr.write("> available models:\n")
+        for name in sorted(models):
+            sys.stderr.write(f" - {name}\n")
         sys.exit(1)
     if args.verbose:
         sys.stderr.write(f"> model basecaller params: "

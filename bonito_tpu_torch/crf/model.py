@@ -28,6 +28,33 @@ HeadSplit = namedtuple(
     ["h", "wT", "bias", "act_tanh", "scale", "cmin", "cmax", "blank"])
 
 
+def rnn_encoder(n_base, state_len, insize=1, first_conv_size=4, stride=5,
+                winlen=19, activation="swish", rnn_type="lstm", features=768,
+                scale=5.0, blank_score=None, expand_blanks=True, num_layers=5,
+                norm=None):
+    """The encoder of an old-style parametric ``[encoder]`` config
+    (bonito_tpu's ``rnn_encoder``): three convolutions, ``num_layers``
+    recurrent layers of alternating direction (the last one forward) and
+    a tanh CRF head scaled by ``scale``."""
+    rnn = nn.layers[rnn_type]
+
+    def conv(c_in, c_out, ks, stride=1):
+        return nn.Convolution(c_in, c_out, ks, stride=stride, padding=ks // 2,
+                              bias=True, activation=activation, norm=norm)
+
+    return nn.Serial([
+        conv(insize, first_conv_size, ks=5),
+        conv(first_conv_size, 16, ks=5),
+        conv(16, features, ks=winlen, stride=stride),
+        nn.Permute([2, 0, 1]),
+        *(rnn(features, features, reverse=(num_layers - i) % 2)
+          for i in range(num_layers)),
+        nn.LinearCRFEncoder(
+            features, n_base, state_len, activation="tanh", scale=scale,
+            blank_score=blank_score, expand_blanks=expand_blanks),
+    ])
+
+
 @nn.register
 class SeqdistModel(torch.nn.Module):
     """Encoder + CTC_CRF seqdist. Registered as ``seqdistmodel`` so that a
@@ -311,11 +338,14 @@ class Model(SeqdistModel):
             state_len=config["global_norm"]["state_len"],
             alphabet=config["labels"]["labels"],
         )
-        if "type" not in config["encoder"]:
-            raise NotImplementedError(
-                "old-style parametric encoder configs are not ported yet")
+        if "type" in config["encoder"]:
+            encoder = nn.from_dict(config["encoder"])
+        else:
+            encoder = rnn_encoder(seqdist.n_base, seqdist.state_len,
+                                  insize=config["input"]["features"],
+                                  **config["encoder"])
         super().__init__(
-            nn.from_dict(config["encoder"]), seqdist,
+            encoder, seqdist,
             n_pre_post_context_bases=config["input"].get(
                 "n_pre_post_context_bases"))
         self.config = config

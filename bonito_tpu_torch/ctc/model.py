@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from bonito_tpu_torch import nn
+from bonito_tpu_torch.checkpoint import same
 from bonito_tpu_torch.ops.ctc_decode import beam_search_ctc, greedy_ctc
 
 LOG_EPSILON = -1e5  # optax.ctc_loss's stand-in for log(0)
@@ -148,6 +149,40 @@ class Block(nn.Layer):
             getattr(self, f"conv{i}").init_(rng)
         if self.residual:
             self.res_conv.init_(rng)
+
+    def torch_param_map(self, path):
+        """Upstream's keys of this block -> the port's: upstream's
+        ``Block.conv`` interleaves TCSConv, BatchNorm, activation and
+        dropout, so the k-th conv sits at index 4k and its BatchNorm at
+        4k + 1, the residual at ``residual.0`` / ``.1``, all under one
+        more ``.encoder``. Upstream's conv weights are the port's layout."""
+        root, idx = path.split(".", 1)
+        tp = f"{root}.encoder.{idx}"
+        out = []
+
+        def conv_entries(tprefix, oprefix, conv):
+            if conv.separable:
+                out.append((f"{tprefix}.depthwise.weight",
+                            f"{oprefix}.w_depth", same))
+                out.append((f"{tprefix}.pointwise.weight",
+                            f"{oprefix}.w_point", same))
+            else:
+                out.append((f"{tprefix}.conv.weight", f"{oprefix}.w", same))
+
+        def bn_entries(tprefix, oprefix):
+            for t, o in (("weight", "scale"), ("bias", "bias"),
+                         ("running_mean", "mean"), ("running_var", "var")):
+                out.append((f"{tprefix}.{t}", f"{oprefix}.{o}", same))
+
+        for k in range(self.repeat):
+            conv_entries(f"{tp}.conv.{4 * k}", f"{path}.conv{k}",
+                         getattr(self, f"conv{k}"))
+            bn_entries(f"{tp}.conv.{4 * k + 1}", f"{path}.bn{k}")
+        if self.residual:
+            conv_entries(f"{tp}.residual.0", f"{path}.res_conv",
+                         self.res_conv)
+            bn_entries(f"{tp}.residual.1", f"{path}.res_bn")
+        return out
 
 
 def decode_scores(x, alphabet, qscale=1.0, qbias=0.0, beamsize=5,
@@ -287,6 +322,14 @@ class Model(torch.nn.Module):
     @property
     def device(self):
         return next(self.parameters()).device
+
+    @staticmethod
+    def rewrite_torch_keys(key):
+        """Upstream's decoder is ``Decoder.layers`` (a Sequential), not a
+        bare Convolution."""
+        if key.startswith("decoder.0.conv."):
+            return key.replace("decoder.0.conv.", "decoder.layers.0.")
+        return key
 
     def init(self, seed=0):
         """Random weights from ``seed`` (numpy draws: the same model on

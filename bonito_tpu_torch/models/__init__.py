@@ -2,7 +2,8 @@
 Model zoo: the LSTM-CRF family (fast/hac), the transformer-CRF family
 (sup) and the conv-CTC family (r9.4.1 fast) as bonito-style config dicts,
 schema-compatible with bonito_tpu's config functions and upstream bonito's
-``dna_r10.4.1@v4.x``, ``@v5.0`` and ``dna_r9.4.1@v2`` configs. The packages
+``dna_r10.4.1@v4.x``, ``@v5.0``, ``dna_r9.4.1@v2`` and (``rnn_crf_config``)
+the old-style ``dna_r9.4.1@v3.x`` configs. The packages
 are named ``bonito.crf``, ``bonito.transformer`` and ``bonito.ctc``, the
 upstream names that both bonito_tpu and this port map onto their own
 families, so a directory written here loads in either package.
@@ -157,6 +158,28 @@ def conv_ctc_config(batchsize=512, chunksize=4000, overlap=500):
     }
 
 
+def rnn_crf_config(features=768, state_len=5, stride=5, winlen=19,
+                   scale=5.0, blank_score=2.0, activation="swish",
+                   rnn_type="lstm", batchsize=96, chunksize=9996,
+                   overlap=500, quantize=True):
+    """An old-style LSTM-CRF config (the schema of upstream's r9.4.1 v3
+    configs, ``dna_r9.4.1@v3.1.toml``): ``[encoder]`` holds the keyword
+    arguments of ``crf.model.rnn_encoder`` instead of a layer tree. The
+    widths are ``rnn_encoder``'s defaults (5 LSTM layers of 768); no
+    ``scaling``, so reads are scaled by their quantiles."""
+    return {
+        "model": {"package": "bonito.crf"},
+        "labels": {"labels": ["N", "A", "C", "G", "T"]},
+        "input": {"features": 1},
+        "global_norm": {"state_len": state_len},
+        "encoder": {"stride": stride, "winlen": winlen, "scale": scale,
+                    "features": features, "rnn_type": rnn_type,
+                    "activation": activation, "blank_score": blank_score},
+        "basecaller": {"batchsize": batchsize, "chunksize": chunksize,
+                       "overlap": overlap, "quantize": quantize},
+    }
+
+
 # name -> config function (bonito_tpu.models.MODELS)
 MODELS = {
     "dna_r10.4.1_e8.2_400bps_fast@v4.3": lambda: lstm_crf_config(
@@ -175,9 +198,9 @@ MODELS = {
 
 
 def get_config(name):
-    """The config dict of a ``MODELS`` entry; an unknown name raises (the
-    old-style configs, such as the train CLI's default ``dna_r9.4.1@v3.1``,
-    wait for ROADMAP Queue 1 item 8)."""
+    """The config dict of a ``MODELS`` entry; an unknown name raises, as
+    in bonito_tpu (whose table has no entry for the train CLI's default
+    ``dna_r9.4.1@v3.1`` either: pass ``--config`` a file)."""
     try:
         return MODELS[name]()
     except KeyError:

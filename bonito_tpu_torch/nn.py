@@ -22,9 +22,11 @@ bonito_tpu's (and upstream bonito's) ``config.toml`` files name.
 - ``Stack`` (a layer spec repeated ``depth`` times) and ``NamedSerial``
   (children named by their config keys) build the transformer family's
   encoder; ``from_dict`` defers to a type's own ``from_dict`` where it has
-  one. Reverse waits for the slice that runs it; the conv-CTC family's
-  blocks are built from its config's ``[[block]]`` list (``ctc/model.py``),
-  not through the registry.
+  one. The conv-CTC family's blocks are built from its config's
+  ``[[block]]`` list (``ctc/model.py``), not through the registry.
+- ``GELU`` is bonito_tpu's, ``jax.nn.gelu``'s default: the tanh
+  approximation, not upstream bonito's exact erf form (ROADMAP, known
+  limits).
 """
 
 import math
@@ -59,9 +61,8 @@ def from_dict(model_dict, layer_types=None):
     type_name = model_dict.pop("type")
     if type_name not in layer_types:
         raise NotImplementedError(
-            f"layer type {type_name!r} is not ported to bonito_tpu_torch yet "
-            f"(reverse waits for its slice; the transformer layers register "
-            f"when bonito_tpu_torch.transformer is imported)")
+            f"unknown layer type {type_name!r} (the transformer layers "
+            f"register when bonito_tpu_torch.transformer is imported)")
     typ = layer_types[type_name]
     if hasattr(typ, "from_dict"):
         return typ.from_dict(model_dict, layer_types)
@@ -115,6 +116,12 @@ def _orthogonal(rng, rows, cols):
 # ---------------------------------------------------------------------------
 
 @register
+class ReLU(Layer):
+    def forward(self, x):
+        return F.relu(x)
+
+
+@register
 class Tanh(Layer):
     def forward(self, x):
         return torch.tanh(x)
@@ -124,6 +131,14 @@ class Tanh(Layer):
 class Swish(Layer):
     def forward(self, x):
         return F.silu(x)
+
+
+@register
+class GELU(Layer):
+    """The tanh approximation, as bonito_tpu's ``jax.nn.gelu``."""
+
+    def forward(self, x):
+        return F.gelu(x, approximate="tanh")
 
 
 def make_activation(activation):
@@ -247,6 +262,34 @@ class MakeContiguous(Layer):
 
 
 @register
+class Reverse(Layer):
+    """Runs its sublayers on the time-reversed sequence and flips the
+    result back. The sublayers sit under ``layer`` (a Serial for a list),
+    so parameter paths match bonito_tpu's tree (``encoder.4.layer.0.w``)."""
+
+    def __init__(self, sublayers):
+        super().__init__()
+        self.layer = (Serial(sublayers) if isinstance(sublayers, list)
+                      else sublayers)
+
+    def forward(self, x):
+        return self.layer(x.flip(1)).flip(1)
+
+    def to_dict(self):
+        if isinstance(self.layer, Serial):
+            return self.layer.to_dict()
+        # a single wrapped layer nests its typed dict, so that from_dict
+        # builds it again
+        return {"sublayers": to_dict(self.layer)}
+
+    def output_stride(self, stride):
+        return self.layer.output_stride(stride)
+
+    def init_(self, rng):
+        self.layer.init_(rng)
+
+
+@register
 class Clamp(Layer):
     def __init__(self, min, max):
         super().__init__()
@@ -262,6 +305,37 @@ class Clamp(Layer):
 # ---------------------------------------------------------------------------
 # parametric layers
 # ---------------------------------------------------------------------------
+
+@register
+class Linear(Layer):
+    """x @ w (+ b): ``w`` [in, out], as in bonito_tpu."""
+
+    def __init__(self, in_features, out_features, bias=True):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.w = torch.nn.Parameter(torch.zeros(in_features, out_features))
+        self.b = (torch.nn.Parameter(torch.zeros(out_features)) if bias
+                  else None)
+
+    @property
+    def bias(self):
+        return self.b is not None
+
+    def forward(self, x):
+        y = torch.matmul(x, self.w.to(x.dtype))
+        if self.b is not None:
+            y = y + self.b.to(x.dtype)
+        return y
+
+    def to_dict(self):
+        return {"in_features": self.in_features,
+                "out_features": self.out_features, "bias": self.bias}
+
+    def init_(self, rng):
+        _fill(self.w, rng.normal(size=self.w.shape)
+              / math.sqrt(self.in_features))
+
 
 @register
 class BatchNorm(Layer):

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from bonito_tpu_torch import nn
+from bonito_tpu_torch.checkpoint import same, transpose
 from bonito_tpu_torch.crf.model import SeqdistModel  # registers "seqdistmodel"
 from bonito_tpu_torch.ops.attention import attend, fused_attention_train
 from bonito_tpu_torch.ops.attention_cuda import (
@@ -228,6 +229,22 @@ class TransformerEncoderLayer(nn.Layer):
 
     def to_dict(self):
         return dict(self.kwargs)
+
+    def torch_param_map(self, path):
+        """Upstream's keys of this layer (its flash-attn module names) ->
+        the port's, for ``checkpoint.import_torch_checkpoint``."""
+        return [
+            (f"{path}.self_attn.Wqkv.weight", f"{path}.self_attn.wqkv",
+             transpose),
+            (f"{path}.self_attn.out_proj.weight", f"{path}.self_attn.out_w",
+             transpose),
+            (f"{path}.self_attn.out_proj.bias", f"{path}.self_attn.out_b",
+             same),
+            (f"{path}.ff.fc1.weight", f"{path}.ff.fc1", transpose),
+            (f"{path}.ff.fc2.weight", f"{path}.ff.fc2", transpose),
+            (f"{path}.norm1.weight", f"{path}.norm1.scale", same),
+            (f"{path}.norm2.weight", f"{path}.norm2.scale", same),
+        ]
 
     def init_(self, rng):
         """DeepNorm's beta-scaled xavier draws, as bonito_tpu's

@@ -22,6 +22,7 @@ import numpy as np
 
 __dir__ = Path(__file__).parent
 __models_dir__ = __dir__ / "models"
+__data_dir__ = __dir__ / "data"
 
 _CIGAR_RE = re.compile(r"(\d+)([MIDNSHP=X])")
 
@@ -228,16 +229,9 @@ def model_directory(dirname):
     return p
 
 
-def _tar_not_ported(path):
-    return NotImplementedError(
-        f"{path}: upstream weights_N.tar checkpoints are not read by the "
-        f"port yet; convert it with bonito_tpu or keep a weights_N.npz")
-
-
 def get_last_checkpoint(dirname):
     """Latest weights_{N}.npz or .tar in a model directory, as bonito_tpu's
-    (the .tar wins a tie of N). The port reads .npz only: a latest .tar
-    raises rather than an older .npz being loaded in its place."""
+    (the .tar wins a tie of N)."""
     found = []
     for pattern in ("weights_*.npz", "weights_*.tar"):
         for path in _glob.glob(os.path.join(str(dirname), pattern)):
@@ -246,10 +240,7 @@ def get_last_checkpoint(dirname):
                 found.append((int(m.group(1)), path))
     if not found:
         raise FileNotFoundError(f"no model weights found in '{dirname}'")
-    path = max(found)[1]
-    if path.endswith(".tar"):
-        raise _tar_not_ported(path)
-    return path
+    return max(found)[1]
 
 
 def set_config_defaults(config, chunksize=None, batchsize=None, overlap=None,
@@ -282,11 +273,13 @@ def load_model(dirname, weights=None, half=True, chunksize=None,
     if weights is None:
         weights_path = get_last_checkpoint(dirname)
     else:
-        weights_path = dirname / f"weights_{weights}.npz"
-        if not weights_path.exists():
-            if weights_path.with_suffix(".tar").exists():
-                raise _tar_not_ported(weights_path.with_suffix(".tar"))
-            raise FileNotFoundError(f"{weights_path} not found")
+        for ext in ("npz", "tar"):
+            weights_path = dirname / f"weights_{weights}.{ext}"
+            if weights_path.exists():
+                break
+        else:
+            raise FileNotFoundError(
+                f"weights_{weights}.* not found in {dirname}")
 
     config = load_config(dirname / "config.toml")
     config = set_config_defaults(config, chunksize, batchsize, overlap, quantize)
@@ -297,7 +290,7 @@ def load_model(dirname, weights=None, half=True, chunksize=None,
 def _load_model(weights_path, config, half=True, fuse_bn=False, device=None,
                 route=None, attn_route=None):
     from bonito_tpu_torch import nn, resolve_device
-    from bonito_tpu_torch.checkpoint import load_params, params_from_jax
+    from bonito_tpu_torch.checkpoint import load_weights
 
     device = resolve_device(device)
     Model = load_symbol(config, "Model")
@@ -307,7 +300,8 @@ def _load_model(weights_path, config, half=True, fuse_bn=False, device=None,
     config["basecaller"]["chunksize"] -= config["basecaller"]["chunksize"] % stride
     config["basecaller"]["overlap"] -= config["basecaller"]["overlap"] % (stride * 2)
 
-    params_from_jax(model, load_params(weights_path))
+    # the float weights first: fuse_bn, the cast and quantize all follow
+    load_weights(weights_path, model)
     if fuse_bn:
         # fold in f64/f32 before any bf16 cast; a Convolution's own norm
         # only (the conv-CTC blocks keep their BatchNorms, as in bonito_tpu)

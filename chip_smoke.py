@@ -222,6 +222,29 @@ PyTorch built for CUDA. In order, it:
     ``decode_batch``'s in this process, and its refusal (item 13) of an f32
     hac directory; one f32 batch on the card against the CPU with TF32 on
     and off; ``view``'s parameter count.
+14. runs upstream bonito's model directories (a ``config.toml`` with
+    ``bonito.*`` package names and ``weights_1.tar``): hac, sup and conv-CTC
+    at full width with phase 4's and 13's weights, written by ``python -m
+    bonito_tpu_torch export --format torch``, each LSTM given a nonzero
+    ``bias_hh_l0`` and every key a ``module.`` prefix, beside a ``.npz``
+    directory of the same weights; prints each ``.tar``'s import time on
+    the host; one device-step batch of each form as the basecaller loads
+    it (hac 96 x 9996 quantised: D, the int8 head, B, C; sup 128 x 12000:
+    P, 18 x K, B, C; conv-CTC 512 x 3999) equal bit for bit, with their
+    launch counts; ``basecaller`` on the hac ``.tar`` directory to BAM
+    (phase 12's 64 pod5 reads) record for record as on the ``.npz``
+    directory, with the CLI's samples/s; the old-style parametric
+    ``[encoder]`` (``models.rnn_crf_config()``: 5 LSTM layers of 768, S
+    1024, stride 5) as a ``.tar`` directory at 96 x 9996 with
+    ``quantize`` false (A) and true (D): launch counts (5 + 1 + 1), the step
+    in turns, samples/s, peak memory, device time by kernel, one batch
+    through the kernels against their plain versions (HAC_* limits for A,
+    the int8 path's for D), and A and D alone at H 768 against their plain
+    versions (D's persistent launch its step kernel's bits) with their
+    times and bounds; ``download --models --select`` from a ``file://``
+    zip of the hac ``.tar`` directory (its ``.npz`` the import); ``export
+    --format dorado`` of it, each ``.tensor`` read back with
+    ``torch.jit.load`` equal to the BatchNorm-fused state.
 
 Then it prints one ``kernels`` JSON line with all twenty-six kernels (F's,
 G's and J's with their plans, their earlier kernels' times and the fast
@@ -231,7 +254,9 @@ and difference, and the device steps on both; M's and Q's likewise, with
 the reverse paths' device steps and the parent's; U's, V's, X's, Y's and
 Z's with their plan, their earlier kernels' times at hac, fast and sup
 training shapes, and the loss paths and train steps on both; every
-kernel's ``by_path`` with phase 13's conv-CTC paths, all 0).
+kernel's ``by_path`` with phase 13's conv-CTC paths, all 0, and phase
+14's paths; A's and D's ``h768`` with their times at H 768), after a line
+with the whole script's time.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -3309,7 +3334,8 @@ def cli_phase(torch, counters, dirs, steps, card):
             f"{step_rate:.6g} samples/s; {r['batches']} batches")
         for line in r["stages"]:
             log(f"    {line}")
-    return {name: {k: r[k] for k in ("wall", "rate", "launches", "batches")}
+    return {name: {k: r[k] for k in ("wall", "rate", "launches", "batches",
+                                     "reads_dir")}
             | {"samples": samples[name], "reads": len(r["ids"]),
                "stages": r["stages"]} for name, r in results.items()} | {
         "reader_startup_s": startup, "libzstd": zstd}
@@ -3822,7 +3848,459 @@ def ctc_phase(torch, counters, dev, dirs, card):
             "loss_vs_f64": {"ctc_loss": (lib, g_lib),
                             "ctc_loss_f32": (lib32, g_lib32),
                             "plain_f32": (f32, g_f32)}, "loss_ms": ms,
-            "tf32": tf32, "f32_vs_cpu": diffs, "view_count": count}
+            "tf32": tf32, "f32_vs_cpu": diffs, "view_count": count,
+            "model_dir": model_dir}
+
+
+# phase 14: upstream bonito's model directories, as it publishes them (a
+# config.toml with bonito.* package names and weights_1.tar, a torch state
+# dict under upstream's module names): hac, sup and conv-CTC at full width
+# from phase 4's and 13's weights, written by `export --format torch`, each
+# LSTM then given a nonzero bias_hh_l0 and every key a `module.` prefix, as
+# upstream's trainer leaves them; beside each the same weights as a .npz
+# directory (each LSTM's b the sum of its two biases). The old-style
+# parametric [encoder] (upstream's r9.4.1 v3 schema) at rnn_encoder's
+# defaults: 5 LSTM layers of 768, stride 5, S 1024; its chunk of 9996
+# samples rounds to 9995 at the stride (1999 frames)
+UPSTREAM_NAME = "dna_r10.4.1_e8.2_400bps_hac@v4.3.0"  # a published name
+# each family's device-step batch (batch x chunk) and its launches
+UPSTREAM_STEPS = {"hac": ((96, 9996), {"D": 5, "B": 1, "C": 1}),
+                  "sup": ((128, 12000), {"P": 1, "K": 18, "B": 1, "C": 1}),
+                  "ctc": ((512, 3999), {})}
+OLD_TURNS, OLD_REPS = 3, 3
+OLD_N, OLD_CHUNK, OLD_H = 96, 9995, 768
+
+
+def upstream_phase(torch, counters, dev, dirs, cli_reads, card):
+    """Phase 14: upstream-form directories on the card: the .tar directory
+    against the .npz directory of the same weights (one device-step batch of
+    hac, sup and conv-CTC, bit for bit; the basecaller CLI on hac to BAM,
+    record for record), the old-style model at full width at both quantize
+    values (its step, A and D at H 768 against their plain versions),
+    ``download`` from a ``file://`` zip and ``export --format dorado``."""
+    import zipfile
+
+    from bonito_tpu_torch import checkpoint, nn, profiling
+    from bonito_tpu_torch.cli import download
+    from bonito_tpu_torch.cli import main as cli_main
+    from bonito_tpu_torch.cli.export import torch_state_dict
+    from bonito_tpu_torch.config import load_config, save_config
+    from bonito_tpu_torch.crf.basecall import make_compute_fn
+    from bonito_tpu_torch.crf.model import Model
+    from bonito_tpu_torch.ctc import basecall as ctc_basecall
+    from bonito_tpu_torch.models import rnn_crf_config
+    from bonito_tpu_torch.ops import decode as ops_decode
+    from bonito_tpu_torch.ops import int8, lstm_cuda, lstm_int8_cuda
+    from bonito_tpu_torch.ops import lstm as ops_lstm
+    from bonito_tpu_torch.util import load_model, load_symbol
+
+    log("[14] upstream bonito's model directories (config.toml with bonito.* "
+        "packages, weights_1.tar) on the card")
+    t_phase = time.perf_counter()
+    root = Path(dirs["int8"]).parent / "chip_smoke_upstream"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 14)
+    launches = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        if name is not None:
+            launches[name] = {k: c.launches for k, c in counters.items()}
+        return out
+
+    def require_launches(name, want):
+        full = {k: 0 for k in counters} | want
+        require(launches[name] == full,
+                f"{name}: launches {launches[name]}, expected {full}")
+
+    # (a) the directories, and each .tar's import on the host
+    forms, import_s = {}, {}
+    for name, src in (("hac", dirs["int8"]), ("sup", dirs["sup"]),
+                      ("ctc", dirs["ctc"])):
+        tar_dir, npz_dir = root / f"{name}_tar", root / f"{name}_npz"
+        cli_main(["export", str(src), "--output", str(tar_dir), "--format",
+                  "torch"])
+        # upstream's published configs keep their [basecaller] section,
+        # which export cleans away: the source's config (bonito.* package
+        # names) goes in its place
+        shutil.copy(Path(src) / "config.toml", tar_dir / "config.toml")
+        cfg = load_config(tar_dir / "config.toml")
+        require(cfg["model"]["package"].startswith("bonito."),
+                f"{name}: package {cfg['model']['package']}")
+        tar = tar_dir / "weights_1.tar"
+        state = torch.load(tar, weights_only=True)
+        model = load_model(src, half=False, device="cpu")
+        n_hh = 0
+        for k in state:
+            if k.endswith("bias_hh_l0"):
+                r = (0.1 * rng.standard_normal(state[k].shape)).astype(
+                    np.float32)
+                state[k] = torch.from_numpy(r)
+                lstm = model.get_submodule(k.rsplit(".", 2)[0])
+                with torch.no_grad():
+                    lstm.b.copy_(torch.from_numpy(
+                        state[k.replace("bias_hh", "bias_ih")].numpy() + r))
+                n_hh += 1
+        torch.save({f"module.{k}": v for k, v in state.items()}, tar)
+        require(sorted(os.listdir(tar_dir)) == ["config.toml",
+                                                "weights_1.tar"],
+                f"{name}: the upstream directory holds "
+                f"{sorted(os.listdir(tar_dir))}")
+        npz_dir.mkdir()
+        shutil.copy(tar_dir / "config.toml", npz_dir / "config.toml")
+        checkpoint.save_params(npz_dir / "weights_1.npz", model)
+        t0 = time.perf_counter()
+        imported = checkpoint.import_torch_checkpoint(
+            tar, load_symbol(cfg, "Model")(cfg))
+        import_s[name] = time.perf_counter() - t0
+        want = {k: v.numpy() for k, v in model.state_dict().items()}
+        require(imported.keys() == want.keys() and all(
+            np.array_equal(imported[k], want[k]) for k in want),
+            f"{name}: the .tar's import differs from the model's weights")
+        forms[name] = {"tar": tar_dir, "npz": npz_dir}
+        log(f"  {name}: {tar_dir.name}/ (config.toml, weights_1.tar: "
+            f"{len(state)} tensors, {tar.stat().st_size / 2 ** 20:.1f} MiB, "
+            f"module. prefixes, {n_hh} nonzero bias_hh_l0) beside "
+            f"{npz_dir.name}/; the import of the .tar on the host of "
+            f"{card}: {import_s[name]:.3f} s (torch.load with weights_only, "
+            f"key matching, layouts), equal to the weights")
+        del model, state, imported
+
+    # (b) the same weights, the same bits: one device-step batch each, as
+    # the basecaller loads the model (bf16, fuse_bn, the config's quantize)
+    for name, ((n, length), want) in UPSTREAM_STEPS.items():
+        batch = rng.standard_normal((n, length), dtype=np.float32)
+        outs = {}
+        for form in ("tar", "npz"):
+            model = load_model(forms[name][form], half=True, fuse_bn=True,
+                               quantize=None, device=dev)
+            model.requires_grad_(False)
+            bc = model.config["basecaller"]
+            require((bc["batchsize"], bc["chunksize"]) == (n, length),
+                    f"{name} {form}: geometry {bc}")
+            if name == "ctc":
+                compute = ctc_basecall.make_compute_fn(model, n)
+                outs[form] = counted(f"tar_{name}_step" if form == "tar"
+                                     else None, lambda: compute(batch))
+            else:
+                compute = make_compute_fn(model, n, length)
+                prepared = compute.prepare(batch)
+                outs[form] = counted(
+                    f"tar_{name}_step" if form == "tar" else None,
+                    lambda: compute.fetch(compute.dispatch(prepared)))
+            devices = {p.device.type for p in model.parameters()}
+            require(devices == {dev.type},
+                    f"{name} {form}: tensors on {devices}")
+            del model, compute
+            torch.cuda.empty_cache()
+        require_launches(f"tar_{name}_step", want)
+        a, b = outs["tar"], outs["npz"]
+        same = (np.array_equal(a, b) if name == "ctc" else
+                a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                             for k in a))
+        require(same, f"{name}: the .tar directory's device step differs "
+                f"from the .npz directory's")
+        log(f"  {name}: one device-step batch ({n} x {length}) of the .tar "
+            f"directory equals the .npz directory's bit for bit "
+            f"({'log-probs' if name == 'ctc' else 'sequence, qstring, moves'}"
+            f"); launches {({k: v for k, v in launches[f'tar_{name}_step'].items() if v}) or 'none'}")
+
+    # (c) the basecaller CLI on the hac .tar directory and on the .npz one
+    bams, cli = {}, {}
+    for form in ("tar", "npz"):
+        out = root / f"cli_{form}" / "out.bam"
+        out.parent.mkdir()
+        profiling.report(reset=True)
+        os.environ["BONITO_TPU_PROFILE"] = "1"
+        try:
+            wall, err = counted(
+                "tar_hac_cli" if form == "tar" else None,
+                lambda: run_cli(cli_main, [
+                    "basecaller", str(forms["hac"][form]), str(cli_reads),
+                    "--n-proc", str(CLI_PROCS), "--output-dir",
+                    str(out.parent)], out))
+        finally:
+            del os.environ["BONITO_TPU_PROFILE"]
+        stages = profiling.report(reset=True)
+        rate = re.search(r"samples per second (\S+)", err)
+        require(rate and f"completed reads: {CLI_HAC_READS}" in err,
+                f"CLI on the hac {form} directory: no {CLI_HAC_READS} "
+                f"completed reads")
+        bams[form] = sorted(bam_records(out.read_bytes()),
+                            key=lambda r: r["name"])
+        cli[form] = {"rate": float(rate.group(1)), "wall": wall,
+                     "stages": stages}
+    d, b = launches["tar_hac_cli"]["D"], launches["tar_hac_cli"]["B"]
+    require_launches("tar_hac_cli", {"D": d, "B": b, "C": b})
+    require(b > 0 and d == 5 * b, f"CLI: {d} launches of D for {b} batches")
+    require(len(bams["tar"]) == len(bams["npz"]) == CLI_HAC_READS,
+            "CLI: not one record a read")
+    for x, y in zip(bams["tar"], bams["npz"]):
+        tags_x = {k: v for k, v in x["tags"].items() if k != "RG"}
+        tags_y = {k: v for k, v in y["tags"].items() if k != "RG"}
+        require((x["name"], x["flag"], x["seq"], x["qual"])
+                == (y["name"], y["flag"], y["seq"], y["qual"])
+                and tags_x.keys() == tags_y.keys()
+                and all(np.array_equal(tags_x[k], tags_y[k]) for k in tags_x),
+                f"CLI: {x['name']}'s record differs between the .tar and "
+                f".npz directories")
+    log(f"  basecaller CLI on {card}, hac .tar directory, {CLI_HAC_READS} "
+        f"pod5 reads to BAM: '> samples per second {cli['tar']['rate']:.1E}' "
+        f"over {cli['tar']['wall']:.2f} s wall (the .npz directory: "
+        f"{cli['npz']['rate']:.1E}, {cli['npz']['wall']:.2f} s); every record "
+        f"(sequence, qstring, flag, every tag but RG, which names the "
+        f"directory) equal; {b} batches, launches D {d}, B {b}, C {b}")
+    for line in cli["tar"]["stages"]:
+        log(f"    {line}")
+
+    # (d) the old-style model at full width
+    cfg = rnn_crf_config()
+    require("type" not in cfg["encoder"], "not an old-style [encoder]")
+    old_dir = root / "old_tar"
+    old_dir.mkdir()
+    master = Model(cfg).init(SEED)
+    save_config(cfg, old_dir / "config.toml")
+    torch.save(torch_state_dict(master), old_dir / "weights_1.tar")
+    del master
+    models = {q: load_model(old_dir, half=True, fuse_bn=True, quantize=q,
+                            device=dev) for q in (False, True)}
+    for q, m in models.items():
+        m.requires_grad_(False)
+        lstms = [x for x in m.encoder.modules() if isinstance(x, nn.LSTM)]
+        bc = m.config["basecaller"]
+        require(len(lstms) == 5 and all(x.size == OLD_H for x in lstms)
+                and m.seqdist.n_states == S and m.stride == 5
+                and all(x.quantized == q for x in lstms)
+                and (bc["batchsize"], bc["chunksize"]) == (OLD_N, OLD_CHUNK),
+                f"the old-style model (quantize={q}) did not load as 5 LSTM "
+                f"layers of {OLD_H}, S {S}, stride 5, {OLD_N} x {OLD_CHUNK}")
+    batch = rng.standard_normal((OLD_N, OLD_CHUNK), dtype=np.float32)
+    computes = {q: make_compute_fn(m, OLD_N, OLD_CHUNK)
+                for q, m in models.items()}
+    prepared = {q: c.prepare(batch) for q, c in computes.items()}
+    old = {}
+    for q, key in ((False, "old_style_bf16_step"),
+                   (True, "old_style_int8_step")):
+        c, p = computes[q], prepared[q]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = counted(key, lambda: c.fetch(c.dispatch(p)))
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        require_launches(key, {"D" if q else "A": 5, "B": 1, "C": 1})
+        plan = (lstm_int8_cuda.lstm_int8_fused if q
+                else lstm_cuda.lstm_recurrence).plan
+        require(plan is not None, f"{key}: the LSTM kernel took no "
+                f"persistent plan at H {OLD_H}")
+        mv = out["moves"]
+        old[q] = {"peak": peak, "plan": plan, "ms": [],
+                  "emit": float(mv.mean()),
+                  "letters": sorted(set(np.unique(out["sequence"][mv > 0])
+                                        .tolist()))}
+    for t in range(OLD_TURNS):
+        for q in ((False, True) if t % 2 == 0 else (True, False)):
+            c, p = computes[q], prepared[q]
+            old[q]["ms"].append(cuda_ms(lambda: c.fetch(c.dispatch(p)),
+                                        reps=OLD_REPS))
+    for q in (False, True):
+        c, p = computes[q], prepared[q]
+        old[q]["profile"] = profile_step(torch, lambda: c.fetch(c.dispatch(p)))
+        best = min(old[q]["ms"])
+        old[q]["samples_per_s"] = OLD_N * OLD_CHUNK / best * 1e3
+        name = "int8 (quantize=true: D, the int8 head, B, C)" if q else \
+            "bf16 (quantize=false: projection + A, B, C)"
+        log(f"  old-style step {OLD_N} x {OLD_CHUNK} ({OLD_CHUNK // 5} "
+            f"frames, H {OLD_H}, S {S}), {name} on {card}: "
+            f"{', '.join(f'{ms:.4g}' for ms in old[q]['ms'])} ms in "
+            f"{OLD_TURNS} turns of {OLD_REPS} (spread "
+            f"{max(old[q]['ms']) - best:.3g} ms) = "
+            f"{old[q]['samples_per_s']:.6g} samples/s at the best; peak "
+            f"memory {old[q]['peak']:.3f} GiB above the held; launches a "
+            f"batch {({k: v for k, v in launches['old_style_' + ('int8' if q else 'bf16') + '_step'].items() if v})}; "
+            f"plan {old[q]['plan']}; {old[q]['emit']:.3f} of the frames emit, "
+            f"letters {old[q]['letters']} (a random model's path)")
+        for kname, ms, count in old[q]["profile"][:8]:
+            log(f"    {ms:8.3f} ms  x{count:<5} {kname[:100]}")
+
+    # the step's batch through the kernels against the same batch with
+    # their plain versions in their place: A (bf16) with the hac bf16
+    # limits, D (int8) with the hac int8 path's
+    holds = {}
+    for q, kernel_name, plain in (
+            (False, "lstm_recurrence", lstm_cuda.lstm_recurrence_plain),
+            (True, "lstm_int8_fused", lstm_int8_cuda.lstm_int8_fused_plain)):
+        _, x_wire, sig_scale = prepared[q]
+        m = models[q]
+        kernel = getattr(ops_lstm, kernel_name)
+        with torch.inference_mode():
+            xc = (torch.from_numpy(x_wire).to(dev, torch.bfloat16)
+                  * torch.from_numpy(sig_scale).to(dev, torch.bfloat16)[:, None])
+            mv_kernel, blank = m.forward_tcn(xc[..., None])
+            setattr(ops_lstm, kernel_name, plain)
+            try:
+                mv_plain, _ = m.forward_tcn(xc[..., None])
+            finally:
+                setattr(ops_lstm, kernel_name, kernel)
+            diff = (mv_kernel.float() - mv_plain.float()).abs()
+            worst, mean = diff.max().item(), diff.mean().item()
+            n_diff, n_all, _ = decodes_differ(torch, m, mv_kernel, mv_plain,
+                                              blank, ops_decode)
+        finite = torch.isfinite(mv_kernel.float()).all().item()
+        limits = (0.5, 1e-3) if q else (HAC_MOVES_MAX, HAC_MOVES_MEAN)
+        holds[q] = {"max": worst, "mean": mean, "frames_differ": n_diff,
+                    "frames": n_all}
+        log(f"  old-style {'int8' if q else 'bf16'} batch, moves "
+            f"{tuple(mv_kernel.shape)} through 5 x {'D' if q else 'A'} at H "
+            f"{OLD_H} vs its plain version: max |diff| {worst:.3g}, mean "
+            f"{mean:.3g} (tolerance {limits[0]:.4g} / {limits[1]:.4g}); the "
+            f"two decodes differ on {n_diff} of {n_all} frames (at most "
+            f"{1 - HAC_MIN_EQUAL:.1%} may); finite {finite}")
+        require(finite and worst <= limits[0] and mean <= limits[1]
+                and n_diff <= (1 - HAC_MIN_EQUAL) * n_all,
+                f"old-style {'int8' if q else 'bf16'} batch: the kernels' "
+                f"moves disagree with the plain versions'")
+        del mv_kernel, mv_plain, diff
+    del models, computes
+    torch.cuda.empty_cache()
+
+    # A and D alone at H 768 on random inputs of the step's shape: A with
+    # check_lstm's limits, D's persistent launch its step kernel's bits and
+    # within check_lstm_int8's steps of the plain version; their times
+    T7, H7 = OLD_CHUNK // 5, OLD_H
+    g = torch.Generator().manual_seed(SEED + 768)
+    xw = torch.randn(T7, OLD_N, 4 * H7, generator=g).to(dev, torch.bfloat16)
+    w_hh = (torch.randn(H7, 4 * H7, generator=g) / math.sqrt(H7)).to(
+        dev, torch.bfloat16)
+    x_q = torch.randint(-127, 128, (T7, OLD_N, H7), generator=g,
+                        dtype=torch.int8).to(dev)
+    w_ih_q, ih_scales = int8.quantize_cols(
+        (torch.randn(H7, 4 * H7, generator=g) / math.sqrt(H7)).numpy())
+    w_hh_q, scales = int8.quantize_whh(
+        (torch.randn(H7, 4 * H7, generator=g) / math.sqrt(H7)).numpy())
+    d_args = (x_q, torch.from_numpy(w_ih_q).to(dev),
+              torch.from_numpy(w_hh_q).to(dev),
+              torch.from_numpy(ih_scales).to(dev) * int8.H_STEP,
+              torch.from_numpy(scales).to(dev),
+              (0.5 * torch.randn(4 * H7, generator=g)).to(dev))
+    k768 = {}
+    for reverse in (False, True):
+        out = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
+        ref = lstm_cuda.lstm_recurrence_plain(xw, w_hh, reverse=reverse)
+        diff = (out.float() - ref.float()).abs()
+        err_a, mean_a = diff.max().item(), diff.mean().item()
+        require(err_a <= LSTM_ATOL and mean_a <= LSTM_MEAN_TOL,
+                f"A at H {H7} (reverse={reverse}): max {err_a}, mean {mean_a}")
+        d_out = lstm_int8_cuda.lstm_int8_fused(*d_args, reverse=reverse,
+                                               out_int8=True)
+        same = torch.equal(d_out, lstm_int8_cuda.lstm_int8_fused_step_kernel(
+            *d_args, reverse=reverse, out_int8=True))
+        steps_d = (d_out.float() - lstm_int8_cuda.lstm_int8_fused_plain(
+            *d_args, reverse=reverse, out_int8=True).float()).abs()
+        err_d, mean_d = steps_d.max().item(), steps_d.mean().item()
+        require(same and err_d <= INT8_MAX_STEPS and mean_d <= INT8_MEAN_STEPS,
+                f"D at H {H7} (reverse={reverse}): equal to its step kernel "
+                f"{same}, max {err_d}, mean {mean_d} int8 steps")
+        k768[reverse] = (err_a, mean_a, err_d, mean_d)
+        log(f"  A at H {H7}, reverse={reverse}: max |h - plain| {err_a:.3g}, "
+            f"mean {mean_a:.3g} (tolerance {LSTM_ATOL} / {LSTM_MEAN_TOL}); D: "
+            f"equal to its step kernel, max {err_d:.3g} int8 steps, mean "
+            f"{mean_d:.3g} (tolerance {INT8_MAX_STEPS} / {INT8_MEAN_STEPS})")
+    ms_a = cuda_ms(lambda: lstm_cuda.lstm_recurrence(xw, w_hh), reps=3)
+    plan_a = lstm_cuda.lstm_recurrence.plan
+    plain_a = cuda_ms(lambda: lstm_cuda.lstm_recurrence_plain(xw, w_hh),
+                      reps=1, warmup=0)
+    ms_d = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_fused(
+        *d_args, out_int8=True), reps=3)
+    plan_d = lstm_int8_cuda.lstm_int8_fused.plan
+    plain_d = cuda_ms(lambda: lstm_int8_cuda.lstm_int8_fused_plain(
+        *d_args, out_int8=True), reps=1, warmup=0)
+    bound_a = bound(T7 * OLD_N * 4 * H7 * 2 + H7 * 4 * H7 * 2
+                    + T7 * OLD_N * H7 * 2, 2 * OLD_N * H7 * 4 * H7 * T7,
+                    H100_BF16_OPS)
+    bound_d = bound(T7 * OLD_N * H7 + 2 * H7 * 4 * H7 + 3 * 4 * H7 * 4
+                    + T7 * OLD_N * H7, 2 * OLD_N * T7 * (H7 + H7) * 4 * H7,
+                    H100_INT8_OPS)
+    h768 = {"A": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a[0],
+                  "bound_by": bound_a[1], "us_a_step": ms_a / T7 * 1e3,
+                  "plan": plan_a,
+                  "max_abs_err": max(v[0] for v in k768.values())},
+            "D": {"ms": ms_d, "plain_ms": plain_d, "bound_ms": bound_d[0],
+                  "bound_by": bound_d[1], "us_a_step": ms_d / T7 * 1e3,
+                  "plan": plan_d,
+                  "max_abs_err": max(v[2] for v in k768.values()) / 127.0}}
+    for key, r in h768.items():
+        log(f"  {key} at H {H7} ({OLD_N} x {T7} frames) on {card}: "
+            f"{r['ms']:.4g} ms a layer ({r['us_a_step']:.4g} us a step), "
+            f"plain {r['plain_ms']:.4g} ms, bound {r['bound_ms']:.4g} ms by "
+            f"{r['bound_by']}; plan {r['plan']}")
+    del xw, w_hh, d_args
+
+    # (e) download from a file:// zip of the hac .tar directory
+    site = root / "site"
+    site.mkdir()
+    with zipfile.ZipFile(site / f"{UPSTREAM_NAME}.zip", "w") as zf:
+        for f in sorted(forms["hac"]["tar"].iterdir()):
+            zf.write(f, f"{UPSTREAM_NAME}/{f.name}")
+    saved = download.__url__
+    download.__url__ = f"file://{site}/"
+    t0 = time.perf_counter()
+    try:
+        cli_main(["download", "--models", "--select", UPSTREAM_NAME,
+                  "--out_dir", str(root / "downloads")])
+    finally:
+        download.__url__ = saved
+    download_s = time.perf_counter() - t0
+    got = root / "downloads" / UPSTREAM_NAME
+    require(sorted(os.listdir(got)) == ["config.toml", "weights_1.npz",
+                                        "weights_1.tar"],
+            f"download wrote {sorted(os.listdir(got))}")
+    cfg = load_config(got / "config.toml")
+    via_npz = checkpoint.params_from_jax(
+        Model(cfg), checkpoint.load_params(got / "weights_1.npz"))
+    imported = checkpoint.import_torch_checkpoint(got / "weights_1.tar",
+                                                  Model(cfg))
+    require(all(np.array_equal(v.numpy(), imported[k])
+                for k, v in via_npz.state_dict().items())
+            and imported.keys() == via_npz.state_dict().keys(),
+            "download: the .npz it wrote differs from the .tar's import")
+    log(f"  download --models --select {UPSTREAM_NAME} from a file:// zip of "
+        f"the hac .tar directory: {download_s:.2f} s (unpack, import, "
+        f"weights_1.npz); the .npz equals the import")
+
+    # (f) export --format dorado of the hac .tar directory
+    t0 = time.perf_counter()
+    cli_main(["export", str(forms["hac"]["tar"]), "--output",
+              str(root / "dorado"), "--format", "dorado"])
+    export_s = time.perf_counter() - t0
+    model = load_model(forms["hac"]["tar"], half=False, device="cpu")
+    nn.fuse_bn(model.encoder)
+    fused = checkpoint.export_state_dict(model.encoder)
+    files = sorted(p.stem for p in (root / "dorado").glob("*.tensor"))
+    require(files == sorted(fused), f"dorado export: {files} against "
+            f"{sorted(fused)}")
+    for k, v in fused.items():
+        t = dict(torch.jit.load(str(root / "dorado" / f"{k}.tensor"))
+                 .named_parameters())["0"]
+        require(torch.equal(t.detach().cpu(), torch.from_numpy(v)),
+                f"dorado export: {k}.tensor differs from the fused state")
+    log(f"  export --format dorado of the hac .tar directory: {len(files)} "
+        f".tensor files in {export_s:.2f} s, each read back with "
+        f"torch.jit.load equal to the BatchNorm-fused state")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 14 took {phase_s:.1f} s")
+    return {"launches": launches, "import_s": import_s,
+            "cli": cli, "old": {("int8" if q else "bf16"): {
+                k: v for k, v in r.items() if k != "profile"}
+                for q, r in old.items()},
+            "old_holds": holds, "h768": h768, "download_s": download_s,
+            "export_s": export_s, "phase_s": phase_s}
+
 
 
 def main():
@@ -3848,6 +4326,7 @@ def main():
     from bonito_tpu_torch.transformer import model as transformer
     from bonito_tpu_torch.util import chunk, load_model
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5010,6 +5489,10 @@ def main():
     runs["cli_fast"] = {"launches": cli["fast"]["launches"]}
     torch.cuda.empty_cache()
     ctc = ctc_phase(torch, counters, dev, dirs, card)
+    dirs["ctc"] = ctc["model_dir"]
+    torch.cuda.empty_cache()
+    upstream = upstream_phase(torch, counters, dev, dirs,
+                              cli["hac"]["reads_dir"], card)
 
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_window = "bonito_tpu_torch/csrc/attention_window.cu"  # K's, H's
@@ -5319,6 +5802,14 @@ def main():
     for k, letter in zip(kernels, letters):
         k["by_path"].update({p: n[letter]
                              for p, n in ctc["launches"].items()})
+        # phase 14's paths: the .tar directories' device steps and CLI run,
+        # the old-style steps
+        k["by_path"].update({p: n[letter]
+                             for p, n in upstream["launches"].items()})
+        if letter in ("A", "D"):
+            k["h768"] = upstream["h768"][letter]
+    log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s "
+        f"(phase 14 {upstream['phase_s']:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@ summary TSV equal; and the same with ``--reference``, ``--revcomp``,
 ``--read-ids`` with and without ``--skip``, ``--max-reads``,
 ``--min-qscore``, ``--no-trim``, ``--save-ctc``, ``--beam`` and ``--rna``
 (the result dict of the port's ``basecall`` and ``fmt`` on each). The
-refusals (``--distributed``, CRAM, a download, no card) raise before a
-model loads; a conv-CTC directory basecalls (held against bonito_tpu in
-tests/test_torch_ctc_cli.py).
+refusals (``--distributed``, CRAM, no card) raise before a model loads;
+a published model name is downloaded (from a ``file://`` zip) and
+basecalls as in bonito_tpu's CLI; a conv-CTC directory basecalls (held
+against bonito_tpu in tests/test_torch_ctc_cli.py).
 
 The model is ``tests/test_torch_reverse.py``'s ``lstm_dir`` (H 96, two
 layers, seed 14, the CRF weight x 10, quantize=false). The reads' seed
@@ -296,10 +297,42 @@ def test_refusals_name_their_item(argv, match, dirs, tmp_path):
                 out)
 
 
-def test_download_and_ctc_directory_refused(dirs, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_main(["basecaller", "dna_r10.4.1_e8.2_400bps_hac@v5.0.0",
-                  str(dirs["reads"]), "--device", "cpu"])
+def test_download_and_ctc_directory_refused(dirs, f32, tmp_path,
+                                            monkeypatch):
+    """A published name with no directory is downloaded (here from a
+    ``file://`` zip of the test model in upstream's form: config.toml and
+    weights_1.tar) and basecalls as bonito_tpu's CLI does on the same
+    name; a conv-CTC directory basecalls."""
+    import zipfile
+    from bonito_tpu import util as jutil
+    from bonito_tpu.cli import download as jdownload
+    from bonito_tpu_torch import util
+    from bonito_tpu_torch.cli import download
+    from bonito_tpu_torch.cli.export import torch_state_dict
+    from bonito_tpu_torch.util import load_model
+    name = "dna_r10.4.1_e8.2_400bps_hac@v5.0.0"
+    model = load_model(dirs["model"], half=False, device="cpu")
+    site = tmp_path / "site"
+    site.mkdir()
+    torch.save(torch_state_dict(model), tmp_path / "weights_1.tar")
+    with zipfile.ZipFile(site / f"{name}.zip", "w") as zf:
+        zf.write(dirs["model"] / "config.toml", f"{name}/config.toml")
+        zf.write(tmp_path / "weights_1.tar", f"{name}/weights_1.tar")
+    for mod in (download, jdownload):
+        monkeypatch.setattr(mod, "__url__", f"file://{site}/")
+    monkeypatch.setattr(util, "__models_dir__", tmp_path / "port_models")
+    monkeypatch.setattr(jutil, "__models_dir__", tmp_path / "jax_models")
+    ref = tmp_path / "jax" / "out.sam"
+    ref.parent.mkdir()
+    run_cli(jax_cli, [name, str(dirs["reads"]), "--n-proc", "1"], ref)
+    out = tmp_path / "port" / "out.sam"
+    out.parent.mkdir()
+    err = run_cli(port_cli, [name, str(dirs["reads"]), "--device", "cpu",
+                             "--n-proc", "1"], out)
+    assert "> downloading model" in err
+    assert sorted(p.name for p in (tmp_path / "port_models" / name).iterdir()
+                  ) == ["config.toml", "weights_1.npz", "weights_1.tar"]
+    assert COMPARE["sam"](ref.read_bytes(), out.read_bytes()) == 5
     # a conv-CTC directory (bonito_tpu's package name) basecalls now
     from bonito_tpu_torch import checkpoint as tckpt
     from bonito_tpu_torch.config import save_config

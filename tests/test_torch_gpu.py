@@ -2273,3 +2273,83 @@ def test_ctc_basecaller_cli_on_the_card_equals_the_cpu(cuda, tmp_path):
         assert np.mean(identity) >= CTC_CLI_MEAN_IDENTITY
     assert {k: fn.launches - before[k] for k, fn in counters.items()} == {
         k: 0 for k in counters}
+
+
+def test_tar_directory_equals_npz_and_a_d_at_h768(cuda, tmp_path):
+    """An upstream-form directory (``weights_1.tar``, keys under
+    ``module.``, a nonzero bias_hh_l0 on each LSTM) of a hac-width model
+    at depth 2 scores bit for bit as the ``.npz`` directory of the same
+    weights (each LSTM's b the sum of its two biases), with
+    ``quantize=false`` (A) and ``true`` (D and the int8 head); then A and D
+    at H 768, the old-style model's width, against their plain versions
+    (A within 2 bf16 ulps of |h| <= 1, as above; D's persistent launch its
+    step kernel's bits and within one int8 step of the plain version)."""
+    from bonito_tpu_torch import checkpoint, config
+    from bonito_tpu_torch.cli.export import torch_state_dict
+    from bonito_tpu_torch.util import load_model
+    cfg = lstm_crf_config(num_layers=2, batchsize=8, chunksize=1200,
+                          overlap=120)
+    model = Model(cfg).init(3)
+    state = torch_state_dict(model)
+    g = torch.Generator().manual_seed(4)
+    for k in list(state):
+        if k.endswith("bias_hh_l0"):
+            state[k] = 0.1 * torch.randn(state[k].shape, generator=g)
+            lstm_b = getattr(model.encoder, k.split(".")[1]).b
+            with torch.no_grad():
+                lstm_b.copy_(torch.from_numpy(
+                    state[k.replace("bias_hh", "bias_ih")].numpy()
+                    + state[k].numpy()))
+    for name in ("tar", "npz"):
+        (tmp_path / name).mkdir()
+        config.save_config(cfg, tmp_path / name / "config.toml")
+    torch.save({f"module.{k}": v for k, v in state.items()},
+               tmp_path / "tar" / "weights_1.tar")
+    checkpoint.save_params(tmp_path / "npz" / "weights_1.npz", model)
+    x = torch.randn(8, 1200, 1, generator=g).to(cuda, torch.bfloat16)
+    for quantize, kernel in ((False, lstm_cuda.lstm_recurrence),
+                             (True, lstm_int8_cuda.lstm_int8_fused)):
+        scores = []
+        for name in ("tar", "npz"):
+            m = load_model(tmp_path / name, quantize=quantize, fuse_bn=True)
+            before = kernel.launches
+            with torch.inference_mode():
+                scores.append(m(x))
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 2
+        assert torch.equal(scores[0], scores[1])
+
+    N, T, H = 96, 33, 768
+    sms = _sms(cuda)
+    for reverse in (False, True):
+        xw = torch.randn(T, N, 4 * H, generator=g).to(cuda, torch.bfloat16)
+        w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(
+            cuda, torch.bfloat16)
+        plan = lstm_cuda.persistent_plan(N, H, sms)
+        before = lstm_cuda.lstm_recurrence.launches
+        out = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
+        torch.cuda.synchronize()
+        assert plan is not None and lstm_cuda.lstm_recurrence.plan == plan
+        assert lstm_cuda.lstm_recurrence.launches == before + plan["launches"]
+        ref = lstm_cuda.lstm_recurrence_plain(xw, w_hh, reverse=reverse)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=2e-2)
+        for out_int8 in (False, True):
+            args = _int8_layer(cuda, H + reverse, N, T, H, H)
+            plan = lstm_int8_cuda.persistent_plan(N, H, H, sms, True)
+            out = lstm_int8_cuda.lstm_int8_fused(*args, reverse=reverse,
+                                                 out_int8=out_int8)
+            step = lstm_int8_cuda.lstm_int8_fused_step_kernel(
+                *args, reverse=reverse, out_int8=out_int8)
+            torch.cuda.synchronize()
+            assert plan is not None and lstm_int8_cuda.lstm_int8_fused.plan \
+                == plan
+            assert torch.equal(out, step)
+            ref = lstm_int8_cuda.lstm_int8_fused_plain(
+                *args, reverse=reverse, out_int8=out_int8)
+            diff = (out.float() - ref.float()).abs()
+            if out_int8:
+                assert diff.max().item() <= 1
+                assert (diff == 0).float().mean() >= 0.99
+            else:
+                assert diff.max().item() <= 1 / 127 + 2 ** -8

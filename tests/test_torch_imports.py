@@ -83,6 +83,7 @@ def test_importing_the_port_loads_no_jax():
             "bonito_tpu_torch.ctc.model", "bonito_tpu_torch.ctc.basecall",
             "bonito_tpu_torch.ops.ctc_decode",
             "bonito_tpu_torch.cli.evaluate", "bonito_tpu_torch.cli.view",
+            "bonito_tpu_torch.cli.download", "bonito_tpu_torch.cli.export",
             "bonito_tpu_torch.__main__"} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "from bonito_tpu_torch.ops import build; "

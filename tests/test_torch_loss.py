@@ -406,25 +406,38 @@ def test_target_projection_and_context_bases_round_trip():
 
 
 def test_a_newer_tar_checkpoint_raises(tmp_path):
-    """bonito_tpu loads the highest N over .npz and .tar; the port cannot
-    read .tar yet and must not load an older .npz in its place."""
-    cfg, _, pm = _model_pair()
+    """bonito_tpu loads the highest N over .npz and .tar, the .tar on a tie
+    of N; the port reads upstream's .tar now and loads the same file
+    (each file below holds other weights, so the one that loads shows)."""
+    from bonito_tpu.util import get_last_checkpoint as jax_last_checkpoint
+    from bonito_tpu_torch.cli.export import torch_state_dict
     from bonito_tpu_torch.config import save_config
+    cfg, _, pm = _model_pair()
+    cfg["basecaller"]["quantize"] = False
     save_config(cfg, tmp_path / "config.toml")
     checkpoint.save_params(tmp_path / "weights_1.npz", pm)
     assert get_last_checkpoint(tmp_path).endswith("weights_1.npz")
-    (tmp_path / "weights_2.tar").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="weights_2.tar"):
-        get_last_checkpoint(tmp_path)
-    with pytest.raises(NotImplementedError, match="weights_2.tar"):
-        load_model(tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="weights_2.tar"):
-        load_model(tmp_path, weights=2, device="cpu")
-    assert load_model(tmp_path, weights=1, device="cpu") is not None
-    (tmp_path / "weights_1.tar").write_bytes(b"")   # a tie: the .tar wins
+    newer = Model(cfg).init(4)
+    torch.save(torch_state_dict(newer), tmp_path / "weights_2.tar")
+
+    def state(**kw):
+        return load_model(tmp_path, half=False, device="cpu", **kw
+                          ).state_dict()
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in b)
+    assert get_last_checkpoint(tmp_path).endswith("weights_2.tar")
+    assert get_last_checkpoint(tmp_path) == jax_last_checkpoint(tmp_path)
+    assert same(state(), newer.state_dict())
+    assert same(state(weights=2), newer.state_dict())
+    assert same(state(weights=1), pm.state_dict())
+    tie = Model(cfg).init(5)   # a tie: the .tar wins
+    torch.save(torch_state_dict(tie), tmp_path / "weights_1.tar")
     (tmp_path / "weights_2.tar").unlink()
-    with pytest.raises(NotImplementedError, match="weights_1.tar"):
-        get_last_checkpoint(tmp_path)
+    assert get_last_checkpoint(tmp_path).endswith("weights_1.tar")
+    assert get_last_checkpoint(tmp_path) == jax_last_checkpoint(tmp_path)
+    assert same(state(), tie.state_dict())
+    assert same(state(weights=1), pm.state_dict())  # weights=N: .npz first
 
 
 # ---------------------------------------------------------------------------

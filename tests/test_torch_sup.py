@@ -328,8 +328,12 @@ def test_quantize_of_a_transformer_model_waits_and_says_so(tmp_path):
 
 
 def test_from_dict_names_what_is_still_unported():
-    with pytest.raises(NotImplementedError, match="reverse"):
-        nn.from_dict({"type": "reverse", "sublayers": []})
+    """An unknown type raises; reverse, once unported, builds now."""
+    with pytest.raises(NotImplementedError, match="unknown layer type"):
+        nn.from_dict({"type": "no-such-layer", "sublayers": []})
+    layer = nn.from_dict({"type": "reverse", "sublayers": []})
+    assert isinstance(layer, nn.Reverse) and nn.to_dict(layer) == {
+        "type": "reverse", "sublayers": []}
 
 
 # ---------------------------------------------------------------------------
