@@ -1,8 +1,9 @@
 """
-Local alignment for the accuracy metric: ``smith_waterman``, the native
-affine-gap Smith-Waterman of ``native/align/align.cpp`` (parasail's role in
-upstream bonito), built by ``native.load`` — bonito_tpu's
-``alignment.smith_waterman`` without its numpy fallback: a failed build
+The host alignments of ``native/align/align.cpp``, built by
+``native.load``: ``smith_waterman``, the local affine-gap alignment of the
+accuracy metric (parasail's role in upstream bonito), and ``edit_align``,
+the global unit-cost alignment of the duplex consensus (edlib's role) —
+bonito_tpu's ``alignment`` without its numpy fallbacks: a failed build
 raises.
 """
 
@@ -49,3 +50,20 @@ def smith_waterman(query, ref, match=5, mismatch=-4, gap_open=8, gap_extend=4):
         return None
     cigar = "".join(f"{lens[i]}{chr(ops.raw[i])}" for i in range(n))
     return SWResult(score.value, cigar, bq.value, eq.value, br.value, er.value)
+
+
+def edit_align(query, ref):
+    """Global edit-distance alignment of ``query`` against ``ref``:
+    (distance, cigar over =/X/I/D), or None when the cigar overflows or
+    the DP matrix would exceed MAX_CELLS."""
+    lib = native.load("align")
+    q, r = query.encode(), ref.encode()
+    dist = ctypes.c_int32()
+    ops = ctypes.create_string_buffer(MAX_CIGAR)
+    lens = (ctypes.c_int32 * MAX_CIGAR)()
+    n = lib.nw_align(q, len(q), r, len(r), MAX_CELLS, ctypes.byref(dist),
+                     ops, lens, MAX_CIGAR)
+    if n < 0:
+        return None
+    return dist.value, "".join(f"{lens[i]}{chr(ops.raw[i])}"
+                               for i in range(n))

@@ -1,24 +1,12 @@
 """
 Command line of the port: ``python -m bonito_tpu_torch <subcommand>``,
-with bonito_tpu's subcommands. ``basecaller``, ``train``, ``evaluate``,
-``view``, ``download`` and ``export`` are ported; ``duplex`` raises,
-naming the ROADMAP item that ports it.
+with bonito_tpu's subcommands: ``basecaller``, ``duplex``, ``train``,
+``evaluate``, ``view``, ``download`` and ``export``.
 """
 
 import sys
-from argparse import REMAINDER, ArgumentParser
+from argparse import ArgumentParser
 from importlib import import_module
-
-# subcommand -> the ROADMAP item (Queue 1) that ports it
-WAITING = {
-    "duplex": "Queue 1 item 11 (other CLI tools)",
-}
-
-
-def _waiting(args):
-    raise NotImplementedError(
-        f"bonito_tpu_torch {args.command} is not ported yet: "
-        f"{WAITING[args.command]}")
 
 
 def main(argv=None):
@@ -29,14 +17,10 @@ def main(argv=None):
                         version="%(prog)s " + __version__)
     subparsers = parser.add_subparsers(title="subcommands", dest="command",
                                        required=True)
-    for name in ("basecaller", "train", "evaluate", "view", "download",
-                 "export"):
+    for name in ("basecaller", "duplex", "train", "evaluate", "view",
+                 "download", "export"):
         module = import_module(f"bonito_tpu_torch.cli.{name}")
         sub = subparsers.add_parser(name, parents=[module.argparser()])
         sub.set_defaults(func=module.main)
-    for name in WAITING:
-        sub = subparsers.add_parser(name, add_help=False)
-        sub.add_argument("rest", nargs=REMAINDER)
-        sub.set_defaults(func=_waiting)
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     args.func(args)

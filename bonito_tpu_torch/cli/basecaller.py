@@ -1,7 +1,7 @@
 """
 ``python -m bonito_tpu_torch basecaller``: a directory of pod5 or fast5
-reads to SAM, BAM or fastq on stdout, on one card (``--device cpu`` runs
-the plain versions on the CPU). bonito_tpu's CLI (``bonito_tpu/cli/
+reads to SAM, BAM, CRAM or fastq on stdout, on one card (``--device cpu``
+runs the plain versions on the CPU). bonito_tpu's CLI (``bonito_tpu/cli/
 basecaller.py``) with the same flags: reader processes -> the basecall
 chain (the device step inside) -> the aligner stage (``--reference``) ->
 the writer thread. The format follows the name stdout is redirected to.
@@ -12,8 +12,10 @@ beam's sequence, qstring "*" and no moves, as bonito_tpu's).
 
 A published model name (``cli.download.models``) with no directory on
 disk is downloaded into ``util.__models_dir__`` first, as bonito_tpu's.
-Refused before the model loads, each naming its ROADMAP item:
-``--distributed`` and CRAM output.
+CRAM is reference-based with ``--reference`` (it decodes with the same
+fasta) and referenceless without, as bonito_tpu writes it.
+``--distributed`` is refused before the model loads, naming its ROADMAP
+item.
 """
 
 import inspect
@@ -34,13 +36,6 @@ from bonito_tpu_torch.reader import Reader, read_chunks
 from bonito_tpu_torch.util import (column_to_set, init, load_model,
                                    load_symbol)
 
-def refuse_what_waits(args, fmt):
-    """The options the port does not run yet raise here, naming the ROADMAP (Queue 1) item that ports them."""
-    if fmt.name == "cram":
-        raise NotImplementedError(
-            "CRAM output is not ported yet: ROADMAP Queue 1 item 14; "
-            "redirect to .bam, .sam or .fastq")
-
 
 def main(args):
     if args.distributed:
@@ -58,7 +53,6 @@ def main(args):
         sys.exit(1)
 
     fmt = biofmt(aligned=bool(args.reference))
-    refuse_what_waits(args, fmt)
     if args.reference and args.reference.endswith(".mmi"):
         # the mapper indexes the FASTA itself; minimap2's .mmi is not read
         sys.stderr.write(

@@ -6,13 +6,12 @@ validation chunks with references, the accuracy and the substitution,
 insertion and deletion rates and clips of local alignments, with
 ``--output-dir``'s ``seqs.fasta``, ``refs.fasta`` and ``summ.txt``.
 
-The model loads in f32 (``half=False``), as bonito_tpu's does. On the card
-an f32 LSTM reaches kernel A or F, which take bf16 only: such a model
-raises before any data is read, naming ROADMAP Queue 1 item 13. It is
-never cast to bf16 or moved to the CPU quietly. The conv-CTC family
-(cuDNN convolutions, host decoders) and the transformer family (K's and
-the decode's f32 instances) run in f32 on the card; cuDNN may run f32
-convolutions in TF32 where ``torch.backends.cudnn.allow_tf32`` is set.
+The model loads in f32 (``half=False``), as bonito_tpu's does, and runs
+in f32 on the card: an LSTM-CRF model through the f32 instances of
+kernels A and F and the full-score decode (M, Q), the transformer family
+through K's and the decode's f32 instances, the conv-CTC family on cuDNN
+and the host decoders. cuDNN may run f32 convolutions in TF32 where
+``torch.backends.cudnn.allow_tf32`` is set.
 """
 
 import csv
@@ -24,7 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
-from bonito_tpu_torch import nn, resolve_device
+from bonito_tpu_torch import resolve_device
 from bonito_tpu_torch.alignment import smith_waterman
 from bonito_tpu_torch.data import (
     ComputeSettings, DataSettings, ModelSetup, load_data)
@@ -69,23 +68,6 @@ def align_stats(ref, seq, min_coverage=0.0):
     return stats
 
 
-def bf16_only_kernels(model):
-    """The kernels an f32 forward of ``model`` on the card reaches that
-    take bf16 only: A (a wide float LSTM's recurrence) and F (a small
-    float LSTM layer). Empty for the conv-CTC and transformer families."""
-    import torch
-
-    from bonito_tpu_torch.ops.lstm import small_h
-    found = set()
-    for m in model.modules():
-        if (isinstance(m, nn.LSTM) and not m.quantized
-                and m.w_hh.dtype != torch.bfloat16):
-            found.add("F (ops/lstm_fused_cuda.py)"
-                      if small_h(m.insize, m.size)
-                      else "A (ops/lstm_cuda.py)")
-    return sorted(found)
-
-
 def main(args):
     import torch
 
@@ -95,12 +77,6 @@ def main(args):
     print("* loading model", args.model_directory)
     model = load_model(args.model_directory, weights=args.weights,
                        half=False, device=device)
-    if device.type == "cuda" and (kernels := bf16_only_kernels(model)):
-        raise NotImplementedError(
-            f"evaluate runs the model in f32 (half=False, as bonito_tpu's), "
-            f"and on the card this model's f32 route reaches kernels that "
-            f"take bf16 only: {', '.join(kernels)}; f32 inference on the "
-            f"card is ROADMAP Queue 1 item 13")
 
     standardisation = (
         model.config.get("standardisation", {}) if args.standardise else {})

@@ -162,8 +162,9 @@ __device__ __forceinline__ void bwd_frame(const Frame& f, const float* row,
     block_sum_max(bmass, mx, red);
     if (active) B[s] = b_raw * (1.f / mx);
     if (threadIdx.x == 0) {
-        const float prob = bmass * expf(*cs + d - lz);
-        const float err = fminf(fmaxf(1.f - prob, 1e-4f), 1.f);
+        // rounded on their own, as the plain version's and the ring's
+        const float prob = __fmul_rn(bmass, expf(*cs + d - lz));
+        const float err = fminf(fmaxf(__fsub_rn(1.f, prob), 1e-4f), 1.f);
         const float q = __fadd_rn(__fmul_rn(-10.f * log10f(err), qscale),
                                   qbias);
         const int qc = (int)rintf(q) + 33;

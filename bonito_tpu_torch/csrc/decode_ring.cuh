@@ -738,8 +738,12 @@ decode_bwd_ring_kernel(const L l, const BwdArgs a)
             }
             const float c = __shfl_sync(0xffffffffu, c_now, i & 31);
             if (lane == 0) {
-                const float prob = bm * expf(c + d - lz);
-                const float err = fminf(fmaxf(1.f - prob, 1e-4f), 1.f);
+                // each product and difference rounded on its own, as the
+                // plain version's (a contracted fma(-bm, e, 1) moved a
+                // qstring by one step where rint met a half)
+                const float prob = __fmul_rn(bm, expf(c + d - lz));
+                const float err = fminf(fmaxf(__fsub_rn(1.f, prob), 1e-4f),
+                                        1.f);
                 const float qv = __fadd_rn(__fmul_rn(-10.f * log10f(err),
                                                      a.qscale), a.qbias);
                 const int qc = (int)rintf(qv) + 33;

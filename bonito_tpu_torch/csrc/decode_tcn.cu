@@ -15,7 +15,8 @@
 // (P_stay = exp(blank)). At hac (N=96, T=1666, S=1024) both read the 1.31
 // GB bf16 move tensor; B writes 0.66 GB of f32 move-in and 0.16 GB of
 // choices, C reads a quarter of the move-in back (the chosen base's
-// states).
+// states). An f32 model's moves take the _f32 instances (where the ring of
+// decode_tcn_ring.cu takes no plan: S 4).
 
 #include "decode_passes.cuh"
 
@@ -48,6 +49,28 @@ int decode_tcn_bwd_bf16(const void* moves, const void* move_in,
                         float qscale, float qbias, void* stream) {
     if (bad_shape(N, T, S)) return (int)cudaErrorInvalidValue;
     return launch_bwd<TcnFrame, __nv_bfloat16>(
+        moves, move_in, choices, c, logz, end_state, seq, qstr, mvout, N, T,
+        S, qscale, qbias, TcnFrame{0.f, p_stay}, stream);
+}
+
+// the same two passes on f32 moves [N, T, NB*S] (an f32 model's TCN
+// decode where the ring takes no plan: S not a multiple of 16)
+int decode_tcn_fwd_f32(const void* moves, void* move_in, void* choices,
+                       void* c, void* logz, void* end_state, int N, int T,
+                       int S, float p_stay, float blank, void* stream) {
+    if (bad_shape(N, T, S)) return (int)cudaErrorInvalidValue;
+    return launch_fwd<TcnFrame, float>(
+        moves, move_in, choices, c, logz, end_state, N, T, S,
+        TcnFrame{blank, p_stay}, stream);
+}
+
+int decode_tcn_bwd_f32(const void* moves, const void* move_in,
+                       const void* choices, const void* c, const void* logz,
+                       const void* end_state, void* seq, void* qstr,
+                       void* mvout, int N, int T, int S, float p_stay,
+                       float qscale, float qbias, void* stream) {
+    if (bad_shape(N, T, S)) return (int)cudaErrorInvalidValue;
+    return launch_bwd<TcnFrame, float>(
         moves, move_in, choices, c, logz, end_state, seq, qstr, mvout, N, T,
         S, qscale, qbias, TcnFrame{0.f, p_stay}, stream);
 }

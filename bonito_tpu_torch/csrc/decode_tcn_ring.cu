@@ -18,7 +18,8 @@
 // with each part left out (DECODE_CUT, 0 in the library).
 //
 // The f32 instances (TcnRows<float>: 16S bytes a slot, 21S for the
-// backward pass) are the passes of kernels GW and JW, the fused-head decode
+// backward pass) are B and C on an f32 model's moves (a --no-amp
+// validation) and the passes of kernels GW and JW, the fused-head decode
 // at 512 and 1024 states, over the f32 moves of the head product
 // (csrc/head_product.cu). Their frame steps are the f32 steps of
 // csrc/decode_passes.cuh that the earlier GW and JW took

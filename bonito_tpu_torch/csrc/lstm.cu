@@ -71,6 +71,13 @@
 // (lstm_step_bf16, the first design): one launch per step from a loop in
 // the C entry point; a block owns all four gate columns of UH units for RB
 // rows and runs 16x16x16 WMMA products straight from L2.
+//
+// An f32 model (evaluate loads with half=False, a --no-amp validation)
+// runs kernel R's f32 step kernel without its train stores
+// (csrc/lstm_train.cu:lstm_recurrence_f32; the wrapper, ops/lstm_cuda.py,
+// takes it for f32 tensors, no plan). W_hh in f32 is 16 MB at hac, twice
+// what the persistent design keeps in shared memory, so each step reads its
+// slices through L2.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

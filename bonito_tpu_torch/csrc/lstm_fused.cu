@@ -64,6 +64,10 @@
 // step: 4.4 ms a layer on an H100 at fast widths against 2.0 ms with them in
 // registers (PERF.md).
 //
+// lstm_fused_f32_kernel<KH> (an f32 model: evaluate, a --no-amp
+// validation): the same function in f32 on the f32 cores, described where
+// it is defined below.
+//
 // scripts/lstm_step_split.py f times the mma kernel with each part of a
 // step left out (LSTM_CUT, 0 in the library) and with tanh.approx.f32.
 
@@ -484,7 +488,169 @@ MmaKernel mma_kernel(int C, int H) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// the f32 instance (an f32 model: evaluate, a --no-amp validation)
+// ---------------------------------------------------------------------------
+//
+// xw = x[t] @ W_ih + b and gates = xw + h @ W_hh, all in f32 on the f32
+// cores (FFMA); h and c carried in f32, h stored in f32. A block owns FR
+// batch rows for all T steps, a thread each of the 4H gate columns (its
+// sums over k in order, 4 k at a time from float4 rows of x and h in shared
+// memory). At fast's H 96 a thread keeps its column of W_hh in registers
+// (KH 6; KH 0, every other H, reads it through L2 every step); W_ih sits in
+// shared memory where it fits (C x 4H f32, 144 KB at fast's C = H = 96),
+// else it too is read through L2. The plan (ops/lstm_fused_cuda.py:
+// f32_plan) decides both and the C entry takes it as given.
+// After a barrier each thread does the gate math of two (row, unit) pairs
+// with c in registers: two barriers a step.
+
+constexpr int FR = 8;  // batch rows per block of the f32 kernel
+
+// Shared memory of the f32 kernel, in floats: W_ih (where it is kept
+// there), the step's rows of x, of h and of the gates.
+__host__ __device__ inline int f32_smem_floats(int C, int H, bool wih_in_smem)
+{
+    return (wih_in_smem ? C * 4 * H : 0) + FR * (C + H + 4 * H);
+}
+
+template <int KH>
+__global__ void __launch_bounds__(KH > 0 ? 64 * KH : 1024)
+lstm_fused_f32_kernel(const float* __restrict__ x,     // [T, N, C]
+                      const float* __restrict__ wih,   // [C, 4H]
+                      const float* __restrict__ whh,   // [H, 4H]
+                      const float* __restrict__ bias,  // [4H]
+                      float* __restrict__ out,         // [T, N, H]
+                      int T, int N, int C, int H, int reverse,
+                      int wih_in_smem)
+{
+    extern __shared__ __align__(16) float fsm[];
+    const int G = 4 * H;
+    const int col = threadIdx.x;  // this thread's gate column
+    const int n0 = blockIdx.x * FR;
+    float* wis = fsm;
+    float* xs = fsm + (wih_in_smem ? C * G : 0);
+    float* hs = xs + FR * C;
+    float* gs = hs + FR * H;
+    if (wih_in_smem)
+        for (int e = col; e < C * G / 4; e += G)
+            reinterpret_cast<float4*>(wis)[e] =
+                reinterpret_cast<const float4*>(wih)[e];
+    const float* wi = wih_in_smem ? wis : wih;
+    float wh[KH > 0 ? 16 * KH : 1];
+    if constexpr (KH > 0) {
+#pragma unroll
+        for (int k = 0; k < 16 * KH; ++k) wh[k] = whh[(size_t)k * G + col];
+    }
+    for (int e = col; e < FR * H; e += G) hs[e] = 0.f;
+    const float b = bias[col];
+    float cr[2] = {0.f, 0.f};  // c of the pairs col and col + 4H
+
+    for (int step = 0; step < T; ++step) {
+        const int t = reverse ? T - 1 - step : step;
+        const float4* xt =
+            reinterpret_cast<const float4*>(x + ((size_t)t * N + n0) * C);
+        for (int e = col; e < FR * C / 4; e += G)
+            reinterpret_cast<float4*>(xs)[e] =
+                n0 + e / (C / 4) < N ? xt[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+        __syncthreads();  // x staged; h of the last step written
+
+        float ax[FR] = {}, ah[FR] = {};
+        for (int k = 0; k < C; k += 4) {
+            const float w0 = wi[(size_t)k * G + col];
+            const float w1 = wi[(size_t)(k + 1) * G + col];
+            const float w2 = wi[(size_t)(k + 2) * G + col];
+            const float w3 = wi[(size_t)(k + 3) * G + col];
+#pragma unroll
+            for (int r = 0; r < FR; ++r) {
+                const float4 v = *reinterpret_cast<const float4*>(xs + r * C + k);
+                ax[r] = fmaf(v.x, w0, ax[r]);
+                ax[r] = fmaf(v.y, w1, ax[r]);
+                ax[r] = fmaf(v.z, w2, ax[r]);
+                ax[r] = fmaf(v.w, w3, ax[r]);
+            }
+        }
+        if constexpr (KH > 0) {
+#pragma unroll
+            for (int k = 0; k < 16 * KH; k += 4) {
+#pragma unroll
+                for (int r = 0; r < FR; ++r) {
+                    const float4 v =
+                        *reinterpret_cast<const float4*>(hs + r * H + k);
+                    ah[r] = fmaf(v.x, wh[k], ah[r]);
+                    ah[r] = fmaf(v.y, wh[k + 1], ah[r]);
+                    ah[r] = fmaf(v.z, wh[k + 2], ah[r]);
+                    ah[r] = fmaf(v.w, wh[k + 3], ah[r]);
+                }
+            }
+        } else {
+            for (int k = 0; k < H; k += 4) {
+                const float w0 = whh[(size_t)k * G + col];
+                const float w1 = whh[(size_t)(k + 1) * G + col];
+                const float w2 = whh[(size_t)(k + 2) * G + col];
+                const float w3 = whh[(size_t)(k + 3) * G + col];
+#pragma unroll
+                for (int r = 0; r < FR; ++r) {
+                    const float4 v =
+                        *reinterpret_cast<const float4*>(hs + r * H + k);
+                    ah[r] = fmaf(v.x, w0, ah[r]);
+                    ah[r] = fmaf(v.y, w1, ah[r]);
+                    ah[r] = fmaf(v.z, w2, ah[r]);
+                    ah[r] = fmaf(v.w, w3, ah[r]);
+                }
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < FR; ++r) gs[r * G + col] = (ax[r] + b) + ah[r];
+        __syncthreads();  // the gates written; x and h read
+
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const int e = col + j * G;
+            const int r = e / H, u = e % H;
+            const float* g = gs + r * G + u;
+            const float ig = sigmoid_f(g[0]);
+            const float fg = sigmoid_f(g[H]);
+            const float gg = tanhf(g[2 * H]);
+            const float og = sigmoid_f(g[3 * H]);
+            cr[j] = fg * cr[j] + ig * gg;
+            const float h = og * tanhf(cr[j]);
+            hs[r * H + u] = h;
+            if (n0 + r < N) out[((size_t)t * N + n0 + r) * H + u] = h;
+        }
+    }
+}
+
 }  // namespace
+
+// Kernel F in f32: x [T, N, C], wih [C, 4H], whh [H, 4H], bias [4H], out
+// [T, N, H], all f32 (x and wih at 16-byte addresses); C and H multiples
+// of 16, C at most 1024 and H at most 256. The layout is the caller's plan
+// (ops/lstm_fused_cuda.py:f32_plan): W_hh's column in registers
+// (whh_in_registers, built for H 96 only) or read through L2, W_ih in
+// shared memory (wih_in_smem) or not, and smem, the bytes the block asks
+// for, which must be what that layout needs.
+extern "C" int lstm_fused_f32(const void* x, const void* wih, const void* whh,
+                              const void* bias, void* out, int T, int N,
+                              int C, int H, int reverse, int whh_in_registers,
+                              int wih_in_smem, int smem, void* stream)
+{
+    if (T < 1 || N < 1 || C < 16 || H < 16 || C % 16 != 0 || H % 16 != 0
+        || C > 1024 || H > 256 || (whh_in_registers && H != 96)
+        || smem != f32_smem_floats(C, H, wih_in_smem) * (int)sizeof(float)
+        || smem > SMEM_LIMIT)
+        return (int)cudaErrorInvalidValue;
+    const auto kernel = whh_in_registers ? lstm_fused_f32_kernel<6>
+                                         : lstm_fused_f32_kernel<0>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(N + FR - 1) / FR, 4 * H, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(wih),
+        static_cast<const float*>(whh), static_cast<const float*>(bias),
+        static_cast<float*>(out), T, N, C, H, reverse, wih_in_smem);
+    return (int)cudaGetLastError();
+}
 
 // Kernel F. x [T, N, C], wih [C, 4H], whh [H, 4H] bf16 (the weights at
 // 32-byte addresses), bias [4H] f32, out [T, N, H] bf16. C and H multiples

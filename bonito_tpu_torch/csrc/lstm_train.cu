@@ -95,8 +95,13 @@
 // four gate columns of UH hidden units for RB batch rows; in bf16 16 warps
 // run 16x16x16 WMMA products with f32 accumulators straight from L2. An f32
 // model (training without amp) takes the same layout with the products on
-// the f32 cores (each thread a few sums of float4 rows), since the tensor
-// cores would round its operands to TF32: slower, its numbers exact f32.
+// the f32 cores, since the tensor cores would round its operands to TF32:
+// 8 warps, tiles of h and of W_hh's 64 columns staged in shared memory,
+// each thread 2 rows x 4 columns, its sums over k in order; slower, its
+// numbers exact f32. Kernel A's f32 instance (an f32 model's inference:
+// evaluate, a --no-amp validation; f32 W_hh is 16 MB at hac, twice what
+// A's persistent design keeps in shared memory) is this kernel without the
+// stores of c and the activations (lstm_recurrence_f32).
 // S's launch j first computes its block's dh = Io(dgates_{j-1}) @ W_hh^T
 // (read from an Io copy that launch j-1 wrote in full), then, for its own
 // units, step j's dgates and dc. The Io copy of dgates and Io(h) are
@@ -121,6 +126,7 @@ constexpr int NWARP = 16;
 constexpr int NTHREAD = NWARP * 32;
 constexpr int GC = 4 * UH;          // gate columns per block (R)
 constexpr int KS = NWARP / 4;       // R in bf16: k-slices per gate
+constexpr int FTHREAD = 256;        // R in f32: 16 row pairs x 16 column quads
 
 typedef __nv_bfloat16 bf16;
 
@@ -135,7 +141,7 @@ __device__ __forceinline__ void store_f(bf16* p, float v) {
 
 // R's product for one block: part[k][r][q*UH + u] summed over k gives
 // (Io(h) @ W_hh)[r0 + r, q*H + u0 + u]. bf16: WMMA over KS k-slices; f32:
-// each thread four columns of one row over the whole k range (part[0]).
+// shared-memory tiles, the whole k range into part[0].
 __device__ __forceinline__ void fwd_product(
     const bf16* whh, const bf16* h_in, float (*part)[RB][GC], int u0, int r0,
     int H)
@@ -168,27 +174,67 @@ __device__ __forceinline__ void fwd_product(
                                 wmma::mem_row_major);
 }
 
+// f32: the tiles of h (RB rows) and of W_hh's GC columns (KT k each)
+// staged in shared memory, each of FTHREAD threads 2 rows x 4 columns of
+// one gate, its sums over k in order; the f32 sum needs part[0] only, so
+// the tiles sit in part[1] and part[2].
+template <int KT>
+__device__ __forceinline__ void fwd_product_tiles(
+    const float* whh, const float* h_in, float (*part)[RB][GC], int u0,
+    int r0, int H)
+{
+    static_assert(RB * (KT + 4) <= RB * GC && KT <= RB, "tiles in part");
+    float (*hs)[KT + 4] = reinterpret_cast<float (*)[KT + 4]>(part[1]);
+    float (*ws)[GC] = part[2];
+    const int tid = threadIdx.x;
+    const int rp = tid / 16, cq = tid % 16;  // rows 2rp, 2rp+1; columns 4cq..
+    const int ldw = 4 * H;
+    float acc[2][4] = {};
+    for (int k0 = 0; k0 < H; k0 += KT) {
+        for (int e = tid; e < RB * KT / 4; e += FTHREAD) {
+            const int row = e / (KT / 4), k4 = e % (KT / 4);
+            *reinterpret_cast<float4*>(&hs[row][4 * k4]) =
+                *reinterpret_cast<const float4*>(
+                    h_in + (size_t)(r0 + row) * H + k0 + 4 * k4);
+        }
+        // local column 4 c4 + i is gate c4 / 4, unit 4 (c4 % 4) + i
+        for (int e = tid; e < KT * GC / 4; e += FTHREAD) {
+            const int k = e / (GC / 4), c4 = e % (GC / 4);
+            *reinterpret_cast<float4*>(&ws[k][4 * c4]) =
+                *reinterpret_cast<const float4*>(
+                    whh + (size_t)(k0 + k) * ldw + (c4 / 4) * H + u0
+                    + 4 * (c4 % 4));
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+            const float a0 = hs[2 * rp][kk], a1 = hs[2 * rp + 1][kk];
+            const float4 w = *reinterpret_cast<const float4*>(&ws[kk][4 * cq]);
+            acc[0][0] = fmaf(a0, w.x, acc[0][0]);
+            acc[0][1] = fmaf(a0, w.y, acc[0][1]);
+            acc[0][2] = fmaf(a0, w.z, acc[0][2]);
+            acc[0][3] = fmaf(a0, w.w, acc[0][3]);
+            acc[1][0] = fmaf(a1, w.x, acc[1][0]);
+            acc[1][1] = fmaf(a1, w.y, acc[1][1]);
+            acc[1][2] = fmaf(a1, w.z, acc[1][2]);
+            acc[1][3] = fmaf(a1, w.w, acc[1][3]);
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[0][2 * rp + r][4 * cq + i] = acc[r][i];
+}
+
 __device__ __forceinline__ void fwd_product(
     const float* whh, const float* h_in, float (*part)[RB][GC], int u0,
     int r0, int H)
 {
-    const int rr = threadIdx.x / 16, cb = (threadIdx.x % 16) * 4;
-    const int ldw = 4 * H;
-    const float* hr = h_in + (size_t)(r0 + rr) * H;
-    const float* wc = whh + (cb / UH) * H + u0 + cb % UH;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    for (int k = 0; k < H; ++k) {
-        const float a = hr[k];
-        const float4 w = *reinterpret_cast<const float4*>(wc + (size_t)k * ldw);
-        a0 += a * w.x;
-        a1 += a * w.y;
-        a2 += a * w.z;
-        a3 += a * w.w;
-    }
-    part[0][rr][cb] = a0;
-    part[0][rr][cb + 1] = a1;
-    part[0][rr][cb + 2] = a2;
-    part[0][rr][cb + 3] = a3;
+    if (H % 32 == 0)
+        fwd_product_tiles<32>(whh, h_in, part, u0, r0, H);
+    else
+        fwd_product_tiles<16>(whh, h_in, part, u0, r0, H);
 }
 
 // S's product for one block: the sum over k of part[k][r][u] is
@@ -246,7 +292,14 @@ __device__ __forceinline__ void bwd_product(
     part[0][rr][u] = acc;
 }
 
-// R, one step: as kernel A's, with c and the activations kept for S.
+// the threads of R's step kernel: NTHREAD in bf16, FTHREAD in f32
+template <typename Io>
+__host__ __device__ constexpr int fwd_threads() {
+    return std::is_same<Io, bf16>::value ? NTHREAD : FTHREAD;
+}
+
+// R, one step: as kernel A's, with c and the activations kept for S. With
+// a_out null it stores h only: kernel A's f32 instance (lstm_recurrence_f32).
 template <typename Io, typename St>
 __global__ void __launch_bounds__(NTHREAD)
 lstm_train_fwd_step(const Io* __restrict__ xw,    // [N, 4H] at t
@@ -260,6 +313,7 @@ lstm_train_fwd_step(const Io* __restrict__ xw,    // [N, 4H] at t
                     int N, int H)
 {
     constexpr int nks = std::is_same<Io, bf16>::value ? KS : 1;
+    constexpr int nthr = fwd_threads<Io>();
     __shared__ __align__(32) float part[KS][RB][GC];
     const int u0 = blockIdx.x * UH;
     const int r0 = blockIdx.y * RB;
@@ -268,7 +322,7 @@ lstm_train_fwd_step(const Io* __restrict__ xw,    // [N, 4H] at t
     fwd_product(whh, h_in, part, u0, r0, H);
     __syncthreads();
 
-    for (int e = threadIdx.x; e < RB * UH; e += NTHREAD) {
+    for (int e = threadIdx.x; e < RB * UH; e += nthr) {
         const int rr = e / UH, u = e % UH;
         const int row = r0 + rr;
         if (row >= N) continue;
@@ -291,6 +345,7 @@ lstm_train_fwd_step(const Io* __restrict__ xw,    // [N, 4H] at t
         const float h = og * tanhf(cn);
         store_f(h_out + idx, h);
         store_f(h_next + idx, h);
+        if (a_out == nullptr) continue;  // uniform: kernel A in f32
         store_f(c_out + idx, cn);
         St* a = a_out + (size_t)row * ldw + unit;
         store_f(a, ig);
@@ -729,12 +784,14 @@ int train_fwd(const void* xw, const void* whh, void* h, void* c_out,
     const size_t plane = (size_t)Np * H;
     for (int step = 0; step < T; ++step) {
         const int t = reverse ? T - 1 - step : step;
-        lstm_train_fwd_step<Io, St><<<grid, NTHREAD, 0, s>>>(
+        St* c_t = c_out ? static_cast<St*>(c_out) + (size_t)t * N * H
+                        : nullptr;
+        St* a_t = acts ? static_cast<St*>(acts) + (size_t)t * N * 4 * H
+                       : nullptr;
+        lstm_train_fwd_step<Io, St><<<grid, fwd_threads<Io>(), 0, s>>>(
             x + (size_t)t * N * 4 * H, w, hb + (step & 1) * plane,
             hb + ((step + 1) & 1) * plane,
-            static_cast<Io*>(h) + (size_t)t * N * H,
-            static_cast<St*>(c_out) + (size_t)t * N * H,
-            static_cast<St*>(acts) + (size_t)t * N * 4 * H,
+            static_cast<Io*>(h) + (size_t)t * N * H, c_t, a_t,
             static_cast<float*>(cbuf), N, H);
         if (step == 0) {
             const cudaError_t err = cudaGetLastError();
@@ -799,6 +856,21 @@ extern "C" int lstm_train_fwd(const void* xw, const void* whh, void* h,
                      : (round_bf16 ? train_fwd<bf16, bf16>
                                    : train_fwd<bf16, float>);
     return fn(xw, whh, h, c, acts, hbuf, cbuf, T, N, Np, H, reverse, s);
+}
+
+// Kernel A in f32 (an f32 model: evaluate, a --no-amp validation): R's f32
+// step kernel storing h only. xw [T, N, 4H], whh [H, 4H] (at a 16-byte
+// address), out [T, N, H], all f32; hbuf [2, Np, H] f32 and cbuf [N, H] f32
+// zeroed scratch; Np a multiple of RB (32), H a multiple of 16.
+extern "C" int lstm_recurrence_f32(const void* xw, const void* whh,
+                                   void* out, void* hbuf, void* cbuf,
+                                   int T, int N, int Np, int H, int reverse,
+                                   void* stream)
+{
+    if (!shapes_ok(T, N, Np, H)) return (int)cudaErrorInvalidValue;
+    return train_fwd<float, float>(xw, whh, out, nullptr, nullptr, hbuf,
+                                   cbuf, T, N, Np, H, reverse,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // whh [H, 4H] in Io, acts [T, N, 4H] and c [T, N, H] as R wrote them, g_h

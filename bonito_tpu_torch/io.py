@@ -1,10 +1,10 @@
 """
 Output layer of the port, bonito_tpu's (``bonito_tpu/io.py``) copied: the
-SAM/BAM/fastq writers and the read summary of the basecaller, the CTC
-training-data writer of ``--save-ctc``, and the training logs
-(``CSVLogger``). BAM is ``bonito_tpu_torch.bam``'s. The format follows the
-name stdout is redirected to, as in upstream bonito (bonito/io.py:35-54).
-CRAM is not written yet: ROADMAP Queue 1 item 14.
+SAM/BAM/CRAM/fastq writers and the read summary of the basecaller, the
+duplex consensus writer, the CTC training-data writer of ``--save-ctc``,
+and the training logs (``CSVLogger``). BAM is ``bonito_tpu_torch.bam``'s,
+CRAM ``bonito_tpu_torch.cram``'s. The format follows the name stdout is
+redirected to, as in upstream bonito (bonito/io.py:35-54).
 """
 
 import csv
@@ -230,6 +230,29 @@ def summary_row(read, seqlen, qscore, alignment=False):
     return row
 
 
+def duplex_summary_row(read_temp, read_comp, seqlen, qscore, alignment=False):
+    """summary.tsv row for a duplex pair: upstream bonito's exact column
+    set (bonito/io.py:261-340), so that downstream tooling parses it."""
+    row = {
+        "filename_template": getattr(read_temp, "filename", ""),
+        "read_id_template": read_temp.read_id,
+        "filename_complement": getattr(read_comp, "filename", ""),
+        "read_id_complement": read_comp.read_id,
+        "run_id": getattr(read_temp, "run_id", ""),
+        "channel_template": getattr(read_temp, "channel", 0),
+        "mux_template": getattr(read_temp, "mux", 0),
+        "channel_complement": getattr(read_comp, "channel", 0),
+        "mux_complement": getattr(read_comp, "mux", 0),
+        "sequence_length_duplex": seqlen,
+        "mean_qscore_duplex": qscore,
+    }
+    aligned_part = summary_row(read_temp, seqlen, qscore, alignment=alignment)
+    for key in summary_field_names(aligned=True)[11:]:
+        if key in aligned_part:
+            row[key] = aligned_part[key]
+    return row
+
+
 class CSVLogger:
     """Append-only CSV sink for per-step/per-epoch metrics (the training
     logs ``losses_N.csv`` and ``training.csv``).
@@ -331,7 +354,8 @@ class RejectCounter(defaultdict):
 class Writer(Thread):
     """
     Output writer thread: pulls (read, result) items, applies the min-qscore
-    filter, emits SAM/BAM/fastq + summary rows (reference: bonito/io.py:400-469).
+    filter, emits SAM/BAM/CRAM/fastq + summary rows (reference:
+    bonito/io.py:400-469).
     """
 
     def __init__(self, mode, iterator, aligner=None, fd=None, groups=None,
@@ -340,7 +364,7 @@ class Writer(Thread):
         self.mode = mode
         self.fastq = mode == "wfq"
         self.fd = fd if fd is not None else (
-            sys.stdout.buffer if mode == "wb" else sys.stdout)
+            sys.stdout.buffer if mode in ("wb", "wc") else sys.stdout)
         self.log = []
         self.aligner = aligner
         self.iterator = iterator
@@ -356,11 +380,16 @@ class Writer(Thread):
         names_lengths = getattr(aligner, "seq_names_lengths", None)
         sq = names_lengths() if callable(names_lengths) else []
         header_text = sam_header(groups=groups, sq=sq)
-        if mode == "wc":
-            raise NotImplementedError(
-                "CRAM output is not ported yet: ROADMAP Queue 1 item 14")
         if mode == "wb":
             self._bam = BAMWriter(self.fd, header_text, sq)
+        elif mode == "wc":
+            from bonito_tpu_torch.cram import CramWriter
+            # with an aligner the mappings carry their reference span:
+            # reference-based CRAM (RR=true, implicit match stretches and
+            # substitution codes, what htslib writes when given a fasta),
+            # which decodes with the same fasta; else referenceless
+            self._bam = CramWriter(self.fd, header_text, sq,
+                                   reference_based=aligner is not None)
         elif mode == "w":
             self.fd.write(header_text)
 
@@ -375,7 +404,7 @@ class Writer(Thread):
     def write(self, read, seq, qstring, mapping, tags):
         if self.fastq:
             write_fastq(read.read_id, seq, qstring, fd=self.fd, tags=tags)
-        elif self.mode == "wb":
+        elif self.mode in ("wb", "wc"):
             self._bam.write(read.read_id, seq, qstring, mapping=mapping,
                             tags=tags)
         else:
@@ -434,6 +463,45 @@ class Writer(Thread):
         if self._exc is not None:
             raise self._exc
         return self.rejected
+
+
+class DuplexWriter(Writer):
+    """Writer for duplex consensus pairs (read ids 'tmpl;compl')."""
+
+    def _run(self):
+        for (read_pair, res) in self.iterator:
+            template, complement = read_pair
+            read_id = f"{template.read_id};{complement.read_id}"
+            seq = res["sequence"]
+            qstring = res.get("qstring", "*")
+            mean_q = res.get("mean_qscore")
+            if mean_q is None:  # .get default would eagerly scan the qstring
+                mean_q = mean_qscore_from_qstring(qstring)
+            mapping = res.get("mapping", None)
+            # log BEFORE filtering (like Writer.run and the reference)
+            # so the CLI's read/base totals count processed pairs, not
+            # just accepted ones
+            self.log.append((read_id, len(seq)))
+            if self.rejected(len(seq) == 0, "zero length"):
+                continue
+            if self.rejected(mean_q < self.min_qscore,
+                             f"qscore < {self.min_qscore}"):
+                continue
+
+            class _Stub:
+                pass
+            stub = _Stub()
+            stub.read_id = read_id
+            stub.signal = np.empty(0)
+            self.write(stub, seq, qstring, mapping, tags=[
+                f"qs:f:{mean_q:.4f}"])
+            self._summary_logger().append(duplex_summary_row(
+                template, complement, len(seq), mean_q,
+                alignment=mapping if self.aligner else False))
+        if self._bam is not None:
+            self._bam.close()
+        if self._summary is not None:
+            self._summary.close()
 
 
 class CTCWriter(Writer):

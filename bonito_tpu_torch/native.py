@@ -1,11 +1,13 @@
 """
 The host libraries the port builds from the repository's C++ sources in
 ``native/`` (read, never edited), bound with ctypes: ``align``
-(``native/align/align.cpp``: Smith-Waterman for the accuracy metric),
+(``native/align/align.cpp``: Smith-Waterman for the accuracy metric and
+the global edit alignment of ``duplex``),
 ``vbz`` (``native/vbz/vbz.cpp``: the svb16 layer of pod5's VBZ signal
 codec), ``mapper`` (``native/mapper/mapper.cpp``: the minimiser
-mapper of the basecaller's ``--reference`` stage) and ``ctcbeam``
-(``native/ctc/ctcbeam.cpp``: the conv-CTC family's prefix beam search).
+mapper of the basecaller's ``--reference`` stage), ``ctcbeam``
+(``native/ctc/ctcbeam.cpp``: the conv-CTC family's prefix beam search)
+and ``rans`` (``native/rans/rans.cpp``: the rANS codec of CRAM's blocks).
 
 Each is compiled with g++ at first use into ``bonito_tpu_torch/build/``,
 named by the source's content hash so a stale build never loads. A failed
@@ -36,6 +38,11 @@ def _bind_align(lib):
         c_char_p, i32, c_char_p, i32,
         i32, i32, i32, i32, i64,
         p_i32, p_i32, p_i32, p_i32, p_i32,
+        c_char_p, p_i32, i32,
+    ]
+    lib.nw_align.restype = ctypes.c_int
+    lib.nw_align.argtypes = [
+        c_char_p, i32, c_char_p, i32, i64, p_i32,
         c_char_p, p_i32, i32,
     ]
 
@@ -77,10 +84,22 @@ def _bind_ctcbeam(lib):
     ]
 
 
+def _bind_rans(lib):
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.rans_compress_bound.restype = ctypes.c_int64
+    lib.rans_compress_bound.argtypes = [ctypes.c_uint32, ctypes.c_int]
+    lib.rans_compress.restype = ctypes.c_int64
+    lib.rans_compress.argtypes = [u8p, ctypes.c_uint32, ctypes.c_int, u8p]
+    lib.rans_uncompress.restype = ctypes.c_int
+    lib.rans_uncompress.argtypes = [u8p, ctypes.c_uint32, u8p,
+                                    ctypes.c_uint32]
+
+
 SPECS = {"align": (["align/align.cpp"], _bind_align),
          "vbz": (["vbz/vbz.cpp"], _bind_vbz),
          "mapper": (["mapper/mapper.cpp"], _bind_mapper),
-         "ctcbeam": (["ctc/ctcbeam.cpp"], _bind_ctcbeam)}
+         "ctcbeam": (["ctc/ctcbeam.cpp"], _bind_ctcbeam),
+         "rans": (["rans/rans.cpp"], _bind_rans)}
 
 
 def build(name):

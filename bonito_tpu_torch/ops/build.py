@@ -39,6 +39,8 @@ IP = ctypes.POINTER(ctypes.c_int)  # a host int the C function writes
 SIGNATURES = {
     # xw, w_hh, out, hbuf, cbuf, T, N, Np, H, reverse, stream
     "lstm_recurrence_bf16": [P, P, P, P, P, I, I, I, I, I, P],
+    # kernel A's f32 step kernel: as lstm_recurrence_bf16, all in f32
+    "lstm_recurrence_f32": [P, P, P, P, P, I, I, I, I, I, P],
     # xw, wt, out, hbuf, flags, T, N, n0, rows, H, mt, slices, kc, stages,
     # cluster, reverse, stream
     "lstm_recurrence_persistent": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
@@ -61,12 +63,17 @@ SIGNATURES = {
     "lstm_fused_bf16": [P, P, P, P, P, I, I, I, I, I, P],
     # kernel F on its mma kernel: as F
     "lstm_fused_mma": [P, P, P, P, P, I, I, I, I, I, P],
+    # kernel F in f32 (its FFMA kernel): as F, all in f32
+    "lstm_fused_f32": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # moves, move_in, choices, c, logz, end_state, N, T, S, p_stay,
     # blank, stream
     "decode_tcn_fwd_bf16": [P, P, P, P, P, P, I, I, I, F, F, P],
     # moves, move_in, choices, c, logz, end_state, sequence, qstring,
     # moves_out, N, T, S, p_stay, qscale, qbias, stream
     "decode_tcn_bwd_bf16": [P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, P],
+    # the same on f32 moves
+    "decode_tcn_fwd_f32": [P, P, P, P, P, P, I, I, I, F, F, P],
+    "decode_tcn_bwd_f32": [P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, P],
     # kernels B and C on a ring of frames (csrc/decode_tcn_ring.cu): as the
     # two above, with the ring's depth after S
     "decode_tcn_fwd_ring": [P, P, P, P, P, P, I, I, I, I, F, F, P],

@@ -27,7 +27,10 @@ give the kernels' bits, qualities included (``csrc/decode_passes.cuh`` says
 why that matters).
 
 ``tcn_forward``/``tcn_backward`` run the plain version for a tensor on the
-CPU and the kernel for a tensor on the card; never one for the other.
+CPU and the kernel for a tensor on the card; never one for the other. The
+kernels take bf16 moves (a half=True model) or f32 moves (an f32 model: a
+``--no-amp`` validation), each on its own instance of the ring and of the
+earlier kernels.
 """
 
 import math
@@ -162,9 +165,9 @@ def tcn_backward_plain(moves, move_in, choices, cs, logz, end_state, stay,
 def _check_cuda(moves):
     if moves.device.type != "cuda":
         raise ValueError(f"decode kernels need a CUDA tensor, got {moves.device}")
-    if moves.dtype != torch.bfloat16:
-        raise TypeError(f"decode kernels take bf16 moves (a half=True "
-                        f"model), got {moves.dtype}")
+    if moves.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"decode kernels take bf16 or f32 moves, got "
+                        f"{moves.dtype}")
     if moves.dim() != 3 or not moves.is_contiguous():
         raise ValueError("decode kernels take contiguous moves [N, T, nb*S]")
     N, T, Cm = moves.shape
@@ -221,10 +224,10 @@ def decode_plan(N, T, S, sms=None, dtype=torch.bfloat16):
     earlier kernels run. One CTA per batch row: S / 4 consumer threads
     (rounded up to whole warps) with four states each, a producer warp that
     copies the frames and an epilogue warp that does the per-frame work of
-    one thread. B and C read bf16 moves; the f32 instance is the ring of
-    GW's and JW's passes (``ops.decode_fused_cuda.wide_decode_plan``), a
-    slot of 16S bytes (21S for the backward pass): RING frames fit at 1024
-    states too."""
+    one thread. An f32 model's moves take the f32 instance, which is also
+    the ring of GW's and JW's passes (``ops.decode_fused_cuda.
+    wide_decode_plan``): a slot of 16S bytes (21S for the backward pass),
+    RING frames fit at 1024 states too."""
     if N < 1 or T < 1 or S % 16 or not 16 <= S <= 1024:
         return None
     row = NB * S * (4 if dtype == torch.float32 else 2)
@@ -240,12 +243,13 @@ def decode_plan(N, T, S, sms=None, dtype=torch.bfloat16):
     return plan
 
 
-def decode_entry(plan, backward):
-    """The C entry a plan launches: the ring's, or the earlier kernel's
-    where the plan is None."""
-    if plan is None:
-        return "decode_tcn_bwd_bf16" if backward else "decode_tcn_fwd_bf16"
-    return "decode_tcn_bwd_ring" if backward else "decode_tcn_fwd_ring"
+def decode_entry(plan, backward, dtype=torch.bfloat16):
+    """The C entry a plan launches on moves of ``dtype``: the ring's, or
+    the earlier kernel's where the plan is None."""
+    name = "decode_tcn_" + ("bwd" if backward else "fwd")
+    if plan is not None:
+        return name + ("_ring_f32" if dtype == torch.float32 else "_ring")
+    return name + ("_f32" if dtype == torch.float32 else "_bf16")
 
 
 def _sms(device):
@@ -273,10 +277,11 @@ def _forward(counter, moves, blank):
     end_state = torch.empty(N, dtype=torch.int32, device=dev)
     plan = None
     if counter is not None:
-        plan = decode_plan(N, T, S, _sms(dev)) if _aligned(moves) else None
+        plan = (decode_plan(N, T, S, _sms(dev), moves.dtype)
+                if _aligned(moves) else None)
         counter.plan = plan
         counter.launches += 1
-    entry = decode_entry(plan, False)
+    entry = decode_entry(plan, False, moves.dtype)
     args = [moves.data_ptr(), move_in.data_ptr(), choices.data_ptr(),
             cs.data_ptr(), logz.data_ptr(), end_state.data_ptr(), N, T, S]
     args += [] if plan is None else [plan["fwd"]["ring"]]
@@ -296,14 +301,14 @@ def _backward(counter, moves, move_in, choices, cs, logz, end_state, blank,
     out = torch.empty(3, N, T, dtype=torch.uint8, device=moves.device)
     plan = None
     if counter is not None:
-        plan = (decode_plan(N, T, S, _sms(moves.device))
+        plan = (decode_plan(N, T, S, _sms(moves.device), moves.dtype)
                 if _aligned(moves, move_in, choices) else None)
         counter.plan = plan
         counter.launches += 1
     args = [moves.data_ptr(), move_in.data_ptr(), choices.data_ptr(),
             cs.data_ptr(), logz.data_ptr(), end_state.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), N, T, S]
-    entry = decode_entry(plan, True)
+    entry = decode_entry(plan, True, moves.dtype)
     args += [] if plan is None else [plan["bwd"]["ring"]]
     args += [math.exp(blank), float(qscale), float(qbias)]
     build.check(getattr(lib, entry)(*args, build.stream_of(moves)), entry)

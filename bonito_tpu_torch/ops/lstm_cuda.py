@@ -138,16 +138,19 @@ def lstm_recurrence_plain(xw, w_hh, reverse=False):
 
 def lstm_recurrence(xw, w_hh, reverse=False):
     """The recurrence of ``lstm_recurrence_plain``: the plain version for
-    a CPU tensor, kernel A for a CUDA tensor (bf16 only)."""
+    a CPU tensor, kernel A for a CUDA tensor: bf16 (the persistent kernel
+    on ``persistent_plan``'s plan, else the step kernel) or f32 (the f32
+    step kernel, h in f32; plan None)."""
     if xw.device.type == "cpu":
         return lstm_recurrence_plain(xw, w_hh, reverse=reverse)
     build.refuse_grad("A", [xw, w_hh], build.TRAIN_ROUTE)
     if xw.device.type != "cuda" or w_hh.device != xw.device:
         raise ValueError(f"kernel A needs xw and w_hh on one CUDA device, "
                          f"got {xw.device} and {w_hh.device}")
-    if xw.dtype != torch.bfloat16 or w_hh.dtype != torch.bfloat16:
-        raise TypeError(f"kernel A takes bf16 xw and w_hh (a half=True "
-                        f"model), got {xw.dtype} and {w_hh.dtype}")
+    if (xw.dtype not in (torch.bfloat16, torch.float32)
+            or w_hh.dtype != xw.dtype):
+        raise TypeError(f"kernel A takes xw and w_hh both bf16 or both f32, "
+                        f"got {xw.dtype} and {w_hh.dtype}")
     T, N, G = xw.shape
     H = G // 4
     if G != 4 * H or H % 16 or tuple(w_hh.shape) != (H, 4 * H) or T < 1:
@@ -159,21 +162,22 @@ def lstm_recurrence(xw, w_hh, reverse=False):
     lib = build.library()
     out = torch.empty(T, N, H, dtype=xw.dtype, device=xw.device)
     sms = torch.cuda.get_device_properties(xw.device).multi_processor_count
-    plan = persistent_plan(N, H, sms)
+    f32 = xw.dtype == torch.float32
+    plan = None if f32 else persistent_plan(N, H, sms)
     lstm_recurrence.plan = plan
     stream = build.stream_of(xw)
     if plan is None:
         w = w_hh.contiguous()
-        if w.data_ptr() % 32:  # WMMA loads need 32-byte alignment
+        if w.data_ptr() % 32:  # WMMA and float4 loads need the alignment
             w = w.clone()
         Np = -(-N // ROW_BLOCK) * ROW_BLOCK
         hbuf = torch.zeros(2, Np, H, dtype=xw.dtype, device=xw.device)
         cbuf = torch.zeros(N, H, dtype=torch.float32, device=xw.device)
+        entry = "lstm_recurrence_f32" if f32 else "lstm_recurrence_bf16"
         lstm_recurrence.launches += 1
-        build.check(lib.lstm_recurrence_bf16(
+        build.check(getattr(lib, entry)(
             xw.data_ptr(), w.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
-            cbuf.data_ptr(), T, N, Np, H, int(bool(reverse)), stream),
-            "lstm_recurrence_bf16")
+            cbuf.data_ptr(), T, N, Np, H, int(bool(reverse)), stream), entry)
         return out
     wt = w_hh.t().contiguous()  # [4H, H]: a gate column's k contiguous
     rows, slices = plan["rows"], plan["slices"]

@@ -111,6 +111,32 @@ def fused_plan(N, C, H, sms=None):
     return _plan(C, H, -(-N // MMA_ROWS), sms)
 
 
+F32_ROWS = 8  # batch rows a block of the f32 kernel
+F32_REGISTER_H = 96  # the one H whose W_hh column a thread keeps (fast's)
+SMEM_LIMIT = 232448  # the most shared memory a block may ask for
+
+
+def f32_plan(N, C, H):
+    """The f32 kernel's plan (``csrc/lstm_fused.cu:lstm_fused_f32``, which
+    takes it as given) for x [T, N, C] and W_hh [H, 4H]: 8 rows a block, a
+    thread per gate column (4H), W_hh's column in the thread's registers at
+    H 96 (the one instance built so; else read through L2 every step), W_ih
+    in shared memory where it fits beside the step's rows of x, h and the
+    gates (else it too is read through L2), and the shared memory that
+    layout asks for. Raises for a shape kernel F does not take."""
+    if N < 1 or not fused_supported(C, H):
+        raise ValueError(f"kernel F takes N >= 1 and C, H multiples of "
+                         f"{TILE}, at most {MAX_C} and {MAX_H}: got N={N}, "
+                         f"C={C}, H={H}")
+    rows = F32_ROWS * (C + H + 4 * H) * 4
+    wih_in_smem = C * 4 * H * 4 + rows <= SMEM_LIMIT
+    return {"dtype": "f32", "rows": F32_ROWS, "threads": 4 * H,
+            "ctas": -(-N // F32_ROWS),
+            "whh_in_registers": H == F32_REGISTER_H,
+            "wih_in_smem": wih_in_smem,
+            "smem": rows + (C * 4 * H * 4 if wih_in_smem else 0)}
+
+
 def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -123,10 +149,10 @@ def _aligned(w):
 
 def lstm_fused(x, w_ih, w_hh, b, reverse=False):
     """``lstm_fused_plain``'s function: the plain version for a CPU
-    tensor, kernel F for a CUDA tensor (bf16; C and H as
-    ``fused_supported`` says): the mma kernel where ``fused_plan`` gives a
-    plan (``lstm_fused.plan`` holds the last call's), else the earlier
-    kernel."""
+    tensor, kernel F for a CUDA tensor (C and H as ``fused_supported``
+    says). bf16: the mma kernel where ``fused_plan`` gives a plan, else the
+    earlier kernel; f32: the f32 kernel on ``f32_plan``'s plan.
+    ``lstm_fused.plan`` holds the last call's plan."""
     if x.device.type == "cpu":
         return lstm_fused_plain(x, w_ih, w_hh, b, reverse=reverse)
     return _launch(lstm_fused, x, w_ih, w_hh, b, reverse)
@@ -148,10 +174,10 @@ def _launch(counter, x, w_ih, w_hh, b, reverse):
         raise ValueError(f"kernel F needs x, w_ih and w_hh on one CUDA "
                          f"device, got {x.device}, {w_ih.device} and "
                          f"{w_hh.device}")
-    if any(t.dtype != torch.bfloat16 for t in (x, w_ih, w_hh)):
-        raise TypeError(f"kernel F takes bf16 x, w_ih and w_hh (a half=True "
-                        f"model), got {x.dtype}, {w_ih.dtype} and "
-                        f"{w_hh.dtype}")
+    if (x.dtype not in (torch.bfloat16, torch.float32)
+            or any(t.dtype != x.dtype for t in (w_ih, w_hh))):
+        raise TypeError(f"kernel F takes x, w_ih and w_hh all bf16 or all "
+                        f"f32, got {x.dtype}, {w_ih.dtype} and {w_hh.dtype}")
     T, N, C = x.shape
     H = w_hh.shape[0]
     if (tuple(w_ih.shape) != (C, 4 * H) or tuple(w_hh.shape) != (H, 4 * H)
@@ -165,7 +191,19 @@ def _launch(counter, x, w_ih, w_hh, b, reverse):
             else b.to(device=x.device, dtype=torch.float32).contiguous())
     if bias.numel() != 4 * H:
         raise ValueError(f"kernel F: b has {bias.numel()} values, not {4 * H}")
-    out = torch.empty(T, N, H, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(T, N, H, dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        if counter is None:
+            raise TypeError("kernel F's earlier kernel takes bf16 only")
+        plan = counter.plan = f32_plan(N, C, H)
+        counter.launches += 1
+        x, w_ih = _aligned(x), _aligned(w_ih)  # float4 loads
+        build.check(build.library().lstm_fused_f32(
+            x.data_ptr(), w_ih.data_ptr(), w_hh.contiguous().data_ptr(),
+            bias.data_ptr(), out.data_ptr(), T, N, C, H, int(bool(reverse)),
+            int(plan["whh_in_registers"]), int(plan["wih_in_smem"]),
+            plan["smem"], build.stream_of(x)), "lstm_fused_f32")
+        return out
     plan = None
     if counter is not None:
         plan = fused_plan(N, C, H, _sms(x.device))

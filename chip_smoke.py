@@ -219,9 +219,9 @@ PyTorch built for CUDA. In order, it:
     loss's route (F.ctc_loss in f64) against the plain recursion in f64
     on one batch (F.ctc_loss in f32 and the recursion in f32 beside it);
     one ``train`` CLI epoch; ``evaluate`` on 64 chunks, its seqs.fasta
-    ``decode_batch``'s in this process, and its refusal (item 13) of an f32
-    hac directory; one f32 batch on the card against the CPU with TF32 on
-    and off; ``view``'s parameter count.
+    ``decode_batch``'s in this process (the LSTM-CRF family's f32
+    ``evaluate`` is phase 15's); one f32 batch on the card against the CPU
+    with TF32 on and off; ``view``'s parameter count.
 14. runs upstream bonito's model directories (a ``config.toml`` with
     ``bonito.*`` package names and ``weights_1.tar``): hac, sup and conv-CTC
     at full width with phase 4's and 13's weights, written by ``python -m
@@ -244,9 +244,33 @@ PyTorch built for CUDA. In order, it:
     times and bounds; ``download --models --select`` from a ``file://``
     zip of the hac ``.tar`` directory (its ``.npz`` the import); ``export
     --format dorado`` of it, each ``.tensor`` read back with
-    ``torch.jit.load`` equal to the BatchNorm-fused state.
+    ``torch.jit.load`` equal to the BatchNorm-fused state;
+15. runs f32 on the card: kernel A's f32 step kernel at hac's width (N
+    96, T 1666, H 1024) and at H 768, kernel F's f32 kernel at fast's (N
+    1024, T 1200, C = H = 96), both directions, against their plain
+    versions within LSTM_ATOL / LSTM_MEAN_TOL, and B and C on their f32
+    ring at S 1024 (hac) and S 64 (fast) against their plain versions bit
+    for bit on all eight outputs, with times, bounds (f32 FMA or bytes)
+    and cuDNN's f32 LSTM; ``evaluate`` (f32, as bonito_tpu loads it) of
+    the hac, fast and an old-style directory on the card (A or F in f32,
+    then M and Q; launch counts) and with ``--device cpu`` on the same
+    chunks (at most F32_EVAL_MAX_DIFFER of them called otherwise; one
+    batch's card scores decode alike on both), and on the card again at
+    evaluate's defaults (512 chunks in two batches of 256) for its rate; one
+    ``train --no-amp`` epoch of hac and of fast (R and S on their step
+    kernels, then the validation through A or F in f32, U, Y, and B and C
+    on the f32 ring), with the validation's time; the basecaller from
+    phase 12's hac reads to BAM and to CRAM, referenceless and with
+    ``--reference`` (a FASTA of the calls), each CRAM's records the BAM's
+    (the port's ``CramReader``), with the rates and sizes; ``duplex`` on
+    that BAM and CRAM and on a BAM and CRAM of the calls with their
+    complement strands, to fastq and SAM on spawned workers, each record
+    ``call_basespace_duplex``'s in process, and no kernel launched.
 
-Then it prints one ``kernels`` JSON line with all twenty-six kernels (F's,
+Then it prints one ``kernels`` JSON line with all twenty-six kernels and
+the f32 instances of A, F, B and C (phase 15's f32 paths, evaluate and
+the ``--no-amp`` epochs, in their ``by_path``; every kernel's ``by_path``
+gains all of phase 15's paths) (F's,
 G's and J's with their plans, their earlier kernels' times and the fast
 device steps on both; K's, H's and O's with their plans and their earlier
 kernel's time; B's and C's with their plan, their earlier kernels' times
@@ -499,6 +523,7 @@ def ptxas_summary(report):
                              r"lstm_int8_step|lstm_int8_persistent|"
                              r"lstm_train_(?:fwd|bwd)_step|"
                              r"lstm_fused_bf16_kernel|lstm_fused_mma_kernel|"
+                             r"lstm_fused_f32_kernel|"
                              r"fused_rotary_window_attention_kernel|"
                              r"window_attention_kernel|"
                              r"window_attention_bwd_kernel|"
@@ -523,6 +548,8 @@ def ptxas_summary(report):
                                m.group(1))
             window_bwd = re.search(r"window_attention_bwd_kernelILi(\d+)EE",
                                    m.group(1))
+            f32f = re.search(r"lstm_fused_f32_kernelILi(\d+)EE",
+                             m.group(1))
             mma = re.search(r"lstm_fused_mma_kernelILi(\d+)ELi(\d+)EE",
                             m.group(1))
             zsplit = re.search(r"lattice_bwd_split_kernelILi(\d+)ELi(\d+)EE",
@@ -540,6 +567,10 @@ def ptxas_summary(report):
             elif mma:
                 name = (f"{name}<C={16 * int(mma.group(1))}, H="
                         f"{16 * int(mma.group(2))}, weights in registers>")
+            elif f32f:
+                kh = int(f32f.group(1))
+                name = (f"{name}<W_hh's column in registers at H={16 * kh}>"
+                        if kh else f"{name}<W_hh through L2>")
             elif jring:
                 name = (f"{name}<H={16 * int(jring.group(1))}, "
                         f"{jring.group(2)} m-tiles a head warp>")
@@ -2558,13 +2589,13 @@ def train_step_phase(torch, counters, dev):
 
 
 def train_cli(torch, counters, config, n, chunk, length, batches, own,
-              valid, name):
+              valid, name, extra=()):
     """``python -m bonito_tpu_torch train --config config`` in this process
     on a generated npy set under the build directory: ``batches`` training
     batches of ``n`` x ``chunk`` samples with targets of length/2 to
-    ``length`` bases and one validation batch, one epoch. ``own``: each
-    kernel's launches per training batch; ``valid``: the validation
-    batch's."""
+    ``length`` bases and one validation batch, one epoch (``extra``: more
+    arguments, as ``--no-amp``). ``own``: each kernel's launches per
+    training batch; ``valid``: the validation batch's."""
     from bonito_tpu_torch.cli import main as cli_main
     from bonito_tpu_torch.ops import build
     root = build.BUILD / f"chip_smoke_train_{name}"
@@ -2587,7 +2618,7 @@ def train_cli(torch, counters, config, n, chunk, length, batches, own,
     t0 = time.perf_counter()
     cli_main(["train", str(work), "--config", config, "--directory",
               str(root / "data"), "--batch", str(n), "--epochs", "1",
-              "--seed", str(SEED)])
+              "--seed", str(SEED), *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
@@ -3433,8 +3464,7 @@ def ctc_phase(torch, counters, dev, dirs, card):
     step and the host decode, the cuDNN pieces, the basecaller CLI from
     pod5 to fastq, BAM and SAM against in-process ``basecall``, a train
     step and F.ctc_loss against the plain loss, one train CLI epoch,
-    ``evaluate`` (and its item-13 refusal), f32 on the card against the
-    CPU, ``view``. Every hand kernel's count is 0 on each path."""
+    ``evaluate``, f32 on the card against the CPU, ``view``. Every hand kernel's count is 0 on each path."""
     import contextlib
     from functools import partial
 
@@ -3756,8 +3786,7 @@ def ctc_phase(torch, counters, dev, dirs, card):
     launches["ctc_train_cli"] = epoch["launches"]
     zero_launches(counters, "ctc_train_cli", epoch["launches"])
 
-    # (f) evaluate on the card, against decode_batch in this process; an
-    # f32 hac directory refuses (kernel A takes bf16 only)
+    # (f) evaluate on the card, against decode_batch in this process
     data = root / "eval_data"
     rng_e = np.random.default_rng(SEED + 3)
     for sub in ("", "validation"):
@@ -3796,14 +3825,6 @@ def ctc_phase(torch, counters, dev, dirs, card):
         f"(the f32 convolutions run in TF32: {tf32[0]})")
     for line in summary:
         log(f"    {line}")
-    try:
-        cli_main(["evaluate", str(dirs["bf16"]), "--directory", str(data)])
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    require(refused and "item 13" in refused,
-            f"evaluate of an f32 hac directory did not refuse: {refused}")
-    log(f"  evaluate of the hac directory (f32): refused: {refused}")
 
     # (g) f32 on the card against the CPU, with TF32 on and off
     x = np.random.default_rng(SEED + 4).normal(
@@ -4301,6 +4322,464 @@ def upstream_phase(torch, counters, dev, dirs, cli_reads, card):
             "old_holds": holds, "h768": h768, "download_s": download_s,
             "export_s": export_s, "phase_s": phase_s}
 
+
+
+# phase 15: f32 on the card. Kernel A's f32 step kernel and kernel F's f32
+# kernel at full width against their plain versions (within the LSTM's
+# limits: f32 against f32, seen 9.4e-7 at H 768), B and C on their f32 ring
+# bit for bit; ``evaluate`` (half=False) of hac, fast and old-style
+# directories on the card and with --device cpu; one ``train --no-amp``
+# epoch with validation on hac and fast; the basecaller to CRAM with and
+# without --reference; ``duplex`` on its BAM and CRAM.
+F32_EVAL_CHUNKS, F32_EVAL_BATCH, F32_EVAL_LEN = 8, 8, 3000
+# evaluate's own defaults (--chunks 512, --batchsize 256: two batches), the
+# card only, for its rate
+F32_RATE_CHUNKS, F32_RATE_BATCH = 512, 256
+# evaluate on the card against --device cpu, f32 both: the card's kernels
+# and cuDNN (TF32 convolutions, torch's default) sum in other orders, and
+# where a random model's paths nearly tie the decode takes the other one;
+# the share of chunks whose call may differ (seen: 0 of 8 for hac, fast and
+# old-style, NVIDIA H100 80GB HBM3, torch 2.11.0+cu128)
+F32_EVAL_MAX_DIFFER = 0.125
+F32_TRAIN_N, F32_TRAIN_CHUNK, F32_TRAIN_L, F32_TRAIN_BATCHES = 16, 3000, 250, 2
+F32_DUPLEX_THREADS = 2
+
+
+def f32_kernels(torch, dev, lstm_cuda, lstm_fused_cuda, decode_cuda):
+    """A and F in f32 at full width against their plain versions (A at H
+    1024 and F both directions, A at H 768 forward); B and C on the f32
+    ring at S 1024 and 64 against their plain versions bit for bit; times
+    (each plain version's from its one call here), bounds, the library's
+    LSTM."""
+    out = {}
+    g = torch.Generator().manual_seed(SEED + 15)
+    for key, h, directions in (("A", H, (False, True)),
+                               ("A768", OLD_H, (False,))):
+        xw = torch.randn(T, N, 4 * h, generator=g).to(dev)
+        w_hh = (torch.randn(h, 4 * h, generator=g) / math.sqrt(h)).to(dev)
+        err = mean = 0.0
+        for reverse in directions:
+            got = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
+            torch.cuda.synchronize()
+            require(got.dtype == torch.float32
+                    and lstm_cuda.lstm_recurrence.plan is None,
+                    f"kernel A in f32: {got.dtype}, plan "
+                    f"{lstm_cuda.lstm_recurrence.plan}")
+            ref, plain = timed(torch, lambda: lstm_cuda.lstm_recurrence_plain(
+                xw, w_hh, reverse=reverse))
+            d = (got - ref).abs()
+            err, mean = max(err, d.max().item()), max(mean, d.mean().item())
+        require(torch.isfinite(got).all().item() and err <= LSTM_ATOL
+                and mean <= LSTM_MEAN_TOL,
+                f"kernel A in f32 at H {h}: max {err}, mean {mean}")
+        ms = cuda_ms(lambda: lstm_cuda.lstm_recurrence(xw, w_hh), reps=3)
+        x = torch.randn(T, N, h, device=dev)
+        cudnn = torch.nn.LSTM(h, h, device=dev)
+        cudnn.flatten_parameters()
+        with torch.no_grad():
+            lib = cuda_ms(lambda: cudnn(x), reps=3)
+        b = bound(T * N * 4 * h * 4 + h * 4 * h * 4 + T * N * h * 4,
+                  2 * N * h * 4 * h * T, H100_F32_OPS)
+        out[key] = dict(max_abs_err=err, mean_abs_err=mean, ms=ms,
+                        plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                        library_ms=lib, us_a_step=ms / T * 1e3,
+                        shape=[N, T, h])
+        log(f"  A in f32, N {N}, T {T}, H {h}: {ms:.4g} ms a layer "
+            f"({ms / T * 1e3:.4g} us a step; the step kernel, one count a "
+            f"call), plain {plain:.4g} ms, bound {b[0]:.4g} ms by {b[1]}, "
+            f"cuDNN torch.nn.LSTM f32 {lib:.4g} ms; max |h - plain| "
+            f"{err:.3g}, mean {mean:.3g}")
+        del xw, w_hh, x, cudnn
+
+    x = torch.tanh(torch.randn(FT, FN, FH, generator=g)).to(dev)
+    w_ih, w_hh = ((torch.randn(FH, 4 * FH, generator=g) / math.sqrt(FH)).to(
+        dev) for _ in range(2))
+    bias = (0.5 * torch.randn(4 * FH, generator=g)).to(dev)
+    err = mean = 0.0
+    for reverse, b in ((True, bias), (False, None), (False, bias)):
+        got = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, b, reverse=reverse)
+        torch.cuda.synchronize()
+        ref, plain = timed(torch, lambda: lstm_fused_cuda.lstm_fused_plain(
+            x, w_ih, w_hh, b, reverse=reverse))
+        d = (got - ref).abs()
+        err, mean = max(err, d.max().item()), max(mean, d.mean().item())
+    plan = lstm_fused_cuda.lstm_fused.plan
+    require(got.dtype == torch.float32 and plan is not None
+            and plan.get("dtype") == "f32" and plan["whh_in_registers"]
+            and plan["wih_in_smem"],
+            f"kernel F in f32 at fast widths: {got.dtype}, plan {plan}")
+    require(torch.isfinite(got).all().item() and err <= LSTM_ATOL
+            and mean <= LSTM_MEAN_TOL,
+            f"kernel F in f32: max {err}, mean {mean}")
+    ms = cuda_ms(lambda: lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, bias),
+                 reps=5)
+    cudnn = torch.nn.LSTM(FH, FH, device=dev)
+    cudnn.flatten_parameters()
+    with torch.no_grad():
+        lib = cuda_ms(lambda: cudnn(x), reps=5)
+    b = bound(2 * FT * FN * FH * 4 + 2 * FH * 4 * FH * 4 + 4 * FH * 4,
+              2 * FN * FT * (FH + FH) * 4 * FH, H100_F32_OPS)
+    out["F"] = dict(max_abs_err=err, mean_abs_err=mean, ms=ms,
+                    plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                    library_ms=lib, us_a_step=ms / FT * 1e3, plan=plan,
+                    shape=[FN, FT, FH, FH])
+    log(f"  F in f32, N {FN}, T {FT}, C = H = {FH}: {ms:.4g} ms a layer "
+        f"({ms / FT * 1e3:.4g} us a step), plain {plain:.4g} ms, bound "
+        f"{b[0]:.4g} ms by {b[1]}, cuDNN torch.nn.LSTM f32 {lib:.4g} ms; "
+        f"max |h - plain| {err:.3g}, mean {mean:.3g}; plan {plan}")
+    del x, w_ih, w_hh, cudnn
+
+    names = DECODE_OUTPUTS
+    for key, (n, t, s) in (("BC", (N, T, S)), ("BC64", (FN, FT, FS))):
+        moves = (2.0 * torch.randn(n, t, 4 * s, generator=g)).to(dev)
+        fwd = decode_cuda.tcn_forward(moves, 2.0)
+        res = decode_cuda.tcn_backward(moves, *fwd, 2.0, qscale=1.05,
+                                       qbias=0.2)
+        torch.cuda.synchronize()
+        plan = decode_cuda.tcn_forward.plan
+        require(plan is not None and decode_cuda.tcn_backward.plan == plan,
+                f"B and C on f32 moves at S {s} took the earlier kernels")
+        ref_fwd, plain_b = timed(
+            torch, lambda: decode_cuda.tcn_forward_plain(moves, 2.0))
+        ref, plain_c = timed(torch, lambda: decode_cuda.tcn_backward_plain(
+            moves, *ref_fwd, 2.0, qscale=1.05, qbias=0.2))
+        got = list(fwd) + [res[k] for k in ("sequence", "qstring", "moves")]
+        want = list(ref_fwd) + [ref[k] for k in ("sequence", "qstring",
+                                                   "moves")]
+        differ = [name for name, a, w in zip(names, got, want)
+                  if not torch.equal(a, w)]
+        require(not differ, f"B and C on the f32 ring at S {s} differ from "
+                            f"their plain versions in {differ}")
+        err_b = max((a.float() - w.float()).abs().max().item()
+                    for a, w in zip(got[:5], want[:5]))
+        err_c = max((a.float() - w.float()).abs().max().item()
+                    for a, w in zip(got[5:], want[5:]))
+        ms_b = cuda_ms(lambda: decode_cuda.tcn_forward(moves, 2.0), reps=3)
+        ms_c = cuda_ms(lambda: decode_cuda.tcn_backward(moves, *fwd, 2.0),
+                       reps=3)
+        r = s // 4
+        move_bytes = n * t * 4 * s * 4
+        bb = bound(move_bytes + n * t * s * 5 + n * t * 4 + n * 8,
+                   20 * n * t * s, H100_F32_OPS)
+        bc = bound(move_bytes + n * t * r * 4 + n * t * 5 + n * 8 + 3 * n * t,
+                   20 * n * t * s, H100_F32_OPS)
+        out[key] = {"B": dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                              bound_ms=bb[0], bound_by=bb[1]),
+                    "C": dict(max_abs_err=err_c, ms=ms_c, plain_ms=plain_c,
+                              bound_ms=bc[0], bound_by=bc[1]),
+                    "plan": plan, "shape": [n, t, s]}
+        log(f"  B and C on the f32 ring, N {n}, T {t}, S {s}: B {ms_b:.4g} "
+            f"ms (plain {plain_b:.4g}, bound {bb[0]:.4g} by {bb[1]}), C "
+            f"{ms_c:.4g} ms (plain {plain_c:.4g}, bound {bc[0]:.4g} by "
+            f"{bc[1]}); all eight outputs equal the plain versions' bit for "
+            f"bit")
+        del moves, fwd, res, ref_fwd, ref, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_eval_data(path, rows, chunk, seed):
+    """An npy training set of ``rows`` chunks of ``chunk`` samples with
+    references (as the train CLI reads it)."""
+    rng = np.random.default_rng(seed)
+    path.mkdir(parents=True)
+    length = chunk // 40
+    lengths = rng.integers(length // 2, length + 1, rows)
+    refs = rng.integers(1, 5, (rows, length))
+    refs[np.arange(length)[None] >= lengths[:, None]] = 0
+    np.save(path / "chunks.npy", rng.normal(size=(rows, chunk)).astype(
+        np.float16))
+    np.save(path / "references.npy", refs.astype(np.uint8))
+    np.save(path / "reference_lengths.npy", lengths.astype(np.uint16))
+    return path
+
+
+def f32_phase(torch, counters, dev, dirs, cli_reads, card):
+    """Phase 15: f32 on the card (the kernels, ``evaluate`` and a
+    ``--no-amp`` epoch), the basecaller to CRAM and ``duplex``."""
+    from bonito_tpu_torch import cram, training
+    from bonito_tpu_torch.bam import BAMWriter
+    from bonito_tpu_torch.checkpoint import save_params
+    from bonito_tpu_torch.cli import main as cli_main
+    from bonito_tpu_torch.config import save_config
+    from bonito_tpu_torch.crf.model import Model
+    from bonito_tpu_torch.duplex import SeqRecord, call_basespace_duplex
+    from bonito_tpu_torch.models import rnn_crf_config
+    from bonito_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_fused_cuda
+    from bonito_tpu_torch.util import load_model, revcomp
+
+    log("[15] f32 on the card: A and F in f32, B and C on the f32 ring, "
+        "evaluate and train --no-amp; CRAM output and duplex")
+    t_phase = time.perf_counter()
+    root = Path(dirs["int8"]).parent / "chip_smoke_f32"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    launches = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: c.launches for k, c in counters.items()}
+        return res
+
+    def require_launches(name, want):
+        full = {k: 0 for k in counters} | want
+        require(launches[name] == full,
+                f"{name}: launches {launches[name]}, expected {full}")
+
+    kernels = f32_kernels(torch, dev, lstm_cuda, lstm_fused_cuda,
+                          decode_cuda)
+    t_kernels = time.perf_counter() - t_phase
+
+    # (b) evaluate, f32 (half=False), on the card and with --device cpu
+    old = root / "old_style"
+    old.mkdir()
+    cfg = rnn_crf_config()
+    model = Model(cfg).init(SEED)
+    _, (_, crf), _ = model.decode_head()
+    with torch.no_grad():
+        crf.w.mul_(CRF_SCALE)
+    save_config(cfg, old / "config.toml")
+    save_params(old / "weights_1.npz", model)
+    del model
+    data = f32_eval_data(root / "eval_data", F32_RATE_CHUNKS, F32_EVAL_LEN,
+                         SEED + 15)
+    evaluate = {}
+    for name, model_dir, layer in (("hac", dirs["bf16"], "A"),
+                                   ("fast", dirs["fast_bf16"], "F"),
+                                   ("old_style", old, "A")):
+        seqs, rates = {}, {}
+        for where in ("card", "cpu"):
+            buf = io.StringIO()
+            argv = ["evaluate", str(model_dir), "--directory", str(data),
+                    "--chunks", str(F32_EVAL_CHUNKS), "--batchsize",
+                    str(F32_EVAL_BATCH), "--output-dir",
+                    str(root / f"eval_{name}_{where}")]
+            if where == "cpu":
+                argv += ["--device", "cpu"]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                if where == "card":
+                    counted(f"f32_evaluate_{name}", lambda: cli_main(argv))
+                else:
+                    cli_main(argv)
+            wall = time.perf_counter() - t0
+            report = buf.getvalue()
+            rates[where] = (wall, next(line for line in report.splitlines()
+                                       if line.startswith("* samples/s")))
+            seqs[where] = (root / f"eval_{name}_{where}" / "seqs.fasta"
+                           ).read_text().splitlines()[1::2]
+        batches = F32_EVAL_CHUNKS // F32_EVAL_BATCH
+        require_launches(f"f32_evaluate_{name}",
+                         {layer: 5 * batches, "M": batches, "Q": batches})
+        differ = sum(a != b for a, b in zip(seqs["card"], seqs["cpu"]))
+        bases = sum(map(len, seqs["card"]))
+        require(len(seqs["card"]) == len(seqs["cpu"]) == F32_EVAL_CHUNKS
+                and differ <= F32_EVAL_MAX_DIFFER * F32_EVAL_CHUNKS,
+                f"evaluate {name}: {differ} of {F32_EVAL_CHUNKS} chunks "
+                f"called otherwise on the card than on the CPU")
+        # one batch's scores from the card, decoded on the card (M, Q) and
+        # on the CPU (the plain versions): the same calls
+        m = load_model(model_dir, half=False, device=dev)
+        x = torch.from_numpy(np.load(data / "chunks.npy")[:F32_EVAL_BATCH]
+                             .astype(np.float32))[..., None].to(dev)
+        with torch.inference_mode():
+            scores = m(x)
+            on_card = m.decode_batch(scores)
+            on_cpu = m.decode_batch(scores.cpu())
+        require(on_card == on_cpu, f"evaluate {name}: one batch's scores "
+                                   f"decode otherwise on the card and CPU")
+        del m, scores
+        # the rate: evaluate's defaults (512 chunks, two batches of 256) on
+        # the card
+        buf = io.StringIO()
+        path = f"f32_evaluate_{name}_b{F32_RATE_BATCH}"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            counted(path, lambda: cli_main([
+                "evaluate", str(model_dir), "--directory", str(data),
+                "--output-dir", str(root / f"eval_{name}_rate")]))
+        wall = time.perf_counter() - t0
+        batches = F32_RATE_CHUNKS // F32_RATE_BATCH
+        require_launches(path, {layer: 5 * batches, "M": batches,
+                                "Q": batches})
+        rates["card_default"] = (wall, next(
+            line for line in buf.getvalue().splitlines()
+            if line.startswith("* samples/s")))
+        evaluate[name] = dict(differ=differ, chunks=F32_EVAL_CHUNKS,
+                              bases=bases, card=rates["card"],
+                              cpu=rates["cpu"],
+                              card_default=rates["card_default"])
+        log(f"  evaluate {name} (f32, {F32_EVAL_CHUNKS} chunks of "
+            f"{F32_EVAL_LEN}, batch {F32_EVAL_BATCH}): card {rates['card'][1]}"
+            f" ({rates['card'][0]:.1f} s with the load), cpu "
+            f"{rates['cpu'][1]} ({rates['cpu'][0]:.1f} s); {differ} of "
+            f"{F32_EVAL_CHUNKS} chunks called otherwise ({bases} bases on "
+            f"the card); one batch's card scores decode alike on both; "
+            f"launches {({k: v for k, v in launches['f32_evaluate_' + name].items() if v})}; "
+            f"at evaluate's defaults ({F32_RATE_CHUNKS} chunks, batch "
+            f"{F32_RATE_BATCH}) on the card {rates['card_default'][1]} "
+            f"({rates['card_default'][0]:.1f} s with the load)")
+    torch.cuda.empty_cache()
+
+    # (c) train --no-amp: one epoch with its validation, hac and fast
+    valid_time = []
+    validate = training.Trainer.validate_one_epoch
+
+    def timed_validation(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = validate(self)
+        torch.cuda.synchronize()
+        valid_time.append(time.perf_counter() - t0)
+        return res
+    train = {}
+    training.Trainer.validate_one_epoch = timed_validation
+    try:
+        for name, config, layer in (("hac", HAC, "A"), ("fast", FAST, "F")):
+            own = {"R": 5, "S": 5, "U": 1, "V": 1, "Y": 1, "Z": 1}
+            res = train_cli(
+                torch, counters, config, F32_TRAIN_N, F32_TRAIN_CHUNK,
+                F32_TRAIN_L, F32_TRAIN_BATCHES, own,
+                {layer: 5, "U": 1, "Y": 1, "B": 1, "C": 1},
+                f"f32_{name}", extra=["--no-amp"])
+            require(decode_cuda.tcn_forward.plan is not None
+                    and decode_cuda.tcn_backward.plan is not None,
+                    f"--no-amp validation of {name}: B or C took an earlier "
+                    f"kernel")
+            res["validation_s"] = valid_time[-1]
+            launches[f"f32_train_{name}"] = res["launches"]
+            train[name] = res
+            log(f"  train --no-amp {name}: validation {valid_time[-1]:.3f} s "
+                f"(one batch of {F32_TRAIN_N} x {F32_TRAIN_CHUNK}: the f32 "
+                f"forward through {layer}, loss_tcn, B and C on the f32 "
+                f"ring)")
+    finally:
+        training.Trainer.validate_one_epoch = validate
+    torch.cuda.empty_cache()
+
+    # (d) the basecaller to CRAM from phase 12's hac reads, with and
+    # without --reference, beside BAM
+    outs, walls, rates = {}, {}, {}
+
+    def basecall_to(tag, ext, *more):
+        out = root / f"{tag}_out" / f"out.{ext}"
+        out.parent.mkdir()
+        walls[tag], err = counted(f"cram_cli_{tag}", lambda: run_cli(
+            cli_main, ["basecaller", str(dirs["int8"]), str(cli_reads),
+                       "--n-proc", str(CLI_PROCS), "--output-dir",
+                       str(out.parent), *more], out))
+        rates[tag] = next(line for line in err.splitlines()
+                          if "samples per second" in line)
+        outs[tag] = out
+        return out
+    basecall_to("bam", "bam")
+    basecall_to("cram", "cram")
+    records = list(cram.CramReader(outs["cram"].read_bytes()))
+    bam_recs = bam_records(outs["bam"].read_bytes())
+    require(len(records) == len(bam_recs) and all(
+        (r.name, r.seq, r.qual) == (b["name"], b["seq"], b["qual"])
+        for r, b in zip(records, bam_recs)),
+            "the CRAM's records are not the BAM's")
+    mv = sum(1 for r in records for t in r.tags if t.startswith("mv:"))
+    require(mv == len(records), "a CRAM record without its mv tag")
+    fasta = root / "calls.fasta"
+    fasta.write_text("".join(f">ctg{i}\n{r.seq}\n"
+                             for i, r in enumerate(records)))
+    basecall_to("cram_ref", "cram", "--reference", str(fasta))
+    aligned = list(cram.CramReader(outs["cram_ref"].read_bytes(),
+                                   reference=str(fasta)))
+    require(sorted((r.name, r.seq, r.qual) for r in aligned)
+            == sorted((r.name, r.seq, r.qual) for r in records)
+            and all(r.ref_id >= 0 for r in aligned),
+            "the reference-based CRAM does not decode to the calls, each "
+            "mapped")
+    sizes = {k: v.stat().st_size for k, v in outs.items()}
+    log(f"  basecaller to CRAM ({len(records)} hac reads, int8 as shipped): "
+        f"referenceless {sizes['cram']} B, reference-based "
+        f"{sizes['cram_ref']} B, BAM {sizes['bam']} B; every CRAM record "
+        f"the BAM's; rates: BAM {rates['bam']} ({walls['bam']:.1f} s), "
+        f"CRAM {rates['cram']} ({walls['cram']:.1f} s), CRAM --reference "
+        f"{rates['cram_ref']} ({walls['cram_ref']:.1f} s)")
+
+    # (e) duplex on that BAM and CRAM (pairs of the basecalled reads), and
+    # on a BAM and CRAM of the calls with their complement strands (each
+    # call's reverse complement, qualities reversed), fastq and SAM
+    calls = [(r.name, r.seq, r.qual) for r in records]
+    comp = {}
+    for ext, writer in (("bam", BAMWriter), ("cram", cram.CramWriter)):
+        comp[ext] = root / f"with_complements.{ext}"
+        with open(comp[ext], "wb") as f:
+            w = writer(f, "@HD\tVN:1.6\tSO:unknown\n", [])
+            for name, seq, qual in calls:
+                w.write(name, seq, qual)
+                w.write(f"{name}_c", revcomp(seq), qual[::-1])
+            w.close()
+    ids = [name for name, _, _ in calls]
+    # pairs of unrelated calls: the global alignment of two reads of tens
+    # of kilobases is what a pair costs, so 4 of them
+    cases = {"calls": (list(zip(ids[0:8:2], ids[1:8:2])),
+                       {"bam": outs["bam"], "cram": outs["cram"]}),
+             "complements": ([(i, f"{i}_c") for i in ids], comp)}
+    by_name = {name: SeqRecord(name, seq, qual) for name, seq, qual in calls}
+    duplex = {}
+    for case, (pairs, inputs) in cases.items():
+        want = {}
+        for a, b in pairs:
+            t = by_name[a]
+            c = by_name.get(b) or SeqRecord(b, revcomp(t.sequence),
+                                            t.qstring[::-1])
+            res = call_basespace_duplex(t, c)
+            if res["sequence"]:
+                want[f"{a};{b}"] = (res["sequence"], res["qstring"])
+        pairs_file = root / f"pairs_{case}.txt"
+        pairs_file.write_text("template complement\n" + "".join(
+            f"{a} {b}\n" for a, b in pairs))
+        for src, path in inputs.items():
+            for ext in ("fastq", "sam"):
+                out = root / f"duplex_{case}_{src}" / f"out.{ext}"
+                out.parent.mkdir(exist_ok=True)
+                wall, err = counted(f"duplex_{case}_{src}_{ext}",
+                                    lambda: run_cli(cli_main, [
+                                        "duplex", str(path), str(pairs_file),
+                                        "--threads",
+                                        str(F32_DUPLEX_THREADS)], out))
+                require(not any(launches[f"duplex_{case}_{src}_{ext}"]
+                                .values()), "duplex launched a kernel")
+                del launches[f"duplex_{case}_{src}_{ext}"]
+                lines = out.read_text().splitlines()
+                if ext == "fastq":
+                    got = {lines[i][1:].split()[0]: (lines[i + 1],
+                                                     lines[i + 3])
+                           for i in range(0, len(lines), 4)}
+                else:
+                    got = {f[0]: (f[9], f[10]) for f in (
+                        line.split("\t") for line in lines
+                        if not line.startswith("@"))}
+                require(got == want, f"duplex ({case}, {src} to {ext}): "
+                                     f"{len(got)} records, not the "
+                                     f"{len(want)} of call_basespace_duplex")
+                duplex[f"{case}_{src}_{ext}"] = dict(
+                    records=len(got), pairs=len(pairs), wall=wall,
+                    bases=sum(len(s) for s, _ in got.values()))
+        log(f"  duplex ({case}: {len(pairs)} pairs, BAM and CRAM in, fastq "
+            f"and SAM out, {F32_DUPLEX_THREADS} spawned workers): "
+            f"{len(want)} consensus records each, equal to "
+            f"call_basespace_duplex in process ("
+            f"{sum(len(s) for s, _ in want.values())} bases); walls "
+            f"{', '.join(f'{k} {v["wall"]:.1f} s' for k, v in duplex.items() if k.startswith(case))}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 15 took {phase_s:.1f} s (its kernels {t_kernels:.1f} s)")
+    return {"launches": launches, "kernels": kernels, "evaluate": evaluate,
+            "train": {k: {"validation_s": v["validation_s"],
+                          "wall": v["wall"], "fields": v["fields"]}
+                      for k, v in train.items()},
+            "cram": {"sizes": sizes, "rates": rates, "walls": walls},
+            "duplex": duplex, "phase_s": phase_s}
 
 
 def main():
@@ -5493,6 +5972,9 @@ def main():
     torch.cuda.empty_cache()
     upstream = upstream_phase(torch, counters, dev, dirs,
                               cli["hac"]["reads_dir"], card)
+    torch.cuda.empty_cache()
+    f32 = f32_phase(torch, counters, dev, dirs, cli["hac"]["reads_dir"],
+                    card)
 
     src_attn = "bonito_tpu_torch/csrc/attention.cu"
     src_window = "bonito_tpu_torch/csrc/attention_window.cu"  # K's, H's
@@ -5808,8 +6290,51 @@ def main():
                              for p, n in upstream["launches"].items()})
         if letter in ("A", "D"):
             k["h768"] = upstream["h768"][letter]
+        # phase 15's paths: f32 evaluate, the --no-amp epochs, the CLI to
+        # BAM and CRAM (duplex launches nothing: checked there)
+        k["by_path"].update({p: n[letter]
+                             for p, n in f32["launches"].items()})
+    # the f32 instances of A, F, B and C (phase 15): launches on the path
+    # that is each one's own (A: evaluate of hac, F: of fast, B and C: the
+    # hac --no-amp validation), by_path over phase 15's f32 paths (evaluate
+    # and train --no-amp: on the other paths the same counters count bf16)
+    fk = f32["kernels"]
+    f32_paths = {p: n for p, n in f32["launches"].items()
+                 if p.startswith(("f32_evaluate_", "f32_train_"))}
+    for name, letter, src, rep, m, path in (
+            ("lstm_recurrence_f32", "A",
+             "bonito_tpu_torch/csrc/lstm_train.cu",
+             "bonito_tpu/ops/lstm_pallas.py:54", fk["A"],
+             "f32_evaluate_hac"),
+            ("lstm_fused_f32", "F", "bonito_tpu_torch/csrc/lstm_fused.cu",
+             "bonito_tpu/ops/lstm_pallas.py:604", fk["F"],
+             "f32_evaluate_fast"),
+            ("decode_tcn_fwd_ring_f32", "B", src_ring,
+             "bonito_tpu/ops/decode_pallas.py:183", fk["BC"]["B"],
+             "f32_train_hac"),
+            ("decode_tcn_bwd_ring_f32", "C", src_ring,
+             "bonito_tpu/ops/decode_pallas.py:246", fk["BC"]["C"],
+             "f32_train_hac")):
+        more = ({"h768": fk["A768"]} if letter == "A" else
+                {"plan": fk["F"]["plan"], "us_a_step": fk["F"]["us_a_step"]}
+                if letter == "F" else
+                {"plan": fk["BC"]["plan"], "s64": fk["BC64"][letter],
+                 "s64_shape": fk["BC64"]["shape"]})
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": f32["launches"][path][letter],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
+            "dtype": "f32",
+            "by_path": {p: n[letter] for p, n in f32_paths.items()},
+            **more})
+        log(f"  {name}: {m['ms']:.4g} ms (plain {m['plain_ms']:.4g} ms, "
+            f"bound {m['bound_ms']:.4g} ms by {m['bound_by']}), "
+            f"{kernels[-1]['launches']} launches on the {path} path")
     log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s "
-        f"(phase 14 {upstream['phase_s']:.1f} s)")
+        f"(phase 14 {upstream['phase_s']:.1f} s, phase 15 "
+        f"{f32['phase_s']:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

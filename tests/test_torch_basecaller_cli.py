@@ -9,7 +9,7 @@ summary TSV equal; and the same with ``--reference``, ``--revcomp``,
 ``--read-ids`` with and without ``--skip``, ``--max-reads``,
 ``--min-qscore``, ``--no-trim``, ``--save-ctc``, ``--beam`` and ``--rna``
 (the result dict of the port's ``basecall`` and ``fmt`` on each). The
-refusals (``--distributed``, CRAM, no card) raise before a model loads;
+refusals (``--distributed``, no card) raise before a model loads;
 a published model name is downloaded (from a ``file://`` zip) and
 basecalls as in bonito_tpu's CLI; a conv-CTC directory basecalls (held
 against bonito_tpu in tests/test_torch_ctc_cli.py).
@@ -219,9 +219,27 @@ def compare_bam(a, b):
     return len(reca)
 
 
+def compare_cram(a, b, reference=None):
+    """Both CRAMs through bonito_tpu's ``CramReader`` (with the FASTA of a
+    reference-based one): the header as ``compare_sam``'s, every field and
+    tag of each record equal, qstrings within one phred step."""
+    from bonito_tpu.cram import CramReader
+    ra, rb = CramReader(a, reference=reference), CramReader(b,
+                                                            reference=reference)
+    compare_sam(ra.header_text, rb.header_text)
+    la, lb = list(ra), list(rb)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert (x.name, x.seq, x.flag, x.ref_id, x.pos, x.mapq, x.cigar,
+                x.tags) == (y.name, y.seq, y.flag, y.ref_id, y.pos, y.mapq,
+                            y.cigar, y.tags)
+        qual_close(x.qual, y.qual)
+    return len(la)
+
+
 COMPARE = {"fastq": lambda a, b: compare_fastq(a.decode(), b.decode()),
            "sam": lambda a, b: compare_sam(a.decode(), b.decode()),
-           "bam": compare_bam}
+           "bam": compare_bam, "cram": compare_cram}
 
 CASES = {
     "fastq": ("fastq", [], 5),
@@ -230,6 +248,8 @@ CASES = {
     "bam-two-readers": ("bam", ["--n-proc", "2"], 5),
     "reference-sam": ("sam", ["--reference", "REF"], 5),
     "reference-bam": ("bam", ["--reference", "REF"], 5),
+    "cram": ("cram", [], 5),
+    "reference-cram": ("cram", ["--reference", "REF"], 5),
     "revcomp": ("sam", ["--revcomp"], 5),
     "read-ids": ("sam", ["--read-ids", "IDS"], 2),
     "read-ids-skip": ("bam", ["--read-ids", "IDS", "--skip"], 3),
@@ -259,7 +279,9 @@ def test_port_cli_equals_bonito_tpu_cli(case, dirs, jax_runs, reference,
     argv = [str(dirs["model"]), str(dirs["reads"]), "--device", "cpu"]
     err = run_cli(port_cli, argv + (["--n-proc", "1"] if "--n-proc" not in
                                      extra else []) + extra, out)
-    n = COMPARE[ext](ref.read_bytes(), out.read_bytes())
+    fasta = ({"reference": str(reference)}
+             if ext == "cram" and "--reference" in extra else {})
+    n = COMPARE[ext](ref.read_bytes(), out.read_bytes(), **fasta)
     if n_records is not None:
         assert n == n_records
     assert f"> completed reads: " in err and "samples per second" in err
@@ -279,6 +301,10 @@ def test_port_cli_equals_bonito_tpu_cli(case, dirs, jax_runs, reference,
         if ext == "bam":
             _, _, records = parse_bam(text)
             mapped = sum(r[0][0] >= 0 for r in records)
+        elif ext == "cram":
+            from bonito_tpu.cram import CramReader
+            mapped = sum(r.ref_id >= 0 for r in CramReader(
+                text, reference=str(reference)))
         else:
             mapped = sum(line.split("\t")[2] != "*" for line in
                          text.decode().splitlines() if line[0] != "@")
@@ -287,14 +313,22 @@ def test_port_cli_equals_bonito_tpu_cli(case, dirs, jax_runs, reference,
 
 @pytest.mark.parametrize("argv, match", [
     (["--distributed"], "item 12"),
-    (["--device", "cpu", "OUT.cram"], "item 14"),
+    (["--device", "cpu", "OUT.cram"], None),
 ])
-def test_refusals_name_their_item(argv, match, dirs, tmp_path):
+def test_refusals_name_their_item(argv, match, dirs, f32, tmp_path):
+    """``--distributed`` raises, naming its ROADMAP item; a ``.cram``
+    stdout, refused before CRAM was ported (item 14), now writes a file
+    that bonito_tpu's ``CramReader`` reads."""
     out = tmp_path / ("out.cram" if "OUT.cram" in argv else "out.sam")
-    argv = [a for a in argv if a != "OUT.cram"]
+    argv = [str(dirs["model"]), str(dirs["reads"]), "--n-proc", "1"] + [
+        a for a in argv if a != "OUT.cram"]
+    if match is None:
+        from bonito_tpu.cram import CramReader
+        run_cli(port_cli, argv, out)
+        assert len(list(CramReader(out.read_bytes()))) == len(LENGTHS)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        run_cli(port_cli, [str(dirs["model"]), str(dirs["reads"])] + argv,
-                out)
+        run_cli(port_cli, argv, out)
 
 
 def test_download_and_ctc_directory_refused(dirs, f32, tmp_path,

@@ -33,7 +33,7 @@ from bonito_tpu.ctc import basecall as jax_ctc_basecall
 from bonito_tpu.models import MODELS as JAX_MODELS
 from bonito_tpu.models import lstm_crf_config
 from bonito_tpu.util import load_symbol as jax_load_symbol
-from bonito_tpu_torch import pod5 as tpod5
+from bonito_tpu_torch import nn, pod5 as tpod5
 from bonito_tpu_torch.cli import basecaller as port_cli
 from bonito_tpu_torch.cli import evaluate as port_evaluate
 from bonito_tpu_torch.cli import main as cli_main
@@ -323,33 +323,35 @@ def test_evaluate_equals_bonito_tpu_s(family, extra, dirs, lstm_dir,
     assert sum(map(len, seqs)) > 100
 
 
-def test_evaluate_refuses_bf16_only_kernels_on_the_card(lstm_dir, dirs):
-    """On the card an f32 LSTM reaches kernel A or F (bf16 only): evaluate
-    raises, naming item 13, before any data is read."""
-    lstm = load_model(lstm_dir, half=False, device="cpu")
-    assert port_evaluate.bf16_only_kernels(lstm) == [
-        "F (ops/lstm_fused_cuda.py)"]
-    wide = load_symbol_model(JAX_MODELS["dna_r10.4.1_e8.2_400bps_hac@v4.3"])
-    assert port_evaluate.bf16_only_kernels(wide) == ["A (ops/lstm_cuda.py)"]
-    for name in ("dna_r9.4.1_e8_fast@v2", "dna_r10.4.1_e8.2_400bps_sup@v5.0"):
-        assert port_evaluate.bf16_only_kernels(
-            load_symbol_model(MODELS[name])) == []
+class ReachedData(Exception):
+    """What the patched ``load_data`` raises: evaluate got past the model."""
+
+
+def test_evaluate_reaches_load_data_for_an_f32_lstm_crf_on_the_card(lstm_dir):
+    """On the card an f32 LSTM runs kernel A's or F's f32 instance: evaluate
+    loads the LSTM-CRF model in f32 (half=False, as bonito_tpu's) and goes
+    on to read its data, where it raised before."""
+    loaded = []
+
+    def load(*a, **k):
+        loaded.append((k["half"], load_model(*a, **{**k, "device": "cpu"})))
+        return loaded[-1][1]
+
+    def reach(*a):
+        raise ReachedData
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_evaluate, "resolve_device",
                    lambda d: torch.device("cuda"))
-        mp.setattr(port_evaluate, "load_model",
-                   lambda *a, **k: load_model(*a, **{**k, "device": "cpu"}))
-        mp.setattr(port_evaluate, "load_data",
-                   lambda *a: pytest.fail("data read before the refusal"))
-        with pytest.raises(NotImplementedError, match="item 13"):
+        mp.setattr(port_evaluate, "load_model", load)
+        mp.setattr(port_evaluate, "load_data", reach)
+        with pytest.raises(ReachedData):
             port_evaluate.main(port_evaluate.argparser().parse_args(
                 [str(lstm_dir), "--directory", "nowhere"]))
-
-
-def load_symbol_model(config_fn):
-    from bonito_tpu_torch.util import load_symbol
-    cfg = config_fn()
-    return load_symbol(cfg, "Model")(cfg)
+    (half, model), = loaded
+    assert half is False
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert any(isinstance(m, nn.LSTM) for m in model.modules())
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,227 @@
+"""f32 through the port's hand-kernel routes, on the CPU against bonito_tpu:
+what ``evaluate`` (``half=False``) and a ``--no-amp`` validation run on the
+card. The plain versions of kernel A (projection + recurrence, H above
+256) and of kernel F (the small layer, xw kept in f32) in f32 against
+bonito_tpu's ``lstm_scan`` and its ``lstm_pallas_fused`` in interpret mode
+within the LSTM recurrence's 1e-5; B and C's plain versions on f32 moves
+against ``viterbi_decode_tcn`` (sequences and moves identical, qstrings
+within one phred step); ``evaluate`` of a wide LSTM-CRF directory (A's
+route) as bonito_tpu's; and one f32 train step followed by its validation
+(the forward in eval mode, ``loss_tcn``, the TCN decode) against
+``make_train_step(use_amp=False)`` and bonito_tpu's validation on the same
+parameters."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from bonito_tpu import checkpoint as jckpt
+from bonito_tpu import config as jconfig
+from bonito_tpu import training as jax_training
+from bonito_tpu.cli import evaluate as jax_evaluate
+from bonito_tpu.crf.model import Model as JaxModel
+from bonito_tpu.crf.seqdist import CTC_CRF as JaxCRF
+from bonito_tpu.models import lstm_crf_config
+from bonito_tpu.ops import decode_pallas
+from bonito_tpu.ops.lstm import lstm_scan
+from bonito_tpu.ops.lstm_pallas import lstm_pallas_fused
+from bonito_tpu_torch import checkpoint, training
+from bonito_tpu_torch.cli import evaluate as port_evaluate
+from bonito_tpu_torch.crf.model import Model
+from bonito_tpu_torch.crf.seqdist import CTC_CRF
+from bonito_tpu_torch.ops import decode, lstm_cuda, lstm_fused_cuda
+from bonito_tpu_torch.ops.lstm import lstm, small_h
+
+from test_torch_ctc_cli import npy_dir, report, run_evaluate
+from test_torch_train import LR, _batch, _model_pair, jax_kernels  # noqa: F401
+
+LSTM_TOL = 1e-5  # the LSTM recurrence, f32 against f32 (ROADMAP)
+ALPHABET = ["N", "A", "C", "G", "T"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _layer(seed, N, T, C, H):
+    rng = np.random.default_rng(seed)
+    x = np.tanh(rng.normal(size=(N, T, C))).astype(np.float32)
+    w_ih = (rng.normal(size=(C, 4 * H)) / np.sqrt(C)).astype(np.float32)
+    w_hh = (rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    b = (0.5 * rng.normal(size=4 * H)).astype(np.float32)
+    return x, w_ih, w_hh, b
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("C,H", [(96, 272), (64, 768), (32, 1024)])
+def test_a_plain_f32_matches_lstm_scan(C, H, reverse):
+    """A wide layer (H above 256: projection, then kernel A's plain
+    version, ``lstm_recurrence_plain``, in f32) against ``lstm_scan``, the
+    route bonito_tpu's f32 hac LSTM takes (its Pallas gate rejects a 16 MB
+    f32 W_hh at H 1024)."""
+    x, w_ih, w_hh, b = _layer(H + reverse, 4, 20, C, H)
+    assert not small_h(C, H)
+    ref = lstm_scan(jnp.asarray(x), jnp.asarray(w_ih), jnp.asarray(w_hh),
+                    jnp.asarray(b), reverse=reverse)
+    out = lstm(*map(torch.from_numpy, (x, w_ih, w_hh, b)), reverse=reverse)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=LSTM_TOL)
+    xw = torch.from_numpy(x).transpose(0, 1) @ torch.from_numpy(w_ih)
+    xw = (xw + torch.from_numpy(b)).contiguous()
+    h = lstm_cuda.lstm_recurrence_plain(xw, torch.from_numpy(w_hh), reverse)
+    np.testing.assert_array_equal(h.transpose(0, 1).numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("C,H", [(96, 96), (32, 32), (64, 128)])
+def test_f_plain_f32_matches_pallas_fused_and_scan(C, H, reverse, bias):
+    """The small layer (kernel F's plain version in f32, xw kept in f32)
+    against bonito_tpu's ``lstm_pallas_fused`` in interpret mode in f32,
+    what its ``supported_fused`` sends an f32 fast model through, and
+    against ``lstm_scan``."""
+    x, w_ih, w_hh, b = _layer(C + H + reverse, 8, 12, C, H)
+    b = b if bias else None
+    assert small_h(C, H)
+    jargs = (jnp.asarray(x), jnp.asarray(w_ih), jnp.asarray(w_hh),
+             None if b is None else jnp.asarray(b))
+    fused = lstm_pallas_fused(*jargs, reverse=reverse, interpret=True)
+    scan = lstm_scan(*jargs, reverse=reverse)
+    out = lstm_fused_cuda.lstm_fused_plain(
+        torch.from_numpy(x).transpose(0, 1), torch.from_numpy(w_ih),
+        torch.from_numpy(w_hh), None if b is None else torch.from_numpy(b),
+        reverse=reverse).transpose(0, 1)
+    assert out.dtype == torch.float32
+    for ref in (fused, scan):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                                   atol=LSTM_TOL)
+    routed = lstm(*map(torch.from_numpy, (x, w_ih, w_hh)),
+                  None if b is None else torch.from_numpy(b),
+                  reverse=reverse)
+    np.testing.assert_array_equal(routed.numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("state_len", [2, 3, 4])
+def test_b_c_plain_f32_match_viterbi_decode_tcn(state_len, seed):
+    """The TCN decode of f32 moves (B and C's plain versions, what the f32
+    ring computes bit for bit) against bonito_tpu's ``viterbi_decode_tcn``
+    in f32 (its Pallas kernels in interpret mode)."""
+    S = 4 ** state_len
+    rng = np.random.default_rng(seed + state_len)
+    mv = (3.0 * rng.normal(size=(30, S * 4, 6))).astype(np.float32)
+    ref = decode_pallas.viterbi_decode_tcn(
+        JaxCRF(state_len, ALPHABET), jnp.asarray(mv), 2.0, qscale=1.05,
+        qbias=0.2, interpret=True)
+    out = decode.viterbi_decode_tcn(CTC_CRF(state_len, ALPHABET),
+                                    torch.from_numpy(mv), 2.0, qscale=1.05,
+                                    qbias=0.2)
+    for k in ("sequence", "moves"):
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(ref[k]))
+    dq = out["qstring"].numpy().astype(int) - np.asarray(ref["qstring"])
+    assert np.abs(dq).max() <= 1
+    assert 0 < out["moves"].numpy().mean() < 1
+
+
+@pytest.fixture(scope="module")
+def wide_dir(tmp_path_factory):
+    """An LSTM-CRF directory at H 272 (above F's 256: projection + kernel
+    A), written by bonito_tpu, its CRF weight scaled so that it emits."""
+    model = tmp_path_factory.mktemp("wide") / "model"
+    model.mkdir()
+    cfg = lstm_crf_config(features=272, num_layers=2, state_len=3, stride=5,
+                          batchsize=8, chunksize=1000, overlap=200)
+    cfg["basecaller"]["quantize"] = False
+    m = JaxModel(cfg)
+    m.init(jax.random.PRNGKey(14))
+    crf = str(next(i for i, layer in enumerate(cfg["encoder"]["sublayers"])
+                   if layer["type"] == "linearcrfencoder"))
+    m.params["encoder"][crf]["w"] = m.params["encoder"][crf]["w"] * 10
+    jconfig.save_config(cfg, model / "config.toml")
+    jckpt.save_params(model / "weights_1.npz", m.params)
+    return model
+
+
+def test_evaluate_of_a_wide_lstm_crf_equals_bonito_tpus(wide_dir, tmp_path):
+    """``evaluate`` in f32 through kernel A's route (its plain version on
+    the CPU) and the full-score decode: the report and the three files
+    equal bonito_tpu's."""
+    data = npy_dir(tmp_path / "data", 40, 1000)
+    ref = run_evaluate(jax_evaluate, wide_dir, data, tmp_path / "jax", [])
+    out = run_evaluate(port_evaluate, wide_dir, data, tmp_path / "port",
+                       ["--device", "cpu"])
+    assert report(out) == report(ref)
+    for name in ("seqs.fasta", "refs.fasta", "summ.txt"):
+        assert ((tmp_path / "port" / name).read_text()
+                == (tmp_path / "jax" / name).read_text()), name
+    seqs = (tmp_path / "port" / "seqs.fasta").read_text().splitlines()[1::2]
+    assert sum(map(len, seqs)) > 100
+
+
+@pytest.mark.parametrize("features", [32, 272], ids=["F", "A"])
+def test_no_amp_step_and_validation_match_bonito_tpu(jax_kernels, features,
+                                                     tmp_path):  # noqa: F811
+    """One f32 train step (``make_train_step(use_amp=False)`` in both), then
+    the validation of a batch on the port's new parameters, which
+    bonito_tpu's Trainer reads from the port's ``weights_1.npz``: the loss
+    within 1e-5, the same calls and accuracies."""
+    cfg, jm, pm = _model_pair()
+    if features != 32:
+        cfg = lstm_crf_config(features=features, num_layers=2, state_len=3,
+                              stride=5, batchsize=8, chunksize=500,
+                              overlap=100)
+        jm = JaxModel(cfg)
+        jm.init(jax.random.PRNGKey(3))
+        pm = checkpoint.params_from_jax(
+            Model(cfg), jax.tree.map(np.asarray, jm.params))
+    tx = optax.adamw(LR, weight_decay=0.01, eps=1e-8)
+    batch = _batch()
+    jstep = jax_training.make_train_step(jm, tx, use_amp=False)
+    _, _, jlosses, _ = jstep(jm.params, tx.init(jm.params),
+                             tuple(jnp.asarray(b) for b in batch),
+                             jnp.float32(0.5), jnp.float32(2.0))
+    step = training.make_train_step(pm, training.make_optimizer(pm, LR),
+                                    use_amp=False)
+    losses, _ = step(tuple(torch.from_numpy(b) for b in batch), 0.5, 2.0)
+    np.testing.assert_allclose(float(losses["loss"]),
+                               float(jlosses["loss"]), rtol=1e-5)
+
+    checkpoint.save_params(tmp_path / "weights_1.npz", pm)
+    jm.params = jax.tree.map(jnp.asarray,
+                             jckpt.load_params(tmp_path / "weights_1.npz"))
+    valid = _batch(seed=3)
+    jseqs, _, jaccs, jl = jax_training.Trainer(
+        jm, None, [valid], use_amp=False).validate_one_step(valid)
+    seqs, _, accs, pl = training.Trainer(
+        pm, None, [valid], use_amp=False).validate_one_step(valid)
+    np.testing.assert_allclose(pl["loss"], jl["loss"], rtol=1e-5)
+    assert seqs == jseqs and accs == jaccs
+    assert not pm.training
+
+
+@pytest.mark.parametrize("N,C,H,registers,in_smem,smem", [
+    (1024, 96, 96, True, True, 165888),   # fast: W_ih's 144 KB in smem
+    (37, 64, 128, False, True, 153600),
+    (20, 1024, 256, False, False, 73728),  # W_ih of 4 MB through L2
+    (9, 32, 32, False, True, 22528)])
+def test_f32_plan_of_kernel_f(N, C, H, registers, in_smem, smem):
+    """F's f32 kernel's shape rule (pure Python; the C entry takes the plan
+    as given and refuses shared memory other than ``csrc/lstm_fused.cu:
+    f32_smem_floats``'s for its layout): a thread a gate column, 8 rows a
+    block, W_hh's column in registers at H 96 only, W_ih in shared memory
+    where it fits the 227 KB a block may ask for."""
+    plan = lstm_fused_cuda.f32_plan(N, C, H)
+    assert plan == {"dtype": "f32", "rows": 8, "threads": 4 * H,
+                    "ctas": -(-N // 8), "whh_in_registers": registers,
+                    "wih_in_smem": in_smem, "smem": smem}
+    assert plan["smem"] <= lstm_fused_cuda.SMEM_LIMIT
+    with pytest.raises(ValueError, match="kernel F"):
+        lstm_fused_cuda.f32_plan(N, C + 8, H)

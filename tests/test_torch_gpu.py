@@ -62,9 +62,14 @@ def test_lstm_kernel_matches_plain(cuda, N, T, H, reverse):
 
 
 def test_lstm_kernel_rejects_f32(cuda):
+    """Kernel A takes xw and w_hh both bf16 or both f32: an f32 xw beside a
+    bf16 w_hh, and f16, raise; nothing is cast to reach a kernel."""
     xw = torch.zeros(2, 8, 64, device=cuda)
+    w = torch.zeros(16, 64, device=cuda)
     with pytest.raises(TypeError, match="bf16"):
-        lstm_cuda.lstm_recurrence(xw, torch.zeros(16, 64, device=cuda))
+        lstm_cuda.lstm_recurrence(xw, w.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="bf16"):
+        lstm_cuda.lstm_recurrence(xw.half(), w.half())
 
 
 @pytest.mark.parametrize("state_len,N,T", [(3, 8, 30), (5, 3, 12), (2, 4, 9),
@@ -139,8 +144,11 @@ def test_decode_old_kernels_count_no_launch(cuda):
 
 
 def test_decode_kernels_reject_f32(cuda):
-    with pytest.raises(TypeError, match="bf16"):
-        decode_cuda.tcn_forward(torch.zeros(2, 4, 4 * 64, device=cuda), 2.0)
+    """B and C take bf16 or f32 moves (f32 on their f32 instances): f16
+    raises."""
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        decode_cuda.tcn_forward(
+            torch.zeros(2, 4, 4 * 64, device=cuda, dtype=torch.float16), 2.0)
 
 
 def test_decode_launch_counts(cuda):
@@ -2353,3 +2361,364 @@ def test_tar_directory_equals_npz_and_a_d_at_h768(cuda, tmp_path):
                 assert (diff == 0).float().mean() >= 0.99
             else:
                 assert diff.max().item() <= 1 / 127 + 2 ** -8
+
+
+# ---------------------------------------------------------------------------
+# f32 on the card: A's and F's f32 instances, B and C on their f32 ring,
+# evaluate and a --no-amp epoch
+# ---------------------------------------------------------------------------
+
+# f32 against f32: the same operations summed in another order, so h meets
+# the plain version within the LSTM recurrence's 1e-5 (seen 9.4e-7 at H 768
+# over 1666 steps, NVIDIA H100 80GB HBM3)
+LSTM_F32_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,H", [(96, 40, 1024), (96, 40, 768),
+                                   (8, 9, 16), (33, 12, 48), (200, 5, 96)])
+def test_lstm_f32_kernel_matches_plain(cuda, N, T, H, reverse):
+    """Kernel A in f32 (its f32 step kernel, one count a call, plan None):
+    h in f32 within LSTM_F32_ATOL of the plain version."""
+    g = torch.Generator().manual_seed(N + T + H)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(cuda)
+    w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(cuda)
+    before = lstm_cuda.lstm_recurrence.launches
+    out = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence.launches == before + 1
+    assert lstm_cuda.lstm_recurrence.plan is None
+    assert out.dtype == torch.float32 and out.shape == (T, N, H)
+    ref = lstm_cuda.lstm_recurrence_plain(xw, w_hh, reverse=reverse)
+    torch.testing.assert_close(out, ref, rtol=0, atol=LSTM_F32_ATOL)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,C,H", [(1024, 30, 96, 96), (19, 17, 32, 48),
+                                     (37, 40, 64, 128), (20, 30, 1024, 256),
+                                     (9, 25, 32, 32)])
+def test_fused_lstm_f32_kernel_matches_plain(cuda, N, T, C, H, reverse,
+                                             bias):
+    """Kernel F in f32 (its FFMA kernel on ``f32_plan``'s plan: W_hh in
+    registers at H 96, W_ih in shared memory where it fits): h in f32
+    within LSTM_F32_ATOL of the plain version."""
+    from bonito_tpu_torch.ops.lstm_fused_cuda import f32_plan
+    g = torch.Generator().manual_seed(N + T + H)
+    x = torch.tanh(torch.randn(T, N, C, generator=g)).to(cuda)
+    w_ih = (torch.randn(C, 4 * H, generator=g) / C ** 0.5).to(cuda)
+    w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(cuda)
+    b = (0.5 * torch.randn(4 * H, generator=g)).to(cuda) if bias else None
+    before = lstm_fused_cuda.lstm_fused.launches
+    out = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, b, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_fused_cuda.lstm_fused.launches == before + 1
+    assert lstm_fused_cuda.lstm_fused.plan == f32_plan(N, C, H)
+    ref = lstm_fused_cuda.lstm_fused_plain(x, w_ih, w_hh, b, reverse=reverse)
+    assert out.dtype == torch.float32 and out.shape == (T, N, H)
+    torch.testing.assert_close(out, ref, rtol=0, atol=LSTM_F32_ATOL)
+
+
+@pytest.mark.parametrize("C,H", [(96, 96), (32, 48), (1024, 256)])
+def test_fused_lstm_f32_entry_takes_the_plan(cuda, C, H):
+    """F's f32 C entry launches the layout ``f32_plan`` gives and refuses
+    one it was not given whole: shared memory other than that layout's, or
+    W_hh in registers at an H other than 96 (cudaErrorInvalidValue, 1)."""
+    from bonito_tpu_torch.ops.lstm_fused_cuda import f32_plan
+    T, N = 3, 9
+    x = torch.zeros(T, N, C, device=cuda)
+    w_ih = torch.zeros(C, 4 * H, device=cuda)
+    w_hh = torch.zeros(H, 4 * H, device=cuda)
+    bias = torch.zeros(4 * H, device=cuda)
+    out = torch.empty(T, N, H, device=cuda)
+    plan = f32_plan(N, C, H)
+
+    def entry(registers, in_smem, smem):
+        return build.library().lstm_fused_f32(
+            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), T, N, C, H, 0, int(registers), int(in_smem),
+            smem, build.stream_of(x))
+    assert entry(plan["whh_in_registers"], plan["wih_in_smem"],
+                 plan["smem"]) == 0
+    torch.cuda.synchronize()
+    assert entry(plan["whh_in_registers"], plan["wih_in_smem"],
+                 plan["smem"] - 4) == 1
+    assert entry(H != 96, plan["wih_in_smem"], plan["smem"]) == (
+        1 if H != 96 else 0)
+
+
+@pytest.mark.parametrize("S,N,T", [(4, 5, 40), (16, 4, 9), (64, 96, 300),
+                                   (256, 5, 40), (1024, 3, 12),
+                                   (1024, 4, 200), (48, 3, 17)])
+def test_decode_f32_kernels_equal_plain(cuda, S, N, T):
+    """B and C on f32 moves: the f32 ring where ``decode_plan(...,
+    float32)`` gives a plan (S a multiple of 16), the earlier kernels' f32
+    instance at S 4; all eight outputs equal the plain versions' and the
+    earlier kernels' bit for bit."""
+    g = torch.Generator().manual_seed(S + N + T)
+    moves = (3 * torch.randn(N, T, 4 * S, generator=g)).to(cuda)
+    before = (decode_cuda.tcn_forward.launches,
+              decode_cuda.tcn_backward.launches)
+    fwd = decode_cuda.tcn_forward(moves, 2.0)
+    out = decode_cuda.tcn_backward(moves, *fwd, 2.0, qscale=1.05, qbias=0.2)
+    torch.cuda.synchronize()
+    assert (decode_cuda.tcn_forward.launches,
+            decode_cuda.tcn_backward.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    plan = decode_cuda.decode_plan(N, T, S, _sms(cuda), torch.float32)
+    assert (plan is None) == (S == 4)
+    assert decode_cuda.tcn_forward.plan == decode_cuda.tcn_backward.plan \
+        == plan
+    ref_fwd = decode_cuda.tcn_forward_plain(moves, 2.0)
+    ref = decode_cuda.tcn_backward_plain(moves, *ref_fwd, 2.0, qscale=1.05,
+                                         qbias=0.2)
+    old_fwd = decode_cuda.tcn_forward_old_kernel(moves, 2.0)
+    old = decode_cuda.tcn_backward_old_kernel(moves, *old_fwd, 2.0,
+                                              qscale=1.05, qbias=0.2)
+    torch.cuda.synchronize()
+    for a, b, c in zip(fwd, ref_fwd, old_fwd):
+        assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a),
+                                                               _bits(c))
+    for k in ("sequence", "qstring", "moves"):
+        assert torch.equal(out[k], ref[k]) and torch.equal(out[k], old[k]), k
+
+
+def _npy_dir(path, rows, chunk, L=60, seed=4):
+    rng = np.random.default_rng(seed)
+    path.mkdir()
+    lengths = rng.integers(L // 2, L + 1, rows)
+    refs = rng.integers(1, 5, (rows, L))
+    refs[np.arange(L)[None] >= lengths[:, None]] = 0
+    np.save(path / "chunks.npy",
+            rng.normal(size=(rows, chunk)).astype(np.float16))
+    np.save(path / "references.npy", refs.astype(np.uint8))
+    np.save(path / "reference_lengths.npy", lengths.astype(np.uint16))
+    return path
+
+
+def _lstm_dir(path, features, seed=3, gain=10):
+    """A small LSTM-CRF directory (two layers, state_len 3), its CRF
+    weight scaled so that a random model emits."""
+    from bonito_tpu_torch import checkpoint, config
+    cfg = lstm_crf_config(features=features, num_layers=2, state_len=3,
+                          stride=5, batchsize=8, chunksize=1000, overlap=200)
+    cfg["basecaller"]["quantize"] = False
+    model = Model(cfg).init(seed)
+    _, (_, crf), _ = model.decode_head()
+    with torch.no_grad():
+        crf.w.mul_(gain)
+    path.mkdir()
+    config.save_config(cfg, path / "config.toml")
+    checkpoint.save_params(path / "weights_1.npz", model)
+    return path
+
+
+def _run_main(argv, out=None):
+    """``python -m bonito_tpu_torch`` in this process, its stdout on
+    ``out`` (a file whose name picks the format) or captured; stdout's and
+    stderr's text."""
+    import io
+    import os
+    import sys
+    from bonito_tpu_torch.cli import main
+    saved, stdout, stderr = os.dup(1), sys.stdout, sys.stderr
+    sys.stderr = io.StringIO()
+    text = io.StringIO()
+    try:
+        if out is not None:
+            f = open(out, "wb")
+            os.dup2(f.fileno(), 1)
+            sys.stdout = io.TextIOWrapper(io.BufferedWriter(
+                io.FileIO(1, "w", closefd=False)))
+        else:
+            sys.stdout = text
+        main(argv)
+        sys.stdout.flush()
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+        if out is not None:
+            f.close()
+        err = sys.stderr.getvalue()
+        sys.stdout, sys.stderr = stdout, stderr
+    return text.getvalue(), err
+
+
+# evaluate on the card against --device cpu, both f32: the card's f32 LSTM
+# kernels and cuDNN sum in other orders than the CPU's plain versions, so a
+# near-tie of this random model may decode otherwise; on identical scores
+# the decodes are equal. Share of chunks whose calls may differ (seen: 0 of
+# 16 at H 96 and at H 272, NVIDIA H100 80GB HBM3, torch 2.11.0+cu128):
+EVAL_MAX_DIFFER = 0.125
+
+
+@pytest.mark.parametrize("features,kernel", [(96, "F"), (272, "A")])
+def test_evaluate_on_the_card_equals_the_cpu(cuda, tmp_path, features,
+                                             kernel):
+    """An f32 LSTM-CRF directory through ``evaluate`` on the card (kernel F
+    at H 96, projection + A at H 272, then M and Q on the full scores) and
+    with ``--device cpu``: the same report lines but the calls' share, at
+    most EVAL_MAX_DIFFER of the chunks called otherwise; one batch's
+    scores from the card decode alike on the card and on the CPU."""
+    from bonito_tpu_torch.util import load_model
+    model_dir = _lstm_dir(tmp_path / "model", features)
+    data = _npy_dir(tmp_path / "data", 48, 1000)
+    counter = {"F": lstm_fused_cuda.lstm_fused,
+               "A": lstm_cuda.lstm_recurrence}[kernel]
+    seqs = {}
+    for name in ("card", "cpu"):
+        before = (counter.launches, decode_full_cuda.full_forward.launches)
+        argv = ["evaluate", str(model_dir), "--directory", str(data),
+                "--chunks", "16", "--batchsize", "8", "--output-dir",
+                str(tmp_path / name)]
+        _run_main(argv + (["--device", "cpu"] if name == "cpu" else []))
+        torch.cuda.synchronize()
+        if name == "card":
+            assert counter.launches - before[0] == 2 * 2  # 2 layers, 2 batches
+            assert decode_full_cuda.full_forward.launches - before[1] == 2
+        seqs[name] = (tmp_path / name / "seqs.fasta").read_text(
+            ).splitlines()[1::2]
+    assert len(seqs["card"]) == len(seqs["cpu"]) == 16
+    assert sum(map(len, seqs["cpu"])) > 100
+    differ = sum(a != b for a, b in zip(seqs["card"], seqs["cpu"]))
+    print(f"evaluate {kernel}: {differ} of 16 chunks called otherwise")
+    assert differ <= EVAL_MAX_DIFFER * 16
+
+    model = load_model(model_dir, half=False)
+    x = torch.from_numpy(np.load(data / "chunks.npy")[:8].astype(
+        np.float32))[..., None].to(cuda)
+    with torch.inference_mode():
+        scores = model(x)
+        on_card = model.decode_batch(scores)
+    assert on_card == model.decode_batch(scores.cpu())
+
+
+@pytest.mark.parametrize("features", [96, 272])
+def test_no_amp_epoch_validates_on_the_card(cuda, tmp_path, features):
+    """``train --no-amp``: one epoch and its validation in f32 on the card,
+    the forward through F or A in f32, the decode through B and C on f32
+    moves (the ring)."""
+    from bonito_tpu_torch.models import lstm_crf_config as config_of
+    from bonito_tpu_torch import config
+    cfg = config_of(features=features, num_layers=2, state_len=3, stride=5)
+    config.save_config(cfg, tmp_path / "config.toml")
+    data = _npy_dir(tmp_path / "data", 64, 1000)
+    counters = {"A": lstm_cuda.lstm_recurrence,
+                "F": lstm_fused_cuda.lstm_fused,
+                "B": decode_cuda.tcn_forward, "C": decode_cuda.tcn_backward}
+    before = {k: c.launches for k, c in counters.items()}
+    _run_main(["train", str(tmp_path / "work"), "--config",
+               str(tmp_path / "config.toml"), "--directory", str(data),
+               "--batch", "8", "--epochs", "1", "--chunks", "48",
+               "--valid-chunks", "16", "--no-amp"])
+    torch.cuda.synchronize()
+    launches = {k: c.launches - before[k] for k, c in counters.items()}
+    layer = "F" if features == 96 else "A"
+    assert launches[layer] == 2 * 2  # two layers, two validation batches
+    assert launches["B"] == launches["C"] == 2
+    assert decode_cuda.tcn_forward.plan is not None  # the f32 ring
+    header, row = (tmp_path / "work" / "training.csv").read_text(
+        ).splitlines()
+    fields = dict(zip(header.split(","), row.split(",")))
+    assert np.isfinite(float(fields["validation_loss"]))
+
+
+def duplex_inputs(records, directory):
+    """A BAM and a CRAM (the port's writers) holding each record and, as
+    ``<name>_c``, its reverse complement with the qualities reversed: the
+    complement strand of a duplex pair; and the pairs file of the two, with
+    one pair whose complement is missing."""
+    from bonito_tpu_torch.bam import BAMWriter
+    from bonito_tpu_torch.cram import CramWriter
+    from bonito_tpu_torch.util import revcomp
+    paths = {}
+    for ext, writer in (("bam", BAMWriter), ("cram", CramWriter)):
+        paths[ext] = directory / f"pairs.{ext}"
+        with open(paths[ext], "wb") as f:
+            w = writer(f, "@HD\tVN:1.6\tSO:unknown\n", [])
+            for name, seq, qual in records:
+                w.write(name, seq, qual)
+                w.write(f"{name}_c", revcomp(seq), qual[::-1])
+            w.close()
+    pairs = [(name, f"{name}_c") for name, _, _ in records]
+    paths["pairs"] = directory / "pairs.txt"
+    paths["pairs"].write_text("template complement\n" + "".join(
+        f"{a} {b}\n" for a, b in pairs + [(records[0][0], "missing")]))
+    return paths, pairs
+
+
+def duplex_records(out):
+    """{read id: (sequence, qstring)} of a duplex run's fastq or SAM."""
+    lines = out.read_text().splitlines()
+    if out.suffix == ".fastq":
+        return {lines[i][1:].split()[0]: (lines[i + 1], lines[i + 3])
+                for i in range(0, len(lines), 4)}
+    return {f[0]: (f[9], f[10]) for f in (line.split("\t") for line in lines
+                                          if not line.startswith("@"))}
+
+
+def test_cram_and_duplex_on_the_cards_calls(cuda, tmp_path):
+    """The basecaller on the card to BAM and to CRAM (referenceless, and
+    reference-based with a FASTA of the BAM's calls): the CRAM decodes to
+    the BAM's records. ``duplex`` on a BAM and a CRAM of those calls and
+    their complement strands (``duplex_inputs``), with a pairs file, on
+    two spawned workers: the consensus ``call_basespace_duplex`` gives in
+    process, as fastq and as SAM."""
+    from uuid import UUID
+    from bonito_tpu_torch import cram, pod5
+    from bonito_tpu_torch.bam_reader import ReadIndexedBam
+    from bonito_tpu_torch.duplex import SeqRecord, call_basespace_duplex
+    from bonito_tpu_torch.util import revcomp
+    model_dir = _lstm_dir(tmp_path / "model", 96)
+    rng = np.random.default_rng(5)
+    reads = [{"read_id": str(UUID(int=i + 1)),
+              "signal": np.rint((90 + 23 * rng.normal(size=n)) / 0.2
+                                ).astype(np.int16),
+              "calibration_scale": 0.2}
+             for i, n in enumerate([3000, 4000, 2500, 5000])]
+    (tmp_path / "reads").mkdir()
+    pod5.write_pod5(tmp_path / "reads" / "a.pod5", reads)
+    argv = ["basecaller", str(model_dir), str(tmp_path / "reads"),
+            "--n-proc", "1", "--no-trim"]
+    outs = {}
+    for ext in ("bam", "cram"):
+        (tmp_path / ext).mkdir()
+        outs[ext] = tmp_path / ext / f"out.{ext}"
+        _run_main(argv + ["--output-dir", str(tmp_path / ext)], outs[ext])
+    bam = ReadIndexedBam(outs["bam"])
+    records = list(cram.CramReader(outs["cram"].read_bytes()))
+    assert [(r.name, r.seq, r.qual) for r in records] == [
+        tuple(bam.get_record(r.name)) for r in records]
+    assert len(records) == len(reads)
+    fasta = tmp_path / "ref.fasta"
+    fasta.write_text("".join(f">ctg{i}\n{r.seq}\n"
+                             for i, r in enumerate(records)))
+    (tmp_path / "refcram").mkdir()
+    _run_main(argv + ["--reference", str(fasta), "--output-dir",
+                      str(tmp_path / "refcram")],
+              tmp_path / "refcram" / "out.cram")
+    aligned = list(cram.CramReader(
+        (tmp_path / "refcram" / "out.cram").read_bytes(),
+        reference=str(fasta)))
+    assert sorted((r.name, r.seq) for r in aligned) == sorted(
+        (r.name, r.seq) for r in records)
+    assert all(r.ref_id >= 0 for r in aligned)
+
+    calls = [(r.name, r.seq, r.qual) for r in records]
+    paths, pairs = duplex_inputs(calls, tmp_path)
+    by_name = {name: SeqRecord(name, seq, qual)
+               for name, seq, qual in calls}
+    want = {}
+    for a, b in pairs:
+        t = by_name[a]
+        c = SeqRecord(b, revcomp(t.sequence), t.qstring[::-1])
+        res = call_basespace_duplex(t, c)
+        want[f"{a};{b}"] = (res["sequence"], res["qstring"])
+    assert all(len(seq) > 100 for seq, _ in want.values())
+    for src in ("bam", "cram"):
+        for ext in ("fastq", "sam"):
+            out = tmp_path / f"duplex-{src}" / f"out.{ext}"
+            out.parent.mkdir(exist_ok=True)
+            _run_main(["duplex", str(paths[src]), str(paths["pairs"]),
+                       "--threads", "2"], out)
+            assert duplex_records(out) == want, (src, ext)

@@ -84,6 +84,9 @@ def test_importing_the_port_loads_no_jax():
             "bonito_tpu_torch.ops.ctc_decode",
             "bonito_tpu_torch.cli.evaluate", "bonito_tpu_torch.cli.view",
             "bonito_tpu_torch.cli.download", "bonito_tpu_torch.cli.export",
+            "bonito_tpu_torch.cram", "bonito_tpu_torch.rans",
+            "bonito_tpu_torch.duplex", "bonito_tpu_torch.bam_reader",
+            "bonito_tpu_torch.cli.duplex",
             "bonito_tpu_torch.__main__"} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "from bonito_tpu_torch.ops import build; "
@@ -147,14 +150,15 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("name,source", [("vbz", "vbz/vbz.cpp"),
                                          ("mapper", "mapper/mapper.cpp"),
-                                         ("ctcbeam", "ctc/ctcbeam.cpp")])
+                                         ("ctcbeam", "ctc/ctcbeam.cpp"),
+                                         ("rans", "rans/rans.cpp")])
 def test_failed_reader_and_mapper_build_raises(monkeypatch, tmp_path, name,
                                                source):
-    """The basecaller's svb16 codec, mapper and conv-CTC beam build at
-    first use too; a source that does not compile raises, and so do the
-    reader's VBZ, the aligner and the beam decode that load them (the beam
-    has no Python fallback)."""
-    from bonito_tpu_torch import aligner, native, pod5
+    """The basecaller's svb16 codec, mapper, conv-CTC beam and CRAM's rANS
+    codec build at first use too; a source that does not compile raises,
+    and so do the reader's VBZ, the aligner, the beam decode and the rANS
+    blocks that load them (the beam and rANS have no Python fallback)."""
+    from bonito_tpu_torch import aligner, native, pod5, rans
     from bonito_tpu_torch.ops import ctc_decode
     (tmp_path / source).parent.mkdir()
     (tmp_path / source).write_text("not C++\n")
@@ -169,6 +173,8 @@ def test_failed_reader_and_mapper_build_raises(monkeypatch, tmp_path, name,
         elif name == "ctcbeam":
             ctc_decode.beam_search_ctc(np.full((6, 5), 0.2, np.float32),
                                        "NACGT")
+        elif name == "rans":
+            rans.compress_auto(b"ACGT" * 16, order=1)
         else:
             (tmp_path / "ref.fasta").write_text(">c\nACGT\n")
             aligner.Aligner(str(tmp_path / "ref.fasta"))

@@ -178,8 +178,25 @@ def test_writer_is_bonito_tpu_s(tmp_path, ext, min_qscore):
 
 
 def test_writer_refuses_cram(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tio.Writer("wc", iter([]), fd=io.BytesIO())
+    """CRAM is written now (mode ``wc``): no record, then one, each read
+    back by bonito_tpu's ``CramReader``; the summary goes to ``tmp_path``."""
+    from bonito_tpu.cram import CramReader
+    fd = io.BytesIO()
+    w = tio.Writer("wc", iter([]), fd=fd, output_dir=tmp_path)
+    w.start()
+    w.stop()
+    assert list(CramReader(fd.getvalue())) == []
+
+    class Read:
+        read_id, run_id, signal = "r", "run", np.zeros(60, np.int16)
+    fd = io.BytesIO()
+    w = tio.Writer("wc", iter([(Read(), {"sequence": "ACGTA",
+                                         "qstring": "+++++"})]),
+                   fd=fd, output_dir=tmp_path)
+    w.start()
+    w.stop()
+    (rec,) = CramReader(fd.getvalue())
+    assert (rec.name, rec.seq, rec.qual) == ("r", "ACGTA", "+++++")
 
 
 class _Aligner:

@@ -369,8 +369,22 @@ def test_train_cli_on_the_cpu(tmp_path):
     with pytest.raises(KeyError, match="unknown model"):
         cli_main(["train", str(tmp_path / "w3"), "--directory",
                   str(tmp_path / "data"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_main(["duplex", "model", "reads"])
+    # duplex runs now: one pair of reads from a BAM, its consensus as fastq
+    from bonito_tpu_torch.bam import BAMWriter
+    from test_torch_duplex import run
+    seq = "ACGTTGCAAGGCTTACCGATGCATGCCATTAGGACT" * 5
+    comp = seq.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+    with open(tmp_path / "calls.bam", "wb") as f:
+        w = BAMWriter(f, "@HD\tVN:1.6\tSO:unknown\n", [])
+        w.write("t", seq, "5" * len(seq))
+        w.write("c", comp, "+" * len(comp))
+        w.close()
+    (tmp_path / "pairs.txt").write_text("template complement\nt c\n")
+    from bonito_tpu_torch.cli import duplex
+    run(duplex, [str(tmp_path / "calls.bam"), str(tmp_path / "pairs.txt"),
+                 "--threads", "0"], tmp_path / "duplex.fastq")
+    lines = (tmp_path / "duplex.fastq").read_text().splitlines()
+    assert lines[0].split()[0] == "@t;c" and lines[1] == seq
 
 
 # ---------------------------------------------------------------------------

@@ -28,10 +28,18 @@ NAME = "dna_r10.4.1_e8.2_400bps_hac@v4.3.0"
 
 
 @pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
+def one_thread_per_pool():
+    """The suite runs test files side by side in worker processes that use
+    every core already. bonito_tpu's ``view`` initialises the old-style
+    model, whose orthogonal LSTM weights are QRs through scipy's OpenBLAS:
+    its idle threads spin, and with a pool of its own per worker the view
+    test took 390 s instead of 7 s on a loaded host."""
+    import scipy.linalg.cython_lapack  # noqa: F401 (the library JAX's QR uses)
+    from threadpoolctl import threadpool_limits
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
