@@ -73,11 +73,11 @@
 // rows and runs 16x16x16 WMMA products straight from L2.
 //
 // An f32 model (evaluate loads with half=False, a --no-amp validation)
-// runs kernel R's f32 step kernel without its train stores
-// (csrc/lstm_train.cu:lstm_recurrence_f32; the wrapper, ops/lstm_cuda.py,
-// takes it for f32 tensors, no plan). W_hh in f32 is 16 MB at hac, twice
-// what the persistent design keeps in shared memory, so each step reads its
-// slices through L2.
+// runs A's f32 persistent kernel (csrc/lstm_f32.cu, on ops/lstm_cuda.py's
+// f32_plan: 8 units of f32 W_hh a CTA, h streamed through a ring of bulk
+// copies). Where that plan is None, and for comparisons, its earlier
+// kernel runs: kernel R's f32 step kernel without its train stores
+// (csrc/lstm_train.cu:lstm_recurrence_f32).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

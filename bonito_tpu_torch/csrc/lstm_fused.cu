@@ -64,9 +64,11 @@
 // step: 4.4 ms a layer on an H100 at fast widths against 2.0 ms with them in
 // registers (PERF.md).
 //
-// lstm_fused_f32_kernel<KH> (an f32 model: evaluate, a --no-amp
-// validation): the same function in f32 on the f32 cores, described where
-// it is defined below.
+// lstm_fused_f32_kernel<KH>: F's earlier f32 kernel, the same function in
+// f32 on the f32 cores, described where it is defined below. An f32 model
+// (evaluate, a --no-amp validation) runs F's f32 kernel in csrc/lstm_f32.cu
+// on ops/lstm_fused_cuda.py:f32_plan's plan; this one runs for comparisons
+// and where that plan is None.
 //
 // scripts/lstm_step_split.py f times the mma kernel with each part of a
 // step left out (LSTM_CUT, 0 in the library) and with tanh.approx.f32.
@@ -489,7 +491,7 @@ MmaKernel mma_kernel(int C, int H) {
 }
 
 // ---------------------------------------------------------------------------
-// the f32 instance (an f32 model: evaluate, a --no-amp validation)
+// the earlier f32 instance (csrc/lstm_f32.cu has F's f32 kernel)
 // ---------------------------------------------------------------------------
 //
 // xw = x[t] @ W_ih + b and gates = xw + h @ W_hh, all in f32 on the f32
@@ -499,8 +501,8 @@ MmaKernel mma_kernel(int C, int H) {
 // memory). At fast's H 96 a thread keeps its column of W_hh in registers
 // (KH 6; KH 0, every other H, reads it through L2 every step); W_ih sits in
 // shared memory where it fits (C x 4H f32, 144 KB at fast's C = H = 96),
-// else it too is read through L2. The plan (ops/lstm_fused_cuda.py:
-// f32_plan) decides both and the C entry takes it as given.
+// else it too is read through L2. The layout (ops/lstm_fused_cuda.py:
+// f32_old_layout) decides both and the C entry takes it as given.
 // After a barrier each thread does the gate math of two (row, unit) pairs
 // with c in registers: two barriers a step.
 
@@ -622,10 +624,10 @@ lstm_fused_f32_kernel(const float* __restrict__ x,     // [T, N, C]
 
 }  // namespace
 
-// Kernel F in f32: x [T, N, C], wih [C, 4H], whh [H, 4H], bias [4H], out
-// [T, N, H], all f32 (x and wih at 16-byte addresses); C and H multiples
-// of 16, C at most 1024 and H at most 256. The layout is the caller's plan
-// (ops/lstm_fused_cuda.py:f32_plan): W_hh's column in registers
+// Kernel F's earlier f32 kernel: x [T, N, C], wih [C, 4H], whh [H, 4H],
+// bias [4H], out [T, N, H], all f32 (x and wih at 16-byte addresses); C
+// and H multiples of 16, C at most 1024 and H at most 256. The layout is
+// the caller's (ops/lstm_fused_cuda.py:f32_old_layout): W_hh's column in registers
 // (whh_in_registers, built for H 96 only) or read through L2, W_ih in
 // shared memory (wih_in_smem) or not, and smem, the bytes the block asks
 // for, which must be what that layout needs.

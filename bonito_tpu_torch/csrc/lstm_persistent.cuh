@@ -441,21 +441,22 @@ lstm_persistent_bf16(Persist p)
     if (shared_h) cluster_sync();   // no CTA leaves while copies are due
 }
 
-// One cooperative launch of `grid` CTAs of PTHREADS threads in clusters of
-// `cluster`. Every CTA waits on others, so the grid must be resident all at
-// once, in the clusters the plan asked for: the occupancy API says so before
-// the launch, or this returns cudaErrorCooperativeLaunchTooLarge.
+// One cooperative launch of `grid` CTAs of `threads` threads (PTHREADS
+// unless given) in clusters of `cluster`. Every CTA waits on others, so the
+// grid must be resident all at once, in the clusters the plan asked for:
+// the occupancy API says so before the launch, or this returns
+// cudaErrorCooperativeLaunchTooLarge.
 template <typename Params>
 cudaError_t launch_resident(void (*kernel)(Params), long long grid,
                             size_t smem, int cluster, cudaStream_t stream,
-                            const Params& p)
+                            const Params& p, unsigned threads = PTHREADS)
 {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)grid);
-    cfg.blockDim = dim3(PTHREADS);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attrs[2];

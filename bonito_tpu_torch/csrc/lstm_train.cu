@@ -98,10 +98,10 @@
 // the f32 cores, since the tensor cores would round its operands to TF32:
 // 8 warps, tiles of h and of W_hh's 64 columns staged in shared memory,
 // each thread 2 rows x 4 columns, its sums over k in order; slower, its
-// numbers exact f32. Kernel A's f32 instance (an f32 model's inference:
-// evaluate, a --no-amp validation; f32 W_hh is 16 MB at hac, twice what
-// A's persistent design keeps in shared memory) is this kernel without the
-// stores of c and the activations (lstm_recurrence_f32).
+// numbers exact f32. Kernel A's earlier f32 kernel (an f32 model's
+// inference, where A's f32 plan gives None, and A's comparisons; A's own
+// is csrc/lstm_f32.cu) is this kernel without the stores of c and the
+// activations (lstm_recurrence_f32).
 // S's launch j first computes its block's dh = Io(dgates_{j-1}) @ W_hh^T
 // (read from an Io copy that launch j-1 wrote in full), then, for its own
 // units, step j's dgates and dc. The Io copy of dgates and Io(h) are
@@ -858,7 +858,7 @@ extern "C" int lstm_train_fwd(const void* xw, const void* whh, void* h,
     return fn(xw, whh, h, c, acts, hbuf, cbuf, T, N, Np, H, reverse, s);
 }
 
-// Kernel A in f32 (an f32 model: evaluate, a --no-amp validation): R's f32
+// Kernel A's earlier f32 kernel (csrc/lstm_f32.cu has A's own): R's f32
 // step kernel storing h only. xw [T, N, 4H], whh [H, 4H] (at a 16-byte
 // address), out [T, N, H], all f32; hbuf [2, Np, H] f32 and cbuf [N, H] f32
 // zeroed scratch; Np a multiple of RB (32), H a multiple of 16.

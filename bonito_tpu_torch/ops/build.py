@@ -39,8 +39,13 @@ IP = ctypes.POINTER(ctypes.c_int)  # a host int the C function writes
 SIGNATURES = {
     # xw, w_hh, out, hbuf, cbuf, T, N, Np, H, reverse, stream
     "lstm_recurrence_bf16": [P, P, P, P, P, I, I, I, I, I, P],
-    # kernel A's f32 step kernel: as lstm_recurrence_bf16, all in f32
+    # kernel A's earlier f32 kernel (R's f32 step kernel): as
+    # lstm_recurrence_bf16, all in f32
     "lstm_recurrence_f32": [P, P, P, P, P, I, I, I, I, I, P],
+    # kernel A in f32, persistent (csrc/lstm_f32.cu): xw, whh, out, hbuf,
+    # flag, T, N, n0, rows, H, R, ks, kc, stages, reverse, stream
+    "lstm_recurrence_f32_persistent": [P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                       I, I, P],
     # xw, wt, out, hbuf, flags, T, N, n0, rows, H, mt, slices, kc, stages,
     # cluster, reverse, stream
     "lstm_recurrence_persistent": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
@@ -63,8 +68,12 @@ SIGNATURES = {
     "lstm_fused_bf16": [P, P, P, P, P, I, I, I, I, I, P],
     # kernel F on its mma kernel: as F
     "lstm_fused_mma": [P, P, P, P, P, I, I, I, I, I, P],
-    # kernel F in f32 (its FFMA kernel): as F, all in f32
+    # kernel F's earlier f32 kernel (csrc/lstm_fused.cu): as F, all in f32,
+    # with whh_in_registers, wih_in_smem, smem
     "lstm_fused_f32": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # kernel F in f32 (csrc/lstm_f32.cu): x, wih, whh, bias, out, T, N, C,
+    # H, reverse, rows, block, whh_in_registers, wih_in_smem, smem, stream
+    "lstm_fused_f32_rows": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     # moves, move_in, choices, c, logz, end_state, N, T, S, p_stay,
     # blank, stream
     "decode_tcn_fwd_bf16": [P, P, P, P, P, P, I, I, I, F, F, P],

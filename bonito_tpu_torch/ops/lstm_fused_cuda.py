@@ -20,6 +20,11 @@ mma kernel (the gate math in the product's registers, one barrier a step)
 where it gives a plan, else the earlier kernel; ``lstm_fused_old_kernel``
 runs the earlier kernel whatever the plan (no count), for comparisons.
 ``csrc/lstm_fused.cu`` says how both are laid out and what bounds them.
+An f32 model takes the f32 kernel (``csrc/lstm_f32.cu``) on ``f32_plan``'s
+plan: 1 to 8 rows a block so that the grid fills the card, the x product a
+block of steps ahead, the four gates of a unit swapped by shuffles, one
+barrier a step; ``f32_old_layout`` is the earlier f32 kernel's
+(``csrc/lstm_fused.cu:lstm_fused_f32``).
 """
 
 import functools
@@ -111,27 +116,71 @@ def fused_plan(N, C, H, sms=None):
     return _plan(C, H, -(-N // MMA_ROWS), sms)
 
 
-F32_ROWS = 8  # batch rows a block of the f32 kernel
+F32_OLD_ROWS = 8  # batch rows a block of the earlier f32 kernel
 F32_REGISTER_H = 96  # the one H whose W_hh column a thread keeps (fast's)
 SMEM_LIMIT = 232448  # the most shared memory a block may ask for
+F32_ROWS = (1, 2, 4, 8)  # batch rows a block of the f32 kernel: instances
+F32_PASS = 32  # (step, row)s of the x product a pass of a block's threads
+F32_MAX_BLOCK = 32  # steps of the x product at once, at most
 
 
-def f32_plan(N, C, H):
-    """The f32 kernel's plan (``csrc/lstm_fused.cu:lstm_fused_f32``, which
-    takes it as given) for x [T, N, C] and W_hh [H, 4H]: 8 rows a block, a
-    thread per gate column (4H), W_hh's column in the thread's registers at
-    H 96 (the one instance built so; else read through L2 every step), W_ih
-    in shared memory where it fits beside the step's rows of x, h and the
-    gates (else it too is read through L2), and the shared memory that
-    layout asks for. Raises for a shape kernel F does not take."""
+def _check(N, C, H):
     if N < 1 or not fused_supported(C, H):
         raise ValueError(f"kernel F takes N >= 1 and C, H multiples of "
                          f"{TILE}, at most {MAX_C} and {MAX_H}: got N={N}, "
                          f"C={C}, H={H}")
-    rows = F32_ROWS * (C + H + 4 * H) * 4
+
+
+def f32_smem_bytes(C, H, rows, block, wih_in_smem):
+    """Shared memory of one block of the f32 kernel (``csrc/lstm_f32.cu:
+    f32_rows_smem_floats``): W_ih where it is kept there, xw + b of
+    ``block`` steps, their x rows twice (the next block's arrive while
+    this one runs), h in two buffers."""
+    return 4 * ((C * 4 * H if wih_in_smem else 0) + block * rows * 4 * H
+                + 2 * block * rows * C + 2 * rows * H)
+
+
+def f32_plan(N, C, H, sms):
+    """The f32 kernel's plan (``csrc/lstm_f32.cu:lstm_fused_f32_rows``,
+    which takes it as given) for x [T, N, C] and W_hh [H, 4H] on a card
+    of ``sms`` SMs: ``rows`` a block, the fewest of F32_ROWS that still
+    fit the grid in one wave (8 where none does: N above 8 x sms), so
+    that a small batch fills the card too; a thread per gate column (4H),
+    W_hh's column in its registers at H 96 (the one instance built so;
+    else read through L2 every step); the x product (xw + b) ``block``
+    steps at a time into shared memory: the most steps (at most
+    F32_MAX_BLOCK) that fit beside W_ih and fill the threads' passes of
+    F32_PASS (step, row)s, else the most that fit, or, where W_ih does not
+    fit beside one step, the same beside nothing (W_ih then read through
+    L2); and the shared memory that layout asks for. Raises for a shape
+    kernel F does not take; never None for one it takes (one step of 8
+    rows at C 1024 and H 256 takes 112 KB beside nothing)."""
+    _check(N, C, H)
+    rows = next((r for r in F32_ROWS if -(-N // r) <= sms), F32_ROWS[-1])
+
+    def fits(wih_in_smem):
+        return [b for b in range(F32_MAX_BLOCK, 0, -1)
+                if f32_smem_bytes(C, H, rows, b, wih_in_smem) <= SMEM_LIMIT]
+    wih_in_smem = bool(fits(True))
+    blocks = fits(wih_in_smem)
+    block = ([b for b in blocks if b * rows % F32_PASS == 0] or blocks)[0]
+    return {"dtype": "f32", "rows": rows, "threads": 4 * H,
+            "ctas": -(-N // rows), "block": block,
+            "whh_in_registers": H == F32_REGISTER_H,
+            "wih_in_smem": wih_in_smem,
+            "smem": f32_smem_bytes(C, H, rows, block, wih_in_smem)}
+
+
+def f32_old_layout(N, C, H):
+    """The earlier f32 kernel's layout (``csrc/lstm_fused.cu:
+    lstm_fused_f32``, which takes it as given): 8 rows a block, a thread
+    per gate column, W_hh's column in registers at H 96, W_ih in shared
+    memory where it fits beside the step's rows of x, h and the gates."""
+    _check(N, C, H)
+    rows = F32_OLD_ROWS * (C + H + 4 * H) * 4
     wih_in_smem = C * 4 * H * 4 + rows <= SMEM_LIMIT
-    return {"dtype": "f32", "rows": F32_ROWS, "threads": 4 * H,
-            "ctas": -(-N // F32_ROWS),
+    return {"dtype": "f32", "rows": F32_OLD_ROWS, "threads": 4 * H,
+            "ctas": -(-N // F32_OLD_ROWS),
             "whh_in_registers": H == F32_REGISTER_H,
             "wih_in_smem": wih_in_smem,
             "smem": rows + (C * 4 * H * 4 if wih_in_smem else 0)}
@@ -151,22 +200,25 @@ def lstm_fused(x, w_ih, w_hh, b, reverse=False):
     """``lstm_fused_plain``'s function: the plain version for a CPU
     tensor, kernel F for a CUDA tensor (C and H as ``fused_supported``
     says). bf16: the mma kernel where ``fused_plan`` gives a plan, else the
-    earlier kernel; f32: the f32 kernel on ``f32_plan``'s plan.
-    ``lstm_fused.plan`` holds the last call's plan."""
+    earlier kernel; f32: the f32 kernel on ``f32_plan``'s plan (which
+    every shape F takes has). ``lstm_fused.plan`` holds the last call's
+    plan."""
     if x.device.type == "cpu":
         return lstm_fused_plain(x, w_ih, w_hh, b, reverse=reverse)
     return _launch(lstm_fused, x, w_ih, w_hh, b, reverse)
 
 
 def lstm_fused_old_kernel(x, w_ih, w_hh, b, reverse=False):
-    """Kernel F's earlier kernel whatever the plan, for comparisons; counts
-    no launch."""
+    """Kernel F's earlier kernel for x's dtype whatever the plan (bf16:
+    ``lstm_fused_bf16``; f32: ``lstm_fused_f32`` on ``f32_old_layout``),
+    for comparisons; counts no launch."""
     return _launch(None, x, w_ih, w_hh, b, reverse)
 
 
 def _launch(counter, x, w_ih, w_hh, b, reverse):
-    """F's checks and launch: the mma kernel on ``fused_plan``'s plan, the
-    earlier kernel where it gives None or where ``counter`` is None (the
+    """F's checks and launch: the mma kernel on ``fused_plan``'s plan (f32:
+    the f32 kernel on ``f32_plan``'s), the earlier kernel where
+    ``fused_plan`` gives None or where ``counter`` is None (the
     comparisons' route, which counts nothing)."""
     build.refuse_grad("F", [x, w_ih, w_hh, b], build.TRAIN_ROUTE)
     if x.device.type != "cuda" or any(
@@ -193,16 +245,23 @@ def _launch(counter, x, w_ih, w_hh, b, reverse):
         raise ValueError(f"kernel F: b has {bias.numel()} values, not {4 * H}")
     out = torch.empty(T, N, H, dtype=x.dtype, device=x.device)
     if x.dtype == torch.float32:
+        x, w_ih = _aligned(x), _aligned(w_ih)  # 16-byte loads and copies
+        args = (x.data_ptr(), w_ih.data_ptr(), w_hh.contiguous().data_ptr(),
+                bias.data_ptr(), out.data_ptr(), T, N, C, H,
+                int(bool(reverse)))
+        lib, stream = build.library(), build.stream_of(x)
         if counter is None:
-            raise TypeError("kernel F's earlier kernel takes bf16 only")
-        plan = counter.plan = f32_plan(N, C, H)
+            old = f32_old_layout(N, C, H)
+            build.check(lib.lstm_fused_f32(
+                *args, int(old["whh_in_registers"]), int(old["wih_in_smem"]),
+                old["smem"], stream), "lstm_fused_f32")
+            return out
+        plan = counter.plan = f32_plan(N, C, H, _sms(x.device))
         counter.launches += 1
-        x, w_ih = _aligned(x), _aligned(w_ih)  # float4 loads
-        build.check(build.library().lstm_fused_f32(
-            x.data_ptr(), w_ih.data_ptr(), w_hh.contiguous().data_ptr(),
-            bias.data_ptr(), out.data_ptr(), T, N, C, H, int(bool(reverse)),
+        build.check(lib.lstm_fused_f32_rows(
+            *args, plan["rows"], plan["block"],
             int(plan["whh_in_registers"]), int(plan["wih_in_smem"]),
-            plan["smem"], build.stream_of(x)), "lstm_fused_f32")
+            plan["smem"], stream), "lstm_fused_f32_rows")
         return out
     plan = None
     if counter is not None:

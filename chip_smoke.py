@@ -245,15 +245,27 @@ PyTorch built for CUDA. In order, it:
     zip of the hac ``.tar`` directory (its ``.npz`` the import); ``export
     --format dorado`` of it, each ``.tensor`` read back with
     ``torch.jit.load`` equal to the BatchNorm-fused state;
-15. runs f32 on the card: kernel A's f32 step kernel at hac's width (N
-    96, T 1666, H 1024) and at H 768, kernel F's f32 kernel at fast's (N
-    1024, T 1200, C = H = 96), both directions, against their plain
-    versions within LSTM_ATOL / LSTM_MEAN_TOL, and B and C on their f32
-    ring at S 1024 (hac) and S 64 (fast) against their plain versions bit
-    for bit on all eight outputs, with times, bounds (f32 FMA or bytes)
-    and cuDNN's f32 LSTM; ``evaluate`` (f32, as bonito_tpu loads it) of
-    the hac, fast and an old-style directory on the card (A or F in f32,
-    then M and Q; launch counts) and with ``--device cpu`` on the same
+15. runs f32 on the card: kernel A's f32 persistent kernel (csrc/
+    lstm_f32.cu) at hac's basecall batch (N 96, T 1666, H 1024), at
+    evaluate's (N 256, T 500) and the --no-amp validation's (N 16) and at
+    the old-style model's evaluate batch (N 256, T 600, H 768), and kernel
+    F's f32 kernel at fast's (N 1024, T 1200, C = H = 96) and at N 256 and
+    16 (T 500): each against its plain version, against its earlier kernel
+    (R's f32 step kernel; F's first f32 kernel), and the earlier kernel
+    against the plain version, within LSTM_F32_ATOL (A both directions at
+    hac, F three cases at fast); the new and earlier kernels timed in
+    turns, the bounds (f32 FMA or bytes) and cuDNN's f32 LSTM with TF32 off
+    (the yardstick) and on; B and C on their f32 ring at S 1024 (hac) and
+    S 64 (fast) against their plain versions bit for bit on all eight
+    outputs, with times and bounds; the other f32 instances ``evaluate``
+    and ``train --no-amp`` launch (``f32_gaps``: M and Q on f32 full
+    scores, R and S in f32, the launches of the sup model's forward and
+    decode at evaluate's batch and its K and P in f32), each against its
+    plain version and timed beside its library call where one exists;
+    ``evaluate`` (f32, as bonito_tpu
+    loads it) of the hac, fast and an old-style directory on the card (A
+    or F in f32, then M and Q; launch counts; at its defaults the new f32
+    kernels' plans) and with ``--device cpu`` on the same
     chunks (at most F32_EVAL_MAX_DIFFER of them called otherwise; one
     batch's card scores decode alike on both), and on the card again at
     evaluate's defaults (512 chunks in two batches of 256) for its rate; one
@@ -380,8 +392,9 @@ SUP_CRF_SCALE = 0.5
 # K and L against their plain versions: the same operands and rounding
 # points, f32 sums in another order: one bf16 step of the largest output on
 # the max in bf16 (a rounding of p or of the output can flip), ATTN_F32_TOL
-# for L in f32 (bonito_tpu's tolerance for its kernel); ATTN_MEAN_TOL on the
-# mean.
+# for K and L in f32 (bonito_tpu's tolerance for its kernel; K in f32 seen at
+# 2.1e-06 at sup's width, NVIDIA H100 80GB HBM3, 700.00 W); ATTN_MEAN_TOL on
+# the mean.
 ATTN_F32_TOL, ATTN_MEAN_TOL = 2e-5, 1e-5
 # One sup batch through 18 layers with K and P against 18 with their plain
 # versions: each layer's attention is within a bf16 step of the other's, the
@@ -4324,10 +4337,10 @@ def upstream_phase(torch, counters, dev, dirs, cli_reads, card):
 
 
 
-# phase 15: f32 on the card. Kernel A's f32 step kernel and kernel F's f32
-# kernel at full width against their plain versions (within the LSTM's
-# limits: f32 against f32, seen 9.4e-7 at H 768), B and C on their f32 ring
-# bit for bit; ``evaluate`` (half=False) of hac, fast and old-style
+# phase 15: f32 on the card. Kernels A and F in f32 at full width against
+# their plain versions and their earlier kernels (f32_kernels), B and C on
+# their f32 ring bit for bit; ``evaluate`` (half=False) of hac, fast and
+# old-style
 # directories on the card and with --device cpu; one ``train --no-amp``
 # epoch with validation on hac and fast; the basecaller to CRAM with and
 # without --reference; ``duplex`` on its BAM and CRAM.
@@ -4345,89 +4358,189 @@ F32_TRAIN_N, F32_TRAIN_CHUNK, F32_TRAIN_L, F32_TRAIN_BATCHES = 16, 3000, 250, 2
 F32_DUPLEX_THREADS = 2
 
 
+# A's and F's f32 kernels (csrc/lstm_f32.cu) against their plain versions
+# and their earlier kernels (R's f32 step kernel, csrc/lstm_fused.cu's f32
+# kernel) within the LSTM recurrence's f32 limit (ROADMAP: f32 against f32,
+# the same operations summed in another order; seen at most 1.07e-06 over
+# 1666 hac steps on the earlier kernel, NVIDIA H100 80GB HBM3, 700.00 W)
+LSTM_F32_ATOL = 1e-5
+# (N, T, H): hac's basecall batch, evaluate's (256 chunks of 3000 samples:
+# T 500 at hac's stride 6, 600 at the old-style model's stride 5) and the
+# --no-amp validation's (16); F at fast's batch and at N 256 and 16
+A32_SHAPES = {"hac": (N, T, H), "evaluate": (256, 500, H),
+              "validation": (16, 500, H),
+              "old_style_evaluate": (256, 600, 768)}
+F32_SHAPES = {"fast": (FN, FT, FH), "evaluate": (256, 500, FH),
+              "validation": (16, 500, FH)}
+F32_TURNS = 2
+
+
+def in_turns(torch, fns, reps):
+    """Each of ``fns`` (name -> callable) after one warm-up call, timed
+    F32_TURNS times in turns: name -> [ms, ...]."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(F32_TURNS):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, reps, warmup=0))
+    return times
+
+
+def cudnn_f32(torch, dev, t, n, h, reps, train=False):
+    """cuDNN's f32 LSTM layer (``torch.nn.LSTM(h, h)``, its projection
+    included) on x [t, n, h], forward (with ``train`` forward + backward):
+    its time with TF32 off (the f32 function: the yardstick) and on
+    (torch's default for cuDNN: its products' operands rounded to 10 bits
+    of mantissa), the setting restored after."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x = torch.randn(t, n, h, device=dev, generator=g)
+    lstm = torch.nn.LSTM(h, h, device=dev)
+    lstm.flatten_parameters()
+    g_h = torch.randn(t, n, h, device=dev, generator=g)
+
+    def step():
+        if not train:
+            with torch.no_grad():
+                return lstm(x)
+        x.requires_grad_()
+        out, _ = lstm(x)
+        out.backward(g_h)
+    tf32 = torch.backends.cudnn.allow_tf32
+    times = {}
+    try:
+        for on in (False, True):
+            torch.backends.cudnn.allow_tf32 = on
+            times[on] = cuda_ms(step, reps)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return times[False], times[True]
+
+
 def f32_kernels(torch, dev, lstm_cuda, lstm_fused_cuda, decode_cuda):
-    """A and F in f32 at full width against their plain versions (A at H
-    1024 and F both directions, A at H 768 forward); B and C on the f32
-    ring at S 1024 and 64 against their plain versions bit for bit; times
-    (each plain version's from its one call here), bounds, the library's
-    LSTM."""
-    out = {}
+    """A and F in f32 at A32_SHAPES and F32_SHAPES: each new kernel against
+    its plain version, the earlier kernel against the plain version and
+    the two against each other (all within LSTM_F32_ATOL; A both
+    directions at hac, F three cases at fast), the launches and plan of
+    each call; the two timed in turns; the bound; cuDNN's f32 LSTM with
+    TF32 off and on. B and C on the f32 ring at S 1024 and 64 against
+    their plain versions bit for bit. Times of the plain versions are of
+    their one call here."""
+    out = {"A": {}, "F": {}}
     g = torch.Generator().manual_seed(SEED + 15)
-    for key, h, directions in (("A", H, (False, True)),
-                               ("A768", OLD_H, (False,))):
-        xw = torch.randn(T, N, 4 * h, generator=g).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for key, (n, t, h) in A32_SHAPES.items():
+        xw = torch.randn(t, n, 4 * h, generator=g).to(dev)
         w_hh = (torch.randn(h, 4 * h, generator=g) / math.sqrt(h)).to(dev)
-        err = mean = 0.0
-        for reverse in directions:
+        err = {"new": 0.0, "old": 0.0, "vs_old": 0.0}
+        for reverse in ((False, True) if key == "hac" else (False,)):
+            before = lstm_cuda.lstm_recurrence.launches
             got = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
             torch.cuda.synchronize()
-            require(got.dtype == torch.float32
-                    and lstm_cuda.lstm_recurrence.plan is None,
-                    f"kernel A in f32: {got.dtype}, plan "
-                    f"{lstm_cuda.lstm_recurrence.plan}")
+            plan = lstm_cuda.lstm_recurrence.plan
+            require(got.dtype == torch.float32 and plan is not None
+                    and plan == lstm_cuda.f32_plan(n, h, sms)
+                    and lstm_cuda.lstm_recurrence.launches - before
+                    == plan["launches"],
+                    f"kernel A in f32 at {(n, t, h)}: {got.dtype}, plan "
+                    f"{plan}, launches "
+                    f"{lstm_cuda.lstm_recurrence.launches - before}")
             ref, plain = timed(torch, lambda: lstm_cuda.lstm_recurrence_plain(
                 xw, w_hh, reverse=reverse))
-            d = (got - ref).abs()
-            err, mean = max(err, d.max().item()), max(mean, d.mean().item())
-        require(torch.isfinite(got).all().item() and err <= LSTM_ATOL
-                and mean <= LSTM_MEAN_TOL,
-                f"kernel A in f32 at H {h}: max {err}, mean {mean}")
-        ms = cuda_ms(lambda: lstm_cuda.lstm_recurrence(xw, w_hh), reps=3)
-        x = torch.randn(T, N, h, device=dev)
-        cudnn = torch.nn.LSTM(h, h, device=dev)
-        cudnn.flatten_parameters()
-        with torch.no_grad():
-            lib = cuda_ms(lambda: cudnn(x), reps=3)
-        b = bound(T * N * 4 * h * 4 + h * 4 * h * 4 + T * N * h * 4,
-                  2 * N * h * 4 * h * T, H100_F32_OPS)
-        out[key] = dict(max_abs_err=err, mean_abs_err=mean, ms=ms,
-                        plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                        library_ms=lib, us_a_step=ms / T * 1e3,
-                        shape=[N, T, h])
-        log(f"  A in f32, N {N}, T {T}, H {h}: {ms:.4g} ms a layer "
-            f"({ms / T * 1e3:.4g} us a step; the step kernel, one count a "
-            f"call), plain {plain:.4g} ms, bound {b[0]:.4g} ms by {b[1]}, "
-            f"cuDNN torch.nn.LSTM f32 {lib:.4g} ms; max |h - plain| "
-            f"{err:.3g}, mean {mean:.3g}")
-        del xw, w_hh, x, cudnn
+            old = lstm_cuda.lstm_recurrence_old_kernel(xw, w_hh, reverse)
+            for k, a, b in (("new", got, ref), ("old", old, ref),
+                            ("vs_old", got, old)):
+                require(torch.isfinite(a).all().item(),
+                        f"kernel A in f32 at {(n, t, h)}: non-finite {k}")
+                err[k] = max(err[k], (a - b).abs().max().item())
+            del ref, old
+        require(all(v <= LSTM_F32_ATOL for v in err.values()),
+                f"kernel A in f32 at {(n, t, h)}: max |diff| {err} (new, "
+                f"earlier kernel, new vs earlier) beyond {LSTM_F32_ATOL}")
+        turns = in_turns(torch, {
+            "new": lambda: lstm_cuda.lstm_recurrence(xw, w_hh),
+            "old": lambda: lstm_cuda.lstm_recurrence_old_kernel(xw, w_hh)},
+            reps=1)
+        lib, lib_tf32 = cudnn_f32(torch, dev, t, n, h, reps=2)
+        b = bound(t * n * 4 * h * 4 + h * 4 * h * 4 + t * n * h * 4,
+                  2 * n * h * 4 * h * t, H100_F32_OPS)
+        ms = sum(turns["new"]) / F32_TURNS
+        out["A"][key] = dict(
+            shape=[n, t, h], plan=plan, launches_per_call=plan["launches"],
+            max_abs_err=err["new"], old_kernel_max_abs_err=err["old"],
+            max_abs_err_vs_old_kernel=err["vs_old"], ms=ms,
+            ms_turns=turns["new"], old_kernel_ms=sum(turns["old"]) / F32_TURNS,
+            old_kernel_ms_turns=turns["old"], plain_ms=plain, bound_ms=b[0],
+            bound_by=b[1], library_ms=lib, library_tf32_ms=lib_tf32,
+            us_a_step=ms / t * 1e3)
+        log(f"  A in f32, {key} (N {n}, T {t}, H {h}): {ms:.4g} ms a layer "
+            f"({ms / t * 1e3:.4g} us a step; turns {turns['new']}), the "
+            f"earlier kernel {turns['old']}; plain {plain:.4g} ms, bound "
+            f"{b[0]:.4g} ms by {b[1]}, cuDNN torch.nn.LSTM f32 {lib:.4g} ms "
+            f"with TF32 off ({lib_tf32:.4g} ms with TF32 on); max |h - plain| "
+            f"{err['new']:.3g} (earlier kernel {err['old']:.3g}, the two "
+            f"{err['vs_old']:.3g}); plan {plan}")
+        del xw, w_hh, got
+        torch.cuda.empty_cache()
 
-    x = torch.tanh(torch.randn(FT, FN, FH, generator=g)).to(dev)
-    w_ih, w_hh = ((torch.randn(FH, 4 * FH, generator=g) / math.sqrt(FH)).to(
-        dev) for _ in range(2))
-    bias = (0.5 * torch.randn(4 * FH, generator=g)).to(dev)
-    err = mean = 0.0
-    for reverse, b in ((True, bias), (False, None), (False, bias)):
-        got = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, b, reverse=reverse)
-        torch.cuda.synchronize()
-        ref, plain = timed(torch, lambda: lstm_fused_cuda.lstm_fused_plain(
-            x, w_ih, w_hh, b, reverse=reverse))
-        d = (got - ref).abs()
-        err, mean = max(err, d.max().item()), max(mean, d.mean().item())
-    plan = lstm_fused_cuda.lstm_fused.plan
-    require(got.dtype == torch.float32 and plan is not None
-            and plan.get("dtype") == "f32" and plan["whh_in_registers"]
-            and plan["wih_in_smem"],
-            f"kernel F in f32 at fast widths: {got.dtype}, plan {plan}")
-    require(torch.isfinite(got).all().item() and err <= LSTM_ATOL
-            and mean <= LSTM_MEAN_TOL,
-            f"kernel F in f32: max {err}, mean {mean}")
-    ms = cuda_ms(lambda: lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, bias),
-                 reps=5)
-    cudnn = torch.nn.LSTM(FH, FH, device=dev)
-    cudnn.flatten_parameters()
-    with torch.no_grad():
-        lib = cuda_ms(lambda: cudnn(x), reps=5)
-    b = bound(2 * FT * FN * FH * 4 + 2 * FH * 4 * FH * 4 + 4 * FH * 4,
-              2 * FN * FT * (FH + FH) * 4 * FH, H100_F32_OPS)
-    out["F"] = dict(max_abs_err=err, mean_abs_err=mean, ms=ms,
-                    plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                    library_ms=lib, us_a_step=ms / FT * 1e3, plan=plan,
-                    shape=[FN, FT, FH, FH])
-    log(f"  F in f32, N {FN}, T {FT}, C = H = {FH}: {ms:.4g} ms a layer "
-        f"({ms / FT * 1e3:.4g} us a step), plain {plain:.4g} ms, bound "
-        f"{b[0]:.4g} ms by {b[1]}, cuDNN torch.nn.LSTM f32 {lib:.4g} ms; "
-        f"max |h - plain| {err:.3g}, mean {mean:.3g}; plan {plan}")
-    del x, w_ih, w_hh, cudnn
+    for key, (n, t, h) in F32_SHAPES.items():
+        x = torch.tanh(torch.randn(t, n, h, generator=g)).to(dev)
+        w_ih, w_hh = ((torch.randn(h, 4 * h, generator=g) / math.sqrt(h)).to(
+            dev) for _ in range(2))
+        bias = (0.5 * torch.randn(4 * h, generator=g)).to(dev)
+        err = {"new": 0.0, "old": 0.0, "vs_old": 0.0}
+        cases = (((True, bias), (False, None), (False, bias)) if key == "fast"
+                 else ((False, bias),))
+        for reverse, b in cases:
+            before = lstm_fused_cuda.lstm_fused.launches
+            got = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, b,
+                                             reverse=reverse)
+            torch.cuda.synchronize()
+            plan = lstm_fused_cuda.lstm_fused.plan
+            require(got.dtype == torch.float32 and plan is not None
+                    and plan == lstm_fused_cuda.f32_plan(n, h, h, sms)
+                    and lstm_fused_cuda.lstm_fused.launches - before == 1,
+                    f"kernel F in f32 at {(n, t, h)}: {got.dtype}, plan "
+                    f"{plan}")
+            ref, plain = timed(torch, lambda: lstm_fused_cuda.lstm_fused_plain(
+                x, w_ih, w_hh, b, reverse=reverse))
+            old = lstm_fused_cuda.lstm_fused_old_kernel(x, w_ih, w_hh, b,
+                                                        reverse=reverse)
+            for k, a, r in (("new", got, ref), ("old", old, ref),
+                            ("vs_old", got, old)):
+                require(torch.isfinite(a).all().item(),
+                        f"kernel F in f32 at {(n, t, h)}: non-finite {k}")
+                err[k] = max(err[k], (a - r).abs().max().item())
+            del ref, old
+        require(all(v <= LSTM_F32_ATOL for v in err.values()),
+                f"kernel F in f32 at {(n, t, h)}: max |diff| {err} (new, "
+                f"earlier kernel, new vs earlier) beyond {LSTM_F32_ATOL}")
+        turns = in_turns(torch, {
+            "new": lambda: lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, bias),
+            "old": lambda: lstm_fused_cuda.lstm_fused_old_kernel(
+                x, w_ih, w_hh, bias)}, reps=3)
+        lib, lib_tf32 = cudnn_f32(torch, dev, t, n, h, reps=3)
+        b = bound(2 * t * n * h * 4 + 2 * h * 4 * h * 4 + 4 * h * 4,
+                  2 * n * t * (h + h) * 4 * h, H100_F32_OPS)
+        ms = sum(turns["new"]) / F32_TURNS
+        out["F"][key] = dict(
+            shape=[n, t, h, h], plan=plan, max_abs_err=err["new"],
+            old_kernel_max_abs_err=err["old"],
+            max_abs_err_vs_old_kernel=err["vs_old"], ms=ms,
+            ms_turns=turns["new"],
+            old_kernel_ms=sum(turns["old"]) / F32_TURNS,
+            old_kernel_ms_turns=turns["old"], plain_ms=plain, bound_ms=b[0],
+            bound_by=b[1], library_ms=lib, library_tf32_ms=lib_tf32,
+            us_a_step=ms / t * 1e3)
+        log(f"  F in f32, {key} (N {n}, T {t}, C = H = {h}): {ms:.4g} ms a "
+            f"layer ({ms / t * 1e3:.4g} us a step; turns {turns['new']}), "
+            f"the earlier kernel {turns['old']}; plain {plain:.4g} ms, bound "
+            f"{b[0]:.4g} ms by {b[1]}, cuDNN torch.nn.LSTM f32 {lib:.4g} ms "
+            f"with TF32 off ({lib_tf32:.4g} ms with TF32 on); max |h - plain| "
+            f"{err['new']:.3g} (earlier kernel {err['old']:.3g}, the two "
+            f"{err['vs_old']:.3g}); plan {plan}")
+        del x, w_ih, w_hh, got
+    torch.cuda.empty_cache()
 
     names = DECODE_OUTPUTS
     for key, (n, t, s) in (("BC", (N, T, S)), ("BC64", (FN, FT, FS))):
@@ -4474,6 +4587,208 @@ def f32_kernels(torch, dev, lstm_cuda, lstm_fused_cuda, decode_cuda):
             f"{bc[1]}); all eight outputs equal the plain versions' bit for "
             f"bit")
         del moves, fwd, res, ref_fwd, ref, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_gaps(torch, dev, counters):
+    """The other f32 instances that ``evaluate`` or ``train --no-amp``
+    launch, at their shapes: M and Q on f32 full scores (evaluate's decode:
+    256 chunks of 3000 samples, hac T 500 at S 1024, fast T 600 at S 64)
+    against their plain versions and earlier kernels (``hold_full``); R and
+    S in f32 (the --no-amp train step: 16 chunks of 3000, hac T 500 H 1024,
+    fast T 600 H 96; c and the activations stored as the path stores them,
+    ``train_supported``) against their plain versions, beside cuDNN's f32
+    LSTM forward + backward with TF32 off and on; and the launches of the
+    sup model's forward and ``decode_batch`` in f32 at evaluate's batch
+    (the shipped sup model, 256 x 3000; called here, not through the
+    evaluate CLI), with K's and P's times at that call's inputs beside
+    their plain versions and the library calls (rotary passes + SDPA in
+    f32 with the band as a mask; ``Tensor.contiguous()``). K in f32 is
+    held to ATTN_F32_TOL, P bit for bit."""
+    import torch.nn.functional as F
+    from bonito_tpu_torch import nn
+    from bonito_tpu_torch.crf import seqdist
+    from bonito_tpu_torch.models import MODELS
+    from bonito_tpu_torch.ops import (attention_cuda, decode_full_cuda,
+                                      lstm_train_cuda, relayout)
+    from bonito_tpu_torch.ops import lstm as ops_lstm
+    from bonito_tpu_torch.transformer import model as transformer
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for key, (n, t, s) in (("MQ_hac", (256, 500, S)),
+                           ("MQ_fast", (256, 600, FS))):
+        crf = seqdist.CTC_CRF(round(math.log(s, 4)), list("NACGT"))
+        scores = (3 * torch.randn(n, t, 5 * s, generator=g, device=dev)
+                  ).clamp(-5, 5)
+        _, _, h = hold_full(torch, decode_full_cuda, scores, qscale=1.05,
+                            qbias=0.2)
+        require(h["ok"], f"M + Q on f32 full scores at {(n, t, s)}: "
+                         f"{h['text']}")
+        tm = time_full(torch, decode_full_cuda, crf, scores, plain=True)
+        out[key] = {k: dict(ms=tm[f"{k}_fwd"], old_kernel_ms=tm[f"{k}_old"],
+                            plain_ms=tm[f"{k}_plain"], bound_ms=b[0],
+                            bound_by=b[1], library_ms=None, max_abs_err=e)
+                    for k, b, e in zip("MQ", tm["bounds"],
+                                       (h["err_in"], float(h["dq"])))}
+        out[key].update(shape=[n, t, s], plan=tm["plan"],
+                        max_abs_err_move_in=h["err_in"], max_dq=h["dq"])
+        log(f"  M + Q on f32 full scores, evaluate's decode (N {n}, T {t}, "
+            f"S {s}): M {tm['M_fwd']:.4g} ms, Q {tm['Q_fwd']:.4g} ms (the "
+            f"earlier kernels {tm['M_old']:.4g}, {tm['Q_old']:.4g}; plain "
+            f"{tm['M_plain']:.4g}, {tm['Q_plain']:.4g}; bounds "
+            f"{tm['bounds'][0][0]:.4g}, {tm['bounds'][1][0]:.4g} ms by "
+            f"{tm['bounds'][0][1]}); {h['text']}")
+        del scores
+    for key, (n, t, h) in (("RS_hac", (16, 500, H)), ("RS_fast", (16, 600,
+                                                                  FH))):
+        xw = torch.randn(t, n, 4 * h, generator=g, device=dev)
+        w = torch.randn(h, 4 * h, generator=g, device=dev) / math.sqrt(h)
+        g_h = torch.randn(t, n, h, generator=g, device=dev)
+        rb = ops_lstm.train_supported(torch.empty(n, t, h), w)
+        hk, ck, ak = lstm_train_cuda.lstm_train_forward(xw, w, False, rb)
+        dk = lstm_train_cuda.lstm_train_backward(w, ak, ck, g_h, False, rb)
+        plans = (lstm_train_cuda.lstm_train_forward.plan,
+                 lstm_train_cuda.lstm_train_backward.plan)
+        hp, cp, ap = lstm_train_cuda.lstm_train_forward_plain(xw, w, False,
+                                                              rb)
+        dp = lstm_train_cuda.lstm_train_backward_plain(w, ak, ck, g_h, False,
+                                                       rb)
+        err_h = (hk - hp).abs().max().item()
+        err_abs = (dk.float() - dp.float()).abs().max().item()
+        err_d = err_abs / dp.float().abs().max().item()
+        require(torch.isfinite(dk.float()).all().item()
+                and err_h <= LSTM_F32_ATOL and err_d <= LSTM_TRAIN_MAX,
+                f"R and S in f32 at {(n, t, h)}: max |h - plain| {err_h}, "
+                f"dgates {err_d} of the largest")
+        ms_r = cuda_ms(lambda: lstm_train_cuda.lstm_train_forward(
+            xw, w, False, rb), reps=2)
+        ms_s = cuda_ms(lambda: lstm_train_cuda.lstm_train_backward(
+            w, ak, ck, g_h, False, rb), reps=2)
+        plain_r = timed(torch, lambda: lstm_train_cuda.
+                        lstm_train_forward_plain(xw, w, False, rb))[1]
+        plain_s = timed(torch, lambda: lstm_train_cuda.
+                        lstm_train_backward_plain(w, ak, ck, g_h, False,
+                                                  rb))[1]
+        lib, lib_tf32 = cudnn_f32(torch, dev, t, n, h, reps=2, train=True)
+        st = 2 if rb else 4  # c and the activations: bf16 or f32
+        ops = 2 * n * h * 4 * h * t
+        b_r = bound(t * n * 4 * h * 4 + h * 4 * h * 4 + t * n * h * 4
+                    + t * n * 5 * h * st, ops, H100_F32_OPS)
+        b_s = bound(t * n * 5 * h * st + t * n * h * 4 + h * 4 * h * 4
+                    + t * n * 4 * h * st, ops, H100_F32_OPS)
+        out[key] = {"R": dict(ms=ms_r, plain_ms=plain_r, bound_ms=b_r[0],
+                              bound_by=b_r[1], max_abs_err=err_h),
+                    "S": dict(ms=ms_s, plain_ms=plain_s, bound_ms=b_s[0],
+                              bound_by=b_s[1], max_abs_err=err_abs,
+                              err_relative_to_max=err_d),
+                    "library_ms": lib, "library_tf32_ms": lib_tf32,
+                    "shape": [n, t, h], "round_bf16": rb,
+                    "plans": list(plans)}
+        log(f"  R and S in f32, --no-amp train step (N {n}, T {t}, H {h}; "
+            f"c and activations in {'bf16' if rb else 'f32'}; plans "
+            f"{plans}): R {ms_r:.4g} ms, S {ms_s:.4g} ms (plain "
+            f"{plain_r:.4g}, {plain_s:.4g}; bounds {b_r[0]:.4g}, "
+            f"{b_s[0]:.4g} ms by {b_r[1]}); cuDNN f32 forward + backward "
+            f"{lib:.4g} ms with TF32 off ({lib_tf32:.4g} ms with TF32 on); "
+            f"max |h - plain| {err_h:.3g}, dgates {err_d:.3g} of the "
+            f"largest")
+        del xw, w, g_h, hk, ck, ak, dk, hp, cp, ap, dp
+    # the sup model's forward and decode_batch in f32 at evaluate's batch:
+    # its launches, and K's and P's inputs (the spies only record them)
+    model = transformer.Model(MODELS[SUP]()).init(SEED).to(dev)
+    model.requires_grad_(False)
+    x = torch.randn(256, 3000, 1, generator=g, device=dev)
+    k_args, p_args = [], []
+    k_fn, p_fn = transformer.fused_rotary_window_attention, nn.pin_layout
+
+    def k_spy(*a, **kw):
+        if not k_args:
+            k_args.append((a, kw))
+        return k_fn(*a, **kw)
+
+    def p_spy(*a, **kw):
+        if not p_args:
+            p_args.append((a, kw))
+        return p_fn(*a, **kw)
+    transformer.fused_rotary_window_attention = k_spy
+    nn.pin_layout = p_spy
+    try:
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        with torch.inference_mode():
+            model.decode_batch(model(x))
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in counters.items() if c.launches}
+    finally:
+        transformer.fused_rotary_window_attention = k_fn
+        nn.pin_layout = p_fn
+    out["sup_forward_decode_launches"] = launched
+    log(f"  the sup model's forward + decode_batch in f32 at evaluate's "
+        f"batch (256 x 3000): launches {launched}")
+    del model
+    if k_args:
+        (qkv, cos, sin, window, *rest), kw = k_args[0]
+        t_real = (rest or [kw.get("t_real")])[0]
+        n, t, _, hd, d = qkv.shape
+        ms_k = cuda_ms(lambda: attention_cuda.fused_rotary_window_attention(
+            qkv, cos, sin, window, t_real), reps=5)
+        ref_k, plain_k = timed(torch, lambda: attention_cuda.
+                               fused_rotary_window_attention_plain(
+                                   qkv, cos, sin, window, t_real))
+        got_k = attention_cuda.fused_rotary_window_attention(
+            qkv, cos, sin, window, t_real)
+        err_plain = (got_k - ref_k).abs().max().item()
+        mean_plain = (got_k - ref_k).abs().mean().item()
+        # f32 against f32, the same operations summed in another order: L's
+        # f32 limits (a K that rounded to bf16 would be about 1e-3 off)
+        require(torch.isfinite(got_k).all().item()
+                and err_plain <= ATTN_F32_TOL and mean_plain <= ATTN_MEAN_TOL,
+                f"K in f32 at sup's forward: max |o - plain| {err_plain}, "
+                f"mean {mean_plain} (tolerance {ATTN_F32_TOL} / "
+                f"{ATTN_MEAN_TOL})")
+        band = attention_cuda.band_mask(t, window, t_real, dev)
+
+        def library_k():
+            q = transformer.apply_rotary(qkv[:, :, 0], cos, sin)
+            k = transformer.apply_rotary(qkv[:, :, 1], cos, sin)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2),
+                qkv[:, :, 2].transpose(1, 2), attn_mask=band).transpose(1, 2)
+        lib_k = cuda_ms(library_k, reps=5)
+        err_k = (library_k() - got_k).abs().max().item()
+        del ref_k, got_k
+        pairs = band_pairs(t, window, t_real)
+        b_k = bound(n * t * 4 * hd * d * 4 + 2 * t * cos.shape[-1] * 4,
+                    2 * 2 * n * hd * pairs * d + 10 * n * hd * pairs,
+                    H100_F32_OPS)
+        out["K"] = dict(ms=ms_k, plain_ms=plain_k, bound_ms=b_k[0],
+                        bound_by=b_k[1], library_ms=lib_k,
+                        max_abs_err=err_plain,
+                        max_abs_err_vs_library=err_k, shape=[n, t, hd, d],
+                        plan=attention_cuda.fused_rotary_window_attention.plan)
+        log(f"  K in f32 at that call (N {n}, T {t}, {hd} heads of {d}): "
+            f"{ms_k:.4g} ms (plan {out['K']['plan']}; max |o - plain| "
+            f"{err_plain:.3g}), plain {plain_k:.4g} ms, bound {b_k[0]:.4g} "
+            f"ms by {b_k[1]}, rotary passes + SDPA "
+            f"f32 with the band {lib_k:.4g} ms (max |diff| {err_k:.3g})")
+        del qkv, cos, sin
+    if p_args:
+        (view, *_), _ = p_args[0]
+        require(torch.equal(relayout.pin_layout(view),
+                            relayout.pin_layout_plain(view)),
+                "P in f32 at sup's forward differs from its plain version")
+        ms_p = cuda_ms(lambda: relayout.pin_layout(view), reps=10)
+        plain_p = cuda_ms(lambda: relayout.pin_layout_plain(view), reps=5)
+        lib_p = cuda_ms(lambda: view.contiguous(), reps=5)
+        b_p = bound(2 * view.numel() * view.element_size(), 0, H100_F32_OPS)
+        out["P"] = dict(ms=ms_p, plain_ms=plain_p, bound_ms=b_p[0],
+                        bound_by=b_p[1], library_ms=lib_p, max_abs_err=0.0,
+                        shape=list(view.shape))
+        log(f"  P in f32 at that call ({tuple(view.shape)}): {ms_p:.4g} ms, "
+            f"plain {plain_p:.4g} ms, bound {b_p[0]:.4g} ms, "
+            f"Tensor.contiguous() {lib_p:.4g} ms")
     torch.cuda.empty_cache()
     return out
 
@@ -4533,6 +4848,7 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
 
     kernels = f32_kernels(torch, dev, lstm_cuda, lstm_fused_cuda,
                           decode_cuda)
+    gaps = f32_gaps(torch, dev, counters)
     t_kernels = time.perf_counter() - t_phase
 
     # (b) evaluate, f32 (half=False), on the card and with --device cpu
@@ -4548,7 +4864,7 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
     del model
     data = f32_eval_data(root / "eval_data", F32_RATE_CHUNKS, F32_EVAL_LEN,
                          SEED + 15)
-    evaluate = {}
+    evaluate, plans = {}, {}
     for name, model_dir, layer in (("hac", dirs["bf16"], "A"),
                                    ("fast", dirs["fast_bf16"], "F"),
                                    ("old_style", old, "A")):
@@ -4607,13 +4923,22 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
         batches = F32_RATE_CHUNKS // F32_RATE_BATCH
         require_launches(path, {layer: 5 * batches, "M": batches,
                                 "Q": batches})
+        # the layers ran the new f32 kernels: A's persistent kernel, one
+        # launch a layer at N 256, or F's f32 kernel
+        ran = (lstm_cuda.lstm_recurrence if layer == "A"
+               else lstm_fused_cuda.lstm_fused).plan
+        require(ran is not None and ran["dtype"] == "f32"
+                and ran.get("launches", 1) == 1,
+                f"evaluate {name} at its defaults: {layer}'s plan {ran}")
+        plans[name] = ran
         rates["card_default"] = (wall, next(
             line for line in buf.getvalue().splitlines()
             if line.startswith("* samples/s")))
         evaluate[name] = dict(differ=differ, chunks=F32_EVAL_CHUNKS,
                               bases=bases, card=rates["card"],
                               cpu=rates["cpu"],
-                              card_default=rates["card_default"])
+                              card_default=rates["card_default"],
+                              plan=plans[name])
         log(f"  evaluate {name} (f32, {F32_EVAL_CHUNKS} chunks of "
             f"{F32_EVAL_LEN}, batch {F32_EVAL_BATCH}): card {rates['card'][1]}"
             f" ({rates['card'][0]:.1f} s with the load), cpu "
@@ -4623,7 +4948,8 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
             f"launches {({k: v for k, v in launches['f32_evaluate_' + name].items() if v})}; "
             f"at evaluate's defaults ({F32_RATE_CHUNKS} chunks, batch "
             f"{F32_RATE_BATCH}) on the card {rates['card_default'][1]} "
-            f"({rates['card_default'][0]:.1f} s with the load)")
+            f"({rates['card_default'][0]:.1f} s with the load), {layer} on "
+            f"the plan {plans[name]}")
     torch.cuda.empty_cache()
 
     # (c) train --no-amp: one epoch with its validation, hac and fast
@@ -4774,7 +5100,8 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
             f"{', '.join(f'{k} {v["wall"]:.1f} s' for k, v in duplex.items() if k.startswith(case))}")
     phase_s = time.perf_counter() - t_phase
     log(f"  phase 15 took {phase_s:.1f} s (its kernels {t_kernels:.1f} s)")
-    return {"launches": launches, "kernels": kernels, "evaluate": evaluate,
+    return {"launches": launches, "kernels": kernels, "gaps": gaps,
+            "evaluate": evaluate,
             "train": {k: {"validation_s": v["validation_s"],
                           "wall": v["wall"], "fields": v["fields"]}
                       for k, v in train.items()},
@@ -6302,12 +6629,11 @@ def main():
     f32_paths = {p: n for p, n in f32["launches"].items()
                  if p.startswith(("f32_evaluate_", "f32_train_"))}
     for name, letter, src, rep, m, path in (
-            ("lstm_recurrence_f32", "A",
-             "bonito_tpu_torch/csrc/lstm_train.cu",
-             "bonito_tpu/ops/lstm_pallas.py:54", fk["A"],
+            ("lstm_recurrence_f32", "A", "bonito_tpu_torch/csrc/lstm_f32.cu",
+             "bonito_tpu/ops/lstm_pallas.py:54", fk["A"]["hac"],
              "f32_evaluate_hac"),
-            ("lstm_fused_f32", "F", "bonito_tpu_torch/csrc/lstm_fused.cu",
-             "bonito_tpu/ops/lstm_pallas.py:604", fk["F"],
+            ("lstm_fused_f32", "F", "bonito_tpu_torch/csrc/lstm_f32.cu",
+             "bonito_tpu/ops/lstm_pallas.py:604", fk["F"]["fast"],
              "f32_evaluate_fast"),
             ("decode_tcn_fwd_ring_f32", "B", src_ring,
              "bonito_tpu/ops/decode_pallas.py:183", fk["BC"]["B"],
@@ -6315,11 +6641,22 @@ def main():
             ("decode_tcn_bwd_ring_f32", "C", src_ring,
              "bonito_tpu/ops/decode_pallas.py:246", fk["BC"]["C"],
              "f32_train_hac")):
-        more = ({"h768": fk["A768"]} if letter == "A" else
-                {"plan": fk["F"]["plan"], "us_a_step": fk["F"]["us_a_step"]}
-                if letter == "F" else
-                {"plan": fk["BC"]["plan"], "s64": fk["BC64"][letter],
-                 "s64_shape": fk["BC64"]["shape"]})
+        # A and F: the plan and the earlier kernel at the main shape, every
+        # shape's numbers, the plan evaluate's layers ran
+        more = ({k: m[k] for k in (
+            "plan", "old_kernel_ms", "old_kernel_max_abs_err",
+            "max_abs_err_vs_old_kernel", "library_tf32_ms", "us_a_step")}
+            | {"earlier_kernel_source": (
+                "bonito_tpu_torch/csrc/lstm_train.cu" if letter == "A"
+                else "bonito_tpu_torch/csrc/lstm_fused.cu"),
+               "library_call": "torch.nn.LSTM f32 forward, cuDNN, TF32 off "
+                               "(library_tf32_ms: TF32 on)",
+               "shapes": fk[letter],
+               "evaluate_plan": f32["evaluate"]["hac" if letter == "A"
+                                                else "fast"]["plan"]}
+            if letter in "AF" else
+            {"plan": fk["BC"]["plan"], "s64": fk["BC64"][letter],
+             "s64_shape": fk["BC64"]["shape"]})
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": f32["launches"][path][letter],
@@ -6332,6 +6669,55 @@ def main():
         log(f"  {name}: {m['ms']:.4g} ms (plain {m['plain_ms']:.4g} ms, "
             f"bound {m['bound_ms']:.4g} ms by {m['bound_by']}), "
             f"{kernels[-1]['launches']} launches on the {path} path")
+    # the other f32 instances evaluate and train --no-amp launch (phase
+    # 15's f32_gaps): M and Q at evaluate's hac batch (launches: the hac
+    # evaluate path), R and S at the --no-amp batch (the hac epoch's path;
+    # library: cuDNN's f32 LSTM forward + backward with TF32 off, as the
+    # bf16 entries'), K and P at the sup model's forward + decode_batch in
+    # f32 at evaluate's batch (its launches)
+    gaps = f32["gaps"]
+    sup_run = gaps["sup_forward_decode_launches"]
+    for name, letter, src, rep, m, path, extra in (
+            ("decode_full_fwd_f32", "M", src_full,
+             "bonito_tpu/ops/decode_pallas.py:48", gaps["MQ_hac"]["M"],
+             "f32_evaluate_hac", {"fast_shape": gaps["MQ_fast"]["M"]}),
+            ("decode_full_bwd_f32", "Q", src_full,
+             "bonito_tpu/ops/decode_pallas.py:109", gaps["MQ_hac"]["Q"],
+             "f32_evaluate_hac", {"fast_shape": gaps["MQ_fast"]["Q"]}),
+            ("lstm_train_fwd_f32", "R", src_train,
+             "bonito_tpu/ops/lstm_pallas.py:165", gaps["RS_hac"]["R"],
+             "f32_train_hac", {"fast_shape": gaps["RS_fast"]["R"]}),
+            ("lstm_train_bwd_f32", "S", src_train,
+             "bonito_tpu/ops/lstm_pallas.py:192", gaps["RS_hac"]["S"],
+             "f32_train_hac", {"fast_shape": gaps["RS_fast"]["S"]}),
+            ("fused_rotary_window_attention_f32", "K", src_attn,
+             "bonito_tpu/ops/attention_pallas.py:106", gaps["K"],
+             "sup_forward_decode_f32", {}),
+            ("pin_layout_f32", "P", "bonito_tpu_torch/csrc/relayout.cu",
+             "bonito_tpu/ops/relayout.py:25", gaps["P"],
+             "sup_forward_decode_f32", {})):
+        shapes = gaps["MQ_hac" if letter in "MQ" else "RS_hac"] \
+            if letter in "MQRS" else m
+        lib = (gaps["RS_hac"]["library_ms"] if letter in "RS"
+               else m["library_ms"])
+        launches = (sup_run.get(letter, 0)
+                    if path == "sup_forward_decode_f32"
+                    else f32["launches"][path][letter])
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": lib, "dtype": "f32", "launches_path": path,
+            "shape": shapes["shape"],
+            **({"library_tf32_ms": gaps["RS_hac"]["library_tf32_ms"],
+                "fast_shape_library_ms": gaps["RS_fast"]["library_ms"]}
+               if letter in "RS" else {}),
+            **({"old_kernel_ms": m["old_kernel_ms"]} if letter in "MQ"
+               else {}), **extra})
+        log(f"  {name}: {m['ms']:.4g} ms (plain {m['plain_ms']:.4g} ms, "
+            f"bound {m['bound_ms']:.4g} ms by {m['bound_by']}, library "
+            f"{lib}), {launches} launches on the {path} path")
     log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s "
         f"(phase 14 {upstream['phase_s']:.1f} s, phase 15 "
         f"{f32['phase_s']:.1f} s)")

@@ -7,9 +7,13 @@ port, ``bonito_tpu_torch/csrc``): kernel A, the bf16 recurrence
 the train step's backward through time (``lstm_train.cu``), at hac
 training widths (N=128, T=1000, H=1024; N may be given after ``s``), or
 kernel F, the fast LSTM layer on its mma kernel (``lstm_fused.cu``), at
-fast widths (N=1024, T=1200, C=H=96).
+fast widths (N=1024, T=1200, C=H=96), or the f32 kernels of A and F
+(``lstm_f32.cu``): A at hac (N=96, T=1666, H=1024) or at N and T given
+after ``a32`` (``evaluate``'s batch: 256 500), F at fast widths or at N and
+T given after ``f32`` (256 500).
 
-    python3 scripts/lstm_step_split.py [a | d | s [N] | f]
+    python3 scripts/lstm_step_split.py [a | d | s [N] | f | a32 [N T] |
+                                        f32 [N T]]
 
 from the root of a checkout, on a machine with a CUDA card and nvcc (``a``
 when no kernel is named). It copies the kernel's sources into
@@ -66,6 +70,25 @@ F (``-DLSTM_CUT=<parts>``, csrc/lstm_fused.cu's CUT_* bits):
   the block barrier, the stores of h to the output, and all five;
 - the source with tanh.approx.f32 in place of tanhf, timed, and its drift
   from the plain version (T=1200) beside the source's.
+
+A32 (``-DA32_CUT=<parts>``, csrc/lstm_f32.cu's A_CUT_* bits):
+- the source at the plan (``ops.lstm_cuda.f32_plan``), checked against
+  the plain version (``lstm_recurrence_plain``, T=33, both directions),
+  and at the plan's neighbouring chunk widths and ring depths where they
+  fit, with the earlier f32 kernel's time (R's f32 step kernel) beside
+  them;
+- the source with one part of each step left out: the producer's wait at
+  the counter, the copies of h (and their waits), the product, the gate
+  math (the gates' sum is stored in place of h), and all four.
+
+F32 (``-DF32_CUT=<parts>``, csrc/lstm_f32.cu's F_CUT_* bits):
+- the source at the plan (``ops.lstm_fused_cuda.f32_plan``), checked
+  against the plain version (``lstm_fused_plain``, T=33, both directions),
+  with the earlier f32 kernel's time beside it, at the plan's rows a block
+  and at the other row counts that fit, and the registers of each variant;
+- the same kernel with one part of each step left out: the h product, the
+  x product (a block's pass), the gate math (the gates' sum is h), the
+  step's barrier, the stores of h to the output, and all five.
 
 What a part adds is the source's time less the variant's; the variants'
 outputs are wrong by design (or, without the fences or F's barrier,
@@ -383,6 +406,183 @@ def split_f(card, dev):
               f"{ms / T * 1e3:.4g} us a step{more}", flush=True)
 
 
+# A32 and F32: csrc/lstm_f32.cu's A_CUT_* and F_CUT_* bits
+PARTS_A32 = {"wait": 1, "load": 2, "products": 4, "gates": 8}
+VARIANTS_A32 = {"source": [], "no wait": ["wait"], "no h loads": ["load"],
+                "no products": ["products"], "no gate math": ["gates"],
+                "none of the four": ["wait", "load", "products", "gates"]}
+PARTS_F32 = {"h": 1, "x": 2, "gates": 4, "barrier": 8, "stores": 16}
+VARIANTS_F32 = {"source": [], "no h product": ["h"], "no x product": ["x"],
+                "no gate math": ["gates"], "no barrier": ["barrier"],
+                "no out stores": ["stores"],
+                "none of the five": ["h", "x", "gates", "barrier", "stores"]}
+
+
+def build_f32(macro, parts, variants, kernel_re):
+    """One library of csrc/lstm_f32.cu per variant, -D<macro>=<bits>, with
+    the registers and spills ptxas reports for the kernels matching
+    ``kernel_re``."""
+    out = OUT / macro.lower()
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = build._nvcc()
+    procs = {name: subprocess.Popen(
+        [nvcc, *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared",
+         f"-D{macro}={sum(parts[p] for p in cut)}", "-I", str(build.CSRC),
+         "-o", str(out / f"lib_{i}.so"), str(build.CSRC / "lstm_f32.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, (name, cut) in enumerate(variants.items())}
+    libs = {}
+    for i, (name, proc) in enumerate(procs.items()):
+        o, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+        kernel, frame = None, ""
+        for line in (o + err).splitlines():
+            m = re.search(r"Compiling entry function '(\w*(" + kernel_re
+                          + r")\w*)'", line)
+            kernel = m.group(1) if m else kernel
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores", line)
+            if kernel and m:
+                frame = f", stack {m.group(1)} B, spills {m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if kernel and m and name == "source":
+                print(f"  {kernel[-40:]}: {m.group(1)} registers{frame}",
+                      flush=True)
+            if m:
+                kernel = None
+        lib = ctypes.CDLL(str(out / f"lib_{i}.so"))
+        for entry in ("lstm_recurrence_f32_persistent", "lstm_fused_f32_rows"):
+            getattr(lib, entry).argtypes = build.SIGNATURES[entry]
+        libs[name] = lib
+    return libs
+
+
+def split_a32(card, dev, N=96, T=1666):
+    H = 1024
+    libs = build_f32("A32_CUT", PARTS_A32, VARIANTS_A32, "lstm_a32_kernel")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(1)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(dev)
+    w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev)
+
+    def run(name, plan, xs, reverse=0):
+        t_len = xs.shape[0]
+        out = torch.empty(t_len, N, H, device=dev)
+        hbuf = torch.empty(2, H, plan["rows"] + lstm_cuda.F32_PAD,
+                           device=dev)
+        flag = torch.empty(1, dtype=torch.int32, device=dev)
+        for n0 in range(0, N, plan["n_launch"]):
+            hbuf.zero_()
+            flag.zero_()
+            build.check(libs[name].lstm_recurrence_f32_persistent(
+                xs.data_ptr(), w.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
+                flag.data_ptr(), t_len, N, n0, min(plan["n_launch"], N - n0),
+                H, plan["rows"], plan["k_slices"], plan["kc"],
+                plan["stages"], reverse,
+                torch.cuda.current_stream().cuda_stream), name)
+        return out
+
+    plan = lstm_cuda.f32_plan(N, H, sms)
+    print(f"{card}; kernel A in f32, N={N}, T={T}, H={H}; plan {plan}",
+          flush=True)
+    x33 = xw[:33].contiguous()
+    for reverse in (0, 1):
+        ref = lstm_cuda.lstm_recurrence_plain(x33, w, reverse=bool(reverse))
+        diff = (run("source", plan, x33, reverse) - ref).abs()
+        print(f"  reverse={reverse}: max |h - plain| "
+              f"{diff.max().item():.3g}, mean {diff.mean().item():.3g} "
+              f"(T=33)", flush=True)
+    ms = ms_of(lambda: lstm_cuda.lstm_recurrence_old_kernel(xw, w))
+    print(f"  the earlier f32 kernel: {ms:.4g} ms a layer = "
+          f"{ms / T * 1e3:.4g} us a step", flush=True)
+    # the plan's neighbours: chunks half and twice as wide, rings one slot
+    # deeper and shallower, where the C entry takes them
+    for kc, stages in sorted({(plan["kc"] // 2, plan["stages"]),
+                              (plan["kc"] * 2, plan["stages"]),
+                              (plan["kc"], plan["stages"] + 1),
+                              (plan["kc"], plan["stages"] - 1),
+                              (plan["kc"] // 2, plan["stages"] * 2)}):
+        other = {**plan, "kc": kc, "stages": stages}
+        if (kc % (8 * plan["k_slices"]) or H % kc or not 2 <= stages <= 8
+                or lstm_cuda.f32_smem_bytes(H, plan["rows"],
+                                            plan["k_slices"], kc, stages)
+                > lstm_cuda.SMEM_LIMIT):
+            continue
+        ms = ms_of(lambda: run("source", other, xw))
+        print(f"  chunks of {kc} k, {stages} slots: {ms:.4g} ms a "
+              f"layer = {ms / T * 1e3:.4g} us a step", flush=True)
+    base = None
+    for name in VARIANTS_A32:
+        ms = ms_of(lambda: run(name, plan, xw))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {(base - ms) / T * 1e3:.3g} us")
+        print(f"  at the plan, {name}: {ms:.4g} ms a layer = "
+              f"{ms / T * 1e3:.4g} us a step{more}", flush=True)
+
+
+def split_f32(card, dev, N=1024, T=1200):
+    H = 96
+    libs = build_f32("F32_CUT", PARTS_F32, VARIANTS_F32,
+                     "lstm_f32_rows_kernelILi6E")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(4)
+    x = torch.tanh(torch.randn(T, N, H, generator=g)).to(dev)
+    w_ih, w_hh = ((torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev)
+                  for _ in range(2))
+    b = (0.5 * torch.randn(4 * H, generator=g)).to(dev)
+
+    def run(name, plan, xs, reverse=0):
+        out = torch.empty(xs.shape[0], N, H, device=dev)
+        build.check(libs[name].lstm_fused_f32_rows(
+            xs.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+            out.data_ptr(), xs.shape[0], N, H, H, reverse, plan["rows"],
+            plan["block"], int(plan["whh_in_registers"]),
+            int(plan["wih_in_smem"]), plan["smem"],
+            torch.cuda.current_stream().cuda_stream), name)
+        return out
+
+    plan = lstm_fused_cuda.f32_plan(N, H, H, sms)
+    print(f"{card}; kernel F in f32, N={N}, T={T}, C=H={H}; plan {plan}",
+          flush=True)
+    x33 = x[:33].contiguous()
+    for reverse in (0, 1):
+        ref = lstm_fused_cuda.lstm_fused_plain(x33, w_ih, w_hh, b,
+                                               reverse=bool(reverse))
+        diff = (run("source", plan, x33, reverse) - ref).abs()
+        print(f"  reverse={reverse}: max |h - plain| {diff.max().item():.3g},"
+              f" mean {diff.mean().item():.3g} (T=33)", flush=True)
+    ms = ms_of(lambda: lstm_fused_cuda.lstm_fused_old_kernel(x, w_ih, w_hh,
+                                                             b))
+    print(f"  the earlier f32 kernel: {ms:.4g} ms a layer = "
+          f"{ms / T * 1e3:.4g} us a step", flush=True)
+    # the other row counts a block, each at the largest block that fits
+    for rows in lstm_fused_cuda.F32_ROWS:
+        step = max(1, lstm_fused_cuda.F32_PASS // rows)
+        fits = [blk for blk in range(step, lstm_fused_cuda.F32_MAX_BLOCK + 1,
+                                     step)
+                if lstm_fused_cuda.f32_smem_bytes(H, H, rows, blk, True)
+                <= lstm_fused_cuda.SMEM_LIMIT]
+        if rows == plan["rows"] or not fits:
+            continue
+        other = {**plan, "rows": rows, "block": fits[-1],
+                 "smem": lstm_fused_cuda.f32_smem_bytes(H, H, rows, fits[-1],
+                                                        True)}
+        ms = ms_of(lambda: run("source", other, x))
+        print(f"  {rows} rows a block ({-(-N // rows)} blocks), the x "
+              f"product {fits[-1]} steps a pass: {ms:.4g} ms a layer = "
+              f"{ms / T * 1e3:.4g} us a step", flush=True)
+    base = None
+    for name in VARIANTS_F32:
+        ms = ms_of(lambda: run(name, plan, x))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {(base - ms) / T * 1e3:.3g} us")
+        print(f"  the plan, {name}: {ms:.4g} ms a layer = "
+              f"{ms / T * 1e3:.4g} us a step{more}", flush=True)
+
+
 def split_a(card, dev):
     N, T, H = 96, 1666, 1024
     libs = build_variants("a")
@@ -585,8 +785,9 @@ def split_s(card, dev, N=128):
 
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "a"
-    if mode not in (*MODES, "f"):
-        print(f"lstm_step_split: a kernel of {sorted((*MODES, 'f'))}, not "
+    kinds = (*MODES, "f", "a32", "f32")
+    if mode not in kinds:
+        print(f"lstm_step_split: a kernel of {sorted(kinds)}, not "
               f"{mode!r}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -603,6 +804,9 @@ def main():
         split_d(card, dev)
     elif mode == "f":
         split_f(card, dev)
+    elif mode in ("a32", "f32"):
+        shape = [int(n) for n in sys.argv[2:4]]
+        (split_a32 if mode == "a32" else split_f32)(card, dev, *shape)
     else:
         split_s(card, dev, *(int(n) for n in sys.argv[2:3]))
     return 0

@@ -3,7 +3,7 @@
 Where one device step of the PyTorch/CUDA port spends the card's time.
 
     python3 scripts/profile_hac_step.py [int8 | fast | fastrev | sup | train |
-                                         suptrain]
+                                         suptrain | evaluate [fast]]
 
 from the root of a checkout, on a machine with a CUDA card. Builds a
 random full-width model (as chip_smoke.py does, without the trip through
@@ -31,6 +31,17 @@ and prints the same table. With ``suptrain`` it does the same for the sup
 train step: the shipped sup model with f32 master weights, the bf16
 forward, batch 32 x 12288 samples with targets of 1024 bases, AdamW 2e-3
 and the clip at 2.0 (kernels P twice, H and O once a layer, U, V, Y, Z).
+
+With ``evaluate`` it traces what ``evaluate`` runs for a batch at its
+defaults: the hac model (with ``fast`` the fast model) in f32, as
+``evaluate`` loads it (half=False, quantize off), its CRF weight scaled as
+chip_smoke.py's so that it emits, on 256 chunks of 3000 samples: the
+forward (kernel A's f32 instance, or F's, with the convs and
+projections) and ``decode_batch`` on the full scores (M, Q, then the
+host's sequences). It traces two batches on the new f32 kernels and two
+with the earlier f32 kernels in their place (A's plan swapped for None,
+the LSTM layer's kernel F for ``lstm_fused_old_kernel``), and prints both
+tables.
 """
 
 import subprocess
@@ -68,9 +79,13 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     if sys.argv[1:] not in ([], ["int8"], ["fast"], ["fastrev"], ["sup"],
-                            ["train"], ["suptrain"]):
+                            ["train"], ["suptrain"], ["evaluate"],
+                            ["evaluate", "fast"]):
         raise SystemExit(__doc__)
     which = (sys.argv[1:] or ["bf16"])[0]
+    if which == "evaluate":
+        evaluate_batch(card, "fast" in sys.argv[2:])
+        return
     if which in ("train", "suptrain"):
         sup = which == "suptrain"
         step, batch = sup_train_step() if sup else train_step()
@@ -107,6 +122,38 @@ def main():
     report(card, name, batch, chunk,
            lambda: compute.fetch(compute.dispatch(prepared)),
            rows_shown=25 if which == "sup" else 15)
+
+
+def evaluate_batch(card, fast):
+    """``evaluate``'s batch at its defaults, traced on the new f32 kernels
+    and on the earlier ones."""
+    from bonito_tpu_torch.ops import lstm as ops_lstm
+    from bonito_tpu_torch.ops import lstm_cuda, lstm_fused_cuda
+    cfg = MODELS[FAST]() if fast else lstm_crf_config()
+    model = Model(cfg).init(1)
+    _, (_, crf), _ = model.decode_head()
+    with torch.no_grad():
+        crf.w.mul_(13.5 if fast else 8.0)  # chip_smoke.py's CRF scales
+    model.to("cuda").requires_grad_(False)  # as load_model: BN unfused
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(256, 3000, 1)).astype(np.float32)).to("cuda")
+
+    def run():
+        with torch.inference_mode():
+            return model.decode_batch(model(x))
+    run()  # warm-up: build, cuDNN
+    name = f"{'fast' if fast else 'hac'} in f32, evaluate's batch"
+    report(card, f"{name}, the new f32 kernels", 256, 3000, run,
+           rows_shown=15)
+    rules = (lstm_cuda.f32_plan, ops_lstm.lstm_fused)
+    lstm_cuda.f32_plan = lambda *a, **kw: None
+    ops_lstm.lstm_fused = lstm_fused_cuda.lstm_fused_old_kernel
+    try:
+        run()
+        report(card, f"{name}, the earlier f32 kernels", 256, 3000, run,
+               rows_shown=15)
+    finally:
+        lstm_cuda.f32_plan, ops_lstm.lstm_fused = rules
 
 
 def train_step():

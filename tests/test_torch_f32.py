@@ -9,7 +9,10 @@ within one phred step); ``evaluate`` of a wide LSTM-CRF directory (A's
 route) as bonito_tpu's; and one f32 train step followed by its validation
 (the forward in eval mode, ``loss_tcn``, the TCN decode) against
 ``make_train_step(use_amp=False)`` and bonito_tpu's validation on the same
-parameters."""
+parameters. The new f32 kernels of A and F (``csrc/lstm_f32.cu``) with
+their sums emulated in the kernels' order, against the plain versions and
+bonito_tpu's ``lstm_pallas`` and ``lstm_pallas_fused`` in interpret
+mode."""
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +30,7 @@ from bonito_tpu.crf.seqdist import CTC_CRF as JaxCRF
 from bonito_tpu.models import lstm_crf_config
 from bonito_tpu.ops import decode_pallas
 from bonito_tpu.ops.lstm import lstm_scan
-from bonito_tpu.ops.lstm_pallas import lstm_pallas_fused
+from bonito_tpu.ops.lstm_pallas import lstm_pallas, lstm_pallas_fused
 from bonito_tpu_torch import checkpoint, training
 from bonito_tpu_torch.cli import evaluate as port_evaluate
 from bonito_tpu_torch.crf.model import Model
@@ -207,21 +210,155 @@ def test_no_amp_step_and_validation_match_bonito_tpu(jax_kernels, features,
     assert not pm.training
 
 
-@pytest.mark.parametrize("N,C,H,registers,in_smem,smem", [
-    (1024, 96, 96, True, True, 165888),   # fast: W_ih's 144 KB in smem
-    (37, 64, 128, False, True, 153600),
-    (20, 1024, 256, False, False, 73728),  # W_ih of 4 MB through L2
-    (9, 32, 32, False, True, 22528)])
-def test_f32_plan_of_kernel_f(N, C, H, registers, in_smem, smem):
+@pytest.mark.parametrize("N,C,H,rows,block,registers,in_smem,smem,old", [
+    # fast: W_ih's 144 KB in smem
+    (1024, 96, 96, 8, 4, True, True, 227328, 165888),
+    (37, 64, 128, 1, 32, False, True, 214016, 153600),
+    # W_ih of 4 MB through L2
+    (20, 1024, 256, 1, 18, False, False, 223232, 73728),
+    (9, 32, 32, 1, 32, False, True, 41216, 22528)])
+def test_f32_plan_of_kernel_f(N, C, H, rows, block, registers, in_smem, smem,
+                              old):
     """F's f32 kernel's shape rule (pure Python; the C entry takes the plan
-    as given and refuses shared memory other than ``csrc/lstm_fused.cu:
-    f32_smem_floats``'s for its layout): a thread a gate column, 8 rows a
-    block, W_hh's column in registers at H 96 only, W_ih in shared memory
-    where it fits the 227 KB a block may ask for."""
-    plan = lstm_fused_cuda.f32_plan(N, C, H)
-    assert plan == {"dtype": "f32", "rows": 8, "threads": 4 * H,
-                    "ctas": -(-N // 8), "whh_in_registers": registers,
-                    "wih_in_smem": in_smem, "smem": smem}
+    as given and refuses shared memory other than ``csrc/lstm_f32.cu:
+    f32_rows_smem_floats``'s for its layout) on an H100's 132 SMs: a thread
+    a gate column, 1 to 8 rows a block (the fewest whose grid fits one
+    wave), the x product ``block`` steps a pass, W_hh's column in registers
+    at H 96 only, W_ih in shared memory where it fits the 227 KB a block
+    may ask for. Beside it the earlier f32 kernel's layout (``csrc/
+    lstm_fused.cu:f32_smem_floats``), which ``lstm_fused_old_kernel`` and a
+    plan of None take: 8 rows a block, the step's rows of x, h and the
+    gates beside W_ih."""
+    plan = lstm_fused_cuda.f32_plan(N, C, H, 132)
+    assert plan == {"dtype": "f32", "rows": rows, "threads": 4 * H,
+                    "ctas": -(-N // rows), "block": block,
+                    "whh_in_registers": registers, "wih_in_smem": in_smem,
+                    "smem": smem}
     assert plan["smem"] <= lstm_fused_cuda.SMEM_LIMIT
+    assert lstm_fused_cuda.f32_old_layout(N, C, H) == {
+        "dtype": "f32", "rows": 8, "threads": 4 * H, "ctas": -(-N // 8),
+        "whh_in_registers": registers, "wih_in_smem": in_smem, "smem": old}
     with pytest.raises(ValueError, match="kernel F"):
-        lstm_fused_cuda.f32_plan(N, C + 8, H)
+        lstm_fused_cuda.f32_plan(N, C + 8, H, 132)
+
+
+# The new f32 kernels' order of sums, emulated here in torch. fmaf rounds
+# once; the emulation takes the product exactly in f64 and rounds the sum to
+# f64 and then to f32 (a double rounding fmaf does not have: a last-bit
+# difference now and then), so it stands for the order, not for the bits.
+def _fma(acc, a, b):
+    return (acc.double() + a.double() * b.double()).float()
+
+
+def _gates(gates, c):
+    i, f, g, o = gates.chunk(4, dim=1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def _a32_emulated(xw, w_hh, plan, reverse):
+    """csrc/lstm_f32.cu's kernel A on ``plan``: each k-slice s sums, in its
+    warp's order, the k of each chunk from ch kc + s kc / ks on, one fmaf
+    a k; the slices' sums added in slice order, then to xw."""
+    T, N, G = xw.shape
+    H = G // 4
+    ks, kc = plan["k_slices"], plan["kc"]
+    kn = kc // ks
+    h = torch.zeros(N, H)
+    c = torch.zeros(N, H)
+    out = torch.empty(T, N, H)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        total = None
+        for s in range(ks):
+            acc = torch.zeros(N, G)
+            for ch in range(H // kc):
+                k0 = ch * kc + s * kn
+                for k in range(k0, k0 + kn):
+                    acc = _fma(acc, h[:, k:k + 1], w_hh[k])
+            total = acc if total is None else total + acc
+        h, c = _gates(xw[t] + total, c)
+        out[t] = h
+    return out
+
+
+def _f32_emulated(x, w_ih, w_hh, b, plan, reverse):
+    """csrc/lstm_f32.cu's kernel F on ``plan``: xw + b for a block of
+    ``block`` steps first (each sum over k in order, the bias added last),
+    then each step's h product over k in order (with 1 or 2 rows a block
+    in 4 / rows sums of every (4 / rows)-th k, added in order), gates = xw
+    + that."""
+    T, N, C = x.shape
+    H = w_hh.shape[0]
+    order = list(range(T - 1, -1, -1) if reverse else range(T))
+    h = torch.zeros(N, H)
+    c = torch.zeros(N, H)
+    out = torch.empty(T, N, H)
+    bias = torch.zeros(4 * H) if b is None else b
+    for j0 in range(0, T, plan["block"]):
+        xs = {}
+        for t in order[j0:j0 + plan["block"]]:
+            acc = torch.zeros(N, 4 * H)
+            for k in range(C):
+                acc = _fma(acc, x[t][:, k:k + 1], w_ih[k])
+            xs[t] = acc + bias
+        chains = 4 // plan["rows"] if plan["rows"] < 4 else 1
+        for t in order[j0:j0 + plan["block"]]:
+            acc = [torch.zeros(N, 4 * H) for _ in range(chains)]
+            for k in range(H):
+                acc[k % chains] = _fma(acc[k % chains], h[:, k:k + 1],
+                                       w_hh[k])
+            total = acc[0]
+            for a in acc[1:]:
+                total = total + a
+            h, c = _gates(xs[t] + total, c)
+            out[t] = h
+    return out
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,C,H", [(40, 32, 64), (96, 16, 128)])
+def test_a32_order_of_sums_matches_plain_and_lstm_pallas(N, C, H, reverse):
+    """Kernel A's f32 persistent kernel, its sums emulated in their order on
+    its plan (k-slices over chunks), against its plain version and
+    bonito_tpu's ``lstm_pallas`` in f32 in interpret mode, within the LSTM
+    recurrence's 1e-5."""
+    x, w_ih, w_hh, b = _layer(N + H + reverse, N, 6, C, H)
+    plan = lstm_cuda.f32_plan(N, H, 132)
+    assert plan["kc"] // plan["k_slices"] % 8 == 0
+    xw = (torch.from_numpy(x).transpose(0, 1) @ torch.from_numpy(w_ih)
+          + torch.from_numpy(b)).contiguous()
+    w = torch.from_numpy(w_hh)
+    out = _a32_emulated(xw, w, plan, reverse)
+    plain = lstm_cuda.lstm_recurrence_plain(xw, w, reverse)
+    torch.testing.assert_close(out, plain, rtol=0, atol=LSTM_TOL)
+    ref = lstm_pallas(*map(jnp.asarray, (x, w_ih, w_hh, b)), reverse=reverse,
+                      interpret=True)
+    np.testing.assert_allclose(out.transpose(0, 1).numpy(), np.asarray(ref),
+                               rtol=0, atol=LSTM_TOL)
+
+
+@pytest.mark.parametrize("reverse,bias", [(False, True), (True, False)])
+@pytest.mark.parametrize("N,C,H", [(16, 96, 96), (9, 32, 32), (19, 32, 48),
+                                   (256, 32, 32), (600, 32, 48)])
+def test_f32_kernel_f_order_of_sums_matches_plain_and_pallas(N, C, H, reverse,
+                                                             bias):
+    """Kernel F's f32 kernel, its sums emulated in their order on its plan
+    (the x product a block of steps ahead), against its plain version and
+    bonito_tpu's ``lstm_pallas_fused`` in f32 in interpret mode, within
+    1e-5."""
+    x, w_ih, w_hh, b = _layer(N + C + H + reverse, N, 10, C, H)
+    b = b if bias else None
+    plan = lstm_fused_cuda.f32_plan(N, C, H, 132)
+    plan = {**plan, "block": 4}  # several blocks in 10 steps
+    xt = torch.from_numpy(x).transpose(0, 1).contiguous()
+    args = (torch.from_numpy(w_ih), torch.from_numpy(w_hh),
+            None if b is None else torch.from_numpy(b))
+    out = _f32_emulated(xt, *args, plan, reverse)
+    plain = lstm_fused_cuda.lstm_fused_plain(xt, *args, reverse=reverse)
+    torch.testing.assert_close(out, plain, rtol=0, atol=LSTM_TOL)
+    ref = lstm_pallas_fused(jnp.asarray(x), jnp.asarray(w_ih),
+                            jnp.asarray(w_hh),
+                            None if b is None else jnp.asarray(b),
+                            reverse=reverse, interpret=True)
+    np.testing.assert_allclose(out.transpose(0, 1).numpy(), np.asarray(ref),
+                               rtol=0, atol=LSTM_TOL)

@@ -2376,33 +2376,101 @@ LSTM_F32_ATOL = 1e-5
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("N,T,H", [(96, 40, 1024), (96, 40, 768),
-                                   (8, 9, 16), (33, 12, 48), (200, 5, 96)])
+                                   (8, 9, 16), (33, 12, 48), (200, 5, 96),
+                                   (300, 7, 1024), (8, 5, 2048)])
 def test_lstm_f32_kernel_matches_plain(cuda, N, T, H, reverse):
-    """Kernel A in f32 (its f32 step kernel, one count a call, plan None):
-    h in f32 within LSTM_F32_ATOL of the plain version."""
+    """Kernel A in f32 (the persistent f32 kernel on ``f32_plan``'s plan,
+    one count a row group; H 2048, whose f32 slice cannot be held: the
+    earlier f32 step kernel, one count a call, plan None): h in f32 within
+    LSTM_F32_ATOL of the plain version."""
     g = torch.Generator().manual_seed(N + T + H)
     xw = torch.randn(T, N, 4 * H, generator=g).to(cuda)
     w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(cuda)
     before = lstm_cuda.lstm_recurrence.launches
     out = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence.launches == before + 1
-    assert lstm_cuda.lstm_recurrence.plan is None
+    plan = lstm_cuda.f32_plan(N, H, _sms(cuda))
+    assert lstm_cuda.lstm_recurrence.plan == plan
+    assert (plan is None) == (H == 2048)
+    assert lstm_cuda.lstm_recurrence.launches == before + (
+        1 if plan is None else plan["launches"])
     assert out.dtype == torch.float32 and out.shape == (T, N, H)
     ref = lstm_cuda.lstm_recurrence_plain(xw, w_hh, reverse=reverse)
     torch.testing.assert_close(out, ref, rtol=0, atol=LSTM_F32_ATOL)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,H", [(256, 25, 1024), (16, 25, 1024),
+                                   (256, 25, 768), (16, 25, 768)])
+def test_lstm_f32_kernel_meets_its_earlier_kernel(cuda, N, T, H, reverse):
+    """At evaluate's batch (N 256) and the --no-amp validation's (N 16):
+    the persistent f32 kernel and the earlier f32 step kernel
+    (``lstm_recurrence_old_kernel``, which counts nothing) each within
+    LSTM_F32_ATOL of the plain version and of each other."""
+    g = torch.Generator().manual_seed(N + T + H + reverse)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(cuda)
+    w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(cuda)
+    out = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
+    before = lstm_cuda.lstm_recurrence.launches
+    old = lstm_cuda.lstm_recurrence_old_kernel(xw, w_hh, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence.launches == before
+    assert lstm_cuda.lstm_recurrence.plan is not None
+    ref = lstm_cuda.lstm_recurrence_plain(xw, w_hh, reverse=reverse)
+    for a, b in ((out, ref), (old, ref), (out, old)):
+        torch.testing.assert_close(a, b, rtol=0, atol=LSTM_F32_ATOL)
+
+
+def _a32_entry(xw, w_hh, plan, reverse=0, **layout):
+    """A's f32 C entry, one launch of all N rows, on ``plan`` with
+    ``layout``'s fields (rows, k_slices, kc, stages) in its place: its
+    return code and h."""
+    T, N, G = xw.shape
+    H = G // 4
+    lay = {**plan, **layout}
+    out = torch.empty(T, N, H, device=xw.device)
+    hbuf = torch.zeros(2, H, max(lay["rows"], 32) + lstm_cuda.F32_PAD,
+                       device=xw.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=xw.device)
+    rc = build.library().lstm_recurrence_f32_persistent(
+        xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
+        flag.data_ptr(), T, N, 0, N, H, lay["rows"], lay["k_slices"],
+        lay["kc"], lay["stages"], reverse, build.stream_of(xw))
+    return rc, out
+
+
+@pytest.mark.parametrize("layout", [
+    {"k_slices": 3}, {"k_slices": 16}, {"kc": 48}, {"kc": 24},
+    {"stages": 1}, {"stages": 9}, {"rows": 80}, {"rows": 288},
+    {"rows": 64, "k_slices": 8}, {"kc": 256, "stages": 8}])
+def test_lstm_f32_entry_refuses_another_layout(cuda, layout):
+    """A's f32 C entry takes the plan as given and refuses (cudaError
+    InvalidValue, 1) k-slices other than 1, 2, 4, 8, more than 12
+    consumer warps, chunks that do not divide H or a k-slice's share into
+    8, a ring outside 2 to 8 slots, rows that are no multiple of 32 or
+    beyond 256, and shared memory beyond 227 KB; the plan itself runs."""
+    xw = torch.zeros(3, 96, 4 * 1024, device=cuda)
+    w_hh = torch.zeros(1024, 4 * 1024, device=cuda)
+    plan = lstm_cuda.f32_plan(96, 1024, _sms(cuda))
+    assert _a32_entry(xw, w_hh, plan)[0] == 0
+    torch.cuda.synchronize()
+    assert _a32_entry(xw, w_hh, plan, **layout)[0] == 1
+
+
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("N,T,C,H", [(1024, 30, 96, 96), (19, 17, 32, 48),
+@pytest.mark.parametrize("N,T,C,H", [(1024, 30, 96, 96), (256, 40, 96, 96),
+                                     (16, 40, 96, 96), (19, 17, 32, 48),
                                      (37, 40, 64, 128), (20, 30, 1024, 256),
-                                     (9, 25, 32, 32)])
+                                     (9, 25, 32, 32), (300, 21, 64, 64)])
 def test_fused_lstm_f32_kernel_matches_plain(cuda, N, T, C, H, reverse,
                                              bias):
-    """Kernel F in f32 (its FFMA kernel on ``f32_plan``'s plan: W_hh in
-    registers at H 96, W_ih in shared memory where it fits): h in f32
-    within LSTM_F32_ATOL of the plain version."""
+    """Kernel F in f32 (the f32 kernel on ``f32_plan``'s plan: 1 to 8 rows
+    a block, the x product a block of steps ahead, W_hh in registers at H
+    96, W_ih in shared memory where it fits): h in f32 within
+    LSTM_F32_ATOL of the plain version and of the earlier f32 kernel
+    (``lstm_fused_old_kernel``, which counts nothing), both directions, at
+    evaluate's N 256 and the validation's N 16 among others."""
     from bonito_tpu_torch.ops.lstm_fused_cuda import f32_plan
     g = torch.Generator().manual_seed(N + T + H)
     x = torch.tanh(torch.randn(T, N, C, generator=g)).to(cuda)
@@ -2413,37 +2481,60 @@ def test_fused_lstm_f32_kernel_matches_plain(cuda, N, T, C, H, reverse,
     out = lstm_fused_cuda.lstm_fused(x, w_ih, w_hh, b, reverse=reverse)
     torch.cuda.synchronize()
     assert lstm_fused_cuda.lstm_fused.launches == before + 1
-    assert lstm_fused_cuda.lstm_fused.plan == f32_plan(N, C, H)
+    assert lstm_fused_cuda.lstm_fused.plan == f32_plan(N, C, H, _sms(cuda))
+    old = lstm_fused_cuda.lstm_fused_old_kernel(x, w_ih, w_hh, b,
+                                                reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_fused_cuda.lstm_fused.launches == before + 1
     ref = lstm_fused_cuda.lstm_fused_plain(x, w_ih, w_hh, b, reverse=reverse)
     assert out.dtype == torch.float32 and out.shape == (T, N, H)
-    torch.testing.assert_close(out, ref, rtol=0, atol=LSTM_F32_ATOL)
+    for a, r in ((out, ref), (old, ref), (out, old)):
+        torch.testing.assert_close(a, r, rtol=0, atol=LSTM_F32_ATOL)
 
 
 @pytest.mark.parametrize("C,H", [(96, 96), (32, 48), (1024, 256)])
 def test_fused_lstm_f32_entry_takes_the_plan(cuda, C, H):
-    """F's f32 C entry launches the layout ``f32_plan`` gives and refuses
-    one it was not given whole: shared memory other than that layout's, or
-    W_hh in registers at an H other than 96 (cudaErrorInvalidValue, 1)."""
-    from bonito_tpu_torch.ops.lstm_fused_cuda import f32_plan
+    """F's f32 C entry (``lstm_fused_f32_rows``) launches the layout
+    ``f32_plan`` gives and refuses one it was not given whole (cudaError
+    InvalidValue, 1): shared memory other than that layout's, rows a block
+    other than 1, 2, 4, 8, a block of no steps, W_hh in registers at an H
+    other than 96. The earlier
+    f32 kernel's entry (``lstm_fused_f32``) the same on its own layout."""
+    from bonito_tpu_torch.ops.lstm_fused_cuda import f32_old_layout, f32_plan
     T, N = 3, 9
     x = torch.zeros(T, N, C, device=cuda)
     w_ih = torch.zeros(C, 4 * H, device=cuda)
     w_hh = torch.zeros(H, 4 * H, device=cuda)
     bias = torch.zeros(4 * H, device=cuda)
     out = torch.empty(T, N, H, device=cuda)
-    plan = f32_plan(N, C, H)
+    args = (x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), T, N, C, H, 0)
+    plan = f32_plan(N, C, H, _sms(cuda))
 
-    def entry(registers, in_smem, smem):
-        return build.library().lstm_fused_f32(
-            x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), T, N, C, H, 0, int(registers), int(in_smem),
-            smem, build.stream_of(x))
-    assert entry(plan["whh_in_registers"], plan["wih_in_smem"],
-                 plan["smem"]) == 0
+    def entry(rows=plan["rows"], block=plan["block"],
+              registers=plan["whh_in_registers"],
+              in_smem=plan["wih_in_smem"], smem=plan["smem"]):
+        return build.library().lstm_fused_f32_rows(
+            *args, rows, block, int(registers), int(in_smem), smem,
+            build.stream_of(x))
+    assert entry() == 0
     torch.cuda.synchronize()
-    assert entry(plan["whh_in_registers"], plan["wih_in_smem"],
-                 plan["smem"] - 4) == 1
-    assert entry(H != 96, plan["wih_in_smem"], plan["smem"]) == (
+    assert entry(smem=plan["smem"] - 4) == 1
+    assert entry(rows=3) == 1
+    assert entry(block=0) == 1
+    assert entry(registers=H != 96) == (1 if H != 96 else 0)
+    torch.cuda.synchronize()
+    old = f32_old_layout(N, C, H)
+
+    def old_entry(registers, in_smem, smem):
+        return build.library().lstm_fused_f32(
+            *args, int(registers), int(in_smem), smem, build.stream_of(x))
+    assert old_entry(old["whh_in_registers"], old["wih_in_smem"],
+                     old["smem"]) == 0
+    torch.cuda.synchronize()
+    assert old_entry(old["whh_in_registers"], old["wih_in_smem"],
+                     old["smem"] - 4) == 1
+    assert old_entry(H != 96, old["wih_in_smem"], old["smem"]) == (
         1 if H != 96 else 0)
 
 

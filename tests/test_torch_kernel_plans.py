@@ -18,7 +18,11 @@ persistent CTAs cover every output tile once, that U's
 and V's (``ops.logz_cuda.logz_plan``) fits, covers every state once,
 copies each frame once in its pass's order and, emulated here state by
 state in the kernels' order, computes ``ops.logz``'s plain versions bit
-for bit, and the head dim L's bf16 instance runs at. Each is what the
+for bit, and the head dim L's bf16 instance runs at; that A's f32
+persistent kernel (``ops.lstm_cuda.f32_plan``) fits, gives None where
+W_hh's f32 slice cannot be held, and its CTAs, warps and chunks cover
+every row, unit and k once, and that F's f32 kernel (``ops.
+lstm_fused_cuda.f32_plan``) fills the card and fits. Each is what the
 wrapper passes to its kernel. They run here, on the CPU; the kernels
 themselves, and L's tiling, which is fixed in the kernel, only on the card
 (tests/test_torch_gpu.py)."""
@@ -28,8 +32,8 @@ import torch
 
 from bonito_tpu_torch.ops import (attention_cuda, decode_cuda,
                                   decode_full_cuda, decode_fused_cuda, logz,
-                                  logz_cuda, lstm_cuda, lstm_int8_cuda,
-                                  lstm_train_cuda)
+                                  logz_cuda, lstm_cuda, lstm_fused_cuda,
+                                  lstm_int8_cuda, lstm_train_cuda)
 
 SMS = 132             # an H100's SMs
 SMEM = 232448         # the most shared memory a block may ask for
@@ -1395,3 +1399,171 @@ def test_product_ctas_cover_every_output_tile_once(N, Th, H, cols):
     first_wave = range(min(plan["ctas"], plan["tiles"]))
     panels = {t // plan["tiles_n"] for t in first_wave}
     assert len(panels) <= -(-2 * SMS // plan["tiles_n"]) + 1
+
+
+# ---------------------------------------------------------------------------
+# A and F in f32 (csrc/lstm_f32.cu)
+# ---------------------------------------------------------------------------
+
+# (N, H): the GPU tests' and chip_smoke.py's shapes, evaluate's (N 256) and
+# the --no-amp validation's (N 16) at hac's and the old-style model's H,
+# basecall's N 96, narrow H, and row groups
+A32_SHAPES = [(N, H) for N in (16, 96, 256) for H in (768, 1024)] + [
+    (8, 16), (33, 48), (40, 64), (96, 128), (200, 96), (96, 272),
+    (300, 1024), (513, 1024), (1, 1024)]
+
+
+@pytest.mark.parametrize("N,H", A32_SHAPES)
+def test_f32_plan_fits_the_card(N, H):
+    """What the C entry (``csrc/lstm_f32.cu:lstm_recurrence_f32_persistent``)
+    takes: H / 8 CTAs within the SMs, one a launch's rows in warp tiles of
+    32, k-slices 1, 2, 4 or 8 with at most 12 consumer warps and a producer,
+    chunks dividing H in multiples of 8 k a k-slice, 2 to 8 slots, and
+    227 KB of shared memory at most."""
+    plan = lstm_cuda.f32_plan(N, H, SMS)
+    assert plan is not None
+    assert plan["ctas"] == H // 8 <= SMS and plan["units"] == 8
+    assert plan["smem"] == lstm_cuda.f32_smem_bytes(
+        H, plan["rows"], plan["k_slices"], plan["kc"], plan["stages"])
+    assert plan["smem"] <= SMEM
+    assert plan["rows"] % 32 == 0 and plan["rows"] <= 256
+    assert plan["rows"] >= plan["n_launch"] > plan["rows"] - 32
+    assert plan["row_tiles"] == plan["rows"] // 32
+    assert plan["k_slices"] in (1, 2, 4, 8)
+    assert plan["row_tiles"] * plan["k_slices"] <= 12
+    assert plan["warps"] == plan["row_tiles"] * plan["k_slices"] + 1
+    assert plan["threads"] == 32 * plan["warps"] <= 416
+    assert H % plan["kc"] == 0 and plan["kc"] % (8 * plan["k_slices"]) == 0
+    assert 2 <= plan["stages"] <= max(2, min(8, H // plan["kc"]))
+
+
+@pytest.mark.parametrize("N,H", A32_SHAPES)
+def test_f32_plan_covers_every_row_unit_and_k_once(N, H):
+    """The wrapper's row groups, each CTA's 8 units of every row of its
+    launch (padding rows computed, never written), and within a CTA the
+    consumer warps (row tile, k-slice) over each chunk's kc / k_slices k:
+    every (row, unit) updated once, and every (row, k) of each gate column
+    summed once, in one warp's order."""
+    plan = lstm_cuda.f32_plan(N, H, SMS)
+    starts = list(range(0, N, plan["n_launch"]))
+    assert len(starts) == plan["launches"]
+    owner = torch.zeros(N, H, dtype=torch.int32)
+    for n0 in starts:
+        rows = min(plan["n_launch"], N - n0)
+        for cta in range(plan["ctas"]):  # blockIdx.x: units 8 cta ..
+            owner[n0:n0 + rows, 8 * cta:8 * cta + 8] += 1
+    assert (owner == 1).all()
+    R, kc, ks = plan["rows"], plan["kc"], plan["k_slices"]
+    summed = torch.zeros(R, H, dtype=torch.int32)
+    kn = kc // ks
+    for warp in range(plan["row_tiles"] * ks):
+        rt, slice_ = warp % plan["row_tiles"], warp // plan["row_tiles"]
+        for ch in range(H // kc):
+            k0 = ch * kc + slice_ * kn
+            summed[32 * rt:32 * rt + 32, k0:k0 + kn] += 1
+    assert (summed == 1).all()
+
+
+def test_f32_plan_at_hac_and_evaluate():
+    """hac's basecall batch (N 96): 128 CTAs of 96 rows, 3 row tiles x 4
+    k-slices and a producer warp, chunks of 64 k in 3 slots beside W_hh's
+    128 KB and the step's xw (96 rows of 40); evaluate's batch (N 256): 256
+    rows, 8 tiles of all k (one k-slice), chunks of 16 k in 3 slots; the
+    --no-amp validation's (N 16): 32 rows, 8 k-slices, chunks of 128 k in 4
+    slots. One launch each."""
+    hac = lstm_cuda.f32_plan(96, 1024, SMS)
+    assert (hac["ctas"], hac["rows"], hac["row_tiles"], hac["k_slices"],
+            hac["threads"], hac["kc"], hac["stages"], hac["launches"]) == (
+        128, 96, 3, 4, 416, 64, 3, 1)
+    # the ring (3 x 64 k x 104) over the partial sums (4 x 96 rows x 40)
+    assert hac["smem"] == (1024 * 32 + 3 * 64 * 104 + 96 * 40) * 4 + 48
+    assert hac["smem"] == 226352 and 3 * 64 * 104 > 4 * 96 * 40
+    ev = lstm_cuda.f32_plan(256, 1024, SMS)
+    assert (ev["rows"], ev["row_tiles"], ev["k_slices"], ev["threads"],
+            ev["kc"], ev["stages"]) == (256, 8, 1, 288, 16, 3)
+    assert ev["smem"] == (1024 * 32 + 3 * 16 * 264 + 256 * 40) * 4 + 48
+    val = lstm_cuda.f32_plan(16, 1024, SMS)
+    assert (val["rows"], val["k_slices"], val["kc"], val["stages"]) == (
+        32, 8, 128, 4)
+
+
+@pytest.mark.parametrize("N,H,sms", [(8, 2048, SMS), (96, 1536, SMS),
+                                     (96, 1024, 127), (256, 1600, 1000),
+                                     (16, 1792, 1000)])
+def test_f32_plan_gives_none_where_w_hh_cannot_be_held(N, H, sms):
+    """H / 8 CTAs beyond the SMs (H 2048 and 1536 on an H100, H 1024 on a
+    card of 127), or W_hh's slice (128 H bytes) and a ring of two chunks
+    beyond 227 KB (H 1600 and 1792 on a card of any size): no plan, and
+    the wrapper takes the earlier f32 kernel."""
+    assert lstm_cuda.f32_plan(N, H, sms) is None
+
+
+def test_f32_plan_row_groups():
+    """Rows beyond 256 a launch go to further launches of even size."""
+    plan = lstm_cuda.f32_plan(513, 1024, SMS)
+    assert (plan["launches"], plan["n_launch"], plan["rows"]) == (3, 171, 192)
+
+
+@pytest.mark.parametrize("N,H", [(0, 1024), (8, 24), (8, 8)])
+def test_f32_plan_rejects_what_a_does_not_take(N, H):
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lstm_cuda.f32_plan(N, H, SMS)
+
+
+# (N, C, H, rows a block): the fewest rows that fit the grid on 132 SMs
+F32_SHAPES = [(1024, 96, 96, 8), (256, 96, 96, 2), (16, 96, 96, 1),
+              (132, 96, 96, 1), (133, 96, 96, 2), (528, 96, 96, 4),
+              (2000, 96, 96, 8), (37, 64, 128, 1), (20, 1024, 256, 1),
+              (300, 1024, 256, 4), (9, 32, 32, 1), (19, 32, 48, 1)]
+
+
+@pytest.mark.parametrize("N,C,H,rows", F32_SHAPES)
+def test_f32_plan_of_kernel_f_fills_the_card(N, C, H, rows):
+    """F's f32 kernel: the fewest rows a block (1, 2, 4, 8) whose grid fits
+    one wave of the SMs (8 beyond), so evaluate's N 256 runs 128 blocks
+    and the validation's N 16 runs 16 (the earlier kernel: 32 and 2);
+    4H threads; the x product a block of up to 32 steps, the most that
+    fit and fill the passes of 32 (step, row)s where any does; W_ih in
+    shared memory where it fits beside a block of one step; 227 KB at
+    most, as ``csrc/lstm_f32.cu:
+    f32_rows_smem_floats`` counts it."""
+    plan = lstm_fused_cuda.f32_plan(N, C, H, SMS)
+    assert plan["rows"] == rows and plan["ctas"] == -(-N // rows)
+    assert plan["ctas"] <= SMS or rows == 8
+    assert plan["threads"] == 4 * H
+    assert plan["whh_in_registers"] == (H == 96)
+    assert 1 <= plan["block"] <= 32
+    assert plan["smem"] == lstm_fused_cuda.f32_smem_bytes(
+        C, H, rows, plan["block"], plan["wih_in_smem"]) <= SMEM
+    # the most steps that fit, of those that fill the passes where one does
+    fit = [b for b in range(1, 33) if lstm_fused_cuda.f32_smem_bytes(
+        C, H, rows, b, plan["wih_in_smem"]) <= SMEM]
+    whole = [b for b in fit if b * rows % 32 == 0]
+    assert plan["block"] == max(whole or fit)
+    assert plan["wih_in_smem"] == (lstm_fused_cuda.f32_smem_bytes(
+        C, H, rows, 1, True) <= SMEM)
+
+
+def test_f32_plan_of_kernel_f_at_fast_and_evaluate():
+    """fast (N 1024): 128 blocks of 8 rows, the x product 4 steps a pass,
+    W_ih's 144 KB beside them; evaluate (N 256): 128 blocks of 2 rows, 16
+    steps a pass; the validation (N 16): 16 blocks of one row, 32 steps."""
+    fast = lstm_fused_cuda.f32_plan(1024, 96, 96, SMS)
+    assert (fast["ctas"], fast["rows"], fast["block"], fast["smem"]) == (
+        128, 8, 4, 4 * (96 * 384 + 4 * 8 * 384 + 2 * 4 * 8 * 96
+                        + 2 * 8 * 96))
+    ev = lstm_fused_cuda.f32_plan(256, 96, 96, SMS)
+    assert (ev["ctas"], ev["rows"], ev["block"]) == (128, 2, 16)
+    val = lstm_fused_cuda.f32_plan(16, 96, 96, SMS)
+    assert (val["ctas"], val["rows"], val["block"]) == (16, 1, 32)
+    assert all(p["wih_in_smem"] and p["whh_in_registers"]
+               for p in (fast, ev, val))
+
+
+@pytest.mark.parametrize("N,C,H", [(0, 96, 96), (8, 104, 96), (8, 96, 272),
+                                   (8, 1040, 96), (8, 96, 8)])
+def test_f32_plan_of_kernel_f_refuses_what_f_does_not_take(N, C, H):
+    with pytest.raises(ValueError, match="kernel F"):
+        lstm_fused_cuda.f32_plan(N, C, H, SMS)
+    with pytest.raises(ValueError, match="kernel F"):
+        lstm_fused_cuda.f32_old_layout(N, C, H)
