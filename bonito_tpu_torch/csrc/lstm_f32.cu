@@ -1,5 +1,7 @@
 // Kernels A and F in f32: the LSTM recurrence of an f32 model (evaluate
-// loads with half=False; a --no-amp validation), redesigned for the H100.
+// loads with half=False; a --no-amp validation), redesigned for the H100;
+// and kernels R and S in f32, the recurrence of an f32 model's train step
+// (train --no-amp) and its backward through time.
 //
 // A (lstm_a32_kernel) replaces bonito_tpu/ops/lstm_pallas.py:lstm_pallas
 // (`_lstm_kernel`) in f32. Given xw = x @ W_ih + b ([T, N, 4H] f32, from
@@ -76,8 +78,50 @@
 //     gate math of rows q, q + 4, with c in registers; h goes into one of two
 //     buffers in shared memory. One barrier a step, and one more a block.
 //
-// scripts/lstm_step_split.py a32 and f32 time each with parts of its step
-// left out (A32_CUT, F32_CUT; 0 in the library).
+// R (lstm_a32_kernel<KS, true, St>) replaces bonito_tpu/ops/lstm_pallas.py:
+// _lstm_train_fwd_kernel in f32: A's kernel on A's plan with R's stores,
+// c_t and the four activations in St (bf16 where bonito_tpu's kernel route
+// runs, f32 where its scan runs), from the values already in registers; its
+// h is A's bit for bit. S (lstm_s32_kernel) replaces _lstm_train_bwd_kernel:
+// walking the recurrence's steps last to first, dh and dc in f32,
+//
+//     dh += g_h[t]; the gates' gradient from acts, c_t, c_prev (as
+//     csrc/lstm_train.cu says); dgates_out[t] = St(dgates)
+//     dh_prev[n, k] = sum_j dgates[n, j] W_hh[k, j] over j in 4H (f32)
+//
+// f32 FMA operations, 2*N*H*4H a step (the --no-amp batch, N 16, H 1024:
+// 2.0 us a step at 67 TFLOP/s); serial in T. S is A's layout turned around
+// (ops/lstm_train_cuda.py:f32_backward_plan, which the C entry takes as
+// given):
+//   - A CTA owns 8 hidden units: H / 8 CTAs. Its 8 rows of W_hh, [8, 4H]
+//     (128 KB at H 1024), go into shared memory once, k-major (the 8 units
+//     of a k in 32 bytes).
+//   - The previous step's f32 dgates of the launch's rows (all 4H columns)
+//     live in global memory k-major in two planes ([4H][ldr], ldr = R or R
+//     + 16 so that the product's loads miss no bank); a producer warp
+//     streams them, after the counter, in chunks of kc k through a ring of
+//     bulk copies with full and empty mbarriers, as A's producer does.
+//   - The consumer warps: R / 16 row tiles x KS k-slices (KS at most 8,
+//     at most 16 warps: 16 k-slices at 16 rows spilled and ran 3.7%
+//     slower than 8, PERF.md).
+//     Lane (row group rg, k lane kl) of warp (tile, slice) sums 4 rows x
+//     the 8 units over every 8th k of the warp's kc / KS k of each chunk,
+//     in order, by FFMA (one float4 of dgates, two of W_hh: 32 FMAs); the
+//     8 k lanes' sums meet by shuffles in a fixed tree (s_reduce), the
+//     k-slices' in shared memory (over the ring), added in slice order: the
+//     result is deterministic.
+//   - Each consumer thread then runs the gradient's math of its (row,
+//     unit)s, dc in registers, the step's acts (the CTA's 32 columns), c_t,
+//     c_prev and g_h brought into shared memory by cp.async a step ahead;
+//     dgates go to dgates_out in St and in f32 to the next plane, then a
+//     release on the counter. A wait that cannot end traps. Rows beyond
+//     256 go to further launches (row groups).
+//   Each CTA reads R x 4H x 4 bytes of dgates a step (256 KB at N 16): four
+//   times A's read of h, for a quarter of the output columns.
+//
+// scripts/lstm_step_split.py a32, f32 and s32 time each with parts of its
+// step left out (A32_CUT, F32_CUT, S32_CUT; 0 in the library); r32 times R
+// beside A.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +133,9 @@
 #endif
 #ifndef F32_CUT
 #define F32_CUT 0
+#endif
+#ifndef S32_CUT
+#define S32_CUT 0
 #endif
 
 namespace {
@@ -121,8 +168,19 @@ struct A32 {
     float* out;        // [T, n_stride, H], first row
     float* hbuf;       // [2, H, R + A_PAD], zeroed
     unsigned* flag;    // zeroed
+    void* c_out;       // R: [T, n_stride, H] in St, first row
+    void* acts;        // R: [T, n_stride, 4H] in St, first row
     int T, n_stride, rows, H, R, kc, stages, reverse;
 };
+
+__device__ __forceinline__ void store_st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_st(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ float load_st(const float* p) { return *p; }
+__device__ __forceinline__ float load_st(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+}
 
 // the shared memory of a CTA, in bytes: W_hh's slice, the ring (which the
 // k-slices' partial sums reuse), the step's xw of the CTA's 32 columns
@@ -168,7 +226,10 @@ __device__ __forceinline__ void a_product(float (&acc)[8][4],
     }
 }
 
-template <int KS>
+// TRAIN: kernel R in f32, A's kernel with R's stores of c_t and the four
+// activations in St (bf16 or f32); the product, the sums and h are the same
+// instructions in both instances, so at one plan R's h is A's bit for bit
+template <int KS, bool TRAIN, typename St>
 __global__ void __launch_bounds__(A_THREADS, 1)
 lstm_a32_kernel(A32 p)
 {
@@ -321,6 +382,17 @@ lstm_a32_kernel(A32 p)
             }
             p.out[t * out_t + (size_t)row * H + u0 + u] = h;
             h_out[(size_t)(u0 + u) * ldh + row] = h;
+            if constexpr (TRAIN) {
+                // R's stores for S (with A32_CUT's gate cut, the gates)
+                const size_t idx = t * out_t + (size_t)row * H + u0 + u;
+                St* a = static_cast<St*>(p.acts) + t * xw_t
+                        + (size_t)row * 4 * H + u0 + u;
+                store_st(static_cast<St*>(p.c_out) + idx, c[i]);
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    store_st(a + q * H, a_cut(A_CUT_GATES) ? gt[q]
+                             : q == 2 ? tanhf(gt[q]) : sigmoid_f(gt[q]));
+            }
         }
         // count this CTA's step: its h writes (the barrier), then the
         // release; the next step's bulk copies (async proxy) land in the
@@ -330,6 +402,335 @@ lstm_a32_kernel(A32 p)
         bar_consumers(ct);
         if (tid == 0) red_release(p.flag, 1u);
         if (step + 1 < p.T) fetch_xw(p.reverse ? t - 1 : t + 1);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// S in f32
+// ---------------------------------------------------------------------------
+
+constexpr int S_MAX_ROWS = 256;     // rows of a launch
+constexpr int S_MAX_WARPS = 16;     // consumer warps
+constexpr int S_THREADS = (S_MAX_WARPS + 1) * 32;
+constexpr int S_LDP = AU + 1;       // row stride of the k-slices' partials
+
+// the parts scripts/lstm_step_split.py s32 leaves out (S32_CUT bits)
+constexpr int S_CUT_WAIT = 1;       // the producer's wait at the counter
+constexpr int S_CUT_LOAD = 2;       // the copies of dgates and their waits
+constexpr int S_CUT_PRODUCT = 4;    // the products (the partials are zeros)
+constexpr int S_CUT_ELEMENTWISE = 8;  // the gradient's math: dh is stored
+
+__device__ __forceinline__ constexpr bool s_cut(int part) {
+    return (S32_CUT & part) != 0;
+}
+
+struct S32 {
+    const float* whh;  // [H, 4H]
+    const void* acts;  // [T, n_stride, 4H] in St, this launch's first row
+    const void* c;     // [T, n_stride, H] in St, first row
+    const float* g_h;  // [T, n_stride, H], first row
+    void* dgates;      // [T, n_stride, 4H] in St, first row
+    float* gbuf;       // [2, 4H, ldr]: the step's f32 dgates, k-major
+    unsigned* flag;    // zeroed
+    int T, n_stride, rows, H, R, ldr, kc, stages, reverse;
+};
+
+// the row stride of a k of dgates (in the planes and the ring): R, or R +
+// 16 where R is a multiple of 32, so that a row's 16 B pieces of 8 lanes
+// (4 row groups x two k) fall on distinct banks
+__host__ __device__ inline int s32_ldr(int R) {
+    return R % 32 ? R : R + 16;
+}
+// bytes of a row of a step's inputs in shared memory: acts (the CTA's 32
+// columns), c_t and c_prev (8 units each) in St, g_h (8 f32)
+__host__ __device__ inline int s32_in_bytes(int st) { return 48 * st + 32; }
+__host__ __device__ inline size_t s32_ring_floats(int R, int ks, int kc,
+                                                  int stages) {
+    const size_t ring = (size_t)stages * kc * s32_ldr(R);
+    const size_t part = (size_t)ks * R * S_LDP;
+    return ring > part ? ring : part;
+}
+// W_hh's 8 rows k-major, the ring (which the k-slices' partial sums
+// reuse), the step's inputs, a full and an empty mbarrier a slot
+__host__ __device__ inline size_t s32_smem(int H, int R, int ks, int kc,
+                                           int stages, int st) {
+    return ((size_t)4 * H * AU + s32_ring_floats(R, ks, kc, stages)) * 4
+        + (size_t)R * s32_in_bytes(st) + (size_t)16 * stages;
+}
+
+// FFMA: lane (row group, k lane kl % 8) sums rows r0 .. r0 + 3 of the
+// chunk's dgates (k-major, row stride ldr) times the 8 units' W_hh over n
+// k, every 8th from the chunk's kl (global k from k), in order
+__device__ __forceinline__ void s_product(float (&acc)[4][AU],
+                                          const float* ds, int ldr,
+                                          const float* Ws, int kl, int k,
+                                          int n, int r0) {
+    const float* dr = ds + (size_t)kl * ldr + r0;
+    const float* wr = Ws + (size_t)k * AU;
+    const size_t dstep = (size_t)8 * ldr;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i, dr += dstep, wr += 8 * AU) {
+        const float4 a = *reinterpret_cast<const float4*>(dr);
+        const float4 w0 = *reinterpret_cast<const float4*>(wr);
+        const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
+        const float d4[4] = {a.x, a.y, a.z, a.w};
+        const float w8[AU] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int u = 0; u < AU; ++u)
+                acc[r][u] = fmaf(d4[r], w8[u], acc[r][u]);
+    }
+}
+
+// the 8 k lanes' sums (lane bits 2-4) of a warp, each lane left with
+// its unit kl (= lane >> 2) of its 4 rows: a fixed tree (k lanes j and j ^ 4
+// first, then j ^ 2, then j ^ 1), whose every sum is the same on both lanes
+// of a pair (x + y == y + x): the result is deterministic
+__device__ __forceinline__ void s_reduce(const float (&acc)[4][AU],
+                                         float (&out)[4], int kl) {
+    const bool b2 = (kl >> 2) & 1, b1 = (kl >> 1) & 1, b0 = kl & 1;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        float a1[4], a2[2];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+            const float keep = b2 ? acc[r][4 + v] : acc[r][v];
+            const float send = b2 ? acc[r][v] : acc[r][4 + v];
+            a1[v] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+        }
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+            const float keep = b1 ? a1[2 + v] : a1[v];
+            const float send = b1 ? a1[v] : a1[2 + v];
+            a2[v] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+        }
+        const float keep = b0 ? a2[1] : a2[0];
+        const float send = b0 ? a2[0] : a2[1];
+        out[r] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+    }
+}
+
+template <int KS, typename St>
+__global__ void __launch_bounds__(S_THREADS, 1)
+lstm_s32_kernel(S32 p)
+{
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    constexpr int SZ = sizeof(St);
+    constexpr int IB = 48 * SZ + 32;    // bytes of a row of the inputs
+    const int H = p.H, G = 4 * H, R = p.R, ldr = p.ldr, kc = p.kc;
+    const int stages = p.stages;
+    const int RT = R / 16, cw = RT * KS, ct = cw * 32;
+    const int g_u = gridDim.x;
+    float* Ws = reinterpret_cast<float*>(smem_raw);
+    float* ring = Ws + (size_t)G * AU;
+    float* part = ring;
+    unsigned char* xs = reinterpret_cast<unsigned char*>(
+        ring + s32_ring_floats(R, KS, kc, stages));
+    uint64_t* full = reinterpret_cast<uint64_t*>(xs + (size_t)R * IB);
+    uint64_t* empty = full + stages;
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int u0 = blockIdx.x * AU;
+    const int n_chunks = G / kc;
+    const size_t plane = (size_t)G * ldr;
+    const size_t slot = (size_t)kc * ldr;
+
+    // W_hh's 8 rows, once, k-major: Ws[k][u] = W_hh[u0 + u][k]
+    for (int e = tid; e < G * AU; e += blockDim.x) {
+        const int u = e / G, k = e % G;
+        Ws[(size_t)k * AU + u] = p.whh[(size_t)(u0 + u) * G + k];
+    }
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, cw);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == cw) {
+        // the producer: from step 1 on, each step's chunks of the previous
+        // step's dgates, once the CTAs have counted that step
+        if (lane == 0) {
+            const unsigned bytes = (unsigned)(slot * 4);
+            int gch = 0;
+            for (int step = 1; step < p.T && !s_cut(S_CUT_LOAD); ++step) {
+                const float* src = p.gbuf + (size_t)((step - 1) & 1) * plane;
+                if (!s_cut(S_CUT_WAIT))
+                    wait_count(p.flag, (unsigned)step * g_u);
+                // the planes are written through the generic proxy and
+                // acquired above; the bulk copies read through the async
+                asm volatile("fence.proxy.async.global;\n" ::: "memory");
+                for (int ch = 0; ch < n_chunks; ++ch, ++gch) {
+                    const int s = gch % stages, use = gch / stages;
+                    if (use > 0)
+                        mbar_wait(empty + s, (unsigned)(use - 1) & 1u);
+                    mbar_expect_tx(full + s, bytes);
+                    bulk_copy(ring + s * slot, src + (size_t)ch * slot,
+                              bytes, full + s);
+                }
+            }
+        }
+        return;
+    }
+
+    // the consumers: warp (row tile rt, k-slice ks); lane (row group rg,
+    // k lane kl): rows rt 16 + 4 rg .. + 3, every 8th k of the warp's
+    // slice of each chunk from kl on
+    const int rt = warp % RT, ks = warp / RT;
+    const int kn = kc / KS;             // k a warp sums of each chunk
+    const int rg = lane & 3, kl = lane >> 2;
+    // the (row, unit)s this thread updates: e = tid + i ct, row e / 8, unit
+    // e % 8, dc in registers; the step's inputs come into xs by cp.async,
+    // issued a step ahead, in 16-byte pieces
+    constexpr int EU = KS >= 4 ? 1 : 4 / KS;
+    float dc[EU];
+#pragma unroll
+    for (int i = 0; i < EU; ++i) dc[i] = 0.f;
+    const size_t pl_h = (size_t)p.n_stride * H, pl_g = (size_t)p.n_stride * G;
+    const St* acts = static_cast<const St*>(p.acts);
+    const St* cs = static_cast<const St*>(p.c);
+    constexpr int PA = 2 * SZ;          // pieces of a row's acts
+    constexpr int PC = SZ / 2;          // pieces of a row's c (8 units)
+    constexpr int PR = PA + 2 * PC + 2; // pieces of a row
+    constexpr int EPC = 16 / SZ;        // elements a piece
+    // step j's inputs (t its index); c_prev only where the recurrence had
+    // a previous step
+    auto fetch = [&](int j) {
+        const int t = p.reverse ? j : p.T - 1 - j;
+        const int tp = p.reverse ? t + 1 : t - 1;
+        const bool first = j == p.T - 1;
+        for (int e = tid; e < p.rows * PR; e += ct) {
+            const int row = e / PR, pc = e % PR;
+            unsigned char* d = xs + (size_t)row * IB;
+            if (pc < PA) {
+                const int q = pc / PC, half = pc % PC;
+                cp_async16(d + (q * AU + half * EPC) * SZ,
+                           acts + t * pl_g + (size_t)row * G + q * H + u0
+                           + half * EPC);
+            } else if (pc < PA + PC) {
+                const int half = pc - PA;
+                cp_async16(d + (32 + half * EPC) * SZ,
+                           cs + t * pl_h + (size_t)row * H + u0 + half * EPC);
+            } else if (pc < PA + 2 * PC) {
+                const int half = pc - PA - PC;
+                if (!first)
+                    cp_async16(d + (40 + half * EPC) * SZ,
+                               cs + tp * pl_h + (size_t)row * H + u0
+                               + half * EPC);
+            } else {
+                const int half = pc - PA - 2 * PC;
+                cp_async16(d + 48 * SZ + half * 16,
+                           p.g_h + t * pl_h + (size_t)row * H + u0
+                           + half * 4);
+            }
+        }
+        cp_async_commit();
+    };
+    fetch(0);
+
+    int gch = 0;
+    for (int step = 0; step < p.T; ++step) {
+        const int t = p.reverse ? step : p.T - 1 - step;
+        const bool first = step == p.T - 1;
+        float* g_out = p.gbuf + (size_t)(step & 1) * plane;
+        float dh4[4];
+        if (step > 0) {
+            float acc[4][AU];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int u = 0; u < AU; ++u) acc[r][u] = 0.f;
+            for (int ch = 0; ch < n_chunks; ++ch, ++gch) {
+                const int s = gch % stages;
+                if (!s_cut(S_CUT_LOAD))
+                    mbar_wait(full + s, (unsigned)(gch / stages) & 1u);
+                const int kk = ks * kn + kl;
+                if (!s_cut(S_CUT_PRODUCT))
+                    s_product(acc, ring + s * slot, ldr, Ws, kk,
+                              ch * kc + kk, kn / 8, rt * 16 + rg * 4);
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + s);
+            }
+            s_reduce(acc, dh4, kl);
+        }
+        bar_consumers(ct);              // every warp is done with the ring
+
+        // the k-slices' partial sums: part[ks][row][unit]
+        if (step > 0) {
+            float* mine = part + (size_t)ks * R * S_LDP;
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                mine[(rt * 16 + rg * 4 + r) * S_LDP + kl] = dh4[r];
+        }
+        cp_async_wait(0);               // this step's inputs
+        bar_consumers(ct);
+
+#pragma unroll
+        for (int i = 0; i < EU; ++i) {
+            const int e = tid + i * ct, row = e >> 3, u = e & 7;
+            if (e >= R * AU || row >= p.rows) continue;
+            float dh = 0.f;
+            if (step > 0) {             // the slices' sums in slice order
+                dh = part[row * S_LDP + u];
+#pragma unroll
+                for (int j = 1; j < KS; ++j)
+                    dh += part[((size_t)j * R + row) * S_LDP + u];
+            }
+            const unsigned char* xr = xs + (size_t)row * IB;
+            const St* a = reinterpret_cast<const St*>(xr);
+            const St* cr = reinterpret_cast<const St*>(xr + 32 * SZ);
+            dh += reinterpret_cast<const float*>(xr + 48 * SZ)[u];
+            const float ig = load_st(a + u), fg = load_st(a + 8 + u);
+            const float gg = load_st(a + 16 + u), og = load_st(a + 24 + u);
+            const float tc = tanhf(load_st(cr + u));
+            const float cp = first ? 0.f : load_st(cr + 8 + u);
+            float d[4];
+            if (s_cut(S_CUT_ELEMENTWISE)) {
+                d[0] = d[1] = d[2] = d[3] = dh;
+            } else {
+                const float d_o = dh * tc;
+                const float dcv = dc[i] + dh * og * (1.f - tc * tc);
+                d[0] = dcv * gg * ig * (1.f - ig);
+                d[1] = dcv * cp * fg * (1.f - fg);
+                d[2] = dcv * ig * (1.f - gg * gg);
+                d[3] = d_o * og * (1.f - og);
+                dc[i] = dcv * fg;
+            }
+            St* o = static_cast<St*>(p.dgates) + t * pl_g + (size_t)row * G
+                    + u0 + u;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                store_st(o + q * H, d[q]);
+                g_out[(size_t)(q * H + u0 + u) * ldr + row] = d[q];
+            }
+        }
+        // count this CTA's step: its plane writes (the barrier), then the
+        // release; the next step's bulk copies (async proxy) land in the
+        // ring that the partial sums just used (generic proxy): a proxy
+        // fence orders the two
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        bar_consumers(ct);
+        if (tid == 0) red_release(p.flag, 1u);
+        if (step + 1 < p.T) fetch(step + 1);
+    }
+}
+
+template <typename St>
+cudaError_t launch_s32(const S32& p, int ks, size_t smem, cudaStream_t s,
+                       unsigned threads) {
+    const int grid = p.H / AU;
+    switch (ks) {
+    case 1: return launch_resident(lstm_s32_kernel<1, St>, grid, smem, 1, s,
+                                   p, threads);
+    case 2: return launch_resident(lstm_s32_kernel<2, St>, grid, smem, 1, s,
+                                   p, threads);
+    case 4: return launch_resident(lstm_s32_kernel<4, St>, grid, smem, 1, s,
+                                   p, threads);
+    default: return launch_resident(lstm_s32_kernel<8, St>, grid, smem, 1,
+                                    s, p, threads);
     }
 }
 
@@ -581,19 +982,65 @@ lstm_f32_rows_kernel(const float* __restrict__ x,     // [T, N, C]
     }
 }
 
+template <bool TRAIN, typename St>
 cudaError_t launch_a32(const A32& p, int ks, size_t smem, cudaStream_t s,
                        unsigned threads) {
     const int grid = p.H / AU;
     switch (ks) {
-    case 1: return launch_resident(lstm_a32_kernel<1>, grid, smem, 1, s,
-                                   p, threads);
-    case 2: return launch_resident(lstm_a32_kernel<2>, grid, smem, 1, s,
-                                   p, threads);
-    case 4: return launch_resident(lstm_a32_kernel<4>, grid, smem, 1, s,
-                                   p, threads);
-    default: return launch_resident(lstm_a32_kernel<8>, grid, smem, 1, s,
-                                    p, threads);
+    case 1: return launch_resident(lstm_a32_kernel<1, TRAIN, St>, grid, smem,
+                                   1, s, p, threads);
+    case 2: return launch_resident(lstm_a32_kernel<2, TRAIN, St>, grid, smem,
+                                   1, s, p, threads);
+    case 4: return launch_resident(lstm_a32_kernel<4, TRAIN, St>, grid, smem,
+                                   1, s, p, threads);
+    default: return launch_resident(lstm_a32_kernel<8, TRAIN, St>, grid,
+                                    smem, 1, s, p, threads);
     }
+}
+
+// A's checks and launch; with c_out and acts R's instance (stores in bf16
+// when round_bf16, else f32)
+int a32_entry(const void* xw, const void* whh, void* out, void* hbuf,
+              void* flag, void* c_out, void* acts, int round_bf16, int T,
+              int N, int n0, int rows, int H, int R, int ks, int kc,
+              int stages, int reverse, void* stream)
+{
+    if (T < 1 || rows < 1 || n0 < 0 || n0 + rows > N || H < 16 || H % 16
+        || R % 32 || R < rows || R > A_MAX_ROWS
+        || (ks != 1 && ks != 2 && ks != 4 && ks != 8)
+        || R / 32 * ks > A_MAX_WARPS || kc < 8 * ks || kc % (8 * ks)
+        || H % kc || stages < 2 || stages > 8)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = a32_smem(H, R, ks, kc, stages);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const size_t st = round_bf16 ? 2 : 4;
+    A32 p;
+    p.xw = static_cast<const float*>(xw) + (size_t)n0 * 4 * H;
+    p.whh = static_cast<const float*>(whh);
+    p.out = static_cast<float*>(out) + (size_t)n0 * H;
+    p.hbuf = static_cast<float*>(hbuf);
+    p.flag = static_cast<unsigned*>(flag);
+    p.c_out = c_out ? static_cast<char*>(c_out) + (size_t)n0 * H * st
+                    : nullptr;
+    p.acts = acts ? static_cast<char*>(acts) + (size_t)n0 * 4 * H * st
+                  : nullptr;
+    p.T = T;
+    p.n_stride = N;
+    p.rows = rows;
+    p.H = H;
+    p.R = R;
+    p.kc = kc;
+    p.stages = stages;
+    p.reverse = reverse;
+    const unsigned threads = (unsigned)(R / 32 * ks + 1) * 32;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        acts == nullptr ? launch_a32<false, float>(p, ks, smem, s, threads)
+        : round_bf16    ? launch_a32<true, __nv_bfloat16>(p, ks, smem, s,
+                                                          threads)
+                        : launch_a32<true, float>(p, ks, smem, s, threads);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 typedef void (*RowsKernel)(const float*, const float*, const float*,
@@ -628,33 +1075,23 @@ extern "C" int lstm_recurrence_f32_persistent(
     int T, int N, int n0, int rows, int H, int R, int ks, int kc,
     int stages, int reverse, void* stream)
 {
-    if (T < 1 || rows < 1 || n0 < 0 || n0 + rows > N || H < 16 || H % 16
-        || R % 32 || R < rows || R > A_MAX_ROWS
-        || (ks != 1 && ks != 2 && ks != 4 && ks != 8)
-        || R / 32 * ks > A_MAX_WARPS || kc < 8 * ks || kc % (8 * ks)
-        || H % kc || stages < 2 || stages > 8)
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = a32_smem(H, R, ks, kc, stages);
-    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    A32 p;
-    p.xw = static_cast<const float*>(xw) + (size_t)n0 * 4 * H;
-    p.whh = static_cast<const float*>(whh);
-    p.out = static_cast<float*>(out) + (size_t)n0 * H;
-    p.hbuf = static_cast<float*>(hbuf);
-    p.flag = static_cast<unsigned*>(flag);
-    p.T = T;
-    p.n_stride = N;
-    p.rows = rows;
-    p.H = H;
-    p.R = R;
-    p.kc = kc;
-    p.stages = stages;
-    p.reverse = reverse;
-    const unsigned threads = (unsigned)(R / 32 * ks + 1) * 32;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err = launch_a32(p, ks, smem, s, threads);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    return a32_entry(xw, whh, out, hbuf, flag, nullptr, nullptr, 0, T, N,
+                     n0, rows, H, R, ks, kc, stages, reverse, stream);
+}
+
+// Kernel R in f32 (an f32 model's train step): A's f32 kernel with R's
+// stores, one launch for the batch rows n0 .. n0 + rows - 1 of xw [T, N,
+// 4H], h [T, N, H] (f32), c [T, N, H] and acts [T, N, 4H] (bf16 when
+// round_bf16, else f32); the rest as lstm_recurrence_f32_persistent says
+// (A's plan, ops/lstm_cuda.py:f32_plan). At one plan h is A's bit for bit.
+extern "C" int lstm_train_fwd_f32_persistent(
+    const void* xw, const void* whh, void* h, void* c, void* acts,
+    void* hbuf, void* flag, int T, int N, int n0, int rows, int H, int R,
+    int ks, int kc, int stages, int round_bf16, int reverse, void* stream)
+{
+    if (c == nullptr || acts == nullptr) return (int)cudaErrorInvalidValue;
+    return a32_entry(xw, whh, h, hbuf, flag, c, acts, round_bf16, T, N, n0,
+                     rows, H, R, ks, kc, stages, reverse, stream);
 }
 
 // Kernel F in f32: x [T, N, C], wih [C, 4H], whh [H, 4H], bias [4H], out
@@ -689,5 +1126,60 @@ extern "C" int lstm_fused_f32_rows(const void* x, const void* wih,
         static_cast<const float*>(x), static_cast<const float*>(wih),
         static_cast<const float*>(whh), static_cast<const float*>(bias),
         static_cast<float*>(out), T, N, C, H, reverse, block, wih_in_smem);
+    return (int)cudaGetLastError();
+}
+
+// Kernel S in f32 (an f32 model's train step), one launch for the batch
+// rows n0 .. n0 + rows - 1 of acts [T, N, 4H], c [T, N, H] (bf16 when
+// round_bf16, else f32, as R stored them), g_h [T, N, H] f32 (the gradient
+// of h) and dgates [T, N, 4H] (in the type of acts); whh [H, 4H] f32. gbuf
+// [2, 4H, ldr] f32 (ldr = R, or R + 16 where R is a multiple of 32) and
+// flag (one int32) are zeroed scratch; acts, c and g_h at 16-byte
+// addresses. The layout is the caller's plan (ops/lstm_train_cuda.py:
+// f32_backward_plan), taken as given: R rows a CTA (a multiple of 16 up to
+// 256, at least rows), ks k-slices (1, 2, 4 or 8; R / 16 x ks at most 16
+// warps), chunks of kc k (dividing 4H, a multiple of 8 ks) and
+// `stages` ring slots (2 to 8). H a multiple of 16. The grid is H / 8 CTAs
+// of (R / 16 x ks + 1) warps; it returns cudaErrorCooperativeLaunchTooLarge
+// where they cannot all be resident and cudaErrorInvalidValue for any other
+// layout.
+extern "C" int lstm_train_bwd_f32_persistent(
+    const void* whh, const void* acts, const void* c, const void* g_h,
+    void* dgates, void* gbuf, void* flag, int T, int N, int n0, int rows,
+    int H, int R, int ks, int kc, int stages, int round_bf16, int reverse,
+    void* stream)
+{
+    if (T < 1 || rows < 1 || n0 < 0 || n0 + rows > N || H < 16 || H % 16
+        || R % 16 || R < rows || R > S_MAX_ROWS
+        || (ks != 1 && ks != 2 && ks != 4 && ks != 8)
+        || R / 16 * ks > S_MAX_WARPS || kc < 8 * ks || kc % (8 * ks)
+        || (4 * H) % kc || stages < 2 || stages > 8)
+        return (int)cudaErrorInvalidValue;
+    const int st = round_bf16 ? 2 : 4;
+    const size_t smem = s32_smem(H, R, ks, kc, stages, st);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    S32 p;
+    p.whh = static_cast<const float*>(whh);
+    p.acts = static_cast<const char*>(acts) + (size_t)n0 * 4 * H * st;
+    p.c = static_cast<const char*>(c) + (size_t)n0 * H * st;
+    p.g_h = static_cast<const float*>(g_h) + (size_t)n0 * H;
+    p.dgates = static_cast<char*>(dgates) + (size_t)n0 * 4 * H * st;
+    p.gbuf = static_cast<float*>(gbuf);
+    p.flag = static_cast<unsigned*>(flag);
+    p.T = T;
+    p.n_stride = N;
+    p.rows = rows;
+    p.H = H;
+    p.R = R;
+    p.ldr = s32_ldr(R);
+    p.kc = kc;
+    p.stages = stages;
+    p.reverse = reverse;
+    const unsigned threads = (unsigned)(R / 16 * ks + 1) * 32;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        round_bf16 ? launch_s32<__nv_bfloat16>(p, ks, smem, s, threads)
+                   : launch_s32<float>(p, ks, smem, s, threads);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

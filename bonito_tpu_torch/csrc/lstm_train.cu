@@ -89,19 +89,25 @@
 //     shared memory, the cluster's barrier) 1.30, the wait at the counter
 //     0.76.
 //
+// An f32 model (training without amp) runs R and S on their own persistent
+// kernels, csrc/lstm_f32.cu (ops/lstm_train_cuda.py: A's f32_plan and
+// f32_backward_plan).
+//
 // The step kernels (lstm_train_fwd_step, lstm_train_bwd_step: the first
-// design; an f32 model, f32 storage, or an H the plans do not take): one
-// launch per step from a loop inside the C entry point; a block owns all
-// four gate columns of UH hidden units for RB batch rows; in bf16 16 warps
-// run 16x16x16 WMMA products with f32 accumulators straight from L2. An f32
-// model (training without amp) takes the same layout with the products on
-// the f32 cores, since the tensor cores would round its operands to TF32:
-// 8 warps, tiles of h and of W_hh's 64 columns staged in shared memory,
-// each thread 2 rows x 4 columns, its sums over k in order; slower, its
-// numbers exact f32. Kernel A's earlier f32 kernel (an f32 model's
-// inference, where A's f32 plan gives None, and A's comparisons; A's own
-// is csrc/lstm_f32.cu) is this kernel without the stores of c and the
-// activations (lstm_recurrence_f32).
+// design; a bf16 model with f32 storage, an H the plans do not take, and
+// comparisons): one launch per step from a loop inside the C entry point;
+// a block owns all four gate columns of UH hidden units for RB batch rows;
+// in bf16 16 warps run 16x16x16 WMMA products with f32 accumulators
+// straight from L2. In f32 the same layout has its products on the f32
+// cores, since the tensor cores would round the operands to TF32: 8
+// warps, tiles of h and of W_hh's 64 columns staged in shared memory, each
+// thread 2 rows x 4 columns, its sums over k in order (R), or one thread
+// an output of dh over all 4H k (S); slower, its numbers exact f32 (at the
+// --no-amp batch, N 16, T 500, H 1024: R 25.8, S 153.4 ms, PERF.md). Kernel
+// A's earlier f32 kernel (an f32 model's inference, where A's f32 plan
+// gives None, and A's comparisons; A's own is csrc/lstm_f32.cu) is this
+// kernel without the stores of c and the activations
+// (lstm_recurrence_f32).
 // S's launch j first computes its block's dh = Io(dgates_{j-1}) @ W_hh^T
 // (read from an Io copy that launch j-1 wrote in full), then, for its own
 // units, step j's dgates and dc. The Io copy of dgates and Io(h) are

@@ -199,6 +199,15 @@ SIGNATURES = {
                                   I, I, P],
     # cluster, &clusters
     "lstm_train_bwd_clusters": [I, IP],
+    # kernel R in f32 (csrc/lstm_f32.cu): xw, whh, h, c, acts, hbuf, flag,
+    # T, N, n0, rows, H, R, ks, kc, stages, round_bf16, reverse, stream
+    "lstm_train_fwd_f32_persistent": [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                      I, I, I, I, I, P],
+    # kernel S in f32 (csrc/lstm_f32.cu): whh, acts, c, g_h, dgates, gbuf,
+    # flag, T, N, n0, rows, H, R, ks, kc, stages, round_bf16, reverse,
+    # stream
+    "lstm_train_bwd_f32_persistent": [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                      I, I, I, I, I, P],
 }
 
 ptxas_report = ""  # nvcc -Xptxas -v output of the library's build

@@ -14,16 +14,23 @@ decides.
 
 Both are persistent kernels where their plans take the shape: one
 cooperative launch per row group walks the whole layer, with W_hh in the
-SMs' shared memory. R is kernel A's kernel with R's stores
-(``forward_plan``: A's ``persistent_plan``); in S the CTAs of a cluster
-split the 4H gate columns of the product between them and swap the
-partial sums through distributed shared memory (``backward_plan``).
-Where a plan is None — an f32 model (training without amp), c and the
-gates stored in f32 (``round_bf16=False``), or an H beyond the SMs or the
-shared memory — the first design runs: one launch per timestep from a loop
-in one C call. Each C call counts one launch: a row group's persistent
-launch, or the step kernel's call. Each wrapper keeps the plan that ran
-in ``.plan`` (None: the step kernel).
+SMs' shared memory. For a bf16 model (``csrc/lstm_train.cu``) R is kernel
+A's kernel with R's stores (``forward_plan``: A's ``persistent_plan``); in
+S the CTAs of a cluster split the 4H gate columns of the product between
+them and swap the partial sums through distributed shared memory
+(``backward_plan``). For an f32 model (training without amp,
+``csrc/lstm_f32.cu``) R is A's f32 kernel with R's stores (``forward_plan``:
+A's ``f32_plan``) and S is that layout turned around: a CTA holds 8 rows of
+f32 W_hh and streams the previous step's f32 dgates through a ring of bulk
+copies (``f32_backward_plan``); both take c and the gates stored in bf16 or
+in f32. Where a plan is None — a bf16 model that stores in f32
+(``round_bf16=False``), or an H beyond the SMs or the shared memory — the
+first design runs: one launch per timestep from a loop in one C call.
+Each C call counts one launch: a row group's persistent launch, or the
+step kernel's call. Each wrapper keeps the plan that ran in ``.plan``
+(None: the step kernel). ``lstm_train_forward_step`` and
+``lstm_train_backward_step`` run the step kernels whatever the plan, count
+nothing, and serve comparisons only.
 
 ``round_bf16`` stores c, the gates and their gradient in bf16, as
 bonito_tpu's kernels do; without it they stay f32 (where bonito_tpu's
@@ -40,8 +47,9 @@ import torch
 from bonito_tpu_torch.ops import build
 # kernel A's: R runs A's kernel; S's CTAs are laid out as A's (16 units,
 # 16 to 64 rows), its ring's rows padded alike
-from bonito_tpu_torch.ops.lstm_cuda import (MAX_ROWS, PAD, SMEM_LIMIT, UNITS,
-                                            _cdiv, persistent_plan,
+from bonito_tpu_torch.ops.lstm_cuda import (F32_PAD, F32_UNITS, MAX_ROWS, PAD,
+                                            SMEM_LIMIT, UNITS, _cdiv,
+                                            f32_plan, persistent_plan,
                                             recurrence_plain)
 
 ROW_BLOCK = 32  # batch rows per block of the step kernels (RB)
@@ -50,6 +58,10 @@ CLUSTERS = (2, 1)  # S's cluster sizes, the wider first (csrc/lstm_train.cu
                    # says why no wider)
 MAX_STAGES = 4  # slots of S's ring, at most
 WARPS = 8       # warps a CTA of S: k-slices of its columns
+S32_MAX_ROWS = 256   # S in f32: batch rows per launch (row groups beyond)
+S32_MAX_WARPS = 16   # consumer warps: row tiles of 16 x k-slices
+S32_MAX_KC = 512     # the widest chunk of dgates' k
+S32_LDP = 9          # row stride (floats) of the k-slices' partial sums
 
 
 def _store(round_bf16):
@@ -58,14 +70,17 @@ def _store(round_bf16):
 
 def forward_plan(N, H, sms, dtype=torch.bfloat16, round_bf16=True):
     """R's plan for N batch rows and H hidden units on a card of ``sms``
-    SMs: kernel A's ``persistent_plan`` (R's stores go straight to global
-    memory and need no shared memory), for a bf16 model that stores c and
-    the activations in bf16; None otherwise, or where A's plan is None:
-    then the step kernel runs."""
+    SMs: kernel A's plan for the model's dtype (R's stores go straight to
+    global memory and need no shared memory): ``persistent_plan`` for a
+    bf16 model that stores c and the activations in bf16, ``f32_plan`` for
+    an f32 model (either storage); None for a bf16 model storing in f32,
+    or where A's plan is None: then the step kernel runs."""
     if N < 1 or H < 16 or H % 16:
         raise ValueError(f"kernel R: N {N} and H {H}: N >= 1, H a "
                          f"multiple of 16")
-    if dtype != torch.bfloat16 or not round_bf16:
+    if dtype == torch.float32:
+        return f32_plan(N, H, sms)
+    if not round_bf16:
         return None
     return persistent_plan(N, H, sms)
 
@@ -88,14 +103,91 @@ def backward_smem(H, rows, cluster, stages):
     return ring + part + cluster * rows * UNITS * 4 + 16 * stages
 
 
+def s32_ldr(rows):
+    """The row stride (floats) of a k of dgates in S's f32 planes and
+    ring: ``rows``, or rows + 16 where rows is a multiple of 32, so that
+    the 16-byte loads of 8 lanes (4 row groups x 2 k) hit distinct banks
+    (``csrc/lstm_f32.cu:s32_ldr``)."""
+    return rows if rows % 32 else rows + 16
+
+
+def f32_backward_smem(H, rows, k_slices, kc, stages, round_bf16=True):
+    """Shared memory of one CTA of S's f32 kernel (``csrc/lstm_f32.cu:
+    s32_smem``): 8 rows of f32 W_hh (4H x 8), the ring of dgates chunks or
+    the k-slices' partial sums over it, a row of the step's inputs (acts
+    32, c_t and c_prev 8 each in the storage type, g_h 8 f32) per batch
+    row, two mbarriers a slot."""
+    st = 2 if round_bf16 else 4
+    ring = stages * kc * s32_ldr(rows)
+    part = k_slices * rows * S32_LDP
+    return ((4 * H * F32_UNITS + max(ring, part)) * 4
+            + rows * (48 * st + 32) + 16 * stages)
+
+
+def f32_backward_plan(N, H, sms, round_bf16=True):
+    """S's f32 kernel's plan for N batch rows and H hidden units on a card
+    of ``sms`` SMs, or None where W_hh's 8 rows cannot stay in shared
+    memory (H / 8 CTAs beyond the SMs, or the rows and a ring of two
+    chunks beyond 227 KB, as at H 2048): then the step kernel runs. Chosen
+    as A's ``f32_plan`` chooses its own.
+
+    A CTA owns 8 units of every row of a launch: H / 8 CTAs, one an SM,
+    in one cooperative launch per row group of at most 256 rows
+    (``launches``; rows spread evenly). ``rows`` is a launch's row count
+    rounded up to 16 (a warp's tile); ``row_tiles`` = rows / 16 and
+    ``k_slices`` (8, 4, 2 or 1: at most 16 consumer warps; fewer where no
+    chunk of a multiple of 8 x k_slices divides 4H) split the product.
+    The ring takes the widest chunk of k (dividing 4H, a multiple of 8 x
+    k_slices, at most 512) that leaves room for three slots beside W_hh's
+    rows (two where no chunk does), then as many slots as fit, up to 8 and
+    a step's chunks (at least 2)."""
+    if N < 1 or H < 16 or H % 16:
+        raise ValueError(f"kernel S in f32: N {N} and H {H}: N >= 1, H a "
+                         f"multiple of 16")
+    g_u = H // F32_UNITS
+    if g_u > sms:
+        return None
+    G = 4 * H
+    launches = _cdiv(N, S32_MAX_ROWS)
+    n_launch = _cdiv(N, launches)
+    rows = _cdiv(n_launch, 16) * 16
+    tiles = rows // 16
+    ks = next(k for k in (8, 4, 2, 1) if tiles * k <= S32_MAX_WARPS)
+    while ks > 1 and not any(G % kc == 0 for kc in
+                             range(8 * ks, S32_MAX_KC + 1, 8 * ks)):
+        ks //= 2
+    kcs = [kc for kc in range(min(G, S32_MAX_KC), 0, -8)
+           if G % kc == 0 and kc % (8 * ks) == 0]
+    for least in (3, 2):
+        for kc in kcs:
+            top = min(8, max(2, G // kc))
+            if top < least:
+                continue
+            fits = [st for st in range(least, top + 1)
+                    if f32_backward_smem(H, rows, ks, kc, st, round_bf16)
+                    <= SMEM_LIMIT]
+            if fits:
+                stages = max(fits)
+                return {"dtype": "f32", "units": F32_UNITS, "ctas": g_u,
+                        "rows": rows, "row_tiles": tiles, "k_slices": ks,
+                        "warps": tiles * ks + 1,
+                        "threads": (tiles * ks + 1) * 32,
+                        "n_launch": n_launch, "launches": launches,
+                        "kc": kc, "stages": stages, "ldr": s32_ldr(rows),
+                        "smem": f32_backward_smem(H, rows, ks, kc, stages,
+                                                  round_bf16)}
+    return None
+
+
 def backward_plan(N, H, sms, resident, dtype=torch.bfloat16,
                   round_bf16=True):
     """S's plan for N batch rows and H hidden units on a card of ``sms``
     SMs, where ``resident[c]`` CTAs can be resident at once in clusters of
-    c (``CLUSTERS``; ``resident_ctas``); None for an f32 model or f32
-    storage, or where no cluster size fits (H above MAX_H, H / 16 CTAs
-    beyond the SMs, a k-slice no multiple of 16, or the ring beyond the
-    shared memory): then the step kernel runs.
+    c (``CLUSTERS``; ``resident_ctas``): for an f32 model
+    ``f32_backward_plan``; for a bf16 model None where it stores in f32,
+    or where no cluster size fits (H above MAX_H, H / 16 CTAs beyond the
+    SMs, a k-slice no multiple of 16, or the ring beyond the shared
+    memory): then the step kernel runs.
 
     A CTA owns 16 units and one slice of ``rows`` batch rows (16 to 64) in
     the elementwise part; a launch has H / 16 x ``slices`` CTAs and covers
@@ -114,7 +206,9 @@ def backward_plan(N, H, sms, resident, dtype=torch.bfloat16,
     if N < 1 or H < 16 or H % 16:
         raise ValueError(f"kernel S: N {N} and H {H}: N >= 1, H a "
                          f"multiple of 16")
-    if dtype != torch.bfloat16 or not round_bf16 or H > MAX_H:
+    if dtype == torch.float32:
+        return f32_backward_plan(N, H, sms, round_bf16)
+    if not round_bf16 or H > MAX_H:
         return None
     g_u = H // UNITS
     best = None
@@ -250,12 +344,29 @@ def _weights(w_hh):
     return w.clone() if w.data_ptr() % 32 else w  # WMMA loads: 32 bytes
 
 
+def _aligned(x):
+    return x.clone() if x.data_ptr() % 16 else x  # 16-byte copies
+
+
 def lstm_train_forward(xw, w_hh, reverse=False, round_bf16=True):
     """R: ``lstm_train_forward_plain`` for CPU tensors, the kernel for
     CUDA ones (the persistent kernel where ``forward_plan`` takes the
     shape, else the step kernel)."""
     if xw.device.type == "cpu":
         return lstm_train_forward_plain(xw, w_hh, reverse, round_bf16)
+    return _forward(lstm_train_forward, xw, w_hh, reverse, round_bf16)
+
+
+def lstm_train_forward_step(xw, w_hh, reverse=False, round_bf16=True):
+    """R's step kernel whatever the plan, for comparisons; counts no
+    launch."""
+    return _forward(None, xw, w_hh, reverse, round_bf16)
+
+
+def _forward(counter, xw, w_hh, reverse, round_bf16):
+    """R's checks and launch: the persistent kernel of the plan, the step
+    kernel where it is None or where ``counter`` is None (the comparisons'
+    route, which counts nothing)."""
     G, io = 4 * w_hh.shape[0], w_hh.dtype
     T, N, H = _check("R", w_hh, xw=(xw, (io,), G))
     lib = build.library()
@@ -263,19 +374,38 @@ def lstm_train_forward(xw, w_hh, reverse=False, round_bf16=True):
     h = torch.empty(T, N, H, dtype=io, device=dev)
     c = torch.empty(T, N, H, dtype=store, device=dev)
     acts = torch.empty(T, N, G, dtype=store, device=dev)
-    plan = forward_plan(N, H, _sms(dev), io, round_bf16)
-    lstm_train_forward.plan = plan
+    plan = None
+    if counter is not None:
+        plan = forward_plan(N, H, _sms(dev), io, round_bf16)
+        counter.plan = plan
     stream = build.stream_of(xw)
     if plan is None:
         Np = -(-N // ROW_BLOCK) * ROW_BLOCK
         hbuf = torch.zeros(2, Np, H, dtype=io, device=dev)
         cbuf = torch.zeros(N, H, dtype=torch.float32, device=dev)
-        lstm_train_forward.launches += 1
+        if counter is not None:
+            counter.launches += 1
         build.check(lib.lstm_train_fwd(
             xw.data_ptr(), _weights(w_hh).data_ptr(), h.data_ptr(),
             c.data_ptr(), acts.data_ptr(), hbuf.data_ptr(), cbuf.data_ptr(),
             int(io == torch.float32), int(round_bf16), T, N, Np, H,
             int(bool(reverse)), stream), "lstm_train_fwd")
+        return h, c, acts
+    if io == torch.float32:
+        w, xw = _aligned(w_hh.contiguous()), _aligned(xw)
+        rows = plan["rows"]
+        hbuf = torch.empty(2, H, rows + F32_PAD, dtype=io, device=dev)
+        flag = torch.empty(1, dtype=torch.int32, device=dev)
+        for n0 in range(0, N, plan["n_launch"]):
+            hbuf.zero_()
+            flag.zero_()
+            counter.launches += 1
+            build.check(lib.lstm_train_fwd_f32_persistent(
+                xw.data_ptr(), w.data_ptr(), h.data_ptr(), c.data_ptr(),
+                acts.data_ptr(), hbuf.data_ptr(), flag.data_ptr(), T, N, n0,
+                min(plan["n_launch"], N - n0), H, rows, plan["k_slices"],
+                plan["kc"], plan["stages"], int(round_bf16),
+                int(bool(reverse)), stream), "lstm_train_fwd_f32_persistent")
         return h, c, acts
     wt = w_hh.t().contiguous()  # [4H, H]: a gate column's k contiguous
     rows, slices = plan["rows"], plan["slices"]
@@ -284,7 +414,7 @@ def lstm_train_forward(xw, w_hh, reverse=False, round_bf16=True):
     for n0 in range(0, N, plan["n_launch"]):
         hbuf.zero_()
         flags.zero_()
-        lstm_train_forward.launches += 1
+        counter.launches += 1
         build.check(lib.lstm_train_fwd_persistent(
             xw.data_ptr(), wt.data_ptr(), h.data_ptr(), c.data_ptr(),
             acts.data_ptr(), hbuf.data_ptr(), flags.data_ptr(), T, N, n0,
@@ -301,6 +431,19 @@ def lstm_train_backward(w_hh, acts, c, g_h, reverse=False, round_bf16=True):
     if acts.device.type == "cpu":
         return lstm_train_backward_plain(w_hh, acts, c, g_h, reverse,
                                          round_bf16)
+    return _backward(lstm_train_backward, w_hh, acts, c, g_h, reverse,
+                     round_bf16)
+
+
+def lstm_train_backward_step(w_hh, acts, c, g_h, reverse=False,
+                             round_bf16=True):
+    """S's step kernel whatever the plan, for comparisons; counts no
+    launch."""
+    return _backward(None, w_hh, acts, c, g_h, reverse, round_bf16)
+
+
+def _backward(counter, w_hh, acts, c, g_h, reverse, round_bf16):
+    """S's checks and launch, as ``_forward``'s."""
     store, io = _store(round_bf16), w_hh.dtype
     H = w_hh.shape[0]
     T, N, _ = _check("S", w_hh, acts=(acts, (store,), 4 * H),
@@ -308,25 +451,46 @@ def lstm_train_backward(w_hh, acts, c, g_h, reverse=False, round_bf16=True):
     lib = build.library()
     dev = acts.device
     dgates = torch.empty(T, N, 4 * H, dtype=store, device=dev)
-    plan = backward_plan(N, H, _sms(dev), resident_ctas(dev), io, round_bf16)
-    lstm_train_backward.plan = plan
+    plan = None
+    if counter is not None:
+        plan = backward_plan(N, H, _sms(dev), resident_ctas(dev), io,
+                             round_bf16)
+        counter.plan = plan
     stream = build.stream_of(acts)
     if plan is None:
         Np = -(-N // ROW_BLOCK) * ROW_BLOCK
         dgbuf = torch.zeros(2, Np, 4 * H, dtype=io, device=dev)
         dcbuf = torch.zeros(N, H, dtype=torch.float32, device=dev)
-        lstm_train_backward.launches += 1
+        if counter is not None:
+            counter.launches += 1
         build.check(lib.lstm_train_bwd(
             _weights(w_hh).data_ptr(), acts.data_ptr(), c.data_ptr(),
             g_h.data_ptr(), dgates.data_ptr(), dgbuf.data_ptr(),
             dcbuf.data_ptr(), int(io == torch.float32), int(round_bf16), T,
             N, Np, H, int(bool(reverse)), stream), "lstm_train_bwd")
         return dgates
+    if io == torch.float32:
+        w = w_hh.contiguous()
+        acts, c, g_h = _aligned(acts), _aligned(c), _aligned(g_h)
+        gbuf = torch.empty(2, 4 * H, plan["ldr"], dtype=io, device=dev)
+        flag = torch.empty(1, dtype=torch.int32, device=dev)
+        for n0 in range(0, N, plan["n_launch"]):
+            gbuf.zero_()
+            flag.zero_()
+            counter.launches += 1
+            build.check(lib.lstm_train_bwd_f32_persistent(
+                w.data_ptr(), acts.data_ptr(), c.data_ptr(), g_h.data_ptr(),
+                dgates.data_ptr(), gbuf.data_ptr(), flag.data_ptr(), T, N,
+                n0, min(plan["n_launch"], N - n0), H, plan["rows"],
+                plan["k_slices"], plan["kc"], plan["stages"],
+                int(round_bf16), int(bool(reverse)), stream),
+                "lstm_train_bwd_f32_persistent")
+        return dgates
     w = _weights(w_hh)
     flags = torch.empty(plan["slices"], dtype=torch.int32, device=dev)
     for n0 in range(0, N, plan["n_launch"]):
         flags.zero_()
-        lstm_train_backward.launches += 1
+        counter.launches += 1
         build.check(lib.lstm_train_bwd_persistent(
             w.data_ptr(), acts.data_ptr(), c.data_ptr(), g_h.data_ptr(),
             dgates.data_ptr(), flags.data_ptr(), T, N, n0,

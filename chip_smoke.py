@@ -261,7 +261,16 @@ PyTorch built for CUDA. In order, it:
     and ``train --no-amp`` launch (``f32_gaps``: M and Q on f32 full
     scores, R and S in f32, the launches of the sup model's forward and
     decode at evaluate's batch and its K and P in f32), each against its
-    plain version and timed beside its library call where one exists;
+    plain version and timed beside its library call where one exists; R and
+    S in f32 (``f32_train_kernels``, csrc/lstm_f32.cu) at the --no-amp
+    batch (N 16: hac T 500, fast T 600 at H 96), the train CLI's default
+    batch (N 64, T 500) and hac training's (N 128, T 1000) on their
+    persistent kernels (R A's f32 kernel with its stores, its h A's bit for
+    bit; S the layout turned around) against their plain versions and their
+    step kernels, timed in turns with the step kernels, cuDNN's f32 LSTM
+    forward + backward (TF32 off and on) and the port's whole layer on
+    either, and one hac ``--no-amp`` train step at N 16 in turns on the
+    new and the step kernels;
     ``evaluate`` (f32, as bonito_tpu
     loads it) of the hac, fast and an old-style directory on the card (A
     or F in f32, then M and Q; launch counts; at its defaults the new f32
@@ -269,9 +278,10 @@ PyTorch built for CUDA. In order, it:
     chunks (at most F32_EVAL_MAX_DIFFER of them called otherwise; one
     batch's card scores decode alike on both), and on the card again at
     evaluate's defaults (512 chunks in two batches of 256) for its rate; one
-    ``train --no-amp`` epoch of hac and of fast (R and S on their step
-    kernels, then the validation through A or F in f32, U, Y, and B and C
-    on the f32 ring), with the validation's time; the basecaller from
+    ``train --no-amp`` epoch of hac and of fast (R and S on their f32
+    persistent kernels, which it requires, then the validation through A
+    or F in f32, U, Y, and B and C on the f32 ring), with the validation's
+    time; the basecaller from
     phase 12's hac reads to BAM and to CRAM, referenceless and with
     ``--reference`` (a FASTA of the calls), each CRAM's records the BAM's
     (the port's ``CramReader``), with the rates and sizes; ``duplex`` on
@@ -280,7 +290,9 @@ PyTorch built for CUDA. In order, it:
     ``call_basespace_duplex``'s in process, and no kernel launched.
 
 Then it prints one ``kernels`` JSON line with all twenty-six kernels and
-the f32 instances of A, F, B and C (phase 15's f32 paths, evaluate and
+the f32 instances of A, F, B and C and of M, Q, R, S, K and P (R's and
+S's with their plans, their step kernels' times and every RS32_SHAPES
+shape's numbers) (phase 15's f32 paths, evaluate and
 the ``--no-amp`` epochs, in their ``by_path``; every kernel's ``by_path``
 gains all of phase 15's paths) (F's,
 G's and J's with their plans, their earlier kernels' times and the fast
@@ -4355,6 +4367,11 @@ F32_RATE_CHUNKS, F32_RATE_BATCH = 512, 256
 # old-style, NVIDIA H100 80GB HBM3, torch 2.11.0+cu128)
 F32_EVAL_MAX_DIFFER = 0.125
 F32_TRAIN_N, F32_TRAIN_CHUNK, F32_TRAIN_L, F32_TRAIN_BATCHES = 16, 3000, 250, 2
+# R and S in f32, (N, T, H): the --no-amp epochs' batch (F32_TRAIN_N
+# chunks of 3000: hac T 500, fast T 600), the train CLI's default batch
+# (64) and hac training's (128 x 6000: T 1000)
+RS32_SHAPES = {"hac": (F32_TRAIN_N, 500, H), "fast": (F32_TRAIN_N, 600, FH),
+               "cli": (64, 500, H), "hac_train": (128, 1000, H)}
 F32_DUPLEX_THREADS = 2
 
 
@@ -4387,25 +4404,20 @@ def in_turns(torch, fns, reps):
     return times
 
 
-def cudnn_f32(torch, dev, t, n, h, reps, train=False):
+def cudnn_f32(torch, dev, t, n, h, reps):
     """cuDNN's f32 LSTM layer (``torch.nn.LSTM(h, h)``, its projection
-    included) on x [t, n, h], forward (with ``train`` forward + backward):
-    its time with TF32 off (the f32 function: the yardstick) and on
-    (torch's default for cuDNN: its products' operands rounded to 10 bits
-    of mantissa), the setting restored after."""
+    included) on x [t, n, h], forward: its time with TF32 off (the f32
+    function: the yardstick) and on (torch's default for cuDNN: its
+    products' operands rounded to 10 bits of mantissa), the setting
+    restored after. (R's and S's forward + backward: f32_train_kernels.)"""
     g = torch.Generator(device=dev).manual_seed(SEED + 16)
     x = torch.randn(t, n, h, device=dev, generator=g)
     lstm = torch.nn.LSTM(h, h, device=dev)
     lstm.flatten_parameters()
-    g_h = torch.randn(t, n, h, device=dev, generator=g)
 
     def step():
-        if not train:
-            with torch.no_grad():
-                return lstm(x)
-        x.requires_grad_()
-        out, _ = lstm(x)
-        out.backward(g_h)
+        with torch.no_grad():
+            return lstm(x)
     tf32 = torch.backends.cudnn.allow_tf32
     times = {}
     try:
@@ -4596,10 +4608,7 @@ def f32_gaps(torch, dev, counters):
     launch, at their shapes: M and Q on f32 full scores (evaluate's decode:
     256 chunks of 3000 samples, hac T 500 at S 1024, fast T 600 at S 64)
     against their plain versions and earlier kernels (``hold_full``); R and
-    S in f32 (the --no-amp train step: 16 chunks of 3000, hac T 500 H 1024,
-    fast T 600 H 96; c and the activations stored as the path stores them,
-    ``train_supported``) against their plain versions, beside cuDNN's f32
-    LSTM forward + backward with TF32 off and on; and the launches of the
+    S in f32 (``f32_train_kernels``); and the launches of the
     sup model's forward and ``decode_batch`` in f32 at evaluate's batch
     (the shipped sup model, 256 x 3000; called here, not through the
     evaluate CLI), with K's and P's times at that call's inputs beside
@@ -4611,8 +4620,7 @@ def f32_gaps(torch, dev, counters):
     from bonito_tpu_torch.crf import seqdist
     from bonito_tpu_torch.models import MODELS
     from bonito_tpu_torch.ops import (attention_cuda, decode_full_cuda,
-                                      lstm_train_cuda, relayout)
-    from bonito_tpu_torch.ops import lstm as ops_lstm
+                                      relayout)
     from bonito_tpu_torch.transformer import model as transformer
     out = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -4640,60 +4648,7 @@ def f32_gaps(torch, dev, counters):
             f"{tm['bounds'][0][0]:.4g}, {tm['bounds'][1][0]:.4g} ms by "
             f"{tm['bounds'][0][1]}); {h['text']}")
         del scores
-    for key, (n, t, h) in (("RS_hac", (16, 500, H)), ("RS_fast", (16, 600,
-                                                                  FH))):
-        xw = torch.randn(t, n, 4 * h, generator=g, device=dev)
-        w = torch.randn(h, 4 * h, generator=g, device=dev) / math.sqrt(h)
-        g_h = torch.randn(t, n, h, generator=g, device=dev)
-        rb = ops_lstm.train_supported(torch.empty(n, t, h), w)
-        hk, ck, ak = lstm_train_cuda.lstm_train_forward(xw, w, False, rb)
-        dk = lstm_train_cuda.lstm_train_backward(w, ak, ck, g_h, False, rb)
-        plans = (lstm_train_cuda.lstm_train_forward.plan,
-                 lstm_train_cuda.lstm_train_backward.plan)
-        hp, cp, ap = lstm_train_cuda.lstm_train_forward_plain(xw, w, False,
-                                                              rb)
-        dp = lstm_train_cuda.lstm_train_backward_plain(w, ak, ck, g_h, False,
-                                                       rb)
-        err_h = (hk - hp).abs().max().item()
-        err_abs = (dk.float() - dp.float()).abs().max().item()
-        err_d = err_abs / dp.float().abs().max().item()
-        require(torch.isfinite(dk.float()).all().item()
-                and err_h <= LSTM_F32_ATOL and err_d <= LSTM_TRAIN_MAX,
-                f"R and S in f32 at {(n, t, h)}: max |h - plain| {err_h}, "
-                f"dgates {err_d} of the largest")
-        ms_r = cuda_ms(lambda: lstm_train_cuda.lstm_train_forward(
-            xw, w, False, rb), reps=2)
-        ms_s = cuda_ms(lambda: lstm_train_cuda.lstm_train_backward(
-            w, ak, ck, g_h, False, rb), reps=2)
-        plain_r = timed(torch, lambda: lstm_train_cuda.
-                        lstm_train_forward_plain(xw, w, False, rb))[1]
-        plain_s = timed(torch, lambda: lstm_train_cuda.
-                        lstm_train_backward_plain(w, ak, ck, g_h, False,
-                                                  rb))[1]
-        lib, lib_tf32 = cudnn_f32(torch, dev, t, n, h, reps=2, train=True)
-        st = 2 if rb else 4  # c and the activations: bf16 or f32
-        ops = 2 * n * h * 4 * h * t
-        b_r = bound(t * n * 4 * h * 4 + h * 4 * h * 4 + t * n * h * 4
-                    + t * n * 5 * h * st, ops, H100_F32_OPS)
-        b_s = bound(t * n * 5 * h * st + t * n * h * 4 + h * 4 * h * 4
-                    + t * n * 4 * h * st, ops, H100_F32_OPS)
-        out[key] = {"R": dict(ms=ms_r, plain_ms=plain_r, bound_ms=b_r[0],
-                              bound_by=b_r[1], max_abs_err=err_h),
-                    "S": dict(ms=ms_s, plain_ms=plain_s, bound_ms=b_s[0],
-                              bound_by=b_s[1], max_abs_err=err_abs,
-                              err_relative_to_max=err_d),
-                    "library_ms": lib, "library_tf32_ms": lib_tf32,
-                    "shape": [n, t, h], "round_bf16": rb,
-                    "plans": list(plans)}
-        log(f"  R and S in f32, --no-amp train step (N {n}, T {t}, H {h}; "
-            f"c and activations in {'bf16' if rb else 'f32'}; plans "
-            f"{plans}): R {ms_r:.4g} ms, S {ms_s:.4g} ms (plain "
-            f"{plain_r:.4g}, {plain_s:.4g}; bounds {b_r[0]:.4g}, "
-            f"{b_s[0]:.4g} ms by {b_r[1]}); cuDNN f32 forward + backward "
-            f"{lib:.4g} ms with TF32 off ({lib_tf32:.4g} ms with TF32 on); "
-            f"max |h - plain| {err_h:.3g}, dgates {err_d:.3g} of the "
-            f"largest")
-        del xw, w, g_h, hk, ck, ak, dk, hp, cp, ap, dp
+    out.update(f32_train_kernels(torch, dev, counters))
     # the sup model's forward and decode_batch in f32 at evaluate's batch:
     # its launches, and K's and P's inputs (the spies only record them)
     model = transformer.Model(MODELS[SUP]()).init(SEED).to(dev)
@@ -4793,6 +4748,251 @@ def f32_gaps(torch, dev, counters):
     return out
 
 
+class step_kernels:
+    """R and S on their step kernels at every shape (``forward_plan`` and
+    ``backward_plan`` swapped for rules that give no plan), for the
+    comparisons of phase 15; their launches count as on the persistent
+    kernels'."""
+
+    def __init__(self, lstm_train_cuda):
+        self.ctx = (earlier_kernel(lstm_train_cuda, "forward_plan"),
+                    earlier_kernel(lstm_train_cuda, "backward_plan"))
+
+    def __enter__(self):
+        for c in self.ctx:
+            c.__enter__()
+
+    def __exit__(self, *exc):
+        for c in self.ctx:
+            c.__exit__(*exc)
+
+
+def f32_train_kernels(torch, dev, counters):
+    """R and S in f32 (``train --no-amp``) at RS32_SHAPES, c and the
+    activations stored as the path stores them (``train_supported``): the
+    persistent kernels on their f32 plans (R A's ``f32_plan``, S
+    ``f32_backward_plan``; launches and plans checked) against their plain
+    versions and the earlier step kernels (``lstm_train_forward_step``,
+    ``lstm_train_backward_step``): h within LSTM_F32_ATOL and equal to A's
+    f32 kernel bit for bit, the gates' gradient within LSTM_TRAIN_MAX of
+    the largest; timed in turns with the step kernels and cuDNN's f32 LSTM
+    forward + backward (TF32 off: the f32 function, the yardstick; and on),
+    and the port's whole layer (``ops.lstm.lstm_train`` forward + backward:
+    the projection, R, S, dW_hh; what cuDNN's figure covers) on the new
+    kernels and on the step kernels; and one hac ``--no-amp`` train step at
+    F32_TRAIN_N x F32_TRAIN_CHUNK on the new kernels in turns with the step
+    kernels."""
+    from bonito_tpu_torch.crf.model import Model
+    from bonito_tpu_torch.models import lstm_crf_config
+    from bonito_tpu_torch.ops import lstm_cuda, lstm_train_cuda
+    from bonito_tpu_torch.ops import lstm as ops_lstm
+    from bonito_tpu_torch.training import make_optimizer, make_train_step
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fwd, bwd = lstm_train_cuda.lstm_train_forward, \
+        lstm_train_cuda.lstm_train_backward
+    for key, (n, t, h) in RS32_SHAPES.items():
+        xw = torch.randn(t, n, 4 * h, generator=g, device=dev)
+        w = torch.randn(h, 4 * h, generator=g, device=dev) / math.sqrt(h)
+        g_h = torch.randn(t, n, h, generator=g, device=dev)
+        rb = ops_lstm.train_supported(torch.empty(n, t, h), w)
+        before = (fwd.launches, bwd.launches)
+        hk, ck, ak = fwd(xw, w, False, rb)
+        dk = bwd(w, ak, ck, g_h, False, rb)
+        torch.cuda.synchronize()
+        plans = (fwd.plan, bwd.plan)
+        require(plans[0] == lstm_cuda.f32_plan(n, h, sms)
+                and plans[1] == lstm_train_cuda.f32_backward_plan(
+                    n, h, sms, rb) and None not in plans
+                and (fwd.launches - before[0], bwd.launches - before[1])
+                == (plans[0]["launches"], plans[1]["launches"]),
+                f"R and S in f32 at {(n, t, h)}: plans {plans}, launches "
+                f"{fwd.launches - before[0]}, {bwd.launches - before[1]}")
+        a = lstm_cuda.lstm_recurrence(xw, w)
+        same_as_a = bool(torch.equal(hk, a))
+        del a
+        hs, _, _ = lstm_train_cuda.lstm_train_forward_step(xw, w, False, rb)
+        ds = lstm_train_cuda.lstm_train_backward_step(w, ak, ck, g_h, False,
+                                                      rb)
+        (hp, _, _), plain_r = timed(torch, lambda: lstm_train_cuda.
+                                    lstm_train_forward_plain(xw, w, False,
+                                                             rb))
+        dp, plain_s = timed(torch, lambda: lstm_train_cuda.
+                            lstm_train_backward_plain(w, ak, ck, g_h, False,
+                                                      rb))
+        big = dp.float().abs().max().item()
+        err = {"h": (hk - hp).abs().max().item(),
+               "h_step": (hk - hs).abs().max().item(),
+               "d": (dk.float() - dp.float()).abs().max().item(),
+               "d_step": (dk.float() - ds.float()).abs().max().item()}
+        require(same_as_a and torch.isfinite(dk.float()).all().item()
+                and max(err["h"], err["h_step"]) <= LSTM_F32_ATOL
+                and max(err["d"], err["d_step"]) <= LSTM_TRAIN_MAX * big,
+                f"R and S in f32 at {(n, t, h)}: h equal to A's "
+                f"{same_as_a}, max |diff| {err} (largest gradient {big})")
+        del hs, ds, hp, dp
+        # the whole layer, x [N, T, H] -> h, and its backward
+        x = torch.randn(n, t, h, generator=g, device=dev)
+        params = [(torch.randn(h, 4 * h, generator=g, device=dev)
+                   / math.sqrt(h)).requires_grad_(),
+                  w.clone().requires_grad_(),
+                  torch.randn(4 * h, generator=g, device=dev
+                              ).requires_grad_()]
+        x.requires_grad_()
+        g_layer = g_h.transpose(0, 1)
+
+        def layer():
+            ops_lstm.lstm_train(x, *params).backward(g_layer)
+
+        def layer_step():
+            with step_kernels(lstm_train_cuda):
+                layer()
+        lstm = torch.nn.LSTM(h, h, device=dev)
+        lstm.flatten_parameters()
+        xc = torch.randn(t, n, h, generator=g, device=dev,
+                         requires_grad=True)
+
+        def cudnn(on):
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = on
+            try:
+                y, _ = lstm(xc)
+                y.backward(g_h)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+        turns = in_turns(torch, {
+            "R": lambda: fwd(xw, w, False, rb),
+            "R_step": lambda: lstm_train_cuda.lstm_train_forward_step(
+                xw, w, False, rb),
+            "S": lambda: bwd(w, ak, ck, g_h, False, rb),
+            "S_step": lambda: lstm_train_cuda.lstm_train_backward_step(
+                w, ak, ck, g_h, False, rb),
+            "layer": layer, "layer_step": layer_step,
+            "cudnn": lambda: cudnn(False), "cudnn_tf32": lambda: cudnn(True)},
+            reps=1)
+        ms = {k: sum(v) / len(v) for k, v in turns.items()}
+        st = 2 if rb else 4  # c and the activations: bf16 or f32
+        ops = 2 * n * h * 4 * h * t
+        b_r = bound(t * n * 4 * h * 4 + h * 4 * h * 4 + t * n * h * 4
+                    + t * n * 5 * h * st, ops, H100_F32_OPS)
+        b_s = bound(t * n * 5 * h * st + t * n * h * 4 + h * 4 * h * 4
+                    + t * n * 4 * h * st, ops, H100_F32_OPS)
+        # the layer: the projection forward and its two gradients, R, S and
+        # dW_hh, six products of 2 N T H 4H f32 operations
+        b_layer = bound(0, 6 * ops, H100_F32_OPS)
+        out[f"RS_{key}"] = {
+            "R": dict(ms=ms["R"], times=turns["R"],
+                      step_kernel_ms=ms["R_step"],
+                      step_kernel_times=turns["R_step"], plain_ms=plain_r,
+                      bound_ms=b_r[0], bound_by=b_r[1],
+                      max_abs_err=err["h"],
+                      max_abs_err_vs_step_kernel=err["h_step"],
+                      h_equals_a=same_as_a, plan=plans[0]),
+            "S": dict(ms=ms["S"], times=turns["S"],
+                      step_kernel_ms=ms["S_step"],
+                      step_kernel_times=turns["S_step"], plain_ms=plain_s,
+                      bound_ms=b_s[0], bound_by=b_s[1],
+                      max_abs_err=err["d"],
+                      max_abs_err_vs_step_kernel=err["d_step"],
+                      err_relative_to_max=err["d"] / big, plan=plans[1]),
+            "layer_ms": ms["layer"], "layer_times": turns["layer"],
+            "layer_step_kernels_ms": ms["layer_step"],
+            "layer_bound_ms": b_layer[0],
+            "library_ms": ms["cudnn"], "library_times": turns["cudnn"],
+            "library_tf32_ms": ms["cudnn_tf32"],
+            "shape": [n, t, h], "round_bf16": rb, "plans": list(plans)}
+        log(f"  R and S in f32 at (N {n}, T {t}, H {h}; c and activations in "
+            f"{'bf16' if rb else 'f32'}), in turns: R {turns['R']} ms "
+            f"(step kernel {turns['R_step']}), S {turns['S']} ms (step "
+            f"kernel {turns['S_step']}); R + S {ms['R'] + ms['S']:.4g} ms "
+            f"against cuDNN's f32 forward + backward {turns['cudnn']} ms "
+            f"with TF32 off ({turns['cudnn_tf32']} on); the port's whole "
+            f"layer {turns['layer']} ms (on the step kernels "
+            f"{turns['layer_step']}, bound {b_layer[0]:.4g} ms); plain "
+            f"{plain_r:.4g}, {plain_s:.4g} ms; bounds {b_r[0]:.4g}, "
+            f"{b_s[0]:.4g} ms by {b_r[1]}; max |h - plain| {err['h']:.3g} "
+            f"(step kernel {err['h_step']:.3g}, A's h bit for bit "
+            f"{same_as_a}), dgates {err['d'] / big:.3g} of the largest "
+            f"(step kernel {err['d_step'] / big:.3g}); plans {plans}")
+        del xw, w, g_h, hk, ck, ak, dk, x, params, lstm, xc
+        torch.cuda.empty_cache()
+
+    # one hac --no-amp train step at the epochs' batch, in turns with the
+    # step kernels
+    model = Model(lstm_crf_config()).init(SEED).to(dev)
+    step = make_train_step(model, make_optimizer(model, 2e-3), use_amp=False)
+    batch = train_batch(torch, dev, F32_TRAIN_N, F32_TRAIN_CHUNK, F32_TRAIN_L,
+                        SEED)
+
+    def step_ms():
+        step(batch, 1.0, 2.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            step(batch, 1.0, 2.0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    turns = {"step_kernels": [], "new": []}
+    for route in ("step_kernels", "new", "new", "step_kernels"):
+        for c in counters.values():
+            c.launches = 0
+        if route == "new":
+            turns[route].append(step_ms())
+            launched = {k: c.launches for k, c in counters.items()
+                        if c.launches}
+            require(fwd.plan is not None and bwd.plan is not None
+                    and fwd.plan["dtype"] == bwd.plan["dtype"] == "f32",
+                    f"the hac --no-amp step: R's plan {fwd.plan}, S's "
+                    f"{bwd.plan}")
+        else:
+            with step_kernels(lstm_train_cuda):
+                turns[route].append(step_ms())
+    require(launched.get("R") == launched.get("S")
+            == 5 * (TRAIN_STEPS + 1),
+            f"the hac --no-amp step: launches {launched}")
+    out["no_amp_step"] = dict(
+        ms=sum(turns["new"]) / 2, times=turns["new"],
+        step_kernels_ms=sum(turns["step_kernels"]) / 2,
+        step_kernels_times=turns["step_kernels"],
+        batch=[F32_TRAIN_N, F32_TRAIN_CHUNK], launches_per_step={
+            k: v // (TRAIN_STEPS + 1) for k, v in launched.items()})
+    log(f"  one hac train --no-amp step ({F32_TRAIN_N} x {F32_TRAIN_CHUNK}, "
+        f"f32 forward and master weights, AdamW), in turns: "
+        f"{turns['new']} ms on R's and S's f32 persistent kernels, "
+        f"{turns['step_kernels']} ms on their step kernels; launches per "
+        f"step {out['no_amp_step']['launches_per_step']}")
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def rs32_extra(gaps, letter, src_train):
+    """The kernels line's more keys of R or S in f32: its plan and its step
+    kernel's time at the --no-amp batch, every RS32_SHAPES shape's numbers,
+    the port's whole layer, one hac --no-amp train step."""
+    main = gaps["RS_hac"]
+    return {"plan": main[letter]["plan"],
+            "step_kernel_ms": main[letter]["step_kernel_ms"],
+            "earlier_kernel_source": src_train,
+            "max_abs_err_vs_step_kernel":
+                main[letter]["max_abs_err_vs_step_kernel"],
+            "library_call": "torch.nn.LSTM f32 forward + backward, cuDNN, "
+                            "TF32 off (library_tf32_ms: TF32 on)",
+            "layer_ms": main["layer_ms"],
+            "layer_step_kernels_ms": main["layer_step_kernels_ms"],
+            "shapes": {key: {**gaps[f"RS_{key}"][letter],
+                             "shape": gaps[f"RS_{key}"]["shape"],
+                             "library_ms": gaps[f"RS_{key}"]["library_ms"],
+                             "library_tf32_ms":
+                                 gaps[f"RS_{key}"]["library_tf32_ms"],
+                             "layer_ms": gaps[f"RS_{key}"]["layer_ms"],
+                             "layer_step_kernels_ms":
+                                 gaps[f"RS_{key}"]["layer_step_kernels_ms"]}
+                       for key in RS32_SHAPES},
+            "no_amp_step": gaps["no_amp_step"]}
+
+
 def f32_eval_data(path, rows, chunk, seed):
     """An npy training set of ``rows`` chunks of ``chunk`` samples with
     references (as the train CLI reads it)."""
@@ -4820,7 +5020,8 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
     from bonito_tpu_torch.crf.model import Model
     from bonito_tpu_torch.duplex import SeqRecord, call_basespace_duplex
     from bonito_tpu_torch.models import rnn_crf_config
-    from bonito_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_fused_cuda
+    from bonito_tpu_torch.ops import (decode_cuda, lstm_cuda, lstm_fused_cuda,
+                                      lstm_train_cuda)
     from bonito_tpu_torch.util import load_model, revcomp
 
     log("[15] f32 on the card: A and F in f32, B and C on the f32 ring, "
@@ -4977,6 +5178,13 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
                     and decode_cuda.tcn_backward.plan is not None,
                     f"--no-amp validation of {name}: B or C took an earlier "
                     f"kernel")
+            # the epoch's steps ran R and S on their f32 persistent kernels
+            rs = (lstm_train_cuda.lstm_train_forward.plan,
+                  lstm_train_cuda.lstm_train_backward.plan)
+            require(None not in rs and rs[0]["dtype"] == rs[1]["dtype"]
+                    == "f32", f"train --no-amp {name}: R's and S's plans "
+                              f"{rs}")
+            res["plans"] = list(rs)
             res["validation_s"] = valid_time[-1]
             launches[f"f32_train_{name}"] = res["launches"]
             train[name] = res
@@ -6684,12 +6892,12 @@ def main():
             ("decode_full_bwd_f32", "Q", src_full,
              "bonito_tpu/ops/decode_pallas.py:109", gaps["MQ_hac"]["Q"],
              "f32_evaluate_hac", {"fast_shape": gaps["MQ_fast"]["Q"]}),
-            ("lstm_train_fwd_f32", "R", src_train,
+            ("lstm_train_fwd_f32", "R", "bonito_tpu_torch/csrc/lstm_f32.cu",
              "bonito_tpu/ops/lstm_pallas.py:165", gaps["RS_hac"]["R"],
-             "f32_train_hac", {"fast_shape": gaps["RS_fast"]["R"]}),
-            ("lstm_train_bwd_f32", "S", src_train,
+             "f32_train_hac", rs32_extra(gaps, "R", src_train)),
+            ("lstm_train_bwd_f32", "S", "bonito_tpu_torch/csrc/lstm_f32.cu",
              "bonito_tpu/ops/lstm_pallas.py:192", gaps["RS_hac"]["S"],
-             "f32_train_hac", {"fast_shape": gaps["RS_fast"]["S"]}),
+             "f32_train_hac", rs32_extra(gaps, "S", src_train)),
             ("fused_rotary_window_attention_f32", "K", src_attn,
              "bonito_tpu/ops/attention_pallas.py:106", gaps["K"],
              "sup_forward_decode_f32", {}),
@@ -6710,8 +6918,7 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": lib, "dtype": "f32", "launches_path": path,
             "shape": shapes["shape"],
-            **({"library_tf32_ms": gaps["RS_hac"]["library_tf32_ms"],
-                "fast_shape_library_ms": gaps["RS_fast"]["library_ms"]}
+            **({"library_tf32_ms": gaps["RS_hac"]["library_tf32_ms"]}
                if letter in "RS" else {}),
             **({"old_kernel_ms": m["old_kernel_ms"]} if letter in "MQ"
                else {}), **extra})

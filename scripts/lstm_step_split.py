@@ -10,10 +10,13 @@ kernel F, the fast LSTM layer on its mma kernel (``lstm_fused.cu``), at
 fast widths (N=1024, T=1200, C=H=96), or the f32 kernels of A and F
 (``lstm_f32.cu``): A at hac (N=96, T=1666, H=1024) or at N and T given
 after ``a32`` (``evaluate``'s batch: 256 500), F at fast widths or at N and
-T given after ``f32`` (256 500).
+T given after ``f32`` (256 500), or the f32 kernels of R and S
+(``lstm_f32.cu``, ``train --no-amp``) at hac's H 1024 and the --no-amp
+batch (N=16, T=500) or at N, T and H given after ``r32`` or ``s32``.
 
     python3 scripts/lstm_step_split.py [a | d | s [N] | f | a32 [N T] |
-                                        f32 [N T]]
+                                        f32 [N T] | r32 [N T H] |
+                                        s32 [N T H]]
 
 from the root of a checkout, on a machine with a CUDA card and nvcc (``a``
 when no kernel is named). It copies the kernel's sources into
@@ -89,6 +92,27 @@ F32 (``-DF32_CUT=<parts>``, csrc/lstm_f32.cu's F_CUT_* bits):
 - the same kernel with one part of each step left out: the h product, the
   x product (a block's pass), the gate math (the gates' sum is h), the
   step's barrier, the stores of h to the output, and all five.
+
+R32 (``-DA32_CUT=<parts>``: R runs A's f32 kernel with its stores):
+- R's kernel at its plan (``ops.lstm_cuda.f32_plan``), its h checked
+  against A's f32 kernel at that plan (bit for bit) and the plain version
+  (``lstm_train_forward_plain``, T=33, both directions), timed beside A's
+  kernel (what R's stores of c and the activations add) and R's step
+  kernel;
+- the same with one part of each step left out, as A32's.
+
+S32 (``-DS32_CUT=<parts>``, csrc/lstm_f32.cu's S_CUT_* bits), on R's
+output at random xw (c and the activations stored in bf16, as the path
+stores them at these widths):
+- the source at the plan (``ops.lstm_train_cuda.f32_backward_plan``),
+  checked against the plain version (``lstm_train_backward_plain``, T=33,
+  both directions), and at the plan's neighbouring chunk widths, ring
+  depths and k-slice counts where they fit, with S's step kernel's time
+  beside them;
+- the source with one part of each step left out: the producer's wait at
+  the counter, the copies of dgates (and their waits), the product (its
+  partials zeros), the gradient's math (dh is stored in place of the
+  gates' gradient), and all four.
 
 What a part adds is the source's time less the variant's; the variants'
 outputs are wrong by design (or, without the fences or F's barrier,
@@ -411,6 +435,12 @@ PARTS_A32 = {"wait": 1, "load": 2, "products": 4, "gates": 8}
 VARIANTS_A32 = {"source": [], "no wait": ["wait"], "no h loads": ["load"],
                 "no products": ["products"], "no gate math": ["gates"],
                 "none of the four": ["wait", "load", "products", "gates"]}
+PARTS_S32 = {"wait": 1, "load": 2, "products": 4, "elementwise": 8}
+VARIANTS_S32 = {"source": [], "no wait": ["wait"],
+                "no dgates loads": ["load"], "no products": ["products"],
+                "no gradient math": ["elementwise"],
+                "none of the four": ["wait", "load", "products",
+                                     "elementwise"]}
 PARTS_F32 = {"h": 1, "x": 2, "gates": 4, "barrier": 8, "stores": 16}
 VARIANTS_F32 = {"source": [], "no h product": ["h"], "no x product": ["x"],
                 "no gate math": ["gates"], "no barrier": ["barrier"],
@@ -452,7 +482,9 @@ def build_f32(macro, parts, variants, kernel_re):
             if m:
                 kernel = None
         lib = ctypes.CDLL(str(out / f"lib_{i}.so"))
-        for entry in ("lstm_recurrence_f32_persistent", "lstm_fused_f32_rows"):
+        for entry in ("lstm_recurrence_f32_persistent", "lstm_fused_f32_rows",
+                      "lstm_train_fwd_f32_persistent",
+                      "lstm_train_bwd_f32_persistent"):
             getattr(lib, entry).argtypes = build.SIGNATURES[entry]
         libs[name] = lib
     return libs
@@ -515,6 +547,145 @@ def split_a32(card, dev, N=96, T=1666):
     base = None
     for name in VARIANTS_A32:
         ms = ms_of(lambda: run(name, plan, xw))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {(base - ms) / T * 1e3:.3g} us")
+        print(f"  at the plan, {name}: {ms:.4g} ms a layer = "
+              f"{ms / T * 1e3:.4g} us a step{more}", flush=True)
+
+
+def split_r32(card, dev, N=16, T=500, H=1024):
+    libs = build_f32("A32_CUT", PARTS_A32, VARIANTS_A32, "lstm_a32_kernel")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(1)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(dev)
+    w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev)
+    plan = lstm_cuda.f32_plan(N, H, sms)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, xs, reverse=0, train=True):
+        t_len = xs.shape[0]
+        h = torch.empty(t_len, N, H, device=dev)
+        c = torch.empty(t_len, N, H, dtype=torch.bfloat16, device=dev)
+        acts = torch.empty(t_len, N, 4 * H, dtype=torch.bfloat16, device=dev)
+        hbuf = torch.empty(2, H, plan["rows"] + lstm_cuda.F32_PAD,
+                           device=dev)
+        flag = torch.empty(1, dtype=torch.int32, device=dev)
+        for n0 in range(0, N, plan["n_launch"]):
+            hbuf.zero_()
+            flag.zero_()
+            args = (t_len, N, n0, min(plan["n_launch"], N - n0), H,
+                    plan["rows"], plan["k_slices"], plan["kc"],
+                    plan["stages"])
+            if train:
+                rc = libs[name].lstm_train_fwd_f32_persistent(
+                    xs.data_ptr(), w.data_ptr(), h.data_ptr(), c.data_ptr(),
+                    acts.data_ptr(), hbuf.data_ptr(), flag.data_ptr(), *args,
+                    1, reverse, stream)
+            else:
+                rc = libs[name].lstm_recurrence_f32_persistent(
+                    xs.data_ptr(), w.data_ptr(), h.data_ptr(),
+                    hbuf.data_ptr(), flag.data_ptr(), *args, reverse, stream)
+            build.check(rc, name)
+        return h, c, acts
+
+    print(f"{card}; kernel R in f32, N={N}, T={T}, H={H}; plan {plan}",
+          flush=True)
+    x33 = xw[:33].contiguous()
+    for reverse in (0, 1):
+        h, c, acts = run("source", x33, reverse)
+        a, _, _ = run("source", x33, reverse, train=False)
+        ref = lstm_train_cuda.lstm_train_forward_plain(x33, w, bool(reverse))
+        diffs = [(v.float() - r.float()).abs().max().item()
+                 for v, r in zip((h, c, acts), ref)]
+        print(f"  reverse={reverse}: h equal to A's bit for bit "
+              f"{torch.equal(h, a)}; max |h - plain| {diffs[0]:.3g}, c "
+              f"{diffs[1]:.3g}, acts {diffs[2]:.3g} (bf16; T=33)",
+              flush=True)
+        if not torch.equal(h, a):
+            raise RuntimeError("lstm_step_split: R's h differs from A's")
+    ms = ms_of(lambda: lstm_train_cuda.lstm_train_forward_step(xw, w))
+    print(f"  R's step kernel: {ms:.4g} ms a layer = {ms / T * 1e3:.4g} us "
+          f"a step", flush=True)
+    ms = ms_of(lambda: run("source", xw, train=False))
+    print(f"  A's f32 kernel at the plan (no stores): {ms:.4g} ms a layer = "
+          f"{ms / T * 1e3:.4g} us a step", flush=True)
+    base = None
+    for name in VARIANTS_A32:
+        ms = ms_of(lambda: run(name, xw))
+        base = ms if base is None else base
+        more = "" if name == "source" else (
+            f"; the part(s) left out add {(base - ms) / T * 1e3:.3g} us")
+        print(f"  R at the plan, {name}: {ms:.4g} ms a layer = "
+              f"{ms / T * 1e3:.4g} us a step{more}", flush=True)
+
+
+def split_s32(card, dev, N=16, T=500, H=1024):
+    libs = build_f32("S32_CUT", PARTS_S32, VARIANTS_S32, "lstm_s32_kernel")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(1)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(dev)
+    w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev)
+    g_h = torch.randn(T, N, H, generator=g).to(dev)
+    _, c, acts = lstm_train_cuda.lstm_train_forward(xw, w)
+    plan = lstm_train_cuda.f32_backward_plan(N, H, sms)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, pl, t_len=T, reverse=0):
+        a, cs, gh = (v[:t_len].contiguous() for v in (acts, c, g_h))
+        dg = torch.empty(t_len, N, 4 * H, dtype=torch.bfloat16, device=dev)
+        gbuf = torch.empty(2, 4 * H, pl["ldr"], device=dev)
+        flag = torch.empty(1, dtype=torch.int32, device=dev)
+        for n0 in range(0, N, pl["n_launch"]):
+            gbuf.zero_()
+            flag.zero_()
+            build.check(libs[name].lstm_train_bwd_f32_persistent(
+                w.data_ptr(), a.data_ptr(), cs.data_ptr(), gh.data_ptr(),
+                dg.data_ptr(), gbuf.data_ptr(), flag.data_ptr(), t_len, N,
+                n0, min(pl["n_launch"], N - n0), H, pl["rows"],
+                pl["k_slices"], pl["kc"], pl["stages"], 1, reverse, stream),
+                name)
+        return dg
+
+    print(f"{card}; kernel S in f32, N={N}, T={T}, H={H}; plan {plan}",
+          flush=True)
+    for reverse in (0, 1):
+        out = run("source", plan, 33, reverse)
+        ref = lstm_train_cuda.lstm_train_backward_plain(
+            w, acts[:33], c[:33], g_h[:33], bool(reverse))
+        big = ref.float().abs().max().item()
+        diff = (out.float() - ref.float()).abs().max().item()
+        print(f"  reverse={reverse}: max |dgates - plain| {diff:.3g}, "
+              f"{diff / big:.3g} of the largest (T=33)", flush=True)
+    ms = ms_of(lambda: lstm_train_cuda.lstm_train_backward_step(w, acts, c,
+                                                                g_h))
+    print(f"  S's step kernel: {ms:.4g} ms a layer = {ms / T * 1e3:.4g} us "
+          f"a step", flush=True)
+    # the plan's neighbours: chunks half and twice as wide, rings one slot
+    # deeper and shallower, half and twice the k-slices, where the C entry
+    # takes them
+    G, ks0 = 4 * H, plan["k_slices"]
+    others = {(plan["kc"] // 2, plan["stages"], ks0),
+              (plan["kc"] * 2, plan["stages"], ks0),
+              (plan["kc"], plan["stages"] + 1, ks0),
+              (plan["kc"], plan["stages"] - 1, ks0),
+              (plan["kc"], plan["stages"], ks0 // 2),
+              (plan["kc"], plan["stages"], ks0 * 2)}
+    for kc, stages, ks in sorted(others):
+        other = {**plan, "kc": kc, "stages": stages, "k_slices": ks}
+        if (not 1 <= ks <= 8 or plan["row_tiles"] * ks > 16 or kc % (8 * ks)
+                or G % kc or not 2 <= stages <= 8
+                or lstm_train_cuda.f32_backward_smem(
+                    H, plan["rows"], ks, kc, stages)
+                > lstm_train_cuda.SMEM_LIMIT):
+            continue
+        ms = ms_of(lambda: run("source", other))
+        print(f"  chunks of {kc} k, {stages} slots, {ks} k-slices: "
+              f"{ms:.4g} ms a layer = {ms / T * 1e3:.4g} us a step",
+              flush=True)
+    base = None
+    for name in VARIANTS_S32:
+        ms = ms_of(lambda: run(name, plan))
         base = ms if base is None else base
         more = "" if name == "source" else (
             f"; the part(s) left out add {(base - ms) / T * 1e3:.3g} us")
@@ -785,7 +956,7 @@ def split_s(card, dev, N=128):
 
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "a"
-    kinds = (*MODES, "f", "a32", "f32")
+    kinds = (*MODES, "f", "a32", "f32", "r32", "s32")
     if mode not in kinds:
         print(f"lstm_step_split: a kernel of {sorted(kinds)}, not "
               f"{mode!r}", file=sys.stderr)
@@ -807,6 +978,9 @@ def main():
     elif mode in ("a32", "f32"):
         shape = [int(n) for n in sys.argv[2:4]]
         (split_a32 if mode == "a32" else split_f32)(card, dev, *shape)
+    elif mode in ("r32", "s32"):
+        shape = [int(n) for n in sys.argv[2:5]]
+        (split_r32 if mode == "r32" else split_s32)(card, dev, *shape)
     else:
         split_s(card, dev, *(int(n) for n in sys.argv[2:3]))
     return 0

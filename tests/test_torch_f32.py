@@ -12,7 +12,9 @@ route) as bonito_tpu's; and one f32 train step followed by its validation
 parameters. The new f32 kernels of A and F (``csrc/lstm_f32.cu``) with
 their sums emulated in the kernels' order, against the plain versions and
 bonito_tpu's ``lstm_pallas`` and ``lstm_pallas_fused`` in interpret
-mode."""
+mode; and S's f32 kernel (``csrc/lstm_f32.cu``), its sums emulated in
+its order, against its plain version and bonito_tpu's ``lstm_pallas_train``
+gradient in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -30,18 +32,27 @@ from bonito_tpu.crf.seqdist import CTC_CRF as JaxCRF
 from bonito_tpu.models import lstm_crf_config
 from bonito_tpu.ops import decode_pallas
 from bonito_tpu.ops.lstm import lstm_scan
-from bonito_tpu.ops.lstm_pallas import lstm_pallas, lstm_pallas_fused
+from bonito_tpu.ops.lstm_pallas import (lstm_pallas, lstm_pallas_fused,
+                                       lstm_pallas_train)
 from bonito_tpu_torch import checkpoint, training
 from bonito_tpu_torch.cli import evaluate as port_evaluate
 from bonito_tpu_torch.crf.model import Model
 from bonito_tpu_torch.crf.seqdist import CTC_CRF
-from bonito_tpu_torch.ops import decode, lstm_cuda, lstm_fused_cuda
+from bonito_tpu_torch.ops import (decode, lstm_cuda, lstm_fused_cuda,
+                                  lstm_train_cuda)
 from bonito_tpu_torch.ops.lstm import lstm, small_h
 
 from test_torch_ctc_cli import npy_dir, report, run_evaluate
 from test_torch_train import LR, _batch, _model_pair, jax_kernels  # noqa: F401
 
 LSTM_TOL = 1e-5  # the LSTM recurrence, f32 against f32 (ROADMAP)
+# the gates' gradient: with c, the activations and the gradient stored in
+# bf16 an f32 sum in another order can round to the neighbouring bf16 value
+# (and move the steps after it): within GRAD_STEPS bf16 steps of the
+# largest entry, as tests/test_torch_lstm_train.py holds the port to
+# bonito_tpu; stored in f32, within GRAD_F32 of the largest entry (f32
+# sums of 4H terms in another order, carried back over the steps)
+GRAD_STEPS, GRAD_F32 = 2, 1e-5
 ALPHABET = ["N", "A", "C", "G", "T"]
 
 
@@ -362,3 +373,100 @@ def test_f32_kernel_f_order_of_sums_matches_plain_and_pallas(N, C, H, reverse,
                             reverse=reverse, interpret=True)
     np.testing.assert_allclose(out.transpose(0, 1).numpy(), np.asarray(ref),
                                rtol=0, atol=LSTM_TOL)
+
+
+def _s32_emulated(w_hh, acts, c, g_h, plan, reverse, round_bf16):
+    """csrc/lstm_f32.cu's kernel S on ``plan``: lane (k-slice s, k lane l)
+    of the consumer warps sums, one fmaf a k, every 8th k of each chunk's
+    kc / k_slices k from ch kc + s kc / k_slices + l, in order; the 8 k
+    lanes' sums meet in the shuffle tree ((l0 + l4) + (l2 + l6)) + ((l1 +
+    l5) + (l3 + l7)), the k-slices' sums are added in slice order, then
+    g_h; the gradient's math in f32, stored in bf16 (``round_bf16``) or
+    f32, the product's next input in f32."""
+    T, N, G = acts.shape
+    H = G // 4
+    ks, kc = plan["k_slices"], plan["kc"]
+    kn = kc // ks
+    # the k each (slice, lane) sums, in its order: [ks, 8, positions]
+    order = torch.tensor([[[ch * kc + s * kn + lane + 8 * i
+                            for ch in range(G // kc)
+                            for i in range(kn // 8)]
+                           for lane in range(8)] for s in range(ks)])
+    store = torch.bfloat16 if round_bf16 else torch.float32
+    dgates = torch.empty(T, N, G, dtype=store)
+    dc = torch.zeros(N, H)
+    prev = None  # the previous step's f32 dgates
+    steps = list(range(T) if reverse else range(T - 1, -1, -1))
+    for j, t in enumerate(steps):
+        dh = torch.zeros(N, H)
+        if prev is not None:
+            acc = torch.zeros(ks, 8, N, H)
+            for pos in range(order.shape[2]):
+                k = order[:, :, pos]                       # [ks, 8]
+                a = prev[:, k].permute(1, 2, 0)[..., None]  # [ks, 8, N, 1]
+                b = w_hh[:, k].permute(1, 2, 0)[:, :, None]  # [ks, 8, 1, H]
+                acc = _fma(acc, a, b)
+            q = acc[:, :4] + acc[:, 4:]
+            r = q[:, :2] + q[:, 2:]
+            part = r[:, 0] + r[:, 1]                       # [ks, N, H]
+            dh = part[0]
+            for s in range(1, ks):
+                dh = dh + part[s]
+        dh = dh + g_h[t].float()
+        a = acts[t].float()
+        i, f, g, o = (a[:, q * H:(q + 1) * H] for q in range(4))
+        tc = torch.tanh(c[t].float())
+        cp = (torch.zeros(N, H) if j == T - 1
+              else c[t + 1 if reverse else t - 1].float())
+        do = dh * tc
+        dcv = dc + dh * o * (1.0 - tc * tc)
+        prev = torch.cat([dcv * g * i * (1.0 - i), dcv * cp * f * (1.0 - f),
+                          dcv * i * (1.0 - g * g), do * o * (1.0 - o)], 1)
+        dgates[t] = prev.to(store)
+        dc = dcv * f
+    return dgates
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("N,H,chunks", [(16, 32, "plan"), (40, 64, "plan"),
+                                        (40, 64, "narrow"), (9, 48, "narrow")])
+def test_s32_order_of_sums_matches_plain_and_lstm_pallas_train(
+        N, H, chunks, round_bf16, reverse):
+    """Kernel S's f32 persistent kernel, its sums emulated in their order
+    on its plan (or with the narrowest chunks the plan's k-slices allow, so
+    that each sum runs over several chunks), on R's plain output: against
+    S's plain version within GRAD_STEPS bf16 steps of the largest gradient
+    where stored in bf16 and within GRAD_F32 of it in f32; and, stored in
+    bf16 as bonito_tpu stores it, against the gradient of bonito_tpu's
+    ``lstm_pallas_train`` in f32 in interpret mode (``jax.vjp`` through an
+    identity projection, so that the input's gradient is the gates') within
+    GRAD_STEPS bf16 steps of the largest."""
+    x, _, w_hh, _ = _layer(N + H + reverse, N, 6, 4 * H, H)
+    rng = np.random.default_rng(N + H)
+    g = rng.normal(size=(N, 6, H)).astype(np.float32)
+    plan = lstm_train_cuda.f32_backward_plan(N, H, 132, round_bf16)
+    if chunks == "narrow":
+        plan = {**plan, "kc": 8 * plan["k_slices"]}
+    assert (4 * H) % plan["kc"] == 0 and 4 * H // plan["kc"] >= (
+        2 if chunks == "narrow" else 1)
+    xw = torch.from_numpy(x).transpose(0, 1).contiguous()
+    w = torch.from_numpy(w_hh)
+    g_h = torch.from_numpy(g).transpose(0, 1).contiguous()
+    _, c, acts = lstm_train_cuda.lstm_train_forward_plain(xw, w, reverse,
+                                                          round_bf16)
+    out = _s32_emulated(w, acts, c, g_h, plan, reverse, round_bf16).float()
+    plain = lstm_train_cuda.lstm_train_backward_plain(
+        w, acts, c, g_h, reverse, round_bf16).float()
+    big = plain.abs().max().item()
+    tol = GRAD_STEPS * 2.0 ** -7 * big if round_bf16 else GRAD_F32 * big
+    torch.testing.assert_close(out, plain, rtol=0, atol=tol)
+    if not round_bf16:
+        return
+    eye = np.eye(4 * H, dtype=np.float32)
+    _, vjp = jax.vjp(lambda a: lstm_pallas_train(
+        a, jnp.asarray(eye), jnp.asarray(w_hh), None, reverse=reverse,
+        interpret=True), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(g))[0]).transpose(1, 0, 2)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=GRAD_STEPS * 2.0 ** -7 * big)

@@ -1655,6 +1655,11 @@ def test_loss_kernels_reject_what_they_do_not_take(cuda):
 # clusters of 1 or 2): at H 96 a warp's share of 4H / 2 columns is no
 # whole number of k-steps
 H100_RESIDENT = {1: 132, 2: 132}
+# S in f32 against its plain version and its step kernel: the gradient of
+# the gates as chip_smoke.py holds it, within 2^-6 of the largest entry (an
+# f32 sum of 4H terms in another order; stored in bf16, a value can round
+# to its neighbour and move the steps after it)
+LSTM_TRAIN_MAX = 2.0 ** -6
 H100_CLUSTER = {(40, 64): 2, (128, 96): 1, (128, 1024): 2, (64, 1024): 2,
                 (32, 1024): 2, (200, 1024): 2}
 
@@ -1681,7 +1686,9 @@ def test_lstm_train_kernels_match_plain(cuda, N, T, H, reverse, round_bf16,
     storage of a bf16 model where they fit, else the step kernels, which
     also run an f32 model with f32 products), with the launches that branch
     counts and the plan it ran; on an H100, S in each of its cluster
-    sizes. Where R runs A's plan, its h is A's bit for bit."""
+    sizes. An f32 model takes the f32 persistent kernels (``f32_plan``,
+    ``f32_backward_plan``) in either storage, a bf16 model storing in f32
+    the step kernels. Where R runs A's plan, its h is A's bit for bit."""
     g = torch.Generator().manual_seed(N + T + H)
     xw = torch.randn(T, N, 4 * H, generator=g).to(cuda, dtype)
     w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(cuda, dtype)
@@ -1691,13 +1698,19 @@ def test_lstm_train_kernels_match_plain(cuda, N, T, H, reverse, round_bf16,
     bplan = lstm_train_cuda.backward_plan(
         N, H, sms, lstm_train_cuda.resident_ctas(cuda), dtype, round_bf16)
     bf16 = dtype == torch.bfloat16 and round_bf16
-    assert (fplan is not None) == (bf16 and H != 2048)
-    # S: a warp's k-slice of 4H / cluster columns is no multiple of 16 at
-    # H 16; H 2048 is beyond the registers that hold W_hh's block
-    assert (bplan is not None) == (bf16 and H not in (16, 2048))
+    f32 = dtype == torch.float32
+    # H 2048: W_hh's slice (bf16 and f32) is beyond the shared memory
+    assert (fplan is not None) == ((bf16 or f32) and H != 2048)
+    # S in bf16: a warp's k-slice of 4H / cluster columns is no multiple
+    # of 16 at H 16; H 2048 is beyond the registers that hold W_hh's block
+    # (bf16) and the shared memory that holds its 8 rows (f32)
+    assert (bplan is not None) == ((bf16 and H not in (16, 2048))
+                                   or (f32 and H != 2048))
     for plan in (fplan, bplan):
-        assert plan is None or plan["launches"] == (2 if N == 200 else 1)
-    if bplan is not None and lstm_train_cuda.resident_ctas(cuda) \
+        # the f32 plans take up to 256 rows a launch
+        assert plan is None or plan["launches"] == (
+            2 if N == 200 and bf16 else 1)
+    if bf16 and bplan is not None and lstm_train_cuda.resident_ctas(cuda) \
             == H100_RESIDENT:
         assert bplan["cluster"] == H100_CLUSTER[N, H]
     before = (lstm_train_cuda.lstm_train_forward.launches,
@@ -1734,6 +1747,123 @@ def test_lstm_train_kernels_match_plain(cuda, N, T, H, reverse, round_bf16,
     torch.testing.assert_close(dg.float(), ref_dg.float(), rtol=0,
                                atol=2 * 2.0 ** -7 * big)
     assert bool(torch.isfinite(dg.float()).all())
+
+
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N", [16, 64, 300])
+@pytest.mark.parametrize("H", [96, 768, 1024])
+def test_f32_train_kernels_match_plain_and_step_kernels(cuda, H, N, reverse,
+                                                        round_bf16):
+    """R and S in f32 (an f32 model's train step, ``train --no-amp``) on
+    their persistent kernels (``csrc/lstm_f32.cu``): the plans that ran
+    (R A's ``f32_plan``, S ``f32_backward_plan``; two row groups at N 300)
+    and the launches counted; R's h equal to kernel A's f32 kernel bit for
+    bit (the same plan), within LSTM_F32_ATOL of the plain version and of
+    R's step kernel; c and the activations within one bf16 step of the
+    plain version's where stored in bf16 (an f32 sum in another order can
+    round to the neighbouring value), within LSTM_F32_ATOL (c: of its
+    largest magnitude) in f32; S's gradient on R's own output within
+    LSTM_TRAIN_MAX of the largest entry of the plain version's and of S's
+    step kernel's on the same tensors (``lstm_train_backward_step``, which
+    counts nothing)."""
+    T = 17
+    g = torch.Generator().manual_seed(N + H + 2 * reverse + round_bf16)
+    xw = torch.randn(T, N, 4 * H, generator=g).to(cuda)
+    w_hh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(cuda)
+    g_h = torch.randn(T, N, H, generator=g).to(cuda)
+    sms = _sms(cuda)
+    fplan = lstm_cuda.f32_plan(N, H, sms)
+    bplan = lstm_train_cuda.f32_backward_plan(N, H, sms, round_bf16)
+    assert fplan is not None and bplan is not None
+    assert fplan["launches"] == bplan["launches"] == (2 if N == 300 else 1)
+    before = (lstm_train_cuda.lstm_train_forward.launches,
+              lstm_train_cuda.lstm_train_backward.launches)
+    h, c, acts = lstm_train_cuda.lstm_train_forward(xw, w_hh, reverse,
+                                                    round_bf16)
+    dg = lstm_train_cuda.lstm_train_backward(w_hh, acts, c, g_h, reverse,
+                                             round_bf16)
+    torch.cuda.synchronize()
+    assert (lstm_train_cuda.lstm_train_forward.launches,
+            lstm_train_cuda.lstm_train_backward.launches) == (
+        before[0] + fplan["launches"], before[1] + bplan["launches"])
+    assert lstm_train_cuda.lstm_train_forward.plan == fplan
+    assert lstm_train_cuda.lstm_train_backward.plan == bplan
+    step_h, _, _ = lstm_train_cuda.lstm_train_forward_step(
+        xw, w_hh, reverse, round_bf16)
+    step_dg = lstm_train_cuda.lstm_train_backward_step(
+        w_hh, acts, c, g_h, reverse, round_bf16)
+    a = lstm_cuda.lstm_recurrence(xw, w_hh, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_train_cuda.lstm_train_forward.launches == before[0] + \
+        fplan["launches"]  # the step kernels count nothing
+    assert lstm_cuda.lstm_recurrence.plan == fplan
+    assert torch.equal(h, a)
+    store = torch.bfloat16 if round_bf16 else torch.float32
+    assert h.dtype == torch.float32 and c.dtype == acts.dtype == store
+    assert dg.dtype == store
+    ref_h, ref_c, ref_a = lstm_train_cuda.lstm_train_forward_plain(
+        xw, w_hh, reverse, round_bf16)
+    torch.testing.assert_close(h, ref_h, rtol=0, atol=LSTM_F32_ATOL)
+    torch.testing.assert_close(h, step_h, rtol=0, atol=LSTM_F32_ATOL)
+    big_c = max(1.0, ref_c.float().abs().max().item())
+    if round_bf16:
+        torch.testing.assert_close(acts.float(), ref_a.float(),
+                                   rtol=2.0 ** -7, atol=1e-6)
+        torch.testing.assert_close(c.float(), ref_c.float(), rtol=2.0 ** -7,
+                                   atol=1e-6)
+    else:
+        torch.testing.assert_close(acts, ref_a, rtol=0, atol=LSTM_F32_ATOL)
+        torch.testing.assert_close(c, ref_c, rtol=0,
+                                   atol=LSTM_F32_ATOL * big_c)
+    ref_dg = lstm_train_cuda.lstm_train_backward_plain(
+        w_hh, acts, c, g_h, reverse, round_bf16).float()
+    big = ref_dg.abs().max().item()
+    assert bool(torch.isfinite(dg.float()).all())
+    for other in (ref_dg, step_dg.float()):
+        torch.testing.assert_close(dg.float(), other, rtol=0,
+                                   atol=LSTM_TRAIN_MAX * big)
+
+
+def _s32_entry(N, H, plan, **layout):
+    """S's f32 C entry on zero inputs at ``plan`` with ``layout``'s fields
+    changed: its return code."""
+    pl = {**plan, **layout}
+    T, G = 3, 4 * H
+    cuda = torch.device("cuda")
+    acts = torch.zeros(T, N, G, device=cuda, dtype=torch.bfloat16)
+    c = torch.zeros(T, N, H, device=cuda, dtype=torch.bfloat16)
+    g_h = torch.zeros(T, N, H, device=cuda)
+    w = torch.zeros(H, G, device=cuda)
+    dg = torch.empty_like(acts)
+    gbuf = torch.zeros(2, G, lstm_train_cuda.s32_ldr(pl["rows"]),
+                       device=cuda)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    return build.library().lstm_train_bwd_f32_persistent(
+        w.data_ptr(), acts.data_ptr(), c.data_ptr(), g_h.data_ptr(),
+        dg.data_ptr(), gbuf.data_ptr(), flag.data_ptr(), T, N, 0, N, H,
+        pl["rows"], pl["k_slices"], pl["kc"], pl["stages"], 1, 0,
+        build.stream_of(acts))
+
+
+@pytest.mark.parametrize("layout", [
+    {"k_slices": 3}, {"k_slices": 16}, {"kc": 48}, {"kc": 96},
+    {"stages": 1}, {"stages": 9}, {"rows": 8}, {"rows": 24},
+    {"rows": 272}, {"rows": 160, "k_slices": 2},
+    {"kc": 512, "stages": 8}])
+def test_s32_entry_refuses_another_layout(cuda, layout):
+    """S's f32 C entry takes the plan as given and refuses (cudaError
+    InvalidValue, 1) k-slices other than 1, 2, 4, 8, more than 16 consumer
+    warps, chunks that do not divide 4H or a k-slice's share into 8, a
+    ring outside 2 to 8 slots, rows that are no multiple of 16, fewer than
+    the launch's or beyond 256, and shared memory beyond 227 KB; the plan
+    itself runs. (Where the plans give none, as at H 2048, R and S run
+    their step kernels: ``test_lstm_train_kernels_match_plain``.)"""
+    N, H = 16, 1024
+    plan = lstm_train_cuda.f32_backward_plan(N, H, _sms(cuda))
+    assert _s32_entry(N, H, plan) == 0
+    torch.cuda.synchronize()
+    assert _s32_entry(N, H, plan, **layout) == 1
 
 
 @pytest.mark.parametrize("use_amp", [True, False])

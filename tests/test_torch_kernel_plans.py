@@ -22,7 +22,10 @@ for bit, and the head dim L's bf16 instance runs at; that A's f32
 persistent kernel (``ops.lstm_cuda.f32_plan``) fits, gives None where
 W_hh's f32 slice cannot be held, and its CTAs, warps and chunks cover
 every row, unit and k once, and that F's f32 kernel (``ops.
-lstm_fused_cuda.f32_plan``) fills the card and fits. Each is what the
+lstm_fused_cuda.f32_plan``) fills the card and fits, and that S's f32
+persistent kernel (``ops.lstm_train_cuda.f32_backward_plan``) fits, gives
+None where W_hh's 8 f32 rows cannot be held, and its CTAs, warps and lanes
+cover every row, unit and k once. Each is what the
 wrapper passes to its kernel. They run here, on the CPU; the kernels
 themselves, and L's tiling, which is fixed in the kernel, only on the card
 (tests/test_torch_gpu.py)."""
@@ -170,12 +173,20 @@ def test_forward_plan_is_a_plan_at_hac_training():
                                               (torch.float32, False),
                                               (torch.bfloat16, False)])
 def test_train_plans_send_f32_to_the_step_kernels(dtype, round_bf16):
-    """An f32 model (W_hh's f32 slice is 256 KB at hac) and c, the gates
-    and their gradient stored in f32 take the step kernels."""
-    assert lstm_train_cuda.forward_plan(128, 1024, SMS, dtype,
-                                        round_bf16) is None
-    assert lstm_train_cuda.backward_plan(128, 1024, SMS, RESIDENT, dtype,
-                                         round_bf16) is None
+    """An f32 model runs R on kernel A's f32 plan (``lstm_cuda.f32_plan``)
+    and S on its own f32 plan (``f32_backward_plan``), c, the gates and
+    their gradient stored in bf16 or f32 alike; a bf16 model that stores
+    them in f32 takes the step kernels."""
+    fplan = lstm_train_cuda.forward_plan(128, 1024, SMS, dtype, round_bf16)
+    bplan = lstm_train_cuda.backward_plan(128, 1024, SMS, RESIDENT, dtype,
+                                          round_bf16)
+    if dtype == torch.bfloat16:
+        assert fplan is None and bplan is None
+        return
+    assert fplan == lstm_cuda.f32_plan(128, 1024, SMS)
+    assert bplan is not None
+    assert bplan == lstm_train_cuda.f32_backward_plan(128, 1024, SMS,
+                                                      round_bf16)
 
 
 @pytest.mark.parametrize("N,H", [(128, 1536), (128, 2048), (8, 4096),
@@ -1567,3 +1578,110 @@ def test_f32_plan_of_kernel_f_refuses_what_f_does_not_take(N, C, H):
         lstm_fused_cuda.f32_plan(N, C, H, SMS)
     with pytest.raises(ValueError, match="kernel F"):
         lstm_fused_cuda.f32_old_layout(N, C, H)
+
+
+# ---------------------------------------------------------------------------
+# S in f32 (csrc/lstm_f32.cu)
+# ---------------------------------------------------------------------------
+
+# (N, H): the --no-amp batch (16), the train CLI's default batch (64), hac
+# training's (128), two row groups (300), at hac's, the old-style model's
+# and fast's H, and narrow H
+S32_SHAPES = [(N, H) for N in (16, 64, 128, 300) for H in (96, 768, 1024)
+              ] + [(8, 16), (33, 48), (1, 1024), (256, 1024), (513, 96)]
+
+
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("N,H", S32_SHAPES)
+def test_f32_backward_plan_fits_the_card(N, H, round_bf16):
+    """What the C entry (``csrc/lstm_f32.cu:lstm_train_bwd_f32_persistent``)
+    takes: H / 8 CTAs within the SMs, a launch's rows in warp tiles of 16
+    (at most 256), k-slices 1, 2, 4 or 8 with at most 16 consumer warps and
+    a producer, chunks dividing 4H in multiples of 8 k a k-slice, 2 to 8
+    slots, and 227 KB of shared memory at most."""
+    plan = lstm_train_cuda.f32_backward_plan(N, H, SMS, round_bf16)
+    assert plan is not None and plan["dtype"] == "f32"
+    assert plan["ctas"] == H // 8 <= SMS and plan["units"] == 8
+    assert plan["smem"] == lstm_train_cuda.f32_backward_smem(
+        H, plan["rows"], plan["k_slices"], plan["kc"], plan["stages"],
+        round_bf16)
+    assert plan["smem"] <= SMEM
+    assert plan["rows"] % 16 == 0 and plan["rows"] <= 256
+    assert plan["rows"] >= plan["n_launch"] > plan["rows"] - 16
+    assert plan["launches"] == -(-N // 256)
+    assert plan["row_tiles"] == plan["rows"] // 16
+    assert plan["k_slices"] in (1, 2, 4, 8)
+    assert plan["row_tiles"] * plan["k_slices"] <= 16
+    assert plan["warps"] == plan["row_tiles"] * plan["k_slices"] + 1
+    assert plan["threads"] == 32 * plan["warps"] <= 544
+    G = 4 * H
+    assert G % plan["kc"] == 0 and plan["kc"] % (8 * plan["k_slices"]) == 0
+    assert plan["kc"] <= 512
+    assert 2 <= plan["stages"] <= max(2, min(8, G // plan["kc"]))
+    # the ring's row stride: 8 lanes' 16-byte loads (4 row groups of 4 rows
+    # x two k) on distinct banks, 16 floats past a multiple of 32
+    assert plan["ldr"] >= plan["rows"] and plan["ldr"] % 32 == 16
+
+
+@pytest.mark.parametrize("N,H", S32_SHAPES)
+def test_f32_backward_plan_covers_every_row_unit_and_k_once(N, H):
+    """The wrapper's row groups, each CTA's 8 units of every row of its
+    launch (padding rows computed, never written), and within a CTA the
+    consumer warps (row tile, k-slice) and their lanes (row group, k lane)
+    over every 8th k of each chunk's kc / k_slices: every (row, unit)
+    updated once, and every (row, k) of dh = dgates @ W_hh^T summed once."""
+    plan = lstm_train_cuda.f32_backward_plan(N, H, SMS)
+    starts = list(range(0, N, plan["n_launch"]))
+    assert len(starts) == plan["launches"]
+    owner = torch.zeros(N, H, dtype=torch.int32)
+    for n0 in starts:
+        rows = min(plan["n_launch"], N - n0)
+        for cta in range(plan["ctas"]):  # blockIdx.x: units 8 cta ..
+            owner[n0:n0 + rows, 8 * cta:8 * cta + 8] += 1
+    assert (owner == 1).all()
+    R, kc, ks, G = plan["rows"], plan["kc"], plan["k_slices"], 4 * H
+    summed = torch.zeros(R, G, dtype=torch.int32)
+    kn = kc // ks
+    for warp in range(plan["row_tiles"] * ks):
+        rt, slice_ = warp % plan["row_tiles"], warp // plan["row_tiles"]
+        for lane in range(32):
+            rg, kl = lane & 3, lane >> 2
+            r0 = 16 * rt + 4 * rg
+            for ch in range(G // kc):
+                k0 = ch * kc + slice_ * kn + kl
+                summed[r0:r0 + 4, k0:k0 + kn:8] += 1
+    assert (summed == 1).all()
+
+
+def test_f32_backward_plan_at_the_no_amp_batch_and_hac_training():
+    """The --no-amp batch (N 16, H 1024): 128 CTAs of 16 rows, one row
+    tile x 8 k-slices and a producer warp, chunks of 512 k in 3 slots
+    beside W_hh's 8 rows (128 KB) and the step's inputs (16 rows of 128
+    bytes in bf16); the CLI's default batch (N 64): 4 tiles x 4 slices,
+    chunks of 64 k in 4 slots (rows of 80 floats); hac training's (N 128):
+    8 tiles x 2 slices, chunks of 32 k in 4 slots (rows of 144). One
+    launch each."""
+    val = lstm_train_cuda.f32_backward_plan(16, 1024, SMS)
+    assert (val["ctas"], val["rows"], val["row_tiles"], val["k_slices"],
+            val["threads"], val["kc"], val["stages"], val["launches"],
+            val["ldr"]) == (128, 16, 1, 8, 288, 512, 3, 1, 16)
+    assert val["smem"] == (4096 * 8 + 3 * 512 * 16) * 4 + 16 * 128 + 48
+    cli = lstm_train_cuda.f32_backward_plan(64, 1024, SMS)
+    assert (cli["rows"], cli["row_tiles"], cli["k_slices"], cli["kc"],
+            cli["stages"], cli["ldr"]) == (64, 4, 4, 64, 4, 80)
+    hac = lstm_train_cuda.f32_backward_plan(128, 1024, SMS)
+    assert (hac["rows"], hac["row_tiles"], hac["k_slices"], hac["kc"],
+            hac["stages"], hac["ldr"], hac["launches"]) == (
+        128, 8, 2, 32, 4, 144, 1)
+
+
+@pytest.mark.parametrize("N,H,sms", [(16, 2048, SMS), (300, 2048, 1000),
+                                     (16, 1536, SMS), (16, 1024, 127)])
+def test_f32_backward_plan_gives_none_where_w_hh_cannot_be_held(N, H, sms):
+    """H / 8 CTAs beyond the SMs (H 1536 and 2048 on an H100, H 1024 on a
+    card of 127), or W_hh's 8 rows (128 H bytes) and a ring of two chunks
+    beyond 227 KB (H 2048 on a card of any size): no plan, and the wrapper
+    takes the step kernel."""
+    assert lstm_train_cuda.f32_backward_plan(N, H, sms) is None
+    assert lstm_train_cuda.backward_plan(N, H, sms, RESIDENT,
+                                         torch.float32) is None
