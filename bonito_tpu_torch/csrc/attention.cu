@@ -31,15 +31,15 @@
 // heads of 40: 82 MB, 0.025 ms); L in f32 does the work in f32 FMAs (67
 // TFLOP/s): operations.
 //
-// Design of K. On the card, bf16 K and H run the stretch kernel of
-// csrc/attention_window.cu wherever ops/attention_cuda.py:window_plan gives
-// a plan: one CTA walks consecutive 64-query tiles of one (n, h) with a ring
-// of rotated key blocks in shared memory, each key row staged once per
-// stretch, producer warps copying and rotating the next tile's rows while
-// consumer warps compute (that file says how). The kernel below is the
-// earlier design, kept for f32 input and for shapes the plan does not take,
-// and as the yardstick of the stretch kernel; both compute the same
-// function, rounded at the same points.
+// Design of K. On the card, K and H (bf16 and f32) run the stretch kernel
+// of csrc/attention_window.cu wherever ops/attention_cuda.py:window_plan
+// gives a plan: one CTA walks consecutive 64-query tiles of one (n, h) with
+// a ring of rotated key blocks in shared memory, each key row staged once
+// per stretch, producer warps copying and rotating the next tile's rows
+// while consumer warps compute (that file says how). The kernel below is
+// the earlier design, kept for shapes the plan does not take and as the
+// yardstick of the stretch kernel; both compute the same function, rounded
+// at the same points.
 // One block of 4 warps per (row n, head h, tile of 64 queries):
 // 16,384 blocks at sup shapes. The band of 64 queries spans at most
 // 127 + 64 + 128 = 319 keys, so the block stages its whole key window once --
@@ -90,9 +90,10 @@
 // fused_rotary_window_attention_train (`_fused_fwd_kernel_dt`,
 // `_fused_bwd_kernel_dt`). H is K's code with one more output, each query's
 // lse = max + log(sum) in f32, under a template flag, on either kernel of K
-// (the stretch kernel where window_plan gives a plan): its o is the same
-// kernel's K's bit for bit. O computes dqkv [N, T, 3, H, D] from qkv, cos/sin, lse, o and the
-// cotangent do, rounding where the TPU kernel rounds:
+// (the stretch kernel where window_plan gives a plan, bf16 or f32): its o
+// is the same kernel's K's bit for bit. O computes dqkv [N, T, 3, H, D]
+// from qkv, cos/sin, lse, o and the cotangent do, rounding where the TPU
+// kernel rounds:
 //
 //     p     = exp(s - lse), 0 where masked         s as in K, in f32
 //     dp    = bf16(do) . bf16(v)                   f32 accumulation

@@ -6,14 +6,15 @@
 // bonito_tpu/ops/attention_pallas.py:fused_rotary_window_attention
 // (`_fused_kernel_dt`, `_rot_dt`); H, its instance that also writes each
 // query's lse, the forward of fused_rotary_window_attention_train
-// (`_fused_fwd_kernel_dt`). From qkv [N, T, 3, H, D] bf16 and cos/sin
-// [T, r2] f32 to o [N, T, H, D] bf16 (and lse [N, H, T] f32):
+// (`_fused_fwd_kernel_dt`). From qkv [N, T, 3, H, D] bf16 or f32 and
+// cos/sin [T, r2] f32 to o [N, T, H, D] of qkv's type (and lse [N, H, T]
+// f32):
 //
 //     q, k  = bf16(rotary(f32(q)), rotary(f32(k)))   every product and sum
 //             rounded on its own (no fused multiply-add)
 //     s     = (q . k) / sqrt(D)       bf16 products, f32 sums; -1e30 masked
 //     p     = bf16(exp(s - max) / sum)                two passes, as the TPU
-//     o     = p . bf16(v)             f32 sums, rounded to bf16 last
+//     o     = p . bf16(v)             f32 sums, cast to the output last
 //     lse   = max + log(sum)          -1e30 where a query sees no key
 //
 // Query i sees key j iff -left <= j - i <= right and j < t_real; a query
@@ -28,8 +29,8 @@
 // again and p . v), at about two thirds of the rate wgmma reaches, beside
 // the exps.
 //
-// Design. The earlier kernel (csrc/attention.cu, kept for f32 and for shapes
-// that window_plan does not take) gave each tile of 64 queries its own block,
+// Design. The earlier kernel (csrc/attention.cu, kept for shapes that
+// window_plan does not take) gave each tile of 64 queries its own block,
 // which staged the tile's whole key window (up to 319 rows, rotated) before
 // any work: every key row was loaded, rotated and rounded about five times,
 // and nothing overlapped the staging. Here one CTA walks a stretch of
@@ -60,16 +61,39 @@
 // multiply-add of the raw score. Rows are 16-byte chunks XOR-swizzled by the
 // row so that ldmatrix and the copies hit distinct banks without padding:
 // 112 KB at D 64 and the sup window, two CTAs an SM.
+//
+// f32 (evaluate and train --no-amp). For f32 qkv the kernel rounds q, k, v
+// and p to bf16 as for bf16 input and multiplies on mma.sync all the same,
+// so it moves f32 qkv in and f32 o out (524 MB at evaluate's batch, N 256, T
+// 250: 0.156 ms) and its operations are the bf16 instance's: bytes bound it.
+// The ring keeps bf16 rows (114,720 B at sup, two CTAs an SM); only the
+// producers' staging differs (StageF32): the 16-byte copies cannot land in
+// a bf16 ring, so each thread loads a batch of f32 chunks (a rotary pair's
+// two chunks together, with their cos and sin) into registers, rotates
+// them in f32, rounds and stores them, and hands its own rows over by its
+// arrival at `full`. The consumers, the masks, the two passes
+// and the lse are the bf16 instance's; o is stored in f32. An f32 staging
+// area in shared memory (cp.async, then rotate) would take about 48 KB
+// more at D 64 and one CTA an SM.
+
+#include <type_traits>
 
 #include "attention_window.cuh"
 
 namespace {
 
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 struct Window {
-    const bf16* qkv;
+    const void* qkv;                // bf16 or f32, as the kernel's T
     const float* cosp;
     const float* sinp;
-    bf16* out;
+    void* out;                      // qkv's type
     float* lse;
     int T, H, D, r2, left, right, t_real;
     int n_qt, stretch, n_str, ring, back, ahead;
@@ -120,14 +144,181 @@ __device__ __forceinline__ void stage(const Window& a, const bf16* base,
     }
 }
 
+// A step's staging from f32 qkv (kernels K and H in f32), by thread i of NT:
+// the same rows as `stage` and the rotary, but the 16-byte copies cannot
+// land in the bf16 ring, so each unit goes through registers: a rotary pair
+// (8 elements of q or k at chunk c < r2 / 8 and their partners r2 further
+// on) is loaded as four float4, rotated in f32 with every product and sum
+// rounded on its own (as rotate8 and the earlier kernel's rotary_chunk),
+// rounded to bf16 and stored into the swizzled rows; a plain chunk (v, and
+// q and k beyond the rotary dim) is loaded, rounded and stored. Rows at or
+// beyond T (q) or t_real (k, v) get zeros; the padding beyond D stays as it
+// is (zero). RB units a thread a batch: every load of a batch, its cos and
+// sin among them, is issued before any of its units is stored. A second
+// batch in flight, or 4 units a batch, spills beyond the 168 registers of
+// two CTAs an SM and runs slower (scripts/attention_split.py f32 times
+// both).
+template <int DP, int NT, int RB = 2>
+struct StageF32 {
+    static constexpr int CH = DP / 8;       // chunk slots a row
+    static constexpr int CH2 = DP / 16;     // rotary pair slots a row
+    struct Batch {
+        float4 x[RB][4];    // the lo chunk in x[0..1], its partner in x[2..3]
+        float4 t[RB][4];    // a pair's cos in t[0..1], its sin in t[2..3]
+        bf16* lo[RB];
+        bf16* hi[RB];       // a pair's partner; null for a plain chunk
+        int st[RB];         // 0 nothing, 1 zeros, 2 data
+    };
+    const Window& a;
+    const float* base;
+    bf16 *Q, *Ks, *Vs;
+    int q0, b_lo, nblk, rch, chd, tail, n_pair, n_v, total;
+
+    __device__ __forceinline__ StageF32(const Window& a_, const float* base_,
+                                        bf16* Q_, bf16* Ks_, bf16* Vs_,
+                                        int q0_, int b_lo_, int b_hi)
+        : a(a_), base(base_), Q(Q_), Ks(Ks_), Vs(Vs_), q0(q0_), b_lo(b_lo_) {
+        nblk = max(b_hi - b_lo + 1, 0);
+        rch = a.r2 / 8;
+        chd = a.D / 8;
+        tail = chd - 2 * rch;
+        n_pair = (1 + nblk) * WQ * CH2;
+        n_v = nblk * WQ * CH;
+        total = n_pair + n_v + (tail > 0 ? (1 + nblk) * WQ * CH : 0);
+    }
+
+    // the rows of `part` of q's tile (0) and the key blocks (1 ..): where
+    // they go, their first token and the token below which they hold data
+    __device__ __forceinline__ bf16* rows(int part, bf16* ring, int& tok0,
+                                          int& live) const {
+        if (part == 0) {
+            tok0 = q0;
+            live = a.T;
+            return Q;
+        }
+        const int b = b_lo + part - 1;
+        tok0 = b * WQ;
+        live = a.t_real;
+        return ring + (b % a.ring) * WQ * DP;
+    }
+
+    // batch j of thread i: its units' places, and every load issued
+    __device__ __forceinline__ void load(Batch& bt, int i, int j) const {
+        const size_t ts = (size_t)3 * a.H * a.D, hd = (size_t)a.H * a.D;
+#pragma unroll
+        for (int k = 0; k < RB; ++k) {
+            int e = i + (j * RB + k) * NT;
+            bt.st[k] = 0;
+            if (e >= total) continue;
+            int r, c, part, tok0, live;
+            size_t plane;
+            bf16* tile;
+            bool pair = e < n_pair;
+            if (pair) {
+                part = e / (WQ * CH2);
+                r = e % (WQ * CH2) / CH2;
+                c = e % CH2;
+                if (c >= rch) continue;
+                tile = rows(part, Ks, tok0, live);
+                plane = part == 0 ? 0 : hd;
+            } else {
+                e -= n_pair;
+                const bool v = e < n_v;
+                e -= v ? 0 : n_v;
+                part = e / (WQ * CH) + (v ? 1 : 0);
+                r = e % (WQ * CH) / CH;
+                c = e % CH;
+                if (c >= chd || (!v && c < 2 * rch)) continue;
+                tile = rows(part, v ? Vs : Ks, tok0, live);
+                plane = v ? 2 * hd : part == 0 ? 0 : hd;
+            }
+            const int tok = tok0 + r;
+            bt.lo[k] = tile + swz<DP>(r, c);
+            bt.hi[k] = pair ? tile + swz<DP>(r, c + rch) : nullptr;
+            bt.st[k] = tok < live ? 2 : 1;
+            if (tok < live) {
+                const float4* src = reinterpret_cast<const float4*>(
+                    base + (size_t)tok * ts + plane + c * 8);
+                bt.x[k][0] = __ldg(src);
+                bt.x[k][1] = __ldg(src + 1);
+                if (pair) {
+                    bt.x[k][2] = __ldg(src + a.r2 / 4);
+                    bt.x[k][3] = __ldg(src + a.r2 / 4 + 1);
+                    const size_t tab = (size_t)tok * a.r2 + c * 8;
+                    const float4* cp = reinterpret_cast<const float4*>(a.cosp + tab);
+                    const float4* sp = reinterpret_cast<const float4*>(a.sinp + tab);
+                    bt.t[k][0] = __ldg(cp);
+                    bt.t[k][1] = __ldg(cp + 1);
+                    bt.t[k][2] = __ldg(sp);
+                    bt.t[k][3] = __ldg(sp + 1);
+                }
+            }
+        }
+    }
+
+    // batch `bt` rotated (pairs), rounded and stored
+    __device__ __forceinline__ void apply(const Batch& bt) const {
+#pragma unroll
+        for (int k = 0; k < RB; ++k) {
+            if (bt.st[k] == 0) continue;
+            if (bt.st[k] == 1) {
+                zero16(bt.lo[k]);
+                if (bt.hi[k]) zero16(bt.hi[k]);
+                continue;
+            }
+            const float a8[8] = {bt.x[k][0].x, bt.x[k][0].y, bt.x[k][0].z,
+                                 bt.x[k][0].w, bt.x[k][1].x, bt.x[k][1].y,
+                                 bt.x[k][1].z, bt.x[k][1].w};
+            if (!bt.hi[k]) {
+                *reinterpret_cast<uint4*>(bt.lo[k]) = make_uint4(
+                    pack2(a8[0], a8[1]), pack2(a8[2], a8[3]),
+                    pack2(a8[4], a8[5]), pack2(a8[6], a8[7]));
+                continue;
+            }
+            const float b8[8] = {bt.x[k][2].x, bt.x[k][2].y, bt.x[k][2].z,
+                                 bt.x[k][2].w, bt.x[k][3].x, bt.x[k][3].y,
+                                 bt.x[k][3].z, bt.x[k][3].w};
+            const float4 *c4 = bt.t[k], *s4 = bt.t[k] + 2;
+            const float c8[8] = {c4[0].x, c4[0].y, c4[0].z, c4[0].w,
+                                 c4[1].x, c4[1].y, c4[1].z, c4[1].w};
+            const float s8[8] = {s4[0].x, s4[0].y, s4[0].z, s4[0].w,
+                                 s4[1].x, s4[1].y, s4[1].z, s4[1].w};
+            float o1[8], o2[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                o1[u] = __fsub_rn(__fmul_rn(a8[u], c8[u]), __fmul_rn(b8[u], s8[u]));
+                o2[u] = __fadd_rn(__fmul_rn(b8[u], c8[u]), __fmul_rn(a8[u], s8[u]));
+            }
+            *reinterpret_cast<uint4*>(bt.lo[k]) = make_uint4(
+                pack2(o1[0], o1[1]), pack2(o1[2], o1[3]), pack2(o1[4], o1[5]),
+                pack2(o1[6], o1[7]));
+            *reinterpret_cast<uint4*>(bt.hi[k]) = make_uint4(
+                pack2(o2[0], o2[1]), pack2(o2[2], o2[3]), pack2(o2[4], o2[5]),
+                pack2(o2[6], o2[7]));
+        }
+    }
+
+    // every batch of the step by thread i
+    __device__ __forceinline__ void run(int i) const {
+        const int nb = (total + NT * RB - 1) / (NT * RB);
+        for (int j = 0; j < nb; ++j) {
+            Batch bt;
+            load(bt, i, j);
+            apply(bt);
+        }
+    }
+};
+
+// T: qkv's and out's type, bf16 or float (the ring holds bf16 either way).
 // DP: the head dim padded to 32, 64 or 128 (zeros beyond D). LSE: also
 // write each query's log-sum-exp (kernel H); K's instance is the same code
 // without that store, so both give the same o bit for bit.
-template <int DP, bool LSE>
+template <typename T, int DP, bool LSE>
 __global__ void __launch_bounds__(WNT, DP <= 64 ? 2 : 1)
 window_attention_kernel(const Window a)
 {
     constexpr int KT = DP / 16;
+    constexpr bool F32 = std::is_same<T, float>::value;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [ring][WQ][DP] k, rotated
     bf16* Vs = Ks + (size_t)a.ring * WQ * DP;       // [ring][WQ][DP] v
@@ -141,7 +332,8 @@ window_attention_kernel(const Window a)
     const int n = pair / a.H, h = pair % a.H;
     const int steps = min(a.stretch, a.n_qt - t_a);
     const size_t ts = (size_t)3 * a.H * a.D;             // qkv's token stride
-    const bf16* base = a.qkv + (size_t)n * a.T * ts + (size_t)h * a.D;
+    const T* base = static_cast<const T*>(a.qkv) + (size_t)n * a.T * ts
+        + (size_t)h * a.D;
 
     // zeros everywhere first: the padding beyond D stays zero, and a slot
     // that is never filled is never read
@@ -165,13 +357,17 @@ window_attention_kernel(const Window a)
     // the warps take their roles; the producers' arrival completes its phase
     {
         const int b_lo = max(t_a - a.back, 0), b_hi = min(t_a + a.ahead, nb - 1);
-        const int items = Rotary<DP, WNT>::TILE * (1 + max(b_hi - b_lo + 1, 0));
-        stage<DP>(a, base, Qs, Ks, Vs, t_a * WQ, b_lo, b_hi, tid, WNT);
-        cp_async_commit();
-        Rotary<DP, WNT>().run(rv, Qs, Ks, t_a * WQ, b_lo, items, tid, [] {
-            cp_async_wait(0);
-            __syncthreads();
-        });
+        if constexpr (F32) {
+            StageF32<DP, WNT>(a, base, Qs, Ks, Vs, t_a * WQ, b_lo, b_hi).run(tid);
+        } else {
+            const int items = Rotary<DP, WNT>::TILE * (1 + max(b_hi - b_lo + 1, 0));
+            stage<DP>(a, base, Qs, Ks, Vs, t_a * WQ, b_lo, b_hi, tid, WNT);
+            cp_async_commit();
+            Rotary<DP, WNT>().run(rv, Qs, Ks, t_a * WQ, b_lo, items, tid, [] {
+                cp_async_wait(0);
+                __syncthreads();
+            });
+        }
         __syncthreads();
     }
 
@@ -187,15 +383,22 @@ window_attention_kernel(const Window a)
             bf16* Q = Qs + (s & 1) * WQ * DP;
             // the one block that enters the band
             const int b = t + a.ahead < nb ? t + a.ahead : nb;
-            const int items = Rotary<DP, PT>::TILE * (b < nb ? 2 : 1);
-            stage<DP>(a, base, Q, Ks, Vs, q0, b, b < nb ? b : b - 1, pt, PT);
-            cp_async_commit();
-            // the rotary, once a row, in place; the first batch's tables load
-            // while the copies land
-            Rotary<DP, PT>().run(rv, Q, Ks, q0, b, items, pt, [] {
-                cp_async_wait(0);
-                asm volatile("bar.sync 1, %0;\n" :: "n"(PT) : "memory");
-            });
+            if constexpr (F32) {
+                // each thread stores only what it loaded: its arrival (a
+                // release) hands its rows over
+                StageF32<DP, PT>(a, base, Q, Ks, Vs, q0, b, b < nb ? b : b - 1)
+                    .run(pt);
+            } else {
+                const int items = Rotary<DP, PT>::TILE * (b < nb ? 2 : 1);
+                stage<DP>(a, base, Q, Ks, Vs, q0, b, b < nb ? b : b - 1, pt, PT);
+                cp_async_commit();
+                // the rotary, once a row, in place; the first batch's tables
+                // load while the copies land
+                Rotary<DP, PT>().run(rv, Q, Ks, q0, b, items, pt, [] {
+                    cp_async_wait(0);
+                    asm volatile("bar.sync 1, %0;\n" :: "n"(PT) : "memory");
+                });
+            }
             mbar_arrive(full + (s & 1));
         }
         return;
@@ -397,18 +600,14 @@ window_attention_kernel(const Window a)
                 if (ia < a.T) lrow[ia] = l_a > 0.f ? M_a * a.scale + logf(l_a) : WNEG;
                 if (ib < a.T) lrow[ib] = l_b > 0.f ? M_b * a.scale + logf(l_b) : WNEG;
             }
-            bf16* oa = a.out + (((size_t)n * a.T + ia) * a.H + h) * a.D;
-            bf16* ob = oa + (size_t)8 * a.H * a.D;
+            T* oa = static_cast<T*>(a.out) + (((size_t)n * a.T + ia) * a.H + h) * a.D;
+            T* ob = oa + (size_t)8 * a.H * a.D;
 #pragma unroll
             for (int dt = 0; dt < 2 * KT; ++dt) {
                 const int d = dt * 8 + 2 * c4;
                 if (d < a.D) {
-                    if (ia < a.T)
-                        *reinterpret_cast<__nv_bfloat162*>(oa + d) =
-                            __floats2bfloat162_rn(o[dt][0], o[dt][1]);
-                    if (ib < a.T)
-                        *reinterpret_cast<__nv_bfloat162*>(ob + d) =
-                            __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+                    if (ia < a.T) store2(oa + d, o[dt][0], o[dt][1]);
+                    if (ib < a.T) store2(ob + d, o[dt][2], o[dt][3]);
                 }
             }
         } else {
@@ -417,14 +616,14 @@ window_attention_kernel(const Window a)
     }
 }
 
-template <int DP, bool LSE>
+template <typename T, int DP, bool LSE>
 int launch_window(const Window& a, int N, cudaStream_t stream)
 {
     const size_t smem = window_smem(a.ring, DP);
     if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     const long long grid = (long long)N * a.H * a.n_str;
     if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
-    const auto kernel = window_attention_kernel<DP, LSE>;
+    const auto kernel = window_attention_kernel<T, DP, LSE>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -432,12 +631,12 @@ int launch_window(const Window& a, int N, cudaStream_t stream)
     return (int)cudaGetLastError();
 }
 
-template <bool LSE>
+template <typename T, bool LSE>
 int dispatch_window(const Window& a, int N, cudaStream_t stream)
 {
-    if (a.D <= 32) return launch_window<32, LSE>(a, N, stream);
-    if (a.D <= 64) return launch_window<64, LSE>(a, N, stream);
-    return launch_window<128, LSE>(a, N, stream);
+    if (a.D <= 32) return launch_window<T, 32, LSE>(a, N, stream);
+    if (a.D <= 64) return launch_window<T, 64, LSE>(a, N, stream);
+    return launch_window<T, 128, LSE>(a, N, stream);
 }
 
 }  // namespace
@@ -453,17 +652,17 @@ int dispatch_window(const Window& a, int N, cudaStream_t stream)
 extern "C" int fused_rotary_window_attention_stretch(
     const void* qkv, const void* cosp, const void* sinp, void* out, void* lse,
     int N, int T, int H, int D, int r2, int left, int right, int t_real,
-    int stretch, int ring, void* stream)
+    int stretch, int ring, int is_f32, void* stream)
 {
     if (N < 1 || T < 1 || H < 1 || D < 8 || D > 128 || D % 8 || r2 < 8
         || r2 % 8 || 2 * r2 > D || left < 0 || left >= 128 || right < 0
         || right > 128 || t_real < 1 || t_real > T || stretch < 1)
         return (int)cudaErrorInvalidValue;
     Window a;
-    a.qkv = static_cast<const bf16*>(qkv);
+    a.qkv = qkv;
     a.cosp = static_cast<const float*>(cosp);
     a.sinp = static_cast<const float*>(sinp);
-    a.out = static_cast<bf16*>(out);
+    a.out = out;
     a.lse = static_cast<float*>(lse);
     a.T = T;
     a.H = H;
@@ -481,5 +680,9 @@ extern "C" int fused_rotary_window_attention_stretch(
     if (ring < a.back + a.ahead + 2) return (int)cudaErrorInvalidValue;
     a.scale = (float)(1.0 / sqrt((double)D));
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return lse ? dispatch_window<true>(a, N, s) : dispatch_window<false>(a, N, s);
+    if (is_f32)
+        return lse ? dispatch_window<float, true>(a, N, s)
+                   : dispatch_window<float, false>(a, N, s);
+    return lse ? dispatch_window<bf16, true>(a, N, s)
+               : dispatch_window<bf16, false>(a, N, s);
 }

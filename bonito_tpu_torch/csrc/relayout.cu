@@ -10,14 +10,25 @@
 // copied all the same, as the TPU entry does.
 //
 // What bounds it on an H100: bytes, each read once and written once (the sup
-// activation [128, 1000, 512] bf16: 2 x 131 MB, 0.08 ms at 3.35 TB/s).
+// activation [128, 1000, 512] bf16: 2 x 131 MB, 0.08 ms at 3.35 TB/s; the
+// f32 one of evaluate's batch, [256, 250, 512], the same).
 //
 // Design: the wrapper (ops/relayout.py) drops dimensions of size 1, merges
 // neighbours that are contiguous with each other, and picks one of
 //
-//   transpose   [B, R, C] whose memory is [B, C, R] (R contiguous): tiles of
-//               64 x 64 elements through shared memory, 16-byte loads along R
-//               and 16-byte stores along C;
+//   transpose   [B, R, C] whose memory is [B, C, R] (R contiguous) where R,
+//               C and the strides are whole 16-byte rows at a 16-byte
+//               start: tiles of 64 x 64 elements through shared memory,
+//               16-byte loads along R and 16-byte stores along C;
+//   tiles       the same view at any R, C, strides and start, 2- or 4-byte
+//               elements: tiles of 32 R x 256 bytes of C through padded
+//               shared memory. A warp loads 32 consecutive R elements of one
+//               C column (coalesced whatever the alignment), each thread 8
+//               or 16 of them in flight, bf16 pairs of neighbouring columns
+//               packed into one 32-bit word; 16-byte stores along C where C
+//               is a multiple of 16 bytes (the output comes from
+//               torch.empty), element stores otherwise; the edges
+//               predicated.
 //   rows        the last dimension contiguous and everything a multiple of 16
 //               bytes: the gather below with 16-byte units;
 //   gather      anything else, up to 8 dimensions: a thread per element (1,
@@ -25,8 +36,12 @@
 //               and strides; writes are coalesced, reads go as the strides
 //               let them.
 //
-// The custom gradient of the TPU entry (the cotangent is pinned too) belongs
-// to the training slice.
+// Before the tiles, T 250 in f32 (evaluate's batch) or any T not a
+// multiple of 8 in bf16 left the sup stack's input to the gather, a thread
+// per element with a division a dimension, read strided by T: slower than
+// Tensor.contiguous(). Where both transposes take a view, the 16-byte one
+// is the faster, so it keeps those views (chip_smoke.py times all three;
+// PERF.md's kernel table, row 15).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,6 +120,101 @@ relayout_transpose(const E* __restrict__ in, E* __restrict__ out, int R,
     }
 }
 
+// The any-shape transpose: out [B, R, C] contiguous from in with element
+// strides (sb, 1, sc). A tile is 32 R (a warp's lanes) by 64 words of C (64
+// f32 or 128 bf16 columns: a 256-byte output row); tile[w][r] holds word w
+// of row r (bf16: columns 2w and 2w + 1), rows padded to 33 words so that a
+// warp's 32 lanes write 32 banks. VEC: C a multiple of 16 bytes, so every
+// output row starts at a 16-byte address and each thread stores whole
+// 16-byte chunks.
+constexpr int TT_R = 32;           // R a tile
+constexpr int TT_W = 64;           // 32-bit words of C a tile
+constexpr int TT_NT = 256;
+
+template <typename E, bool VEC>
+__global__ void __launch_bounds__(TT_NT)
+relayout_transpose_tiles(const E* __restrict__ in, E* __restrict__ out,
+                         int R, int C, long long sb, long long sc, int n_rt,
+                         int n_ct)
+{
+    constexpr int EPW = 4 / sizeof(E);         // elements a word
+    constexpr int TC = TT_W * EPW;             // C a tile
+    constexpr int WPT = TT_W / (TT_NT / 32);   // words a warp loads
+    __shared__ uint32_t tile[TT_W][TT_R + 1];
+
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int rt = blockIdx.x % n_rt;
+    const int ct = (blockIdx.x / n_rt) % n_ct;
+    const long long b = blockIdx.x / (n_rt * n_ct);
+    const int r0 = rt * TT_R, c0 = ct * TC;
+    const E* src = in + b * sb;
+    E* dst = out + b * (long long)R * C;
+
+    // every load of the thread first, then the shared stores
+    const int r = r0 + lane;
+    E v[WPT][EPW];
+#pragma unroll
+    for (int i = 0; i < WPT; ++i)
+#pragma unroll
+        for (int k = 0; k < EPW; ++k) {
+            const int c = c0 + (warp + i * (TT_NT / 32)) * EPW + k;
+            v[i][k] = r < R && c < C ? src[(long long)c * sc + r] : E(0);
+        }
+#pragma unroll
+    for (int i = 0; i < WPT; ++i) {
+        uint32_t word;
+        if constexpr (EPW == 1) {
+            word = v[i][0];
+        } else {
+            word = (uint32_t)v[i][0] | ((uint32_t)v[i][1] << 16);
+        }
+        tile[warp + i * (TT_NT / 32)][lane] = word;
+    }
+    __syncthreads();
+
+    if constexpr (VEC) {
+        // a row's 64 words are 16 chunks of 16 bytes: 512 a tile
+        for (int e = threadIdx.x; e < TT_R * (TT_W / 4); e += TT_NT) {
+            const int rl = e / (TT_W / 4), ch = e % (TT_W / 4);
+            const int rr = r0 + rl, c = c0 + ch * 4 * EPW;
+            if (rr < R && c < C) {
+                const uint4 raw = make_uint4(
+                    tile[4 * ch][rl], tile[4 * ch + 1][rl],
+                    tile[4 * ch + 2][rl], tile[4 * ch + 3][rl]);
+                *reinterpret_cast<uint4*>(dst + (long long)rr * C + c) = raw;
+            }
+        }
+    } else {
+        for (int e = threadIdx.x; e < TT_R * TC; e += TT_NT) {
+            const int rl = e / TC, cl = e % TC;
+            const int rr = r0 + rl, c = c0 + cl;
+            if (rr < R && c < C) {
+                const uint32_t word = tile[cl / EPW][rl];
+                dst[(long long)rr * C + c] =
+                    (E)(EPW == 1 ? word : word >> (16 * (cl % EPW)));
+            }
+        }
+    }
+}
+
+template <typename E>
+int launch_tiles(const void* in, void* out, long long B, int R, int C,
+                 long long sb, long long sc, cudaStream_t stream)
+{
+    constexpr int TC = TT_W * 4 / (int)sizeof(E);
+    const int n_rt = (R + TT_R - 1) / TT_R, n_ct = (C + TC - 1) / TC;
+    const long long blocks = B * n_rt * n_ct;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const bool vec = C % (16 / (int)sizeof(E)) == 0
+        && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const auto kernel = vec ? relayout_transpose_tiles<E, true>
+                            : relayout_transpose_tiles<E, false>;
+    kernel<<<(unsigned)blocks, TT_NT, 0, stream>>>(
+        static_cast<const E*>(in), static_cast<E*>(out), R, C, sb, sc, n_rt,
+        n_ct);
+    return (int)cudaGetLastError();
+}
+
 template <typename E>
 int launch_gather(const void* in, void* out, const Dims& d, long long total,
                   cudaStream_t stream)
@@ -178,4 +288,22 @@ extern "C" int relayout_transpose_any(const void* in, void* out, long long B,
     return unit == 2
         ? launch_transpose<uint16_t>(in, out, B, R, C, sb, sc, s)
         : launch_transpose<uint32_t>(in, out, B, R, C, sb, sc, s);
+}
+
+// The any-shape transpose: out [B, R, C] contiguous from in with element
+// strides (sb, 1, sc), elements of `unit` = 2 or 4 bytes, any R, C, sb, sc
+// and start (the elements' own alignment).
+extern "C" int relayout_transpose_tiles_any(const void* in, void* out,
+                                            long long B, int R, int C,
+                                            long long sb, long long sc,
+                                            int unit, void* stream)
+{
+    if (B < 1 || R < 1 || C < 1 || sb < 0 || sc < 0
+        || (unit != 2 && unit != 4)
+        || reinterpret_cast<uintptr_t>(in) % unit)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return unit == 2
+        ? launch_tiles<uint16_t>(in, out, B, R, C, sb, sc, s)
+        : launch_tiles<uint32_t>(in, out, B, R, C, sb, sc, s);
 }

@@ -15,16 +15,18 @@ normalises before the second product, so kernel and plain version do too
 (two passes over the scores, no online softmax): they then differ by the
 order of f32 sums and the last bit of exp only.
 
-On the card K runs, where ``window_plan`` gives a plan (bf16 and any
-window and head K takes), the stretch kernel of ``csrc/attention_window.cu``:
-one CTA walks a stretch of consecutive 64-query tiles of one (n, h) and
-stages each key row once into a ring in shared memory, producer warps
-copying (cp.async) and rotating the next tile's rows while consumer warps
-compute the current one. The plan is pure Python: the stretch, the ring
-and the CTAs, from the shape and the card's SMs. Where it is None (f32)
-the earlier kernel of ``csrc/attention.cu`` runs, one block per 64-query
-tile; ``fused_rotary_window_attention_old_kernel`` runs that one whatever
-the plan, for comparisons. Both count one launch per call.
+On the card K runs, where ``window_plan`` gives a plan (bf16 or f32 and
+any window and head K takes), the stretch kernel of
+``csrc/attention_window.cu``: one CTA walks a stretch of consecutive
+64-query tiles of one (n, h) and stages each key row once into a ring in
+shared memory, producer warps copying (cp.async; from f32 through
+registers, rotated and rounded to bf16 on the way) and rotating the next
+tile's rows while consumer warps compute the current one. The plan is pure
+Python: the stretch, the ring and the CTAs, from the shape and the card's
+SMs. Where it is None the earlier kernel of ``csrc/attention.cu`` runs,
+one block per 64-query tile; ``fused_rotary_window_attention_old_kernel``
+runs that one whatever the plan, for comparisons. Both count one launch
+per call.
 
 H and O, ``fused_rotary_window_attention_train`` and
 ``fused_rotary_window_attention_bwd``, replace ``attention_pallas.py:
@@ -88,6 +90,7 @@ def _window_fits(window):
 WINDOW_TILE = 64        # queries a tile, keys a block of the ring (WQ)
 WINDOW_WARPS = 6        # 4 consumer warps of 16 query rows, 2 producers
 WINDOW_HEAD_DIMS = (32, 64, 128)  # the instances: D is zero-padded up
+WINDOW_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}  # of qkv
 SMEM_LIMIT = 232448     # 227 KB, the most a block may ask for
 SM_SMEM = 233472        # 228 KB an SM; each resident block reserves 1 KB
 
@@ -104,10 +107,12 @@ def window_smem(ring, head_dim):
 
 
 def window_plan(N, T, H, D, window, dtype, sms):
-    """The stretch kernel's plan for qkv [N, T, 3, H, D] of ``dtype`` and
-    a band ``window`` = (left, right) on a card of ``sms`` SMs, or None
-    where the kernel does not take the shape (f32; a head or window beyond
-    what K takes): then K and H run the earlier kernel.
+    """The stretch kernel's plan for qkv [N, T, 3, H, D] of ``dtype`` (bf16
+    or f32) and a band ``window`` = (left, right) on a card of ``sms`` SMs,
+    or None where the kernel does not take the shape (another dtype; a head
+    or window beyond what K takes): then K and H run the earlier kernel.
+    Both dtypes keep bf16 rows in the ring (f32 qkv is rotated and rounded
+    as it is staged), so their plans differ in ``dtype`` alone.
 
     Tile t of 64 queries sees the key blocks t - back .. t + ahead (back =
     ceil(left / 64), ahead = floor((63 + right) / 64)); the ring holds two
@@ -118,7 +123,7 @@ def window_plan(N, T, H, D, window, dtype, sms):
     SM) cost least, counting a tile's work as one and a stretch's first
     tile as two; the longest among equals."""
     left, right = (int(w) for w in window)
-    if (dtype != torch.bfloat16 or D % 8 or not 8 <= D <= MAX_D
+    if (dtype not in WINDOW_DTYPES or D % 8 or not 8 <= D <= MAX_D
             or not _window_fits(window) or min(N, T, H, sms) < 1):
         return None
     head_dim = next(p for p in WINDOW_HEAD_DIMS if p >= D)
@@ -145,7 +150,8 @@ def window_plan(N, T, H, D, window, dtype, sms):
             "stretches": _cdiv(n_tiles, stretch), "tiles": n_tiles,
             "ctas": ctas, "waves": _cdiv(ctas, slots), "resident": resident,
             "ring": ring, "back": back, "ahead": ahead,
-            "head_dim": head_dim, "warps": WINDOW_WARPS, "smem": smem}
+            "head_dim": head_dim, "warps": WINDOW_WARPS, "smem": smem,
+            "dtype": WINDOW_DTYPES[dtype]}
 
 
 # kernel O's stretch kernel (csrc/attention_window_bwd.cu): products a
@@ -493,8 +499,9 @@ def _fused_forward(name, counter, qkv, cos, sin, window, t_real, with_lse):
         args.append(lse.data_ptr() if with_lse else None)
     args += [N, T, H, D, rotary_dim // 2, int(window[0]), int(window[1]),
              t_real]
-    args += ([plan["stretch"], plan["ring"]] if plan is not None
-             else [int(qkv.dtype == torch.float32)])
+    if plan is not None:
+        args += [plan["stretch"], plan["ring"]]
+    args.append(int(qkv.dtype == torch.float32))
     build.check(getattr(build.library(), entry)(*args, build.stream_of(qkv)),
                 entry)
     return out, lse
@@ -505,7 +512,7 @@ def fused_rotary_window_attention(qkv, cos, sin, window, t_real=None):
     version for a CPU tensor, kernel K for a CUDA tensor (bf16 or f32;
     shapes as ``fused_supported`` says): the stretch kernel on
     ``window_plan``'s plan (recorded in ``.plan``), else the earlier
-    kernel."""
+    kernel. A build or launch failure raises."""
     if qkv.device.type == "cpu":
         return fused_rotary_window_attention_plain(qkv, cos, sin, window,
                                                    t_real)

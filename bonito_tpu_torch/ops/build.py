@@ -134,9 +134,9 @@ SIGNATURES = {
     "fused_rotary_window_attention_lse": [P, P, P, P, P, I, I, I, I, I, I, I,
                                           I, I, P],
     # qkv, cos, sin, out, lse (or null), N, T, H, D, r2, left, right, t_real,
-    # stretch, ring, stream
+    # stretch, ring, is_f32, stream
     "fused_rotary_window_attention_stretch": [P, P, P, P, P, I, I, I, I, I,
-                                              I, I, I, I, I, P],
+                                              I, I, I, I, I, I, P],
     # qkv, cos, sin, lse, o, dout, dqkv, N, T, H, D, r2, left, right, t_real,
     # is_f32, stream
     "fused_rotary_window_attention_bwd": [P, P, P, P, P, P, P, I, I, I, I, I,
@@ -150,8 +150,11 @@ SIGNATURES = {
     "local_attention": [P, P, P, P, LP, I, I, I, I, I, I, I, I, P],
     # in, out, nd, sizes[nd], strides[nd], unit, stream
     "relayout_gather_any": [P, P, I, LP, LP, I, P],
-    # in, out, B, R, C, sb, sc, unit, stream
+    # the earlier tile transpose (16-byte rows): in, out, B, R, C, sb, sc,
+    # unit, stream
     "relayout_transpose_any": [P, P, L, I, I, L, L, I, P],
+    # the tile transpose at any shape and start: as the one above
+    "relayout_transpose_tiles_any": [P, P, L, I, I, L, L, I, P],
     # scores, is_f32, is_full, round, stack (or null), logz, N, T, S,
     # blank, stream
     "logz_fwd": [P, I, I, I, P, P, I, I, I, F, P],

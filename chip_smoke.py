@@ -260,8 +260,18 @@ PyTorch built for CUDA. In order, it:
     outputs, with times and bounds; the other f32 instances ``evaluate``
     and ``train --no-amp`` launch (``f32_gaps``: M and Q on f32 full
     scores, R and S in f32, the launches of the sup model's forward and
-    decode at evaluate's batch and its K and P in f32), each against its
-    plain version and timed beside its library call where one exists; R and
+    decode at evaluate's batch, K on the stretch kernel's f32 plan and P on
+    the tiles, both required, timed in turns with their earlier kernels,
+    K within ATTN_F32_TOL of its plain version and of the earlier kernel,
+    P bit for bit and faster than ``Tensor.contiguous()``, P also at a bf16
+    T 999), each against its plain version and timed beside its library
+    call where one exists; one sup ``train --no-amp`` step
+    (``sup_no_amp``: 32 x 12288 where it fits, else the largest of
+    SUP_NO_AMP_N; its time, peak memory and launches, H on the stretch
+    kernel's f32 plan and O on its earlier kernel, required; in turns with
+    H on its earlier kernel) and, at its first layer's inputs, H in f32 in
+    turns with its earlier kernel and O in f32, their plain versions,
+    bounds and the library calls; R and
     S in f32 (``f32_train_kernels``, csrc/lstm_f32.cu) at the --no-amp
     batch (N 16: hac T 500, fast T 600 at H 96), the train CLI's default
     batch (N 64, T 500) and hac training's (N 128, T 1000) on their
@@ -277,7 +287,9 @@ PyTorch built for CUDA. In order, it:
     kernels' plans) and with ``--device cpu`` on the same
     chunks (at most F32_EVAL_MAX_DIFFER of them called otherwise; one
     batch's card scores decode alike on both), and on the card again at
-    evaluate's defaults (512 chunks in two batches of 256) for its rate; one
+    evaluate's defaults (512 chunks in two batches of 256) for its rate,
+    and sup at evaluate's defaults on the card (P, 18 x K, M, Q a batch;
+    K's f32 plan and P's tiles required) for its rate; one
     ``train --no-amp`` epoch of hac and of fast (R and S on their f32
     persistent kernels, which it requires, then the validation through A
     or F in f32, U, Y, and B and C on the f32 ring), with the validation's
@@ -290,7 +302,8 @@ PyTorch built for CUDA. In order, it:
     ``call_basespace_duplex``'s in process, and no kernel launched.
 
 Then it prints one ``kernels`` JSON line with all twenty-six kernels and
-the f32 instances of A, F, B and C and of M, Q, R, S, K and P (R's and
+the f32 instances of A, F, B and C and of M, Q, R, S, K, P, H and O (K's,
+P's and H's with their plans and their earlier kernels' times; R's and
 S's with their plans, their step kernels' times and every RS32_SHAPES
 shape's numbers) (phase 15's f32 paths, evaluate and
 the ``--no-amp`` epochs, in their ``by_path``; every kernel's ``by_path``
@@ -304,7 +317,7 @@ Z's with their plan, their earlier kernels' times at hac, fast and sup
 training shapes, and the loss paths and train steps on both; every
 kernel's ``by_path`` with phase 13's conv-CTC paths, all 0, and phase
 14's paths; A's and D's ``h768`` with their times at H 768), after a line
-with the whole script's time.
+with the whole script's time and each phase's.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the script exits non-zero and prints no result; it does the same when no
@@ -489,6 +502,9 @@ TRAIN_GRAD_REL, TRAIN_LOSS_TOL = 0.05, 1e-3
 SUP_TRAIN_N, SUP_TRAIN_CHUNK, SUP_TRAIN_L = 32, 12288, 1024
 SUP_TRAIN_T = SUP_TRAIN_CHUNK // 12  # tokens
 SUP_TRAIN_CLI_BATCHES = 2
+# the sup train --no-amp step (phase 15): the bench's batch if it fits in
+# f32, else the largest of these
+SUP_NO_AMP_N = (32, 16, 8)
 # H and O against their plain versions on the same inputs (O's o and lse
 # are H's): the same bf16 operands and rounding points, f32 sums in another
 # order and exp's last bit, which can flip a bf16 rounding of p, ds or an
@@ -498,8 +514,22 @@ SUP_TRAIN_CLI_BATCHES = 2
 ROW13_MEAN, ROW13_LSE_STEPS = 2.0 ** -16, 16
 
 
+PHASE_AT = {}  # "[n]" -> when its first line was logged (perf_counter)
+
+
 def log(msg):
+    m = re.match(r"\[(\d+)\]", msg)
+    if m and m.group(1) not in PHASE_AT:
+        PHASE_AT[m.group(1)] = time.perf_counter()
     print(msg, flush=True)
+
+
+def phase_seconds(end):
+    """Each phase's seconds, from its first line to the next phase's (the
+    last one's to ``end``)."""
+    marks = sorted(PHASE_AT.items(), key=lambda kv: kv[1])
+    return {k: round((marks[i + 1][1] if i + 1 < len(marks) else end) - t, 1)
+            for i, (k, t) in enumerate(marks)}
 
 
 def require(cond, msg):
@@ -554,7 +584,8 @@ def ptxas_summary(report):
                              r"window_attention_bwd_kernel|"
                              r"window_bwd_rows_kernel|"
                              r"local_attention_(?:tc|f32)_kernel|"
-                             r"relayout_transpose|relayout_gather|"
+                             r"relayout_transpose_tiles|relayout_transpose|"
+                             r"relayout_gather|"
                              r"(?:logz|lattice)_(?:full_)?(?:fwd|bwd)"
                              r"(?:_ring|_split)?_kernel|"
                              r"decode_(?:fwd|bwd)_ring_kernel|"
@@ -569,8 +600,8 @@ def ptxas_summary(report):
             bptt = re.search(r"bptt_persistentILi(\d+)ELi(\d+)EE",
                              m.group(1))
             tiles = re.search(r"kernelILi(\d+)ELi(\d+)EE", m.group(1))
-            window = re.search(r"window_attention_kernelILi(\d+)ELb(\d)EE",
-                               m.group(1))
+            window = re.search(r"window_attention_kernelI(13__nv_bfloat16|f)"
+                               r"Li(\d+)ELb(\d)EE", m.group(1))
             window_bwd = re.search(r"window_attention_bwd_kernelILi(\d+)EE",
                                    m.group(1))
             f32f = re.search(r"lstm_fused_f32_kernelILi(\d+)EE",
@@ -607,8 +638,9 @@ def ptxas_summary(report):
                         f"{ysplit.group(2)} frames ahead, stack="
                         f"{ysplit.group(3)}>")
             elif window:
-                name = (f"{name}<bf16, head dim up to {window.group(1)}, "
-                        f"lse={window.group(2)}>")
+                name = (f"{name}<{'f32' if window.group(1) == 'f' else 'bf16'}"
+                        f", head dim up to {window.group(2)}, "
+                        f"lse={window.group(3)}>")
             elif window_bwd:
                 name = f"{name}<bf16, head dim up to {window_bwd.group(1)}>"
             elif padded and name.startswith("lstm"):
@@ -645,9 +677,9 @@ def ptxas_summary(report):
                 frame = re.search(r"(Tcn|RevFull|Full)Frame", m.group(1))
                 name = (f"{name}<{frame.group(1)} frame, {tmpl}>" if frame
                         else f"{name}<{tmpl}>")
-            io = re.search(r"(?:attention_kernel|relayout_\w+?)I"
-                           r"(13__nv_bfloat16|5uint4|[fhtjm])(?:Li(\d+)E)?",
-                           m.group(1))
+            io = None if window else re.search(
+                r"(?:attention_kernel|relayout_\w+?)I"
+                r"(13__nv_bfloat16|5uint4|[fhtjm])(?:Li(\d+)E)?", m.group(1))
             if io:
                 kinds = {"13__nv_bfloat16": "bf16", "f": "f32", "h": "1 byte",
                          "t": "2 bytes", "j": "4 bytes", "m": "8 bytes",
@@ -1392,6 +1424,23 @@ def check_pin(torch, relayout, dev):
                 f"kernel P ({name}) is no identical contiguous copy")
         worst = max(worst, (out.float() - ref.float()).abs().max().item())
     return view, worst
+
+
+def pin_tiles(relayout, x):
+    """Kernel P's tiles variant forced on a [B, R, C] view of [B, C, R]
+    memory that the plan gives the 16-byte transpose (uncounted): what that
+    plan is held against where both variants take the view."""
+    from bonito_tpu_torch.ops import build
+    plan = relayout.relayout_plan(list(x.shape), list(x.stride()),
+                                  x.element_size(),
+                                  aligned=x.data_ptr() % 16 == 0)
+    require(plan[0] == "transpose", f"pin_tiles: the plan is {plan[0]}")
+    _, B, R, C, sb, sc, unit = plan
+    out = x.new_empty(x.shape)
+    build.check(build.library().relayout_transpose_tiles_any(
+        x.data_ptr(), out.data_ptr(), B, R, C, sb, sc, unit,
+        build.stream_of(x)), "relayout_transpose_tiles_any")
+    return out
 
 
 class Read:
@@ -4608,20 +4657,10 @@ def f32_gaps(torch, dev, counters):
     launch, at their shapes: M and Q on f32 full scores (evaluate's decode:
     256 chunks of 3000 samples, hac T 500 at S 1024, fast T 600 at S 64)
     against their plain versions and earlier kernels (``hold_full``); R and
-    S in f32 (``f32_train_kernels``); and the launches of the
-    sup model's forward and ``decode_batch`` in f32 at evaluate's batch
-    (the shipped sup model, 256 x 3000; called here, not through the
-    evaluate CLI), with K's and P's times at that call's inputs beside
-    their plain versions and the library calls (rotary passes + SDPA in
-    f32 with the band as a mask; ``Tensor.contiguous()``). K in f32 is
-    held to ATTN_F32_TOL, P bit for bit."""
-    import torch.nn.functional as F
-    from bonito_tpu_torch import nn
+    S in f32 (``f32_train_kernels``); K and P in the sup model's f32
+    forward at evaluate's batch (``sup_f32_kernels``)."""
     from bonito_tpu_torch.crf import seqdist
-    from bonito_tpu_torch.models import MODELS
-    from bonito_tpu_torch.ops import (attention_cuda, decode_full_cuda,
-                                      relayout)
-    from bonito_tpu_torch.transformer import model as transformer
+    from bonito_tpu_torch.ops import decode_full_cuda
     out = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
     for key, (n, t, s) in (("MQ_hac", (256, 500, S)),
@@ -4649,8 +4688,30 @@ def f32_gaps(torch, dev, counters):
             f"{tm['bounds'][0][1]}); {h['text']}")
         del scores
     out.update(f32_train_kernels(torch, dev, counters))
-    # the sup model's forward and decode_batch in f32 at evaluate's batch:
-    # its launches, and K's and P's inputs (the spies only record them)
+    out.update(sup_f32_kernels(torch, dev, counters))
+    torch.cuda.empty_cache()
+    return out
+
+
+def sup_f32_kernels(torch, dev, counters):
+    """The sup model's forward and ``decode_batch`` in f32 at evaluate's
+    batch (the shipped sup model, 256 x 3000; called here, not through the
+    evaluate CLI): its launches, K on the stretch kernel's f32 plan and P
+    on the tiles (both required), and K's and P's times at that call's
+    inputs in turns with their earlier kernels (K's one block a tile; P's
+    gather), with their plain versions and the library calls (rotary
+    passes + SDPA in f32 with the band as a mask, TF32 off;
+    ``Tensor.contiguous()``). K is held to ATTN_F32_TOL of its plain
+    version and of the earlier kernel, P bit for bit to both and faster
+    than ``Tensor.contiguous()``; P also at the bf16 stack input of a T no
+    multiple of 8 (T 999) against the earlier gather."""
+    import torch.nn.functional as F
+    from bonito_tpu_torch import nn
+    from bonito_tpu_torch.models import MODELS
+    from bonito_tpu_torch.ops import attention_cuda, relayout
+    from bonito_tpu_torch.transformer import model as transformer
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
     model = transformer.Model(MODELS[SUP]()).init(SEED).to(dev)
     model.requires_grad_(False)
     x = torch.randn(256, 3000, 1, generator=g, device=dev)
@@ -4679,30 +4740,46 @@ def f32_gaps(torch, dev, counters):
     finally:
         transformer.fused_rotary_window_attention = k_fn
         nn.pin_layout = p_fn
+    plans = {"K": attention_cuda.fused_rotary_window_attention.plan,
+             "P": relayout.pin_layout.plan}
     out["sup_forward_decode_launches"] = launched
+    out["sup_forward_plans"] = plans
     log(f"  the sup model's forward + decode_batch in f32 at evaluate's "
-        f"batch (256 x 3000): launches {launched}")
+        f"batch (256 x 3000): launches {launched}; K's plan {plans['K']}, "
+        f"P's {plans['P'][0]}")
+    require(launched.get("K") == 18 and launched.get("P") == 1
+            and plans["K"] is not None and plans["K"]["dtype"] == "f32"
+            and plans["P"][0] == "tiles" and k_args and p_args,
+            f"sup's f32 forward at evaluate's batch: launches {launched}, "
+            f"K's plan {plans['K']}, P's {plans['P']}")
     del model
-    if k_args:
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
         (qkv, cos, sin, window, *rest), kw = k_args[0]
         t_real = (rest or [kw.get("t_real")])[0]
         n, t, _, hd, d = qkv.shape
-        ms_k = cuda_ms(lambda: attention_cuda.fused_rotary_window_attention(
-            qkv, cos, sin, window, t_real), reps=5)
+        kernel = attention_cuda.fused_rotary_window_attention
+        earlier = attention_cuda.fused_rotary_window_attention_old_kernel
         ref_k, plain_k = timed(torch, lambda: attention_cuda.
                                fused_rotary_window_attention_plain(
                                    qkv, cos, sin, window, t_real))
-        got_k = attention_cuda.fused_rotary_window_attention(
-            qkv, cos, sin, window, t_real)
-        err_plain = (got_k - ref_k).abs().max().item()
-        mean_plain = (got_k - ref_k).abs().mean().item()
+        got_k = kernel(qkv, cos, sin, window, t_real)
+        old_k = earlier(qkv, cos, sin, window, t_real)
+        torch.cuda.synchronize()
+        err = {name: ((a - b).abs().max().item(), (a - b).abs().mean().item())
+               for name, a, b in (("plain", got_k, ref_k),
+                                  ("old", got_k, old_k),
+                                  ("old_plain", old_k, ref_k))}
         # f32 against f32, the same operations summed in another order: L's
-        # f32 limits (a K that rounded to bf16 would be about 1e-3 off)
-        require(torch.isfinite(got_k).all().item()
-                and err_plain <= ATTN_F32_TOL and mean_plain <= ATTN_MEAN_TOL,
-                f"K in f32 at sup's forward: max |o - plain| {err_plain}, "
-                f"mean {mean_plain} (tolerance {ATTN_F32_TOL} / "
-                f"{ATTN_MEAN_TOL})")
+        # f32 limits (a K that rounded its output to bf16 would be about
+        # 1e-3 off)
+        require(torch.isfinite(got_k).all().item() and all(
+            e <= ATTN_F32_TOL and m <= ATTN_MEAN_TOL
+            for e, m in (err["plain"], err["old"])),
+                f"K in f32 at sup's forward: max / mean |o - plain| "
+                f"{err['plain']}, |o - earlier kernel| {err['old']} "
+                f"(tolerance {ATTN_F32_TOL} / {ATTN_MEAN_TOL})")
         band = attention_cuda.band_mask(t, window, t_real, dev)
 
         def library_k():
@@ -4711,40 +4788,87 @@ def f32_gaps(torch, dev, counters):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2),
                 qkv[:, :, 2].transpose(1, 2), attn_mask=band).transpose(1, 2)
-        lib_k = cuda_ms(library_k, reps=5)
-        err_k = (library_k() - got_k).abs().max().item()
-        del ref_k, got_k
+        err_lib = (library_k() - got_k).abs().max().item()
+        del ref_k, got_k, old_k
+        turns = in_turns(torch, {
+            "K": lambda: kernel(qkv, cos, sin, window, t_real),
+            "K_old": lambda: earlier(qkv, cos, sin, window, t_real),
+            "library": library_k}, reps=5)
+        ms = {k: sum(v) / len(v) for k, v in turns.items()}
         pairs = band_pairs(t, window, t_real)
+        # f32 qkv in and f32 o out; the two band products on the tensor
+        # cores (q, k, v and p rounded to bf16) and about 10 f32 operations
+        # a pair for the softmax
         b_k = bound(n * t * 4 * hd * d * 4 + 2 * t * cos.shape[-1] * 4,
-                    2 * 2 * n * hd * pairs * d + 10 * n * hd * pairs,
-                    H100_F32_OPS)
-        out["K"] = dict(ms=ms_k, plain_ms=plain_k, bound_ms=b_k[0],
-                        bound_by=b_k[1], library_ms=lib_k,
-                        max_abs_err=err_plain,
-                        max_abs_err_vs_library=err_k, shape=[n, t, hd, d],
-                        plan=attention_cuda.fused_rotary_window_attention.plan)
-        log(f"  K in f32 at that call (N {n}, T {t}, {hd} heads of {d}): "
-            f"{ms_k:.4g} ms (plan {out['K']['plan']}; max |o - plain| "
-            f"{err_plain:.3g}), plain {plain_k:.4g} ms, bound {b_k[0]:.4g} "
-            f"ms by {b_k[1]}, rotary passes + SDPA "
-            f"f32 with the band {lib_k:.4g} ms (max |diff| {err_k:.3g})")
-        del qkv, cos, sin
-    if p_args:
-        (view, *_), _ = p_args[0]
-        require(torch.equal(relayout.pin_layout(view),
-                            relayout.pin_layout_plain(view)),
-                "P in f32 at sup's forward differs from its plain version")
-        ms_p = cuda_ms(lambda: relayout.pin_layout(view), reps=10)
-        plain_p = cuda_ms(lambda: relayout.pin_layout_plain(view), reps=5)
-        lib_p = cuda_ms(lambda: view.contiguous(), reps=5)
-        b_p = bound(2 * view.numel() * view.element_size(), 0, H100_F32_OPS)
-        out["P"] = dict(ms=ms_p, plain_ms=plain_p, bound_ms=b_p[0],
-                        bound_by=b_p[1], library_ms=lib_p, max_abs_err=0.0,
-                        shape=list(view.shape))
-        log(f"  P in f32 at that call ({tuple(view.shape)}): {ms_p:.4g} ms, "
-            f"plain {plain_p:.4g} ms, bound {b_p[0]:.4g} ms, "
-            f"Tensor.contiguous() {lib_p:.4g} ms")
-    torch.cuda.empty_cache()
+                    2 * 2 * n * hd * pairs * d, H100_BF16_OPS,
+                    10 * n * hd * pairs)
+        require(ms["K"] < ms["K_old"], f"K in f32 on the stretch kernel is "
+                                       f"no faster than the earlier kernel: "
+                                       f"{turns}")
+        out["K"] = dict(ms=ms["K"], times=turns["K"],
+                        old_kernel_ms=ms["K_old"],
+                        old_kernel_times=turns["K_old"], plain_ms=plain_k,
+                        bound_ms=b_k[0], bound_by=b_k[1],
+                        library_ms=ms["library"],
+                        library_times=turns["library"],
+                        max_abs_err=err["plain"][0],
+                        mean_abs_err=err["plain"][1],
+                        max_abs_err_vs_old_kernel=err["old"][0],
+                        old_kernel_max_abs_err=err["old_plain"][0],
+                        max_abs_err_vs_library=err_lib,
+                        shape=[n, t, hd, d], plan=plans["K"])
+        log(f"  K in f32 at that call (N {n}, T {t}, {hd} heads of {d}), in "
+            f"turns: {turns['K']} ms on the stretch kernel (plan "
+            f"{plans['K']}), {turns['K_old']} ms on the earlier kernel; "
+            f"max / mean |o - plain| {err['plain'][0]:.3g} / "
+            f"{err['plain'][1]:.3g} (the earlier kernel's "
+            f"{err['old_plain'][0]:.3g}; the two kernels "
+            f"{err['old'][0]:.3g}); plain {plain_k:.4g} ms, bound "
+            f"{b_k[0]:.4g} ms by {b_k[1]}, rotary passes + SDPA f32 with "
+            f"the band {turns['library']} ms (max |diff| {err_lib:.3g})")
+        del qkv, cos, sin, band
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (view, *_), _ = p_args[0]
+    views = {"f32": view,
+             "bf16_t999": torch.randn(128, 512, 999, generator=g, device=dev)
+             .to(torch.bfloat16).transpose(1, 2)}
+    for key, v in views.items():
+        plan = relayout.relayout_plan(list(v.shape), list(v.stride()),
+                                      v.element_size(),
+                                      aligned=v.data_ptr() % 16 == 0)
+        old_plan = relayout.relayout_plan(list(v.shape), list(v.stride()),
+                                          v.element_size(),
+                                          aligned=v.data_ptr() % 16 == 0,
+                                          earlier=True)
+        want = relayout.pin_layout_plain(v)
+        require(plan[0] == "tiles"
+                and torch.equal(relayout.pin_layout(v), want)
+                and torch.equal(relayout.pin_layout_old_kernel(v), want),
+                f"P ({key}, {tuple(v.shape)}): plan {plan[0]}, or it or its "
+                f"earlier kernel differs from the plain version")
+        _, plain_p = timed(torch, lambda: relayout.pin_layout_plain(v))
+        turns = in_turns(torch, {
+            "P": lambda: relayout.pin_layout(v),
+            "P_old": lambda: relayout.pin_layout_old_kernel(v),
+            "library": lambda: v.contiguous()}, reps=10)
+        ms = {k: sum(t_) / len(t_) for k, t_ in turns.items()}
+        b_p = bound(2 * v.numel() * v.element_size(), 0, H100_F32_OPS)
+        require(ms["P"] < ms["library"] and ms["P"] < ms["P_old"],
+                f"P ({key}) is no faster than Tensor.contiguous() and its "
+                f"earlier kernel: {turns}")
+        out["P" if key == "f32" else f"P_{key}"] = dict(
+            ms=ms["P"], times=turns["P"], old_kernel_ms=ms["P_old"],
+            old_kernel_times=turns["P_old"], old_kernel_plan=old_plan[0],
+            plain_ms=plain_p, bound_ms=b_p[0], bound_by=b_p[1],
+            library_ms=ms["library"], library_times=turns["library"],
+            max_abs_err=0.0, shape=list(v.shape), plan=plan[0])
+        log(f"  P on {key} {tuple(v.shape)} strides {v.stride()}, in turns: "
+            f"{turns['P']} ms on the {plan[0]} (the earlier kernel's "
+            f"{old_plan[0]}: {turns['P_old']} ms), Tensor.contiguous() "
+            f"{turns['library']} ms; plain {plain_p:.4g} ms, bound "
+            f"{b_p[0]:.4g} ms; bit-identical")
+    del views, view
     return out
 
 
@@ -4967,6 +5091,234 @@ def f32_train_kernels(torch, dev, counters):
     return out
 
 
+def sup_no_amp(torch, dev, counters):
+    """One sup ``train --no-amp`` step (the shipped sup model in f32, AdamW
+    2e-3, clip 2.0) at the sup train bench's batch, SUP_TRAIN_N x
+    SUP_TRAIN_CHUNK, or the largest of SUP_NO_AMP_N that fits: its time
+    (TRAIN_STEPS steps after a warm-up), peak memory and launches (P 2, H
+    and O 18 each, U, V, Y, Z; H on the stretch kernel's f32 plan, O on its
+    earlier kernel, both required), then in turns with H (and K) on their
+    earlier kernel. At the first layer's inputs of that step, H in f32 in
+    turns with its earlier kernel and O in f32 (earlier kernel), each with
+    its plain version, its bound and the library call with TF32 off
+    (rotary passes + SDPA f32 with the band as a mask, forward; its
+    backward under autograd): kernel-table row 13's f32 cells. H's o is
+    K's bit for bit and within one bf16 step of its largest magnitude (the
+    card tests' limit for H) and ATTN_MEAN_TOL on the mean of the plain
+    version and of the earlier kernel, its lse within ROW13_LSE_STEPS;
+    O within one bf16 step of each output's largest magnitude."""
+    import torch.nn.functional as F
+    from bonito_tpu_torch.models import MODELS
+    from bonito_tpu_torch.ops import attention as ops_attention
+    from bonito_tpu_torch.ops import attention_cuda
+    from bonito_tpu_torch.training import make_optimizer, make_train_step
+    from bonito_tpu_torch.transformer import model as transformer
+    fwd = attention_cuda.fused_rotary_window_attention_train
+    bwd = attention_cuda.fused_rotary_window_attention_bwd
+    model = transformer.Model(MODELS[SUP]()).init(SEED).to(dev)
+    step = make_train_step(model, make_optimizer(model, 2e-3), use_amp=False)
+    h_args, o_args = [], []
+
+    def h_spy(*a, **kw):
+        res = fwd(*a, **kw)
+        if not h_args:
+            h_args.append(a)
+        return res
+
+    def o_spy(*a, **kw):
+        if not o_args:
+            o_args.append(a)
+        return bwd(*a, **kw)
+
+    class Spies:
+        """``attention_cuda`` as the autograd Function sees it, with H and
+        O recording their first call's arguments (the wrappers, which
+        count their launches, stay as they are)."""
+        fused_rotary_window_attention_train = staticmethod(h_spy)
+        fused_rotary_window_attention_bwd = staticmethod(o_spy)
+
+        def __getattr__(self, name):
+            return getattr(attention_cuda, name)
+    batch = None
+    for n in SUP_NO_AMP_N:
+        rng = np.random.default_rng(SEED)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in (
+            rng.normal(size=(n, SUP_TRAIN_CHUNK, 1)).astype(np.float32),
+            rng.integers(1, 5, (n, SUP_TRAIN_L)),
+            np.full(n, SUP_TRAIN_L)))
+        ops_attention.attention_cuda = Spies()
+        try:
+            losses, norm = step(batch, 1.0, 2.0)  # warm-up
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            batch = None
+            h_args.clear()
+            o_args.clear()
+            torch.cuda.empty_cache()
+        finally:
+            ops_attention.attention_cuda = attention_cuda
+    require(batch is not None, f"the sup --no-amp step fits none of the "
+                               f"batches {SUP_NO_AMP_N}")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out_steps = [step(batch, 1.0, 2.0) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    launches = {k: c.launches for k, c in counters.items()}
+    own = {"P": 2, "H": 18, "O": 18, "U": 1, "V": 1, "Y": 1, "Z": 1}
+    expect = {k: own.get(k, 0) * TRAIN_STEPS for k in counters}
+    values = [(float(l_["loss"]), float(n_)) for l_, n_ in [(losses, norm)]
+              + out_steps]
+    require(launches == expect and fwd.plan is not None
+            and fwd.plan["dtype"] == "f32" and bwd.plan is None
+            and all(math.isfinite(v) for pair in values for v in pair),
+            f"the sup --no-amp step: launches {launches} (expected "
+            f"{expect}), H's plan {fwd.plan}, O's {bwd.plan}, loss and "
+            f"grad norm {values}")
+    turns = steps_in_turns(torch, step, batch, attention_cuda, "window_plan")
+    n = batch[0].shape[0]
+    res = {"step": dict(
+        ms=wall * 1e3, batch=[n, SUP_TRAIN_CHUNK], peak_gib=peak,
+        held_gib=held / 2 ** 30, values=values, plan=fwd.plan,
+        launches_per_step={k: v // TRAIN_STEPS for k, v in launches.items()
+                           if v},
+        turns_old_kernel=turns["old"], turns_stretch=turns["ring"])}
+    log(f"  one sup train --no-amp step ({n} x {SUP_TRAIN_CHUNK}"
+        f"{'' if n == SUP_TRAIN_N else ', the largest batch that fits'}, "
+        f"f32 forward and master weights, AdamW): {wall * 1e3:.4g} ms = "
+        f"{n * SUP_TRAIN_CHUNK / wall:.6g} train samples/s; peak memory "
+        f"{peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held; loss and "
+        f"grad norm {values}; launches per step "
+        f"{res['step']['launches_per_step']}; in turns, H and K on their "
+        f"earlier kernel / on the stretch kernel / earlier: "
+        f"{turns['old'][0]:.4g} / {turns['ring'][0]:.4g} / "
+        f"{turns['old'][1]:.4g} ms")
+    del model, step, batch, out_steps
+    torch.cuda.empty_cache()
+
+    # the step's own tensors, detached (the kernels refuse a graph)
+    qkv, cos, sin, window, t_real = (tuple(h_args[0]) + (None,))[:5]
+    qkv, cos, sin = (t_.detach() for t_ in (qkv, cos, sin))
+    lse, o, do = (t_.detach() for t_ in o_args[0][3:6])
+    N_, T_, _, hd, d = qkv.shape
+    earlier = attention_cuda.fused_rotary_window_attention_old_kernel
+    o_new, lse_new = fwd(qkv, cos, sin, window, t_real)
+    o_old, lse_old = earlier(qkv, cos, sin, window, t_real, with_lse=True)
+    k_new = attention_cuda.fused_rotary_window_attention(qkv, cos, sin,
+                                                         window, t_real)
+    (ref_o, ref_lse), plain_h = timed(torch, lambda: attention_cuda.
+                                      fused_rotary_window_attention_train_plain(
+                                          qkv, cos, sin, window, t_real))
+    dqkv = bwd(qkv, cos, sin, lse, o, do, window, t_real)
+    ref_d, plain_o = timed(torch, lambda: attention_cuda.
+                           fused_rotary_window_attention_bwd_plain(
+                               qkv, cos, sin, lse, o, do, window, t_real))
+    torch.cuda.synchronize()
+    err = {name: ((a - b).abs().max().item(), (a - b).abs().mean().item())
+           for name, a, b in (("plain", o_new, ref_o), ("old", o_new, o_old),
+                              ("old_plain", o_old, ref_o))}
+    # H's limit of the card tests (test_fused_train_kernels_match_plain):
+    # a flipped bf16 rounding of p shows in f32 o as about 2^-8 p |v|,
+    # which at this step's activations passes ATTN_F32_TOL on either kernel
+    o_tol = bf16_step(ref_o.abs().max().item())
+    top = ref_lse.abs().max().item()
+    lse_steps = max((lse_new - ref_lse).abs().max().item(),
+                    (lse_new - lse_old).abs().max().item()) / 2.0 ** (
+                        math.floor(math.log2(top)) - 23)
+    d_err = [((dqkv[:, :, i] - ref_d[:, :, i]).abs().max().item(),
+              bf16_step(ref_d[:, :, i].abs().max().item())) for i in range(3)]
+    require(torch.equal(o_new, k_new) and all(
+        e <= o_tol and m <= ATTN_MEAN_TOL
+        for e, m in (err["plain"], err["old"]))
+            and lse_steps <= ROW13_LSE_STEPS
+            and all(e <= tol for e, tol in d_err),
+            f"H or O in f32 at the sup --no-amp step's first layer: o equals "
+            f"K's {torch.equal(o_new, k_new)}, max / mean |o - plain| "
+            f"{err['plain']}, |o - earlier| {err['old']} (tolerance {o_tol} "
+            f"/ {ATTN_MEAN_TOL}), lse {lse_steps} steps, dq, dk, dv (max, "
+            f"tolerance) {d_err}")
+    del o_new, lse_new, o_old, lse_old, k_new, ref_o, ref_lse, dqkv, ref_d
+    band = attention_cuda.band_mask(T_, window, t_real, dev)
+    x_l = qkv.detach().requires_grad_()
+
+    def library_fwd():
+        q = transformer.apply_rotary(x_l[:, :, 0], cos, sin)
+        k = transformer.apply_rotary(x_l[:, :, 1], cos, sin)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2),
+            x_l[:, :, 2].transpose(1, 2), attn_mask=band).transpose(1, 2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        o_l = library_fwd()
+        turns = in_turns(torch, {
+            "H": lambda: fwd(qkv, cos, sin, window, t_real),
+            "H_old": lambda: earlier(qkv, cos, sin, window, t_real,
+                                     with_lse=True),
+            "O": lambda: bwd(qkv, cos, sin, lse, o, do, window, t_real),
+            "H_library": lambda: library_fwd().detach(),
+            "O_library": lambda: torch.autograd.grad(o_l, x_l, do,
+                                                     retain_graph=True)},
+            reps=5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    del o_l, x_l
+    pairs = N_ * hd * band_pairs(T_, window, t_real)
+    plane = N_ * T_ * hd * d * 4
+    trig = 2 * T_ * cos.shape[1] * 4
+    lse_b = N_ * hd * T_ * 4
+    # H: f32 qkv in, f32 o and lse out; O: qkv, o, do and lse in, dqkv out;
+    # their products on the tensor cores (bf16 operands), about 10 f32
+    # operations a pair
+    bounds = {"H": bound(3 * plane + plane + lse_b + trig,
+                         2 * 2 * pairs * d, H100_BF16_OPS, 10 * pairs),
+              "O": bound(3 * plane + 2 * plane + lse_b + trig + 3 * plane,
+                         5 * 2 * pairs * d, H100_BF16_OPS, 10 * pairs)}
+    require(ms["H"] < ms["H_old"], f"H in f32 on the stretch kernel is no "
+                                   f"faster than its earlier kernel: {turns}")
+    res["H"] = dict(ms=ms["H"], times=turns["H"], old_kernel_ms=ms["H_old"],
+                    old_kernel_times=turns["H_old"], plain_ms=plain_h,
+                    bound_ms=bounds["H"][0], bound_by=bounds["H"][1],
+                    library_ms=ms["H_library"],
+                    library_times=turns["H_library"],
+                    max_abs_err=err["plain"][0],
+                    mean_abs_err=err["plain"][1],
+                    max_abs_err_vs_old_kernel=err["old"][0],
+                    old_kernel_max_abs_err=err["old_plain"][0],
+                    tolerance=o_tol, lse_steps=lse_steps,
+                    shape=[N_, T_, hd, d],
+                    plan=attention_cuda.window_plan(
+                        N_, T_, hd, d, window, qkv.dtype,
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count))
+    res["O"] = dict(ms=ms["O"], times=turns["O"], plain_ms=plain_o,
+                    bound_ms=bounds["O"][0], bound_by=bounds["O"][1],
+                    library_ms=ms["O_library"],
+                    library_times=turns["O_library"],
+                    max_abs_err=max(e for e, _ in d_err),
+                    shape=[N_, T_, hd, d], plan=None)
+    log(f"  at that step's first layer (N {N_}, T {T_}, {hd} heads of {d}, "
+        f"f32), in turns: H {turns['H']} ms on the stretch kernel (the "
+        f"earlier kernel {turns['H_old']}; plain {plain_h:.4g}, bound "
+        f"{bounds['H'][0]:.4g} by {bounds['H'][1]}; max |o - plain| "
+        f"{err['plain'][0]:.3g}, the earlier kernel's "
+        f"{err['old_plain'][0]:.3g}, the two kernels {err['old'][0]:.3g}, "
+        f"one bf16 step {o_tol:.3g}; lse {lse_steps:.3g} f32 steps), O "
+        f"{turns['O']} ms on its earlier kernel (plain {plain_o:.4g}, bound "
+        f"{bounds['O'][0]:.4g} by {bounds['O'][1]}; dq, dk, dv (max, one "
+        f"bf16 step) {d_err}); rotary + SDPA f32 with the band, TF32 off: "
+        f"forward {turns['H_library']} ms, backward {turns['O_library']} ms")
+    del qkv, cos, sin, lse, o, do, band, h_args, o_args
+    torch.cuda.empty_cache()
+    return res
+
+
 def rs32_extra(gaps, letter, src_train):
     """The kernels line's more keys of R or S in f32: its plan and its step
     kernel's time at the --no-amp batch, every RS32_SHAPES shape's numbers,
@@ -5020,12 +5372,14 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
     from bonito_tpu_torch.crf.model import Model
     from bonito_tpu_torch.duplex import SeqRecord, call_basespace_duplex
     from bonito_tpu_torch.models import rnn_crf_config
-    from bonito_tpu_torch.ops import (decode_cuda, lstm_cuda, lstm_fused_cuda,
-                                      lstm_train_cuda)
+    from bonito_tpu_torch.ops import (attention_cuda, decode_cuda, lstm_cuda,
+                                      lstm_fused_cuda, lstm_train_cuda,
+                                      relayout)
     from bonito_tpu_torch.util import load_model, revcomp
 
-    log("[15] f32 on the card: A and F in f32, B and C on the f32 ring, "
-        "evaluate and train --no-amp; CRAM output and duplex")
+    log("[15] f32 on the card: A and F in f32, B and C on the f32 ring, K, "
+        "H and P in f32, evaluate and train --no-amp; CRAM output and "
+        "duplex")
     t_phase = time.perf_counter()
     root = Path(dirs["int8"]).parent / "chip_smoke_f32"
     if root.exists():
@@ -5050,6 +5404,10 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
     kernels = f32_kernels(torch, dev, lstm_cuda, lstm_fused_cuda,
                           decode_cuda)
     gaps = f32_gaps(torch, dev, counters)
+    sup_train = sup_no_amp(torch, dev, counters)
+    launches["f32_train_sup_step"] = {
+        k: sup_train["step"]["launches_per_step"].get(k, 0)
+        for k in counters}
     t_kernels = time.perf_counter() - t_phase
 
     # (b) evaluate, f32 (half=False), on the card and with --device cpu
@@ -5151,6 +5509,33 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
             f"{F32_RATE_BATCH}) on the card {rates['card_default'][1]} "
             f"({rates['card_default'][0]:.1f} s with the load), {layer} on "
             f"the plan {plans[name]}")
+    # sup (the transformer-CRF, P, 18 x K, M, Q a batch) through evaluate
+    # at its defaults on the card: K on the stretch kernel's f32 plan, P on
+    # the tiles (T 250)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        counted("f32_evaluate_sup_b256", lambda: cli_main([
+            "evaluate", str(dirs["sup"]), "--directory", str(data),
+            "--output-dir", str(root / "eval_sup_rate")]))
+    wall = time.perf_counter() - t0
+    batches = F32_RATE_CHUNKS // F32_RATE_BATCH
+    require_launches("f32_evaluate_sup_b256", {
+        "P": batches, "K": 18 * batches, "M": batches, "Q": batches})
+    k_plan = attention_cuda.fused_rotary_window_attention.plan
+    p_plan = relayout.pin_layout.plan
+    require(k_plan is not None and k_plan["dtype"] == "f32"
+            and p_plan[0] == "tiles",
+            f"evaluate sup at its defaults: K's plan {k_plan}, P's {p_plan}")
+    rate = next(line for line in buf.getvalue().splitlines()
+                if line.startswith("* samples/s"))
+    evaluate["sup"] = dict(card_default=(wall, rate), plan=k_plan,
+                           p_plan=p_plan[0])
+    log(f"  evaluate sup (f32) at evaluate's defaults ({F32_RATE_CHUNKS} "
+        f"chunks of {F32_EVAL_LEN}, batch {F32_RATE_BATCH}) on the card: "
+        f"{rate} ({wall:.1f} s with the load); launches "
+        f"{({k: v for k, v in launches['f32_evaluate_sup_b256'].items() if v})}"
+        f"; K on the plan {k_plan}, P on the {p_plan[0]}")
     torch.cuda.empty_cache()
 
     # (c) train --no-amp: one epoch with its validation, hac and fast
@@ -5309,7 +5694,7 @@ def f32_phase(torch, counters, dev, dirs, cli_reads, card):
     phase_s = time.perf_counter() - t_phase
     log(f"  phase 15 took {phase_s:.1f} s (its kernels {t_kernels:.1f} s)")
     return {"launches": launches, "kernels": kernels, "gaps": gaps,
-            "evaluate": evaluate,
+            "sup_train": sup_train, "evaluate": evaluate,
             "train": {k: {"validation_s": v["validation_s"],
                           "wall": v["wall"], "fields": v["fields"]}
                       for k, v in train.items()},
@@ -5360,6 +5745,14 @@ def main():
     require(len(o_rows) == 3 and all("stack 0 B, spills 0/0 B" in r
                                      for r in o_rows),
             f"kernel O's stretch kernel has a stack frame or spills: {o_rows}")
+    # K's and H's stretch kernel, bf16 and f32 at three head dims; P's tiles
+    k_rows = [r for r in ptxas_rows
+              if r.lstrip().startswith("window_attention_kernel<")]
+    p_rows = [r for r in ptxas_rows if "relayout_transpose_tiles" in r]
+    require(len(k_rows) == 12 and len(p_rows) == 4
+            and all("stack 0 B, spills 0/0 B" in r for r in k_rows + p_rows),
+            f"K's and H's stretch kernel or P's tiles have a stack frame or "
+            f"spills (or not 12 and 4 instances): {k_rows} {p_rows}")
     ring_rows = [r for r in ptxas_rows if "decode_" in r
                  and "_ring_kernel" in r]
     require(len(ring_rows) == 12 and all("stack 0 B, spills 0/0 B" in r
@@ -6306,9 +6699,27 @@ def main():
     lib_p = cuda_ms(lambda: sup_view.contiguous(), reps=5)
     ms_p_t = cuda_ms(lambda: relayout.pin_layout(pin_view), reps=10)
     lib_p_t = cuda_ms(lambda: pin_view.contiguous(), reps=5)
+    # the tiles on the same view, in turns with the 16-byte transpose the
+    # plan gives it (the plan keeps such views on the faster) and with the
+    # earlier kernel P, whose plan was the same
+    require(torch.equal(pin_tiles(relayout, sup_view),
+                        relayout.pin_layout_plain(sup_view)),
+            "P's tiles at the sup stack's bf16 input differ from the plain "
+            "version")
+    p_turns = in_turns(torch, {
+        "transpose": lambda: relayout.pin_layout(sup_view),
+        "tiles": lambda: pin_tiles(relayout, sup_view),
+        "earlier": lambda: relayout.pin_layout_old_kernel(sup_view)},
+        reps=10)
+    require(sum(p_turns["transpose"]) <= sum(p_turns["tiles"]),
+            f"P at sup's bf16 input: the 16-byte transpose the plan takes is "
+            f"slower than the tiles: {p_turns}")
     log(f"  P on the conv stack's output (strides {sup_view.stride()}) "
         f"{ms_p:.4g} ms vs Tensor.contiguous() {lib_p:.4g} ms; on a "
-        f"transposed [N, C, T] view {ms_p_t:.4g} ms vs {lib_p_t:.4g} ms")
+        f"transposed [N, C, T] view {ms_p_t:.4g} ms vs {lib_p_t:.4g} ms; in "
+        f"turns, the 16-byte transpose {p_turns['transpose']} ms, the tiles "
+        f"{p_turns['tiles']} ms, the earlier kernel P {p_turns['earlier']} "
+        f"ms")
     bound_p = bound(2 * sup_view.numel() * sup_view.element_size(), 0,
                     H100_F32_OPS)
     ms_b_sup = cuda_ms(lambda: decode_cuda.tcn_forward(sup_moves, sup_blank),
@@ -6650,6 +7061,13 @@ def main():
                   "sup_fused_device_step_ms": fused_steps["sup_fused"],
                   "sup_fused_device_step_old_kernel_ms":
                       fused_steps["sup_fused_old"]},
+            # the variant P takes at the sup stack's bf16 input (a [N, T,
+            # C] view of [N, C, T] memory)
+            "P": {"plan": relayout.relayout_plan(
+                [SN, ST, SH * SD], [SH * SD * ST, 1, ST], 2)[0],
+                  "transpose_times": p_turns["transpose"],
+                  "tiles_times": p_turns["tiles"],
+                  "old_kernel_times": p_turns["earlier"]},
             "L": {"sup_f32": {
                 "max_abs_err": err_attn["L sup f32"], "ms": ms_l32,
                 "plain_ms": plain_l32, "bound_ms": bound_l32[0],
@@ -6882,9 +7300,18 @@ def main():
     # evaluate path), R and S at the --no-amp batch (the hac epoch's path;
     # library: cuDNN's f32 LSTM forward + backward with TF32 off, as the
     # bf16 entries'), K and P at the sup model's forward + decode_batch in
-    # f32 at evaluate's batch (its launches)
+    # f32 at evaluate's batch (its launches; their plans and earlier
+    # kernels' times), H and O at the sup --no-amp step (its launches a
+    # step; H's plan and earlier kernel's time, O on its earlier kernel)
     gaps = f32["gaps"]
     sup_run = gaps["sup_forward_decode_launches"]
+    st32 = f32["sup_train"]
+
+    def earlier_more(m, **more):
+        return {k: m[k] for k in ("plan", "old_kernel_ms", "times",
+                                  "old_kernel_times", "library_times",
+                                  "max_abs_err_vs_old_kernel",
+                                  "old_kernel_plan") if k in m} | more
     for name, letter, src, rep, m, path, extra in (
             ("decode_full_fwd_f32", "M", src_full,
              "bonito_tpu/ops/decode_pallas.py:48", gaps["MQ_hac"]["M"],
@@ -6898,12 +7325,31 @@ def main():
             ("lstm_train_bwd_f32", "S", "bonito_tpu_torch/csrc/lstm_f32.cu",
              "bonito_tpu/ops/lstm_pallas.py:192", gaps["RS_hac"]["S"],
              "f32_train_hac", rs32_extra(gaps, "S", src_train)),
-            ("fused_rotary_window_attention_f32", "K", src_attn,
+            ("fused_rotary_window_attention_f32", "K", src_window,
              "bonito_tpu/ops/attention_pallas.py:106", gaps["K"],
-             "sup_forward_decode_f32", {}),
+             "sup_forward_decode_f32", earlier_more(
+                 gaps["K"], earlier_kernel_source=src_attn,
+                 library_call="rotary passes + scaled_dot_product_attention"
+                              " f32 with the band as a mask, TF32 off",
+                 evaluate_sup_plan=f32["evaluate"]["sup"]["plan"])),
             ("pin_layout_f32", "P", "bonito_tpu_torch/csrc/relayout.cu",
              "bonito_tpu/ops/relayout.py:25", gaps["P"],
-             "sup_forward_decode_f32", {})):
+             "sup_forward_decode_f32", earlier_more(
+                 gaps["P"], library_call="Tensor.contiguous()",
+                 bf16_t999=gaps["P_bf16_t999"])),
+            ("fused_rotary_window_attention_train_fwd_f32", "H", src_window,
+             "bonito_tpu/ops/attention_pallas.py:264", st32["H"],
+             "f32_train_sup_step", earlier_more(
+                 st32["H"], earlier_kernel_source=src_attn,
+                 lse_steps=st32["H"]["lse_steps"], no_amp_step=st32["step"],
+                 library_call="rotary passes + scaled_dot_product_attention"
+                              " f32 with the band as a mask, TF32 off")),
+            ("fused_rotary_window_attention_train_bwd_f32", "O", src_attn,
+             "bonito_tpu/ops/attention_pallas.py:298", st32["O"],
+             "f32_train_sup_step", earlier_more(
+                 st32["O"], plan=None, no_amp_step=st32["step"],
+                 library_call="the backward of the H library call under "
+                              "autograd, TF32 off"))):
         shapes = gaps["MQ_hac" if letter in "MQ" else "RS_hac"] \
             if letter in "MQRS" else m
         lib = (gaps["RS_hac"]["library_ms"] if letter in "RS"
@@ -6925,9 +7371,11 @@ def main():
         log(f"  {name}: {m['ms']:.4g} ms (plain {m['plain_ms']:.4g} ms, "
             f"bound {m['bound_ms']:.4g} ms by {m['bound_by']}, library "
             f"{lib}), {launches} launches on the {path} path")
-    log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s "
-        f"(phase 14 {upstream['phase_s']:.1f} s, phase 15 "
-        f"{f32['phase_s']:.1f} s)")
+    end = time.perf_counter()
+    log(f"chip_smoke.py took {end - t_script:.1f} s (phase 14 "
+        f"{upstream['phase_s']:.1f} s, phase 15 {f32['phase_s']:.1f} s); "
+        f"seconds by phase, from its first line to the next's: "
+        f"{phase_seconds(end)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ port), at sup's shapes:
 
     python3 scripts/attention_split.py        # K and H
     python3 scripts/attention_split.py o      # O
+    python3 scripts/attention_split.py f32    # K and H on f32 qkv
 
 from the root of a checkout, on a machine with a CUDA card and nvcc. It
 copies a kernel's source and the headers it includes into
@@ -27,6 +28,15 @@ training (N 32, T 1024):
   and its tables' loads), pass 1 (the consumers' scores, max and sum),
   pass 2 (the scores again, p and p . v), and all four. Left without both
   passes the kernel still stores o (zeros) and lse.
+
+K and H in f32 (the same source's f32 instance, ``StageF32``), K at
+``evaluate``'s batch (N 256, T 250) and H at training (N 32, T 1024): the
+source at the plan and other stretches beside the earlier kernel, then with
+the producers' staging left out (the f32 loads, the rotation, the rounding
+and the stores: the ring keeps its zeros), pass 1, pass 2, both passes
+(the staging alone) and all three; beside them two stagings not kept, from
+an edited copy: 4 units a thread a batch (2 in the source), and the next
+batch's loads issued before the current batch is stored (both spill).
 
 O (``csrc/attention_window_bwd.cu``) at training (N 32, T 1024): the same
 for its plan (``window_bwd_plan``) and stretches, and with one part left
@@ -72,7 +82,7 @@ KERNELS = {
     "k": {
         "source": "attention_window.cu",
         "entry": "fused_rotary_window_attention_stretch",
-        "argtypes": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+        "argtypes": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
         + [ctypes.c_void_p],
         "cuts": {
             "copy_q": ("cp_async16(d, base", "if (!CUT_COPY) cp_async16(d, base"),
@@ -104,6 +114,57 @@ KERNELS = {
                      "no rotary": ["ROTARY"], "no pass 1": ["PASS1"],
                      "no pass 2": ["PASS2"],
                      "none of the four": ["COPY", "ROTARY", "PASS1", "PASS2"]},
+    },
+    "f32": {
+        "source": "attention_window.cu",
+        "entry": "fused_rotary_window_attention_stretch",
+        "argtypes": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+        + [ctypes.c_void_p],
+        "cuts": {
+            "stage": ("        const int nb = (total + NT * RB - 1) / (NT * RB);",
+                      "        const int nb = CUT_STAGE ? 0 "
+                      ": (total + NT * RB - 1) / (NT * RB);"),
+            **{f"pass{i}_{lo}": (
+                f"            for (int kt = {lo}; kt < {hi}; ++kt) {{\n"
+                "                float sc[2][4];\n"
+                + ("                scores(krow(kt), sc);" if i == 1 else
+                   "                const int kr = krow(kt);"),
+                f"            for (int kt = {lo}; !CUT_PASS{i} && kt < {hi}; "
+                "++kt) {\n"
+                "                float sc[2][4];\n"
+                + ("                scores(krow(kt), sc);" if i == 1 else
+                   "                const int kr = krow(kt);"))
+               for i in (1, 2) for lo, hi in LOOPS},
+            # two designs of the staging not kept: 4 units a thread a
+            # batch, and the next batch's loads issued before the current
+            # one is stored
+            "rb4": ("template <int DP, int NT, int RB = 2>\nstruct StageF32 {",
+                    "template <int DP, int NT, int RB = CUT_RB4 ? 4 : 2>\n"
+                    "struct StageF32 {"),
+            "ahead": ("        for (int j = 0; j < nb; ++j) {\n"
+                      "            Batch bt;\n",
+                      "        if (CUT_AHEAD) {\n"
+                      "            Batch x, y;\n"
+                      "            if (nb > 0) load(x, i, 0);\n"
+                      "            for (int j = 0; j < nb; j += 2) {\n"
+                      "                if (j + 1 < nb) load(y, i, j + 1);\n"
+                      "                apply(x);\n"
+                      "                if (j + 1 < nb) {\n"
+                      "                    if (j + 2 < nb) load(x, i, j + 2);\n"
+                      "                    apply(y);\n"
+                      "                }\n"
+                      "            }\n"
+                      "            return;\n"
+                      "        }\n"
+                      "        for (int j = 0; j < nb; ++j) {\n"
+                      "            Batch bt;\n"),
+        },
+        "variants": {"source": [], "no staging": ["STAGE"],
+                     "no pass 1": ["PASS1"], "no pass 2": ["PASS2"],
+                     "the staging alone": ["PASS1", "PASS2"],
+                     "none of the three": ["STAGE", "PASS1", "PASS2"],
+                     "staging 4 units a batch": ["RB4"],
+                     "staging two batches in flight": ["AHEAD"]},
     },
     "o": {
         "source": "attention_window_bwd.cu",
@@ -163,11 +224,13 @@ def ptxas_lines(report, every):
     rows, kernel, frame = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '\w*window_attention_(?:bwd_)?"
-                      r"kernelILi(\d+)E(?:Lb(\d)E)?E", line)
+                      r"kernelI(13__nv_bfloat16|f)?Li(\d+)E(?:Lb(\d)E)?E",
+                      line)
         if m:
-            kernel = f"head dim up to {m.group(1)}" + (
-                f", lse={m.group(2)}" if m.group(2) else "")
-            if not every and m.group(1) != "64":
+            kernel = (("f32, " if m.group(1) == "f" else "")
+                      + f"head dim up to {m.group(2)}"
+                      + (f", lse={m.group(3)}" if m.group(3) else ""))
+            if not every and m.group(2) != "64":
                 kernel = None
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -219,14 +282,14 @@ def build_variants(kind):
     return libs
 
 
-def split(libs, card, dev, what, N, T, with_lse):
+def split(libs, card, dev, what, N, T, with_lse, dtype=torch.bfloat16):
     H, D, r = 8, 64, 64
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = attention_cuda.window_plan(N, T, H, D, WINDOW, torch.bfloat16, sms)
+    plan = attention_cuda.window_plan(N, T, H, D, WINDOW, dtype, sms)
     g = torch.Generator().manual_seed(1)
-    qkv = torch.randn(N, T, 3, H, D, generator=g).to(dev, torch.bfloat16)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(dev, dtype)
     cos, sin = rotary_freqs(T, r, device=dev)
-    out = torch.empty(N, T, H, D, dtype=torch.bfloat16, device=dev)
+    out = torch.empty(N, T, H, D, dtype=dtype, device=dev)
     lse = torch.empty(N, H, T, device=dev) if with_lse else None
 
     def run(name, stretch=plan["stretch"]):
@@ -234,10 +297,11 @@ def split(libs, card, dev, what, N, T, with_lse):
             qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, N, T, H, D, r // 2,
             WINDOW[0], WINDOW[1], T, stretch, plan["ring"],
+            int(dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream), name)
 
-    print(f"{card}; {what}: N={N}, T={T}, H={H}, D={D}, window {WINDOW}; "
-          f"plan {plan}", flush=True)
+    print(f"{card}; {what}: N={N}, T={T}, H={H}, D={D}, window {WINDOW}, "
+          f"{dtype}; plan {plan}", flush=True)
     run("source")
     torch.cuda.synchronize()
     ref = attention_cuda.fused_rotary_window_attention_plain(
@@ -325,8 +389,8 @@ def split_o(libs, card, dev, N=32, T=1024):
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "k"
     if mode not in KERNELS:
-        print(f"attention_split: the mode is k (K and H) or o (O), not "
-              f"{mode!r}", file=sys.stderr)
+        print(f"attention_split: the mode is k (K and H), f32 (K and H on "
+              f"f32 qkv) or o (O), not {mode!r}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("attention_split: no CUDA device", file=sys.stderr)
@@ -340,6 +404,11 @@ def main():
     if mode == "k":
         split(libs, card, dev, "K at sup inference", 128, 1000, False)
         split(libs, card, dev, "H at sup training", 32, 1024, True)
+    elif mode == "f32":
+        split(libs, card, dev, "K in f32 at evaluate's batch", 256, 250,
+              False, torch.float32)
+        split(libs, card, dev, "H in f32 at sup training", 32, 1024, True,
+              torch.float32)
     else:
         split_o(libs, card, dev)
     return 0

@@ -919,23 +919,27 @@ WINDOW_CASES = [
     (4, 1000, 8, 64, 64, (127, 128), 937)]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("N,T,H,D,r,window,t_real", WINDOW_CASES)
 def test_window_kernel_matches_the_earlier_kernel(cuda, N, T, H, D, r,
-                                                  window, t_real):
-    """K and H take the stretch kernel at these shapes (a plan), and it
-    computes the earlier kernel's function: each within one bf16 step of
-    the largest output of the plain version, so the two within two; H's o
-    equals K's bit for bit on both routes, and the lse of the two routes
-    within 16 f32 steps of its largest magnitude."""
+                                                  window, t_real, dtype):
+    """K and H take the stretch kernel at these shapes (a plan), bf16 and
+    f32 alike, and it computes the earlier kernel's function: each within
+    one bf16 step of the largest output of the plain version, so the two
+    within two; H's o equals K's bit for bit on both routes, and the lse of
+    the two routes within 16 f32 steps of its largest magnitude."""
     g = torch.Generator().manual_seed(N + T + D + r + 1)
-    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, torch.bfloat16)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, dtype)
     cos, sin = _freqs(T, r, cuda)
     k_new = attention_cuda.fused_rotary_window_attention(qkv, cos, sin,
                                                          window, t_real)
-    assert attention_cuda.fused_rotary_window_attention.plan is not None
+    plan = attention_cuda.fused_rotary_window_attention.plan
+    assert plan is not None
+    assert plan["dtype"] == attention_cuda.WINDOW_DTYPES[dtype]
     o_new, lse_new = attention_cuda.fused_rotary_window_attention_train(
         qkv, cos, sin, window, t_real)
-    assert attention_cuda.fused_rotary_window_attention_train.plan is not None
+    assert attention_cuda.fused_rotary_window_attention_train.plan == plan
+    assert k_new.dtype == o_new.dtype == dtype
     old = attention_cuda.fused_rotary_window_attention_old_kernel
     k_old = old(qkv, cos, sin, window, t_real)
     o_old, lse_old = old(qkv, cos, sin, window, t_real, with_lse=True)
@@ -951,6 +955,7 @@ def test_window_kernel_matches_the_earlier_kernel(cuda, N, T, H, D, r,
         np.floor(np.log2(top)) - 23)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_lse", [False, True])
 @pytest.mark.parametrize("N,T,H,D,r,window,t_real", [
     (3, 1000, 2, 64, 64, (127, 128), 937),
@@ -958,25 +963,28 @@ def test_window_kernel_matches_the_earlier_kernel(cuda, N, T, H, D, r,
     (2, 520, 1, 128, 64, (0, 128), None)])
 def test_window_kernel_does_not_depend_on_the_stretch(cuda, N, T, H, D, r,
                                                       window, t_real,
-                                                      with_lse):
+                                                      with_lse, dtype):
     """The stretch kernel's C entry at stretches of 1 tile (every tile
-    stages its own window), 3 and all of T (the ring wraps round): each
-    tile computes the same bits whatever its CTA walked before it."""
+    stages its own window), 3 and all of T (the ring wraps round), bf16 and
+    f32: each tile computes the same bits whatever its CTA walked before
+    it."""
     from bonito_tpu_torch.ops import build
     g = torch.Generator().manual_seed(T + D)
-    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, torch.bfloat16)
+    qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, dtype)
     cos, sin = _freqs(T, r, cuda)
-    plan = attention_cuda.window_plan(N, T, H, D, window, torch.bfloat16,
+    plan = attention_cuda.window_plan(N, T, H, D, window, dtype,
                                       torch.cuda.get_device_properties(
                                           cuda).multi_processor_count)
+    assert plan is not None
     outs = []
     for stretch in (1, 3, -(-T // 64)):
-        out = torch.empty(N, T, H, D, dtype=torch.bfloat16, device=cuda)
+        out = torch.empty(N, T, H, D, dtype=dtype, device=cuda)
         lse = torch.empty(N, H, T, device=cuda) if with_lse else None
         build.check(build.library().fused_rotary_window_attention_stretch(
             qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, N, T, H, D, r // 2,
             window[0], window[1], t_real or T, stretch, plan["ring"],
+            int(dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream), "stretch")
         outs.append((out, lse))
     torch.cuda.synchronize()
@@ -1076,6 +1084,10 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
                                    torch.uint8, torch.float64])
 @pytest.mark.parametrize("shape,view", [
     ((16, 512, 1000), lambda x: x.transpose(1, 2)),   # the sup stack input
+    ((16, 512, 250), lambda x: x.transpose(1, 2)),    # evaluate's T 250
+    ((4, 67, 99), lambda x: x.transpose(1, 2)),       # a ragged C and R
+    ((3, 64, 251), lambda x: x.flatten()[1:3 * 64 * 250 + 1]   # unaligned
+     .view(3, 64, 250).transpose(1, 2)),
     ((16, 1000, 512), lambda x: x),
     ((4, 50, 36), lambda x: x[:, 3:40:2, 1:30]),
     ((6, 7, 5, 3), lambda x: x.permute(3, 1, 0, 2)),
@@ -1084,16 +1096,18 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     ((3, 1, 40), lambda x: x.expand(3, 6, 40))])
 def test_pin_layout_kernel_is_a_contiguous_identical_copy(cuda, shape, view,
                                                           dtype):
-    """Kernel P on each of its variants (tile transpose, 16-byte rows,
-    element gather): bit-identical, contiguous, one launch."""
+    """Kernel P on each of its variants (16-byte transpose, tiles, 16-byte
+    rows, element gather): bit-identical, contiguous, one launch; equal to
+    the earlier kernel P's copy (which counts none)."""
     g = torch.Generator().manual_seed(len(shape))
     x = view((torch.randn(*shape, generator=g) * 50).to(cuda).to(dtype))
     before = relayout.pin_layout.launches
     out = relayout.pin_layout(x)
+    old = relayout.pin_layout_old_kernel(x)
     torch.cuda.synchronize()
     assert relayout.pin_layout.launches == before + 1
     assert out.is_contiguous() and out.data_ptr() != x.data_ptr()
-    assert torch.equal(out, x)
+    assert torch.equal(out, x) and torch.equal(old, out)
 
 
 def test_pin_layout_rejects_what_it_does_not_take(cuda):
@@ -1953,7 +1967,8 @@ def test_fused_train_kernels_match_plain(cuda, N, T, H, D, r, window, t_real,
     order). O: each of dq, dk, dv within one bf16 step of its largest
     magnitude on the max (a flipped bf16 rounding of p, ds or the output)
     and 2^-16 of it on the mean. In bf16 O runs its stretch kernel, on the
-    plan ``window_bwd_plan`` gives; in f32 its earlier kernel."""
+    plan ``window_bwd_plan`` gives; in f32 its earlier kernel. H runs the
+    stretch kernel in both (``window_plan``'s plan)."""
     g = torch.Generator().manual_seed(N + T + D + r)
     qkv = torch.randn(N, T, 3, H, D, generator=g).to(cuda, dtype)
     do = torch.randn(N, T, H, D, generator=g).to(cuda, dtype)
@@ -1969,6 +1984,10 @@ def test_fused_train_kernels_match_plain(cuda, N, T, H, D, r, window, t_real,
         N, T, H, D, window, dtype,
         torch.cuda.get_device_properties(cuda).multi_processor_count)
     assert bwd.plan == plan and (plan is None) == (dtype == torch.float32)
+    assert fwd.plan == attention_cuda.window_plan(
+        N, T, H, D, window, dtype,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert fwd.plan is not None
     assert torch.equal(o, attention_cuda.fused_rotary_window_attention(
         qkv, cos, sin, window, t_real))
     ref_o, ref_lse = attention_cuda.fused_rotary_window_attention_train_plain(

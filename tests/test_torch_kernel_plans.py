@@ -448,8 +448,12 @@ K_SHAPES = [(128, 1000, 8, 64, SUP_WINDOW, None),
             (1, 1, 1, 16, SUP_WINDOW, None)]
 
 
-def _plan(N, T, H, D, window, sms=SMS):
-    return attention_cuda.window_plan(N, T, H, D, window, torch.bfloat16, sms)
+def _plan(N, T, H, D, window, sms=SMS, dtype=torch.bfloat16):
+    return attention_cuda.window_plan(N, T, H, D, window, dtype, sms)
+
+
+# K and H take the stretch kernel on bf16 and f32 qkv alike (the ring
+# keeps bf16 rows either way): each plan test runs for both
 
 
 def _stretch_steps(plan, t_a, T, live, back=None, ahead=None):
@@ -470,8 +474,21 @@ def _stretch_steps(plan, t_a, T, live, back=None, ahead=None):
 
 @pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
 def test_window_plan_fits_the_card(N, T, H, D, window, t_real):
-    plan = _plan(N, T, H, D, window)
+    _fits(N, T, H, D, window, torch.bfloat16)
+
+
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_plan_fits_the_card_in_f32(N, T, H, D, window, t_real):
+    _fits(N, T, H, D, window, torch.float32)
+
+
+def _fits(N, T, H, D, window, dtype):
+    plan = _plan(N, T, H, D, window, dtype=dtype)
     assert plan is not None
+    assert plan["dtype"] == attention_cuda.WINDOW_DTYPES[dtype]
+    # f32 changes nothing of the plan but its dtype: the same ring of bf16
+    # rows, the same shared memory and CTAs
+    assert {**plan, "dtype": "bf16"} == _plan(N, T, H, D, window)
     assert plan["smem"] == attention_cuda.window_smem(plan["ring"],
                                                       plan["head_dim"])
     assert plan["smem"] <= SMEM
@@ -490,7 +507,17 @@ def test_window_plan_fits_the_card(N, T, H, D, window, t_real):
 def test_window_plan_covers_every_tile_once(N, T, H, D, window, t_real):
     """Each (n, h)'s stretches (one CTA each, as the kernel numbers them)
     cover its query tiles 0 .. ceil(T / 64) - 1 exactly once."""
-    plan = _plan(N, T, H, D, window)
+    _covers(N, T, H, D, window, t_real, torch.bfloat16)
+
+
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_plan_covers_every_tile_once_in_f32(N, T, H, D, window,
+                                                   t_real):
+    _covers(N, T, H, D, window, t_real, torch.float32)
+
+
+def _covers(N, T, H, D, window, t_real, dtype):
+    plan = _plan(N, T, H, D, window, dtype=dtype)
     n_tiles = -(-T // 64)
     seen = [0] * n_tiles
     for st in range(plan["stretches"]):
@@ -510,10 +537,22 @@ def test_window_plan_keeps_each_band_in_the_ring(N, T, H, D, window, t_real,
     producers stage overwrites nothing that the tile before (which the
     consumers may still read) or a later one needs. The rotary dim (all of
     D or half of it) changes nothing of the plan."""
+    _band_in_ring(N, T, H, D, window, t_real, torch.bfloat16)
+
+
+@pytest.mark.parametrize("rotary_dim", [None, "half"])
+@pytest.mark.parametrize("N,T,H,D,window,t_real", K_SHAPES)
+def test_window_plan_keeps_each_band_in_the_ring_in_f32(N, T, H, D, window,
+                                                        t_real, rotary_dim):
+    _band_in_ring(N, T, H, D, window, t_real, torch.float32)
+
+
+def _band_in_ring(N, T, H, D, window, t_real, dtype):
     left, right = window
     t_real = t_real or T
-    plan = _plan(N, T, H, D, window)
-    assert plan == _plan(N, T, H, D, window)  # rotary_dim is not an input
+    plan = _plan(N, T, H, D, window, dtype=dtype)
+    # rotary_dim is not an input
+    assert plan == _plan(N, T, H, D, window, dtype=dtype)
     ring = plan["ring"]
     for st in range(plan["stretches"]):
         slots = [None] * ring  # the block each slot holds
@@ -538,6 +577,16 @@ def test_window_plan_at_sup():
             plan["ring"], plan["smem"]) == (16, 1024, 2, 4, 6, 114720)
 
 
+def test_window_plan_at_sup_evaluate_in_f32():
+    """sup's forward in f32 at evaluate's batch (256 chunks of 3000
+    samples: T 250, four tiles): a CTA walks all four tiles of its (n, h),
+    2048 CTAs in eight waves of two an SM, the bf16 ring of six blocks."""
+    plan = _plan(256, 250, 8, 64, SUP_WINDOW, dtype=torch.float32)
+    assert (plan["stretch"], plan["ctas"], plan["resident"], plan["waves"],
+            plan["ring"], plan["smem"], plan["dtype"]) == (
+                4, 2048, 2, 8, 6, 114720, "f32")
+
+
 def test_window_plan_follows_the_card():
     """sup training's 256 (n, h) pairs fill an H100's 264 slots in one
     wave of whole stretches; twice the SMs take half stretches, half the
@@ -550,17 +599,17 @@ def test_window_plan_follows_the_card():
 
 
 @pytest.mark.parametrize("dtype,D,window", [
-    (torch.float32, 64, SUP_WINDOW),   # f32: the earlier kernel
+    (torch.float64, 64, SUP_WINDOW),   # a dtype K does not take
     (torch.float16, 64, SUP_WINDOW),
     (torch.bfloat16, 136, SUP_WINDOW),  # beyond the widest head K takes
     (torch.bfloat16, 60, SUP_WINDOW),
     (torch.bfloat16, 64, (128, 128)),   # beyond the band K takes
     (torch.bfloat16, 64, (127, 129))])
 def test_window_plan_sends_the_rest_to_the_earlier_kernel(dtype, D, window):
-    """No plan for f32 (and none for a dtype, head or window K does not
-    take at all, which the wrapper's checks refuse first): the wrapper then
-    launches the earlier kernel's entry (K's, or H's with lse), by the
-    shape rule alone."""
+    """No plan for a dtype, head or window K does not take at all (which
+    the wrapper's checks refuse first): the wrapper would launch the
+    earlier kernel's entry (K's, or H's with lse), by the shape rule alone.
+    f32, once sent here, now has a plan; O's rule keeps none for it."""
     plan = attention_cuda.window_plan(128, 1000, 8, D, window, dtype, SMS)
     assert plan is None
     assert attention_cuda.window_entry(plan, False) == \
@@ -570,6 +619,11 @@ def test_window_plan_sends_the_rest_to_the_earlier_kernel(dtype, D, window):
     assert attention_cuda.window_entry(_plan(128, 1000, 8, 64, SUP_WINDOW),
                                        True) == \
         "fused_rotary_window_attention_stretch"
+    f32 = _plan(128, 1000, 8, 64, SUP_WINDOW, dtype=torch.float32)
+    assert attention_cuda.window_entry(f32, False) == \
+        "fused_rotary_window_attention_stretch"
+    assert attention_cuda.window_bwd_plan(128, 1000, 8, 64, SUP_WINDOW,
+                                          torch.float32, SMS) is None
 
 
 def _bwd_plan(N, T, H, D, window, sms=SMS):
